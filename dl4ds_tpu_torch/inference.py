@@ -1,0 +1,152 @@
+"""
+Inference on unseen HR data (the counterpart of `dl4ds_tpu/inference.py`).
+
+`predict` builds one whole-dataset batch on the device with
+`BatchSynthesizer`, then runs the network over it in fixed-size batches
+under `torch.inference_mode()`. The ragged tail is padded by repeating its
+last sample, so every forward has the same shape. It runs on CUDA unless
+the caller passes device='cpu'. Modes not ported yet raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from .dataloader import BatchSynthesizer
+from .utils import (Timing, checkarray_ndim, not_ported, resolve_device,
+                    _values)
+
+__all__ = ['Predictor', 'predict']
+
+
+class Predictor:
+    """Downscale unseen data with a trained network (see `predict`).
+
+    As in the JAX package (and the reference), `Predictor` defaults
+    `array_in_hr=False` while `predict` defaults `array_in_hr=True`; this
+    slice implements array_in_hr=True only, so pass it explicitly."""
+
+    def __init__(self, trainer, array, scale, array_in_hr=False,
+                 static_vars=None, predictors=None, time_window=None,
+                 time_metadata=None, interpolation='inter_area',
+                 batch_size=64, scaler=None, save_path=None,
+                 save_fname='y_hat.npy', return_lr=False, device='cuda',
+                 mesh=None, pad_to_multiple=None, tile=None,
+                 spatial_mesh=None, quantize=None):
+        self.kwargs = dict(
+            trainer=trainer, array=array, scale=scale,
+            array_in_hr=array_in_hr, static_vars=static_vars,
+            predictors=predictors, time_window=time_window,
+            time_metadata=time_metadata, interpolation=interpolation,
+            batch_size=batch_size, scaler=scaler, save_path=save_path,
+            save_fname=save_fname, return_lr=return_lr, device=device,
+            mesh=mesh, pad_to_multiple=pad_to_multiple, tile=tile,
+            spatial_mesh=spatial_mesh, quantize=quantize)
+
+    def run(self):
+        return predict(**self.kwargs)
+
+
+def _resolve_model(trainer):
+    """(DSModel, nn.Module) from a (model, net) pair."""
+    if isinstance(trainer, (tuple, list)) and len(trainer) == 2:
+        return trainer[0], trainer[1]
+    raise TypeError('`trainer` must be a (DSModel, nn.Module) pair; trainers '
+                    'are not ported yet (ROADMAP.md queue 1, item 4)')
+
+
+def _assemble_inputs(model, array, scale, array_in_hr, static_vars,
+                     predictors, interpolation, device):
+    """Whole-dataset (lr, aux) batch on `device`
+    (dl4ds_tpu/inference.py:98-157, array_in_hr=True)."""
+    if not array_in_hr:
+        raise not_ported('array_in_hr=False', 5)
+    array = np.asarray(_values(array), 'float32')
+    if static_vars is not None:
+        static_vars = [np.asarray(_values(s)) for s in static_vars]
+    n_samples = array.shape[0]
+    if n_samples <= 0:
+        raise ValueError(f'`array` yields no samples (shape {array.shape})')
+    if predictors is not None:
+        predictors = np.concatenate(
+            [np.asarray(_values(p)) for p in predictors], axis=-1)
+    synth = BatchSynthesizer(
+        checkarray_ndim(array, 4, -1), None, upsampling=model.upsampling,
+        scale=scale, batch_size=n_samples, static_vars=static_vars,
+        predictors=[predictors] if predictors is not None else None,
+        interpolation=interpolation, device=device)
+    batch = synth(torch.arange(n_samples))
+    return batch['lr'], batch['aux'], n_samples
+
+
+def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
+            predictors=None, time_window=None, time_metadata=None,
+            interpolation='inter_area', batch_size=64, scaler=None,
+            save_path=None, save_fname='y_hat.npy', return_lr=False,
+            device='cuda', mesh=None, pad_to_multiple=None, tile=None,
+            spatial_mesh=None, quantize=None):
+    """Super-resolve/downscale the HR grids `array` [N, H, W(, C)] with a
+    (DSModel, net) pair: the grids are coarsened by `scale` on the device,
+    stacked with the predictors and static variables, and run through the
+    network in batches of `batch_size`. Returns a numpy array
+    [N, H, W, n_channels_out] (and the LR inputs with `return_lr`).
+
+    `device` is where the network and the data live ('cuda' by default;
+    device='cpu' must be asked for). The network must already be there.
+    """
+    for value, what, item in ((time_window, 'time_window', 7),
+                              (time_metadata, 'time_metadata', 3),
+                              (mesh, 'mesh', 10), (tile, 'tile', 10),
+                              (spatial_mesh, 'spatial_mesh', 10),
+                              (pad_to_multiple, 'pad_to_multiple', 5),
+                              (quantize, 'quantize', 11)):
+        if value is not None:
+            raise not_ported(f'predict({what}=...)', item)
+    device = resolve_device(device)
+    timing = Timing()
+    model, net = _resolve_model(trainer)
+    where = {p.device for p in net.parameters()}
+    if where != {device}:
+        raise ValueError(f'the network is on {sorted(map(str, where))}, '
+                         f'predict was asked to run on {device}')
+    x, aux, _ = _assemble_inputs(model, array, scale, array_in_hr,
+                                 static_vars, predictors, interpolation,
+                                 device)
+    with torch.inference_mode():
+        out = _batched_apply(net, x, aux, batch_size)
+    return _finalize_predict(out, x, scaler, save_path, save_fname,
+                             return_lr, timing)
+
+
+def _batched_apply(apply, x, aux, batch_size):
+    """Run `apply(xb, ab)` over fixed-size batches, padding the ragged tail
+    by repeating its last sample (trimmed after), so every forward has the
+    same shape. Returns the outputs as one numpy array."""
+    n = x.shape[0]
+    bs = min(batch_size, n)
+    outs = []
+    for i in range(0, n, bs):
+        xb = x[i:i + bs]
+        ab = aux[i:i + bs] if aux is not None else None
+        nb = xb.shape[0]
+        if nb < bs:
+            xb = torch.cat([xb, xb[-1:].expand(bs - nb, *xb.shape[1:])])
+            if ab is not None:
+                ab = torch.cat([ab, ab[-1:].expand(bs - nb, *ab.shape[1:])])
+        outs.append(apply(xb, ab)[:nb])
+    return torch.cat(outs).cpu().numpy()
+
+
+def _finalize_predict(out, batch_lr, scaler, save_path, save_fname,
+                      return_lr, timing):
+    """Inverse scaling and .npy save (dl4ds_tpu/inference.py:380-394)."""
+    if scaler is not None:
+        out = scaler.inverse_transform(out)
+    if save_path is not None and save_fname is not None:
+        np.save(os.path.join(save_path, save_fname), out.astype('float32'))
+    timing.runtime()
+    if return_lr:
+        return out, batch_lr.cpu().numpy()
+    return out

@@ -1,0 +1,216 @@
+"""
+Model building blocks (PyTorch, NHWC at every boundary).
+
+Counterparts of `dl4ds_tpu/models/blocks.py` for the post-upsampling
+residual model. Activations stay [B, H, W, C]: a convolution views its input
+as NCHW with channels-last strides (a permute, no copy), so the gate kernel
+and the pixel shuffle see the JAX package's layout. Submodules carry the
+names of the Flax parameter tree (`Conv_0`, `ChannelAttention2D_0`, ...), so
+`weights.load_jax_params` maps one onto the other by walking both.
+
+Parameters are float32. `reset_parameters(generator)` draws the Keras
+defaults the JAX package uses: glorot_uniform kernels and zero biases.
+"""
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import depth_to_space, fused_channel_attention
+from ..utils import not_ported
+
+__all__ = ['Conv', 'get_activation', 'ChannelAttention2D', 'ConvBlock',
+           'ResidualBlock', 'TransitionBlock', 'SubpixelConvolutionBlock']
+
+
+def _glorot_uniform_(tensor, fan_in, fan_out, generator):
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        tensor.uniform_(-limit, limit, generator=generator)
+
+
+def _check_norm(normalization):
+    """Only normalization=None is ported; 'bn' and 'ln' are queued."""
+    if normalization in ('bn', 'ln'):
+        raise not_ported(f'normalization={normalization!r}', 6)
+    if normalization is not None:
+        raise ValueError(f'Normalization not supported, got {normalization}')
+
+
+def _check_dropout(dropout_rate):
+    if dropout_rate:
+        raise not_ported('dropout', 6)
+
+
+def get_activation(name):
+    """Resolve an activation name to a torch function. None (or 'linear') is
+    identity. 'gelu' is the tanh approximation, jax.nn.gelu's default."""
+    if name is None or name == 'linear':
+        return lambda x: x
+    table = {
+        'relu': F.relu,
+        'gelu': lambda x: F.gelu(x, approximate='tanh'),
+        'elu': F.elu,
+        'selu': F.selu,
+        'leaky_relu': F.leaky_relu,
+        'crelu': F.relu,   # concat-relu is not used by any config path
+        'sigmoid': torch.sigmoid,
+        'tanh': torch.tanh,
+    }
+    if name not in table:
+        raise ValueError(f'Unsupported activation: {name}')
+    return table[name]
+
+
+class Conv(nn.Module):
+    """SAME-padded stride-1 2-D convolution of an NHWC tensor. The kernel is
+    held in torch's OIHW layout; odd kernel sizes only (SAME padding is then
+    symmetric)."""
+
+    def __init__(self, in_channels, filters, kernel_size=(3, 3),
+                 use_bias=True):
+        super().__init__()
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else tuple(kernel_size))
+        if kh % 2 == 0 or kw % 2 == 0:
+            raise NotImplementedError(
+                f'even kernel {kh}x{kw}: SAME padding would be asymmetric')
+        self.padding = (kh // 2, kw // 2)
+        self.weight = nn.Parameter(torch.empty(filters, in_channels, kh, kw))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(filters))
+        else:
+            self.register_parameter('bias', None)
+
+    def reset_parameters(self, generator):
+        o, i, kh, kw = self.weight.shape
+        _glorot_uniform_(self.weight, i * kh * kw, o * kh * kw, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                     padding=self.padding)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+class ChannelAttention2D(nn.Module):
+    """Squeeze-and-excite channel attention
+    (dl4ds_tpu/models/blocks.py:184-244): global average pool -> C/r -> relu
+    -> nf -> sigmoid gate, run by the fused gate (the Hopper kernel on the
+    GPU). Weights keep the JAX layout: w1 [C, Cr], b1 [Cr], w2 [Cr, nf],
+    b2 [nf], with Cr = max(int(nf / r), 1)."""
+
+    def __init__(self, in_channels, nf, r=4):
+        super().__init__()
+        cr = max(int(nf / r), 1)
+        self.w1 = nn.Parameter(torch.empty(in_channels, cr))
+        self.b1 = nn.Parameter(torch.zeros(cr))
+        self.w2 = nn.Parameter(torch.empty(cr, nf))
+        self.b2 = nn.Parameter(torch.zeros(nf))
+
+    def reset_parameters(self, generator):
+        # Keras parity: the reference builds these as 1x1 convs with the
+        # default glorot_uniform initializer
+        _glorot_uniform_(self.w1, *self.w1.shape, generator)
+        _glorot_uniform_(self.w2, *self.w2.shape, generator)
+        with torch.no_grad():
+            self.b1.zero_()
+            self.b2.zero_()
+
+    def forward(self, x):
+        return fused_channel_attention(x, self.w1, self.b1, self.w2, self.b2)
+
+
+class ConvBlock(nn.Module):
+    """Two-conv block (dl4ds_tpu/models/blocks.py:275-312):
+    conv -> act -> conv -> act -> [channel attention]."""
+
+    def __init__(self, in_channels, filters, ks_cl1=(3, 3), ks_cl2=(3, 3),
+                 activation='relu', normalization=None, attention=False,
+                 dropout_rate=0.0):
+        super().__init__()
+        _check_norm(normalization)
+        _check_dropout(dropout_rate)
+        self.act = get_activation(activation)
+        self.Conv_0 = Conv(in_channels, filters, ks_cl1)
+        self.Conv_1 = Conv(filters, filters, ks_cl2)
+        self.ChannelAttention2D_0 = (ChannelAttention2D(filters, filters)
+                                     if attention else None)
+
+    def forward(self, x):
+        y = self.act(self.Conv_0(x))
+        y = self.act(self.Conv_1(y))
+        if self.ChannelAttention2D_0 is not None:
+            y = self.ChannelAttention2D_0(y)
+        return y
+
+
+class ResidualBlock(nn.Module):
+    """Residual block (dl4ds_tpu/models/blocks.py:315-346): conv -> act ->
+    conv -> [attention] -> add the input ([1x1 conv] first) -> act. The gate
+    comes before the residual add."""
+
+    def __init__(self, in_channels, filters, activation='relu',
+                 normalization=None, attention=False, dropout_rate=0.0,
+                 use_1x1conv=False):
+        super().__init__()
+        _check_norm(normalization)
+        _check_dropout(dropout_rate)
+        self.act = get_activation(activation)
+        self.Conv_0 = Conv(in_channels, filters, (3, 3))
+        self.Conv_1 = Conv(filters, filters, (3, 3))
+        self.ChannelAttention2D_0 = (ChannelAttention2D(filters, filters)
+                                     if attention else None)
+        self.Conv_2 = (Conv(in_channels, filters, (1, 1)) if use_1x1conv
+                       else None)
+
+    def forward(self, x):
+        y = self.act(self.Conv_0(x))
+        y = self.Conv_1(y)
+        if self.ChannelAttention2D_0 is not None:
+            y = self.ChannelAttention2D_0(y)
+        if self.Conv_2 is not None:
+            x = self.Conv_2(x)
+        return self.act(y + x)
+
+
+class TransitionBlock(nn.Module):
+    """1x1-conv channel controller (dl4ds_tpu/models/blocks.py:378-394):
+    conv -> act."""
+
+    def __init__(self, in_channels, filters, activation='relu',
+                 normalization=None):
+        super().__init__()
+        _check_norm(normalization)
+        self.act = get_activation(activation)
+        self.Conv_0 = Conv(in_channels, filters, (1, 1))
+
+    def forward(self, x):
+        return self.act(self.Conv_0(x))
+
+
+class SubpixelConvolutionBlock(nn.Module):
+    """Sub-pixel convolution upsampler (dl4ds_tpu/models/blocks.py:681-722):
+    conv to n_filters * r^2 then pixel shuffle; composite factors 2*2=4,
+    2*2*2=8, 2*5=10, 2*2*5=20, direct otherwise. As in the reference, every
+    x2 stage reuses ONE conv (`conv2x`, tied weights)."""
+
+    _STAGES = {2: (2,), 4: (2, 2), 8: (2, 2, 2), 10: (2, 5), 20: (2, 2, 5)}
+
+    def __init__(self, scale, n_filters):
+        super().__init__()
+        # (factor, conv name) per stage; a name seen twice is one module
+        self.stages = [(f, {2: 'conv2x', 5: 'conv5x'}.get(f, 'convNx'))
+                       for f in self._STAGES.get(scale, (scale,))]
+        for f, name in self.stages:
+            if name not in self._modules:
+                self.add_module(name, Conv(n_filters, n_filters * f * f))
+
+    def forward(self, x):
+        for f, name in self.stages:
+            x = depth_to_space(self._modules[name](x), f)
+        return x

@@ -1,0 +1,132 @@
+"""
+Network architectures (PyTorch, NHWC at every boundary).
+
+Counterparts of `dl4ds_tpu/models/nets.py` for the spatial post-upsampling
+model with the residual backbone and the sub-pixel head. Submodule names
+follow the Flax parameter tree (`_Backbone_0`, `ResidualBlock1`, ...).
+The other backbones and heads raise until they are ported.
+"""
+
+import torch
+import torch.nn as nn
+
+from ..utils import not_ported
+from .blocks import (Conv, ConvBlock, ResidualBlock, TransitionBlock,
+                     SubpixelConvolutionBlock, get_activation, _check_dropout)
+
+__all__ = ['NetPostupsampling']
+
+
+class _Backbone(nn.Module):
+    """Stem conv + N residual blocks with filters growing as i * n_filters,
+    then the out conv and the merge with the stem
+    (dl4ds_tpu/models/nets.py:32-119, resnet branch)."""
+
+    def __init__(self, in_channels, backbone, n_filters, n_blocks,
+                 activation='relu', normalization=None, attention=False,
+                 dropout_rate=0.0):
+        super().__init__()
+        if backbone != 'resnet':
+            raise not_ported(f'backbone {backbone!r}', 6)
+        _check_dropout(dropout_rate)
+        f0 = n_filters
+        self.act = get_activation(activation)
+        self.stem = Conv(in_channels, f0, (3, 3))
+        self.n_blocks = n_blocks
+        c_in = f0
+        for i in range(n_blocks):
+            filters = f0 * (i + 1)
+            self.add_module(f'ResidualBlock{i + 1}', ResidualBlock(
+                c_in, filters, activation=activation,
+                normalization=normalization, attention=attention,
+                use_1x1conv=(i != 0)))
+            c_in = filters
+        self.n_filters = c_in
+        self.backbone_out_conv = Conv(c_in, c_in, (3, 3))
+        self.TransitionBlock_0 = TransitionBlock(f0, c_in,
+                                                 activation=activation)
+
+    def forward(self, x):
+        stem = self.stem(x)
+        b = stem
+        for i in range(self.n_blocks):
+            b = self._modules[f'ResidualBlock{i + 1}'](b)
+        b = self.act(self.backbone_out_conv(b))
+        return self.TransitionBlock_0(stem) + b
+
+
+class _OutputModule(nn.Module):
+    """Transition -> ConvBlock(attention) -> ConvBlock(n_channels_out)
+    (dl4ds_tpu/models/nets.py:122-149). The first ConvBlock has no
+    activation."""
+
+    def __init__(self, in_channels, n_filters, n_channels_out,
+                 output_activation=None, normalization=None, attention=True):
+        super().__init__()
+        self.TransitionLast = TransitionBlock(in_channels, n_filters)
+        self.ConvBlock_0 = ConvBlock(n_filters, n_filters, activation=None,
+                                     normalization=normalization,
+                                     attention=attention)
+        self.ConvBlock_1 = ConvBlock(n_filters, n_channels_out,
+                                     activation=output_activation,
+                                     normalization=normalization)
+
+    def forward(self, x):
+        return self.ConvBlock_1(self.ConvBlock_0(self.TransitionLast(x)))
+
+
+class _AuxBranch(nn.Module):
+    """ConvBlock over the HR auxiliary input
+    (dl4ds_tpu/models/nets.py:152-172)."""
+
+    def __init__(self, in_channels, n_filters, activation='relu',
+                 normalization=None):
+        super().__init__()
+        self.ConvBlock_aux = ConvBlock(in_channels, n_filters,
+                                       activation=activation,
+                                       normalization=normalization)
+
+    def forward(self, s):
+        return self.ConvBlock_aux(s)
+
+
+class NetPostupsampling(nn.Module):
+    """Spatial model with a post-upsampling head
+    (dl4ds_tpu/models/nets.py:175-232). Input [B, h, w, C] at LR and an
+    optional HR aux [B, h*scale, w*scale, A]; output
+    [B, h*scale, w*scale, n_channels_out]. 'spc' only."""
+
+    def __init__(self, n_channels, n_aux_channels, backbone, upsampling,
+                 scale, n_channels_out=1, n_filters=8, n_blocks=6,
+                 normalization=None, dropout_rate=0.0, dropout_variant=None,
+                 attention=False, activation='relu', output_activation=None,
+                 localcon_layer=False, output_attention=True):
+        super().__init__()
+        if upsampling != 'spc':
+            raise not_ported(f'upsampling {upsampling!r}', 6)
+        if localcon_layer:
+            raise not_ported('localcon_layer', 6)
+        _check_dropout(dropout_rate)
+        self._Backbone_0 = _Backbone(n_channels, backbone, n_filters,
+                                     n_blocks, activation, normalization,
+                                     attention)
+        width = self._Backbone_0.n_filters
+        self.SubpixelConvolutionBlock_0 = SubpixelConvolutionBlock(scale,
+                                                                   width)
+        self.n_aux_channels = n_aux_channels
+        if n_aux_channels > 0:
+            self._AuxBranch_0 = _AuxBranch(n_aux_channels, width, activation,
+                                           normalization)
+        self._OutputModule_0 = _OutputModule(
+            width * (2 if n_aux_channels > 0 else 1), n_filters,
+            n_channels_out, output_activation, normalization,
+            attention=output_attention)
+
+    def forward(self, x, aux=None):
+        if (aux is not None) != (self.n_aux_channels > 0):
+            raise ValueError(f'model built for {self.n_aux_channels} aux '
+                             f'channels, got aux={None if aux is None else tuple(aux.shape)}')
+        x = self.SubpixelConvolutionBlock_0(self._Backbone_0(x))
+        if aux is not None:
+            x = torch.cat([x, self._AuxBranch_0(aux)], dim=-1)
+        return self._OutputModule_0(x)

@@ -1,0 +1,8 @@
+"""Tensor ops of the port: pixel shuffle and the fused kernels."""
+
+from .array import depth_to_space
+from .fused_ops import (fused_channel_attention, channel_attention_reference,
+                        FusedChannelAttention)
+
+__all__ = ['depth_to_space', 'fused_channel_attention',
+           'channel_attention_reference', 'FusedChannelAttention']

@@ -35,5 +35,6 @@ setup(
         'full': ['orbax-checkpoint', 'seaborn', 'xarray', 'pandas',
                  'opencv-python'],
         'test': ['pytest', 'opencv-python'],
+        'torch': ['torch'],
     },
 )
