@@ -57,8 +57,9 @@ from .interpolation import resize2d, resize_matrix
 from .utils import (checkarray_ndim, Timing, checkarg_upsampling,
                     checkarg_backbone, checkarg_dropout_variant)
 from .ops import (depth_to_space, fused_channel_attention,
-                  channel_attention_reference)
+                  channel_attention_reference, fused_convlstm,
+                  convlstm_reference)
 from .dataloader import BatchSynthesizer
-from .models import DSModel, net_postupsampling
+from .models import DSModel, net_postupsampling, recnet_postupsampling
 from .weights import load_jax_params
 from .inference import Predictor, predict

@@ -1,12 +1,13 @@
 """
-Device batch synthesis, full-grid and non-temporal
+Device batch synthesis over whole grids
 (the counterpart of `dl4ds_tpu/dataloader.py`'s `BatchSynthesizer`).
 
 The HR dataset, predictors and static variables live on the device. A call
-gathers the requested samples, coarsens them to the LR grid with the
-matmul resize and stacks the LR channels as [lr, predictors, static_lr];
-the HR statics are the aux input. Random patches, time windows and season
-channels are not ported yet and raise.
+gathers the requested samples (windows of `time_window` consecutive grids
+for a spatio-temporal model), coarsens them to the LR grid with the matmul
+resize and stacks the LR channels as [lr, predictors, static_lr]; the HR
+statics are the aux input. With time windows the statics go to aux only.
+Random patches and season channels are not ported yet and raise.
 """
 
 import numpy as np
@@ -32,8 +33,6 @@ class BatchSynthesizer:
                  season_ids=None, device='cuda'):
         if patch_size is not None:
             raise not_ported('random patches', 3)
-        if time_window is not None:
-            raise not_ported('time windows', 7)
         if season_ids is not None:
             raise not_ported('season channels', 3)
         if array_lr is not None:
@@ -48,21 +47,27 @@ class BatchSynthesizer:
         self.scale = int(scale)
         self.batch_size = int(batch_size)
         self.interpolation = interpolation
-        self.n, self.hr_y, self.hr_x, self.n_ch = array.shape
+        self.time_window = time_window
+        self.n_total, self.hr_y, self.hr_x, self.n_ch = array.shape
+        self.n = (self.n_total - time_window if time_window is not None
+                  else self.n_total)
         self.lr_y = int(self.hr_y / scale)
         self.lr_x = int(self.hr_x / scale)
         self.hr = torch.as_tensor(array, device=self.device)
         self.pred, self.n_pred, self.static_hr, self.n_static = \
             _prep_aux_inputs((self.lr_y, self.lr_x), interpolation,
                              self.device, predictors, static_vars)
+        # LR statics join the LR channels of spatial samples only
         self.static_lr = (resize2d(self.static_hr, (self.lr_y, self.lr_x),
                                    interpolation)
-                          if self.static_hr is not None else None)
+                          if self.static_hr is not None and time_window is None
+                          else None)
 
     @property
     def n_channels_lr(self):
         """Total channels of the LR model input."""
-        return self.n_ch + self.n_pred + self.n_static
+        n = self.n_ch + self.n_pred
+        return n if self.time_window is not None else n + self.n_static
 
     @property
     def n_channels_aux(self):
@@ -70,20 +75,37 @@ class BatchSynthesizer:
 
     def __call__(self, indices):
         """Synthesize the batch of samples `indices` [B] on the device.
-        Returns dict(lr=[B, h, w, C], hr=[B, H, W, c], aux=[B, H, W, S] or
-        None)."""
+        Returns dict(lr=[B(, T), h, w, C], hr=[B(, T), H, W, c],
+        aux=[B, H, W, S] or None); sample i of a spatio-temporal batch is
+        the window of grids i .. i + T - 1."""
         idx = torch.as_tensor(indices, dtype=torch.long, device=self.device)
+        if idx.numel() and int(idx.max()) + (self.time_window or 1) \
+                > self.n_total:
+            raise IndexError(f'sample {int(idx.max())} reaches past the '
+                             f'{self.n_total} grids')
         b = idx.shape[0]
-        hr = self.hr.index_select(0, idx)
+        hr = self._gather(self.hr, idx)
         parts_lr = [resize2d(hr, (self.lr_y, self.lr_x), self.interpolation)]
         if self.pred is not None:
-            parts_lr.append(self.pred.index_select(0, idx))
+            parts_lr.append(self._gather(self.pred, idx))
         aux = None
         if self.static_hr is not None:
             aux = self.static_hr.expand(b, *self.static_hr.shape)
-            parts_lr.append(self.static_lr.expand(b, *self.static_lr.shape))
+            if self.time_window is None:
+                parts_lr.append(self.static_lr.expand(b,
+                                                      *self.static_lr.shape))
         lr = torch.cat(parts_lr, dim=-1) if len(parts_lr) > 1 else parts_lr[0]
         return {'lr': lr, 'hr': hr, 'aux': aux}
+
+    def _gather(self, data, idx):
+        """Samples `idx` of `data` [N, ...]; with time windows [B, T, ...]
+        (dl4ds_tpu/dataloader.py:629-635)."""
+        if self.time_window is None:
+            return data.index_select(0, idx)
+        win = idx[:, None] + torch.arange(self.time_window,
+                                          device=idx.device)[None, :]
+        return data.index_select(0, win.reshape(-1)).reshape(
+            idx.shape[0], self.time_window, *data.shape[1:])
 
 
 def _prep_aux_inputs(lr_hw, interpolation, device, predictors=None,

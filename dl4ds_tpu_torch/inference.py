@@ -2,7 +2,8 @@
 Inference on unseen HR data (the counterpart of `dl4ds_tpu/inference.py`).
 
 `predict` builds one whole-dataset batch on the device with
-`BatchSynthesizer`, then runs the network over it in fixed-size batches
+`BatchSynthesizer` (sliding windows of `time_window` grids for a
+spatio-temporal model), then runs the network over it in fixed-size batches
 under `torch.inference_mode()`. The ragged tail is padded by repeating its
 last sample, so every forward has the same shape. It runs on CUDA unless
 the caller passes device='cpu'. Modes not ported yet raise
@@ -16,7 +17,7 @@ import torch
 
 from .dataloader import BatchSynthesizer
 from .utils import (Timing, checkarray_ndim, not_ported, resolve_device,
-                    _values)
+                    spatiotemporal_to_spatial_samples, _values)
 
 __all__ = ['Predictor', 'predict']
 
@@ -58,23 +59,28 @@ def _resolve_model(trainer):
 
 
 def _assemble_inputs(model, array, scale, array_in_hr, static_vars,
-                     predictors, interpolation, device):
+                     predictors, time_window, interpolation, device):
     """Whole-dataset (lr, aux) batch on `device`
-    (dl4ds_tpu/inference.py:98-157, array_in_hr=True)."""
+    (dl4ds_tpu/inference.py:98-157, array_in_hr=True). With `time_window`
+    there are N - time_window + 1 samples, one per window."""
     if not array_in_hr:
         raise not_ported('array_in_hr=False', 5)
     array = np.asarray(_values(array), 'float32')
     if static_vars is not None:
         static_vars = [np.asarray(_values(s)) for s in static_vars]
     n_samples = array.shape[0]
+    if time_window is not None:
+        n_samples -= time_window - 1
     if n_samples <= 0:
-        raise ValueError(f'`array` yields no samples (shape {array.shape})')
+        raise ValueError(f'`array` yields no samples (shape {array.shape}, '
+                         f'time_window={time_window})')
     if predictors is not None:
         predictors = np.concatenate(
             [np.asarray(_values(p)) for p in predictors], axis=-1)
     synth = BatchSynthesizer(
         checkarray_ndim(array, 4, -1), None, upsampling=model.upsampling,
-        scale=scale, batch_size=n_samples, static_vars=static_vars,
+        scale=scale, batch_size=n_samples, time_window=time_window,
+        static_vars=static_vars,
         predictors=[predictors] if predictors is not None else None,
         interpolation=interpolation, device=device)
     batch = synth(torch.arange(n_samples))
@@ -93,11 +99,15 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     network in batches of `batch_size`. Returns a numpy array
     [N, H, W, n_channels_out] (and the LR inputs with `return_lr`).
 
+    A spatio-temporal model needs `time_window`: it runs on the N - tw + 1
+    windows of tw consecutive grids, and its [N - tw + 1, tw, ...] output
+    collapses back to N grids (the first frame of every window, then the
+    last window's other frames).
+
     `device` is where the network and the data live ('cuda' by default;
     device='cpu' must be asked for). The network must already be there.
     """
-    for value, what, item in ((time_window, 'time_window', 7),
-                              (time_metadata, 'time_metadata', 3),
+    for value, what, item in ((time_metadata, 'time_metadata', 3),
                               (mesh, 'mesh', 10), (tile, 'tile', 10),
                               (spatial_mesh, 'spatial_mesh', 10),
                               (pad_to_multiple, 'pad_to_multiple', 5),
@@ -107,17 +117,24 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     device = resolve_device(device)
     timing = Timing()
     model, net = _resolve_model(trainer)
+    is_spatiotemporal = len(model.input_shape) == 4
+    if is_spatiotemporal and time_window is None:
+        raise ValueError(
+            '`time_window` must be provided for spatiotemporal model')
+    if not is_spatiotemporal and time_window is not None:
+        raise ValueError(f'`time_window` is for spatio-temporal models; '
+                         f'{model.name!r} is spatial')
     where = {p.device for p in net.parameters()}
     if where != {device}:
         raise ValueError(f'the network is on {sorted(map(str, where))}, '
                          f'predict was asked to run on {device}')
     x, aux, _ = _assemble_inputs(model, array, scale, array_in_hr,
-                                 static_vars, predictors, interpolation,
-                                 device)
+                                 static_vars, predictors, time_window,
+                                 interpolation, device)
     with torch.inference_mode():
         out = _batched_apply(net, x, aux, batch_size)
-    return _finalize_predict(out, x, scaler, save_path, save_fname,
-                             return_lr, timing)
+    return _finalize_predict(out, x, time_window, scaler, save_path,
+                             save_fname, return_lr, timing)
 
 
 def _batched_apply(apply, x, aux, batch_size):
@@ -139,9 +156,12 @@ def _batched_apply(apply, x, aux, batch_size):
     return torch.cat(outs).cpu().numpy()
 
 
-def _finalize_predict(out, batch_lr, scaler, save_path, save_fname,
-                      return_lr, timing):
-    """Inverse scaling and .npy save (dl4ds_tpu/inference.py:380-394)."""
+def _finalize_predict(out, batch_lr, time_window, scaler, save_path,
+                      save_fname, return_lr, timing):
+    """5-D -> 4-D collapse, inverse scaling and .npy save
+    (dl4ds_tpu/inference.py:380-394)."""
+    if out.ndim == 5 and time_window is not None:
+        out = spatiotemporal_to_spatial_samples(out, time_window)
     if scaler is not None:
         out = scaler.inverse_transform(out)
     if save_path is not None and save_fname is not None:

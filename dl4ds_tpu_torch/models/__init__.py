@@ -14,10 +14,11 @@ import torch
 
 from ..utils import (checkarg_backbone, checkarg_upsampling,
                      checkarg_dropout_variant, not_ported, resolve_device)
-from .nets import NetPostupsampling
+from .nets import NetPostupsampling, RecNetPostupsampling
 from . import blocks
 
-__all__ = ['DSModel', 'net_postupsampling', 'blocks']
+__all__ = ['DSModel', 'net_postupsampling', 'recnet_postupsampling',
+           'blocks']
 
 
 @dataclasses.dataclass
@@ -25,7 +26,8 @@ class DSModel:
     """A configured model: how to build it, its name and input specs.
 
     `name` follows the reference convention '<backbone>_<upsampling>'
-    (e.g. 'resnet_spc'). Shapes are per sample, NHWC, without batch dim.
+    (e.g. 'resnet_spc', 'recresnet_spc'). Shapes are per sample, NHWC
+    (T, H, W, C for a spatio-temporal model), without batch dim.
     """
     build: Callable[[], torch.nn.Module]
     name: str
@@ -46,8 +48,15 @@ class DSModel:
         for m in net.modules():
             if hasattr(m, 'reset_parameters'):
                 m.reset_parameters(gen)
-        # channels-last kernels match the NHWC activations the convs see
-        return net.to(device=device, memory_format=torch.channels_last).eval()
+        net = net.to(device=device)
+        # channels-last kernels match the NHWC activations the convs see;
+        # only the Conv weights (OIHW) are re-strided: the ConvLSTM kernels
+        # are HWIO arrays that K2 reads contiguously
+        for m in net.modules():
+            if isinstance(m, blocks.Conv):
+                m.weight.data = m.weight.data.contiguous(
+                    memory_format=torch.channels_last)
+        return net.eval()
 
     @staticmethod
     def param_count(net):
@@ -84,3 +93,36 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
                  if n_aux_channels > 0 else None)
     return DSModel(build, f'{backbone_block}_{upsampling}',
                    (h_lr, w_lr, n_channels), aux_shape)
+
+
+def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
+                          n_aux_channels, lr_size, time_window,
+                          n_channels_out=1, n_filters=8, n_blocks=4,
+                          dropout_rate=0, dropout_variant=None,
+                          normalization=None, attention=False,
+                          activation='relu', output_activation=None,
+                          rc_interpolation='bilinear', localcon_layer=False,
+                          output_attention=True, dtype=torch.float32):
+    """Spatio-temporal (ConvLSTM) network + post-upsampling head
+    (dl4ds_tpu/models/__init__.py:157-183), named 'rec<backbone>_<ups>'.
+    This slice builds the 'resnet' backbone with the 'spc' head in float32;
+    the rest raises NotImplementedError naming its ROADMAP item."""
+    backbone_block = checkarg_backbone(backbone_block)
+    upsampling = checkarg_upsampling(upsampling)
+    dropout_variant = checkarg_dropout_variant(dropout_variant)
+    if dtype != torch.float32:
+        raise not_ported(f'model dtype {dtype}', 5)
+    h_lr, w_lr = lr_size
+    build = functools.partial(
+        RecNetPostupsampling, n_channels, n_aux_channels, backbone_block,
+        upsampling, scale, time_window, n_channels_out=n_channels_out,
+        n_filters=n_filters, n_blocks=n_blocks, normalization=normalization,
+        dropout_rate=dropout_rate, dropout_variant=dropout_variant,
+        attention=attention, activation=activation,
+        output_activation=output_activation, localcon_layer=localcon_layer,
+        output_attention=output_attention)
+    build()   # raise now, not at init, on a configuration not ported yet
+    aux_shape = ((int(h_lr * scale), int(w_lr * scale), n_aux_channels)
+                 if n_aux_channels > 0 else None)
+    return DSModel(build, f'rec{backbone_block}_{upsampling}',
+                   (time_window, h_lr, w_lr, n_channels), aux_shape)

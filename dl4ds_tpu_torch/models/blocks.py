@@ -2,14 +2,17 @@
 Model building blocks (PyTorch, NHWC at every boundary).
 
 Counterparts of `dl4ds_tpu/models/blocks.py` for the post-upsampling
-residual model. Activations stay [B, H, W, C]: a convolution views its input
+residual model and the ConvLSTM blocks of the spatio-temporal one.
+Activations stay [B, H, W, C] ([B, T, H, W, C] through the ConvLSTM layers,
+which run the fused kernel K2 on the GPU): a convolution views its input
 as NCHW with channels-last strides (a permute, no copy), so the gate kernel
 and the pixel shuffle see the JAX package's layout. Submodules carry the
 names of the Flax parameter tree (`Conv_0`, `ChannelAttention2D_0`, ...), so
 `weights.load_jax_params` maps one onto the other by walking both.
 
 Parameters are float32. `reset_parameters(generator)` draws the Keras
-defaults the JAX package uses: glorot_uniform kernels and zero biases.
+defaults the JAX package uses: glorot_uniform kernels and zero biases, and
+for ConvLSTM2D an orthogonal recurrent kernel and the unit forget bias.
 """
 
 import math
@@ -18,11 +21,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import depth_to_space, fused_channel_attention
+from ..ops import depth_to_space, fused_channel_attention, fused_convlstm
 from ..utils import not_ported
 
 __all__ = ['Conv', 'get_activation', 'ChannelAttention2D', 'ConvBlock',
-           'ResidualBlock', 'TransitionBlock', 'SubpixelConvolutionBlock']
+           'ResidualBlock', 'TransitionBlock', 'SubpixelConvolutionBlock',
+           'ConvLSTM2D', 'RecurrentConvBlock']
 
 
 def _glorot_uniform_(tensor, fan_in, fan_out, generator):
@@ -102,11 +106,18 @@ class ChannelAttention2D(nn.Module):
     (dl4ds_tpu/models/blocks.py:184-244): global average pool -> C/r -> relu
     -> nf -> sigmoid gate, run by the fused gate (the Hopper kernel on the
     GPU). Weights keep the JAX layout: w1 [C, Cr], b1 [Cr], w2 [Cr, nf],
-    b2 [nf], with Cr = max(int(nf / r), 1)."""
+    b2 [nf], with Cr = max(int(nf / r), 1).
 
-    def __init__(self, in_channels, nf, r=4):
+    With `time_window` t > 1 (the recurrent output heads) x is [B*t, H, W, C]
+    flattened from [B, t, ...], and the gate keeps the reference's rank-5
+    quirk (dl4ds_tpu/models/blocks.py:223-235): the mean is over (T, H), the
+    gate varies along (W, C) and is shared over (T, H). That gate is plain
+    tensor math, not the K1 kernel."""
+
+    def __init__(self, in_channels, nf, r=4, time_window=None):
         super().__init__()
         cr = max(int(nf / r), 1)
+        self.time_window = time_window
         self.w1 = nn.Parameter(torch.empty(in_channels, cr))
         self.b1 = nn.Parameter(torch.zeros(cr))
         self.w2 = nn.Parameter(torch.empty(cr, nf))
@@ -122,24 +133,34 @@ class ChannelAttention2D(nn.Module):
             self.b2.zero_()
 
     def forward(self, x):
+        t = self.time_window
+        if t is not None and t > 1:
+            bt, h, w, c = x.shape
+            xr = x.reshape(bt // t, t, h, w, c)
+            m = xr.mean(dim=(1, 2))                                # [B, W, C]
+            hdn = F.relu(m @ self.w1 + self.b1)
+            g = torch.sigmoid(hdn @ self.w2 + self.b2)
+            return (xr * g[:, None, None]).reshape(bt, h, w, c)
         return fused_channel_attention(x, self.w1, self.b1, self.w2, self.b2)
 
 
 class ConvBlock(nn.Module):
     """Two-conv block (dl4ds_tpu/models/blocks.py:275-312):
-    conv -> act -> conv -> act -> [channel attention]."""
+    conv -> act -> conv -> act -> [channel attention]. `attention_time` is
+    the recurrent heads' time window, for the gate's rank-5 quirk."""
 
     def __init__(self, in_channels, filters, ks_cl1=(3, 3), ks_cl2=(3, 3),
                  activation='relu', normalization=None, attention=False,
-                 dropout_rate=0.0):
+                 attention_time=None, dropout_rate=0.0):
         super().__init__()
         _check_norm(normalization)
         _check_dropout(dropout_rate)
         self.act = get_activation(activation)
         self.Conv_0 = Conv(in_channels, filters, ks_cl1)
         self.Conv_1 = Conv(filters, filters, ks_cl2)
-        self.ChannelAttention2D_0 = (ChannelAttention2D(filters, filters)
-                                     if attention else None)
+        self.ChannelAttention2D_0 = (
+            ChannelAttention2D(filters, filters, time_window=attention_time)
+            if attention else None)
 
     def forward(self, x):
         y = self.act(self.Conv_0(x))
@@ -214,3 +235,82 @@ class SubpixelConvolutionBlock(nn.Module):
         for f, name in self.stages:
             x = depth_to_space(self._modules[name](x), f)
         return x
+
+
+class _Kernel(nn.Module):
+    """A conv kernel (and bias) held in the Flax layout, HWIO [kh, kw, Cin,
+    Co], under the Flax leaf names `kernel` and `bias`."""
+
+    def __init__(self, shape, use_bias=False):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(shape))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(shape[-1]))
+        else:
+            self.register_parameter('bias', None)
+
+
+class _Cell(nn.Module):
+    """Holds the recurrent kernel at the Flax path `cell/recurrent_conv`."""
+
+    def __init__(self, shape):
+        super().__init__()
+        self.recurrent_conv = _Kernel(shape)
+
+
+class ConvLSTM2D(nn.Module):
+    """ConvLSTM over [B, T, H, W, Cin] returning the sequence [B, T, H, W, F]
+    (dl4ds_tpu/models/blocks.py:550-651), run by the fused layer K2 (the
+    Hopper kernel on the GPU). Parameters sit at the Flax paths
+    `input_conv/{kernel, bias}` and `cell/recurrent_conv/kernel`, HWIO, with
+    the gates i, f, c, o along the last axis. Keras initialisers
+    (dl4ds_tpu/models/blocks.py:508-547): glorot-uniform input kernel,
+    orthogonal recurrent kernel, unit forget bias."""
+
+    def __init__(self, in_channels, filters, kernel_size=(3, 3)):
+        super().__init__()
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else tuple(kernel_size))
+        if kh % 2 == 0 or kw % 2 == 0:
+            raise NotImplementedError(
+                f'even kernel {kh}x{kw}: SAME padding would be asymmetric')
+        self.filters = filters
+        self.input_conv = _Kernel((kh, kw, in_channels, 4 * filters),
+                                  use_bias=True)
+        self.cell = _Cell((kh, kw, filters, 4 * filters))
+
+    def reset_parameters(self, generator):
+        kh, kw, cin, f4 = self.input_conv.kernel.shape
+        _glorot_uniform_(self.input_conv.kernel, kh * kw * cin, kh * kw * f4,
+                         generator)
+        wh = self.cell.recurrent_conv.kernel
+        with torch.no_grad():
+            # orthonormal columns of the [kh*kw*F, 4F] matrix, as Flax's
+            # orthogonal() initialises an HWIO kernel
+            q = torch.empty(wh.shape[-1], wh[..., 0].numel())
+            nn.init.orthogonal_(q, generator=generator)
+            wh.copy_(q.T.reshape(wh.shape))
+            bias = self.input_conv.bias
+            bias.zero_()
+            bias[self.filters:2 * self.filters] = 1.0    # unit forget bias
+
+    def forward(self, x):
+        return fused_convlstm(x, self.input_conv.kernel, self.input_conv.bias,
+                              self.cell.recurrent_conv.kernel)
+
+
+class RecurrentConvBlock(nn.Module):
+    """Two stacked ConvLSTM layers (dl4ds_tpu/models/blocks.py:654-678): a
+    ks_cl1 ConvLSTM -> act -> a ks_cl2 ConvLSTM -> act, on [B, T, H, W, C]."""
+
+    def __init__(self, in_channels, filters, ks_cl1=(5, 5), ks_cl2=(3, 3),
+                 activation='relu', normalization=None, dropout_rate=0.0):
+        super().__init__()
+        _check_norm(normalization)
+        _check_dropout(dropout_rate)
+        self.act = get_activation(activation)
+        self.ConvLSTM2D_0 = ConvLSTM2D(in_channels, filters, ks_cl1)
+        self.ConvLSTM2D_1 = ConvLSTM2D(filters, filters, ks_cl2)
+
+    def forward(self, x):
+        return self.act(self.ConvLSTM2D_1(self.act(self.ConvLSTM2D_0(x))))

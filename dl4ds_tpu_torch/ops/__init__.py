@@ -3,6 +3,8 @@
 from .array import depth_to_space
 from .fused_ops import (fused_channel_attention, channel_attention_reference,
                         FusedChannelAttention)
+from .convlstm import fused_convlstm, convlstm_reference
 
 __all__ = ['depth_to_space', 'fused_channel_attention',
-           'channel_attention_reference', 'FusedChannelAttention']
+           'channel_attention_reference', 'FusedChannelAttention',
+           'fused_convlstm', 'convlstm_reference']

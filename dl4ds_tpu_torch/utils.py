@@ -10,7 +10,7 @@ from . import BACKBONE_BLOCKS, DROPOUT_VARIANTS, UPSAMPLING_METHODS
 
 __all__ = ['checkarray_ndim', 'checkarg_upsampling', 'checkarg_backbone',
            'checkarg_dropout_variant', 'resolve_device', 'not_ported',
-           'Timing', '_values']
+           'spatiotemporal_to_spatial_samples', 'Timing', '_values']
 
 
 def not_ported(what, item):
@@ -77,6 +77,18 @@ def resolve_device(device):
     if device.index is None:
         device = torch.device('cuda', torch.cuda.current_device())
     return device
+
+
+def spatiotemporal_to_spatial_samples(array, time_window):
+    """Collapse [n, tw, y, x, c] windows back to a flat sequence of grids:
+    the first frame of each window, then the last window's trailing frames
+    (dl4ds_tpu/utils.py:120-129)."""
+    array = np.asarray(array)
+    if array.shape[1] != time_window:
+        raise ValueError(
+            '`time_window` must be located in the second position '
+            '[n_samples, time_window, lat, lon, vars]')
+    return np.concatenate([array[:, 0], array[-1, 1:]], axis=0)
 
 
 def _values(x):

@@ -1,16 +1,17 @@
 """Carry a Flax parameter tree across into the port's modules.
 
 The torch modules carry the Flax tree's names (explicit ones such as `stem`,
-`ResidualBlock1`, `conv2x`, and Flax's auto-names such as `Conv_0`,
-`ChannelAttention2D_0`), so the tree and the module hierarchy are walked
-together. The tree is a nested dict of numpy arrays (`jax.tree_util.tree_map(
-np.asarray, variables['params'])`): the port never sees a JAX type.
+`ResidualBlock1`, `conv2x`, `input_conv`, and Flax's auto-names such as
+`Conv_0`, `ChannelAttention2D_0`, `ConvLSTM2D_0`), so the tree and the module
+hierarchy are walked together. The tree is a nested dict of numpy arrays
+(`jax.tree_util.tree_map(np.asarray, variables['params'])`): the port never
+sees a JAX type.
 """
 
 import numpy as np
 import torch
 
-from .models.blocks import Conv, ChannelAttention2D
+from .models.blocks import Conv, ChannelAttention2D, _Kernel
 
 __all__ = ['load_jax_params']
 
@@ -36,12 +37,16 @@ def _load_conv(conv, leaves, path, done):
         _copy(conv.bias, leaves['bias'], f'{path}/bias', done)
 
 
-def _load_attention(ca, leaves, path, done):
-    if set(leaves) != {'w1', 'b1', 'w2', 'b2'}:
+def _load_same_layout(module, leaves, path, done):
+    """Copy leaves into a module whose own parameters carry the Flax leaf
+    names and layout (the attention gate's w1/b1/w2/b2, a ConvLSTM kernel's
+    HWIO kernel/bias)."""
+    params = dict(module.named_parameters(recurse=False))
+    if set(leaves) != set(params):
         raise KeyError(f'{path}: Flax leaves {sorted(leaves)}, expected '
-                       f"['b1', 'b2', 'w1', 'w2']")
-    for name in ('w1', 'b1', 'w2', 'b2'):   # same layout on both sides
-        _copy(getattr(ca, name), leaves[name], f'{path}/{name}', done)
+                       f'{sorted(params)}')
+    for name, param in params.items():
+        _copy(param, leaves[name], f'{path}/{name}', done)
 
 
 def _walk(module, tree, path, done):
@@ -53,8 +58,8 @@ def _walk(module, tree, path, done):
                            f'in {type(module).__name__}')
         if isinstance(child, Conv):
             _load_conv(child, sub, sub_path, done)
-        elif isinstance(child, ChannelAttention2D):
-            _load_attention(child, sub, sub_path, done)
+        elif isinstance(child, (ChannelAttention2D, _Kernel)):
+            _load_same_layout(child, sub, sub_path, done)
         else:
             _walk(child, sub, sub_path, done)
 

@@ -1,0 +1,421 @@
+"""PyTorch port of the spatio-temporal path against the JAX package on the
+CPU: the ConvLSTM layer (the plain version of K2) against the Pallas kernel
+run in interpret mode and against the XLA reference, the ConvLSTM blocks and
+their init, the recurrent `recresnet_spc` model with carried weights,
+time-window batch synthesis and `predict(time_window=...)`. Inputs come from
+numpy; everything is float32. Tolerances: 1e-5 for one layer or block
+(float32 sums taken in another order), 1e-4 for a whole model (as in
+`tests/test_torch_models.py`)."""
+
+import functools
+from typing import Optional
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import dl4ds_tpu as dds
+import dl4ds_tpu.ops.pallas_convlstm as jax_pallas_convlstm
+from dl4ds_tpu.models import blocks as jax_blocks
+
+import dl4ds_tpu_torch as tds
+from dl4ds_tpu_torch.models.blocks import (ChannelAttention2D, ConvLSTM2D,
+                                           RecurrentConvBlock)
+from dl4ds_tpu_torch.ops.convlstm import (_launch, _rows_per_thread,
+                                          hard_sigmoid)
+
+HR, SCALE, T = 64, 4, 3
+LR = HR // SCALE
+SMALL = dict(scale=SCALE, n_channels=3, lr_size=(LR, LR), time_window=T,
+             n_filters=4, n_blocks=1)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _torch_threads():
+    torch.set_num_threads(2)
+
+
+def _params_np(variables):
+    return jax.tree_util.tree_map(np.asarray, variables['params'])
+
+
+class _PallasConvLSTM2D(jax_blocks.ConvLSTM2D):
+    """The JAX ConvLSTM layer with the fused Pallas path on (interpret mode
+    on the CPU). Setting the class attribute `ConvLSTM2D.use_pallas` does not
+    reach instances (a Flax module's field default is bound in its
+    generated `__init__`), so the blocks are given this subclass instead."""
+    use_pallas: Optional[bool] = True
+
+
+_PallasConvLSTM2D.__name__ = 'ConvLSTM2D'     # Flax auto-names by class name
+
+
+@pytest.fixture
+def pallas_convlstm(monkeypatch):
+    """Route the JAX package's ConvLSTM layers through the interpreted
+    Pallas kernel; yields the list of its forward launches."""
+    calls = []
+    real = jax_pallas_convlstm._forward_pallas
+
+    @functools.wraps(real)
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(jax_pallas_convlstm, '_forward_pallas', spy)
+    monkeypatch.setattr(jax_blocks, 'ConvLSTM2D', _PallasConvLSTM2D)
+    yield calls
+
+
+# ---------------------------------------------------------------------------
+# K2's plain version
+# ---------------------------------------------------------------------------
+
+# (B, T, H, W, Cin, F, k): Cin != F, H != W with an odd W, and T = 1
+K2_SHAPES = [(4, 3, 8, 8, 2, 5, 3), (2, 2, 9, 11, 3, 3, 5),
+             (2, 1, 6, 7, 4, 4, 3)]
+
+
+def _k2_inputs(shape, seed=0):
+    b, t, h, w, cin, f, k = shape
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return [n(b, t, h, w, cin), 0.3 * n(k, k, cin, 4 * f), 0.1 * n(4 * f),
+            0.3 * n(k, k, f, 4 * f)]
+
+
+@pytest.mark.parametrize('shape', K2_SHAPES)
+def test_k2_plain_matches_interpreted_pallas_and_xla(shape):
+    args = _k2_inputs(shape)
+    jargs = list(map(jnp.asarray, args))
+    want_pallas = np.asarray(jax_pallas_convlstm.fused_convlstm(
+        *jargs, interpret=True))
+    want_ys, want_cs = map(np.asarray,
+                           jax_pallas_convlstm.convlstm_reference(*jargs))
+    targs = list(map(torch.from_numpy, args))
+    got = tds.fused_convlstm(*targs).numpy()
+    ys, cs = (a.numpy() for a in tds.convlstm_reference(*targs))
+    assert got.shape == want_pallas.shape == shape[:4] + (shape[5],)
+    np.testing.assert_allclose(got, want_pallas, atol=1e-5)
+    np.testing.assert_allclose(ys, want_ys, atol=1e-5)
+    np.testing.assert_allclose(cs, want_cs, atol=1e-5)
+
+
+def test_hard_sigmoid_is_keras_not_torch():
+    x = np.linspace(-4, 4, 81, dtype=np.float32)
+    want = np.asarray(jax_blocks._hard_sigmoid(jnp.asarray(x)))
+    got = hard_sigmoid(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-7)
+    assert not torch.allclose(got, F.hardsigmoid(torch.from_numpy(x)))
+
+
+def test_k2_cpu_tensor_launches_no_kernel():
+    before = tds.fused_convlstm.launches
+    tds.fused_convlstm(*map(torch.from_numpy, _k2_inputs(K2_SHAPES[0])))
+    assert tds.fused_convlstm.launches == before
+
+
+@pytest.mark.parametrize('case', ['float64', 'bfloat16', 'grad'])
+def test_k2_kernel_wrapper_guards(case):
+    """The CUDA wrapper's checks run before anything reaches the card: the
+    kernel takes float32 only (other dtypes are ROADMAP item 5) and has no
+    gradient (K3/K4, item 7)."""
+    x, wx, bx, wh = map(torch.from_numpy, _k2_inputs(K2_SHAPES[0]))
+    if case == 'grad':
+        wx.requires_grad_()
+        with pytest.raises(NotImplementedError, match='item 7'):
+            _launch(x, wx, bx, wh)
+        with torch.no_grad(), pytest.raises(ValueError, match='CUDA'):
+            _launch(x, wx, bx, wh)       # without grad mode: the CPU device
+        return
+    dtype = getattr(torch, case)
+    with pytest.raises(TypeError, match='item 5'):
+        _launch(x.to(dtype), wx, bx, wh)
+
+
+@pytest.mark.parametrize('shape,want', [
+    ((8, 128, 128, 8), 2),           # recresnet_spc layers: 256 blocks
+    ((8, 32, 32, 64), 1),            # width 64: 128 blocks at 16 rows
+    ((2, 9, 11, 5), 1),
+    ((16, 64, 64, 12), 2)])          # two channel groups, the last padded
+def test_k2_thread_shape(shape, want):
+    """Two rows per thread unless that leaves one of the 132 SMs without a
+    block; a block takes 8 channels, so F = 12 makes two groups."""
+    assert _rows_per_thread(*shape, n_sm=132) == want
+
+
+@pytest.mark.parametrize('case', ['wh', 'bx', 'even'])
+def test_k2_rejects_mismatched_weights(case):
+    x, wx, bx, wh = map(torch.from_numpy, _k2_inputs(K2_SHAPES[0]))
+    if case == 'wh':
+        wh, err = wh[..., :-1, :], ValueError
+    elif case == 'bx':
+        bx, err = bx[:-1], ValueError
+    else:
+        wx, wh, err = wx[:2, :2], wh[:2, :2], NotImplementedError
+    with pytest.raises(err):
+        tds.fused_convlstm(x, wx, bx, wh)
+
+
+# ---------------------------------------------------------------------------
+# Blocks and init
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('k', [3, 5])
+def test_convlstm2d_with_carried_weights_matches_jax(k):
+    x = np.random.default_rng(k).standard_normal((2, 3, 7, 9, 3)).astype(
+        np.float32)
+    jm = jax_blocks.ConvLSTM2D(4, (k, k))
+    variables = jm.init(jax.random.PRNGKey(k), jnp.asarray(x))
+    want = np.asarray(jm.apply(variables, jnp.asarray(x)))
+    tm = tds.load_jax_params(ConvLSTM2D(3, 4, (k, k)), _params_np(variables))
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 3, 7, 9, 4)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_recurrent_conv_block_with_carried_weights_matches_jax():
+    x = np.random.default_rng(1).standard_normal((2, 3, 8, 6, 2)).astype(
+        np.float32)
+    jm = jax_blocks.RecurrentConvBlock(4)
+    variables = jm.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    assert sorted(variables['params']) == ['ConvLSTM2D_0', 'ConvLSTM2D_1']
+    want = np.asarray(jm.apply(variables, jnp.asarray(x)))
+    tm = tds.load_jax_params(RecurrentConvBlock(2, 4), _params_np(variables))
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_convlstm_init_is_keras():
+    """Unit forget bias exactly, a glorot-bounded input kernel and an
+    orthogonal recurrent kernel, as the JAX layer initialises them."""
+    f, cin, k = 4, 3, 3
+    tm = ConvLSTM2D(cin, f, (k, k))
+    tm.reset_parameters(torch.Generator().manual_seed(0))
+    jv = _params_np(jax_blocks.ConvLSTM2D(f, (k, k)).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 2, 5, 5, cin))))
+    want_bias = np.zeros(4 * f, np.float32)
+    want_bias[f:2 * f] = 1.0
+    np.testing.assert_array_equal(tm.input_conv.bias.detach().numpy(),
+                                  want_bias)
+    np.testing.assert_array_equal(jv['input_conv']['bias'], want_bias)
+    limit = (6.0 / (k * k * (cin + 4 * f))) ** 0.5
+    for kernel in (tm.input_conv.kernel.detach().numpy(),
+                   jv['input_conv']['kernel']):
+        assert 0.8 * limit < np.abs(kernel).max() <= limit
+    for wh in (tm.cell.recurrent_conv.kernel.detach().numpy(),
+               jv['cell']['recurrent_conv']['kernel']):
+        m = wh.reshape(-1, 4 * f)                       # [k*k*F, 4F]
+        np.testing.assert_allclose(m.T @ m, np.eye(4 * f), atol=1e-5)
+
+
+def test_model_init_keeps_convlstm_kernels_contiguous():
+    """DSModel.init re-strides the Conv weights to channels-last but leaves
+    the HWIO ConvLSTM kernels contiguous, as the kernel reads them."""
+    net = tds.recnet_postupsampling('resnet', 'spc', n_aux_channels=2,
+                                    **SMALL).init(0, device='cpu')
+    for name, p in net.named_parameters():
+        if '.kernel' in name:
+            assert p.is_contiguous(), name
+        elif p.ndim == 4:
+            assert p.is_contiguous(memory_format=torch.channels_last), name
+
+
+def test_time_window_channel_attention_matches_jax():
+    """The recurrent heads' gate pools over (T, H) and gates per (W, C)."""
+    x = np.random.default_rng(2).standard_normal((2 * T, 5, 7, 8)).astype(
+        np.float32)
+    jm = jax_blocks.ChannelAttention2D(8, time_window=T)
+    params = _params_np(jm.init(jax.random.PRNGKey(2), jnp.asarray(x)))
+    want = np.asarray(jm.apply({'params': params}, jnp.asarray(x)))
+    tm = ChannelAttention2D(8, 8, time_window=T)
+    spatial = ChannelAttention2D(8, 8)
+    with torch.no_grad():
+        for name in ('w1', 'b1', 'w2', 'b2'):
+            getattr(tm, name).copy_(torch.tensor(params[name]))
+            getattr(spatial, name).copy_(torch.tensor(params[name]))
+        got = tm(torch.from_numpy(x)).numpy()
+        per_frame = spatial(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert np.abs(got - per_frame).max() > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The recurrent model
+# ---------------------------------------------------------------------------
+
+def _rec_models(n_aux, seed):
+    jm = dds.recnet_postupsampling('resnet', 'spc', n_aux_channels=n_aux,
+                                   **SMALL)
+    variables = jm.init(jax.random.PRNGKey(seed))
+    tm = tds.recnet_postupsampling('resnet', 'spc', n_aux_channels=n_aux,
+                                   **SMALL)
+    net = tds.load_jax_params(tm.init(seed, device='cpu'),
+                              _params_np(variables))
+    return (jm, variables), (tm, net)
+
+
+@pytest.mark.parametrize('path', ['xla', 'pallas'])
+@pytest.mark.parametrize('n_aux', [2, 0], ids=['aux', 'no_aux'])
+def test_recnet_with_carried_weights_matches_jax(n_aux, path, request):
+    (jm, variables), (tm, net) = _rec_models(n_aux, seed=n_aux)
+    assert tm.name == jm.name == 'recresnet_spc'
+    assert tm.input_shape == jm.input_shape == (T, LR, LR, 3)
+    assert tm.param_count(net) == jm.param_count(variables)
+    rng = np.random.default_rng(n_aux)
+    x = rng.standard_normal((2, T, LR, LR, 3)).astype(np.float32)
+    aux = (rng.standard_normal((2, HR, HR, n_aux)).astype(np.float32)
+           if n_aux else None)
+    calls = request.getfixturevalue('pallas_convlstm') if path == 'pallas' \
+        else None
+    want = np.asarray(jm.apply(variables, jnp.asarray(x),
+                               None if aux is None else jnp.asarray(aux),
+                               training=False))
+    if calls is not None:
+        assert len(calls) == 2 * (SMALL['n_blocks'] + 1)   # every layer
+    with torch.inference_mode():
+        got = net(torch.from_numpy(x),
+                  None if aux is None else torch.from_numpy(aux)).numpy()
+    assert got.shape == want.shape == (2, T, HR, HR, 1)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_recnet_head_names_follow_flax_auto_names():
+    """The head's ConvBlocks are auto-named in call order: with aux the aux
+    branch is ConvBlock_0, without it the gated block is."""
+    for n_aux, names in ((2, ['ConvBlock_0', 'ConvBlock_1', 'ConvBlock_2']),
+                         (0, ['ConvBlock_0', 'ConvBlock_1'])):
+        jv = dds.recnet_postupsampling('resnet', 'spc', n_aux_channels=n_aux,
+                                       **SMALL).init(jax.random.PRNGKey(0))
+        jax_names = sorted(k for k in jv['params'] if k.startswith('Conv'))
+        net = tds.recnet_postupsampling('resnet', 'spc', n_aux_channels=n_aux,
+                                        **SMALL).init(0, device='cpu')
+        assert jax_names == names
+        assert sorted(k for k in net._modules if k.startswith('Conv')) \
+            == names
+        assert 'ChannelAttention2D_0' in jv['params'][names[-2]]
+
+
+def test_load_jax_params_rejects_a_stray_convlstm_leaf():
+    (_, variables), (tm, _) = _rec_models(2, seed=0)
+    for where, leaf in (('input_conv', 'scale'), ('cell', 'bias')):
+        params = _params_np(variables)
+        layer = params['_RecBackbone_0']['RecurrentConvBlock2']['ConvLSTM2D_1']
+        layer[where][leaf] = np.zeros(16, np.float32)
+        with pytest.raises(KeyError, match=leaf):
+            tds.load_jax_params(tm.init(0, device='cpu'), params)
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(backbone_block='convnet'), dict(backbone_block='densenet'),
+    dict(upsampling='rc'), dict(upsampling='dc'), dict(normalization='bn'),
+    dict(dropout_rate=0.2), dict(dtype=torch.bfloat16),
+    dict(localcon_layer=True)])
+def test_unported_recurrent_configurations_raise(kwargs):
+    args = dict(backbone_block='resnet', upsampling='spc', n_aux_channels=2,
+                **SMALL)
+    args.update(kwargs)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        tds.recnet_postupsampling(**args)
+
+
+# ---------------------------------------------------------------------------
+# Batch synthesis and predict
+# ---------------------------------------------------------------------------
+
+N = 6           # HR grids: 4 windows of 3
+
+
+@pytest.fixture(scope='module')
+def data():
+    rng = np.random.default_rng(11)
+    hr = rng.standard_normal((N, HR, HR)).astype(np.float32)
+    topo = rng.standard_normal((HR, HR)).astype(np.float32)
+    mask = (rng.random((HR, HR)) > 0.5).astype(np.float32)
+    pred = rng.standard_normal((N, HR, HR, 2)).astype(np.float32)
+    return hr, topo, mask, pred
+
+
+@pytest.fixture(scope='module')
+def rec_models():
+    # 3 input channels: the grid and the two predictor channels
+    return _rec_models(2, seed=5)
+
+
+def test_batch_synthesizer_time_windows_match_jax(data):
+    hr, topo, mask, pred = data
+    kw = dict(upsampling='spc', scale=SCALE, batch_size=3, time_window=T,
+              static_vars=[topo, mask], predictors=[pred])
+    idx = np.array([3, 0, 2])
+    want = dds.BatchSynthesizer(hr[..., None], None, **kw)(
+        jnp.asarray(idx), jax.random.PRNGKey(0))
+    synth = tds.BatchSynthesizer(hr[..., None], None, device='cpu', **kw)
+    got = synth(torch.from_numpy(idx))
+    assert synth.n == N - T
+    assert synth.n_channels_lr == 3 and synth.n_channels_aux == 2
+    assert got['lr'].shape == (3, T, LR, LR, 3)
+    assert got['aux'].shape == (3, HR, HR, 2)
+    for key in ('lr', 'hr', 'aux'):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   atol=1e-5, err_msg=key)
+    with pytest.raises(IndexError):
+        synth(torch.tensor([N - T + 1]))
+
+
+class _Affine:
+    def inverse_transform(self, a):
+        return 2.0 * a + 1.0
+
+
+def test_predict_time_window_matches_jax(data, rec_models):
+    """Statics, a predictor, a ragged tail (4 windows at batch 3), the
+    scaler and return_lr, end to end."""
+    hr, topo, mask, pred = data
+    kw = dict(scale=SCALE, time_window=T, static_vars=[topo, mask],
+              predictors=[pred], batch_size=3, scaler=_Affine(),
+              return_lr=True)
+    want, want_lr = dds.predict(rec_models[0], hr, **kw)
+    got, got_lr = tds.predict(rec_models[1], hr, device='cpu', **kw)
+    assert isinstance(got, np.ndarray)
+    assert got.shape == want.shape == (N, HR, HR, 1)
+    assert got_lr.shape == (N - T + 1, T, LR, LR, 3)
+    np.testing.assert_allclose(got_lr, np.asarray(want_lr), atol=1e-5)
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
+
+
+def test_spatiotemporal_collapse_matches_jax():
+    from dl4ds_tpu.utils import spatiotemporal_to_spatial_samples as jax_st
+    from dl4ds_tpu_torch.utils import spatiotemporal_to_spatial_samples
+    a = np.arange(4 * T * 2 * 2).reshape(4, T, 2, 2, 1).astype(np.float32)
+    np.testing.assert_array_equal(spatiotemporal_to_spatial_samples(a, T),
+                                  jax_st(a, T))
+    with pytest.raises(ValueError):
+        spatiotemporal_to_spatial_samples(a, T + 1)
+
+
+def test_predict_time_window_is_needed_and_only_for_recurrent_models(
+        data, rec_models):
+    hr = data[0]
+    spatial = tds.net_postupsampling('resnet', 'spc', scale=SCALE,
+                                     n_channels=1, n_aux_channels=0,
+                                     lr_size=(LR, LR), n_filters=4,
+                                     n_blocks=1)
+    with pytest.raises(ValueError, match='spatial'):
+        tds.predict((spatial, spatial.init(0, device='cpu')), hr,
+                    scale=SCALE, time_window=T, device='cpu')
+    with pytest.raises(ValueError, match='time_window'):
+        tds.predict(rec_models[1], hr, scale=SCALE, device='cpu')
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(tile=32), dict(mesh=object()), dict(quantize='int8'),
+    dict(time_metadata='auto'), dict(array_in_hr=False)])
+def test_unported_recurrent_predict_modes_raise(data, rec_models, kwargs):
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        tds.predict(rec_models[1], data[0], scale=SCALE, time_window=T,
+                    device='cpu', **kwargs)

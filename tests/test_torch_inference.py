@@ -99,7 +99,8 @@ def test_batch_synthesizer_matches_jax(data):
 
 @pytest.mark.parametrize('kwargs', [
     dict(tile=32), dict(mesh=object()), dict(spatial_mesh=object()),
-    dict(quantize='int8'), dict(pad_to_multiple=32), dict(time_window=2),
+    dict(quantize='int8'), dict(pad_to_multiple=32),
+    dict(time_metadata=np.arange(N).astype('datetime64[D]')),
     dict(time_metadata='auto'), dict(array_in_hr=False)])
 def test_unported_predict_modes_raise(data, models, kwargs):
     hr = data[0]

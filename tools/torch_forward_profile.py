@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
-"""Where the device time of the PyTorch port's flagship forward goes.
+"""Where the device time of a PyTorch port forward goes.
 
-    python3 tools/torch_forward_profile.py [--batch 8] [--reps 5]
+    python3 tools/torch_forward_profile.py [--model resnet_spc] [--batch 8]
+                                           [--reps 5]
 
-Builds the flagship model of the port (`net_postupsampling('resnet', 'spc',
-scale=4, n_channels=4, n_aux_channels=2, lr_size=(128, 128), n_filters=8,
-n_blocks=6, attention=True)`, seeded weights, TF32 convs as PyTorch's
-default), runs `reps` forwards at `batch` under `torch.profiler` on one GPU
-and prints one JSON line: device time per kernel group and for the top
-kernels, the device's busy share over the profiled window, and the host
-clock per forward. Fails when the profiler records no device kernel.
+Builds one of the port's full-width models with seeded weights (TF32 convs
+as PyTorch's default):
+  resnet_spc     the flagship, `net_postupsampling('resnet', 'spc', scale=4,
+                 n_channels=4, n_aux_channels=2, lr_size=(128, 128),
+                 n_filters=8, n_blocks=6, attention=True)`;
+  recresnet_spc  the spatio-temporal model, `recnet_postupsampling('resnet',
+                 'spc', scale=4, n_channels=2, n_aux_channels=2,
+                 lr_size=(128, 128), time_window=4, n_filters=8,
+                 n_blocks=2)`.
+It runs `reps` forwards at `batch` under `torch.profiler` on one GPU and
+prints one JSON line: device time per kernel group and for the top kernels,
+the device's busy share over the profiled window, and the host clock per
+forward. Fails when the profiler records no device kernel.
 """
 
 import argparse
@@ -21,6 +28,7 @@ from pathlib import Path
 
 # kernel-name fragments -> group; the first match wins
 GROUPS = [('K1_channel_attention', ('ca_partial_sums', 'ca_gate', 'ca_apply')),
+          ('K2_convlstm', ('convlstm_step',)),
           ('conv', ('conv', 'cudnn', 'xmma', 'implicit', 'winograd', 'sm90',
                     'gemm', 'nchw', 'nhwc')),
           ('cat', ('cat',)),
@@ -37,6 +45,8 @@ def group_of(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--model', choices=('resnet_spc', 'recresnet_spc'),
+                    default='resnet_spc')
     ap.add_argument('--batch', type=int, default=8)
     ap.add_argument('--reps', type=int, default=5)
     args = ap.parse_args()
@@ -49,12 +59,18 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import dl4ds_tpu_torch as tds
 
-    model = tds.net_postupsampling(
-        'resnet', 'spc', scale=4, n_channels=4, n_aux_channels=2,
-        lr_size=(128, 128), n_filters=8, n_blocks=6, attention=True)
+    if args.model == 'resnet_spc':
+        model = tds.net_postupsampling(
+            'resnet', 'spc', scale=4, n_channels=4, n_aux_channels=2,
+            lr_size=(128, 128), n_filters=8, n_blocks=6, attention=True)
+    else:
+        model = tds.recnet_postupsampling(
+            'resnet', 'spc', scale=4, n_channels=2, n_aux_channels=2,
+            lr_size=(128, 128), time_window=4, n_filters=8, n_blocks=2)
     net = model.init(0, device='cuda')
     gen = torch.Generator(device='cuda').manual_seed(0)
-    x = torch.randn((args.batch, 128, 128, 4), generator=gen, device='cuda')
+    x = torch.randn((args.batch, *model.input_shape), generator=gen,
+                    device='cuda')
     aux = torch.randn((args.batch, 512, 512, 2), generator=gen,
                       device='cuda')
     with torch.inference_mode():
@@ -84,7 +100,7 @@ def main():
     per = 1e3 * args.reps             # us summed over reps -> ms per forward
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        'device': torch.cuda.get_device_name(0),
+        'device': torch.cuda.get_device_name(0), 'model': model.name,
         'batch': args.batch, 'reps': args.reps,
         'kernel_launches_per_forward': len(kernels) / args.reps,
         'device_busy_ms_per_forward': busy_us / per,
