@@ -14,16 +14,32 @@ Phases, each of which exits non-zero on failure:
      model (128x128 LR -> 512x512 HR, 2 static variables, 1 predictor) on 16
      grids at batch 8, count the kernel launches it made, and compare grid 0
      with the same model and weights run on the CPU;
-  4. hold K2 (the ConvLSTM layer) against its plain version with TF32 off at
-     the six layer shapes of the recresnet_spc model and at width 64, time
-     both, check its other paths (other kernel sizes, channel counts that
-     are not multiples of 4 or 8, one and two rows a thread), and check
-     that weights that require grad raise;
+  4. hold K2 (the ConvLSTM layer, inference variant) against its plain
+     version with TF32 off at the six layer shapes of the recresnet_spc
+     model and at width 64, time both, check its other paths (other kernel
+     sizes, channel counts that are not multiples of 4 or 8, one and two
+     rows a thread), and check that a layer whose weights require grad
+     runs K2's training variant and K3 for its gradient;
   5. drive the spatio-temporal path: full-width `predict(time_window=4)` of
      the recresnet_spc x4 model on 19 grids (16 windows of 4) at batch 8,
      count its launches, and compare grid 0 and the last 4 grids with the
      same model run on the CPU;
-  6. print the `kernels` JSON line, then, last, the device JSON line.
+  6. hold K2's training variant (ys and the cs, zs residuals) and K3 (the
+     BPTT backward: dx, dWx, dbx, dWh) against their plain versions with
+     TF32 off at the six layer shapes of a recresnet_spc training step
+     (batch 128, T 4, 16x16 LR patches), at width 64 and on their other
+     paths (T = 1, odd F, F = 12, 1x3, 3x5 and 7x7 kernels, ragged tiles, x
+     without a gradient), check that two runs of K3 give the same bits, and
+     time both kernels against their plain versions and their bounds;
+  7. drive recurrent training: `SupervisedTrainer(time_window=4)` on the
+     recresnet_spc x4 configuration of bench_suite.py (256 grids of
+     128x128, 64x64 patches, batch 128, mae) for 2 epochs of 20 steps with
+     validation and test, count the launches of K2 (both variants) and K3,
+     require finite losses, time the steps (patches/s on the host clock,
+     one step on CUDA events), then run 3 steps at batch 16 from one seed
+     on the GPU (TF32 off, cuDNN deterministic) and on the CPU and compare
+     the losses and the parameters;
+  8. print the `kernels` JSON line, then, last, the device JSON line.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -65,8 +81,50 @@ K2_WIDE_LR = 32
 # any other size)
 K2_OTHER_PATHS = [(2, 3, 9, 41, 3, 6, 1, 3), (8, 3, 72, 100, 4, 4, 5, 5),
                   (8, 3, 72, 100, 5, 5, 7, 7), (8, 2, 40, 40, 6, 12, 3, 3)]
-# kernel vs plain version with TF32 off: f32 sums in another order
+# kernel vs plain version with TF32 off: f32 sums in another order. The
+# training variant's zs residual (the pre-activations, sums of up to
+# kh*kw*(Cin + F) products, printed with their max |zs|) is held to
+# K2_TOL times max(1, max |zs|)
 K2_TOL = 1e-5
+# training path: recresnet_spc x4 trained as bench_suite.py's
+# measure_supervised does (256 grids of 128x128, 64x64 HR patches, batch
+# 128, mae), float32; 2 epochs of 20 steps, 2 validation and 2 test steps
+TRAIN_GRIDS, TRAIN_HR, TRAIN_PATCH, TRAIN_BATCH = 256, 128, 64, 128
+TRAIN_LR = TRAIN_PATCH // SCALE
+TRAIN_EPOCHS, TRAIN_STEPS, TRAIN_VAL_STEPS, TRAIN_TEST_STEPS = 2, 20, 2, 2
+# (Cin, F, k) of the six ConvLSTM layers of a training step: the stem block
+# takes the one grid channel (no predictors, no statics)
+K3_LAYERS = [layer for cin in [1] + [N_FILTERS] * REC_BLOCKS
+             for layer in ((cin, N_FILTERS, 5), (N_FILTERS, N_FILTERS, 3))]
+# (B, T, H, W, Cin, F, kh, kw, x needs a gradient) of K2-train's and K3's
+# other paths: T = 1 (no chain, no dWh), 1x3 and odd F, 3x5 with ragged
+# tiles, two channel groups (F = 12, 48 gate channels), 7x7 (two row-tile
+# chunks in the weight gradient, more than 48 KB of shared memory), x
+# without a gradient (no dx launch), and shapes that give two rows a thread.
+# With the training shapes (one row a thread) they run each of the six
+# compiled bodies (1 or 2 rows a thread x 3x3, 5x5 or any other size) of
+# K2-train, of K3's chain step and of K3's dx kernel.
+K3_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 1, 3, True),
+                  (3, 3, 20, 37, 5, 5, 3, 5, True),
+                  (2, 3, 40, 40, 6, 12, 3, 3, True),
+                  (2, 2, 19, 23, 8, 4, 7, 7, True),
+                  (4, 3, 16, 16, 2, 8, 5, 5, False),
+                  (2, 2, 12, 20, 4, 8, 5, 5, True),
+                  (8, 2, 72, 100, 4, 4, 5, 5, True),
+                  (16, 2, 64, 96, 5, 5, 3, 3, True),
+                  (8, 2, 72, 100, 3, 6, 7, 7, True)]
+# K3 against its plain version run in float64 on the same inputs (cuDNN's
+# float32 weight gradient is itself off by 9e-3 of max |ref| at 5x5 and 64
+# channels, TF32 off, deterministic or not; float64 on the card agrees with
+# float64 on the CPU within 1e-15), each gradient's max |d| over its max
+# |ref|: float32 sums of kh*kw*4F products (dx) or of all B*T*H*W pixels in
+# 256-pixel partials (the weights)
+K3_DX_TOL, K3_W_TOL = 1e-5, 1e-5
+# GPU (TF32 off, cuDNN deterministic) against CPU training steps: the
+# losses are means over 16*4*64*64 pixels; Adam's update lr*g/(|g|+1e-7)
+# turns a difference of 1e-9 in a small gradient into up to 1e-5 in a
+# parameter each step
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-4
 
 
 def fail(msg):
@@ -335,14 +393,24 @@ def phase_convlstm(torch, tds, report):
             fail(f'K2 x{list(x.shape)} F={f} k={kh}x{kw}: max|d| {err:.3e} '
                  f'against atol {K2_TOL}')
 
-    layer = ConvLSTM2D(2, N_FILTERS, (3, 3)).to(dev)  # weights need grad
-    try:
-        layer(torch.randn((1, 2, 8, 8, 2), device=dev))
-    except NotImplementedError as e:
-        print(f'K2 with CUDA weights that require grad raises: {e}',
-              flush=True)
-    else:
-        fail('K2 ran with CUDA weights that require grad')
+    # weights that require grad: the layer runs K2's training variant (2
+    # step launches) and its gradient K3 (2 chain steps, the Wx and Wh
+    # passes and their reduction; x needs no gradient, so no dx)
+    layer = ConvLSTM2D(2, N_FILTERS, (3, 3))
+    layer.reset_parameters(torch.Generator().manual_seed(99))
+    layer = layer.to(dev)
+    before = (fcl.launches, fcl.train_launches, fcl.bwd_launches)
+    layer(torch.randn((1, 2, 8, 8, 2), device=dev)).square().sum().backward()
+    torch.cuda.synchronize()
+    got = tuple(n - m for n, m in zip(
+        (fcl.launches, fcl.train_launches, fcl.bwd_launches), before))
+    grads = [p.grad for p in layer.parameters()]
+    print(f'K2 with CUDA weights that require grad: K2 inference, training '
+          f'and K3 launches {got} (expected (0, 2, 5))', flush=True)
+    if got != (0, 2, 5) or not all(
+            g is not None and bool(torch.isfinite(g).all()) for g in grads):
+        fail(f'a ConvLSTM layer with weights that require grad launched '
+             f'{got} (expected (0, 2, 5)) or gave non-finite gradients')
     by_shape = {(r['x'][-1], r['f'], r['k']): r for r in rows
                 if r['x'][2] == LR}
     report['k2_rows'] = rows
@@ -430,6 +498,265 @@ def phase_recurrent_predict(torch, tds, report):
                   rec_forward_ms=fwd_ms, rec_cpu_err=err)
 
 
+def k3_work(x, wx, wh, need_dx):
+    """(flops, bytes) of the layer's BPTT: dx (when x needs it) and dWx
+    over all T steps, the dh chain and dWh over T-1 (h_{-1} = 0, and no
+    recurrent term at the last step); x, the weights, zs, cs, ys and dys
+    read once, dx and the three parameter gradients written once."""
+    b, t, h, w, cin = x.shape
+    kh, kw, _, f4 = wx.shape
+    f = f4 // 4
+    per_x = 2 * b * t * h * w * kh * kw * cin * f4
+    per_h = 2 * b * (t - 1) * h * w * kh * kw * f * f4
+    flops = (2 if need_dx else 1) * per_x + 2 * per_h
+    n_bytes = 4 * ((2 if need_dx else 1) * x.numel() + 2 * wx.numel() + f4
+                   + 2 * wh.numel() + b * t * h * w * (f4 + 3 * f))
+    return flops, n_bytes
+
+
+def _layer_weights(torch, cin, f, kh, kw, seed, dev):
+    from dl4ds_tpu_torch.models.blocks import ConvLSTM2D
+    layer = ConvLSTM2D(cin, f, (kh, kw))          # Keras init
+    layer.reset_parameters(torch.Generator().manual_seed(seed))
+    return tuple(p.detach().to(dev) for p in (
+        layer.input_conv.kernel, layer.input_conv.bias,
+        layer.cell.recurrent_conv.kernel))
+
+
+def _check_k3_case(torch, conv, x, wx, bx, wh, dys, need_dx, label):
+    """K2's training variant and K3 against their plain versions on one
+    input; the plain backward takes the kernel's residuals, in float64 (and
+    in float32, whose own error is returned). Returns the errors and the
+    kernel's outputs."""
+    with torch.no_grad():
+        ys, cs, zs = conv._launch(x, wx, bx, wh, train=True)
+        want = conv.convlstm_train_reference(x, wx, bx, wh)
+        args = (x, wx, wh, zs, cs, ys, dys)
+        grads = conv._launch_backward(*args, need_dx)
+        again = conv._launch_backward(*args, need_dx)
+        ref = conv.convlstm_backward_reference(*(u.double() for u in args))
+        ref32 = conv.convlstm_backward_reference(*args)
+    torch.cuda.synchronize()
+    fwd_err = [(a - b).abs().max().item() for a, b in zip((ys, cs, zs), want)]
+    zs_scale = max(1.0, want[2].abs().max().item())
+    if not (max(fwd_err[:2]) <= K2_TOL and fwd_err[2] <= K2_TOL * zs_scale):
+        fail(f'K2-train {label}: ys, cs, zs max|d| {fwd_err} against atol '
+             f'{K2_TOL} ({K2_TOL * zs_scale:.2e} for zs)')
+    errs = {}
+    for name, g, r, tol in zip(('dx', 'dwx', 'dbx', 'dwh'), grads, ref,
+                               (K3_DX_TOL, K3_W_TOL, K3_W_TOL, K3_W_TOL)):
+        if g is None:
+            if need_dx or name != 'dx':
+                fail(f'K3 {label}: no {name}')
+            continue
+        if g.shape != r.shape:
+            fail(f'K3 {label}: {name} shape {tuple(g.shape)}, expected '
+                 f'{tuple(r.shape)}')
+        scale = max(r.abs().max().item(), 1e-30)
+        errs[name] = (g.double() - r).abs().max().item() / scale
+        if not errs[name] <= tol:
+            fail(f'K3 {label}: {name} max|d| / max|ref| {errs[name]:.3e} '
+                 f'against {tol}')
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)
+               if a is not None):
+        fail(f'K3 {label}: two runs gave different bits')
+    errs['plain_f32'] = max(
+        (g.double() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+        for g, r in zip(ref32, ref))
+    return fwd_err + [zs_scale], errs, (ys, cs, zs)
+
+
+def phase_convlstm_grad(torch, tds, report):
+    """Phase 6: K2's training variant and K3 against their plain versions
+    with TF32 off, at the layer shapes of a recresnet_spc training step, at
+    width 64 and on their other paths; timed at the first two."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    cases = [((cin, f, k, k), TRAIN_BATCH, TRAIN_LR, cin != 1)
+             for cin, f, k in dict.fromkeys(K3_LAYERS)]
+    cases += [((cin, f, k, k), BATCH, K2_WIDE_LR, True)
+              for cin, f, k in K2_WIDE]
+    rows = []
+    for i, ((cin, f, kh, kw), b, size, need_dx) in enumerate(cases):
+        wx, bx, wh = _layer_weights(torch, cin, f, kh, kw, 100 + i, dev)
+        x = torch.randn((b, REC_T, size, size, cin), generator=gen, device=dev)
+        dys = torch.randn((b, REC_T, size, size, f), generator=gen,
+                          device=dev)
+        label = f'x{list(x.shape)} F={f} k={kh}'
+        fwd_err, errs, (ys, cs, zs) = _check_k3_case(
+            torch, conv, x, wx, bx, wh, dys, need_dx, label)
+        with torch.no_grad():
+            k2_ms, k2_plain_ms = paired_ms(
+                torch, lambda: conv._launch(x, wx, bx, wh, train=True),
+                lambda: conv.convlstm_train_reference(x, wx, bx, wh), flush)
+            k3_ms, k3_plain_ms = paired_ms(
+                torch, lambda: conv._launch_backward(
+                    x, wx, wh, zs, cs, ys, dys, need_dx),
+                lambda: conv.convlstm_backward_reference(
+                    x, wx, wh, zs, cs, ys, dys), flush)
+        flops, n_bytes = k2_work(x, wx, wh)
+        n_bytes += 4 * 5 * ys.numel()                # cs and zs written
+        k2_bound = max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
+        k3_flops, k3_bytes = k3_work(x, wx, wh, need_dx)
+        k3_bound = max(k3_flops / F32_FLOPS,
+                       k3_bytes / HBM_BYTES_PER_S) * 1e3
+        rows.append(dict(
+            x=list(x.shape), f=f, k=kh, dx=need_dx, ys_cs_zs_err=fwd_err[:3],
+            max_abs_zs=fwd_err[3],
+            grad_rel_err=errs, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+            k2_bound_ms=k2_bound, k2_gflop=flops / 1e9, k3_ms=k3_ms,
+            k3_plain_ms=k3_plain_ms, k3_bound_ms=k3_bound,
+            k3_gflop=k3_flops / 1e9))
+        print(f'K2-train {label}  ys, cs, zs max|d| '
+              + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
+              + f' (max|zs| {fwd_err[3]:.2f})  kernel '
+              f'{k2_ms:.4f} ms  plain {k2_plain_ms:.4f} ms  bound '
+              f'{k2_bound:.4f} ms ({flops / 1e9:.3f} GFLOP)', flush=True)
+        print(f'K3 {label}{"" if need_dx else " (no dx)"}  max|d|/max|ref| '
+              + ' '.join(f'{k} {v:.2e}' for k, v in errs.items())
+              + f'  same bits twice  kernel {k3_ms:.4f} ms  plain '
+              f'{k3_plain_ms:.4f} ms  bound {k3_bound:.4f} ms '
+              f'({k3_flops / 1e9:.3f} GFLOP)  library_ms null (no single '
+              f'PyTorch call computes a ConvLSTM layer or its BPTT)',
+              flush=True)
+
+    for i, (b, t, h, w, cin, f, kh, kw, need_dx) in enumerate(
+            K3_OTHER_PATHS):
+        wx, bx, wh = _layer_weights(torch, cin, f, kh, kw, 200 + i, dev)
+        x = torch.randn((b, t, h, w, cin), generator=gen, device=dev)
+        dys = torch.randn((b, t, h, w, f), generator=gen, device=dev)
+        label = f'x{list(x.shape)} F={f} k={kh}x{kw}'
+        fwd_err, errs, _ = _check_k3_case(torch, conv, x, wx, bx, wh, dys,
+                                          need_dx, label)
+        rows_step = conv._rows_per_thread(b, h, w, f, n_sm)
+        rows_dx = conv._rows_per_thread(b * t, h, w, cin, n_sm)
+        print(f'K2-train/K3 {label} ({rows_step} rows a thread, dx '
+              f'{rows_dx if need_dx else "none"})  ys, cs, '
+              f'zs max|d| ' + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
+              + f' (max|zs| {fwd_err[3]:.2f})'
+              + f'  max|d|/max|ref| '
+              + ' '.join(f'{k} {v:.2e}' for k, v in errs.items()), flush=True)
+    by_shape = {(r['x'][-1], r['f'], r['k']): r for r in rows
+                if r['x'][0] == TRAIN_BATCH}
+    report['k3_rows'] = rows
+    report['k3_step'] = [by_shape[shape] for shape in K3_LAYERS]
+
+
+def phase_training(torch, tds, report):
+    """Phase 7: recurrent training through SupervisedTrainer on the card."""
+    import numpy as np
+    fcl = tds.fused_convlstm
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    data = rng.standard_normal(
+        (TRAIN_GRIDS, TRAIN_HR, TRAIN_HR, 1)).astype('float32')
+    config = dict(backbone='resnet', upsampling='spc', data_train=data,
+                  data_val=data[:64], data_test=data[:64], scale=SCALE,
+                  patch_size=TRAIN_PATCH, loss='mae', time_window=REC_T,
+                  n_blocks=REC_BLOCKS, n_filters=N_FILTERS, verbose=False)
+    tr = tds.SupervisedTrainer(
+        batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+        steps_per_epoch=TRAIN_STEPS, validation_steps=TRAIN_VAL_STEPS,
+        test_steps=TRAIN_TEST_STEPS, **config)
+    fcl.launches = fcl.train_launches = fcl.bwd_launches = 0
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = (fcl.train_launches, fcl.launches, fcl.bwd_launches)
+    n_layers = len(K3_LAYERS)
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
+    # K3 a layer: T chain steps, dx (not for the stem, whose input needs no
+    # gradient), the Wx and Wh passes and one reduction
+    k3_per_step = sum(REC_T + (cin != 1) + 3 for cin, _, _ in K3_LAYERS)
+    expected = (steps * n_layers * REC_T,
+                (TRAIN_EPOCHS * TRAIN_VAL_STEPS + TRAIN_TEST_STEPS)
+                * n_layers * REC_T,
+                steps * k3_per_step)
+    losses = tr.fithist['loss'] + tr.fithist['val_loss'] + [tr.test_loss]
+    print(f'training: {tr.model.name}, {tr.model.param_count(tr.net)} '
+          f'parameters, batch {TRAIN_BATCH}, {TRAIN_EPOCHS} epochs of '
+          f'{TRAIN_STEPS} steps in {run_s:.2f} s; history {tr.fithist}, '
+          f'test loss {tr.test_loss:.6f}; launches K2-train, K2 inference, '
+          f'K3 {got} (expected {expected}: {n_layers * REC_T} K2-train and '
+          f'{k3_per_step} K3 a step, {n_layers * REC_T} K2 inference a '
+          f'validation or test step)', flush=True)
+    if got != expected:
+        fail(f'recurrent training launched K2-train, K2 inference and K3 '
+             f'{got} times, expected {expected}')
+    if not all(np.isfinite(v) for v in losses):
+        fail(f'recurrent training gave non-finite losses {losses}')
+    report['k2_train_launches'], _, report['k3_launches'] = got
+    report['train_k2_inference_launches'] = got[1]
+
+    # speed: steps with their batch synthesis on the host clock, and one
+    # step alone on CUDA events
+    gen = torch.Generator().manual_seed(1)
+    idx = tr.ds_train.epoch_indices(gen, steps=TRAIN_STEPS)
+    tr.net.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(TRAIN_STEPS):
+        tr.train_step(tr.ds_train(idx[c], generator=gen))
+    torch.cuda.synchronize()
+    patches_per_s = TRAIN_STEPS * TRAIN_BATCH / (time.perf_counter() - t0)
+    batch = tr.ds_train(idx[0], generator=gen)
+    step_ms = statistics.median(
+        device_times(torch, lambda: tr.train_step(batch), reps=10))
+    k2_ms = sum(r['k2_ms'] for r in report['k3_step'])
+    k3_ms = sum(r['k3_ms'] for r in report['k3_step'])
+    print(f'training step at batch {TRAIN_BATCH} (TF32 convs in the head, '
+          f'the default; K2 and K3 are float32 FMA): {patches_per_s:.1f} '
+          f'patches/s end to end (host clock, batch synthesis included); one '
+          f'step {step_ms:.3f} ms (CUDA events) = '
+          f'{TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; of which K2-train '
+          f'{k2_ms:.3f} ms ({100 * k2_ms / step_ms:.1f}%) and K3 {k3_ms:.3f} '
+          f'ms ({100 * k3_ms / step_ms:.1f}%), from phase 6; '
+          f'{torch.cuda.get_device_name(0)}', flush=True)
+
+    # 3 steps from one seed on the GPU and on the CPU, at batch 16
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        small = tds.SupervisedTrainer(batch_size=16, epochs=1,
+                                      device=device, **config)
+        small.setup_datagen()
+        small.setup_model()
+        small.setup_optimizer()
+        small.net.train()
+        gen = torch.Generator().manual_seed(3)
+        idx = small.ds_train.epoch_indices(gen, steps=3)
+        losses = [small.train_step(small.ds_train(idx[c], generator=gen))
+                  .item() for c in range(3)]
+        runs[device] = (losses, {n: p.detach().cpu() for n, p in
+                                 small.net.named_parameters()})
+    torch.backends.cudnn.deterministic = False
+    (gpu_losses, gpu_params), (cpu_losses, cpu_params) = (runs['cuda'],
+                                                          runs['cpu'])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses,
+                                                       cpu_losses))
+    param_err = max((gpu_params[n] - cpu_params[n]).abs().max().item()
+                    for n in cpu_params)
+    print(f'3 training steps at batch 16, GPU (TF32 off, cuDNN '
+          f'deterministic) vs CPU: losses {gpu_losses} vs {cpu_losses}, max '
+          f'relative difference {loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); '
+          f'parameters max|d| {param_err:.3e} (atol {TRAIN_PARAM_ATOL})',
+          flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL):
+        fail(f'GPU training steps disagree with the CPU: losses '
+             f'{loss_err:.3e}, parameters {param_err:.3e}')
+    report.update(train_patches_per_s=patches_per_s, train_step_ms=step_ms,
+                  train_run_s=run_s, train_cpu_loss_rel_err=loss_err,
+                  train_cpu_param_err=param_err)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -458,6 +785,8 @@ def main():
     phase_predict(torch, tds, report)
     phase_convlstm(torch, tds, report)
     phase_recurrent_predict(torch, tds, report)
+    phase_convlstm_grad(torch, tds, report)
+    phase_training(torch, tds, report)
 
     f32 = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
     k1 = {'name': 'K1_channel_attention', 'route': 'cuda',
@@ -484,12 +813,43 @@ def main():
           'work': f'the {len(fwd)} ConvLSTM layers of one float32 '
                   f'recresnet_spc forward at batch {BATCH}, T {REC_T}, '
                   f'summed'}
+    step = report['k3_step']
+    k3_rows = report['k3_rows']
+    step_work = (f'the {len(step)} ConvLSTM layers of one float32 '
+                 f'recresnet_spc training step at batch {TRAIN_BATCH}, T '
+                 f'{REC_T}, {TRAIN_LR}x{TRAIN_LR}, summed')
+    k2_train = {'name': 'K2_convlstm_train', 'route': 'cuda',
+                'source': 'dl4ds_tpu_torch/csrc/convlstm.cu',
+                'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:219',
+                'launches': report['k2_train_launches'],
+                'max_abs_err': max(max(r['ys_cs_zs_err'][:2])
+                                   for r in k3_rows),
+                'ms': sum(r['k2_ms'] for r in step),
+                'plain_ms': sum(r['k2_plain_ms'] for r in step),
+                'bound_ms': sum(r['k2_bound_ms'] for r in step),
+                'bound_by': 'operations', 'library_ms': None,
+                'work': step_work + ' (save_residuals=True: ys, cs, zs); '
+                        'max_abs_err is that of ys and cs'}
+    k3 = {'name': 'K3_convlstm_bptt', 'route': 'cuda',
+          'source': 'dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+          'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:335',
+          'launches': report['k3_launches'],
+          'max_abs_err': max(max(v for k, v in r['grad_rel_err'].items()
+                                 if k != 'plain_f32') for r in k3_rows),
+          'ms': sum(r['k3_ms'] for r in step),
+          'plain_ms': sum(r['k3_plain_ms'] for r in step),
+          'bound_ms': sum(r['k3_bound_ms'] for r in step),
+          'bound_by': 'operations', 'library_ms': None,
+          'work': step_work + '; max_abs_err is max|d| / max|ref| of dx, '
+                  'dWx, dbx and dWh against the plain version in float64'}
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
+    print(json.dumps({'k3_shapes': k3_rows}), flush=True)
     print(json.dumps({k: v for k, v in report.items()
-                      if not k.startswith(('k1_', 'k2_'))}), flush=True)
+                      if not k.startswith(('k1_', 'k2_', 'k3_'))}),
+          flush=True)
     print(card, flush=True)
-    print(json.dumps({'kernels': [k1, k2]}), flush=True)
+    print(json.dumps({'kernels': [k1, k2, k2_train, k3]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

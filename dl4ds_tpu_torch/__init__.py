@@ -7,7 +7,8 @@ inputs and weights can be fed through both. The hot kernels that the JAX
 package wrote in Pallas are written by hand in CUDA C++ (`csrc/`), built
 with `nvcc` at first use and launched on PyTorch's current stream.
 
-Entry points run on the GPU unless the caller passes `device='cpu'`.
+Entry points (`predict`, `SupervisedTrainer`) run on the GPU unless the
+caller passes `device='cpu'`.
 """
 
 __version__ = "0.1.0"
@@ -59,7 +60,11 @@ from .utils import (checkarray_ndim, Timing, checkarg_upsampling,
 from .ops import (depth_to_space, fused_channel_attention,
                   channel_attention_reference, fused_convlstm,
                   convlstm_reference)
+from . import losses
+from .losses import mae, mse
 from .dataloader import BatchSynthesizer
-from .models import DSModel, net_postupsampling, recnet_postupsampling
+from .models import (DSModel, build_model, net_postupsampling,
+                     recnet_postupsampling)
 from .weights import load_jax_params
 from .inference import Predictor, predict
+from .training import SupervisedTrainer

@@ -1,4 +1,6 @@
-// Fused ConvLSTM layer forward (K2) for NVIDIA Hopper (sm_90a), inference.
+// Fused ConvLSTM layer forward (K2) for NVIDIA Hopper (sm_90a), in its
+// inference variant (ys only) and its training variant (ys plus the cs and
+// zs residuals that the BPTT backward K3, csrc/convlstm_bwd.cu, reads).
 //
 //   z   = conv_same(x_t, wx) + bx + conv_same(h_{t-1}, wh)     gates i, f, c, o
 //   c_t = hs(z_f) * c_{t-1} + hs(z_i) * tanh(z_c)
@@ -46,12 +48,18 @@
 //     broadcasts. The stage is about 48 KB at 5x5, so two blocks share an
 //     SM, and it does not grow with Cin or F: every width runs this path;
 //   - c lives in a float32 [B, H, W, F] scratch the caller allocates, read
-//     and written by the thread that owns the pixel;
+//     and written by the thread that owns the pixel. The training variant
+//     (TRAIN, a zs output given) reads c_{t-1} from cs[:, t-1] and writes
+//     c_t to cs[:, t] instead, and writes the accumulators, z with the bias
+//     and the recurrent term, to zs[:, t] before the gates. It is a template
+//     flag, not a runtime branch: a uniform branch in the epilogue cost the
+//     inference variant 1.5% (chip_smoke.py, parent and change in turns on
+//     one H100 SXM at 700 W);
 //   - 3x3 and 5x5 are compiled with the kernel size known, which folds the
 //     tile geometry into constants (about 4% at the (8, 8, 5x5) layer
 //     against the generic body, by chip_smoke.py on an H100 SXM at 700 W);
 //     any other odd size runs the generic body. With PY in {1, 2} that
-//     makes six instantiations.
+//     makes six instantiations of each variant.
 // Per input value and tap a thread issues PY shared loads of x or h, 8
 // float4 weight loads and PY*32 FMAs (64 at PY = 2). A later PR would keep
 // h and c on chip across steps (a cluster or a persistent grid with a
@@ -82,12 +90,13 @@ constexpr int smem_floats(int py, int kh, int kw) {
 
 // One time step. Grid: (spatial tiles, ceil(F / 8) channel groups, B). K is
 // the kernel size when it is 3 or 5 (the tile geometry is then known at
-// compile time), 0 for any other odd kh x kw.
-template <int PY, int K>
+// compile time), 0 for any other odd kh x kw. TRAIN: the training variant.
+template <int PY, int K, bool TRAIN>
 __global__ void __launch_bounds__(kThreads, 2)
 convlstm_step(const float* __restrict__ x, const float* __restrict__ wx,
               const float* __restrict__ bx, const float* __restrict__ wh,
-              float* __restrict__ ys, float* __restrict__ cst, int t_steps,
+              float* __restrict__ ys, float* __restrict__ cst,
+              float* __restrict__ zs, int t_steps,
               int step, int h, int wd, int cin, int f, int kh_, int kw_,
               int tiles_x) {
   constexpr int TH = kTY * PY;
@@ -204,12 +213,24 @@ convlstm_step(const float* __restrict__ x, const float* __restrict__ wx,
     const int y = y0 + ty + kTY * p;
     if (y >= h || xq >= wd) continue;
     const int64_t pix = (int64_t)y * wd + xq;
-    float* cp = cst + ((int64_t)b * hw + pix) * f + f0;
+    // inference: c in the [B, H, W, F] scratch; training: c_t in cs[:, t]
+    // and c_{t-1} in cs[:, t-1], z in zs[:, t]
+    float* cp = TRAIN ? cst + (frame * hw + pix) * f + f0
+                      : cst + ((int64_t)b * hw + pix) * f + f0;
+    const float* cprev = TRAIN && step > 0 ? cp - hw * f : cp;
     float* yp = ys + (frame * hw + pix) * f + f0;
+    if (TRAIN) {
+      float* zp = zs + (frame * hw + pix) * 4 * f + f0;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int j = 0; j < kFG; ++j)
+          if (j < nf) zp[g * f + j] = acc[p][g][j];
+    }
 #pragma unroll
     for (int j = 0; j < kFG; ++j) {
       if (j >= nf) break;
-      const float c_prev = step == 0 ? 0.f : cp[j];
+      const float c_prev = step == 0 ? 0.f : cprev[j];
       const float c_new =
           __fadd_rn(__fmul_rn(hard_sigmoid(acc[p][1][j]), c_prev),
                     __fmul_rn(hard_sigmoid(acc[p][0][j]), tanhf(acc[p][2][j])));
@@ -221,9 +242,9 @@ convlstm_step(const float* __restrict__ x, const float* __restrict__ wx,
 
 template <int PY, int K>
 cudaError_t launch(const float* x, const float* wx, const float* bx, const float* wh,
-                   float* ys, float* c, int b, int t_steps, int step, int h, int wd,
-                   int cin, int f, int kh, int kw, cudaStream_t stream) {
-  auto kern = convlstm_step<PY, K>;
+                   float* ys, float* c, float* zs, int b, int t_steps, int step, int h,
+                   int wd, int cin, int f, int kh, int kw, cudaStream_t stream) {
+  auto kern = zs ? convlstm_step<PY, K, true> : convlstm_step<PY, K, false>;
   const int shmem = (int)sizeof(float) * smem_floats(PY, kh, kw);
   if (shmem > kMaxSmem) return cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
@@ -234,38 +255,46 @@ cudaError_t launch(const float* x, const float* wx, const float* bx, const float
   const int tiles_x = (wd + kTX - 1) / kTX;
   const int tiles_y = (h + kTY * PY - 1) / (kTY * PY);
   const dim3 grid(tiles_x * tiles_y, (f + kFG - 1) / kFG, b);
-  kern<<<grid, kThreads, shmem, stream>>>(x, wx, bx, wh, ys, c, t_steps, step, h, wd,
-                                          cin, f, kh, kw, tiles_x);
+  kern<<<grid, kThreads, shmem, stream>>>(x, wx, bx, wh, ys, c, zs, t_steps, step, h,
+                                          wd, cin, f, kh, kw, tiles_x);
   return cudaGetLastError();
 }
 
 template <int PY>
 cudaError_t launch_k(const float* x, const float* wx, const float* bx, const float* wh,
-                     float* ys, float* c, int b, int t_steps, int step, int h, int wd,
-                     int cin, int f, int kh, int kw, cudaStream_t s) {
+                     float* ys, float* c, float* zs, int b, int t_steps, int step, int h,
+                     int wd, int cin, int f, int kh, int kw, cudaStream_t s) {
   if (kh == 5 && kw == 5)
-    return launch<PY, 5>(x, wx, bx, wh, ys, c, b, t_steps, step, h, wd, cin, f, kh, kw, s);
+    return launch<PY, 5>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh,
+                         kw, s);
   if (kh == 3 && kw == 3)
-    return launch<PY, 3>(x, wx, bx, wh, ys, c, b, t_steps, step, h, wd, cin, f, kh, kw, s);
-  return launch<PY, 0>(x, wx, bx, wh, ys, c, b, t_steps, step, h, wd, cin, f, kh, kw, s);
+    return launch<PY, 3>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh,
+                         kw, s);
+  return launch<PY, 0>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh, kw,
+                       s);
 }
 
 }  // namespace
 
 // One time step `step` of the layer. py (1 or 2) is the number of rows a
-// thread computes. ys [B, T, H, W, F] and the c scratch [B, H, W, F] are the
-// caller's; steps must run in order on one stream. Returns the cudaError_t
-// of the launch (0 on success; cudaErrorInvalidValue for a shape the kernel
-// does not take); does not synchronise.
+// thread computes. ys [B, T, H, W, F] is the caller's. With zs NULL
+// (inference) c is a [B, H, W, F] scratch; with zs [B, T, H, W, 4F]
+// (training) c is the cs residual [B, T, H, W, F]. Steps must run in order
+// on one stream. Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for a shape the kernel does not take); does not
+// synchronise.
 extern "C" int dl4ds_convlstm_step(const float* x, const float* wx, const float* bx,
-                                   const float* wh, float* ys, float* c, int b,
-                                   int t_steps, int step, int h, int wd, int cin,
-                                   int f, int kh, int kw, int py, void* stream) {
+                                   const float* wh, float* ys, float* c, float* zs,
+                                   int b, int t_steps, int step, int h, int wd,
+                                   int cin, int f, int kh, int kw, int py,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (py == 2)
-    err = launch_k<2>(x, wx, bx, wh, ys, c, b, t_steps, step, h, wd, cin, f, kh, kw, s);
+    err = launch_k<2>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh, kw,
+                      s);
   else if (py == 1)
-    err = launch_k<1>(x, wx, bx, wh, ys, c, b, t_steps, step, h, wd, cin, f, kh, kw, s);
+    err = launch_k<1>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh, kw,
+                      s);
   return (int)err;
 }

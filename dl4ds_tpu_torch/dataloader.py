@@ -1,13 +1,16 @@
 """
-Device batch synthesis over whole grids
-(the counterpart of `dl4ds_tpu/dataloader.py`'s `BatchSynthesizer`).
+Device batch synthesis (the counterpart of `dl4ds_tpu/dataloader.py`'s
+`BatchSynthesizer`).
 
 The HR dataset, predictors and static variables live on the device. A call
 gathers the requested samples (windows of `time_window` consecutive grids
-for a spatio-temporal model), coarsens them to the LR grid with the matmul
-resize and stacks the LR channels as [lr, predictors, static_lr]; the HR
-statics are the aux input. With time windows the statics go to aux only.
-Random patches and season channels are not ported yet and raise.
+for a spatio-temporal model), whole or as random patches, coarsens them to
+the LR grid with the matmul resize and stacks the LR channels as [lr,
+predictors, static_lr]; the HR statics are the aux input. With time windows
+the statics go to aux only. Patch offsets and epoch permutations are drawn
+from a CPU `torch.Generator` and then moved to the device, so one seed gives
+the same batches on every device. Season channels are not ported yet and
+raise.
 """
 
 import numpy as np
@@ -31,8 +34,6 @@ class BatchSynthesizer:
                  patch_size=None, time_window=None, static_vars=None,
                  predictors=None, interpolation='inter_area',
                  season_ids=None, device='cuda'):
-        if patch_size is not None:
-            raise not_ported('random patches', 3)
         if season_ids is not None:
             raise not_ported('season channels', 3)
         if array_lr is not None:
@@ -53,15 +54,25 @@ class BatchSynthesizer:
                   else self.n_total)
         self.lr_y = int(self.hr_y / scale)
         self.lr_x = int(self.hr_x / scale)
+        self.patch_size = patch_size
+        if patch_size is not None:
+            if patch_size % self.scale != 0:
+                raise ValueError('`patch_size` must be divisible by `scale`')
+            if patch_size > min(self.hr_y, self.hr_x):
+                raise ValueError(
+                    f'patch_size={patch_size} exceeds the HR grid '
+                    f'({self.hr_y}x{self.hr_x})')
+            self.patch_lr = patch_size // self.scale
         self.hr = torch.as_tensor(array, device=self.device)
         self.pred, self.n_pred, self.static_hr, self.n_static = \
             _prep_aux_inputs((self.lr_y, self.lr_x), interpolation,
                              self.device, predictors, static_vars)
-        # LR statics join the LR channels of spatial samples only
+        # LR statics join the LR channels of spatial samples only; patches
+        # resize them from each crop
         self.static_lr = (resize2d(self.static_hr, (self.lr_y, self.lr_x),
                                    interpolation)
                           if self.static_hr is not None and time_window is None
-                          else None)
+                          and patch_size is None else None)
 
     @property
     def n_channels_lr(self):
@@ -73,29 +84,98 @@ class BatchSynthesizer:
     def n_channels_aux(self):
         return self.n_static
 
-    def __call__(self, indices):
+    def __call__(self, indices, offsets=None, generator=None):
         """Synthesize the batch of samples `indices` [B] on the device.
         Returns dict(lr=[B(, T), h, w, C], hr=[B(, T), H, W, c],
         aux=[B, H, W, S] or None); sample i of a spatio-temporal batch is
-        the window of grids i .. i + T - 1."""
-        idx = torch.as_tensor(indices, dtype=torch.long, device=self.device)
+        the window of grids i .. i + T - 1.
+
+        With `patch_size`, sample i is the HR patch at HR offsets
+        (scale * ys[i], scale * xs[i]) and its LR resize, where the LR
+        offsets (ys, xs) = `offsets` ([2, B] integers), or, when not given,
+        are drawn uniformly from [0, max(lr - patch_lr, 1)) with the CPU
+        `generator` (ys first), as `_make_batch` draws them
+        (dl4ds_tpu/dataloader.py:683-741)."""
+        idx = torch.as_tensor(indices, dtype=torch.long)
         if idx.numel() and int(idx.max()) + (self.time_window or 1) \
                 > self.n_total:
             raise IndexError(f'sample {int(idx.max())} reaches past the '
                              f'{self.n_total} grids')
+        idx = _to_device(idx, self.device)
         b = idx.shape[0]
-        hr = self._gather(self.hr, idx)
-        parts_lr = [resize2d(hr, (self.lr_y, self.lr_x), self.interpolation)]
-        if self.pred is not None:
-            parts_lr.append(self._gather(self.pred, idx))
         aux = None
-        if self.static_hr is not None:
-            aux = self.static_hr.expand(b, *self.static_hr.shape)
-            if self.time_window is None:
-                parts_lr.append(self.static_lr.expand(b,
-                                                      *self.static_lr.shape))
+        if self.patch_size is None:
+            hr = self._gather(self.hr, idx)
+            lr = resize2d(hr, (self.lr_y, self.lr_x), self.interpolation)
+            pred = (self._gather(self.pred, idx) if self.pred is not None
+                    else None)
+            if self.static_hr is not None:
+                aux = self.static_hr.expand(b, *self.static_hr.shape)
+                static_lr = (self.static_lr.expand(b, *self.static_lr.shape)
+                             if self.time_window is None else None)
+        else:
+            ys, xs = self._patch_offsets(b, offsets, generator)
+            p, plr, s = self.patch_size, self.patch_lr, self.scale
+            hr = self._gather_crop(self.hr, idx, ys * s, xs * s, p)
+            lr = resize2d(hr, (plr, plr), self.interpolation)
+            pred = (self._gather_crop(self.pred, idx, ys, xs, plr)
+                    if self.pred is not None else None)
+            if self.static_hr is not None:
+                rows, cols = _crop_index(ys * s, xs * s, p)
+                aux = self.static_hr[rows[:, :, None], cols[:, None, :]]
+                static_lr = (resize2d(aux, (plr, plr), self.interpolation)
+                             if self.time_window is None else None)
+        parts_lr = [lr] + ([pred] if pred is not None else [])
+        if aux is not None and self.time_window is None:
+            parts_lr.append(static_lr)
         lr = torch.cat(parts_lr, dim=-1) if len(parts_lr) > 1 else parts_lr[0]
         return {'lr': lr, 'hr': hr, 'aux': aux}
+
+    def _patch_offsets(self, b, offsets=None, generator=None):
+        """LR patch offsets (ys, xs) of a batch of b, as long tensors on
+        the device: `offsets` ([2, b]) checked against the grid, or drawn
+        with the CPU `generator`."""
+        max_y = self.lr_y - self.patch_lr
+        max_x = self.lr_x - self.patch_lr
+        if offsets is None:
+            ys = torch.randint(0, max(max_y, 1), (b,), generator=generator)
+            xs = torch.randint(0, max(max_x, 1), (b,), generator=generator)
+        else:
+            ys, xs = (o.to('cpu', torch.long) if isinstance(o, torch.Tensor)
+                      else torch.from_numpy(np.array(o, dtype=np.int64))
+                      for o in offsets)
+            if ys.shape != (b,) or xs.shape != (b,):
+                raise ValueError(f'`offsets` must be [2, {b}]')
+            if (ys.numel() and (int(ys.min()) < 0 or int(xs.min()) < 0
+                                or int(ys.max()) > max_y
+                                or int(xs.max()) > max_x)):
+                raise IndexError(f'patch offsets outside [0, {max_y}] x '
+                                 f'[0, {max_x}]')
+        return _to_device(ys, self.device), _to_device(xs, self.device)
+
+    def epoch_indices(self, generator, steps=None):
+        """Shuffled epoch index matrix [steps, batch_size] on the CPU: one
+        permutation of the n samples, repeated when the steps need more
+        (dl4ds_tpu/dataloader.py:786-794)."""
+        steps = self.n // self.batch_size if steps is None else steps
+        perm = torch.randperm(self.n, generator=generator)
+        reps = -(-(steps * self.batch_size) // self.n)
+        if reps > 1:
+            perm = perm.repeat(reps)
+        return perm[:steps * self.batch_size].reshape(steps, self.batch_size)
+
+    def _gather_crop(self, data, idx, ys, xs, size):
+        """Exact gather + crop of [B(, T), size, size, C] patches at the
+        offsets (ys, xs) of data [N, Y, X, C]: one advanced index, which
+        moves only the patches."""
+        rows, cols = _crop_index(ys, xs, size)
+        if self.time_window is None:
+            return data[idx[:, None, None], rows[:, :, None],
+                        cols[:, None, :]]
+        win = idx[:, None] + torch.arange(self.time_window,
+                                          device=idx.device)[None, :]
+        return data[win[:, :, None, None], rows[:, None, :, None],
+                    cols[:, None, None, :]]
 
     def _gather(self, data, idx):
         """Samples `idx` of `data` [N, ...]; with time windows [B, T, ...]
@@ -106,6 +186,21 @@ class BatchSynthesizer:
                                           device=idx.device)[None, :]
         return data.index_select(0, win.reshape(-1)).reshape(
             idx.shape[0], self.time_window, *data.shape[1:])
+
+
+def _to_device(t, device):
+    """Move a small CPU tensor to `device`. To a GPU through pinned memory
+    and without blocking: a pageable copy would make the host wait for the
+    device at every batch."""
+    if device.type == 'cuda' and t.device.type == 'cpu':
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _crop_index(ys, xs, size):
+    """Row and column indices [B, size] of patches at offsets (ys, xs)."""
+    ar = torch.arange(size, device=ys.device)
+    return ys[:, None] + ar, xs[:, None] + ar
 
 
 def _prep_aux_inputs(lr_hw, interpolation, device, predictors=None,

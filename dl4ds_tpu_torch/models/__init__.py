@@ -12,13 +12,15 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .. import POSTUPSAMPLING_METHODS
 from ..utils import (checkarg_backbone, checkarg_upsampling,
-                     checkarg_dropout_variant, not_ported, resolve_device)
+                     checkarg_dropout_variant, check_compatibility_upsbackb,
+                     not_ported, resolve_device)
 from .nets import NetPostupsampling, RecNetPostupsampling
 from . import blocks
 
 __all__ = ['DSModel', 'net_postupsampling', 'recnet_postupsampling',
-           'blocks']
+           'build_model', 'blocks']
 
 
 @dataclasses.dataclass
@@ -126,3 +128,26 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
                  if n_aux_channels > 0 else None)
     return DSModel(build, f'rec{backbone_block}_{upsampling}',
                    (time_window, h_lr, w_lr, n_channels), aux_shape)
+
+
+def build_model(backbone, upsampling, scale, n_channels, n_aux_channels,
+                lr_size, hr_size, time_window=None, **params):
+    """Single dispatcher over the model factories, as the JAX package's
+    (dl4ds_tpu/models/__init__.py:309-342): a time window above 1 builds the
+    spatio-temporal model. The post-upsampling factories are ported; 'pin'
+    raises."""
+    spatiotemporal = time_window is not None and time_window > 1
+    check_compatibility_upsbackb(backbone, upsampling,
+                                 time_window if spatiotemporal else None)
+    if upsampling in POSTUPSAMPLING_METHODS:
+        if spatiotemporal:
+            return recnet_postupsampling(
+                backbone_block=backbone, upsampling=upsampling, scale=scale,
+                n_channels=n_channels, n_aux_channels=n_aux_channels,
+                lr_size=lr_size, time_window=time_window, **params)
+        return net_postupsampling(
+            backbone_block=backbone, upsampling=upsampling, scale=scale,
+            n_channels=n_channels, n_aux_channels=n_aux_channels,
+            lr_size=lr_size, **params)
+    raise not_ported(f'upsampling {upsampling!r} (recnet_pin, unet_pin, '
+                     f'net_pin)', 6)

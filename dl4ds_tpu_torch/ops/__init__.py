@@ -3,8 +3,11 @@
 from .array import depth_to_space
 from .fused_ops import (fused_channel_attention, channel_attention_reference,
                         FusedChannelAttention)
-from .convlstm import fused_convlstm, convlstm_reference
+from .convlstm import (fused_convlstm, convlstm_reference,
+                       convlstm_train_reference, convlstm_backward_reference,
+                       FusedConvLSTM)
 
 __all__ = ['depth_to_space', 'fused_channel_attention',
            'channel_attention_reference', 'FusedChannelAttention',
-           'fused_convlstm', 'convlstm_reference']
+           'fused_convlstm', 'convlstm_reference', 'convlstm_train_reference',
+           'convlstm_backward_reference', 'FusedConvLSTM']

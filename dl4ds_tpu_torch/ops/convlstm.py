@@ -1,16 +1,21 @@
 """
-Fused ConvLSTM layer forward (K2), the counterpart of
-`dl4ds_tpu/ops/pallas_convlstm.py`'s `fused_convlstm` (inference variant).
+Fused ConvLSTM layer (K2 forward, K3 backward), the counterpart of
+`dl4ds_tpu/ops/pallas_convlstm.py`'s `fused_convlstm`.
 
-On a CUDA tensor `fused_convlstm` launches the hand-written Hopper kernel in
-`csrc/convlstm.cu`, once per time step; on a CPU tensor it computes the plain
-PyTorch version, `convlstm_reference`. There is no size-based or error-based
-fallback on the GPU. The layer's gradient is the BPTT backward (K3/K4), which
-is not ported yet: on the GPU an input that requires grad raises.
+On CUDA tensors `fused_convlstm` launches the hand-written Hopper kernels:
+without a gradient to take, K2's inference variant (`csrc/convlstm.cu`, one
+launch per time step); with one (grad mode on and an input that requires
+grad), `FusedConvLSTM`, whose forward is K2's training variant (the same
+step kernel, also writing the `cs` and `zs` residuals) and whose backward is
+K3, the BPTT kernels of `csrc/convlstm_bwd.cu`. On CPU tensors the same
+routing runs the plain PyTorch versions, `convlstm_train_reference` and
+`convlstm_backward_reference`, which are the kernels' oracles. There is no
+size-based or error-based fallback on the GPU.
 
 Weights keep the JAX layout: wx [kh, kw, Cin, 4F] (HWIO), bx [4F],
 wh [kh, kw, F, 4F], gates split along 4F in the order i, f, c, o.
-Activations are [B, T, H, W, C].
+Activations are [B, T, H, W, C]; the residuals are zs [B, T, H, W, 4F]
+(the pre-activations, gate-major along the last axis) and cs [B, T, H, W, F].
 """
 
 import ctypes
@@ -19,15 +24,25 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ..utils import not_ported
 
-__all__ = ['fused_convlstm', 'convlstm_reference', 'hard_sigmoid']
+__all__ = ['fused_convlstm', 'convlstm_reference', 'convlstm_train_reference',
+           'convlstm_backward_reference', 'FusedConvLSTM', 'hard_sigmoid',
+           'd_hard_sigmoid']
 
 
 def hard_sigmoid(x):
     """Keras hard_sigmoid, clip(0.2 x + 0.5, 0, 1): the ConvLSTM gate
     (not `F.hardsigmoid`, which is clip(x / 6 + 0.5, 0, 1))."""
     return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
+def d_hard_sigmoid(x):
+    """Derivative of `hard_sigmoid` as the JAX kernel takes it
+    (`_d_hard_sigmoid`, dl4ds_tpu/ops/pallas_convlstm.py:73-79): 0.2 where
+    the gate lies strictly between 0 and 1, so 0 at z = +-2.5 (autograd
+    through `torch.clamp` passes the gradient at the ends)."""
+    g = hard_sigmoid(x)
+    return torch.where((g > 0) & (g < 1), 0.2, 0.0).to(x.dtype)
 
 
 def _conv_same(x, w):
@@ -39,11 +54,33 @@ def _conv_same(x, w):
     return y.permute(0, 2, 3, 1)
 
 
-def convlstm_reference(x, wx, bx, wh):
-    """Plain PyTorch whole layer (transcribes `convlstm_reference`,
-    dl4ds_tpu/ops/pallas_convlstm.py:82-112): the input conv over all B*T
-    frames at once, then the recurrent conv, gates and state updates step by
-    step. x: [B, T, H, W, Cin]; returns (ys, cs): [B, T, H, W, F]."""
+def _conv_same_t(dz, w):
+    """The adjoint of `_conv_same` in its input: dz [N, H, W, Co] -> [N, H,
+    W, C] for the HWIO kernel w [kh, kw, C, Co]."""
+    kh, kw = w.shape[:2]
+    y = F.conv_transpose2d(dz.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                           padding=(kh // 2, kw // 2))
+    return y.permute(0, 2, 3, 1)
+
+
+def _conv_same_w(src, dz, w_shape):
+    """The adjoint of `_conv_same` in its kernel: sum over the frames of
+    src [N, H, W, C] and dz [N, H, W, Co] -> HWIO [kh, kw, C, Co]."""
+    kh, kw, c, co = w_shape
+    g = torch.nn.grad.conv2d_weight(
+        src.permute(0, 3, 1, 2), (co, c, kh, kw), dz.permute(0, 3, 1, 2),
+        padding=(kh // 2, kw // 2))
+    return g.permute(2, 3, 1, 0)
+
+
+def convlstm_train_reference(x, wx, bx, wh):
+    """Plain PyTorch whole layer with the backward's residuals (the input
+    conv over all B*T frames at once, then the recurrent conv, gates and
+    state updates step by step, as `convlstm_reference` and `_fwd_kernel`,
+    dl4ds_tpu/ops/pallas_convlstm.py:82-112 and :244-263). x: [B, T, H, W,
+    Cin]; returns (ys, cs, zs): [B, T, H, W, F] twice and [B, T, H, W, 4F],
+    zs the pre-activation of every step, bias and recurrent term
+    included."""
     _check_kernels(x, wx, bx, wh)
     b, t, h, w, cin = x.shape
     f = wh.shape[2]
@@ -51,7 +88,7 @@ def convlstm_reference(x, wx, bx, wh):
     zx = zx.reshape(b, t, h, w, 4 * f)
     hh = x.new_zeros((b, h, w, f))
     cc = x.new_zeros((b, h, w, f))
-    ys, cs = [], []
+    ys, cs, zs = [], [], []
     for i in range(t):
         z = zx[:, i] + _conv_same(hh, wh)
         zi, zf, zc, zo = torch.split(z, f, dim=-1)
@@ -59,7 +96,55 @@ def convlstm_reference(x, wx, bx, wh):
         hh = hard_sigmoid(zo) * torch.tanh(cc)
         ys.append(hh)
         cs.append(cc)
-    return torch.stack(ys, dim=1), torch.stack(cs, dim=1)
+        zs.append(z)
+    return (torch.stack(ys, dim=1), torch.stack(cs, dim=1),
+            torch.stack(zs, dim=1))
+
+
+def convlstm_reference(x, wx, bx, wh):
+    """Plain PyTorch whole layer with the JAX signature (`convlstm_reference`,
+    dl4ds_tpu/ops/pallas_convlstm.py:82-112). x: [B, T, H, W, Cin]; returns
+    (ys, cs): [B, T, H, W, F]."""
+    ys, cs, _ = convlstm_train_reference(x, wx, bx, wh)
+    return ys, cs
+
+
+def convlstm_backward_reference(x, wx, wh, zs, cs, ys, dys):
+    """Plain PyTorch BPTT of the layer (transcribes `_bwd_kernel`,
+    dl4ds_tpu/ops/pallas_convlstm.py:335-432): the reverse dh/dc chain on
+    the saved zs, cs and ys, then dx, dWx, dWh and db over the whole window.
+    Returns (dx, dwx, dbx, dwh) in the layouts of (x, wx, bx, wh)."""
+    b, t, h, w, cin = x.shape
+    f = wh.shape[2]
+    dh_next = dc_next = zero = ys.new_zeros((b, h, w, f))
+    dzs = [None] * t
+    for i in reversed(range(t)):
+        zi, zf, zc, zo = torch.split(zs[:, i], f, dim=-1)
+        gi, gf, gg, go = (hard_sigmoid(zi), hard_sigmoid(zf), torch.tanh(zc),
+                          hard_sigmoid(zo))
+        c_prev = cs[:, i - 1] if i > 0 else zero
+        tc = torch.tanh(cs[:, i])
+        dh = dys[:, i] + dh_next
+        do = dh * tc
+        dc = dh * go * (1 - tc * tc) + dc_next
+        dz = torch.cat([dc * gg * d_hard_sigmoid(zi),
+                        dc * c_prev * d_hard_sigmoid(zf),
+                        dc * gi * (1 - gg * gg),
+                        do * d_hard_sigmoid(zo)], dim=-1)
+        dzs[i] = dz
+        dh_next = _conv_same_t(dz, wh)
+        dc_next = dc * gf
+    dz = torch.stack(dzs, dim=1).reshape(b * t, h, w, 4 * f)
+    dx = _conv_same_t(dz, wx).reshape(x.shape)
+    dwx = _conv_same_w(x.reshape(b * t, h, w, cin), dz, wx.shape)
+    dbx = dz.sum(dim=(0, 1, 2))
+    if t > 1:   # h_{-1} = 0: step 0 adds nothing to dWh
+        dz_h = torch.stack(dzs[1:], dim=1).reshape(b * (t - 1), h, w, 4 * f)
+        dwh = _conv_same_w(ys[:, :-1].reshape(b * (t - 1), h, w, f), dz_h,
+                           wh.shape)
+    else:
+        dwh = torch.zeros_like(wh)
+    return dx, dwx, dbx, dwh
 
 
 def _check_kernels(x, wx, bx, wh):
@@ -80,36 +165,89 @@ def _check_kernels(x, wx, bx, wh):
             f'asymmetric')
 
 
-def _kernel_lib():
+def _fwd_lib():
     lib = _build.load('convlstm')
     fn = lib.dl4ds_convlstm_step
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p] + [i] * 10 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _bwd_lib():
+    lib = _build.load('convlstm_bwd')
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    argtypes = {'dl4ds_convlstm_bptt_step': [p] * 6 + [i] * 9 + [p],
+                'dl4ds_convlstm_dx': [p] * 3 + [i] * 8 + [p],
+                'dl4ds_convlstm_wgrad': [p] * 3 + [i] * 14 + [p],
+                'dl4ds_convlstm_wgrad_reduce': [p, i, i64, p, p, i, i64, p, p]}
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def _rows_per_thread(b, h, w, f, n_sm):
     """Rows of output a thread computes (at one column, for a group of 8
-    channels and all four gates). A block tiles 8*rows by 32 columns; rows
-    is 2 unless that leaves an SM without a block."""
+    channels). A block tiles 8*rows by 32 columns; rows is 2 unless that
+    leaves an SM without a block. The step kernels of K2 and K3 and K3's dx
+    kernel share this tiling (for dx, b counts frames and f input
+    channels)."""
     blocks = b * -(-f // 8) * -(-w // 32) * -(-h // 16)
     return 2 if blocks >= n_sm else 1
 
 
-def _launch(x, wx, bx, wh):
-    """Run the CUDA kernel over the whole window: T step launches on the
-    current stream. Returns ys [B, T, H, W, F]."""
-    tensors = (x, wx, bx, wh)
-    if any(t.dtype != torch.float32 for t in tensors):
+def _wgrad_plan(b, t, t_skip, h, w, cs, f, kh, kw, n_sm):
+    """Launch plan of K3's weight-gradient pass over the frames t_skip ..
+    T-1 of every sample: pixel tiles of tph x tpw (at most 256 pixels of
+    one frame), `tpb` tiles a block, so that the blocks fill the card about
+    four times over while each block sums as many tiles as that allows.
+    Returns (tph, tpw, tpb, n_chunks), n_chunks the number of partial rows."""
+    def cdiv(a, d):
+        return -(-a // d)
+
+    tpw = min(w, 32)
+    tph = min(h, max(1, 256 // tpw))
+    n_tiles = b * (t - t_skip) * cdiv(w, tpw) * cdiv(h, tph)
+    # blocks per pixel chunk: 8 source channels x 64 row tiles (4 channels
+    # of one tap each) x 32 gate channels
+    grid_y = (cdiv(cs, 8) * cdiv(kh * kw * cdiv(min(8, cs), 4), 64)
+              * cdiv(4 * f, 32))
+    tpb = max(1, n_tiles * grid_y // (4 * n_sm))
+    return tph, tpw, tpb, cdiv(n_tiles, tpb)
+
+
+def _check_cuda(tensors, what):
+    if any(u.dtype != torch.float32 for u in tensors):
         raise TypeError(
-            f'the ConvLSTM kernel takes float32 only, got '
-            f'{[str(t.dtype) for t in tensors]}; other model dtypes are not '
+            f'the ConvLSTM {what} takes float32 only, got '
+            f'{[str(u.dtype) for u in tensors]}; other model dtypes are not '
             f'ported yet (ROADMAP.md queue 1, item 5)')
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise not_ported('the ConvLSTM gradient (BPTT kernels K3/K4, '
-                         'recurrent training)', 7)
+    dev = tensors[0].device
+    if dev.type != 'cuda' or any(u.device != dev for u in tensors):
+        raise ValueError(f'the ConvLSTM {what} needs every tensor on one CUDA '
+                         f'device, got {[str(u.device) for u in tensors]}')
+    return dev
+
+
+def _aligned(u):
+    """Contiguous, with a 16-byte aligned start (the kernels read float4).
+    Weights are made contiguous too: a module moved with memory_format=
+    channels_last holds the 4-D HWIO kernels with permuted strides."""
+    u = u.contiguous()
+    return u.clone() if u.data_ptr() % 16 else u
+
+
+def _launch(x, wx, bx, wh, train=False):
+    """Run K2 over the whole window: T step launches on the current stream.
+    Returns ys [B, T, H, W, F]; with train=True the training variant, which
+    returns (ys, cs, zs) with the residuals cs [B, T, H, W, F] and zs [B, T,
+    H, W, 4F]."""
+    tensors = (x, wx, bx, wh)
+    dev = _check_cuda(tensors, 'forward kernel')
     _check_kernels(x, wx, bx, wh)
     b, t, h, w, cin = x.shape
     kh, kw, _, f4 = wx.shape
@@ -119,46 +257,148 @@ def _launch(x, wx, bx, wh):
     if b > 65535:
         raise ValueError(f'ConvLSTM kernel takes at most 65535 samples per '
                          f'call, got {b}')
-    dev = x.device
-    if dev.type != 'cuda' or any(u.device != dev for u in tensors):
-        raise ValueError(f'ConvLSTM kernel needs every tensor on one CUDA '
-                         f'device, got {[str(u.device) for u in tensors]}')
-    # contiguous HWIO weights: a module moved with memory_format=
-    # channels_last holds these 4-D kernels with permuted strides
-    x, wx, bx, wh = (u.contiguous() for u in tensors)
-    if x.data_ptr() % 16:           # the kernel reads x as float4
-        x = x.clone()
+    x, wx, bx, wh = (_aligned(u) for u in tensors)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     py = _rows_per_thread(b, h, w, f, n_sm)
     ys = torch.empty((b, t, h, w, f), dtype=torch.float32, device=dev)
-    c = torch.empty((b, h, w, f), dtype=torch.float32, device=dev)
-    fn = _kernel_lib()
+    if train:
+        c = torch.empty((b, t, h, w, f), dtype=torch.float32, device=dev)
+        zs = torch.empty((b, t, h, w, f4), dtype=torch.float32, device=dev)
+        zs_ptr = zs.data_ptr()
+    else:
+        c = torch.empty((b, h, w, f), dtype=torch.float32, device=dev)
+        zs_ptr = None
+    fn = _fwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for step in range(t):
             err = fn(x.data_ptr(), wx.data_ptr(), bx.data_ptr(),
-                     wh.data_ptr(), ys.data_ptr(), c.data_ptr(), b, t, step,
-                     h, w, cin, f, kh, kw, py, stream)
+                     wh.data_ptr(), ys.data_ptr(), c.data_ptr(), zs_ptr, b, t,
+                     step, h, w, cin, f, kh, kw, py, stream)
             if err != 0:
                 raise RuntimeError(f'ConvLSTM kernel launch failed with CUDA '
                                    f'error {err} (step {step})')
-            fused_convlstm.launches += 1
-    return ys
+            if train:
+                fused_convlstm.train_launches += 1
+            else:
+                fused_convlstm.launches += 1
+    return (ys, c, zs) if train else ys
+
+
+def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
+    """Run K3: the T reverse chain steps, dx over all frames (when need_dx),
+    the Wx (with db) and Wh weight-gradient passes and the one reduction of
+    their partials. Returns (dx or None, dwx, dbx, dwh)."""
+    tensors = (x, wx, wh, zs, cs, ys, dys)
+    dev = _check_cuda(tensors, 'backward kernel')
+    b, t, h, w, cin = x.shape
+    kh, kw, _, f4 = wx.shape
+    f = f4 // 4
+    if (tuple(zs.shape) != (b, t, h, w, f4)
+            or any(tuple(u.shape) != (b, t, h, w, f) for u in (cs, ys, dys))):
+        raise ValueError(
+            f'ConvLSTM residuals do not match x {tuple(x.shape)} and F={f}: '
+            f'zs {tuple(zs.shape)}, cs {tuple(cs.shape)}, ys '
+            f'{tuple(ys.shape)}, dys {tuple(dys.shape)}')
+    if b * t > 65535:
+        raise ValueError(f'ConvLSTM backward kernel takes at most 65535 '
+                         f'frames per call, got {b * t}')
+    x, wx, wh, zs, cs, ys, dys = (_aligned(u) for u in tensors)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _bwd_lib()
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    dzs, dcs = empty(b, t, h, w, f4), empty(b, h, w, f)
+    dx = empty(b, t, h, w, cin) if need_dx else None
+    lx = kh * kw * cin * f4
+    plan_x = _wgrad_plan(b, t, 0, h, w, cin, f, kh, kw, n_sm)
+    part_x = empty(plan_x[3], lx + f4)
+    plan_h = _wgrad_plan(b, t, 1, h, w, f, f, kh, kw, n_sm) if t > 1 else None
+    part_h = empty(plan_h[3], kh * kw * f * f4) if t > 1 else empty(0)
+    out_x, dwh = empty(lx + f4), empty(kh, kw, f, f4)
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f'ConvLSTM backward kernel launch failed with '
+                               f'CUDA error {err} ({what})')
+        fused_convlstm.bwd_launches += 1
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        py = _rows_per_thread(b, h, w, f, n_sm)
+        for step in reversed(range(t)):
+            check(lib.dl4ds_convlstm_bptt_step(
+                zs.data_ptr(), cs.data_ptr(), dys.data_ptr(), wh.data_ptr(),
+                dzs.data_ptr(), dcs.data_ptr(), b, t, step, h, w, f, kh, kw,
+                py, stream), f'chain step {step}')
+        if need_dx:
+            check(lib.dl4ds_convlstm_dx(
+                dzs.data_ptr(), wx.data_ptr(), dx.data_ptr(), b * t, h, w, cin,
+                f, kh, kw, _rows_per_thread(b * t, h, w, cin, n_sm), stream),
+                'dx')
+        tph, tpw, tpb, n_chunks = plan_x
+        check(lib.dl4ds_convlstm_wgrad(
+            x.data_ptr(), dzs.data_ptr(), part_x.data_ptr(), n_chunks, 1, b, t,
+            0, h, w, cin, f, kh, kw, tph, tpw, tpb, stream), 'dWx')
+        if plan_h is not None:
+            tph, tpw, tpb, n_chunks = plan_h
+            check(lib.dl4ds_convlstm_wgrad(
+                ys.data_ptr(), dzs.data_ptr(), part_h.data_ptr(), n_chunks, 0,
+                b, t, 1, h, w, f, f, kh, kw, tph, tpw, tpb, stream), 'dWh')
+        check(lib.dl4ds_convlstm_wgrad_reduce(
+            part_x.data_ptr(), part_x.shape[0], lx + f4, out_x.data_ptr(),
+            part_h.data_ptr(), part_h.shape[0], dwh.numel(), dwh.data_ptr(),
+            stream), 'reduce')
+    return dx, out_x[:lx].view(kh, kw, cin, f4), out_x[lx:], dwh
+
+
+class FusedConvLSTM(torch.autograd.Function):
+    """The layer with its BPTT backward: on CUDA tensors K2's training
+    variant forward and K3 backward; on CPU tensors their plain versions.
+    Saves x, wx, wh and the residuals zs, cs, ys for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, wx, bx, wh):
+        if x.device.type == 'cuda':
+            ys, cs, zs = _launch(x, wx, bx, wh, train=True)
+        else:
+            ys, cs, zs = convlstm_train_reference(x, wx, bx, wh)
+        ctx.save_for_backward(x, wx, wh, zs, cs, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        x, wx, wh, zs, cs, ys = ctx.saved_tensors
+        dys = dys.contiguous()
+        if x.device.type == 'cuda':
+            dx, dwx, dbx, dwh = _launch_backward(
+                x, wx, wh, zs, cs, ys, dys, need_dx=ctx.needs_input_grad[0])
+        else:
+            dx, dwx, dbx, dwh = convlstm_backward_reference(
+                x, wx, wh, zs, cs, ys, dys)
+        return tuple(g if need else None for g, need in
+                     zip((dx, dwx, dbx, dwh), ctx.needs_input_grad))
 
 
 def fused_convlstm(x, wx, bx, wh):
     """Whole ConvLSTM layer forward: ys [B, T, H, W, F] from x
     [B, T, H, W, Cin] (h and c start at zero).
 
-    On CUDA tensors: the Hopper kernel, one launch per time step, float32
-    only, no gradient. On CPU tensors: `convlstm_reference` (differentiable
-    through autograd). `fused_convlstm.launches` counts kernel launches; the
-    CPU path launches nothing."""
+    With grad mode on and any input that requires grad, `FusedConvLSTM`
+    (differentiable; on CUDA K2's training variant and K3). Otherwise, on
+    CUDA tensors K2's inference variant, one launch per time step, float32
+    only; on CPU tensors `convlstm_reference`. `fused_convlstm.launches`
+    counts K2 inference launches, `.train_launches` K2 training launches and
+    `.bwd_launches` K3 launches; the CPU path launches nothing."""
+    if x.device.type not in ('cuda', 'cpu'):
+        raise ValueError(f'unsupported device {x.device}')
+    if torch.is_grad_enabled() and any(
+            u.requires_grad for u in (x, wx, bx, wh)):
+        return FusedConvLSTM.apply(x, wx, bx, wh)
     if x.device.type == 'cuda':
         return _launch(x, wx, bx, wh)
-    if x.device.type == 'cpu':
-        return convlstm_reference(x, wx, bx, wh)[0]
-    raise ValueError(f'unsupported device {x.device}')
+    return convlstm_reference(x, wx, bx, wh)[0]
 
 
 fused_convlstm.launches = 0
+fused_convlstm.train_launches = 0
+fused_convlstm.bwd_launches = 0

@@ -6,10 +6,12 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from . import BACKBONE_BLOCKS, DROPOUT_VARIANTS, UPSAMPLING_METHODS
+from . import (BACKBONE_BLOCKS, DROPOUT_VARIANTS, LOSS_FUNCTIONS,
+               UPSAMPLING_METHODS)
 
 __all__ = ['checkarray_ndim', 'checkarg_upsampling', 'checkarg_backbone',
-           'checkarg_dropout_variant', 'resolve_device', 'not_ported',
+           'checkarg_dropout_variant', 'checkarg_loss',
+           'check_compatibility_upsbackb', 'resolve_device', 'not_ported',
            'spatiotemporal_to_spatial_samples', 'Timing', '_values']
 
 
@@ -46,6 +48,34 @@ def checkarg_backbone(backbone):
             f'`backbone` not recognized. Must be one of the following: '
             f'{BACKBONE_BLOCKS}. Got {backbone}')
     return backbone
+
+
+def check_compatibility_upsbackb(backbone, upsampling, time_window):
+    upsampling = checkarg_upsampling(upsampling)
+    backbone = checkarg_backbone(backbone)
+    if backbone == 'unet' and upsampling != 'pin':
+        raise ValueError('`unet` backbone only works with `pin` pre-upsampling')
+    if backbone in ('convnext', 'unet') and time_window is not None:
+        raise ValueError(
+            '`unet` and `convnext` backbones only work with spatial samples '
+            '(`time_window` must be None)')
+    return backbone, upsampling
+
+
+def checkarg_loss(loss):
+    """Resolve a loss name into the loss callable (a callable passes
+    through). 'mae' and 'mse' are ported; the DSSIM family raises."""
+    from . import losses
+    if isinstance(loss, str):
+        if loss not in LOSS_FUNCTIONS:
+            raise ValueError(f'`loss` must be one of {LOSS_FUNCTIONS}, got '
+                             f'{loss}')
+        if not hasattr(losses, loss):
+            raise not_ported(f'loss {loss!r}', 2)
+        return getattr(losses, loss)
+    if callable(loss):
+        return loss
+    raise TypeError(f'`loss` must be a string, one of {LOSS_FUNCTIONS}')
 
 
 def checkarg_dropout_variant(dropout_variant):

@@ -24,8 +24,8 @@ from dl4ds_tpu.models import blocks as jax_blocks
 import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch.models.blocks import (ChannelAttention2D, ConvLSTM2D,
                                            RecurrentConvBlock)
-from dl4ds_tpu_torch.ops.convlstm import (_launch, _rows_per_thread,
-                                          hard_sigmoid)
+from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _launch,
+                                          _rows_per_thread, hard_sigmoid)
 
 HR, SCALE, T = 64, 4, 3
 LR = HR // SCALE
@@ -121,15 +121,20 @@ def test_k2_cpu_tensor_launches_no_kernel():
 @pytest.mark.parametrize('case', ['float64', 'bfloat16', 'grad'])
 def test_k2_kernel_wrapper_guards(case):
     """The CUDA wrapper's checks run before anything reaches the card: the
-    kernel takes float32 only (other dtypes are ROADMAP item 5) and has no
-    gradient (K3/K4, item 7)."""
+    kernel takes float32 only (other dtypes are ROADMAP item 5) and CUDA
+    tensors only, in both variants. Weights that require grad (grad mode
+    on) route the layer through FusedConvLSTM, whose forward is the
+    training variant."""
     x, wx, bx, wh = map(torch.from_numpy, _k2_inputs(K2_SHAPES[0]))
     if case == 'grad':
         wx.requires_grad_()
-        with pytest.raises(NotImplementedError, match='item 7'):
-            _launch(x, wx, bx, wh)
-        with torch.no_grad(), pytest.raises(ValueError, match='CUDA'):
-            _launch(x, wx, bx, wh)       # without grad mode: the CPU device
+        for train in (False, True):
+            with pytest.raises(ValueError, match='CUDA'):
+                _launch(x, wx, bx, wh, train=train)     # the CPU device
+        ys = tds.fused_convlstm(x, wx, bx, wh)
+        assert isinstance(ys.grad_fn, FusedConvLSTM._backward_cls)
+        with torch.no_grad():
+            assert tds.fused_convlstm(x, wx, bx, wh).grad_fn is None
         return
     dtype = getattr(torch, case)
     with pytest.raises(TypeError, match='item 5'):

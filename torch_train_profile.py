@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Where the device time of a PyTorch port training step goes.
+
+    python3 torch_train_profile.py [--batch 128] [--reps 5]   # repo root
+
+Builds the recurrent training configuration of `chip_smoke.py` phase 7
+(BASELINE config 4 as bench_suite.py's measure_supervised trains it:
+`SupervisedTrainer('resnet', 'spc', time_window=4, n_blocks=2,
+n_filters=8, scale=4, patch_size=64, loss='mae')` on 256 seeded grids of
+128x128, float32, TF32 convs as PyTorch's default), runs 3 warm-up steps,
+then `reps` steps (batch synthesis, forward, backward, Adam) under
+`torch.profiler` on one GPU, and prints one JSON line: device time per
+kernel group and for the top kernels, the device's busy share over the
+profiled window, launches and the host clock per step (the profiler slows
+the host; chip_smoke.py phase 7 times the steps without it). Fails when the
+profiler records no device kernel.
+"""
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+# kernel-name fragments -> group; the first match wins
+GROUPS = [('K2_convlstm', ('convlstm_step',)),
+          ('K3_convlstm_bptt', ('bptt_step', 'dx_frames', 'wgrad_partial',
+                                'wgrad_reduce')),
+          ('adam', ('multi_tensor_apply', 'adam')),
+          ('conv', ('conv', 'cudnn', 'xmma', 'implicit', 'winograd', 'sm90',
+                    'gemm', 'nchw', 'nhwc', 'wgrad', 'dgrad')),
+          ('cat', ('cat',)),
+          ('reduce', ('reduce',)),
+          ('elementwise', ('elementwise', 'vectorized', 'unrolled'))]
+
+
+def group_of(name):
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return 'other'
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--batch', type=int, default=128)
+    ap.add_argument('--reps', type=int, default=5)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        sys.exit('torch_train_profile: no CUDA device')
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import dl4ds_tpu_torch as tds
+
+    data = np.random.default_rng(0).standard_normal(
+        (256, 128, 128, 1)).astype('float32')
+    tr = tds.SupervisedTrainer(
+        'resnet', 'spc', data_train=data, data_val=data[:64],
+        data_test=data[:64], scale=4, patch_size=64, batch_size=args.batch,
+        loss='mae', time_window=4, n_blocks=2, n_filters=8, verbose=False)
+    tr.setup_datagen()
+    tr.setup_model()
+    tr.setup_optimizer()
+    tr.net.train()
+    gen = torch.Generator().manual_seed(0)
+    idx = tr.ds_train.epoch_indices(gen, steps=3 + args.reps)
+    for c in range(3):
+        tr.train_step(tr.ds_train(idx[c], generator=gen))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for c in range(3, 3 + args.reps):
+            tr.train_step(tr.ds_train(idx[c], generator=gen))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+
+    # the device events, without the ranges that record_function
+    # annotations (such as Optimizer.step) also draw on the device's line
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device
+               if not getattr(e, 'is_user_annotation', False)]
+    if not kernels:
+        sys.exit('torch_train_profile: the profiler recorded no device '
+                 'kernel')
+    by_name, by_group = defaultdict(float), defaultdict(float)
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_name[e.name] += us
+        by_group[group_of(e.name)] += us
+    busy_us = sum(by_name.values())
+    span_us = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels))
+    per = 1e3 * args.reps                 # us summed over reps -> ms a step
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    print(json.dumps({
+        'device': torch.cuda.get_device_name(0), 'model': tr.model.name,
+        'batch': args.batch, 'reps': args.reps,
+        'kernel_launches_per_step': len(kernels) / args.reps,
+        'annotation_ranges_skipped': len(device) - len(kernels),
+        'device_busy_ms_per_step': busy_us / per,
+        'device_span_ms_per_step': span_us / per,
+        'device_busy_share': busy_us / span_us,
+        'host_ms_per_step': wall_s * 1e3 / args.reps,
+        'patches_per_s_host': args.batch * args.reps / wall_s,
+        'groups_ms_per_step': {g: v / per for g, v in sorted(
+            by_group.items(), key=lambda kv: -kv[1])},
+        'top_kernels_ms_per_step': [[n[:90], v / per] for n, v in top],
+    }))
+
+
+if __name__ == '__main__':
+    main()
