@@ -30,16 +30,29 @@ Phases, each of which exits non-zero on failure:
      (batch 128, T 4, 16x16 LR patches), at width 64 and on their other
      paths (T = 1, odd F, F = 12, 1x3, 3x5 and 7x7 kernels, ragged tiles, x
      without a gradient), check that two runs of K3 give the same bits, and
-     time both kernels against their plain versions and their bounds;
+     time both kernels against their plain versions and their bounds; then
+     hold K4 (the sequential BPTT chain, dzs) against its plain version run
+     in float64 and the split route (K4, then the float32 GEMM tail) against
+     the plain BPTT in float64, at the six layer shapes of the width-64
+     training step and on K4's other paths (T = 1, odd F, F = 12, F = 16,
+     F = 72, 1x3, 3x5 and 7x7), with K2's training variant that feeds
+     them, check that their bits repeat, and time K2-train, K4 and the tail
+     against their bounds and K2-train and K4 against their plain versions;
   7. drive recurrent training: `SupervisedTrainer(time_window=4)` on the
      recresnet_spc x4 configuration of bench_suite.py (256 grids of
      128x128, 64x64 patches, batch 128, mae) for 2 epochs of 20 steps with
-     validation and test, count the launches of K2 (both variants) and K3,
-     require finite losses, time the steps (patches/s on the host clock,
-     one step on CUDA events), then run 3 steps at batch 16 from one seed
-     on the GPU (TF32 off, cuDNN deterministic) and on the CPU and compare
-     the losses and the parameters;
-  8. print the `kernels` JSON line, then, last, the device JSON line.
+     validation and test, count the launches of K2 (both variants), K3 and
+     K4 against what `dispatch_info` routes, require finite losses, time the
+     steps (patches/s on the host clock, one step on CUDA events), then run
+     3 steps at batch 16 from one seed on the GPU (TF32 off, cuDNN
+     deterministic) and on the CPU and compare the losses and the
+     parameters;
+  8. drive the same training at width 64 (bench_suite.py's
+     recresnet_spc_width64: n_filters 64, attention) for 2 epochs of 10
+     steps at batch 128, print each ConvLSTM layer's route, count the
+     launches against the routes, require finite losses, time the steps,
+     and compare 3 steps at batch 4 on the GPU with the CPU;
+  9. print the `kernels` JSON line, then, last, the device JSON line.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -125,6 +138,36 @@ K3_DX_TOL, K3_W_TOL = 1e-5, 1e-5
 # turns a difference of 1e-9 in a small gradient into up to 1e-5 in a
 # parameter each step
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-4
+# width-64 training path: bench_suite.py's recresnet_spc_width64 (n_filters
+# 64, attention, which adds nothing without aux inputs) trained as phase 7,
+# 2 epochs of 10 steps; 3 steps at batch 4 against the CPU in float64, at
+# the same tolerances. At width 64 a float32 run is not a reference: Adam's
+# lr*g/(|g|+1e-7) turns float32 noise in near-zero gradients into
+# parameter differences of up to lr a step, so the CPU's own float32 run
+# ends 3.3e-4 from its float64 one; and the GPU's convolutions there are
+# PyTorch's own, since cuDNN's float32 ones at 64 channels (TF32 off) put
+# the head's parameters 1.2e-3 from float64 (with PyTorch's: 3.0e-5;
+# tools/torch_train_parity.py on an H100 SXM at 700 W)
+WIDE_F, WIDE_STEPS, WIDE_CPU_BATCH = 64, 10, 4
+WIDE_LAYERS = [layer for cin in [1] + [WIDE_F] * REC_BLOCKS
+               for layer in ((cin, WIDE_F, 5), (WIDE_F, WIDE_F, 3))]
+# (B, T, H, W, Cin, F, kh, kw, x needs a gradient) of K4's other paths: T = 1
+# (no recurrent sum, the gate epilogue only), 1x3 with odd F and no dx, 3x5
+# with odd F and ragged tiles, F = 12 (three channel groups), 7x7 with F = 4
+# (one group, half a warp), F = 16 at 3x3 (the split route's narrowest
+# layer), and F = 72 (two blocks of output channels). With the training
+# shapes they run each of K4's three compiled bodies (kh <= 3, 5, 7).
+K4_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 3, 3, True),
+                  (2, 3, 9, 11, 3, 5, 1, 3, False),
+                  (3, 3, 20, 37, 5, 5, 3, 5, True),
+                  (2, 3, 40, 40, 6, 12, 3, 3, True),
+                  (2, 2, 19, 23, 8, 4, 7, 7, True),
+                  (16, 4, 16, 16, 16, 16, 3, 3, True),
+                  (2, 3, 12, 20, 4, 72, 5, 5, True)]
+# K4's dzs against its plain version run in float64, to K2_TOL times
+# max(1, max |dzs|); the split route's gradients against the plain BPTT in
+# float64 to K3's tolerances (float32 GEMMs over up to 131,072 pixels)
+K4_TOL = 1e-5
 
 
 def fail(msg):
@@ -523,47 +566,67 @@ def _layer_weights(torch, cin, f, kh, kw, seed, dev):
         layer.cell.recurrent_conv.kernel))
 
 
+def _check_k2_train(torch, conv, x, wx, bx, wh, label):
+    """K2's training variant against its plain version on one input.
+    Returns the residuals (ys, cs, zs) and [max |d| of ys, cs, zs, max
+    |zs|]."""
+    with torch.no_grad():
+        got = conv._launch(x, wx, bx, wh, train=True)
+        want = conv.convlstm_train_reference(x, wx, bx, wh)
+    torch.cuda.synchronize()
+    fwd_err = [(a - b).abs().max().item() for a, b in zip(got, want)]
+    zs_scale = max(1.0, want[2].abs().max().item())
+    if not (max(fwd_err[:2]) <= K2_TOL and fwd_err[2] <= K2_TOL * zs_scale):
+        fail(f'K2-train {label}: ys, cs, zs max|d| {fwd_err} against atol '
+             f'{K2_TOL} ({K2_TOL * zs_scale:.2e} for zs)')
+    return got, fwd_err + [zs_scale]
+
+
+def _check_grads(torch, grads, again, ref, need_dx, what):
+    """Each of the backward's gradients (dx, dwx, dbx, dwh; dx None without
+    need_dx) against the plain BPTT in float64, max |d| over max |ref|
+    within K3's tolerances, and the same bits in a second run. Returns the
+    errors by name."""
+    errs = {}
+    for name, g, r, tol in zip(('dx', 'dwx', 'dbx', 'dwh'), grads, ref,
+                               (K3_DX_TOL, K3_W_TOL, K3_W_TOL, K3_W_TOL)):
+        if g is None:
+            if need_dx or name != 'dx':
+                fail(f'{what}: no {name}')
+            continue
+        if g.shape != r.shape:
+            fail(f'{what}: {name} shape {tuple(g.shape)}, expected '
+                 f'{tuple(r.shape)}')
+        scale = max(r.abs().max().item(), 1e-30)
+        errs[name] = (g.double() - r).abs().max().item() / scale
+        if not errs[name] <= tol:
+            fail(f'{what}: {name} max|d| / max|ref| {errs[name]:.3e} '
+                 f'against {tol}')
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)
+               if a is not None):
+        fail(f'{what}: two runs gave different bits')
+    return errs
+
+
 def _check_k3_case(torch, conv, x, wx, bx, wh, dys, need_dx, label):
     """K2's training variant and K3 against their plain versions on one
     input; the plain backward takes the kernel's residuals, in float64 (and
     in float32, whose own error is returned). Returns the errors and the
     kernel's outputs."""
+    (ys, cs, zs), fwd_err = _check_k2_train(torch, conv, x, wx, bx, wh,
+                                            label)
     with torch.no_grad():
-        ys, cs, zs = conv._launch(x, wx, bx, wh, train=True)
-        want = conv.convlstm_train_reference(x, wx, bx, wh)
         args = (x, wx, wh, zs, cs, ys, dys)
         grads = conv._launch_backward(*args, need_dx)
         again = conv._launch_backward(*args, need_dx)
         ref = conv.convlstm_backward_reference(*(u.double() for u in args))
         ref32 = conv.convlstm_backward_reference(*args)
     torch.cuda.synchronize()
-    fwd_err = [(a - b).abs().max().item() for a, b in zip((ys, cs, zs), want)]
-    zs_scale = max(1.0, want[2].abs().max().item())
-    if not (max(fwd_err[:2]) <= K2_TOL and fwd_err[2] <= K2_TOL * zs_scale):
-        fail(f'K2-train {label}: ys, cs, zs max|d| {fwd_err} against atol '
-             f'{K2_TOL} ({K2_TOL * zs_scale:.2e} for zs)')
-    errs = {}
-    for name, g, r, tol in zip(('dx', 'dwx', 'dbx', 'dwh'), grads, ref,
-                               (K3_DX_TOL, K3_W_TOL, K3_W_TOL, K3_W_TOL)):
-        if g is None:
-            if need_dx or name != 'dx':
-                fail(f'K3 {label}: no {name}')
-            continue
-        if g.shape != r.shape:
-            fail(f'K3 {label}: {name} shape {tuple(g.shape)}, expected '
-                 f'{tuple(r.shape)}')
-        scale = max(r.abs().max().item(), 1e-30)
-        errs[name] = (g.double() - r).abs().max().item() / scale
-        if not errs[name] <= tol:
-            fail(f'K3 {label}: {name} max|d| / max|ref| {errs[name]:.3e} '
-                 f'against {tol}')
-    if not all(torch.equal(a, b) for a, b in zip(grads, again)
-               if a is not None):
-        fail(f'K3 {label}: two runs gave different bits')
+    errs = _check_grads(torch, grads, again, ref, need_dx, f'K3 {label}')
     errs['plain_f32'] = max(
         (g.double() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
         for g, r in zip(ref32, ref))
-    return fwd_err + [zs_scale], errs, (ys, cs, zs)
+    return fwd_err, errs, (ys, cs, zs)
 
 
 def phase_convlstm_grad(torch, tds, report):
@@ -647,10 +710,186 @@ def phase_convlstm_grad(torch, tds, report):
     report['k3_step'] = [by_shape[shape] for shape in K3_LAYERS]
 
 
-def phase_training(torch, tds, report):
-    """Phase 7: recurrent training through SupervisedTrainer on the card."""
+def k4_work(zs, wh):
+    """(flops, bytes) of K4, the sequential chain: the recurrent convT from
+    the second-to-last step down (no recurrent term at the last); zs, cs,
+    dys and wh read once, dzs written once."""
+    b, t, h, w, f4 = zs.shape
+    kh, kw = wh.shape[:2]
+    flops = 2 * b * (t - 1) * h * w * kh * kw * f4 * (f4 // 4)
+    return flops, 4 * (2 * zs.numel() + zs.numel() // 2 + wh.numel())
+
+
+def tail_work(x, wx, wh, need_dx):
+    """(flops, bytes) of the split route's GEMM tail: dWx (and dx) over all
+    T steps, dWh over T-1; x, ys (T-1 steps), dzs and the weights read
+    once, dx and the three parameter gradients written once."""
+    b, t, h, w, cin = x.shape
+    kh, kw, _, f4 = wx.shape
+    f = f4 // 4
+    per_x = 2 * b * t * h * w * kh * kw * cin * f4
+    per_h = 2 * b * (t - 1) * h * w * kh * kw * f * f4
+    flops = (2 if need_dx else 1) * per_x + per_h
+    n_bytes = 4 * ((2 if need_dx else 1) * x.numel() + b * (t - 1) * h * w * f
+                   + b * t * h * w * f4 + 2 * (wx.numel() + wh.numel() + f4))
+    return flops, n_bytes
+
+
+def _check_k4_case(torch, conv, x, wx, bx, wh, dys, need_dx, label):
+    """K2's training variant against its plain version, K4 against its
+    plain version in float64, and the split route's four gradients against
+    the plain BPTT in float64, on one input; two runs of each must give the
+    same bits. Returns (dzs error over max(1, max |ref|), the f32 plain
+    chain's own, the gradients' errors over max |ref|, K2's training
+    variant's errors), and the residuals."""
+    (ys, cs, zs), fwd_err = _check_k2_train(torch, conv, x, wx, bx, wh,
+                                            label)
+    with torch.no_grad():
+        dzs = conv._launch_seq(zs, cs, dys, wh)
+        dzs_again = conv._launch_seq(zs, cs, dys, wh)
+        seq64 = conv.convlstm_seq_reference(zs.double(), cs.double(),
+                                            dys.double(), wh.double())
+        seq32 = conv.convlstm_seq_reference(zs, cs, dys, wh)
+        args = (x, wx, wh, zs, cs, ys, dys)
+        grads = conv._backward('split', *args, need_dx)
+        again = conv._backward('split', *args, need_dx)
+        ref = conv.convlstm_backward_reference(*(u.double() for u in args))
+    torch.cuda.synchronize()
+    scale = max(1.0, seq64.abs().max().item())
+    dzs_err = (dzs.double() - seq64).abs().max().item() / scale
+    plain_err = (seq32.double() - seq64).abs().max().item() / scale
+    if dzs.shape != seq64.shape or not dzs_err <= K4_TOL:
+        fail(f'K4 {label}: dzs shape {tuple(dzs.shape)}, max|d| / max(1, '
+             f'max|ref|) {dzs_err:.3e} against {K4_TOL}')
+    if not torch.equal(dzs, dzs_again):
+        fail(f'K4 {label}: two runs gave different bits')
+    errs = _check_grads(torch, grads, again, ref, need_dx,
+                        f'split route {label}')
+    return (dzs_err, plain_err, errs, fwd_err), (ys, cs, zs, dzs)
+
+
+def phase_convlstm_split(torch, tds, report):
+    """Phase 6, second part: K4 and the split route against their plain
+    versions in float64 at the six layer shapes of the width-64 training
+    step and on K4's other paths, with K2's training variant that feeds
+    them; K2-train, K4 and the tail timed at the first."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for i, (cin, f, k) in enumerate(dict.fromkeys(WIDE_LAYERS)):
+        wx, bx, wh = _layer_weights(torch, cin, f, k, k, 400 + i, dev)
+        x = torch.randn((TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin),
+                        generator=gen, device=dev)
+        dys = torch.randn((TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, f),
+                          generator=gen, device=dev)
+        need_dx = cin != 1
+        label = f'x{list(x.shape)} F={f} k={k}'
+        errors, (ys, cs, zs, dzs) = _check_k4_case(
+            torch, conv, x, wx, bx, wh, dys, need_dx, label)
+        dzs_err, plain_err, errs, fwd_err = errors
+        with torch.no_grad():
+            k2_ms, k2_plain_ms = paired_ms(
+                torch, lambda: conv._launch(x, wx, bx, wh, train=True),
+                lambda: conv.convlstm_train_reference(x, wx, bx, wh), flush)
+            k4_ms, k4_plain_ms = paired_ms(
+                torch, lambda: conv._launch_seq(zs, cs, dys, wh),
+                lambda: conv.convlstm_seq_reference(zs, cs, dys, wh), flush)
+            tail_ms = statistics.median(device_times(
+                torch, lambda: conv.convlstm_backward_tail(
+                    x, wx, wh, ys, dzs, need_dx), l2_flush=flush))
+        k2_flops, k2_bytes = k2_work(x, wx, wh)
+        k2_bytes += 4 * 5 * ys.numel()               # cs and zs written
+        k2_bound = max(k2_flops / F32_FLOPS, k2_bytes / HBM_BYTES_PER_S) * 1e3
+        flops, n_bytes = k4_work(zs, wh)
+        k4_bound = max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
+        t_flops, t_bytes = tail_work(x, wx, wh, need_dx)
+        tail_bound = max(t_flops / F32_FLOPS, t_bytes / HBM_BYTES_PER_S) * 1e3
+        rows.append(dict(x=list(x.shape), f=f, k=k, dx=need_dx,
+                         dzs_rel_err=dzs_err, plain_f32_dzs_err=plain_err,
+                         grad_rel_err=errs, ys_cs_zs_err=fwd_err[:3],
+                         max_abs_zs=fwd_err[3], k2_ms=k2_ms,
+                         k2_plain_ms=k2_plain_ms, k2_bound_ms=k2_bound,
+                         k2_gflop=k2_flops / 1e9, k4_ms=k4_ms,
+                         k4_plain_ms=k4_plain_ms, k4_bound_ms=k4_bound,
+                         k4_gflop=flops / 1e9, tail_ms=tail_ms,
+                         tail_bound_ms=tail_bound, tail_gflop=t_flops / 1e9))
+        print(f'K2-train {label}  ys, cs, zs max|d| '
+              + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
+              + f' (max|zs| {fwd_err[3]:.2f})  kernel {k2_ms:.4f} ms  plain '
+              f'{k2_plain_ms:.4f} ms  bound {k2_bound:.4f} ms '
+              f'({k2_flops / 1e9:.2f} GFLOP)', flush=True)
+        print(f'K4 {label}  dzs max|d|/max(1, max|ref|) {dzs_err:.2e} '
+              f'(plain f32 {plain_err:.2e}); split route'
+              f'{"" if need_dx else " (no dx)"} max|d|/max|ref| '
+              + ' '.join(f'{n} {v:.2e}' for n, v in errs.items())
+              + f'  same bits twice  K4 {k4_ms:.4f} ms  plain '
+              f'{k4_plain_ms:.4f} ms  bound {k4_bound:.4f} ms '
+              f'({flops / 1e9:.2f} GFLOP)  tail (float32 GEMMs) '
+              f'{tail_ms:.4f} ms  bound {tail_bound:.4f} ms '
+              f'({t_flops / 1e9:.2f} GFLOP)  library_ms null (no single '
+              f'PyTorch call computes the chain)', flush=True)
+        del x, dys, ys, cs, zs, dzs
+        torch.cuda.empty_cache()
+
+    for i, (b, t, h, w, cin, f, kh, kw, need_dx) in enumerate(K4_OTHER_PATHS):
+        wx, bx, wh = _layer_weights(torch, cin, f, kh, kw, 500 + i, dev)
+        x = torch.randn((b, t, h, w, cin), generator=gen, device=dev)
+        dys = torch.randn((b, t, h, w, f), generator=gen, device=dev)
+        label = f'x{list(x.shape)} F={f} k={kh}x{kw}'
+        (dzs_err, plain_err, errs, _), _ = _check_k4_case(
+            torch, conv, x, wx, bx, wh, dys, need_dx, label)
+        rows.append(dict(x=list(x.shape), f=f, k=[kh, kw], dx=need_dx,
+                         dzs_rel_err=dzs_err, plain_f32_dzs_err=plain_err,
+                         grad_rel_err=errs))
+        print(f'K4/split {label}{"" if need_dx else " (no dx)"}  dzs '
+              f'max|d|/max(1, max|ref|) {dzs_err:.2e} (plain f32 '
+              f'{plain_err:.2e})  max|d|/max|ref| '
+              + ' '.join(f'{n} {v:.2e}' for n, v in errs.items()), flush=True)
+    by_shape = {(r['x'][-1], r['f'], r['k']): r for r in rows
+                if 'k4_ms' in r}
+    report['k4_rows'] = rows
+    report['k4_step'] = [by_shape[shape] for shape in WIDE_LAYERS]
+
+
+def _expected_launches(conv, layers, steps, eval_steps):
+    """(K2-train, K2 inference, K3, K4) launches of `steps` training steps
+    and `eval_steps` validation or test steps of a model with these
+    (Cin, F, k) ConvLSTM layers, by `dispatch_info`'s route of each: K3 a
+    layer is T chain steps, dx (not for the stem, whose input needs no
+    gradient), the Wx and Wh passes and one reduction; K4 a layer is T
+    chain steps."""
+    k3 = k4 = 0
+    for cin, f, k in layers:
+        x_shape = (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin)
+        route = conv.dispatch_info(x_shape, (k, k, cin, 4 * f),
+                                   (k, k, f, 4 * f))['path']
+        if route == 'fused':
+            k3 += REC_T + (cin != 1) + 3
+        else:
+            k4 += REC_T
+    n = len(layers) * REC_T
+    return steps * n, eval_steps * n, steps * k3, steps * k4
+
+
+def _drive_training(torch, tds, layers, n_filters, steps, cpu_batch,
+                    shares, cpu_float64=False, **model):
+    """Drive recurrent training through SupervisedTrainer on the card at
+    batch 128 (2 epochs of `steps` steps, validation and test), with the
+    counts set to 0 just before and read just after, against the launches
+    that `dispatch_info`'s routes of the model's ConvLSTM `layers` give;
+    require finite losses; time the steps (host clock, and one step on CUDA
+    events, with the kernels' shares of it from `shares`, {name: ms}); then
+    3 steps at `cpu_batch` from one seed on the GPU (TF32 off, cuDNN
+    deterministic) and on the CPU. With `cpu_float64` the CPU runs in
+    float64 and the GPU's convolutions are PyTorch's own, not cuDNN's.
+    Returns the launches and the numbers."""
     import numpy as np
-    fcl = tds.fused_convlstm
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    fcl, fca = tds.fused_convlstm, tds.fused_channel_attention
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
@@ -659,84 +898,94 @@ def phase_training(torch, tds, report):
     config = dict(backbone='resnet', upsampling='spc', data_train=data,
                   data_val=data[:64], data_test=data[:64], scale=SCALE,
                   patch_size=TRAIN_PATCH, loss='mae', time_window=REC_T,
-                  n_blocks=REC_BLOCKS, n_filters=N_FILTERS, verbose=False)
+                  n_blocks=REC_BLOCKS, n_filters=n_filters, verbose=False,
+                  **model)
     tr = tds.SupervisedTrainer(
-        batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
-        steps_per_epoch=TRAIN_STEPS, validation_steps=TRAIN_VAL_STEPS,
-        test_steps=TRAIN_TEST_STEPS, **config)
+        batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, steps_per_epoch=steps,
+        validation_steps=TRAIN_VAL_STEPS, test_steps=TRAIN_TEST_STEPS,
+        **config)
+    for cin, f, k in dict.fromkeys(layers):
+        info = conv.dispatch_info(
+            (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin), (k, k, cin, 4 * f),
+            (k, k, f, 4 * f))
+        print(f'ConvLSTM layer (Cin {cin}, F {f}, {k}x{k}) at batch '
+              f'{TRAIN_BATCH}: backward route {info["path"]} '
+              f'({info["reason"]})', flush=True)
     fcl.launches = fcl.train_launches = fcl.bwd_launches = 0
+    fcl.seq_launches = fca.launches = 0
     t0 = time.perf_counter()
     tr.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    got = (fcl.train_launches, fcl.launches, fcl.bwd_launches)
-    n_layers = len(K3_LAYERS)
-    steps = TRAIN_EPOCHS * TRAIN_STEPS
-    # K3 a layer: T chain steps, dx (not for the stem, whose input needs no
-    # gradient), the Wx and Wh passes and one reduction
-    k3_per_step = sum(REC_T + (cin != 1) + 3 for cin, _, _ in K3_LAYERS)
-    expected = (steps * n_layers * REC_T,
-                (TRAIN_EPOCHS * TRAIN_VAL_STEPS + TRAIN_TEST_STEPS)
-                * n_layers * REC_T,
-                steps * k3_per_step)
+    got = (fcl.train_launches, fcl.launches, fcl.bwd_launches,
+           fcl.seq_launches, fca.launches)
+    expected = _expected_launches(
+        conv, layers, TRAIN_EPOCHS * steps,
+        TRAIN_EPOCHS * TRAIN_VAL_STEPS + TRAIN_TEST_STEPS) + (0,)
     losses = tr.fithist['loss'] + tr.fithist['val_loss'] + [tr.test_loss]
-    print(f'training: {tr.model.name}, {tr.model.param_count(tr.net)} '
-          f'parameters, batch {TRAIN_BATCH}, {TRAIN_EPOCHS} epochs of '
-          f'{TRAIN_STEPS} steps in {run_s:.2f} s; history {tr.fithist}, '
-          f'test loss {tr.test_loss:.6f}; launches K2-train, K2 inference, '
-          f'K3 {got} (expected {expected}: {n_layers * REC_T} K2-train and '
-          f'{k3_per_step} K3 a step, {n_layers * REC_T} K2 inference a '
-          f'validation or test step)', flush=True)
+    print(f'training: {tr.model.name}, n_filters {n_filters}, '
+          f'{tr.model.param_count(tr.net)} parameters, batch {TRAIN_BATCH}, '
+          f'{TRAIN_EPOCHS} epochs of {steps} steps in {run_s:.2f} s; '
+          f'history {tr.fithist}, test loss {tr.test_loss:.6f}; launches '
+          f'K2-train, K2 inference, K3, K4, K1 {got} (expected {expected}, '
+          f'from the routes of dispatch_info)', flush=True)
     if got != expected:
-        fail(f'recurrent training launched K2-train, K2 inference and K3 '
-             f'{got} times, expected {expected}')
+        fail(f'recurrent training (n_filters {n_filters}) launched K2-train, '
+             f'K2 inference, K3, K4 and K1 {got} times, expected {expected}')
     if not all(np.isfinite(v) for v in losses):
-        fail(f'recurrent training gave non-finite losses {losses}')
-    report['k2_train_launches'], _, report['k3_launches'] = got
-    report['train_k2_inference_launches'] = got[1]
+        fail(f'recurrent training (n_filters {n_filters}) gave non-finite '
+             f'losses {losses}')
 
     # speed: steps with their batch synthesis on the host clock, and one
     # step alone on CUDA events
     gen = torch.Generator().manual_seed(1)
-    idx = tr.ds_train.epoch_indices(gen, steps=TRAIN_STEPS)
+    idx = tr.ds_train.epoch_indices(gen, steps=steps)
     tr.net.train()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for c in range(TRAIN_STEPS):
+    for c in range(steps):
         tr.train_step(tr.ds_train(idx[c], generator=gen))
     torch.cuda.synchronize()
-    patches_per_s = TRAIN_STEPS * TRAIN_BATCH / (time.perf_counter() - t0)
+    patches_per_s = steps * TRAIN_BATCH / (time.perf_counter() - t0)
     batch = tr.ds_train(idx[0], generator=gen)
     step_ms = statistics.median(
         device_times(torch, lambda: tr.train_step(batch), reps=10))
-    k2_ms = sum(r['k2_ms'] for r in report['k3_step'])
-    k3_ms = sum(r['k3_ms'] for r in report['k3_step'])
-    print(f'training step at batch {TRAIN_BATCH} (TF32 convs in the head, '
-          f'the default; K2 and K3 are float32 FMA): {patches_per_s:.1f} '
-          f'patches/s end to end (host clock, batch synthesis included); one '
-          f'step {step_ms:.3f} ms (CUDA events) = '
-          f'{TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; of which K2-train '
-          f'{k2_ms:.3f} ms ({100 * k2_ms / step_ms:.1f}%) and K3 {k3_ms:.3f} '
-          f'ms ({100 * k3_ms / step_ms:.1f}%), from phase 6; '
-          f'{torch.cuda.get_device_name(0)}', flush=True)
+    del tr, batch
+    print(f'training step at batch {TRAIN_BATCH}, n_filters {n_filters} '
+          f'(TF32 convs in the head, the default; the ConvLSTM kernels and '
+          f'the GEMM tail are float32): {patches_per_s:.1f} patches/s end to '
+          f'end (host clock, batch synthesis included); one step '
+          f'{step_ms:.3f} ms (CUDA events) = '
+          f'{TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; of which '
+          + ', '.join(f'{name} {ms:.3f} ms ({100 * ms / step_ms:.1f}%)'
+                      for name, ms in shares.items())
+          + f', from phase 6; {torch.cuda.get_device_name(0)}', flush=True)
 
-    # 3 steps from one seed on the GPU and on the CPU, at batch 16
+    # 3 steps from one seed on the GPU and on the CPU
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    cpu_dtype = torch.float64 if cpu_float64 else torch.float32
     runs = {}
-    for device in ('cuda', 'cpu'):
-        small = tds.SupervisedTrainer(batch_size=16, epochs=1,
+    for device, dtype in (('cuda', torch.float32), ('cpu', cpu_dtype)):
+        torch.backends.cudnn.enabled = device == 'cpu' or not cpu_float64
+        small = tds.SupervisedTrainer(batch_size=cpu_batch, epochs=1,
                                       device=device, **config)
         small.setup_datagen()
         small.setup_model()
+        small.net.to(dtype)
         small.setup_optimizer()
         small.net.train()
         gen = torch.Generator().manual_seed(3)
         idx = small.ds_train.epoch_indices(gen, steps=3)
-        losses = [small.train_step(small.ds_train(idx[c], generator=gen))
-                  .item() for c in range(3)]
-        runs[device] = (losses, {n: p.detach().cpu() for n, p in
+        losses = []
+        for c in range(3):
+            batch = small.ds_train(idx[c], generator=gen)
+            losses.append(small.train_step(
+                {k: None if v is None else v.to(dtype)
+                 for k, v in batch.items()}).item())
+        runs[device] = (losses, {n: p.detach().cpu().double() for n, p in
                                  small.net.named_parameters()})
+    torch.backends.cudnn.enabled = True
     torch.backends.cudnn.deterministic = False
     (gpu_losses, gpu_params), (cpu_losses, cpu_params) = (runs['cuda'],
                                                           runs['cpu'])
@@ -744,17 +993,45 @@ def phase_training(torch, tds, report):
                                                        cpu_losses))
     param_err = max((gpu_params[n] - cpu_params[n]).abs().max().item()
                     for n in cpu_params)
-    print(f'3 training steps at batch 16, GPU (TF32 off, cuDNN '
-          f'deterministic) vs CPU: losses {gpu_losses} vs {cpu_losses}, max '
-          f'relative difference {loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); '
-          f'parameters max|d| {param_err:.3e} (atol {TRAIN_PARAM_ATOL})',
-          flush=True)
+    gpu_how = ('PyTorch\'s own float32 convolutions, not cuDNN\'s'
+               if cpu_float64 else 'cuDNN deterministic')
+    print(f'3 training steps at batch {cpu_batch}, n_filters {n_filters}, '
+          f'GPU (TF32 off, {gpu_how}) vs CPU ({str(cpu_dtype)[6:]}): losses '
+          f'{gpu_losses} vs {cpu_losses}, max relative difference '
+          f'{loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); parameters max|d| '
+          f'{param_err:.3e} (atol {TRAIN_PARAM_ATOL})', flush=True)
     if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL):
-        fail(f'GPU training steps disagree with the CPU: losses '
-             f'{loss_err:.3e}, parameters {param_err:.3e}')
-    report.update(train_patches_per_s=patches_per_s, train_step_ms=step_ms,
-                  train_run_s=run_s, train_cpu_loss_rel_err=loss_err,
-                  train_cpu_param_err=param_err)
+        fail(f'GPU training steps (n_filters {n_filters}) disagree with the '
+             f'CPU: losses {loss_err:.3e}, parameters {param_err:.3e}')
+    return got, dict(patches_per_s=patches_per_s, step_ms=step_ms,
+                     run_s=run_s, cpu_loss_rel_err=loss_err,
+                     cpu_param_err=param_err)
+
+
+def phase_training(torch, tds, report):
+    """Phase 7: recurrent training of BASELINE config 4 on the card."""
+    step = report['k3_step']
+    got, numbers = _drive_training(
+        torch, tds, K3_LAYERS, N_FILTERS, TRAIN_STEPS, 16,
+        {'K2-train': sum(r['k2_ms'] for r in step),
+         'K3': sum(r['k3_ms'] for r in step)})
+    (report['k2_train_launches'], report['train_k2_inference_launches'],
+     report['k3_launches'], report['train_k4_launches'], _) = got
+    report.update({f'train_{k}': v for k, v in numbers.items()})
+
+
+def phase_wide_training(torch, tds, report):
+    """Phase 8: recurrent training at width 64 on the card."""
+    step = report['k4_step']
+    got, numbers = _drive_training(
+        torch, tds, WIDE_LAYERS, WIDE_F, WIDE_STEPS, WIDE_CPU_BATCH,
+        {'K2-train': sum(r['k2_ms'] for r in step),
+         'K4': sum(r['k4_ms'] for r in step),
+         'the GEMM tail': sum(r['tail_ms'] for r in step)},
+        cpu_float64=True, attention=True)
+    (report['wide_k2_train_launches'], report['wide_k2_inference_launches'],
+     report['wide_k3_launches'], report['k4_launches'], _) = got
+    report.update({f'wide_{k}': v for k, v in numbers.items()})
 
 
 def main():
@@ -786,7 +1063,9 @@ def main():
     phase_convlstm(torch, tds, report)
     phase_recurrent_predict(torch, tds, report)
     phase_convlstm_grad(torch, tds, report)
+    phase_convlstm_split(torch, tds, report)
     phase_training(torch, tds, report)
+    phase_wide_training(torch, tds, report)
 
     f32 = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
     k1 = {'name': 'K1_channel_attention', 'route': 'cuda',
@@ -842,14 +1121,34 @@ def main():
           'bound_by': 'operations', 'library_ms': None,
           'work': step_work + '; max_abs_err is max|d| / max|ref| of dx, '
                   'dWx, dbx and dWh against the plain version in float64'}
+    wide = report['k4_step']
+    k4 = {'name': 'K4_convlstm_seq', 'route': 'cuda',
+          'source': 'dl4ds_tpu_torch/csrc/convlstm_seq.cu',
+          'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:269',
+          'launches': report['k4_launches'],
+          'max_abs_err': max(r['dzs_rel_err'] for r in report['k4_rows']),
+          'ms': sum(r['k4_ms'] for r in wide),
+          'plain_ms': sum(r['k4_plain_ms'] for r in wide),
+          'bound_ms': sum(r['k4_bound_ms'] for r in wide),
+          'bound_by': 'operations', 'library_ms': None,
+          'work': f'the sequential BPTT chain of the {len(wide)} ConvLSTM '
+                  f'layers of one float32 recresnet_spc training step at '
+                  f'width {WIDE_F}, batch {TRAIN_BATCH}, T {REC_T}, '
+                  f'{TRAIN_LR}x{TRAIN_LR}, summed; max_abs_err is max|d| / '
+                  f'max(1, max|ref|) of dzs against the plain chain in '
+                  f'float64; the split route\'s float32 GEMM tail (cuBLAS, '
+                  f'not a kernel of the port) took '
+                  f'{sum(r["tail_ms"] for r in wide):.4f} ms against a '
+                  f'{sum(r["tail_bound_ms"] for r in wide):.4f} ms bound'}
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
+    print(json.dumps({'k4_shapes': report['k4_rows']}), flush=True)
     print(json.dumps({k: v for k, v in report.items()
-                      if not k.startswith(('k1_', 'k2_', 'k3_'))}),
+                      if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_'))}),
           flush=True)
     print(card, flush=True)
-    print(json.dumps({'kernels': [k1, k2, k2_train, k3]}), flush=True)
+    print(json.dumps({'kernels': [k1, k2, k2_train, k3, k4]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -5,9 +5,11 @@ from .fused_ops import (fused_channel_attention, channel_attention_reference,
                         FusedChannelAttention)
 from .convlstm import (fused_convlstm, convlstm_reference,
                        convlstm_train_reference, convlstm_backward_reference,
-                       FusedConvLSTM)
+                       convlstm_seq_reference, convlstm_backward_tail,
+                       dispatch_info, FusedConvLSTM)
 
 __all__ = ['depth_to_space', 'fused_channel_attention',
            'channel_attention_reference', 'FusedChannelAttention',
            'fused_convlstm', 'convlstm_reference', 'convlstm_train_reference',
-           'convlstm_backward_reference', 'FusedConvLSTM']
+           'convlstm_backward_reference', 'convlstm_seq_reference',
+           'convlstm_backward_tail', 'dispatch_info', 'FusedConvLSTM']

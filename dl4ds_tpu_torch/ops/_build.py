@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 # kernel library name -> its source in csrc/
 SOURCES = {'channel_attention': 'channel_attention.cu',
            'convlstm': 'convlstm.cu',
-           'convlstm_bwd': 'convlstm_bwd.cu'}
+           'convlstm_bwd': 'convlstm_bwd.cu',
+           'convlstm_seq': 'convlstm_seq.cu'}
 
 NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']

@@ -1,16 +1,22 @@
 """
-Fused ConvLSTM layer (K2 forward, K3 backward), the counterpart of
-`dl4ds_tpu/ops/pallas_convlstm.py`'s `fused_convlstm`.
+Fused ConvLSTM layer (K2 forward; K3, or K4 and a GEMM tail, backward), the
+counterpart of `dl4ds_tpu/ops/pallas_convlstm.py`'s `fused_convlstm`.
 
 On CUDA tensors `fused_convlstm` launches the hand-written Hopper kernels:
 without a gradient to take, K2's inference variant (`csrc/convlstm.cu`, one
 launch per time step); with one (grad mode on and an input that requires
 grad), `FusedConvLSTM`, whose forward is K2's training variant (the same
-step kernel, also writing the `cs` and `zs` residuals) and whose backward is
-K3, the BPTT kernels of `csrc/convlstm_bwd.cu`. On CPU tensors the same
-routing runs the plain PyTorch versions, `convlstm_train_reference` and
-`convlstm_backward_reference`, which are the kernels' oracles. There is no
-size-based or error-based fallback on the GPU.
+step kernel, also writing the `cs` and `zs` residuals). Its backward takes
+one of two routes, chosen by `dispatch_info` from the layer's shape alone:
+'fused', K3, the one-kernel BPTT of `csrc/convlstm_bwd.cu`; or 'split', K4
+(`csrc/convlstm_seq.cu`, the sequential dh/dc chain only, writing dz for
+every step) followed by `convlstm_backward_tail`, float32 GEMMs for dx, dWx,
+dWh and db over all frames at once. On CPU tensors the same routing runs the
+plain PyTorch versions (`convlstm_train_reference`,
+`convlstm_backward_reference`, `convlstm_seq_reference`; the tail is the
+same code on both devices), which are the kernels' oracles. There is no
+size-based or error-based fallback on the GPU: each route launches its
+kernels or raises.
 
 Weights keep the JAX layout: wx [kh, kw, Cin, 4F] (HWIO), bx [4F],
 wh [kh, kw, F, 4F], gates split along 4F in the order i, f, c, o.
@@ -18,6 +24,7 @@ Activations are [B, T, H, W, C]; the residuals are zs [B, T, H, W, 4F]
 (the pre-activations, gate-major along the last axis) and cs [B, T, H, W, F].
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -26,8 +33,9 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ['fused_convlstm', 'convlstm_reference', 'convlstm_train_reference',
-           'convlstm_backward_reference', 'FusedConvLSTM', 'hard_sigmoid',
-           'd_hard_sigmoid']
+           'convlstm_backward_reference', 'convlstm_seq_reference',
+           'convlstm_backward_tail', 'dispatch_info', 'FusedConvLSTM',
+           'hard_sigmoid', 'd_hard_sigmoid']
 
 
 def hard_sigmoid(x):
@@ -40,8 +48,12 @@ def d_hard_sigmoid(x):
     """Derivative of `hard_sigmoid` as the JAX kernel takes it
     (`_d_hard_sigmoid`, dl4ds_tpu/ops/pallas_convlstm.py:73-79): 0.2 where
     the gate lies strictly between 0 and 1, so 0 at z = +-2.5 (autograd
-    through `torch.clamp` passes the gradient at the ends)."""
-    g = hard_sigmoid(x)
+    through `torch.clamp` passes the gradient at the ends). The step is
+    decided in float32, as the kernels decide it, also for float64 x: a
+    float64 run of the plain versions (the kernels' oracle on the card)
+    then steps at the same z, where 0.2 z + 0.5 rounds to 0 or 1 in
+    float32 but not in float64."""
+    g = hard_sigmoid(x.float() if x.dtype == torch.float64 else x)
     return torch.where((g > 0) & (g < 1), 0.2, 0.0).to(x.dtype)
 
 
@@ -109,14 +121,14 @@ def convlstm_reference(x, wx, bx, wh):
     return ys, cs
 
 
-def convlstm_backward_reference(x, wx, wh, zs, cs, ys, dys):
-    """Plain PyTorch BPTT of the layer (transcribes `_bwd_kernel`,
-    dl4ds_tpu/ops/pallas_convlstm.py:335-432): the reverse dh/dc chain on
-    the saved zs, cs and ys, then dx, dWx, dWh and db over the whole window.
-    Returns (dx, dwx, dbx, dwh) in the layouts of (x, wx, bx, wh)."""
-    b, t, h, w, cin = x.shape
-    f = wh.shape[2]
-    dh_next = dc_next = zero = ys.new_zeros((b, h, w, f))
+def convlstm_seq_reference(zs, cs, dys, wh):
+    """Plain PyTorch sequential half of the BPTT, K4's plain version
+    (transcribes `_bwd_seq_kernel`, dl4ds_tpu/ops/pallas_convlstm.py:269-332):
+    the reverse dh/dc chain on the saved zs and cs. Returns dzs [B, T, H, W,
+    4F], the gradient of every step's pre-activations, gate-major."""
+    b, t, h, w, f4 = zs.shape
+    f = f4 // 4
+    dh_next = dc_next = zero = cs.new_zeros((b, h, w, f))
     dzs = [None] * t
     for i in reversed(range(t)):
         zi, zf, zc, zo = torch.split(zs[:, i], f, dim=-1)
@@ -134,12 +146,25 @@ def convlstm_backward_reference(x, wx, wh, zs, cs, ys, dys):
         dzs[i] = dz
         dh_next = _conv_same_t(dz, wh)
         dc_next = dc * gf
-    dz = torch.stack(dzs, dim=1).reshape(b * t, h, w, 4 * f)
+    return torch.stack(dzs, dim=1)
+
+
+def convlstm_backward_reference(x, wx, wh, zs, cs, ys, dys):
+    """Plain PyTorch BPTT of the layer (transcribes `_bwd_kernel`,
+    dl4ds_tpu/ops/pallas_convlstm.py:335-432), K3's plain version: the
+    reverse dh/dc chain on the saved zs, cs and ys (`convlstm_seq_reference`),
+    then dx, dWx, dWh and db over the whole window with PyTorch's convolution
+    adjoints. Returns (dx, dwx, dbx, dwh) in the layouts of (x, wx, bx,
+    wh)."""
+    b, t, h, w, cin = x.shape
+    f = wh.shape[2]
+    dzs = convlstm_seq_reference(zs, cs, dys, wh)
+    dz = dzs.reshape(b * t, h, w, 4 * f)
     dx = _conv_same_t(dz, wx).reshape(x.shape)
     dwx = _conv_same_w(x.reshape(b * t, h, w, cin), dz, wx.shape)
     dbx = dz.sum(dim=(0, 1, 2))
     if t > 1:   # h_{-1} = 0: step 0 adds nothing to dWh
-        dz_h = torch.stack(dzs[1:], dim=1).reshape(b * (t - 1), h, w, 4 * f)
+        dz_h = dzs[:, 1:].reshape(b * (t - 1), h, w, 4 * f)
         dwh = _conv_same_w(ys[:, :-1].reshape(b * (t - 1), h, w, f), dz_h,
                            wh.shape)
     else:
@@ -147,22 +172,134 @@ def convlstm_backward_reference(x, wx, wh, zs, cs, ys, dys):
     return dx, dwx, dbx, dwh
 
 
-def _check_kernels(x, wx, bx, wh):
-    if x.ndim != 5:
-        raise ValueError(f'ConvLSTM x must be [B, T, H, W, Cin], got '
-                         f'{tuple(x.shape)}')
-    cin = x.shape[-1]
-    kh, kw, f4 = wx.shape[0], wx.shape[1], wx.shape[-1]
+@contextlib.contextmanager
+def _fp32_matmuls():
+    """Float32 matmuls without TF32 inside, whatever the caller set (with
+    PyTorch's newer per-backend flag where it has one: reading the legacy
+    `allow_tf32` raises once the new one was set)."""
+    m = torch.backends.cuda.matmul
+    name, value = (('fp32_precision', 'ieee') if hasattr(m, 'fp32_precision')
+                   else ('allow_tf32', False))
+    saved = getattr(m, name)
+    setattr(m, name, value)
+    try:
+        yield
+    finally:
+        setattr(m, name, saved)
+
+
+def _unfold(src, kh, kw):
+    """SAME-padded neighbourhoods: src [N, H, W, C] -> [N*H*W, kh*kw*C],
+    row p holding src_pad[p + (dy, dx), c] in (dy, dx, c) order, the
+    layout of an HWIO kernel's first three axes."""
+    n, h, w, c = src.shape
+    pad = F.pad(src, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    s = pad.stride()
+    win = pad.as_strided((n, h, w, kh, kw, c),
+                         (s[0], s[1], s[2], s[1], s[2], s[3]))
+    return win.reshape(n * h * w, kh * kw * c)
+
+
+def convlstm_backward_tail(x, wx, wh, ys, dzs, need_dx=True):
+    """The T-parallel half of the split BPTT (the counterpart of
+    `_backward_split`'s contractions, dl4ds_tpu/ops/pallas_convlstm.py:
+    840-866), over all B*T frames at once from dzs, the chain's output:
+    dx = convT(dz, wx), dWx from x and dz, dWh from h_{t-1} (ys one step
+    back; step 0 adds nothing) and dz of steps 1.., dbx = sum of dz.
+
+    The weight gradients are one GEMM each over the unfolded source, [kh*kw
+    *C, M] @ [M, 4F]; dx is one GEMM dz @ wx^T, [M, 4F] @ [4F, kh*kw*Cin],
+    whose kh*kw taps are then added into place (unfolding dz instead would
+    take kh*kw*4F floats a pixel). All products are float32 without TF32,
+    whatever the caller set: the route is a matter of speed and changes the
+    result only by float32 summation order. cuDNN's float32 weight gradient
+    is not used: at 5x5 and 64 channels it is off by about 1e-2 of max |ref|
+    (ROADMAP.md section 3). The same code runs on the CPU and on the card.
+    Returns (dx or None, dwx, dbx, dwh)."""
+    b, t, h, w, cin = x.shape
+    kh, kw, _, f4 = wx.shape
     f = f4 // 4
-    if (wx.ndim != 4 or wx.shape[2] != cin or f4 != 4 * f or f == 0
-            or tuple(wh.shape) != (kh, kw, f, f4) or tuple(bx.shape) != (f4,)):
+    dz = dzs.reshape(b * t * h * w, f4)
+    with _fp32_matmuls():
+        dwx = (_unfold(x.reshape(b * t, h, w, cin), kh, kw).t() @ dz).view(
+            wx.shape)
+        dbx = dz.sum(dim=0)
+        if t > 1:   # h_{-1} = 0: step 0 adds nothing to dWh
+            src = _unfold(ys[:, :-1].reshape(b * (t - 1), h, w, f), kh, kw)
+            dwh = (src.t() @ dzs[:, 1:].reshape(-1, f4)).view(wh.shape)
+            del src
+        else:
+            dwh = torch.zeros_like(wh)
+        if not need_dx:
+            return None, dwx, dbx, dwh
+        col = (dz @ wx.reshape(kh * kw * cin, f4).t()).view(
+            b * t, h, w, kh, kw, cin)
+    dx = x.new_zeros((b * t, h + kh - 1, w + kw - 1, cin))
+    for dy in range(kh):
+        for dxx in range(kw):
+            dx[:, dy:dy + h, dxx:dxx + w] += col[:, :, :, dy, dxx]
+    dx = dx[:, kh // 2:kh // 2 + h, kw // 2:kw // 2 + w].reshape(x.shape)
+    return dx, dwx, dbx, dwh
+
+
+def _check_shapes(x_shape, wx_shape, bx_shape, wh_shape):
+    x_shape, wx_shape, bx_shape, wh_shape = map(
+        tuple, (x_shape, wx_shape, bx_shape, wh_shape))
+    if len(x_shape) != 5:
+        raise ValueError(f'ConvLSTM x must be [B, T, H, W, Cin], got '
+                         f'{x_shape}')
+    cin = x_shape[-1]
+    kh, kw, f4 = wx_shape[0], wx_shape[1], wx_shape[-1]
+    f = f4 // 4
+    if (len(wx_shape) != 4 or wx_shape[2] != cin or f4 != 4 * f or f == 0
+            or wh_shape != (kh, kw, f, f4) or bx_shape != (f4,)):
         raise ValueError(
-            f'ConvLSTM weights do not match x [.., {cin}]: wx '
-            f'{tuple(wx.shape)}, bx {tuple(bx.shape)}, wh {tuple(wh.shape)}')
+            f'ConvLSTM weights do not match x [.., {cin}]: wx {wx_shape}, '
+            f'bx {bx_shape}, wh {wh_shape}')
     if kh % 2 == 0 or kw % 2 == 0:
         raise NotImplementedError(
             f'even ConvLSTM kernel {kh}x{kw}: SAME padding would be '
             f'asymmetric')
+
+
+def _check_kernels(x, wx, bx, wh):
+    _check_shapes(x.shape, wx.shape, bx.shape, wh.shape)
+
+
+# The backward's route table, from one layer's whole backward timed by each
+# route on an H100 SXM (batch 128, T 4, 16x16, F in {8, 16, 32, 64}, Cin in
+# {1, F}, 3x3 and 5x5; tools/torch_convlstm_route.py, PERF.md): the split
+# route wins from F = 16 on at 3x3 and from F = 32 on at 5x5.
+_SPLIT_MIN_F_3X3 = 16    # kernels of at most 9 taps
+_SPLIT_MIN_F = 32        # larger kernels
+_SEQ_MAX_KH = 7          # K4's register tiles take kh <= 7
+
+
+def dispatch_info(x_shape, wx_shape, wh_shape):
+    """The backward route of a ConvLSTM layer, as a dict: the function
+    `FusedConvLSTM.backward` routes on (the port's counterpart of
+    `dispatch_info`, dl4ds_tpu/ops/pallas_convlstm.py:873, whose VMEM
+    budgets and lane padding are TPU facts). A pure function of the shapes,
+    from H100 measurements.
+
+    Returns {'path': 'fused' | 'split', 'reason': str}. 'fused' is K2's
+    training variant forward and K3 backward; 'split' the same forward and
+    K4 (the sequential chain) followed by `convlstm_backward_tail` (float32
+    GEMMs). Even or mismatched kernels raise, as the kernels do."""
+    _check_shapes(x_shape, wx_shape, (tuple(wx_shape)[-1],), wh_shape)
+    kh, kw, f = wx_shape[0], wx_shape[1], wh_shape[2]
+    if kh > _SEQ_MAX_KH:
+        return {'path': 'fused',
+                'reason': f'kh {kh} > {_SEQ_MAX_KH}: K4 takes kh <= '
+                          f'{_SEQ_MAX_KH}'}
+    min_f = _SPLIT_MIN_F_3X3 if kh * kw <= 9 else _SPLIT_MIN_F
+    if f < min_f:
+        return {'path': 'fused',
+                'reason': f'F {f} < {min_f} at {kh}x{kw}: K3 is faster '
+                          f'(measured)'}
+    return {'path': 'split',
+            'reason': f'F {f} >= {min_f} at {kh}x{kw}: K4 and the GEMM tail '
+                      f'are faster (measured)'}
 
 
 def _fwd_lib():
@@ -188,6 +325,15 @@ def _bwd_lib():
             fn.argtypes = types
             fn.restype = ctypes.c_int
     return lib
+
+
+def _seq_lib():
+    fn = _build.load('convlstm_seq').dl4ds_convlstm_seq_step
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 6 + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _rows_per_thread(b, h, w, f, n_sm):
@@ -351,32 +497,88 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
     return dx, out_x[:lx].view(kh, kw, cin, f4), out_x[lx:], dwh
 
 
+def _launch_seq(zs, cs, dys, wh):
+    """Run K4, the sequential chain: T step launches in reverse on the
+    current stream. Returns dzs [B, T, H, W, 4F]."""
+    tensors = (zs, cs, dys, wh)
+    dev = _check_cuda(tensors, 'sequential BPTT kernel')
+    b, t, h, w, f4 = zs.shape
+    kh, kw, f, _ = wh.shape
+    if (f4 != 4 * f or tuple(wh.shape[3:]) != (f4,)
+            or any(tuple(u.shape) != (b, t, h, w, f) for u in (cs, dys))):
+        raise ValueError(
+            f'ConvLSTM residuals do not match wh {tuple(wh.shape)}: zs '
+            f'{tuple(zs.shape)}, cs {tuple(cs.shape)}, dys {tuple(dys.shape)}')
+    if kh % 2 == 0 or kw % 2 == 0 or kh > _SEQ_MAX_KH:
+        raise ValueError(f'the sequential BPTT kernel takes odd kernels with '
+                         f'kh <= {_SEQ_MAX_KH}, got {kh}x{kw}')
+    if not 0 < b <= 65535 or h * w == 0:
+        raise ValueError(f'the sequential BPTT kernel takes 1 to 65535 '
+                         f'samples of a non-empty frame, got zs '
+                         f'{tuple(zs.shape)}')
+    zs, cs, dys = (_aligned(u) for u in (zs, cs, dys))
+    # whT [kh, kw, 4F, F]: wh flipped in both spatial axes, channel axes
+    # swapped, so that the kernel stages its output channels contiguously
+    wht = wh.flip(0, 1).transpose(2, 3).contiguous()
+    dzs = torch.empty_like(zs)
+    dcs = torch.empty((b, h, w, f), dtype=torch.float32, device=dev)
+    fn = _seq_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for step in reversed(range(t)):
+            err = fn(zs.data_ptr(), cs.data_ptr(), dys.data_ptr(),
+                     wht.data_ptr(), dzs.data_ptr(), dcs.data_ptr(), b, t,
+                     step, h, w, f, kh, kw, stream)
+            if err != 0:
+                raise RuntimeError(f'ConvLSTM sequential BPTT kernel launch '
+                                   f'failed with CUDA error {err} (step '
+                                   f'{step})')
+            fused_convlstm.seq_launches += 1
+    return dzs
+
+
+def _backward(route, x, wx, wh, zs, cs, ys, dys, need_dx=True):
+    """The layer's BPTT by `route` ('fused' or 'split'): the kernels on CUDA
+    tensors, their plain versions on CPU tensors. Returns (dx, dwx, dbx,
+    dwh); dx may be None when not need_dx."""
+    if route not in ('fused', 'split'):
+        raise ValueError(f"ConvLSTM backward route must be 'fused' or "
+                         f"'split', got {route!r}")
+    cuda = x.device.type == 'cuda'
+    if route == 'fused':
+        if cuda:
+            return _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx)
+        return convlstm_backward_reference(x, wx, wh, zs, cs, ys, dys)
+    dzs = (_launch_seq if cuda else convlstm_seq_reference)(zs, cs, dys, wh)
+    return convlstm_backward_tail(x, wx, wh, ys, dzs, need_dx)
+
+
 class FusedConvLSTM(torch.autograd.Function):
     """The layer with its BPTT backward: on CUDA tensors K2's training
-    variant forward and K3 backward; on CPU tensors their plain versions.
-    Saves x, wx, wh and the residuals zs, cs, ys for the backward."""
+    variant forward and, by `dispatch_info`'s route, K3 or K4 and the GEMM
+    tail backward; on CPU tensors their plain versions. Saves x, wx, wh and
+    the residuals zs, cs, ys for the backward. `route` (internal, for tests
+    and the chip checks) forces a backward route."""
 
     @staticmethod
-    def forward(ctx, x, wx, bx, wh):
+    def forward(ctx, x, wx, bx, wh, route=None):
         if x.device.type == 'cuda':
             ys, cs, zs = _launch(x, wx, bx, wh, train=True)
         else:
             ys, cs, zs = convlstm_train_reference(x, wx, bx, wh)
         ctx.save_for_backward(x, wx, wh, zs, cs, ys)
+        ctx.route = route
         return ys
 
     @staticmethod
     def backward(ctx, dys):
         x, wx, wh, zs, cs, ys = ctx.saved_tensors
-        dys = dys.contiguous()
-        if x.device.type == 'cuda':
-            dx, dwx, dbx, dwh = _launch_backward(
-                x, wx, wh, zs, cs, ys, dys, need_dx=ctx.needs_input_grad[0])
-        else:
-            dx, dwx, dbx, dwh = convlstm_backward_reference(
-                x, wx, wh, zs, cs, ys, dys)
+        route = ctx.route or dispatch_info(x.shape, wx.shape,
+                                           wh.shape)['path']
+        grads = _backward(route, x, wx, wh, zs, cs, ys, dys.contiguous(),
+                          need_dx=ctx.needs_input_grad[0])
         return tuple(g if need else None for g, need in
-                     zip((dx, dwx, dbx, dwh), ctx.needs_input_grad))
+                     zip(grads, ctx.needs_input_grad)) + (None,)
 
 
 def fused_convlstm(x, wx, bx, wh):
@@ -384,11 +586,13 @@ def fused_convlstm(x, wx, bx, wh):
     [B, T, H, W, Cin] (h and c start at zero).
 
     With grad mode on and any input that requires grad, `FusedConvLSTM`
-    (differentiable; on CUDA K2's training variant and K3). Otherwise, on
-    CUDA tensors K2's inference variant, one launch per time step, float32
-    only; on CPU tensors `convlstm_reference`. `fused_convlstm.launches`
-    counts K2 inference launches, `.train_launches` K2 training launches and
-    `.bwd_launches` K3 launches; the CPU path launches nothing."""
+    (differentiable; on CUDA K2's training variant, and K3 or K4 with the
+    GEMM tail as `dispatch_info` routes the layer). Otherwise, on CUDA
+    tensors K2's inference variant, one launch per time step, float32 only;
+    on CPU tensors `convlstm_reference`. `fused_convlstm.launches` counts K2
+    inference launches, `.train_launches` K2 training launches,
+    `.bwd_launches` K3 launches and `.seq_launches` K4 launches; the CPU path
+    launches nothing."""
     if x.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {x.device}')
     if torch.is_grad_enabled() and any(
@@ -402,3 +606,4 @@ def fused_convlstm(x, wx, bx, wh):
 fused_convlstm.launches = 0
 fused_convlstm.train_launches = 0
 fused_convlstm.bwd_launches = 0
+fused_convlstm.seq_launches = 0

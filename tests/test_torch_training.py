@@ -165,7 +165,19 @@ def jax_steps(request, data):
                 losses=losses)
 
 
-def test_recurrent_adam_steps_match_the_jax_trainer(data, jax_steps):
+@pytest.mark.parametrize('route', ['fused', 'split'])
+def test_recurrent_adam_steps_match_the_jax_trainer(data, jax_steps, route,
+                                                    monkeypatch):
+    """Three Adam steps with every ConvLSTM layer's backward forced onto
+    one route: K3's plain version ('fused') or K4's with the GEMM tail
+    ('split')."""
+    from dl4ds_tpu_torch.ops import convlstm as conv
+    monkeypatch.setattr(conv, 'dispatch_info', lambda *shapes: {
+        'path': route, 'reason': 'forced by the test'})
+    chains = []
+    seq_reference = conv.convlstm_seq_reference
+    monkeypatch.setattr(conv, 'convlstm_seq_reference', lambda *a: (
+        chains.append(route), seq_reference(*a))[1])
     hr = data[0]
     tr = tds.SupervisedTrainer(
         data_train=hr, data_val=hr[:6], data_test=hr[:6], device='cpu',
@@ -192,6 +204,7 @@ def test_recurrent_adam_steps_match_the_jax_trainer(data, jax_steps):
         moved = max(moved, (got[name] - p).abs().max().item())
     assert moved > 1e-4      # the steps moved the weights
     assert tr.n_updates == 3
+    assert len(chains) == 3 * 2 * (1 + REC['n_blocks'])  # a chain a layer
 
 
 def test_spatial_adam_step_matches_jax(data):

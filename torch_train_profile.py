@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the device time of a PyTorch port training step goes.
 
-    python3 torch_train_profile.py [--batch 128] [--reps 5]   # repo root
+    python3 torch_train_profile.py [--batch 128] [--reps 5] [--width 8]
+                                   [--attention]               # repo root
 
 Builds the recurrent training configuration of `chip_smoke.py` phase 7
 (BASELINE config 4 as bench_suite.py's measure_supervised trains it:
 `SupervisedTrainer('resnet', 'spc', time_window=4, n_blocks=2,
 n_filters=8, scale=4, patch_size=64, loss='mae')` on 256 seeded grids of
-128x128, float32, TF32 convs as PyTorch's default), runs 3 warm-up steps,
+128x128, float32, TF32 convs as PyTorch's default), or with `--width 64
+--attention` that of phase 8 (bench_suite.py's recresnet_spc_width64), runs
+3 warm-up steps,
 then `reps` steps (batch synthesis, forward, backward, Adam) under
 `torch.profiler` on one GPU, and prints one JSON line: device time per
 kernel group and for the top kernels, the device's busy share over the
@@ -24,12 +27,16 @@ from collections import defaultdict
 from pathlib import Path
 
 # kernel-name fragments -> group; the first match wins
-GROUPS = [('K2_convlstm', ('convlstm_step',)),
+# (cuDNN's convolutions first; GEMMs with no convolution in their name,
+# cuBLAS's among them, then fall to 'gemm')
+GROUPS = [('K4_convlstm_seq', ('seq_chain_step',)),
+          ('K2_convlstm', ('convlstm_step',)),
           ('K3_convlstm_bptt', ('bptt_step', 'dx_frames', 'wgrad_partial',
                                 'wgrad_reduce')),
           ('adam', ('multi_tensor_apply', 'adam')),
-          ('conv', ('conv', 'cudnn', 'xmma', 'implicit', 'winograd', 'sm90',
-                    'gemm', 'nchw', 'nhwc', 'wgrad', 'dgrad')),
+          ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fprop',
+                    'nchw', 'nhwc', 'wgrad', 'dgrad')),
+          ('gemm', ('gemm', 'xmma', 'sm90', 'sm80', 'cutlass')),
           ('cat', ('cat',)),
           ('reduce', ('reduce',)),
           ('elementwise', ('elementwise', 'vectorized', 'unrolled'))]
@@ -47,6 +54,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=128)
     ap.add_argument('--reps', type=int, default=5)
+    ap.add_argument('--width', type=int, default=8, help='n_filters')
+    ap.add_argument('--attention', action='store_true')
     args = ap.parse_args()
 
     import numpy as np
@@ -63,7 +72,8 @@ def main():
     tr = tds.SupervisedTrainer(
         'resnet', 'spc', data_train=data, data_val=data[:64],
         data_test=data[:64], scale=4, patch_size=64, batch_size=args.batch,
-        loss='mae', time_window=4, n_blocks=2, n_filters=8, verbose=False)
+        loss='mae', time_window=4, n_blocks=2, n_filters=args.width,
+        attention=args.attention, verbose=False)
     tr.setup_datagen()
     tr.setup_model()
     tr.setup_optimizer()
@@ -101,6 +111,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     print(json.dumps({
         'device': torch.cuda.get_device_name(0), 'model': tr.model.name,
+        'width': args.width, 'attention': args.attention,
         'batch': args.batch, 'reps': args.reps,
         'kernel_launches_per_step': len(kernels) / args.reps,
         'annotation_ranges_skipped': len(device) - len(kernels),
