@@ -52,13 +52,30 @@ Phases, each of which exits non-zero on failure:
      steps at batch 128, print each ConvLSTM layer's route, count the
      launches against the routes, require finite losses, time the steps,
      and compare 3 steps at batch 4 on the GPU with the CPU;
-  9. print the `kernels` JSON line, then, last, the device JSON line.
+  9. hold K6 (the fused per-image SSIM) against its plain version run in
+     float64 at the DSSIM loss's shape in a flagship training step
+     ([128, 64, 64, 1]) and on its other paths (the minimal 11x11 image,
+     ragged tiles, a 512x512 grid, channels folded, a 5-D input, other
+     filter sizes), check that its bits repeat, time it against its plain
+     version and its bound, and check dssim_mae's value and y_pred gradient
+     through K6 against the same loss on the plain path (CPU);
+ 10. drive the flagship training: `SupervisedTrainer('resnet', 'spc',
+     scale=4, patch_size=64, batch_size=128, n_filters=8, n_blocks=6,
+     attention=True, loss='dssim_mae')` (bench.py's configuration) on 256
+     grids of 128x128 for 2 epochs of 20 steps with validation and test;
+     first time K1 at the step's gate shapes (forward against its plain
+     version, and its plain backward), then count the launches of K1 (its
+     gates per forward x the forwards) and K6 (one a loss), require finite
+     losses, time the steps, and compare 3 steps at batch 16 on the GPU
+     (PyTorch's own convolutions) with the CPU in float64;
+ 11. print the `kernels` JSON line, then, last, the device JSON line.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -168,6 +185,30 @@ K4_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 3, 3, True),
 # max(1, max |dzs|); the split route's gradients against the plain BPTT in
 # float64 to K3's tolerances (float32 GEMMs over up to 131,072 pixels)
 K4_TOL = 1e-5
+# fused SSIM (K6): the DSSIM loss's shape in a flagship training step, then
+# the kernel's other paths: the minimal image (one output), ragged tiles, a
+# full 512x512 grid (many row and column tiles), channels folded into the
+# image axis, and a 5-D input; then other filter sizes, (shape, taps,
+# sigma): the compiled maximum and a small one
+K6_SHAPES = [(TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 1), (1, 11, 11, 1),
+             (3, 13, 37, 1), (8, 512, 512, 1), (4, 64, 64, 3),
+             (2, 3, 64, 64, 1)]
+K6_FILTERS = [((2, 40, 40, 1), 25, 3.0), ((2, 20, 33, 1), 3, 0.8)]
+# K6 against its plain version run in float64, per image: float32 sums of
+# 11 taps of moments up to max_val^2 and of up to 512*512 SSIM terms
+K6_TOL = 1e-5
+# the loss through K6 against the plain path: value rtol, gradient atol of
+# max |g| (float32 sums in another order)
+LOSS_RTOL, LOSS_GRAD_TOL = 1e-5, 1e-4
+# flagship training: bench.py's configuration (resnet_spc x4, n_filters 8,
+# n_blocks 6, attention) trained with dssim_mae on the data of phase 7; 3
+# steps at batch 16 against the CPU in float64, at the tolerances of phase
+# 7. A float32 run is no reference here either: with cuDNN's float32
+# convolutions (TF32 off) 3 Adam steps end 2.6e-4 from float64 (1.0e-3 with
+# mae), with PyTorch's own 4.8e-7, and the CPU's float32 run 9.0e-6 (3.0e-4
+# with mae) (tools/torch_train_parity.py --model resnet_spc --batch 16 on an
+# H100 SXM at 700 W)
+FLAG_LOSS, FLAG_CPU_BATCH = 'dssim_mae', 16
 
 
 def fail(msg):
@@ -855,13 +896,22 @@ def phase_convlstm_split(torch, tds, report):
     report['k4_step'] = [by_shape[shape] for shape in WIDE_LAYERS]
 
 
+def _counters(tds):
+    """(name, function, attribute) of every launch counter of the port."""
+    fcl = tds.fused_convlstm
+    return [('K2-train', fcl, 'train_launches'),
+            ('K2 inference', fcl, 'launches'), ('K3', fcl, 'bwd_launches'),
+            ('K4', fcl, 'seq_launches'),
+            ('K1', tds.fused_channel_attention, 'launches'),
+            ('K6', tds.fused_ssim_per_image, 'launches')]
+
+
 def _expected_launches(conv, layers, steps, eval_steps):
-    """(K2-train, K2 inference, K3, K4) launches of `steps` training steps
-    and `eval_steps` validation or test steps of a model with these
-    (Cin, F, k) ConvLSTM layers, by `dispatch_info`'s route of each: K3 a
-    layer is T chain steps, dx (not for the stem, whose input needs no
-    gradient), the Wx and Wh passes and one reduction; K4 a layer is T
-    chain steps."""
+    """{counter: launches} of `steps` training steps and `eval_steps`
+    validation or test steps of a recurrent model with these (Cin, F, k)
+    ConvLSTM layers, by `dispatch_info`'s route of each: K3 a layer is T
+    chain steps, dx (not for the stem, whose input needs no gradient), the
+    Wx and Wh passes and one reduction; K4 a layer is T chain steps."""
     k3 = k4 = 0
     for cin, f, k in layers:
         x_shape = (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin)
@@ -872,69 +922,58 @@ def _expected_launches(conv, layers, steps, eval_steps):
         else:
             k4 += REC_T
     n = len(layers) * REC_T
-    return steps * n, eval_steps * n, steps * k3, steps * k4
+    return {'K2-train': steps * n, 'K2 inference': eval_steps * n,
+            'K3': steps * k3, 'K4': steps * k4, 'K1': 0, 'K6': 0}
 
 
-def _drive_training(torch, tds, layers, n_filters, steps, cpu_batch,
-                    shares, cpu_float64=False, **model):
-    """Drive recurrent training through SupervisedTrainer on the card at
-    batch 128 (2 epochs of `steps` steps, validation and test), with the
-    counts set to 0 just before and read just after, against the launches
-    that `dispatch_info`'s routes of the model's ConvLSTM `layers` give;
-    require finite losses; time the steps (host clock, and one step on CUDA
-    events, with the kernels' shares of it from `shares`, {name: ms}); then
-    3 steps at `cpu_batch` from one seed on the GPU (TF32 off, cuDNN
-    deterministic) and on the CPU. With `cpu_float64` the CPU runs in
-    float64 and the GPU's convolutions are PyTorch's own, not cuDNN's.
-    Returns the launches and the numbers."""
+def _training_config(**model):
+    """SupervisedTrainer arguments of a training phase: 256 seeded grids of
+    128x128, 64x64 HR patches, scale 4, and the model's `model` options."""
     import numpy as np
-    import dl4ds_tpu_torch.ops.convlstm as conv
-    fcl, fca = tds.fused_convlstm, tds.fused_channel_attention
-    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
-    torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
     data = rng.standard_normal(
         (TRAIN_GRIDS, TRAIN_HR, TRAIN_HR, 1)).astype('float32')
-    config = dict(backbone='resnet', upsampling='spc', data_train=data,
-                  data_val=data[:64], data_test=data[:64], scale=SCALE,
-                  patch_size=TRAIN_PATCH, loss='mae', time_window=REC_T,
-                  n_blocks=REC_BLOCKS, n_filters=n_filters, verbose=False,
-                  **model)
+    return dict(backbone='resnet', upsampling='spc', data_train=data,
+                data_val=data[:64], data_test=data[:64], scale=SCALE,
+                patch_size=TRAIN_PATCH, verbose=False, **model)
+
+
+def _drive_training(torch, tds, config, label, steps, expected, cpu_batch,
+                    shares, cpu_float64=False):
+    """Drive training through SupervisedTrainer(**config) on the card at
+    batch 128 (2 epochs of `steps` steps, validation and test), with every
+    launch counter set to 0 just before and read just after, against
+    `expected` ({counter: launches}); require finite losses; time the steps
+    (host clock, and one step on CUDA events, with the kernels' shares of it
+    from `shares`, {name: ms}); then 3 steps at `cpu_batch` from one seed on
+    the GPU (TF32 off, cuDNN deterministic) and on the CPU. With
+    `cpu_float64` the CPU runs in float64 and the GPU's convolutions are
+    PyTorch's own, not cuDNN's. Returns the launches and the numbers."""
+    import numpy as np
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
     tr = tds.SupervisedTrainer(
         batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, steps_per_epoch=steps,
         validation_steps=TRAIN_VAL_STEPS, test_steps=TRAIN_TEST_STEPS,
         **config)
-    for cin, f, k in dict.fromkeys(layers):
-        info = conv.dispatch_info(
-            (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin), (k, k, cin, 4 * f),
-            (k, k, f, 4 * f))
-        print(f'ConvLSTM layer (Cin {cin}, F {f}, {k}x{k}) at batch '
-              f'{TRAIN_BATCH}: backward route {info["path"]} '
-              f'({info["reason"]})', flush=True)
-    fcl.launches = fcl.train_launches = fcl.bwd_launches = 0
-    fcl.seq_launches = fca.launches = 0
+    counters = _counters(tds)
+    for _, fn, attr in counters:
+        setattr(fn, attr, 0)
     t0 = time.perf_counter()
     tr.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    got = (fcl.train_launches, fcl.launches, fcl.bwd_launches,
-           fcl.seq_launches, fca.launches)
-    expected = _expected_launches(
-        conv, layers, TRAIN_EPOCHS * steps,
-        TRAIN_EPOCHS * TRAIN_VAL_STEPS + TRAIN_TEST_STEPS) + (0,)
+    got = {name: getattr(fn, attr) for name, fn, attr in counters}
     losses = tr.fithist['loss'] + tr.fithist['val_loss'] + [tr.test_loss]
-    print(f'training: {tr.model.name}, n_filters {n_filters}, '
+    print(f'training: {tr.model.name}, {label}, '
           f'{tr.model.param_count(tr.net)} parameters, batch {TRAIN_BATCH}, '
           f'{TRAIN_EPOCHS} epochs of {steps} steps in {run_s:.2f} s; '
           f'history {tr.fithist}, test loss {tr.test_loss:.6f}; launches '
-          f'K2-train, K2 inference, K3, K4, K1 {got} (expected {expected}, '
-          f'from the routes of dispatch_info)', flush=True)
+          f'{got} (expected {expected})', flush=True)
     if got != expected:
-        fail(f'recurrent training (n_filters {n_filters}) launched K2-train, '
-             f'K2 inference, K3, K4 and K1 {got} times, expected {expected}')
+        fail(f'training ({label}) launched {got}, expected {expected}')
     if not all(np.isfinite(v) for v in losses):
-        fail(f'recurrent training (n_filters {n_filters}) gave non-finite '
-             f'losses {losses}')
+        fail(f'training ({label}) gave non-finite losses {losses}')
 
     # speed: steps with their batch synthesis on the host clock, and one
     # step alone on CUDA events
@@ -951,15 +990,15 @@ def _drive_training(torch, tds, layers, n_filters, steps, cpu_batch,
     step_ms = statistics.median(
         device_times(torch, lambda: tr.train_step(batch), reps=10))
     del tr, batch
-    print(f'training step at batch {TRAIN_BATCH}, n_filters {n_filters} '
-          f'(TF32 convs in the head, the default; the ConvLSTM kernels and '
-          f'the GEMM tail are float32): {patches_per_s:.1f} patches/s end to '
-          f'end (host clock, batch synthesis included); one step '
-          f'{step_ms:.3f} ms (CUDA events) = '
+    print(f'training step at batch {TRAIN_BATCH}, {label} (TF32 convs, the '
+          f'default; the port\'s kernels and the GEMM tail are float32): '
+          f'{patches_per_s:.1f} patches/s end to end (host clock, batch '
+          f'synthesis included); one step {step_ms:.3f} ms (CUDA events) = '
           f'{TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; of which '
           + ', '.join(f'{name} {ms:.3f} ms ({100 * ms / step_ms:.1f}%)'
                       for name, ms in shares.items())
-          + f', from phase 6; {torch.cuda.get_device_name(0)}', flush=True)
+          + f', timed alone above; {torch.cuda.get_device_name(0)}',
+          flush=True)
 
     # 3 steps from one seed on the GPU and on the CPU
     torch.backends.cudnn.allow_tf32 = False
@@ -995,43 +1034,271 @@ def _drive_training(torch, tds, layers, n_filters, steps, cpu_batch,
                     for n in cpu_params)
     gpu_how = ('PyTorch\'s own float32 convolutions, not cuDNN\'s'
                if cpu_float64 else 'cuDNN deterministic')
-    print(f'3 training steps at batch {cpu_batch}, n_filters {n_filters}, '
-          f'GPU (TF32 off, {gpu_how}) vs CPU ({str(cpu_dtype)[6:]}): losses '
-          f'{gpu_losses} vs {cpu_losses}, max relative difference '
-          f'{loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); parameters max|d| '
-          f'{param_err:.3e} (atol {TRAIN_PARAM_ATOL})', flush=True)
+    print(f'3 training steps at batch {cpu_batch}, {label}, GPU (TF32 off, '
+          f'{gpu_how}) vs CPU ({str(cpu_dtype)[6:]}): losses {gpu_losses} '
+          f'vs {cpu_losses}, max relative difference {loss_err:.3e} (rtol '
+          f'{TRAIN_LOSS_RTOL}); parameters max|d| {param_err:.3e} (atol '
+          f'{TRAIN_PARAM_ATOL})', flush=True)
     if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL):
-        fail(f'GPU training steps (n_filters {n_filters}) disagree with the '
-             f'CPU: losses {loss_err:.3e}, parameters {param_err:.3e}')
+        fail(f'GPU training steps ({label}) disagree with the CPU: losses '
+             f'{loss_err:.3e}, parameters {param_err:.3e}')
     return got, dict(patches_per_s=patches_per_s, step_ms=step_ms,
                      run_s=run_s, cpu_loss_rel_err=loss_err,
                      cpu_param_err=param_err)
 
 
+def _print_routes(conv, layers):
+    for cin, f, k in dict.fromkeys(layers):
+        info = conv.dispatch_info(
+            (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin), (k, k, cin, 4 * f),
+            (k, k, f, 4 * f))
+        print(f'ConvLSTM layer (Cin {cin}, F {f}, {k}x{k}) at batch '
+              f'{TRAIN_BATCH}: backward route {info["path"]} '
+              f'({info["reason"]})', flush=True)
+
+
 def phase_training(torch, tds, report):
     """Phase 7: recurrent training of BASELINE config 4 on the card."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
     step = report['k3_step']
+    _print_routes(conv, K3_LAYERS)
     got, numbers = _drive_training(
-        torch, tds, K3_LAYERS, N_FILTERS, TRAIN_STEPS, 16,
-        {'K2-train': sum(r['k2_ms'] for r in step),
-         'K3': sum(r['k3_ms'] for r in step)})
-    (report['k2_train_launches'], report['train_k2_inference_launches'],
-     report['k3_launches'], report['train_k4_launches'], _) = got
+        torch, tds, _training_config(loss='mae', time_window=REC_T,
+                                     n_blocks=REC_BLOCKS,
+                                     n_filters=N_FILTERS),
+        f'n_filters {N_FILTERS}', TRAIN_STEPS,
+        _expected_launches(conv, K3_LAYERS, TRAIN_EPOCHS * TRAIN_STEPS,
+                           TRAIN_EPOCHS * TRAIN_VAL_STEPS + TRAIN_TEST_STEPS),
+        16, {'K2-train': sum(r['k2_ms'] for r in step),
+             'K3': sum(r['k3_ms'] for r in step)})
+    report.update(k2_train_launches=got['K2-train'],
+                  train_k2_inference_launches=got['K2 inference'],
+                  k3_launches=got['K3'], train_k4_launches=got['K4'])
     report.update({f'train_{k}': v for k, v in numbers.items()})
 
 
 def phase_wide_training(torch, tds, report):
     """Phase 8: recurrent training at width 64 on the card."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
     step = report['k4_step']
+    _print_routes(conv, WIDE_LAYERS)
     got, numbers = _drive_training(
-        torch, tds, WIDE_LAYERS, WIDE_F, WIDE_STEPS, WIDE_CPU_BATCH,
+        torch, tds, _training_config(loss='mae', time_window=REC_T,
+                                     n_blocks=REC_BLOCKS, n_filters=WIDE_F,
+                                     attention=True),
+        f'n_filters {WIDE_F}', WIDE_STEPS,
+        _expected_launches(conv, WIDE_LAYERS, TRAIN_EPOCHS * WIDE_STEPS,
+                           TRAIN_EPOCHS * TRAIN_VAL_STEPS + TRAIN_TEST_STEPS),
+        WIDE_CPU_BATCH,
         {'K2-train': sum(r['k2_ms'] for r in step),
          'K4': sum(r['k4_ms'] for r in step),
          'the GEMM tail': sum(r['tail_ms'] for r in step)},
-        cpu_float64=True, attention=True)
-    (report['wide_k2_train_launches'], report['wide_k2_inference_launches'],
-     report['wide_k3_launches'], report['k4_launches'], _) = got
+        cpu_float64=True)
+    report.update(wide_k2_train_launches=got['K2-train'],
+                  wide_k2_inference_launches=got['K2 inference'],
+                  wide_k3_launches=got['K3'], k4_launches=got['K4'])
     report.update({f'wide_{k}': v for k, v in numbers.items()})
+
+
+def k6_work(shape, k):
+    """(flops, bytes) of K6 on [..., H, W, C] images with k taps: the five
+    moments' horizontal pass over every row (H x Wv outputs) and vertical
+    pass (Hv x Wv), k multiply-adds each, for every image and channel; both
+    images read once, one float per output written."""
+    *lead, h, w, c = shape
+    n_out = math.prod(lead)
+    hv, wv = h - k + 1, w - k + 1
+    flops = 2 * 5 * k * (h * wv + hv * wv) * n_out * c
+    return flops, 4 * (2 * n_out * c * h * w + n_out)
+
+
+def _ssim_pair(torch, shape, gen, dev):
+    """An image in [0, 1) and a noisy copy clipped to [0, 1]."""
+    a = torch.rand(shape, generator=gen, device=dev)
+    b = (a + 0.1 * torch.randn(shape, generator=gen, device=dev)).clamp(0, 1)
+    return a, b
+
+
+def phase_ssim(torch, tds, report):
+    """Phase 9: K6 against its plain version in float64 at the DSSIM loss's
+    shape and on its other paths; timed at the first; dssim_mae through K6
+    against the plain path."""
+    from dl4ds_tpu_torch.ops.ssim import ssim
+    fss = tds.fused_ssim_per_image
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(9)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    cases = [(shape, 11, 1.5) for shape in K6_SHAPES] + K6_FILTERS
+    rows = []
+    for i, (shape, k, sigma) in enumerate(cases):
+        a, b = _ssim_pair(torch, shape, gen, dev)
+        # the loss passes its data range as a device scalar
+        max_val = (torch.maximum(a.amax(), b.amax())
+                   - torch.minimum(a.amin(), b.amin())) if i == 0 else 1.0
+        kw = dict(filter_size=k, filter_sigma=sigma)
+        got = fss(a, b, max_val, **kw)
+        again = fss(a, b, max_val, **kw)
+        m64 = max_val.double() if torch.is_tensor(max_val) else max_val
+        ref = ssim(a.double(), b.double(), m64, **kw)
+        ref32 = ssim(a, b, max_val, **kw)
+        torch.cuda.synchronize()
+        label = f'x{list(shape)} {k} taps'
+        if got.shape != ref.shape:
+            fail(f'K6 {label}: shape {tuple(got.shape)}, expected '
+                 f'{tuple(ref.shape)}')
+        err = (got.double() - ref).abs().max().item()
+        plain_err = (ref32.double() - ref).abs().max().item()
+        if not err <= K6_TOL:
+            fail(f'K6 {label}: max|d| {err:.3e} against the float64 plain '
+                 f'version, atol {K6_TOL}')
+        if not torch.equal(got, again):
+            fail(f'K6 {label}: two runs gave different bits')
+        row = dict(shape=list(shape), taps=k, max_abs_err=err,
+                   plain_f32_err=plain_err)
+        if i == 0:
+            ms, plain_ms = paired_ms(torch, lambda: fss(a, b, max_val),
+                                     lambda: ssim(a, b, max_val), flush)
+            # K6's backward as the loss takes it: autograd through the
+            # plain version, wrt the prediction and the range
+            g = torch.ones_like(got)
+            leaves = [b.clone().requires_grad_(),
+                      max_val.clone().requires_grad_()]
+            bwd_ms = statistics.median(device_times(
+                torch, lambda: torch.autograd.grad(ssim(a, *leaves), leaves,
+                                                   g), l2_flush=flush))
+            flops, n_bytes = k6_work(shape, k)
+            bound_ms = max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
+            row.update(ms=ms, plain_ms=plain_ms, plain_bwd_ms=bwd_ms,
+                       bound_ms=bound_ms,
+                       bound_by=('operations' if flops / F32_FLOPS
+                                 >= n_bytes / HBM_BYTES_PER_S else 'bytes'),
+                       mflop=flops / 1e6, mbytes=n_bytes / 1e6)
+        rows.append(row)
+        print(f'K6 {label}  max|d| {err:.3e} against float64 (plain f32 '
+              f'{plain_err:.3e})  same bits twice'
+              + (f'  kernel {row["ms"]:.4f} ms  plain {row["plain_ms"]:.4f} '
+                 f'ms  bound {row["bound_ms"]:.4f} ms ({row["mflop"]:.1f} '
+                 f'MFLOP, {row["mbytes"]:.2f} MB)  library_ms null (no '
+                 f'single PyTorch call computes SSIM); plain backward '
+                 f'{row["plain_bwd_ms"]:.4f} ms' if i == 0 else ''),
+              flush=True)
+
+    # dssim_mae through K6 (forward) and its plain backward, against the
+    # same loss on the CPU, which runs the plain version
+    shape = K6_SHAPES[0]
+    y_true = torch.randn(shape, generator=gen, device=dev)
+    y_pred = torch.randn(shape, generator=gen, device=dev)
+    lossf = getattr(tds.losses, FLAG_LOSS)
+    results = []
+    for d in ('cuda', 'cpu'):
+        pred = y_pred.detach().to(d).requires_grad_()
+        before = fss.launches
+        value = lossf(y_true.to(d), pred)
+        launched = fss.launches - before
+        value.backward()
+        results.append((value.item(), pred.grad.cpu(), launched))
+    (v_gpu, g_gpu, n_gpu), (v_cpu, g_cpu, n_cpu) = results
+    loss_err = abs(v_gpu - v_cpu) / abs(v_cpu)
+    grad_err = ((g_gpu - g_cpu).abs().max() / g_cpu.abs().max()).item()
+    print(f'{FLAG_LOSS} x{list(shape)} (standard normal, so both arrays '
+          f'are shifted) through K6 vs the plain path (CPU): loss '
+          f'{v_gpu:.8f} vs '
+          f'{v_cpu:.8f}, relative {loss_err:.2e} (rtol {LOSS_RTOL}); y_pred '
+          f'gradient max|d|/max|g| {grad_err:.2e} (atol {LOSS_GRAD_TOL} of '
+          f'max|g|); K6 launches {n_gpu} on the GPU, {n_cpu} on the CPU',
+          flush=True)
+    if (n_gpu, n_cpu) != (1, 0):
+        fail(f'{FLAG_LOSS} launched K6 {n_gpu} times on the GPU and {n_cpu} '
+             f'on the CPU, expected 1 and 0')
+    if not (loss_err <= LOSS_RTOL and grad_err <= LOSS_GRAD_TOL):
+        fail(f'{FLAG_LOSS} through K6 disagrees with the plain path: loss '
+             f'{loss_err:.3e}, gradient {grad_err:.3e}')
+    report['k6_rows'] = rows
+    report['k6_loss_check'] = dict(loss_rel_err=loss_err,
+                                   grad_rel_err=grad_err)
+
+
+def _gate_inputs(torch, tds, config):
+    """The input shapes of the flagship's K1 gates in a training step, in
+    order, read by hooks on one forward of a training batch."""
+    from dl4ds_tpu_torch.models.blocks import ChannelAttention2D
+    tr = tds.SupervisedTrainer(batch_size=TRAIN_BATCH, epochs=1, **config)
+    tr.setup_datagen()
+    tr.setup_model()
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.append(tuple(inp[0].shape)))
+        for m in tr.net.modules() if isinstance(m, ChannelAttention2D)]
+    gen = torch.Generator().manual_seed(0)
+    batch = tr.ds_train(tr.ds_train.epoch_indices(gen, steps=1)[0],
+                        generator=gen)
+    with torch.no_grad():
+        tr.net(batch['lr'], batch['aux'])
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def phase_flagship_training(torch, tds, report):
+    """Phase 10: the flagship training with dssim_mae on the card: K1 timed
+    at the step's gate shapes (kernel and plain forward, plain backward),
+    then the trainer driven as phases 7 and 8."""
+    from dl4ds_tpu_torch.ops.fused_ops import _channel_attention_backward
+    fca, ref = tds.fused_channel_attention, tds.channel_attention_reference
+    config = _training_config(loss=FLAG_LOSS, n_filters=N_FILTERS,
+                              n_blocks=N_BLOCKS, attention=True)
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(10)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for shape in _gate_inputs(torch, tds, config):
+        c = shape[-1]
+        cr = max(int(c / 4), 1)
+        x = torch.randn(shape, generator=gen, device=dev)
+        weights = (torch.randn((c, cr), generator=gen, device=dev) * 0.5,
+                   torch.randn((cr,), generator=gen, device=dev) * 0.1,
+                   torch.randn((cr, c), generator=gen, device=dev) * 0.5,
+                   torch.randn((c,), generator=gen, device=dev) * 0.1)
+        dy = torch.randn_like(x)
+        err = (fca(x, *weights) - ref(x, *weights)).abs().max().item()
+        if not err <= K1_TOL['float32']['atol']:
+            fail(f'K1 x{list(shape)}: max|d| {err:.3e}')
+        ms, plain_ms = paired_ms(torch, lambda: fca(x, *weights),
+                                 lambda: ref(x, *weights), flush)
+        bwd_ms = statistics.median(device_times(
+            torch, lambda: _channel_attention_backward(x, *weights, dy),
+            l2_flush=flush))
+        n_bytes = 2 * x.numel() * 4 + 4 * (2 * c * cr + c + cr)
+        n_ops = 2 * x.numel() + 4 * shape[0] * c * cr
+        bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS) * 1e3
+        # the backward reads x and dy, writes dx and the weight gradients
+        bwd_bound_ms = (3 * x.numel() * 4 + 4 * (2 * c * cr + c + cr)) \
+            / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(shape=list(shape), cr=cr, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         plain_bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound_ms))
+        print(f'K1 training gate x{list(shape)} cr={cr}  max|d| {err:.3e}  '
+              f'kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound '
+              f'{bound_ms:.4f} ms (bytes); plain backward {bwd_ms:.4f} ms '
+              f'(bound {bwd_bound_ms:.4f} ms)', flush=True)
+    report['k1_train_rows'] = rows
+    per_forward = len(rows)
+    forwards = (TRAIN_EPOCHS * (TRAIN_STEPS + TRAIN_VAL_STEPS)
+                + TRAIN_TEST_STEPS)
+    expected = {'K2-train': 0, 'K2 inference': 0, 'K3': 0, 'K4': 0,
+                'K1': per_forward * forwards, 'K6': forwards}
+    k6 = report['k6_rows'][0]
+    got, numbers = _drive_training(
+        torch, tds, config, f'n_filters {N_FILTERS}, {FLAG_LOSS}',
+        TRAIN_STEPS, expected, FLAG_CPU_BATCH,
+        {'K1 forward': sum(r['ms'] for r in rows),
+         'K1 plain backward': sum(r['plain_bwd_ms'] for r in rows),
+         'K6': k6['ms'], 'K6 plain backward': k6['plain_bwd_ms']},
+        cpu_float64=True)
+    report.update(flag_k1_launches=got['K1'], k6_launches=got['K6'],
+                  flag_k1_per_forward=per_forward)
+    report.update({f'flag_{k}': v for k, v in numbers.items()})
 
 
 def main():
@@ -1066,6 +1333,8 @@ def main():
     phase_convlstm_split(torch, tds, report)
     phase_training(torch, tds, report)
     phase_wide_training(torch, tds, report)
+    phase_ssim(torch, tds, report)
+    phase_flagship_training(torch, tds, report)
 
     f32 = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
     k1 = {'name': 'K1_channel_attention', 'route': 'cuda',
@@ -1140,15 +1409,47 @@ def main():
                   f'not a kernel of the port) took '
                   f'{sum(r["tail_ms"] for r in wide):.4f} ms against a '
                   f'{sum(r["tail_bound_ms"] for r in wide):.4f} ms bound'}
+    gates = report['k1_train_rows']
+    k1_train = {'name': 'K1_channel_attention_train', 'route': 'cuda',
+                'source': 'dl4ds_tpu_torch/csrc/channel_attention.cu',
+                'replaces': 'dl4ds_tpu/ops/pallas_ops.py:39',
+                'launches': report['flag_k1_launches'],
+                'max_abs_err': max(r['max_abs_err'] for r in gates),
+                'ms': sum(r['ms'] for r in gates),
+                'plain_ms': sum(r['plain_ms'] for r in gates),
+                'bound_ms': sum(r['bound_ms'] for r in gates),
+                'bound_by': 'bytes', 'library_ms': None,
+                'work': f'the {len(gates)} gates of one float32 flagship '
+                        f'training step at batch {TRAIN_BATCH} (forward), '
+                        f'summed; their plain backward took '
+                        f'{sum(r["plain_bwd_ms"] for r in gates):.4f} ms'}
+    k6_rows = report['k6_rows']
+    k6_step = k6_rows[0]
+    k6 = {'name': 'K6_ssim', 'route': 'cuda',
+          'source': 'dl4ds_tpu_torch/csrc/ssim.cu',
+          'replaces': 'dl4ds_tpu/ops/pallas_ops.py:145',
+          'launches': report['k6_launches'],
+          'max_abs_err': max(r['max_abs_err'] for r in k6_rows),
+          'ms': k6_step['ms'], 'plain_ms': k6_step['plain_ms'],
+          'bound_ms': k6_step['bound_ms'], 'bound_by': k6_step['bound_by'],
+          'library_ms': None,
+          'work': f'the per-image SSIM of the {FLAG_LOSS} loss of one '
+                  f'flagship training step, x{k6_step["shape"]}, 11 taps; '
+                  f'max_abs_err is per image against the plain version in '
+                  f'float64 over {len(k6_rows)} shapes'}
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
     print(json.dumps({'k4_shapes': report['k4_rows']}), flush=True)
+    print(json.dumps({'k6_shapes': k6_rows}), flush=True)
+    print(json.dumps({'k1_train_shapes': gates}), flush=True)
     print(json.dumps({k: v for k, v in report.items()
-                      if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_'))}),
+                      if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_',
+                                           'k6_rows'))}),
           flush=True)
     print(card, flush=True)
-    print(json.dumps({'kernels': [k1, k2, k2_train, k3, k4]}), flush=True)
+    print(json.dumps({'kernels': [k1, k2, k2_train, k3, k4, k1_train, k6]}),
+          flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

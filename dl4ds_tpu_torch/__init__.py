@@ -59,9 +59,10 @@ from .utils import (checkarray_ndim, Timing, checkarg_upsampling,
                     checkarg_backbone, checkarg_dropout_variant)
 from .ops import (depth_to_space, fused_channel_attention,
                   channel_attention_reference, fused_convlstm,
-                  convlstm_reference)
+                  convlstm_reference, fused_ssim_per_image)
 from . import losses
-from .losses import mae, mse
+from .losses import (mae, mse, dssim, dssim_mae, dssim_mse, dssim_mae_mse,
+                     msdssim, msdssim_mae, msdssim_mae_mse)
 from .dataloader import BatchSynthesizer
 from .models import (DSModel, build_model, net_postupsampling,
                      recnet_postupsampling)

@@ -1,35 +1,45 @@
 """
-Fused squeeze-excite channel-attention gate (K1), the counterpart of
-`dl4ds_tpu/ops/pallas_ops.py`'s `fused_channel_attention`.
+Fused squeeze-excite channel-attention gate (K1) and fused per-image SSIM
+(K6), the counterparts of `dl4ds_tpu/ops/pallas_ops.py`'s
+`fused_channel_attention` and `fused_ssim_per_image`.
 
 On a CUDA tensor `fused_channel_attention` launches the hand-written Hopper
-kernel in `csrc/channel_attention.cu`; on a CPU tensor it computes the plain
-PyTorch version, `channel_attention_reference`. There is no size-based or
-error-based fallback on the GPU. The gradient is a `torch.autograd.Function`
-whose backward is plain tensor math, as `_fused_ca_bwd` is plain XLA in the
-JAX package.
+kernel in `csrc/channel_attention.cu`, and `fused_ssim_per_image` the one in
+`csrc/ssim.cu`; on a CPU tensor they compute the plain PyTorch versions,
+`channel_attention_reference` and `ops.ssim.ssim`. There is no size-based or
+error-based fallback on the GPU. Each gradient is a `torch.autograd.Function`
+whose backward is plain tensor math, as `_fused_ca_bwd` and the fused SSIM's
+backward are plain XLA in the JAX package.
 """
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .ssim import _gaussian_kernel1d, ssim
 
 __all__ = ['fused_channel_attention', 'channel_attention_reference',
-           'FusedChannelAttention']
+           'FusedChannelAttention', 'fused_ssim_per_image', 'FusedSSIM']
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CHUNK_ELEMS = 16384        # elements one reduction block sums, at least
 _GATE_SMEM_LIMIT = 48 * 1024
 
 
+def _acc_dtype(x):
+    """float32 sums, as the kernel takes them; float64 for a float64 x (a
+    reference run)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def channel_attention_reference(x, w1, b1, w2, b2):
     """Plain PyTorch gate: y = x * sigmoid(relu(mean_HW(x) @ w1 + b1) @ w2
     + b2), with the mean and both mat-vecs in float32 and the gate rounded to
     x's dtype before the multiply, as the kernel does."""
-    f32 = torch.float32
+    f32 = _acc_dtype(x)
     m = x.to(f32).mean(dim=(-3, -2))                          # [..., C]
     h = F.relu(m @ w1.to(f32) + b1.to(f32))
     g = torch.sigmoid(h @ w2.to(f32) + b2.to(f32))
@@ -39,7 +49,7 @@ def channel_attention_reference(x, w1, b1, w2, b2):
 def _channel_attention_backward(x, w1, b1, w2, b2, dy):
     """Gradients of the gate for x [B, H, W, C] (transcribes `_fused_ca_bwd`,
     dl4ds_tpu/ops/pallas_ops.py:88-112)."""
-    f32 = torch.float32
+    f32 = _acc_dtype(x)
     hw = x.shape[-3] * x.shape[-2]
     xf = x.to(f32)
     m = xf.mean(dim=(-3, -2))                                 # [B, C]
@@ -159,3 +169,129 @@ def fused_channel_attention(x, w1, b1, w2, b2):
 
 
 fused_channel_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: fused per-image SSIM
+# ---------------------------------------------------------------------------
+
+_SSIM_MAX_TAPS = 25          # kMaxTaps of csrc/ssim.cu
+_SSIM_TILE = (16, 32)        # output rows and columns a block (kTileH, kTileW)
+
+
+def _ssim_kernel_lib():
+    lib = _build.load('ssim')
+    fn = lib.dl4ds_ssim
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, i, ctypes.c_longlong, i, i, i, i, f, f, p,
+                       p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_ssim(img1, img2, max_val, filter_size, filter_sigma, k1, k2):
+    """Run the CUDA kernel on [..., H, W, C] float32 images, every leading
+    dim and the channel folded into the image axis; returns the per-image
+    SSIM [...], averaged over C. `max_val` is a number or a one-element
+    tensor, which the kernel reads from device memory."""
+    if img1.dtype != torch.float32 or img2.dtype != torch.float32:
+        raise TypeError(f'SSIM kernel takes float32 images, got {img1.dtype} '
+                        f'and {img2.dtype}')
+    if img1.shape != img2.shape or img1.ndim < 3:
+        raise ValueError(f'SSIM kernel needs two [..., H, W, C] images of one '
+                         f'shape, got {tuple(img1.shape)} and '
+                         f'{tuple(img2.shape)}')
+    if img1.device != img2.device:
+        raise ValueError(f'SSIM kernel got images on {img1.device} and '
+                         f'{img2.device}')
+    *lead, h, w, c = img1.shape
+    if not 1 <= filter_size <= _SSIM_MAX_TAPS:
+        raise ValueError(f'SSIM kernel takes filter_size 1..{_SSIM_MAX_TAPS}, '
+                         f'got {filter_size}')
+    if h < filter_size or w < filter_size:
+        raise ValueError(
+            f'image ({h}x{w}) is smaller than the {filter_size}x{filter_size} '
+            f'SSIM filter window')
+    n_out = math.prod(lead)
+    if n_out * c == 0:
+        raise ValueError(f'SSIM kernel got empty images {tuple(img1.shape)}')
+    dev = img1.device
+    if torch.is_tensor(max_val):
+        if max_val.numel() != 1:
+            raise ValueError(f'SSIM kernel takes one max_val, got shape '
+                             f'{tuple(max_val.shape)}')
+        max_val = max_val.detach().to(device=dev,
+                                      dtype=torch.float32).reshape(())
+    else:
+        max_val = torch.full((), float(max_val), dtype=torch.float32,
+                             device=dev)
+    x = img1.movedim(-1, -3).reshape(-1, h, w).contiguous()
+    y = img2.movedim(-1, -3).reshape(-1, h, w).contiguous()
+    tiles = (-(-(h - filter_size + 1) // _SSIM_TILE[0])
+             * -(-(w - filter_size + 1) // _SSIM_TILE[1]))
+    partial = torch.empty((x.shape[0], tiles), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty(lead, dtype=torch.float32, device=dev)
+    taps = _gaussian_kernel1d(filter_size, filter_sigma)
+    fn = _ssim_kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), max_val.data_ptr(),
+                 taps.ctypes.data, filter_size, n_out, c, h, w, tiles, k1, k2,
+                 partial.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'SSIM kernel launch failed with CUDA error {err}')
+    fused_ssim_per_image.launches += 1
+    return out
+
+
+class FusedSSIM(torch.autograd.Function):
+    """Per-image SSIM of [..., H, W, C] images: the CUDA kernel forward on
+    the GPU, the plain version on the CPU. The backward recomputes the
+    moments with the plain version under autograd on both, and gives the
+    gradients of both images and of `max_val` (a tensor that requires
+    grad: the DSSIM losses pass the data range of their inputs)."""
+
+    @staticmethod
+    def forward(ctx, img1, img2, max_val, filter_size, filter_sigma, k1, k2):
+        ctx.params = (filter_size, filter_sigma, k1, k2)
+        if torch.is_tensor(max_val):
+            ctx.save_for_backward(img1, img2, max_val)
+        else:
+            ctx.save_for_backward(img1, img2)
+            ctx.max_val = max_val
+        if img1.device.type == 'cuda':
+            return _launch_ssim(img1, img2, max_val, *ctx.params)
+        if img1.device.type == 'cpu':
+            return ssim(img1, img2, max_val, *ctx.params)
+        raise ValueError(f'unsupported device {img1.device}')
+
+    @staticmethod
+    def backward(ctx, g):
+        img1, img2, *max_val = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        inputs = (img1, img2, max_val[0] if max_val else ctx.max_val)
+        inputs = [t.detach().requires_grad_() if n else t
+                  for t, n in zip(inputs, need)]
+        with torch.enable_grad():
+            s = ssim(*inputs, *ctx.params)
+        grads = iter(torch.autograd.grad(
+            s, [t for t, n in zip(inputs, need) if n], g))
+        return (*(next(grads) if n else None for n in need),
+                None, None, None, None)
+
+
+def fused_ssim_per_image(img1, img2, max_val, filter_size=11,
+                         filter_sigma=1.5, k1=0.01, k2=0.03):
+    """Structural similarity per image of [..., H, W, C] images (for [B, H,
+    W, 1], [B]), as `ops.ssim.ssim`: the five Gaussian-filtered moments,
+    the SSIM algebra and the spatial mean in one kernel on the GPU, without
+    a filtered map in device memory. `max_val` is a number or a 0-d tensor
+    (differentiable). `fused_ssim_per_image.launches` counts the CUDA
+    kernel's launches; the CPU path launches nothing."""
+    return FusedSSIM.apply(img1, img2, max_val, filter_size, filter_sigma,
+                           k1, k2)
+
+
+fused_ssim_per_image.launches = 0

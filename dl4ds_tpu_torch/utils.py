@@ -63,15 +63,13 @@ def check_compatibility_upsbackb(backbone, upsampling, time_window):
 
 
 def checkarg_loss(loss):
-    """Resolve a loss name into the loss callable (a callable passes
-    through). 'mae' and 'mse' are ported; the DSSIM family raises."""
+    """Resolve a loss name, one of the nine in `LOSS_FUNCTIONS`, into the
+    loss callable of `losses` (a callable passes through)."""
     from . import losses
     if isinstance(loss, str):
         if loss not in LOSS_FUNCTIONS:
             raise ValueError(f'`loss` must be one of {LOSS_FUNCTIONS}, got '
                              f'{loss}')
-        if not hasattr(losses, loss):
-            raise not_ported(f'loss {loss!r}', 2)
         return getattr(losses, loss)
     if callable(loss):
         return loss

@@ -118,7 +118,8 @@ def test_predict_does_not_fall_back_to_the_cpu(data, models):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    code = ('import sys, dl4ds_tpu_torch, dl4ds_tpu_torch.training\n'
+    code = ('import sys, dl4ds_tpu_torch, dl4ds_tpu_torch.training, '
+            'dl4ds_tpu_torch.losses, dl4ds_tpu_torch.ops.ssim\n'
             'bad = [m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "flax", "dl4ds_tpu.")) or '
             'm == "dl4ds_tpu"]\n'

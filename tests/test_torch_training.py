@@ -2,13 +2,14 @@
 random-patch batch synthesis with fixed indices and offsets (the JAX and
 torch random streams differ, so the JAX offsets are drawn from its key and
 handed to the port), the epoch index sampler, the mae/mse losses, Adam
-steps of the recurrent `recresnet_spc` from carried weights against the JAX
-trainer's `_train_step_batch` on the same batches, one spatial step, the
-trainer's loop and the options that are not ported yet. Small sizes,
-float32. Tolerances: batches 1e-5 (the matmul resize), losses rtol 1e-5,
-parameters after the Adam steps atol 2e-6 (the largest difference seen is
-1.9e-7; Adam's lr * g / (|g| + 1e-7) turns float32 noise in a small
-gradient into parameter noise)."""
+steps of the recurrent `recresnet_spc` and of the flagship `resnet_spc`
+(attention, loss dssim_mae) from carried weights against the JAX trainer's
+`_train_step_batch` on the same batches, one spatial step, the trainer's
+loop and the options that are not ported yet. Small sizes, float32.
+Tolerances: batches 1e-5 (the matmul resize), losses rtol 1e-5, parameters
+after the Adam steps atol 2e-6 (the largest difference seen is 1.9e-7;
+Adam's lr * g / (|g| + 1e-7) turns float32 noise in a small gradient into
+parameter noise)."""
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,10 @@ PARAM_ATOL = 2e-6
 REC = dict(backbone='resnet', upsampling='spc', scale=SCALE, patch_size=PATCH,
            batch_size=2, time_window=3, n_blocks=1, n_filters=4, loss='mae',
            verbose=False)
+# the flagship, cut to size: resnet_spc with the gates in every residual
+# block and the head, trained with the DSSIM loss
+FLAGSHIP = dict(REC, time_window=None, n_blocks=2, attention=True,
+                loss='dssim_mae')
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -134,17 +139,14 @@ def _copy_tree(tree):
     return jax.tree_util.tree_map(lambda a: np.array(a, copy=True), tree)
 
 
-@pytest.fixture(scope='module', params=[1e5, 1], ids=['constant', 'decay'])
-def jax_steps(request, data):
+def _jax_train_steps(hr, lr_decay_after, config):
     """Three `_train_step_batch` steps of the JAX trainer on JAX-built
-    batches; lr_decay_after=1 switches to the second rate from the second
-    update on (optax's count 1 reaches the boundary)."""
-    hr = data[0]
+    batches, with the initial and final parameters."""
     # one device: the tests' 8 host devices would scale the rate by 8
     tr = jax_supervised.SupervisedTrainer(
         data_train=hr, data_val=hr[:6], data_test=hr[:6], save=False,
-        learning_rate=(1e-3, 1e-4), lr_decay_after=request.param,
-        devices=jax.devices()[:1], **REC)
+        learning_rate=(1e-3, 1e-4), lr_decay_after=lr_decay_after,
+        devices=jax.devices()[:1], **config)
     tr.setup_datagen()
     tr.setup_model()
     params0 = _copy_tree(tr.variables['params'])
@@ -160,9 +162,49 @@ def jax_steps(request, data):
                         for k, v in batch.items()})
         state, loss = tr._train_step_batch(state, batch, key)
         losses.append(float(loss))
-    return dict(lr_decay_after=request.param, params0=params0,
+    return dict(lr_decay_after=lr_decay_after, params0=params0,
                 params3=_copy_tree(state.params), batches=batches,
                 losses=losses)
+
+
+@pytest.fixture(scope='module', params=[1e5, 1], ids=['constant', 'decay'])
+def jax_steps(request, data):
+    """The recurrent model's three JAX steps; lr_decay_after=1 switches to
+    the second rate from the second update on (optax's count 1 reaches the
+    boundary)."""
+    return _jax_train_steps(data[0], request.param, REC)
+
+
+def _port_train_steps(hr, steps, config):
+    """The port's trainer on the CPU from the JAX steps' initial weights,
+    three `train_step`s on their batches; returns the trainer and the
+    losses after checking them and the parameters against the JAX steps."""
+    tr = tds.SupervisedTrainer(
+        data_train=hr, data_val=hr[:6], data_test=hr[:6], device='cpu',
+        learning_rate=(1e-3, 1e-4), lr_decay_after=steps['lr_decay_after'],
+        **config)
+    tr.setup_model()
+    tds.load_jax_params(tr.net, steps['params0'])
+    tr.setup_optimizer()
+    tr.net.train()
+    losses = [tr.train_step({k: None if v is None else torch.from_numpy(v)
+                             for k, v in b.items()}).item()
+              for b in steps['batches']]
+    np.testing.assert_allclose(losses, steps['losses'], rtol=1e-5)
+    want = tds.load_jax_params(tr.model.init(0, device='cpu'),
+                               steps['params3'])
+    got = dict(tr.net.named_parameters())
+    moved = 0.0
+    for name, p in want.named_parameters():
+        np.testing.assert_allclose(got[name].detach().numpy(),
+                                   p.detach().numpy(), atol=PARAM_ATOL,
+                                   err_msg=name)
+    for name, p in tds.load_jax_params(tr.model.init(0, device='cpu'),
+                                       steps['params0']).named_parameters():
+        moved = max(moved, (got[name] - p).abs().max().item())
+    assert moved > 1e-4      # the steps moved the weights
+    assert tr.n_updates == 3
+    return tr
 
 
 @pytest.mark.parametrize('route', ['fused', 'split'])
@@ -178,33 +220,31 @@ def test_recurrent_adam_steps_match_the_jax_trainer(data, jax_steps, route,
     seq_reference = conv.convlstm_seq_reference
     monkeypatch.setattr(conv, 'convlstm_seq_reference', lambda *a: (
         chains.append(route), seq_reference(*a))[1])
-    hr = data[0]
-    tr = tds.SupervisedTrainer(
-        data_train=hr, data_val=hr[:6], data_test=hr[:6], device='cpu',
-        learning_rate=(1e-3, 1e-4),
-        lr_decay_after=jax_steps['lr_decay_after'], **REC)
-    tr.setup_model()
-    tds.load_jax_params(tr.net, jax_steps['params0'])
-    tr.setup_optimizer()
-    tr.net.train()
-    losses = [tr.train_step({k: None if v is None else torch.from_numpy(v)
-                             for k, v in b.items()}).item()
-              for b in jax_steps['batches']]
-    np.testing.assert_allclose(losses, jax_steps['losses'], rtol=1e-5)
-    want = tds.load_jax_params(tr.model.init(0, device='cpu'),
-                               jax_steps['params3'])
-    got = dict(tr.net.named_parameters())
-    moved = 0.0
-    for name, p in want.named_parameters():
-        np.testing.assert_allclose(got[name].detach().numpy(),
-                                   p.detach().numpy(), atol=PARAM_ATOL,
-                                   err_msg=name)
-    for name, p in tds.load_jax_params(tr.model.init(0, device='cpu'),
-                                       jax_steps['params0']).named_parameters():
-        moved = max(moved, (got[name] - p).abs().max().item())
-    assert moved > 1e-4      # the steps moved the weights
-    assert tr.n_updates == 3
+    _port_train_steps(data[0], jax_steps, REC)
     assert len(chains) == 3 * 2 * (1 + REC['n_blocks'])  # a chain a layer
+
+
+def test_flagship_dssim_adam_steps_match_the_jax_trainer(data, monkeypatch):
+    """Three Adam steps of the spatial flagship with attention and loss
+    dssim_mae: K1's and K6's plain versions forward, K1's plain backward,
+    K6's backward (autograd through the plain SSIM, the data range's
+    gradient included) and Adam, against the JAX trainer."""
+    from dl4ds_tpu_torch.ops import fused_ops
+    calls = []
+    plain_ssim = fused_ops.ssim
+    monkeypatch.setattr(fused_ops, 'ssim', lambda *a: (
+        calls.append(torch.is_grad_enabled()), plain_ssim(*a))[1])
+    steps = _jax_train_steps(data[0], 1e5, FLAGSHIP)
+    launches = (tds.fused_channel_attention.launches,
+                tds.fused_ssim_per_image.launches)
+    tr = _port_train_steps(data[0], steps, FLAGSHIP)
+    gates = [m for m in tr.net.modules()
+             if isinstance(m, tds.models.blocks.ChannelAttention2D)]
+    assert len(gates) == FLAGSHIP['n_blocks'] + 1
+    # K6's plain forward, then its backward's recompute, every step
+    assert calls == [False, True] * 3
+    assert launches == (tds.fused_channel_attention.launches,
+                        tds.fused_ssim_per_image.launches)
 
 
 def test_spatial_adam_step_matches_jax(data):
@@ -294,7 +334,7 @@ def test_terminate_on_nan(data):
     dict(steps_per_execution=4), dict(season_ids=([0], [0], [0])),
     dict(data_val_lr=np.zeros((6, 8, 10, 1), np.float32)),
     dict(data_in_hbm=False), dict(mesh=object()), dict(devices=['cpu']),
-    dict(init_weights='keras.npz'), dict(loss='dssim'),
+    dict(init_weights='keras.npz'), dict(backbone='convnet'),
     dict(upsampling='pin')])
 def test_unported_training_options_raise(data, kwargs):
     hr = data[0]

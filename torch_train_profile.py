@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
 """Where the device time of a PyTorch port training step goes.
 
-    python3 torch_train_profile.py [--batch 128] [--reps 5] [--width 8]
-                                   [--attention]               # repo root
+    python3 torch_train_profile.py [--model recresnet_spc|resnet_spc]
+        [--loss mae] [--batch 128] [--reps 5] [--width 8] [--attention]
+                                                     # from the repo root
 
-Builds the recurrent training configuration of `chip_smoke.py` phase 7
-(BASELINE config 4 as bench_suite.py's measure_supervised trains it:
+Builds the training configuration of `chip_smoke.py` phase 7 (BASELINE
+config 4 as bench_suite.py's measure_supervised trains it:
 `SupervisedTrainer('resnet', 'spc', time_window=4, n_blocks=2,
 n_filters=8, scale=4, patch_size=64, loss='mae')` on 256 seeded grids of
-128x128, float32, TF32 convs as PyTorch's default), or with `--width 64
---attention` that of phase 8 (bench_suite.py's recresnet_spc_width64), runs
-3 warm-up steps,
-then `reps` steps (batch synthesis, forward, backward, Adam) under
-`torch.profiler` on one GPU, and prints one JSON line: device time per
-kernel group and for the top kernels, the device's busy share over the
-profiled window, launches and the host clock per step (the profiler slows
-the host; chip_smoke.py phase 7 times the steps without it). Fails when the
-profiler records no device kernel.
+128x128, float32, TF32 convs as PyTorch's default), with `--width 64
+--attention` that of phase 8 (bench_suite.py's recresnet_spc_width64), or
+with `--model resnet_spc --attention` the flagship of phase 10 (bench.py's
+resnet_spc: n_blocks 6, no time window; `--loss dssim_mae` as phase 10
+trains it). Runs 3 warm-up steps, then `reps` steps (batch synthesis,
+forward, backward, Adam) under `torch.profiler` on one GPU, and prints one
+JSON line: device time per kernel group and for the top kernels, the device
+time inside the plain backwards of K1 and K6 (read from record_function
+ranges put around them here), the device's busy share over the profiled
+window, launches and the host clock per step (the profiler slows the host;
+chip_smoke.py times the steps without it). Fails when the profiler records
+no device kernel.
 """
 
 import argparse
@@ -29,7 +33,10 @@ from pathlib import Path
 # kernel-name fragments -> group; the first match wins
 # (cuDNN's convolutions first; GEMMs with no convolution in their name,
 # cuBLAS's among them, then fall to 'gemm')
-GROUPS = [('K4_convlstm_seq', ('seq_chain_step',)),
+GROUPS = [('K1_channel_attention', ('ca_partial_sums', 'ca_gate',
+                                     'ca_apply')),
+          ('K6_ssim', ('ssim_tiles', 'ssim_finish')),
+          ('K4_convlstm_seq', ('seq_chain_step',)),
           ('K2_convlstm', ('convlstm_step',)),
           ('K3_convlstm_bptt', ('bptt_step', 'dx_frames', 'wgrad_partial',
                                 'wgrad_reduce')),
@@ -50,12 +57,32 @@ def group_of(name):
     return 'other'
 
 
+# autograd Functions whose backward is plain PyTorch: their device time is
+# read from a record_function range around the backward
+ANNOTATED = {'K1_plain_backward': ('fused_ops', 'FusedChannelAttention'),
+             'K6_plain_backward': ('fused_ops', 'FusedSSIM')}
+
+
+def annotate_backwards(torch, ops):
+    for label, (module, cls) in ANNOTATED.items():
+        fn = getattr(getattr(ops, module), cls)
+        plain = fn.backward
+
+        def backward(ctx, *grads, plain=plain, label=label):
+            with torch.profiler.record_function(label):
+                return plain(ctx, *grads)
+        fn.backward = staticmethod(backward)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--batch', type=int, default=128)
     ap.add_argument('--reps', type=int, default=5)
     ap.add_argument('--width', type=int, default=8, help='n_filters')
     ap.add_argument('--attention', action='store_true')
+    ap.add_argument('--model', choices=('recresnet_spc', 'resnet_spc'),
+                    default='recresnet_spc')
+    ap.add_argument('--loss', default='mae')
     args = ap.parse_args()
 
     import numpy as np
@@ -66,14 +93,18 @@ def main():
         sys.exit('torch_train_profile: no CUDA device')
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import dl4ds_tpu_torch as tds
+    import dl4ds_tpu_torch.ops as ops
+    annotate_backwards(torch, ops)
 
     data = np.random.default_rng(0).standard_normal(
         (256, 128, 128, 1)).astype('float32')
+    model = (dict(time_window=4, n_blocks=2)
+             if args.model == 'recresnet_spc' else dict(n_blocks=6))
     tr = tds.SupervisedTrainer(
         'resnet', 'spc', data_train=data, data_val=data[:64],
         data_test=data[:64], scale=4, patch_size=64, batch_size=args.batch,
-        loss='mae', time_window=4, n_blocks=2, n_filters=args.width,
-        attention=args.attention, verbose=False)
+        loss=args.loss, n_filters=args.width, attention=args.attention,
+        verbose=False, **model)
     tr.setup_datagen()
     tr.setup_model()
     tr.setup_optimizer()
@@ -104,6 +135,16 @@ def main():
         us = e.time_range.end - e.time_range.start
         by_name[e.name] += us
         by_group[group_of(e.name)] += us
+    # the kernels inside each annotated range of the device's line (one
+    # stream: a range holds exactly the kernels launched inside it)
+    ranges = [e for e in device if e.name in ANNOTATED
+              and getattr(e, 'is_user_annotation', False)]
+    annotated = {label: None for label in ANNOTATED}
+    for r in ranges:
+        inside = sum(e.time_range.end - e.time_range.start for e in kernels
+                     if e.time_range.start >= r.time_range.start
+                     and e.time_range.end <= r.time_range.end)
+        annotated[r.name] = (annotated[r.name] or 0.0) + inside
     busy_us = sum(by_name.values())
     span_us = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels))
@@ -111,7 +152,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     print(json.dumps({
         'device': torch.cuda.get_device_name(0), 'model': tr.model.name,
-        'width': args.width, 'attention': args.attention,
+        'loss': args.loss, 'width': args.width, 'attention': args.attention,
         'batch': args.batch, 'reps': args.reps,
         'kernel_launches_per_step': len(kernels) / args.reps,
         'annotation_ranges_skipped': len(device) - len(kernels),
@@ -122,6 +163,8 @@ def main():
         'patches_per_s_host': args.batch * args.reps / wall_s,
         'groups_ms_per_step': {g: v / per for g, v in sorted(
             by_group.items(), key=lambda kv: -kv[1])},
+        'plain_backward_ms_per_step': {
+            k: None if v is None else v / per for k, v in annotated.items()},
         'top_kernels_ms_per_step': [[n[:90], v / per] for n, v in top],
     }))
 
