@@ -16,10 +16,13 @@ Phases, each of which exits non-zero on failure:
      with the same model and weights run on the CPU;
   4. hold K2 (the ConvLSTM layer, inference variant) against its plain
      version with TF32 off at the six layer shapes of the recresnet_spc
-     model and at width 64, time both, check its other paths (other kernel
-     sizes, channel counts that are not multiples of 4 or 8, one and two
-     rows a thread), and check that a layer whose weights require grad
-     runs K2's training variant and K3 for its gradient;
+     model and at width 64, time both, check its other paths (T = 1, the
+     input launch alone; other kernel sizes; channel counts that are not
+     multiples of 4 or 8; Cin 1 and 2; F 4, 5, 12 and 72; frames of 5x7
+     and 17x17 and wider than a tile; both channel slices, chunk widths
+     and stage depths of the launch plan) and that its bits repeat, and
+     check that a layer whose weights require grad runs K2's training
+     variant and K3 for its gradient;
   5. drive the spatio-temporal path: full-width `predict(time_window=4)` of
      the recresnet_spc x4 model on 19 grids (16 windows of 4) at batch 8,
      count its launches, and compare grid 0 and the last 4 grids with the
@@ -28,8 +31,9 @@ Phases, each of which exits non-zero on failure:
      BPTT backward: dx, dWx, dbx, dWh) against their plain versions with
      TF32 off at the six layer shapes of a recresnet_spc training step
      (batch 128, T 4, 16x16 LR patches), at width 64 and on their other
-     paths (T = 1, odd F, F = 12, 1x3, 3x5 and 7x7 kernels, ragged tiles, x
-     without a gradient), check that two runs of K3 give the same bits, and
+     paths (T = 1, odd F, F = 12, 1x3, 3x5 and 7x7 kernels, ragged tiles,
+     5x7 and 17x17 frames with Cin 1 and 2, x without a gradient), check
+     that two runs of K2-train and of K3 give the same bits, and
      time both kernels against their plain versions and their bounds; then
      hold K4 (the sequential BPTT chain, dzs) against its plain version run
      in float64 and the split route (K4, then the float32 GEMM tail) against
@@ -44,9 +48,9 @@ Phases, each of which exits non-zero on failure:
      validation and test, count the launches of K2 (both variants), K3 and
      K4 against what `dispatch_info` routes, require finite losses, time the
      steps (patches/s on the host clock, one step on CUDA events), then run
-     3 steps at batch 16 from one seed on the GPU (TF32 off, cuDNN
-     deterministic) and on the CPU and compare the losses and the
-     parameters;
+     3 steps at batch 16 from one seed on the GPU (TF32 off, PyTorch's own
+     convolutions) and on the CPU in float64 and compare the losses and
+     the parameters;
   8. drive the same training at width 64 (bench_suite.py's
      recresnet_spc_width64: n_filters 64, attention) for 2 epochs of 10
      steps at batch 128, print each ConvLSTM layer's route, count the
@@ -84,6 +88,9 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+# 3xTF32: three TF32 products for each float32 one, at the 495 TFLOP/s of
+# dense TF32 on the tensor cores (K2's products)
+TF32X3_FLOPS = 495e12 / 3
 BATCH = 8
 LR, SCALE = 128, 4
 N_FILTERS, N_BLOCKS = 8, 6
@@ -106,11 +113,19 @@ K2_LAYERS = [layer for cin in [2] + [N_FILTERS] * REC_BLOCKS
              for layer in ((cin, N_FILTERS, 5), (N_FILTERS, N_FILTERS, 3))]
 K2_WIDE = [(64, 64, 5), (64, 64, 3)]    # production width, bench_suite.py
 K2_WIDE_LR = 32
-# (B, T, H, W, Cin, F, kh, kw) of the kernel's other paths: with the shapes
-# above they run each of its six bodies (1 or 2 rows a thread x 3x3, 5x5 or
-# any other size)
-K2_OTHER_PATHS = [(2, 3, 9, 41, 3, 6, 1, 3), (8, 3, 72, 100, 4, 4, 5, 5),
-                  (8, 3, 72, 100, 5, 5, 7, 7), (8, 2, 40, 40, 6, 12, 3, 3)]
+# (B, T, H, W, Cin, F, kh, kw) of the kernel's other paths: T = 1 (the input
+# launch alone), 1x3 and 7x7 kernels, channel counts that are not multiples
+# of 4 (4-byte copies), frames of 5x7 and 17x17 (pixel counts that are not
+# a multiple of the tile) and wider than a tile, Cin 1 and 2 (one k-step a
+# stage), F 4, 5, 12 and 72 (channels past F in the last slice). With the
+# shapes above they run both channel slices (8 and 16 channels a block),
+# both chunk widths and both stage depths of the launch plan.
+K2_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 1, 3), (4, 1, 16, 16, 8, 72, 5, 5),
+                  (8, 3, 72, 100, 4, 4, 5, 5), (8, 3, 72, 100, 5, 5, 7, 7),
+                  (8, 2, 40, 40, 6, 12, 3, 3), (4, 3, 5, 7, 1, 4, 3, 3),
+                  (4, 3, 17, 17, 2, 5, 5, 5), (64, 2, 17, 17, 1, 12, 5, 5),
+                  (16, 3, 5, 7, 2, 72, 3, 3), (32, 2, 16, 16, 64, 72, 5, 5),
+                  (128, 2, 16, 16, 16, 16, 7, 7)]
 # kernel vs plain version with TF32 off: f32 sums in another order. The
 # training variant's zs residual (the pre-activations, sums of up to
 # kh*kw*(Cin + F) products, printed with their max |zs|) is held to
@@ -128,14 +143,17 @@ K3_LAYERS = [layer for cin in [1] + [N_FILTERS] * REC_BLOCKS
              for layer in ((cin, N_FILTERS, 5), (N_FILTERS, N_FILTERS, 3))]
 # (B, T, H, W, Cin, F, kh, kw, x needs a gradient) of K2-train's and K3's
 # other paths: T = 1 (no chain, no dWh), 1x3 and odd F, 3x5 with ragged
-# tiles, two channel groups (F = 12, 48 gate channels), 7x7 (two row-tile
+# tiles, 5x7 and 17x17 frames with Cin 1 and 2 (K2's ragged pixel tiles),
+# two channel groups (F = 12, 48 gate channels), 7x7 (two row-tile
 # chunks in the weight gradient, more than 48 KB of shared memory), x
 # without a gradient (no dx launch), and shapes that give two rows a thread.
 # With the training shapes (one row a thread) they run each of the six
 # compiled bodies (1 or 2 rows a thread x 3x3, 5x5 or any other size) of
-# K2-train, of K3's chain step and of K3's dx kernel.
+# K3's chain step and of K3's dx kernel.
 K3_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 1, 3, True),
                   (3, 3, 20, 37, 5, 5, 3, 5, True),
+                  (4, 3, 5, 7, 1, 4, 3, 3, True),
+                  (3, 2, 17, 17, 2, 5, 5, 5, True),
                   (2, 3, 40, 40, 6, 12, 3, 3, True),
                   (2, 2, 19, 23, 8, 4, 7, 7, True),
                   (4, 3, 16, 16, 2, 8, 5, 5, False),
@@ -150,10 +168,15 @@ K3_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 1, 3, True),
 # |ref|: float32 sums of kh*kw*4F products (dx) or of all B*T*H*W pixels in
 # 256-pixel partials (the weights)
 K3_DX_TOL, K3_W_TOL = 1e-5, 1e-5
-# GPU (TF32 off, cuDNN deterministic) against CPU training steps: the
-# losses are means over 16*4*64*64 pixels; Adam's update lr*g/(|g|+1e-7)
-# turns a difference of 1e-9 in a small gradient into up to 1e-5 in a
-# parameter each step
+# GPU (TF32 off) against CPU training steps: the losses are means over
+# 16*4*64*64 pixels; Adam's update lr*g/(|g|+1e-7) turns a difference of
+# 1e-9 in a small gradient into up to 1e-5 in a parameter each step. Every
+# training phase holds the GPU, with PyTorch's own convolutions, against
+# the CPU in float64: at n_filters 8 too a float32 run is no reference,
+# since the CPU's float32 run ends 1.7e-4 from float64 after 3 steps while
+# the GPU's, with K2's 3xTF32 products, ends 1.6e-7 from it (3.7e-7 with
+# cuDNN; tools/torch_train_parity.py --width 8 --batch 16 on an H100 80GB
+# HBM3 at 700 W)
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-4
 # width-64 training path: bench_suite.py's recresnet_spc_width64 (n_filters
 # 64, attention, which adds nothing without aux inputs) trained as phase 7,
@@ -172,9 +195,11 @@ WIDE_LAYERS = [layer for cin in [1] + [WIDE_F] * REC_BLOCKS
 # (no recurrent sum, the gate epilogue only), 1x3 with odd F and no dx, 3x5
 # with odd F and ragged tiles, F = 12 (three channel groups), 7x7 with F = 4
 # (one group, half a warp), F = 16 at 3x3 (the split route's narrowest
-# layer), and F = 72 (two blocks of output channels). With the training
+# layer), and F = 72 (two blocks of output channels; also on 17x17 frames
+# with Cin 1, K2's ragged pixel tiles feeding it). With the training
 # shapes they run each of K4's three compiled bodies (kh <= 3, 5, 7).
 K4_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 3, 3, True),
+                  (2, 2, 17, 17, 1, 72, 3, 3, True),
                   (2, 3, 9, 11, 3, 5, 1, 3, False),
                   (3, 3, 20, 37, 5, 5, 3, 5, True),
                   (2, 3, 40, 40, 6, 12, 3, 3, True),
@@ -400,7 +425,9 @@ def phase_predict(torch, tds, report):
 def k2_work(x, wx, wh):
     """(flops, bytes) a ConvLSTM layer needs: the input conv at every step,
     the recurrent conv from the second step on (h_{-1} = 0), x and the
-    weights read once, ys written once."""
+    weights read once, ys written once. K2's bound_ms counts these flops
+    at the float32 rate outside the tensor cores, as every kernel's does;
+    `bound_3xtf32_ms` at the 3xTF32 rate its products run at."""
     b, t, h, w, cin = x.shape
     kh, kw, _, f4 = wx.shape
     flops = 2 * b * h * w * kh * kw * f4 * (t * cin + (t - 1) * (f4 // 4))
@@ -413,7 +440,7 @@ def phase_convlstm(torch, tds, report):
     """Phase 4: K2 against its plain version with TF32 off, at the layer
     shapes of the recresnet_spc forward and at width 64."""
     from dl4ds_tpu_torch.models.blocks import ConvLSTM2D
-    from dl4ds_tpu_torch.ops.convlstm import _rows_per_thread
+    from dl4ds_tpu_torch.ops.convlstm import _fwd_plan
     fcl, ref = tds.fused_convlstm, tds.convlstm_reference
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -445,21 +472,21 @@ def phase_convlstm(torch, tds, report):
                                      lambda: ref(x, wx, bx, wh), flush)
         flops, n_bytes = k2_work(x, wx, wh)
         bound_ms = max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
+        bound_3x = max(flops / TF32X3_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
         rows.append(dict(x=list(x.shape), f=f, k=k, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
-                         gflop=flops / 1e9,
+                         bound_3xtf32_ms=bound_3x, gflop=flops / 1e9,
                          bound_by=('operations' if flops / F32_FLOPS
                                    >= n_bytes / HBM_BYTES_PER_S
                                    else 'bytes')))
         print(f'K2 x{list(x.shape)} F={f} k={k}  max|d| {err:.3e}  kernel '
               f'{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} '
-              f'ms ({flops / 1e9:.2f} GFLOP)  library_ms null (no single '
-              f'PyTorch call computes a ConvLSTM layer)', flush=True)
+              f'ms, 3xTF32 {bound_3x:.4f} ms ({flops / 1e9:.2f} GFLOP)  '
+              f'library_ms null (no single PyTorch call computes a ConvLSTM '
+              f'layer)', flush=True)
 
-    # the kernel's other paths, checked and not timed: a kernel size other
-    # than 3x3 and 5x5, channel counts that are not multiples of 4 (scalar
-    # loads), an odd F and F = 4 (the one channel group padded past F), two
-    # channel groups, ragged tiles, and one and two rows a thread
+    # the kernel's other paths, checked and not timed (K2_OTHER_PATHS), with
+    # the launch plan each takes; two runs must give the same bits
     for i, (b, t, h, w, cin, f, kh, kw) in enumerate(K2_OTHER_PATHS):
         layer = ConvLSTM2D(cin, f, (kh, kw))
         layer.reset_parameters(torch.Generator().manual_seed(len(cases) + i))
@@ -468,14 +495,20 @@ def phase_convlstm(torch, tds, report):
             layer.cell.recurrent_conv.kernel))
         x = torch.randn((b, t, h, w, cin), generator=gen, device=dev)
         with torch.no_grad():
-            err = (fcl(x, wx, bx, wh)
-                   - ref(x, wx, bx, wh)[0]).abs().max().item()
-        py = _rows_per_thread(b, h, w, f, n_sm)
-        print(f'K2 x{list(x.shape)} F={f} k={kh}x{kw} ({py} rows a thread)  '
+            ys = fcl(x, wx, bx, wh)
+            again = fcl(x, wx, bx, wh)
+            err = (ys - ref(x, wx, bx, wh)[0]).abs().max().item()
+        plan = _fwd_plan(b, t, h, w, kh, kw, f, n_sm)
+        print(f'K2 x{list(x.shape)} F={f} k={kh}x{kw} (plan: {plan["fs"]} '
+              f'channels a block, {plan["th"]}x{plan["tw"]} pixels, '
+              f'{plan["cw"]} channels x {plan["rps"]} tap rows a stage)  '
               f'max|d| {err:.3e}', flush=True)
         if not err <= K2_TOL:
             fail(f'K2 x{list(x.shape)} F={f} k={kh}x{kw}: max|d| {err:.3e} '
                  f'against atol {K2_TOL}')
+        if not torch.equal(ys, again):
+            fail(f'K2 x{list(x.shape)} F={f} k={kh}x{kw}: two runs gave '
+                 f'different bits')
 
     # weights that require grad: the layer runs K2's training variant (2
     # step launches) and its gradient K3 (2 chain steps, the Wx and Wh
@@ -608,11 +641,12 @@ def _layer_weights(torch, cin, f, kh, kw, seed, dev):
 
 
 def _check_k2_train(torch, conv, x, wx, bx, wh, label):
-    """K2's training variant against its plain version on one input.
-    Returns the residuals (ys, cs, zs) and [max |d| of ys, cs, zs, max
-    |zs|]."""
+    """K2's training variant against its plain version on one input, and
+    the same bits in a second run. Returns the residuals (ys, cs, zs) and
+    [max |d| of ys, cs, zs, max |zs|]."""
     with torch.no_grad():
         got = conv._launch(x, wx, bx, wh, train=True)
+        again = conv._launch(x, wx, bx, wh, train=True)
         want = conv.convlstm_train_reference(x, wx, bx, wh)
     torch.cuda.synchronize()
     fwd_err = [(a - b).abs().max().item() for a, b in zip(got, want)]
@@ -620,6 +654,8 @@ def _check_k2_train(torch, conv, x, wx, bx, wh, label):
     if not (max(fwd_err[:2]) <= K2_TOL and fwd_err[2] <= K2_TOL * zs_scale):
         fail(f'K2-train {label}: ys, cs, zs max|d| {fwd_err} against atol '
              f'{K2_TOL} ({K2_TOL * zs_scale:.2e} for zs)')
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f'K2-train {label}: two runs gave different bits')
     return got, fwd_err + [zs_scale]
 
 
@@ -706,6 +742,8 @@ def phase_convlstm_grad(torch, tds, report):
         flops, n_bytes = k2_work(x, wx, wh)
         n_bytes += 4 * 5 * ys.numel()                # cs and zs written
         k2_bound = max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
+        k2_bound_3x = max(flops / TF32X3_FLOPS,
+                          n_bytes / HBM_BYTES_PER_S) * 1e3
         k3_flops, k3_bytes = k3_work(x, wx, wh, need_dx)
         k3_bound = max(k3_flops / F32_FLOPS,
                        k3_bytes / HBM_BYTES_PER_S) * 1e3
@@ -713,14 +751,16 @@ def phase_convlstm_grad(torch, tds, report):
             x=list(x.shape), f=f, k=kh, dx=need_dx, ys_cs_zs_err=fwd_err[:3],
             max_abs_zs=fwd_err[3],
             grad_rel_err=errs, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
-            k2_bound_ms=k2_bound, k2_gflop=flops / 1e9, k3_ms=k3_ms,
+            k2_bound_ms=k2_bound, k2_bound_3xtf32_ms=k2_bound_3x,
+            k2_gflop=flops / 1e9, k3_ms=k3_ms,
             k3_plain_ms=k3_plain_ms, k3_bound_ms=k3_bound,
             k3_gflop=k3_flops / 1e9))
         print(f'K2-train {label}  ys, cs, zs max|d| '
               + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
-              + f' (max|zs| {fwd_err[3]:.2f})  kernel '
+              + f' (max|zs| {fwd_err[3]:.2f})  same bits twice  kernel '
               f'{k2_ms:.4f} ms  plain {k2_plain_ms:.4f} ms  bound '
-              f'{k2_bound:.4f} ms ({flops / 1e9:.3f} GFLOP)', flush=True)
+              f'{k2_bound:.4f} ms, 3xTF32 {k2_bound_3x:.4f} ms '
+              f'({flops / 1e9:.3f} GFLOP)', flush=True)
         print(f'K3 {label}{"" if need_dx else " (no dx)"}  max|d|/max|ref| '
               + ' '.join(f'{k} {v:.2e}' for k, v in errs.items())
               + f'  same bits twice  kernel {k3_ms:.4f} ms  plain '
@@ -739,7 +779,7 @@ def phase_convlstm_grad(torch, tds, report):
                                           need_dx, label)
         rows_step = conv._rows_per_thread(b, h, w, f, n_sm)
         rows_dx = conv._rows_per_thread(b * t, h, w, cin, n_sm)
-        print(f'K2-train/K3 {label} ({rows_step} rows a thread, dx '
+        print(f'K2-train/K3 {label} (K3: {rows_step} rows a thread, dx '
               f'{rows_dx if need_dx else "none"})  ys, cs, '
               f'zs max|d| ' + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
               + f' (max|zs| {fwd_err[3]:.2f})'
@@ -845,6 +885,8 @@ def phase_convlstm_split(torch, tds, report):
         k2_flops, k2_bytes = k2_work(x, wx, wh)
         k2_bytes += 4 * 5 * ys.numel()               # cs and zs written
         k2_bound = max(k2_flops / F32_FLOPS, k2_bytes / HBM_BYTES_PER_S) * 1e3
+        k2_bound_3x = max(k2_flops / TF32X3_FLOPS,
+                          k2_bytes / HBM_BYTES_PER_S) * 1e3
         flops, n_bytes = k4_work(zs, wh)
         k4_bound = max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
         t_flops, t_bytes = tail_work(x, wx, wh, need_dx)
@@ -854,14 +896,16 @@ def phase_convlstm_split(torch, tds, report):
                          grad_rel_err=errs, ys_cs_zs_err=fwd_err[:3],
                          max_abs_zs=fwd_err[3], k2_ms=k2_ms,
                          k2_plain_ms=k2_plain_ms, k2_bound_ms=k2_bound,
+                         k2_bound_3xtf32_ms=k2_bound_3x,
                          k2_gflop=k2_flops / 1e9, k4_ms=k4_ms,
                          k4_plain_ms=k4_plain_ms, k4_bound_ms=k4_bound,
                          k4_gflop=flops / 1e9, tail_ms=tail_ms,
                          tail_bound_ms=tail_bound, tail_gflop=t_flops / 1e9))
         print(f'K2-train {label}  ys, cs, zs max|d| '
               + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
-              + f' (max|zs| {fwd_err[3]:.2f})  kernel {k2_ms:.4f} ms  plain '
-              f'{k2_plain_ms:.4f} ms  bound {k2_bound:.4f} ms '
+              + f' (max|zs| {fwd_err[3]:.2f})  same bits twice  kernel '
+              f'{k2_ms:.4f} ms  plain {k2_plain_ms:.4f} ms  bound '
+              f'{k2_bound:.4f} ms, 3xTF32 {k2_bound_3x:.4f} ms '
               f'({k2_flops / 1e9:.2f} GFLOP)', flush=True)
         print(f'K4 {label}  dzs max|d|/max(1, max|ref|) {dzs_err:.2e} '
               f'(plain f32 {plain_err:.2e}); split route'
@@ -939,16 +983,15 @@ def _training_config(**model):
 
 
 def _drive_training(torch, tds, config, label, steps, expected, cpu_batch,
-                    shares, cpu_float64=False):
+                    shares):
     """Drive training through SupervisedTrainer(**config) on the card at
     batch 128 (2 epochs of `steps` steps, validation and test), with every
     launch counter set to 0 just before and read just after, against
     `expected` ({counter: launches}); require finite losses; time the steps
     (host clock, and one step on CUDA events, with the kernels' shares of it
     from `shares`, {name: ms}); then 3 steps at `cpu_batch` from one seed on
-    the GPU (TF32 off, cuDNN deterministic) and on the CPU. With
-    `cpu_float64` the CPU runs in float64 and the GPU's convolutions are
-    PyTorch's own, not cuDNN's. Returns the launches and the numbers."""
+    the GPU (TF32 off, PyTorch's own float32 convolutions, not cuDNN's) and
+    on the CPU in float64. Returns the launches and the numbers."""
     import numpy as np
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1002,11 +1045,9 @@ def _drive_training(torch, tds, config, label, steps, expected, cpu_batch,
 
     # 3 steps from one seed on the GPU and on the CPU
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    cpu_dtype = torch.float64 if cpu_float64 else torch.float32
     runs = {}
-    for device, dtype in (('cuda', torch.float32), ('cpu', cpu_dtype)):
-        torch.backends.cudnn.enabled = device == 'cpu' or not cpu_float64
+    for device, dtype in (('cuda', torch.float32), ('cpu', torch.float64)):
+        torch.backends.cudnn.enabled = device == 'cpu'
         small = tds.SupervisedTrainer(batch_size=cpu_batch, epochs=1,
                                       device=device, **config)
         small.setup_datagen()
@@ -1025,18 +1066,15 @@ def _drive_training(torch, tds, config, label, steps, expected, cpu_batch,
         runs[device] = (losses, {n: p.detach().cpu().double() for n, p in
                                  small.net.named_parameters()})
     torch.backends.cudnn.enabled = True
-    torch.backends.cudnn.deterministic = False
     (gpu_losses, gpu_params), (cpu_losses, cpu_params) = (runs['cuda'],
                                                           runs['cpu'])
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses,
                                                        cpu_losses))
     param_err = max((gpu_params[n] - cpu_params[n]).abs().max().item()
                     for n in cpu_params)
-    gpu_how = ('PyTorch\'s own float32 convolutions, not cuDNN\'s'
-               if cpu_float64 else 'cuDNN deterministic')
     print(f'3 training steps at batch {cpu_batch}, {label}, GPU (TF32 off, '
-          f'{gpu_how}) vs CPU ({str(cpu_dtype)[6:]}): losses {gpu_losses} '
-          f'vs {cpu_losses}, max relative difference {loss_err:.3e} (rtol '
+          f'PyTorch\'s own float32 convolutions, not cuDNN\'s) vs CPU '
+          f'(float64): losses {gpu_losses} vs {cpu_losses}, max relative difference {loss_err:.3e} (rtol '
           f'{TRAIN_LOSS_RTOL}); parameters max|d| {param_err:.3e} (atol '
           f'{TRAIN_PARAM_ATOL})', flush=True)
     if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL):
@@ -1092,8 +1130,7 @@ def phase_wide_training(torch, tds, report):
         WIDE_CPU_BATCH,
         {'K2-train': sum(r['k2_ms'] for r in step),
          'K4': sum(r['k4_ms'] for r in step),
-         'the GEMM tail': sum(r['tail_ms'] for r in step)},
-        cpu_float64=True)
+         'the GEMM tail': sum(r['tail_ms'] for r in step)})
     report.update(wide_k2_train_launches=got['K2-train'],
                   wide_k2_inference_launches=got['K2 inference'],
                   wide_k3_launches=got['K3'], k4_launches=got['K4'])
@@ -1294,8 +1331,7 @@ def phase_flagship_training(torch, tds, report):
         TRAIN_STEPS, expected, FLAG_CPU_BATCH,
         {'K1 forward': sum(r['ms'] for r in rows),
          'K1 plain backward': sum(r['plain_bwd_ms'] for r in rows),
-         'K6': k6['ms'], 'K6 plain backward': k6['plain_bwd_ms']},
-        cpu_float64=True)
+         'K6': k6['ms'], 'K6 plain backward': k6['plain_bwd_ms']})
     report.update(flag_k1_launches=got['K1'], k6_launches=got['K6'],
                   flag_k1_per_forward=per_forward)
     report.update({f'flag_{k}': v for k, v in numbers.items()})
@@ -1357,10 +1393,12 @@ def main():
           'ms': sum(r['ms'] for r in fwd),
           'plain_ms': sum(r['plain_ms'] for r in fwd),
           'bound_ms': sum(r['bound_ms'] for r in fwd),
+          'bound_3xtf32_ms': sum(r['bound_3xtf32_ms'] for r in fwd),
           'bound_by': 'operations', 'library_ms': None,
           'work': f'the {len(fwd)} ConvLSTM layers of one float32 '
                   f'recresnet_spc forward at batch {BATCH}, T {REC_T}, '
-                  f'summed'}
+                  f'summed; products in 3xTF32 on the tensor cores '
+                  f'(bound_3xtf32_ms at {TF32X3_FLOPS / 1e12:.0f} TFLOP/s)'}
     step = report['k3_step']
     k3_rows = report['k3_rows']
     step_work = (f'the {len(step)} ConvLSTM layers of one float32 '
@@ -1371,13 +1409,25 @@ def main():
                 'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:219',
                 'launches': report['k2_train_launches'],
                 'max_abs_err': max(max(r['ys_cs_zs_err'][:2])
-                                   for r in k3_rows),
+                                   for r in k3_rows + report['k4_rows']
+                                   if 'ys_cs_zs_err' in r),
                 'ms': sum(r['k2_ms'] for r in step),
                 'plain_ms': sum(r['k2_plain_ms'] for r in step),
                 'bound_ms': sum(r['k2_bound_ms'] for r in step),
+                'bound_3xtf32_ms': sum(r['k2_bound_3xtf32_ms']
+                                       for r in step),
                 'bound_by': 'operations', 'library_ms': None,
                 'work': step_work + ' (save_residuals=True: ys, cs, zs); '
-                        'max_abs_err is that of ys and cs'}
+                        'max_abs_err is that of ys and cs; at width '
+                        f'{WIDE_F} the six layers took '
+                        f'{sum(r["k2_ms"] for r in report["k4_step"]):.4f} '
+                        f'ms (plain '
+                        f'{sum(r["k2_plain_ms"] for r in report["k4_step"]):.4f}'
+                        f', bound '
+                        f'{sum(r["k2_bound_ms"] for r in report["k4_step"]):.4f}'
+                        f', 3xTF32 '
+                        f'{sum(r["k2_bound_3xtf32_ms"] for r in report["k4_step"]):.4f}'
+                        f' ms)'}
     k3 = {'name': 'K3_convlstm_bptt', 'route': 'cuda',
           'source': 'dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
           'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:335',

@@ -1,300 +1,494 @@
 // Fused ConvLSTM layer forward (K2) for NVIDIA Hopper (sm_90a), in its
 // inference variant (ys only) and its training variant (ys plus the cs and
-// zs residuals that the BPTT backward K3, csrc/convlstm_bwd.cu, reads).
+// zs residuals that the BPTT backwards, K3 in csrc/convlstm_bwd.cu and K4
+// in csrc/convlstm_seq.cu, read).
 //
-//   z   = conv_same(x_t, wx) + bx + conv_same(h_{t-1}, wh)     gates i, f, c, o
+//   zx  = conv_same(x_t, wx) + bx                       all T frames at once
+//   z   = zx_t + conv_same(h_{t-1}, wh)                 gates i, f, c, o
 //   c_t = hs(z_f) * c_{t-1} + hs(z_i) * tanh(z_c)
 //   h_t = hs(z_o) * tanh(c_t)             ys[:, t] = h_t,  h_{-1} = c_{-1} = 0
 //
 // with hs the Keras hard sigmoid clip(0.2 z + 0.5, 0, 1). x is
 // [B, T, H, W, Cin] and ys [B, T, H, W, F], float32, NHWC per frame; wx
 // [kh, kw, Cin, 4F] and wh [kh, kw, F, 4F] are HWIO with the gates split
-// along 4F; bx [4F]. Odd kh, kw (symmetric SAME padding). All arithmetic is
-// float32 FMA, no TF32 and no fast-math intrinsics; the gate products and
-// sums are rounded one by one (__fmul_rn, __fadd_rn) as PyTorch's
-// elementwise ops round them.
+// along 4F; bx [4F]. Odd kh, kw (symmetric SAME padding). The gate products
+// and sums are rounded one by one (__fmul_rn, __fadd_rn) as PyTorch's
+// elementwise ops round them; tanhf, no fast-math intrinsics.
 //
 // Replaces: dl4ds_tpu/ops/pallas_convlstm.py `_forward_pallas` ->
-// `_fwd_kernel` (one grid step per batch tile holding h and c in VMEM for
-// the whole window, the convs as banded matmuls over 128-lane rows), in its
-// inference variant that emits ys only.
+// `_fwd_kernel` (:219; phase 1, :219-245, the input conv over all B*T
+// frames through `_band_conv_bt`; phase 2, :247-266, the recurrence), in
+// both its variants (save_residuals False and True).
 //
 // Bound: operations. Each output (b, t, y, x, f) needs kh*kw*Cin FMAs per
 // gate for the input conv and, from t = 1 on (h_{-1} = 0), kh*kw*F more for
 // the recurrent one: 2*B*H*W*kh*kw*4F*(T*Cin + (T-1)*F) flops against about
-// 4*B*T*H*W*(Cin+F) bytes in and out. For the recresnet_spc x4 model
-// (BASELINE config 4, F = 8, 128x128 LR, T = 4) the six layers of one
-// batch-8 forward do 42.9 GFLOP and move about 0.2 GB: 0.64 ms at
-// 67 TFLOP/s of float32 outside the tensor cores against 0.06 ms at
-// 3.35 TB/s, so arithmetic bounds it by 11x.
+// 4*B*T*H*W*(Cin+F) bytes in and out. At the width-64 training step (batch
+// 128, T 4, 16x16, 64 -> 64 5x5) a layer does 188 GFLOP: 2.80 ms at 67
+// TFLOP/s of float32 outside the tensor cores, 1.14 ms at 165 TFLOP/s, a
+// third of the 495 TFLOP/s of dense TF32 that 3xTF32 spends three products
+// on.
 //
-// Design: a sample's h at 128x128x8 (512 KB) is larger than an SM's 227 KB of
-// shared memory, and each step reads an h halo that crosses any spatial
-// tile, so every step needs all of h_{t-1} before any block reads it. The
-// layer is therefore T launches of one step kernel on the caller's stream.
-// A block computes one spatial tile (8*PY rows x 32 columns) of one sample
-// for a group of 8 output channels (the last group of an F that is not a
-// multiple of 8 is padded with zero weights and not written) and all four
-// gates:
-//   - each thread owns PY pixels of one column (rows ty, ty + 8, ...) and
-//     holds PY*4*8 accumulators, so each weight it loads feeds PY pixels
-//     and each input value feeds 32 FMAs;
-//   - the block walks its sources (x_t with Cin channels, then h_{t-1} with
-//     F channels read from ys[:, t-1], skipped at t = 0) in chunks of 8
-//     input channels. For each chunk it stages the input tile with its halo
-//     in shared memory as [channel][row][column], so a warp (one row) reads
-//     32 consecutive words, and the chunk's weights as [tap][channel][gate]
-//     [8], so a thread reads its 32 weights of one input value as float4
-//     broadcasts. The stage is about 48 KB at 5x5, so two blocks share an
-//     SM, and it does not grow with Cin or F: every width runs this path;
-//   - c lives in a float32 [B, H, W, F] scratch the caller allocates, read
-//     and written by the thread that owns the pixel. The training variant
-//     (TRAIN, a zs output given) reads c_{t-1} from cs[:, t-1] and writes
-//     c_t to cs[:, t] instead, and writes the accumulators, z with the bias
-//     and the recurrent term, to zs[:, t] before the gates. It is a template
-//     flag, not a runtime branch: a uniform branch in the epilogue cost the
-//     inference variant 1.5% (chip_smoke.py, parent and change in turns on
-//     one H100 SXM at 700 W);
-//   - 3x3 and 5x5 are compiled with the kernel size known, which folds the
-//     tile geometry into constants (about 4% at the (8, 8, 5x5) layer
-//     against the generic body, by chip_smoke.py on an H100 SXM at 700 W);
-//     any other odd size runs the generic body. With PY in {1, 2} that
-//     makes six instantiations of each variant.
-// Per input value and tap a thread issues PY shared loads of x or h, 8
-// float4 weight loads and PY*32 FMAs (64 at PY = 2). A later PR would keep
-// h and c on chip across steps (a cluster or a persistent grid with a
-// barrier between steps), overlap the next chunk's staging with the FMAs,
-// and take the recurrence's FMAs to 3xTF32 mma tiles, which keep float32
-// accuracy.
+// Design. A layer is T launches on the caller's stream:
+//   1. `convlstm_tile<FS, false, TRAIN>`, the input conv hoisted out of the
+//      recurrence as `_fwd_kernel` hoists it: one implicit GEMM over all
+//      B*T frames, M = B*T*H*W pixels, N = 4F gate channels, K =
+//      kh*kw*Cin. It writes zx (bias included) into zs (training) or into a
+//      [B, T, H, W, 4F] scratch (inference), and for the frames of t = 0,
+//      which have no recurrent term, it also runs the gate epilogue;
+//   2. `convlstm_tile<FS, true, TRAIN>` for each t >= 1, in order: the
+//      accumulators start from zx_t and add conv_same(h_{t-1}, wh) (M =
+//      B*H*W, K = kh*kw*F), h_{t-1} read from ys[:, t-1]; the training
+//      variant writes z back to zs[:, t]; then the gate epilogue. The sum
+//      order is (bx + sum of x terms) + sum of h terms, as the plain version
+//      and the JAX kernel form it.
+// Every step needs all of h_{t-1} before any block reads its halo, and a
+// sample's h at 128x128x8 (512 KB) is larger than an SM's shared memory, so
+// the recurrence stays one launch a step.
+//
+// A block (8 warps) computes all four gates of FS = 8 or 16 output channels
+// (channels past F get zero weights and are not written) for a tile of TH
+// rows x TW columns of one frame, 256 pixels at FS 8 and 128 at FS 16 (TW =
+// min(W, 32), TH = min(pixels / TW, H), from the wrapper's plan): a 16x16
+// frame is one or two whole tiles with no idle lane; ragged tiles are
+// masked.
+// A warp owns two m16 runs of pixels and the four gate n8 tiles of one
+// 8-channel sub-slice, so that one thread holds i, f, c and o of its pixels
+// and channels for the epilogue. The K loop walks chunks of CW = 8 or 4
+// source channels and, in each, RPS = kh or 1 tap rows a stage (the plan
+// takes the deepest stage whose double buffers leave room for two blocks
+// an SM):
+//   - the chunk's input tile with its halo ((TH+kh-1) x (TW+kw-1) pixels, 12
+//     floats a pixel: 8 channels, a zero the padded k rows point at, and
+//     padding that makes the A fragment loads free of bank conflicts) is
+//     staged once for the whole N tile and all its tap rows, so each staged
+//     value feeds all 4FS gate channels;
+//   - a stage's weights, RPS*kw*CW k rows of 4FS gate channels (row stride
+//     4FS+8, conflict-free B fragment loads);
+//   - both are double-buffered with cp.async (zero-filled out of the frame
+//     or past F), so the next stage loads while this one computes;
+//   - the k rows of a stage are (tap, channel) pairs, flattened and padded
+//     to a multiple of 8 with zero weights, so Cin = 1 or 2 take the same
+//     path at one k-step for 8 taps.
+// The products run on the tensor cores in 3xTF32:
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 from shared-memory
+// fragments; each float32 operand a is split into hi = rna(a) and lo =
+// rna(a - hi), rna rounding as cvt.rna.tf32.f32 does, and hi*lo, lo*hi and
+// hi*hi are accumulated in float32 (lo*lo is below float32's rounding).
+// The tensor cores truncate what they add into an accumulator: over the
+// 400 k-steps of a 64 -> 64 5x5 layer that drifted past K2's 1e-5 check on
+// the card, so every 4 k-steps go into a fresh partial accumulator that is
+// then added to the layer's in float32, round to nearest. That keeps
+// float32 accuracy: a CPU emulation of this arithmetic over whole layers
+// stays within 1.2e-6 of the float32 plain version, closer to float64 than
+// it (tests/test_torch_convlstm.py), and the card's results stay within
+// 2e-6 of it (chip_smoke.py). The split runs in registers at each fragment
+// load: splitting into shared memory once a stage instead measured slower
+// (twice the shared-memory traffic, another pass and barrier).
+// mma.sync and cp.async, not wgmma and TMA: the tiles here are small (128
+// or 256 pixels, a stage's K of 40 to 200) and the N tile must hold the
+// four gates of a channel for the epilogue; mma.sync is the simpler correct
+// first step. It does not reach wgmma's dense TF32 rate
+// (tools/torch_mma_peak.py measures it), which caps 3xTF32 here below the
+// 165 TFLOP/s bound; the 64-row warpgroup products with TMA-fed tiles are
+// left for a later PR.
+// FS and the two launch kinds are template parameters, as is TRAIN (a
+// uniform branch in the epilogue measured 1.5% slower on the inference
+// variant): 8 instantiations, every kernel size through the same body.
+//
+// Measured (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, medians of
+// 40 CUDA-event timings with L2 flushed): the training variant at batch
+// 128, T 4, 16x16 takes 2.26 ms at 1 -> 64 5x5, 1.92 ms at 64 -> 64 3x3 and
+// 4.78 ms at 64 -> 64 5x5, 17.56 ms for the six layers of a width-64 step
+// against 18.94 ms for the plain version (cuDNN float32) and bounds of
+// 9.87 ms (float32) and 4.01 ms (3xTF32): 35-39 TFLOP/s on the wide
+// layers, 23% of the 3xTF32 bound. The six layers of a width-8 step take
+// 0.58 ms, those of a batch-8 recresnet_spc forward (T 4, 128x128) 1.60
+// ms. What holds it back: issue slots (each fragment value costs a load
+// and a 5-instruction split, each product three mma), the 128-register cap
+// that two blocks an SM impose, and mma.sync's rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTX = 32;                // columns of a tile, one per lane
-constexpr int kTY = 8;                 // warps of a block, one row each
-constexpr int kThreads = kTX * kTY;
-constexpr int kCC = 8;                 // input channels staged per pass
-constexpr int kFG = 8;                 // output channels of a block
+constexpr int kThreads = 256;           // 8 warps
+constexpr int kWM = 2;                  // m16 pixel tiles a warp
+constexpr int kPS = 12;                 // floats a staged pixel: 8 channels,
+constexpr int kZero = 8;                // a zero, padding
+constexpr int kFlush = 4;               // k-steps a partial accumulator takes
 constexpr int kMaxSmem = 227 * 1024;
-static_assert(4 * kFG == kTX, "weight staging gives each lane one (gate, channel)");
+
+struct Args {
+  const float* x;     // [B, T, H, W, Cin] (input launch)
+  const float* w;     // wx (input launch) or wh (step launch), HWIO
+  const float* bx;    // [4F]
+  float* zx;          // [B, T, H, W, 4F]: zs (training) or the scratch
+  float* ys;          // [B, T, H, W, F]
+  float* c;           // training: cs [B, T, H, W, F]; inference [B, H, W, F]
+  int t_steps, step, h, wd, cin, f, kh, kw, th, tw, cw, rps, tiles_x, tiles;
+};
 
 __device__ __forceinline__ float hard_sigmoid(float z) {
   return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, z), 0.5f), 0.f), 1.f);
 }
 
-constexpr int smem_floats(int py, int kh, int kw) {
-  return kCC * (kTY * py + kh - 1) * (kTX + kw - 1) + kh * kw * kCC * 4 * kFG;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One time step. Grid: (spatial tiles, ceil(F / 8) channel groups, B). K is
-// the kernel size when it is 3 or 5 (the tile geometry is then known at
-// compile time), 0 for any other odd kh x kw. TRAIN: the training variant.
-template <int PY, int K, bool TRAIN>
-__global__ void __launch_bounds__(kThreads, 2)
-convlstm_step(const float* __restrict__ x, const float* __restrict__ wx,
-              const float* __restrict__ bx, const float* __restrict__ wh,
-              float* __restrict__ ys, float* __restrict__ cst,
-              float* __restrict__ zs, int t_steps,
-              int step, int h, int wd, int cin, int f, int kh_, int kw_,
-              int tiles_x) {
-  constexpr int TH = kTY * PY;
-  const int kh = K ? K : kh_;
-  const int kw = K ? K : kw_;
-  const int rows = TH + kh - 1;
-  const int rw = kTX + kw - 1;
-  const int plane = rows * rw;
+// 16 bytes global -> shared, zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// float32 -> TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero), on the integer pipes: the sign-magnitude bits plus half a
+// TF32 ulp, the 13 low bits cleared
+__device__ __forceinline__ uint32_t tf32_rna(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+// a = hi + lo, each a TF32 value
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - __uint_as_float(hi));
+}
+
+// d += a * b for one m16n8k8 tile, TF32 operands, float32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// k rows of a stage: rps tap rows x kw taps x cw channels, padded to 8
+__host__ __device__ inline int stage_rows(int rps, int kw, int cw) {
+  return (rps * kw * cw + 7) / 8 * 8;
+}
+
+// Shared memory of a block, in floats: two input tiles with their halo
+// ((th+kh-1) x (tw+kw-1) pixels of kPS floats), two stages of weight rows
+// (KP rows of 4FS gate channels, row stride 4FS+8), two k-offset tables.
+__host__ __device__ inline int smem_floats(int fs, int th, int tw, int kh,
+                                           int kw, int cw, int rps) {
+  const int kp = stage_rows(rps, kw, cw);
+  return 2 * (th + kh - 1) * (tw + kw - 1) * kPS + 2 * kp * (4 * fs + 8) +
+         2 * kp;
+}
+
+// One launch of the layer: STEP false is the input conv over all B*T frames
+// (grid.x = B*T*tiles), with the gate epilogue of t = 0; STEP true is time
+// step a.step >= 1 (grid.x = B*tiles). grid.y: ceil(F / FS) channel slices.
+template <int FS, bool STEP, bool TRAIN>
+__global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
+  constexpr int NSUB = FS / 8;    // warp columns: 8-channel sub-slices
+  constexpr int BN = 4 * FS;      // gate channels of the N tile
+  constexpr int WS = BN + 8;      // staged weight row stride
+  const int C = STEP ? a.f : a.cin;     // source channels
+  const int f = a.f, kh = a.kh, kw = a.kw, th = a.th, tw = a.tw;
+  const int cw = a.cw, rps = a.rps;
+  const int SW = tw + kw - 1, npix = (th + kh - 1) * SW;
+  const int KP = stage_rows(rps, kw, cw);
   extern __shared__ float4 smem4[];
-  float* in_s = reinterpret_cast<float*>(smem4);
-  float* w_s = in_s + kCC * plane;   // 16-byte aligned: kCC is 8
-  const int y0 = (blockIdx.x / tiles_x) * TH;
-  const int x0 = (blockIdx.x % tiles_x) * kTX;
-  const int f0 = blockIdx.y * kFG;
-  const int nf = min(kFG, f - f0);   // channels of this group that exist
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
+  float* in_s = reinterpret_cast<float*>(smem4);          // [2][npix][kPS]
+  float* w_s = in_s + 2 * npix * kPS;                     // [2][KP][WS]
+  int* koff_s = reinterpret_cast<int*>(w_s + 2 * KP * WS);  // [2][KP]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;   // fragment row group, column
+  const int wn = warp % NSUB;                // sub-slice of this warp
+  const int mb = (warp / NSUB) * kWM * 16;   // first pixel of this warp
+  const int tile = blockIdx.x % a.tiles;
+  const int fr = blockIdx.x / a.tiles;       // frame (input) or sample (step)
+  const int b = STEP ? fr : fr / a.t_steps;
+  const int t = STEP ? a.step : fr % a.t_steps;
+  const int64_t frame = (int64_t)b * a.t_steps + t;
+  const int64_t hw = (int64_t)a.h * a.wd;
+  const int ty0 = (tile / a.tiles_x) * th, tx0 = (tile % a.tiles_x) * tw;
+  const int f0 = blockIdx.y * FS;
   const int ph = kh / 2, pw = kw / 2;
-  const int64_t hw = (int64_t)h * wd;
-  const int64_t frame = (int64_t)b * t_steps + step;
+  const float* src = STEP ? a.ys + (frame - 1) * hw * f : a.x + frame * hw * C;
+  const int n_chunks = (C + cw - 1) / cw;
+  const int spc = kh / rps;                  // stages a chunk
+  const int n_iter = n_chunks * spc;
+  const bool vec_src = C % 4 == 0;           // then every chunk is 4 or 8 wide
+  const bool vec_w = f % 4 == 0;             // then 4 gate channels align
+  const int nv_w = vec_w ? 4 : 1;
 
-  float acc[PY][4][kFG];
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int j = 0; j < kFG; ++j) {
-      const float bias = j < nf ? __ldg(bx + g * f + f0 + j) : 0.f;
-#pragma unroll
-      for (int p = 0; p < PY; ++p) acc[p][g][j] = bias;
-    }
-
-  const int n_src = step == 0 ? 1 : 2;
-  for (int s = 0; s < n_src; ++s) {
-    const float* src = s == 0 ? x + frame * hw * cin : ys + (frame - 1) * hw * f;
-    const float* w = s == 0 ? wx : wh;
-    const int c = s == 0 ? cin : f;
-    const bool vec = c % 4 == 0;   // then cc is 4 or 8 and rows are aligned
-    for (int c0 = 0; c0 < c; c0 += kCC) {
-      const int cc = min(kCC, c - c0);
-      __syncthreads();  // the previous chunk is no longer read
-      // input tile with halo, [channel][row][column]; a lane per column
-      for (int r = ty; r < rows; r += kTY) {
-        const int yy = y0 - ph + r;
-        for (int q = tx; q < rw; q += kTX) {
-          const int xx = x0 - pw + q;
-          float* dst = in_s + r * rw + q;
-          if (yy >= 0 && yy < h && xx >= 0 && xx < wd) {
-            const float* sp = src + ((int64_t)yy * wd + xx) * c + c0;
-            if (vec) {
-              for (int ci = 0; ci < cc; ci += 4) {
-                const float4 v = __ldg(reinterpret_cast<const float4*>(sp + ci));
-                dst[ci * plane] = v.x;
-                dst[(ci + 1) * plane] = v.y;
-                dst[(ci + 2) * plane] = v.z;
-                dst[(ci + 3) * plane] = v.w;
-              }
-            } else {
-              for (int ci = 0; ci < cc; ++ci) dst[ci * plane] = __ldg(sp + ci);
-            }
-          } else {
-            for (int ci = 0; ci < cc; ++ci) dst[ci * plane] = 0.f;
-          }
-        }
-      }
-      // this chunk's weights, [tap][channel][gate][8]; a lane per (g, j),
-      // zero for the channels past F
-      for (int row = ty; row < kh * kw * cc; row += kTY) {
-        const int tap = row / cc;
-        const int ci = row - tap * cc;
-        const float* wr = w + ((int64_t)tap * c + c0 + ci) * 4 * f + f0;
-        float* dst = w_s + (tap * kCC + ci) * 4 * kFG;
-        const int g = tx / kFG, j = tx % kFG;   // 4 * kFG == kTX lanes
-        dst[tx] = j < nf ? __ldg(wr + g * f + j) : 0.f;
-      }
-      __syncthreads();
-
-#pragma unroll 1
-      for (int dy = 0; dy < kh; ++dy) {
-#pragma unroll 1
-        for (int dx = 0; dx < kw; ++dx) {
-          const float* ip = in_s + (ty + dy) * rw + tx + dx;
-          const float* wp = w_s + (dy * kw + dx) * kCC * 4 * kFG;
-#pragma unroll
-          for (int ci = 0; ci < kCC; ++ci) {
-            if (ci >= cc) break;
-            float v[PY];
-#pragma unroll
-            for (int p = 0; p < PY; ++p) v[p] = ip[ci * plane + kTY * p * rw];
-            const float* wc = wp + ci * 4 * kFG;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-#pragma unroll
-              for (int j = 0; j < kFG; j += 4) {
-                const float4 q = *reinterpret_cast<const float4*>(wc + g * kFG + j);
-#pragma unroll
-                for (int p = 0; p < PY; ++p) {
-                  acc[p][g][j] = fmaf(v[p], q.x, acc[p][g][j]);
-                  acc[p][g][j + 1] = fmaf(v[p], q.y, acc[p][g][j + 1]);
-                  acc[p][g][j + 2] = fmaf(v[p], q.z, acc[p][g][j + 2]);
-                  acc[p][g][j + 3] = fmaf(v[p], q.w, acc[p][g][j + 3]);
-                }
-              }
-            }
-          }
-        }
-      }
-    }
+  // k row (tap row, tap, channel) -> offset in a staged input tile, for
+  // the full chunks and for the last; padded rows point at the zero slot
+  for (int i = tid; i < 2 * KP; i += kThreads) {
+    const int cc = i < KP ? min(cw, C) : C - (n_chunks - 1) * cw;
+    const int kk = i < KP ? i : i - KP;
+    const int tap = kk / cc;
+    koff_s[i] = kk < rps * kw * cc
+                    ? ((tap / kw) * SW + tap % kw) * kPS + kk % cc
+                    : kZero;
   }
+  for (int i = tid; i < 2 * npix; i += kThreads) in_s[i * kPS + kZero] = 0.f;
 
-  const int xq = x0 + tx;
+  // stage u: channel chunk u / spc, tap rows from dy = (u % spc) * rps. Its
+  // weight rows go to buffer u & 1 and, with the chunk's first stage, the
+  // chunk's input tile to buffer chunk & 1; all by cp.async, zero-filled
+  // out of the frame or past F
+  auto stage = [&](int u) {
+    const int ci0 = u / spc, dy = (u - ci0 * spc) * rps;
+    const int c0 = ci0 * cw, cc = min(cw, C - c0);
+    const int rows = rps * kw * cc;
+    float* ws = w_s + (u & 1) * KP * WS;
+    for (int i = tid; i < rows * BN / nv_w; i += kThreads) {
+      const int e = i * nv_w;
+      const int kk = e / BN, n = e - kk * BN;
+      const int g = n / FS, j = n - g * FS;
+      const int tap = kk / cc, ci = kk - tap * cc;
+      const bool ok = f0 + j < f;
+      const float* sp = a.w + ((int64_t)(dy * kw + tap) * C + c0 + ci) * 4 * f +
+                        g * f + f0 + j;
+      if (vec_w)
+        cp_async16(ws + kk * WS + n, ok ? sp : a.w, ok);
+      else
+        cp_async4(ws + kk * WS + n, ok ? sp : a.w, ok);
+    }
+    for (int i = tid; i < (KP - rows) * BN; i += kThreads)
+      ws[(rows + i / BN) * WS + i % BN] = 0.f;
+    if (dy != 0) return;
+    float* is = in_s + (ci0 & 1) * npix * kPS;
+    const int nv = vec_src ? 4 : 1;
+    for (int i = tid; i < npix * cc / nv; i += kThreads) {
+      const int e = i * nv;
+      const int p = e / cc, ci = e - p * cc;
+      const int r = p / SW, q = p - r * SW;
+      const int yy = ty0 - ph + r, xx = tx0 - pw + q;
+      const bool ok = yy >= 0 && yy < a.h && xx >= 0 && xx < a.wd;
+      const float* sp = src + ((int64_t)yy * a.wd + xx) * C + c0 + ci;
+      if (vec_src)
+        cp_async16(is + p * kPS + ci, ok ? sp : src, ok);
+      else
+        cp_async4(is + p * kPS + ci, ok ? sp : src, ok);
+    }
+  };
+
+  // the staged offsets of this thread's fragment rows (rows past the tile
+  // read pixel 0 and are not stored)
+  int po[kWM][2];
 #pragma unroll
-  for (int p = 0; p < PY; ++p) {
-    const int y = y0 + ty + kTY * p;
-    if (y >= h || xq >= wd) continue;
-    const int64_t pix = (int64_t)y * wd + xq;
-    // inference: c in the [B, H, W, F] scratch; training: c_t in cs[:, t]
-    // and c_{t-1} in cs[:, t-1], z in zs[:, t]
-    float* cp = TRAIN ? cst + (frame * hw + pix) * f + f0
-                      : cst + ((int64_t)b * hw + pix) * f + f0;
-    const float* cprev = TRAIN && step > 0 ? cp - hw * f : cp;
-    float* yp = ys + (frame * hw + pix) * f + f0;
-    if (TRAIN) {
-      float* zp = zs + (frame * hw + pix) * 4 * f + f0;
+  for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = mb + mt * 16 + gq + 8 * hf;
+      po[mt][hf] = m < th * tw ? ((m / tw) * SW + m % tw) * kPS : 0;
+    }
+
+  // accumulators [m tile][gate][fragment value]: value i is pixel
+  // mb + mt*16 + gq + 8 * (i >> 1), channel f0 + wn*8 + 2*tq + (i & 1)
+  float acc[kWM][4][4];
+#pragma unroll
+  for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = mb + mt * 16 + gq + 8 * (i >> 1);
+      const int fo = f0 + wn * 8 + 2 * tq + (i & 1);
+      const int y = ty0 + m / tw, xq = tx0 + m % tw;
+      const bool ok = m < th * tw && y < a.h && xq < a.wd && fo < f;
+      const float* zp =
+          a.zx + (frame * hw + (int64_t)y * a.wd + xq) * 4 * f + fo;
 #pragma unroll
       for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int j = 0; j < kFG; ++j)
-          if (j < nf) zp[g * f + j] = acc[p][g][j];
+        acc[mt][g][i] = !ok ? 0.f : STEP ? zp[g * f] : __ldg(a.bx + g * f + fo);
     }
+
+  stage(0);
+  cp_async_commit();
+  for (int u = 0; u < n_iter; ++u) {
+    if (u + 1 < n_iter) stage(u + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int ci0 = u / spc, dy = (u - ci0 * spc) * rps;
+    const int cc = min(cw, C - ci0 * cw);
+    const int ksteps = (rps * kw * cc + 7) / 8;
+    const float* is = in_s + (ci0 & 1) * npix * kPS + dy * SW * kPS;
+    const float* ws = w_s + (u & 1) * KP * WS + wn * 8 + gq;
+    const int* ko = koff_s + (ci0 == n_chunks - 1 ? KP : 0);
+    // the products in fresh accumulators, added to acc in float32 (round
+    // to nearest) every kFlush k-steps: the tensor cores truncate what they
+    // accumulate, which over a whole K of 3200 drifted past 1e-5
+    float part[kWM][4][4] = {};
+#pragma unroll 1
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int k0 = ks * 8;
+      const int o0 = ko[k0 + tq], o1 = ko[k0 + tq + 4];
+      uint32_t bh[4][2], bl[4][2], ah[kWM][4], al[kWM][4];
 #pragma unroll
-    for (int j = 0; j < kFG; ++j) {
-      if (j >= nf) break;
-      const float c_prev = step == 0 ? 0.f : cprev[j];
-      const float c_new =
-          __fadd_rn(__fmul_rn(hard_sigmoid(acc[p][1][j]), c_prev),
-                    __fmul_rn(hard_sigmoid(acc[p][0][j]), tanhf(acc[p][2][j])));
-      cp[j] = c_new;
-      yp[j] = __fmul_rn(hard_sigmoid(acc[p][3][j]), tanhf(c_new));
+      for (int g = 0; g < 4; ++g) {
+        split_tf32(ws[(k0 + tq) * WS + g * FS], bh[g][0], bl[g][0]);
+        split_tf32(ws[(k0 + tq + 4) * WS + g * FS], bh[g][1], bl[g][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kWM; ++mt) {
+        split_tf32(is[po[mt][0] + o0], ah[mt][0], al[mt][0]);
+        split_tf32(is[po[mt][1] + o0], ah[mt][1], al[mt][1]);
+        split_tf32(is[po[mt][0] + o1], ah[mt][2], al[mt][2]);
+        split_tf32(is[po[mt][1] + o1], ah[mt][3], al[mt][3]);
+      }
+      // hi*lo, then lo*hi, then hi*hi, each over the 8 independent tiles
+#pragma unroll
+      for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          mma_tf32(part[mt][g], ah[mt], bl[g][0], bl[g][1]);
+#pragma unroll
+      for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          mma_tf32(part[mt][g], al[mt], bh[g][0], bh[g][1]);
+#pragma unroll
+      for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          mma_tf32(part[mt][g], ah[mt], bh[g][0], bh[g][1]);
+      if (ks % kFlush == kFlush - 1 || ks == ksteps - 1) {
+#pragma unroll
+        for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[mt][g][i] += part[mt][g][i];
+              part[mt][g][i] = 0.f;
+            }
+      }
     }
+    __syncthreads();   // this stage's buffers may be refilled
   }
+
+  // epilogue: zx (input launch) or z (training step) out, then the gates
+  // where h_{t-1} is known: every step launch, and the input launch's t = 0
+#pragma unroll
+  for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = mb + mt * 16 + gq + 8 * (i >> 1);
+      const int fo = f0 + wn * 8 + 2 * tq + (i & 1);
+      const int y = ty0 + m / tw, xq = tx0 + m % tw;
+      if (m >= th * tw || y >= a.h || xq >= a.wd || fo >= f) continue;
+      const int64_t pix = (int64_t)y * a.wd + xq;
+      if (!STEP || TRAIN) {
+        float* zp = a.zx + (frame * hw + pix) * 4 * f + fo;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) zp[g * f] = acc[mt][g][i];
+      }
+      if (!STEP && t != 0) continue;
+      // inference: c in the [B, H, W, F] scratch; training: c_t in
+      // cs[:, t] and c_{t-1} in cs[:, t-1]
+      float* cp = TRAIN ? a.c + (frame * hw + pix) * f + fo
+                        : a.c + ((int64_t)b * hw + pix) * f + fo;
+      const float c_prev = !STEP ? 0.f : TRAIN ? cp[-hw * f] : *cp;
+      const float c_new = __fadd_rn(
+          __fmul_rn(hard_sigmoid(acc[mt][1][i]), c_prev),
+          __fmul_rn(hard_sigmoid(acc[mt][0][i]), tanhf(acc[mt][2][i])));
+      *cp = c_new;
+      a.ys[(frame * hw + pix) * f + fo] =
+          __fmul_rn(hard_sigmoid(acc[mt][3][i]), tanhf(c_new));
+    }
 }
 
-template <int PY, int K>
-cudaError_t launch(const float* x, const float* wx, const float* bx, const float* wh,
-                   float* ys, float* c, float* zs, int b, int t_steps, int step, int h,
-                   int wd, int cin, int f, int kh, int kw, cudaStream_t stream) {
-  auto kern = zs ? convlstm_step<PY, K, true> : convlstm_step<PY, K, false>;
-  const int shmem = (int)sizeof(float) * smem_floats(PY, kh, kw);
-  if (shmem > kMaxSmem) return cudaErrorInvalidValue;
+template <int FS, bool STEP>
+cudaError_t launch(Args& a, int frames, int train, cudaStream_t s) {
+  constexpr int kBM = (8 / (FS / 8)) * kWM * 16;   // pixels of a block
+  if (a.th < 1 || a.tw < 1 || a.th * a.tw > kBM) return cudaErrorInvalidValue;
+  auto kern = train ? convlstm_tile<FS, STEP, true> : convlstm_tile<FS, STEP, false>;
+  const size_t shmem =
+      sizeof(float) * (size_t)smem_floats(FS, a.th, a.tw, a.kh, a.kw, a.cw, a.rps);
+  if (shmem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return err;
   }
-  const int tiles_x = (wd + kTX - 1) / kTX;
-  const int tiles_y = (h + kTY * PY - 1) / (kTY * PY);
-  const dim3 grid(tiles_x * tiles_y, (f + kFG - 1) / kFG, b);
-  kern<<<grid, kThreads, shmem, stream>>>(x, wx, bx, wh, ys, c, zs, t_steps, step, h,
-                                          wd, cin, f, kh, kw, tiles_x);
+  a.tiles_x = (a.wd + a.tw - 1) / a.tw;
+  const int64_t tiles = (int64_t)a.tiles_x * ((a.h + a.th - 1) / a.th);
+  const int64_t blocks = frames * tiles;
+  const int slices = (a.f + FS - 1) / FS;
+  if (blocks > INT32_MAX || slices > 65535) return cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  kern<<<dim3((unsigned)blocks, slices), kThreads, shmem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int PY>
-cudaError_t launch_k(const float* x, const float* wx, const float* bx, const float* wh,
-                     float* ys, float* c, float* zs, int b, int t_steps, int step, int h,
-                     int wd, int cin, int f, int kh, int kw, cudaStream_t s) {
-  if (kh == 5 && kw == 5)
-    return launch<PY, 5>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh,
-                         kw, s);
-  if (kh == 3 && kw == 3)
-    return launch<PY, 3>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh,
-                         kw, s);
-  return launch<PY, 0>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh, kw,
-                       s);
+template <bool STEP>
+cudaError_t launch_fs(Args& a, int64_t frames, int fs, int train, cudaStream_t s) {
+  if (a.kh < 1 || a.kw < 1 || a.kh % 2 == 0 || a.kw % 2 == 0 || a.f < 1 ||
+      (a.cw != 4 && a.cw != 8) || (a.rps != 1 && a.rps != a.kh) ||
+      frames > INT32_MAX)
+    return cudaErrorInvalidValue;
+  if (fs == 8) return launch<8, STEP>(a, (int)frames, train, s);
+  if (fs == 16) return launch<16, STEP>(a, (int)frames, train, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// One time step `step` of the layer. py (1 or 2) is the number of rows a
-// thread computes. ys [B, T, H, W, F] is the caller's. With zs NULL
-// (inference) c is a [B, H, W, F] scratch; with zs [B, T, H, W, 4F]
-// (training) c is the cs residual [B, T, H, W, F]. Steps must run in order
-// on one stream. Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for a shape the kernel does not take); does not
-// synchronise.
-extern "C" int dl4ds_convlstm_step(const float* x, const float* wx, const float* bx,
-                                   const float* wh, float* ys, float* c, float* zs,
-                                   int b, int t_steps, int step, int h, int wd,
-                                   int cin, int f, int kh, int kw, int py,
-                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (py == 2)
-    err = launch_k<2>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh, kw,
-                      s);
-  else if (py == 1)
-    err = launch_k<1>(x, wx, bx, wh, ys, c, zs, b, t_steps, step, h, wd, cin, f, kh, kw,
-                      s);
-  return (int)err;
+// The layer's first launch: zx = conv_same(x, wx) + bx over all B*T frames
+// into zx ([B, T, H, W, 4F]: zs in training, a scratch in inference), and
+// the gates of t = 0 into ys[:, 0] and c (training: cs [B, T, H, W, F];
+// inference: a [B, H, W, F] scratch). The plan comes from the wrapper: fs
+// (8 or 16 output channels a block), the th x tw pixel tile (at most 256
+// pixels at fs 8, 128 at fs 16), cw (4 or 8 source channels a chunk) and
+// rps (1 or kh tap rows a stage). Returns the cudaError_t of the launch (0
+// on success; cudaErrorInvalidValue for a shape or plan the kernel does
+// not take); does not synchronise.
+extern "C" int dl4ds_convlstm_input(const float* x, const float* wx,
+                                    const float* bx, float* zx, float* ys,
+                                    float* c, int b, int t_steps, int h,
+                                    int wd, int cin, int f, int kh, int kw,
+                                    int fs, int th, int tw, int cw, int rps,
+                                    int train, void* stream) {
+  if (b < 1 || t_steps < 1 || h < 1 || wd < 1 || cin < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{x, wx, bx, zx, ys, c, t_steps, 0, h, wd, cin, f, kh, kw, th, tw, cw,
+         rps, 0, 0};
+  return (int)launch_fs<false>(a, (int64_t)b * t_steps, fs, train,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Time step `step` (1 <= step < T) of the layer, after the input launch and
+// the steps before it on the same stream: z = zx[:, step] +
+// conv_same(ys[:, step-1], wh) (written back to zx in training), then the
+// gates into ys[:, step] and c. Arguments as dl4ds_convlstm_input's.
+extern "C" int dl4ds_convlstm_step(const float* wh, float* zx, float* ys,
+                                   float* c, int b, int t_steps, int step,
+                                   int h, int wd, int f, int kh, int kw,
+                                   int fs, int th, int tw, int cw, int rps,
+                                   int train, void* stream) {
+  if (b < 1 || step < 1 || step >= t_steps || h < 1 || wd < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{nullptr, wh, nullptr, zx, ys, c, t_steps, step, h, wd, 0, f, kh, kw,
+         th, tw, cw, rps, 0, 0};
+  return (int)launch_fs<true>(a, b, fs, train, static_cast<cudaStream_t>(stream));
 }

@@ -51,11 +51,18 @@ class Predictor:
 
 
 def _resolve_model(trainer):
-    """(DSModel, nn.Module) from a (model, net) pair."""
+    """(DSModel, nn.Module) from a (model, net) pair or from a trainer that
+    holds `.model` and `.net` (the port's `SupervisedTrainer` after its
+    setup or `run`), as the JAX `_resolve_model` takes a trainer's `.model`
+    and `.variables` (dl4ds_tpu/inference.py:83-93)."""
     if isinstance(trainer, (tuple, list)) and len(trainer) == 2:
         return trainer[0], trainer[1]
-    raise TypeError('`trainer` must be a (DSModel, nn.Module) pair; trainers '
-                    'are not ported yet (ROADMAP.md queue 1, item 4)')
+    if (getattr(trainer, 'model', None) is not None
+            and getattr(trainer, 'net', None) is not None):
+        return trainer.model, trainer.net
+    raise TypeError('`trainer` must be a (DSModel, nn.Module) pair or a '
+                    'trainer holding `.model` and `.net` (set up or run it '
+                    'first)')
 
 
 def _assemble_inputs(model, array, scale, array_in_hr, static_vars,
@@ -94,9 +101,9 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
             device='cuda', mesh=None, pad_to_multiple=None, tile=None,
             spatial_mesh=None, quantize=None):
     """Super-resolve/downscale the HR grids `array` [N, H, W(, C)] with a
-    (DSModel, net) pair: the grids are coarsened by `scale` on the device,
+    (DSModel, net) pair or a trained `SupervisedTrainer`: the grids are coarsened by `scale` on the device,
     stacked with the predictors and static variables, and run through the
-    network in batches of `batch_size`. Returns a numpy array
+    network in eval mode in batches of `batch_size`. Returns a numpy array
     [N, H, W, n_channels_out] (and the LR inputs with `return_lr`).
 
     A spatio-temporal model needs `time_window`: it runs on the N - tw + 1
@@ -131,8 +138,15 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     x, aux, _ = _assemble_inputs(model, array, scale, array_in_hr,
                                  static_vars, predictors, time_window,
                                  interpolation, device)
-    with torch.inference_mode():
-        out = _batched_apply(net, x, aux, batch_size)
+    # eval mode, as the JAX package applies training=False
+    # (dl4ds_tpu/inference.py:349-350); the caller's mode comes back after
+    was_training = net.training
+    net.eval()
+    try:
+        with torch.inference_mode():
+            out = _batched_apply(net, x, aux, batch_size)
+    finally:
+        net.train(was_training)
     return _finalize_predict(out, x, time_window, scaler, save_path,
                              save_fname, return_lr, timing)
 

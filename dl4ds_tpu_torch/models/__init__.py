@@ -70,17 +70,23 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
                        n_blocks=6, normalization=None, dropout_rate=0,
                        dropout_variant=None, attention=False,
                        activation='relu', output_activation=None,
-                       localcon_layer=False, output_attention=True,
+                       rc_interpolation='bilinear', localcon_layer=False,
+                       output_attention=True, remat=False,
                        dtype=torch.float32):
     """Spatial network + post-upsampling head
-    (dl4ds_tpu/models/__init__.py:77-104). This slice builds the 'resnet'
-    backbone with the 'spc' head in float32; the rest raises
-    NotImplementedError naming its ROADMAP item."""
+    (dl4ds_tpu/models/__init__.py:77-104), with the JAX signature. This
+    slice builds the 'resnet' backbone with the 'spc' head in float32;
+    `rc_interpolation` is read by the 'rc' head alone (not ported yet), as
+    in `recnet_postupsampling`. The rest, `remat=True` (activation
+    checkpointing) included, raises NotImplementedError naming its ROADMAP
+    item."""
     backbone_block = checkarg_backbone(backbone_block)
     upsampling = checkarg_upsampling(upsampling)
     dropout_variant = checkarg_dropout_variant(dropout_variant)
     if dtype != torch.float32:
         raise not_ported(f'model dtype {dtype}', 5)
+    if remat:
+        raise not_ported('remat=True (activation checkpointing)', 4)
     h_lr, w_lr = lr_size
     build = functools.partial(
         NetPostupsampling, n_channels, n_aux_channels, backbone_block,

@@ -3,10 +3,12 @@ Fused ConvLSTM layer (K2 forward; K3, or K4 and a GEMM tail, backward), the
 counterpart of `dl4ds_tpu/ops/pallas_convlstm.py`'s `fused_convlstm`.
 
 On CUDA tensors `fused_convlstm` launches the hand-written Hopper kernels:
-without a gradient to take, K2's inference variant (`csrc/convlstm.cu`, one
-launch per time step); with one (grad mode on and an input that requires
-grad), `FusedConvLSTM`, whose forward is K2's training variant (the same
-step kernel, also writing the `cs` and `zs` residuals). Its backward takes
+without a gradient to take, K2's inference variant (`csrc/convlstm.cu`: the
+input conv over all frames with step 0's gates, then one launch per later
+time step, T launches a layer; 3xTF32 tensor-core products); with one (grad
+mode on and an input that requires grad), `FusedConvLSTM`, whose forward is
+K2's training variant (the same launches, also writing the `cs` and `zs`
+residuals). Its backward takes
 one of two routes, chosen by `dispatch_info` from the layer's shape alone:
 'fused', K3, the one-kernel BPTT of `csrc/convlstm_bwd.cu`; or 'split', K4
 (`csrc/convlstm_seq.cu`, the sequential dh/dc chain only, writing dz for
@@ -304,12 +306,15 @@ def dispatch_info(x_shape, wx_shape, wh_shape):
 
 def _fwd_lib():
     lib = _build.load('convlstm')
-    fn = lib.dl4ds_convlstm_step
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p] + [i] * 10 + [p]
-        fn.restype = ctypes.c_int
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    argtypes = {'dl4ds_convlstm_input': [p] * 6 + [i] * 14 + [p],
+                'dl4ds_convlstm_step': [p] * 4 + [i] * 14 + [p]}
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def _bwd_lib():
@@ -337,13 +342,67 @@ def _seq_lib():
 
 
 def _rows_per_thread(b, h, w, f, n_sm):
-    """Rows of output a thread computes (at one column, for a group of 8
-    channels). A block tiles 8*rows by 32 columns; rows is 2 unless that
-    leaves an SM without a block. The step kernels of K2 and K3 and K3's dx
-    kernel share this tiling (for dx, b counts frames and f input
-    channels)."""
+    """Rows of output a thread of K3's chain-step and dx kernels computes
+    (at one column, for a group of 8 channels). A block tiles 8*rows by 32
+    columns; rows is 2 unless that leaves an SM without a block (for dx, b
+    counts frames and f input channels)."""
     blocks = b * -(-f // 8) * -(-w // 32) * -(-h // 16)
     return 2 if blocks >= n_sm else 1
+
+
+_K2_TILE_W = 32               # the widest K2 pixel tile
+_K2_SMEM_BUDGET = 110 * 1024  # shared memory of a K2 block: two share an SM
+
+
+def _k2_smem(fs, th, tw, kh, kw, cw, rps):
+    """Shared memory bytes of a K2 block (`smem_floats` in
+    `csrc/convlstm.cu`): two input tiles with their halo, 12 floats a pixel;
+    two stages of weight rows (rps tap rows x kw taps x cw channels, padded
+    to 8) of 4*fs gate channels at a row stride of 4*fs + 8; two k-offset
+    tables."""
+    kp = -(-rps * kw * cw // 8) * 8
+    return 4 * (2 * (th + kh - 1) * (tw + kw - 1) * 12
+                + 2 * kp * (4 * fs + 8) + 2 * kp)
+
+
+def _fwd_plan(b, t, h, w, kh, kw, f, n_sm):
+    """K2's launch plan, a pure function of the layer's shape.
+
+    A block (8 warps, each 2 runs of 16 pixels x the four gates of 8
+    channels) computes all four gates of fs output channels for a th x tw
+    pixel tile of one frame: 256 pixels at fs 8, 128 at fs 16. fs is 16
+    when F > 8 and a step launch at 16 keeps every SM busy, else 8. tw =
+    min(W, 32), th = min(pixels // tw, H): a 16x16 frame is one tile at fs
+    8 and two at fs 16, with no idle lane. The K loop stages cw (8 or 4)
+    source channels and rps (kh or 1) tap rows at a time: the largest stage
+    whose double buffers fit `_K2_SMEM_BUDGET`, tried in the order (8, kh),
+    (4, kh), (8, 1).
+
+    The input launch's grid is (B*T*tiles, slices), a step launch's
+    (B*tiles, slices); block x of frame (or sample) x // tiles covers tile
+    x % tiles, at rows (tile // tiles_x) * th and columns (tile % tiles_x)
+    * tw. Warp k takes the 8-channel sub-slice k % (fs // 8) and the
+    pixels from (k // (fs // 8)) * 32 (`csrc/convlstm.cu`)."""
+    def cdiv(a, d):
+        return -(-a // d)
+
+    def geometry(fs):
+        tw = min(w, _K2_TILE_W)
+        th = max(1, min((256 if fs == 8 else 128) // tw, h))
+        tiles_x = cdiv(w, tw)
+        return th, tw, tiles_x, tiles_x * cdiv(h, th)
+
+    fs = 16 if f > 8 and b * geometry(16)[3] * cdiv(f, 16) >= n_sm else 8
+    th, tw, tiles_x, tiles = geometry(fs)
+    for cw, rps in ((8, kh), (4, kh), (8, 1)):
+        smem = _k2_smem(fs, th, tw, kh, kw, cw, rps)
+        if smem <= _K2_SMEM_BUDGET:
+            break
+    return {'fs': fs, 'th': th, 'tw': tw, 'tiles_x': tiles_x,
+            'tiles': tiles, 'slices': cdiv(f, fs), 'cw': cw, 'rps': rps,
+            'smem': smem, 'input_grid': (b * t * tiles, cdiv(f, fs)),
+            'step_grid': (b * tiles, cdiv(f, fs)),
+            'warps': (64 // fs, fs // 8), 'm_tiles': 2}
 
 
 def _wgrad_plan(b, t, t_skip, h, w, cs, f, kh, kw, n_sm):
@@ -388,10 +447,11 @@ def _aligned(u):
 
 
 def _launch(x, wx, bx, wh, train=False):
-    """Run K2 over the whole window: T step launches on the current stream.
-    Returns ys [B, T, H, W, F]; with train=True the training variant, which
-    returns (ys, cs, zs) with the residuals cs [B, T, H, W, F] and zs [B, T,
-    H, W, 4F]."""
+    """Run K2 over the whole window: the input launch (the input conv over
+    all B*T frames, and step 0's gates), then one launch per time step 1 ..
+    T-1, on the current stream. Returns ys [B, T, H, W, F]; with train=True
+    the training variant, which returns (ys, cs, zs) with the residuals cs
+    [B, T, H, W, F] and zs [B, T, H, W, 4F]."""
     tensors = (x, wx, bx, wh)
     dev = _check_cuda(tensors, 'forward kernel')
     _check_kernels(x, wx, bx, wh)
@@ -400,35 +460,40 @@ def _launch(x, wx, bx, wh, train=False):
     f = f4 // 4
     if b * t * h * w == 0:
         raise ValueError(f'ConvLSTM kernel got an empty x {tuple(x.shape)}')
-    if b > 65535:
-        raise ValueError(f'ConvLSTM kernel takes at most 65535 samples per '
-                         f'call, got {b}')
     x, wx, bx, wh = (_aligned(u) for u in tensors)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    py = _rows_per_thread(b, h, w, f, n_sm)
-    ys = torch.empty((b, t, h, w, f), dtype=torch.float32, device=dev)
-    if train:
-        c = torch.empty((b, t, h, w, f), dtype=torch.float32, device=dev)
-        zs = torch.empty((b, t, h, w, f4), dtype=torch.float32, device=dev)
-        zs_ptr = zs.data_ptr()
-    else:
-        c = torch.empty((b, h, w, f), dtype=torch.float32, device=dev)
-        zs_ptr = None
-    fn = _fwd_lib()
+    plan = _fwd_plan(b, t, h, w, kh, kw, f, n_sm)
+    if plan['input_grid'][0] >= 2 ** 31:
+        raise ValueError(f'ConvLSTM kernel got too many pixel tiles for one '
+                         f'launch: x {tuple(x.shape)}')
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    ys = empty(b, t, h, w, f)
+    zx = empty(b, t, h, w, f4)        # zs in training, a scratch in inference
+    c = empty(b, t, h, w, f) if train else empty(b, h, w, f)
+    geometry = (kh, kw) + tuple(plan[k] for k in ('fs', 'th', 'tw', 'cw',
+                                                  'rps')) + (int(train),)
+    lib = _fwd_lib()
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f'ConvLSTM kernel launch failed with CUDA '
+                               f'error {err} ({what})')
+        if train:
+            fused_convlstm.train_launches += 1
+        else:
+            fused_convlstm.launches += 1
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for step in range(t):
-            err = fn(x.data_ptr(), wx.data_ptr(), bx.data_ptr(),
-                     wh.data_ptr(), ys.data_ptr(), c.data_ptr(), zs_ptr, b, t,
-                     step, h, w, cin, f, kh, kw, py, stream)
-            if err != 0:
-                raise RuntimeError(f'ConvLSTM kernel launch failed with CUDA '
-                                   f'error {err} (step {step})')
-            if train:
-                fused_convlstm.train_launches += 1
-            else:
-                fused_convlstm.launches += 1
-    return (ys, c, zs) if train else ys
+        check(lib.dl4ds_convlstm_input(
+            x.data_ptr(), wx.data_ptr(), bx.data_ptr(), zx.data_ptr(),
+            ys.data_ptr(), c.data_ptr(), b, t, h, w, cin, f, *geometry,
+            stream), 'input conv and step 0')
+        for step in range(1, t):
+            check(lib.dl4ds_convlstm_step(
+                wh.data_ptr(), zx.data_ptr(), ys.data_ptr(), c.data_ptr(), b,
+                t, step, h, w, f, *geometry, stream), f'step {step}')
+    return (ys, c, zx) if train else ys
 
 
 def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
@@ -588,9 +653,9 @@ def fused_convlstm(x, wx, bx, wh):
     With grad mode on and any input that requires grad, `FusedConvLSTM`
     (differentiable; on CUDA K2's training variant, and K3 or K4 with the
     GEMM tail as `dispatch_info` routes the layer). Otherwise, on CUDA
-    tensors K2's inference variant, one launch per time step, float32 only;
+    tensors K2's inference variant, float32 only;
     on CPU tensors `convlstm_reference`. `fused_convlstm.launches` counts K2
-    inference launches, `.train_launches` K2 training launches,
+    inference launches (T a layer: the input launch and T-1 steps), `.train_launches` K2 training launches,
     `.bwd_launches` K3 launches and `.seq_launches` K4 launches; the CPU path
     launches nothing."""
     if x.device.type not in ('cuda', 'cpu'):

@@ -1,6 +1,8 @@
 """PyTorch port of the spatio-temporal path against the JAX package on the
 CPU: the ConvLSTM layer (the plain version of K2) against the Pallas kernel
-run in interpret mode and against the XLA reference, the ConvLSTM blocks and
+run in interpret mode and against the XLA reference, K2's launch plan (every
+output stored once) and its 3xTF32 arithmetic emulated on the CPU against
+the float32 and float64 plain versions, the ConvLSTM blocks and
 their init, the recurrent `recresnet_spc` model with carried weights,
 time-window batch synthesis and `predict(time_window=...)`. Inputs come from
 numpy; everything is float32. Tolerances: 1e-5 for one layer or block
@@ -24,8 +26,10 @@ from dl4ds_tpu.models import blocks as jax_blocks
 import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch.models.blocks import (ChannelAttention2D, ConvLSTM2D,
                                            RecurrentConvBlock)
-from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _launch,
-                                          _rows_per_thread, hard_sigmoid)
+from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _fwd_plan, _launch,
+                                          _rows_per_thread, _unfold,
+                                          convlstm_train_reference,
+                                          hard_sigmoid)
 
 HR, SCALE, T = 64, 4, 3
 LR = HR // SCALE
@@ -142,14 +146,158 @@ def test_k2_kernel_wrapper_guards(case):
 
 
 @pytest.mark.parametrize('shape,want', [
-    ((8, 128, 128, 8), 2),           # recresnet_spc layers: 256 blocks
-    ((8, 32, 32, 64), 1),            # width 64: 128 blocks at 16 rows
+    ((8, 128, 128, 8), 2),           # 256 blocks
+    ((8, 32, 32, 64), 1),            # 128 blocks at 16 rows
     ((2, 9, 11, 5), 1),
     ((16, 64, 64, 12), 2)])          # two channel groups, the last padded
 def test_k2_thread_shape(shape, want):
-    """Two rows per thread unless that leaves one of the 132 SMs without a
-    block; a block takes 8 channels, so F = 12 makes two groups."""
+    """The thread shape of K3's chain-step and dx kernels (K2 had it until
+    its tiles became whole-frame pixel tiles): two rows per thread unless
+    that leaves one of the 132 SMs without a block; a block takes 8
+    channels, so F = 12 makes two groups."""
     assert _rows_per_thread(*shape, n_sm=132) == want
+
+
+def _k2_block_outputs(plan, frames, h, w, f):
+    """(frame, y, x, channel) of every output value the blocks of one K2
+    launch over `frames` frames store, by the kernel's own index map
+    (`csrc/convlstm.cu`): block (bx, by), warp k, lane l, m tile mt and
+    fragment value i hold pixel m = (k // nsub) * m_tiles * 16 + mt * 16 +
+    l // 4 + 8 * (i // 2) of tile bx % tiles (m < th * tw), channel by * fs
+    + (k % nsub) * 8 + 2 * (l % 4) + i % 2, all four gates of it."""
+    fs, th, tw = plan['fs'], plan['th'], plan['tw']
+    nsub, wm = fs // 8, plan['m_tiles']
+    bx, by, warp, lane, mt, i = np.ix_(
+        np.arange(frames * plan['tiles']), np.arange(plan['slices']),
+        np.arange(8), np.arange(32), np.arange(wm), np.arange(4))
+    m = (warp // nsub) * wm * 16 + mt * 16 + lane // 4 + 8 * (i // 2)
+    fo = by * fs + (warp % nsub) * 8 + 2 * (lane % 4) + i % 2
+    tile, frame = bx % plan['tiles'], bx // plan['tiles']
+    y = (tile // plan['tiles_x']) * th + m // tw
+    x = (tile % plan['tiles_x']) * tw + m % tw
+    shape = np.broadcast(bx, by, warp, lane, mt, i).shape
+    frame, y, x, fo, m = (np.broadcast_to(a, shape)
+                          for a in (frame, y, x, fo, m))
+    ok = (m < th * tw) & (y < h) & (x < w) & (fo < f)
+    return frame[ok], y[ok], x[ok], fo[ok]
+
+
+@pytest.mark.parametrize('f', [4, 5, 8, 12, 64, 72])
+@pytest.mark.parametrize('b,t,h,w', [
+    (2, 3, 16, 16),        # the training frames: whole tiles
+    (2, 2, 5, 7),          # one ragged tile, rows clamped to H
+    (1, 2, 17, 17),        # 17 pixels a row: the last row tile ragged
+    (1, 1, 3, 300),        # wider than a tile: ragged column tiles
+    (8, 4, 32, 32),        # 4 x 32 and 8 x 32 tiles
+    (1, 2, 6, 40)])        # 8 channels a block: too few blocks at 16
+def test_k2_plan_covers_every_output_once(b, t, h, w, f):
+    """Every pixel and gate channel of every frame is stored by exactly one
+    thread, in the input launch (B*T frames) and in a step launch (B
+    samples), with warps that tile the block's pixels and fs channels."""
+    plan = _fwd_plan(b, t, h, w, 5, 5, f, n_sm=132)
+    fs = plan['fs']
+    warps_m, warps_n = plan['warps']
+    assert fs in (8, 16) and warps_m * warps_n == 8 and warps_n * 8 == fs
+    assert plan['th'] * plan['tw'] <= warps_m * plan['m_tiles'] * 16
+    assert plan['input_grid'] == (b * t * plan['tiles'], -(-f // fs))
+    assert plan['step_grid'] == (b * plan['tiles'], -(-f // fs))
+    for frames in (b * t, b):
+        count = np.zeros((frames, h, w, f), np.int64)
+        np.add.at(count, _k2_block_outputs(plan, frames, h, w, f), 1)
+        assert (count == 1).all(), (frames, np.unique(count))
+
+
+@pytest.mark.parametrize('shape,want', [
+    # width-64 training: 1024 blocks; the 5x5 weights of all tap rows fit
+    # two blocks an SM at 4 channels a chunk, the 3x3 ones at 8
+    ((128, 4, 16, 16, 5, 5, 64), (16, 8, 16, 4, 5)),
+    ((128, 4, 16, 16, 3, 3, 64), (16, 8, 16, 8, 3)),
+    ((128, 4, 16, 16, 5, 5, 8), (8, 16, 16, 8, 5)),   # a frame a block
+    ((8, 4, 32, 32, 5, 5, 64), (16, 4, 32, 4, 5)),
+    ((8, 4, 128, 128, 5, 5, 8), (8, 8, 32, 8, 5)),    # recresnet_spc serving
+    ((2, 1, 9, 300, 3, 3, 12), (8, 8, 32, 8, 3)),     # 60 blocks at 16
+    ((4, 2, 5, 7, 3, 3, 12), (8, 5, 7, 8, 3)),
+    ((2, 2, 19, 23, 7, 7, 16), (8, 11, 23, 8, 1)),
+    ((128, 2, 16, 16, 7, 7, 16), (16, 8, 16, 8, 1))])  # one tap row a stage
+def test_k2_plan_tiles_channels_and_stages(shape, want):
+    plan = _fwd_plan(*shape, n_sm=132)
+    assert tuple(plan[k] for k in ('fs', 'th', 'tw', 'cw', 'rps')) == want
+    assert plan['smem'] <= 110 * 1024
+
+
+def _tf32_rna(a):
+    """float32 -> TF32 as `cvt.rna.tf32.f32` rounds: to 10 mantissa bits,
+    to nearest, ties away from zero (on the sign-magnitude bits)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b as K2's tensor-core products: operands split into TF32 hi and
+    lo parts, hi*lo + lo*hi + hi*hi accumulated in float32 (passes 3), or
+    plain TF32, hi*hi alone (passes 1). Each product of two TF32 values is
+    exact in float32."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _k2_emulated(x, wx, bx, wh, passes=3):
+    """The layer as the kernel computes it: the input conv over all B*T
+    frames hoisted, accumulators started from the bias; each step's from
+    zx_t, adding the recurrent conv (none at t = 0); the products in
+    (3x)TF32; then the plain version's gates. Returns (ys, cs, zs)."""
+    b, t, h, w, cin = x.shape
+    kh, kw, _, f4 = wx.shape
+    f = f4 // 4
+    zx = bx + _mm_tf32(_unfold(x.reshape(b * t, h, w, cin), kh, kw),
+                       wx.reshape(-1, f4), passes)
+    zx = zx.reshape(b, t, h, w, f4)
+    hh = cc = x.new_zeros((b, h, w, f))
+    ys, cs, zs = [], [], []
+    for i in range(t):
+        z = zx[:, i]
+        if i > 0:
+            z = z + _mm_tf32(_unfold(hh, kh, kw), wh.reshape(-1, f4),
+                             passes).reshape(b, h, w, f4)
+        zi, zf, zc, zo = torch.split(z, f, dim=-1)
+        cc = hard_sigmoid(zf) * cc + hard_sigmoid(zi) * torch.tanh(zc)
+        hh = hard_sigmoid(zo) * torch.tanh(cc)
+        ys.append(hh)
+        cs.append(cc)
+        zs.append(z)
+    return tuple(torch.stack(u, dim=1) for u in (ys, cs, zs))
+
+
+@pytest.mark.parametrize('cin,f,k,b', [(1, 64, 5, 4), (64, 64, 3, 2),
+                                       (64, 64, 5, 2), (8, 8, 3, 4),
+                                       (2, 8, 5, 4)])
+def test_k2_3xtf32_arithmetic_keeps_float32_accuracy(cin, f, k, b):
+    """K2's numeric scheme, emulated on the CPU at the training frames (T 4,
+    16x16, Keras init, randn x): 3xTF32 products with the hoisted input
+    conv stay within K2's 1e-5 of the float32 plain version (ys and cs;
+    zs within 1e-5 of max(1, max |zs|), as on the card) and of float64,
+    where plain TF32, one product, does not."""
+    layer = ConvLSTM2D(cin, f, (k, k))
+    layer.reset_parameters(torch.Generator().manual_seed(cin * f + k))
+    wx, bx, wh = (p.detach() for p in (layer.input_conv.kernel,
+                                       layer.input_conv.bias,
+                                       layer.cell.recurrent_conv.kernel))
+    x = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (b, 4, 16, 16, cin)).astype(np.float32))
+    got = _k2_emulated(x, wx, bx, wh)
+    want32 = convlstm_train_reference(x, wx, bx, wh)
+    want64 = convlstm_train_reference(*(u.double() for u in (x, wx, bx, wh)))
+    one_pass = _k2_emulated(x, wx, bx, wh, passes=1)
+    zs_scale = max(1.0, want64[2].abs().max().item())
+    for name, g, w32, w64, tf32, scale in zip(
+            ('ys', 'cs', 'zs'), got, want32, want64, one_pass,
+            (1.0, 1.0, zs_scale)):
+        assert (g - w32).abs().max().item() <= 1e-5 * scale, name
+        assert (g.double() - w64).abs().max().item() <= 1e-5 * scale, name
+    assert (one_pass[0] - want32[0]).abs().max().item() > 1e-5
 
 
 @pytest.mark.parametrize('case', ['wh', 'bx', 'even'])

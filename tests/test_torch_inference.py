@@ -128,3 +128,76 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# ---------------------------------------------------------------------------
+# predict's model resolution and mode, and the factory's keywords
+# ---------------------------------------------------------------------------
+
+def _trained(hr, **kwargs):
+    """A port SupervisedTrainer after two Adam steps on the CPU."""
+    tr = tds.SupervisedTrainer(
+        'resnet', 'spc', data_train=hr[..., None], data_val=hr[:2, ..., None],
+        data_test=hr[:2, ..., None], scale=SCALE, patch_size=16,
+        batch_size=2, epochs=1, steps_per_epoch=2, validation_steps=1,
+        test_steps=1, n_filters=4, n_blocks=1, attention=True, device='cpu',
+        verbose=False, **kwargs)
+    return tr.run()
+
+
+def test_predict_takes_a_trained_trainer(data):
+    """As the JAX `_resolve_model` takes a trainer's `.model` and
+    `.variables` (dl4ds_tpu/inference.py:83-93), the port's takes its
+    `.model` and `.net`: the same bits as the (model, net) pair."""
+    hr = data[0]
+    tr = _trained(hr)
+    assert tr.n_updates == 2
+    kw = dict(scale=SCALE, batch_size=2, device='cpu')
+    got = tds.predict(tr, hr, **kw)
+    want = tds.predict((tr.model, tr.net), hr, **kw)
+    assert got.shape == (N, HR, HR, 1)
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(TypeError, match='trainer'):
+        tds.predict(object(), hr, **kw)
+
+
+def test_predict_runs_the_net_in_eval_mode_and_restores_its_mode(
+        data, models):
+    """JAX applies the model with training=False
+    (dl4ds_tpu/inference.py:349-350): the port's predict runs the net in
+    eval mode and gives it back in the mode it was given."""
+    hr, topo, mask, pred = data
+    net = models[1][1]
+    seen = []
+    hook = net.register_forward_hook(
+        lambda module, args, out: seen.append(module.training))
+    kw = dict(scale=SCALE, static_vars=[topo, mask], predictors=[pred],
+              batch_size=3, device='cpu')
+    try:
+        for mode in (True, False):
+            net.train(mode)
+            tds.predict(models[1], hr, **kw)
+            assert net.training is mode
+            assert all(m.training is mode for m in net.modules())
+    finally:
+        hook.remove()
+        net.eval()
+    assert seen == [False] * 4           # two batches a call
+
+
+def test_net_postupsampling_takes_rc_interpolation_and_remat(data):
+    """The JAX signature's `rc_interpolation` and `remat`
+    (dl4ds_tpu/models/__init__.py:77-84): both accepted, remat=True
+    raises naming its item, and the trainer passes rc_interpolation
+    through to the factory."""
+    args = dict(SMALL, n_blocks=1)
+    plain = tds.net_postupsampling('resnet', 'spc', **args)
+    model = tds.net_postupsampling('resnet', 'spc', rc_interpolation='nearest',
+                                   remat=False, **args)
+    assert model.name == plain.name == 'resnet_spc'
+    assert model.param_count(model.init(0, device='cpu')) == \
+        plain.param_count(plain.init(0, device='cpu'))
+    with pytest.raises(NotImplementedError, match='item 4'):
+        tds.net_postupsampling('resnet', 'spc', remat=True, **args)
+    tr = _trained(data[0], rc_interpolation='bilinear')
+    assert tr.model.name == 'resnet_spc' and tr.net is not None

@@ -28,7 +28,7 @@ from pathlib import Path
 
 # kernel-name fragments -> group; the first match wins
 GROUPS = [('K1_channel_attention', ('ca_partial_sums', 'ca_gate', 'ca_apply')),
-          ('K2_convlstm', ('convlstm_step',)),
+          ('K2_convlstm', ('convlstm_tile',)),
           ('conv', ('conv', 'cudnn', 'xmma', 'implicit', 'winograd', 'sm90',
                     'gemm', 'nchw', 'nhwc')),
           ('cat', ('cat',)),

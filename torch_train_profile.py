@@ -37,7 +37,7 @@ GROUPS = [('K1_channel_attention', ('ca_partial_sums', 'ca_gate',
                                      'ca_apply')),
           ('K6_ssim', ('ssim_tiles', 'ssim_finish')),
           ('K4_convlstm_seq', ('seq_chain_step',)),
-          ('K2_convlstm', ('convlstm_step',)),
+          ('K2_convlstm', ('convlstm_tile',)),
           ('K3_convlstm_bptt', ('bptt_step', 'dx_frames', 'wgrad_partial',
                                 'wgrad_reduce')),
           ('adam', ('multi_tensor_apply', 'adam')),
