@@ -28,20 +28,25 @@ Phases, each of which exits non-zero on failure:
      count its launches, and compare grid 0 and the last 4 grids with the
      same model run on the CPU;
   6. hold K2's training variant (ys and the cs, zs residuals) and K3 (the
-     BPTT backward: dx, dWx, dbx, dWh) against their plain versions with
-     TF32 off at the six layer shapes of a recresnet_spc training step
-     (batch 128, T 4, 16x16 LR patches), at width 64 and on their other
-     paths (T = 1, odd F, F = 12, 1x3, 3x5 and 7x7 kernels, ragged tiles,
-     5x7 and 17x17 frames with Cin 1 and 2, x without a gradient), check
-     that two runs of K2-train and of K3 give the same bits, and
-     time both kernels against their plain versions and their bounds; then
-     hold K4 (the sequential BPTT chain, dzs) against its plain version run
-     in float64 and the split route (K4, then the float32 GEMM tail) against
-     the plain BPTT in float64, at the six layer shapes of the width-64
-     training step and on K4's other paths (T = 1, odd F, F = 12, F = 16,
-     F = 72, 1x3, 3x5 and 7x7), with K2's training variant that feeds
-     them, check that their bits repeat, and time K2-train, K4 and the tail
-     against their bounds and K2-train and K4 against their plain versions;
+     BPTT backward: dx, dWx, dbx, dWh; the chain steps and dx in the tile
+     of csrc/convlstm_seq.cu, the weight gradients in csrc/convlstm_bwd.cu)
+     against their plain versions with TF32 off at the six layer shapes of
+     a recresnet_spc training step (batch 128, T 4, 16x16 LR patches), at
+     width 64 and on their other paths (T = 1, odd F, F = 12, 1x3, 3x5, 7x7
+     and 9x9 kernels, ragged tiles, 5x7 and 17x17 frames with Cin 1 and 2,
+     x without a gradient, dx at 16 and 32 channels a block), check that
+     two runs of K2-train and of K3 give the same bits, and time both
+     kernels against their plain versions and their two bounds (float32,
+     3xTF32), K3 also by launch kind (chain, dx, weight gradients, reduce;
+     torch.profiler); then hold K4 (the same chain steps, writing dzs)
+     against its plain version run in float64 and the split route (K4, then
+     the float32 GEMM tail) against the plain BPTT in float64, at the six
+     layer shapes of the width-64 training step and on K4's other paths
+     (T = 1, odd F, F = 12, 16, 32 and 72, 1x3, 3x5 and 7x7), with K2's
+     training variant that feeds them, check that their bits repeat, time
+     K2-train, K4 and the tail against their bounds and K2-train and K4
+     against their plain versions, and check that the shapes ran every
+     compiled body and stage kind of the chain-step and dx tile;
   7. drive recurrent training: `SupervisedTrainer(time_window=4)` on the
      recresnet_spc x4 configuration of bench_suite.py (256 grids of
      128x128, 64x64 patches, batch 128, mae) for 2 epochs of 20 steps with
@@ -142,14 +147,16 @@ TRAIN_EPOCHS, TRAIN_STEPS, TRAIN_VAL_STEPS, TRAIN_TEST_STEPS = 2, 20, 2, 2
 K3_LAYERS = [layer for cin in [1] + [N_FILTERS] * REC_BLOCKS
              for layer in ((cin, N_FILTERS, 5), (N_FILTERS, N_FILTERS, 3))]
 # (B, T, H, W, Cin, F, kh, kw, x needs a gradient) of K2-train's and K3's
-# other paths: T = 1 (no chain, no dWh), 1x3 and odd F, 3x5 with ragged
-# tiles, 5x7 and 17x17 frames with Cin 1 and 2 (K2's ragged pixel tiles),
-# two channel groups (F = 12, 48 gate channels), 7x7 (two row-tile
-# chunks in the weight gradient, more than 48 KB of shared memory), x
-# without a gradient (no dx launch), and shapes that give two rows a thread.
-# With the training shapes (one row a thread) they run each of the six
-# compiled bodies (1 or 2 rows a thread x 3x3, 5x5 or any other size) of
-# K3's chain step and of K3's dx kernel.
+# other paths: T = 1 (no chain, no dWh), 1x3 and odd F (4-byte copies in
+# the chain, dx and weight-gradient tiles), 3x5 with ragged tiles, 5x7 and
+# 17x17 frames with Cin 1 and 2 (K2's ragged pixel tiles), two gate chunks
+# in the weight gradient (F = 12), 7x7 (4 channels a weight-gradient
+# chunk, more than 48 KB of shared memory), 9x9 (two tap chunks), x without
+# a gradient (no dx launch), frames wider than a tile, and dx at 16 (Cin 13,
+# 4-byte copies) and 32 channels a block. With the training shapes and
+# those of K4 below they run every compiled body of the chain-step and dx
+# tile (8, 16, 32 and 64 channels a block) and every stage kind of its
+# plan; phase 6 checks that (`PLAN_BODIES`).
 K3_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 1, 3, True),
                   (3, 3, 20, 37, 5, 5, 3, 5, True),
                   (4, 3, 5, 7, 1, 4, 3, 3, True),
@@ -160,7 +167,10 @@ K3_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 1, 3, True),
                   (2, 2, 12, 20, 4, 8, 5, 5, True),
                   (8, 2, 72, 100, 4, 4, 5, 5, True),
                   (16, 2, 64, 96, 5, 5, 3, 3, True),
-                  (8, 2, 72, 100, 3, 6, 7, 7, True)]
+                  (8, 2, 72, 100, 3, 6, 7, 7, True),
+                  (2, 2, 12, 12, 8, 8, 9, 9, True),
+                  (64, 2, 16, 16, 32, 8, 3, 3, True),
+                  (48, 3, 16, 16, 13, 8, 5, 5, True)]
 # K3 against its plain version run in float64 on the same inputs (cuDNN's
 # float32 weight gradient is itself off by 9e-3 of max |ref| at 5x5 and 64
 # channels, TF32 off, deterministic or not; float64 on the card agrees with
@@ -193,11 +203,12 @@ WIDE_LAYERS = [layer for cin in [1] + [WIDE_F] * REC_BLOCKS
                for layer in ((cin, WIDE_F, 5), (WIDE_F, WIDE_F, 3))]
 # (B, T, H, W, Cin, F, kh, kw, x needs a gradient) of K4's other paths: T = 1
 # (no recurrent sum, the gate epilogue only), 1x3 with odd F and no dx, 3x5
-# with odd F and ragged tiles, F = 12 (three channel groups), 7x7 with F = 4
-# (one group, half a warp), F = 16 at 3x3 (the split route's narrowest
-# layer), and F = 72 (two blocks of output channels; also on 17x17 frames
-# with Cin 1, K2's ragged pixel tiles feeding it). With the training
-# shapes they run each of K4's three compiled bodies (kh <= 3, 5, 7).
+# with odd F and ragged tiles, F = 12 (two slices of 8 channels), 7x7 with
+# F = 4 (half the block's channels past F), F = 16 at 3x3 at batch 16 (8
+# channels a block: too few blocks at 16) and 128 (16 a block), F = 32 (32
+# a block), F = 72 (slices of 8; at batch 40 two slices of 64 with one tap
+# row a stage; also on 17x17 frames with Cin 1, K2's ragged pixel tiles
+# feeding it).
 K4_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 3, 3, True),
                   (2, 2, 17, 17, 1, 72, 3, 3, True),
                   (2, 3, 9, 11, 3, 5, 1, 3, False),
@@ -205,7 +216,15 @@ K4_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 3, 3, True),
                   (2, 3, 40, 40, 6, 12, 3, 3, True),
                   (2, 2, 19, 23, 8, 4, 7, 7, True),
                   (16, 4, 16, 16, 16, 16, 3, 3, True),
-                  (2, 3, 12, 20, 4, 72, 5, 5, True)]
+                  (2, 3, 12, 20, 4, 72, 5, 5, True),
+                  (128, 2, 16, 16, 16, 16, 3, 3, True),
+                  (128, 2, 16, 16, 8, 32, 5, 5, True),
+                  (40, 2, 16, 16, 4, 72, 7, 7, True)]
+# the chain-step and dx tile's compiled bodies (kernel, channels a block)
+# and its plan's stage kinds (cw, all or one tap row), every one of which
+# phase 6 must run
+PLAN_BODIES = {(kind, ns) for kind in ('chain', 'dx') for ns in (8, 16, 32, 64)}
+PLAN_STAGES = {(8, 'all'), (4, 'all'), (8, 'one')}
 # K4's dzs against its plain version run in float64, to K2_TOL times
 # max(1, max |dzs|); the split route's gradients against the plain BPTT in
 # float64 to K3's tolerances (float32 GEMMs over up to 131,072 pixels)
@@ -615,6 +634,53 @@ def phase_recurrent_predict(torch, tds, report):
                   rec_forward_ms=fwd_ms, rec_cpu_err=err)
 
 
+def kernel_split_ms(torch, fn, groups, reps=10):
+    """Device ms a call of fn() spends in each group of kernels ({group:
+    name fragments}; kernels of no group fall under 'other'), from
+    torch.profiler's device events over `reps` calls after 3 warm-up ones.
+    Fails when the profiler records no device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False)]
+    if not kernels:
+        fail('the profiler recorded no device kernel')
+    out = dict.fromkeys(list(groups) + ['other'], 0.0)
+    for e in kernels:
+        group = next((g for g, keys in groups.items()
+                      if any(k in e.name for k in keys)), 'other')
+        out[group] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+# K3's kernels by launch kind (csrc/convlstm_seq.cu, csrc/convlstm_bwd.cu)
+K3_KERNELS = {'chain': ('chain_step',), 'dx': ('dx_frames',),
+              'wgrad': ('wgrad_tile',), 'reduce': ('wgrad_reduce',)}
+
+
+def _note_plans(conv, reached, b, t, h, w, cin, f, kh, kw, need_dx, n_sm):
+    """Add the chain-step and dx tile's bodies (kernel, channels a block)
+    and stage kinds that this layer's backward runs to `reached`; returns
+    them as text."""
+    plans = [('chain', conv._seq_plan(b, h, w, kh, kw, f, n_sm))]
+    if need_dx:
+        plans.append(('dx', conv._seq_plan(b * t, h, w, kh, kw, cin, n_sm)))
+    for kind, p in plans:
+        reached.add((kind, p['ns']))
+        reached.add((p['cw'], 'all' if p['rps'] == kh else 'one'))
+    return ', '.join(f'{kind} {p["ns"]} channels x {p["th"]}x{p["tw"]} '
+                     f'pixels, stage {p["cw"]} x {p["rps"]}'
+                     for kind, p in plans)
+
+
 def k3_work(x, wx, wh, need_dx):
     """(flops, bytes) of the layer's BPTT: dx (when x needs it) and dWx
     over all T steps, the dh chain and dWh over T-1 (h_{-1} = 0, and no
@@ -717,6 +783,7 @@ def phase_convlstm_grad(torch, tds, report):
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(2)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    reached = report.setdefault('plan_reached', set())
     cases = [((cin, f, k, k), TRAIN_BATCH, TRAIN_LR, cin != 1)
              for cin, f, k in dict.fromkeys(K3_LAYERS)]
     cases += [((cin, f, k, k), BATCH, K2_WIDE_LR, True)
@@ -747,6 +814,13 @@ def phase_convlstm_grad(torch, tds, report):
         k3_flops, k3_bytes = k3_work(x, wx, wh, need_dx)
         k3_bound = max(k3_flops / F32_FLOPS,
                        k3_bytes / HBM_BYTES_PER_S) * 1e3
+        k3_bound_3x = max(k3_flops / TF32X3_FLOPS,
+                          k3_bytes / HBM_BYTES_PER_S) * 1e3
+        with torch.no_grad():
+            k3_split = kernel_split_ms(torch, lambda: conv._launch_backward(
+                x, wx, wh, zs, cs, ys, dys, need_dx), K3_KERNELS)
+        plans = _note_plans(conv, reached, b, REC_T, size, size, cin, f, kh,
+                            kw, need_dx, n_sm)
         rows.append(dict(
             x=list(x.shape), f=f, k=kh, dx=need_dx, ys_cs_zs_err=fwd_err[:3],
             max_abs_zs=fwd_err[3],
@@ -754,6 +828,7 @@ def phase_convlstm_grad(torch, tds, report):
             k2_bound_ms=k2_bound, k2_bound_3xtf32_ms=k2_bound_3x,
             k2_gflop=flops / 1e9, k3_ms=k3_ms,
             k3_plain_ms=k3_plain_ms, k3_bound_ms=k3_bound,
+            k3_bound_3xtf32_ms=k3_bound_3x, k3_split_ms=k3_split,
             k3_gflop=k3_flops / 1e9))
         print(f'K2-train {label}  ys, cs, zs max|d| '
               + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
@@ -764,9 +839,11 @@ def phase_convlstm_grad(torch, tds, report):
         print(f'K3 {label}{"" if need_dx else " (no dx)"}  max|d|/max|ref| '
               + ' '.join(f'{k} {v:.2e}' for k, v in errs.items())
               + f'  same bits twice  kernel {k3_ms:.4f} ms  plain '
-              f'{k3_plain_ms:.4f} ms  bound {k3_bound:.4f} ms '
-              f'({k3_flops / 1e9:.3f} GFLOP)  library_ms null (no single '
-              f'PyTorch call computes a ConvLSTM layer or its BPTT)',
+              f'{k3_plain_ms:.4f} ms  bound {k3_bound:.4f} ms, 3xTF32 '
+              f'{k3_bound_3x:.4f} ms ({k3_flops / 1e9:.3f} GFLOP)  by launch '
+              + ' '.join(f'{k} {v:.4f}' for k, v in k3_split.items())
+              + f' ms (profiler)  plans: {plans}  library_ms null (no '
+              f'single PyTorch call computes a ConvLSTM layer or its BPTT)',
               flush=True)
 
     for i, (b, t, h, w, cin, f, kh, kw, need_dx) in enumerate(
@@ -777,11 +854,10 @@ def phase_convlstm_grad(torch, tds, report):
         label = f'x{list(x.shape)} F={f} k={kh}x{kw}'
         fwd_err, errs, _ = _check_k3_case(torch, conv, x, wx, bx, wh, dys,
                                           need_dx, label)
-        rows_step = conv._rows_per_thread(b, h, w, f, n_sm)
-        rows_dx = conv._rows_per_thread(b * t, h, w, cin, n_sm)
-        print(f'K2-train/K3 {label} (K3: {rows_step} rows a thread, dx '
-              f'{rows_dx if need_dx else "none"})  ys, cs, '
-              f'zs max|d| ' + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
+        plans = _note_plans(conv, reached, b, t, h, w, cin, f, kh, kw,
+                            need_dx, n_sm)
+        print(f'K2-train/K3 {label} ({plans}{"" if need_dx else "; no dx"})'
+              f'  ys, cs, zs max|d| ' + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
               + f' (max|zs| {fwd_err[3]:.2f})'
               + f'  max|d|/max|ref| '
               + ' '.join(f'{k} {v:.2e}' for k, v in errs.items()), flush=True)
@@ -858,8 +934,10 @@ def phase_convlstm_split(torch, tds, report):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(5)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    reached = report.setdefault('plan_reached', set())
     rows = []
     for i, (cin, f, k) in enumerate(dict.fromkeys(WIDE_LAYERS)):
         wx, bx, wh = _layer_weights(torch, cin, f, k, k, 400 + i, dev)
@@ -889,6 +967,10 @@ def phase_convlstm_split(torch, tds, report):
                           k2_bytes / HBM_BYTES_PER_S) * 1e3
         flops, n_bytes = k4_work(zs, wh)
         k4_bound = max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
+        k4_bound_3x = max(flops / TF32X3_FLOPS,
+                          n_bytes / HBM_BYTES_PER_S) * 1e3
+        plans = _note_plans(conv, reached, TRAIN_BATCH, REC_T, TRAIN_LR,
+                            TRAIN_LR, cin, f, k, k, False, n_sm)
         t_flops, t_bytes = tail_work(x, wx, wh, need_dx)
         tail_bound = max(t_flops / F32_FLOPS, t_bytes / HBM_BYTES_PER_S) * 1e3
         rows.append(dict(x=list(x.shape), f=f, k=k, dx=need_dx,
@@ -899,6 +981,7 @@ def phase_convlstm_split(torch, tds, report):
                          k2_bound_3xtf32_ms=k2_bound_3x,
                          k2_gflop=k2_flops / 1e9, k4_ms=k4_ms,
                          k4_plain_ms=k4_plain_ms, k4_bound_ms=k4_bound,
+                         k4_bound_3xtf32_ms=k4_bound_3x,
                          k4_gflop=flops / 1e9, tail_ms=tail_ms,
                          tail_bound_ms=tail_bound, tail_gflop=t_flops / 1e9))
         print(f'K2-train {label}  ys, cs, zs max|d| '
@@ -912,8 +995,9 @@ def phase_convlstm_split(torch, tds, report):
               f'{"" if need_dx else " (no dx)"} max|d|/max|ref| '
               + ' '.join(f'{n} {v:.2e}' for n, v in errs.items())
               + f'  same bits twice  K4 {k4_ms:.4f} ms  plain '
-              f'{k4_plain_ms:.4f} ms  bound {k4_bound:.4f} ms '
-              f'({flops / 1e9:.2f} GFLOP)  tail (float32 GEMMs) '
+              f'{k4_plain_ms:.4f} ms  bound {k4_bound:.4f} ms, 3xTF32 '
+              f'{k4_bound_3x:.4f} ms ({flops / 1e9:.2f} GFLOP; {plans})  '
+              f'tail (float32 GEMMs) '
               f'{tail_ms:.4f} ms  bound {tail_bound:.4f} ms '
               f'({t_flops / 1e9:.2f} GFLOP)  library_ms null (no single '
               f'PyTorch call computes the chain)', flush=True)
@@ -930,12 +1014,21 @@ def phase_convlstm_split(torch, tds, report):
         rows.append(dict(x=list(x.shape), f=f, k=[kh, kw], dx=need_dx,
                          dzs_rel_err=dzs_err, plain_f32_dzs_err=plain_err,
                          grad_rel_err=errs))
-        print(f'K4/split {label}{"" if need_dx else " (no dx)"}  dzs '
+        plans = _note_plans(conv, reached, b, t, h, w, cin, f, kh, kw, False,
+                            n_sm)
+        print(f'K4/split {label}{"" if need_dx else " (no dx)"} ({plans})  dzs '
               f'max|d|/max(1, max|ref|) {dzs_err:.2e} (plain f32 '
               f'{plain_err:.2e})  max|d|/max|ref| '
               + ' '.join(f'{n} {v:.2e}' for n, v in errs.items()), flush=True)
     by_shape = {(r['x'][-1], r['f'], r['k']): r for r in rows
                 if 'k4_ms' in r}
+    missing = (PLAN_BODIES | PLAN_STAGES) - reached
+    print(f'chain-step and dx tile: ran bodies and stage kinds '
+          f'{sorted(map(str, reached))}', flush=True)
+    if missing:
+        fail(f'phase 6 ran no shape of the chain-step and dx tile\'s '
+             f'{sorted(map(str, missing))}')
+    report['plan_reached'] = sorted(map(str, reached))
     report['k4_rows'] = rows
     report['k4_step'] = [by_shape[shape] for shape in WIDE_LAYERS]
 
@@ -1387,6 +1480,8 @@ def main():
     fwd = report['k2_forward']
     k2 = {'name': 'K2_convlstm', 'route': 'cuda',
           'source': 'dl4ds_tpu_torch/csrc/convlstm.cu',
+          'sources': ['dl4ds_tpu_torch/csrc/convlstm.cu',
+                      'dl4ds_tpu_torch/csrc/tf32_mma.cuh'],
           'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:219',
           'launches': report['k2_launches'],
           'max_abs_err': max(r['max_abs_err'] for r in report['k2_rows']),
@@ -1406,6 +1501,8 @@ def main():
                  f'{REC_T}, {TRAIN_LR}x{TRAIN_LR}, summed')
     k2_train = {'name': 'K2_convlstm_train', 'route': 'cuda',
                 'source': 'dl4ds_tpu_torch/csrc/convlstm.cu',
+                'sources': ['dl4ds_tpu_torch/csrc/convlstm.cu',
+                            'dl4ds_tpu_torch/csrc/tf32_mma.cuh'],
                 'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:219',
                 'launches': report['k2_train_launches'],
                 'max_abs_err': max(max(r['ys_cs_zs_err'][:2])
@@ -1430,6 +1527,9 @@ def main():
                         f' ms)'}
     k3 = {'name': 'K3_convlstm_bptt', 'route': 'cuda',
           'source': 'dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+          'sources': ['dl4ds_tpu_torch/csrc/convlstm_seq.cu',
+                      'dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+                      'dl4ds_tpu_torch/csrc/tf32_mma.cuh'],
           'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:335',
           'launches': report['k3_launches'],
           'max_abs_err': max(max(v for k, v in r['grad_rel_err'].items()
@@ -1437,23 +1537,35 @@ def main():
           'ms': sum(r['k3_ms'] for r in step),
           'plain_ms': sum(r['k3_plain_ms'] for r in step),
           'bound_ms': sum(r['k3_bound_ms'] for r in step),
+          'bound_3xtf32_ms': sum(r['k3_bound_3xtf32_ms'] for r in step),
           'bound_by': 'operations', 'library_ms': None,
-          'work': step_work + '; max_abs_err is max|d| / max|ref| of dx, '
-                  'dWx, dbx and dWh against the plain version in float64'}
+          'split_ms': {k: sum(r['k3_split_ms'][k] for r in step)
+                       for k in list(K3_KERNELS) + ['other']},
+          'work': step_work + '; the chain steps and dx run the tile of '
+                  'convlstm_seq.cu, the weight gradients and their '
+                  'reduction convlstm_bwd.cu; split_ms is the time by launch '
+                  'kind (torch.profiler); products in 3xTF32 '
+                  f'(bound_3xtf32_ms at {TF32X3_FLOPS / 1e12:.0f} TFLOP/s); '
+                  'max_abs_err is max|d| / max|ref| of dx, dWx, dbx and dWh '
+                  'against the plain version in float64'}
     wide = report['k4_step']
     k4 = {'name': 'K4_convlstm_seq', 'route': 'cuda',
           'source': 'dl4ds_tpu_torch/csrc/convlstm_seq.cu',
+          'sources': ['dl4ds_tpu_torch/csrc/convlstm_seq.cu',
+                      'dl4ds_tpu_torch/csrc/tf32_mma.cuh'],
           'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:269',
           'launches': report['k4_launches'],
           'max_abs_err': max(r['dzs_rel_err'] for r in report['k4_rows']),
           'ms': sum(r['k4_ms'] for r in wide),
           'plain_ms': sum(r['k4_plain_ms'] for r in wide),
           'bound_ms': sum(r['k4_bound_ms'] for r in wide),
+          'bound_3xtf32_ms': sum(r['k4_bound_3xtf32_ms'] for r in wide),
           'bound_by': 'operations', 'library_ms': None,
           'work': f'the sequential BPTT chain of the {len(wide)} ConvLSTM '
                   f'layers of one float32 recresnet_spc training step at '
                   f'width {WIDE_F}, batch {TRAIN_BATCH}, T {REC_T}, '
-                  f'{TRAIN_LR}x{TRAIN_LR}, summed; max_abs_err is max|d| / '
+                  f'{TRAIN_LR}x{TRAIN_LR}, summed; products in 3xTF32; '
+                  f'max_abs_err is max|d| / '
                   f'max(1, max|ref|) of dzs against the plain chain in '
                   f'float64; the split route\'s float32 GEMM tail (cuBLAS, '
                   f'not a kernel of the port) took '

@@ -1,401 +1,289 @@
-// ConvLSTM BPTT backward (K3) for NVIDIA Hopper (sm_90a).
+// ConvLSTM BPTT weight gradients (K3's T-parallel half) for NVIDIA Hopper
+// (sm_90a). K3, the 'fused' backward route, is T chain-step launches and a
+// dx launch of the tile in csrc/convlstm_seq.cu, then the two passes and the
+// reduction here.
 //
-// From the residuals of the forward's training variant (csrc/convlstm.cu:
-// zs, the pre-activations z = (z_i, z_f, z_c, z_o) of every step with the
-// bias and the recurrent term; cs; ys) and dys, the gradient of ys, with hs
-// the Keras hard sigmoid and hs' its derivative (0.2 where hs lies strictly
-// between 0 and 1, else 0; `_d_hard_sigmoid`):
-//   dh_t  = dys_t + convT(dz_{t+1}, wh)       (no recurrent term at t = T-1)
-//   do    = dh_t tanh(c_t)
-//   dc_t  = dh_t hs(z_o) (1 - tanh(c_t)^2) + dc_{t+1} hs(z_f,t+1)
-//   dz_i  = dc_t tanh(z_c) hs'(z_i)          dz_f = dc_t c_{t-1} hs'(z_f)
-//   dz_c  = dc_t hs(z_i) (1 - tanh(z_c)^2)   dz_o = do hs'(z_o)   (c_{-1} = 0)
-//   dx    = convT(dz, wx) over all B*T frames
+// From dz, the gradient of every step's pre-activations (the chain's dzs
+// [B, T, H, W, 4F], gates i, f, c, o along 4F), and the layer's inputs:
 //   dwx[dy, dx, c, g] = sum_p x_pad[p + (dy - ph, dx - pw), c] dz[p, g]
 //   dwh   = the same with h_{t-1} (ys one step back; t = 0 adds nothing)
 //   dbx   = sum_p dz[p, :]
-// convT(dz, w) is the adjoint of the forward's SAME conv: the SAME conv of
-// dz with w flipped in both spatial axes and its channel axes swapped.
-// Layouts as in csrc/convlstm.cu: [B, T, H, W, C] activations, HWIO kernels
-// with the gates i, f, c, o along 4F. All arithmetic is float32 FMA, no TF32;
-// the gate algebra rounds product by product (__fmul_rn, __fadd_rn) as
-// PyTorch's elementwise ops do. No atomics: two runs give the same bits.
+// over all B*T frames (B*(T-1) for dwh), HWIO kernels. Layouts as in
+// csrc/convlstm.cu. No atomics: two runs give the same bits.
 //
 // Replaces: dl4ds_tpu/ops/pallas_convlstm.py `_backward_pallas` ->
-// `_bwd_kernel` (one grid step per batch tile: the reverse dh/dc loop with
-// the recurrent band matmuls, then dx and the band-matrix gradients as
-// T-batched matmuls; the per-tile gradient partials are summed after the
-// call). The band matrices are the TPU's layout and are not reproduced.
+// `_bwd_kernel` (:335): its band-matrix weight gradients as T-batched
+// matmuls and the per-tile gradient partials summed after the call (:647).
+// The band matrices are the TPU's layout and are not reproduced.
 //
-// Bound: operations. dx and dWx need 2*B*T*H*W*kh*kw*Cin*4F flops each, the
-// dh chain and dWh 2*B*(T-1)*H*W*kh*kw*F*4F each (h_{-1} = 0), against
-// about 4*B*T*H*W*(2 Cin + 7F) bytes. For the recresnet_spc x4 training step
-// (BASELINE config 4: batch 128, T = 4, 16x16 LR patches, F = 8) the six
-// layers need 20.8 GFLOP and move about 0.2 GB: 0.31 ms at 67 TFLOP/s of
-// float32 outside the tensor cores against 0.06 ms at 3.35 TB/s.
+// Bound: operations. Each pass is a GEMM of M = kh*kw*C rows (tap,
+// channel), N = 4F gate columns and K = the pixels: 2*B*T*H*W*kh*kw*Cin*4F
+// flops for dWx, 2*B*(T-1)*H*W*kh*kw*F*4F for dWh. For the recresnet_spc x4
+// training step (batch 128, T 4, 16x16, F 8) the six layers' passes need
+// 10.5 GFLOP: 0.16 ms at 67 TFLOP/s of float32 FMA, 0.06 ms at the 165
+// TFLOP/s of 3xTF32.
 //
-// Design, in three kinds of launch:
-//   (a) dl4ds_convlstm_bptt_step, launched T times in reverse: the mirror of
-//       K2's step kernel. A block takes one spatial tile (8*PY rows x 32
-//       columns) of one sample and a group of 8 channels of h; it stages
-//       dz_{t+1} with its halo, 8 of its 4F channels at a time, and the
-//       flipped wh for its 8 outputs in shared memory, and each thread sums
-//       convT for PY pixels x 8 channels. Then, per pixel and channel, the
-//       gate derivatives on the saved zs, cs[t] and cs[t-1] write the four
-//       gates of dz_t, and dc * hs(z_f) is carried to step t-1 in a
-//       [B, H, W, F] scratch that only the owning thread touches, as K2
-//       carries c.
-//   (b) dl4ds_convlstm_dx: the same tiled convT over all B*T frames in one
-//       launch, for groups of 8 input channels; skipped when x needs no
-//       gradient (the model's first layer).
-//   (c) dl4ds_convlstm_wgrad: a weight gradient is a reduction over the
-//       pixels. A block walks `tpb` consecutive pixel tiles (up to 256
-//       pixels of one frame each) in a fixed order; per tile it stages the
-//       source (x, or h_{t-1} from ys) with its halo as [pixel][8 channels]
-//       and dz as [pixel][32 gate channels], and each thread accumulates a
-//       4 x 8 block of dW (4 source channels of one tap x 8 gate channels):
-//       per pixel one float4 of the source, two of dz (broadcast across the
-//       warp), 32 FMAs. The Wx pass also sums dz for dbx. Each block writes
-//       its float32 partials; dl4ds_convlstm_wgrad_reduce then sums them row
-//       by row in a fixed order. The weight gradients stay float32 end to
-//       end.
-// A later PR would keep dz_t on chip between chain steps (a cluster or a
-// persistent grid), run the source staging of (c) asynchronously, and take
-// the products to 3xTF32 mma tiles, which keep float32 accuracy.
+// Design, a split-K GEMM on the tensor cores (dl4ds_convlstm_wgrad):
+//   - A block takes `tpb` consecutive pixel tiles (a 16x16 frame is one 256-
+//     pixel tile) in a fixed order and, by grid.y, one chunk of cwc source
+//     channels (8, fewer when C < 8, 4 when kh*kw*8 rows would pass 255)
+//     with up to tpc taps, and 32 gate columns: a block row (tap, channel)
+//     of at most 255 rows, and with the Wx pass's first chunk one more row
+//     of ones, whose product with dz is db.
+//   - Per tile it stages the source with its halo as [pixel][4 or 8
+//     channels] and dz as [pixel][32 columns] (row stride 40: conflict-free
+//     B fragments), both double-buffered with cp.async, the next tile
+//     loading while this one computes.
+//   - A warp owns 2 m16 row tiles x the 4 n8 column tiles; the A fragment
+//     of row (tap, c) and pixel k is the staged source at pixel k's offset
+//     plus the tap's, read through a per-pixel offset table. Where the rows
+//     leave warps over (3x3 or a single source channel), the warps split
+//     the tile's 8-pixel k-steps round robin and their sums are added in
+//     shared memory in a fixed order at the end.
+//   - 3xTF32 mma.sync m16n8k8 from csrc/tf32_mma.cuh, the partial
+//     accumulators added in float32 every 4 k-steps (32 pixels).
+//   - Each block writes its float32 partial row; dl4ds_convlstm_wgrad_reduce
+//     then sums the rows of both passes in a fixed order.
+// The plan (ops/convlstm.py `_wgrad_plan`) picks tpb so that the blocks of
+// a pass make about one wave of two blocks an SM.
+//
+// Measured (tools/torch_chain_probe.py and chip_smoke.py phase 6's split of
+// K3 by launch kind; NVIDIA H100 80GB HBM3, 700.00 W): at batch 128, T 4,
+// 16x16 and F = 8 the Wx and Wh passes take 65 and 63 us at 5x5 (26
+// TFLOP/s), 42 and 41 us at 3x3; the six width-8 layers' passes 0.54 ms and
+// their reductions 0.06 ms, where the float32 FMA pass this replaced took
+// 0.93 ms (torch_train_profile.py). K3 as a whole, chain and dx included,
+// takes 1.64-1.66 ms for the six layers against 2.72-2.73 ms before,
+// bounds 0.311 ms (float32) and 0.126 ms (3xTF32).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kTX = 32;                // columns of a tile, one per lane
-constexpr int kTY = 8;                 // warps of a block, one row each
-constexpr int kThreads = kTX * kTY;
-constexpr int kCC = 8;                 // source channels staged per pass
-constexpr int kFG = 8;                 // output channels of a block
-constexpr int kWC = 8;                 // weight gradient: source channels of a block
-constexpr int kWG = 32;                // weight gradient: gate channels of a block
-constexpr int kWRT = 64;               // weight gradient: row tiles of a block
+constexpr int kThreads = 256;          // 8 warps
+constexpr int kWN = 32;                // gate columns of a block
+constexpr int kGS = 40;                // staged dz row stride (32 + 8)
+constexpr int kMaxRows = 256;          // block rows, the db row included
+constexpr int kMaxPix = 256;           // pixels of a tile
+constexpr int kFlush = 4;              // k-steps a partial accumulator takes
 constexpr int kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float hard_sigmoid(float z) {
-  return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, z), 0.5f), 0.f), 1.f);
-}
+struct WArgs {
+  const float* src;   // x [B, T, H, W, C] or ys (h_{t-1}: t_skip 1)
+  const float* dzs;   // [B, T, H, W, 4F]
+  float* part;        // [grid.x, part_len]
+  int64_t part_len;
+  int with_db, t_steps, t_skip, h, wd, cs, f4, kh, kw, tph, tpw, tiles_x,
+      tiles_frame, n_tiles, tpb, cwc, tpc, n_cchunks, n_rchunks, scs, groups,
+      kgroups, ppad;
+};
 
-__device__ __forceinline__ float d_hard_sigmoid(float z) {
-  const float g = hard_sigmoid(z);
-  return g > 0.f && g < 1.f ? 0.2f : 0.f;
-}
-
-constexpr int convt_smem_floats(int py, int kh, int kw) {
-  return kCC * (kTY * py + kh - 1) * (kTX + kw - 1) + kh * kw * kCC * kFG;
-}
-
-// acc[p][j] += convT(src, w) at the thread's PY pixels (rows y0 + ty + 8p,
-// column x0 + tx) for the output channels o0 + j, j < no:
-//   sum over taps (dy, dx) and source channels s of
-//   src[y + dy - ph, x + dx - pw, s] * w[kh-1-dy, kw-1-dx, o0 + j, s].
-// src is one frame [H, W, cs] with cs = 4F (a multiple of 4) and w the
-// forward's HWIO kernel [kh, kw, co, cs]. For each chunk of 8 source
-// channels the block stages the tile with its halo as [channel][row]
-// [column] and the flipped weights as [tap][channel][8 outputs]. Every
-// thread of the block calls it.
-template <int PY, int K>
-__device__ __forceinline__ void convt_accumulate(
-    const float* __restrict__ src, const float* __restrict__ w, int h, int wd,
-    int cs, int co, int o0, int no, int kh_, int kw_, int y0, int x0, float* in_s,
-    float* w_s, float (&acc)[PY][kFG]) {
-  constexpr int TH = kTY * PY;
-  const int kh = K ? K : kh_;
-  const int kw = K ? K : kw_;
-  const int rows = TH + kh - 1;
-  const int rw = kTX + kw - 1;
-  const int plane = rows * rw;
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
-  const int ph = kh / 2, pw = kw / 2;
-  for (int c0 = 0; c0 < cs; c0 += kCC) {
-    const int cc = min(kCC, cs - c0);   // 4 or 8
-    __syncthreads();  // the previous chunk is no longer read
-    for (int r = ty; r < rows; r += kTY) {
-      const int yy = y0 - ph + r;
-      for (int q = tx; q < rw; q += kTX) {
-        const int xx = x0 - pw + q;
-        float* dst = in_s + r * rw + q;
-        if (yy >= 0 && yy < h && xx >= 0 && xx < wd) {
-          const float* sp = src + ((int64_t)yy * wd + xx) * cs + c0;
-          for (int ci = 0; ci < cc; ci += 4) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(sp + ci));
-            dst[ci * plane] = v.x;
-            dst[(ci + 1) * plane] = v.y;
-            dst[(ci + 2) * plane] = v.z;
-            dst[(ci + 3) * plane] = v.w;
-          }
-        } else {
-          for (int ci = 0; ci < cc; ++ci) dst[ci * plane] = 0.f;
-        }
-      }
-    }
-    // the flipped weights of this chunk, zero for the outputs past no
-    for (int i = threadIdx.x; i < kh * kw * cc * kFG; i += kThreads) {
-      const int j = i % kFG;
-      const int row = i / kFG;
-      const int tap = row / cc;
-      const int ci = row - tap * cc;
-      const int dy = tap / kw;
-      const int ftap = (kh - 1 - dy) * kw + (kw - 1 - (tap - dy * kw));
-      w_s[(tap * kCC + ci) * kFG + j] =
-          j < no ? __ldg(w + ((int64_t)ftap * co + o0 + j) * cs + c0 + ci) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int dy = 0; dy < kh; ++dy) {
-#pragma unroll 1
-      for (int dx = 0; dx < kw; ++dx) {
-        const float* ip = in_s + (ty + dy) * rw + tx + dx;
-        const float* wp = w_s + (dy * kw + dx) * kCC * kFG;
-#pragma unroll
-        for (int ci = 0; ci < kCC; ++ci) {
-          if (ci >= cc) break;
-          float v[PY];
-#pragma unroll
-          for (int p = 0; p < PY; ++p) v[p] = ip[ci * plane + kTY * p * rw];
-          const float4 q0 = *reinterpret_cast<const float4*>(wp + ci * kFG);
-          const float4 q1 = *reinterpret_cast<const float4*>(wp + ci * kFG + 4);
-#pragma unroll
-          for (int p = 0; p < PY; ++p) {
-            acc[p][0] = fmaf(v[p], q0.x, acc[p][0]);
-            acc[p][1] = fmaf(v[p], q0.y, acc[p][1]);
-            acc[p][2] = fmaf(v[p], q0.z, acc[p][2]);
-            acc[p][3] = fmaf(v[p], q0.w, acc[p][3]);
-            acc[p][4] = fmaf(v[p], q1.x, acc[p][4]);
-            acc[p][5] = fmaf(v[p], q1.y, acc[p][5]);
-            acc[p][6] = fmaf(v[p], q1.z, acc[p][6]);
-            acc[p][7] = fmaf(v[p], q1.w, acc[p][7]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// (a) Step `step` of the reverse chain. Grid: (spatial tiles, ceil(F / 8)
-// channel groups, B).
-template <int PY, int K>
-__global__ void __launch_bounds__(kThreads, 2)
-bptt_step(const float* __restrict__ zs, const float* __restrict__ cs,
-          const float* __restrict__ dys, const float* __restrict__ wh,
-          float* __restrict__ dzs, float* __restrict__ dcs, int t_steps, int step,
-          int h, int wd, int f, int kh, int kw, int tiles_x) {
+// A block: grid.x = pixel chunks (tpb tiles each), grid.y = source-channel
+// chunks x tap chunks x gate chunks. It writes part[blockIdx.x][(tap * cs
+// + c) * f4 + g] for its rows and 32 gate columns; with_db, the blocks of
+// the first channel and tap chunk also write sum_p dz[p, g] at
+// part[blockIdx.x][kh*kw*cs*f4 + g].
+__global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs a) {
   extern __shared__ float4 smem4[];
-  float* in_s = reinterpret_cast<float*>(smem4);
-  float* w_s = in_s + kCC * (kTY * PY + (K ? K : kh) - 1) * (kTX + (K ? K : kw) - 1);
-  const int y0 = (blockIdx.x / tiles_x) * kTY * PY;
-  const int x0 = (blockIdx.x % tiles_x) * kTX;
-  const int f0 = blockIdx.y * kFG;
-  const int nf = min(kFG, f - f0);    // channels of this group that exist
-  const int b = blockIdx.z;
-  const int f4 = 4 * f;
-  const int64_t hw = (int64_t)h * wd;
-  const int64_t frame = (int64_t)b * t_steps + step;
+  const int SW = a.tpw + a.kw - 1;
+  const int src_len = (a.tph + a.kh - 1) * SW * a.scs;
+  const int P = a.tph * a.tpw, PP = a.ppad;
+  float* src_s = reinterpret_cast<float*>(smem4);            // [2][src_len]
+  float* dz_s = src_s + 2 * src_len;                          // [2][PP][kGS]
+  int* pof_s = reinterpret_cast<int*>(dz_s + 2 * PP * kGS);   // [PP]
 
-  float acc[PY][kFG];
-#pragma unroll
-  for (int p = 0; p < PY; ++p)
-#pragma unroll
-    for (int j = 0; j < kFG; ++j) acc[p][j] = 0.f;
-  if (step + 1 < t_steps)   // dh_next = convT(dz_{t+1}, wh)
-    convt_accumulate<PY, K>(dzs + (frame + 1) * hw * f4, wh, h, wd, f4, f, f0, nf, kh,
-                            kw, y0, x0, in_s, w_s, acc);
-
-  const int xq = x0 + threadIdx.x % kTX;
-#pragma unroll
-  for (int p = 0; p < PY; ++p) {
-    const int y = y0 + threadIdx.x / kTX + kTY * p;
-    if (y >= h || xq >= wd) continue;
-    const int64_t pix = (int64_t)y * wd + xq;
-    const int64_t e = frame * hw + pix;
-    const float* zp = zs + e * f4 + f0;
-    const float* cp = cs + e * f + f0;
-    const float* dyp = dys + e * f + f0;
-    float* dzp = dzs + e * f4 + f0;
-    float* dcp = dcs + ((int64_t)b * hw + pix) * f + f0;
-#pragma unroll
-    for (int j = 0; j < kFG; ++j) {
-      if (j >= nf) break;
-      const float zi = zp[j], zf = zp[f + j], zc = zp[2 * f + j], zo = zp[3 * f + j];
-      const float gi = hard_sigmoid(zi), gf = hard_sigmoid(zf);
-      const float gg = tanhf(zc), go = hard_sigmoid(zo);
-      const float tc = tanhf(cp[j]);
-      const float c_prev = step > 0 ? cp[j - hw * f] : 0.f;
-      const float dc_next = step + 1 < t_steps ? dcp[j] : 0.f;
-      const float dh = __fadd_rn(dyp[j], acc[p][j]);
-      const float d_o = __fmul_rn(dh, tc);
-      const float dc = __fadd_rn(
-          __fmul_rn(__fmul_rn(dh, go), __fsub_rn(1.f, __fmul_rn(tc, tc))), dc_next);
-      dzp[j] = __fmul_rn(__fmul_rn(dc, gg), d_hard_sigmoid(zi));
-      dzp[f + j] = __fmul_rn(__fmul_rn(dc, c_prev), d_hard_sigmoid(zf));
-      dzp[2 * f + j] = __fmul_rn(__fmul_rn(dc, gi), __fsub_rn(1.f, __fmul_rn(gg, gg)));
-      dzp[3 * f + j] = __fmul_rn(d_o, d_hard_sigmoid(zo));
-      dcp[j] = __fmul_rn(dc, gf);
-    }
-  }
-}
-
-// (b) dx = convT(dz, wx) for one frame per blockIdx.z (B*T of them) and a
-// group of 8 input channels per blockIdx.y.
-template <int PY, int K>
-__global__ void __launch_bounds__(kThreads, 2)
-dx_frames(const float* __restrict__ dzs, const float* __restrict__ wx,
-          float* __restrict__ dx, int h, int wd, int cin, int f, int kh, int kw,
-          int tiles_x) {
-  extern __shared__ float4 smem4[];
-  float* in_s = reinterpret_cast<float*>(smem4);
-  float* w_s = in_s + kCC * (kTY * PY + (K ? K : kh) - 1) * (kTX + (K ? K : kw) - 1);
-  const int y0 = (blockIdx.x / tiles_x) * kTY * PY;
-  const int x0 = (blockIdx.x % tiles_x) * kTX;
-  const int o0 = blockIdx.y * kFG;
-  const int no = min(kFG, cin - o0);
-  const int f4 = 4 * f;
-  const int64_t hw = (int64_t)h * wd;
-  const int64_t frame = blockIdx.z;
-
-  float acc[PY][kFG];
-#pragma unroll
-  for (int p = 0; p < PY; ++p)
-#pragma unroll
-    for (int j = 0; j < kFG; ++j) acc[p][j] = 0.f;
-  convt_accumulate<PY, K>(dzs + frame * hw * f4, wx, h, wd, f4, cin, o0, no, kh, kw,
-                          y0, x0, in_s, w_s, acc);
-
-  const int xq = x0 + threadIdx.x % kTX;
-#pragma unroll
-  for (int p = 0; p < PY; ++p) {
-    const int y = y0 + threadIdx.x / kTX + kTY * p;
-    if (y >= h || xq >= wd) continue;
-    float* dp = dx + (frame * hw + (int64_t)y * wd + xq) * cin + o0;
-#pragma unroll
-    for (int j = 0; j < kFG; ++j)
-      if (j < no) dp[j] = acc[p][j];
-  }
-}
-
-// (c) Partial weight gradient over `tpb` consecutive pixel tiles (tile i of
-// the frames used: frame i / tiles_frame, tile i % tiles_frame). The frames
-// used are t = t_skip .. T-1 of every sample; the source frame is t - t_skip
-// (x: t_skip = 0; h_{t-1} from ys: t_skip = 1). Grid: (pixel chunks,
-// source-channel chunks x row-tile chunks x gate chunks). A block writes
-// part[blockIdx.x][(tap * cs + c) * f4 + g] for its 8 source channels c and
-// 32 gate channels g; with `with_db`, the blocks of the first source and
-// row-tile chunk also write sum_p dz[p, g] at part[blockIdx.x][kh*kw*cs*f4
-// + g].
-__global__ void __launch_bounds__(256)
-wgrad_partial(const float* __restrict__ src, const float* __restrict__ dzs,
-              float* __restrict__ part, int64_t part_len, int with_db, int t_steps,
-              int t_skip, int h, int wd, int cs, int f4, int kh, int kw, int tph,
-              int tpw, int tiles_x, int tiles_frame, int n_tiles, int tpb,
-              int n_cchunks, int n_rchunks) {
-  extern __shared__ float4 smem4[];
-  const int srows = tph + kh - 1, scols = tpw + kw - 1;
-  float* src_s = reinterpret_cast<float*>(smem4);     // [srows * scols][kWC]
-  float* dz_s = src_s + srows * scols * kWC;          // [tph * tpw][kWG]
-  const int cchunk = blockIdx.y % n_cchunks;
-  const int rchunk = (blockIdx.y / n_cchunks) % n_rchunks;
-  const int gchunk = blockIdx.y / (n_cchunks * n_rchunks);
-  const int c0 = cchunk * kWC;
-  const int cc = min(kWC, cs - c0);
-  const int cq = (cc + 3) / 4;           // row tiles per tap
-  const int g0 = gchunk * kWG;
-  const int gn = min(kWG, f4 - g0);
-  const int ngg = (gn + 7) / 8;
-  const int rt0 = rchunk * kWRT;
-  const int nrt = min(kWRT, kh * kw * cq - rt0);
-  if (nrt <= 0) return;                  // uniform: a short last channel chunk
+  const int cchunk = blockIdx.y % a.n_cchunks;
+  const int rchunk = (blockIdx.y / a.n_cchunks) % a.n_rchunks;
+  const int gchunk = blockIdx.y / (a.n_cchunks * a.n_rchunks);
+  const int c0 = cchunk * a.cwc, cc = min(a.cwc, a.cs - c0);
+  const int tap0 = rchunk * a.tpc, ntap = min(a.tpc, a.kh * a.kw - tap0);
+  const int g0 = gchunk * kWN, gn = min(kWN, a.f4 - g0);
+  const bool db_block = a.with_db && cchunk == 0 && rchunk == 0;
+  const int nrow = ntap * a.cwc;         // (tap, channel) rows, then db's
   const int tid = threadIdx.x;
-  const bool active = tid < nrt * ngg;
-  // this thread's 4 x 8 block: row tile rt (tap, 4 channels from c4), gate
-  // channels gg*8 .. gg*8 + 7
-  const int rt = rt0 + tid % nrt;
-  const int gg = tid / nrt;
-  const int tap = rt / cq;
-  const int c4 = (rt - tap * cq) * 4;
-  const int dy = tap / kw;
-  const int soff = (dy * scols + tap - dy * kw) * kWC + c4;
-  const bool db_thread = with_db && cchunk == 0 && rchunk == 0 && tid < gn;
-  const int ph = kh / 2, pw = kw / 2;
-  const int frames = t_steps - t_skip;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int mg = warp % a.groups, kg = warp / a.groups;
+  const bool active = kg < a.kgroups;
+  const int ph = a.kh / 2, pw = a.kw / 2;
+  const int64_t hw = (int64_t)a.h * a.wd;
+  const bool vec_src = a.cs % 4 == 0 && a.cwc % 4 == 0;
 
-  float acc[4][8];
+  // this thread's fragment rows: the staged offset of (tap, channel), and
+  // whether the row reads the source (else 1 for the db row, 0 past the
+  // rows or the chunk's channels)
+  int roff[2][2];
+  bool ld[2][2];
+  float alt[2][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float db = 0.f;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = (mg * 2 + mt) * 16 + gq + 8 * hf;
+      const int tl = m / a.cwc, c = m - tl * a.cwc;
+      const int tap = tap0 + tl, dy = tap / a.kw;
+      ld[mt][hf] = m < nrow && c < cc;
+      alt[mt][hf] = db_block && m == nrow ? 1.f : 0.f;
+      roff[mt][hf] = ld[mt][hf] ? (dy * SW + tap - dy * a.kw) * a.scs + c : 0;
+    }
+  // pixel p of a tile -> its staged offset (padded pixels read pixel 0,
+  // their dz rows are zero); zero dz rows past the tile and columns past gn
+  for (int p = tid; p < PP; p += kThreads)
+    pof_s[p] = p < P ? ((p / a.tpw) * SW + p % a.tpw) * a.scs : 0;
+  for (int i = tid; i < 2 * PP * kWN; i += kThreads) {
+    const int p = (i / kWN) % PP, g = i % kWN;
+    if (p >= P || g >= gn) dz_s[(i / kWN) * kGS + g] = 0.f;
+  }
 
-  const int it_end = min(n_tiles, (blockIdx.x + 1) * tpb);
-  for (int it = blockIdx.x * tpb; it < it_end; ++it) {
-    const int fi = it / tiles_frame;
-    const int tile = it - fi * tiles_frame;
+  // tile it of the frames used (frame it / tiles_frame, t = t_skip .. T-1
+  // of every sample; the source frame is t - t_skip) into buffer buf
+  auto stage = [&](int it, int buf) {
+    const int frames = a.t_steps - a.t_skip;
+    const int fi = it / a.tiles_frame, tile = it - fi * a.tiles_frame;
     const int bb = fi / frames;
-    const int64_t dframe = (int64_t)bb * t_steps + (fi - bb * frames) + t_skip;
-    const int64_t sframe = dframe - t_skip;
-    const int y0 = (tile / tiles_x) * tph;
-    const int x0 = (tile % tiles_x) * tpw;
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < srows * scols * kWC; i += blockDim.x) {
-      const int c = i % kWC;
-      const int pix = i / kWC;
-      const int r = pix / scols;
-      const int yy = y0 - ph + r, xx = x0 - pw + (pix - r * scols);
-      src_s[i] = c < cc && yy >= 0 && yy < h && xx >= 0 && xx < wd
-                     ? __ldg(src + ((sframe * h + yy) * wd + xx) * cs + c0 + c)
-                     : 0.f;
+    const int64_t dframe = (int64_t)bb * a.t_steps + (fi - bb * frames) + a.t_skip;
+    const int64_t sframe = dframe - a.t_skip;
+    const int y0 = (tile / a.tiles_x) * a.tph, x0 = (tile % a.tiles_x) * a.tpw;
+    float* ss = src_s + buf * src_len;
+    const float* sb = a.src + sframe * hw * a.cs + c0;
+    const int nv = vec_src ? 4 : 1;
+    for (int i = tid; i < src_len / a.scs * cc / nv; i += kThreads) {
+      const int e = i * nv;
+      const int p = e / cc, ci = e - p * cc;
+      const int r = p / SW;
+      const int yy = y0 - ph + r, xx = x0 - pw + p - r * SW;
+      const bool ok = yy >= 0 && yy < a.h && xx >= 0 && xx < a.wd;
+      const float* sp = sb + ((int64_t)yy * a.wd + xx) * a.cs + ci;
+      if (vec_src)
+        cp_async16(ss + p * a.scs + ci, ok ? sp : a.src, ok);
+      else
+        cp_async4(ss + p * a.scs + ci, ok ? sp : a.src, ok);
     }
-    for (int i = tid; i < tph * tpw * kWG; i += blockDim.x) {
-      const int g = i % kWG;
-      const int pix = i / kWG;
-      const int r = pix / tpw;
-      const int y = y0 + r, x = x0 + (pix - r * tpw);
-      dz_s[i] = g < gn && y < h && x < wd
-                    ? __ldg(dzs + ((dframe * h + y) * wd + x) * f4 + g0 + g)
-                    : 0.f;
+    float* ds = dz_s + buf * PP * kGS;
+    const float* db = a.dzs + dframe * hw * a.f4 + g0;
+    for (int i = tid; i < P * gn / 4; i += kThreads) {
+      const int e = i * 4;
+      const int p = e / gn, g = e - p * gn;
+      const int r = p / a.tpw;
+      const int y = y0 + r, x = x0 + p - r * a.tpw;
+      const bool ok = y < a.h && x < a.wd;
+      cp_async16(ds + p * kGS + g, ok ? db + ((int64_t)y * a.wd + x) * a.f4 + g : a.dzs,
+                 ok);
     }
+  };
+
+  // accumulators [m tile][n tile][fragment value]: value i is row (mg*2 +
+  // mt)*16 + gq + 8 * (i >> 1), column g0 + j*8 + 2*tq + (i & 1)
+  float acc[2][4][4] = {};
+  const int ksteps = PP / 8;
+  const int it0 = blockIdx.x * a.tpb, it_end = min(a.n_tiles, it0 + a.tpb);
+  stage(it0, 0);
+  cp_async_commit();
+  for (int it = it0; it < it_end; ++it) {
+    const int buf = (it - it0) & 1;
+    if (it + 1 < it_end) stage(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();
     __syncthreads();
     if (active) {
-      for (int r = 0; r < tph; ++r) {
-        const float* sp = src_s + r * scols * kWC + soff;
-        const float* dp = dz_s + r * tpw * kWG + gg * 8;
-#pragma unroll 4
-        for (int q = 0; q < tpw; ++q) {
-          const float4 a = *reinterpret_cast<const float4*>(sp + q * kWC);
-          const float4 d0 = *reinterpret_cast<const float4*>(dp + q * kWG);
-          const float4 d1 = *reinterpret_cast<const float4*>(dp + q * kWG + 4);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+      const float* ss = src_s + buf * src_len;
+      const float* ds = dz_s + buf * PP * kGS + gq;
+      float part[2][4][4] = {};
+      int n_part = 0;
+#pragma unroll 1
+      for (int ks = kg; ks < ksteps; ks += a.kgroups) {
+        const int p0 = ks * 8;
+        const int q0 = pof_s[p0 + tq], q1 = pof_s[p0 + tq + 4];
+        uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int mt = 0; mt < 2; ++mt) {
+          const float v0 = ss[roff[mt][0] + q0], v1 = ss[roff[mt][1] + q0];
+          const float v2 = ss[roff[mt][0] + q1], v3 = ss[roff[mt][1] + q1];
+          split_tf32(ld[mt][0] ? v0 : alt[mt][0], ah[mt][0], al[mt][0]);
+          split_tf32(ld[mt][1] ? v1 : alt[mt][1], ah[mt][1], al[mt][1]);
+          split_tf32(ld[mt][0] ? v2 : alt[mt][0], ah[mt][2], al[mt][2]);
+          split_tf32(ld[mt][1] ? v3 : alt[mt][1], ah[mt][3], al[mt][3]);
+        }
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          split_tf32(ds[(p0 + tq) * kGS + j * 8], bh[j][0], bl[j][0]);
+          split_tf32(ds[(p0 + tq + 4) * kGS + j * 8], bh[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_tf32(part[mt][j], ah[mt], bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_tf32(part[mt][j], al[mt], bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_tf32(part[mt][j], ah[mt], bh[j][0], bh[j][1]);
+        if (++n_part == kFlush) {
+          n_part = 0;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                acc[mt][j][i] += part[mt][j][i];
+                part[mt][j][i] = 0.f;
+              }
         }
       }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][j][i] += part[mt][j][i];
     }
-    if (db_thread)
-      for (int pix = 0; pix < tph * tpw; ++pix) db = __fadd_rn(db, dz_s[pix * kWG + tid]);
+    __syncthreads();   // this tile's buffers may be refilled
   }
 
-  float* pp = part + (int64_t)blockIdx.x * part_len;
-  if (active) {
+  // the k-step groups' sums, added in a fixed order through shared memory
+  // ([group][value][lane]: conflict-free)
+  cp_async_wait_all();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem4);
+  if (active && kg > 0) {
+    float* rp = red + ((kg - 1) * a.groups + mg) * 32 * 32 + lane;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (c4 + i >= cc) break;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (gg * 8 + j < gn)
-          pp[((int64_t)tap * cs + c0 + c4 + i) * f4 + g0 + gg * 8 + j] = acc[i][j];
-    }
+    for (int v = 0; v < 32; ++v) rp[v * 32] = acc[v >> 4][(v >> 2) & 3][v & 3];
   }
-  if (db_thread) pp[(int64_t)kh * kw * cs * f4 + g0 + tid] = db;
+  __syncthreads();
+  if (!active || kg > 0) return;
+  for (int k = 1; k < a.kgroups; ++k) {
+    const float* rp = red + ((k - 1) * a.groups + mg) * 32 * 32 + lane;
+#pragma unroll
+    for (int v = 0; v < 32; ++v) acc[v >> 4][(v >> 2) & 3][v & 3] += rp[v * 32];
+  }
+
+  float* pp = a.part + (int64_t)blockIdx.x * a.part_len;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = (mg * 2 + mt) * 16 + gq + 8 * (i >> 1);
+        const int g = j * 8 + 2 * tq + (i & 1);
+        if (g >= gn) continue;
+        const int tl = m / a.cwc, c = m - tl * a.cwc;
+        if (m < nrow && c < cc)
+          pp[((int64_t)(tap0 + tl) * a.cs + c0 + c) * a.f4 + g0 + g] = acc[mt][j][i];
+        else if (db_block && m == nrow)
+          pp[(int64_t)a.kh * a.kw * a.cs * a.f4 + g0 + g] = acc[mt][j][i];
+      }
 }
 
 // Row sums in a fixed order: oa[k] = sum_r pa[r * la + k] for k < la, then
@@ -422,130 +310,54 @@ wgrad_reduce(const float* __restrict__ pa, int na, int64_t la, float* __restrict
   o[k] = s;
 }
 
-cudaError_t set_smem(const void* kern, int shmem) {
-  if (shmem > kMaxSmem) return cudaErrorInvalidValue;
-  if (shmem > 48 * 1024)
-    return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                shmem);
-  return cudaSuccess;
-}
-
-template <int PY, int K>
-cudaError_t launch_step(const float* zs, const float* cs, const float* dys,
-                        const float* wh, float* dzs, float* dcs, int b, int t_steps,
-                        int step, int h, int wd, int f, int kh, int kw,
-                        cudaStream_t stream) {
-  auto kern = bptt_step<PY, K>;
-  const int shmem = (int)sizeof(float) * convt_smem_floats(PY, kh, kw);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(kern), shmem);
-  if (err != cudaSuccess) return err;
-  const int tiles_x = (wd + kTX - 1) / kTX;
-  const int tiles_y = (h + kTY * PY - 1) / (kTY * PY);
-  const dim3 grid(tiles_x * tiles_y, (f + kFG - 1) / kFG, b);
-  kern<<<grid, kThreads, shmem, stream>>>(zs, cs, dys, wh, dzs, dcs, t_steps, step, h,
-                                          wd, f, kh, kw, tiles_x);
-  return cudaGetLastError();
-}
-
-template <int PY, int K>
-cudaError_t launch_dx(const float* dzs, const float* wx, float* dx, int frames, int h,
-                      int wd, int cin, int f, int kh, int kw, cudaStream_t stream) {
-  auto kern = dx_frames<PY, K>;
-  const int shmem = (int)sizeof(float) * convt_smem_floats(PY, kh, kw);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(kern), shmem);
-  if (err != cudaSuccess) return err;
-  const int tiles_x = (wd + kTX - 1) / kTX;
-  const int tiles_y = (h + kTY * PY - 1) / (kTY * PY);
-  const dim3 grid(tiles_x * tiles_y, (cin + kFG - 1) / kFG, frames);
-  kern<<<grid, kThreads, shmem, stream>>>(dzs, wx, dx, h, wd, cin, f, kh, kw, tiles_x);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// (a) Step `step` (run T-1 down to 0, in order, on one stream) of the
-// reverse chain: reads zs, cs [B, T, H, W, 4F | F], dys [B, T, H, W, F],
-// wh and dz_{step+1} from dzs; writes dz_step to dzs [B, T, H, W, 4F]; the
-// dc carry dcs [B, H, W, F] is the caller's scratch. py (1 or 2) is the
-// number of rows a thread computes. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a shape the kernel does not take); does not
-// synchronise.
-extern "C" int dl4ds_convlstm_bptt_step(const float* zs, const float* cs,
-                                        const float* dys, const float* wh, float* dzs,
-                                        float* dcs, int b, int t_steps, int step, int h,
-                                        int wd, int f, int kh, int kw, int py,
-                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool k5 = kh == 5 && kw == 5, k3 = kh == 3 && kw == 3;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (py == 2)
-    err = k5 ? launch_step<2, 5>(zs, cs, dys, wh, dzs, dcs, b, t_steps, step, h, wd, f,
-                                 kh, kw, s)
-          : k3 ? launch_step<2, 3>(zs, cs, dys, wh, dzs, dcs, b, t_steps, step, h, wd,
-                                   f, kh, kw, s)
-               : launch_step<2, 0>(zs, cs, dys, wh, dzs, dcs, b, t_steps, step, h, wd,
-                                   f, kh, kw, s);
-  else if (py == 1)
-    err = k5 ? launch_step<1, 5>(zs, cs, dys, wh, dzs, dcs, b, t_steps, step, h, wd, f,
-                                 kh, kw, s)
-          : k3 ? launch_step<1, 3>(zs, cs, dys, wh, dzs, dcs, b, t_steps, step, h, wd,
-                                   f, kh, kw, s)
-               : launch_step<1, 0>(zs, cs, dys, wh, dzs, dcs, b, t_steps, step, h, wd,
-                                   f, kh, kw, s);
-  return (int)err;
-}
-
-// (b) dx [frames, H, W, Cin] = convT(dzs, wx) over `frames` = B*T frames.
-extern "C" int dl4ds_convlstm_dx(const float* dzs, const float* wx, float* dx,
-                                 int frames, int h, int wd, int cin, int f, int kh,
-                                 int kw, int py, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool k5 = kh == 5 && kw == 5, k3 = kh == 3 && kw == 3;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (py == 2)
-    err = k5   ? launch_dx<2, 5>(dzs, wx, dx, frames, h, wd, cin, f, kh, kw, s)
-          : k3 ? launch_dx<2, 3>(dzs, wx, dx, frames, h, wd, cin, f, kh, kw, s)
-               : launch_dx<2, 0>(dzs, wx, dx, frames, h, wd, cin, f, kh, kw, s);
-  else if (py == 1)
-    err = k5   ? launch_dx<1, 5>(dzs, wx, dx, frames, h, wd, cin, f, kh, kw, s)
-          : k3 ? launch_dx<1, 3>(dzs, wx, dx, frames, h, wd, cin, f, kh, kw, s)
-               : launch_dx<1, 0>(dzs, wx, dx, frames, h, wd, cin, f, kh, kw, s);
-  return (int)err;
-}
-
-// (c) Partial weight gradients of the source src [B, T, H, W, cs] (x with
-// t_skip 0, ys with t_skip 1) against dzs, over pixel tiles of tph x tpw,
-// `tpb` tiles a block; part is [n_chunks, part_len] with part_len =
-// kh*kw*cs*4F (+ 4F with_db). n_chunks must be the number of blocks that
-// this plan gives (checked). Returns a cudaError_t.
+// Partial weight gradients of the source src [B, T, H, W, cs] (x with
+// t_skip 0, ys with t_skip 1) against dzs [B, T, H, W, 4F], over pixel
+// tiles of tph x tpw (at most 256 pixels), `tpb` tiles a block, in chunks
+// of cwc source channels (1 to 8) and tpc taps (tpc * cwc + with_db at most
+// 256 rows); part is [n_chunks, part_len] with part_len = kh*kw*cs*4F (+ 4F
+// with_db). n_chunks must be the number of blocks that this plan gives
+// (checked). The plan comes from ops/convlstm.py `_wgrad_plan`. Returns the
+// cudaError_t of the launch; does not synchronise.
 extern "C" int dl4ds_convlstm_wgrad(const float* src, const float* dzs, float* part,
                                     int n_chunks, int with_db, int b, int t_steps,
                                     int t_skip, int h, int wd, int cs, int f, int kh,
-                                    int kw, int tph, int tpw, int tpb, void* stream) {
+                                    int kw, int tph, int tpw, int tpb, int cwc,
+                                    int tpc, void* stream) {
   const int f4 = 4 * f;
+  if (b < 1 || t_skip < 0 || t_steps <= t_skip || h < 1 || wd < 1 || cs < 1 ||
+      f < 1 || kh < 1 || kw < 1 || tph < 1 || tpw < 1 || tph * tpw > kMaxPix ||
+      tpb < 1 || cwc < 1 || cwc > 8 || tpc < 1 || tpc * cwc + (with_db ? 1 : 0) > kMaxRows)
+    return (int)cudaErrorInvalidValue;
   const int tiles_x = (wd + tpw - 1) / tpw;
   const int tiles_frame = tiles_x * ((h + tph - 1) / tph);
   const int64_t n_tiles = (int64_t)b * (t_steps - t_skip) * tiles_frame;
-  if (tph < 1 || tpw < 1 || tpb < 1 || n_tiles < 1 || n_tiles > INT32_MAX ||
-      (n_tiles + tpb - 1) / tpb != n_chunks)
+  if (n_tiles > INT32_MAX || (n_tiles + tpb - 1) / tpb != n_chunks)
     return (int)cudaErrorInvalidValue;
-  const int n_cchunks = (cs + kWC - 1) / kWC;
-  const int cq_max = (min(kWC, cs) + 3) / 4;
-  const int n_rchunks = (kh * kw * cq_max + kWRT - 1) / kWRT;
-  const int n_gchunks = (f4 + kWG - 1) / kWG;
-  const int64_t grid_y = (int64_t)n_cchunks * n_rchunks * n_gchunks;
+  const int n_cchunks = (cs + cwc - 1) / cwc;
+  const int n_rchunks = (kh * kw + tpc - 1) / tpc;
+  const int64_t grid_y = (int64_t)n_cchunks * n_rchunks * ((f4 + kWN - 1) / kWN);
   if (grid_y > 65535) return (int)cudaErrorInvalidValue;
-  const int64_t part_len = (int64_t)kh * kw * cs * f4 + (with_db ? f4 : 0);
-  const int threads =
-      (min(kWRT, kh * kw * cq_max) * ((min(kWG, f4) + 7) / 8) + 31) / 32 * 32;
-  const int shmem =
-      (int)sizeof(float) * ((tph + kh - 1) * (tpw + kw - 1) * kWC + tph * tpw * kWG);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(wgrad_partial), shmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_chunks, (unsigned)grid_y);
-  wgrad_partial<<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      src, dzs, part, part_len, with_db, t_steps, t_skip, h, wd, cs, f4, kh, kw, tph, tpw,
-      tiles_x, tiles_frame, (int)n_tiles, tpb, n_cchunks, n_rchunks);
+  const int rows = tpc * cwc + (with_db ? 1 : 0);
+  const int groups = ((rows + 15) / 16 + 1) / 2;    // warps of 2 m16 tiles
+  const int kgroups = 8 / groups;
+  const int scs = cwc <= 4 ? 4 : 8;
+  const int ppad = (tph * tpw + 7) / 8 * 8;
+  const int staged = 2 * (tph + kh - 1) * (tpw + kw - 1) * scs + 2 * ppad * kGS + ppad;
+  const int shmem = (int)sizeof(float) * max(staged, (kgroups - 1) * groups * 32 * 32);
+  if (shmem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wgrad_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const WArgs a{src, dzs, part, (int64_t)kh * kw * cs * f4 + (with_db ? f4 : 0),
+                with_db, t_steps, t_skip, h, wd, cs, f4, kh, kw, tph, tpw, tiles_x,
+                tiles_frame, (int)n_tiles, tpb, cwc, tpc, n_cchunks, n_rchunks, scs,
+                groups, kgroups, ppad};
+  wgrad_tile<<<dim3(n_chunks, (unsigned)grid_y), kThreads, shmem,
+               static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

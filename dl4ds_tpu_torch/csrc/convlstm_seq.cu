@@ -1,7 +1,6 @@
-// ConvLSTM sequential BPTT chain (K4) for NVIDIA Hopper (sm_90a): the dh/dc
-// chain of the backward alone, writing dz for every step. The T-parallel
-// rest of the backward (dx, dWx, dWh, db) is float32 GEMMs outside any kernel
-// (`convlstm_backward_tail` in ops/convlstm.py).
+// The ConvLSTM BPTT chain step (K4, and K3's chain) and K3's dx pass for
+// NVIDIA Hopper (sm_90a): one implicit-GEMM tile of the transposed SAME conv
+// with two epilogues.
 //
 // From the residuals of the forward's training variant (csrc/convlstm.cu: zs,
 // the pre-activations z = (z_i, z_f, z_c, z_o) of every step; cs) and dys,
@@ -12,62 +11,109 @@
 //   dc_t  = dh_t hs(z_o) (1 - tanh(c_t)^2) + dc_{t+1} hs(z_f,t+1)
 //   dz_i  = dc_t tanh(z_c) hs'(z_i)          dz_f = dc_t c_{t-1} hs'(z_f)
 //   dz_c  = dc_t hs(z_i) (1 - tanh(z_c)^2)   dz_o = do hs'(z_o)   (c_{-1} = 0)
-// convT(dz, wh)[p, o] = sum_{dy, dx, s} dz[p + (dy - ph, dx - pw), s]
-// whT[dy, dx, s, o], with whT[dy, dx, s, o] = wh[kh-1-dy, kw-1-dx, o, s]: the
-// wrapper flips and transposes the recurrent kernel once a layer. Layouts as
-// in csrc/convlstm.cu: [B, T, H, W, C] activations, gates i, f, c, o along
-// 4F. All arithmetic is float32 FMA, no TF32; the gate algebra rounds product
-// by product (__fmul_rn, __fadd_rn) as PyTorch's elementwise ops do. No
-// atomics: two runs give the same bits.
+//   dx    = convT(dz, wx) over all B*T frames
+// convT(dz, w)[p, o] = sum_{dy, dx, s} dz[p + (dy - ph, dx - pw), s]
+// wT[dy, dx, s, o], with wT[dy, dx, s, o] = w[kh-1-dy, kw-1-dx, o, s]: the
+// wrapper flips and transposes the kernel once a layer, so the tile computes
+// a SAME conv of dz with an HWIO kernel [kh, kw, 4F, N]. Layouts as in
+// csrc/convlstm.cu: [B, T, H, W, C] activations, gates i, f, c, o along 4F.
+// The gate algebra rounds product by product (__fmul_rn, __fadd_rn) as
+// PyTorch's elementwise ops do. No atomics: two runs give the same bits.
 //
 // Replaces: dl4ds_tpu/ops/pallas_convlstm.py `_seq_pallas` ->
-// `_bwd_seq_kernel` (one grid step per batch tile carrying dh and dc in VMEM,
-// the recurrent conv as kh band matmuls), the kernel of `_backward_split`.
+// `_bwd_seq_kernel` (:269; one grid step per batch tile carrying dh and dc
+// in VMEM, the recurrent conv as kh band matmuls), the kernel of
+// `_backward_split`; and the reverse loop and the dx contraction of
+// `_bwd_kernel` (:335), whose weight gradients are csrc/convlstm_bwd.cu.
 //
-// Bound: operations. Each step but the last is a GEMM of M = B*H*W pixels,
-// N = F output channels and K = kh*kw*4F: 2*B*(T-1)*H*W*kh*kw*F*4F flops
-// against about 4*B*T*H*W*(2*4F + 3F) bytes. At width 64 (batch 128, T 4,
-// 16x16) that is 80.5 GFLOP (1.20 ms at 67 TFLOP/s of float32 outside the
-// tensor cores) for a 5x5 layer and 29.0 GFLOP (0.43 ms) for a 3x3 one,
-// against 0.37 GB (0.11 ms at 3.35 TB/s).
+// Bound: operations. Each chain step but the last is a GEMM of M = B*H*W
+// pixels, N = F output channels and K = kh*kw*4F: 2*B*(T-1)*H*W*kh*kw*F*4F
+// flops against about 4*B*T*H*W*(2*4F + 3F) bytes. At width 64 (batch 128,
+// T 4, 16x16) that is 80.5 GFLOP for a 5x5 layer and 29.0 GFLOP for a 3x3
+// one: 1.20 / 0.43 ms at 67 TFLOP/s of float32 outside the tensor cores,
+// 0.49 / 0.18 ms at 165 TFLOP/s, a third of the 495 TFLOP/s of dense TF32
+// that 3xTF32 spends three products on; 0.37 GB of traffic takes 0.11 ms.
+// dx is the same GEMM over all B*T frames with N = Cin.
 //
-// Design: every step needs all of dz_{t+1} with a halo before any block
-// reads it, so a layer is T launches of one step kernel on the caller's
-// stream, as K3's chain. K3's chain step stages dz_{t+1} for a group of only
-// 8 output channels, so at F = 64 eight blocks stage the same halo tile and
-// each loaded value feeds 8 FMAs. Here the step is treated as the GEMM it is:
-//   - a block takes a pixel tile of 8 rows x 16 columns of one sample and up
-//     to 64 output channels (16 groups of 4; more blocks along y for F > 64);
-//     a thread owns one column of the tile (8 pixels) and one group of 4
-//     channels: a register micro-tile of 8 x 4 accumulators;
-//   - the block walks K in chunks of 8 dz channels: it stages the chunk's
-//     halo tile of dz_{t+1} as [channel][row][column] and the chunk's slice of
-//     whT for all taps as [tap][channel][output] in shared memory (59 KB at
-//     5x5 and F = 64, so two blocks share an SM);
-//   - per dz channel and tap column dx a thread loads the 8 + kh - 1 values
-//     of its column once and reuses them for all kh rows of taps: per
-//     (channel, dx) 12 scalar and 5 float4 shared loads feed 160 FMAs at 5x5,
-//     so the FMA pipe, not shared memory, is the limit;
-//   - then the gate derivatives on the saved zs and cs write the four gates
-//     of dz_t, and dc * hs(z_f) is carried to step t-1 in a [B, H, W, F]
-//     scratch, as K3 carries it;
-//   - the kernel size is known at compile time up to kh <= 3, 5 or 7, so the
-//     register arrays stay in registers; kw is any odd size.
-// A later PR would double-buffer the staging (cp.async or TMA), keep whT
-// resident across chunks of a persistent block, and take the products to
-// 3xTF32 mma tiles, which keep float32 accuracy.
+// Design: the step is K2's implicit-GEMM step tile (csrc/convlstm.cu) with
+// the GEMM transposed. Every step needs all of dz_{t+1} with its halo before
+// any block reads it, so the chain is T launches on the caller's stream.
+//   - A block (8 warps) computes a 128-pixel tile of one frame, tw = min(W,
+//     32) columns x th = min(128 / tw, H) rows (a 16x16 frame is two whole
+//     tiles, no idle lane; ragged tiles are masked), for NS = 8, 16, 32 or
+//     64 output channels (channels past N get zero weights and are not
+//     written). At NS 64 a warp owns 2 m16 pixel runs x 4 n8 channel tiles,
+//     the warps 4 x 2; below it one m16 run x NS/8 tiles, the warps 8 x 1.
+//     So F = 8 makes 256 blocks a step at batch 128 for the 132 SMs.
+//   - The K loop walks chunks of cw = 8 or 4 of the 4F dz channels and, in
+//     each, rps = kh or 1 tap rows a stage, as K2's: the chunk's dz tile with
+//     its halo (12 floats a pixel: 8 channels, a zero the padded k rows point
+//     at, padding for conflict-free A fragments) is staged once for all NS
+//     channels and tap rows; a stage's wT rows, (tap, channel) pairs
+//     flattened and padded to a multiple of 8, at a row stride of max(24, NS
+//     + 8) floats (conflict-free B fragments); both double-buffered with
+//     cp.async, the next stage loading while this one computes.
+//   - The products are 3xTF32 mma.sync m16n8k8 from the shared header
+//     csrc/tf32_mma.cuh (hi*lo + lo*hi + hi*hi, cvt.rna splits), and every 4
+//     k-steps the fresh partial accumulators are added into the float32
+//     result, round to nearest: over a K of 6,400 the tensor cores' truncated
+//     accumulation would otherwise drift past 1e-5.
+//   - The epilogue takes the block's sums through shared memory, so that a
+//     warp then holds consecutive channels of a pixel and its loads and
+//     stores cover whole sectors (in the fragment layout a store touches 8
+//     pixels and every other channel, which measured slower); it loads
+//     every input of 4 values before their stores, which the compiler must
+//     assume alias them. The chain epilogue forms dh for (pixel, o) and writes the
+//     four gates of dz_t for o; dc * hs(z_f) is carried to step t-1 in a
+//     [B, H, W, F] scratch that only that thread touches. The dx epilogue
+//     stores the sums.
+// The kernel size is a runtime value: the k rows of a stage are flattened
+// (tap, channel) pairs read through an offset table, as in K2, so every odd
+// kh and kw take the same body; the plan (ops/convlstm.py `_seq_plan`) takes
+// the deepest stage that leaves room for two blocks an SM. NS and the
+// epilogue are template parameters: 8 bodies, `chain_step<NS>` and
+// `dx_frames<NS>`, over one tile.
+//
+// Measured (chip_smoke.py phase 6, medians of 40 CUDA-event timings with
+// L2 flushed, and tools/torch_chain_probe.py; NVIDIA H100 80GB HBM3, 700.00
+// W): K4's six width-64 layers (batch 128, T 4, 16x16) take 8.63-8.64 ms
+// against 21.49-21.50 ms for the float32 FMA kernel this replaced, bounds
+// 4.90 ms (float32) and 1.99 ms (3xTF32): 2.04 ms a 5x5 layer (39.5
+// TFLOP/s), 0.84 ms a 3x3 one (34.5 TFLOP/s); a step with its recurrent
+// term 654 / 268 us, the last step (the epilogue alone) 44 us. K3's chain
+// at F = 8 takes 33 / 21 us a step at 5x5 / 3x3, about 9 us of it the
+// epilogue-only step's time, and dx 110 / 61 us. What holds it back: at 64
+// channels, as in K2, issue slots (a shared load and a 5-instruction split
+// per fragment value, three mma.sync per product) and mma.sync's rate; at
+// 8 channels, one n8 tile a warp, so each dz value loaded and split feeds
+// one product. Splitting the staged dz tile once a chunk into shared
+// memory, separate accumulators for the three products, and splitting the
+// k-steps over two warp groups at four blocks an SM all measured no faster
+// on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kTW = 16;     // columns of a pixel tile, one per thread column
-constexpr int kTH = 8;      // rows of a pixel tile, all of them each thread's
-constexpr int kCK = 8;      // dz channels staged per chunk
-constexpr int kGroups = 16; // groups of 4 output channels a block at most
-constexpr int kMaxThreads = kTW * kGroups;
+constexpr int kThreads = 256;           // 8 warps
+constexpr int kPS = 12;                 // floats a staged pixel: 8 channels,
+constexpr int kZero = 8;                // a zero, padding
+constexpr int kFlush = 4;               // k-steps a partial accumulator takes
 constexpr int kMaxSmem = 227 * 1024;
+
+struct Args {
+  const float* src;   // dzs [frames, H, W, C]: dz_{t+1} (chain) or dz (dx)
+  const float* w;     // wT [kh, kw, C, N]: whT (chain) or wxT (dx)
+  float* out;         // chain: dzs (dz_t written); dx: [frames, H, W, N]
+  const float* zs;    // chain only: zs [B, T, H, W, C]
+  const float* cs;    //   cs, dys [B, T, H, W, N]
+  const float* dys;
+  float* dcs;         //   the dc carry [B, H, W, N]
+  int t_steps, step, h, wd, c, n, kh, kw, th, tw, cw, rps, tiles_x, tiles;
+};
 
 __device__ __forceinline__ float hard_sigmoid(float z) {
   return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, z), 0.5f), 0.f), 1.f);
@@ -78,161 +124,319 @@ __device__ __forceinline__ float d_hard_sigmoid(float z) {
   return g > 0.f && g < 1.f ? 0.2f : 0.f;
 }
 
-// floats of shared memory a block uses: whT's chunk for all taps, then the
-// dz halo tile of the chunk
-__host__ __device__ constexpr int smem_floats(int kh, int kw, int groups) {
-  return kh * kw * kCK * 4 * groups + kCK * (kTH + kh - 1) * (kTW + kw - 1);
+// staged weight row stride of a block of NS output channels: 8 or 24 mod
+// 32, so the 4 k rows x 8 columns of a B fragment fall in distinct banks
+__host__ __device__ constexpr int w_stride(int ns) {
+  return ns + 8 > 24 ? ns + 8 : 24;
 }
 
-// Step `step` of the reverse chain. Grid: (pixel tiles of one frame, output
-// channel blocks of 64, B); blockDim = 16 * groups, groups = min(16, ceil(F /
-// 4)); requires kh <= KMAX.
-template <int KMAX>
-__global__ void __launch_bounds__(kMaxThreads, 2)
-seq_chain_step(const float* __restrict__ zs, const float* __restrict__ cs,
-               const float* __restrict__ dys, const float* __restrict__ whT,
-               float* __restrict__ dzs, float* __restrict__ dcs, int t_steps,
-               int step, int h, int wd, int f, int kh, int kw, int tiles_x,
-               int groups) {
+constexpr int kBM = 128;                // pixels of a block
+
+// k rows of a stage: rps tap rows x kw taps x cw channels, padded to 8
+__host__ __device__ inline int stage_rows(int rps, int kw, int cw) {
+  return (rps * kw * cw + 7) / 8 * 8;
+}
+
+// Shared memory of a block, in floats: two dz tiles with their halo, two
+// stages of weight rows, two k-offset tables; the epilogue then reuses it
+// for the block's sums (th*tw rows of ns + 8).
+__host__ __device__ inline int smem_floats(int ns, int th, int tw, int kh,
+                                           int kw, int cw, int rps) {
+  const int kp = stage_rows(rps, kw, cw);
+  const int staged = 2 * (th + kh - 1) * (tw + kw - 1) * kPS +
+                     2 * kp * w_stride(ns) + 2 * kp;
+  return staged > th * tw * (ns + 8) ? staged : th * tw * (ns + 8);
+}
+
+// The tile: out[p, n] = sum_{dy, dx, s} src[p + (dy - ph, dx - pw), s] *
+// w[dy, dx, s, n] for the block's 128 pixels and NS channels, then the
+// chain's gate epilogue (CHAIN) or a plain store. Chain: grid.x = B*tiles,
+// block x // tiles the sample; dx: grid.x = B*T*tiles, the frame. grid.y:
+// ceil(N / NS) channel slices.
+template <int NS, bool CHAIN>
+__device__ __forceinline__ void convt_tile(const Args& a) {
+  constexpr int WARPS_N = NS == 64 ? 2 : 1;  // warp columns
+  constexpr int WN = NS / 8 / WARPS_N;       // n8 tiles a warp
+  constexpr int WM = NS == 64 ? 2 : 1;       // m16 tiles a warp
+  constexpr int WS = w_stride(NS);
+  const int C = a.c, N = a.n, kh = a.kh, kw = a.kw, th = a.th, tw = a.tw;
+  const int cw = a.cw, rps = a.rps;
+  const int SW = tw + kw - 1, npix = (th + kh - 1) * SW;
+  const int KP = stage_rows(rps, kw, cw);
   extern __shared__ float4 smem4[];
-  const int nbp = 4 * groups;                         // output channels staged
-  float* w_s = reinterpret_cast<float*>(smem4);       // [tap][kCK][nbp]
-  float* a_s = w_s + kh * kw * kCK * nbp;             // [kCK][rows][rw]
-  const int rows = kTH + kh - 1, rw = kTW + kw - 1, plane = rows * rw;
-  const int ph = kh / 2, pw = kw / 2;
-  const int y0 = (blockIdx.x / tiles_x) * kTH;
-  const int x0 = (blockIdx.x % tiles_x) * kTW;
-  const int o0 = blockIdx.y * 4 * kGroups;
-  const int b = blockIdx.z;
-  const int f4 = 4 * f;
-  const int nthreads = blockDim.x;
+  float* in_s = reinterpret_cast<float*>(smem4);          // [2][npix][kPS]
+  float* w_s = in_s + 2 * npix * kPS;                     // [2][KP][WS]
+  int* koff_s = reinterpret_cast<int*>(w_s + 2 * KP * WS);  // [2][KP]
+
   const int tid = threadIdx.x;
-  const int col = tid % kTW;
-  const int cg = tid / kTW;
-  const int64_t hw = (int64_t)h * wd;
-  const int64_t frame = (int64_t)b * t_steps + step;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;   // fragment row group, column
+  const int wn = warp % WARPS_N;
+  const int mb = (warp / WARPS_N) * WM * 16; // first pixel of this warp
+  const int tile = blockIdx.x % a.tiles;
+  const int fr = blockIdx.x / a.tiles;       // sample (chain) or frame (dx)
+  const int64_t frame = CHAIN ? (int64_t)fr * a.t_steps + a.step : fr;
+  const int64_t hw = (int64_t)a.h * a.wd;
+  const int ty0 = (tile / a.tiles_x) * th, tx0 = (tile % a.tiles_x) * tw;
+  const int n0 = blockIdx.y * NS;
+  const int ph = kh / 2, pw = kw / 2;
+  // the chain's last step has no recurrent term
+  const bool has_src = !CHAIN || a.step + 1 < a.t_steps;
+  const float* src = has_src ? a.src + (frame + (CHAIN ? 1 : 0)) * hw * C : a.src;
+  const int n_chunks = (C + cw - 1) / cw;
+  const int spc = kh / rps;                  // stages a chunk
+  const int n_iter = has_src ? n_chunks * spc : 0;
+  const bool vec_w = N % 4 == 0;             // then 4 channels align
+  const int nv_w = vec_w ? 4 : 1;
 
-  float acc[kTH][4];
-#pragma unroll
-  for (int i = 0; i < kTH; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // k row (tap row, tap, channel) -> offset in a staged dz tile, for the
+  // full chunks and for the last; padded rows point at the zero slot
+  for (int i = tid; i < 2 * KP; i += kThreads) {
+    const int cc = i < KP ? min(cw, C) : C - (n_chunks - 1) * cw;
+    const int kk = i < KP ? i : i - KP;
+    const int tap = kk / cc;
+    koff_s[i] = kk < rps * kw * cc
+                    ? ((tap / kw) * SW + tap % kw) * kPS + kk % cc
+                    : kZero;
+  }
+  for (int i = tid; i < 2 * npix; i += kThreads) in_s[i * kPS + kZero] = 0.f;
 
-  if (step + 1 < t_steps) {   // dh_next = convT(dz_{t+1}, wh)
-    const float* src = dzs + (frame + 1) * hw * f4;
-    for (int c0 = 0; c0 < f4; c0 += kCK) {
-      const int cc = min(kCK, f4 - c0);   // 4 or 8: 4F is a multiple of 4
-      __syncthreads();  // the previous chunk is no longer read
-      for (int i = tid; i < plane; i += nthreads) {
-        const int r = i / rw;
-        const int yy = y0 - ph + r, xx = x0 - pw + (i - r * rw);
-        if (yy >= 0 && yy < h && xx >= 0 && xx < wd) {
-          const float* sp = src + ((int64_t)yy * wd + xx) * f4 + c0;
-          for (int ci = 0; ci < cc; ci += 4) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(sp + ci));
-            a_s[ci * plane + i] = v.x;
-            a_s[(ci + 1) * plane + i] = v.y;
-            a_s[(ci + 2) * plane + i] = v.z;
-            a_s[(ci + 3) * plane + i] = v.w;
-          }
-        } else {
-          for (int ci = 0; ci < cc; ++ci) a_s[ci * plane + i] = 0.f;
-        }
+  // stage u: channel chunk u / spc, tap rows from dy = (u % spc) * rps. Its
+  // weight rows go to buffer u & 1 and, with the chunk's first stage, the
+  // chunk's dz tile to buffer chunk & 1; all by cp.async, zero-filled out
+  // of the frame or past N. C = 4F is a multiple of 4, so a chunk is 4 or 8
+  // channels and its copies are 16 bytes.
+  auto stage = [&](int u) {
+    const int ci0 = u / spc, dy = (u - ci0 * spc) * rps;
+    const int c0 = ci0 * cw, cc = min(cw, C - c0);
+    const int rows = rps * kw * cc;
+    float* ws = w_s + (u & 1) * KP * WS;
+    for (int i = tid; i < rows * NS / nv_w; i += kThreads) {
+      const int e = i * nv_w;
+      const int kk = e / NS, j = e - kk * NS;
+      const int tap = kk / cc, ci = kk - tap * cc;
+      const bool ok = n0 + j < N;
+      const float* sp =
+          a.w + ((int64_t)(dy * kw + tap) * C + c0 + ci) * N + n0 + j;
+      if (vec_w)
+        cp_async16(ws + kk * WS + j, ok ? sp : a.w, ok);
+      else
+        cp_async4(ws + kk * WS + j, ok ? sp : a.w, ok);
+    }
+    for (int i = tid; i < (KP - rows) * NS; i += kThreads)
+      ws[(rows + i / NS) * WS + i % NS] = 0.f;
+    if (dy != 0) return;
+    float* is = in_s + (ci0 & 1) * npix * kPS;
+    for (int i = tid; i < npix * cc / 4; i += kThreads) {
+      const int e = i * 4;
+      const int p = e / cc, ci = e - p * cc;
+      const int r = p / SW, q = p - r * SW;
+      const int yy = ty0 - ph + r, xx = tx0 - pw + q;
+      const bool ok = yy >= 0 && yy < a.h && xx >= 0 && xx < a.wd;
+      const float* sp = src + ((int64_t)yy * a.wd + xx) * C + c0 + ci;
+      cp_async16(is + p * kPS + ci, ok ? sp : src, ok);
+    }
+  };
+
+  // the staged offsets of this thread's fragment rows (rows past the tile
+  // read pixel 0 and are not stored)
+  int po[WM][2];
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = mb + mt * 16 + gq + 8 * hf;
+      po[mt][hf] = m < th * tw ? ((m / tw) * SW + m % tw) * kPS : 0;
+    }
+
+  // accumulators [m tile][n tile][fragment value]: value i is pixel
+  // mb + mt*16 + gq + 8 * (i >> 1), channel n0 + (wn*WN + j)*8 + 2*tq + (i & 1)
+  float acc[WM][WN][4] = {};
+
+  if (n_iter > 0) stage(0);
+  cp_async_commit();
+  for (int u = 0; u < n_iter; ++u) {
+    if (u + 1 < n_iter) stage(u + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int ci0 = u / spc, dy = (u - ci0 * spc) * rps;
+    const int cc = min(cw, C - ci0 * cw);
+    const int ksteps = (rps * kw * cc + 7) / 8;
+    const float* is = in_s + (ci0 & 1) * npix * kPS + dy * SW * kPS;
+    const float* ws = w_s + (u & 1) * KP * WS + wn * WN * 8 + gq;
+    const int* ko = koff_s + (ci0 == n_chunks - 1 ? KP : 0);
+    // the products in fresh accumulators, added to acc in float32 (round
+    // to nearest) every kFlush k-steps
+    float part[WM][WN][4] = {};
+#pragma unroll 2
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int k0 = ks * 8;
+      const int o0 = ko[k0 + tq], o1 = ko[k0 + tq + 4];
+      uint32_t bh[WN][2], bl[WN][2], ah[WM][4], al[WM][4];
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        split_tf32(ws[(k0 + tq) * WS + j * 8], bh[j][0], bl[j][0]);
+        split_tf32(ws[(k0 + tq + 4) * WS + j * 8], bh[j][1], bl[j][1]);
       }
-      // whT [kh, kw, 4F, F] -> [tap][chunk channel][output], zero past F
-      for (int i = tid; i < kh * kw * kCK * nbp; i += nthreads) {
-        const int j = i % nbp;
-        const int row = i / nbp;
-        const int ci = row % kCK;
-        const int tap = row / kCK;
-        const int o = o0 + j;
-        w_s[i] = ci < cc && o < f ? __ldg(whT + ((int64_t)tap * f4 + c0 + ci) * f + o)
-                                  : 0.f;
+#pragma unroll
+      for (int mt = 0; mt < WM; ++mt) {
+        split_tf32(is[po[mt][0] + o0], ah[mt][0], al[mt][0]);
+        split_tf32(is[po[mt][1] + o0], ah[mt][1], al[mt][1]);
+        split_tf32(is[po[mt][0] + o1], ah[mt][2], al[mt][2]);
+        split_tf32(is[po[mt][1] + o1], ah[mt][3], al[mt][3]);
       }
-      __syncthreads();
-
-#pragma unroll 1
-      for (int ci = 0; ci < cc; ++ci) {
-        const float* ap = a_s + ci * plane + col;
-#pragma unroll 1
-        for (int dx = 0; dx < kw; ++dx) {
-          float a[kTH + KMAX - 1];
+      // hi*lo, then lo*hi, then hi*hi, each over the independent tiles
 #pragma unroll
-          for (int r = 0; r < kTH + KMAX - 1; ++r)
-            a[r] = r < kTH + kh - 1 ? ap[r * rw + dx] : 0.f;
-          const float* wp = w_s + ((int64_t)dx * kCK + ci) * nbp + cg * 4;
+      for (int mt = 0; mt < WM; ++mt)
 #pragma unroll
-          for (int dy = 0; dy < KMAX; ++dy) {
-            if (dy >= kh) break;
-            const float4 q = *reinterpret_cast<const float4*>(wp + dy * kw * kCK * nbp);
+        for (int j = 0; j < WN; ++j)
+          mma_tf32(part[mt][j], ah[mt], bl[j][0], bl[j][1]);
 #pragma unroll
-            for (int i = 0; i < kTH; ++i) {
-              acc[i][0] = fmaf(a[i + dy], q.x, acc[i][0]);
-              acc[i][1] = fmaf(a[i + dy], q.y, acc[i][1]);
-              acc[i][2] = fmaf(a[i + dy], q.z, acc[i][2]);
-              acc[i][3] = fmaf(a[i + dy], q.w, acc[i][3]);
+      for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+        for (int j = 0; j < WN; ++j)
+          mma_tf32(part[mt][j], al[mt], bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+        for (int j = 0; j < WN; ++j)
+          mma_tf32(part[mt][j], ah[mt], bh[j][0], bh[j][1]);
+      if (ks % kFlush == kFlush - 1 || ks == ksteps - 1) {
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[mt][j][i] += part[mt][j][i];
+              part[mt][j][i] = 0.f;
             }
-          }
-        }
       }
     }
+    __syncthreads();   // this stage's buffers may be refilled
   }
 
-  const int x = x0 + col;
-  if (x >= wd) return;
+  // the epilogue: the sums go through shared memory, so that a warp then
+  // takes consecutive channels of a pixel and its loads and stores of zs,
+  // cs, dys, dz and the dc carry cover whole sectors (a fragment holds 8
+  // pixels and every other channel). Four values a thread at a time, every
+  // input loaded before any store: the compiler must assume that the
+  // stores alias the loads.
+  constexpr int EW = NS + 8;                 // row stride of the sums
+  float* ep_s = reinterpret_cast<float*>(smem4);   // [th*tw][EW]
+  const int P = th * tw;
+  __syncthreads();                           // the staging is done with
 #pragma unroll
-  for (int i = 0; i < kTH; ++i) {
-    const int y = y0 + i;
-    if (y >= h) break;
-    const int64_t pix = (int64_t)y * wd + x;
-    const int64_t e = frame * hw + pix;
+  for (int mt = 0; mt < WM; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + cg * 4 + j;
-      if (o >= f) break;
-      const float* zp = zs + e * f4 + o;
-      const float zi = zp[0], zf = zp[f], zc = zp[2 * f], zo = zp[3 * f];
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = mb + mt * 16 + gq + 8 * (i >> 1);
+        if (m < P) ep_s[m * EW + (wn * WN + j) * 8 + 2 * tq + (i & 1)] = acc[mt][j][i];
+      }
+  __syncthreads();
+  for (int base = 0; base < P * NS; base += 4 * kThreads) {
+    int64_t e[4], pix[4];
+    int o[4], idx[4];
+    bool ok[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      idx[i] = base + i * kThreads + tid;
+      const int m = idx[i] / NS;
+      const int y = ty0 + m / tw, x = tx0 + m % tw;
+      o[i] = n0 + idx[i] % NS;
+      ok[i] = idx[i] < P * NS && y < a.h && x < a.wd && o[i] < N;
+      pix[i] = (int64_t)y * a.wd + x;
+      e[i] = frame * hw + pix[i];
+    }
+    if (!CHAIN) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (ok[i]) a.out[e[i] * N + o[i]] = ep_s[(idx[i] / NS) * EW + idx[i] % NS];
+      continue;
+    }
+    float z[4][4], c_t[4], c_prev[4], dc_next[4], dy[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (!ok[i]) continue;
+      const float* zp = a.zs + e[i] * C + o[i];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) z[i][g] = zp[g * N];
+      c_t[i] = a.cs[e[i] * N + o[i]];
+      c_prev[i] = a.step > 0 ? a.cs[(e[i] - hw) * N + o[i]] : 0.f;
+      dc_next[i] = a.step + 1 < a.t_steps
+                       ? a.dcs[((int64_t)fr * hw + pix[i]) * N + o[i]]
+                       : 0.f;
+      dy[i] = a.dys[e[i] * N + o[i]];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (!ok[i]) continue;
+      const float zi = z[i][0], zf = z[i][1], zc = z[i][2], zo = z[i][3];
       const float gi = hard_sigmoid(zi), gf = hard_sigmoid(zf);
       const float gg = tanhf(zc), go = hard_sigmoid(zo);
-      const float tc = tanhf(cs[e * f + o]);
-      const float c_prev = step > 0 ? cs[(e - hw) * f + o] : 0.f;
-      float* dcp = dcs + ((int64_t)b * hw + pix) * f + o;
-      const float dc_next = step + 1 < t_steps ? *dcp : 0.f;
-      const float dh = __fadd_rn(dys[e * f + o], acc[i][j]);
+      const float tc = tanhf(c_t[i]);
+      const float dh = __fadd_rn(dy[i], ep_s[(idx[i] / NS) * EW + idx[i] % NS]);
       const float d_o = __fmul_rn(dh, tc);
       const float dc = __fadd_rn(
-          __fmul_rn(__fmul_rn(dh, go), __fsub_rn(1.f, __fmul_rn(tc, tc))), dc_next);
-      float* dzp = dzs + e * f4 + o;
+          __fmul_rn(__fmul_rn(dh, go), __fsub_rn(1.f, __fmul_rn(tc, tc))),
+          dc_next[i]);
+      float* dzp = a.out + e[i] * C + o[i];
       dzp[0] = __fmul_rn(__fmul_rn(dc, gg), d_hard_sigmoid(zi));
-      dzp[f] = __fmul_rn(__fmul_rn(dc, c_prev), d_hard_sigmoid(zf));
-      dzp[2 * f] = __fmul_rn(__fmul_rn(dc, gi), __fsub_rn(1.f, __fmul_rn(gg, gg)));
-      dzp[3 * f] = __fmul_rn(d_o, d_hard_sigmoid(zo));
-      *dcp = __fmul_rn(dc, gf);
+      dzp[N] = __fmul_rn(__fmul_rn(dc, c_prev[i]), d_hard_sigmoid(zf));
+      dzp[2 * N] =
+          __fmul_rn(__fmul_rn(dc, gi), __fsub_rn(1.f, __fmul_rn(gg, gg)));
+      dzp[3 * N] = __fmul_rn(d_o, d_hard_sigmoid(zo));
+      a.dcs[((int64_t)fr * hw + pix[i]) * N + o[i]] = __fmul_rn(dc, gf);
     }
   }
 }
 
-template <int KMAX>
-cudaError_t launch_step(const float* zs, const float* cs, const float* dys,
-                        const float* whT, float* dzs, float* dcs, int b, int t_steps,
-                        int step, int h, int wd, int f, int kh, int kw,
-                        cudaStream_t stream) {
-  auto kern = seq_chain_step<KMAX>;
-  const int groups = min(kGroups, (f + 3) / 4);
-  const int shmem = (int)sizeof(float) * smem_floats(kh, kw, groups);
-  if (shmem > kMaxSmem) return cudaErrorInvalidValue;
+template <int NS>
+__global__ void __launch_bounds__(kThreads, 2) chain_step(const Args a) {
+  convt_tile<NS, true>(a);
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kThreads, 2) dx_frames(const Args a) {
+  convt_tile<NS, false>(a);
+}
+
+template <int NS, bool CHAIN>
+cudaError_t launch(Args& a, int64_t frames, cudaStream_t s) {
+  auto kern = CHAIN ? chain_step<NS> : dx_frames<NS>;
+  const size_t shmem = sizeof(float) * (size_t)smem_floats(
+                                           NS, a.th, a.tw, a.kh, a.kw, a.cw, a.rps);
+  if (shmem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(kern), cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shmem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return err;
   }
-  const int tiles_x = (wd + kTW - 1) / kTW;
-  const int tiles_y = (h + kTH - 1) / kTH;
-  const dim3 grid(tiles_x * tiles_y, (f + 4 * kGroups - 1) / (4 * kGroups), b);
-  kern<<<grid, kTW * groups, shmem, stream>>>(zs, cs, dys, whT, dzs, dcs, t_steps, step,
-                                              h, wd, f, kh, kw, tiles_x, groups);
+  a.tiles_x = (a.wd + a.tw - 1) / a.tw;
+  const int64_t tiles = (int64_t)a.tiles_x * ((a.h + a.th - 1) / a.th);
+  const int64_t blocks = frames * tiles;
+  const int slices = (a.n + NS - 1) / NS;
+  if (blocks > INT32_MAX || slices > 65535) return cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  kern<<<dim3((unsigned)blocks, slices), kThreads, shmem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <bool CHAIN>
+cudaError_t launch_ns(Args& a, int64_t frames, int ns, cudaStream_t s) {
+  if (frames < 1 || a.h < 1 || a.wd < 1 || a.n < 1 || a.c < 4 || a.c % 4 ||
+      a.kh < 1 || a.kw < 1 || a.kh % 2 == 0 || a.kw % 2 == 0 ||
+      (a.cw != 4 && a.cw != 8) || (a.rps != 1 && a.rps != a.kh) ||
+      a.th < 1 || a.tw < 1 || a.th * a.tw > kBM)
+    return cudaErrorInvalidValue;
+  if (ns == 8) return launch<8, CHAIN>(a, frames, s);
+  if (ns == 16) return launch<16, CHAIN>(a, frames, s);
+  if (ns == 32) return launch<32, CHAIN>(a, frames, s);
+  if (ns == 64) return launch<64, CHAIN>(a, frames, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -241,24 +445,32 @@ cudaError_t launch_step(const float* zs, const float* cs, const float* dys,
 // chain: reads zs [B, T, H, W, 4F], cs and dys [B, T, H, W, F], whT [kh, kw,
 // 4F, F] (the flipped, transposed recurrent kernel) and dz_{step+1} from dzs;
 // writes dz_step to dzs [B, T, H, W, 4F]. The dc carry dcs [B, H, W, F] is
-// the caller's scratch. Odd kh <= 7 and odd kw. Returns the cudaError_t of
-// the launch (cudaErrorInvalidValue for a shape the kernel does not take);
-// does not synchronise.
+// the caller's scratch. The plan comes from the wrapper (ops/convlstm.py
+// `_seq_plan`): ns (8, 16, 32 or 64 output channels a block), the th x tw
+// pixel tile (at most 128 pixels), cw (4 or 8 dz channels a chunk) and rps
+// (1 or kh tap rows a stage). Odd kh and kw. Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for a shape or plan the kernel does not
+// take); does not synchronise.
 extern "C" int dl4ds_convlstm_seq_step(const float* zs, const float* cs,
-                                       const float* dys, const float* whT,
+                                       const float* dys, const float* wht,
                                        float* dzs, float* dcs, int b, int t_steps,
-                                       int step, int h, int wd, int f, int kh, int kw,
-                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b < 1 || b > 65535 || h < 1 || wd < 1 || f < 1 || step < 0 || step >= t_steps ||
-      kh < 1 || kw < 1 || kh % 2 == 0 || kw % 2 == 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (kh <= 3)
-    err = launch_step<3>(zs, cs, dys, whT, dzs, dcs, b, t_steps, step, h, wd, f, kh, kw, s);
-  else if (kh <= 5)
-    err = launch_step<5>(zs, cs, dys, whT, dzs, dcs, b, t_steps, step, h, wd, f, kh, kw, s);
-  else if (kh <= 7)
-    err = launch_step<7>(zs, cs, dys, whT, dzs, dcs, b, t_steps, step, h, wd, f, kh, kw, s);
-  return (int)err;
+                                       int step, int h, int wd, int f, int kh,
+                                       int kw, int ns, int th, int tw, int cw,
+                                       int rps, void* stream) {
+  if (b < 1 || step < 0 || step >= t_steps) return (int)cudaErrorInvalidValue;
+  Args a{dzs, wht, dzs, zs, cs, dys, dcs, t_steps, step, h, wd, 4 * f, f,
+         kh, kw, th, tw, cw, rps, 0, 0};
+  return (int)launch_ns<true>(a, b, ns, static_cast<cudaStream_t>(stream));
+}
+
+// dx [frames, H, W, Cin] = convT(dzs, wx) over `frames` = B*T frames of dzs
+// [frames, H, W, 4F], with wxT [kh, kw, 4F, Cin] the flipped, transposed
+// input kernel. Plan and return value as dl4ds_convlstm_seq_step's.
+extern "C" int dl4ds_convlstm_dx(const float* dzs, const float* wxt, float* dx,
+                                 int frames, int h, int wd, int cin, int f,
+                                 int kh, int kw, int ns, int th, int tw, int cw,
+                                 int rps, void* stream) {
+  Args a{dzs, wxt, dx, nullptr, nullptr, nullptr, nullptr, 1, 0, h, wd, 4 * f,
+         cin, kh, kw, th, tw, cw, rps, 0, 0};
+  return (int)launch_ns<false>(a, frames, ns, static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,8 @@
 Each source under `dl4ds_tpu_torch/csrc/` compiles, on first use, into a
 shared library with a plain C interface under `build/kernels/` at the root
 of the checkout (git-ignored). The library's file name carries a hash of its
-source, so an edited source is rebuilt and a stale build is never loaded.
+source and of the shared headers (`csrc/*.cuh`), so an edited source or
+header is rebuilt and a stale build is never loaded.
 There is no fallback: a failed build raises.
 """
 
@@ -48,8 +49,11 @@ def _nvcc():
 
 
 def lib_path(name):
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
+    """The library's path, named by a hash of its source, of every header
+    under csrc/ (the sources include them) and of the compiler flags."""
+    parts = [(CSRC_DIR / SOURCES[name]).read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC_DIR.glob('*.cuh'))]
+    digest = hashlib.sha256(b''.join(parts)
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}-{digest}.so'
 

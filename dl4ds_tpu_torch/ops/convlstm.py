@@ -10,10 +10,12 @@ mode on and an input that requires grad), `FusedConvLSTM`, whose forward is
 K2's training variant (the same launches, also writing the `cs` and `zs`
 residuals). Its backward takes
 one of two routes, chosen by `dispatch_info` from the layer's shape alone:
-'fused', K3, the one-kernel BPTT of `csrc/convlstm_bwd.cu`; or 'split', K4
-(`csrc/convlstm_seq.cu`, the sequential dh/dc chain only, writing dz for
-every step) followed by `convlstm_backward_tail`, float32 GEMMs for dx, dWx,
-dWh and db over all frames at once. On CPU tensors the same routing runs the
+'fused', K3: the sequential dh/dc chain (`csrc/convlstm_seq.cu`, T
+chain-step launches writing dz for every step), dx with the same tile, and
+the weight gradients of `csrc/convlstm_bwd.cu`, all 3xTF32 tensor-core
+tiles; or 'split', K4 (the same chain launches) followed by
+`convlstm_backward_tail`, float32 GEMMs for dx, dWx, dWh and db over all
+frames at once. On CPU tensors the same routing runs the
 plain PyTorch versions (`convlstm_train_reference`,
 `convlstm_backward_reference`, `convlstm_seq_reference`; the tail is the
 same code on both devices), which are the kernels' oracles. There is no
@@ -269,12 +271,12 @@ def _check_kernels(x, wx, bx, wh):
 
 
 # The backward's route table, from one layer's whole backward timed by each
-# route on an H100 SXM (batch 128, T 4, 16x16, F in {8, 16, 32, 64}, Cin in
-# {1, F}, 3x3 and 5x5; tools/torch_convlstm_route.py, PERF.md): the split
-# route wins from F = 16 on at 3x3 and from F = 32 on at 5x5.
-_SPLIT_MIN_F_3X3 = 16    # kernels of at most 9 taps
-_SPLIT_MIN_F = 32        # larger kernels
-_SEQ_MAX_KH = 7          # K4's register tiles take kh <= 7
+# route on an NVIDIA H100 80GB HBM3 at 700 W (batch 128, T 4, 16x16, F in
+# {8, 16, 32, 64}, Cin in {1, F}, 3x3 and 5x5; tools/torch_convlstm_route.py,
+# PERF.md): 'fused' wins every layer up to F = 32 (by 12-48%), 'split' the
+# 3x3 layers at F = 64 (by 13-15%) and 1 -> 64 at 5x5 (by 4%); at 64 -> 64
+# 5x5 'fused' was 2% ahead, a tie that a rule on F alone leaves to 'split'.
+_SPLIT_MIN_F = 64
 
 
 def dispatch_info(x_shape, wx_shape, wh_shape):
@@ -287,21 +289,16 @@ def dispatch_info(x_shape, wx_shape, wh_shape):
     Returns {'path': 'fused' | 'split', 'reason': str}. 'fused' is K2's
     training variant forward and K3 backward; 'split' the same forward and
     K4 (the sequential chain) followed by `convlstm_backward_tail` (float32
-    GEMMs). Even or mismatched kernels raise, as the kernels do."""
+    GEMMs); both run the same chain-step kernel. Even or mismatched
+    kernels raise, as the kernels do."""
     _check_shapes(x_shape, wx_shape, (tuple(wx_shape)[-1],), wh_shape)
-    kh, kw, f = wx_shape[0], wx_shape[1], wh_shape[2]
-    if kh > _SEQ_MAX_KH:
+    f = wh_shape[2]
+    if f < _SPLIT_MIN_F:
         return {'path': 'fused',
-                'reason': f'kh {kh} > {_SEQ_MAX_KH}: K4 takes kh <= '
-                          f'{_SEQ_MAX_KH}'}
-    min_f = _SPLIT_MIN_F_3X3 if kh * kw <= 9 else _SPLIT_MIN_F
-    if f < min_f:
-        return {'path': 'fused',
-                'reason': f'F {f} < {min_f} at {kh}x{kw}: K3 is faster '
-                          f'(measured)'}
+                'reason': f'F {f} < {_SPLIT_MIN_F}: K3 is faster (measured)'}
     return {'path': 'split',
-            'reason': f'F {f} >= {min_f} at {kh}x{kw}: K4 and the GEMM tail '
-                      f'are faster (measured)'}
+            'reason': f'F {f} >= {_SPLIT_MIN_F}: K4 and the GEMM tail are '
+                      f'faster (measured)'}
 
 
 def _fwd_lib():
@@ -320,9 +317,7 @@ def _fwd_lib():
 def _bwd_lib():
     lib = _build.load('convlstm_bwd')
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    argtypes = {'dl4ds_convlstm_bptt_step': [p] * 6 + [i] * 9 + [p],
-                'dl4ds_convlstm_dx': [p] * 3 + [i] * 8 + [p],
-                'dl4ds_convlstm_wgrad': [p] * 3 + [i] * 14 + [p],
+    argtypes = {'dl4ds_convlstm_wgrad': [p] * 3 + [i] * 16 + [p],
                 'dl4ds_convlstm_wgrad_reduce': [p, i, i64, p, p, i, i64, p, p]}
     for name, types in argtypes.items():
         fn = getattr(lib, name)
@@ -333,21 +328,16 @@ def _bwd_lib():
 
 
 def _seq_lib():
-    fn = _build.load('convlstm_seq').dl4ds_convlstm_seq_step
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 8 + [p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _rows_per_thread(b, h, w, f, n_sm):
-    """Rows of output a thread of K3's chain-step and dx kernels computes
-    (at one column, for a group of 8 channels). A block tiles 8*rows by 32
-    columns; rows is 2 unless that leaves an SM without a block (for dx, b
-    counts frames and f input channels)."""
-    blocks = b * -(-f // 8) * -(-w // 32) * -(-h // 16)
-    return 2 if blocks >= n_sm else 1
+    lib = _build.load('convlstm_seq')
+    p, i = ctypes.c_void_p, ctypes.c_int
+    argtypes = {'dl4ds_convlstm_seq_step': [p] * 6 + [i] * 13 + [p],
+                'dl4ds_convlstm_dx': [p] * 3 + [i] * 12 + [p]}
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+    return lib
 
 
 _K2_TILE_W = 32               # the widest K2 pixel tile
@@ -405,24 +395,91 @@ def _fwd_plan(b, t, h, w, kh, kw, f, n_sm):
             'warps': (64 // fs, fs // 8), 'm_tiles': 2}
 
 
+_SEQ_TILE = 128               # pixels of a chain-step or dx block
+_SEQ_SMEM_BUDGET = 110 * 1024  # shared memory of such a block: two share an SM
+
+
+def _seq_smem(ns, th, tw, kh, kw, cw, rps):
+    """Shared memory bytes of a chain-step or dx block (`smem_floats` in
+    `csrc/convlstm_seq.cu`): two dz tiles with their halo, 12 floats a
+    pixel; two stages of weight rows (rps tap rows x kw taps x cw channels,
+    padded to 8) of ns output channels at a row stride of max(24, ns + 8);
+    two k-offset tables; at least the epilogue's th*tw rows of ns + 8 sums."""
+    kp = -(-rps * kw * cw // 8) * 8
+    return 4 * max(2 * (th + kh - 1) * (tw + kw - 1) * 12
+                   + 2 * kp * max(24, ns + 8) + 2 * kp, th * tw * (ns + 8))
+
+
+def _seq_plan(b, h, w, kh, kw, f, n_sm):
+    """Launch plan of the chain-step tile (K4, and K3's chain and dx), a
+    pure function of the shapes: b frames (samples for a chain step, B*T
+    frames for dx), f output channels (F, or Cin for dx), 4F dz channels.
+
+    A block (8 warps) computes a th x tw pixel tile of one frame, tw =
+    min(W, 32), th = min(128 // tw, H) (a 16x16 frame is two whole tiles,
+    no idle lane), for ns output channels: the power of two from 8 to 64
+    that covers f, halved while the launch would leave an SM without a
+    block. At ns 64 the warps are 4 (pixels) x 2 (channels), each 2 m16
+    pixel runs x 4 n8 channel tiles; below, 8 x 1, each one m16 run x ns/8
+    tiles. The K loop stages cw (8 or 4) dz channels and rps (kh or 1) tap
+    rows at a time: the largest stage whose double buffers fit
+    `_SEQ_SMEM_BUDGET`, tried in the order (8, kh), (4, kh), (8, 1).
+
+    The grid is (b*tiles, slices); block x covers tile x % tiles of frame
+    x // tiles, at rows (tile // tiles_x) * th and columns (tile % tiles_x)
+    * tw (`csrc/convlstm_seq.cu`)."""
+    def cdiv(a, d):
+        return -(-a // d)
+
+    tw = min(w, 32)
+    th = max(1, min(_SEQ_TILE // tw, h))
+    tiles_x = cdiv(w, tw)
+    tiles = tiles_x * cdiv(h, th)
+    ns = 8
+    while ns < min(f, 64):
+        ns *= 2
+    while ns > 8 and b * tiles * cdiv(f, ns) < n_sm:
+        ns //= 2
+    for cw, rps in ((8, kh), (4, kh), (8, 1)):
+        smem = _seq_smem(ns, th, tw, kh, kw, cw, rps)
+        if smem <= _SEQ_SMEM_BUDGET:
+            break
+    warps_n = 2 if ns == 64 else 1
+    return {'ns': ns, 'th': th, 'tw': tw, 'tiles_x': tiles_x,
+            'tiles': tiles, 'slices': cdiv(f, ns), 'cw': cw, 'rps': rps,
+            'smem': smem, 'grid': (b * tiles, cdiv(f, ns)),
+            'warps': (8 // warps_n, warps_n), 'm_tiles': 2 if ns == 64 else 1,
+            'n_tiles': ns // 8 // warps_n}
+
+
 def _wgrad_plan(b, t, t_skip, h, w, cs, f, kh, kw, n_sm):
     """Launch plan of K3's weight-gradient pass over the frames t_skip ..
-    T-1 of every sample: pixel tiles of tph x tpw (at most 256 pixels of
-    one frame), `tpb` tiles a block, so that the blocks fill the card about
-    four times over while each block sums as many tiles as that allows.
-    Returns (tph, tpw, tpb, n_chunks), n_chunks the number of partial rows."""
+    T-1 of every sample, a split-K GEMM of rows (tap, source channel) by
+    4F gate columns over the pixels (`csrc/convlstm_bwd.cu`).
+
+    Pixel tiles of tph x tpw, at most 256 pixels of one frame (tpw =
+    min(W, 32)); a block sums `tpb` consecutive tiles, so that the blocks
+    of the pass make about one wave of two blocks an SM. A block row is cwc
+    source channels (min(C, 8), or min(C, 4) when kh*kw*8 rows would pass
+    255) of up to tpc taps (at most 255 rows; the Wx pass's first chunk
+    adds a row of ones for db) and 32 gate columns; grid.y counts those
+    chunks. (The kernel gives each warp 2 m16 row tiles and lets the warps
+    the rows leave over split the k-steps.)
+
+    Returns a dict; n_chunks is the number of partial rows (grid.x)."""
     def cdiv(a, d):
         return -(-a // d)
 
     tpw = min(w, 32)
     tph = min(h, max(1, 256 // tpw))
     n_tiles = b * (t - t_skip) * cdiv(w, tpw) * cdiv(h, tph)
-    # blocks per pixel chunk: 8 source channels x 64 row tiles (4 channels
-    # of one tap each) x 32 gate channels
-    grid_y = (cdiv(cs, 8) * cdiv(kh * kw * cdiv(min(8, cs), 4), 64)
-              * cdiv(4 * f, 32))
-    tpb = max(1, n_tiles * grid_y // (4 * n_sm))
-    return tph, tpw, tpb, cdiv(n_tiles, tpb)
+    taps = kh * kw
+    cwc = min(cs, 8) if taps * min(cs, 8) <= 255 else min(cs, 4)
+    tpc = min(taps, 255 // cwc)
+    grid_y = cdiv(cs, cwc) * cdiv(taps, tpc) * cdiv(4 * f, 32)
+    tpb = max(1, cdiv(n_tiles * grid_y, 2 * n_sm))
+    return {'tph': tph, 'tpw': tpw, 'tpb': tpb, 'n_chunks': cdiv(n_tiles, tpb),
+            'cwc': cwc, 'tpc': tpc, 'grid_y': grid_y}
 
 
 def _check_cuda(tensors, what):
@@ -461,8 +518,7 @@ def _launch(x, wx, bx, wh, train=False):
     if b * t * h * w == 0:
         raise ValueError(f'ConvLSTM kernel got an empty x {tuple(x.shape)}')
     x, wx, bx, wh = (_aligned(u) for u in tensors)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = _fwd_plan(b, t, h, w, kh, kw, f, n_sm)
+    plan = _fwd_plan(b, t, h, w, kh, kw, f, _n_sm(dev))
     if plan['input_grid'][0] >= 2 ** 31:
         raise ValueError(f'ConvLSTM kernel got too many pixel tiles for one '
                          f'launch: x {tuple(x.shape)}')
@@ -496,6 +552,42 @@ def _launch(x, wx, bx, wh, train=False):
     return (ys, c, zx) if train else ys
 
 
+def _flip_t(w):
+    """wT [kh, kw, Co, C] from an HWIO kernel w [kh, kw, C, Co]: flipped in
+    both spatial axes, channel axes swapped, so that convT(dz, w) is a SAME
+    conv of dz with wT."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def _chain(zs, cs, dys, wh, count):
+    """Run the chain-step kernel T times in reverse on the current stream,
+    adding one to `fused_convlstm.<count>` a launch. Returns dzs [B, T, H,
+    W, 4F]."""
+    b, t, h, w, f4 = zs.shape
+    kh, kw, f, _ = wh.shape
+    dev = zs.device
+    plan = _seq_plan(b, h, w, kh, kw, f, _n_sm(dev))
+    geometry = tuple(plan[k] for k in ('ns', 'th', 'tw', 'cw', 'rps'))
+    wht = _flip_t(wh)
+    dzs = torch.empty_like(zs)
+    dcs = torch.empty((b, h, w, f), dtype=torch.float32, device=dev)
+    fn = _seq_lib().dl4ds_convlstm_seq_step
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for step in reversed(range(t)):
+        err = fn(zs.data_ptr(), cs.data_ptr(), dys.data_ptr(), wht.data_ptr(),
+                 dzs.data_ptr(), dcs.data_ptr(), b, t, step, h, w, f, kh, kw,
+                 *geometry, stream)
+        if err != 0:
+            raise RuntimeError(f'ConvLSTM chain-step kernel launch failed '
+                               f'with CUDA error {err} (step {step})')
+        setattr(fused_convlstm, count, getattr(fused_convlstm, count) + 1)
+    return dzs
+
+
+def _n_sm(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
     """Run K3: the T reverse chain steps, dx over all frames (when need_dx),
     the Wx (with db) and Wh weight-gradient passes and the one reduction of
@@ -511,20 +603,19 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
             f'ConvLSTM residuals do not match x {tuple(x.shape)} and F={f}: '
             f'zs {tuple(zs.shape)}, cs {tuple(cs.shape)}, ys '
             f'{tuple(ys.shape)}, dys {tuple(dys.shape)}')
-    if b * t > 65535:
-        raise ValueError(f'ConvLSTM backward kernel takes at most 65535 '
-                         f'frames per call, got {b * t}')
+    if b * t * h * w == 0:
+        raise ValueError(f'ConvLSTM backward kernel got an empty x '
+                         f'{tuple(x.shape)}')
     x, wx, wh, zs, cs, ys, dys = (_aligned(u) for u in tensors)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_sm = _n_sm(dev)
     lib = _bwd_lib()
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-    dzs, dcs = empty(b, t, h, w, f4), empty(b, h, w, f)
-    dx = empty(b, t, h, w, cin) if need_dx else None
     lx = kh * kw * cin * f4
     plan_x = _wgrad_plan(b, t, 0, h, w, cin, f, kh, kw, n_sm)
-    part_x = empty(plan_x[3], lx + f4)
+    part_x = empty(plan_x['n_chunks'], lx + f4)
     plan_h = _wgrad_plan(b, t, 1, h, w, f, f, kh, kw, n_sm) if t > 1 else None
-    part_h = empty(plan_h[3], kh * kw * f * f4) if t > 1 else empty(0)
+    part_h = (empty(plan_h['n_chunks'], kh * kw * f * f4) if t > 1
+              else empty(0))
     out_x, dwh = empty(lx + f4), empty(kh, kw, f, f4)
 
     def check(err, what):
@@ -533,28 +624,29 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
                                f'CUDA error {err} ({what})')
         fused_convlstm.bwd_launches += 1
 
+    def wgrad(src, part, plan, with_db, t_skip, cs_):
+        check(lib.dl4ds_convlstm_wgrad(
+            src.data_ptr(), dzs.data_ptr(), part.data_ptr(), plan['n_chunks'],
+            with_db, b, t, t_skip, h, w, cs_, f, kh, kw,
+            *(plan[k] for k in ('tph', 'tpw', 'tpb', 'cwc', 'tpc')), stream),
+            'dWx' if with_db else 'dWh')
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        py = _rows_per_thread(b, h, w, f, n_sm)
-        for step in reversed(range(t)):
-            check(lib.dl4ds_convlstm_bptt_step(
-                zs.data_ptr(), cs.data_ptr(), dys.data_ptr(), wh.data_ptr(),
-                dzs.data_ptr(), dcs.data_ptr(), b, t, step, h, w, f, kh, kw,
-                py, stream), f'chain step {step}')
+        dzs = _chain(zs, cs, dys, wh, 'bwd_launches')
+        dx = None
         if need_dx:
-            check(lib.dl4ds_convlstm_dx(
-                dzs.data_ptr(), wx.data_ptr(), dx.data_ptr(), b * t, h, w, cin,
-                f, kh, kw, _rows_per_thread(b * t, h, w, cin, n_sm), stream),
+            dx = empty(b, t, h, w, cin)
+            plan = _seq_plan(b * t, h, w, kh, kw, cin, n_sm)
+            wxt = _flip_t(wx)
+            check(_seq_lib().dl4ds_convlstm_dx(
+                dzs.data_ptr(), wxt.data_ptr(), dx.data_ptr(), b * t, h, w,
+                cin, f, kh, kw,
+                *(plan[k] for k in ('ns', 'th', 'tw', 'cw', 'rps')), stream),
                 'dx')
-        tph, tpw, tpb, n_chunks = plan_x
-        check(lib.dl4ds_convlstm_wgrad(
-            x.data_ptr(), dzs.data_ptr(), part_x.data_ptr(), n_chunks, 1, b, t,
-            0, h, w, cin, f, kh, kw, tph, tpw, tpb, stream), 'dWx')
+        wgrad(x, part_x, plan_x, 1, 0, cin)
         if plan_h is not None:
-            tph, tpw, tpb, n_chunks = plan_h
-            check(lib.dl4ds_convlstm_wgrad(
-                ys.data_ptr(), dzs.data_ptr(), part_h.data_ptr(), n_chunks, 0,
-                b, t, 1, h, w, f, f, kh, kw, tph, tpw, tpb, stream), 'dWh')
+            wgrad(ys, part_h, plan_h, 0, 1, f)
         check(lib.dl4ds_convlstm_wgrad_reduce(
             part_x.data_ptr(), part_x.shape[0], lx + f4, out_x.data_ptr(),
             part_h.data_ptr(), part_h.shape[0], dwh.numel(), dwh.data_ptr(),
@@ -574,32 +666,15 @@ def _launch_seq(zs, cs, dys, wh):
         raise ValueError(
             f'ConvLSTM residuals do not match wh {tuple(wh.shape)}: zs '
             f'{tuple(zs.shape)}, cs {tuple(cs.shape)}, dys {tuple(dys.shape)}')
-    if kh % 2 == 0 or kw % 2 == 0 or kh > _SEQ_MAX_KH:
-        raise ValueError(f'the sequential BPTT kernel takes odd kernels with '
-                         f'kh <= {_SEQ_MAX_KH}, got {kh}x{kw}')
-    if not 0 < b <= 65535 or h * w == 0:
-        raise ValueError(f'the sequential BPTT kernel takes 1 to 65535 '
-                         f'samples of a non-empty frame, got zs '
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f'the sequential BPTT kernel takes odd kernels, got '
+                         f'{kh}x{kw}')
+    if b * t * h * w == 0:
+        raise ValueError(f'the sequential BPTT kernel got an empty zs '
                          f'{tuple(zs.shape)}')
-    zs, cs, dys = (_aligned(u) for u in (zs, cs, dys))
-    # whT [kh, kw, 4F, F]: wh flipped in both spatial axes, channel axes
-    # swapped, so that the kernel stages its output channels contiguously
-    wht = wh.flip(0, 1).transpose(2, 3).contiguous()
-    dzs = torch.empty_like(zs)
-    dcs = torch.empty((b, h, w, f), dtype=torch.float32, device=dev)
-    fn = _seq_lib()
+    zs, cs, dys, wh = (_aligned(u) for u in tensors)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for step in reversed(range(t)):
-            err = fn(zs.data_ptr(), cs.data_ptr(), dys.data_ptr(),
-                     wht.data_ptr(), dzs.data_ptr(), dcs.data_ptr(), b, t,
-                     step, h, w, f, kh, kw, stream)
-            if err != 0:
-                raise RuntimeError(f'ConvLSTM sequential BPTT kernel launch '
-                                   f'failed with CUDA error {err} (step '
-                                   f'{step})')
-            fused_convlstm.seq_launches += 1
-    return dzs
+        return _chain(zs, cs, dys, wh, 'seq_launches')
 
 
 def _backward(route, x, wx, wh, zs, cs, ys, dys, need_dx=True):

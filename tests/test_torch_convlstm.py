@@ -27,8 +27,7 @@ import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch.models.blocks import (ChannelAttention2D, ConvLSTM2D,
                                            RecurrentConvBlock)
 from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _fwd_plan, _launch,
-                                          _rows_per_thread, _unfold,
-                                          convlstm_train_reference,
+                                          _unfold, convlstm_train_reference,
                                           hard_sigmoid)
 
 HR, SCALE, T = 64, 4, 3
@@ -143,19 +142,6 @@ def test_k2_kernel_wrapper_guards(case):
     dtype = getattr(torch, case)
     with pytest.raises(TypeError, match='item 5'):
         _launch(x.to(dtype), wx, bx, wh)
-
-
-@pytest.mark.parametrize('shape,want', [
-    ((8, 128, 128, 8), 2),           # 256 blocks
-    ((8, 32, 32, 64), 1),            # 128 blocks at 16 rows
-    ((2, 9, 11, 5), 1),
-    ((16, 64, 64, 12), 2)])          # two channel groups, the last padded
-def test_k2_thread_shape(shape, want):
-    """The thread shape of K3's chain-step and dx kernels (K2 had it until
-    its tiles became whole-frame pixel tiles): two rows per thread unless
-    that leaves one of the 132 SMs without a block; a block takes 8
-    channels, so F = 12 makes two groups."""
-    assert _rows_per_thread(*shape, n_sm=132) == want
 
 
 def _k2_block_outputs(plan, frames, h, w, f):

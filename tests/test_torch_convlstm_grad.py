@@ -4,9 +4,11 @@ package on the CPU: the plain versions of K2's training variant
 (`convlstm_backward_reference`, the BPTT), reached through `FusedConvLSTM`,
 held against `jax.grad` through the Pallas kernels run in interpret mode
 (`_fwd_kernel` with residuals, `_bwd_kernel`) and through the XLA reference.
-Inputs come from numpy; everything is float32. Tolerances as
-tests/test_pallas_ops.py's gradient test: dx 1e-5, weights and bias 1e-4;
-forward values and residuals 1e-5."""
+Also K3's weight-gradient pass: its launch plan (every gradient term written
+once) and its 3xTF32 arithmetic emulated against the float32 and float64
+plain versions (1e-5 of max |ref|). Inputs come from numpy; everything is
+float32. Tolerances as tests/test_pallas_ops.py's gradient test: dx 1e-5,
+weights and bias 1e-4; forward values and residuals 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -16,10 +18,13 @@ import torch
 
 import dl4ds_tpu_torch as tds
 import dl4ds_tpu.ops.pallas_convlstm as jax_pallas_convlstm
-from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _wgrad_plan,
+from dl4ds_tpu_torch.models.blocks import ConvLSTM2D
+from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _unfold, _wgrad_plan,
                                           convlstm_backward_reference,
+                                          convlstm_seq_reference,
                                           convlstm_train_reference,
                                           d_hard_sigmoid, hard_sigmoid)
+from dl4ds_tpu_torch.ops.convlstm import _conv_same_w as conv_same_w
 
 # (B, T, H, W, Cin, F, kh, kw): the three shapes of
 # tests/test_torch_convlstm.py's K2_SHAPES (Cin != F, H != W with an odd W,
@@ -176,17 +181,128 @@ def test_routing_takes_the_function_only_for_a_gradient(grad):
 
 
 @pytest.mark.parametrize('args,want', [
-    # the training step's layers: one 16x16 frame a tile, 512 partial rows
-    ((128, 4, 0, 16, 16, 8, 8, 5, 5, 132), (16, 16, 1, 512)),
-    ((128, 4, 1, 16, 16, 8, 8, 3, 3, 132), (16, 16, 1, 384)),
-    # width 64: 64 blocks a pixel chunk, so 15 tiles a block
-    ((8, 4, 0, 32, 32, 64, 64, 5, 5, 132), (8, 32, 15, 9)),
-    # ragged: 2 x 2 tiles of a 9x41 frame
-    ((2, 1, 0, 9, 41, 3, 6, 1, 3, 132), (8, 32, 1, 8))])
+    # the width-8 training step's passes (Wx, Wh): a 16x16 frame a tile, two
+    # tiles a block for about one wave of two blocks an SM; the stem's one
+    # source channel makes block rows of one channel
+    ((128, 4, 0, 16, 16, 1, 8, 5, 5), (16, 16, 2, 256, 1, 25, 1)),
+    ((128, 4, 0, 16, 16, 8, 8, 5, 5), (16, 16, 2, 256, 8, 25, 1)),
+    ((128, 4, 1, 16, 16, 8, 8, 3, 3), (16, 16, 2, 192, 8, 9, 1)),
+    # width 64 (the route table's 'fused' timing): 64 chunks a pixel chunk
+    ((128, 4, 1, 16, 16, 64, 64, 5, 5), (16, 16, 94, 5, 8, 25, 64)),
+    # 7x7: 4 channels a chunk; 9x9: two tap chunks of 63 and 18 taps
+    ((2, 2, 0, 19, 23, 8, 4, 7, 7), (11, 23, 1, 8, 4, 49, 2)),
+    ((2, 2, 1, 12, 12, 8, 8, 9, 9), (12, 12, 1, 2, 4, 63, 4)),
+    # ragged: 2 x 2 tiles of a 9x41 frame, 3 channels a chunk
+    ((2, 1, 0, 9, 41, 3, 6, 1, 3), (8, 32, 1, 8, 3, 3, 1))])
 def test_weight_gradient_plan(args, want):
-    """Pixel tiles of at most 256 pixels of one frame, and as many tiles a
-    block as keeps about four blocks for every SM."""
-    assert _wgrad_plan(*args) == want
+    """Pixel tiles of at most 256 pixels of one frame, as many tiles a
+    block as keeps about one wave of two blocks an SM, and block rows of at
+    most 255 (tap, channel) pairs."""
+    plan = _wgrad_plan(*args, n_sm=132)
+    assert tuple(plan[k] for k in ('tph', 'tpw', 'tpb', 'n_chunks', 'cwc',
+                                   'tpc', 'grid_y')) == want
+
+
+@pytest.mark.parametrize('args', [
+    (128, 4, 0, 16, 16, 1, 8, 5, 5), (128, 4, 1, 16, 16, 8, 8, 3, 3),
+    (2, 2, 0, 19, 23, 8, 4, 7, 7), (2, 2, 1, 12, 12, 8, 8, 9, 9),
+    (2, 3, 0, 20, 37, 5, 5, 3, 5), (2, 3, 0, 40, 40, 6, 12, 3, 3)])
+def test_weight_gradient_plan_covers_every_term_once(args):
+    """By the kernel's index map (`csrc/convlstm_bwd.cu` `wgrad_tile`):
+    the block rows of grid.y (channel chunk, tap chunk, gate chunk) write
+    every (tap, channel, gate) of the gradient, and with db (the Wx pass)
+    every gate of db, exactly once; the rows, 2 m16 tiles a warp, fit the
+    block's 8 warps; the blocks' tile ranges cover every pixel tile once."""
+    b, t, t_skip, h, w, cs, f, kh, kw = args
+    with_db = t_skip == 0
+    plan = _wgrad_plan(*args, n_sm=132)
+    cwc, tpc, f4 = plan['cwc'], plan['tpc'], 4 * f
+    n_c, n_r = -(-cs // cwc), -(-(kh * kw) // tpc)
+    assert plan['grid_y'] == n_c * n_r * -(-f4 // 32)
+    rows = tpc * cwc + with_db
+    groups = ((rows + 15) // 16 + 1) // 2   # warps of 2 m16 row tiles
+    assert rows <= 256 and groups <= 8
+    count = np.zeros((kh * kw, cs, f4), np.int64)
+    db = np.zeros(f4, np.int64)
+    for y in range(plan['grid_y']):
+        cc_i, rc_i, gc_i = y % n_c, (y // n_c) % n_r, y // (n_c * n_r)
+        c0, tap0, g0 = cc_i * cwc, rc_i * tpc, gc_i * 32
+        cc, ntap, gn = (min(cwc, cs - c0), min(tpc, kh * kw - tap0),
+                        min(32, f4 - g0))
+        m = np.arange(groups * 2 * 16)
+        tl, c = m // cwc, m % cwc
+        stored = (m < ntap * cwc) & (c < cc)
+        for g in range(g0, g0 + gn):
+            np.add.at(count, (tap0 + tl[stored], c0 + c[stored], g), 1)
+            if with_db and cc_i == 0 and rc_i == 0:
+                db[g] += int((m == ntap * cwc).sum())
+    assert (count == 1).all(), np.unique(count)
+    if with_db:
+        assert (db == 1).all()
+    n_tiles = b * (t - t_skip) * -(-w // plan['tpw']) * -(-h // plan['tph'])
+    tpb = plan['tpb']
+    assert (plan['n_chunks'] - 1) * tpb < n_tiles <= plan['n_chunks'] * tpb
+
+
+def _mm3(a, b, passes=3):
+    from test_torch_convlstm import _mm_tf32
+    return _mm_tf32(a, b, passes)
+
+
+def _wgrad_emulated(src, dz, kh, kw, passes=3):
+    """sum_p unfold(src)[p] dz[p] with the kernel's tensor-core products
+    ((3x)TF32; `_mm_tf32`), and db as the product of a row of ones."""
+    a = _unfold(src, kh, kw)
+    dz = dz.reshape(a.shape[0], -1)
+    dw = _mm3(a.t().contiguous(), dz, passes)
+    return dw.view(kh, kw, src.shape[-1], dz.shape[-1]), _mm3(
+        torch.ones(1, a.shape[0]), dz, passes)[0]
+
+
+@pytest.mark.parametrize('cin,f,k', [(1, 8, 5), (8, 8, 3), (8, 8, 5),
+                                     (1, 64, 5), (64, 64, 3), (64, 64, 5)])
+def test_weight_gradient_3xtf32_arithmetic_keeps_float32_accuracy(cin, f, k):
+    """K3's weight-gradient scheme, emulated on the CPU at the layer shapes
+    of both training paths (T 4, 16x16, batch 2, Keras init, dz from the
+    plain chain): dWx, db and dWh in 3xTF32 stay within K3's 1e-5 of max
+    |ref| of the float32 plain version and of float64 on the same inputs,
+    where plain TF32, one product, does not."""
+    layer = ConvLSTM2D(cin, f, (k, k))
+    layer.reset_parameters(torch.Generator().manual_seed(f + k))
+    wx, bx, wh = (p.detach() for p in (layer.input_conv.kernel,
+                                       layer.input_conv.bias,
+                                       layer.cell.recurrent_conv.kernel))
+    rng = np.random.default_rng(f + k)
+    b, t = 2, 4
+    x = torch.from_numpy(rng.standard_normal((b, t, 16, 16, cin)).astype(
+        np.float32))
+    dys = torch.from_numpy(rng.standard_normal((b, t, 16, 16, f)).astype(
+        np.float32))
+    ys, cs, zs = convlstm_train_reference(x, wx, bx, wh)
+    dzs = convlstm_seq_reference(zs, cs, dys, wh)
+    srcs = (x.reshape(b * t, 16, 16, cin),
+            ys[:, :-1].reshape(b * (t - 1), 16, 16, f))
+    dzs_ = (dzs.reshape(b * t, 16, 16, 4 * f),
+            dzs[:, 1:].reshape(b * (t - 1), 16, 16, 4 * f))
+    want = {}
+    for name, src, dz in (('dwx', srcs[0], dzs_[0]),
+                          ('dwh', srcs[1], dzs_[1])):
+        shape = (k, k, src.shape[-1], 4 * f)
+        want[name] = (conv_same_w(src, dz, shape),
+                      conv_same_w(src.double(), dz.double(), shape))
+    want['dbx'] = (dzs_[0].sum(dim=(0, 1, 2)),
+                   dzs_[0].double().sum(dim=(0, 1, 2)))
+    errs = {}
+    for passes in (3, 1):
+        (dwx, dbx), (dwh, _) = (_wgrad_emulated(s, d, k, k, passes)
+                                for s, d in zip(srcs, dzs_))
+        for name, g in (('dwx', dwx), ('dbx', dbx), ('dwh', dwh)):
+            w32, w64 = want[name]
+            errs[name, passes] = max((g.double() - w64).abs().max().item(),
+                                     (g - w32).abs().max().item()
+                                     ) / w64.abs().max().item()
+    assert all(errs[name, 3] <= 1e-5 for name in ('dwx', 'dbx', 'dwh')), errs
+    assert max(errs['dwx', 1], errs['dwh', 1]) > 1e-5, errs
 
 
 def test_backward_kernel_wrapper_guards():

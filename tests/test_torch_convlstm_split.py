@@ -5,9 +5,11 @@ sequential dh/dc chain) against the interpreted `_bwd_seq_kernel`
 float32 GEMMs) through `FusedConvLSTM` against `jax.grad` through the JAX
 split backward (`_fused(..., split=True)`, interpreted) and through the XLA
 layer, the two routes against each other, and the route table
-`dispatch_info`. Inputs come from numpy; everything is float32. Tolerances as
-tests/test_pallas_ops.py's split-backward test: dx 1e-5, weights and bias
-1e-4; dzs 1e-5."""
+`dispatch_info`; and the chain-step tile that K4 and K3 share: its launch
+plan (every output stored once) and its 3xTF32 arithmetic emulated on the
+CPU against the float32 and float64 plain versions. Inputs come from numpy;
+everything is float32. Tolerances as tests/test_pallas_ops.py's
+split-backward test: dx 1e-5, weights and bias 1e-4; dzs 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -17,11 +19,13 @@ import torch
 
 import dl4ds_tpu.ops.pallas_convlstm as jax_pallas_convlstm
 import dl4ds_tpu_torch.ops.convlstm as conv
-from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM,
-                                          convlstm_backward_reference,
+from dl4ds_tpu_torch.models.blocks import ConvLSTM2D
+from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _flip_t, _seq_plan,
+                                          _unfold, convlstm_backward_reference,
                                           convlstm_seq_reference,
                                           convlstm_train_reference,
-                                          dispatch_info)
+                                          d_hard_sigmoid, dispatch_info,
+                                          hard_sigmoid)
 
 # (B, T, H, W, Cin, F, kh, kw): Cin != F with F = 5, H != W with an odd W at
 # 5x5, kh != kw, and the JAX package's F = 16 valley (its split route)
@@ -173,20 +177,20 @@ def test_route_table_of_the_training_paths(path, layers):
 
 
 def test_route_table_edges():
-    """The width thresholds (16 at 3x3 and smaller, 32 above), K4's
-    largest kernel and the kernels that no route takes."""
+    """The width threshold (64, at every kernel size: both routes run the
+    same chain-step kernel, so no kernel size is left to one route) and the
+    kernels that no route takes."""
     def route(f, kh=3, kw=3, cin=4):
         return dispatch_info((2, 3, 8, 8, cin), (kh, kw, cin, 4 * f),
                              (kh, kw, f, 4 * f))['path']
-    assert [route(f) for f in (8, 15, 16, 32)] == ['fused', 'fused', 'split',
-                                                   'split']
-    assert [route(f, 5, 5) for f in (16, 31, 32, 64)] == [
-        'fused', 'fused', 'split', 'split']
-    assert route(16, 1, 3) == 'split'
-    assert route(16, 3, 5) == 'fused'
-    assert route(64, 7, 7) == 'split'
-    assert route(64, 9, 9) == 'fused'
+    assert [route(f) for f in (8, 16, 32, 63, 64, 72)] == [
+        'fused', 'fused', 'fused', 'fused', 'split', 'split']
+    assert [route(f, 5, 5) for f in (16, 32, 63, 64)] == [
+        'fused', 'fused', 'fused', 'split']
+    assert route(16, 1, 3) == 'fused'
     assert route(64, 3, 5) == 'split'
+    assert route(64, 7, 7) == 'split'
+    assert route(64, 9, 9) == 'split'
     with pytest.raises(NotImplementedError, match='even'):
         route(64, 2, 2)
     with pytest.raises(ValueError, match='do not match'):
@@ -196,9 +200,9 @@ def test_route_table_edges():
 
 
 @pytest.mark.parametrize('f,forced,want', [(4, None, 'fused'),
-                                           (32, None, 'split'),
+                                           (64, None, 'split'),
                                            (4, 'split', 'split'),
-                                           (32, 'fused', 'fused')])
+                                           (64, 'fused', 'fused')])
 def test_backward_routes_on_dispatch_info(monkeypatch, f, forced, want):
     """`FusedConvLSTM.backward` takes dispatch_info's route unless one is
     forced: 'split' runs `convlstm_seq_reference` and the tail, 'fused'
@@ -253,3 +257,158 @@ def test_d_hard_sigmoid_steps_in_float32_for_float64_input():
     assert got.dtype == torch.float64
     np.testing.assert_array_equal(got.numpy(), want.double().numpy())
     assert float(conv.hard_sigmoid(torch.from_numpy(z[1:2]))) == 1.0
+
+
+# ---------------------------------------------------------------------------
+# The chain-step tile (K4, and K3's chain and dx): plan and arithmetic
+# ---------------------------------------------------------------------------
+
+def _seq_block_outputs(plan, frames, h, w, f):
+    """(frame, y, x, channel) of every output value the blocks of one
+    chain-step or dx launch over `frames` frames sum, by the kernel's own
+    index map (`csrc/convlstm_seq.cu`): block (bx, by), warp k, lane l, m
+    tile mt, n tile j and fragment value i hold pixel m = (k // warps_n) *
+    m_tiles * 16 + mt * 16 + l // 4 + 8 * (i // 2) of tile bx % tiles (m <
+    th * tw), channel by * ns + ((k % warps_n) * n_tiles + j) * 8 + 2 * (l %
+    4) + i % 2. The epilogue then stores each sum once, through shared
+    memory, channel by channel."""
+    ns, th, tw = plan['ns'], plan['th'], plan['tw']
+    warps_n, wm, wn = plan['warps'][1], plan['m_tiles'], plan['n_tiles']
+    bx, by, warp, lane, mt, j, i = np.ix_(
+        np.arange(frames * plan['tiles']), np.arange(plan['slices']),
+        np.arange(8), np.arange(32), np.arange(wm), np.arange(wn),
+        np.arange(4))
+    m = (warp // warps_n) * wm * 16 + mt * 16 + lane // 4 + 8 * (i // 2)
+    fo = by * ns + ((warp % warps_n) * wn + j) * 8 + 2 * (lane % 4) + i % 2
+    tile, frame = bx % plan['tiles'], bx // plan['tiles']
+    y = (tile // plan['tiles_x']) * th + m // tw
+    x = (tile % plan['tiles_x']) * tw + m % tw
+    shape = np.broadcast(bx, by, warp, lane, mt, j, i).shape
+    frame, y, x, fo, m = (np.broadcast_to(a, shape)
+                          for a in (frame, y, x, fo, m))
+    ok = (m < th * tw) & (y < h) & (x < w) & (fo < f)
+    return frame[ok], y[ok], x[ok], fo[ok]
+
+
+@pytest.mark.parametrize('f', [4, 5, 8, 12, 64, 72])
+@pytest.mark.parametrize('b,h,w', [
+    (4, 16, 16),           # the training frames: two whole tiles a frame
+    (3, 5, 7),             # one ragged tile, rows clamped to H
+    (1, 17, 17),           # 17 pixels a row: the last row tile ragged
+    (1, 3, 300),           # wider than a tile: ragged column tiles
+    (8, 32, 32)])          # 4 x 32 tiles
+def test_seq_plan_covers_every_output_once(b, h, w, f):
+    """Every pixel and output channel of every frame is summed by exactly
+    one thread, with warps that tile the block's 128 pixels and ns
+    channels."""
+    plan = _seq_plan(b, h, w, 5, 5, f, n_sm=132)
+    ns = plan['ns']
+    warps_m, warps_n = plan['warps']
+    assert ns in (8, 16, 32, 64) and warps_m * warps_n == 8
+    assert warps_m * plan['m_tiles'] * 16 == 128 >= plan['th'] * plan['tw']
+    assert warps_n * plan['n_tiles'] * 8 == ns
+    assert plan['grid'] == (b * plan['tiles'], -(-f // ns))
+    count = np.zeros((b, h, w, f), np.int64)
+    np.add.at(count, _seq_block_outputs(plan, b, h, w, f), 1)
+    assert (count == 1).all(), np.unique(count)
+
+
+@pytest.mark.parametrize('shape,want', [
+    # width-64 chain: 256 blocks of 64 channels; the 5x5 stage of all tap
+    # rows fits two blocks an SM at 4 dz channels a chunk, the 3x3 at 8
+    ((128, 16, 16, 5, 5, 64), (64, 8, 16, 4, 5)),
+    ((128, 16, 16, 3, 3, 64), (64, 8, 16, 8, 3)),
+    # width-8 chain (256 blocks) and K3's dx over the B*T frames
+    ((128, 16, 16, 5, 5, 8), (8, 8, 16, 8, 5)),
+    ((512, 16, 16, 3, 3, 8), (8, 8, 16, 8, 3)),
+    ((2, 5, 7, 3, 3, 12), (8, 5, 7, 8, 3)),       # 2 blocks: ns 8
+    ((200, 5, 7, 3, 3, 12), (16, 5, 7, 8, 3)),
+    ((128, 16, 16, 5, 5, 32), (32, 8, 16, 8, 5)),
+    ((8, 32, 32, 5, 5, 64), (16, 4, 32, 8, 5)),     # 64 blocks at ns 64
+    ((128, 16, 16, 7, 7, 72), (64, 8, 16, 8, 1)),   # one tap row a stage
+    ((128, 16, 16, 7, 7, 16), (16, 8, 16, 8, 7))])
+def test_seq_plan_tiles_channels_and_stages(shape, want):
+    """The chain-step tile's plan: 128-pixel tiles, ns channels (halved
+    while an SM would get no block) and the deepest stage in the shared
+    memory budget of two blocks an SM."""
+    plan = _seq_plan(*shape, n_sm=132)
+    assert tuple(plan[k] for k in ('ns', 'th', 'tw', 'cw', 'rps')) == want
+    assert plan['smem'] <= 110 * 1024
+
+
+def _mm3(a, b, passes=3):
+    """a @ b with the kernels' tensor-core products: operands split into
+    TF32 hi and lo parts, hi*lo + lo*hi + hi*hi in float32 (passes 3), or
+    hi*hi alone (plain TF32, passes 1)."""
+    from test_torch_convlstm import _mm_tf32
+    return _mm_tf32(a, b, passes)
+
+
+def _chain_emulated(zs, cs, dys, wh, passes=3):
+    """The chain as the tile computes it: dh_t = dys_t + the SAME conv of
+    dz_{t+1} with the flipped, transposed wh, its products in (3x)TF32;
+    then the plain version's gate algebra."""
+    b, t, h, w, f4 = zs.shape
+    kh, kw, f, _ = wh.shape
+    wht = _flip_t(wh).reshape(kh * kw * f4, f)
+    dh_next = dc_next = zero = cs.new_zeros((b, h, w, f))
+    dzs = [None] * t
+    for i in reversed(range(t)):
+        zi, zf, zc, zo = torch.split(zs[:, i], f, dim=-1)
+        gi, gf, gg, go = (hard_sigmoid(zi), hard_sigmoid(zf), torch.tanh(zc),
+                          hard_sigmoid(zo))
+        c_prev = cs[:, i - 1] if i > 0 else zero
+        tc = torch.tanh(cs[:, i])
+        dh = dys[:, i] + dh_next
+        dc = dh * go * (1 - tc * tc) + dc_next
+        dz = torch.cat([dc * gg * d_hard_sigmoid(zi),
+                        dc * c_prev * d_hard_sigmoid(zf),
+                        dc * gi * (1 - gg * gg),
+                        dh * tc * d_hard_sigmoid(zo)], dim=-1)
+        dzs[i] = dz
+        dh_next = _mm3(_unfold(dz, kh, kw), wht, passes).reshape(b, h, w, f)
+        dc_next = dc * gf
+    return torch.stack(dzs, dim=1)
+
+
+def _layer_residuals(cin, f, k, b, seed):
+    layer = ConvLSTM2D(cin, f, (k, k))
+    layer.reset_parameters(torch.Generator().manual_seed(seed))
+    wx, bx, wh = (p.detach() for p in (layer.input_conv.kernel,
+                                       layer.input_conv.bias,
+                                       layer.cell.recurrent_conv.kernel))
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, 4, 16, 16, cin)).astype(
+        np.float32))
+    dys = torch.from_numpy(rng.standard_normal((b, 4, 16, 16, f)).astype(
+        np.float32))
+    ys, cs, zs = convlstm_train_reference(x, wx, bx, wh)
+    return x, wx, wh, zs, cs, ys, dys
+
+
+@pytest.mark.parametrize('cin,f,k', [(1, 8, 5), (8, 8, 3), (8, 8, 5),
+                                     (1, 64, 5), (64, 64, 3), (64, 64, 5)])
+def test_chain_3xtf32_arithmetic_keeps_float32_accuracy(cin, f, k):
+    """The chain-step tile's numeric scheme, emulated on the CPU at the
+    layer shapes of both training paths (T 4, 16x16, batch 2, Keras init):
+    dzs in 3xTF32 stays within K4's 1e-5 of max(1, max |dzs|) of the
+    float32 plain chain and of the float64 one (plain TF32, one product, is
+    1e-4 off), and K3's dx from it within 1e-5 of max |dx|, as on the
+    card."""
+    x, wx, wh, zs, cs, ys, dys = _layer_residuals(cin, f, k, 2, f + k)
+    got = _chain_emulated(zs, cs, dys, wh)
+    want32 = convlstm_seq_reference(zs, cs, dys, wh)
+    want64 = convlstm_seq_reference(zs.double(), cs.double(), dys.double(),
+                                    wh.double())
+    scale = max(1.0, want64.abs().max().item())
+    assert (got - want32).abs().max().item() <= 1e-5 * scale
+    assert (got.double() - want64).abs().max().item() <= 1e-5 * scale
+    one_pass = _chain_emulated(zs, cs, dys, wh, passes=1)
+    assert (one_pass.double() - want64).abs().max().item() > 1e-5 * scale
+    b, t, h, w, f4 = zs.shape
+    dx = _mm3(_unfold(got.reshape(b * t, h, w, f4), k, k),
+              _flip_t(wx).reshape(k * k * f4, cin)).reshape(x.shape)
+    dx64 = conv._conv_same_t(want64.reshape(b * t, h, w, f4),
+                             wx.double()).reshape(x.shape)
+    assert ((dx.double() - dx64).abs().max().item()
+            <= 1e-5 * dx64.abs().max().item())

@@ -11,9 +11,10 @@ recresnet_spc_width64), at batch 128, T 4 and 16x16 LR patches, float32, it
 runs K2's training variant once for the residuals, then times the backward by
 each route on CUDA events with the 50 MB L2 flushed before each call, in
 turns (fused, split, split, fused):
-  fused  K3, the one-kernel BPTT (csrc/convlstm_bwd.cu);
-  split  K4, the sequential chain (csrc/convlstm_seq.cu), then
-         `convlstm_backward_tail`'s float32 GEMMs;
+  fused  K3: the chain steps and dx (csrc/convlstm_seq.cu), then the
+         weight gradients and their reduction (csrc/convlstm_bwd.cu);
+  split  K4, the same chain steps, then `convlstm_backward_tail`'s float32
+         GEMMs;
 and K4 and the tail alone. dx is formed except for Cin = 1 (the stem layer,
 whose input needs no gradient). Both routes are held against the plain BPTT
 run in float64 (max |d| / max |ref| of dx, dWx, dbx and dWh at most 1e-5).

@@ -36,10 +36,11 @@ from pathlib import Path
 GROUPS = [('K1_channel_attention', ('ca_partial_sums', 'ca_gate',
                                      'ca_apply')),
           ('K6_ssim', ('ssim_tiles', 'ssim_finish')),
-          ('K4_convlstm_seq', ('seq_chain_step',)),
+          # the chain step: K3's on route 'fused' (n_filters 8), K4's on
+          # 'split' (n_filters 64)
+          ('K3_K4_chain_step', ('chain_step',)),
           ('K2_convlstm', ('convlstm_tile',)),
-          ('K3_convlstm_bptt', ('bptt_step', 'dx_frames', 'wgrad_partial',
-                                'wgrad_reduce')),
+          ('K3_convlstm_bptt', ('dx_frames', 'wgrad_tile', 'wgrad_reduce')),
           ('adam', ('multi_tensor_apply', 'adam')),
           ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fprop',
                     'nchw', 'nhwc', 'wgrad', 'dgrad')),
