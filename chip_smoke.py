@@ -9,7 +9,14 @@ Phases, each of which exits non-zero on failure:
      source, all started together);
   2. hold K1 (the channel-attention gate) against its plain PyTorch version
      on the card at the shapes the flagship path gives it (f32 and bf16),
-     time both with CUDA events, and check the gate's autograd backward;
+     forward and backward (the backward against the plain version run in
+     float64, each gradient within 1e-5 of its max |ref|, the same bits
+     twice), also at the training gates' shapes and on its other paths; check
+     that the shapes ran every regime of its launch plan (block, stream)
+     and that each launches the kernels it should (the kernel
+     library's own count of its launches);
+     time both directions with CUDA events, and check the gate's autograd
+     backward;
   3. drive the flagship path: full-width `predict` of the resnet_spc x4
      model (128x128 LR -> 512x512 HR, 2 static variables, 1 predictor) on 16
      grids at batch 8, count the kernel launches it made, and compare grid 0
@@ -65,18 +72,22 @@ Phases, each of which exits non-zero on failure:
      float64 at the DSSIM loss's shape in a flagship training step
      ([128, 64, 64, 1]) and on its other paths (the minimal 11x11 image,
      ragged tiles, a 512x512 grid, channels folded, a 5-D input, other
-     filter sizes), check that its bits repeat, time it against its plain
-     version and its bound, and check dssim_mae's value and y_pred gradient
-     through K6 against the same loss on the plain path (CPU);
+     filter sizes), and its backward against `ssim_backward_reference` in
+     float64 for both images and max_val; check that its bits repeat, that
+     both regimes (image, tiles) ran each way and launched what they should,
+     time it against its plain version and its bound, and check dssim_mae's
+     value and y_pred gradient through K6 against the same loss on the plain
+     path (CPU);
  10. drive the flagship training: `SupervisedTrainer('resnet', 'spc',
      scale=4, patch_size=64, batch_size=128, n_filters=8, n_blocks=6,
      attention=True, loss='dssim_mae')` (bench.py's configuration) on 256
      grids of 128x128 for 2 epochs of 20 steps with validation and test;
-     first time K1 at the step's gate shapes (forward against its plain
-     version, and its plain backward), then count the launches of K1 (its
-     gates per forward x the forwards) and K6 (one a loss), require finite
-     losses, time the steps, and compare 3 steps at batch 16 on the GPU
-     (PyTorch's own convolutions) with the CPU in float64;
+     first hold and time K1 at the step's gate shapes (forward and
+     backward against their plain versions), then count the launches of K1
+     (its gates per forward x the forwards; its backward a gate a training
+     step) and K6 (one a loss each way), require finite losses, time the
+     steps, and compare 3 steps at batch 16 on the GPU (PyTorch's own
+     convolutions) with the CPU in float64;
  11. print the `kernels` JSON line, then, last, the device JSON line.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
@@ -106,6 +117,29 @@ K1_SHAPES = ([(LR, LR, N_FILTERS * (i + 1)) for i in range(N_BLOCKS)]
              + [(LR * SCALE, LR * SCALE, N_FILTERS)])
 K1_TOL = {'float32': dict(atol=1e-5, rtol=0.0),      # f32 sum order only
           'bfloat16': dict(atol=1e-6, rtol=1e-2)}    # ~2 bf16 ulps
+# K1's backward against `_channel_attention_backward` run in float64 on the
+# same inputs: each gradient's max |d| within K1_BWD_TOL of its max |ref|
+# (float32 sums over up to 512*512 pixels and 128 samples); a bfloat16 dx is
+# rounded to bfloat16, half an ulp: up to BF16_RTOL of |ref| more
+K1_BWD_TOL, BF16_RTOL = 1e-5, 2.0 ** -8
+# The serving head's weight gradients (K1_SHAPES[-1] at batch 8) sum 8
+# per-sample terms of about +-300 to a few units (db1 3.5), so the terms'
+# float32 rounding exceeds K1_BWD_TOL of max |ref| (float32 db1 4.6e-5 from
+# float64 on the H100); there the scale is the largest sum of the samples'
+# terms in magnitude (`_check_k1_backward`), both readings printed.
+K1_CANCELLING = (BATCH,) + K1_SHAPES[-1]
+# K1's other paths, ((B, H, W, C), Cr): H*W*C not a multiple of a 16-byte
+# pack (4-byte copies), samples of 35 and 561 pixels, a channel
+# count whose pack period passes the block's 512 threads (a thread sums a
+# whole channel), Cr 1; float32 and bfloat16 each, with the weights at the
+# model's Glorot scale (at 0.5, C = 1030 puts the gate's pre-activations in
+# the hundreds, where two float32 orders of its 1030-term dot products
+# already differ by more than K1_TOL)
+K1_OTHER_PATHS = [((3, 5, 7, 5), 2), ((1, 33, 17, 3), 1),
+                  ((1, 4, 4, 1030), 257), ((2, 9, 9, 600), 150)]
+# the regimes of K1's launch plan (`_ca_plan`), every one of which phase 2
+# must run, and the kernel launches a call of each makes, each way
+CA_REGIMES = {'block': 1, 'stream': 2}
 # GPU (TF32 off) vs CPU forward of the whole model: f32 convs summed in
 # other orders over ~20 layers, as in the CPU parity tests against JAX
 PREDICT_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -142,6 +176,12 @@ K2_TOL = 1e-5
 TRAIN_GRIDS, TRAIN_HR, TRAIN_PATCH, TRAIN_BATCH = 256, 128, 64, 128
 TRAIN_LR = TRAIN_PATCH // SCALE
 TRAIN_EPOCHS, TRAIN_STEPS, TRAIN_VAL_STEPS, TRAIN_TEST_STEPS = 2, 20, 2, 2
+# the K1 gates of a flagship training step (batch 128, 16x16 LR patches):
+# six residual blocks at C = 8..48, then the 64x64x8 head; phase 10 checks
+# them against the model's own gates
+K1_TRAIN_SHAPES = ([(TRAIN_BATCH, TRAIN_LR, TRAIN_LR, N_FILTERS * (i + 1))
+                    for i in range(N_BLOCKS)]
+                   + [(TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, N_FILTERS)])
 # (Cin, F, k) of the six ConvLSTM layers of a training step: the stem block
 # takes the one grid channel (no predictors, no statics)
 K3_LAYERS = [layer for cin in [1] + [N_FILTERS] * REC_BLOCKS
@@ -241,6 +281,16 @@ K6_FILTERS = [((2, 40, 40, 1), 25, 3.0), ((2, 20, 33, 1), 3, 0.8)]
 # K6 against its plain version run in float64, per image: float32 sums of
 # 11 taps of moments up to max_val^2 and of up to 512*512 SSIM terms
 K6_TOL = 1e-5
+# K6's backward against `ssim_backward_reference` run in float64: each
+# gradient's max |d| within K6_BWD_TOL of its max |ref| (the derivative
+# maps divide by B2, small where a patch is flat: relative to max |ref|),
+# or within twice the plain version's own float32 error
+# (`_check_k6_backward`)
+K6_BWD_TOL = 1e-5
+# K6's regimes (`_ssim_plan`), each of which phase 9 must run both ways,
+# and the launches a call of each makes, forward and backward
+SSIM_REGIMES = {('fwd', 'image'): 1, ('fwd', 'tiles'): 1,
+                ('bwd', 'image'): 1, ('bwd', 'tiles'): 2}
 # the loss through K6 against the plain path: value rtol, gradient atol of
 # max |g| (float32 sums in another order)
 LOSS_RTOL, LOSS_GRAD_TOL = 1e-5, 1e-4
@@ -301,26 +351,116 @@ def paired_ms(torch, kernel, plain, l2_flush):
     return statistics.median(k), statistics.median(p1 + p2)
 
 
+def kernel_launches(torch, lib, fn):
+    """The kernels one call of fn() launches, by the kernel library's own
+    count of its successful launches (`dl4ds_ca_launched`,
+    `dl4ds_ssim_launched`), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    before = lib()
+    fn()
+    torch.cuda.synchronize()
+    return lib() - before
+
+
+def _gate_case(torch, gen, dev, shape, cr, dtype, glorot=False):
+    """x, the gate's weights (float32) and dy for K1 at x's shape; the
+    weights' scale 0.5, or with `glorot` that of the model's Glorot init,
+    sqrt(2 / (C + Cr))."""
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    scale = (2.0 / (c + cr)) ** 0.5 if glorot else 0.5
+    weights = (torch.randn((c, cr), generator=gen, device=dev) * scale,
+               torch.randn((cr,), generator=gen, device=dev) * 0.1,
+               torch.randn((cr, c), generator=gen, device=dev) * scale,
+               torch.randn((c,), generator=gen, device=dev) * 0.1)
+    return x, weights, torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def k1_bwd_bound_ms(x, cr):
+    """K1's backward by bytes: x and dy read once, dx written once, and the
+    weights and their gradients."""
+    c = x.shape[-1]
+    return ((3 * x.numel() * x.element_size() + 4 * (2 * c * cr + c + cr))
+            / HBM_BYTES_PER_S * 1e3)
+
+
+def _check_k1_backward(torch, fo, x, weights, dy, label):
+    """K1's backward kernel (on the forward kernel's saved mean and gate)
+    against `_channel_attention_backward` run in float64 on the same
+    inputs, each gradient within K1_BWD_TOL of its scale (a bfloat16 dx
+    also within BF16_RTOL of |ref|), and the same bits twice. The scale is
+    max |ref|; for the weight gradients at K1_CANCELLING, sums of a term a
+    sample that cancel, it is the largest sum of the samples' terms in
+    magnitude. Returns {gradient: (max|d| / scale, max|d| / max|ref|)}."""
+    _, m, g = fo._launch(x, *weights)
+    got = fo._launch_backward(x, *weights, dy, m, g)
+    again = fo._launch_backward(x, *weights, dy, m, g)
+    x64, dy64 = x.double(), dy.double()
+    w64 = [t.double() for t in weights]
+    ref = fo._channel_attention_backward(x64, *w64, dy64)
+    maxes = [r.abs().max().item() for r in ref]
+    scales = list(maxes)
+    if tuple(x.shape) == K1_CANCELLING:
+        mags = [torch.zeros_like(r) for r in ref[1:]]
+        for i in range(x.shape[0]):
+            terms = fo._channel_attention_backward(x64[i:i + 1], *w64,
+                                                   dy64[i:i + 1])[1:]
+            for mag, t in zip(mags, terms):
+                mag += t.abs()
+        scales[1:] = [t.max().item() for t in mags]
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, a2, r, scale, biggest in zip(
+            ('dx', 'dw1', 'db1', 'dw2', 'db2'), got, again, ref, scales,
+            maxes):
+        if not torch.equal(a, a2):
+            fail(f'K1 backward {label} {name}: two runs gave different bits')
+        d = (a.double() - r).abs()
+        rtol = BF16_RTOL if name == 'dx' and x.dtype == torch.bfloat16 \
+            else 0.0
+        if not bool((d <= K1_BWD_TOL * scale + rtol * r.abs()).all()):
+            fail(f'K1 backward {label} {name}: max|d| {d.max().item():.3e} '
+                 f'against the float64 plain version, scale {scale:.3e} '
+                 f'(max|ref| {biggest:.3e}; tolerance {K1_BWD_TOL} of the '
+                 f'scale' + (f', rtol {rtol}' if rtol else '') + ')')
+        worst = d.max().item()
+        errs[name] = (worst / scale if scale else worst,
+                      worst / biggest if biggest else worst)
+    return errs
+
+
+def _k1_bwd_errors(errs):
+    """`_check_k1_backward`'s readings as text: max|d| over the scale, and
+    over max|ref| where the scale differs."""
+    return ', '.join(f'{k} {a:.1e}' + (f' ({b:.1e} of max|ref|)'
+                                        if b != a else '')
+                     for k, (a, b) in errs.items())
+
+
 def phase_kernels(torch, tds, report):
-    """Phase 2: K1 against its plain version at the path's shapes."""
+    """Phase 2: K1 against its plain versions at the path's shapes, forward
+    and backward, in every regime of its launch plan."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
     from dl4ds_tpu_torch.ops.fused_ops import FusedChannelAttention
     fca, ref = tds.fused_channel_attention, tds.channel_attention_reference
     dev = torch.device('cuda')
+    limits = fo._ca_limits(dev)
+    print(f'K1 plan limits: {limits[0]} SMs, {limits[1]} bytes of dynamic '
+          f'shared memory a block', flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     cases = []
     for h, w, c in K1_SHAPES:
         cr = max(int(c / 4), 1)
-        x32 = torch.randn((BATCH, h, w, c), generator=gen, device=dev)
-        weights = (torch.randn((c, cr), generator=gen, device=dev) * 0.5,
-                   torch.randn((cr,), generator=gen, device=dev) * 0.1,
-                   torch.randn((cr, c), generator=gen, device=dev) * 0.5,
-                   torch.randn((c,), generator=gen, device=dev) * 0.1)
+        x32, weights, dy32 = _gate_case(torch, gen, dev, (BATCH, h, w, c), cr,
+                                        torch.float32)
         for dtype in (torch.float32, torch.bfloat16):
-            cases.append((str(dtype).split('.')[-1], x32.to(dtype), weights))
+            cases.append((str(dtype).split('.')[-1], x32.to(dtype), weights,
+                          dy32.to(dtype)))
 
     rows = []
-    for name, x, weights in cases:          # every shape checked first
+    for name, x, weights, dy in cases:      # every shape checked first
         y = fca(x, *weights)
         y_ref = ref(x, *weights)
         torch.cuda.synchronize()
@@ -333,22 +473,81 @@ def phase_kernels(torch, tds, report):
                      + tol['rtol'] * y_ref.float().abs()).all()):
             fail(f'K1 {name} {tuple(x.shape)}: max|d| {err:.3e} outside '
                  f'atol {tol["atol"]} rtol {tol["rtol"]}')
+        bwd_err = _check_k1_backward(torch, fo, x, weights, dy,
+                                     f'{name} x{list(x.shape)}')
+        plan = fo._ca_plan(tuple(x.shape), weights[0].shape[1], x.dtype,
+                           *limits)
         rows.append(dict(dtype=name, shape=list(x.shape),
-                         cr=weights[0].shape[1], max_abs_err=err))
+                         cr=weights[0].shape[1], max_abs_err=err,
+                         bwd_rel_err=bwd_err, regime=plan['regime'],
+                         parts=plan['parts']))
 
-    for row, (name, x, weights) in zip(rows, cases):   # then timed
+    for row, (name, x, weights, dy) in zip(rows, cases):   # then timed
         c, cr = x.shape[-1], weights[0].shape[1]
         ms, plain_ms = paired_ms(torch, lambda: fca(x, *weights),
                                  lambda: ref(x, *weights), flush)
+        _, m, g = fo._launch(x, *weights)
+        bwd_ms, bwd_plain_ms = paired_ms(
+            torch, lambda: fo._launch_backward(x, *weights, dy, m, g),
+            lambda: fo._channel_attention_backward(x, *weights, dy, m, g),
+            flush)
         n_bytes = 2 * x.numel() * x.element_size() + 4 * (2 * c * cr + c + cr)
         n_ops = 2 * x.numel() + 4 * BATCH * c * cr
         bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS) * 1e3
         row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   library_ms=None)
-        print(f'K1 {name:8s} x{row["shape"]} cr={cr:2d}  max|d| '
+                   library_ms=None, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+                   bwd_bound_ms=k1_bwd_bound_ms(x, cr))
+        print(f'K1 {name:8s} x{row["shape"]} cr={cr:2d} {row["regime"]} '
+              f'({row["parts"]} blocks a sample)  max|d| '
               f'{row["max_abs_err"]:.3e}  kernel {ms:.4f} ms  plain '
               f'{plain_ms:.4f} ms  bound {bound_ms:.4f} ms  library_ms null '
-              f'(no single PyTorch call computes the gate)', flush=True)
+              f'(no single PyTorch call computes the gate); backward '
+              f'max|d|/scale ' + _k1_bwd_errors(row['bwd_rel_err'])
+              + f' (same bits twice)  kernel {bwd_ms:.4f} ms  plain '
+              f'{bwd_plain_ms:.4f} ms  bound {row["bwd_bound_ms"]:.4f} ms',
+              flush=True)
+
+    # the training gates and the other paths, both dtypes: forward and
+    # backward against the plain versions; then every regime's launches
+    ran = {}
+    other = [(shape, max(int(shape[-1] / 4), 1)) for shape in K1_TRAIN_SHAPES]
+    for (shape, cr), dtype in [(case, dt) for case in other + K1_OTHER_PATHS
+                               for dt in (torch.float32, torch.bfloat16)]:
+        x, weights, dy = _gate_case(torch, gen, dev, shape, cr, dtype,
+                                    glorot=(shape, cr) in K1_OTHER_PATHS)
+        name = str(dtype).split('.')[-1]
+        err = (fca(x, *weights).float() - ref(x, *weights).float()).abs()
+        tol = K1_TOL[name]
+        if not bool((err <= tol['atol'] + tol['rtol']
+                     * ref(x, *weights).float().abs()).all()):
+            fail(f'K1 {name} x{list(shape)}: max|d| {err.max().item():.3e}')
+        bwd_err = _check_k1_backward(torch, fo, x, weights, dy,
+                                     f'{name} x{list(shape)}')
+        plan = fo._ca_plan(shape, cr, dtype, *limits)
+        ran.setdefault(plan['regime'], (x, weights, dy, plan))
+        print(f'K1 {name:8s} x{list(shape)} cr={cr} {plan["regime"]} '
+              f'({plan["parts"]} blocks a sample, {plan["vec"]}-element '
+              f'packs): max|d| {err.max().item():.3e}; backward '
+              + _k1_bwd_errors(bwd_err),
+              flush=True)
+    for row, (_, x, weights, dy) in zip(rows, cases):
+        plan = fo._ca_plan(tuple(x.shape), weights[0].shape[1], x.dtype,
+                           *limits)
+        ran.setdefault(plan['regime'], (x, weights, dy, plan))
+    if set(ran) != set(CA_REGIMES):
+        fail(f'phase 2 ran K1 in the regimes {sorted(ran)}, not all of '
+             f'{sorted(CA_REGIMES)}')
+    lib = fo._ca_lib().dl4ds_ca_launched
+    for regime, (x, weights, dy, plan) in sorted(ran.items()):
+        _, m, g = fo._launch(x, *weights)
+        fwd = kernel_launches(torch, lib, lambda: fo._launch(x, *weights))
+        bwd = kernel_launches(
+            torch, lib, lambda: fo._launch_backward(x, *weights, dy, m, g))
+        print(f'K1 {regime} regime at x{list(x.shape)}: {fwd} forward and '
+              f'{bwd} backward kernel launches a call', flush=True)
+        if fwd != CA_REGIMES[regime] or bwd != CA_REGIMES[regime]:
+            fail(f'K1 {regime} regime launched {fwd} forward and {bwd} '
+                 f'backward kernels, expected {CA_REGIMES[regime]} each')
 
     # gradient: the autograd.Function's backward against autograd through
     # the plain version, on the card
@@ -367,9 +566,10 @@ def phase_kernels(torch, tds, report):
         grad_err = max(grad_err, d)
         if not torch.allclose(g, r, atol=1e-4, rtol=1e-4):
             fail(f'K1 backward d{name}: max|d| {d:.3e}')
-    print(f'K1 backward vs autograd through the plain version: max|d| '
-          f'{grad_err:.3e} (atol 1e-4, rtol 1e-4)', flush=True)
+    print(f'K1 backward through autograd vs autograd through the plain '
+          f'version: max|d| {grad_err:.3e} (atol 1e-4, rtol 1e-4)', flush=True)
     report['k1_rows'] = rows
+    report['k1_limits'] = dict(n_sm=limits[0], smem=limits[1])
 
 
 def phase_predict(torch, tds, report):
@@ -391,13 +591,13 @@ def phase_predict(torch, tds, report):
     kwargs = dict(scale=SCALE, array_in_hr=True, static_vars=[topo, mask],
                   predictors=[pred], batch_size=BATCH)
 
-    fca.launches = 0
+    fca.launches = fca.bwd_launches = 0
     y = tds.predict((model, net), hr, **kwargs)
-    launches = fca.launches
+    launches, bwd_launches = fca.launches, fca.bwd_launches
     expected = len(K1_SHAPES) * (-(-N_GRIDS // BATCH))
     print(f'predict: {model.param_count(net)} parameters, output '
-          f'{y.shape}, K1 launches {launches} (expected {expected})',
-          flush=True)
+          f'{y.shape}, K1 launches {launches} (expected {expected}), K1 '
+          f'backward launches {bwd_launches} (expected 0)', flush=True)
     if y.shape != (N_GRIDS, hr_size, hr_size, 1):
         fail(f'predict output shape {y.shape}')
     if not np.isfinite(y).all():
@@ -405,7 +605,10 @@ def phase_predict(torch, tds, report):
     if launches != expected:
         fail(f'K1 launched {launches} times on the main path, expected '
              f'{expected}')
+    if bwd_launches != 0:
+        fail(f"K1's backward launched {bwd_launches} times while serving")
     report['k1_launches'] = launches
+    report['k1_bwd_launches'] = bwd_launches
 
     t0 = time.perf_counter()
     tds.predict((model, net), hr, **kwargs)
@@ -1040,7 +1243,9 @@ def _counters(tds):
             ('K2 inference', fcl, 'launches'), ('K3', fcl, 'bwd_launches'),
             ('K4', fcl, 'seq_launches'),
             ('K1', tds.fused_channel_attention, 'launches'),
-            ('K6', tds.fused_ssim_per_image, 'launches')]
+            ('K1 backward', tds.fused_channel_attention, 'bwd_launches'),
+            ('K6', tds.fused_ssim_per_image, 'launches'),
+            ('K6 backward', tds.fused_ssim_per_image, 'bwd_launches')]
 
 
 def _expected_launches(conv, layers, steps, eval_steps):
@@ -1060,7 +1265,8 @@ def _expected_launches(conv, layers, steps, eval_steps):
             k4 += REC_T
     n = len(layers) * REC_T
     return {'K2-train': steps * n, 'K2 inference': eval_steps * n,
-            'K3': steps * k3, 'K4': steps * k4, 'K1': 0, 'K6': 0}
+            'K3': steps * k3, 'K4': steps * k4, 'K1': 0, 'K1 backward': 0,
+            'K6': 0, 'K6 backward': 0}
 
 
 def _training_config(**model):
@@ -1242,6 +1448,19 @@ def k6_work(shape, k):
     return flops, 4 * (2 * n_out * c * h * w + n_out)
 
 
+def k6_bwd_work(shape, k, n_grads):
+    """(flops, bytes) of K6's backward with n_grads image gradients: the
+    forward's moments again, then `2 + n_grads` derivative maps (d mu11 =
+    d mu22, d mu12, and d mu1 or d mu2 for each image asked) filtered back,
+    vertically over H x Wv and horizontally over H x W, k multiply-adds
+    each; both images and g read once, the gradients written once."""
+    *lead, h, w, c = shape
+    n_img = math.prod(lead) * c
+    flops = k6_work(shape, k)[0] + 2 * (2 + n_grads) * k * (
+        h * (w - k + 1) + h * w) * n_img
+    return flops, 4 * ((2 + n_grads) * n_img * h * w + 2 * math.prod(lead))
+
+
 def _ssim_pair(torch, shape, gen, dev):
     """An image in [0, 1) and a noisy copy clipped to [0, 1]."""
     a = torch.rand(shape, generator=gen, device=dev)
@@ -1249,18 +1468,52 @@ def _ssim_pair(torch, shape, gen, dev):
     return a, b
 
 
+def _check_k6_backward(torch, fo, a, b, max_val, g, k, sigma, label):
+    """K6's backward kernel against `ssim_backward_reference` run in float64
+    on the same inputs, for both images and max_val, and the same bits
+    twice. Each gradient's max |d| is within K6_BWD_TOL of its max |ref|,
+    or no further from float64 than twice the plain version run in float32
+    on the same inputs: max_val's sums S's derivatives in c1 and c2, which
+    hold 1 - L and 1 - C, cancelling where the images agree. Returns
+    {gradient: (max|d| / max|ref|, the plain float32 version's)}."""
+    from dl4ds_tpu_torch.ops.ssim import ssim_backward_reference
+    args = (k, sigma, 0.01, 0.03)
+    got = fo._launch_ssim_backward(a, b, max_val, g, *args)
+    again = fo._launch_ssim_backward(a, b, max_val, g, *args)
+    ref = ssim_backward_reference(a.double(), b.double(), max_val.double(),
+                                  g.double(), *args)
+    plain = ssim_backward_reference(a, b, max_val, g, *args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, x, x2, r, p in zip(('img1', 'img2', 'max_val'), got, again,
+                                 ref, plain):
+        if not torch.equal(x, x2):
+            fail(f'K6 backward {label} {name}: two runs gave different bits')
+        d = (x.double() - r).abs().max().item()
+        dp = (p.double() - r).abs().max().item()
+        scale = r.abs().max().item()
+        if not (d <= K6_BWD_TOL * scale or d <= 2 * dp):
+            fail(f'K6 backward {label} {name}: max|d| {d:.3e} against the '
+                 f'float64 plain version, max|ref| {scale:.3e} (tolerance '
+                 f'{K6_BWD_TOL} of max|ref|, or twice the plain float32 '
+                 f'version\'s {dp:.3e})')
+        errs[name] = (d / scale, dp / scale)
+    return errs
+
+
 def phase_ssim(torch, tds, report):
-    """Phase 9: K6 against its plain version in float64 at the DSSIM loss's
-    shape and on its other paths; timed at the first; dssim_mae through K6
-    against the plain path."""
-    from dl4ds_tpu_torch.ops.ssim import ssim
+    """Phase 9: K6 against its plain versions in float64 at the DSSIM loss's
+    shape and on its other paths, forward and backward; timed at the first;
+    dssim_mae through K6 against the plain path."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    from dl4ds_tpu_torch.ops.ssim import ssim, ssim_backward_reference
     fss = tds.fused_ssim_per_image
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(9)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     cases = [(shape, 11, 1.5) for shape in K6_SHAPES] + K6_FILTERS
-    rows = []
+    rows, ran = [], {}
     for i, (shape, k, sigma) in enumerate(cases):
         a, b = _ssim_pair(torch, shape, gen, dev)
         # the loss passes its data range as a device scalar
@@ -1284,38 +1537,82 @@ def phase_ssim(torch, tds, report):
                  f'version, atol {K6_TOL}')
         if not torch.equal(got, again):
             fail(f'K6 {label}: two runs gave different bits')
+        mv = max_val if torch.is_tensor(max_val) else torch.full(
+            (), max_val, device=dev)
+        g = torch.rand(got.shape, generator=gen, device=dev) + 0.5
+        bwd_err = _check_k6_backward(torch, fo, a, b, mv, g, k, sigma, label)
+        plan = fo._ssim_plan(shape, k, fo._ssim_limit(dev))
+        for direction in ('fwd', 'bwd'):
+            ran.setdefault((direction, plan[direction]['regime']),
+                           (a, b, mv, g, k, sigma))
         row = dict(shape=list(shape), taps=k, max_abs_err=err,
-                   plain_f32_err=plain_err)
+                   plain_f32_err=plain_err, bwd_rel_err=bwd_err,
+                   regimes=[plan['fwd']['regime'], plan['bwd']['regime']])
         if i == 0:
             ms, plain_ms = paired_ms(torch, lambda: fss(a, b, max_val),
                                      lambda: ssim(a, b, max_val), flush)
-            # K6's backward as the loss takes it: autograd through the
-            # plain version, wrt the prediction and the range
-            g = torch.ones_like(got)
+            # the backward as the loss takes it: the prediction's and the
+            # range's gradients
+            need = (False, True, True)
+            bwd_ms, bwd_plain_ms = paired_ms(
+                torch, lambda: fo._launch_ssim_backward(
+                    a, b, max_val, g, 11, 1.5, 0.01, 0.03, need),
+                lambda: ssim_backward_reference(a, b, max_val, g, need=need),
+                flush)
+            # what the parent ran: autograd through the plain version
             leaves = [b.clone().requires_grad_(),
                       max_val.clone().requires_grad_()]
-            bwd_ms = statistics.median(device_times(
+            autograd_ms = statistics.median(device_times(
                 torch, lambda: torch.autograd.grad(ssim(a, *leaves), leaves,
                                                    g), l2_flush=flush))
             flops, n_bytes = k6_work(shape, k)
             bound_ms = max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
-            row.update(ms=ms, plain_ms=plain_ms, plain_bwd_ms=bwd_ms,
-                       bound_ms=bound_ms,
+            bflops, bbytes = k6_bwd_work(shape, k, 1)
+            bwd_bound_ms = max(bflops / F32_FLOPS,
+                               bbytes / HBM_BYTES_PER_S) * 1e3
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=('operations' if flops / F32_FLOPS
                                  >= n_bytes / HBM_BYTES_PER_S else 'bytes'),
-                       mflop=flops / 1e6, mbytes=n_bytes / 1e6)
+                       mflop=flops / 1e6, mbytes=n_bytes / 1e6,
+                       bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+                       bwd_bound_ms=bwd_bound_ms,
+                       bwd_bound_by=('operations' if bflops / F32_FLOPS
+                                     >= bbytes / HBM_BYTES_PER_S
+                                     else 'bytes'),
+                       autograd_bwd_ms=autograd_ms)
         rows.append(row)
-        print(f'K6 {label}  max|d| {err:.3e} against float64 (plain f32 '
-              f'{plain_err:.3e})  same bits twice'
+        print(f'K6 {label} {row["regimes"][0]}/{row["regimes"][1]}  max|d| '
+              f'{err:.3e} against float64 (plain f32 {plain_err:.3e})  same '
+              f'bits twice; backward max|d|/max|ref| (plain f32) '
+              + ', '.join(f'{n} {v[0]:.1e} ({v[1]:.1e})'
+                          for n, v in bwd_err.items())
               + (f'  kernel {row["ms"]:.4f} ms  plain {row["plain_ms"]:.4f} '
                  f'ms  bound {row["bound_ms"]:.4f} ms ({row["mflop"]:.1f} '
                  f'MFLOP, {row["mbytes"]:.2f} MB)  library_ms null (no '
-                 f'single PyTorch call computes SSIM); plain backward '
-                 f'{row["plain_bwd_ms"]:.4f} ms' if i == 0 else ''),
+                 f'single PyTorch call computes SSIM); backward (img2, '
+                 f'max_val) kernel {row["bwd_ms"]:.4f} ms  plain '
+                 f'{row["bwd_plain_ms"]:.4f} ms  bound '
+                 f'{row["bwd_bound_ms"]:.4f} ms ({row["bwd_bound_by"]}); '
+                 f'autograd through the plain version '
+                 f'{row["autograd_bwd_ms"]:.4f} ms' if i == 0 else ''),
               flush=True)
+    if set(ran) != set(SSIM_REGIMES):
+        fail(f'phase 9 ran K6 in {sorted(ran)}, not all of '
+             f'{sorted(SSIM_REGIMES)}')
+    lib = fo._ssim_lib().dl4ds_ssim_launched
+    for (direction, regime), (a, b, mv, g, k, sigma) in sorted(ran.items()):
+        args = (a, b, mv, k, sigma, 0.01, 0.03)
+        n = kernel_launches(
+            torch, lib, (lambda: fo._launch_ssim(*args)) if direction == 'fwd'
+            else (lambda: fo._launch_ssim_backward(a, b, mv, g, *args[3:])))
+        print(f'K6 {direction} {regime} at x{list(a.shape)}: {n} kernel '
+              f'launches a call', flush=True)
+        if n != SSIM_REGIMES[(direction, regime)]:
+            fail(f'K6 {direction} {regime} launched {n} kernels, expected '
+                 f'{SSIM_REGIMES[(direction, regime)]}')
 
-    # dssim_mae through K6 (forward) and its plain backward, against the
-    # same loss on the CPU, which runs the plain version
+    # dssim_mae through K6, forward and backward, against the same loss on
+    # the CPU, which runs the plain versions
     shape = K6_SHAPES[0]
     y_true = torch.randn(shape, generator=gen, device=dev)
     y_pred = torch.randn(shape, generator=gen, device=dev)
@@ -1323,10 +1620,10 @@ def phase_ssim(torch, tds, report):
     results = []
     for d in ('cuda', 'cpu'):
         pred = y_pred.detach().to(d).requires_grad_()
-        before = fss.launches
+        before = (fss.launches, fss.bwd_launches)
         value = lossf(y_true.to(d), pred)
-        launched = fss.launches - before
         value.backward()
+        launched = (fss.launches - before[0], fss.bwd_launches - before[1])
         results.append((value.item(), pred.grad.cpu(), launched))
     (v_gpu, g_gpu, n_gpu), (v_cpu, g_cpu, n_cpu) = results
     loss_err = abs(v_gpu - v_cpu) / abs(v_cpu)
@@ -1336,11 +1633,11 @@ def phase_ssim(torch, tds, report):
           f'{v_gpu:.8f} vs '
           f'{v_cpu:.8f}, relative {loss_err:.2e} (rtol {LOSS_RTOL}); y_pred '
           f'gradient max|d|/max|g| {grad_err:.2e} (atol {LOSS_GRAD_TOL} of '
-          f'max|g|); K6 launches {n_gpu} on the GPU, {n_cpu} on the CPU',
-          flush=True)
-    if (n_gpu, n_cpu) != (1, 0):
+          f'max|g|); K6 (forward, backward) launches {n_gpu} on the GPU, '
+          f'{n_cpu} on the CPU', flush=True)
+    if (n_gpu, n_cpu) != ((1, 1), (0, 0)):
         fail(f'{FLAG_LOSS} launched K6 {n_gpu} times on the GPU and {n_cpu} '
-             f'on the CPU, expected 1 and 0')
+             f'on the CPU, expected (1, 1) and (0, 0)')
     if not (loss_err <= LOSS_RTOL and grad_err <= LOSS_GRAD_TOL):
         fail(f'{FLAG_LOSS} through K6 disagrees with the plain path: loss '
              f'{loss_err:.3e}, gradient {grad_err:.3e}')
@@ -1372,60 +1669,70 @@ def _gate_inputs(torch, tds, config):
 
 def phase_flagship_training(torch, tds, report):
     """Phase 10: the flagship training with dssim_mae on the card: K1 timed
-    at the step's gate shapes (kernel and plain forward, plain backward),
-    then the trainer driven as phases 7 and 8."""
-    from dl4ds_tpu_torch.ops.fused_ops import _channel_attention_backward
+    at the step's gate shapes (kernel and plain, forward and backward, the
+    backward also held against the float64 plain version), then the
+    trainer driven as phases 7 and 8."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
     fca, ref = tds.fused_channel_attention, tds.channel_attention_reference
     config = _training_config(loss=FLAG_LOSS, n_filters=N_FILTERS,
                               n_blocks=N_BLOCKS, attention=True)
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(10)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    shapes = _gate_inputs(torch, tds, config)
+    if shapes != K1_TRAIN_SHAPES:
+        fail(f'the flagship step\'s gates are {shapes}, not the '
+             f'{K1_TRAIN_SHAPES} phase 2 checked')
     rows = []
-    for shape in _gate_inputs(torch, tds, config):
+    for shape in shapes:
         c = shape[-1]
         cr = max(int(c / 4), 1)
-        x = torch.randn(shape, generator=gen, device=dev)
-        weights = (torch.randn((c, cr), generator=gen, device=dev) * 0.5,
-                   torch.randn((cr,), generator=gen, device=dev) * 0.1,
-                   torch.randn((cr, c), generator=gen, device=dev) * 0.5,
-                   torch.randn((c,), generator=gen, device=dev) * 0.1)
-        dy = torch.randn_like(x)
+        x, weights, dy = _gate_case(torch, gen, dev, shape, cr, torch.float32)
         err = (fca(x, *weights) - ref(x, *weights)).abs().max().item()
         if not err <= K1_TOL['float32']['atol']:
             fail(f'K1 x{list(shape)}: max|d| {err:.3e}')
+        bwd_err = _check_k1_backward(torch, fo, x, weights, dy,
+                                     f'training gate x{list(shape)}')
         ms, plain_ms = paired_ms(torch, lambda: fca(x, *weights),
                                  lambda: ref(x, *weights), flush)
-        bwd_ms = statistics.median(device_times(
-            torch, lambda: _channel_attention_backward(x, *weights, dy),
-            l2_flush=flush))
+        _, m, g = fo._launch(x, *weights)
+        bwd_ms, bwd_plain_ms = paired_ms(
+            torch, lambda: fo._launch_backward(x, *weights, dy, m, g),
+            lambda: fo._channel_attention_backward(x, *weights, dy, m, g),
+            flush)
         n_bytes = 2 * x.numel() * 4 + 4 * (2 * c * cr + c + cr)
         n_ops = 2 * x.numel() + 4 * shape[0] * c * cr
         bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS) * 1e3
-        # the backward reads x and dy, writes dx and the weight gradients
-        bwd_bound_ms = (3 * x.numel() * 4 + 4 * (2 * c * cr + c + cr)) \
-            / HBM_BYTES_PER_S * 1e3
         rows.append(dict(shape=list(shape), cr=cr, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
-                         plain_bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound_ms))
+                         bwd_rel_err=bwd_err, bwd_ms=bwd_ms,
+                         bwd_plain_ms=bwd_plain_ms,
+                         bwd_bound_ms=k1_bwd_bound_ms(x, cr)))
         print(f'K1 training gate x{list(shape)} cr={cr}  max|d| {err:.3e}  '
               f'kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound '
-              f'{bound_ms:.4f} ms (bytes); plain backward {bwd_ms:.4f} ms '
-              f'(bound {bwd_bound_ms:.4f} ms)', flush=True)
+              f'{bound_ms:.4f} ms (bytes); backward max|d|/max|ref| '
+              + _k1_bwd_errors(bwd_err)
+              + f'  kernel {bwd_ms:.4f} ms  plain {bwd_plain_ms:.4f} ms  '
+              f'bound {rows[-1]["bwd_bound_ms"]:.4f} ms (bytes)', flush=True)
     report['k1_train_rows'] = rows
     per_forward = len(rows)
     forwards = (TRAIN_EPOCHS * (TRAIN_STEPS + TRAIN_VAL_STEPS)
                 + TRAIN_TEST_STEPS)
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
     expected = {'K2-train': 0, 'K2 inference': 0, 'K3': 0, 'K4': 0,
-                'K1': per_forward * forwards, 'K6': forwards}
+                'K1': per_forward * forwards,
+                'K1 backward': per_forward * steps, 'K6': forwards,
+                'K6 backward': steps}
     k6 = report['k6_rows'][0]
     got, numbers = _drive_training(
         torch, tds, config, f'n_filters {N_FILTERS}, {FLAG_LOSS}',
         TRAIN_STEPS, expected, FLAG_CPU_BATCH,
         {'K1 forward': sum(r['ms'] for r in rows),
-         'K1 plain backward': sum(r['plain_bwd_ms'] for r in rows),
-         'K6': k6['ms'], 'K6 plain backward': k6['plain_bwd_ms']})
-    report.update(flag_k1_launches=got['K1'], k6_launches=got['K6'],
+         'K1 backward': sum(r['bwd_ms'] for r in rows),
+         'K6': k6['ms'], 'K6 backward': k6['bwd_ms']})
+    report.update(flag_k1_launches=got['K1'],
+                  flag_k1_bwd_launches=got['K1 backward'],
+                  k6_launches=got['K6'], k6_bwd_launches=got['K6 backward'],
                   flag_k1_per_forward=per_forward)
     report.update({f'flag_{k}': v for k, v in numbers.items()})
 
@@ -1475,8 +1782,14 @@ def main():
           'plain_ms': sum(r['plain_ms'] for r in f32),
           'bound_ms': sum(r['bound_ms'] for r in f32),
           'bound_by': 'bytes', 'library_ms': None,
+          'bwd_ms': sum(r['bwd_ms'] for r in f32),
+          'bwd_bound_ms': sum(r['bwd_bound_ms'] for r in f32),
+          'bwd_plain_ms': sum(r['bwd_plain_ms'] for r in f32),
+          'bwd_launches': report['k1_bwd_launches'],
           'work': f'the {len(f32)} gates of one float32 forward at batch '
-                  f'{BATCH}, summed'}
+                  f'{BATCH}, summed (regimes '
+                  f'{[r["regime"] for r in f32]}); bwd_* the backward '
+                  f'kernel at the same shapes (serving runs none)'}
     fwd = report['k2_forward']
     k2 = {'name': 'K2_convlstm', 'route': 'cuda',
           'source': 'dl4ds_tpu_torch/csrc/convlstm.cu',
@@ -1581,10 +1894,14 @@ def main():
                 'plain_ms': sum(r['plain_ms'] for r in gates),
                 'bound_ms': sum(r['bound_ms'] for r in gates),
                 'bound_by': 'bytes', 'library_ms': None,
+                'bwd_ms': sum(r['bwd_ms'] for r in gates),
+                'bwd_bound_ms': sum(r['bwd_bound_ms'] for r in gates),
+                'bwd_plain_ms': sum(r['bwd_plain_ms'] for r in gates),
+                'bwd_launches': report['flag_k1_bwd_launches'],
                 'work': f'the {len(gates)} gates of one float32 flagship '
-                        f'training step at batch {TRAIN_BATCH} (forward), '
-                        f'summed; their plain backward took '
-                        f'{sum(r["plain_bwd_ms"] for r in gates):.4f} ms'}
+                        f'training step at batch {TRAIN_BATCH}, summed, '
+                        f'forward and backward (bwd_*, held against the '
+                        f'float64 plain version)'}
     k6_rows = report['k6_rows']
     k6_step = k6_rows[0]
     k6 = {'name': 'K6_ssim', 'route': 'cuda',
@@ -1595,10 +1912,16 @@ def main():
           'ms': k6_step['ms'], 'plain_ms': k6_step['plain_ms'],
           'bound_ms': k6_step['bound_ms'], 'bound_by': k6_step['bound_by'],
           'library_ms': None,
+          'bwd_ms': k6_step['bwd_ms'], 'bwd_bound_ms': k6_step['bwd_bound_ms'],
+          'bwd_plain_ms': k6_step['bwd_plain_ms'],
+          'bwd_launches': report['k6_bwd_launches'],
           'work': f'the per-image SSIM of the {FLAG_LOSS} loss of one '
                   f'flagship training step, x{k6_step["shape"]}, 11 taps; '
                   f'max_abs_err is per image against the plain version in '
-                  f'float64 over {len(k6_rows)} shapes'}
+                  f'float64 over {len(k6_rows)} shapes; bwd_* the backward '
+                  f'kernel for y_pred and the range (bwd_plain_ms '
+                  f'ssim_backward_reference; autograd through the plain ssim '
+                  f'took {k6_step["autograd_bwd_ms"]:.4f} ms)'}
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)

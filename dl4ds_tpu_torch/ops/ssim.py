@@ -9,10 +9,12 @@ symmetric pad to even sizes, and a weighted geometric mean.
 The filtering is two float32 (or float64) matmuls against banded matrices,
 as in the JAX package, with TF32 off whatever the caller set: sigma^2 =
 E[x^2] - mu^2 cancels, which is why the JAX package pins HIGHEST precision
-there. `ssim` is the plain version of K6, the fused SSIM kernel
-(`ops/fused_ops.py` `fused_ssim_per_image`); float64 inputs stay float64,
-so that it can be the kernel's oracle on the card. `ssim_multiscale` runs
-this formulation on every device, as the JAX package runs XLA there.
+there. `ssim` is the plain version of K6's forward, the fused SSIM kernel
+(`ops/fused_ops.py` `fused_ssim_per_image`), and `ssim_backward_reference`
+the plain version of its backward, the closed form of the VJP; float64
+inputs stay float64, so that they can be the kernels' oracles on the card.
+`ssim_multiscale` runs this formulation on every device, as the JAX
+package runs XLA there.
 """
 
 import functools
@@ -23,7 +25,8 @@ import torch.nn.functional as F
 
 from .convlstm import _fp32_matmuls
 
-__all__ = ['ssim', 'ssim_multiscale', 'psnr', 'band_matrix']
+__all__ = ['ssim', 'ssim_backward_reference', 'ssim_multiscale', 'psnr',
+           'band_matrix']
 
 _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
@@ -76,6 +79,20 @@ def _filter_valid(x, kernel1d):
     return torch.movedim(y, -1, -2)
 
 
+def _filter_valid_t(d, kernel1d, h, w):
+    """The transpose of `_filter_valid`: [..., Hv, Wv, C] maps back to
+    [..., H, W, C], through the transposed band matrices (the full
+    correlation with the taps reversed)."""
+    taps = kernel1d.tobytes()
+    with _fp32_matmuls():
+        y = torch.tensordot(d, _band(taps, h, d.dtype, d.device),
+                            dims=([-3], [0]))
+        y = torch.movedim(y, -1, -3)
+        y = torch.tensordot(y, _band(taps, w, d.dtype, d.device),
+                            dims=([-2], [0]))
+    return torch.movedim(y, -1, -2)
+
+
 def _ssim_per_channel(img1, img2, max_val, filter_size, filter_sigma, k1, k2):
     """(ssim, cs) per image and channel: means over the VALID window
     positions, shape [..., C]. The five filtered moments (mu1, mu2, E[x^2],
@@ -115,6 +132,57 @@ def ssim(img1, img2, max_val, filter_size=11, filter_sigma=1.5, k1=0.01,
     s, _ = _ssim_per_channel(_as_float(img1), _as_float(img2), max_val,
                              filter_size, filter_sigma, k1, k2)
     return s.mean(dim=-1)
+
+
+def ssim_backward_reference(img1, img2, max_val, g, filter_size=11,
+                            filter_sigma=1.5, k1=0.01, k2=0.03,
+                            need=(True, True, True)):
+    """The gradients (img1, img2, max_val) of sum(g * ssim(img1, img2,
+    max_val)) for g of ssim's shape [...], None where `need` does not ask,
+    in closed form: per valid position, with L = A1/B1, C = A2/B2 (the
+    luminance and contrast-structure terms of `_ssim_per_channel`) and S =
+    L C, the derivatives of S in mu12 (2L/B2), mu11 and mu22 (-S/B2), mu1
+    and mu2, c1 (C(1 - L)/B1) and c2 (L(1 - C)/B2), each times g / (C_img Hv
+    Wv); the moment maps then go back through the transposed filter and the
+    chain rule of x, y, x^2, y^2, xy, and max_val's through c1 = (k1
+    max_val)^2 and c2. The plain version of K6's backward kernel; float64
+    stays float64."""
+    img1, img2 = _as_float(img1), _as_float(img2)
+    dtype = img1.dtype
+    kernel = _gaussian_kernel1d(filter_size, filter_sigma)
+    mv = torch.as_tensor(max_val).detach().to(device=img1.device, dtype=dtype)
+    c1 = (k1 * mv) ** 2
+    c2 = (k2 * mv) ** 2
+
+    stacked = torch.stack(
+        [img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=0)
+    mu1, mu2, mu11, mu22, mu12 = _filter_valid(stacked, kernel)
+    b1 = mu1 * mu1 + mu2 * mu2 + c1
+    b2 = (mu11 - mu1 * mu1) + (mu22 - mu2 * mu2) + c2
+    lum = (2.0 * mu1 * mu2 + c1) / b1
+    cs = (2.0 * (mu12 - mu1 * mu2) + c2) / b2
+    *lead, h, w, c = img1.shape
+    hv, wv = mu1.shape[-3], mu1.shape[-2]
+    scale = torch.as_tensor(g).detach().to(device=img1.device, dtype=dtype)
+    scale = scale.reshape(*lead, 1, 1, 1) / (c * hv * wv)
+
+    d1 = d2 = dmv = None
+    if need[0] or need[1]:
+        d_mu1 = (2.0 * cs * (mu2 - lum * mu1) / b1
+                 + 2.0 * lum * (cs * mu1 - mu2) / b2)
+        d_mu2 = (2.0 * cs * (mu1 - lum * mu2) / b1
+                 + 2.0 * lum * (cs * mu2 - mu1) / b2)
+        maps = torch.stack([d_mu1, d_mu2, -lum * cs / b2, 2.0 * lum / b2],
+                           dim=0) * scale
+        u1, u2, u11, u12 = _filter_valid_t(maps, kernel, h, w)
+        if need[0]:
+            d1 = u1 + 2.0 * img1 * u11 + img2 * u12
+        if need[1]:
+            d2 = u2 + 2.0 * img2 * u11 + img1 * u12
+    if need[2]:
+        dmv = (scale * (cs * (1.0 - lum) / b1 * (2.0 * k1 * k1 * mv)
+                        + lum * (1.0 - cs) / b2 * (2.0 * k2 * k2 * mv))).sum()
+    return d1, d2, dmv
 
 
 def _downsample_2x(x):

@@ -1,11 +1,15 @@
 """PyTorch port of the SSIM ops, the fused SSIM (K6) and the DSSIM losses
-against the JAX package on the CPU. Inputs come from numpy, float32.
+against the JAX package on the CPU, with K6's closed-form backward
+(`ssim_backward_reference`) and its launch plan (`_ssim_plan`) at the shapes
+`chip_smoke.py` gives it. Inputs come from numpy, float32.
 
 Tolerances: SSIM and MS-SSIM per image atol 1e-5 (float32 band matmuls
 summed in another order); PSNR rtol 1e-6; the fused SSIM's plain path
 against the interpreted Pallas kernel atol 1e-5; gradients atol 1e-4 of max
 |g| (the largest difference seen is 1.2e-5 of it, MS-DSSIM through five
-scales); loss values rtol 1e-5."""
+scales); loss values rtol 1e-5; the closed-form backward against jax.grad
+atol 1e-5 of max |g| (float32 on both sides), against torch autograd in
+float64 1e-12 of max |g|."""
 
 import importlib
 
@@ -15,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from dl4ds_tpu import losses as jax_losses
 from dl4ds_tpu.ops.pallas_ops import (
     fused_ssim_per_image as jax_fused_ssim_per_image)
@@ -23,8 +29,10 @@ from dl4ds_tpu.ops.ssim import (psnr as jax_psnr, ssim as jax_ssim,
 
 import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch.ops import FusedSSIM, fused_ssim_per_image
-from dl4ds_tpu_torch.ops.fused_ops import _launch_ssim
-from dl4ds_tpu_torch.ops.ssim import psnr, ssim, ssim_multiscale
+from dl4ds_tpu_torch.ops.fused_ops import (_STATIC_SMEM_RESERVE, _launch_ssim,
+                                           _launch_ssim_backward, _ssim_plan)
+from dl4ds_tpu_torch.ops.ssim import (psnr, ssim, ssim_backward_reference,
+                                      ssim_multiscale)
 
 MS_FACTORS4 = (0.0448, 0.2856, 0.3001, 0.2363)
 GRAD_RTOL = 1e-4        # of max |g|
@@ -193,6 +201,173 @@ def test_k6_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
         a, b = a[:0], b[:0]
     with pytest.raises(err):
         _launch_ssim(a, b, max_val, size, 1.5, 0.01, 0.03)
+
+
+# ---------------------------------------------------------------------------
+# K6's backward: the closed form, and the launch plan of its kernels
+# ---------------------------------------------------------------------------
+
+# (shape, taps, sigma): one and three channels, a 5-D input, odd sizes, the
+# smallest and the largest filters
+BWD_CASES = [((3, 24, 24, 1), 11, 1.5), ((2, 16, 18, 3), 11, 1.5),
+             ((2, 3, 20, 20, 1), 11, 1.5), ((2, 13, 37, 1), 3, 0.8),
+             ((2, 13, 37, 3), 3, 0.8), ((2, 30, 33, 1), 25, 3.0)]
+
+
+def _bwd_inputs(shape, seed):
+    a, b = _pair(shape, seed)
+    g = np.random.default_rng(seed + 1).random(shape[:-3]).astype(
+        np.float32) + 0.5
+    return a, b, g
+
+
+@pytest.mark.parametrize('case', BWD_CASES)
+def test_ssim_backward_reference_matches_jax_grad(case):
+    """All three gradients against jax.grad of the JAX package's ssim, both
+    sides in float64 (JAX with x64 on; the same float32 taps). In float32
+    the images' gradients agree too; max_val's is not compared there: it
+    sums S's derivatives over every position, and JAX's own float32 value
+    lies 1.1e-5 of max |g| from float64 at the first case (the closed
+    form's 9.7e-7)."""
+    shape, k, sigma = case
+    a, b, g = _bwd_inputs(shape, 20)
+    with jax.enable_x64(True):
+        want = jax.grad(
+            lambda x, y, m: jnp.sum(jax_ssim(x, y, m, k, sigma) * g),
+            argnums=(0, 1, 2))(*(np.float64(v) for v in (a, b, 1.3)))
+        want = [np.asarray(w) for w in want]
+    got = ssim_backward_reference(
+        *(torch.as_tensor(np.float64(v)) for v in (a, b, 1.3, g)), k, sigma)
+    for name, x, w in zip(('img1', 'img2', 'max_val'), got, want):
+        assert w.dtype == np.float64
+        np.testing.assert_allclose(x.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+    want32 = jax.grad(
+        lambda x, y: jnp.sum(jax_ssim(x, y, 1.3, k, sigma) * g),
+        argnums=(0, 1))(a, b)
+    got32 = ssim_backward_reference(*_t(a, b), 1.3, *_t(g), k, sigma,
+                                    need=(True, True, False))
+    for name, x, w in zip(('img1', 'img2'), got32, want32):
+        assert x.dtype == torch.float32
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5 * np.abs(np.asarray(w)).max(),
+                                   err_msg=f'{name} in float32')
+
+
+@pytest.mark.parametrize('case', BWD_CASES)
+def test_ssim_backward_reference_matches_autograd_in_float64(case):
+    shape, k, sigma = case
+    a, b, g = (torch.from_numpy(v).double() for v in _bwd_inputs(shape, 21))
+    leaves = [a.clone().requires_grad_(), b.clone().requires_grad_(),
+              torch.tensor(1.3, dtype=torch.float64, requires_grad=True)]
+    want = torch.autograd.grad((ssim(*leaves, k, sigma) * g).sum(), leaves)
+    got = ssim_backward_reference(a, b, leaves[2].detach(), g, k, sigma)
+    for name, x, w in zip(('img1', 'img2', 'max_val'), got, want):
+        assert x.dtype == torch.float64
+        assert (x - w).abs().max() <= 1e-12 * w.abs().max(), name
+
+
+def test_ssim_backward_reference_skips_what_need_does_not_ask():
+    a, b, g = _t(*_bwd_inputs((2, 16, 16, 1), 22))
+    full = ssim_backward_reference(a, b, 1.0, g)
+    part = ssim_backward_reference(a, b, 1.0, g, need=(False, True, False))
+    assert part[0] is None and part[2] is None
+    assert torch.equal(part[1], full[1])
+
+
+def test_fused_ssim_cpu_backward_is_the_closed_form():
+    """FusedSSIM's backward on the CPU is `ssim_backward_reference`."""
+    a, b, g = _t(*_bwd_inputs((3, 20, 20, 1), 23))
+    leaves = [a.clone().requires_grad_(), b.clone().requires_grad_(),
+              torch.tensor(1.2, requires_grad=True)]
+    got = torch.autograd.grad((fused_ssim_per_image(*leaves) * g).sum(),
+                              leaves)
+    want = ssim_backward_reference(a, b, torch.tensor(1.2), g)
+    for x, w in zip(got, want):
+        assert torch.equal(x, w)
+
+
+H100_SMEM = 232448 - _STATIC_SMEM_RESERVE
+K6_CHIP_CASES = ([(tuple(shape), 11) for shape in chip_smoke.K6_SHAPES]
+                 + [(tuple(shape), k) for shape, k, _ in chip_smoke.K6_FILTERS])
+
+
+@pytest.mark.parametrize('case', K6_CHIP_CASES)
+def test_ssim_plan_covers_every_output_and_pixel_once(case):
+    """The forward's and the backward's first launch cover every (image,
+    output position) once, the backward's pixel tiles every (image, pixel)
+    once, within the H100's shared memory."""
+    shape, k = case
+    plan = _ssim_plan(shape, k, H100_SMEM)
+    *lead, h, w, c = shape
+    n_img = int(np.prod(lead)) * c
+    hv, wv = h - k + 1, w - k + 1
+    th, tw = 16, 32
+    for direction in ('fwd', 'bwd'):
+        p = plan[direction]
+        assert p['smem'] <= H100_SMEM
+        seen = np.zeros((n_img, hv, wv), dtype=np.int64)
+        if p['regime'] == 'image':      # block n: output n, all channels
+            assert p['grid'] == plan['n_out'] and p['launches'] == 1
+            for n in range(p['grid']):
+                seen[n * c:(n + 1) * c] += 1
+        else:
+            assert p['grid'] == n_img * plan['tiles']
+            for block in range(p['grid']):
+                img, tile = divmod(block, plan['tiles'])
+                y0 = (tile // plan['tiles_x']) * th
+                x0 = (tile % plan['tiles_x']) * tw
+                seen[img, y0:y0 + th, x0:x0 + tw] += 1
+        assert (seen == 1).all(), (case, direction)
+    pixels = np.zeros((n_img, h, w), dtype=np.int64)
+    for block in range(n_img * plan['ptiles']):
+        img, tile = divmod(block, plan['ptiles'])
+        y0 = (tile // plan['ptiles_x']) * th
+        x0 = (tile % plan['ptiles_x']) * tw
+        pixels[img, y0:y0 + th, x0:x0 + tw] += 1
+    assert (pixels == 1).all()
+
+
+def test_ssim_plan_picks_each_regime_for_the_chip_shapes():
+    """The loss's [128, 64, 64, 1] holds each image in a block both ways;
+    the 512x512 grid tiles both ways (the backward in two launches)."""
+    plans = {case: _ssim_plan(*case, H100_SMEM) for case in K6_CHIP_CASES}
+    loss = plans[(tuple(chip_smoke.K6_SHAPES[0]), 11)]
+    assert (loss['fwd']['regime'], loss['bwd']['regime']) == ('image',
+                                                              'image')
+    grid = plans[((8, 512, 512, 1), 11)]
+    assert (grid['fwd']['regime'], grid['bwd']['regime']) == ('tiles',
+                                                              'tiles')
+    assert grid['bwd']['launches'] == 2
+    assert {(d, p[d]['regime']) for p in plans.values()
+            for d in ('fwd', 'bwd')} == set(chip_smoke.SSIM_REGIMES)
+
+
+@pytest.mark.parametrize('case', ['dtype', 'shape', 'taps', 'window',
+                                  'max_val', 'g_shape', 'g_type', 'empty'])
+def test_k6_backward_wrapper_rejects_what_the_kernel_does_not_take(case):
+    """The backward wrapper's checks run before anything reaches the card."""
+    a, b = _t(*_pair((2, 16, 16, 1), 24))
+    max_val, size, g, err = torch.tensor(1.0), 11, torch.ones(2), ValueError
+    if case == 'dtype':
+        a, err = a.double(), TypeError
+    elif case == 'shape':
+        b = b[:1]
+    elif case == 'taps':
+        size = 27
+        a, b = _t(*_pair((2, 32, 32, 1), 25))
+    elif case == 'window':
+        a, b = a[:, :10], b[:, :10]
+    elif case == 'max_val':
+        max_val = torch.ones(2)
+    elif case == 'g_shape':
+        g = torch.ones(3)
+    elif case == 'g_type':
+        g = torch.ones(2, dtype=torch.int32)
+    else:
+        a, b, g = a[:0], b[:0], g[:0]
+    with pytest.raises(err):
+        _launch_ssim_backward(a, b, max_val, g, size, 1.5, 0.01, 0.03)
 
 
 # ---------------------------------------------------------------------------

@@ -227,13 +227,19 @@ def test_recurrent_adam_steps_match_the_jax_trainer(data, jax_steps, route,
 def test_flagship_dssim_adam_steps_match_the_jax_trainer(data, monkeypatch):
     """Three Adam steps of the spatial flagship with attention and loss
     dssim_mae: K1's and K6's plain versions forward, K1's plain backward,
-    K6's backward (autograd through the plain SSIM, the data range's
-    gradient included) and Adam, against the JAX trainer."""
+    K6's plain backward (the closed form `ssim_backward_reference`, the
+    data range's gradient included) and Adam, against the JAX trainer."""
     from dl4ds_tpu_torch.ops import fused_ops
     calls = []
     plain_ssim = fused_ops.ssim
+    plain_backward = fused_ops.ssim_backward_reference
     monkeypatch.setattr(fused_ops, 'ssim', lambda *a: (
-        calls.append(torch.is_grad_enabled()), plain_ssim(*a))[1])
+        calls.append(('forward', torch.is_grad_enabled())),
+        plain_ssim(*a))[1])
+    monkeypatch.setattr(fused_ops, 'ssim_backward_reference',
+                        lambda *a, **k: (
+                            calls.append(('backward', torch.is_grad_enabled())),
+                            plain_backward(*a, **k))[1])
     steps = _jax_train_steps(data[0], 1e5, FLAGSHIP)
     launches = (tds.fused_channel_attention.launches,
                 tds.fused_ssim_per_image.launches)
@@ -241,8 +247,8 @@ def test_flagship_dssim_adam_steps_match_the_jax_trainer(data, monkeypatch):
     gates = [m for m in tr.net.modules()
              if isinstance(m, tds.models.blocks.ChannelAttention2D)]
     assert len(gates) == FLAGSHIP['n_blocks'] + 1
-    # K6's plain forward, then its backward's recompute, every step
-    assert calls == [False, True] * 3
+    # K6's plain forward, then its plain backward, every step
+    assert calls == [('forward', False), ('backward', False)] * 3
     assert launches == (tds.fused_channel_attention.launches,
                         tds.fused_ssim_per_image.launches)
 

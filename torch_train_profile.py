@@ -16,8 +16,8 @@ resnet_spc: n_blocks 6, no time window; `--loss dssim_mae` as phase 10
 trains it). Runs 3 warm-up steps, then `reps` steps (batch synthesis,
 forward, backward, Adam) under `torch.profiler` on one GPU, and prints one
 JSON line: device time per kernel group and for the top kernels, the device
-time inside the plain backwards of K1 and K6 (read from record_function
-ranges put around them here), the device's busy share over the profiled
+time inside the backwards of K1 and K6 (read from record_function ranges
+put around them here), the device's busy share over the profiled
 window, launches and the host clock per step (the profiler slows the host;
 chip_smoke.py times the steps without it). Fails when the profiler records
 no device kernel.
@@ -33,9 +33,9 @@ from pathlib import Path
 # kernel-name fragments -> group; the first match wins
 # (cuDNN's convolutions first; GEMMs with no convolution in their name,
 # cuBLAS's among them, then fall to 'gemm')
-GROUPS = [('K1_channel_attention', ('ca_partial_sums', 'ca_gate',
-                                     'ca_apply')),
-          ('K6_ssim', ('ssim_tiles', 'ssim_finish')),
+GROUPS = [('K1_channel_attention', ('ca_fwd_resident', 'ca_bwd_resident',
+                                     'ca_stream_sums', 'ca_stream_apply')),
+          ('K6_ssim', ('ssim_image', 'ssim_tiles', 'ssim_pixels')),
           # the chain step: K3's on route 'fused' (n_filters 8), K4's on
           # 'split' (n_filters 64)
           ('K3_K4_chain_step', ('chain_step',)),
@@ -58,20 +58,21 @@ def group_of(name):
     return 'other'
 
 
-# autograd Functions whose backward is plain PyTorch: their device time is
-# read from a record_function range around the backward
-ANNOTATED = {'K1_plain_backward': ('fused_ops', 'FusedChannelAttention'),
-             'K6_plain_backward': ('fused_ops', 'FusedSSIM')}
+# autograd Functions whose backward is read apart from their forward (both
+# are kernels of the same group): the device time inside a record_function
+# range around the backward
+ANNOTATED = {'K1_backward': ('fused_ops', 'FusedChannelAttention'),
+             'K6_backward': ('fused_ops', 'FusedSSIM')}
 
 
 def annotate_backwards(torch, ops):
     for label, (module, cls) in ANNOTATED.items():
         fn = getattr(getattr(ops, module), cls)
-        plain = fn.backward
+        inner = fn.backward
 
-        def backward(ctx, *grads, plain=plain, label=label):
+        def backward(ctx, *grads, inner=inner, label=label):
             with torch.profiler.record_function(label):
-                return plain(ctx, *grads)
+                return inner(ctx, *grads)
         fn.backward = staticmethod(backward)
 
 
@@ -164,7 +165,7 @@ def main():
         'patches_per_s_host': args.batch * args.reps / wall_s,
         'groups_ms_per_step': {g: v / per for g, v in sorted(
             by_group.items(), key=lambda kv: -kv[1])},
-        'plain_backward_ms_per_step': {
+        'backward_ms_per_step': {
             k: None if v is None else v / per for k, v in annotated.items()},
         'top_kernels_ms_per_step': [[n[:90], v / per] for n, v in top],
     }))
