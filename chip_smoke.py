@@ -57,8 +57,12 @@ Phases, each of which exits non-zero on failure:
   7. drive recurrent training: `SupervisedTrainer(time_window=4)` on the
      recresnet_spc x4 configuration of bench_suite.py (256 grids of
      128x128, 64x64 patches, batch 128, mae) for 2 epochs of 20 steps with
-     validation and test, count the launches of K2 (both variants), K3 and
-     K4 against what `dispatch_info` routes, require finite losses, time the
+     validation and test, its steps replayed as captured CUDA graphs, under
+     torch.profiler; count the launches of K2 (both variants), K3 and K4
+     in the run's device trace (a step's launches times each graph's
+     warm-up calls and replays) and the wrappers' calls (a step's launches
+     times each graph's warm-up calls and its capture), against what
+     `dispatch_info` routes; require finite losses, time the
      steps (patches/s on the host clock, one step on CUDA events), then run
      3 steps at batch 16 from one seed on the GPU (TF32 off, PyTorch's own
      convolutions) and on the CPU in float64 and compare the losses and
@@ -88,7 +92,27 @@ Phases, each of which exits non-zero on failure:
      step) and K6 (one a loss each way), require finite losses, time the
      steps, and compare 3 steps at batch 16 on the GPU (PyTorch's own
      convolutions) with the CPU in float64;
- 11. print the `kernels` JSON line, then, last, the device JSON line.
+ 11. hold the replayed graphs against eager steps: for the flagship with
+     `dssim_mae`, the same with EMA, gradient accumulation over 2
+     microbatches and a cosine schedule, and recurrent training at
+     n_filters 8 and 64, run 8 steps through `run()`'s graphs and 8 eager
+     `train_step`s from the same weights and plan (cuDNN deterministic) and
+     require the same bits in every loss, parameter and EMA weight; check
+     the graphed run's launches in its device trace and its wrapper calls
+     as phases 7, 8 and 10 do, and that the kernels' arrival counters are
+     left at zero; print the
+     speed of the three training paths graphed and eager, which phases 7,
+     8 and 10 measure on their trainers (patches/s on the host clock, one
+     replay and one eager step on CUDA events, the device's busy share
+     over a chunk of replays, in which torch.profiler must see every
+     replay run the port's kernels);
+ 12. print the `kernels` JSON line, then, last, the device JSON line. In
+     the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
+     K3, K4, K1_channel_attention_train, K6) is what the device trace of
+     its phase's run holds, and `wrapper_calls` what its wrapper counted
+     (the warm-up calls and the capture: a replay calls no wrapper); the
+     serving kernels (K1_channel_attention, K2_convlstm) run eagerly, and
+     their `launches` are their wrappers' counts.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -96,6 +120,7 @@ Imports nothing of JAX. Weights come from the port's own seeded init.
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1253,7 +1278,8 @@ def _expected_launches(conv, layers, steps, eval_steps):
     validation or test steps of a recurrent model with these (Cin, F, k)
     ConvLSTM layers, by `dispatch_info`'s route of each: K3 a layer is T
     chain steps, dx (not for the stem, whose input needs no gradient), the
-    Wx and Wh passes and one reduction; K4 a layer is T chain steps."""
+    Wx and Wh passes and one reduction; K4 a layer is T chain steps. With
+    (1, 0) and (0, 1), the launches a captured step must hold."""
     k3 = k4 = 0
     for cin, f, k in layers:
         x_shape = (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin)
@@ -1281,16 +1307,141 @@ def _training_config(**model):
                 patch_size=TRAIN_PATCH, verbose=False, **model)
 
 
-def _drive_training(torch, tds, config, label, steps, expected, cpu_batch,
+# (name fragment, counter) of the port's kernels in a device trace, first
+# match first; a call of the stream regime of K1 and of the tile regime of
+# K6's backward launches a second kernel (ca_stream_apply, ssim_pixels_bwd),
+# which is counted under None, so that a counter counts calls as its
+# wrapper does; 'flag' is the counter chosen by the kernel's last template
+# flag (BWD for ca_stream_sums, TRAIN for convlstm_tile); a chain step is
+# K3's or K4's by its layer's route ('chain', `_device_launches`)
+KERNEL_COUNTERS = (
+    ('ca_fwd_resident', 'K1'), ('ca_bwd_resident', 'K1 backward'),
+    ('ca_stream_sums', ('K1', 'K1 backward')), ('ca_stream_apply', None),
+    ('ssim_image_bwd', 'K6 backward'), ('ssim_tiles_bwd', 'K6 backward'),
+    ('ssim_pixels_bwd', None), ('ssim_image', 'K6'), ('ssim_tiles', 'K6'),
+    ('convlstm_tile', ('K2 inference', 'K2-train')), ('chain_step', 'chain'),
+    ('dx_frames', 'K3'), ('wgrad_tile', 'K3'), ('wgrad_reduce', 'K3'))
+# the last bool in a kernel's name: demangled (`<16, true, true>`), as a
+# [with ... TRAIN=true] list, or mangled (`Lb1E`)
+_TEMPLATE_BOOL = re.compile(r'\b(true|false)\b|Lb([01])E')
+
+
+def _kernel_counter(name):
+    """The counter of `_counters` under which a device kernel of this name
+    counts: 'chain' for a chain step, None for the second kernel of a call
+    or a kernel that is not the port's."""
+    for fragment, counter in KERNEL_COUNTERS:
+        if fragment in name:
+            if isinstance(counter, tuple):
+                flags = _TEMPLATE_BOOL.findall(name)
+                if not flags:
+                    fail(f'no template flag in the kernel name {name!r}')
+                word, bit = flags[-1]
+                counter = counter[word == 'true' or bit == '1']
+            return counter
+    return None
+
+
+def _device_kernels(torch, prof):
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
+
+
+def _device_launches(tds, kernels, expected):
+    """{counter: launches} of the port's kernels among the profiler's
+    device `kernels`; the chain steps go to K3 when `expected` (the same
+    keys) holds no K4 launch, else to K4 when it holds no K3 launch (a run
+    whose layers take both routes cannot be told apart here, and fails)."""
+    counts = dict.fromkeys((name for name, _, _ in _counters(tds)), 0)
+    chain = 0
+    for e in kernels:
+        counter = _kernel_counter(e.name)
+        if counter == 'chain':
+            chain += 1
+        elif counter is not None:
+            counts[counter] += 1
+    if expected['K4'] == 0:
+        counts['K3'] += chain
+    elif expected['K3'] == 0:
+        counts['K4'] += chain
+    else:
+        fail('a run whose ConvLSTM layers take both backward routes: the '
+             'trace cannot tell K3\'s chain steps from K4\'s')
+    return counts
+
+
+def _traced_run(torch, tds, tr):
+    """`tr.run()` under torch.profiler, with every launch counter set to 0
+    just before and read just after. Returns (the run's seconds, the
+    wrappers' calls {counter: n}, the device kernels of the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    counters = _counters(tds)
+    for _, fn, attr in counters:
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run()
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    calls = {name: getattr(fn, attr) for name, fn, attr in counters}
+    return run_s, calls, _device_kernels(torch, prof)
+
+
+def _check_launches(tds, runner, label, per_step, replays, calls, kernels):
+    """Hold a traced run's launches of the port's kernels against the
+    launches a step should make (`per_step`: {'train': {counter: n},
+    'eval': ...}) and each graph's replays against `replays` ({graph: n}).
+    A graph's wrappers are called in its warm-up calls and its capture
+    (a step x (WARMUP_CALLS + 1)); its kernels run on the device in the
+    warm-up calls and the replays (a step x (WARMUP_CALLS + replays)), as
+    the device trace must show. Returns the launches the trace holds."""
+    from dl4ds_tpu_torch.training.graphs import WARMUP_CALLS
+    want_calls = dict.fromkeys(calls, 0)
+    want = dict.fromkeys(calls, 0)
+    for gname, graph in runner.graphs.items():
+        if graph.replays != replays[gname]:
+            fail(f'{label}: graph {gname!r} replayed {graph.replays} times, '
+                 f'expected {replays[gname]}')
+        step = per_step['eval' if gname in ('val', 'test') else 'train']
+        for name in want:
+            want_calls[name] += step[name] * (WARMUP_CALLS + 1)
+            want[name] += step[name] * (WARMUP_CALLS + graph.replays)
+    launches = _device_launches(tds, kernels, want)
+    print(f'{label}: graphs {sorted(runner.graphs)} replayed '
+          f'{ {g: c.replays for g, c in runner.graphs.items()} } times; '
+          f'wrapper calls {calls} (expected a training step '
+          f'{per_step["train"]}, an evaluation step {per_step["eval"]}, x '
+          f'({WARMUP_CALLS} warm-up calls + the capture) a graph: '
+          f'{want_calls})', flush=True)
+    print(f'{label}: launches of the port\'s kernels in the device trace '
+          f'{launches} (expected a step x ({WARMUP_CALLS} warm-up calls + '
+          f'the replays) a graph: {want})', flush=True)
+    if calls != want_calls:
+        fail(f'{label}: the wrappers were called {calls} times, expected '
+             f'{want_calls}')
+    if launches != want:
+        fail(f'{label}: the device trace holds {launches} launches of the '
+             f'port\'s kernels, expected {want}')
+    return launches
+
+
+def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
                     shares):
     """Drive training through SupervisedTrainer(**config) on the card at
-    batch 128 (2 epochs of `steps` steps, validation and test), with every
-    launch counter set to 0 just before and read just after, against
-    `expected` ({counter: launches}); require finite losses; time the steps
+    batch 128 (2 epochs of `steps` steps, validation and test, replayed as
+    captured CUDA graphs) under torch.profiler, with every launch counter
+    set to 0 just before and read just after: the wrappers' calls and the
+    launches in the device trace against the launches a step should make
+    (`per_step`, {'train': {counter: launches}, 'eval': ...},
+    `_check_launches`); require finite losses; time eager steps
     (host clock, and one step on CUDA events, with the kernels' shares of it
-    from `shares`, {name: ms}); then 3 steps at `cpu_batch` from one seed on
-    the GPU (TF32 off, PyTorch's own float32 convolutions, not cuDNN's) and
-    on the CPU in float64. Returns the launches and the numbers."""
+    from `shares`, {name: ms}; phase 11 times the graphs); then 3 steps at
+    `cpu_batch` from one seed on the GPU (TF32 off, PyTorch's own float32
+    convolutions, not cuDNN's) and on the CPU in float64. Returns the
+    launches in the device trace, the wrappers' calls and the numbers."""
     import numpy as np
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1298,22 +1449,18 @@ def _drive_training(torch, tds, config, label, steps, expected, cpu_batch,
         batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, steps_per_epoch=steps,
         validation_steps=TRAIN_VAL_STEPS, test_steps=TRAIN_TEST_STEPS,
         **config)
-    counters = _counters(tds)
-    for _, fn, attr in counters:
-        setattr(fn, attr, 0)
-    t0 = time.perf_counter()
-    tr.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    got = {name: getattr(fn, attr) for name, fn, attr in counters}
+    run_s, calls, kernels = _traced_run(torch, tds, tr)
     losses = tr.fithist['loss'] + tr.fithist['val_loss'] + [tr.test_loss]
     print(f'training: {tr.model.name}, {label}, '
           f'{tr.model.param_count(tr.net)} parameters, batch {TRAIN_BATCH}, '
-          f'{TRAIN_EPOCHS} epochs of {steps} steps in {run_s:.2f} s; '
-          f'history {tr.fithist}, test loss {tr.test_loss:.6f}; launches '
-          f'{got} (expected {expected})', flush=True)
-    if got != expected:
-        fail(f'training ({label}) launched {got}, expected {expected}')
+          f'{TRAIN_EPOCHS} epochs of {steps} steps in {run_s:.2f} s under '
+          f'torch.profiler; history {tr.fithist}, test loss '
+          f'{tr.test_loss:.6f}', flush=True)
+    got = _check_launches(
+        tds, tr.runner, f'training ({label})', per_step,
+        {'step': TRAIN_EPOCHS * steps,
+         'val': TRAIN_EPOCHS * TRAIN_VAL_STEPS, 'test': TRAIN_TEST_STEPS},
+        calls, kernels)
     if not all(np.isfinite(v) for v in losses):
         fail(f'training ({label}) gave non-finite losses {losses}')
 
@@ -1331,15 +1478,19 @@ def _drive_training(torch, tds, config, label, steps, expected, cpu_batch,
     batch = tr.ds_train(idx[0], generator=gen)
     step_ms = statistics.median(
         device_times(torch, lambda: tr.train_step(batch), reps=10))
+    graphed = _graphed_speed(torch, tds, tr, steps, per_step, label)
     del tr, batch
     print(f'training step at batch {TRAIN_BATCH}, {label} (TF32 convs, the '
           f'default; the port\'s kernels and the GEMM tail are float32): '
-          f'{patches_per_s:.1f} patches/s end to end (host clock, batch '
-          f'synthesis included); one step {step_ms:.3f} ms (CUDA events) = '
-          f'{TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; of which '
+          f'{patches_per_s:.1f} patches/s end to end eager (host clock, batch '
+          f'synthesis included); one eager step {step_ms:.3f} ms (CUDA '
+          f'events) = {TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; of which '
           + ', '.join(f'{name} {ms:.3f} ms ({100 * ms / step_ms:.1f}%)'
                       for name, ms in shares.items())
-          + f', timed alone above; {torch.cuda.get_device_name(0)}',
+          + f', timed alone above; replayed: {graphed["patches_per_s"]:.1f} '
+          f'patches/s (host clock), one replay {graphed["replay_ms"]:.3f} ms '
+          f'(CUDA events), device busy {100 * graphed["busy_share"]:.1f}% '
+          f'of {steps} replays\' span; {torch.cuda.get_device_name(0)}',
           flush=True)
 
     # 3 steps from one seed on the GPU and on the CPU
@@ -1379,9 +1530,43 @@ def _drive_training(torch, tds, config, label, steps, expected, cpu_batch,
     if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL):
         fail(f'GPU training steps ({label}) disagree with the CPU: losses '
              f'{loss_err:.3e}, parameters {param_err:.3e}')
-    return got, dict(patches_per_s=patches_per_s, step_ms=step_ms,
-                     run_s=run_s, cpu_loss_rel_err=loss_err,
-                     cpu_param_err=param_err)
+    return got, calls, dict(patches_per_s=patches_per_s, step_ms=step_ms,
+                            run_s=run_s, cpu_loss_rel_err=loss_err,
+                            cpu_param_err=param_err, graphed=graphed)
+
+
+def _graphed_speed(torch, tds, tr, steps, per_step, label):
+    """The replayed training graph of a run trainer: a chunk of `steps`
+    replays with its plan upload on the host clock (after one warm chunk),
+    one replay on CUDA events, and a chunk under torch.profiler: the
+    device's busy share of its span, and the port's kernels, which must
+    have run in every replay."""
+    gen = torch.Generator().manual_seed(7)
+    plans = [tr.ds_train.plan(gen, steps) for _ in range(2)]
+    tr.runner.train(plans[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.runner.train(plans[1])
+    torch.cuda.synchronize()
+    rate = steps * TRAIN_BATCH / (time.perf_counter() - t0)
+    graph = tr.runner.graphs['step']
+
+    def replay():
+        tr._row.zero_()
+        graph.replay()
+    replay_ms = statistics.median(device_times(torch, replay, reps=10))
+    kernels, busy_ms, span_ms = _replay_profile(torch, tr.runner, plans[0])
+    want = {name: n * steps for name, n in per_step['train'].items()}
+    port = _device_launches(tds, kernels, want)
+    if port != want:
+        fail(f'{label}: the profiler saw {port} launches of the port\'s '
+             f'kernels in {steps} replays, expected {per_step["train"]} in '
+             f'each')
+    return dict(patches_per_s=rate, replay_ms=replay_ms,
+                busy_ms_per_step=busy_ms / steps,
+                span_ms_per_step=span_ms / steps,
+                busy_share=busy_ms / span_ms,
+                port_launches_per_replay=sum(port.values()) / steps)
 
 
 def _print_routes(conv, layers):
@@ -1394,23 +1579,27 @@ def _print_routes(conv, layers):
               f'({info["reason"]})', flush=True)
 
 
+def _recurrent_per_step(conv, layers):
+    return {'train': _expected_launches(conv, layers, 1, 0),
+            'eval': _expected_launches(conv, layers, 0, 1)}
+
+
 def phase_training(torch, tds, report):
     """Phase 7: recurrent training of BASELINE config 4 on the card."""
     import dl4ds_tpu_torch.ops.convlstm as conv
     step = report['k3_step']
     _print_routes(conv, K3_LAYERS)
-    got, numbers = _drive_training(
+    got, calls, numbers = _drive_training(
         torch, tds, _training_config(loss='mae', time_window=REC_T,
                                      n_blocks=REC_BLOCKS,
                                      n_filters=N_FILTERS),
-        f'n_filters {N_FILTERS}', TRAIN_STEPS,
-        _expected_launches(conv, K3_LAYERS, TRAIN_EPOCHS * TRAIN_STEPS,
-                           TRAIN_EPOCHS * TRAIN_VAL_STEPS + TRAIN_TEST_STEPS),
-        16, {'K2-train': sum(r['k2_ms'] for r in step),
+        f'n_filters {N_FILTERS}', TRAIN_STEPS, _recurrent_per_step(
+            conv, K3_LAYERS), 16, {'K2-train': sum(r['k2_ms'] for r in step),
              'K3': sum(r['k3_ms'] for r in step)})
     report.update(k2_train_launches=got['K2-train'],
                   train_k2_inference_launches=got['K2 inference'],
-                  k3_launches=got['K3'], train_k4_launches=got['K4'])
+                  k3_launches=got['K3'], train_k4_launches=got['K4'],
+                  k2_train_calls=calls['K2-train'], k3_calls=calls['K3'])
     report.update({f'train_{k}': v for k, v in numbers.items()})
 
 
@@ -1419,20 +1608,19 @@ def phase_wide_training(torch, tds, report):
     import dl4ds_tpu_torch.ops.convlstm as conv
     step = report['k4_step']
     _print_routes(conv, WIDE_LAYERS)
-    got, numbers = _drive_training(
+    got, calls, numbers = _drive_training(
         torch, tds, _training_config(loss='mae', time_window=REC_T,
                                      n_blocks=REC_BLOCKS, n_filters=WIDE_F,
                                      attention=True),
         f'n_filters {WIDE_F}', WIDE_STEPS,
-        _expected_launches(conv, WIDE_LAYERS, TRAIN_EPOCHS * WIDE_STEPS,
-                           TRAIN_EPOCHS * TRAIN_VAL_STEPS + TRAIN_TEST_STEPS),
-        WIDE_CPU_BATCH,
+        _recurrent_per_step(conv, WIDE_LAYERS), WIDE_CPU_BATCH,
         {'K2-train': sum(r['k2_ms'] for r in step),
          'K4': sum(r['k4_ms'] for r in step),
          'the GEMM tail': sum(r['tail_ms'] for r in step)})
     report.update(wide_k2_train_launches=got['K2-train'],
                   wide_k2_inference_launches=got['K2 inference'],
-                  wide_k3_launches=got['K3'], k4_launches=got['K4'])
+                  wide_k3_launches=got['K3'], k4_launches=got['K4'],
+                  k4_calls=calls['K4'])
     report.update({f'wide_{k}': v for k, v in numbers.items()})
 
 
@@ -1667,6 +1855,17 @@ def _gate_inputs(torch, tds, config):
     return shapes
 
 
+def _flagship_per_step(per_forward):
+    """The launches of a flagship training step (a gate's forward and
+    backward per gate, K6 once each way) and of an evaluation step."""
+    none = {'K2-train': 0, 'K2 inference': 0, 'K3': 0, 'K4': 0}
+    return {'train': dict(none, **{'K1': per_forward,
+                                   'K1 backward': per_forward, 'K6': 1,
+                                   'K6 backward': 1}),
+            'eval': dict(none, **{'K1': per_forward, 'K1 backward': 0,
+                                  'K6': 1, 'K6 backward': 0})}
+
+
 def phase_flagship_training(torch, tds, report):
     """Phase 10: the flagship training with dssim_mae on the card: K1 timed
     at the step's gate shapes (kernel and plain, forward and backward, the
@@ -1716,25 +1915,179 @@ def phase_flagship_training(torch, tds, report):
               f'bound {rows[-1]["bwd_bound_ms"]:.4f} ms (bytes)', flush=True)
     report['k1_train_rows'] = rows
     per_forward = len(rows)
-    forwards = (TRAIN_EPOCHS * (TRAIN_STEPS + TRAIN_VAL_STEPS)
-                + TRAIN_TEST_STEPS)
-    steps = TRAIN_EPOCHS * TRAIN_STEPS
-    expected = {'K2-train': 0, 'K2 inference': 0, 'K3': 0, 'K4': 0,
-                'K1': per_forward * forwards,
-                'K1 backward': per_forward * steps, 'K6': forwards,
-                'K6 backward': steps}
     k6 = report['k6_rows'][0]
-    got, numbers = _drive_training(
+    got, calls, numbers = _drive_training(
         torch, tds, config, f'n_filters {N_FILTERS}, {FLAG_LOSS}',
-        TRAIN_STEPS, expected, FLAG_CPU_BATCH,
+        TRAIN_STEPS, _flagship_per_step(per_forward), FLAG_CPU_BATCH,
         {'K1 forward': sum(r['ms'] for r in rows),
          'K1 backward': sum(r['bwd_ms'] for r in rows),
          'K6': k6['ms'], 'K6 backward': k6['bwd_ms']})
     report.update(flag_k1_launches=got['K1'],
                   flag_k1_bwd_launches=got['K1 backward'],
                   k6_launches=got['K6'], k6_bwd_launches=got['K6 backward'],
+                  flag_k1_calls=calls['K1'],
+                  flag_k1_bwd_calls=calls['K1 backward'],
+                  k6_calls=calls['K6'], k6_bwd_calls=calls['K6 backward'],
                   flag_k1_per_forward=per_forward)
     report.update({f'flag_{k}': v for k, v in numbers.items()})
+
+
+# phase 11: steps of each eager-vs-graphed comparison
+GRAPH_STEPS = 8
+
+
+def _max_diff(a, b):
+    return max((x.double() - y.double()).abs().max().item()
+               for x, y in zip(a, b))
+
+
+def _replay_profile(torch, runner, plan):
+    """(the device kernels, busy ms, span ms) of one `runner.train(plan)`
+    (a chunk of replays with its plan upload) under torch.profiler; busy is
+    the union of the kernels' intervals."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.train(plan)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(torch, prof)
+    if not kernels:
+        fail('torch.profiler recorded no kernel of the replays')
+    busy, end = 0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in kernels):
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels))
+    return kernels, busy / 1e3, span / 1e3
+
+
+def _graphs_vs_eager(torch, tds, fo, config, label, per_step):
+    """GRAPH_STEPS training steps of `config` at batch TRAIN_BATCH through
+    `run()`'s captured graphs and as many eager `train_step`s from the same
+    seed (weights) and plan: the same bits in every loss, parameter and EMA
+    weight. Checks the graphed run's launches and replays (`_check_launches`)
+    and the arrival counters. Returns the row."""
+    args = dict(batch_size=TRAIN_BATCH, epochs=1, steps_per_epoch=GRAPH_STEPS,
+                validation_steps=1, test_steps=1, **config)
+    graphed = tds.SupervisedTrainer(**args)
+    _, calls, kernels = _traced_run(torch, tds, graphed)
+    runner = graphed.runner
+    k = graphed.gradient_accumulation_steps
+    replays = ({'step': GRAPH_STEPS} if k == 1 else
+               {'accumulate': GRAPH_STEPS - GRAPH_STEPS // k,
+                'commit': GRAPH_STEPS // k})
+    got = _check_launches(tds, runner, f'phase 11 ({label})', per_step,
+                          dict(replays, val=1, test=1), calls, kernels)
+    busy = [name for name, t in fo._COUNTERS.items()
+            if int(t.count_nonzero()) != 0]
+    if busy:
+        fail(f'phase 11 ({label}): arrival counters {busy} not left at 0')
+
+    eager = tds.SupervisedTrainer(**args)
+    eager.setup_datagen()
+    eager.setup_model()
+    eager.setup_optimizer()
+    eager.train_net.train()
+    plan = eager.ds_train.plan(torch.Generator().manual_seed(eager.seed),
+                               GRAPH_STEPS)
+    losses = torch.stack([eager.train_step(eager.ds_train(
+        plan['idx'][c], offsets=(plan['ys'][c], plan['xs'][c])))
+        for c in range(GRAPH_STEPS)])
+    pairs = {'losses': ([losses], [graphed.train_losses]),
+             'parameters': (list(eager.train_net.parameters()),
+                            list(graphed.train_net.parameters()))}
+    if eager.ema_net is not None:
+        pairs['EMA'] = (list(eager.ema_net.parameters()),
+                        list(graphed.ema_net.parameters()))
+    diffs = {what: _max_diff(a, b) for what, (a, b) in pairs.items()}
+    row = dict(label=label, graphs=sorted(runner.graphs), launches=got,
+               wrapper_calls=calls, per_step=per_step,
+               replays={g: c.replays for g, c in runner.graphs.items()},
+               max_abs_diff=diffs, n_updates=graphed.n_updates)
+    print(f'phase 11, {label}: {GRAPH_STEPS} steps through run()\'s graphs '
+          f'{sorted(runner.graphs)} against {GRAPH_STEPS} eager train_steps '
+          f'from the same weights and plan: max|d| {diffs} (bit-identical '
+          f'required)', flush=True)
+    if any(d != 0 for d in diffs.values()):
+        fail(f'phase 11 ({label}): graphed and eager steps differ: max|d| '
+             f'{diffs}')
+    if k > 1:
+        # the two graphs' replays: what the commit adds (the update, the
+        # rate, the EMA) is what one graph blending the two would spend on
+        # every microbatch
+        for name in ('accumulate', 'commit'):
+            graph = runner.graphs[name]
+
+            def replay(graph=graph):
+                graphed._row.zero_()
+                graph.replay()
+            row[f'{name}_replay_ms'] = statistics.median(
+                device_times(torch, replay, reps=10))
+        print(f'phase 11, {label}: one replay of the accumulate graph '
+              f'{row["accumulate_replay_ms"]:.3f} ms, of the commit graph '
+              f'{row["commit_replay_ms"]:.3f} ms (CUDA events, cuDNN '
+              f'deterministic); {card_line()}', flush=True)
+    return row
+
+
+def phase_graphs(torch, tds, report):
+    """Phase 11: the replayed graphs against eager steps, bit for bit, on
+    the three training paths and the flagship with EMA, accumulation and
+    a cosine schedule, with their launches; then the speed of the graphs
+    of phases 7, 8 and 10 beside their eager steps."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    flagship = _training_config(loss=FLAG_LOSS, n_filters=N_FILTERS,
+                                n_blocks=N_BLOCKS, attention=True)
+    flag_steps = _flagship_per_step(report['flag_k1_per_forward'])
+    rows = [
+        _graphs_vs_eager(torch, tds, fo, flagship,
+                         f'resnet_spc, {FLAG_LOSS}', flag_steps),
+        _graphs_vs_eager(
+            torch, tds, fo, dict(flagship, ema_decay=0.99,
+                                 gradient_accumulation_steps=2,
+                                 lr_schedule='cosine'),
+            f'resnet_spc, {FLAG_LOSS}, EMA 0.99, 2 microbatches, cosine',
+            flag_steps),
+        _graphs_vs_eager(
+            torch, tds, fo, _training_config(
+                loss='mae', time_window=REC_T, n_blocks=REC_BLOCKS,
+                n_filters=N_FILTERS),
+            f'recresnet_spc, n_filters {N_FILTERS}',
+            _recurrent_per_step(conv, K3_LAYERS)),
+        _graphs_vs_eager(
+            torch, tds, fo, _training_config(
+                loss='mae', time_window=REC_T, n_blocks=REC_BLOCKS,
+                n_filters=WIDE_F, attention=True),
+            f'recresnet_spc, n_filters {WIDE_F}',
+            _recurrent_per_step(conv, WIDE_LAYERS))]
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+    report['graph_rows'] = rows
+    card = card_line()
+    for prefix, label in (('flag', f'resnet_spc, {FLAG_LOSS}'),
+                          ('train', f'recresnet_spc, n_filters {N_FILTERS}'),
+                          ('wide', f'recresnet_spc, n_filters {WIDE_F}')):
+        g = report[f'{prefix}_graphed']
+        print(f'phase 11, {label}, batch {TRAIN_BATCH} (phases 7, 8, 10\'s '
+              f'trainer, cuDNN as PyTorch defaults it): graphed '
+              f'{g["patches_per_s"]:.1f} patches/s, eager '
+              f'{report[prefix + "_patches_per_s"]:.1f} patches/s (host '
+              f'clock); one replay {g["replay_ms"]:.3f} ms, one eager step '
+              f'{report[prefix + "_step_ms"]:.3f} ms (CUDA events); the '
+              f'device busy {100 * g["busy_share"]:.1f}% of the replays\' '
+              f'span; {card}', flush=True)
 
 
 def main():
@@ -1771,6 +2124,7 @@ def main():
     phase_wide_training(torch, tds, report)
     phase_ssim(torch, tds, report)
     phase_flagship_training(torch, tds, report)
+    phase_graphs(torch, tds, report)
 
     f32 = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
     k1 = {'name': 'K1_channel_attention', 'route': 'cuda',
@@ -1818,6 +2172,7 @@ def main():
                             'dl4ds_tpu_torch/csrc/tf32_mma.cuh'],
                 'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:219',
                 'launches': report['k2_train_launches'],
+                'wrapper_calls': report['k2_train_calls'],
                 'max_abs_err': max(max(r['ys_cs_zs_err'][:2])
                                    for r in k3_rows + report['k4_rows']
                                    if 'ys_cs_zs_err' in r),
@@ -1845,6 +2200,7 @@ def main():
                       'dl4ds_tpu_torch/csrc/tf32_mma.cuh'],
           'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:335',
           'launches': report['k3_launches'],
+          'wrapper_calls': report['k3_calls'],
           'max_abs_err': max(max(v for k, v in r['grad_rel_err'].items()
                                  if k != 'plain_f32') for r in k3_rows),
           'ms': sum(r['k3_ms'] for r in step),
@@ -1868,6 +2224,7 @@ def main():
                       'dl4ds_tpu_torch/csrc/tf32_mma.cuh'],
           'replaces': 'dl4ds_tpu/ops/pallas_convlstm.py:269',
           'launches': report['k4_launches'],
+          'wrapper_calls': report['k4_calls'],
           'max_abs_err': max(r['dzs_rel_err'] for r in report['k4_rows']),
           'ms': sum(r['k4_ms'] for r in wide),
           'plain_ms': sum(r['k4_plain_ms'] for r in wide),
@@ -1889,6 +2246,7 @@ def main():
                 'source': 'dl4ds_tpu_torch/csrc/channel_attention.cu',
                 'replaces': 'dl4ds_tpu/ops/pallas_ops.py:39',
                 'launches': report['flag_k1_launches'],
+                'wrapper_calls': report['flag_k1_calls'],
                 'max_abs_err': max(r['max_abs_err'] for r in gates),
                 'ms': sum(r['ms'] for r in gates),
                 'plain_ms': sum(r['plain_ms'] for r in gates),
@@ -1898,6 +2256,7 @@ def main():
                 'bwd_bound_ms': sum(r['bwd_bound_ms'] for r in gates),
                 'bwd_plain_ms': sum(r['bwd_plain_ms'] for r in gates),
                 'bwd_launches': report['flag_k1_bwd_launches'],
+                'bwd_wrapper_calls': report['flag_k1_bwd_calls'],
                 'work': f'the {len(gates)} gates of one float32 flagship '
                         f'training step at batch {TRAIN_BATCH}, summed, '
                         f'forward and backward (bwd_*, held against the '
@@ -1908,6 +2267,7 @@ def main():
           'source': 'dl4ds_tpu_torch/csrc/ssim.cu',
           'replaces': 'dl4ds_tpu/ops/pallas_ops.py:145',
           'launches': report['k6_launches'],
+          'wrapper_calls': report['k6_calls'],
           'max_abs_err': max(r['max_abs_err'] for r in k6_rows),
           'ms': k6_step['ms'], 'plain_ms': k6_step['plain_ms'],
           'bound_ms': k6_step['bound_ms'], 'bound_by': k6_step['bound_by'],
@@ -1915,6 +2275,7 @@ def main():
           'bwd_ms': k6_step['bwd_ms'], 'bwd_bound_ms': k6_step['bwd_bound_ms'],
           'bwd_plain_ms': k6_step['bwd_plain_ms'],
           'bwd_launches': report['k6_bwd_launches'],
+          'bwd_wrapper_calls': report['k6_bwd_calls'],
           'work': f'the per-image SSIM of the {FLAG_LOSS} loss of one '
                   f'flagship training step, x{k6_step["shape"]}, 11 taps; '
                   f'max_abs_err is per image against the plain version in '
@@ -1928,9 +2289,10 @@ def main():
     print(json.dumps({'k4_shapes': report['k4_rows']}), flush=True)
     print(json.dumps({'k6_shapes': k6_rows}), flush=True)
     print(json.dumps({'k1_train_shapes': gates}), flush=True)
+    print(json.dumps({'graphs': report['graph_rows']}), flush=True)
     print(json.dumps({k: v for k, v in report.items()
                       if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_',
-                                           'k6_rows'))}),
+                                           'k6_rows', 'graph_rows'))}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': [k1, k2, k2_train, k3, k4, k1_train, k6]}),

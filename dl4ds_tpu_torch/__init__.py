@@ -65,7 +65,7 @@ from .losses import (mae, mse, dssim, dssim_mae, dssim_mse, dssim_mae_mse,
                      msdssim, msdssim_mae, msdssim_mae_mse)
 from .dataloader import BatchSynthesizer
 from .models import (DSModel, build_model, net_postupsampling,
-                     recnet_postupsampling)
+                     recnet_postupsampling, save_model, load_model)
 from .weights import load_jax_params
 from .inference import Predictor, predict
 from .training import SupervisedTrainer

@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -660,8 +662,7 @@ long long g_launched = 0;
 
 template <typename K, typename... Args>
 cudaError_t launch(K kernel, long long grid, size_t smem, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = dl4ds::reserve_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   if (grid < 1 || grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};

@@ -112,6 +112,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -379,8 +380,7 @@ cudaError_t launch(Args& a, int frames, int train, cudaStream_t s) {
       sizeof(float) * (size_t)smem_floats(FS, a.th, a.tw, a.kh, a.kw, a.cw, a.rps);
   if (shmem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    const cudaError_t err = dl4ds::reserve_smem(kern, shmem);
     if (err != cudaSuccess) return err;
   }
   a.tiles_x = (a.wd + a.tw - 1) / a.tw;

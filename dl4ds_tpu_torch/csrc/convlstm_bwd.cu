@@ -59,6 +59,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -348,8 +349,7 @@ extern "C" int dl4ds_convlstm_wgrad(const float* src, const float* dzs, float* p
   const int shmem = (int)sizeof(float) * max(staged, (kgroups - 1) * groups * 32 * 32);
   if (shmem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        wgrad_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
+    const cudaError_t err = dl4ds::reserve_smem(wgrad_tile, (size_t)shmem);
     if (err != cudaSuccess) return (int)err;
   }
   const WArgs a{src, dzs, part, (int64_t)kh * kw * cs * f4 + (with_db ? f4 : 0),

@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr int kMaxTaps = 25;    // compiled maximum filter size
@@ -739,7 +741,7 @@ Taps load_taps(const float* taps_host, int k) {
 
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return dl4ds::reserve_smem(kernel, smem);
 }
 
 size_t image_smem(int h, int w, int k, bool backward) {

@@ -9,8 +9,10 @@ the LR grid with the matmul resize and stacks the LR channels as [lr,
 predictors, static_lr]; the HR statics are the aux input. With time windows
 the statics go to aux only. Patch offsets and epoch permutations are drawn
 from a CPU `torch.Generator` and then moved to the device, so one seed gives
-the same batches on every device. Season channels are not ported yet and
-raise.
+the same batches on every device. A batch has a host half (`plan` for a
+whole epoch, or `__call__`'s checks and draws) and a device half (`build`,
+`step_batch`), which never leaves the device. Season channels are not
+ported yet and raise.
 """
 
 import numpy as np
@@ -95,13 +97,55 @@ class BatchSynthesizer:
         offsets (ys, xs) = `offsets` ([2, B] integers), or, when not given,
         are drawn uniformly from [0, max(lr - patch_lr, 1)) with the CPU
         `generator` (ys first), as `_make_batch` draws them
-        (dl4ds_tpu/dataloader.py:683-741)."""
+        (dl4ds_tpu/dataloader.py:683-741).
+
+        The host half (checks, draws, one copy to the device) runs here,
+        the device half in `build`."""
         idx = torch.as_tensor(indices, dtype=torch.long)
-        if idx.numel() and int(idx.max()) + (self.time_window or 1) \
-                > self.n_total:
-            raise IndexError(f'sample {int(idx.max())} reaches past the '
-                             f'{self.n_total} grids')
-        idx = _to_device(idx, self.device)
+        self._check_indices(idx)
+        ys = xs = None
+        if self.patch_size is not None:
+            ys, xs = self._patch_offsets(idx.shape[0], offsets, generator)
+        return self.build(*(None if t is None else _to_device(t, self.device)
+                            for t in (idx, ys, xs)))
+
+    def plan(self, generator, steps):
+        """The host half of `steps` batches, drawn in the order that
+        `epoch_indices` and then one `__call__` a step draw them: the
+        shuffled index matrix, then each step's ys and xs. Returns {'idx':
+        [steps, B]} and, with patches, 'ys' and 'xs' [steps, B]: long CPU
+        tensors, checked against the grids."""
+        idx = self.epoch_indices(generator, steps=steps)
+        self._check_indices(idx)
+        plan = {'idx': idx}
+        if self.patch_size is not None:
+            offsets = [self._patch_offsets(self.batch_size, None, generator)
+                       for _ in range(steps)]
+            plan['ys'] = torch.stack([o[0] for o in offsets])
+            plan['xs'] = torch.stack([o[1] for o in offsets])
+        return plan
+
+    def plan_buffers(self, steps):
+        """Zeroed device buffers for `steps` rows of a plan (a valid plan:
+        sample 0 at offset 0), like `plan`'s."""
+        keys = ('idx',) + (('ys', 'xs') if self.patch_size is not None
+                           else ())
+        return {k: torch.zeros((steps, self.batch_size), dtype=torch.long,
+                               device=self.device) for k in keys}
+
+    def step_batch(self, plan, row):
+        """The batch of row `row` (a one-element long tensor on the device)
+        of a plan held on the device: the device half alone, without a host
+        read, so that it can be captured in a CUDA graph."""
+        return self.build(*(plan[k].index_select(0, row).view(-1)
+                            if k in plan else None
+                            for k in ('idx', 'ys', 'xs')))
+
+    def build(self, idx, ys=None, xs=None):
+        """The device half of `__call__`: the batch of samples `idx` [B]
+        at the LR patch offsets (ys, xs) [B] (with patches), all long
+        tensors on the device, checked by the host half. Device work only:
+        no host read, no host copy."""
         b = idx.shape[0]
         aux = None
         if self.patch_size is None:
@@ -114,7 +158,6 @@ class BatchSynthesizer:
                 static_lr = (self.static_lr.expand(b, *self.static_lr.shape)
                              if self.time_window is None else None)
         else:
-            ys, xs = self._patch_offsets(b, offsets, generator)
             p, plr, s = self.patch_size, self.patch_lr, self.scale
             hr = self._gather_crop(self.hr, idx, ys * s, xs * s, p)
             lr = resize2d(hr, (plr, plr), self.interpolation)
@@ -131,10 +174,16 @@ class BatchSynthesizer:
         lr = torch.cat(parts_lr, dim=-1) if len(parts_lr) > 1 else parts_lr[0]
         return {'lr': lr, 'hr': hr, 'aux': aux}
 
+    def _check_indices(self, idx):
+        if idx.numel() and int(idx.max()) + (self.time_window or 1) \
+                > self.n_total:
+            raise IndexError(f'sample {int(idx.max())} reaches past the '
+                             f'{self.n_total} grids')
+
     def _patch_offsets(self, b, offsets=None, generator=None):
-        """LR patch offsets (ys, xs) of a batch of b, as long tensors on
-        the device: `offsets` ([2, b]) checked against the grid, or drawn
-        with the CPU `generator`."""
+        """LR patch offsets (ys, xs) of a batch of b, as long CPU tensors:
+        `offsets` ([2, b]) checked against the grid, or drawn with the CPU
+        `generator`."""
         max_y = self.lr_y - self.patch_lr
         max_x = self.lr_x - self.patch_lr
         if offsets is None:
@@ -151,7 +200,7 @@ class BatchSynthesizer:
                                 or int(xs.max()) > max_x)):
                 raise IndexError(f'patch offsets outside [0, {max_y}] x '
                                  f'[0, {max_x}]')
-        return _to_device(ys, self.device), _to_device(xs, self.device)
+        return ys, xs
 
     def epoch_indices(self, generator, steps=None):
         """Shuffled epoch index matrix [steps, batch_size] on the CPU: one

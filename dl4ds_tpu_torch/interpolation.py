@@ -150,12 +150,25 @@ def resize_matrix(interpolation, in_size, out_size, area_generic=False):
 # Device-side application
 # -----------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=512)
+def _device_matrix(interpolation, in_size, out_size, area_generic, dtype,
+                   device):
+    """`resize_matrix` as a tensor of `dtype` on `device`, copied there
+    once: a copy from pageable host memory at every call would stall the
+    host, and cannot be made while a CUDA graph is being captured."""
+    return torch.as_tensor(
+        np.array(resize_matrix(interpolation, in_size, out_size,
+                               area_generic)), dtype=dtype, device=device)
+
+
 def resize2d(x, out_hw, interpolation='inter_area'):
     """Resize the two spatial axes of the tensor `x` to `out_hw` (H, W).
 
     The spatial axes are the two of a rank-2 tensor, and (-3, -2) for rank
     >= 3 (trailing channels: [..., H, W, C]). Runs as two float32 matmuls on
-    x's device; a non-float input is computed in float32.
+    x's device; a non-float input is computed in float32. The matrices are
+    copied to the device once (`_device_matrix`), so a call makes no host
+    copy and no host read.
     """
     h_out, w_out = int(out_hw[0]), int(out_hw[1])
     if x.ndim == 2:
@@ -168,12 +181,10 @@ def resize2d(x, out_hw, interpolation='inter_area'):
                and (h_out > h_in or w_out > w_in))
     if not x.is_floating_point():
         x = x.float()
-    wy = torch.as_tensor(
-        np.array(resize_matrix(interpolation, h_in, h_out, generic)),
-        dtype=x.dtype, device=x.device)
-    wx = torch.as_tensor(
-        np.array(resize_matrix(interpolation, w_in, w_out, generic)),
-        dtype=x.dtype, device=x.device)
+    wy = _device_matrix(interpolation, h_in, h_out, generic, x.dtype,
+                        x.device)
+    wx = _device_matrix(interpolation, w_in, w_out, generic, x.dtype,
+                        x.device)
     if x.ndim == 2:
         return wy @ x @ wx.T
     *lead, _, _, c = x.shape

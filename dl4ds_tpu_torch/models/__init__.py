@@ -8,8 +8,12 @@ specs and how to build it. `DSModel.init(seed, device)` builds the
 
 import dataclasses
 import functools
+import json
+import os
+import pickle
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import POSTUPSAMPLING_METHODS
@@ -20,7 +24,7 @@ from .nets import NetPostupsampling, RecNetPostupsampling
 from . import blocks
 
 __all__ = ['DSModel', 'net_postupsampling', 'recnet_postupsampling',
-           'build_model', 'blocks']
+           'build_model', 'save_model', 'load_model', 'blocks']
 
 
 @dataclasses.dataclass
@@ -30,11 +34,15 @@ class DSModel:
     `name` follows the reference convention '<backbone>_<upsampling>'
     (e.g. 'resnet_spc', 'recresnet_spc'). Shapes are per sample, NHWC
     (T, H, W, C for a spatio-temporal model), without batch dim.
+    `module_class` and `config` name the JAX package's Flax module and its
+    fields, which `save_model` writes.
     """
     build: Callable[[], torch.nn.Module]
     name: str
     input_shape: Tuple[int, ...]
     aux_shape: Optional[Tuple[int, ...]] = None
+    module_class: Optional[str] = None
+    config: Optional[dict] = None
 
     @property
     def upsampling(self):
@@ -77,17 +85,25 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
     (dl4ds_tpu/models/__init__.py:77-104), with the JAX signature. This
     slice builds the 'resnet' backbone with the 'spc' head in float32;
     `rc_interpolation` is read by the 'rc' head alone (not ported yet), as
-    in `recnet_postupsampling`. The rest, `remat=True` (activation
-    checkpointing) included, raises NotImplementedError naming its ROADMAP
-    item."""
+    in `recnet_postupsampling`. `remat=True` recomputes each backbone
+    block's activations in the backward pass (`torch.utils.checkpoint`),
+    as `nn.remat` wraps the blocks in the JAX package. The rest raises
+    NotImplementedError naming its ROADMAP item."""
     backbone_block = checkarg_backbone(backbone_block)
     upsampling = checkarg_upsampling(upsampling)
     dropout_variant = checkarg_dropout_variant(dropout_variant)
     if dtype != torch.float32:
         raise not_ported(f'model dtype {dtype}', 5)
-    if remat:
-        raise not_ported('remat=True (activation checkpointing)', 4)
     h_lr, w_lr = lr_size
+    config = dict(
+        backbone=backbone_block, upsampling=upsampling, scale=scale,
+        n_channels_out=n_channels_out, n_filters=n_filters,
+        n_blocks=n_blocks, normalization=normalization,
+        dropout_rate=dropout_rate, dropout_variant=dropout_variant,
+        attention=attention, activation=activation,
+        output_activation=output_activation,
+        rc_interpolation=rc_interpolation, localcon_layer=localcon_layer,
+        output_attention=output_attention, remat=remat)
     build = functools.partial(
         NetPostupsampling, n_channels, n_aux_channels, backbone_block,
         upsampling, scale, n_channels_out=n_channels_out,
@@ -95,12 +111,13 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
         dropout_rate=dropout_rate, dropout_variant=dropout_variant,
         attention=attention, activation=activation,
         output_activation=output_activation, localcon_layer=localcon_layer,
-        output_attention=output_attention)
+        output_attention=output_attention, remat=remat)
     build()   # raise now, not at init, on a configuration not ported yet
     aux_shape = ((int(h_lr * scale), int(w_lr * scale), n_aux_channels)
                  if n_aux_channels > 0 else None)
     return DSModel(build, f'{backbone_block}_{upsampling}',
-                   (h_lr, w_lr, n_channels), aux_shape)
+                   (h_lr, w_lr, n_channels), aux_shape,
+                   'NetPostupsampling', config)
 
 
 def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
@@ -121,6 +138,15 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
     if dtype != torch.float32:
         raise not_ported(f'model dtype {dtype}', 5)
     h_lr, w_lr = lr_size
+    config = dict(
+        backbone=backbone_block, upsampling=upsampling, scale=scale,
+        time_window=time_window, n_channels_out=n_channels_out,
+        n_filters=n_filters, n_blocks=n_blocks, dropout_rate=dropout_rate,
+        dropout_variant=dropout_variant, normalization=normalization,
+        attention=attention, activation=activation,
+        output_activation=output_activation,
+        rc_interpolation=rc_interpolation, localcon_layer=localcon_layer,
+        output_attention=output_attention)
     build = functools.partial(
         RecNetPostupsampling, n_channels, n_aux_channels, backbone_block,
         upsampling, scale, time_window, n_channels_out=n_channels_out,
@@ -133,7 +159,8 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
     aux_shape = ((int(h_lr * scale), int(w_lr * scale), n_aux_channels)
                  if n_aux_channels > 0 else None)
     return DSModel(build, f'rec{backbone_block}_{upsampling}',
-                   (time_window, h_lr, w_lr, n_channels), aux_shape)
+                   (time_window, h_lr, w_lr, n_channels), aux_shape,
+                   'RecNetPostupsampling', config)
 
 
 def build_model(backbone, upsampling, scale, n_channels, n_aux_channels,
@@ -157,3 +184,64 @@ def build_model(backbone, upsampling, scale, n_channels, n_aux_channels,
             lr_size=lr_size, **params)
     raise not_ported(f'upsampling {upsampling!r} (recnet_pin, unet_pin, '
                      f'net_pin)', 6)
+
+
+_FACTORIES = {'NetPostupsampling': net_postupsampling,
+              'RecNetPostupsampling': recnet_postupsampling}
+
+
+def save_model(model, net, path):
+    """Persist a model as the JAX package's `save_model` does
+    (dl4ds_tpu/models/__init__.py:245-282): `model_config.json`, the Flax
+    module's class and fields with the input specs, and `variables.pkl`,
+    the pickled {'params': Flax-named tree of numpy arrays} that is the JAX
+    package's own fallback format, so that its `load_model` reads the
+    model too."""
+    from ..weights import export_jax_params
+    os.makedirs(path, exist_ok=True)
+    meta = {'module_class': model.module_class,
+            'config': dict(model.config, dtype='float32'),
+            'name': model.name, 'input_shape': list(model.input_shape),
+            'aux_shape': (list(model.aux_shape)
+                          if model.aux_shape is not None else None)}
+    with open(os.path.join(path, 'model_config.json'), 'w') as fh:
+        json.dump(meta, fh, indent=2)
+    with open(os.path.join(path, 'variables.pkl'), 'wb') as fh:
+        pickle.dump({'params': export_jax_params(net)}, fh)
+
+
+def load_model(path, device='cuda'):
+    """Rebuild a model saved by `save_model` or by the JAX package's
+    `save_model` with its pickle fallback (dl4ds_tpu/models/__init__.py:
+    285-307); returns (DSModel, nn.Module) on `device`. An orbax
+    `variables/` directory needs JAX to read and raises."""
+    from ..weights import load_jax_params
+    with open(os.path.join(path, 'model_config.json')) as fh:
+        meta = json.load(fh)
+    if os.path.isdir(os.path.join(path, 'variables')):
+        raise ValueError(
+            f'{path} holds its variables as an orbax checkpoint '
+            f'(variables/), which only JAX can read; save it with the JAX '
+            f'package\'s pickle fallback (variables.pkl) to load it here')
+    factory = _FACTORIES.get(meta['module_class'])
+    if factory is None:
+        raise not_ported(f"model class {meta['module_class']!r}", 6)
+    cfg = dict(meta['config'])
+    if cfg.pop('dtype', 'float32') != 'float32':
+        raise not_ported(f"model dtype {meta['config']['dtype']}", 5)
+    backbone, upsampling = cfg.pop('backbone'), cfg.pop('upsampling')
+    *_, h, w, n_channels = meta['input_shape']
+    aux = meta['aux_shape']
+    model = factory(backbone, upsampling, n_channels=n_channels,
+                    n_aux_channels=aux[-1] if aux else 0, lr_size=(h, w),
+                    **cfg)
+    with open(os.path.join(path, 'variables.pkl'), 'rb') as fh:
+        variables = pickle.load(fh)
+    net = load_jax_params(model.init(0, device=device),
+                          _as_numpy_tree(variables['params']))
+    return model, net
+
+
+def _as_numpy_tree(tree):
+    return {k: (_as_numpy_tree(v) if isinstance(v, dict) else np.asarray(v))
+            for k, v in tree.items()}

@@ -10,6 +10,7 @@ backbones and heads raise until they are ported.
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..utils import not_ported
 from .blocks import (Conv, ConvBlock, ResidualBlock, TransitionBlock,
@@ -22,16 +23,19 @@ __all__ = ['NetPostupsampling', 'RecNetPostupsampling']
 class _Backbone(nn.Module):
     """Stem conv + N residual blocks with filters growing as i * n_filters,
     then the out conv and the merge with the stem
-    (dl4ds_tpu/models/nets.py:32-119, resnet branch)."""
+    (dl4ds_tpu/models/nets.py:32-119, resnet branch). With `remat` each
+    block's activations are recomputed in the backward pass instead of
+    kept, as `nn.remat` wraps the blocks there."""
 
     def __init__(self, in_channels, backbone, n_filters, n_blocks,
                  activation='relu', normalization=None, attention=False,
-                 dropout_rate=0.0):
+                 dropout_rate=0.0, remat=False):
         super().__init__()
         if backbone != 'resnet':
             raise not_ported(f'backbone {backbone!r}', 6)
         _check_dropout(dropout_rate)
         f0 = n_filters
+        self.remat = remat
         self.act = get_activation(activation)
         self.stem = Conv(in_channels, f0, (3, 3))
         self.n_blocks = n_blocks
@@ -52,7 +56,13 @@ class _Backbone(nn.Module):
         stem = self.stem(x)
         b = stem
         for i in range(self.n_blocks):
-            b = self._modules[f'ResidualBlock{i + 1}'](b)
+            block = self._modules[f'ResidualBlock{i + 1}']
+            if self.remat and torch.is_grad_enabled():
+                # the models draw no random numbers: no RNG state to keep
+                b = checkpoint(block, b, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                b = block(b)
         b = self.act(self.backbone_out_conv(b))
         return self.TransitionBlock_0(stem) + b
 
@@ -102,7 +112,7 @@ class NetPostupsampling(nn.Module):
                  scale, n_channels_out=1, n_filters=8, n_blocks=6,
                  normalization=None, dropout_rate=0.0, dropout_variant=None,
                  attention=False, activation='relu', output_activation=None,
-                 localcon_layer=False, output_attention=True):
+                 localcon_layer=False, output_attention=True, remat=False):
         super().__init__()
         if upsampling != 'spc':
             raise not_ported(f'upsampling {upsampling!r}', 6)
@@ -111,7 +121,7 @@ class NetPostupsampling(nn.Module):
         _check_dropout(dropout_rate)
         self._Backbone_0 = _Backbone(n_channels, backbone, n_filters,
                                      n_blocks, activation, normalization,
-                                     attention)
+                                     attention, remat=remat)
         width = self._Backbone_0.n_filters
         self.SubpixelConvolutionBlock_0 = SubpixelConvolutionBlock(scale,
                                                                    width)

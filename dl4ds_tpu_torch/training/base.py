@@ -3,27 +3,34 @@ Base training class (the counterpart of `dl4ds_tpu/training/base.py`).
 
 One device, no mesh: `device` defaults to CUDA and device='cpu' must be
 asked for. The class ports the input validation, the scale checks, the
-channel bookkeeping, the grid sizes and the loss lookup; meshes, saving and
-the profiler raise until they are ported.
+channel bookkeeping, the grid sizes, the loss lookup, the scalar log, the
+profiler and the saving of results; meshes raise until they are ported.
 """
 
+import json
+import os
 from abc import ABC, abstractmethod
 
 import numpy as np
+import torch
 
 from .. import POSTUPSAMPLING_METHODS
 from ..utils import (check_compatibility_upsbackb, checkarg_loss, not_ported,
-                     resolve_device)
+                     plot_history, resolve_device)
 
-__all__ = ['Trainer']
+__all__ = ['Trainer', 'CHECKPOINT_FILE']
+
+# the file a checkpoint directory holds (the JAX package's directories
+# `best_model` and `checkpoints/epoch-<n>` hold orbax trees instead)
+CHECKPOINT_FILE = 'checkpoint.pt'
 
 
 class Trainer(ABC):
     """Common training scaffolding: input validation, device, loss
-    resolution and scale checks (dl4ds_tpu/training/base.py:48-189).
-    `use_multiprocessing`, `model_list`, `save_path`, `show_plot` and
-    `gpu_memory_growth` are accepted for the JAX package's signature and do
-    nothing."""
+    resolution, scale checks, logs, profiler and saving
+    (dl4ds_tpu/training/base.py:48-341). `use_multiprocessing`,
+    `model_list`, `show_plot` and `gpu_memory_growth` are accepted for the
+    JAX package's signature and do nothing."""
 
     def __init__(self, backbone, upsampling, data_train, data_train_lr=None,
                  time_window=None, loss='mae', batch_size=64, patch_size=None,
@@ -35,8 +42,6 @@ class Trainer(ABC):
             raise not_ported('`mesh` and `devices` (multi-GPU training)', 10)
         if data_train_lr is not None:
             raise not_ported('a given LR training array (`data_train_lr`)', 5)
-        if save:
-            raise not_ported('saving trained models (`save=True`)', 4)
         self.data_train = self._as_array(data_train, 'data_train')
         if not self.data_train.ndim > 3:
             raise ValueError(
@@ -54,6 +59,11 @@ class Trainer(ABC):
         self.scale = scale
         self.device = resolve_device(device)
         self.verbose = verbose
+        self.save = save
+        self.save_path = save_path or './'
+        if not self.save_path.endswith('/'):
+            self.save_path += '/'
+        self.savecheckpoint_path = self.save_path
 
         # scale-vs-grid checks (dl4ds_tpu/training/base.py:149-187)
         if self.patch_size is not None:
@@ -82,6 +92,40 @@ class Trainer(ABC):
                 f'`{name}` object must be of np.ndarray or xr.DataArray type')
         return x
 
+    # ------------------------------------------------------------------
+    # Observability (dl4ds_tpu/training/base.py:209-231): a JSONL scalar
+    # log and a torch.profiler trace
+    # ------------------------------------------------------------------
+    def start_profiler(self, logdir=None):
+        """Begin a torch.profiler trace of the host and, on the card, of
+        the device, written as `trace.json` under `logdir` (default
+        save_path + 'profile') when it stops."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        self._profile_dir = logdir or (self.save_path + 'profile')
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+
+    def stop_profiler(self):
+        """Stop the trace, if one runs, and write it (idempotent)."""
+        prof = getattr(self, '_profiler', None)
+        if prof is None:
+            return
+        self._profiler = None
+        prof.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self._profile_dir,
+                                              'trace.json'))
+
+    def log_scalars(self, step, **scalars):
+        """Append one JSONL record of named scalars to
+        save_path + 'scalars.jsonl'."""
+        os.makedirs(self.save_path, exist_ok=True)
+        with open(self.save_path + 'scalars.jsonl', 'a') as fh:
+            fh.write(json.dumps({'step': step, **scalars}) + '\n')
+
     def channel_counts(self, predictors_train, static_vars):
         """Model input and aux channel counts
         (dl4ds_tpu/training/base.py:233-260): spatial samples put the
@@ -109,6 +153,23 @@ class Trainer(ABC):
         lr = int(self.patch_size / self.scale)
         return (hr, hr), (lr, lr)
 
+    @staticmethod
+    def _checkpoint_save(path, payload):
+        """torch.save `payload` as `CHECKPOINT_FILE` in the directory
+        `path`, written whole or not at all."""
+        os.makedirs(path, exist_ok=True)
+        file = os.path.join(path, CHECKPOINT_FILE)
+        torch.save(payload, file + '.tmp')
+        os.replace(file + '.tmp', file)
+
+    @staticmethod
+    def _checkpoint_load(path):
+        """The payload of a checkpoint: `path` is its directory or its
+        file."""
+        file = (path if os.path.isfile(path)
+                else os.path.join(path, CHECKPOINT_FILE))
+        return torch.load(file, map_location='cpu', weights_only=True)
+
     @abstractmethod
     def run(self):
         ...
@@ -116,3 +177,32 @@ class Trainer(ABC):
     @abstractmethod
     def setup_model(self):
         ...
+
+    def save_results(self, net=None, folder_prefix=None, model=None):
+        """Persist the trained model (`models.save_model`: the JAX
+        package's model_config.json and variables.pkl), the wall-clock
+        time, the test loss and the learning-curve plot
+        (dl4ds_tpu/training/base.py:301-341)."""
+        if not self.save:
+            return
+        prefix = folder_prefix or ''
+        self.model_save_path = (self.save_path + prefix + self.backbone
+                                + '_' + self.upsampling + '/')
+        os.makedirs(self.model_save_path, exist_ok=True)
+        model = model if model is not None else getattr(self, 'model', None)
+        net = net if net is not None else getattr(self, 'net', None)
+        if model is not None and net is not None:
+            from ..models import save_model
+            save_model(model, net, self.model_save_path)
+        if getattr(self, 'timing', None) is not None and \
+                self.timing.running_time is not None:
+            np.savetxt(self.save_path + 'running_time.txt',
+                       [self.timing.running_time], fmt='%s')
+        if getattr(self, 'test_loss', None) is not None:
+            np.savetxt(self.save_path + 'test_loss.txt',
+                       [float(self.test_loss)], fmt='%0.6f')
+        if getattr(self, 'fithist', None):
+            import matplotlib.pyplot as plt
+            fig, _ = plot_history(self.fithist,
+                                  path=self.save_path + 'learning_curve.png')
+            plt.close(fig)

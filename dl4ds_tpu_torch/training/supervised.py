@@ -2,18 +2,31 @@
 Supervised training procedure (the counterpart of
 `dl4ds_tpu/training/supervised.py`).
 
-One device. Batches are built on the device by `BatchSynthesizer` from
-indices and patch offsets that a CPU `torch.Generator`, seeded by `seed`,
-draws, so one seed gives the same batches on every device. A step is the
-forward in train mode, the loss, the backward (for a spatio-temporal model,
-K2's training variant and the K3 BPTT kernels on the GPU) and an Adam
-update. Losses stay on the device and are read once an epoch. Validation
-and test run under `torch.no_grad()`, so the ConvLSTM layers run K2's
-inference variant. Adam uses Keras's eps of 1e-7, and a 2-tuple learning
-rate is optax's piecewise-constant schedule: the second rate once
-`lr_decay_after` updates have been made.
+One device. Each epoch's batches are planned on the host first: a CPU
+`torch.Generator`, seeded by `seed`, draws the shuffled indices and the
+patch offsets of every step (`BatchSynthesizer.plan`), so one seed gives
+the same batches on every device. A step is then device work only: the
+batch built from its plan row, the forward in train mode, the loss, the
+backward (for a spatio-temporal model, K2's training variant and the K3 or
+K4 BPTT kernels on the GPU), and, on the optimizer's commit, the Adam
+update at the scheduled rate and the EMA of the parameters.
+
+On the card the step is captured once as a CUDA graph and replayed, a
+chunk of `steps_per_execution` plan rows at a time (default: the whole
+epoch), as the JAX trainer runs a chunk as one XLA program; validation and
+test run the same way without the update. There is no eager fallback: a
+capture or replay that fails raises. On the CPU the same step functions
+run eagerly. Losses stay on the device and are read once an epoch.
+
+Adam uses Keras's eps of 1e-7, with its rate a device scalar set from the
+schedule (optax's, `training/schedules.py`) on the device update count;
+on the card it is fused and capturable. Gradient accumulation has
+optax.MultiSteps' semantics: the running mean of k microbatch gradients,
+one update on the k-th, the count and schedule advancing only then.
 """
 
+import copy
+import os
 import warnings
 
 import numpy as np
@@ -23,6 +36,8 @@ from ..dataloader import BatchSynthesizer
 from ..models import build_model
 from ..utils import Timing, not_ported
 from .base import Trainer
+from .graphs import CapturedStep
+from .schedules import build_schedule
 
 __all__ = ['SupervisedTrainer']
 
@@ -33,11 +48,13 @@ class SupervisedTrainer(Trainer):
     `use_multiprocessing`, `model_list`, `gpu_memory_growth` and
     `show_plot` are accepted and do nothing, as in the JAX package. The
     options that are not ported raise NotImplementedError naming their
-    ROADMAP item: EMA, `lr_schedule`/`warmup_steps`, gradient accumulation,
-    `trained_model`, checkpoints, resume, saving, logs, the profiler and
-    `steps_per_execution` (4); seasons (3); `data_*_lr` (5);
-    `data_in_hbm=False` (9); `mesh` and `devices` (10); `init_weights`
-    (11)."""
+    ROADMAP item: seasons (3); `data_*_lr` (5); `data_in_hbm=False` (9);
+    `mesh` and `devices` (10); `init_weights` (11).
+
+    After `run`, `net` holds the weights to serve (the EMA ones with
+    `ema_decay`), `train_net` the raw ones, and `fithist`, `test_loss` and
+    `train_losses` (the last epoch's per-step losses, on the device) the
+    results."""
 
     def __init__(self, backbone, upsampling, data_train, data_val, data_test,
                  data_train_lr=None, data_val_lr=None, data_test_lr=None,
@@ -65,20 +82,30 @@ class SupervisedTrainer(Trainer):
              'season channels (`season_ids`, `time_metadata`)', 3),
             (not data_in_hbm, 'host streaming (`data_in_hbm=False`)', 9),
             (init_weights is not None, 'Keras weight import (`init_weights`)',
-             11),
-            (ema_decay != 0.0, 'parameter EMA (`ema_decay`)', 4),
-            (lr_schedule is not None or warmup_steps != 0,
-             '`lr_schedule` and `warmup_steps`', 4),
-            (gradient_accumulation_steps != 1, 'gradient accumulation', 4),
-            (save_bestmodel or checkpoints_frequency
-             or resume_from_checkpoint is not None
-             or trained_model is not None,
-             'checkpoints, resume and `trained_model`', 4),
-            (save_logs or profile, '`save_logs` and `profile`', 4),
-            (steps_per_execution is not None, '`steps_per_execution`', 4)]
+             11)]
         for cond, what, item in unported:
             if cond:
                 raise not_ported(what, item)
+        # the JAX trainer's checks (dl4ds_tpu/training/supervised.py:
+        # 122-128, 147-148, 189-193)
+        if lr_schedule not in (None, 'cosine', 'warmup_cosine') \
+                and not callable(lr_schedule):
+            raise ValueError(
+                f"`lr_schedule` must be None, 'cosine', 'warmup_cosine' or "
+                f"a callable schedule, got {lr_schedule!r}")
+        if warmup_steps < 0:
+            raise ValueError('`warmup_steps` must be >= 0')
+        if not 0.0 <= ema_decay < 1.0:
+            raise ValueError('`ema_decay` must be in [0, 1)')
+        if (not isinstance(gradient_accumulation_steps, int)
+                or gradient_accumulation_steps < 1):
+            raise ValueError('`gradient_accumulation_steps` must be an '
+                             'integer >= 1')
+        if steps_per_execution is not None and (
+                not isinstance(steps_per_execution, int)
+                or steps_per_execution < 1):
+            raise ValueError('`steps_per_execution` must be None or an '
+                             'integer >= 1')
         super().__init__(
             backbone=backbone, upsampling=upsampling, data_train=data_train,
             data_train_lr=data_train_lr, time_window=time_window, loss=loss,
@@ -114,11 +141,22 @@ class SupervisedTrainer(Trainer):
         self.test_steps = test_steps
         self.learning_rate = learning_rate
         self.lr_decay_after = lr_decay_after
+        self.lr_schedule = lr_schedule
+        self.warmup_steps = warmup_steps
+        self.ema_decay = float(ema_decay)
+        self.gradient_accumulation_steps = gradient_accumulation_steps
+        self.steps_per_execution = steps_per_execution
         self.early_stopping = early_stopping
         self.patience = patience
         self.min_delta = min_delta
         self.architecture_params = architecture_params
+        self.trained_model = trained_model
         self.trained_epochs = trained_epochs
+        self.save_bestmodel = save_bestmodel
+        self.checkpoints_frequency = checkpoints_frequency
+        self.resume_from_checkpoint = resume_from_checkpoint
+        self.save_logs = save_logs
+        self.profile = profile
         self.seed = seed
         self.terminate_on_nan = terminate_on_nan
         self.model = None
@@ -141,8 +179,16 @@ class SupervisedTrainer(Trainer):
             self.data_test, None, predictors=self.predictors_test, **common)
 
     def setup_model(self):
-        """Channel bookkeeping and the model, its weights drawn from
-        `seed` (dl4ds_tpu/training/supervised.py:295-327)."""
+        """Channel bookkeeping and the model, its weights drawn from `seed`,
+        or the given `trained_model` pair, whose module is copied: the
+        caller's stays as it was (dl4ds_tpu/training/supervised.py:
+        295-327)."""
+        if self.trained_model is not None:
+            self.model, net = self.trained_model
+            self.net = copy.deepcopy(net).to(self.device)
+            if self.verbose:
+                print('Loading pre-trained model')
+            return
         n_channels, n_aux_channels = self.channel_counts(
             self.predictors_train, self.static_vars)
         (hr_height, hr_width), (lr_height, lr_width) = self.grid_sizes()
@@ -154,65 +200,164 @@ class SupervisedTrainer(Trainer):
             time_window=self.time_window, **self.architecture_params)
         self.net = self.model.init(self.seed, device=self.device)
 
-    def setup_optimizer(self):
-        """Adam with eps 1e-7 over the network's parameters, and the
-        learning rate of each update (dl4ds_tpu/training/supervised.py:
-        330-385, one device)."""
-        lr = self.learning_rate
-        if isinstance(lr, (tuple, list)) and len(lr) > 1:
-            # optax.piecewise_constant_schedule: the scale applies once the
-            # update count (0 for the first update) reaches the boundary;
-            # init * scale in float32, as optax forms it
-            lr0, boundary = float(lr[0]), int(self.lr_decay_after)
-            lr1 = float(np.float32(lr0) * np.float32(lr[1] / lr[0]))
-            self._lr = lambda count: lr0 if count < boundary else lr1
-        else:
-            lr0 = float(lr[0] if isinstance(lr, (tuple, list)) else lr)
-            self._lr = lambda count: lr0
-        self.optimizer = torch.optim.Adam(self.net.parameters(),
-                                          lr=self._lr(0), eps=1e-7)
-        self.n_updates = 0
+    def _steps(self):
+        """Steps an epoch, as the JAX trainer counts them."""
+        n = self.data_train.shape[0] - (self.time_window or 0)
+        return (self.steps_per_epoch if self.steps_per_epoch is not None
+                else n // self.global_batch_size)
 
-    # ------------------------------------------------------------------
-    def train_step(self, batch):
-        """One optimizer step on `batch` (a synthesizer's dict); returns the
-        loss as a device scalar, not read back."""
-        out = self.net(batch['lr'], batch['aux'])
-        loss = self.lossf(batch['hr'], out)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for group in self.optimizer.param_groups:
-            group['lr'] = self._lr(self.n_updates)
-        self.optimizer.step()
-        self.n_updates += 1
-        return loss.detach()
+    def setup_optimizer(self):
+        """Adam with eps 1e-7 over the network's parameters, its state
+        created now; the device scalars of the rate, the update count and
+        the accumulation's mini-step; the EMA copy and the gradient
+        accumulators (dl4ds_tpu/training/supervised.py:330-385, one
+        device). On the card Adam is the fused, capturable one (one
+        multi-tensor kernel an update), its rate the device scalar, so that
+        an eager step and a replayed one compute the same bits."""
+        dev = self.device
+        cuda = dev.type == 'cuda'
+        self.train_net = self.net
+        self._params = list(self.net.parameters())
+        lr0, self._schedule = build_schedule(
+            self.learning_rate, self.lr_decay_after, self.lr_schedule,
+            self.warmup_steps, max(self._steps(), 1) * self.epochs)
+        self._count = torch.zeros((), dtype=torch.int32, device=dev)
+        self._lr = torch.full((), lr0 or 0.0, dtype=torch.float32,
+                              device=dev)
+        self._set_rate()
+        self.optimizer = torch.optim.Adam(self._params, lr=self._lr,
+                                          eps=1e-7, capturable=cuda,
+                                          fused=cuda or None)
+        for p in self._params:
+            self.optimizer.state[p] = dict(
+                step=torch.zeros((), dtype=torch.float32,
+                                 device=dev if cuda else 'cpu'),
+                exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
+                exp_avg_sq=torch.zeros_like(
+                    p, memory_format=torch.preserve_format))
+        self.ema_net = (copy.deepcopy(self.net) if self.ema_decay > 0
+                        else None)
+        self._ema = (list(self.ema_net.parameters())
+                     if self.ema_net is not None else None)
+        self._acc = ([torch.zeros_like(p) for p in self._params]
+                     if self.gradient_accumulation_steps > 1 else None)
+        self._mini = torch.zeros((), dtype=torch.float32, device=dev)
+        self._row = torch.zeros(1, dtype=torch.long, device=dev)
+        self.n_updates = 0
+        self.mini_step = 0
 
     @torch.no_grad()
-    def eval_step(self, batch):
-        """The loss of `batch` without a gradient, as a device scalar."""
-        return self.lossf(batch['hr'], self.net(batch['lr'], batch['aux']))
+    def _set_rate(self):
+        """The rate of the next update, from the schedule at the device
+        update count (device work only)."""
+        if self._schedule is None:
+            return
+        rate = self._schedule(self._count)
+        if torch.is_tensor(rate):
+            self._lr.copy_(rate)
+        else:
+            self._lr.fill_(float(rate))
 
-    def _evaluate(self, synth, steps, generator):
-        """Mean loss over `steps` batches of one shuffled pass of `synth`,
-        in eval mode."""
-        self.net.eval()
-        idx = synth.epoch_indices(generator, steps=steps)
-        losses = [self.eval_step(synth(idx[r], generator=generator))
-                  for r in range(steps)]
-        return torch.stack(losses).mean().item()
+    def _state_tensors(self):
+        """Every tensor a training or evaluation step changes in place."""
+        opt = [t for p in self._params
+               for t in self.optimizer.state[p].values()]
+        return (self._params + opt + (self._ema or []) + (self._acc or [])
+                + list(self.train_net.buffers())
+                + [self._lr, self._count, self._mini, self._row])
+
+    # ------------------------------------------------------------------
+    def _step(self, batch, commit=True):
+        """The body of one training step on `batch`: the forward, the loss
+        and the backward, then with gradient accumulation the running mean
+        of the microbatch gradients (optax.MultiSteps:
+        acc + (g - acc) / (mini_step + 1)), and on the commit the update at
+        the scheduled rate and the EMA, decay * ema + (1 - decay) * p
+        (dl4ds_tpu/training/base.py:29-49). Device work only; returns the
+        loss as a device scalar."""
+        self.optimizer.zero_grad(set_to_none=True)
+        out = self.train_net(batch['lr'], batch['aux'])
+        loss = self.lossf(batch['hr'], out)
+        loss.backward()
+        with torch.no_grad():
+            if self._acc is not None:
+                grads = [p.grad for p in self._params]
+                torch._foreach_sub_(grads, self._acc)
+                torch._foreach_div_(grads, self._mini + 1)
+                torch._foreach_add_(grads, self._acc)
+                if not commit:
+                    torch._foreach_copy_(self._acc, grads)
+                    self._mini.add_(1)
+                    return loss.detach()
+                torch._foreach_zero_(self._acc)
+                self._mini.zero_()
+            self._set_rate()
+            self.optimizer.step()
+            self._count.add_(1)
+            if self._ema is not None:
+                torch._foreach_mul_(self._ema, self.ema_decay)
+                torch._foreach_add_(self._ema, self._params,
+                                    alpha=1 - self.ema_decay)
+        return loss.detach()
+
+    def _advance(self, commit):
+        """The host's count of the step just run: the mini-step, and the
+        updates on a commit."""
+        self.mini_step = 0 if commit else self.mini_step + 1
+        self.n_updates += int(commit)
+
+    def _commits(self):
+        return self.mini_step == self.gradient_accumulation_steps - 1
+
+    def train_step(self, batch):
+        """One training step on `batch` (a synthesizer's dict), run
+        eagerly: the forward, the loss, the backward and, on the
+        optimizer's commit (every step without gradient accumulation), the
+        update. Returns the loss as a device scalar, not read back."""
+        commit = self._commits()
+        loss = self._step(batch, commit)
+        self._advance(commit)
+        return loss
+
+    def _plan_step(self, plan, losses, commit):
+        """A training step on plan row `_row`, its loss written to
+        `losses[_row]`, then the next row: the function that is captured
+        on the card."""
+        loss = self._step(self.ds_train.step_batch(plan, self._row), commit)
+        losses.index_copy_(0, self._row, loss.view(1))
+        self._row.add_(1)
+
+    @torch.no_grad()
+    def _eval_plan_step(self, net, synth, plan, losses):
+        """The loss of `net` on plan row `_row` of `synth`, written to
+        `losses[_row]`, then the next row."""
+        batch = synth.step_batch(plan, self._row)
+        loss = self.lossf(batch['hr'], net(batch['lr'], batch['aux']))
+        losses.index_copy_(0, self._row, loss.view(1))
+        self._row.add_(1)
+
+    def eval_net(self):
+        """The network that validation and test score: the EMA one with
+        `ema_decay` (dl4ds_tpu/training/supervised.py:514-521)."""
+        return self.ema_net if self.ema_net is not None else self.train_net
 
     # ------------------------------------------------------------------
     def run(self):
-        """Train, validate every epoch and test
-        (dl4ds_tpu/training/supervised.py:554-770, without saving)."""
+        """Train, validate every epoch, test and save
+        (dl4ds_tpu/training/supervised.py:554-770)."""
         self.timing = Timing(self.verbose)
         self.setup_datagen()
         self.setup_model()
         self.setup_optimizer()
         generator = torch.Generator().manual_seed(int(self.seed))
+        if self.resume_from_checkpoint is not None:
+            self.trained_epochs = self._restore_checkpoint(
+                self.resume_from_checkpoint, generator)
+            if self.verbose:
+                print(f'Resumed from checkpoint at epoch '
+                      f'{self.trained_epochs}')
         b = self.global_batch_size
-        steps = (self.steps_per_epoch if self.steps_per_epoch is not None
-                 else self.ds_train.n // b)
+        steps = self._steps()
         if steps < 1:
             raise ValueError(
                 f'data_train yields no full batch (n={self.ds_train.n}, '
@@ -220,18 +365,35 @@ class SupervisedTrainer(Trainer):
         val_steps = (self.validation_steps
                      if self.validation_steps is not None
                      else max(self.ds_val.n // b, 1))
+        test_steps = (self.test_steps if self.test_steps is not None
+                      else max(self.ds_test.n // b, 1))
+        spe = self.steps_per_execution or steps
+        # whole chunks, so that one captured step serves every chunk;
+        # `epoch_indices` wraps the permutation, so the extra steps
+        # resample the epoch (dl4ds_tpu/training/supervised.py:618-647)
+        steps_exec = -(-steps // spe) * spe
+        if steps_exec != steps:
+            warnings.warn(
+                f'steps_per_execution={spe} does not divide '
+                f'steps_per_epoch={steps}; each epoch runs {steps_exec} '
+                f'optimizer steps (padded up to whole chunks, so that one '
+                f'captured step serves every chunk)', RuntimeWarning)
+        self.runner = StepRunner(self, spe, {'val': (self.ds_val, val_steps),
+                                             'test': (self.ds_test,
+                                                      test_steps)})
 
         history = {'loss': [], 'val_loss': []}
         best_val = np.inf
         patience_left = self.patience
+        if self.profile:
+            self.start_profiler()
         for epoch in range(self.trained_epochs, self.epochs):
-            self.net.train()
-            idx = self.ds_train.epoch_indices(generator, steps=steps)
-            losses = [self.train_step(self.ds_train(idx[c],
-                                                    generator=generator))
-                      for c in range(steps)]
-            train_loss = torch.stack(losses).mean().item()
-            val_loss = self._evaluate(self.ds_val, val_steps, generator)
+            self.train_net.train()
+            self.train_losses = self.runner.train(
+                self.ds_train.plan(generator, steps_exec))
+            train_loss = self.train_losses.mean().item()
+            val_loss = self.runner.evaluate(
+                'val', self.ds_val.plan(generator, val_steps))
             history['loss'].append(train_loss)
             history['val_loss'].append(val_loss)
             if self.terminate_on_nan and not (np.isfinite(train_loss)
@@ -240,25 +402,186 @@ class SupervisedTrainer(Trainer):
                     f'Non-finite loss at epoch {epoch + 1} '
                     f'(loss={train_loss}, val_loss={val_loss}); terminating '
                     f'training', RuntimeWarning)
+                self.stop_profiler()
                 break
+            if self.profile and epoch == self.trained_epochs:
+                self.stop_profiler()
+            if self.save_logs:
+                self.log_scalars(epoch, loss=train_loss, val_loss=val_loss)
             if self.verbose:
                 print(f'Epoch {epoch + 1}/{self.epochs}  '
                       f'loss: {train_loss:.6f}  val_loss: {val_loss:.6f}')
+            if (self.checkpoints_frequency > 0
+                    and (epoch + 1) % self.checkpoints_frequency == 0):
+                self._save_full_checkpoint(epoch + 1, generator)
             if val_loss < best_val - self.min_delta:
                 best_val = val_loss
                 patience_left = self.patience
+                if self.save_bestmodel:
+                    self._save_checkpoint('best_model')
             elif self.early_stopping:
                 patience_left -= 1
                 if patience_left <= 0:
                     if self.verbose:
                         print(f'Early stopping at epoch {epoch + 1}')
                     break
+        self.stop_profiler()
         self.fithist = history
-
-        test_steps = (self.test_steps if self.test_steps is not None
-                      else max(self.ds_test.n // b, 1))
-        self.test_loss = self._evaluate(self.ds_test, test_steps, generator)
+        self.test_loss = self.runner.evaluate(
+            'test', self.ds_test.plan(generator, test_steps))
+        # with EMA on, the public weights are the averaged ones (what
+        # predict() and save_results serve); train_net keeps the raw ones
+        self.net = self.eval_net()
         if self.verbose:
             print(f'\nScore on the test set: {self.test_loss}')
         self.timing.runtime()
+        self.save_results()
         return self
+
+    # ------------------------------------------------------------------
+    def _save_checkpoint(self, name):
+        """The weights that validation scores (the EMA ones with
+        `ema_decay`), the ones to serve, under save_path/`name`."""
+        self._checkpoint_save(
+            os.path.join(self.savecheckpoint_path, name),
+            {'params': _cpu(self.eval_net().state_dict())})
+
+    def _save_full_checkpoint(self, epoch, generator):
+        """The full training state after `epoch` epochs, for
+        `resume_from_checkpoint`: parameters, Adam's state, the EMA, the
+        accumulators, the counts, the epoch and the plan generator's state,
+        under save_path/checkpoints/epoch-<epoch>."""
+        payload = {
+            'params': _cpu(self.train_net.state_dict()),
+            'opt_state': [_cpu(self.optimizer.state[p])
+                          for p in self._params],
+            'n_updates': self.n_updates, 'mini_step': self.mini_step,
+            'epoch': epoch, 'generator': generator.get_state()}
+        if self.ema_net is not None:
+            payload['ema_params'] = _cpu(self.ema_net.state_dict())
+        if self._acc is not None:
+            payload['acc_grads'] = [t.cpu() for t in self._acc]
+        self._checkpoint_save(os.path.join(
+            self.savecheckpoint_path, 'checkpoints', f'epoch-{epoch}'),
+            payload)
+
+    @torch.no_grad()
+    def _restore_checkpoint(self, path, generator):
+        """Load a full checkpoint into the trainer's tensors in place and
+        the generator; returns its epoch."""
+        payload = self._checkpoint_load(path)
+        self.train_net.load_state_dict(payload['params'])
+        for p, saved in zip(self._params, payload['opt_state']):
+            for key, value in saved.items():
+                self.optimizer.state[p][key].copy_(value)
+        if self.ema_net is not None and 'ema_params' in payload:
+            self.ema_net.load_state_dict(payload['ema_params'])
+        if self._acc is not None and 'acc_grads' in payload:
+            for t, saved in zip(self._acc, payload['acc_grads']):
+                t.copy_(saved)
+        self.n_updates = int(payload['n_updates'])
+        self.mini_step = int(payload['mini_step'])
+        self._count.fill_(self.n_updates)
+        self._mini.fill_(self.mini_step)
+        self._set_rate()
+        generator.set_state(payload['generator'])
+        return int(payload['epoch'])
+
+
+def _cpu(tensors):
+    return {k: v.detach().cpu() for k, v in tensors.items()}
+
+
+class StepRunner:
+    """The steps of a run: the plan rows of a chunk on the device, the row
+    counter and the loss buffers, with each step function captured as a
+    CUDA graph on the card and called eagerly on the CPU.
+
+    The training functions are 'step' (a step with its update), or with
+    gradient accumulation 'accumulate' and 'commit', replayed as the
+    host's mini-step picks them; the evaluation functions are one a split
+    of `evals` ({split: (synthesizer, steps)}), scoring `eval_net()`.
+    Graphs share one memory pool. `graphs` maps each name to its
+    `CapturedStep` on the card."""
+
+    def __init__(self, trainer, steps_per_execution, evals):
+        tr = self.trainer = trainer
+        dev = tr.device
+        self.spe = steps_per_execution
+        self.plan = tr.ds_train.plan_buffers(self.spe)
+        self.losses = torch.zeros(self.spe, dtype=torch.float32, device=dev)
+        fns = {}
+        if tr.gradient_accumulation_steps > 1:
+            fns['accumulate'] = lambda: tr._plan_step(self.plan, self.losses,
+                                                      False)
+            fns['commit'] = lambda: tr._plan_step(self.plan, self.losses,
+                                                  True)
+        else:
+            fns['step'] = lambda: tr._plan_step(self.plan, self.losses, True)
+        self.evals = {}
+        net = tr.eval_net()
+        for split, (synth, steps) in evals.items():
+            plan = synth.plan_buffers(steps)
+            losses = torch.zeros(steps, dtype=torch.float32, device=dev)
+            self.evals[split] = (plan, losses)
+            fns[split] = (lambda synth=synth, plan=plan, losses=losses:
+                          tr._eval_plan_step(net, synth, plan, losses))
+        self.fns = fns
+        self.graphs = {}
+        if dev.type == 'cuda':
+            state = tr._state_tensors()
+            pool = None
+            for name, fn in fns.items():
+                if name in self.evals:
+                    net.eval()
+                else:
+                    tr.train_net.train()
+                self.graphs[name] = CapturedStep(fn, state, pool=pool,
+                                                 rewind=[tr._row])
+                pool = self.graphs[name].pool()
+            tr.train_net.train()
+
+    def _run(self, name):
+        if self.graphs:
+            self.graphs[name].replay()
+        else:
+            self.fns[name]()
+
+    @staticmethod
+    def _upload(bufs, plan, rows):
+        for key, buf in bufs.items():
+            buf.copy_(plan[key][rows], non_blocking=True)
+
+    def train(self, plan):
+        """Run the training steps of `plan` (an epoch's, whole chunks),
+        a chunk of rows at a time; returns their losses on the device."""
+        tr = self.trainer
+        n = plan['idx'].shape[0]
+        if self.graphs:
+            plan = {k: v.pin_memory() for k, v in plan.items()}
+        out = torch.empty(n, dtype=torch.float32, device=tr.device)
+        accumulate = tr.gradient_accumulation_steps > 1
+        for c in range(0, n, self.spe):
+            self._upload(self.plan, plan, slice(c, c + self.spe))
+            tr._row.zero_()
+            for _ in range(self.spe):
+                commit = tr._commits()
+                self._run(('commit' if commit else 'accumulate')
+                          if accumulate else 'step')
+                tr._advance(commit)
+            out[c:c + self.spe].copy_(self.losses)
+        return out
+
+    def evaluate(self, split, plan):
+        """The mean loss of `eval_net()` over the rows of `plan` (`split`'s
+        steps), in eval mode."""
+        tr = self.trainer
+        bufs, losses = self.evals[split]
+        tr.eval_net().eval()
+        if self.graphs:
+            plan = {k: v.pin_memory() for k, v in plan.items()}
+        self._upload(bufs, plan, slice(None))
+        tr._row.zero_()
+        for _ in range(losses.shape[0]):
+            self._run(split)
+        return losses.mean().item()

@@ -1,6 +1,9 @@
-"""Argument checks, array helpers, device resolution and run timing
-(copies of the JAX package's `utils.py` helpers that this port needs)."""
+"""Argument checks, array helpers, device resolution, run timing and the
+learning-curve plot (copies of the JAX package's `utils.py` helpers that
+this port needs)."""
 
+import math
+import os
 from datetime import datetime
 
 import numpy as np
@@ -12,7 +15,8 @@ from . import (BACKBONE_BLOCKS, DROPOUT_VARIANTS, LOSS_FUNCTIONS,
 __all__ = ['checkarray_ndim', 'checkarg_upsampling', 'checkarg_backbone',
            'checkarg_dropout_variant', 'checkarg_loss',
            'check_compatibility_upsbackb', 'resolve_device', 'not_ported',
-           'spatiotemporal_to_spatial_samples', 'Timing', '_values']
+           'spatiotemporal_to_spatial_samples', 'Timing', 'plot_history',
+           '_values']
 
 
 def not_ported(what, item):
@@ -162,3 +166,43 @@ class Timing:
             print(self.sep)
             print(f'Timing: {checktime}')
             print(self.sep)
+
+
+def plot_history(history, path=None):
+    """Plot a training history ({'loss': [...], 'val_loss': [...], ...}) as
+    a grid of one graph a metric, each with its train and validation
+    curves, and save it to `path` when given; returns (figure, axes). The
+    learning curve of `save_results`: the default drawing of
+    dl4ds_tpu/utils.py:337 (whose options the port does not take)."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+
+    metrics = []
+    for k in history:
+        base = k[4:] if k.startswith('val_') else k
+        if base not in metrics:
+            metrics.append(base)
+    n = max(len(metrics), 1)
+    w, h = min(n, 4), math.ceil(n / 4)
+    fig, axes = plt.subplots(h, w, figsize=(5 * w, 5 * h), dpi=150,
+                             constrained_layout=True, squeeze=False)
+    flat_axes = axes.ravel()
+    for metric, axis in zip(metrics, flat_axes):
+        for prefix, key in (('Train', metric), ('Val', f'val_{metric}')):
+            vals = np.asarray(history.get(key, []), dtype=float)
+            if len(vals):
+                axis.plot(vals, '-', label=f'{prefix} last: {vals[-1]:0.4f}')
+        axis.set_xlabel('Epochs')
+        axis.set_ylabel(metric.capitalize())
+        axis.set_title(metric.capitalize())
+        axis.grid(True)
+        axis.legend()
+    for axis in flat_axes[len(metrics):]:
+        axis.axis('off')
+    if path is not None:
+        dirname = os.path.dirname(path)
+        if dirname:
+            os.makedirs(dirname, exist_ok=True)
+        fig.savefig(path)
+    return fig, axes

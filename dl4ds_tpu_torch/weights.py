@@ -1,4 +1,4 @@
-"""Carry a Flax parameter tree across into the port's modules.
+"""Carry a Flax parameter tree across into the port's modules, and back.
 
 The torch modules carry the Flax tree's names (explicit ones such as `stem`,
 `ResidualBlock1`, `conv2x`, `input_conv`, and Flax's auto-names such as
@@ -13,7 +13,7 @@ import torch
 
 from .models.blocks import Conv, ChannelAttention2D, _Kernel
 
-__all__ = ['load_jax_params']
+__all__ = ['load_jax_params', 'export_jax_params']
 
 
 def _copy(param, value, path, done):
@@ -77,3 +77,31 @@ def load_jax_params(net, params):
     if unset:
         raise KeyError(f'torch parameters without a Flax leaf: {unset}')
     return net
+
+
+def export_jax_params(net):
+    """The Flax `params` tree of `net`, the inverse of `load_jax_params`:
+    nested dicts of float32 numpy arrays under the Flax names, conv kernels
+    HWIO. A tied module is one entry, as in the Flax tree; modules without
+    parameters have none."""
+    def leaf(t):
+        return np.ascontiguousarray(t.detach().cpu().float().numpy())
+
+    def walk(module):
+        tree = {}
+        for key, child in module._modules.items():
+            if child is None:
+                continue
+            if isinstance(child, Conv):
+                sub = {'kernel': leaf(child.weight.permute(2, 3, 1, 0))}
+                if child.bias is not None:
+                    sub['bias'] = leaf(child.bias)
+            elif isinstance(child, (ChannelAttention2D, _Kernel)):
+                sub = {name: leaf(p) for name, p
+                       in child.named_parameters(recurse=False)}
+            else:
+                sub = walk(child)
+            if sub:
+                tree[key] = sub
+        return tree
+    return walk(net)

@@ -187,9 +187,9 @@ def test_predict_runs_the_net_in_eval_mode_and_restores_its_mode(
 
 def test_net_postupsampling_takes_rc_interpolation_and_remat(data):
     """The JAX signature's `rc_interpolation` and `remat`
-    (dl4ds_tpu/models/__init__.py:77-84): both accepted, remat=True
-    raises naming its item, and the trainer passes rc_interpolation
-    through to the factory."""
+    (dl4ds_tpu/models/__init__.py:77-84): both accepted, remat=True builds
+    the same parameters with its backbone recomputing its blocks, and the
+    trainer passes rc_interpolation through to the factory."""
     args = dict(SMALL, n_blocks=1)
     plain = tds.net_postupsampling('resnet', 'spc', **args)
     model = tds.net_postupsampling('resnet', 'spc', rc_interpolation='nearest',
@@ -197,7 +197,10 @@ def test_net_postupsampling_takes_rc_interpolation_and_remat(data):
     assert model.name == plain.name == 'resnet_spc'
     assert model.param_count(model.init(0, device='cpu')) == \
         plain.param_count(plain.init(0, device='cpu'))
-    with pytest.raises(NotImplementedError, match='item 4'):
-        tds.net_postupsampling('resnet', 'spc', remat=True, **args)
+    remat = tds.net_postupsampling('resnet', 'spc', remat=True, **args)
+    net = remat.init(0, device='cpu')
+    assert net._Backbone_0.remat and remat.config['remat']
+    assert model.param_count(net) == plain.param_count(
+        plain.init(0, device='cpu'))
     tr = _trained(data[0], rc_interpolation='bilinear')
     assert tr.model.name == 'resnet_spc' and tr.net is not None

@@ -5,7 +5,8 @@ handed to the port), the epoch index sampler, the mae/mse losses, Adam
 steps of the recurrent `recresnet_spc` and of the flagship `resnet_spc`
 (attention, loss dssim_mae) from carried weights against the JAX trainer's
 `_train_step_batch` on the same batches, one spatial step, the trainer's
-loop and the options that are not ported yet. Small sizes, float32.
+loop and the options that are not ported yet (the trainer's other options
+are tested in `test_torch_training_*.py`). Small sizes, float32.
 Tolerances: batches 1e-5 (the matmul resize), losses rtol 1e-5, parameters
 after the Adam steps atol 2e-6 (the largest difference seen is 1.9e-7;
 Adam's lr * g / (|g| + 1e-7) turns float32 noise in a small gradient into
@@ -332,12 +333,7 @@ def test_terminate_on_nan(data):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(ema_decay=0.9), dict(lr_schedule='cosine'), dict(warmup_steps=5),
-    dict(gradient_accumulation_steps=2), dict(save=True),
-    dict(save_bestmodel=True), dict(checkpoints_frequency=1),
-    dict(resume_from_checkpoint='ckpt'), dict(trained_model=(None, None)),
-    dict(save_logs=True),
-    dict(steps_per_execution=4), dict(season_ids=([0], [0], [0])),
+    dict(season_ids=([0], [0], [0])),
     dict(data_val_lr=np.zeros((6, 8, 10, 1), np.float32)),
     dict(data_in_hbm=False), dict(mesh=object()), dict(devices=['cpu']),
     dict(init_weights='keras.npz'), dict(backbone='convnet'),

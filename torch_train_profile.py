@@ -3,7 +3,7 @@
 
     python3 torch_train_profile.py [--model recresnet_spc|resnet_spc]
         [--loss mae] [--batch 128] [--reps 5] [--width 8] [--attention]
-                                                     # from the repo root
+        [--graphed]                                  # from the repo root
 
 Builds the training configuration of `chip_smoke.py` phase 7 (BASELINE
 config 4 as bench_suite.py's measure_supervised trains it:
@@ -15,12 +15,17 @@ with `--model resnet_spc --attention` the flagship of phase 10 (bench.py's
 resnet_spc: n_blocks 6, no time window; `--loss dssim_mae` as phase 10
 trains it). Runs 3 warm-up steps, then `reps` steps (batch synthesis,
 forward, backward, Adam) under `torch.profiler` on one GPU, and prints one
-JSON line: device time per kernel group and for the top kernels, the device
+JSON line: device time per kernel group and for the top kernels, every
+kernel's launches and device time a step (`kernels_per_step`), the device
 time inside the backwards of K1 and K6 (read from record_function ranges
 put around them here), the device's busy share over the profiled
 window, launches and the host clock per step (the profiler slows the host;
-chip_smoke.py times the steps without it). Fails when the profiler records
-no device kernel.
+chip_smoke.py times the steps without it). With `--graphed` the steps are
+those `SupervisedTrainer.run` replays: the step captured as a CUDA graph
+(`training/graphs.py`), a chunk of `reps` plan rows uploaded and replayed
+once to warm up, then once more under the profiler (the backwards are not
+read apart there: no range runs inside a replay). Fails when the profiler
+records no device kernel.
 """
 
 import argparse
@@ -85,6 +90,8 @@ def main():
     ap.add_argument('--model', choices=('recresnet_spc', 'resnet_spc'),
                     default='recresnet_spc')
     ap.add_argument('--loss', default='mae')
+    ap.add_argument('--graphed', action='store_true',
+                    help='profile replays of the captured step')
     args = ap.parse_args()
 
     import numpy as np
@@ -96,7 +103,8 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import dl4ds_tpu_torch as tds
     import dl4ds_tpu_torch.ops as ops
-    annotate_backwards(torch, ops)
+    if not args.graphed:
+        annotate_backwards(torch, ops)
 
     data = np.random.default_rng(0).standard_normal(
         (256, 128, 128, 1)).astype('float32')
@@ -112,15 +120,27 @@ def main():
     tr.setup_optimizer()
     tr.net.train()
     gen = torch.Generator().manual_seed(0)
-    idx = tr.ds_train.epoch_indices(gen, steps=3 + args.reps)
-    for c in range(3):
-        tr.train_step(tr.ds_train(idx[c], generator=gen))
+    if args.graphed:
+        from dl4ds_tpu_torch.training.supervised import StepRunner
+        runner = StepRunner(tr, args.reps, {})
+        runner.train(tr.ds_train.plan(gen, args.reps))
+        plan = tr.ds_train.plan(gen, args.reps)
+
+        def steps():
+            runner.train(plan)
+    else:
+        idx = tr.ds_train.epoch_indices(gen, steps=3 + args.reps)
+        for c in range(3):
+            tr.train_step(tr.ds_train(idx[c], generator=gen))
+
+        def steps():
+            for c in range(3, 3 + args.reps):
+                tr.train_step(tr.ds_train(idx[c], generator=gen))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for c in range(3, 3 + args.reps):
-            tr.train_step(tr.ds_train(idx[c], generator=gen))
+        steps()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
 
@@ -133,9 +153,11 @@ def main():
         sys.exit('torch_train_profile: the profiler recorded no device '
                  'kernel')
     by_name, by_group = defaultdict(float), defaultdict(float)
+    count = defaultdict(int)
     for e in kernels:
         us = e.time_range.end - e.time_range.start
         by_name[e.name] += us
+        count[e.name] += 1
         by_group[group_of(e.name)] += us
     # the kernels inside each annotated range of the device's line (one
     # stream: a range holds exactly the kernels launched inside it)
@@ -156,6 +178,7 @@ def main():
         'device': torch.cuda.get_device_name(0), 'model': tr.model.name,
         'loss': args.loss, 'width': args.width, 'attention': args.attention,
         'batch': args.batch, 'reps': args.reps,
+        'mode': 'graphed' if args.graphed else 'eager',
         'kernel_launches_per_step': len(kernels) / args.reps,
         'annotation_ranges_skipped': len(device) - len(kernels),
         'device_busy_ms_per_step': busy_us / per,
@@ -168,6 +191,9 @@ def main():
         'backward_ms_per_step': {
             k: None if v is None else v / per for k, v in annotated.items()},
         'top_kernels_ms_per_step': [[n[:90], v / per] for n, v in top],
+        'kernels_per_step': [[n, count[n] / args.reps, v / per] for n, v in
+                             sorted(by_name.items(),
+                                    key=lambda kv: (-count[kv[0]], -kv[1]))],
     }))
 
 
