@@ -106,7 +106,24 @@ Phases, each of which exits non-zero on failure:
      replay and one eager step on CUDA events, the device's busy share
      over a chunk of replays, in which torch.profiler must see every
      replay run the port's kernels);
- 12. print the `kernels` JSON line, then, last, the device JSON line. In
+ 12. the bfloat16 model dtype: hold K1's mixed mode (bfloat16 x, float32 y
+     and dy) forward and backward in every regime and pack width of its
+     plan, K2 (both variants, held step by step: each plain step from the
+     kernel's own previous h and c), K3 and K4 with the bfloat16 tail (the
+     chain held step by step, dx and the weight gradients against the
+     plain tail in float64 on the chain's dzs) against their plain
+     versions, within 2 bfloat16 ulps of max |ref| (float32 values within
+     1e-3), the same bits twice, every compiled bfloat16 body run; time
+     them against their plain versions and their bounds (the dense
+     bfloat16 rate and the measured mma.sync peak); drive bfloat16
+     `predict` of both models (launches, a float32 return holding
+     bfloat16 values, grid 0 against the CPU: mean |d| at most half the
+     float32 model's distance) and two epochs of bfloat16 training of the
+     flagship with mae (beside the float32 flagship with mae) and of
+     recresnet_spc at n_filters 8 and 64 through `run()`'s replayed
+     graphs, with their launches in the device trace as phases 7-11 count
+     them, and print the rates beside float32's;
+ 13. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6) is what the device trace of
      its phase's run holds, and `wrapper_calls` what its wrapper counted
@@ -117,6 +134,7 @@ Phases, each of which exits non-zero on failure:
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -217,11 +235,13 @@ K3_LAYERS = [layer for cin in [1] + [N_FILTERS] * REC_BLOCKS
 # 17x17 frames with Cin 1 and 2 (K2's ragged pixel tiles), two gate chunks
 # in the weight gradient (F = 12), 7x7 (4 channels a weight-gradient
 # chunk, more than 48 KB of shared memory), 9x9 (two tap chunks), x without
-# a gradient (no dx launch), frames wider than a tile, and dx at 16 (Cin 13,
-# 4-byte copies) and 32 channels a block. With the training shapes and
-# those of K4 below they run every compiled body of the chain-step and dx
-# tile (8, 16, 32 and 64 channels a block) and every stage kind of its
-# plan; phase 6 checks that (`PLAN_BODIES`).
+# a gradient (no dx launch), frames wider than a tile, dx at 16 (Cin 13,
+# 4-byte copies) and 32 channels a block, and K3's chain at 16, 32 and 64
+# channels a block (batch 72: enough blocks to keep them). With the
+# training shapes and those of K4 below they run every compiled body of
+# the chain-step and dx tile (K3's chain, K4's chain and dx, each at 8,
+# 16, 32 and 64 channels a block) and every stage kind of its plan; phase
+# 6 checks that (`PLAN_BODIES`).
 K3_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 1, 3, True),
                   (3, 3, 20, 37, 5, 5, 3, 5, True),
                   (4, 3, 5, 7, 1, 4, 3, 3, True),
@@ -235,7 +255,10 @@ K3_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 1, 3, True),
                   (8, 2, 72, 100, 3, 6, 7, 7, True),
                   (2, 2, 12, 12, 8, 8, 9, 9, True),
                   (64, 2, 16, 16, 32, 8, 3, 3, True),
-                  (48, 3, 16, 16, 13, 8, 5, 5, True)]
+                  (48, 3, 16, 16, 13, 8, 5, 5, True),
+                  (72, 2, 16, 16, 8, 16, 5, 5, True),
+                  (72, 2, 16, 16, 8, 32, 3, 3, True),
+                  (72, 2, 16, 16, 8, 64, 3, 3, True)]
 # K3 against its plain version run in float64 on the same inputs (cuDNN's
 # float32 weight gradient is itself off by 9e-3 of max |ref| at 5x5 and 64
 # channels, TF32 off, deterministic or not; float64 on the card agrees with
@@ -285,10 +308,11 @@ K4_OTHER_PATHS = [(2, 1, 9, 41, 3, 6, 3, 3, True),
                   (128, 2, 16, 16, 16, 16, 3, 3, True),
                   (128, 2, 16, 16, 8, 32, 5, 5, True),
                   (40, 2, 16, 16, 4, 72, 7, 7, True)]
-# the chain-step and dx tile's compiled bodies (kernel, channels a block)
-# and its plan's stage kinds (cw, all or one tap row), every one of which
-# phase 6 must run
-PLAN_BODIES = {(kind, ns) for kind in ('chain', 'dx') for ns in (8, 16, 32, 64)}
+# the chain-step and dx tile's compiled bodies (kernel: K3's chain, K4's
+# chain, dx; channels a block) and its plan's stage kinds (cw, all or one
+# tap row), every one of which phase 6 must run
+PLAN_BODIES = {(kind, ns) for kind in ('chain', 'split chain', 'dx')
+               for ns in (8, 16, 32, 64)}
 PLAN_STAGES = {(8, 'all'), (4, 'all'), (8, 'one')}
 # K4's dzs against its plain version run in float64, to K2_TOL times
 # max(1, max |dzs|); the split route's gradients against the plain BPTT in
@@ -862,21 +886,40 @@ def phase_recurrent_predict(torch, tds, report):
                   rec_forward_ms=fwd_ms, rec_cpu_err=err)
 
 
+# torch.profiler keeps a device kernel only when its time, on the host's
+# clock, falls inside the trace's window (kineto drops the rest as out of
+# range); with the clocks a little apart, a trace that launched work at
+# once lost the first 3 ms of a chunk of replays on the H100. The host
+# waits this long after the trace starts and before it stops.
+PROFILE_GUARD_S = 0.05
+
+
+@contextlib.contextmanager
+def _device_trace(torch):
+    """torch.profiler over the CPU and the device, the device synchronised
+    before and at the end, with PROFILE_GUARD_S of quiet at either end.
+    Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_GUARD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_S)
+
+
 def kernel_split_ms(torch, fn, groups, reps=10):
     """Device ms a call of fn() spends in each group of kernels ({group:
     name fragments}; kernels of no group fall under 'other'), from
     torch.profiler's device events over `reps` calls after 3 warm-up ones.
     Fails when the profiler records no device kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _device_trace(torch) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, 'is_user_annotation', False)]
     if not kernels:
@@ -894,13 +937,18 @@ K3_KERNELS = {'chain': ('chain_step',), 'dx': ('dx_frames',),
               'wgrad': ('wgrad_tile',), 'reduce': ('wgrad_reduce',)}
 
 
-def _note_plans(conv, reached, b, t, h, w, cin, f, kh, kw, need_dx, n_sm):
+def _note_plans(conv, reached, b, t, h, w, cin, f, kh, kw, need_dx, n_sm,
+                elem=4, route='fused'):
     """Add the chain-step and dx tile's bodies (kernel, channels a block)
-    and stage kinds that this layer's backward runs to `reached`; returns
-    them as text."""
-    plans = [('chain', conv._seq_plan(b, h, w, kh, kw, f, n_sm))]
-    if need_dx:
-        plans.append(('dx', conv._seq_plan(b * t, h, w, kh, kw, cin, n_sm)))
+    and stage kinds that this layer's backward by `route` runs to
+    `reached` (elem: the element size, 2 for the bfloat16 bodies); returns
+    them as text. The split route's chain is K4's kernel and its dx the
+    GEMM tail's."""
+    chain = 'chain' if route == 'fused' else 'split chain'
+    plans = [(chain, conv._seq_plan(b, h, w, kh, kw, f, n_sm, elem))]
+    if need_dx and route == 'fused':
+        plans.append(('dx', conv._seq_plan(b * t, h, w, kh, kw, cin, n_sm,
+                                           elem)))
     for kind, p in plans:
         reached.add((kind, p['ns']))
         reached.add((p['cw'], 'all' if p['rps'] == kh else 'one'))
@@ -1198,7 +1246,8 @@ def phase_convlstm_split(torch, tds, report):
         k4_bound_3x = max(flops / TF32X3_FLOPS,
                           n_bytes / HBM_BYTES_PER_S) * 1e3
         plans = _note_plans(conv, reached, TRAIN_BATCH, REC_T, TRAIN_LR,
-                            TRAIN_LR, cin, f, k, k, False, n_sm)
+                            TRAIN_LR, cin, f, k, k, False, n_sm,
+                            route='split')
         t_flops, t_bytes = tail_work(x, wx, wh, need_dx)
         tail_bound = max(t_flops / F32_FLOPS, t_bytes / HBM_BYTES_PER_S) * 1e3
         rows.append(dict(x=list(x.shape), f=f, k=k, dx=need_dx,
@@ -1243,7 +1292,7 @@ def phase_convlstm_split(torch, tds, report):
                          dzs_rel_err=dzs_err, plain_f32_dzs_err=plain_err,
                          grad_rel_err=errs))
         plans = _note_plans(conv, reached, b, t, h, w, cin, f, kh, kw, False,
-                            n_sm)
+                            n_sm, route='split')
         print(f'K4/split {label}{"" if need_dx else " (no dx)"} ({plans})  dzs '
               f'max|d|/max(1, max|ref|) {dzs_err:.2e} (plain f32 '
               f'{plain_err:.2e})  max|d|/max|ref| '
@@ -1273,18 +1322,19 @@ def _counters(tds):
             ('K6 backward', tds.fused_ssim_per_image, 'bwd_launches')]
 
 
-def _expected_launches(conv, layers, steps, eval_steps):
+def _expected_launches(conv, layers, steps, eval_steps, itemsize=4):
     """{counter: launches} of `steps` training steps and `eval_steps`
     validation or test steps of a recurrent model with these (Cin, F, k)
-    ConvLSTM layers, by `dispatch_info`'s route of each: K3 a layer is T
-    chain steps, dx (not for the stem, whose input needs no gradient), the
-    Wx and Wh passes and one reduction; K4 a layer is T chain steps. With
-    (1, 0) and (0, 1), the launches a captured step must hold."""
+    ConvLSTM layers, by `dispatch_info`'s route of each (for the model
+    dtype's `itemsize`): K3 a layer is T chain steps, dx (not for the stem,
+    whose input needs no gradient), the Wx and Wh passes and one
+    reduction; K4 a layer is T chain steps. With (1, 0) and (0, 1), the
+    launches a captured step must hold."""
     k3 = k4 = 0
     for cin, f, k in layers:
         x_shape = (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin)
         route = conv.dispatch_info(x_shape, (k, k, cin, 4 * f),
-                                   (k, k, f, 4 * f))['path']
+                                   (k, k, f, 4 * f), itemsize)['path']
         if route == 'fused':
             k3 += REC_T + (cin != 1) + 3
         else:
@@ -1311,16 +1361,17 @@ def _training_config(**model):
 # match first; a call of the stream regime of K1 and of the tile regime of
 # K6's backward launches a second kernel (ca_stream_apply, ssim_pixels_bwd),
 # which is counted under None, so that a counter counts calls as its
-# wrapper does; 'flag' is the counter chosen by the kernel's last template
-# flag (BWD for ca_stream_sums, TRAIN for convlstm_tile); a chain step is
-# K3's or K4's by its layer's route ('chain', `_device_launches`)
+# wrapper does; a pair is chosen from by the kernel's last template flag
+# (BWD for ca_stream_sums, TRAIN for convlstm_tile); a chain step is K3's
+# (`chain_step`) or K4's (`split_chain`, the same tile under its own name)
 KERNEL_COUNTERS = (
     ('ca_fwd_resident', 'K1'), ('ca_bwd_resident', 'K1 backward'),
     ('ca_stream_sums', ('K1', 'K1 backward')), ('ca_stream_apply', None),
     ('ssim_image_bwd', 'K6 backward'), ('ssim_tiles_bwd', 'K6 backward'),
     ('ssim_pixels_bwd', None), ('ssim_image', 'K6'), ('ssim_tiles', 'K6'),
-    ('convlstm_tile', ('K2 inference', 'K2-train')), ('chain_step', 'chain'),
-    ('dx_frames', 'K3'), ('wgrad_tile', 'K3'), ('wgrad_reduce', 'K3'))
+    ('convlstm_tile', ('K2 inference', 'K2-train')), ('chain_step', 'K3'),
+    ('split_chain', 'K4'), ('dx_frames', 'K3'), ('wgrad_tile', 'K3'),
+    ('wgrad_reduce', 'K3'))
 # the last bool in a kernel's name: demangled (`<16, true, true>`), as a
 # [with ... TRAIN=true] list, or mangled (`Lb1E`)
 _TEMPLATE_BOOL = re.compile(r'\b(true|false)\b|Lb([01])E')
@@ -1328,8 +1379,8 @@ _TEMPLATE_BOOL = re.compile(r'\b(true|false)\b|Lb([01])E')
 
 def _kernel_counter(name):
     """The counter of `_counters` under which a device kernel of this name
-    counts: 'chain' for a chain step, None for the second kernel of a call
-    or a kernel that is not the port's."""
+    counts: None for the second kernel of a call or a kernel that is not
+    the port's."""
     for fragment, counter in KERNEL_COUNTERS:
         if fragment in name:
             if isinstance(counter, tuple):
@@ -1348,26 +1399,14 @@ def _device_kernels(torch, prof):
             and not getattr(e, 'is_user_annotation', False)]
 
 
-def _device_launches(tds, kernels, expected):
+def _device_launches(tds, kernels):
     """{counter: launches} of the port's kernels among the profiler's
-    device `kernels`; the chain steps go to K3 when `expected` (the same
-    keys) holds no K4 launch, else to K4 when it holds no K3 launch (a run
-    whose layers take both routes cannot be told apart here, and fails)."""
+    device `kernels`."""
     counts = dict.fromkeys((name for name, _, _ in _counters(tds)), 0)
-    chain = 0
     for e in kernels:
         counter = _kernel_counter(e.name)
-        if counter == 'chain':
-            chain += 1
-        elif counter is not None:
+        if counter is not None:
             counts[counter] += 1
-    if expected['K4'] == 0:
-        counts['K3'] += chain
-    elif expected['K3'] == 0:
-        counts['K4'] += chain
-    else:
-        fail('a run whose ConvLSTM layers take both backward routes: the '
-             'trace cannot tell K3\'s chain steps from K4\'s')
     return counts
 
 
@@ -1375,17 +1414,14 @@ def _traced_run(torch, tds, tr):
     """`tr.run()` under torch.profiler, with every launch counter set to 0
     just before and read just after. Returns (the run's seconds, the
     wrappers' calls {counter: n}, the device kernels of the trace)."""
-    from torch.profiler import ProfilerActivity, profile
     counters = _counters(tds)
     for _, fn, attr in counters:
         setattr(fn, attr, 0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _device_trace(torch) as prof:
+        t0 = time.perf_counter()
         tr.run()
         torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+        run_s = time.perf_counter() - t0
     calls = {name: getattr(fn, attr) for name, fn, attr in counters}
     return run_s, calls, _device_kernels(torch, prof)
 
@@ -1409,7 +1445,7 @@ def _check_launches(tds, runner, label, per_step, replays, calls, kernels):
         for name in want:
             want_calls[name] += step[name] * (WARMUP_CALLS + 1)
             want[name] += step[name] * (WARMUP_CALLS + graph.replays)
-    launches = _device_launches(tds, kernels, want)
+    launches = _device_launches(tds, kernels)
     print(f'{label}: graphs {sorted(runner.graphs)} replayed '
           f'{ {g: c.replays for g, c in runner.graphs.items()} } times; '
           f'wrapper calls {calls} (expected a training step '
@@ -1557,7 +1593,7 @@ def _graphed_speed(torch, tds, tr, steps, per_step, label):
     replay_ms = statistics.median(device_times(torch, replay, reps=10))
     kernels, busy_ms, span_ms = _replay_profile(torch, tr.runner, plans[0])
     want = {name: n * steps for name, n in per_step['train'].items()}
-    port = _device_launches(tds, kernels, want)
+    port = _device_launches(tds, kernels)
     if port != want:
         fail(f'{label}: the profiler saw {port} launches of the port\'s '
              f'kernels in {steps} replays, expected {per_step["train"]} in '
@@ -1566,7 +1602,8 @@ def _graphed_speed(torch, tds, tr, steps, per_step, label):
                 busy_ms_per_step=busy_ms / steps,
                 span_ms_per_step=span_ms / steps,
                 busy_share=busy_ms / span_ms,
-                port_launches_per_replay=sum(port.values()) / steps)
+                port_launches_per_replay=sum(port.values()) / steps,
+                launches_per_replay=len(kernels) / steps)
 
 
 def _print_routes(conv, layers):
@@ -1579,9 +1616,9 @@ def _print_routes(conv, layers):
               f'({info["reason"]})', flush=True)
 
 
-def _recurrent_per_step(conv, layers):
-    return {'train': _expected_launches(conv, layers, 1, 0),
-            'eval': _expected_launches(conv, layers, 0, 1)}
+def _recurrent_per_step(conv, layers, itemsize=4):
+    return {'train': _expected_launches(conv, layers, 1, 0, itemsize),
+            'eval': _expected_launches(conv, layers, 0, 1, itemsize)}
 
 
 def phase_training(torch, tds, report):
@@ -1855,15 +1892,17 @@ def _gate_inputs(torch, tds, config):
     return shapes
 
 
-def _flagship_per_step(per_forward):
+def _flagship_per_step(per_forward, ssim=True):
     """The launches of a flagship training step (a gate's forward and
-    backward per gate, K6 once each way) and of an evaluation step."""
+    backward per gate, K6 once each way with a DSSIM loss, `ssim`) and of
+    an evaluation step."""
     none = {'K2-train': 0, 'K2 inference': 0, 'K3': 0, 'K4': 0}
+    k6 = int(ssim)
     return {'train': dict(none, **{'K1': per_forward,
-                                   'K1 backward': per_forward, 'K6': 1,
-                                   'K6 backward': 1}),
+                                   'K1 backward': per_forward, 'K6': k6,
+                                   'K6 backward': k6}),
             'eval': dict(none, **{'K1': per_forward, 'K1 backward': 0,
-                                  'K6': 1, 'K6 backward': 0})}
+                                  'K6': k6, 'K6 backward': 0})}
 
 
 def phase_flagship_training(torch, tds, report):
@@ -1945,12 +1984,8 @@ def _replay_profile(torch, runner, plan):
     """(the device kernels, busy ms, span ms) of one `runner.train(plan)`
     (a chunk of replays with its plan upload) under torch.profiler; busy is
     the union of the kernels' intervals."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _device_trace(torch) as prof:
         runner.train(plan)
-        torch.cuda.synchronize()
     kernels = _device_kernels(torch, prof)
     if not kernels:
         fail('torch.profiler recorded no kernel of the replays')
@@ -2090,6 +2125,769 @@ def phase_graphs(torch, tds, report):
               f'span; {card}', flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the bfloat16 model dtype
+# ---------------------------------------------------------------------------
+
+# the bfloat16 products' ceilings: mma.sync m16n8k16, which the bfloat16
+# forms of K2, K3 and K4 run on, measured at 643.0 TFLOP/s
+# (tools/torch_mma_peak.py on an NVIDIA H100 80GB HBM3 at 700 W), and the
+# published dense bfloat16 rate of the tensor cores (wgmma), the bound_ms of
+# the kernels line
+BF16_MMA_SYNC_FLOPS = 643e12
+BF16_FLOPS = 989e12
+# a stored bfloat16 value against its plain version at the same rounding
+# points: within 2 bfloat16 ulps of max |ref| (a float32 sum in another
+# order flips a rounding now and then); a recurrence is held step by step
+# (each plain step from the kernel's own previous states), since one flip
+# near a gate's steep part is carried through the later steps
+BF16_STORED_TOL = 1e-2
+# ... and at most this share of them differ at all: summing the products
+# in another order flips 1.1e-5 to 1.2e-4 of the stored values of a plain
+# layer or chain (float64 sums against float32, on the CPU), while a kernel
+# that kept float32 between the gate ops, rounding only what it stores,
+# would differ at 53-61% of them (the plain versions run in float32; both
+# held step by step; tests/test_torch_bf16.py
+# test_differ_share_bound_tells_rounding_points_from_sum_order). Each check
+# plants that variant as a control, which must fail the bound.
+BF16_DIFFER_SHARE = 1e-2
+# float32 values formed after the bfloat16 rounding points (K1's mixed y,
+# db1, db2) from the same bfloat16 values: float32 sums in another order.
+# Leaving m @ w1 unrounded, as the jitted JAX gate does, moves y by 1.6e-4
+# (tests/test_torch_bf16.py)
+BF16_F32_TOL = 1e-5
+# bfloat16 predict's grid 0 against the CPU's: mean |d| / mean |y| at most
+# this share of the float32 model's. A mean, not a max: the bfloat16
+# flagship moves with the order of its convolutions' sums alone by 1.4e-3
+# in the mean and 5.6e-3 of max |y| in the max, against the float32
+# model's 8.9e-3 and 1.2e-2 (on the CPU; tests/test_torch_bf16_models.py
+# test_bf16_flagship_output_moves_with_the_sum_order_alone), and on the
+# card neither the plain gate in place of K1 nor CPU-style convolutions in
+# place of cuDNN's close its gap to the CPU (tools/torch_bf16_gap.py,
+# PERF.md)
+BF16_PREDICT_RATIO = 0.5
+# K1's mixed mode on a sample whose float32 dy does not fit a block and
+# whose H*W*C is odd: the stream regime with 1-element packs
+K1_MIXED_PATHS = [((1, 157, 131, 3), 1)]
+
+
+def _rel_err(a, ref):
+    ref = ref.double()
+    return ((a.double() - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def _bf16_bounds(flops, n_bytes):
+    """(bound_ms at the dense bfloat16 rate, bound_ms at the mma.sync
+    bfloat16 peak, what bounds it) of work of `flops` and `n_bytes`."""
+    mem = n_bytes / HBM_BYTES_PER_S
+    return (max(flops / BF16_FLOPS, mem) * 1e3,
+            max(flops / BF16_MMA_SYNC_FLOPS, mem) * 1e3,
+            'operations' if flops / BF16_FLOPS >= mem else 'bytes')
+
+
+def _check_k1_mixed(torch, fo, x, weights, dy, label):
+    """K1's mixed mode (bfloat16 x, float32 y and dy, bfloat16 dx) against
+    its plain versions: y within BF16_F32_TOL of max |ref| of
+    `channel_attention_reference(..., out_dtype=float32)`; the backward, on
+    the forward kernel's mean and gate, against `_backward_mixed` with
+    float64 sums: dx and the bfloat16-rounded dw1 and dw2 within
+    BF16_STORED_TOL, db1 and db2 within BF16_F32_TOL; the same bits twice
+    each way. Returns the errors."""
+    f32 = torch.float32
+    y, m, g = fo._launch(x, *weights, mixed=True)
+    y2, _, _ = fo._launch(x, *weights, mixed=True)
+    ref = fo.channel_attention_reference(x, *weights, out_dtype=f32)
+    grads = fo._launch_backward(x, *weights, dy, m, g, mixed=True)
+    again = fo._launch_backward(x, *weights, dy, m, g, mixed=True)
+    want = fo._backward_mixed(x, *(t.double() for t in weights), dy.double(),
+                              m.double(), g.double())
+    torch.cuda.synchronize()
+    if y.dtype != f32 or grads[0].dtype != torch.bfloat16:
+        fail(f'K1 mixed {label}: y {y.dtype}, dx {grads[0].dtype}')
+    if not torch.equal(y, y2):
+        fail(f'K1 mixed {label}: two forward runs gave different bits')
+    errs = {'y': _rel_err(y, ref)}
+    tols = {'y': BF16_F32_TOL}
+    for name, a, a2, r, tol in zip(
+            ('dx', 'dw1', 'db1', 'dw2', 'db2'), grads, again, want,
+            (BF16_STORED_TOL, BF16_STORED_TOL, BF16_F32_TOL, BF16_STORED_TOL,
+             BF16_F32_TOL)):
+        if not torch.equal(a, a2):
+            fail(f'K1 mixed backward {label} {name}: two runs gave '
+                 f'different bits')
+        errs[name], tols[name] = _rel_err(a, r), tol
+    bad = {k: v for k, v in errs.items() if not v <= tols[k]}
+    if bad:
+        fail(f'K1 mixed {label}: max|d| / max|ref| {bad} over {tols}')
+    return errs
+
+
+def _differ_share(got, want):
+    """The share of stored values of `got` that differ from `want` at all,
+    the largest over the tensors."""
+    return max((a != b).float().mean().item() for a, b in zip(got, want))
+
+
+def _check_share(got, want, control, label):
+    """`got` (a kernel's stored bfloat16 tensors) differs from `want` (its
+    plain version's, held step by step) at no more than BF16_DIFFER_SHARE
+    of its values, and `control` (the plain version with float32 between
+    the ops, its stored tensors rounded) at more. Returns both shares."""
+    share = _differ_share(got, want)
+    control_share = _differ_share([u.to(w.dtype) for u, w in
+                                   zip(control, want)], want)
+    if not share <= BF16_DIFFER_SHARE < control_share:
+        fail(f'{label}: {share:.2e} of the stored values differ from the '
+             f'plain version, the float32-within-a-step control '
+             f'{control_share:.2e}; the bound {BF16_DIFFER_SHARE} must '
+             f'hold the first and not the second')
+    return share, control_share
+
+
+def _check_k2_bf16(torch, conv, x, wx, bx, wh, label):
+    """K2's bfloat16 training variant held step by step against its plain
+    version (ys, cs, zs within BF16_STORED_TOL of max |ref|, at most
+    BF16_DIFFER_SHARE of them differing, `_check_share`), its inference
+    variant's ys equal to the training variant's, and the same bits twice.
+    Returns the residuals (ys, cs, zs), the three errors and (the differing
+    share, the control's)."""
+    with torch.no_grad():
+        got = conv._launch(x, wx, bx, wh, train=True)
+        again = conv._launch(x, wx, bx, wh, train=True)
+        ys_inf = conv._launch(x, wx, bx, wh)
+        want = conv.convlstm_train_reference(x, wx, bx, wh, states=got[:2])
+        control = conv.convlstm_train_reference(
+            *(u.float() for u in (x, wx, bx, wh)),
+            states=[u.float() for u in got[:2]])
+    torch.cuda.synchronize()
+    errs = [_rel_err(a, r) for a, r in zip(got, want)]
+    if any(u.dtype != torch.bfloat16 for u in got) or not \
+            max(errs) <= BF16_STORED_TOL:
+        fail(f'K2 bf16 {label}: ys, cs, zs max|d| / max|ref| {errs} '
+             f'(dtypes {[str(u.dtype) for u in got]}) against '
+             f'{BF16_STORED_TOL}')
+    shares = _check_share(got, want, control, f'K2 bf16 {label}')
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f'K2 bf16 {label}: two runs gave different bits')
+    if not torch.equal(ys_inf, got[0]):
+        fail(f'K2 bf16 {label}: the inference variant\'s ys differ from the '
+             f'training variant\'s')
+    return got, errs, shares
+
+
+def _check_bptt_bf16(torch, conv, x, wx, bx, wh, dys, need_dx, route, label):
+    """One bfloat16 layer's BPTT by `route` ('fused': K3; 'split': K4 and
+    the GEMM tail) on K2's residuals: the route's own chain kernel's dzs
+    held step by step against the plain chain (at most BF16_DIFFER_SHARE
+    of them differing, `_check_share`), and dx, dWx, dbx and dWh against
+    the plain tail run in float64 on those dzs (each within
+    BF16_STORED_TOL of max |ref|: one rounding to bfloat16); the same bits
+    twice. Returns the errors."""
+    (ys, cs, zs), fwd, fwd_shares = _check_k2_bf16(torch, conv, x, wx, bx,
+                                                   wh, label)
+    with torch.no_grad():
+        args = (x, wx, wh, zs, cs, ys, dys)
+        grads = conv._backward(route, *args, need_dx)
+        again = conv._backward(route, *args, need_dx)
+        dzs = conv._chain(zs, cs, dys, wh, 'bwd_launches' if route == 'fused'
+                          else 'seq_launches')
+        chain = conv.convlstm_seq_reference(zs, cs, dys, wh, given=dzs)
+        control = conv.convlstm_seq_reference(
+            *(u.float() for u in (zs, cs, dys, wh)), given=dzs.float())
+        ref = conv.convlstm_backward_tail(
+            *(u.double() for u in (x, wx, wh, ys, dzs)), need_dx)
+    torch.cuda.synchronize()
+    errs = {'chain': _rel_err(dzs, chain)}
+    shares = _check_share([dzs], [chain], [control],
+                          f'{route} bf16 {label} chain')
+    for name, a, a2, r in zip(('dx', 'dwx', 'dbx', 'dwh'), grads, again, ref):
+        if a is None:
+            if need_dx or name != 'dx':
+                fail(f'{route} bf16 {label}: no {name}')
+            continue
+        if a.dtype != torch.bfloat16 or a.shape != r.shape:
+            fail(f'{route} bf16 {label}: {name} {a.dtype} {tuple(a.shape)}')
+        if not torch.equal(a, a2):
+            fail(f'{route} bf16 {label}: {name} differs between two runs')
+        errs[name] = _rel_err(a, r)
+    if not max(errs.values()) <= BF16_STORED_TOL:
+        fail(f'{route} bf16 {label}: max|d| / max|ref| {errs} against '
+             f'{BF16_STORED_TOL}')
+    return dict(ys_cs_zs_err=fwd, grad_rel_err=errs,
+                differ_share=dict(k2=fwd_shares, chain=shares))
+
+
+def _bf16_kernels(torch, tds, report):
+    """Phase 12, the kernels: K1's mixed mode in both regimes of its plan,
+    K2 (both variants), K3 and K4 with the GEMM tail in bfloat16, each
+    against its plain version; every compiled bfloat16 body run; times
+    against the plain versions and the bounds."""
+    from dl4ds_tpu_torch.ops import convlstm as conv
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = torch.device('cuda')
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    limits = fo._ca_limits(dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    torch.backends.cudnn.allow_tf32 = False      # plain float32 sums
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # K1's mixed mode: the serving and training gates and the other paths
+    k1_rows, ran = [], {}
+    serving = [(BATCH,) + shape for shape in K1_SHAPES]
+    cases = ([(shape, max(int(shape[-1] / 4), 1), False)
+              for shape in serving + K1_TRAIN_SHAPES]
+             + [(shape, cr, True) for shape, cr in K1_OTHER_PATHS
+                + K1_MIXED_PATHS])
+    for shape, cr, glorot in cases:
+        x, weights, dy = _gate_case(torch, gen, dev, shape, cr, f32,
+                                    glorot=glorot)
+        x = x.to(bf)
+        errs = _check_k1_mixed(torch, fo, x, weights, dy, f'x{list(shape)}')
+        plan = fo._ca_plan(shape, cr, bf, *limits, out_dtype=f32)
+        ran.setdefault((plan['regime'], plan['vec']), (x, weights, dy))
+        row = dict(shape=list(shape), cr=cr, regime=plan['regime'],
+                   vec=plan['vec'], rel_err=errs)
+        if not glorot:
+            ms, plain_ms = paired_ms(
+                torch, lambda: fo._launch(x, *weights, mixed=True),
+                lambda: fo.channel_attention_reference(x, *weights,
+                                                       out_dtype=f32), flush)
+            _, m, g = fo._launch(x, *weights, mixed=True)
+            bwd_ms, bwd_plain_ms = paired_ms(
+                torch, lambda: fo._launch_backward(x, *weights, dy, m, g,
+                                                   mixed=True),
+                lambda: fo._backward_mixed(x, *weights, dy, m, g), flush)
+            c, w_bytes = shape[-1], 4 * (2 * shape[-1] * cr + shape[-1] + cr)
+            n_ops = 2 * x.numel() + 4 * shape[0] * c * cr
+            row.update(
+                ms=ms, plain_ms=plain_ms, bwd_ms=bwd_ms,
+                bwd_plain_ms=bwd_plain_ms,
+                bound_ms=max((6 * x.numel() + w_bytes) / HBM_BYTES_PER_S,
+                             n_ops / F32_FLOPS) * 1e3,
+                bwd_bound_ms=(8 * x.numel() + 2 * w_bytes)
+                / HBM_BYTES_PER_S * 1e3)
+        k1_rows.append(row)
+        print(f'K1 mixed x{list(shape)} cr={cr} {plan["regime"]} '
+              f'({plan["vec"]}-element packs): max|d|/max|ref| '
+              + ', '.join(f'{k} {v:.1e}' for k, v in errs.items())
+              + (f'  kernel {row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f}, '
+                 f'bound {row["bound_ms"]:.4f}), backward {row["bwd_ms"]:.4f} '
+                 f'ms (plain {row["bwd_plain_ms"]:.4f}, bound '
+                 f'{row["bwd_bound_ms"]:.4f})' if 'ms' in row else ''),
+              flush=True)
+    want_bodies = {(r, v) for r in CA_REGIMES for v in (8, 1)}
+    if set(ran) != want_bodies:
+        fail(f'phase 12 ran K1\'s mixed mode in {sorted(ran)}, not all of '
+             f'{sorted(want_bodies)}')
+    lib = fo._ca_lib().dl4ds_ca_launched
+    for (regime, vec), (x, weights, dy) in sorted(ran.items()):
+        _, m, g = fo._launch(x, *weights, mixed=True)
+        fwd = kernel_launches(torch, lib,
+                              lambda: fo._launch(x, *weights, mixed=True))
+        bwd = kernel_launches(torch, lib, lambda: fo._launch_backward(
+            x, *weights, dy, m, g, mixed=True))
+        if fwd != CA_REGIMES[regime] or bwd != CA_REGIMES[regime]:
+            fail(f'K1 mixed {regime} regime launched {fwd} forward and {bwd} '
+                 f'backward kernels, expected {CA_REGIMES[regime]} each')
+    print(f'K1 mixed mode ran every body: {sorted(ran)}', flush=True)
+
+    # K2 in bfloat16: the serving layers, the training layers at both
+    # widths, width 64 at 32x32 (16 channels a block in inference) and the
+    # other paths; every body (fs, variant, launch kind) must run
+    bodies, k2_rows = set(), []
+    shapes = ([(BATCH, REC_T, LR, LR) + layer for layer in
+               dict.fromkeys(K2_LAYERS)]
+              + [(BATCH, REC_T, K2_WIDE_LR, K2_WIDE_LR) + layer
+                 for layer in K2_WIDE]
+              + [(TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR) + layer for layer in
+                 dict.fromkeys(K3_LAYERS + WIDE_LAYERS)])
+    shapes = [(b, t, h, w, cin, f, k, k) for b, t, h, w, cin, f, k in shapes]
+    for i, (b, t, h, w, cin, f, kh, kw) in enumerate(shapes + K2_OTHER_PATHS):
+        wx, bx, wh = (u.to(bf) for u in _layer_weights(
+            torch, cin, f, kh, kw, 1200 + i, dev))
+        x = torch.randn((b, t, h, w, cin), generator=gen, device=dev).to(bf)
+        _, errs, shares = _check_k2_bf16(
+            torch, conv, x, wx, bx, wh, f'x{[b, t, h, w, cin]} F={f} '
+            f'{kh}x{kw}')
+        plan = conv._fwd_plan(b, t, h, w, kh, kw, f, n_sm, 2)
+        for train in (0, 1):
+            bodies.add((plan['fs'], train, 'input'))
+            if t > 1:
+                bodies.add((plan['fs'], train, 'step'))
+        k2_rows.append(dict(x=[b, t, h, w, cin], f=f, k=[kh, kw],
+                            fs=plan['fs'], ys_cs_zs_err=errs,
+                            differ_share=shares))
+    want_bodies = {(fs, tr, kind) for fs in (8, 16) for tr in (0, 1)
+                   for kind in ('input', 'step')}
+    if bodies != want_bodies:
+        fail(f'phase 12 ran K2\'s bfloat16 bodies {sorted(bodies)}, not all '
+             f'of {sorted(want_bodies)}')
+    print(f'K2 bf16: {len(k2_rows)} shapes held step by step, max|d| / '
+          f'max|ref| of ys, cs, zs '
+          f'{max(max(r["ys_cs_zs_err"]) for r in k2_rows):.3e}, differing '
+          f'at most {max(r["differ_share"][0] for r in k2_rows):.2e} of '
+          f'them (the float32-within-a-step control at least '
+          f'{min(r["differ_share"][1] for r in k2_rows):.2e}); every body '
+          f'ran ({len(bodies)})', flush=True)
+
+    def k2_time(layers, b, size, train):
+        rows = []
+        for j, (cin, f, k) in enumerate(layers):
+            wx, bx, wh = (u.to(bf) for u in _layer_weights(
+                torch, cin, f, k, k, 1300 + j, dev))
+            x = torch.randn((b, REC_T, size, size, cin), generator=gen,
+                            device=dev).to(bf)
+            with torch.no_grad():
+                ms, plain_ms = paired_ms(
+                    torch, lambda: conv._launch(x, wx, bx, wh, train=train),
+                    lambda: conv.convlstm_train_reference(x, wx, bx, wh),
+                    flush)
+            flops, n_bytes = k2_work(x, wx, wh)
+            bound, bound_mma, by = _bf16_bounds(flops, n_bytes / 2)
+            rows.append(dict(x=list(x.shape), f=f, k=k, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound,
+                             bound_mma_sync_ms=bound_mma, bound_by=by))
+        return rows
+    k2_serve = k2_time(K2_LAYERS, BATCH, LR, False)
+    k2_step = k2_time(K3_LAYERS, TRAIN_BATCH, TRAIN_LR, True)
+    k2_wide = k2_time(WIDE_LAYERS, TRAIN_BATCH, TRAIN_LR, True)
+    for name, rows in (('serving (batch 8, 128x128)', k2_serve),
+                       ('width-8 step', k2_step), ('width-64 step', k2_wide)):
+        print(f'K2 bf16 {name}, {len(rows)} layers: kernel '
+              f'{sum(r["ms"] for r in rows):.4f} ms, plain '
+              f'{sum(r["plain_ms"] for r in rows):.4f} ms, bound '
+              f'{sum(r["bound_ms"] for r in rows):.4f} ms (mma.sync '
+              f'{sum(r["bound_mma_sync_ms"] for r in rows):.4f})', flush=True)
+
+    # K3 ('fused') and K4 + the tail ('split') in bfloat16
+    reached, k3_rows, k4_rows = set(), [], []
+    k3_cases = [(TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin, f, k, k,
+                 cin != 1) for cin, f, k in dict.fromkeys(K3_LAYERS
+                                                          + WIDE_LAYERS)]
+    for i, (b, t, h, w, cin, f, kh, kw, need_dx) in enumerate(
+            k3_cases + K3_OTHER_PATHS):
+        wx, bx, wh = (u.to(bf) for u in _layer_weights(
+            torch, cin, f, kh, kw, 1400 + i, dev))
+        x = torch.randn((b, t, h, w, cin), generator=gen, device=dev).to(bf)
+        dys = torch.randn((b, t, h, w, f), generator=gen,
+                          device=dev).to(bf)
+        row = _check_bptt_bf16(torch, conv, x, wx, bx, wh, dys, need_dx,
+                               'fused', f'x{[b, t, h, w, cin]} F={f} '
+                               f'{kh}x{kw}')
+        row.update(x=[b, t, h, w, cin], f=f, k=[kh, kw], plans=_note_plans(
+            conv, reached, b, t, h, w, cin, f, kh, kw, need_dx, n_sm, 2))
+        k3_rows.append(row)
+    k4_cases = [(TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin, f, k, k,
+                 cin != 1) for cin, f, k in dict.fromkeys(WIDE_LAYERS)]
+    for i, (b, t, h, w, cin, f, kh, kw, need_dx) in enumerate(
+            k4_cases + K4_OTHER_PATHS):
+        wx, bx, wh = (u.to(bf) for u in _layer_weights(
+            torch, cin, f, kh, kw, 1500 + i, dev))
+        x = torch.randn((b, t, h, w, cin), generator=gen, device=dev).to(bf)
+        dys = torch.randn((b, t, h, w, f), generator=gen,
+                          device=dev).to(bf)
+        row = _check_bptt_bf16(torch, conv, x, wx, bx, wh, dys, need_dx,
+                               'split', f'x{[b, t, h, w, cin]} F={f} '
+                               f'{kh}x{kw}')
+        row.update(x=[b, t, h, w, cin], f=f, k=[kh, kw], plans=_note_plans(
+            conv, reached, b, t, h, w, cin, f, kh, kw, False, n_sm, 2,
+            'split'))
+        k4_rows.append(row)
+    bodies = {r for r in reached if r[0] in ('chain', 'split chain', 'dx')}
+    if bodies != PLAN_BODIES:
+        fail(f'phase 12 ran the chain-step tile\'s bfloat16 bodies '
+             f'{sorted(bodies)}, not all of {sorted(PLAN_BODIES)}')
+    print(f'K3 bf16: {len(k3_rows)} layers, max|d| / max|ref| '
+          f'{max(max(r["grad_rel_err"].values()) for r in k3_rows):.3e}; K4 '
+          f'and the tail bf16: {len(k4_rows)} layers, '
+          f'{max(max(r["grad_rel_err"].values()) for r in k4_rows):.3e}; '
+          f'chain dzs differing at most '
+          f'{max(r["differ_share"]["chain"][0] for r in k3_rows + k4_rows):.2e}'
+          f' (the float32-within-a-step control at least '
+          f'{min(r["differ_share"]["chain"][1] for r in k3_rows + k4_rows):.2e}'
+          f'); the chain tile ran every bfloat16 body ({len(bodies)})',
+          flush=True)
+
+    def bptt_time(layers, route):
+        rows = []
+        for j, (cin, f, k) in enumerate(layers):
+            wx, bx, wh = (u.to(bf) for u in _layer_weights(
+                torch, cin, f, k, k, 1600 + j, dev))
+            x = torch.randn((TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin),
+                            generator=gen, device=dev).to(bf)
+            need_dx = cin != 1
+            with torch.no_grad():
+                ys, cs, zs = conv._launch(x, wx, bx, wh, train=True)
+                dys = torch.randn_like(ys)
+                if route == 'fused':
+                    args = (x, wx, wh, zs, cs, ys, dys)
+                    ms, plain_ms = paired_ms(
+                        torch, lambda: conv._launch_backward(*args, need_dx),
+                        lambda: conv.convlstm_backward_reference(*args),
+                        flush)
+                    flops, n_bytes = k3_work(x, wx, wh, need_dx)
+                    row = dict(ms=ms, plain_ms=plain_ms)
+                else:
+                    ms, plain_ms = paired_ms(
+                        torch, lambda: conv._launch_seq(zs, cs, dys, wh),
+                        lambda: conv.convlstm_seq_reference(zs, cs, dys, wh),
+                        flush)
+                    dzs = conv._launch_seq(zs, cs, dys, wh)
+                    tail_ms = statistics.median(device_times(
+                        torch, lambda: conv.convlstm_backward_tail(
+                            x, wx, wh, ys, dzs, need_dx), l2_flush=flush))
+                    flops, n_bytes = k4_work(zs, wh)
+                    tf, tb = tail_work(x, wx, wh, need_dx)
+                    row = dict(ms=ms, plain_ms=plain_ms, tail_ms=tail_ms,
+                               tail_bound_ms=_bf16_bounds(tf, tb / 2)[0])
+            bound, bound_mma, by = _bf16_bounds(flops, n_bytes / 2)
+            row.update(x=list(x.shape), f=f, k=k, bound_ms=bound,
+                       bound_mma_sync_ms=bound_mma, bound_by=by)
+            rows.append(row)
+        return rows
+    # each width-64 layer timed on the route that the bfloat16 step takes
+    wide = {route: [layer for layer in WIDE_LAYERS if conv.dispatch_info(
+        (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, layer[0]),
+        (layer[2], layer[2], layer[0], 4 * layer[1]),
+        (layer[2], layer[2], layer[1], 4 * layer[1]), 2)['path'] == route]
+        for route in ('fused', 'split')}
+    k3_step = bptt_time(K3_LAYERS, 'fused')
+    k3_wide = bptt_time(wide['fused'], 'fused')
+    k4_step = bptt_time(wide['split'], 'split')
+
+    def total(rows):
+        return (f'kernel {sum(r["ms"] for r in rows):.4f} ms, plain '
+                f'{sum(r["plain_ms"] for r in rows):.4f} ms, bound '
+                f'{sum(r["bound_ms"] for r in rows):.4f} ms (mma.sync '
+                f'{sum(r["bound_mma_sync_ms"] for r in rows):.4f})')
+    print(f'K3 bf16 width-8 step, {len(k3_step)} layers: {total(k3_step)}; '
+          f'K3 bf16 width-64 step, its {len(k3_wide)} fused layers '
+          f'{wide["fused"]}: {total(k3_wide)}; K4 bf16 width-64 step, its '
+          f'{len(k4_step)} split layers {wide["split"]}: {total(k4_step)}; '
+          f'the bf16 tail {sum(r["tail_ms"] for r in k4_step):.4f} ms '
+          f'(bound {sum(r["tail_bound_ms"] for r in k4_step):.4f}); '
+          f'{card_line()}', flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    report.update(bf16_k1_rows=k1_rows, bf16_k2_rows=k2_rows,
+                  bf16_k2_serve=k2_serve, bf16_k2_step=k2_step,
+                  bf16_k2_wide=k2_wide, bf16_k3_rows=k3_rows,
+                  bf16_k4_rows=k4_rows, bf16_k3_step=k3_step,
+                  bf16_k3_wide=k3_wide, bf16_k4_step=k4_step)
+
+
+def _serving_case(tds, recurrent):
+    """Phase 12's serving case: the full-width flagship (16 grids) or
+    recresnet_spc (19 grids, windows of 4) at batch 8 with statics and a
+    predictor from a seeded generator, as a dict: `make` (dtype -> model),
+    `hr`, `kwargs` of `predict`, `n` grids, the launches `want`ed, `label`,
+    and `cpu_slice`, the grids that give grid 0's output on the CPU."""
+    import numpy as np
+    hr_size = LR * SCALE
+    rng = np.random.default_rng(12 + recurrent)
+    n = REC_GRIDS if recurrent else N_GRIDS
+    hr = rng.standard_normal((n, hr_size, hr_size)).astype('float32')
+    topo = rng.standard_normal((hr_size, hr_size)).astype('float32')
+    mask = (rng.random((hr_size, hr_size)) > 0.5).astype('float32')
+    pred = rng.standard_normal((n, hr_size, hr_size, 1)).astype('float32')
+    kwargs = dict(scale=SCALE, static_vars=[topo, mask], predictors=[pred],
+                  batch_size=BATCH)
+    if recurrent:
+        make = lambda dt: tds.recnet_postupsampling(  # noqa: E731
+            'resnet', 'spc', scale=SCALE, n_channels=2, n_aux_channels=2,
+            lr_size=(LR, LR), time_window=REC_T, n_filters=N_FILTERS,
+            n_blocks=REC_BLOCKS, dtype=dt)
+        kwargs['time_window'] = REC_T
+        want = dict(K2=len(K2_LAYERS) * REC_T * -(-(n - REC_T + 1) // BATCH),
+                    K1=0)
+        label = 'recresnet_spc'
+    else:
+        make = lambda dt: tds.net_postupsampling(  # noqa: E731
+            'resnet', 'spc', scale=SCALE, n_channels=4, n_aux_channels=2,
+            lr_size=(LR, LR), n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+            attention=True, dtype=dt)
+        kwargs['array_in_hr'] = True
+        want = dict(K2=0, K1=len(K1_SHAPES) * -(-n // BATCH))
+        label = 'resnet_spc'
+    return dict(make=make, hr=hr, kwargs=kwargs, n=n, want=want, label=label,
+                cpu_slice=slice(0, REC_T) if recurrent else slice(0, 1))
+
+
+def _bf16_predict(torch, tds, recurrent):
+    """Phase 12, serving: full-width bfloat16 predict of the flagship (16
+    grids) or of recresnet_spc (19 grids, windows of 4) at batch 8, its
+    launches, a float32 return of bfloat16 values, its speed beside the
+    float32 model's, and grid 0 against the same bfloat16 model on the CPU
+    (the plain versions): mean |d| at most BF16_PREDICT_RATIO of the card's
+    own float32-to-bfloat16 distance."""
+    import numpy as np
+    fca, fcl = tds.fused_channel_attention, tds.fused_convlstm
+    case = _serving_case(tds, recurrent)
+    make, hr, kwargs, n, want, label, sl = (case[k] for k in (
+        'make', 'hr', 'kwargs', 'n', 'want', 'label', 'cpu_slice'))
+    hr_size = LR * SCALE
+    pred = kwargs['predictors'][0]
+    model, model32 = make(torch.bfloat16), make(torch.float32)
+    net, net32 = model.init(seed=0, device='cuda'), model32.init(seed=0,
+                                                                 device='cuda')
+    fca.launches = fca.bwd_launches = fcl.launches = 0
+    y = tds.predict((model, net), hr, **kwargs)
+    got = dict(K2=fcl.launches, K1=fca.launches)
+    if got != want or fca.bwd_launches:
+        fail(f'bf16 predict ({label}) launched {got} (and K1 backward '
+             f'{fca.bwd_launches}), expected {want}')
+    if y.dtype != np.float32 or y.shape != (n, hr_size, hr_size, 1) \
+            or not np.isfinite(y).all():
+        fail(f'bf16 predict ({label}): {y.dtype} {y.shape}, finite '
+             f'{bool(np.isfinite(y).all())}')
+    yt = torch.from_numpy(y)
+    if not torch.equal(yt, yt.to(torch.bfloat16).float()):
+        fail(f'bf16 predict ({label}) returned values that are not '
+             f'bfloat16')
+    rates = {}
+    for dt, (m_, n_) in (('bfloat16', (model, net)),
+                         ('float32', (model32, net32))):
+        tds.predict((m_, n_), hr, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tds.predict((m_, n_), hr, **kwargs)
+        rates[dt] = n / (time.perf_counter() - t0)
+        xb = torch.randn((BATCH,) + tuple(m_.input_shape), device='cuda')
+        ab = torch.randn((BATCH, hr_size, hr_size, 2), device='cuda')
+        with torch.inference_mode():
+            rates[dt + '_forward_ms'] = statistics.median(
+                device_times(torch, lambda: n_(xb, ab), reps=10))
+    y32 = tds.predict((model32, net32), hr, **kwargs)
+    net_cpu = copy.deepcopy(net).cpu()
+    y_cpu = tds.predict((model, net_cpu), hr[sl], device='cpu',
+                        **dict(kwargs, predictors=[pred[sl]]))[:1]
+    # mean |d| over mean |y| (BF16_PREDICT_RATIO)
+    scale = float(np.abs(y_cpu).mean())
+    port = float(np.abs(y[:1] - y_cpu).mean()) / scale
+    own = float(np.abs(y32[:1] - y[:1]).mean()) / scale
+    port_max = float(np.abs(y[:1] - y_cpu).max()) / float(
+        np.abs(y_cpu).max())
+    own_max = float(np.abs(y32[:1] - y[:1]).max()) / float(
+        np.abs(y_cpu).max())
+    print(f'bf16 predict ({label}, {n} grids at batch {BATCH}): launches '
+          f'{got}; {rates["bfloat16"]:.2f} grids/s against '
+          f'{rates["float32"]:.2f} in float32 (host clock); forward '
+          f'{rates["bfloat16_forward_ms"]:.3f} ms against '
+          f'{rates["float32_forward_ms"]:.3f} (CUDA events); grid 0 against '
+          f'the CPU in bfloat16 mean|d|/mean|y| {port:.3e}, the card\'s '
+          f'float32 model {own:.3e} from it (at most {BF16_PREDICT_RATIO} '
+          f'of it required; max|d|/max|y| {port_max:.3e} and '
+          f'{own_max:.3e}); {card_line()}', flush=True)
+    if not port <= BF16_PREDICT_RATIO * own:
+        fail(f'bf16 predict ({label}) on the card is {port:.3e} from the '
+             f'CPU, more than {BF16_PREDICT_RATIO} of the float32 model\'s '
+             f'{own:.3e}')
+    return dict(launches=got, rates=rates, cpu_mean_rel_err=port,
+                f32_mean_rel_dist=own, cpu_max_rel_err=port_max,
+                f32_max_rel_dist=own_max)
+
+
+def _bf16_training(torch, tds, config, label, steps, per_step):
+    """Phase 12, training: `run()` at batch 128 for 2 epochs of `steps`
+    steps with validation and test through the replayed graphs, under
+    torch.profiler with the counters zeroed just before: the launches in
+    its device trace and the wrappers' calls (`_check_launches`), finite
+    losses; then the eager steps' and the replays' speed."""
+    import numpy as np
+    tr = tds.SupervisedTrainer(
+        batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, steps_per_epoch=steps,
+        validation_steps=TRAIN_VAL_STEPS, test_steps=TRAIN_TEST_STEPS,
+        **config)
+    run_s, calls, kernels = _traced_run(torch, tds, tr)
+    losses = tr.fithist['loss'] + tr.fithist['val_loss'] + [tr.test_loss]
+    got = _check_launches(
+        tds, tr.runner, f'phase 12 ({label})', per_step,
+        {'step': TRAIN_EPOCHS * steps,
+         'val': TRAIN_EPOCHS * TRAIN_VAL_STEPS, 'test': TRAIN_TEST_STEPS},
+        calls, kernels)
+    if not all(np.isfinite(v) for v in losses):
+        fail(f'phase 12 ({label}) gave non-finite losses {losses}')
+    gen = torch.Generator().manual_seed(1)
+    idx = tr.ds_train.epoch_indices(gen, steps=steps)
+    tr.net.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(steps):
+        tr.train_step(tr.ds_train(idx[c], generator=gen))
+    torch.cuda.synchronize()
+    eager = steps * TRAIN_BATCH / (time.perf_counter() - t0)
+    graphed = _graphed_speed(torch, tds, tr, steps, per_step, label)
+    print(f'phase 12, {label}: history {tr.fithist}, test loss '
+          f'{tr.test_loss:.6f}; replayed {graphed["patches_per_s"]:.1f} '
+          f'patches/s, eager {eager:.1f} (host clock); one replay '
+          f'{graphed["replay_ms"]:.3f} ms (CUDA events), '
+          f'{graphed["launches_per_replay"]:.0f} launches a replay, device '
+          f'busy {100 * graphed["busy_share"]:.1f}%; {card_line()}',
+          flush=True)
+    return dict(launches=got, wrapper_calls=calls, eager_patches_per_s=eager,
+                graphed=graphed, losses=losses)
+
+
+def phase_bf16(torch, tds, report):
+    """Phase 12: the bfloat16 model dtype: its kernels against their plain
+    versions, then the two models served and the three training paths
+    trained in bfloat16, with their launches, beside float32."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    _bf16_kernels(torch, tds, report)
+    serve = {'resnet_spc': _bf16_predict(torch, tds, False),
+             'recresnet_spc': _bf16_predict(torch, tds, True)}
+    bf = dict(dtype=torch.bfloat16)
+    flagship = _training_config(loss='mae', n_filters=N_FILTERS,
+                                n_blocks=N_BLOCKS, attention=True)
+    flag_steps = _flagship_per_step(report['flag_k1_per_forward'],
+                                    ssim=False)
+    train = {
+        'resnet_spc, mae, bfloat16': _bf16_training(
+            torch, tds, dict(flagship, **bf), 'resnet_spc, mae, bfloat16',
+            TRAIN_STEPS, flag_steps),
+        'resnet_spc, mae, float32': _bf16_training(
+            torch, tds, flagship, 'resnet_spc, mae, float32', TRAIN_STEPS,
+            flag_steps),
+        f'recresnet_spc, n_filters {N_FILTERS}, bfloat16': _bf16_training(
+            torch, tds, _training_config(
+                loss='mae', time_window=REC_T, n_blocks=REC_BLOCKS,
+                n_filters=N_FILTERS, **bf),
+            f'recresnet_spc, n_filters {N_FILTERS}, bfloat16', TRAIN_STEPS,
+            _recurrent_per_step(conv, K3_LAYERS, 2)),
+        f'recresnet_spc, n_filters {WIDE_F}, bfloat16': _bf16_training(
+            torch, tds, _training_config(
+                loss='mae', time_window=REC_T, n_blocks=REC_BLOCKS,
+                n_filters=WIDE_F, attention=True, **bf),
+            f'recresnet_spc, n_filters {WIDE_F}, bfloat16', WIDE_STEPS,
+            _recurrent_per_step(conv, WIDE_LAYERS, 2))}
+    f32_rates = {f'recresnet_spc, n_filters {N_FILTERS}': report[
+                     'train_graphed'],
+                 f'recresnet_spc, n_filters {WIDE_F}': report['wide_graphed']}
+    card = card_line()
+    for name, row in train.items():
+        g = row['graphed']
+        base = f32_rates.get(name.rsplit(', ', 1)[0])
+        print(f'phase 12 rates, {name}: replayed {g["patches_per_s"]:.1f} '
+              f'patches/s, one replay {g["replay_ms"]:.3f} ms, '
+              f'{g["launches_per_replay"]:.0f} launches a replay'
+              + (f'; float32 (phases 7, 8, this call): '
+                 f'{base["patches_per_s"]:.1f} patches/s, one replay '
+                 f'{base["replay_ms"]:.3f} ms, '
+                 f'{base["launches_per_replay"]:.0f} launches a replay'
+                 if base else '') + f'; {card}', flush=True)
+    report.update(bf16_serve=serve, bf16_train=train)
+
+
+def _bf16_kernel_rows(report):
+    """The `kernels` line's rows of the bfloat16 forms: K1's mixed mode at
+    the gates of a bfloat16 flagship training step, K2 at a bfloat16
+    recresnet_spc forward (inference) and width-8 step (training), K3 at
+    the width-8 step and at the width-64 step's fused layers, K4 at its
+    split layers; `launches` from phase 12's runs (training: the device
+    trace, where K3's chain steps and K4's have kernels of their own)."""
+    train = report['bf16_train']
+    flag = train['resnet_spc, mae, bfloat16']
+    width8 = train[f'recresnet_spc, n_filters {N_FILTERS}, bfloat16']
+    width64 = train[f'recresnet_spc, n_filters {WIDE_F}, bfloat16']
+    serve = report['bf16_serve']['recresnet_spc']
+    gates = [r for r in report['bf16_k1_rows']
+             if r['shape'][0] == TRAIN_BATCH and 'ms' in r]
+
+    def total(rows, key):
+        return sum(r[key] for r in rows)
+
+    def row(name, source, replaces, launches, err, rows, work, **extra):
+        return dict(
+            name=name, route='cuda', source=source, replaces=replaces,
+            launches=launches, max_abs_err=err, ms=total(rows, 'ms'),
+            plain_ms=total(rows, 'plain_ms'),
+            bound_ms=total(rows, 'bound_ms'),
+            bound_by=rows[0]['bound_by'] if 'bound_by' in rows[0]
+            else 'bytes', library_ms=None, work=work, **extra)
+
+    k2_err = max(max(r['ys_cs_zs_err']) for r in report['bf16_k2_rows'])
+    rows = [
+        row('K1_channel_attention_mixed_bf16', 'dl4ds_tpu_torch/csrc/'
+            'channel_attention.cu', 'dl4ds_tpu/ops/pallas_ops.py:39',
+            flag['launches']['K1'],
+            max(r['rel_err']['y'] for r in report['bf16_k1_rows']), gates,
+            f'the {len(gates)} gates of one bfloat16 flagship training '
+            f'step at batch {TRAIN_BATCH} in the mixed mode (bfloat16 x, '
+            f'float32 y), summed; max_abs_err is max|d| / max|ref| of y; '
+            f'bwd_* the backward (float32 dy, bfloat16 dx)',
+            bwd_ms=total(gates, 'bwd_ms'),
+            bwd_plain_ms=total(gates, 'bwd_plain_ms'),
+            bwd_bound_ms=total(gates, 'bwd_bound_ms'),
+            bwd_launches=flag['launches']['K1 backward'],
+            wrapper_calls=flag['wrapper_calls']['K1']),
+        row('K2_convlstm_bf16', 'dl4ds_tpu_torch/csrc/convlstm.cu',
+            'dl4ds_tpu/ops/pallas_convlstm.py:219',
+            serve['launches']['K2'], k2_err, report['bf16_k2_serve'],
+            f'the {len(report["bf16_k2_serve"])} ConvLSTM layers of one '
+            f'bfloat16 recresnet_spc forward at batch {BATCH}, summed; '
+            f'bfloat16 m16n8k16 products (bound_mma_sync_ms at '
+            f'{BF16_MMA_SYNC_FLOPS / 1e12:.0f} TFLOP/s, bound_ms at '
+            f'{BF16_FLOPS / 1e12:.0f}); max_abs_err is max|d| / max|ref| '
+            f'held step by step',
+            bound_mma_sync_ms=total(report['bf16_k2_serve'],
+                                    'bound_mma_sync_ms')),
+        row('K2_convlstm_train_bf16', 'dl4ds_tpu_torch/csrc/convlstm.cu',
+            'dl4ds_tpu/ops/pallas_convlstm.py:219',
+            width8['launches']['K2-train'], k2_err, report['bf16_k2_step'],
+            f'the {len(report["bf16_k2_step"])} layers of one bfloat16 '
+            f'width-8 training step at batch {TRAIN_BATCH}; at width '
+            f'{WIDE_F} {total(report["bf16_k2_wide"], "ms"):.4f} ms (plain '
+            f'{total(report["bf16_k2_wide"], "plain_ms"):.4f}, bound '
+            f'{total(report["bf16_k2_wide"], "bound_ms"):.4f})',
+            bound_mma_sync_ms=total(report['bf16_k2_step'],
+                                    'bound_mma_sync_ms'),
+            wrapper_calls=width8['wrapper_calls']['K2-train']),
+        row('K3_convlstm_bptt_bf16', 'dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+            'dl4ds_tpu/ops/pallas_convlstm.py:335',
+            width8['launches']['K3'],
+            max(max(r['grad_rel_err'].values())
+                for r in report['bf16_k3_rows']), report['bf16_k3_step'],
+            f'the BPTT of the {len(report["bf16_k3_step"])} layers of one '
+            f'bfloat16 width-8 training step (chain and dx in '
+            f'convlstm_seq.cu, weight gradients in convlstm_bwd.cu); '
+            f'max_abs_err is max|d| / max|ref| against the plain tail in '
+            f'float64 on the kernels\' dzs and of the chain held step by '
+            f'step',
+            bound_mma_sync_ms=total(report['bf16_k3_step'],
+                                    'bound_mma_sync_ms'),
+            wrapper_calls=width8['wrapper_calls']['K3']),
+        row('K3_convlstm_bptt_bf16_width64',
+            'dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+            'dl4ds_tpu/ops/pallas_convlstm.py:335',
+            width64['launches']['K3'],
+            max(max(r['grad_rel_err'].values())
+                for r in report['bf16_k3_rows']), report['bf16_k3_wide'],
+            f'the BPTT of the {len(report["bf16_k3_wide"])} layers of one '
+            f'bfloat16 width-{WIDE_F} training step that take the fused '
+            f'route ({WIDE_F} -> {WIDE_F}); errors as K3_convlstm_bptt_bf16',
+            bound_mma_sync_ms=total(report['bf16_k3_wide'],
+                                    'bound_mma_sync_ms'),
+            wrapper_calls=width64['wrapper_calls']['K3']),
+        row('K4_convlstm_seq_bf16', 'dl4ds_tpu_torch/csrc/convlstm_seq.cu',
+            'dl4ds_tpu/ops/pallas_convlstm.py:269',
+            width64['launches']['K4'],
+            max(max(r['grad_rel_err'].values())
+                for r in report['bf16_k4_rows']), report['bf16_k4_step'],
+            f'the chain of the {len(report["bf16_k4_step"])} layer(s) of '
+            f'one bfloat16 width-{WIDE_F} training step that take the split '
+            f'route (1 -> {WIDE_F}); the bfloat16 GEMM tail '
+            f'(cuBLAS, not a kernel of the port) '
+            f'{total(report["bf16_k4_step"], "tail_ms"):.4f} ms against '
+            f'a {total(report["bf16_k4_step"], "tail_bound_ms"):.4f} ms '
+            f'bound',
+            bound_mma_sync_ms=total(report['bf16_k4_step'],
+                                    'bound_mma_sync_ms'),
+            wrapper_calls=width64['wrapper_calls']['K4'])]
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2125,6 +2923,7 @@ def main():
     phase_ssim(torch, tds, report)
     phase_flagship_training(torch, tds, report)
     phase_graphs(torch, tds, report)
+    phase_bf16(torch, tds, report)
 
     f32 = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
     k1 = {'name': 'K1_channel_attention', 'route': 'cuda',
@@ -2283,6 +3082,8 @@ def main():
                   f'kernel for y_pred and the range (bwd_plain_ms '
                   f'ssim_backward_reference; autograd through the plain ssim '
                   f'took {k6_step["autograd_bwd_ms"]:.4f} ms)'}
+    kernels = [k1, k2, k2_train, k3, k4, k1_train, k6] + _bf16_kernel_rows(
+        report)
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -2290,13 +3091,16 @@ def main():
     print(json.dumps({'k6_shapes': k6_rows}), flush=True)
     print(json.dumps({'k1_train_shapes': gates}), flush=True)
     print(json.dumps({'graphs': report['graph_rows']}), flush=True)
+    print(json.dumps({'bf16_shapes': {k: v for k, v in report.items()
+                                      if k.startswith('bf16_k')}}),
+          flush=True)
     print(json.dumps({k: v for k, v in report.items()
                       if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_',
-                                           'k6_rows', 'graph_rows'))}),
+                                           'k6_rows', 'graph_rows',
+                                           'bf16_k'))}),
           flush=True)
     print(card, flush=True)
-    print(json.dumps({'kernels': [k1, k2, k2_train, k3, k4, k1_train, k6]}),
-          flush=True)
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,15 @@
 // writes m and g [B, C] in float32, which the backward takes instead of
 // reading x a second time to form them.
 //
+// The mixed mode (type code 2: x bfloat16, y and dy float32, dx bfloat16)
+// is the gate of a bfloat16 model, `channel_attention_reference`
+// (pallas_ops.py:29-36) in bfloat16 and its VJP: m, w1, w2 and m @ w1 are
+// rounded to bfloat16, the float32 biases promote the rest, y = x g in
+// float32 (g not rounded); backward, dx = bf(bf(dy g) + bf(bf(dm) / HW))
+// with dm = bf(dh_pre) @ bf(w1)^T, dw1 = bf(sum_b m_b (x) bf(dh_pre_b)) and
+// dw2 = bf(sum_b relu(h_pre_b) (x) dg_pre_b), db1 and db2 unrounded (bf:
+// rounded to bfloat16; the rows of the weight gradients gain bf(dh_pre)).
+//
 // The backward computes `_fused_ca_bwd` (dl4ds_tpu/ops/pallas_ops.py:88-112):
 //   dg = sum_HW(dy * x)   dg_pre = dg g (1 - g)   h_pre = m @ w1 + b1
 //   dh_pre = (dg_pre @ w2^T) [h_pre > 0]   dm = dh_pre @ w1^T
@@ -63,6 +72,9 @@
 
 namespace {
 
+// x rounded to bfloat16 and back
+__device__ __forceinline__ float rb(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
 constexpr int kThreads = 512;
 // opt-in shared memory kept back from the dynamic allocation for the
 // kernels' static shared variables
@@ -111,7 +123,14 @@ struct Geometry {
   long long ppp;        // pixels a part (the last part may hold fewer)
   long long region;     // bytes of the sample / staging region of shared memory
   long long counter_slot;  // index of the batch-wide arrival counter
+  int mixed;            // the mixed mode's rounding points (type code 2)
 };
+
+// floats of a sample's weight-gradient row: dg_pre C | dh_pre Cr | hh Cr,
+// and in the mixed mode bf(dh_pre) Cr
+__host__ __device__ __forceinline__ int row_len(const Geometry& geo) {
+  return geo.c + (2 + geo.mixed) * geo.cr;
+}
 
 __host__ __device__ inline int gcd_int(int a, int b) {
   while (b) {
@@ -215,18 +234,22 @@ __device__ void form_gate(const Smem& s, const Geometry& geo, const float* __res
                           const float* __restrict__ b2) {
   const int c = geo.c, cr = geo.cr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int ch = threadIdx.x; ch < c; ch += kThreads) s.m[ch] = s.tot[ch] / (float)geo.hw;
+  const bool mx = geo.mixed;
+  for (int ch = threadIdx.x; ch < c; ch += kThreads) {
+    const float m = s.tot[ch] / (float)geo.hw;
+    s.m[ch] = mx ? rb(m) : m;
+  }
   __syncthreads();
   for (int r = warp; r < cr; r += kWarps) {
     float v = 0.f;
-    for (int j = lane; j < c; j += 32) v += s.m[j] * w1[j * cr + r];
+    for (int j = lane; j < c; j += 32) v += s.m[j] * (mx ? rb(w1[j * cr + r]) : w1[j * cr + r]);
     v = warp_sum(v);
-    if (lane == 0) s.h0[r] = fmaxf(v + b1[r], 0.f);
+    if (lane == 0) s.h0[r] = fmaxf((mx ? rb(v) : v) + b1[r], 0.f);
   }
   __syncthreads();
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     float v = 0.f;
-    for (int r = 0; r < cr; ++r) v += s.h0[r] * w2[r * c + ch];
+    for (int r = 0; r < cr; ++r) v += s.h0[r] * (mx ? rb(w2[r * c + ch]) : w2[r * c + ch]);
     s.g[ch] = 1.f / (1.f + expf(-(v + b2[ch])));
   }
   __syncthreads();
@@ -239,6 +262,7 @@ __device__ void gate_backward(const Smem& s, const Geometry& geo, const float* _
                               const float* __restrict__ b1, const float* __restrict__ w2) {
   const int c = geo.c, cr = geo.cr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool mx = geo.mixed;
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     const float g = s.g[ch];
     s.v4[ch] = s.tot[ch] * g * (1.f - g);
@@ -247,10 +271,11 @@ __device__ void gate_backward(const Smem& s, const Geometry& geo, const float* _
   for (int r = warp; r < cr; r += kWarps) {
     float hp = 0.f, dh = 0.f;
     for (int j = lane; j < c; j += 32) {
-      hp += s.m[j] * w1[j * cr + r];
-      dh += s.v4[j] * w2[r * c + j];
+      hp += s.m[j] * (mx ? rb(w1[j * cr + r]) : w1[j * cr + r]);
+      dh += s.v4[j] * (mx ? rb(w2[r * c + j]) : w2[r * c + j]);
     }
-    hp = warp_sum(hp) + b1[r];
+    hp = warp_sum(hp);
+    hp = (mx ? rb(hp) : hp) + b1[r];
     dh = warp_sum(dh);
     if (lane == 0) {
       s.h0[r] = hp;
@@ -260,21 +285,24 @@ __device__ void gate_backward(const Smem& s, const Geometry& geo, const float* _
   __syncthreads();
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     float v = 0.f;
-    for (int r = 0; r < cr; ++r) v += s.h1[r] * w1[ch * cr + r];
-    s.v5[ch] = v / (float)geo.hw;
+    for (int r = 0; r < cr; ++r)
+      v += mx ? rb(s.h1[r]) * rb(w1[ch * cr + r]) : s.h1[r] * w1[ch * cr + r];
+    s.v5[ch] = mx ? rb(rb(v) / (float)geo.hw) : v / (float)geo.hw;
   }
   __syncthreads();
 }
 
-// Per-sample vectors the weight gradients sum over: [B][dg_pre C | dh_pre Cr | hh Cr]
+// Per-sample vectors the weight gradients sum over: [B][dg_pre C | dh_pre Cr
+// | hh Cr (| bf(dh_pre) Cr in the mixed mode)]
 __device__ void store_sample(const Smem& s, const Geometry& geo, int b, float* __restrict__ rows) {
-  const int c = geo.c, cr = geo.cr;
-  float* row = rows + (long long)b * (c + 2 * cr);
-  for (int i = threadIdx.x; i < c + 2 * cr; i += kThreads) {
+  const int c = geo.c, cr = geo.cr, len = row_len(geo);
+  float* row = rows + (long long)b * len;
+  for (int i = threadIdx.x; i < len; i += kThreads) {
     float v;
     if (i < c) v = s.v4[i];
     else if (i < c + cr) v = s.h1[i - c];
-    else v = fmaxf(s.h0[i - c - cr], 0.f);
+    else if (i < c + 2 * cr) v = fmaxf(s.h0[i - c - cr], 0.f);
+    else v = rb(s.h1[i - c - 2 * cr]);
     row[i] = v;
   }
 }
@@ -298,7 +326,7 @@ __device__ bool last_arrival(unsigned* counter, unsigned total) {
 
 // The weight gradients dw1 [C, Cr], dw2 [Cr, C], db1 [Cr], db2 [C] as n_out
 // = 2 C Cr + Cr + C outputs, each a sum over samples of row[ia] * row[ib]
-// (ib < 0: of row[ia]), rows staged as m | dg_pre | dh_pre | hh.
+// (ib < 0: of row[ia]), rows staged as m | dg_pre | dh_pre | hh (| bf(dh_pre)).
 constexpr int kChunk = 16;      // samples a chunk of the weight gradients
 
 __device__ __forceinline__ int n_weight_outputs(const Geometry& geo) {
@@ -309,7 +337,7 @@ __device__ __forceinline__ void factors(const Geometry& geo, int o, int& ia, int
   const int c = geo.c, cr = geo.cr, n_w = c * cr;
   if (o < n_w) {                        // dw1[j][r] = sum m[j] dh_pre[r]
     ia = o / cr;
-    ib = 2 * c + o % cr;
+    ib = 2 * c + (geo.mixed ? 2 * cr : 0) + o % cr;
   } else if (o < 2 * n_w) {             // dw2[r][j] = sum hh[r] dg_pre[j]
     ia = 2 * c + cr + (o - n_w) / c;
     ib = c + (o - n_w) % c;
@@ -329,7 +357,7 @@ __device__ __forceinline__ void factors(const Geometry& geo, int o, int& ia, int
 // summing every groups-th sample of the round.
 __device__ void chunk_sums(const Smem& s, const Geometry& geo, const float* __restrict__ m_all,
                            const float* rows, int first, int count, float* out) {
-  const int c = geo.c, cr = geo.cr, stride = 2 * c + 2 * cr;
+  const int c = geo.c, stride = c + row_len(geo), len = row_len(geo);
   float* stage = reinterpret_cast<float*>(s.region);
   const int nb = (int)(geo.region / (sizeof(float) * stride));
   const int n_out = n_weight_outputs(geo);
@@ -339,7 +367,7 @@ __device__ void chunk_sums(const Smem& s, const Geometry& geo, const float* __re
     for (int i = threadIdx.x; i < cnt * stride; i += kThreads) {
       const int bb = i / stride, k = i % stride;
       const long long b = first + b0 + bb;
-      stage[i] = k < c ? __ldcg(m_all + b * c + k) : __ldcg(rows + b * (c + 2 * cr) + (k - c));
+      stage[i] = k < c ? __ldcg(m_all + b * c + k) : __ldcg(rows + b * len + (k - c));
     }
     __syncthreads();
     for (int u = threadIdx.x; u < n_out * groups; u += kThreads) {
@@ -386,8 +414,8 @@ __device__ void weight_grads(const Smem& s, const Geometry& geo, int b,
   for (int o = threadIdx.x; o < n_out; o += kThreads) {
     float acc = 0.f;
     for (int k = 0; k < n_chunks; ++k) acc += __ldcg(chunks + (long long)k * n_out + o);
-    if (o < n_w) dw1[o] = acc;
-    else if (o < 2 * n_w) dw2[o - n_w] = acc;
+    if (o < n_w) dw1[o] = geo.mixed ? rb(acc) : acc;
+    else if (o < 2 * n_w) dw2[o - n_w] = geo.mixed ? rb(acc) : acc;
     else if (o < 2 * n_w + geo.cr) db1[o - 2 * n_w] = acc;
     else db2[o - 2 * n_w - geo.cr] = acc;
   }
@@ -403,14 +431,17 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // with VEC 1, plain loads. srcs[1] may be null (one array).
 constexpr uint32_t kBulkChunk = 16384;
 
-template <typename T, int VEC>
-__device__ void stage_arrays(T* const (&dsts)[2], const T* const (&srcs)[2], long long n) {
+template <typename T0, typename T1, int VEC>
+__device__ void stage_arrays(T0* d0, const T0* s0, T1* d1, const T1* s1, long long n) {
   if constexpr (VEC == 1) {
-    for (int k = 0; k < 2; ++k)
-      if (srcs[k] != nullptr)
-        for (long long j = threadIdx.x; j < n; j += kThreads) dsts[k][j] = srcs[k][j];
+    for (long long j = threadIdx.x; j < n; j += kThreads) d0[j] = s0[j];
+    if (s1 != nullptr)
+      for (long long j = threadIdx.x; j < n; j += kThreads) d1[j] = s1[j];
     __syncthreads();
   } else {
+    void* const dsts[2] = {d0, d1};
+    const void* const srcs[2] = {s0, s1};
+    const uint32_t sizes[2] = {(uint32_t)(n * sizeof(T0)), (uint32_t)(n * sizeof(T1))};
     __shared__ __align__(8) uint64_t bar;
     const uint32_t b = smem_addr(&bar);
     if (threadIdx.x == 0) {
@@ -418,9 +449,8 @@ __device__ void stage_arrays(T* const (&dsts)[2], const T* const (&srcs)[2], lon
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-    const uint32_t bytes = (uint32_t)(n * sizeof(T));
     if (threadIdx.x == 0) {
-      const uint32_t total = srcs[1] != nullptr ? 2 * bytes : bytes;
+      const uint32_t total = sizes[0] + (srcs[1] != nullptr ? sizes[1] : 0u);
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
                    "r"(total)
                    : "memory");
@@ -428,6 +458,7 @@ __device__ void stage_arrays(T* const (&dsts)[2], const T* const (&srcs)[2], lon
         if (srcs[k] == nullptr) continue;
         const char* src = reinterpret_cast<const char*>(srcs[k]);
         const uint32_t dst = smem_addr(dsts[k]);
+        const uint32_t bytes = sizes[k];
         for (uint32_t o = 0; o < bytes; o += kBulkChunk) {
           const uint32_t size = bytes - o < kBulkChunk ? bytes - o : kBulkChunk;
           asm volatile(
@@ -462,13 +493,15 @@ __device__ __forceinline__ void load_pack(const T* p, long long j, float (&v)[VE
 // forward
 // ---------------------------------------------------------------------------
 
-// block regime: grid B, a CTA a sample, holding all of its x.
-template <typename T, int VEC>
+// block regime: grid B, a CTA a sample, holding all of its x. O is y's
+// type: T, or float32 in the mixed mode (y = x g, g not rounded).
+template <typename T, typename O, int VEC>
 __global__ void __launch_bounds__(kThreads)
 ca_fwd_resident(const T* __restrict__ x, const float* __restrict__ w1,
                 const float* __restrict__ b1, const float* __restrict__ w2,
-                const float* __restrict__ b2, T* __restrict__ y, float* __restrict__ m_out,
+                const float* __restrict__ b2, O* __restrict__ y, float* __restrict__ m_out,
                 float* __restrict__ g_out, Geometry geo) {
+  constexpr bool kMixed = sizeof(O) != sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem s = carve(smem, geo, VEC);
   const int b = blockIdx.x;
@@ -476,7 +509,7 @@ ca_fwd_resident(const T* __restrict__ x, const float* __restrict__ w1,
   const long long off = (long long)b * n;
   T* xs = reinterpret_cast<T*>(s.region);
 
-  stage_arrays<T, VEC>({xs, nullptr}, {x + off, nullptr}, n);
+  stage_arrays<T, T, VEC>(xs, x + off, (T*)nullptr, (const T*)nullptr, n);
   channel_sums<VEC>(n, geo.c, s.red, s.tot,
                     [&](long long j, float (&v)[VEC]) { load_pack<T, VEC>(xs, j, v); });
   form_gate(s, geo, w1, b1, w2, b2);
@@ -484,18 +517,19 @@ ca_fwd_resident(const T* __restrict__ x, const float* __restrict__ w1,
     m_out[(long long)b * geo.c + ch] = s.m[ch];
     g_out[(long long)b * geo.c + ch] = s.g[ch];
   }
-  for (int ch = threadIdx.x; ch < geo.c; ch += kThreads)
-    s.v4[ch] = to_float(from_float<T>(s.g[ch]));          // g rounded to x's type
+  for (int ch = threadIdx.x; ch < geo.c; ch += kThreads)   // g rounded to x's type
+    s.v4[ch] = kMixed ? s.g[ch] : to_float(from_float<T>(s.g[ch]));
   __syncthreads();
   const Pack<T, VEC>* xv = reinterpret_cast<const Pack<T, VEC>*>(xs);
-  Pack<T, VEC>* yv = reinterpret_cast<Pack<T, VEC>*>(y + off);
+  Pack<O, VEC>* yv = reinterpret_cast<Pack<O, VEC>*>(y + off);
   ChannelWalk walk(threadIdx.x, VEC, geo.c);
   for (int j = threadIdx.x; j * VEC < n; j += kThreads, walk.next()) {
-    Pack<T, VEC> p = xv[j];
+    const Pack<T, VEC> p = xv[j];
+    Pack<O, VEC> q;
 #pragma unroll
     for (int k = 0; k < VEC; ++k)
-      p.v[k] = from_float<T>(to_float(p.v[k]) * s.v4[walk.at(k)]);
-    yv[j] = p;
+      q.v[k] = from_float<O>(to_float(p.v[k]) * s.v4[walk.at(k)]);
+    yv[j] = q;
   }
 }
 
@@ -503,9 +537,9 @@ ca_fwd_resident(const T* __restrict__ x, const float* __restrict__ w1,
 // (the backward: of dy * x); the last chunk of a sample to arrive forms the
 // gate (the backward: the MLP backward, and the batch's last sample the
 // weight gradients).
-template <typename T, int VEC, bool BWD>
+template <typename T, typename D, int VEC, bool BWD>
 __global__ void __launch_bounds__(kThreads)
-ca_stream_sums(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ w1,
+ca_stream_sums(const T* __restrict__ x, const D* __restrict__ dy, const float* __restrict__ w1,
                const float* __restrict__ b1, const float* __restrict__ w2,
                const float* __restrict__ b2, float* m_io, float* g_io,
                float* partial, float* dmh, float* rows, float* chunks, unsigned* counters,
@@ -525,7 +559,7 @@ ca_stream_sums(const T* __restrict__ x, const T* __restrict__ dy, const float* _
     channel_sums<VEC>(n, c, s.red, s.part, [&](long long j, float (&v)[VEC]) {
       float a[VEC];
       load_pack<T, VEC>(x + off, j, a);
-      load_pack<T, VEC>(dy + off, j, v);
+      load_pack<D, VEC>(dy + off, j, v);
 #pragma unroll
       for (int k = 0; k < VEC; ++k) v[k] *= a[k];
     });
@@ -563,15 +597,18 @@ ca_stream_sums(const T* __restrict__ x, const T* __restrict__ dy, const float* _
 }
 
 // stream regime, launch 2: y = x * round(g) (the backward: dx = dy g + dm / hw)
-// over every pack of the tensor.
-template <typename T, int VEC, bool BWD>
+// over every pack of the tensor; S is the source's type (x, or dy), D the
+// output's (y, or dx). Mixed mode (S and D differ): y = x g in float32, dx =
+// bf(bf(dy g) + dmh) with dmh already rounded.
+template <typename S, typename D, int VEC, bool BWD>
 __global__ void __launch_bounds__(kThreads)
-ca_stream_apply(const T* __restrict__ src, const float* __restrict__ g,
-                const float* __restrict__ dmh, T* __restrict__ out, Geometry geo) {
+ca_stream_apply(const S* __restrict__ src, const float* __restrict__ g,
+                const float* __restrict__ dmh, D* __restrict__ out, Geometry geo) {
+  constexpr bool kMixed = sizeof(S) != sizeof(D);
   const long long hwc = geo.hw * geo.c;
   const long long n_vec = geo.batch * hwc / VEC;
-  const Pack<T, VEC>* sv = reinterpret_cast<const Pack<T, VEC>*>(src);
-  Pack<T, VEC>* ov = reinterpret_cast<Pack<T, VEC>*>(out);
+  const Pack<S, VEC>* sv = reinterpret_cast<const Pack<S, VEC>*>(src);
+  Pack<D, VEC>* ov = reinterpret_cast<Pack<D, VEC>*>(out);
   const bool narrow = n_vec * VEC <= 0x7fffffffLL;   // 32-bit index math
   for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < n_vec;
        j += (long long)gridDim.x * kThreads) {
@@ -586,16 +623,20 @@ ca_stream_apply(const T* __restrict__ src, const float* __restrict__ g,
       base = (e / hwc) * geo.c;
       ch0 = (int)(e % geo.c);
     }
-    Pack<T, VEC> p = sv[j];
+    const Pack<S, VEC> p = sv[j];
+    Pack<D, VEC> q;
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       int ch = ch0 + k;
       while (ch >= geo.c) ch -= geo.c;
-      const float gv = g[base + ch];
-      p.v[k] = BWD ? from_float<T>(to_float(p.v[k]) * gv + dmh[base + ch])
-                   : from_float<T>(to_float(p.v[k]) * to_float(from_float<T>(gv)));
+      const float gv = g[base + ch], v = to_float(p.v[k]);
+      if constexpr (BWD)
+        q.v[k] = kMixed ? from_float<D>(rb(v * gv) + dmh[base + ch])
+                        : from_float<D>(v * gv + dmh[base + ch]);
+      else
+        q.v[k] = kMixed ? from_float<D>(v * gv) : from_float<D>(v * to_float(from_float<S>(gv)));
     }
-    ov[j] = p;
+    ov[j] = q;
   }
 }
 
@@ -603,21 +644,23 @@ ca_stream_apply(const T* __restrict__ src, const float* __restrict__ g,
 // backward, block regime
 // ---------------------------------------------------------------------------
 
-template <typename T, int VEC>
+// D is dy's type: T, or float32 in the mixed mode (dx = bf(bf(dy g) + v5)).
+template <typename T, typename D, int VEC>
 __global__ void __launch_bounds__(kThreads)
-ca_bwd_resident(const T* __restrict__ x, const T* __restrict__ dy,
+ca_bwd_resident(const T* __restrict__ x, const D* __restrict__ dy,
                 const float* __restrict__ m_in, const float* __restrict__ g_in,
                 const float* __restrict__ w1, const float* __restrict__ b1,
                 const float* __restrict__ w2, T* __restrict__ dx, float* rows, float* chunks,
                 unsigned* counters, float* __restrict__ dw1, float* __restrict__ db1,
                 float* __restrict__ dw2, float* __restrict__ db2, Geometry geo) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kMixed = sizeof(D) != sizeof(T);
   const Smem s = carve(smem, geo, VEC);
   const int b = blockIdx.x;
   const long long n = geo.hw * geo.c;
   const long long off = (long long)b * n;
   const int c = geo.c;
-  T* dys = reinterpret_cast<T*>(s.region);
+  D* dys = reinterpret_cast<D*>(s.region);
 
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     s.m[ch] = m_in[(long long)b * c + ch];
@@ -625,29 +668,31 @@ ca_bwd_resident(const T* __restrict__ x, const T* __restrict__ dy,
   }
   // x's sample too where the region holds both, so that every load of the
   // reduction is in flight at once
-  const long long cap = (n * (long long)sizeof(T) + 15) / 16 * 16;
-  const bool hold_x = geo.region >= 2 * cap;
+  const long long cap = (n * (long long)sizeof(D) + 15) / 16 * 16;
+  const bool hold_x = geo.region >= cap + (n * (long long)sizeof(T) + 15) / 16 * 16;
   T* xs = reinterpret_cast<T*>(s.region + cap);
-  stage_arrays<T, VEC>({dys, xs}, {dy + off, hold_x ? x + off : nullptr}, n);
+  stage_arrays<D, T, VEC>(dys, dy + off, xs, hold_x ? x + off : nullptr, n);
   channel_sums<VEC>(n, c, s.red, s.tot, [&](long long j, float (&v)[VEC]) {
     float a[VEC];
     load_pack<T, VEC>(hold_x ? static_cast<const T*>(xs) : x + off, j, a);
-    load_pack<T, VEC>(dys, j, v);
+    load_pack<D, VEC>(dys, j, v);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) v[k] *= a[k];
   });
   gate_backward(s, geo, w1, b1, w2);
-  const Pack<T, VEC>* dv = reinterpret_cast<const Pack<T, VEC>*>(dys);
+  const Pack<D, VEC>* dv = reinterpret_cast<const Pack<D, VEC>*>(dys);
   Pack<T, VEC>* xv = reinterpret_cast<Pack<T, VEC>*>(dx + off);
   ChannelWalk walk(threadIdx.x, VEC, c);
   for (int j = threadIdx.x; j * VEC < n; j += kThreads, walk.next()) {
-    Pack<T, VEC> p = dv[j];
+    const Pack<D, VEC> p = dv[j];
+    Pack<T, VEC> q;
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       const int ch = walk.at(k);
-      p.v[k] = from_float<T>(to_float(p.v[k]) * s.g[ch] + s.v5[ch]);
+      const float v = to_float(p.v[k]) * s.g[ch];
+      q.v[k] = from_float<T>((kMixed ? rb(v) : v) + s.v5[ch]);
     }
-    xv[j] = p;
+    xv[j] = q;
   }
   store_sample(s, geo, b, rows);
   weight_grads(s, geo, b, m_in, rows, chunks, counters, dw1, db1, dw2, db2);
@@ -685,29 +730,29 @@ bool valid(const Geometry& geo, int vec, int regime, int elem) {
   return regime == 1;
 }
 
-template <typename T, int VEC>
+template <typename T, typename O, int VEC>
 cudaError_t forward(int regime, const void* x, const float* w1, const float* b1,
                     const float* w2, const float* b2, void* y, float* m_out, float* g_out,
                     float* partial, unsigned* counters, const Geometry& geo, int apply_blocks,
                     cudaStream_t s) {
   const size_t smem = smem_bytes(geo, VEC);
   const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
+  O* yt = static_cast<O*>(y);
   const long long grid = (long long)geo.batch * geo.parts;
   if (regime == 0)
-    return launch(ca_fwd_resident<T, VEC>, grid, smem, s, xt, w1, b1, w2, b2, yt, m_out,
+    return launch(ca_fwd_resident<T, O, VEC>, grid, smem, s, xt, w1, b1, w2, b2, yt, m_out,
                   g_out, geo);
-  cudaError_t err = launch(ca_stream_sums<T, VEC, false>, grid, smem, s, xt,
+  cudaError_t err = launch(ca_stream_sums<T, T, VEC, false>, grid, smem, s, xt,
                            (const T*)nullptr, w1, b1, w2, b2, m_out, g_out, partial,
                            (float*)nullptr, (float*)nullptr, (float*)nullptr, counters,
                            (float*)nullptr, (float*)nullptr, (float*)nullptr,
                            (float*)nullptr, geo);
   if (err != cudaSuccess) return err;
-  return launch(ca_stream_apply<T, VEC, false>, apply_blocks, 0, s, xt,
+  return launch(ca_stream_apply<T, O, VEC, false>, apply_blocks, 0, s, xt,
                 (const float*)g_out, (const float*)nullptr, yt, geo);
 }
 
-template <typename T, int VEC>
+template <typename T, typename D, int VEC>
 cudaError_t backward(int regime, const void* x, const void* dy, const float* m, const float* g,
                      const float* w1, const float* b1, const float* w2, void* dx, float* partial,
                      float* dmh, float* rows, float* chunks, unsigned* counters, float* dw1,
@@ -716,23 +761,23 @@ cudaError_t backward(int regime, const void* x, const void* dy, const float* m, 
                      cudaStream_t s) {
   const size_t smem = smem_bytes(geo, VEC);
   const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
+  const D* dyt = static_cast<const D*>(dy);
   T* dxt = static_cast<T*>(dx);
   const long long grid = (long long)geo.batch * geo.parts;
   if (regime == 0)
-    return launch(ca_bwd_resident<T, VEC>, grid, smem, s, xt, dyt, m, g, w1, b1, w2, dxt, rows,
-                  chunks, counters, dw1, db1, dw2, db2, geo);
-  cudaError_t err = launch(ca_stream_sums<T, VEC, true>, grid, smem, s, xt, dyt, w1, b1,
+    return launch(ca_bwd_resident<T, D, VEC>, grid, smem, s, xt, dyt, m, g, w1, b1, w2, dxt,
+                  rows, chunks, counters, dw1, db1, dw2, db2, geo);
+  cudaError_t err = launch(ca_stream_sums<T, D, VEC, true>, grid, smem, s, xt, dyt, w1, b1,
                            w2, (const float*)nullptr, const_cast<float*>(m),
                            const_cast<float*>(g), partial, dmh, rows, chunks, counters, dw1,
                            db1, dw2, db2, geo);
   if (err != cudaSuccess) return err;
-  return launch(ca_stream_apply<T, VEC, true>, apply_blocks, 0, s, dyt, g,
+  return launch(ca_stream_apply<D, T, VEC, true>, apply_blocks, 0, s, dyt, g,
                 (const float*)dmh, dxt, geo);
 }
 
 Geometry make_geometry(int batch, long long hw, int c, int cr, int parts, long long ppp,
-                       long long region, long long counter_slot) {
+                       long long region, long long counter_slot, int mixed) {
   Geometry geo;
   geo.batch = batch;
   geo.hw = hw;
@@ -742,6 +787,7 @@ Geometry make_geometry(int batch, long long hw, int c, int cr, int parts, long l
   geo.ppp = ppp;
   geo.region = region;
   geo.counter_slot = counter_slot;
+  geo.mixed = mixed;
   return geo;
 }
 
@@ -761,8 +807,9 @@ extern "C" int dl4ds_ca_limits(int device, int* n_sm, int* smem_optin) {
   return 0;
 }
 
-// Forward. dtype: 0 = float32, 1 = bfloat16; regime 0 block, 1 stream;
-// vec: elements a 16-byte pack or 1. m_out, g_out [B, C] float32;
+// Forward. dtype: 0 = float32, 1 = bfloat16, 2 = the mixed mode (x
+// bfloat16, y float32); regime 0 block, 1 stream; vec: elements of x a
+// 16-byte pack or 1. m_out, g_out [B, C] float32;
 // partial [B, parts, C] float32 scratch (stream only); counters: B zeroed
 // unsigned ints (stream only). smem must equal the kernel's layout (checked).
 // Returns the cudaError_t of the launches (0 on success); launches on
@@ -774,27 +821,36 @@ extern "C" int dl4ds_channel_attention(int dtype, int regime, int vec, const voi
                                        long long hw, int c, int cr, int parts, long long ppp,
                                        long long region, long long smem, int apply_blocks,
                                        void* stream) {
-  const Geometry geo = make_geometry(batch, hw, c, cr, parts, ppp, region, 0);
+  const Geometry geo = make_geometry(batch, hw, c, cr, parts, ppp, region, 0, dtype == 2);
   if (!valid(geo, vec, regime, dtype == 0 ? 4 : 2) || (long long)smem_bytes(geo, vec) != smem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  typedef __nv_bfloat16 bf16;
   if (dtype == 0 && vec == 4)
-    return (int)forward<float, 4>(regime, x, w1, b1, w2, b2, y, m_out, g_out, partial,
-                                  counters, geo, apply_blocks, s);
+    return (int)forward<float, float, 4>(regime, x, w1, b1, w2, b2, y, m_out, g_out, partial,
+                                         counters, geo, apply_blocks, s);
   if (dtype == 0 && vec == 1)
-    return (int)forward<float, 1>(regime, x, w1, b1, w2, b2, y, m_out, g_out, partial,
-                                  counters, geo, apply_blocks, s);
+    return (int)forward<float, float, 1>(regime, x, w1, b1, w2, b2, y, m_out, g_out, partial,
+                                         counters, geo, apply_blocks, s);
   if (dtype == 1 && vec == 8)
-    return (int)forward<__nv_bfloat16, 8>(regime, x, w1, b1, w2, b2, y, m_out, g_out,
-                                          partial, counters, geo, apply_blocks, s);
+    return (int)forward<bf16, bf16, 8>(regime, x, w1, b1, w2, b2, y, m_out, g_out, partial,
+                                       counters, geo, apply_blocks, s);
   if (dtype == 1 && vec == 1)
-    return (int)forward<__nv_bfloat16, 1>(regime, x, w1, b1, w2, b2, y, m_out, g_out,
-                                          partial, counters, geo, apply_blocks, s);
+    return (int)forward<bf16, bf16, 1>(regime, x, w1, b1, w2, b2, y, m_out, g_out, partial,
+                                       counters, geo, apply_blocks, s);
+  if (dtype == 2 && vec == 8)
+    return (int)forward<bf16, float, 8>(regime, x, w1, b1, w2, b2, y, m_out, g_out, partial,
+                                        counters, geo, apply_blocks, s);
+  if (dtype == 2 && vec == 1)
+    return (int)forward<bf16, float, 1>(regime, x, w1, b1, w2, b2, y, m_out, g_out, partial,
+                                        counters, geo, apply_blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Backward: dx like x; dw1 [C, Cr], db1 [Cr], dw2 [Cr, C], db2 [C] float32;
-// m, g [B, C] float32 from the forward; scratch: rows [B, C + 2 Cr], chunks
+// dtype as the forward's (2: dy float32, x and dx bfloat16);
+// m, g [B, C] float32 from the forward; scratch: rows [B, C + 2 Cr] (C + 3
+// Cr in the mixed mode), chunks
 // [ceil(B / kChunk), 2 C Cr + Cr + C], and for the stream regime partial [B,
 // parts, C] and dmh [B, C]; counters: zeroed unsigned ints, B of them for
 // the stream regime's samples, then at counter_slot the count of chunks and
@@ -806,24 +862,36 @@ extern "C" int dl4ds_channel_attention_bwd(
     unsigned* counters, long long counter_slot, int batch, long long hw, int c, int cr,
     int parts, long long ppp, long long region, long long smem, int apply_blocks,
     void* stream) {
-  const Geometry geo = make_geometry(batch, hw, c, cr, parts, ppp, region, counter_slot);
-  if (!valid(geo, vec, regime, dtype == 0 ? 4 : 2) || (long long)smem_bytes(geo, vec) != smem ||
-      counter_slot < batch || region < (long long)sizeof(float) * (2 * c + 2 * cr))
+  const Geometry geo =
+      make_geometry(batch, hw, c, cr, parts, ppp, region, counter_slot, dtype == 2);
+  if (!valid(geo, vec, regime, dtype == 1 ? 2 : 4) || (long long)smem_bytes(geo, vec) != smem ||
+      counter_slot < batch || region < (long long)sizeof(float) * (c + row_len(geo)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  typedef __nv_bfloat16 bf16;
   if (dtype == 0 && vec == 4)
-    return (int)backward<float, 4>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh, rows,
-                                   chunks, counters, dw1, db1, dw2, db2, geo, apply_blocks, s);
+    return (int)backward<float, float, 4>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh,
+                                          rows, chunks, counters, dw1, db1, dw2, db2, geo,
+                                          apply_blocks, s);
   if (dtype == 0 && vec == 1)
-    return (int)backward<float, 1>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh, rows,
-                                   chunks, counters, dw1, db1, dw2, db2, geo, apply_blocks, s);
+    return (int)backward<float, float, 1>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh,
+                                          rows, chunks, counters, dw1, db1, dw2, db2, geo,
+                                          apply_blocks, s);
   if (dtype == 1 && vec == 8)
-    return (int)backward<__nv_bfloat16, 8>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh,
-                                           rows, chunks, counters, dw1, db1, dw2, db2, geo,
-                                           apply_blocks, s);
+    return (int)backward<bf16, bf16, 8>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh,
+                                        rows, chunks, counters, dw1, db1, dw2, db2, geo,
+                                        apply_blocks, s);
   if (dtype == 1 && vec == 1)
-    return (int)backward<__nv_bfloat16, 1>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh,
-                                           rows, chunks, counters, dw1, db1, dw2, db2, geo,
-                                           apply_blocks, s);
+    return (int)backward<bf16, bf16, 1>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh,
+                                        rows, chunks, counters, dw1, db1, dw2, db2, geo,
+                                        apply_blocks, s);
+  if (dtype == 2 && vec == 8)
+    return (int)backward<bf16, float, 8>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh,
+                                         rows, chunks, counters, dw1, db1, dw2, db2, geo,
+                                         apply_blocks, s);
+  if (dtype == 2 && vec == 1)
+    return (int)backward<bf16, float, 1>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh,
+                                         rows, chunks, counters, dw1, db1, dw2, db2, geo,
+                                         apply_blocks, s);
   return (int)cudaErrorInvalidValue;
 }

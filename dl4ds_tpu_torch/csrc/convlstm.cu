@@ -16,6 +16,21 @@
 // and sums are rounded one by one (__fmul_rn, __fadd_rn) as PyTorch's
 // elementwise ops round them; tanhf, no fast-math intrinsics.
 //
+// bfloat16 (every tensor; the dtype of a bfloat16 model, whose JAX kernel
+// runs its operands and gate algebra in the model dtype with float32
+// accumulation, pallas_convlstm.py:188-201, :235-262): the products are one
+// mma.sync m16n8k16 with bfloat16 operands and float32 partials
+// (csrc/bf16_mma.cuh), a stage's k rows padded to 16; zx = bf(bf(conv) +
+// bx), z = bf(zx_t + bf(recurrent conv)) (the conv rounded before its bias
+// or zx_t is added, as JAX's bfloat16 conv output is), and every gate op,
+// c and h rounded to bfloat16 (`rb`), 0.2 itself a bfloat16, as JAX's
+// bfloat16 ops round them. At the width-64 training step the six layers
+// take 10.64 ms against a 0.67 ms bound at the dense bfloat16 rate (1.03
+// ms at the 643 TFLOP/s mma.sync peak); 1.13 ms for the six layers of a
+// batch-8 recresnet_spc forward (chip_smoke.py phase 12, NVIDIA H100 80GB
+// HBM3 at 700 W). Copies of fewer than 4 bytes (a single bfloat16 channel)
+// are plain loads and stores, which the barrier before a stage orders.
+//
 // Replaces: dl4ds_tpu/ops/pallas_convlstm.py `_forward_pallas` ->
 // `_fwd_kernel` (:219; phase 1, :219-245, the input conv over all B*T
 // frames through `_band_conv_bt`; phase 2, :247-266, the recurrence), in
@@ -112,6 +127,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "smem_attr.cuh"
 #include "tf32_mma.cuh"
 
@@ -119,45 +135,49 @@ namespace {
 
 constexpr int kThreads = 256;           // 8 warps
 constexpr int kWM = 2;                  // m16 pixel tiles a warp
-constexpr int kPS = 12;                 // floats a staged pixel: 8 channels,
+constexpr int kPS = 12;                 // elements a staged pixel: 8 channels,
 constexpr int kZero = 8;                // a zero, padding
 constexpr int kFlush = 4;               // k-steps a partial accumulator takes
 constexpr int kMaxSmem = 227 * 1024;
 
+template <typename T>
 struct Args {
-  const float* x;     // [B, T, H, W, Cin] (input launch)
-  const float* w;     // wx (input launch) or wh (step launch), HWIO
-  const float* bx;    // [4F]
-  float* zx;          // [B, T, H, W, 4F]: zs (training) or the scratch
-  float* ys;          // [B, T, H, W, F]
-  float* c;           // training: cs [B, T, H, W, F]; inference [B, H, W, F]
+  const T* x;     // [B, T, H, W, Cin] (input launch)
+  const T* w;     // wx (input launch) or wh (step launch), HWIO
+  const T* bx;    // [4F]
+  T* zx;          // [B, T, H, W, 4F]: zs (training) or the scratch
+  T* ys;          // [B, T, H, W, F]
+  T* c;           // training: cs [B, T, H, W, F]; inference [B, H, W, F]
   int t_steps, step, h, wd, cin, f, kh, kw, th, tw, cw, rps, tiles_x, tiles;
 };
 
-__device__ __forceinline__ float hard_sigmoid(float z) {
-  return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, z), 0.5f), 0.f), 1.f);
+// k rows of a mma k-step: 8 (TF32 m16n8k8) or 16 (bfloat16 m16n8k16)
+template <typename T>
+constexpr int kK = kIsBf16<T> ? 16 : 8;
+
+// k rows of a stage: rps tap rows x kw taps x cw channels, padded to a k-step
+__host__ __device__ inline int stage_rows(int rps, int kw, int cw, int kstep) {
+  return (rps * kw * cw + kstep - 1) / kstep * kstep;
 }
 
-// k rows of a stage: rps tap rows x kw taps x cw channels, padded to 8
-__host__ __device__ inline int stage_rows(int rps, int kw, int cw) {
-  return (rps * kw * cw + 7) / 8 * 8;
-}
-
-// Shared memory of a block, in floats: two input tiles with their halo
-// ((th+kh-1) x (tw+kw-1) pixels of kPS floats), two stages of weight rows
+// Shared memory of a block, in bytes: two input tiles with their halo
+// ((th+kh-1) x (tw+kw-1) pixels of kPS elements), two stages of weight rows
 // (KP rows of 4FS gate channels, row stride 4FS+8), two k-offset tables.
-__host__ __device__ inline int smem_floats(int fs, int th, int tw, int kh,
-                                           int kw, int cw, int rps) {
-  const int kp = stage_rows(rps, kw, cw);
-  return 2 * (th + kh - 1) * (tw + kw - 1) * kPS + 2 * kp * (4 * fs + 8) +
-         2 * kp;
+__host__ __device__ inline int smem_bytes(int elem, int fs, int th, int tw, int kh, int kw,
+                                          int cw, int rps) {
+  const int kp = stage_rows(rps, kw, cw, elem == 2 ? 16 : 8);
+  return elem * (2 * (th + kh - 1) * (tw + kw - 1) * kPS + 2 * kp * (4 * fs + 8)) + 4 * 2 * kp;
 }
 
 // One launch of the layer: STEP false is the input conv over all B*T frames
 // (grid.x = B*T*tiles), with the gate epilogue of t = 0; STEP true is time
 // step a.step >= 1 (grid.x = B*tiles). grid.y: ceil(F / FS) channel slices.
-template <int FS, bool STEP, bool TRAIN>
-__global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
+// T float: 3xTF32 products, the float32 gate algebra; T bf16: bfloat16
+// products, every stored value and gate op rounded to bfloat16.
+template <typename T, int FS, bool STEP, bool TRAIN>
+__global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args<T> a) {
+  constexpr bool BF = kIsBf16<T>;
+  constexpr int KS = kK<T>;       // k rows a mma k-step
   constexpr int NSUB = FS / 8;    // warp columns: 8-channel sub-slices
   constexpr int BN = 4 * FS;      // gate channels of the N tile
   constexpr int WS = BN + 8;      // staged weight row stride
@@ -165,10 +185,10 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
   const int f = a.f, kh = a.kh, kw = a.kw, th = a.th, tw = a.tw;
   const int cw = a.cw, rps = a.rps;
   const int SW = tw + kw - 1, npix = (th + kh - 1) * SW;
-  const int KP = stage_rows(rps, kw, cw);
+  const int KP = stage_rows(rps, kw, cw, KS);
   extern __shared__ float4 smem4[];
-  float* in_s = reinterpret_cast<float*>(smem4);          // [2][npix][kPS]
-  float* w_s = in_s + 2 * npix * kPS;                     // [2][KP][WS]
+  T* in_s = reinterpret_cast<T*>(smem4);                  // [2][npix][kPS]
+  T* w_s = in_s + 2 * npix * kPS;                         // [2][KP][WS]
   int* koff_s = reinterpret_cast<int*>(w_s + 2 * KP * WS);  // [2][KP]
 
   const int tid = threadIdx.x;
@@ -185,7 +205,7 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
   const int ty0 = (tile / a.tiles_x) * th, tx0 = (tile % a.tiles_x) * tw;
   const int f0 = blockIdx.y * FS;
   const int ph = kh / 2, pw = kw / 2;
-  const float* src = STEP ? a.ys + (frame - 1) * hw * f : a.x + frame * hw * C;
+  const T* src = STEP ? a.ys + (frame - 1) * hw * f : a.x + frame * hw * C;
   const int n_chunks = (C + cw - 1) / cw;
   const int spc = kh / rps;                  // stages a chunk
   const int n_iter = n_chunks * spc;
@@ -203,34 +223,31 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
                     ? ((tap / kw) * SW + tap % kw) * kPS + kk % cc
                     : kZero;
   }
-  for (int i = tid; i < 2 * npix; i += kThreads) in_s[i * kPS + kZero] = 0.f;
+  for (int i = tid; i < 2 * npix; i += kThreads) in_s[i * kPS + kZero] = from_f<T>(0.f);
 
   // stage u: channel chunk u / spc, tap rows from dy = (u % spc) * rps. Its
   // weight rows go to buffer u & 1 and, with the chunk's first stage, the
-  // chunk's input tile to buffer chunk & 1; all by cp.async, zero-filled
-  // out of the frame or past F
+  // chunk's input tile to buffer chunk & 1; by cp.async (a single
+  // bfloat16 by a plain copy), zero-filled out of the frame or past F
   auto stage = [&](int u) {
     const int ci0 = u / spc, dy = (u - ci0 * spc) * rps;
     const int c0 = ci0 * cw, cc = min(cw, C - c0);
     const int rows = rps * kw * cc;
-    float* ws = w_s + (u & 1) * KP * WS;
+    T* ws = w_s + (u & 1) * KP * WS;
     for (int i = tid; i < rows * BN / nv_w; i += kThreads) {
       const int e = i * nv_w;
       const int kk = e / BN, n = e - kk * BN;
       const int g = n / FS, j = n - g * FS;
       const int tap = kk / cc, ci = kk - tap * cc;
       const bool ok = f0 + j < f;
-      const float* sp = a.w + ((int64_t)(dy * kw + tap) * C + c0 + ci) * 4 * f +
-                        g * f + f0 + j;
-      if (vec_w)
-        cp_async16(ws + kk * WS + n, ok ? sp : a.w, ok);
-      else
-        cp_async4(ws + kk * WS + n, ok ? sp : a.w, ok);
+      const T* sp = a.w + ((int64_t)(dy * kw + tap) * C + c0 + ci) * 4 * f +
+                    g * f + f0 + j;
+      copy_elems<T>(ws + kk * WS + n, ok ? sp : a.w, nv_w, ok);
     }
     for (int i = tid; i < (KP - rows) * BN; i += kThreads)
-      ws[(rows + i / BN) * WS + i % BN] = 0.f;
+      ws[(rows + i / BN) * WS + i % BN] = from_f<T>(0.f);
     if (dy != 0) return;
-    float* is = in_s + (ci0 & 1) * npix * kPS;
+    T* is = in_s + (ci0 & 1) * npix * kPS;
     const int nv = vec_src ? 4 : 1;
     for (int i = tid; i < npix * cc / nv; i += kThreads) {
       const int e = i * nv;
@@ -238,11 +255,8 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
       const int r = p / SW, q = p - r * SW;
       const int yy = ty0 - ph + r, xx = tx0 - pw + q;
       const bool ok = yy >= 0 && yy < a.h && xx >= 0 && xx < a.wd;
-      const float* sp = src + ((int64_t)yy * a.wd + xx) * C + c0 + ci;
-      if (vec_src)
-        cp_async16(is + p * kPS + ci, ok ? sp : src, ok);
-      else
-        cp_async4(is + p * kPS + ci, ok ? sp : src, ok);
+      const T* sp = src + ((int64_t)yy * a.wd + xx) * C + c0 + ci;
+      copy_elems<T>(is + p * kPS + ci, ok ? sp : src, nv, ok);
     }
   };
 
@@ -258,7 +272,10 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
     }
 
   // accumulators [m tile][gate][fragment value]: value i is pixel
-  // mb + mt*16 + gq + 8 * (i >> 1), channel f0 + wn*8 + 2*tq + (i & 1)
+  // mb + mt*16 + gq + 8 * (i >> 1), channel f0 + wn*8 + 2*tq + (i & 1).
+  // float32: started from bx (input launch) or zx_t (step), as the plain
+  // version sums; bfloat16: from zero, the conv rounded before its bias or
+  // zx_t is added, as JAX's bfloat16 conv output is
   float acc[kWM][4][4];
 #pragma unroll
   for (int mt = 0; mt < kWM; ++mt)
@@ -267,12 +284,11 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
       const int m = mb + mt * 16 + gq + 8 * (i >> 1);
       const int fo = f0 + wn * 8 + 2 * tq + (i & 1);
       const int y = ty0 + m / tw, xq = tx0 + m % tw;
-      const bool ok = m < th * tw && y < a.h && xq < a.wd && fo < f;
-      const float* zp =
-          a.zx + (frame * hw + (int64_t)y * a.wd + xq) * 4 * f + fo;
+      const bool ok = !BF && m < th * tw && y < a.h && xq < a.wd && fo < f;
+      const T* zp = a.zx + (frame * hw + (int64_t)y * a.wd + xq) * 4 * f + fo;
 #pragma unroll
       for (int g = 0; g < 4; ++g)
-        acc[mt][g][i] = !ok ? 0.f : STEP ? zp[g * f] : __ldg(a.bx + g * f + fo);
+        acc[mt][g][i] = !ok ? 0.f : STEP ? to_f(zp[g * f]) : to_f(a.bx[g * f + fo]);
     }
 
   stage(0);
@@ -284,9 +300,9 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
     __syncthreads();
     const int ci0 = u / spc, dy = (u - ci0 * spc) * rps;
     const int cc = min(cw, C - ci0 * cw);
-    const int ksteps = (rps * kw * cc + 7) / 8;
-    const float* is = in_s + (ci0 & 1) * npix * kPS + dy * SW * kPS;
-    const float* ws = w_s + (u & 1) * KP * WS + wn * 8 + gq;
+    const int ksteps = (rps * kw * cc + KS - 1) / KS;
+    const T* is = in_s + (ci0 & 1) * npix * kPS + dy * SW * kPS;
+    const T* ws = w_s + (u & 1) * KP * WS + wn * 8 + gq;
     const int* ko = koff_s + (ci0 == n_chunks - 1 ? KP : 0);
     // the products in fresh accumulators, added to acc in float32 (round
     // to nearest) every kFlush k-steps: the tensor cores truncate what they
@@ -294,37 +310,63 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
     float part[kWM][4][4] = {};
 #pragma unroll 1
     for (int ks = 0; ks < ksteps; ++ks) {
-      const int k0 = ks * 8;
-      const int o0 = ko[k0 + tq], o1 = ko[k0 + tq + 4];
-      uint32_t bh[4][2], bl[4][2], ah[kWM][4], al[kWM][4];
+      const int k0 = ks * KS;
+      if constexpr (BF) {
+        // k rows 2tq, 2tq+1 (a0, a1, b0) and 2tq+8, 2tq+9 (a2, a3, b1)
+        const int o0 = ko[k0 + 2 * tq], o1 = ko[k0 + 2 * tq + 1];
+        const int o2 = ko[k0 + 2 * tq + 8], o3 = ko[k0 + 2 * tq + 9];
+        uint32_t bb[4][2], aa[kWM][4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        split_tf32(ws[(k0 + tq) * WS + g * FS], bh[g][0], bl[g][0]);
-        split_tf32(ws[(k0 + tq + 4) * WS + g * FS], bh[g][1], bl[g][1]);
+        for (int g = 0; g < 4; ++g) {
+          const T* wc = ws + g * FS;
+          bb[g][0] = pack_bf16(wc[(k0 + 2 * tq) * WS], wc[(k0 + 2 * tq + 1) * WS]);
+          bb[g][1] = pack_bf16(wc[(k0 + 2 * tq + 8) * WS], wc[(k0 + 2 * tq + 9) * WS]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kWM; ++mt) {
+          const T* r0 = is + po[mt][0];
+          const T* r1 = is + po[mt][1];
+          aa[mt][0] = pack_bf16(r0[o0], r0[o1]);
+          aa[mt][1] = pack_bf16(r1[o0], r1[o1]);
+          aa[mt][2] = pack_bf16(r0[o2], r0[o3]);
+          aa[mt][3] = pack_bf16(r1[o2], r1[o3]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) mma_bf16(part[mt][g], aa[mt], bb[g][0], bb[g][1]);
+      } else {
+        const int o0 = ko[k0 + tq], o1 = ko[k0 + tq + 4];
+        uint32_t bh[4][2], bl[4][2], ah[kWM][4], al[kWM][4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          split_tf32(to_f(ws[(k0 + tq) * WS + g * FS]), bh[g][0], bl[g][0]);
+          split_tf32(to_f(ws[(k0 + tq + 4) * WS + g * FS]), bh[g][1], bl[g][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kWM; ++mt) {
+          split_tf32(to_f(is[po[mt][0] + o0]), ah[mt][0], al[mt][0]);
+          split_tf32(to_f(is[po[mt][1] + o0]), ah[mt][1], al[mt][1]);
+          split_tf32(to_f(is[po[mt][0] + o1]), ah[mt][2], al[mt][2]);
+          split_tf32(to_f(is[po[mt][1] + o1]), ah[mt][3], al[mt][3]);
+        }
+        // hi*lo, then lo*hi, then hi*hi, each over the 8 independent tiles
+#pragma unroll
+        for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            mma_tf32(part[mt][g], ah[mt], bl[g][0], bl[g][1]);
+#pragma unroll
+        for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            mma_tf32(part[mt][g], al[mt], bh[g][0], bh[g][1]);
+#pragma unroll
+        for (int mt = 0; mt < kWM; ++mt)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            mma_tf32(part[mt][g], ah[mt], bh[g][0], bh[g][1]);
       }
-#pragma unroll
-      for (int mt = 0; mt < kWM; ++mt) {
-        split_tf32(is[po[mt][0] + o0], ah[mt][0], al[mt][0]);
-        split_tf32(is[po[mt][1] + o0], ah[mt][1], al[mt][1]);
-        split_tf32(is[po[mt][0] + o1], ah[mt][2], al[mt][2]);
-        split_tf32(is[po[mt][1] + o1], ah[mt][3], al[mt][3]);
-      }
-      // hi*lo, then lo*hi, then hi*hi, each over the 8 independent tiles
-#pragma unroll
-      for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          mma_tf32(part[mt][g], ah[mt], bl[g][0], bl[g][1]);
-#pragma unroll
-      for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          mma_tf32(part[mt][g], al[mt], bh[g][0], bh[g][1]);
-#pragma unroll
-      for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          mma_tf32(part[mt][g], ah[mt], bh[g][0], bh[g][1]);
       if (ks % kFlush == kFlush - 1 || ks == ksteps - 1) {
 #pragma unroll
         for (int mt = 0; mt < kWM; ++mt)
@@ -351,33 +393,36 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args a) {
       const int y = ty0 + m / tw, xq = tx0 + m % tw;
       if (m >= th * tw || y >= a.h || xq >= a.wd || fo >= f) continue;
       const int64_t pix = (int64_t)y * a.wd + xq;
-      if (!STEP || TRAIN) {
-        float* zp = a.zx + (frame * hw + pix) * 4 * f + fo;
+      T* zp = a.zx + (frame * hw + pix) * 4 * f + fo;
+      float z[4];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) zp[g * f] = acc[mt][g][i];
+      for (int g = 0; g < 4; ++g) {
+        // bfloat16: zx = bf(bf(conv) + bx); z = bf(zx_t + bf(conv))
+        z[g] = !BF    ? acc[mt][g][i]
+               : STEP ? add<T>(to_f(zp[g * f]), rb(acc[mt][g][i]))
+                      : add<T>(rb(acc[mt][g][i]), to_f(a.bx[g * f + fo]));
+        if (!STEP || TRAIN) zp[g * f] = from_f<T>(z[g]);
       }
       if (!STEP && t != 0) continue;
       // inference: c in the [B, H, W, F] scratch; training: c_t in
       // cs[:, t] and c_{t-1} in cs[:, t-1]
-      float* cp = TRAIN ? a.c + (frame * hw + pix) * f + fo
-                        : a.c + ((int64_t)b * hw + pix) * f + fo;
-      const float c_prev = !STEP ? 0.f : TRAIN ? cp[-hw * f] : *cp;
-      const float c_new = __fadd_rn(
-          __fmul_rn(hard_sigmoid(acc[mt][1][i]), c_prev),
-          __fmul_rn(hard_sigmoid(acc[mt][0][i]), tanhf(acc[mt][2][i])));
-      *cp = c_new;
-      a.ys[(frame * hw + pix) * f + fo] =
-          __fmul_rn(hard_sigmoid(acc[mt][3][i]), tanhf(c_new));
+      T* cp = TRAIN ? a.c + (frame * hw + pix) * f + fo
+                    : a.c + ((int64_t)b * hw + pix) * f + fo;
+      const float c_prev = !STEP ? 0.f : TRAIN ? to_f(cp[-hw * f]) : to_f(*cp);
+      const float c_new = add<T>(mul<T>(hsig<T>(z[1]), c_prev),
+                                 mul<T>(hsig<T>(z[0]), tanh_<T>(z[2])));
+      *cp = from_f<T>(c_new);
+      a.ys[(frame * hw + pix) * f + fo] = from_f<T>(mul<T>(hsig<T>(z[3]), tanh_<T>(c_new)));
     }
 }
 
-template <int FS, bool STEP>
-cudaError_t launch(Args& a, int frames, int train, cudaStream_t s) {
+template <typename T, int FS, bool STEP>
+cudaError_t launch(Args<T>& a, int frames, int train, cudaStream_t s) {
   constexpr int kBM = (8 / (FS / 8)) * kWM * 16;   // pixels of a block
   if (a.th < 1 || a.tw < 1 || a.th * a.tw > kBM) return cudaErrorInvalidValue;
-  auto kern = train ? convlstm_tile<FS, STEP, true> : convlstm_tile<FS, STEP, false>;
-  const size_t shmem =
-      sizeof(float) * (size_t)smem_floats(FS, a.th, a.tw, a.kh, a.kw, a.cw, a.rps);
+  auto kern = train ? convlstm_tile<T, FS, STEP, true> : convlstm_tile<T, FS, STEP, false>;
+  const size_t shmem = (size_t)smem_bytes((int)sizeof(T), FS, a.th, a.tw, a.kh, a.kw, a.cw,
+                                          a.rps);
   if (shmem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
     const cudaError_t err = dl4ds::reserve_smem(kern, shmem);
@@ -393,15 +438,35 @@ cudaError_t launch(Args& a, int frames, int train, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <bool STEP>
-cudaError_t launch_fs(Args& a, int64_t frames, int fs, int train, cudaStream_t s) {
+template <typename T, bool STEP>
+cudaError_t launch_fs(Args<T>& a, int64_t frames, int fs, int train, cudaStream_t s) {
   if (a.kh < 1 || a.kw < 1 || a.kh % 2 == 0 || a.kw % 2 == 0 || a.f < 1 ||
       (a.cw != 4 && a.cw != 8) || (a.rps != 1 && a.rps != a.kh) ||
       frames > INT32_MAX)
     return cudaErrorInvalidValue;
-  if (fs == 8) return launch<8, STEP>(a, (int)frames, train, s);
-  if (fs == 16) return launch<16, STEP>(a, (int)frames, train, s);
+  if (fs == 8) return launch<T, 8, STEP>(a, (int)frames, train, s);
+  if (fs == 16) return launch<T, 16, STEP>(a, (int)frames, train, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t input(const void* x, const void* wx, const void* bx, void* zx, void* ys, void* c,
+                  int b, int t_steps, int h, int wd, int cin, int f, int kh, int kw, int fs,
+                  int th, int tw, int cw, int rps, int train, cudaStream_t s) {
+  Args<T> a{static_cast<const T*>(x), static_cast<const T*>(wx), static_cast<const T*>(bx),
+            static_cast<T*>(zx), static_cast<T*>(ys), static_cast<T*>(c), t_steps, 0, h, wd,
+            cin, f, kh, kw, th, tw, cw, rps, 0, 0};
+  return launch_fs<T, false>(a, (int64_t)b * t_steps, fs, train, s);
+}
+
+template <typename T>
+cudaError_t step(const void* wh, void* zx, void* ys, void* c, int b, int t_steps, int st,
+                 int h, int wd, int f, int kh, int kw, int fs, int th, int tw, int cw, int rps,
+                 int train, cudaStream_t s) {
+  Args<T> a{nullptr, static_cast<const T*>(wh), nullptr, static_cast<T*>(zx),
+            static_cast<T*>(ys), static_cast<T*>(c), t_steps, st, h, wd, 0, f, kh, kw,
+            th, tw, cw, rps, 0, 0};
+  return launch_fs<T, true>(a, b, fs, train, s);
 }
 
 }  // namespace
@@ -409,38 +474,43 @@ cudaError_t launch_fs(Args& a, int64_t frames, int fs, int train, cudaStream_t s
 // The layer's first launch: zx = conv_same(x, wx) + bx over all B*T frames
 // into zx ([B, T, H, W, 4F]: zs in training, a scratch in inference), and
 // the gates of t = 0 into ys[:, 0] and c (training: cs [B, T, H, W, F];
-// inference: a [B, H, W, F] scratch). The plan comes from the wrapper: fs
-// (8 or 16 output channels a block), the th x tw pixel tile (at most 256
-// pixels at fs 8, 128 at fs 16), cw (4 or 8 source channels a chunk) and
-// rps (1 or kh tap rows a stage). Returns the cudaError_t of the launch (0
-// on success; cudaErrorInvalidValue for a shape or plan the kernel does
-// not take); does not synchronise.
-extern "C" int dl4ds_convlstm_input(const float* x, const float* wx,
-                                    const float* bx, float* zx, float* ys,
-                                    float* c, int b, int t_steps, int h,
-                                    int wd, int cin, int f, int kh, int kw,
-                                    int fs, int th, int tw, int cw, int rps,
-                                    int train, void* stream) {
-  if (b < 1 || t_steps < 1 || h < 1 || wd < 1 || cin < 1)
-    return (int)cudaErrorInvalidValue;
-  Args a{x, wx, bx, zx, ys, c, t_steps, 0, h, wd, cin, f, kh, kw, th, tw, cw,
-         rps, 0, 0};
-  return (int)launch_fs<false>(a, (int64_t)b * t_steps, fs, train,
-                               static_cast<cudaStream_t>(stream));
+// inference: a [B, H, W, F] scratch). dtype: 0 float32, 1 bfloat16 (every
+// tensor). The plan comes from the wrapper: fs (8 or 16 output channels a
+// block), the th x tw pixel tile (at most 256 pixels at fs 8, 128 at fs
+// 16), cw (4 or 8 source channels a chunk) and rps (1 or kh tap rows a
+// stage). Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for a shape or plan the kernel does not take);
+// does not synchronise.
+extern "C" int dl4ds_convlstm_input(int dtype, const void* x, const void* wx, const void* bx,
+                                    void* zx, void* ys, void* c, int b, int t_steps, int h,
+                                    int wd, int cin, int f, int kh, int kw, int fs, int th,
+                                    int tw, int cw, int rps, int train, void* stream) {
+  if (b < 1 || t_steps < 1 || h < 1 || wd < 1 || cin < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)input<float>(x, wx, bx, zx, ys, c, b, t_steps, h, wd, cin, f, kh, kw, fs, th,
+                             tw, cw, rps, train, s);
+  if (dtype == 1)
+    return (int)input<bf16>(x, wx, bx, zx, ys, c, b, t_steps, h, wd, cin, f, kh, kw, fs, th,
+                            tw, cw, rps, train, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Time step `step` (1 <= step < T) of the layer, after the input launch and
 // the steps before it on the same stream: z = zx[:, step] +
 // conv_same(ys[:, step-1], wh) (written back to zx in training), then the
 // gates into ys[:, step] and c. Arguments as dl4ds_convlstm_input's.
-extern "C" int dl4ds_convlstm_step(const float* wh, float* zx, float* ys,
-                                   float* c, int b, int t_steps, int step,
-                                   int h, int wd, int f, int kh, int kw,
-                                   int fs, int th, int tw, int cw, int rps,
-                                   int train, void* stream) {
-  if (b < 1 || step < 1 || step >= t_steps || h < 1 || wd < 1)
-    return (int)cudaErrorInvalidValue;
-  Args a{nullptr, wh, nullptr, zx, ys, c, t_steps, step, h, wd, 0, f, kh, kw,
-         th, tw, cw, rps, 0, 0};
-  return (int)launch_fs<true>(a, b, fs, train, static_cast<cudaStream_t>(stream));
+extern "C" int dl4ds_convlstm_step(int dtype, const void* wh, void* zx, void* ys, void* c,
+                                   int b, int t_steps, int st, int h, int wd, int f, int kh,
+                                   int kw, int fs, int th, int tw, int cw, int rps, int train,
+                                   void* stream) {
+  if (b < 1 || st < 1 || st >= t_steps || h < 1 || wd < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)step<float>(wh, zx, ys, c, b, t_steps, st, h, wd, f, kh, kw, fs, th, tw, cw,
+                            rps, train, s);
+  if (dtype == 1)
+    return (int)step<bf16>(wh, zx, ys, c, b, t_steps, st, h, wd, f, kh, kw, fs, th, tw, cw,
+                           rps, train, s);
+  return (int)cudaErrorInvalidValue;
 }

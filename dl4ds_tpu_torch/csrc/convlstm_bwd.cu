@@ -9,7 +9,11 @@
 //   dwh   = the same with h_{t-1} (ys one step back; t = 0 adds nothing)
 //   dbx   = sum_p dz[p, :]
 // over all B*T frames (B*(T-1) for dwh), HWIO kernels. Layouts as in
-// csrc/convlstm.cu. No atomics: two runs give the same bits.
+// csrc/convlstm.cu. No atomics: two runs give the same bits. In bfloat16
+// the source and dz are bfloat16, the k-steps 16 pixels of one mma.sync
+// m16n8k16 (csrc/bf16_mma.cuh), the partials float32 and the fixed-order
+// reduction rounds each sum once to bfloat16, as dwx.astype(wx_sd.dtype)
+// rounds JAX's (pallas_convlstm.py:1001-1002).
 //
 // Replaces: dl4ds_tpu/ops/pallas_convlstm.py `_backward_pallas` ->
 // `_bwd_kernel` (:335): its band-matrix weight gradients as T-batched
@@ -59,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "smem_attr.cuh"
 #include "tf32_mma.cuh"
 
@@ -72,10 +77,11 @@ constexpr int kMaxPix = 256;           // pixels of a tile
 constexpr int kFlush = 4;              // k-steps a partial accumulator takes
 constexpr int kMaxSmem = 227 * 1024;
 
+template <typename T>
 struct WArgs {
-  const float* src;   // x [B, T, H, W, C] or ys (h_{t-1}: t_skip 1)
-  const float* dzs;   // [B, T, H, W, 4F]
-  float* part;        // [grid.x, part_len]
+  const T* src;   // x [B, T, H, W, C] or ys (h_{t-1}: t_skip 1)
+  const T* dzs;   // [B, T, H, W, 4F]
+  float* part;    // [grid.x, part_len]
   int64_t part_len;
   int with_db, t_steps, t_skip, h, wd, cs, f4, kh, kw, tph, tpw, tiles_x,
       tiles_frame, n_tiles, tpb, cwc, tpc, n_cchunks, n_rchunks, scs, groups,
@@ -86,14 +92,18 @@ struct WArgs {
 // chunks x tap chunks x gate chunks. It writes part[blockIdx.x][(tap * cs
 // + c) * f4 + g] for its rows and 32 gate columns; with_db, the blocks of
 // the first channel and tap chunk also write sum_p dz[p, g] at
-// part[blockIdx.x][kh*kw*cs*f4 + g].
-__global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs a) {
+// part[blockIdx.x][kh*kw*cs*f4 + g]. T float: 3xTF32 k-steps of 8 pixels;
+// T bf16: bfloat16 k-steps of 16 (ppad a multiple of 16), float32 partials.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs<T> a) {
+  constexpr bool BF = kIsBf16<T>;
+  constexpr int KS = BF ? 16 : 8;
   extern __shared__ float4 smem4[];
   const int SW = a.tpw + a.kw - 1;
   const int src_len = (a.tph + a.kh - 1) * SW * a.scs;
   const int P = a.tph * a.tpw, PP = a.ppad;
-  float* src_s = reinterpret_cast<float*>(smem4);            // [2][src_len]
-  float* dz_s = src_s + 2 * src_len;                          // [2][PP][kGS]
+  T* src_s = reinterpret_cast<T*>(smem4);                     // [2][src_len]
+  T* dz_s = src_s + 2 * src_len;                              // [2][PP][kGS]
   int* pof_s = reinterpret_cast<int*>(dz_s + 2 * PP * kGS);   // [PP]
 
   const int cchunk = blockIdx.y % a.n_cchunks;
@@ -136,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs a) {
     pof_s[p] = p < P ? ((p / a.tpw) * SW + p % a.tpw) * a.scs : 0;
   for (int i = tid; i < 2 * PP * kWN; i += kThreads) {
     const int p = (i / kWN) % PP, g = i % kWN;
-    if (p >= P || g >= gn) dz_s[(i / kWN) * kGS + g] = 0.f;
+    if (p >= P || g >= gn) dz_s[(i / kWN) * kGS + g] = from_f<T>(0.f);
   }
 
   // tile it of the frames used (frame it / tiles_frame, t = t_skip .. T-1
@@ -148,8 +158,8 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs a) {
     const int64_t dframe = (int64_t)bb * a.t_steps + (fi - bb * frames) + a.t_skip;
     const int64_t sframe = dframe - a.t_skip;
     const int y0 = (tile / a.tiles_x) * a.tph, x0 = (tile % a.tiles_x) * a.tpw;
-    float* ss = src_s + buf * src_len;
-    const float* sb = a.src + sframe * hw * a.cs + c0;
+    T* ss = src_s + buf * src_len;
+    const T* sb = a.src + sframe * hw * a.cs + c0;
     const int nv = vec_src ? 4 : 1;
     for (int i = tid; i < src_len / a.scs * cc / nv; i += kThreads) {
       const int e = i * nv;
@@ -157,29 +167,31 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs a) {
       const int r = p / SW;
       const int yy = y0 - ph + r, xx = x0 - pw + p - r * SW;
       const bool ok = yy >= 0 && yy < a.h && xx >= 0 && xx < a.wd;
-      const float* sp = sb + ((int64_t)yy * a.wd + xx) * a.cs + ci;
-      if (vec_src)
-        cp_async16(ss + p * a.scs + ci, ok ? sp : a.src, ok);
-      else
-        cp_async4(ss + p * a.scs + ci, ok ? sp : a.src, ok);
+      const T* sp = sb + ((int64_t)yy * a.wd + xx) * a.cs + ci;
+      copy_elems<T>(ss + p * a.scs + ci, ok ? sp : a.src, nv, ok);
     }
-    float* ds = dz_s + buf * PP * kGS;
-    const float* db = a.dzs + dframe * hw * a.f4 + g0;
+    T* ds = dz_s + buf * PP * kGS;
+    const T* db = a.dzs + dframe * hw * a.f4 + g0;
     for (int i = tid; i < P * gn / 4; i += kThreads) {
       const int e = i * 4;
       const int p = e / gn, g = e - p * gn;
       const int r = p / a.tpw;
       const int y = y0 + r, x = x0 + p - r * a.tpw;
       const bool ok = y < a.h && x < a.wd;
-      cp_async16(ds + p * kGS + g, ok ? db + ((int64_t)y * a.wd + x) * a.f4 + g : a.dzs,
-                 ok);
+      copy_elems<T>(ds + p * kGS + g, ok ? db + ((int64_t)y * a.wd + x) * a.f4 + g : a.dzs, 4,
+                    ok);
     }
+  };
+
+  // the A value of fragment row (mt, hf) at staged pixel offset q
+  auto aval = [&](const T* ss, int mt, int hf, int q) {
+    return ld[mt][hf] ? ss[roff[mt][hf] + q] : from_f<T>(alt[mt][hf]);
   };
 
   // accumulators [m tile][n tile][fragment value]: value i is row (mg*2 +
   // mt)*16 + gq + 8 * (i >> 1), column g0 + j*8 + 2*tq + (i & 1)
   float acc[2][4][4] = {};
-  const int ksteps = PP / 8;
+  const int ksteps = PP / KS;
   const int it0 = blockIdx.x * a.tpb, it_end = min(a.n_tiles, it0 + a.tpb);
   stage(it0, 0);
   cp_async_commit();
@@ -190,44 +202,66 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs a) {
     cp_async_wait_one();
     __syncthreads();
     if (active) {
-      const float* ss = src_s + buf * src_len;
-      const float* ds = dz_s + buf * PP * kGS + gq;
+      const T* ss = src_s + buf * src_len;
+      const T* ds = dz_s + buf * PP * kGS + gq;
       float part[2][4][4] = {};
       int n_part = 0;
 #pragma unroll 1
       for (int ks = kg; ks < ksteps; ks += a.kgroups) {
-        const int p0 = ks * 8;
-        const int q0 = pof_s[p0 + tq], q1 = pof_s[p0 + tq + 4];
-        uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+        const int p0 = ks * KS;
+        if constexpr (BF) {
+          // pixels 2tq, 2tq+1 (a0, a1, b0) and 2tq+8, 2tq+9 (a2, a3, b1)
+          const int q0 = pof_s[p0 + 2 * tq], q1 = pof_s[p0 + 2 * tq + 1];
+          const int q2 = pof_s[p0 + 2 * tq + 8], q3 = pof_s[p0 + 2 * tq + 9];
+          uint32_t aa[2][4], bb[4][2];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const float v0 = ss[roff[mt][0] + q0], v1 = ss[roff[mt][1] + q0];
-          const float v2 = ss[roff[mt][0] + q1], v3 = ss[roff[mt][1] + q1];
-          split_tf32(ld[mt][0] ? v0 : alt[mt][0], ah[mt][0], al[mt][0]);
-          split_tf32(ld[mt][1] ? v1 : alt[mt][1], ah[mt][1], al[mt][1]);
-          split_tf32(ld[mt][0] ? v2 : alt[mt][0], ah[mt][2], al[mt][2]);
-          split_tf32(ld[mt][1] ? v3 : alt[mt][1], ah[mt][3], al[mt][3]);
+          for (int mt = 0; mt < 2; ++mt) {
+            aa[mt][0] = pack_bf16(aval(ss, mt, 0, q0), aval(ss, mt, 0, q1));
+            aa[mt][1] = pack_bf16(aval(ss, mt, 1, q0), aval(ss, mt, 1, q1));
+            aa[mt][2] = pack_bf16(aval(ss, mt, 0, q2), aval(ss, mt, 0, q3));
+            aa[mt][3] = pack_bf16(aval(ss, mt, 1, q2), aval(ss, mt, 1, q3));
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const T* dc = ds + j * 8;
+            bb[j][0] = pack_bf16(dc[(p0 + 2 * tq) * kGS], dc[(p0 + 2 * tq + 1) * kGS]);
+            bb[j][1] = pack_bf16(dc[(p0 + 2 * tq + 8) * kGS], dc[(p0 + 2 * tq + 9) * kGS]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_bf16(part[mt][j], aa[mt], bb[j][0], bb[j][1]);
+        } else {
+          const int q0 = pof_s[p0 + tq], q1 = pof_s[p0 + tq + 4];
+          uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            split_tf32(to_f(aval(ss, mt, 0, q0)), ah[mt][0], al[mt][0]);
+            split_tf32(to_f(aval(ss, mt, 1, q0)), ah[mt][1], al[mt][1]);
+            split_tf32(to_f(aval(ss, mt, 0, q1)), ah[mt][2], al[mt][2]);
+            split_tf32(to_f(aval(ss, mt, 1, q1)), ah[mt][3], al[mt][3]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            split_tf32(to_f(ds[(p0 + tq) * kGS + j * 8]), bh[j][0], bl[j][0]);
+            split_tf32(to_f(ds[(p0 + tq + 4) * kGS + j * 8]), bh[j][1], bl[j][1]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_tf32(part[mt][j], ah[mt], bl[j][0], bl[j][1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_tf32(part[mt][j], al[mt], bh[j][0], bh[j][1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_tf32(part[mt][j], ah[mt], bh[j][0], bh[j][1]);
         }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          split_tf32(ds[(p0 + tq) * kGS + j * 8], bh[j][0], bl[j][0]);
-          split_tf32(ds[(p0 + tq + 4) * kGS + j * 8], bh[j][1], bl[j][1]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_tf32(part[mt][j], ah[mt], bl[j][0], bl[j][1]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_tf32(part[mt][j], al[mt], bh[j][0], bh[j][1]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_tf32(part[mt][j], ah[mt], bh[j][0], bh[j][1]);
         if (++n_part == kFlush) {
           n_part = 0;
 #pragma unroll
@@ -288,15 +322,17 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs a) {
 }
 
 // Row sums in a fixed order: oa[k] = sum_r pa[r * la + k] for k < la, then
-// the same for (pb, nb, lb, ob). nb may be 0 (then ob is zero).
+// the same for (pb, nb, lb, ob), written in O (float32, or bfloat16 rounded
+// once). nb may be 0 (then ob is zero).
+template <typename O>
 __global__ void __launch_bounds__(256)
-wgrad_reduce(const float* __restrict__ pa, int na, int64_t la, float* __restrict__ oa,
-             const float* __restrict__ pb, int nb, int64_t lb, float* __restrict__ ob) {
+wgrad_reduce(const float* __restrict__ pa, int na, int64_t la, O* __restrict__ oa,
+             const float* __restrict__ pb, int nb, int64_t lb, O* __restrict__ ob) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float* p = pa;
   int n = na;
   int64_t l = la, k = i;
-  float* o = oa;
+  O* o = oa;
   if (i >= la) {
     if (i >= la + lb) return;
     p = pb;
@@ -308,7 +344,47 @@ wgrad_reduce(const float* __restrict__ pa, int na, int64_t la, float* __restrict
   float s = 0.f;
 #pragma unroll 8
   for (int r = 0; r < n; ++r) s = __fadd_rn(s, __ldg(p + r * l + k));
-  o[k] = s;
+  o[k] = from_f<O>(s);
+}
+
+template <typename T>
+cudaError_t wgrad(const void* src, const void* dzs, float* part, int n_chunks, int with_db,
+                  int b, int t_steps, int t_skip, int h, int wd, int cs, int f, int kh, int kw,
+                  int tph, int tpw, int tpb, int cwc, int tpc, cudaStream_t stream) {
+  constexpr int KS = kIsBf16<T> ? 16 : 8;
+  const int f4 = 4 * f;
+  if (b < 1 || t_skip < 0 || t_steps <= t_skip || h < 1 || wd < 1 || cs < 1 ||
+      f < 1 || kh < 1 || kw < 1 || tph < 1 || tpw < 1 || tph * tpw > kMaxPix ||
+      tpb < 1 || cwc < 1 || cwc > 8 || tpc < 1 || tpc * cwc + (with_db ? 1 : 0) > kMaxRows)
+    return cudaErrorInvalidValue;
+  const int tiles_x = (wd + tpw - 1) / tpw;
+  const int tiles_frame = tiles_x * ((h + tph - 1) / tph);
+  const int64_t n_tiles = (int64_t)b * (t_steps - t_skip) * tiles_frame;
+  if (n_tiles > INT32_MAX || (n_tiles + tpb - 1) / tpb != n_chunks)
+    return cudaErrorInvalidValue;
+  const int n_cchunks = (cs + cwc - 1) / cwc;
+  const int n_rchunks = (kh * kw + tpc - 1) / tpc;
+  const int64_t grid_y = (int64_t)n_cchunks * n_rchunks * ((f4 + kWN - 1) / kWN);
+  if (grid_y > 65535) return cudaErrorInvalidValue;
+  const int rows = tpc * cwc + (with_db ? 1 : 0);
+  const int groups = ((rows + 15) / 16 + 1) / 2;    // warps of 2 m16 tiles
+  const int kgroups = 8 / groups;
+  const int scs = cwc <= 4 ? 4 : 8;
+  const int ppad = (tph * tpw + KS - 1) / KS * KS;
+  const int staged = (int)sizeof(T) * (2 * (tph + kh - 1) * (tpw + kw - 1) * scs +
+                                       2 * ppad * kGS) + 4 * ppad;
+  const int shmem = max(staged, 4 * (kgroups - 1) * groups * 32 * 32);
+  if (shmem > kMaxSmem) return cudaErrorInvalidValue;
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = dl4ds::reserve_smem(wgrad_tile<T>, (size_t)shmem);
+    if (err != cudaSuccess) return err;
+  }
+  const WArgs<T> a{static_cast<const T*>(src), static_cast<const T*>(dzs), part,
+                   (int64_t)kh * kw * cs * f4 + (with_db ? f4 : 0), with_db, t_steps, t_skip,
+                   h, wd, cs, f4, kh, kw, tph, tpw, tiles_x, tiles_frame, (int)n_tiles, tpb,
+                   cwc, tpc, n_cchunks, n_rchunks, scs, groups, kgroups, ppad};
+  wgrad_tile<T><<<dim3(n_chunks, (unsigned)grid_y), kThreads, shmem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -317,58 +393,41 @@ wgrad_reduce(const float* __restrict__ pa, int na, int64_t la, float* __restrict
 // t_skip 0, ys with t_skip 1) against dzs [B, T, H, W, 4F], over pixel
 // tiles of tph x tpw (at most 256 pixels), `tpb` tiles a block, in chunks
 // of cwc source channels (1 to 8) and tpc taps (tpc * cwc + with_db at most
-// 256 rows); part is [n_chunks, part_len] with part_len = kh*kw*cs*4F (+ 4F
-// with_db). n_chunks must be the number of blocks that this plan gives
-// (checked). The plan comes from ops/convlstm.py `_wgrad_plan`. Returns the
+// 256 rows); part is [n_chunks, part_len] float32 with part_len =
+// kh*kw*cs*4F (+ 4F with_db). dtype: 0 float32, 1 bfloat16 (src and dzs).
+// n_chunks must be the number of blocks that this plan gives (checked).
+// The plan comes from ops/convlstm.py `_wgrad_plan`. Returns the
 // cudaError_t of the launch; does not synchronise.
-extern "C" int dl4ds_convlstm_wgrad(const float* src, const float* dzs, float* part,
-                                    int n_chunks, int with_db, int b, int t_steps,
-                                    int t_skip, int h, int wd, int cs, int f, int kh,
-                                    int kw, int tph, int tpw, int tpb, int cwc,
-                                    int tpc, void* stream) {
-  const int f4 = 4 * f;
-  if (b < 1 || t_skip < 0 || t_steps <= t_skip || h < 1 || wd < 1 || cs < 1 ||
-      f < 1 || kh < 1 || kw < 1 || tph < 1 || tpw < 1 || tph * tpw > kMaxPix ||
-      tpb < 1 || cwc < 1 || cwc > 8 || tpc < 1 || tpc * cwc + (with_db ? 1 : 0) > kMaxRows)
-    return (int)cudaErrorInvalidValue;
-  const int tiles_x = (wd + tpw - 1) / tpw;
-  const int tiles_frame = tiles_x * ((h + tph - 1) / tph);
-  const int64_t n_tiles = (int64_t)b * (t_steps - t_skip) * tiles_frame;
-  if (n_tiles > INT32_MAX || (n_tiles + tpb - 1) / tpb != n_chunks)
-    return (int)cudaErrorInvalidValue;
-  const int n_cchunks = (cs + cwc - 1) / cwc;
-  const int n_rchunks = (kh * kw + tpc - 1) / tpc;
-  const int64_t grid_y = (int64_t)n_cchunks * n_rchunks * ((f4 + kWN - 1) / kWN);
-  if (grid_y > 65535) return (int)cudaErrorInvalidValue;
-  const int rows = tpc * cwc + (with_db ? 1 : 0);
-  const int groups = ((rows + 15) / 16 + 1) / 2;    // warps of 2 m16 tiles
-  const int kgroups = 8 / groups;
-  const int scs = cwc <= 4 ? 4 : 8;
-  const int ppad = (tph * tpw + 7) / 8 * 8;
-  const int staged = 2 * (tph + kh - 1) * (tpw + kw - 1) * scs + 2 * ppad * kGS + ppad;
-  const int shmem = (int)sizeof(float) * max(staged, (kgroups - 1) * groups * 32 * 32);
-  if (shmem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = dl4ds::reserve_smem(wgrad_tile, (size_t)shmem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const WArgs a{src, dzs, part, (int64_t)kh * kw * cs * f4 + (with_db ? f4 : 0),
-                with_db, t_steps, t_skip, h, wd, cs, f4, kh, kw, tph, tpw, tiles_x,
-                tiles_frame, (int)n_tiles, tpb, cwc, tpc, n_cchunks, n_rchunks, scs,
-                groups, kgroups, ppad};
-  wgrad_tile<<<dim3(n_chunks, (unsigned)grid_y), kThreads, shmem,
-               static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+extern "C" int dl4ds_convlstm_wgrad(int dtype, const void* src, const void* dzs, float* part,
+                                    int n_chunks, int with_db, int b, int t_steps, int t_skip,
+                                    int h, int wd, int cs, int f, int kh, int kw, int tph,
+                                    int tpw, int tpb, int cwc, int tpc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)wgrad<float>(src, dzs, part, n_chunks, with_db, b, t_steps, t_skip, h, wd, cs,
+                             f, kh, kw, tph, tpw, tpb, cwc, tpc, s);
+  if (dtype == 1)
+    return (int)wgrad<bf16>(src, dzs, part, n_chunks, with_db, b, t_steps, t_skip, h, wd, cs,
+                            f, kh, kw, tph, tpw, tpb, cwc, tpc, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // oa [la] = the sum of the na rows of pa [na, la] and ob [lb] that of the nb
-// rows of pb, each row after row in order.
-extern "C" int dl4ds_convlstm_wgrad_reduce(const float* pa, int na, int64_t la,
-                                           float* oa, const float* pb, int nb,
-                                           int64_t lb, float* ob, void* stream) {
+// rows of pb, each row after row in order; written as float32 (dtype 0) or
+// rounded once to bfloat16 (dtype 1).
+extern "C" int dl4ds_convlstm_wgrad_reduce(int dtype, const float* pa, int na, int64_t la,
+                                           void* oa, const float* pb, int nb, int64_t lb,
+                                           void* ob, void* stream) {
   const int64_t n = la + lb;
-  if (n < 1 || (n + 255) / 256 > INT32_MAX) return (int)cudaErrorInvalidValue;
-  wgrad_reduce<<<(unsigned)((n + 255) / 256), 256, 0,
-                 static_cast<cudaStream_t>(stream)>>>(pa, na, la, oa, pb, nb, lb, ob);
+  if (n < 1 || (n + 255) / 256 > INT32_MAX || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((n + 255) / 256);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    wgrad_reduce<float><<<grid, 256, 0, s>>>(pa, na, la, static_cast<float*>(oa), pb, nb, lb,
+                                             static_cast<float*>(ob));
+  else
+    wgrad_reduce<bf16><<<grid, 256, 0, s>>>(pa, na, la, static_cast<bf16*>(oa), pb, nb, lb,
+                                            static_cast<bf16*>(ob));
   return (int)cudaGetLastError();
 }

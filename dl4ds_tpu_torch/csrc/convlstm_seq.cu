@@ -19,6 +19,14 @@
 // csrc/convlstm.cu: [B, T, H, W, C] activations, gates i, f, c, o along 4F.
 // The gate algebra rounds product by product (__fmul_rn, __fadd_rn) as
 // PyTorch's elementwise ops do. No atomics: two runs give the same bits.
+// In bfloat16 (every tensor) the products are bfloat16 mma.sync m16n8k16
+// with float32 partials (csrc/bf16_mma.cuh), the recurrent term and dx
+// rounded once to bfloat16 (JAX's acc_h.astype(dt) and acc_x.astype(dt)),
+// and every op of the chain, the dh and dc carries and dz rounded to
+// bfloat16, as `_bwd_seq_kernel` carries them in the model dtype
+// (pallas_convlstm.py:289-333): K4's six width-64 layers take 5.53 ms
+// against a 0.39 ms bound, K3's chain and dx within its 1.24 ms at width 8
+// (chip_smoke.py phase 12, NVIDIA H100 80GB HBM3 at 700 W).
 //
 // Replaces: dl4ds_tpu/ops/pallas_convlstm.py `_seq_pallas` ->
 // `_bwd_seq_kernel` (:269; one grid step per batch tile carrying dh and dc
@@ -71,7 +79,9 @@
 // (tap, channel) pairs read through an offset table, as in K2, so every odd
 // kh and kw take the same body; the plan (ops/convlstm.py `_seq_plan`) takes
 // the deepest stage that leaves room for two blocks an SM. NS and the
-// epilogue are template parameters: 8 bodies, `chain_step<NS>` and
+// epilogue are template parameters: 12 bodies an element type,
+// `chain_step<NS>` (K3's chain), `split_chain<NS>` (K4's: the same body
+// under its own name, so that a device trace tells the routes apart) and
 // `dx_frames<NS>`, over one tile.
 //
 // Measured (chip_smoke.py phase 6, medians of 40 CUDA-event timings with
@@ -94,36 +104,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "smem_attr.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;           // 8 warps
-constexpr int kPS = 12;                 // floats a staged pixel: 8 channels,
+constexpr int kPS = 12;                 // elements a staged pixel: 8 channels,
 constexpr int kZero = 8;                // a zero, padding
 constexpr int kFlush = 4;               // k-steps a partial accumulator takes
 constexpr int kMaxSmem = 227 * 1024;
 
+template <typename T>
 struct Args {
-  const float* src;   // dzs [frames, H, W, C]: dz_{t+1} (chain) or dz (dx)
-  const float* w;     // wT [kh, kw, C, N]: whT (chain) or wxT (dx)
-  float* out;         // chain: dzs (dz_t written); dx: [frames, H, W, N]
-  const float* zs;    // chain only: zs [B, T, H, W, C]
-  const float* cs;    //   cs, dys [B, T, H, W, N]
-  const float* dys;
-  float* dcs;         //   the dc carry [B, H, W, N]
+  const T* src;   // dzs [frames, H, W, C]: dz_{t+1} (chain) or dz (dx)
+  const T* w;     // wT [kh, kw, C, N]: whT (chain) or wxT (dx)
+  T* out;         // chain: dzs (dz_t written); dx: [frames, H, W, N]
+  const T* zs;    // chain only: zs [B, T, H, W, C]
+  const T* cs;    //   cs, dys [B, T, H, W, N]
+  const T* dys;
+  T* dcs;         //   the dc carry [B, H, W, N]
   int t_steps, step, h, wd, c, n, kh, kw, th, tw, cw, rps, tiles_x, tiles;
 };
-
-__device__ __forceinline__ float hard_sigmoid(float z) {
-  return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, z), 0.5f), 0.f), 1.f);
-}
-
-__device__ __forceinline__ float d_hard_sigmoid(float z) {
-  const float g = hard_sigmoid(z);
-  return g > 0.f && g < 1.f ? 0.2f : 0.f;
-}
 
 // staged weight row stride of a block of NS output channels: 8 or 24 mod
 // 32, so the 4 k rows x 8 columns of a B fragment fall in distinct banks
@@ -133,29 +136,38 @@ __host__ __device__ constexpr int w_stride(int ns) {
 
 constexpr int kBM = 128;                // pixels of a block
 
-// k rows of a stage: rps tap rows x kw taps x cw channels, padded to 8
-__host__ __device__ inline int stage_rows(int rps, int kw, int cw) {
-  return (rps * kw * cw + 7) / 8 * 8;
+// k rows of a mma k-step: 8 (TF32 m16n8k8) or 16 (bfloat16 m16n8k16)
+template <typename T>
+constexpr int kK = kIsBf16<T> ? 16 : 8;
+
+// k rows of a stage: rps tap rows x kw taps x cw channels, padded to a k-step
+__host__ __device__ inline int stage_rows(int rps, int kw, int cw, int kstep) {
+  return (rps * kw * cw + kstep - 1) / kstep * kstep;
 }
 
-// Shared memory of a block, in floats: two dz tiles with their halo, two
+// Shared memory of a block, in bytes: two dz tiles with their halo, two
 // stages of weight rows, two k-offset tables; the epilogue then reuses it
-// for the block's sums (th*tw rows of ns + 8).
-__host__ __device__ inline int smem_floats(int ns, int th, int tw, int kh,
-                                           int kw, int cw, int rps) {
-  const int kp = stage_rows(rps, kw, cw);
-  const int staged = 2 * (th + kh - 1) * (tw + kw - 1) * kPS +
-                     2 * kp * w_stride(ns) + 2 * kp;
-  return staged > th * tw * (ns + 8) ? staged : th * tw * (ns + 8);
+// for the block's float32 sums (th*tw rows of ns + 8).
+__host__ __device__ inline int smem_bytes(int elem, int ns, int th, int tw, int kh, int kw,
+                                          int cw, int rps) {
+  const int kp = stage_rows(rps, kw, cw, elem == 2 ? 16 : 8);
+  const int staged = elem * (2 * (th + kh - 1) * (tw + kw - 1) * kPS + 2 * kp * w_stride(ns)) +
+                     4 * 2 * kp;
+  const int sums = 4 * th * tw * (ns + 8);
+  return staged > sums ? staged : sums;
 }
 
 // The tile: out[p, n] = sum_{dy, dx, s} src[p + (dy - ph, dx - pw), s] *
 // w[dy, dx, s, n] for the block's 128 pixels and NS channels, then the
 // chain's gate epilogue (CHAIN) or a plain store. Chain: grid.x = B*tiles,
 // block x // tiles the sample; dx: grid.x = B*T*tiles, the frame. grid.y:
-// ceil(N / NS) channel slices.
-template <int NS, bool CHAIN>
-__device__ __forceinline__ void convt_tile(const Args& a) {
+// ceil(N / NS) channel slices. T float: 3xTF32 products and the float32
+// chain; T bf16: bfloat16 products, the sums rounded once to bfloat16 (dh's
+// recurrent term, dx), every op of the chain and the carries in bfloat16.
+template <typename T, int NS, bool CHAIN>
+__device__ __forceinline__ void convt_tile(const Args<T>& a) {
+  constexpr bool BF = kIsBf16<T>;
+  constexpr int KS = kK<T>;
   constexpr int WARPS_N = NS == 64 ? 2 : 1;  // warp columns
   constexpr int WN = NS / 8 / WARPS_N;       // n8 tiles a warp
   constexpr int WM = NS == 64 ? 2 : 1;       // m16 tiles a warp
@@ -163,10 +175,10 @@ __device__ __forceinline__ void convt_tile(const Args& a) {
   const int C = a.c, N = a.n, kh = a.kh, kw = a.kw, th = a.th, tw = a.tw;
   const int cw = a.cw, rps = a.rps;
   const int SW = tw + kw - 1, npix = (th + kh - 1) * SW;
-  const int KP = stage_rows(rps, kw, cw);
+  const int KP = stage_rows(rps, kw, cw, KS);
   extern __shared__ float4 smem4[];
-  float* in_s = reinterpret_cast<float*>(smem4);          // [2][npix][kPS]
-  float* w_s = in_s + 2 * npix * kPS;                     // [2][KP][WS]
+  T* in_s = reinterpret_cast<T*>(smem4);                  // [2][npix][kPS]
+  T* w_s = in_s + 2 * npix * kPS;                         // [2][KP][WS]
   int* koff_s = reinterpret_cast<int*>(w_s + 2 * KP * WS);  // [2][KP]
 
   const int tid = threadIdx.x;
@@ -183,7 +195,7 @@ __device__ __forceinline__ void convt_tile(const Args& a) {
   const int ph = kh / 2, pw = kw / 2;
   // the chain's last step has no recurrent term
   const bool has_src = !CHAIN || a.step + 1 < a.t_steps;
-  const float* src = has_src ? a.src + (frame + (CHAIN ? 1 : 0)) * hw * C : a.src;
+  const T* src = has_src ? a.src + (frame + (CHAIN ? 1 : 0)) * hw * C : a.src;
   const int n_chunks = (C + cw - 1) / cw;
   const int spc = kh / rps;                  // stages a chunk
   const int n_iter = has_src ? n_chunks * spc : 0;
@@ -200,42 +212,38 @@ __device__ __forceinline__ void convt_tile(const Args& a) {
                     ? ((tap / kw) * SW + tap % kw) * kPS + kk % cc
                     : kZero;
   }
-  for (int i = tid; i < 2 * npix; i += kThreads) in_s[i * kPS + kZero] = 0.f;
+  for (int i = tid; i < 2 * npix; i += kThreads) in_s[i * kPS + kZero] = from_f<T>(0.f);
 
   // stage u: channel chunk u / spc, tap rows from dy = (u % spc) * rps. Its
   // weight rows go to buffer u & 1 and, with the chunk's first stage, the
-  // chunk's dz tile to buffer chunk & 1; all by cp.async, zero-filled out
-  // of the frame or past N. C = 4F is a multiple of 4, so a chunk is 4 or 8
-  // channels and its copies are 16 bytes.
+  // chunk's dz tile to buffer chunk & 1; by cp.async (a single bfloat16 by
+  // a plain copy), zero-filled out of the frame or past N. C = 4F is a
+  // multiple of 4, so a chunk is 4 or 8 channels and its copies are of 4.
   auto stage = [&](int u) {
     const int ci0 = u / spc, dy = (u - ci0 * spc) * rps;
     const int c0 = ci0 * cw, cc = min(cw, C - c0);
     const int rows = rps * kw * cc;
-    float* ws = w_s + (u & 1) * KP * WS;
+    T* ws = w_s + (u & 1) * KP * WS;
     for (int i = tid; i < rows * NS / nv_w; i += kThreads) {
       const int e = i * nv_w;
       const int kk = e / NS, j = e - kk * NS;
       const int tap = kk / cc, ci = kk - tap * cc;
       const bool ok = n0 + j < N;
-      const float* sp =
-          a.w + ((int64_t)(dy * kw + tap) * C + c0 + ci) * N + n0 + j;
-      if (vec_w)
-        cp_async16(ws + kk * WS + j, ok ? sp : a.w, ok);
-      else
-        cp_async4(ws + kk * WS + j, ok ? sp : a.w, ok);
+      const T* sp = a.w + ((int64_t)(dy * kw + tap) * C + c0 + ci) * N + n0 + j;
+      copy_elems<T>(ws + kk * WS + j, ok ? sp : a.w, nv_w, ok);
     }
     for (int i = tid; i < (KP - rows) * NS; i += kThreads)
-      ws[(rows + i / NS) * WS + i % NS] = 0.f;
+      ws[(rows + i / NS) * WS + i % NS] = from_f<T>(0.f);
     if (dy != 0) return;
-    float* is = in_s + (ci0 & 1) * npix * kPS;
+    T* is = in_s + (ci0 & 1) * npix * kPS;
     for (int i = tid; i < npix * cc / 4; i += kThreads) {
       const int e = i * 4;
       const int p = e / cc, ci = e - p * cc;
       const int r = p / SW, q = p - r * SW;
       const int yy = ty0 - ph + r, xx = tx0 - pw + q;
       const bool ok = yy >= 0 && yy < a.h && xx >= 0 && xx < a.wd;
-      const float* sp = src + ((int64_t)yy * a.wd + xx) * C + c0 + ci;
-      cp_async16(is + p * kPS + ci, ok ? sp : src, ok);
+      const T* sp = src + ((int64_t)yy * a.wd + xx) * C + c0 + ci;
+      copy_elems<T>(is + p * kPS + ci, ok ? sp : src, 4, ok);
     }
   };
 
@@ -263,46 +271,71 @@ __device__ __forceinline__ void convt_tile(const Args& a) {
     __syncthreads();
     const int ci0 = u / spc, dy = (u - ci0 * spc) * rps;
     const int cc = min(cw, C - ci0 * cw);
-    const int ksteps = (rps * kw * cc + 7) / 8;
-    const float* is = in_s + (ci0 & 1) * npix * kPS + dy * SW * kPS;
-    const float* ws = w_s + (u & 1) * KP * WS + wn * WN * 8 + gq;
+    const int ksteps = (rps * kw * cc + KS - 1) / KS;
+    const T* is = in_s + (ci0 & 1) * npix * kPS + dy * SW * kPS;
+    const T* ws = w_s + (u & 1) * KP * WS + wn * WN * 8 + gq;
     const int* ko = koff_s + (ci0 == n_chunks - 1 ? KP : 0);
     // the products in fresh accumulators, added to acc in float32 (round
     // to nearest) every kFlush k-steps
     float part[WM][WN][4] = {};
 #pragma unroll 2
     for (int ks = 0; ks < ksteps; ++ks) {
-      const int k0 = ks * 8;
-      const int o0 = ko[k0 + tq], o1 = ko[k0 + tq + 4];
-      uint32_t bh[WN][2], bl[WN][2], ah[WM][4], al[WM][4];
+      const int k0 = ks * KS;
+      if constexpr (BF) {
+        const int o0 = ko[k0 + 2 * tq], o1 = ko[k0 + 2 * tq + 1];
+        const int o2 = ko[k0 + 2 * tq + 8], o3 = ko[k0 + 2 * tq + 9];
+        uint32_t bb[WN][2], aa[WM][4];
 #pragma unroll
-      for (int j = 0; j < WN; ++j) {
-        split_tf32(ws[(k0 + tq) * WS + j * 8], bh[j][0], bl[j][0]);
-        split_tf32(ws[(k0 + tq + 4) * WS + j * 8], bh[j][1], bl[j][1]);
+        for (int j = 0; j < WN; ++j) {
+          const T* wc = ws + j * 8;
+          bb[j][0] = pack_bf16(wc[(k0 + 2 * tq) * WS], wc[(k0 + 2 * tq + 1) * WS]);
+          bb[j][1] = pack_bf16(wc[(k0 + 2 * tq + 8) * WS], wc[(k0 + 2 * tq + 9) * WS]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt) {
+          const T* r0 = is + po[mt][0];
+          const T* r1 = is + po[mt][1];
+          aa[mt][0] = pack_bf16(r0[o0], r0[o1]);
+          aa[mt][1] = pack_bf16(r1[o0], r1[o1]);
+          aa[mt][2] = pack_bf16(r0[o2], r0[o3]);
+          aa[mt][3] = pack_bf16(r1[o2], r1[o3]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+          for (int j = 0; j < WN; ++j) mma_bf16(part[mt][j], aa[mt], bb[j][0], bb[j][1]);
+      } else {
+        const int o0 = ko[k0 + tq], o1 = ko[k0 + tq + 4];
+        uint32_t bh[WN][2], bl[WN][2], ah[WM][4], al[WM][4];
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          split_tf32(to_f(ws[(k0 + tq) * WS + j * 8]), bh[j][0], bl[j][0]);
+          split_tf32(to_f(ws[(k0 + tq + 4) * WS + j * 8]), bh[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt) {
+          split_tf32(to_f(is[po[mt][0] + o0]), ah[mt][0], al[mt][0]);
+          split_tf32(to_f(is[po[mt][1] + o0]), ah[mt][1], al[mt][1]);
+          split_tf32(to_f(is[po[mt][0] + o1]), ah[mt][2], al[mt][2]);
+          split_tf32(to_f(is[po[mt][1] + o1]), ah[mt][3], al[mt][3]);
+        }
+        // hi*lo, then lo*hi, then hi*hi, each over the independent tiles
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+            mma_tf32(part[mt][j], ah[mt], bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+            mma_tf32(part[mt][j], al[mt], bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+            mma_tf32(part[mt][j], ah[mt], bh[j][0], bh[j][1]);
       }
-#pragma unroll
-      for (int mt = 0; mt < WM; ++mt) {
-        split_tf32(is[po[mt][0] + o0], ah[mt][0], al[mt][0]);
-        split_tf32(is[po[mt][1] + o0], ah[mt][1], al[mt][1]);
-        split_tf32(is[po[mt][0] + o1], ah[mt][2], al[mt][2]);
-        split_tf32(is[po[mt][1] + o1], ah[mt][3], al[mt][3]);
-      }
-      // hi*lo, then lo*hi, then hi*hi, each over the independent tiles
-#pragma unroll
-      for (int mt = 0; mt < WM; ++mt)
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-          mma_tf32(part[mt][j], ah[mt], bl[j][0], bl[j][1]);
-#pragma unroll
-      for (int mt = 0; mt < WM; ++mt)
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-          mma_tf32(part[mt][j], al[mt], bh[j][0], bh[j][1]);
-#pragma unroll
-      for (int mt = 0; mt < WM; ++mt)
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-          mma_tf32(part[mt][j], ah[mt], bh[j][0], bh[j][1]);
       if (ks % kFlush == kFlush - 1 || ks == ksteps - 1) {
 #pragma unroll
         for (int mt = 0; mt < WM; ++mt)
@@ -355,61 +388,69 @@ __device__ __forceinline__ void convt_tile(const Args& a) {
     if (!CHAIN) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        if (ok[i]) a.out[e[i] * N + o[i]] = ep_s[(idx[i] / NS) * EW + idx[i] % NS];
+        if (ok[i]) a.out[e[i] * N + o[i]] = from_f<T>(ep_s[(idx[i] / NS) * EW + idx[i] % NS]);
       continue;
     }
     float z[4][4], c_t[4], c_prev[4], dc_next[4], dy[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!ok[i]) continue;
-      const float* zp = a.zs + e[i] * C + o[i];
+      const T* zp = a.zs + e[i] * C + o[i];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) z[i][g] = zp[g * N];
-      c_t[i] = a.cs[e[i] * N + o[i]];
-      c_prev[i] = a.step > 0 ? a.cs[(e[i] - hw) * N + o[i]] : 0.f;
+      for (int g = 0; g < 4; ++g) z[i][g] = to_f(zp[g * N]);
+      c_t[i] = to_f(a.cs[e[i] * N + o[i]]);
+      c_prev[i] = a.step > 0 ? to_f(a.cs[(e[i] - hw) * N + o[i]]) : 0.f;
       dc_next[i] = a.step + 1 < a.t_steps
-                       ? a.dcs[((int64_t)fr * hw + pix[i]) * N + o[i]]
+                       ? to_f(a.dcs[((int64_t)fr * hw + pix[i]) * N + o[i]])
                        : 0.f;
-      dy[i] = a.dys[e[i] * N + o[i]];
+      dy[i] = to_f(a.dys[e[i] * N + o[i]]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!ok[i]) continue;
       const float zi = z[i][0], zf = z[i][1], zc = z[i][2], zo = z[i][3];
-      const float gi = hard_sigmoid(zi), gf = hard_sigmoid(zf);
-      const float gg = tanhf(zc), go = hard_sigmoid(zo);
-      const float tc = tanhf(c_t[i]);
-      const float dh = __fadd_rn(dy[i], ep_s[(idx[i] / NS) * EW + idx[i] % NS]);
-      const float d_o = __fmul_rn(dh, tc);
-      const float dc = __fadd_rn(
-          __fmul_rn(__fmul_rn(dh, go), __fsub_rn(1.f, __fmul_rn(tc, tc))),
-          dc_next[i]);
-      float* dzp = a.out + e[i] * C + o[i];
-      dzp[0] = __fmul_rn(__fmul_rn(dc, gg), d_hard_sigmoid(zi));
-      dzp[N] = __fmul_rn(__fmul_rn(dc, c_prev[i]), d_hard_sigmoid(zf));
-      dzp[2 * N] =
-          __fmul_rn(__fmul_rn(dc, gi), __fsub_rn(1.f, __fmul_rn(gg, gg)));
-      dzp[3 * N] = __fmul_rn(d_o, d_hard_sigmoid(zo));
-      a.dcs[((int64_t)fr * hw + pix[i]) * N + o[i]] = __fmul_rn(dc, gf);
+      const float gi = hsig<T>(zi), gf = hsig<T>(zf);
+      const float gg = tanh_<T>(zc), go = hsig<T>(zo);
+      const float tc = tanh_<T>(c_t[i]);
+      // bfloat16: the recurrent term is rounded once, as JAX's acc_h.astype
+      const float dh = add<T>(dy[i], op<T>(ep_s[(idx[i] / NS) * EW + idx[i] % NS]));
+      const float d_o = mul<T>(dh, tc);
+      const float dc =
+          add<T>(mul<T>(mul<T>(dh, go), sub<T>(1.f, mul<T>(tc, tc))), dc_next[i]);
+      T* dzp = a.out + e[i] * C + o[i];
+      dzp[0] = from_f<T>(mul<T>(mul<T>(dc, gg), d_hsig<T>(zi)));
+      dzp[N] = from_f<T>(mul<T>(mul<T>(dc, c_prev[i]), d_hsig<T>(zf)));
+      dzp[2 * N] = from_f<T>(mul<T>(mul<T>(dc, gi), sub<T>(1.f, mul<T>(gg, gg))));
+      dzp[3 * N] = from_f<T>(mul<T>(d_o, d_hsig<T>(zo)));
+      a.dcs[((int64_t)fr * hw + pix[i]) * N + o[i]] = from_f<T>(mul<T>(dc, gf));
     }
   }
 }
 
-template <int NS>
-__global__ void __launch_bounds__(kThreads, 2) chain_step(const Args a) {
-  convt_tile<NS, true>(a);
+template <typename T, int NS>
+__global__ void __launch_bounds__(kThreads, 2) chain_step(const Args<T> a) {
+  convt_tile<T, NS, true>(a);
 }
 
-template <int NS>
-__global__ void __launch_bounds__(kThreads, 2) dx_frames(const Args a) {
-  convt_tile<NS, false>(a);
+template <typename T, int NS>
+__global__ void __launch_bounds__(kThreads, 2) split_chain(const Args<T> a) {
+  convt_tile<T, NS, true>(a);
 }
 
-template <int NS, bool CHAIN>
-cudaError_t launch(Args& a, int64_t frames, cudaStream_t s) {
-  auto kern = CHAIN ? chain_step<NS> : dx_frames<NS>;
-  const size_t shmem = sizeof(float) * (size_t)smem_floats(
-                                           NS, a.th, a.tw, a.kh, a.kw, a.cw, a.rps);
+template <typename T, int NS>
+__global__ void __launch_bounds__(kThreads, 2) dx_frames(const Args<T> a) {
+  convt_tile<T, NS, false>(a);
+}
+
+enum Kind { kChain, kSplitChain, kDx };
+
+template <typename T, int NS, int KIND>
+cudaError_t launch(Args<T>& a, int64_t frames, cudaStream_t s) {
+  auto kern = KIND == kChain        ? chain_step<T, NS>
+              : KIND == kSplitChain ? split_chain<T, NS>
+                                    : dx_frames<T, NS>;
+  const size_t shmem =
+      (size_t)smem_bytes((int)sizeof(T), NS, a.th, a.tw, a.kh, a.kw, a.cw, a.rps);
   if (shmem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
     const cudaError_t err = dl4ds::reserve_smem(kern, shmem);
@@ -425,52 +466,96 @@ cudaError_t launch(Args& a, int64_t frames, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <bool CHAIN>
-cudaError_t launch_ns(Args& a, int64_t frames, int ns, cudaStream_t s) {
+template <typename T, int KIND>
+cudaError_t launch_ns(Args<T>& a, int64_t frames, int ns, cudaStream_t s) {
   if (frames < 1 || a.h < 1 || a.wd < 1 || a.n < 1 || a.c < 4 || a.c % 4 ||
       a.kh < 1 || a.kw < 1 || a.kh % 2 == 0 || a.kw % 2 == 0 ||
       (a.cw != 4 && a.cw != 8) || (a.rps != 1 && a.rps != a.kh) ||
       a.th < 1 || a.tw < 1 || a.th * a.tw > kBM)
     return cudaErrorInvalidValue;
-  if (ns == 8) return launch<8, CHAIN>(a, frames, s);
-  if (ns == 16) return launch<16, CHAIN>(a, frames, s);
-  if (ns == 32) return launch<32, CHAIN>(a, frames, s);
-  if (ns == 64) return launch<64, CHAIN>(a, frames, s);
+  if (ns == 8) return launch<T, 8, KIND>(a, frames, s);
+  if (ns == 16) return launch<T, 16, KIND>(a, frames, s);
+  if (ns == 32) return launch<T, 32, KIND>(a, frames, s);
+  if (ns == 64) return launch<T, 64, KIND>(a, frames, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T, int KIND>
+cudaError_t seq_step(const void* zs, const void* cs, const void* dys, const void* wht,
+                     void* dzs, void* dcs, int b, int t_steps, int step, int h, int wd, int f,
+                     int kh, int kw, int ns, int th, int tw, int cw, int rps, cudaStream_t s) {
+  Args<T> a{static_cast<const T*>(dzs), static_cast<const T*>(wht), static_cast<T*>(dzs),
+            static_cast<const T*>(zs), static_cast<const T*>(cs), static_cast<const T*>(dys),
+            static_cast<T*>(dcs), t_steps, step, h, wd, 4 * f, f, kh, kw, th, tw, cw, rps, 0, 0};
+  return launch_ns<T, KIND>(a, b, ns, s);
+}
+
+template <typename T>
+cudaError_t dx(const void* dzs, const void* wxt, void* out, int frames, int h, int wd, int cin,
+               int f, int kh, int kw, int ns, int th, int tw, int cw, int rps, cudaStream_t s) {
+  Args<T> a{static_cast<const T*>(dzs), static_cast<const T*>(wxt), static_cast<T*>(out),
+            nullptr, nullptr, nullptr, nullptr, 1, 0, h, wd, 4 * f, cin, kh, kw, th, tw, cw,
+            rps, 0, 0};
+  return launch_ns<T, kDx>(a, frames, ns, s);
+}
+
+template <int KIND>
+int chain(int dtype, const void* zs, const void* cs, const void* dys, const void* wht,
+          void* dzs, void* dcs, int b, int t_steps, int step, int h, int wd, int f, int kh,
+          int kw, int ns, int th, int tw, int cw, int rps, void* stream) {
+  if (b < 1 || step < 0 || step >= t_steps) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)seq_step<float, KIND>(zs, cs, dys, wht, dzs, dcs, b, t_steps, step, h, wd, f,
+                                      kh, kw, ns, th, tw, cw, rps, s);
+  if (dtype == 1)
+    return (int)seq_step<bf16, KIND>(zs, cs, dys, wht, dzs, dcs, b, t_steps, step, h, wd, f,
+                                     kh, kw, ns, th, tw, cw, rps, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Step `step` (run T-1 down to 0, in order, on one stream) of the reverse
-// chain: reads zs [B, T, H, W, 4F], cs and dys [B, T, H, W, F], whT [kh, kw,
-// 4F, F] (the flipped, transposed recurrent kernel) and dz_{step+1} from dzs;
-// writes dz_step to dzs [B, T, H, W, 4F]. The dc carry dcs [B, H, W, F] is
-// the caller's scratch. The plan comes from the wrapper (ops/convlstm.py
-// `_seq_plan`): ns (8, 16, 32 or 64 output channels a block), the th x tw
-// pixel tile (at most 128 pixels), cw (4 or 8 dz channels a chunk) and rps
-// (1 or kh tap rows a stage). Odd kh and kw. Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue for a shape or plan the kernel does not
-// take); does not synchronise.
-extern "C" int dl4ds_convlstm_seq_step(const float* zs, const float* cs,
-                                       const float* dys, const float* wht,
-                                       float* dzs, float* dcs, int b, int t_steps,
-                                       int step, int h, int wd, int f, int kh,
-                                       int kw, int ns, int th, int tw, int cw,
-                                       int rps, void* stream) {
-  if (b < 1 || step < 0 || step >= t_steps) return (int)cudaErrorInvalidValue;
-  Args a{dzs, wht, dzs, zs, cs, dys, dcs, t_steps, step, h, wd, 4 * f, f,
-         kh, kw, th, tw, cw, rps, 0, 0};
-  return (int)launch_ns<true>(a, b, ns, static_cast<cudaStream_t>(stream));
+// chain of K3 (the fused route): reads zs [B, T, H, W, 4F], cs and dys [B,
+// T, H, W, F], whT [kh, kw, 4F, F] (the flipped, transposed recurrent
+// kernel) and dz_{step+1} from dzs; writes dz_step to dzs [B, T, H, W, 4F].
+// The dc carry dcs [B, H, W, F] is the caller's scratch. dtype: 0 float32,
+// 1 bfloat16 (every tensor). The plan comes from the wrapper
+// (ops/convlstm.py `_seq_plan`): ns (8, 16, 32 or 64 output channels a
+// block), the th x tw pixel tile (at most 128 pixels), cw (4 or 8 dz
+// channels a chunk) and rps (1 or kh tap rows a stage). Odd kh and kw.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a shape
+// or plan the kernel does not take); does not synchronise.
+extern "C" int dl4ds_convlstm_seq_step(int dtype, const void* zs, const void* cs,
+                                       const void* dys, const void* wht, void* dzs, void* dcs,
+                                       int b, int t_steps, int step, int h, int wd, int f,
+                                       int kh, int kw, int ns, int th, int tw, int cw, int rps,
+                                       void* stream) {
+  return chain<kChain>(dtype, zs, cs, dys, wht, dzs, dcs, b, t_steps, step, h, wd, f, kh, kw,
+                       ns, th, tw, cw, rps, stream);
+}
+
+// The same step for K4 (the split route), launched as `split_chain`.
+extern "C" int dl4ds_convlstm_split_step(int dtype, const void* zs, const void* cs,
+                                         const void* dys, const void* wht, void* dzs,
+                                         void* dcs, int b, int t_steps, int step, int h, int wd,
+                                         int f, int kh, int kw, int ns, int th, int tw, int cw,
+                                         int rps, void* stream) {
+  return chain<kSplitChain>(dtype, zs, cs, dys, wht, dzs, dcs, b, t_steps, step, h, wd, f, kh,
+                            kw, ns, th, tw, cw, rps, stream);
 }
 
 // dx [frames, H, W, Cin] = convT(dzs, wx) over `frames` = B*T frames of dzs
 // [frames, H, W, 4F], with wxT [kh, kw, 4F, Cin] the flipped, transposed
-// input kernel. Plan and return value as dl4ds_convlstm_seq_step's.
-extern "C" int dl4ds_convlstm_dx(const float* dzs, const float* wxt, float* dx,
-                                 int frames, int h, int wd, int cin, int f,
-                                 int kh, int kw, int ns, int th, int tw, int cw,
-                                 int rps, void* stream) {
-  Args a{dzs, wxt, dx, nullptr, nullptr, nullptr, nullptr, 1, 0, h, wd, 4 * f,
-         cin, kh, kw, th, tw, cw, rps, 0, 0};
-  return (int)launch_ns<false>(a, frames, ns, static_cast<cudaStream_t>(stream));
+// input kernel. dtype, plan and return value as dl4ds_convlstm_seq_step's.
+extern "C" int dl4ds_convlstm_dx(int dtype, const void* dzs, const void* wxt, void* out,
+                                 int frames, int h, int wd, int cin, int f, int kh, int kw,
+                                 int ns, int th, int tw, int cw, int rps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)dx<float>(dzs, wxt, out, frames, h, wd, cin, f, kh, kw, ns, th, tw, cw, rps, s);
+  if (dtype == 1)
+    return (int)dx<bf16>(dzs, wxt, out, frames, h, wd, cin, f, kh, kw, ns, th, tw, cw, rps, s);
+  return (int)cudaErrorInvalidValue;
 }

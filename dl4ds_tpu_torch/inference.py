@@ -104,7 +104,11 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     (DSModel, net) pair or a trained `SupervisedTrainer`: the grids are coarsened by `scale` on the device,
     stacked with the predictors and static variables, and run through the
     network in eval mode in batches of `batch_size`. Returns a numpy array
-    [N, H, W, n_channels_out] (and the LR inputs with `return_lr`).
+    [N, H, W, n_channels_out] (and the LR inputs with `return_lr`), float32
+    for every model dtype: a bfloat16 model's output values are bfloat16
+    ones held exactly in float32 (the JAX package returns an `ml_dtypes`
+    bfloat16 array, dl4ds_tpu/inference.py:449; numpy has no bfloat16 of
+    its own).
 
     A spatio-temporal model needs `time_window`: it runs on the N - tw + 1
     windows of tw consecutive grids, and its [N - tw + 1, tw, ...] output
@@ -167,7 +171,7 @@ def _batched_apply(apply, x, aux, batch_size):
             if ab is not None:
                 ab = torch.cat([ab, ab[-1:].expand(bs - nb, *ab.shape[1:])])
         outs.append(apply(xb, ab)[:nb])
-    return torch.cat(outs).cpu().numpy()
+    return torch.cat(outs).float().cpu().numpy()
 
 
 def _finalize_predict(out, batch_lr, time_window, scaler, save_path,

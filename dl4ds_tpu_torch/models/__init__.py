@@ -21,6 +21,7 @@ from ..utils import (checkarg_backbone, checkarg_upsampling,
                      checkarg_dropout_variant, check_compatibility_upsbackb,
                      not_ported, resolve_device)
 from .nets import NetPostupsampling, RecNetPostupsampling
+from .blocks import check_dtype
 from . import blocks
 
 __all__ = ['DSModel', 'net_postupsampling', 'recnet_postupsampling',
@@ -35,7 +36,8 @@ class DSModel:
     (e.g. 'resnet_spc', 'recresnet_spc'). Shapes are per sample, NHWC
     (T, H, W, C for a spatio-temporal model), without batch dim.
     `module_class` and `config` name the JAX package's Flax module and its
-    fields, which `save_model` writes.
+    fields, which `save_model` writes; `dtype` is the compute dtype
+    (float32 or bfloat16; the parameters are float32 either way).
     """
     build: Callable[[], torch.nn.Module]
     name: str
@@ -43,6 +45,7 @@ class DSModel:
     aux_shape: Optional[Tuple[int, ...]] = None
     module_class: Optional[str] = None
     config: Optional[dict] = None
+    dtype: torch.dtype = torch.float32
 
     @property
     def upsampling(self):
@@ -83,7 +86,8 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
                        dtype=torch.float32):
     """Spatial network + post-upsampling head
     (dl4ds_tpu/models/__init__.py:77-104), with the JAX signature. This
-    slice builds the 'resnet' backbone with the 'spc' head in float32;
+    slice builds the 'resnet' backbone with the 'spc' head, computing in
+    `dtype` float32 or bfloat16 with float32 parameters;
     `rc_interpolation` is read by the 'rc' head alone (not ported yet), as
     in `recnet_postupsampling`. `remat=True` recomputes each backbone
     block's activations in the backward pass (`torch.utils.checkpoint`),
@@ -92,8 +96,7 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
     backbone_block = checkarg_backbone(backbone_block)
     upsampling = checkarg_upsampling(upsampling)
     dropout_variant = checkarg_dropout_variant(dropout_variant)
-    if dtype != torch.float32:
-        raise not_ported(f'model dtype {dtype}', 5)
+    check_dtype(dtype)
     h_lr, w_lr = lr_size
     config = dict(
         backbone=backbone_block, upsampling=upsampling, scale=scale,
@@ -111,13 +114,13 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
         dropout_rate=dropout_rate, dropout_variant=dropout_variant,
         attention=attention, activation=activation,
         output_activation=output_activation, localcon_layer=localcon_layer,
-        output_attention=output_attention, remat=remat)
+        output_attention=output_attention, remat=remat, dtype=dtype)
     build()   # raise now, not at init, on a configuration not ported yet
     aux_shape = ((int(h_lr * scale), int(w_lr * scale), n_aux_channels)
                  if n_aux_channels > 0 else None)
     return DSModel(build, f'{backbone_block}_{upsampling}',
                    (h_lr, w_lr, n_channels), aux_shape,
-                   'NetPostupsampling', config)
+                   'NetPostupsampling', config, dtype)
 
 
 def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
@@ -130,13 +133,13 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
                           output_attention=True, dtype=torch.float32):
     """Spatio-temporal (ConvLSTM) network + post-upsampling head
     (dl4ds_tpu/models/__init__.py:157-183), named 'rec<backbone>_<ups>'.
-    This slice builds the 'resnet' backbone with the 'spc' head in float32;
-    the rest raises NotImplementedError naming its ROADMAP item."""
+    This slice builds the 'resnet' backbone with the 'spc' head in `dtype`
+    float32 or bfloat16 (float32 parameters); the rest raises
+    NotImplementedError naming its ROADMAP item."""
     backbone_block = checkarg_backbone(backbone_block)
     upsampling = checkarg_upsampling(upsampling)
     dropout_variant = checkarg_dropout_variant(dropout_variant)
-    if dtype != torch.float32:
-        raise not_ported(f'model dtype {dtype}', 5)
+    check_dtype(dtype)
     h_lr, w_lr = lr_size
     config = dict(
         backbone=backbone_block, upsampling=upsampling, scale=scale,
@@ -154,13 +157,13 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
         dropout_rate=dropout_rate, dropout_variant=dropout_variant,
         attention=attention, activation=activation,
         output_activation=output_activation, localcon_layer=localcon_layer,
-        output_attention=output_attention)
+        output_attention=output_attention, dtype=dtype)
     build()   # raise now, not at init, on a configuration not ported yet
     aux_shape = ((int(h_lr * scale), int(w_lr * scale), n_aux_channels)
                  if n_aux_channels > 0 else None)
     return DSModel(build, f'rec{backbone_block}_{upsampling}',
                    (time_window, h_lr, w_lr, n_channels), aux_shape,
-                   'RecNetPostupsampling', config)
+                   'RecNetPostupsampling', config, dtype)
 
 
 def build_model(backbone, upsampling, scale, n_channels, n_aux_channels,
@@ -196,11 +199,13 @@ def save_model(model, net, path):
     module's class and fields with the input specs, and `variables.pkl`,
     the pickled {'params': Flax-named tree of numpy arrays} that is the JAX
     package's own fallback format, so that its `load_model` reads the
-    model too."""
+    model too. The config's `dtype` is the model dtype's name ('float32'
+    or 'bfloat16'), as the JAX package writes it."""
     from ..weights import export_jax_params
     os.makedirs(path, exist_ok=True)
     meta = {'module_class': model.module_class,
-            'config': dict(model.config, dtype='float32'),
+            'config': dict(model.config,
+                           dtype=str(model.dtype).replace('torch.', '')),
             'name': model.name, 'input_shape': list(model.input_shape),
             'aux_shape': (list(model.aux_shape)
                           if model.aux_shape is not None else None)}
@@ -227,8 +232,11 @@ def load_model(path, device='cuda'):
     if factory is None:
         raise not_ported(f"model class {meta['module_class']!r}", 6)
     cfg = dict(meta['config'])
-    if cfg.pop('dtype', 'float32') != 'float32':
-        raise not_ported(f"model dtype {meta['config']['dtype']}", 5)
+    name = cfg.pop('dtype', 'float32')
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f'{path}: unknown model dtype {name!r}')
+    cfg['dtype'] = check_dtype(dtype)
     backbone, upsampling = cfg.pop('backbone'), cfg.pop('upsampling')
     *_, h, w, n_channels = meta['input_shape']
     aux = meta['aux_shape']

@@ -10,7 +10,13 @@ and the pixel shuffle see the JAX package's layout. Submodules carry the
 names of the Flax parameter tree (`Conv_0`, `ChannelAttention2D_0`, ...), so
 `weights.load_jax_params` maps one onto the other by walking both.
 
-Parameters are float32. `reset_parameters(generator)` draws the Keras
+Parameters are float32 whatever the model dtype, as Flax's `param_dtype`
+keeps them; `dtype` (float32 or bfloat16) is the compute dtype, with the
+JAX package's promotions: a `Conv` casts its input, weight and bias to it
+and returns it, as a Flax `Conv(dtype=...)` does, the gate returns float32
+(its float32 biases promote it, `channel_attention_reference`), and the
+blocks add and activate in the promoted dtype, so a bfloat16 model's
+residual stream is float32. `reset_parameters(generator)` draws the Keras
 defaults the JAX package uses: glorot_uniform kernels and zero biases, and
 for ConvLSTM2D an orthogonal recurrent kernel and the unit forget bias.
 """
@@ -24,9 +30,12 @@ import torch.nn.functional as F
 from ..ops import depth_to_space, fused_channel_attention, fused_convlstm
 from ..utils import not_ported
 
-__all__ = ['Conv', 'get_activation', 'ChannelAttention2D', 'ConvBlock',
-           'ResidualBlock', 'TransitionBlock', 'SubpixelConvolutionBlock',
-           'ConvLSTM2D', 'RecurrentConvBlock']
+MODEL_DTYPES = (torch.float32, torch.bfloat16)
+
+__all__ = ['MODEL_DTYPES', 'check_dtype', 'Conv', 'get_activation',
+           'ChannelAttention2D', 'ConvBlock', 'ResidualBlock',
+           'TransitionBlock', 'SubpixelConvolutionBlock', 'ConvLSTM2D',
+           'RecurrentConvBlock']
 
 
 def _glorot_uniform_(tensor, fan_in, fan_out, generator):
@@ -46,6 +55,14 @@ def _check_norm(normalization):
 def _check_dropout(dropout_rate):
     if dropout_rate:
         raise not_ported('dropout', 6)
+
+
+def check_dtype(dtype):
+    """The model dtypes the port has: float32 and bfloat16 (every JAX
+    benchmark's). Others raise, naming their ROADMAP item."""
+    if dtype not in MODEL_DTYPES:
+        raise not_ported(f'model dtype {dtype}', 5)
+    return dtype
 
 
 def get_activation(name):
@@ -71,11 +88,18 @@ def get_activation(name):
 class Conv(nn.Module):
     """SAME-padded stride-1 2-D convolution of an NHWC tensor. The kernel is
     held in torch's OIHW layout; odd kernel sizes only (SAME padding is then
-    symmetric)."""
+    symmetric). In `dtype` bfloat16 the input, weight and bias are cast to
+    it and the bias is added after the convolution's rounding, as Flax's
+    `Conv` adds it (a bias inside cuDNN's convolution would be added
+    before the rounding). cuDNN's bfloat16 convolution accumulates in
+    float32; on the CPU the product is taken in float32 and rounded once,
+    as XLA's CPU convolution takes it (oneDNN's bfloat16 convolution
+    rounds a few outputs otherwise)."""
 
     def __init__(self, in_channels, filters, kernel_size=(3, 3),
-                 use_bias=True):
+                 use_bias=True, dtype=torch.float32):
         super().__init__()
+        self.dtype = check_dtype(dtype)
         kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
                   else tuple(kernel_size))
         if kh % 2 == 0 or kw % 2 == 0:
@@ -96,9 +120,18 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                     padding=self.padding)
-        return y.permute(0, 2, 3, 1).contiguous()
+        if self.dtype == torch.float32:   # (also float64 reference runs)
+            y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                         padding=self.padding)
+            return y.permute(0, 2, 3, 1).contiguous()
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if x.is_cuda:
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=self.padding)
+        else:   # rounded once from float32, as XLA's CPU convolution
+            y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float(),
+                         padding=self.padding).to(self.dtype)
+        y = y.permute(0, 2, 3, 1).contiguous()
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class ChannelAttention2D(nn.Module):
@@ -112,7 +145,12 @@ class ChannelAttention2D(nn.Module):
     flattened from [B, t, ...], and the gate keeps the reference's rank-5
     quirk (dl4ds_tpu/models/blocks.py:223-235): the mean is over (T, H), the
     gate varies along (W, C) and is shared over (T, H). That gate is plain
-    tensor math, not the K1 kernel."""
+    tensor math, not the K1 kernel.
+
+    On a bfloat16 x the gate returns float32, as
+    `channel_attention_reference` does in a bfloat16 model: the mean, w1,
+    w2 and m @ w1 are rounded to bfloat16, the float32 biases promote the
+    rest (K1's float32-output mode on the GPU)."""
 
     def __init__(self, in_channels, nf, r=4, time_window=None):
         super().__init__()
@@ -138,10 +176,13 @@ class ChannelAttention2D(nn.Module):
             bt, h, w, c = x.shape
             xr = x.reshape(bt // t, t, h, w, c)
             m = xr.mean(dim=(1, 2))                                # [B, W, C]
-            hdn = F.relu(m @ self.w1 + self.b1)
-            g = torch.sigmoid(hdn @ self.w2 + self.b2)
+            hdn = F.relu(m @ self.w1.to(m.dtype) + self.b1)
+            g = torch.sigmoid(hdn @ self.w2.to(m.dtype).to(hdn.dtype)
+                              + self.b2)
             return (xr * g[:, None, None]).reshape(bt, h, w, c)
-        return fused_channel_attention(x, self.w1, self.b1, self.w2, self.b2)
+        return fused_channel_attention(
+            x, self.w1, self.b1, self.w2, self.b2,
+            out_dtype=torch.float32 if x.dtype == torch.bfloat16 else None)
 
 
 class ConvBlock(nn.Module):
@@ -151,13 +192,13 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_channels, filters, ks_cl1=(3, 3), ks_cl2=(3, 3),
                  activation='relu', normalization=None, attention=False,
-                 attention_time=None, dropout_rate=0.0):
+                 attention_time=None, dropout_rate=0.0, dtype=torch.float32):
         super().__init__()
         _check_norm(normalization)
         _check_dropout(dropout_rate)
         self.act = get_activation(activation)
-        self.Conv_0 = Conv(in_channels, filters, ks_cl1)
-        self.Conv_1 = Conv(filters, filters, ks_cl2)
+        self.Conv_0 = Conv(in_channels, filters, ks_cl1, dtype=dtype)
+        self.Conv_1 = Conv(filters, filters, ks_cl2, dtype=dtype)
         self.ChannelAttention2D_0 = (
             ChannelAttention2D(filters, filters, time_window=attention_time)
             if attention else None)
@@ -177,17 +218,17 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, in_channels, filters, activation='relu',
                  normalization=None, attention=False, dropout_rate=0.0,
-                 use_1x1conv=False):
+                 use_1x1conv=False, dtype=torch.float32):
         super().__init__()
         _check_norm(normalization)
         _check_dropout(dropout_rate)
         self.act = get_activation(activation)
-        self.Conv_0 = Conv(in_channels, filters, (3, 3))
-        self.Conv_1 = Conv(filters, filters, (3, 3))
+        self.Conv_0 = Conv(in_channels, filters, (3, 3), dtype=dtype)
+        self.Conv_1 = Conv(filters, filters, (3, 3), dtype=dtype)
         self.ChannelAttention2D_0 = (ChannelAttention2D(filters, filters)
                                      if attention else None)
-        self.Conv_2 = (Conv(in_channels, filters, (1, 1)) if use_1x1conv
-                       else None)
+        self.Conv_2 = (Conv(in_channels, filters, (1, 1), dtype=dtype)
+                       if use_1x1conv else None)
 
     def forward(self, x):
         y = self.act(self.Conv_0(x))
@@ -204,11 +245,11 @@ class TransitionBlock(nn.Module):
     conv -> act."""
 
     def __init__(self, in_channels, filters, activation='relu',
-                 normalization=None):
+                 normalization=None, dtype=torch.float32):
         super().__init__()
         _check_norm(normalization)
         self.act = get_activation(activation)
-        self.Conv_0 = Conv(in_channels, filters, (1, 1))
+        self.Conv_0 = Conv(in_channels, filters, (1, 1), dtype=dtype)
 
     def forward(self, x):
         return self.act(self.Conv_0(x))
@@ -222,14 +263,15 @@ class SubpixelConvolutionBlock(nn.Module):
 
     _STAGES = {2: (2,), 4: (2, 2), 8: (2, 2, 2), 10: (2, 5), 20: (2, 2, 5)}
 
-    def __init__(self, scale, n_filters):
+    def __init__(self, scale, n_filters, dtype=torch.float32):
         super().__init__()
         # (factor, conv name) per stage; a name seen twice is one module
         self.stages = [(f, {2: 'conv2x', 5: 'conv5x'}.get(f, 'convNx'))
                        for f in self._STAGES.get(scale, (scale,))]
         for f, name in self.stages:
             if name not in self._modules:
-                self.add_module(name, Conv(n_filters, n_filters * f * f))
+                self.add_module(name, Conv(n_filters, n_filters * f * f,
+                                           dtype=dtype))
 
     def forward(self, x):
         for f, name in self.stages:
@@ -265,10 +307,15 @@ class ConvLSTM2D(nn.Module):
     `input_conv/{kernel, bias}` and `cell/recurrent_conv/kernel`, HWIO, with
     the gates i, f, c, o along the last axis. Keras initialisers
     (dl4ds_tpu/models/blocks.py:508-547): glorot-uniform input kernel,
-    orthogonal recurrent kernel, unit forget bias."""
+    orthogonal recurrent kernel, unit forget bias. x and the three
+    parameters are cast to `dtype` before the layer, as the JAX block casts
+    them (dl4ds_tpu/models/blocks.py:610-614), so a bfloat16 model runs K2
+    in bfloat16 and its parameters receive bfloat16-rounded gradients."""
 
-    def __init__(self, in_channels, filters, kernel_size=(3, 3)):
+    def __init__(self, in_channels, filters, kernel_size=(3, 3),
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = check_dtype(dtype)
         kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
                   else tuple(kernel_size))
         if kh % 2 == 0 or kw % 2 == 0:
@@ -295,8 +342,11 @@ class ConvLSTM2D(nn.Module):
             bias[self.filters:2 * self.filters] = 1.0    # unit forget bias
 
     def forward(self, x):
-        return fused_convlstm(x, self.input_conv.kernel, self.input_conv.bias,
-                              self.cell.recurrent_conv.kernel)
+        wx, bx = self.input_conv.kernel, self.input_conv.bias
+        wh = self.cell.recurrent_conv.kernel
+        if self.dtype == torch.bfloat16:
+            x, wx, bx, wh = (u.to(self.dtype) for u in (x, wx, bx, wh))
+        return fused_convlstm(x, wx, bx, wh)
 
 
 class RecurrentConvBlock(nn.Module):
@@ -304,13 +354,14 @@ class RecurrentConvBlock(nn.Module):
     ks_cl1 ConvLSTM -> act -> a ks_cl2 ConvLSTM -> act, on [B, T, H, W, C]."""
 
     def __init__(self, in_channels, filters, ks_cl1=(5, 5), ks_cl2=(3, 3),
-                 activation='relu', normalization=None, dropout_rate=0.0):
+                 activation='relu', normalization=None, dropout_rate=0.0,
+                 dtype=torch.float32):
         super().__init__()
         _check_norm(normalization)
         _check_dropout(dropout_rate)
         self.act = get_activation(activation)
-        self.ConvLSTM2D_0 = ConvLSTM2D(in_channels, filters, ks_cl1)
-        self.ConvLSTM2D_1 = ConvLSTM2D(filters, filters, ks_cl2)
+        self.ConvLSTM2D_0 = ConvLSTM2D(in_channels, filters, ks_cl1, dtype)
+        self.ConvLSTM2D_1 = ConvLSTM2D(filters, filters, ks_cl2, dtype)
 
     def forward(self, x):
         return self.act(self.ConvLSTM2D_1(self.act(self.ConvLSTM2D_0(x))))

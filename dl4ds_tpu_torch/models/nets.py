@@ -5,7 +5,10 @@ Counterparts of `dl4ds_tpu/models/nets.py` for the post-upsampling models
 with the residual backbone and the sub-pixel head: the spatial one and the
 spatio-temporal (ConvLSTM) one. Submodule names follow the Flax parameter
 tree (`_Backbone_0`, `ResidualBlock1`, `RecurrentConvBlock1`, ...). The other
-backbones and heads raise until they are ported.
+backbones and heads raise until they are ported. `dtype` (float32 or
+bfloat16) is threaded through the backbone, the aux branch, the sub-pixel
+head and the output module, as the JAX package threads it; parameters stay
+float32.
 """
 
 import torch
@@ -15,7 +18,7 @@ from torch.utils.checkpoint import checkpoint
 from ..utils import not_ported
 from .blocks import (Conv, ConvBlock, ResidualBlock, TransitionBlock,
                      SubpixelConvolutionBlock, RecurrentConvBlock,
-                     get_activation, _check_dropout)
+                     get_activation, _check_dropout, check_dtype)
 
 __all__ = ['NetPostupsampling', 'RecNetPostupsampling']
 
@@ -29,7 +32,7 @@ class _Backbone(nn.Module):
 
     def __init__(self, in_channels, backbone, n_filters, n_blocks,
                  activation='relu', normalization=None, attention=False,
-                 dropout_rate=0.0, remat=False):
+                 dropout_rate=0.0, remat=False, dtype=torch.float32):
         super().__init__()
         if backbone != 'resnet':
             raise not_ported(f'backbone {backbone!r}', 6)
@@ -37,7 +40,7 @@ class _Backbone(nn.Module):
         f0 = n_filters
         self.remat = remat
         self.act = get_activation(activation)
-        self.stem = Conv(in_channels, f0, (3, 3))
+        self.stem = Conv(in_channels, f0, (3, 3), dtype=dtype)
         self.n_blocks = n_blocks
         c_in = f0
         for i in range(n_blocks):
@@ -45,12 +48,13 @@ class _Backbone(nn.Module):
             self.add_module(f'ResidualBlock{i + 1}', ResidualBlock(
                 c_in, filters, activation=activation,
                 normalization=normalization, attention=attention,
-                use_1x1conv=(i != 0)))
+                use_1x1conv=(i != 0), dtype=dtype))
             c_in = filters
         self.n_filters = c_in
-        self.backbone_out_conv = Conv(c_in, c_in, (3, 3))
+        self.backbone_out_conv = Conv(c_in, c_in, (3, 3), dtype=dtype)
         self.TransitionBlock_0 = TransitionBlock(f0, c_in,
-                                                 activation=activation)
+                                                 activation=activation,
+                                                 dtype=dtype)
 
     def forward(self, x):
         stem = self.stem(x)
@@ -73,15 +77,17 @@ class _OutputModule(nn.Module):
     activation."""
 
     def __init__(self, in_channels, n_filters, n_channels_out,
-                 output_activation=None, normalization=None, attention=True):
+                 output_activation=None, normalization=None, attention=True,
+                 dtype=torch.float32):
         super().__init__()
-        self.TransitionLast = TransitionBlock(in_channels, n_filters)
+        self.TransitionLast = TransitionBlock(in_channels, n_filters,
+                                              dtype=dtype)
         self.ConvBlock_0 = ConvBlock(n_filters, n_filters, activation=None,
                                      normalization=normalization,
-                                     attention=attention)
+                                     attention=attention, dtype=dtype)
         self.ConvBlock_1 = ConvBlock(n_filters, n_channels_out,
                                      activation=output_activation,
-                                     normalization=normalization)
+                                     normalization=normalization, dtype=dtype)
 
     def forward(self, x):
         return self.ConvBlock_1(self.ConvBlock_0(self.TransitionLast(x)))
@@ -92,11 +98,12 @@ class _AuxBranch(nn.Module):
     (dl4ds_tpu/models/nets.py:152-172)."""
 
     def __init__(self, in_channels, n_filters, activation='relu',
-                 normalization=None):
+                 normalization=None, dtype=torch.float32):
         super().__init__()
         self.ConvBlock_aux = ConvBlock(in_channels, n_filters,
                                        activation=activation,
-                                       normalization=normalization)
+                                       normalization=normalization,
+                                       dtype=dtype)
 
     def forward(self, s):
         return self.ConvBlock_aux(s)
@@ -112,27 +119,29 @@ class NetPostupsampling(nn.Module):
                  scale, n_channels_out=1, n_filters=8, n_blocks=6,
                  normalization=None, dropout_rate=0.0, dropout_variant=None,
                  attention=False, activation='relu', output_activation=None,
-                 localcon_layer=False, output_attention=True, remat=False):
+                 localcon_layer=False, output_attention=True, remat=False,
+                 dtype=torch.float32):
         super().__init__()
         if upsampling != 'spc':
             raise not_ported(f'upsampling {upsampling!r}', 6)
         if localcon_layer:
             raise not_ported('localcon_layer', 6)
         _check_dropout(dropout_rate)
+        check_dtype(dtype)
         self._Backbone_0 = _Backbone(n_channels, backbone, n_filters,
                                      n_blocks, activation, normalization,
-                                     attention, remat=remat)
+                                     attention, remat=remat, dtype=dtype)
         width = self._Backbone_0.n_filters
-        self.SubpixelConvolutionBlock_0 = SubpixelConvolutionBlock(scale,
-                                                                   width)
+        self.SubpixelConvolutionBlock_0 = SubpixelConvolutionBlock(
+            scale, width, dtype=dtype)
         self.n_aux_channels = n_aux_channels
         if n_aux_channels > 0:
             self._AuxBranch_0 = _AuxBranch(n_aux_channels, width, activation,
-                                           normalization)
+                                           normalization, dtype=dtype)
         self._OutputModule_0 = _OutputModule(
             width * (2 if n_aux_channels > 0 else 1), n_filters,
             n_channels_out, output_activation, normalization,
-            attention=output_attention)
+            attention=output_attention, dtype=dtype)
 
     def forward(self, x, aux=None):
         if (aux is not None) != (self.n_aux_channels > 0):
@@ -150,7 +159,8 @@ class _RecBackbone(nn.Module):
     x0 + b. [B, T, h, w, C] -> [B, T, h, w, n_filters]."""
 
     def __init__(self, in_channels, backbone, n_filters, n_blocks,
-                 activation='relu', normalization=None, dropout_rate=0.0):
+                 activation='relu', normalization=None, dropout_rate=0.0,
+                 dtype=torch.float32):
         super().__init__()
         if backbone != 'resnet':
             raise not_ported(f'recurrent backbone {backbone!r}', 7)
@@ -158,11 +168,11 @@ class _RecBackbone(nn.Module):
         self.n_blocks = n_blocks
         self.RecurrentConvBlock1 = RecurrentConvBlock(
             in_channels, n_filters, activation=activation,
-            normalization=normalization)
+            normalization=normalization, dtype=dtype)
         for i in range(n_blocks):
             self.add_module(f'RecurrentConvBlock{i + 2}', RecurrentConvBlock(
                 n_filters, n_filters, activation=activation,
-                normalization=normalization))
+                normalization=normalization, dtype=dtype))
 
     def forward(self, x):
         x0 = b = self.RecurrentConvBlock1(x)
@@ -186,19 +196,20 @@ class RecNetPostupsampling(nn.Module):
                  n_blocks=4, normalization=None, dropout_rate=0.0,
                  dropout_variant=None, attention=False, activation='relu',
                  output_activation=None, localcon_layer=False,
-                 output_attention=True):
+                 output_attention=True, dtype=torch.float32):
         super().__init__()
         if upsampling != 'spc':
             raise not_ported(f'upsampling {upsampling!r}', 6)
         if localcon_layer:
             raise not_ported('localcon_layer', 6)
         _check_dropout(dropout_rate)
+        check_dtype(dtype)
         self.time_window = time_window
         self._RecBackbone_0 = _RecBackbone(n_channels, backbone, n_filters,
                                            n_blocks, activation,
-                                           normalization)
+                                           normalization, dtype=dtype)
         self.SubpixelConvolutionBlock_0 = SubpixelConvolutionBlock(
-            scale, n_filters)
+            scale, n_filters, dtype=dtype)
         self.n_aux_channels = n_aux_channels
         width = n_filters
         # Flax auto-names the head's ConvBlocks in call order, so the aux
@@ -208,17 +219,17 @@ class RecNetPostupsampling(nn.Module):
             self.aux_name = next(names)
             self.add_module(self.aux_name, ConvBlock(
                 n_aux_channels, n_filters, activation=activation,
-                attention=attention))
+                attention=attention, dtype=dtype))
             width += n_filters
-        self.TransitionLast = TransitionBlock(width, width // 2)
+        self.TransitionLast = TransitionBlock(width, width // 2, dtype=dtype)
         self.gate_name, self.out_name = next(names), next(names)
         self.add_module(self.gate_name, ConvBlock(
             width // 2, n_filters, activation=None,
             normalization=normalization, attention=output_attention,
-            attention_time=time_window))
+            attention_time=time_window, dtype=dtype))
         self.add_module(self.out_name, ConvBlock(
             n_filters, n_channels_out, activation=output_activation,
-            normalization=normalization))
+            normalization=normalization, dtype=dtype))
 
     def forward(self, x, aux=None):
         if (aux is not None) != (self.n_aux_channels > 0):

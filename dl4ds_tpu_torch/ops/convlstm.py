@@ -26,6 +26,17 @@ Weights keep the JAX layout: wx [kh, kw, Cin, 4F] (HWIO), bx [4F],
 wh [kh, kw, F, 4F], gates split along 4F in the order i, f, c, o.
 Activations are [B, T, H, W, C]; the residuals are zs [B, T, H, W, 4F]
 (the pre-activations, gate-major along the last axis) and cs [B, T, H, W, F].
+
+float32 and bfloat16 (every tensor in one dtype). In bfloat16 the products
+accumulate in float32 and every stored tensor is bfloat16, rounded where
+the JAX kernels store in the model dtype (dl4ds_tpu/ops/pallas_convlstm.py
+:188-201, :235-262, :289-333, :834-851): zx after the input conv and again
+after its bias, the recurrent conv, z, every gate op (the gate algebra runs
+op by op in bfloat16, its constants 0.2 included), the h and c carries and
+ys, zs and cs; backward, every op of the dh/dc chain, each step's dh and
+dc carries and dz, dx, and the weight and bias gradients, each formed in
+float32 and rounded once. The plain versions do it with PyTorch's
+bfloat16 ops, each of which rounds once, and are the kernels' oracles.
 """
 
 import contextlib
@@ -42,10 +53,16 @@ __all__ = ['fused_convlstm', 'convlstm_reference', 'convlstm_train_reference',
            'hard_sigmoid', 'd_hard_sigmoid']
 
 
+# 0.2 as a bfloat16 multiplies a bfloat16 z, as JAX's weakly typed 0.2 does
+_BF16_FIFTH = 0.2001953125
+
+
 def hard_sigmoid(x):
     """Keras hard_sigmoid, clip(0.2 x + 0.5, 0, 1): the ConvLSTM gate
-    (not `F.hardsigmoid`, which is clip(x / 6 + 0.5, 0, 1))."""
-    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+    (not `F.hardsigmoid`, which is clip(x / 6 + 0.5, 0, 1)); in bfloat16
+    with 0.2 rounded to bfloat16 and each op rounding."""
+    a = _BF16_FIFTH if x.dtype == torch.bfloat16 else 0.2
+    return torch.clamp(a * x + 0.5, 0.0, 1.0)
 
 
 def d_hard_sigmoid(x):
@@ -63,40 +80,63 @@ def d_hard_sigmoid(x):
 
 def _conv_same(x, w):
     """SAME-padded stride-1 conv of NHWC x [N, H, W, C] with an HWIO kernel
-    (odd sizes); NHWC out."""
+    (odd sizes); NHWC out. bfloat16 in float32, rounded once (the plain
+    versions' products: `_acc`)."""
     kh, kw = w.shape[:2]
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+    y = F.conv2d(_acc(x).permute(0, 3, 1, 2), _acc(w).permute(3, 2, 0, 1),
                  padding=(kh // 2, kw // 2))
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def _conv_same_t(dz, w):
     """The adjoint of `_conv_same` in its input: dz [N, H, W, Co] -> [N, H,
-    W, C] for the HWIO kernel w [kh, kw, C, Co]."""
+    W, C] for the HWIO kernel w [kh, kw, C, Co]; bfloat16 as `_conv_same`."""
     kh, kw = w.shape[:2]
-    y = F.conv_transpose2d(dz.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+    y = F.conv_transpose2d(_acc(dz).permute(0, 3, 1, 2),
+                           _acc(w).permute(3, 2, 0, 1),
                            padding=(kh // 2, kw // 2))
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(dz.dtype)
 
 
 def _conv_same_w(src, dz, w_shape):
     """The adjoint of `_conv_same` in its kernel: sum over the frames of
-    src [N, H, W, C] and dz [N, H, W, Co] -> HWIO [kh, kw, C, Co]."""
+    src [N, H, W, C] and dz [N, H, W, Co] -> HWIO [kh, kw, C, Co]; for
+    bfloat16 inputs formed in float32 and rounded once."""
     kh, kw, c, co = w_shape
     g = torch.nn.grad.conv2d_weight(
-        src.permute(0, 3, 1, 2), (co, c, kh, kw), dz.permute(0, 3, 1, 2),
-        padding=(kh // 2, kw // 2))
-    return g.permute(2, 3, 1, 0)
+        _acc(src).permute(0, 3, 1, 2), (co, c, kh, kw),
+        _acc(dz).permute(0, 3, 1, 2), padding=(kh // 2, kw // 2))
+    return g.permute(2, 3, 1, 0).to(dz.dtype)
 
 
-def convlstm_train_reference(x, wx, bx, wh):
+def _acc(t):
+    """t in its accumulation dtype: float32 for bfloat16, else its own. A
+    bfloat16 product of the plain versions is taken in float32 and rounded
+    once, as XLA's CPU convolutions and dots are (oneDNN's bfloat16
+    convolution rounds a few outputs otherwise)."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _gemm(a, b):
+    """a @ b rounded once to the operands' dtype: a bfloat16 GEMM with
+    float32 reductions on the card (`_fp32_matmuls`), float32 and a
+    rounding on the CPU (`_acc`)."""
+    if a.is_cuda:
+        return a @ b
+    return (_acc(a) @ _acc(b)).to(a.dtype)
+
+
+def convlstm_train_reference(x, wx, bx, wh, states=None):
     """Plain PyTorch whole layer with the backward's residuals (the input
     conv over all B*T frames at once, then the recurrent conv, gates and
     state updates step by step, as `convlstm_reference` and `_fwd_kernel`,
     dl4ds_tpu/ops/pallas_convlstm.py:82-112 and :244-263). x: [B, T, H, W,
     Cin]; returns (ys, cs, zs): [B, T, H, W, F] twice and [B, T, H, W, 4F],
     zs the pre-activation of every step, bias and recurrent term
-    included."""
+    included. With `states`, the (ys, cs) of a run being checked, step t
+    starts from their h_{t-1} and c_{t-1}: a recurrence held step by step,
+    where one rounding flip would otherwise be carried through the later
+    steps."""
     _check_kernels(x, wx, bx, wh)
     b, t, h, w, cin = x.shape
     f = wh.shape[2]
@@ -106,6 +146,8 @@ def convlstm_train_reference(x, wx, bx, wh):
     cc = x.new_zeros((b, h, w, f))
     ys, cs, zs = [], [], []
     for i in range(t):
+        if states is not None and i > 0:
+            hh, cc = states[0][:, i - 1], states[1][:, i - 1]
         z = zx[:, i] + _conv_same(hh, wh)
         zi, zf, zc, zo = torch.split(z, f, dim=-1)
         cc = hard_sigmoid(zf) * cc + hard_sigmoid(zi) * torch.tanh(zc)
@@ -125,16 +167,20 @@ def convlstm_reference(x, wx, bx, wh):
     return ys, cs
 
 
-def convlstm_seq_reference(zs, cs, dys, wh):
+def convlstm_seq_reference(zs, cs, dys, wh, given=None):
     """Plain PyTorch sequential half of the BPTT, K4's plain version
     (transcribes `_bwd_seq_kernel`, dl4ds_tpu/ops/pallas_convlstm.py:269-332):
     the reverse dh/dc chain on the saved zs and cs. Returns dzs [B, T, H, W,
-    4F], the gradient of every step's pre-activations, gate-major."""
+    4F], the gradient of every step's pre-activations, gate-major. With
+    `given`, the dzs of a run being checked, step t's recurrent term is
+    taken from its dz_{t+1} (the chain held step by step)."""
     b, t, h, w, f4 = zs.shape
     f = f4 // 4
     dh_next = dc_next = zero = cs.new_zeros((b, h, w, f))
     dzs = [None] * t
     for i in reversed(range(t)):
+        if given is not None and i + 1 < t:
+            dh_next = _conv_same_t(given[:, i + 1], wh)
         zi, zf, zc, zo = torch.split(zs[:, i], f, dim=-1)
         gi, gf, gg, go = (hard_sigmoid(zi), hard_sigmoid(zf), torch.tanh(zc),
                           hard_sigmoid(zo))
@@ -166,7 +212,7 @@ def convlstm_backward_reference(x, wx, wh, zs, cs, ys, dys):
     dz = dzs.reshape(b * t, h, w, 4 * f)
     dx = _conv_same_t(dz, wx).reshape(x.shape)
     dwx = _conv_same_w(x.reshape(b * t, h, w, cin), dz, wx.shape)
-    dbx = dz.sum(dim=(0, 1, 2))
+    dbx = _acc(dz).sum(dim=(0, 1, 2)).to(dz.dtype)
     if t > 1:   # h_{-1} = 0: step 0 adds nothing to dWh
         dz_h = dzs[:, 1:].reshape(b * (t - 1), h, w, 4 * f)
         dwh = _conv_same_w(ys[:, :-1].reshape(b * (t - 1), h, w, f), dz_h,
@@ -178,18 +224,22 @@ def convlstm_backward_reference(x, wx, wh, zs, cs, ys, dys):
 
 @contextlib.contextmanager
 def _fp32_matmuls():
-    """Float32 matmuls without TF32 inside, whatever the caller set (with
-    PyTorch's newer per-backend flag where it has one: reading the legacy
-    `allow_tf32` raises once the new one was set)."""
+    """Float32 matmuls without TF32 and bfloat16 ones with float32
+    reductions inside, whatever the caller set (with PyTorch's newer
+    per-backend flag where it has one: reading the legacy `allow_tf32`
+    raises once the new one was set). PyTorch lets cuBLAS reduce a
+    bfloat16 GEMM's split-K partials in bfloat16 by default."""
     m = torch.backends.cuda.matmul
     name, value = (('fp32_precision', 'ieee') if hasattr(m, 'fp32_precision')
                    else ('allow_tf32', False))
-    saved = getattr(m, name)
+    saved = getattr(m, name), m.allow_bf16_reduced_precision_reduction
     setattr(m, name, value)
+    m.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        setattr(m, name, saved)
+        setattr(m, name, saved[0])
+        m.allow_bf16_reduced_precision_reduction = saved[1]
 
 
 def _unfold(src, kh, kw):
@@ -218,32 +268,37 @@ def convlstm_backward_tail(x, wx, wh, ys, dzs, need_dx=True):
     whatever the caller set: the route is a matter of speed and changes the
     result only by float32 summation order. cuDNN's float32 weight gradient
     is not used: at 5x5 and 64 channels it is off by about 1e-2 of max |ref|
-    (ROADMAP.md section 3). The same code runs on the CPU and on the card.
-    Returns (dx or None, dwx, dbx, dwh)."""
+    (ROADMAP.md section 3). In bfloat16 each result is formed in float32 and
+    rounded once, as the JAX tail's `preferred_element_type=f32` products
+    and `acc_x.astype(dt)` round it (dl4ds_tpu/ops/pallas_convlstm.py:
+    845-851): the weight gradients are bfloat16 GEMMs with float32
+    reductions (one rounding each), dx's taps are summed in float32 and
+    then rounded. The same code runs on the CPU and on the card. Returns
+    (dx or None, dwx, dbx, dwh)."""
     b, t, h, w, cin = x.shape
     kh, kw, _, f4 = wx.shape
     f = f4 // 4
     dz = dzs.reshape(b * t * h * w, f4)
     with _fp32_matmuls():
-        dwx = (_unfold(x.reshape(b * t, h, w, cin), kh, kw).t() @ dz).view(
-            wx.shape)
-        dbx = dz.sum(dim=0)
+        dwx = _gemm(_unfold(x.reshape(b * t, h, w, cin), kh, kw).t(),
+                    dz).view(wx.shape)
+        dbx = _acc(dz).sum(dim=0).to(dz.dtype)
         if t > 1:   # h_{-1} = 0: step 0 adds nothing to dWh
             src = _unfold(ys[:, :-1].reshape(b * (t - 1), h, w, f), kh, kw)
-            dwh = (src.t() @ dzs[:, 1:].reshape(-1, f4)).view(wh.shape)
+            dwh = _gemm(src.t(), dzs[:, 1:].reshape(-1, f4)).view(wh.shape)
             del src
         else:
             dwh = torch.zeros_like(wh)
         if not need_dx:
             return None, dwx, dbx, dwh
-        col = (dz @ wx.reshape(kh * kw * cin, f4).t()).view(
+        col = (_acc(dz) @ _acc(wx).reshape(kh * kw * cin, f4).t()).view(
             b * t, h, w, kh, kw, cin)
-    dx = x.new_zeros((b * t, h + kh - 1, w + kw - 1, cin))
+    dx = col.new_zeros((b * t, h + kh - 1, w + kw - 1, cin))
     for dy in range(kh):
         for dxx in range(kw):
             dx[:, dy:dy + h, dxx:dxx + w] += col[:, :, :, dy, dxx]
     dx = dx[:, kh // 2:kh // 2 + h, kw // 2:kw // 2 + w].reshape(x.shape)
-    return dx, dwx, dbx, dwh
+    return dx.to(x.dtype), dwx, dbx, dwh
 
 
 def _check_shapes(x_shape, wx_shape, bx_shape, wh_shape):
@@ -276,15 +331,25 @@ def _check_kernels(x, wx, bx, wh):
 # PERF.md): 'fused' wins every layer up to F = 32 (by 12-48%), 'split' the
 # 3x3 layers at F = 64 (by 13-15%) and 1 -> 64 at 5x5 (by 4%); at 64 -> 64
 # 5x5 'fused' was 2% ahead, a tie that a rule on F alone leaves to 'split'.
+# bfloat16 (itemsize 2) has its own row, from the same table in bfloat16
+# (`tools/torch_convlstm_route.py --dtype bf16`, PERF.md): 'split' takes
+# 37-166% longer than 'fused' up to F = 32 and 1-26% longer at 64 -> 64
+# (K3's bfloat16 weight pass beats the tail's bfloat16 GEMMs), 9-11% less
+# only at 1 -> 64, where the tail's GEMM over Cin = 1 beats a weight pass
+# of one source channel; so from F = 64 on bfloat16 splits only a layer
+# narrower in than out.
 _SPLIT_MIN_F = 64
 
 
-def dispatch_info(x_shape, wx_shape, wh_shape):
+def dispatch_info(x_shape, wx_shape, wh_shape, itemsize=4):
     """The backward route of a ConvLSTM layer, as a dict: the function
     `FusedConvLSTM.backward` routes on (the port's counterpart of
     `dispatch_info`, dl4ds_tpu/ops/pallas_convlstm.py:873, whose VMEM
-    budgets and lane padding are TPU facts). A pure function of the shapes,
-    from H100 measurements.
+    budgets and lane padding are TPU facts). A pure function of the shapes
+    and the element size (4 float32, 2 bfloat16; the JAX dispatch takes it
+    too, :1044), from H100 measurements.
+
+    In bfloat16 a layer from F = 64 on splits only when Cin < F.
 
     Returns {'path': 'fused' | 'split', 'reason': str}. 'fused' is K2's
     training variant forward and K3 backward; 'split' the same forward and
@@ -292,10 +357,17 @@ def dispatch_info(x_shape, wx_shape, wh_shape):
     GEMMs); both run the same chain-step kernel. Even or mismatched
     kernels raise, as the kernels do."""
     _check_shapes(x_shape, wx_shape, (tuple(wx_shape)[-1],), wh_shape)
+    if itemsize not in (4, 2):
+        raise ValueError(f'ConvLSTM route: itemsize {itemsize} is not a '
+                         f'ported dtype (4 float32, 2 bfloat16)')
     f = wh_shape[2]
     if f < _SPLIT_MIN_F:
         return {'path': 'fused',
                 'reason': f'F {f} < {_SPLIT_MIN_F}: K3 is faster (measured)'}
+    if itemsize == 2 and x_shape[-1] >= f:
+        return {'path': 'fused',
+                'reason': f'bfloat16, Cin {x_shape[-1]} >= F {f}: K3 is '
+                          f'faster (measured)'}
     return {'path': 'split',
             'reason': f'F {f} >= {_SPLIT_MIN_F}: K4 and the GEMM tail are '
                       f'faster (measured)'}
@@ -304,8 +376,8 @@ def dispatch_info(x_shape, wx_shape, wh_shape):
 def _fwd_lib():
     lib = _build.load('convlstm')
     p, i = ctypes.c_void_p, ctypes.c_int
-    argtypes = {'dl4ds_convlstm_input': [p] * 6 + [i] * 14 + [p],
-                'dl4ds_convlstm_step': [p] * 4 + [i] * 14 + [p]}
+    argtypes = {'dl4ds_convlstm_input': [i] + [p] * 6 + [i] * 14 + [p],
+                'dl4ds_convlstm_step': [i] + [p] * 4 + [i] * 14 + [p]}
     for name, types in argtypes.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -317,8 +389,9 @@ def _fwd_lib():
 def _bwd_lib():
     lib = _build.load('convlstm_bwd')
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    argtypes = {'dl4ds_convlstm_wgrad': [p] * 3 + [i] * 16 + [p],
-                'dl4ds_convlstm_wgrad_reduce': [p, i, i64, p, p, i, i64, p, p]}
+    argtypes = {'dl4ds_convlstm_wgrad': [i] + [p] * 3 + [i] * 16 + [p],
+                'dl4ds_convlstm_wgrad_reduce': [i, p, i, i64, p, p, i, i64, p,
+                                                p]}
     for name, types in argtypes.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -330,8 +403,9 @@ def _bwd_lib():
 def _seq_lib():
     lib = _build.load('convlstm_seq')
     p, i = ctypes.c_void_p, ctypes.c_int
-    argtypes = {'dl4ds_convlstm_seq_step': [p] * 6 + [i] * 13 + [p],
-                'dl4ds_convlstm_dx': [p] * 3 + [i] * 12 + [p]}
+    argtypes = {'dl4ds_convlstm_seq_step': [i] + [p] * 6 + [i] * 13 + [p],
+                'dl4ds_convlstm_split_step': [i] + [p] * 6 + [i] * 13 + [p],
+                'dl4ds_convlstm_dx': [i] + [p] * 3 + [i] * 12 + [p]}
     for name, types in argtypes.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -344,18 +418,24 @@ _K2_TILE_W = 32               # the widest K2 pixel tile
 _K2_SMEM_BUDGET = 110 * 1024  # shared memory of a K2 block: two share an SM
 
 
-def _k2_smem(fs, th, tw, kh, kw, cw, rps):
-    """Shared memory bytes of a K2 block (`smem_floats` in
-    `csrc/convlstm.cu`): two input tiles with their halo, 12 floats a pixel;
-    two stages of weight rows (rps tap rows x kw taps x cw channels, padded
-    to 8) of 4*fs gate channels at a row stride of 4*fs + 8; two k-offset
-    tables."""
-    kp = -(-rps * kw * cw // 8) * 8
-    return 4 * (2 * (th + kh - 1) * (tw + kw - 1) * 12
-                + 2 * kp * (4 * fs + 8) + 2 * kp)
+def _kstep(elem):
+    """k rows of one tensor-core k-step: 8 (TF32 m16n8k8, float32) or 16
+    (bfloat16 m16n8k16)."""
+    return 16 if elem == 2 else 8
 
 
-def _fwd_plan(b, t, h, w, kh, kw, f, n_sm):
+def _k2_smem(fs, th, tw, kh, kw, cw, rps, elem=4):
+    """Shared memory bytes of a K2 block (`smem_bytes` in
+    `csrc/convlstm.cu`): two input tiles with their halo, 12 elements a
+    pixel; two stages of weight rows (rps tap rows x kw taps x cw channels,
+    padded to a k-step) of 4*fs gate channels at a row stride of 4*fs + 8;
+    two k-offset tables of ints. elem: bytes an element (4, 2)."""
+    kp = -(-rps * kw * cw // _kstep(elem)) * _kstep(elem)
+    return (elem * (2 * (th + kh - 1) * (tw + kw - 1) * 12
+                    + 2 * kp * (4 * fs + 8)) + 4 * 2 * kp)
+
+
+def _fwd_plan(b, t, h, w, kh, kw, f, n_sm, elem=4):
     """K2's launch plan, a pure function of the layer's shape.
 
     A block (8 warps, each 2 runs of 16 pixels x the four gates of 8
@@ -372,7 +452,10 @@ def _fwd_plan(b, t, h, w, kh, kw, f, n_sm):
     (B*tiles, slices); block x of frame (or sample) x // tiles covers tile
     x % tiles, at rows (tile // tiles_x) * th and columns (tile % tiles_x)
     * tw. Warp k takes the 8-channel sub-slice k % (fs // 8) and the
-    pixels from (k // (fs // 8)) * 32 (`csrc/convlstm.cu`)."""
+    pixels from (k // (fs // 8)) * 32 (`csrc/convlstm.cu`). elem is the
+    element size (4 float32, 2 bfloat16): a bfloat16 block stages 2-byte
+    elements and pads a stage's k rows to 16, the m16n8k16 k-step
+    (`kstep`)."""
     def cdiv(a, d):
         return -(-a // d)
 
@@ -385,32 +468,35 @@ def _fwd_plan(b, t, h, w, kh, kw, f, n_sm):
     fs = 16 if f > 8 and b * geometry(16)[3] * cdiv(f, 16) >= n_sm else 8
     th, tw, tiles_x, tiles = geometry(fs)
     for cw, rps in ((8, kh), (4, kh), (8, 1)):
-        smem = _k2_smem(fs, th, tw, kh, kw, cw, rps)
+        smem = _k2_smem(fs, th, tw, kh, kw, cw, rps, elem)
         if smem <= _K2_SMEM_BUDGET:
             break
     return {'fs': fs, 'th': th, 'tw': tw, 'tiles_x': tiles_x,
             'tiles': tiles, 'slices': cdiv(f, fs), 'cw': cw, 'rps': rps,
             'smem': smem, 'input_grid': (b * t * tiles, cdiv(f, fs)),
             'step_grid': (b * tiles, cdiv(f, fs)),
-            'warps': (64 // fs, fs // 8), 'm_tiles': 2}
+            'warps': (64 // fs, fs // 8), 'm_tiles': 2,
+            'kstep': _kstep(elem)}
 
 
 _SEQ_TILE = 128               # pixels of a chain-step or dx block
 _SEQ_SMEM_BUDGET = 110 * 1024  # shared memory of such a block: two share an SM
 
 
-def _seq_smem(ns, th, tw, kh, kw, cw, rps):
-    """Shared memory bytes of a chain-step or dx block (`smem_floats` in
-    `csrc/convlstm_seq.cu`): two dz tiles with their halo, 12 floats a
+def _seq_smem(ns, th, tw, kh, kw, cw, rps, elem=4):
+    """Shared memory bytes of a chain-step or dx block (`smem_bytes` in
+    `csrc/convlstm_seq.cu`): two dz tiles with their halo, 12 elements a
     pixel; two stages of weight rows (rps tap rows x kw taps x cw channels,
-    padded to 8) of ns output channels at a row stride of max(24, ns + 8);
-    two k-offset tables; at least the epilogue's th*tw rows of ns + 8 sums."""
-    kp = -(-rps * kw * cw // 8) * 8
-    return 4 * max(2 * (th + kh - 1) * (tw + kw - 1) * 12
-                   + 2 * kp * max(24, ns + 8) + 2 * kp, th * tw * (ns + 8))
+    padded to a k-step) of ns output channels at a row stride of max(24, ns
+    + 8); two k-offset tables of ints; at least the epilogue's th*tw rows of
+    ns + 8 float32 sums. elem: bytes an element (4, 2)."""
+    kp = -(-rps * kw * cw // _kstep(elem)) * _kstep(elem)
+    return max(elem * (2 * (th + kh - 1) * (tw + kw - 1) * 12
+                       + 2 * kp * max(24, ns + 8)) + 4 * 2 * kp,
+               4 * th * tw * (ns + 8))
 
 
-def _seq_plan(b, h, w, kh, kw, f, n_sm):
+def _seq_plan(b, h, w, kh, kw, f, n_sm, elem=4):
     """Launch plan of the chain-step tile (K4, and K3's chain and dx), a
     pure function of the shapes: b frames (samples for a chain step, B*T
     frames for dx), f output channels (F, or Cin for dx), 4F dz channels.
@@ -427,7 +513,7 @@ def _seq_plan(b, h, w, kh, kw, f, n_sm):
 
     The grid is (b*tiles, slices); block x covers tile x % tiles of frame
     x // tiles, at rows (tile // tiles_x) * th and columns (tile % tiles_x)
-    * tw (`csrc/convlstm_seq.cu`)."""
+    * tw (`csrc/convlstm_seq.cu`). elem as `_fwd_plan`'s."""
     def cdiv(a, d):
         return -(-a // d)
 
@@ -441,7 +527,7 @@ def _seq_plan(b, h, w, kh, kw, f, n_sm):
     while ns > 8 and b * tiles * cdiv(f, ns) < n_sm:
         ns //= 2
     for cw, rps in ((8, kh), (4, kh), (8, 1)):
-        smem = _seq_smem(ns, th, tw, kh, kw, cw, rps)
+        smem = _seq_smem(ns, th, tw, kh, kw, cw, rps, elem)
         if smem <= _SEQ_SMEM_BUDGET:
             break
     warps_n = 2 if ns == 64 else 1
@@ -449,7 +535,7 @@ def _seq_plan(b, h, w, kh, kw, f, n_sm):
             'tiles': tiles, 'slices': cdiv(f, ns), 'cw': cw, 'rps': rps,
             'smem': smem, 'grid': (b * tiles, cdiv(f, ns)),
             'warps': (8 // warps_n, warps_n), 'm_tiles': 2 if ns == 64 else 1,
-            'n_tiles': ns // 8 // warps_n}
+            'n_tiles': ns // 8 // warps_n, 'kstep': _kstep(elem)}
 
 
 def _wgrad_plan(b, t, t_skip, h, w, cs, f, kh, kw, n_sm):
@@ -464,9 +550,10 @@ def _wgrad_plan(b, t, t_skip, h, w, cs, f, kh, kw, n_sm):
     255) of up to tpc taps (at most 255 rows; the Wx pass's first chunk
     adds a row of ones for db) and 32 gate columns; grid.y counts those
     chunks. (The kernel gives each warp 2 m16 row tiles and lets the warps
-    the rows leave over split the k-steps.)
-
-    Returns a dict; n_chunks is the number of partial rows (grid.x)."""
+    the rows leave over split the k-steps; a k-step takes 8 pixels of a
+    tile in float32 and 16 in bfloat16, the kernel padding the tile's
+    pixels to it.) The same plan for both dtypes. Returns a dict; n_chunks
+    is the number of partial rows (grid.x)."""
     def cdiv(a, d):
         return -(-a // d)
 
@@ -482,12 +569,17 @@ def _wgrad_plan(b, t, t_skip, h, w, cs, f, kh, kw, n_sm):
             'cwc': cwc, 'tpc': tpc, 'grid_y': grid_y}
 
 
+# the kernels' element-type codes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def _check_cuda(tensors, what):
-    if any(u.dtype != torch.float32 for u in tensors):
+    dt = tensors[0].dtype
+    if dt not in _DTYPE_CODES or any(u.dtype != dt for u in tensors):
         raise TypeError(
-            f'the ConvLSTM {what} takes float32 only, got '
-            f'{[str(u.dtype) for u in tensors]}; other model dtypes are not '
-            f'ported yet (ROADMAP.md queue 1, item 5)')
+            f'the ConvLSTM {what} takes float32 or bfloat16, one dtype for '
+            f'every tensor, got {[str(u.dtype) for u in tensors]}; other '
+            f'model dtypes are not ported yet (ROADMAP.md queue 1, item 5)')
     dev = tensors[0].device
     if dev.type != 'cuda' or any(u.device != dev for u in tensors):
         raise ValueError(f'the ConvLSTM {what} needs every tensor on one CUDA '
@@ -518,14 +610,15 @@ def _launch(x, wx, bx, wh, train=False):
     if b * t * h * w == 0:
         raise ValueError(f'ConvLSTM kernel got an empty x {tuple(x.shape)}')
     x, wx, bx, wh = (_aligned(u) for u in tensors)
-    plan = _fwd_plan(b, t, h, w, kh, kw, f, _n_sm(dev))
+    plan = _fwd_plan(b, t, h, w, kh, kw, f, _n_sm(dev), x.element_size())
     if plan['input_grid'][0] >= 2 ** 31:
         raise ValueError(f'ConvLSTM kernel got too many pixel tiles for one '
                          f'launch: x {tuple(x.shape)}')
-    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    empty = lambda *s: torch.empty(s, dtype=x.dtype, device=dev)  # noqa: E731
     ys = empty(b, t, h, w, f)
     zx = empty(b, t, h, w, f4)        # zs in training, a scratch in inference
     c = empty(b, t, h, w, f) if train else empty(b, h, w, f)
+    code = _DTYPE_CODES[x.dtype]
     geometry = (kh, kw) + tuple(plan[k] for k in ('fs', 'th', 'tw', 'cw',
                                                   'rps')) + (int(train),)
     lib = _fwd_lib()
@@ -542,12 +635,12 @@ def _launch(x, wx, bx, wh, train=False):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         check(lib.dl4ds_convlstm_input(
-            x.data_ptr(), wx.data_ptr(), bx.data_ptr(), zx.data_ptr(),
+            code, x.data_ptr(), wx.data_ptr(), bx.data_ptr(), zx.data_ptr(),
             ys.data_ptr(), c.data_ptr(), b, t, h, w, cin, f, *geometry,
             stream), 'input conv and step 0')
         for step in range(1, t):
             check(lib.dl4ds_convlstm_step(
-                wh.data_ptr(), zx.data_ptr(), ys.data_ptr(), c.data_ptr(), b,
+                code, wh.data_ptr(), zx.data_ptr(), ys.data_ptr(), c.data_ptr(), b,
                 t, step, h, w, f, *geometry, stream), f'step {step}')
     return (ys, c, zx) if train else ys
 
@@ -561,20 +654,24 @@ def _flip_t(w):
 
 def _chain(zs, cs, dys, wh, count):
     """Run the chain-step kernel T times in reverse on the current stream,
-    adding one to `fused_convlstm.<count>` a launch. Returns dzs [B, T, H,
-    W, 4F]."""
+    adding one to `fused_convlstm.<count>` a launch: K3's chain
+    ('bwd_launches') or K4's ('seq_launches'), the same tile under two
+    kernel names. Returns dzs [B, T, H, W, 4F]."""
     b, t, h, w, f4 = zs.shape
     kh, kw, f, _ = wh.shape
     dev = zs.device
-    plan = _seq_plan(b, h, w, kh, kw, f, _n_sm(dev))
+    plan = _seq_plan(b, h, w, kh, kw, f, _n_sm(dev), zs.element_size())
     geometry = tuple(plan[k] for k in ('ns', 'th', 'tw', 'cw', 'rps'))
     wht = _flip_t(wh)
     dzs = torch.empty_like(zs)
-    dcs = torch.empty((b, h, w, f), dtype=torch.float32, device=dev)
-    fn = _seq_lib().dl4ds_convlstm_seq_step
+    dcs = torch.empty((b, h, w, f), dtype=zs.dtype, device=dev)
+    lib = _seq_lib()
+    fn = (lib.dl4ds_convlstm_split_step if count == 'seq_launches'
+          else lib.dl4ds_convlstm_seq_step)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for step in reversed(range(t)):
-        err = fn(zs.data_ptr(), cs.data_ptr(), dys.data_ptr(), wht.data_ptr(),
+        err = fn(_DTYPE_CODES[zs.dtype], zs.data_ptr(), cs.data_ptr(),
+                 dys.data_ptr(), wht.data_ptr(),
                  dzs.data_ptr(), dcs.data_ptr(), b, t, step, h, w, f, kh, kw,
                  *geometry, stream)
         if err != 0:
@@ -609,6 +706,7 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
     x, wx, wh, zs, cs, ys, dys = (_aligned(u) for u in tensors)
     n_sm = _n_sm(dev)
     lib = _bwd_lib()
+    code = _DTYPE_CODES[x.dtype]
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     lx = kh * kw * cin * f4
     plan_x = _wgrad_plan(b, t, 0, h, w, cin, f, kh, kw, n_sm)
@@ -616,7 +714,9 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
     plan_h = _wgrad_plan(b, t, 1, h, w, f, f, kh, kw, n_sm) if t > 1 else None
     part_h = (empty(plan_h['n_chunks'], kh * kw * f * f4) if t > 1
               else empty(0))
-    out_x, dwh = empty(lx + f4), empty(kh, kw, f, f4)
+    # the reduction writes the sums in x's dtype, each rounded once
+    out_x = torch.empty(lx + f4, dtype=x.dtype, device=dev)
+    dwh = torch.empty((kh, kw, f, f4), dtype=x.dtype, device=dev)
 
     def check(err, what):
         if err != 0:
@@ -626,7 +726,8 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
 
     def wgrad(src, part, plan, with_db, t_skip, cs_):
         check(lib.dl4ds_convlstm_wgrad(
-            src.data_ptr(), dzs.data_ptr(), part.data_ptr(), plan['n_chunks'],
+            code, src.data_ptr(), dzs.data_ptr(), part.data_ptr(),
+            plan['n_chunks'],
             with_db, b, t, t_skip, h, w, cs_, f, kh, kw,
             *(plan[k] for k in ('tph', 'tpw', 'tpb', 'cwc', 'tpc')), stream),
             'dWx' if with_db else 'dWh')
@@ -636,11 +737,11 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
         dzs = _chain(zs, cs, dys, wh, 'bwd_launches')
         dx = None
         if need_dx:
-            dx = empty(b, t, h, w, cin)
-            plan = _seq_plan(b * t, h, w, kh, kw, cin, n_sm)
+            dx = torch.empty((b, t, h, w, cin), dtype=x.dtype, device=dev)
+            plan = _seq_plan(b * t, h, w, kh, kw, cin, n_sm, x.element_size())
             wxt = _flip_t(wx)
             check(_seq_lib().dl4ds_convlstm_dx(
-                dzs.data_ptr(), wxt.data_ptr(), dx.data_ptr(), b * t, h, w,
+                code, dzs.data_ptr(), wxt.data_ptr(), dx.data_ptr(), b * t, h, w,
                 cin, f, kh, kw,
                 *(plan[k] for k in ('ns', 'th', 'tw', 'cw', 'rps')), stream),
                 'dx')
@@ -648,7 +749,7 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
         if plan_h is not None:
             wgrad(ys, part_h, plan_h, 0, 1, f)
         check(lib.dl4ds_convlstm_wgrad_reduce(
-            part_x.data_ptr(), part_x.shape[0], lx + f4, out_x.data_ptr(),
+            code, part_x.data_ptr(), part_x.shape[0], lx + f4, out_x.data_ptr(),
             part_h.data_ptr(), part_h.shape[0], dwh.numel(), dwh.data_ptr(),
             stream), 'reduce')
     return dx, out_x[:lx].view(kh, kw, cin, f4), out_x[lx:], dwh
@@ -713,8 +814,11 @@ class FusedConvLSTM(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dys):
         x, wx, wh, zs, cs, ys = ctx.saved_tensors
-        route = ctx.route or dispatch_info(x.shape, wx.shape,
-                                           wh.shape)['path']
+        # a float64 run (the CPU reference of a float32 one) routes as
+        # float32
+        itemsize = 2 if x.dtype == torch.bfloat16 else 4
+        route = ctx.route or dispatch_info(x.shape, wx.shape, wh.shape,
+                                           itemsize)['path']
         grads = _backward(route, x, wx, wh, zs, cs, ys, dys.contiguous(),
                           need_dx=ctx.needs_input_grad[0])
         return tuple(g if need else None for g, need in
@@ -728,7 +832,7 @@ def fused_convlstm(x, wx, bx, wh):
     With grad mode on and any input that requires grad, `FusedConvLSTM`
     (differentiable; on CUDA K2's training variant, and K3 or K4 with the
     GEMM tail as `dispatch_info` routes the layer). Otherwise, on CUDA
-    tensors K2's inference variant, float32 only;
+    tensors K2's inference variant, float32 or bfloat16;
     on CPU tensors `convlstm_reference`. `fused_convlstm.launches` counts K2
     inference launches (T a layer: the input launch and T-1 steps), `.train_launches` K2 training launches,
     `.bwd_launches` K3 launches and `.seq_launches` K4 launches; the CPU path

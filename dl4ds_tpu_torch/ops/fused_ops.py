@@ -12,6 +12,17 @@ PyTorch versions: `channel_attention_reference` and
 the VJP the JAX package takes through its XLA ssim). There is no size-based
 or error-based fallback on the GPU. The launch plans, pure functions of the
 shapes and the card's limits, are `_ca_plan` and `_ssim_plan`.
+
+The gate has two bfloat16 modes. `out_dtype=None` gives y in x's dtype
+with a float32 mean and gate, the gate rounded before the multiply: the
+Pallas `_kernel`'s semantics (dl4ds_tpu/ops/pallas_ops.py:39-50).
+`out_dtype=torch.float32` with a bfloat16 x (the "mixed" mode) gives a
+float32 y with the rounding points of `channel_attention_reference` in a
+bfloat16 model (:29-36), which is the gate a bfloat16 JAX model runs
+everywhere but on a TPU with DL4DS_USE_PALLAS=1: the mean, w1, w2 and
+m @ w1 are bfloat16, the float32 biases promote the rest, y = x * g in
+float32. Its backward takes a float32 dy and returns a bfloat16 dx, with
+the rounding points of that function's VJP (`_channel_attention_backward`).
 """
 
 import ctypes
@@ -45,27 +56,63 @@ def _acc_dtype(x):
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _gate(x, w1, b1, w2, b2):
+def _mixed(x, out_dtype):
+    """Whether the gate runs its mixed mode: a bfloat16 x, a float32 y."""
+    if out_dtype is None or out_dtype == x.dtype:
+        return False
+    if x.dtype == torch.bfloat16 and out_dtype == torch.float32:
+        return True
+    raise TypeError(f'channel-attention gate: out_dtype {out_dtype} with x '
+                    f'{x.dtype}; it takes out_dtype None, x\'s dtype, or '
+                    f'float32 with a bfloat16 x')
+
+
+def _rb(t):
+    """t rounded to bfloat16, held in float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _weights_mixed(w1, w2):
+    """w1 and w2 rounded to bfloat16, as the mixed mode casts them."""
+    return _rb(w1.float()), _rb(w2.float())
+
+
+def _gate(x, w1, b1, w2, b2, mixed=False):
     """The per-sample mean m and gate g, [..., C], in float32 (float64 for a
-    float64 x)."""
+    float64 x). mixed: m is the bfloat16-rounded mean, w1, w2 and m @ w1
+    are rounded to bfloat16 (`channel_attention_reference` in bfloat16)."""
     f32 = _acc_dtype(x)
     m = x.to(f32).mean(dim=(-3, -2))                          # [..., C]
+    if mixed:
+        m = _rb(m)
+        w1r, w2r = _weights_mixed(w1, w2)
+        h = F.relu(_rb(m @ w1r) + b1.to(f32))
+        return m, torch.sigmoid(h @ w2r + b2.to(f32))
     h = F.relu(m @ w1.to(f32) + b1.to(f32))
     return m, torch.sigmoid(h @ w2.to(f32) + b2.to(f32))
 
 
-def channel_attention_reference(x, w1, b1, w2, b2):
+def channel_attention_reference(x, w1, b1, w2, b2, out_dtype=None):
     """Plain PyTorch gate: y = x * sigmoid(relu(mean_HW(x) @ w1 + b1) @ w2
     + b2), with the mean and both mat-vecs in float32 and the gate rounded to
-    x's dtype before the multiply, as the kernel does."""
-    _, g = _gate(x, w1, b1, w2, b2)
+    x's dtype before the multiply, as the kernel does; with a bfloat16 x and
+    out_dtype float32, the mixed mode (float32 y = x * g, the module
+    docstring's rounding points)."""
+    mixed = _mixed(x, out_dtype)
+    _, g = _gate(x, w1, b1, w2, b2, mixed)
+    if mixed:
+        return x.float() * g[..., None, None, :]
     return x * g.to(x.dtype)[..., None, None, :]
 
 
-def _channel_attention_backward(x, w1, b1, w2, b2, dy, m=None, g=None):
+def _channel_attention_backward(x, w1, b1, w2, b2, dy, m=None, g=None,
+                                mixed=False):
     """Gradients of the gate for x [B, H, W, C] (transcribes `_fused_ca_bwd`,
     dl4ds_tpu/ops/pallas_ops.py:88-112). m and g [B, C] are the forward's
-    mean and gate where it saved them, else formed from x."""
+    mean and gate where it saved them, else formed from x. mixed: the VJP
+    of `channel_attention_reference` in bfloat16 (`_backward_mixed`)."""
+    if mixed:
+        return _backward_mixed(x, w1, b1, w2, b2, dy, m, g)
     f32 = _acc_dtype(x)
     hw = x.shape[-3] * x.shape[-2]
     xf = x.to(f32)
@@ -91,6 +138,37 @@ def _channel_attention_backward(x, w1, b1, w2, b2, dy, m=None, g=None):
             dw2.to(w2.dtype), db2.to(b2.dtype))
 
 
+def _backward_mixed(x, w1, b1, w2, b2, dy, m=None, g=None):
+    """The mixed mode's gradients for a bfloat16 x and a float32 dy: the VJP
+    JAX takes of `channel_attention_reference` in bfloat16, rounded where
+    its casts round (each bfloat16 product or cast rounds once; the sums are
+    float32): dx = bf(bf(dy g) + bf(bf(dm) / HW)) with dm = bf(dh_pre) @
+    w1^T, dw1 = bf(m^T bf(dh_pre)), dw2 = bf(relu(h_pre)^T dg_pre), db1 and
+    db2 unrounded; w1, w2 and m @ w1 rounded as in the forward. m and g
+    are the forward's (m the rounded mean), else formed from x."""
+    f32 = _acc_dtype(dy)     # float64 sums for a float64 dy (a reference run)
+    hw = x.shape[-3] * x.shape[-2]
+    if m is None or g is None:
+        m, g = _gate(x, w1, b1, w2, b2, mixed=True)
+    m, g = m.to(f32), g.to(f32)
+    w1r, w2r = (u.to(f32) for u in _weights_mixed(w1, w2))
+    h_pre = _rb(m @ w1r).to(f32) + b1.to(f32)
+    hh = F.relu(h_pre)
+    dyf = dy.to(f32)
+    dg = (dyf * x.to(f32)).sum(dim=(-3, -2))                   # [B, C]
+    dg_pre = dg * g * (1.0 - g)
+    dw2 = _rb(hh.T @ dg_pre)
+    db2 = dg_pre.sum(dim=0)
+    dh_pre = (dg_pre @ w2r.T) * (h_pre > 0)
+    db1 = dh_pre.sum(dim=0)
+    dhr = _rb(dh_pre).to(f32)
+    dw1 = _rb(m.T @ dhr)
+    dmh = _rb(_rb(dhr @ w1r.T) / hw)
+    dx = _rb(dyf * g[:, None, None, :]) + dmh[:, None, None, :]
+    return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+            dw2.to(w2.dtype), db2.to(b2.dtype))
+
+
 def _r16(n):
     return -(-n // 16) * 16
 
@@ -102,13 +180,15 @@ def _ca_smem(region, vec, c, cr):
     return region + 4 * (_CA_THREADS * vec + 6 * c + 2 * cr)
 
 
-def _ca_plan(shape, cr, dtype, n_sm, smem_per_block, aligned=True):
+def _ca_plan(shape, cr, dtype, n_sm, smem_per_block, aligned=True,
+             out_dtype=None):
     """K1's launch plan, forward and backward, a pure function of x's shape
-    [B, H, W, C], Cr, the dtype and the card's limits: its SMs and the
-    dynamic shared memory a block may take.
+    [B, H, W, C], Cr, x's dtype, y's (`out_dtype`, None for x's: float32
+    with a bfloat16 x is the mixed mode, whose dy is float32 too) and the
+    card's limits: its SMs and the dynamic shared memory a block may take.
 
-    Packs are 16 bytes (`vec` elements; 1 when x or the output is not
-    16-byte aligned or H*W*C is not a multiple of a pack). Regimes:
+    Packs are 16 bytes of x (`vec` elements; 1 when a tensor is not 16-byte
+    aligned or H*W*C is not a multiple of a pack). Regimes:
       'block'   a sample (the backward: dy's) in one block's shared memory,
                 grid B; one launch.
       'stream'  the sample's H*W pixels cut into `parts` contiguous chunks
@@ -119,7 +199,10 @@ def _ca_plan(shape, cr, dtype, n_sm, smem_per_block, aligned=True):
                 second over `apply_blocks` blocks.
     The region of the block regime also holds one sample's weight-gradient
     rows (the backward's staging); the backward's region (`bwd_region`,
-    `bwd_smem`) holds dy's sample and, where both fit, x's after it.
+    `bwd_smem`) holds dy's sample and, where both fit, x's after it. In the
+    mixed mode dy's sample takes 4 bytes an element and x's 2, so the block
+    regime needs the backward's dy region to fit too, and a sample's
+    weight-gradient rows hold one more Cr-vector (the rounded dh_pre).
     `tools/torch_ca_regimes.py` times the two regimes against each other."""
     def cdiv(a, d):
         return -(-a // d)
@@ -127,15 +210,18 @@ def _ca_plan(shape, cr, dtype, n_sm, smem_per_block, aligned=True):
     bsz, h, w, c = shape
     hw = h * w
     elem = _ELEM_BYTES[dtype]
+    out_elem = _ELEM_BYTES[dtype if out_dtype is None else out_dtype]
     vec = 16 // elem if aligned and (hw * c) % (16 // elem) == 0 else 1
-    staging = _r16(4 * (2 * c + 2 * cr))
+    rows = 2 * c + (3 if out_elem != elem else 2) * cr
+    staging = _r16(4 * rows)
     plan = dict(vec=vec, apply_blocks=0)
     region = max(_r16(hw * c * elem), staging)
+    dy_region = max(_r16(hw * c * out_elem), staging)
     smem = _ca_smem(region, vec, c, cr)
-    if smem <= smem_per_block:
-        both = max(2 * _r16(hw * c * elem), staging)
+    if max(smem, _ca_smem(dy_region, vec, c, cr)) <= smem_per_block:
+        both = max(_r16(hw * c * out_elem) + _r16(hw * c * elem), staging)
         bwd_region = (both if _ca_smem(both, vec, c, cr) <= smem_per_block
-                      else region)
+                      else dy_region)
         plan.update(regime='block', parts=1, ppp=hw, region=region, smem=smem,
                     bwd_region=bwd_region,
                     bwd_smem=_ca_smem(bwd_region, vec, c, cr), grid=bsz,
@@ -241,15 +327,26 @@ def _weights32(dev, *ws):
     return [t.to(device=dev, dtype=torch.float32).contiguous() for t in ws]
 
 
-def _launch(x, w1, b1, w2, b2):
-    """Run K1's forward on x [B, H, W, C]; returns y like x and the mean and
-    gate [B, C] in float32, which the backward takes."""
+# the kernels' type codes: x's type, or the mixed mode (bfloat16 x, float32
+# y and dy)
+_MIXED_CODE = 2
+
+
+def _type_code(x, mixed):
+    return _MIXED_CODE if mixed else _DTYPE_CODES[x.dtype]
+
+
+def _launch(x, w1, b1, w2, b2, mixed=False):
+    """Run K1's forward on x [B, H, W, C]; returns y (like x, or float32 in
+    the mixed mode) and the mean and gate [B, C] in float32, which the
+    backward takes."""
     bsz, h, w, c, cr = _check_gate(x, w1, b1, w2, b2)
     dev = x.device
     w1, b1, w2, b2 = _weights32(dev, w1, b1, w2, b2)
-    y = torch.empty_like(x)
+    y = torch.empty_like(x, dtype=torch.float32 if mixed else x.dtype)
     plan = _ca_plan((bsz, h, w, c), cr, x.dtype, *_ca_limits(dev),
-                    aligned=x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+                    aligned=x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0,
+                    out_dtype=y.dtype)
     m, g = torch.empty((2, bsz, c), dtype=torch.float32, device=dev)
     stream_regime = plan['regime'] == 'stream'
     partial = (torch.empty((bsz, plan['parts'], c), dtype=torch.float32,
@@ -259,7 +356,7 @@ def _launch(x, w1, b1, w2, b2):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _ca_lib().dl4ds_channel_attention(
-            _DTYPE_CODES[x.dtype], _REGIME_CODES[plan['regime']], plan['vec'],
+            _type_code(x, mixed), _REGIME_CODES[plan['regime']], plan['vec'],
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), y.data_ptr(), m.data_ptr(), g.data_ptr(),
             partial.data_ptr() if stream_regime else None,
@@ -273,14 +370,16 @@ def _launch(x, w1, b1, w2, b2):
     return y, m, g
 
 
-def _launch_backward(x, w1, b1, w2, b2, dy, m, g):
+def _launch_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
     """Run K1's backward: (dx, dw1, db1, dw2, db2) from x, dy [B, H, W, C]
-    and the forward's mean and gate m, g [B, C] float32."""
+    and the forward's mean and gate m, g [B, C] float32; dx like x. In the
+    mixed mode dy is float32 and x bfloat16."""
     bsz, h, w, c, cr = _check_gate(x, w1, b1, w2, b2)
-    if dy.dtype != x.dtype or dy.shape != x.shape:
-        raise ValueError(f'channel-attention backward needs dy like x '
-                         f'{tuple(x.shape)} {x.dtype}, got {tuple(dy.shape)} '
-                         f'{dy.dtype}')
+    dy_dtype = torch.float32 if mixed else x.dtype
+    if dy.dtype != dy_dtype or dy.shape != x.shape:
+        raise ValueError(f'channel-attention backward needs dy of x\'s shape '
+                         f'{tuple(x.shape)} in {dy_dtype}, got '
+                         f'{tuple(dy.shape)} {dy.dtype}')
     if not dy.is_contiguous():
         raise ValueError('channel-attention backward needs a contiguous dy')
     for name, t in (('m', m), ('g', g)):
@@ -296,12 +395,14 @@ def _launch_backward(x, w1, b1, w2, b2, dy, m, g):
     w1_, b1_, w2_ = _weights32(dev, w1, b1, w2)
     dx = torch.empty_like(x)
     plan = _ca_plan((bsz, h, w, c), cr, x.dtype, *_ca_limits(dev),
-                    aligned=all(t.data_ptr() % 16 == 0 for t in (x, dy, dx)))
+                    aligned=all(t.data_ptr() % 16 == 0 for t in (x, dy, dx)),
+                    out_dtype=dy.dtype)
     dw = torch.empty(2 * c * cr + c + cr, dtype=torch.float32, device=dev)
     dw1, dw2 = dw[:c * cr].view(c, cr), dw[c * cr:2 * c * cr].view(cr, c)
     db1, db2 = dw[2 * c * cr:2 * c * cr + cr], dw[2 * c * cr + cr:]
     n_chunks, n_out = -(-bsz // _CA_CHUNK), 2 * c * cr + c + cr
-    rows = torch.empty(bsz * (c + 2 * cr) + n_chunks * n_out,
+    row_len = c + (3 if mixed else 2) * cr
+    rows = torch.empty(bsz * row_len + n_chunks * n_out,
                        dtype=torch.float32, device=dev)
     stream_regime = plan['regime'] == 'stream'
     partial = dmh = None
@@ -314,13 +415,13 @@ def _launch_backward(x, w1, b1, w2, b2, dy, m, g):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _ca_lib().dl4ds_channel_attention_bwd(
-            _DTYPE_CODES[x.dtype], _REGIME_CODES[plan['regime']], plan['vec'],
+            _type_code(x, mixed), _REGIME_CODES[plan['regime']], plan['vec'],
             x.data_ptr(), dy.data_ptr(), m.data_ptr(), g.data_ptr(),
             w1_.data_ptr(), b1_.data_ptr(), w2_.data_ptr(), dx.data_ptr(),
             dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
             partial.data_ptr() if stream_regime else None,
             dmh.data_ptr() if stream_regime else None, rows.data_ptr(),
-            rows[bsz * (c + 2 * cr):].data_ptr(), counters.data_ptr(),
+            rows[bsz * row_len:].data_ptr(), counters.data_ptr(),
             _CA_COUNTER_SLOT, bsz, h * w, c, cr, plan['parts'], plan['ppp'], plan['bwd_region'], plan['bwd_smem'],
             plan['apply_blocks'], stream)
     if err != 0:
@@ -334,39 +435,49 @@ def _launch_backward(x, w1, b1, w2, b2, dy, m, g):
 class FusedChannelAttention(torch.autograd.Function):
     """The gate on x [B, H, W, C]: the CUDA kernels forward and backward on
     the GPU, the plain versions on the CPU. The forward saves the per-sample
-    mean and gate for the backward."""
+    mean and gate for the backward. `mixed` selects the mixed mode."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
+    def forward(ctx, x, w1, b1, w2, b2, mixed=False):
         if x.device.type == 'cuda':
-            y, m, g = _launch(x, w1, b1, w2, b2)
+            y, m, g = _launch(x, w1, b1, w2, b2, mixed)
         elif x.device.type == 'cpu':
-            m, g = _gate(x, w1, b1, w2, b2)
-            y = x * g.to(x.dtype)[..., None, None, :]
+            m, g = _gate(x, w1, b1, w2, b2, mixed)
+            y = (x.float() * g[..., None, None, :] if mixed
+                 else x * g.to(x.dtype)[..., None, None, :])
         else:
             raise ValueError(f'unsupported device {x.device}')
         ctx.save_for_backward(x, w1, b1, w2, b2, m, g)
+        ctx.mixed = mixed
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, w1, b1, w2, b2, m, g = ctx.saved_tensors
         if x.device.type == 'cuda':
-            return _launch_backward(x, w1, b1, w2, b2, dy.contiguous(), m, g)
-        return _channel_attention_backward(x, w1, b1, w2, b2, dy, m, g)
+            grads = _launch_backward(x, w1, b1, w2, b2, dy.contiguous(), m, g,
+                                     ctx.mixed)
+        else:
+            grads = _channel_attention_backward(x, w1, b1, w2, b2, dy, m, g,
+                                                ctx.mixed)
+        return grads + (None,)
 
 
-def fused_channel_attention(x, w1, b1, w2, b2):
+def fused_channel_attention(x, w1, b1, w2, b2, out_dtype=None):
     """Fused squeeze-excite channel attention: y = x * sigmoid((relu(mean_hw(x)
     @ w1 + b1)) @ w2 + b2).
 
     x: [..., H, W, C] (leading dims flattened); w1: [C, Cr]; b1: [Cr];
-    w2: [Cr, C]; b2: [C]. `fused_channel_attention.launches` counts the
-    CUDA forward's calls, `.bwd_launches` the backward's (each one or two
-    kernel launches, by `_ca_plan`); the CPU path launches nothing.
+    w2: [Cr, C]; b2: [C]. y is in x's dtype, or float32 with
+    out_dtype=torch.float32: for a bfloat16 x that is the mixed mode (the
+    module docstring), the gate of a bfloat16 model.
+    `fused_channel_attention.launches` counts the CUDA forward's calls,
+    `.bwd_launches` the backward's (each one or two kernel launches, by
+    `_ca_plan`); the CPU path launches nothing.
     """
     *_, h, w, c = x.shape
-    y = FusedChannelAttention.apply(x.reshape(-1, h, w, c), w1, b1, w2, b2)
+    y = FusedChannelAttention.apply(x.reshape(-1, h, w, c), w1, b1, w2, b2,
+                                    _mixed(x, out_dtype))
     return y.reshape(x.shape)
 
 

@@ -44,6 +44,10 @@ __all__ = ['SupervisedTrainer']
 
 class SupervisedTrainer(Trainer):
     """Supervised (pixel-loss) trainer, with the JAX package's signature.
+    The model dtype is an architecture parameter, as in the JAX trainer:
+    `dtype=torch.bfloat16` trains a bfloat16 model (float32 parameters,
+    Adam and loss; the parameters are cast inside each forward, one cast a
+    parameter tensor a step, which a replayed step holds too).
 
     `use_multiprocessing`, `model_list`, `gpu_memory_growth` and
     `show_plot` are accepted and do nothing, as in the JAX package. The
@@ -276,7 +280,9 @@ class SupervisedTrainer(Trainer):
         (dl4ds_tpu/training/base.py:29-49). Device work only; returns the
         loss as a device scalar."""
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.train_net(batch['lr'], batch['aux'])
+        # the loss in float32 whatever the model dtype, as the JAX trainer
+        # casts the output (dl4ds_tpu/training/supervised.py:461-462)
+        out = self.train_net(batch['lr'], batch['aux']).float()
         loss = self.lossf(batch['hr'], out)
         loss.backward()
         with torch.no_grad():
@@ -332,7 +338,8 @@ class SupervisedTrainer(Trainer):
         """The loss of `net` on plan row `_row` of `synth`, written to
         `losses[_row]`, then the next row."""
         batch = synth.step_batch(plan, self._row)
-        loss = self.lossf(batch['hr'], net(batch['lr'], batch['aux']))
+        loss = self.lossf(batch['hr'],
+                          net(batch['lr'], batch['aux']).float())
         losses.index_copy_(0, self._row, loss.view(1))
         self._row.add_(1)
 

@@ -121,11 +121,12 @@ def test_k2_cpu_tensor_launches_no_kernel():
     assert tds.fused_convlstm.launches == before
 
 
-@pytest.mark.parametrize('case', ['float64', 'bfloat16', 'grad'])
+@pytest.mark.parametrize('case', ['float64', 'float16', 'grad'])
 def test_k2_kernel_wrapper_guards(case):
     """The CUDA wrapper's checks run before anything reaches the card: the
-    kernel takes float32 only (other dtypes are ROADMAP item 5) and CUDA
-    tensors only, in both variants. Weights that require grad (grad mode
+    kernel takes float32 or bfloat16 only, one dtype for every tensor
+    (other dtypes are ROADMAP item 5), and CUDA tensors only, in both
+    variants. Weights that require grad (grad mode
     on) route the layer through FusedConvLSTM, whose forward is the
     training variant."""
     x, wx, bx, wh = map(torch.from_numpy, _k2_inputs(K2_SHAPES[0]))
@@ -453,7 +454,7 @@ def test_load_jax_params_rejects_a_stray_convlstm_leaf():
 @pytest.mark.parametrize('kwargs', [
     dict(backbone_block='convnet'), dict(backbone_block='densenet'),
     dict(upsampling='rc'), dict(upsampling='dc'), dict(normalization='bn'),
-    dict(dropout_rate=0.2), dict(dtype=torch.bfloat16),
+    dict(dropout_rate=0.2), dict(dtype=torch.float16),
     dict(localcon_layer=True)])
 def test_unported_recurrent_configurations_raise(kwargs):
     args = dict(backbone_block='resnet', upsampling='spc', n_aux_channels=2,

@@ -115,7 +115,7 @@ def test_activation_matches_jax(name):
 @pytest.mark.parametrize('kwargs', [
     dict(backbone_block='convnet'), dict(upsampling='rc'),
     dict(normalization='bn'), dict(normalization='ln'),
-    dict(dropout_rate=0.2), dict(dtype=torch.bfloat16),
+    dict(dropout_rate=0.2), dict(dtype=torch.float16),
     dict(localcon_layer=True)])
 def test_unported_configurations_raise(kwargs):
     args = dict(backbone_block='resnet', upsampling='spc', scale=4, **SMALL)

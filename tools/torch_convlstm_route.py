@@ -3,6 +3,7 @@
 each route on one GPU.
 
     python3 tools/torch_convlstm_route.py [--out route_table.json]
+                                          [--dtype bf16]
 
 For every layer shape F in {8, 16, 32, 64}, Cin in {1, F}, k in {3, 5} (the
 six layer shapes of both recresnet_spc training paths among them: n_filters
@@ -22,6 +23,12 @@ Prints one line per shape and one JSON object with the table, the card's
 name and power limit, and whether `dispatch_info` picks the faster route of
 every shape; writes the JSON to --out too. Fails without a CUDA device or
 when a route disagrees with the reference.
+
+With `--dtype bf16` the layers are bfloat16 (the bfloat16 forms of K2, K3
+and K4, and the tail's bfloat16 GEMMs), `dispatch_info` is asked with
+itemsize 2, the bounds are at the bfloat16 mma.sync peak, and each route's
+gradients are held against the plain tail run in float64 on the chain's
+own dzs (each within 1e-2 of max |ref|: one rounding to bfloat16).
 """
 
 import argparse
@@ -32,8 +39,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-TOL = 1e-5
-F32_FLOPS = 67e12
+TOL = {'f32': 1e-5, 'bf16': 1e-2}
+# the products' ceilings: float32 outside the tensor cores, and the
+# bfloat16 mma.sync peak (tools/torch_mma_peak.py, NVIDIA H100 80GB HBM3,
+# 700 W)
+PEAK_FLOPS = {'f32': 67e12, 'bf16': 643e12}
 BATCH, T, SIZE = 128, 4, 16
 WIDTHS = (8, 16, 32, 64)
 
@@ -41,6 +51,7 @@ WIDTHS = (8, 16, 32, 64)
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default=None)
+    ap.add_argument('--dtype', choices=('f32', 'bf16'), default='f32')
     args = ap.parse_args()
 
     import torch
@@ -60,6 +71,8 @@ def main():
          '--format=csv,noheader'], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip()
     dev = torch.device('cuda')
+    dtype = {'f32': torch.float32, 'bf16': torch.bfloat16}[args.dtype]
+    tol, peak = TOL[args.dtype], PEAK_FLOPS[args.dtype]
     gen = torch.Generator(device=dev).manual_seed(4)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     b, t, s = BATCH, T, SIZE
@@ -67,16 +80,23 @@ def main():
     for f in WIDTHS:
         for cin in dict.fromkeys((1, f)):
             for k in (3, 5):
-                wx, bx, wh = _layer_weights(torch, cin, f, k, k, 300 + f + k,
-                                            dev)
-                x = torch.randn((b, t, s, s, cin), generator=gen, device=dev)
-                dys = torch.randn((b, t, s, s, f), generator=gen, device=dev)
+                wx, bx, wh = (u.to(dtype) for u in _layer_weights(
+                    torch, cin, f, k, k, 300 + f + k, dev))
+                x = torch.randn((b, t, s, s, cin), generator=gen,
+                                device=dev).to(dtype)
+                dys = torch.randn((b, t, s, s, f), generator=gen,
+                                  device=dev).to(dtype)
                 need_dx = cin != 1
                 with torch.no_grad():
                     ys, cs, zs = conv._launch(x, wx, bx, wh, train=True)
                     res = (x, wx, wh, zs, cs, ys, dys)
-                    ref = conv.convlstm_backward_reference(
-                        *(u.double() for u in res))
+                    if args.dtype == 'f32':
+                        ref = conv.convlstm_backward_reference(
+                            *(u.double() for u in res))
+                    else:
+                        dzs = conv._launch_seq(zs, cs, dys, wh)
+                        ref = conv.convlstm_backward_tail(
+                            *(u.double() for u in (x, wx, wh, ys, dzs)))
                     errs = {}
                     for route in ('fused', 'split'):
                         got = conv._backward(route, *res, need_dx)
@@ -84,7 +104,7 @@ def main():
                             (g.double() - r).abs().max().item()
                             / max(r.abs().max().item(), 1e-30)
                             for g, r in zip(got, ref) if g is not None)
-                        if not errs[route] <= TOL:
+                        if not errs[route] <= tol:
                             sys.exit(f'torch_convlstm_route: {route} at '
                                      f'(Cin {cin}, F {f}, {k}x{k}) is off '
                                      f'by {errs[route]:.3e} of max |ref|')
@@ -110,12 +130,13 @@ def main():
                 seq_flops = 2 * (t - 1) * taps * f * 4 * f
                 tail_flops = 2 * taps * 4 * f * ((2 if need_dx else 1) * t
                                                  * cin + (t - 1) * f)
-                info = conv.dispatch_info(x.shape, wx.shape, wh.shape)
+                info = conv.dispatch_info(x.shape, wx.shape, wh.shape,
+                                          x.element_size())
                 faster = 'split' if split_ms < fused_ms else 'fused'
                 row = dict(cin=cin, f=f, k=k, dx=need_dx, fused_ms=fused_ms,
                            split_ms=split_ms, seq_ms=seq_ms, tail_ms=tail_ms,
-                           seq_bound_ms=seq_flops / F32_FLOPS * 1e3,
-                           tail_bound_ms=tail_flops / F32_FLOPS * 1e3,
+                           seq_bound_ms=seq_flops / peak * 1e3,
+                           tail_bound_ms=tail_flops / peak * 1e3,
                            fused_err=errs['fused'], split_err=errs['split'],
                            faster=faster, route=info['path'])
                 rows.append(row)
@@ -130,7 +151,7 @@ def main():
                 del x, dys, ys, cs, zs, res
                 torch.cuda.empty_cache()
     out = {'device': torch.cuda.get_device_name(0), 'card': card,
-           'batch': b, 't': t, 'size': s, 'rows': rows,
+           'dtype': args.dtype, 'batch': b, 't': t, 'size': s, 'rows': rows,
            'table_matches': all(r['faster'] == r['route'] for r in rows)}
     print(json.dumps(out), flush=True)
     if args.out:

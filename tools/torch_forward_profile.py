@@ -2,7 +2,8 @@
 """Where the device time of a PyTorch port forward goes.
 
     python3 tools/torch_forward_profile.py [--model resnet_spc] [--batch 8]
-                                           [--reps 5]
+                                           [--reps 5] [--dtype bf16]
+                                           [--cudnn-benchmark]
 
 Builds one of the port's full-width models with seeded weights (TF32 convs
 as PyTorch's default):
@@ -12,7 +13,10 @@ as PyTorch's default):
   recresnet_spc  the spatio-temporal model, `recnet_postupsampling('resnet',
                  'spc', scale=4, n_channels=2, n_aux_channels=2,
                  lr_size=(128, 128), time_window=4, n_filters=8,
-                 n_blocks=2)`.
+                 n_blocks=2)`;
+in the model dtype `--dtype` (f32, the default, or bf16: float32
+parameters, bfloat16 convolutions and kernels), with cuDNN's algorithm
+search (`torch.backends.cudnn.benchmark`) on under `--cudnn-benchmark`.
 It runs `reps` forwards at `batch` under `torch.profiler` on one GPU and
 prints one JSON line: device time per kernel group and for the top kernels,
 the device's busy share over the profiled window, and the host clock per
@@ -27,7 +31,8 @@ from collections import defaultdict
 from pathlib import Path
 
 # kernel-name fragments -> group; the first match wins
-GROUPS = [('K1_channel_attention', ('ca_partial_sums', 'ca_gate', 'ca_apply')),
+GROUPS = [('K1_channel_attention', ('ca_fwd_resident', 'ca_stream_sums',
+                                     'ca_stream_apply')),
           ('K2_convlstm', ('convlstm_tile',)),
           ('conv', ('conv', 'cudnn', 'xmma', 'implicit', 'winograd', 'sm90',
                     'gemm', 'nchw', 'nhwc')),
@@ -49,6 +54,8 @@ def main():
                     default='resnet_spc')
     ap.add_argument('--batch', type=int, default=8)
     ap.add_argument('--reps', type=int, default=5)
+    ap.add_argument('--dtype', choices=('f32', 'bf16'), default='f32')
+    ap.add_argument('--cudnn-benchmark', action='store_true')
     args = ap.parse_args()
 
     import torch
@@ -59,14 +66,18 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import dl4ds_tpu_torch as tds
 
+    dtype = {'f32': torch.float32, 'bf16': torch.bfloat16}[args.dtype]
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     if args.model == 'resnet_spc':
         model = tds.net_postupsampling(
             'resnet', 'spc', scale=4, n_channels=4, n_aux_channels=2,
-            lr_size=(128, 128), n_filters=8, n_blocks=6, attention=True)
+            lr_size=(128, 128), n_filters=8, n_blocks=6, attention=True,
+            dtype=dtype)
     else:
         model = tds.recnet_postupsampling(
             'resnet', 'spc', scale=4, n_channels=2, n_aux_channels=2,
-            lr_size=(128, 128), time_window=4, n_filters=8, n_blocks=2)
+            lr_size=(128, 128), time_window=4, n_filters=8, n_blocks=2,
+            dtype=dtype)
     net = model.init(0, device='cuda')
     gen = torch.Generator(device='cuda').manual_seed(0)
     x = torch.randn((args.batch, *model.input_shape), generator=gen,
@@ -101,6 +112,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
         'device': torch.cuda.get_device_name(0), 'model': model.name,
+        'dtype': args.dtype, 'cudnn_benchmark': args.cudnn_benchmark,
         'batch': args.batch, 'reps': args.reps,
         'kernel_launches_per_forward': len(kernels) / args.reps,
         'device_busy_ms_per_forward': busy_us / per,

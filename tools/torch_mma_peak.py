@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Peak rates of the instructions K2's products run on, on one GPU.
+"""Peak rates of the instructions the ConvLSTM kernels' products run on, on
+one GPU.
 
     python3 tools/torch_mma_peak.py        # from the repo root; needs nvcc
 
 Builds tools/mma_peak.cu with the port's nvcc flags into build/tools/ and
-times two loops that keep every SM busy with 8 independent chains a thread:
-mma.sync.m16n8k8 TF32 products (K2 issues three for each float32 product,
-3xTF32) and float32 FMAs outside the tensor cores. Prints one JSON line with
+times three loops that keep every SM busy with 8 independent chains a
+thread: mma.sync.m16n8k8 TF32 products (K2 runs three for each float32
+product, 3xTF32), float32 FMAs outside the tensor cores, and mma.sync
+m16n8k16 bfloat16 products (one for each product of the bfloat16 forms of
+K2, K3 and K4: the ceiling of their bound). Prints one JSON line with
 each rate in TFLOP/s (the median of 5 timed launches on CUDA events) and the
 card's name and power limit. Fails without a CUDA device.
 """
@@ -21,7 +24,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 ITERS, BLOCKS_PER_SM = 4096, 8
 FLOPS_PER_ROUND = {'mma_sync_tf32': 8 * 2 * 16 * 8 * 8,   # per warp
-                   'ffma_f32': 8 * 2 * 32}
+                   'ffma_f32': 8 * 2 * 32,
+                   'mma_sync_bf16': 8 * 2 * 16 * 8 * 16}
 
 
 def main():

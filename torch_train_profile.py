@@ -3,7 +3,7 @@
 
     python3 torch_train_profile.py [--model recresnet_spc|resnet_spc]
         [--loss mae] [--batch 128] [--reps 5] [--width 8] [--attention]
-        [--graphed]                                  # from the repo root
+        [--graphed] [--dtype bf16]                   # from the repo root
 
 Builds the training configuration of `chip_smoke.py` phase 7 (BASELINE
 config 4 as bench_suite.py's measure_supervised trains it:
@@ -13,7 +13,8 @@ n_filters=8, scale=4, patch_size=64, loss='mae')` on 256 seeded grids of
 --attention` that of phase 8 (bench_suite.py's recresnet_spc_width64), or
 with `--model resnet_spc --attention` the flagship of phase 10 (bench.py's
 resnet_spc: n_blocks 6, no time window; `--loss dssim_mae` as phase 10
-trains it). Runs 3 warm-up steps, then `reps` steps (batch synthesis,
+trains it); `--dtype bf16` trains the bfloat16 model (float32 parameters,
+Adam and loss; bfloat16 convolutions and kernels). Runs 3 warm-up steps, then `reps` steps (batch synthesis,
 forward, backward, Adam) under `torch.profiler` on one GPU, and prints one
 JSON line: device time per kernel group and for the top kernels, every
 kernel's launches and device time a step (`kernels_per_step`), the device
@@ -41,9 +42,10 @@ from pathlib import Path
 GROUPS = [('K1_channel_attention', ('ca_fwd_resident', 'ca_bwd_resident',
                                      'ca_stream_sums', 'ca_stream_apply')),
           ('K6_ssim', ('ssim_image', 'ssim_tiles', 'ssim_pixels')),
-          # the chain step: K3's on route 'fused' (n_filters 8), K4's on
-          # 'split' (n_filters 64)
-          ('K3_K4_chain_step', ('chain_step',)),
+          # the chain step: K3's on route 'fused', K4's on 'split' (the
+          # same tile under two kernel names)
+          ('K3_chain_step', ('chain_step',)),
+          ('K4_chain_step', ('split_chain',)),
           ('K2_convlstm', ('convlstm_tile',)),
           ('K3_convlstm_bptt', ('dx_frames', 'wgrad_tile', 'wgrad_reduce')),
           ('adam', ('multi_tensor_apply', 'adam')),
@@ -92,6 +94,7 @@ def main():
     ap.add_argument('--loss', default='mae')
     ap.add_argument('--graphed', action='store_true',
                     help='profile replays of the captured step')
+    ap.add_argument('--dtype', choices=('f32', 'bf16'), default='f32')
     args = ap.parse_args()
 
     import numpy as np
@@ -114,7 +117,9 @@ def main():
         'resnet', 'spc', data_train=data, data_val=data[:64],
         data_test=data[:64], scale=4, patch_size=64, batch_size=args.batch,
         loss=args.loss, n_filters=args.width, attention=args.attention,
-        verbose=False, **model)
+        verbose=False,
+        dtype={'f32': torch.float32, 'bf16': torch.bfloat16}[args.dtype],
+        **model)
     tr.setup_datagen()
     tr.setup_model()
     tr.setup_optimizer()
@@ -176,6 +181,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     print(json.dumps({
         'device': torch.cuda.get_device_name(0), 'model': tr.model.name,
+        'dtype': args.dtype,
         'loss': args.loss, 'width': args.width, 'attention': args.attention,
         'batch': args.batch, 'reps': args.reps,
         'mode': 'graphed' if args.graphed else 'eager',
