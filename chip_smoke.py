@@ -123,13 +123,33 @@ Phases, each of which exits non-zero on failure:
      recresnet_spc at n_filters 8 and 64 through `run()`'s replayed
      graphs, with their launches in the device trace as phases 7-11 count
      them, and print the rates beside float32's;
- 13. print the `kernels` JSON line, then, last, the device JSON line. In
+ 13. the MOS path, training and serving from given LR arrays: the flagship
+     (resnet_spc x4, attention, n_filters 8, n_blocks 6) trained by
+     `SupervisedTrainer(data_train_lr=..., data_val_lr=..., data_test_lr=
+     ..., time_metadata=...)` on phase 10's 256 HR grids (as temperatures)
+     and LR grids that are their inter_area coarsening plus noise, with 2
+     statics, a predictor at LR, daily time metadata (all four seasons) and
+     the port's StandardScaler: one batch held against the given LR crop
+     and the samples' seasons (8 LR channels, 6 aux), 2 epochs of 20 steps
+     with validation and test through `run()`'s replayed graphs with K1's
+     launches both ways counted in the device trace, finite losses, the
+     speed, 8 replayed steps against 8 eager ones bit for bit (phase 11's
+     helper), 3 steps at batch 16 against the CPU in float64; then
+     `predict(array_in_hr=False)` of 16 LR grids of 128x128 into 512x512 at
+     batch 8 with statics, a predictor, time metadata and the scaler (K1 14
+     launches), grid 0 against the CPU, again with pad_to_multiple=48; and
+     `compute_metrics(y_true, y_hat, save_path=None)` on the served grids
+     on the card: K6 launched once, the per-grid SSIM against the plain
+     ssim in float64, the PSNR, the maps against device='cpu', K6 timed at
+     [16, 512, 512, 1];
+ 14. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
-     K3, K4, K1_channel_attention_train, K6) is what the device trace of
-     its phase's run holds, and `wrapper_calls` what its wrapper counted
-     (the warm-up calls and the capture: a replay calls no wrapper); the
-     serving kernels (K1_channel_attention, K2_convlstm) run eagerly, and
-     their `launches` are their wrappers' counts.
+     K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train)
+     is what the device trace of its phase's run holds, and `wrapper_calls`
+     what its wrapper counted (the warm-up calls and the capture: a replay
+     calls no wrapper); the serving kernels (K1_channel_attention,
+     K2_convlstm, K1_channel_attention_mos_serve) and K6_ssim_metrics run
+     eagerly, and their `launches` are their wrappers' counts.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -2888,6 +2908,362 @@ def _bf16_kernel_rows(report):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: MOS, training and serving from given LR arrays
+# ---------------------------------------------------------------------------
+
+# the MOS configuration: the flagship trained on given LR arrays. Each HR
+# grid of phase 10's data, as a temperature in degrees C (MOS_MEAN + MOS_STD
+# times it; a small mean keeps float32 SSIM's moments from cancelling), is
+# coarsened to 32x32 with inter_area plus Gaussian noise of MOS_NOISE times
+# the HR standard deviation, so that the LR input is not the coarsened HR;
+# two statics at 128x128, one predictor at 32x32, daily time metadata from
+# MOS_START (256 days: all four seasons), a StandardScaler of the port
+# fitted on the HR training split
+MOS_MEAN, MOS_STD, MOS_NOISE = 15.0, 5.0, 0.1
+MOS_START = '2000-01-01'
+MOS_VAL = 64
+# the LR input: the grid, the predictor, 2 statics, 4 season channels; aux:
+# the 2 statics and the season
+MOS_CHANNELS, MOS_AUX = 1 + 1 + 2 + 4, 2 + 4
+# MOS serving: 16 LR grids of 128x128 into 512x512 at batch 8, again with
+# pad_to_multiple (128 -> 144)
+MOS_PAD = 48
+# compute_metrics on the card against its plain versions: the per-grid SSIM
+# against the plain ssim run in float64 (K6_TOL), the PSNR (float32 means of
+# 512*512 squared errors) within MOS_PSNR_RTOL of the float64 one, the three
+# maps (numpy on the host in both) against device='cpu' within MOS_MAP_TOL
+MOS_PSNR_RTOL, MOS_MAP_TOL = 1e-5, 1e-5
+
+
+def _mos_config(tds):
+    """SupervisedTrainer arguments of phase 13's MOS training, and the
+    fitted scaler."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    hr = MOS_MEAN + MOS_STD * rng.standard_normal(
+        (TRAIN_GRIDS, TRAIN_HR, TRAIN_HR, 1)).astype('float32')
+    mos = np.random.default_rng(13)
+    lr_hw = TRAIN_HR // SCALE
+    lr = tds.resize_array(hr, (lr_hw, lr_hw), 'inter_area', squeezed=False)
+    lr = (lr + MOS_NOISE * hr.std() * mos.standard_normal(lr.shape)).astype(
+        'float32')
+    topo = mos.standard_normal((TRAIN_HR, TRAIN_HR)).astype('float32')
+    mask = (mos.random((TRAIN_HR, TRAIN_HR)) > 0.5).astype('float32')
+    pred = mos.standard_normal((TRAIN_GRIDS, lr_hw, lr_hw, 1)).astype(
+        'float32')
+    days = np.datetime64(MOS_START) + np.arange(TRAIN_GRIDS)
+    scaler = tds.StandardScaler().fit(hr)
+    hr_s = scaler.transform(hr)[..., None].astype('float32')
+    lr_s = scaler.transform(lr)[..., None].astype('float32')
+    v = slice(0, MOS_VAL)
+    config = dict(
+        backbone='resnet', upsampling='spc', data_train=hr_s,
+        data_val=hr_s[v], data_test=hr_s[v], data_train_lr=lr_s,
+        data_val_lr=lr_s[v], data_test_lr=lr_s[v], static_vars=[topo, mask],
+        predictors_train=[pred], predictors_val=[pred[v]],
+        predictors_test=[pred[v]], time_metadata=(days, days[v], days[v]),
+        scale=SCALE, patch_size=TRAIN_PATCH, loss='mae', n_filters=N_FILTERS,
+        n_blocks=N_BLOCKS, attention=True, verbose=False)
+    return config, scaler, hr_s, lr_s
+
+
+def _check_mos_batch(torch, tds, config, hr_s, lr_s):
+    """One MOS batch on the card: LR channel 0 is the given LR array's
+    crop, not the coarsened HR crop; the channels [lr | predictor | statics
+    | season] and aux [statics | season] with the season of each sample's
+    day; returns the season ids of the training split."""
+    import numpy as np
+    tr = tds.SupervisedTrainer(batch_size=4, epochs=1, **config)
+    tr.setup_datagen()
+    synth = tr.ds_train
+    if (synth.n_channels_lr, synth.n_channels_aux) != (MOS_CHANNELS,
+                                                       MOS_AUX):
+        fail(f'phase 13: the MOS batches have {synth.n_channels_lr} LR and '
+             f'{synth.n_channels_aux} aux channels, expected {MOS_CHANNELS} '
+             f'and {MOS_AUX}')
+    idx, ys, xs = [0, 100, 200, 255], [0, 5, 16, 9], [3, 0, 16, 12]
+    batch = synth(torch.tensor(idx), offsets=(ys, xs))
+    plr, p = TRAIN_LR, TRAIN_PATCH
+    want = np.stack([lr_s[i, y:y + plr, x:x + plr] for i, y, x in
+                     zip(idx, ys, xs)])
+    coarse = tds.resize_array(np.stack(
+        [hr_s[i, SCALE * y:SCALE * y + p, SCALE * x:SCALE * x + p]
+         for i, y, x in zip(idx, ys, xs)]), (plr, plr), 'inter_area',
+        squeezed=False)
+    got = batch['lr'][..., :1].cpu().numpy()
+    seasons = synth.season_ids.cpu().numpy()
+    onehot = batch['lr'][:, 0, 0, -4:].argmax(-1).cpu().numpy()
+    aux_onehot = batch['aux'][:, 0, 0, -4:].argmax(-1).cpu().numpy()
+    dist = float(np.abs(got - coarse).max())
+    print(f'phase 13, a MOS batch on the card: lr {tuple(batch["lr"].shape)}, '
+          f'aux {tuple(batch["aux"].shape)}; LR channel 0 against the given '
+          f'LR crop max|d| {float(np.abs(got - want).max()):.3e}, against '
+          f'the coarsened HR crop {dist:.3e}; seasons {onehot.tolist()} (LR) '
+          f'{aux_onehot.tolist()} (aux), table {seasons[idx].tolist()}',
+          flush=True)
+    if not np.array_equal(got, want):
+        fail('phase 13: the MOS batch\'s LR channel is not the given LR '
+             'array\'s crop')
+    if not dist > MOS_NOISE * 0.1:
+        fail(f'phase 13: the given LR array is the coarsened HR ({dist:.3e})')
+    if not (np.array_equal(onehot, seasons[idx])
+            and np.array_equal(aux_onehot, seasons[idx])):
+        fail('phase 13: the season channels are not the samples\' seasons')
+    if sorted(set(seasons.tolist())) != [0, 1, 2, 3]:
+        fail(f'phase 13: the training days cover seasons {set(seasons)}')
+    return seasons
+
+
+def _mos_serving(torch, tds, scaler, report):
+    """Phase 13, serving: `predict(array_in_hr=False)` of 16 LR grids with
+    statics at 512x512, a predictor at 128x128, time metadata and the
+    scaler, its K1 launches, its speed, grid 0 against the CPU, and again
+    with pad_to_multiple. Returns (the truth, the served grids)."""
+    import numpy as np
+    fca, fss = tds.fused_channel_attention, tds.fused_ssim_per_image
+    hr_size = LR * SCALE
+    rng = np.random.default_rng(15)
+    truth = MOS_MEAN + MOS_STD * rng.standard_normal(
+        (N_GRIDS, hr_size, hr_size, 1)).astype('float32')
+    lr = tds.resize_array(truth, (LR, LR), 'inter_area', squeezed=False)
+    lr = lr + MOS_NOISE * MOS_STD * rng.standard_normal(lr.shape)
+    lr_s = scaler.transform(lr)[..., None].astype('float32')
+    topo = rng.standard_normal((hr_size, hr_size)).astype('float32')
+    mask = (rng.random((hr_size, hr_size)) > 0.5).astype('float32')
+    pred = rng.standard_normal((N_GRIDS, LR, LR, 1)).astype('float32')
+    days = np.datetime64('2001-03-10') + np.arange(N_GRIDS)
+    model = tds.net_postupsampling(
+        'resnet', 'spc', scale=SCALE, n_channels=MOS_CHANNELS,
+        n_aux_channels=MOS_AUX, lr_size=(LR, LR), n_filters=N_FILTERS,
+        n_blocks=N_BLOCKS, attention=True)
+    net = model.init(seed=0, device='cuda')
+    kwargs = dict(scale=SCALE, array_in_hr=False, static_vars=[topo, mask],
+                  predictors=[pred], time_metadata=days, scaler=scaler,
+                  batch_size=BATCH)
+    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fca.launches = fca.bwd_launches = fss.launches = 0
+    y = tds.predict((model, net), lr_s, **kwargs)
+    launches = dict(K1=fca.launches, K1_backward=fca.bwd_launches,
+                    K6=fss.launches)
+    want = dict(K1=len(K1_SHAPES) * -(-N_GRIDS // BATCH), K1_backward=0,
+                K6=0)
+    print(f'phase 13, MOS predict: {N_GRIDS} LR grids {LR}x{LR} -> '
+          f'{y.shape}, launches {launches} (expected {want})', flush=True)
+    if launches != want:
+        fail(f'phase 13: MOS predict launched {launches}, expected {want}')
+    if y.shape != (N_GRIDS, hr_size, hr_size) or not np.isfinite(y).all():
+        fail(f'phase 13: MOS predict gave {y.shape}, finite '
+             f'{bool(np.isfinite(y).all())}')
+    t0 = time.perf_counter()
+    tds.predict((model, net), lr_s, **kwargs)
+    predict_s = time.perf_counter() - t0
+
+    torch.backends.cudnn.allow_tf32 = False
+    net_cpu = copy.deepcopy(net).cpu()
+    one = dict(kwargs, predictors=[pred[:1]], time_metadata=days[:1])
+    errs = {}
+    for pad in (None, MOS_PAD):
+        fca.launches = 0
+        y32 = tds.predict((model, net), lr_s, pad_to_multiple=pad, **kwargs)
+        if fca.launches != want['K1']:
+            fail(f'phase 13: MOS predict (pad_to_multiple={pad}) launched K1 '
+                 f'{fca.launches} times, expected {want["K1"]}')
+        y_cpu = tds.predict((model, net_cpu), lr_s[:1], device='cpu',
+                            pad_to_multiple=pad, **one)
+        y_cpu = y_cpu.reshape(y32[:1].shape)
+        diff = np.abs(y32[:1] - y_cpu)
+        err = float(diff.max())
+        ok = bool((diff <= PREDICT_TOL['atol']
+                   + PREDICT_TOL['rtol'] * np.abs(y_cpu)).all())
+        errs[str(pad)] = err
+        print(f'phase 13, MOS predict grid 0 (pad_to_multiple={pad}), GPU '
+              f'(TF32 off) vs CPU: max|d| {err:.3e}, max|y| '
+              f'{float(np.abs(y_cpu).max()):.3e} (atol '
+              f'{PREDICT_TOL["atol"]}, rtol {PREDICT_TOL["rtol"]})',
+              flush=True)
+        if not ok:
+            fail(f'phase 13: MOS predict (pad_to_multiple={pad}) on the GPU '
+                 f'disagrees with the CPU: max|d| {err:.3e}')
+    torch.backends.cudnn.allow_tf32 = True
+    report['mos_predict'] = dict(launches=launches,
+                                 grids_per_s=N_GRIDS / predict_s,
+                                 cpu_max_abs_err=errs)
+    print(f'phase 13, MOS predict {N_GRIDS} grids at batch {BATCH} (TF32 '
+          f'convs, the default): {N_GRIDS / predict_s:.2f} grids/s end to end '
+          f'(host clock, the HR stand-in resize, data assembly and copy out '
+          f'included); {card_line()}', flush=True)
+    return truth, y[..., None].astype('float32')
+
+
+def _mos_metrics(torch, tds, truth, y_hat, report):
+    """Phase 13, metrics: compute_metrics on the served grids on the card,
+    its K6 launches, the per-grid SSIM and PSNR against float64, the maps
+    against device='cpu', and K6 timed at the metrics' shape."""
+    import numpy as np
+    from dl4ds_tpu_torch.ops.ssim import psnr, ssim
+    fss = tds.fused_ssim_per_image
+    fss.launches = fss.bwd_launches = 0
+    maps = tds.compute_metrics(truth, y_hat, save_path=None)
+    launches = (fss.launches, fss.bwd_launches)
+    maps_cpu = tds.compute_metrics(truth, y_hat, save_path=None,
+                                   device='cpu')
+    # the second call of each on the host clock, in turns
+    seconds = {}
+    for device in ('cuda', 'cpu', 'cpu', 'cuda'):
+        t0 = time.perf_counter()
+        tds.compute_metrics(truth, y_hat, save_path=None, device=device)
+        seconds.setdefault(device, []).append(time.perf_counter() - t0)
+    metrics_s, metrics_cpu_s = min(seconds['cuda']), min(seconds['cpu'])
+    print(f'phase 13, compute_metrics on {N_GRIDS} grids {truth.shape[1:]}: '
+          f'{metrics_s:.3f} s on the card, {metrics_cpu_s:.3f} s with '
+          f'device=\'cpu\' (host clock, the faster of two calls each); K6 '
+          f'(forward, backward) launches {launches} (expected (1, 0))',
+          flush=True)
+    if launches != (1, 0):
+        fail(f'phase 13: compute_metrics launched K6 {launches}, expected '
+             f'(1, 0)')
+    map_err = max(float(np.nanmax(np.abs(a - b)))
+                  for a, b in zip(maps, maps_cpu))
+    if not (map_err <= MOS_MAP_TOL and all(
+            np.array_equal(np.isnan(a), np.isnan(b))
+            for a, b in zip(maps, maps_cpu))):
+        fail(f'phase 13: compute_metrics\' maps on the card differ from '
+             f'device=\'cpu\' by {map_err:.3e}')
+    drange = float(max(truth.max(), y_hat.max())
+                   - min(truth.min(), y_hat.min()))
+    psnr_vals, ssim_vals = tds.metrics._psnr_ssim(truth, y_hat, drange,
+                                                  'cuda')
+    a = torch.as_tensor(truth, device='cuda')
+    b = torch.as_tensor(y_hat, device='cuda')
+    ssim64 = ssim(a.double(), b.double(), drange).cpu().numpy()
+    psnr64 = psnr(a.double(), b.double(), drange).cpu().numpy()
+    ssim_err = float(np.abs(ssim_vals - ssim64).max())
+    psnr_err = float((np.abs(psnr_vals - psnr64) / np.abs(psnr64)).max())
+    print(f'phase 13, per-grid SSIM through K6 against the plain ssim in '
+          f'float64: max|d| {ssim_err:.3e} (atol {K6_TOL}); PSNR max|d|/|ref| '
+          f'{psnr_err:.3e} (rtol {MOS_PSNR_RTOL}); maps against '
+          f'device=\'cpu\' max|d| {map_err:.3e} (atol {MOS_MAP_TOL}); mean '
+          f'SSIM {float(ssim_vals.mean()):.6f}, PSNR '
+          f'{float(psnr_vals.mean()):.4f} dB', flush=True)
+    if not ssim_err <= K6_TOL:
+        fail(f'phase 13: the metrics\' SSIM through K6 is {ssim_err:.3e} '
+             f'from float64')
+    if not psnr_err <= MOS_PSNR_RTOL:
+        fail(f'phase 13: the metrics\' PSNR is {psnr_err:.3e} from float64')
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device='cuda')
+    mv = torch.tensor(drange, dtype=torch.float32, device='cuda')
+    ms, plain_ms = paired_ms(torch, lambda: fss(a, b, mv),
+                             lambda: ssim(a, b, mv), flush)
+    flops, n_bytes = k6_work(tuple(truth.shape), 11)
+    bound_ms = max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = ('operations' if flops / F32_FLOPS >= n_bytes / HBM_BYTES_PER_S
+                else 'bytes')
+    print(f'K6 x{list(truth.shape)} (compute_metrics) kernel {ms:.4f} ms  '
+          f'plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}; '
+          f'{flops / 1e6:.1f} MFLOP, {n_bytes / 1e6:.2f} MB)  library_ms '
+          f'null; {card_line()}', flush=True)
+    report['mos_metrics'] = dict(
+        k6_launches=launches[0], seconds=metrics_s, cpu_seconds=metrics_cpu_s,
+        ssim_max_abs_err=ssim_err, psnr_max_rel_err=psnr_err,
+        map_max_abs_err=map_err, shape=list(truth.shape), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_mos(torch, tds, report):
+    """Phase 13: the MOS path on the card. The flagship trained from given
+    LR arrays with statics, a predictor, season channels from daily time
+    metadata and the port's StandardScaler (2 epochs of 20 steps through
+    run()'s replayed graphs, K1 counted in the device trace, 8 replayed
+    steps against 8 eager ones bit for bit, 3 steps against the CPU in
+    float64); then MOS serving of LR grids and compute_metrics on the
+    served grids, with K6 on the card."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    config, scaler, hr_s, lr_s = _mos_config(tds)
+    _check_mos_batch(torch, tds, config, hr_s, lr_s)
+    shapes = _gate_inputs(torch, tds, config)
+    if shapes != K1_TRAIN_SHAPES:
+        fail(f'phase 13: the MOS step\'s gates are {shapes}, not the '
+             f'{K1_TRAIN_SHAPES} phases 2 and 10 checked and timed')
+    per_step = _flagship_per_step(len(shapes), ssim=False)
+    gates = report['k1_train_rows']
+    label = f'MOS resnet_spc, n_filters {N_FILTERS}, mae'
+    got, calls, numbers = _drive_training(
+        torch, tds, config, label, TRAIN_STEPS, per_step, FLAG_CPU_BATCH,
+        {'K1 forward': sum(r['ms'] for r in gates),
+         'K1 backward': sum(r['bwd_ms'] for r in gates)})
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    row = _graphs_vs_eager(torch, tds, fo, config, label, per_step)
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+    g = numbers['graphed']
+    print(f'phase 13, {label}, batch {TRAIN_BATCH}: graphed '
+          f'{g["patches_per_s"]:.1f} patches/s, eager '
+          f'{numbers["patches_per_s"]:.1f} patches/s (host clock); one replay '
+          f'{g["replay_ms"]:.3f} ms, one eager step {numbers["step_ms"]:.3f} '
+          f'ms (CUDA events); the device busy {100 * g["busy_share"]:.1f}% '
+          f'of the replays\' span; {card_line()}', flush=True)
+    report['mos_train'] = dict(launches=got, wrapper_calls=calls,
+                               graphs_vs_eager=row['max_abs_diff'],
+                               **numbers)
+    truth, y_hat = _mos_serving(torch, tds, scaler, report)
+    _mos_metrics(torch, tds, truth, y_hat, report)
+
+
+def _mos_kernel_rows(report):
+    """The `kernels` line's rows of phase 13: K1 in the MOS training step
+    and in MOS serving (launches from phase 13's runs; times at the same
+    gate shapes from phases 10 and 2) and K6 at compute_metrics' shape."""
+    train = report['mos_train']
+    gates = report['k1_train_rows']
+    serve = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
+    met = report['mos_metrics']
+
+    def total(rows, key):
+        return sum(r[key] for r in rows)
+
+    k1 = dict(route='cuda', source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39', bound_by='bytes',
+              library_ms=None)
+    return [
+        dict(k1, name='K1_channel_attention_mos_train',
+             launches=train['launches']['K1'],
+             wrapper_calls=train['wrapper_calls']['K1'],
+             max_abs_err=max(r['max_abs_err'] for r in gates),
+             ms=total(gates, 'ms'), plain_ms=total(gates, 'plain_ms'),
+             bound_ms=total(gates, 'bound_ms'), bwd_ms=total(gates, 'bwd_ms'),
+             bwd_plain_ms=total(gates, 'bwd_plain_ms'),
+             bwd_bound_ms=total(gates, 'bwd_bound_ms'),
+             bwd_launches=train['launches']['K1 backward'],
+             work=f'the {len(gates)} gates of one MOS flagship training step '
+                  f'at batch {TRAIN_BATCH} (the shapes of phase 10\'s step, '
+                  f'timed there), summed; launches from phase 13\'s device '
+                  f'trace'),
+        dict(k1, name='K1_channel_attention_mos_serve',
+             launches=report['mos_predict']['launches']['K1'],
+             max_abs_err=max(r['max_abs_err'] for r in serve),
+             ms=total(serve, 'ms'), plain_ms=total(serve, 'plain_ms'),
+             bound_ms=total(serve, 'bound_ms'),
+             work=f'the {len(serve)} gates of one MOS serving forward at '
+                  f'batch {BATCH} (phase 2\'s shapes, timed there), summed; '
+                  f'launches of predict(array_in_hr=False) on {N_GRIDS} '
+                  f'grids'),
+        dict(name='K6_ssim_metrics', route='cuda',
+             source='dl4ds_tpu_torch/csrc/ssim.cu',
+             replaces='dl4ds_tpu/ops/pallas_ops.py:145',
+             launches=met['k6_launches'],
+             max_abs_err=met['ssim_max_abs_err'], ms=met['ms'],
+             plain_ms=met['plain_ms'], bound_ms=met['bound_ms'],
+             bound_by=met['bound_by'], library_ms=None,
+             work=f'the per-grid SSIM of compute_metrics on the {N_GRIDS} '
+                  f'served grids, x{met["shape"]}, 11 taps; max_abs_err per '
+                  f'grid against the plain ssim in float64')]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2911,19 +3287,22 @@ def main():
         print(log, file=sys.stderr, flush=True)
     print(f'kernel build: {time.perf_counter() - t0:.1f} s', flush=True)
 
-    report = {}
-    phase_kernels(torch, tds, report)
-    phase_predict(torch, tds, report)
-    phase_convlstm(torch, tds, report)
-    phase_recurrent_predict(torch, tds, report)
-    phase_convlstm_grad(torch, tds, report)
-    phase_convlstm_split(torch, tds, report)
-    phase_training(torch, tds, report)
-    phase_wide_training(torch, tds, report)
-    phase_ssim(torch, tds, report)
-    phase_flagship_training(torch, tds, report)
-    phase_graphs(torch, tds, report)
-    phase_bf16(torch, tds, report)
+    report = {'phase_seconds': {}}
+    # (number, function) in the docstring's numbering: phase 6 is K2-train
+    # and K3, then K4 and the split route
+    phases = ((2, phase_kernels), (3, phase_predict), (4, phase_convlstm),
+              (5, phase_recurrent_predict), (6, phase_convlstm_grad),
+              (6, phase_convlstm_split), (7, phase_training),
+              (8, phase_wide_training), (9, phase_ssim),
+              (10, phase_flagship_training), (11, phase_graphs),
+              (12, phase_bf16), (13, phase_mos))
+    for number, phase in phases:
+        t0 = time.perf_counter()
+        phase(torch, tds, report)
+        seconds = time.perf_counter() - t0
+        report['phase_seconds'][phase.__name__] = seconds
+        print(f'phase {number} ({phase.__name__}): {seconds:.1f} s',
+              flush=True)
 
     f32 = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
     k1 = {'name': 'K1_channel_attention', 'route': 'cuda',
@@ -3082,8 +3461,8 @@ def main():
                   f'kernel for y_pred and the range (bwd_plain_ms '
                   f'ssim_backward_reference; autograd through the plain ssim '
                   f'took {k6_step["autograd_bwd_ms"]:.4f} ms)'}
-    kernels = [k1, k2, k2_train, k3, k4, k1_train, k6] + _bf16_kernel_rows(
-        report)
+    kernels = ([k1, k2, k2_train, k3, k4, k1_train, k6]
+               + _bf16_kernel_rows(report) + _mos_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)

@@ -7,8 +7,11 @@ inputs and weights can be fed through both. The hot kernels that the JAX
 package wrote in Pallas are written by hand in CUDA C++ (`csrc/`), built
 with `nvcc` at first use and launched on PyTorch's current stream.
 
-Entry points (`predict`, `SupervisedTrainer`) run on the GPU unless the
-caller passes `device='cpu'`.
+Entry points (`predict`, `SupervisedTrainer`, `compute_metrics`) run on
+the GPU unless the caller passes `device='cpu'`. Both of DL4DS's training
+modes run: PerfectProg (HR data alone, coarsened on the device) and MOS
+(given LR/HR pairs, `data_train_lr=`, served by
+`predict(array_in_hr=False)`), with season channels from time metadata.
 """
 
 __version__ = "0.1.0"
@@ -54,7 +57,7 @@ DROPOUT_VARIANTS = [
     'mcgaussiandrop',   # monte-carlo gaussian dropout
     'mcspatialdrop']    # monte-carlo spatial dropout
 
-from .interpolation import resize2d, resize_matrix
+from .interpolation import resize2d, resize_array, resize_matrix
 from .utils import (checkarray_ndim, Timing, checkarg_upsampling,
                     checkarg_backbone, checkarg_dropout_variant)
 from .ops import (depth_to_space, fused_channel_attention,
@@ -63,9 +66,13 @@ from .ops import (depth_to_space, fused_channel_attention,
 from . import losses
 from .losses import (mae, mse, dssim, dssim_mae, dssim_mse, dssim_mae_mse,
                      msdssim, msdssim_mae, msdssim_mae_mse)
-from .dataloader import BatchSynthesizer
+from .preprocessing import MinMaxScaler, StandardScaler
+from .dataloader import BatchSynthesizer, _get_season_, _get_season_array_
 from .models import (DSModel, build_model, net_postupsampling,
                      recnet_postupsampling, save_model, load_model)
 from .weights import load_jax_params
 from .inference import Predictor, predict
 from .training import SupervisedTrainer
+from .metrics import (compute_rmse, compute_correlation, compute_metrics,
+                      crps_ensemble, spread_skill, rank_histogram,
+                      compute_prob_metrics)

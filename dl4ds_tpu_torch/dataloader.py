@@ -1,18 +1,22 @@
 """
 Device batch synthesis (the counterpart of `dl4ds_tpu/dataloader.py`'s
-`BatchSynthesizer`).
+`BatchSynthesizer`) and the season encoding of time metadata.
 
-The HR dataset, predictors and static variables live on the device. A call
-gathers the requested samples (windows of `time_window` consecutive grids
-for a spatio-temporal model), whole or as random patches, coarsens them to
-the LR grid with the matmul resize and stacks the LR channels as [lr,
-predictors, static_lr]; the HR statics are the aux input. With time windows
-the statics go to aux only. Patch offsets and epoch permutations are drawn
-from a CPU `torch.Generator` and then moved to the device, so one seed gives
-the same batches on every device. A batch has a host half (`plan` for a
-whole epoch, or `__call__`'s checks and draws) and a device half (`build`,
-`step_batch`), which never leaves the device. Season channels are not
-ported yet and raise.
+The HR dataset, a given LR dataset, predictors, static variables and the
+season table live on the device. A call gathers the requested samples
+(windows of `time_window` consecutive grids for a spatio-temporal model),
+whole or as random patches, takes their LR input from the given LR array
+(MOS) or coarsens them to the LR grid with the matmul resize
+(PerfectProg), and stacks the LR channels as [lr, predictors, static_lr,
+season_lr]; the aux input is [static_hr, season_hr]. With time windows the
+statics and the season go to aux only. Patch offsets and epoch
+permutations are drawn from a CPU `torch.Generator` and then moved to the
+device, so one seed gives the same batches on every device. A batch has a
+host half (`plan` for a whole epoch, or `__call__`'s checks and draws) and
+a device half (`build`, `step_batch`), which never leaves the device.
+
+Season ids come from time metadata through numpy's datetime64 alone
+(`season_ids_from_time`), as the JAX package's come through pandas.
 """
 
 import numpy as np
@@ -22,24 +26,93 @@ from . import POSTUPSAMPLING_METHODS
 from .interpolation import resize2d
 from .utils import _values, not_ported, resolve_device
 
-__all__ = ['BatchSynthesizer']
+__all__ = ['BatchSynthesizer', '_get_season_', '_get_season_array_',
+           'season_ids_from_time']
+
+
+# -----------------------------------------------------------------------------
+# Season encoding (dl4ds_tpu/dataloader.py:42-100, reference:
+# dl4ds/dataloader.py:508-542)
+# -----------------------------------------------------------------------------
+
+_SEASONS = ['winter', 'spring', 'summer', 'autumn']
+# season id of each month 1..12 (index 0 unused)
+_MONTH_TO_SID = np.array([0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 0], np.int32)
+
+
+def _months(time_metadata):
+    """Months 1..12 of datetime-like values (a datetime64 array, datetime
+    objects, a pandas DatetimeIndex, an xr time coordinate's values), with
+    numpy's datetime64 only."""
+    t = np.asarray(_values(time_metadata))
+    if t.dtype.kind != 'M':
+        t = t.astype('datetime64[ns]')
+    return t.astype('datetime64[M]').astype(np.int64) % 12 + 1
+
+
+def _modal_month(months):
+    """The most common month, the smallest on ties (scipy.stats.mode's
+    rule, as the JAX package takes it with np.unique and argmax)."""
+    vals, counts = np.unique(months, return_counts=True)
+    return int(vals[np.argmax(counts)])
+
+
+def _get_season_(time_metadata, time_window=None):
+    """Season label of one time value, or with `time_window` the season of
+    the modal month of the window's values."""
+    months = _months(time_metadata)
+    month_int = (int(months.item()) if time_window is None
+                 else _modal_month(months.reshape(-1)))
+    return _SEASONS[_MONTH_TO_SID[month_int]]
+
+
+def season_ids_from_time(time_metadata, time_window=None):
+    """[N] int32 season ids (0 = winter .. 3 = autumn) of datetime-like time
+    metadata; with `time_window`, entry i is the season of the modal month
+    of window [i, i + time_window), the smallest month on ties."""
+    months = _months(time_metadata).reshape(-1)
+    if time_window is None:
+        return _MONTH_TO_SID[months]
+    n = max(months.shape[0] - time_window + 1, 0)
+    return np.array([_MONTH_TO_SID[_modal_month(months[i:i + time_window])]
+                     for i in range(n)], np.int32)
+
+
+def _get_season_array_(season, sizey, sizex):
+    """One-hot 4-channel [y, x, 4] spatial season encoding."""
+    if season not in _SEASONS:
+        raise ValueError('``season`` not recognized')
+    out = np.zeros((sizey, sizex, 4), dtype='float32')
+    out[:, :, _SEASONS.index(season)] = 1.0
+    return out
+
+
+def _time_coord(x):
+    """The 'time' coordinate values of an xr.DataArray, else None
+    (dl4ds_tpu/dataloader.py:466-474); xarray is imported only here."""
+    try:
+        import xarray as xr
+    except ImportError:
+        return None
+    if isinstance(x, xr.DataArray) and 'time' in x.coords:
+        return x.time.values
+    return None
 
 
 class BatchSynthesizer:
     """Device-resident batch synthesis over whole grids.
 
-    Parameters mirror `dl4ds_tpu.BatchSynthesizer`; `device` defaults to
-    CUDA, and device='cpu' must be asked for.
+    Parameters mirror `dl4ds_tpu.BatchSynthesizer`: `array_lr` [n, y, x,
+    c] is the given LR dataset (None: coarsen `array`), `season_ids` an [n]
+    table of season ids 0..3, one-hot encoded into 4 channels of the LR
+    and aux inputs. `device` defaults to CUDA, and device='cpu' must be
+    asked for.
     """
 
     def __init__(self, array, array_lr, upsampling, scale, batch_size,
                  patch_size=None, time_window=None, static_vars=None,
                  predictors=None, interpolation='inter_area',
                  season_ids=None, device='cuda'):
-        if season_ids is not None:
-            raise not_ported('season channels', 3)
-        if array_lr is not None:
-            raise not_ported('a given LR array', 5)
         if upsampling not in POSTUPSAMPLING_METHODS:
             raise not_ported(f'upsampling {upsampling!r}', 6)
         array = np.asarray(_values(array), 'float32')
@@ -54,8 +127,18 @@ class BatchSynthesizer:
         self.n_total, self.hr_y, self.hr_x, self.n_ch = array.shape
         self.n = (self.n_total - time_window if time_window is not None
                   else self.n_total)
-        self.lr_y = int(self.hr_y / scale)
-        self.lr_x = int(self.hr_x / scale)
+        self.lr = None
+        if array_lr is not None:
+            array_lr = np.asarray(_values(array_lr), 'float32')
+            if array_lr.ndim != 4 or array_lr.shape[0] != self.n_total:
+                raise ValueError(
+                    f'`array_lr` must be [{self.n_total}, y, x, c] beside '
+                    f'`array` {array.shape}; got {array_lr.shape}')
+            self.lr_y, self.lr_x = array_lr.shape[1:3]
+            self.lr = torch.as_tensor(array_lr, device=self.device)
+        else:
+            self.lr_y = int(self.hr_y / scale)
+            self.lr_x = int(self.hr_x / scale)
         self.patch_size = patch_size
         if patch_size is not None:
             if patch_size % self.scale != 0:
@@ -65,6 +148,10 @@ class BatchSynthesizer:
                     f'patch_size={patch_size} exceeds the HR grid '
                     f'({self.hr_y}x{self.hr_x})')
             self.patch_lr = patch_size // self.scale
+            if self.patch_lr > min(self.lr_y, self.lr_x):
+                raise ValueError(
+                    f'LR patch {self.patch_lr} exceeds the LR grid '
+                    f'({self.lr_y}x{self.lr_x})')
         self.hr = torch.as_tensor(array, device=self.device)
         self.pred, self.n_pred, self.static_hr, self.n_static = \
             _prep_aux_inputs((self.lr_y, self.lr_x), interpolation,
@@ -75,16 +162,29 @@ class BatchSynthesizer:
                                    interpolation)
                           if self.static_hr is not None and time_window is None
                           and patch_size is None else None)
+        self.season_ids = None
+        if season_ids is not None:
+            if len(season_ids) < self.n:
+                # an index past the table would read another sample's
+                # season, or fault on the device
+                raise ValueError(
+                    f'season_ids has {len(season_ids)} entries but the '
+                    f'sampler draws indices up to {self.n - 1}')
+            self.season_ids = torch.as_tensor(
+                np.asarray(season_ids, np.int64), device=self.device)
+            self._seasons = torch.arange(4, device=self.device)
 
     @property
     def n_channels_lr(self):
         """Total channels of the LR model input."""
         n = self.n_ch + self.n_pred
-        return n if self.time_window is not None else n + self.n_static
+        if self.time_window is None:
+            n += self.n_static + (4 if self.season_ids is not None else 0)
+        return n
 
     @property
     def n_channels_aux(self):
-        return self.n_static
+        return self.n_static + (4 if self.season_ids is not None else 0)
 
     def __call__(self, indices, offsets=None, generator=None):
         """Synthesize the batch of samples `indices` [B] on the device.
@@ -145,33 +245,55 @@ class BatchSynthesizer:
         """The device half of `__call__`: the batch of samples `idx` [B]
         at the LR patch offsets (ys, xs) [B] (with patches), all long
         tensors on the device, checked by the host half. Device work only:
-        no host read, no host copy."""
+        no host read, no host copy (dl4ds_tpu/dataloader.py:683-784)."""
         b = idx.shape[0]
-        aux = None
+        static_hr = static_lr = None
         if self.patch_size is None:
             hr = self._gather(self.hr, idx)
-            lr = resize2d(hr, (self.lr_y, self.lr_x), self.interpolation)
+            lr = (self._gather(self.lr, idx) if self.lr is not None
+                  else resize2d(hr, (self.lr_y, self.lr_x),
+                                self.interpolation))
             pred = (self._gather(self.pred, idx) if self.pred is not None
                     else None)
             if self.static_hr is not None:
-                aux = self.static_hr.expand(b, *self.static_hr.shape)
-                static_lr = (self.static_lr.expand(b, *self.static_lr.shape)
-                             if self.time_window is None else None)
+                static_hr = self.static_hr.expand(b, *self.static_hr.shape)
+                if self.time_window is None:
+                    static_lr = self.static_lr.expand(b,
+                                                      *self.static_lr.shape)
         else:
             p, plr, s = self.patch_size, self.patch_lr, self.scale
             hr = self._gather_crop(self.hr, idx, ys * s, xs * s, p)
-            lr = resize2d(hr, (plr, plr), self.interpolation)
+            lr = (self._gather_crop(self.lr, idx, ys, xs, plr)
+                  if self.lr is not None
+                  else resize2d(hr, (plr, plr), self.interpolation))
             pred = (self._gather_crop(self.pred, idx, ys, xs, plr)
                     if self.pred is not None else None)
             if self.static_hr is not None:
                 rows, cols = _crop_index(ys * s, xs * s, p)
-                aux = self.static_hr[rows[:, :, None], cols[:, None, :]]
-                static_lr = (resize2d(aux, (plr, plr), self.interpolation)
-                             if self.time_window is None else None)
+                static_hr = self.static_hr[rows[:, :, None], cols[:, None, :]]
+                if self.time_window is None:
+                    static_lr = resize2d(static_hr, (plr, plr),
+                                         self.interpolation)
         parts_lr = [lr] + ([pred] if pred is not None else [])
-        if aux is not None and self.time_window is None:
-            parts_lr.append(static_lr)
-        lr = torch.cat(parts_lr, dim=-1) if len(parts_lr) > 1 else parts_lr[0]
+        parts_aux = []
+        if static_hr is not None:
+            parts_aux.append(static_hr)
+            if static_lr is not None:
+                parts_lr.append(static_lr)
+        if self.season_ids is not None:
+            # one-hot of the samples' seasons; an id outside 0..3 gives a
+            # zero row, as jax.nn.one_hot does
+            sid = self.season_ids.index_select(0, idx)
+            onehot = (sid[:, None] == self._seasons).to(hr.dtype)[:, None,
+                                                                   None, :]
+            h_hr, w_hr = (static_hr.shape[1:3] if static_hr is not None
+                          else hr.shape[-3:-1])
+            parts_aux.append(onehot.expand(b, h_hr, w_hr, 4))
+            if self.time_window is None:
+                parts_lr.append(onehot.expand(b, *lr.shape[-3:-1], 4))
+        lr = torch.cat(parts_lr, dim=-1) if len(parts_lr) > 1 else lr
+        aux = (torch.cat(parts_aux, dim=-1) if len(parts_aux) > 1
+               else (parts_aux[0] if parts_aux else None))
         return {'lr': lr, 'hr': hr, 'aux': aux}
 
     def _check_indices(self, idx):

@@ -1,12 +1,16 @@
 """
-Inference on unseen HR data (the counterpart of `dl4ds_tpu/inference.py`).
+Inference on unseen HR or LR data (the counterpart of
+`dl4ds_tpu/inference.py`).
 
 `predict` builds one whole-dataset batch on the device with
 `BatchSynthesizer` (sliding windows of `time_window` grids for a
-spatio-temporal model), then runs the network over it in fixed-size batches
-under `torch.inference_mode()`. The ragged tail is padded by repeating its
-last sample, so every forward has the same shape. It runs on CUDA unless
-the caller passes device='cpu'. Modes not ported yet raise
+spatio-temporal model): from HR grids, which it coarsens
+(`array_in_hr=True`), or from LR grids such as a coarse model's output
+(`array_in_hr=False`, MOS), with the season channels of `time_metadata`.
+It then runs the network over the batch in fixed-size batches under
+`torch.inference_mode()`. The ragged tail is padded by repeating its last
+sample, so every forward has the same shape. It runs on CUDA unless the
+caller passes device='cpu'. Modes not ported yet raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -15,7 +19,8 @@ import os
 import numpy as np
 import torch
 
-from .dataloader import BatchSynthesizer
+from .dataloader import BatchSynthesizer, _time_coord, season_ids_from_time
+from .interpolation import resize_array
 from .utils import (Timing, checkarray_ndim, not_ported, resolve_device,
                     spatiotemporal_to_spatial_samples, _values)
 
@@ -26,16 +31,19 @@ class Predictor:
     """Downscale unseen data with a trained network (see `predict`).
 
     As in the JAX package (and the reference), `Predictor` defaults
-    `array_in_hr=False` while `predict` defaults `array_in_hr=True`; this
-    slice implements array_in_hr=True only, so pass it explicitly."""
+    `array_in_hr=False`, so that `array` is taken as the LR input, while
+    `predict` defaults `array_in_hr=True`, so that `array` is HR data to be
+    coarsened first. Pass it explicitly when switching between the two
+    entry points."""
 
     def __init__(self, trainer, array, scale, array_in_hr=False,
                  static_vars=None, predictors=None, time_window=None,
                  time_metadata=None, interpolation='inter_area',
                  batch_size=64, scaler=None, save_path=None,
                  save_fname='y_hat.npy', return_lr=False, device='cuda',
-                 mesh=None, pad_to_multiple=None, tile=None,
-                 spatial_mesh=None, quantize=None):
+                 mesh=None, pad_to_multiple=None, tile=None, halo=32,
+                 spatial_mesh=None, quantize=None, calibration_quantile=None,
+                 calibration=None, calibration_aux=None):
         self.kwargs = dict(
             trainer=trainer, array=array, scale=scale,
             array_in_hr=array_in_hr, static_vars=static_vars,
@@ -44,7 +52,9 @@ class Predictor:
             batch_size=batch_size, scaler=scaler, save_path=save_path,
             save_fname=save_fname, return_lr=return_lr, device=device,
             mesh=mesh, pad_to_multiple=pad_to_multiple, tile=tile,
-            spatial_mesh=spatial_mesh, quantize=quantize)
+            halo=halo, spatial_mesh=spatial_mesh, quantize=quantize,
+            calibration_quantile=calibration_quantile,
+            calibration=calibration, calibration_aux=calibration_aux)
 
     def run(self):
         return predict(**self.kwargs)
@@ -66,12 +76,25 @@ def _resolve_model(trainer):
 
 
 def _assemble_inputs(model, array, scale, array_in_hr, static_vars,
-                     predictors, time_window, interpolation, device):
+                     predictors, time_window, interpolation, device,
+                     time_metadata=None):
     """Whole-dataset (lr, aux) batch on `device`
-    (dl4ds_tpu/inference.py:98-157, array_in_hr=True). With `time_window`
-    there are N - time_window + 1 samples, one per window."""
-    if not array_in_hr:
-        raise not_ported('array_in_hr=False', 5)
+    (dl4ds_tpu/inference.py:98-157). With `time_window` there are
+    N - time_window + 1 samples, one per window. With `array_in_hr=False`
+    `array` is the LR input, and the HR grids that the synthesizer takes
+    (their shape alone reaches the model) are its resize by `scale`. With
+    `time_metadata` (datetime-like [N], or 'auto' for the time coordinate
+    of an xr.DataArray `array`), the one-hot season channels of each
+    sample are stacked as in training; only a season-conditioned model
+    takes them."""
+    if isinstance(time_metadata, str):
+        if time_metadata != 'auto':
+            raise ValueError(f'unknown time_metadata={time_metadata!r}; '
+                             f"pass datetimes or 'auto'")
+        time_metadata = _time_coord(array)
+        if time_metadata is None:
+            raise ValueError("time_metadata='auto' requires `array` to be "
+                             "an xr.DataArray with a time coordinate")
     array = np.asarray(_values(array), 'float32')
     if static_vars is not None:
         static_vars = [np.asarray(_values(s)) for s in static_vars]
@@ -84,14 +107,64 @@ def _assemble_inputs(model, array, scale, array_in_hr, static_vars,
     if predictors is not None:
         predictors = np.concatenate(
             [np.asarray(_values(p)) for p in predictors], axis=-1)
+    if array_in_hr:
+        array_hr, array_lr = array, None
+    else:
+        array_lr = checkarray_ndim(array, 4, -1)
+        hr_xy = (array_lr.shape[2] * scale, array_lr.shape[1] * scale)
+        array_hr = resize_array(array_lr, hr_xy, interpolation,
+                                squeezed=False)
+    season_ids = None
+    if time_metadata is not None:
+        season_ids = season_ids_from_time(time_metadata, time_window)
+        if season_ids.shape[0] < n_samples:
+            raise ValueError(
+                f'`time_metadata` yields {season_ids.shape[0]} samples, '
+                f'need {n_samples}')
+        season_ids = season_ids[:n_samples]
     synth = BatchSynthesizer(
-        checkarray_ndim(array, 4, -1), None, upsampling=model.upsampling,
-        scale=scale, batch_size=n_samples, time_window=time_window,
-        static_vars=static_vars,
+        checkarray_ndim(array_hr, 4, -1), array_lr,
+        upsampling=model.upsampling, scale=scale, batch_size=n_samples,
+        time_window=time_window, static_vars=static_vars,
         predictors=[predictors] if predictors is not None else None,
-        interpolation=interpolation, device=device)
+        interpolation=interpolation, season_ids=season_ids, device=device)
     batch = synth(torch.arange(n_samples))
     return batch['lr'], batch['aux'], n_samples
+
+
+def _pad_spatial_to_multiple(x, aux, multiple):
+    """Edge-pad the input's spatial axes up to the next `multiple`, and aux
+    by the upsampling factor (dl4ds_tpu/inference.py:160-179). Returns (x,
+    aux, out_hw): the output is cropped back to `out_hw` times the model's
+    upsampling factor afterwards (`_crop_padded`)."""
+    h, w = x.shape[-3], x.shape[-2]
+    ph, pw = (-h) % multiple, (-w) % multiple
+    if ph or pw:
+        x = _edge_pad(x, ph, pw)
+        if aux is not None:
+            aux = _edge_pad(aux, ph * (aux.shape[-3] // h),
+                            pw * (aux.shape[-2] // w))
+    return x, aux, (h, w)
+
+
+def _edge_pad(t, ph, pw):
+    """`t` [..., H, W, C] with its last row repeated ph times below and its
+    last column pw times to the right (numpy's 'edge' mode)."""
+    rows = torch.arange(t.shape[-3] + ph, device=t.device).clamp_(
+        max=t.shape[-3] - 1)
+    cols = torch.arange(t.shape[-2] + pw, device=t.device).clamp_(
+        max=t.shape[-2] - 1)
+    return t.index_select(-3, rows).index_select(-2, cols)
+
+
+def _crop_padded(out, x, out_hw):
+    """Undo `_pad_spatial_to_multiple`: crop the output back to the
+    unpadded grid, scaled by the model's output/input spatial ratio."""
+    if out_hw is None:
+        return out
+    f_h = out.shape[-3] // x.shape[-3]
+    f_w = out.shape[-2] // x.shape[-2]
+    return out[..., :out_hw[0] * f_h, :out_hw[1] * f_w, :]
 
 
 def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
@@ -99,16 +172,31 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
             interpolation='inter_area', batch_size=64, scaler=None,
             save_path=None, save_fname='y_hat.npy', return_lr=False,
             device='cuda', mesh=None, pad_to_multiple=None, tile=None,
-            spatial_mesh=None, quantize=None):
-    """Super-resolve/downscale the HR grids `array` [N, H, W(, C)] with a
-    (DSModel, net) pair or a trained `SupervisedTrainer`: the grids are coarsened by `scale` on the device,
-    stacked with the predictors and static variables, and run through the
-    network in eval mode in batches of `batch_size`. Returns a numpy array
-    [N, H, W, n_channels_out] (and the LR inputs with `return_lr`), float32
+            halo=32, spatial_mesh=None, quantize=None,
+            calibration_quantile=None, calibration=None,
+            calibration_aux=None):
+    """Super-resolve/downscale `array` [N, H, W(, C)] with a (DSModel, net)
+    pair or a trained `SupervisedTrainer`, and return a numpy array [N,
+    H', W', n_channels_out] (and the LR inputs with `return_lr`), float32
     for every model dtype: a bfloat16 model's output values are bfloat16
     ones held exactly in float32 (the JAX package returns an `ml_dtypes`
     bfloat16 array, dl4ds_tpu/inference.py:449; numpy has no bfloat16 of
     its own).
+
+    With `array_in_hr=True` the grids are HR data, coarsened by `scale` on
+    the device (PerfectProg); with `array_in_hr=False` they are the LR
+    input itself, such as a coarse model's output (MOS). The LR input is
+    stacked with the predictors, the static variables and, with
+    `time_metadata` (datetime-like [N], or 'auto' for an xr.DataArray's
+    time coordinate), the season channels, and run through the network in
+    eval mode in batches of `batch_size`. `scaler`'s inverse_transform is
+    applied to the output.
+
+    `pad_to_multiple` edge-pads the input's grid up to the next multiple
+    (and aux by the upsampling factor) and crops the output back. The
+    output then differs from an unpadded run near the padded border and,
+    in a model with channel attention, everywhere, since the gate's mean
+    sees the padded pixels, as in the JAX package.
 
     A spatio-temporal model needs `time_window`: it runs on the N - tw + 1
     windows of tw consecutive grids, and its [N - tw + 1, tw, ...] output
@@ -117,11 +205,16 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
 
     `device` is where the network and the data live ('cuda' by default;
     device='cpu' must be asked for). The network must already be there.
+    `mesh`, `tile` and `spatial_mesh` (with `halo`) are ROADMAP item 10,
+    `quantize` (with `calibration_quantile`, `calibration` and
+    `calibration_aux`) item 11: they raise when given.
     """
-    for value, what, item in ((time_metadata, 'time_metadata', 3),
-                              (mesh, 'mesh', 10), (tile, 'tile', 10),
+    if quantize is None and (calibration is not None
+                             or calibration_aux is not None):
+        raise ValueError('`calibration`/`calibration_aux` only apply to '
+                         'quantized inference; pass quantize= as well')
+    for value, what, item in ((mesh, 'mesh', 10), (tile, 'tile', 10),
                               (spatial_mesh, 'spatial_mesh', 10),
-                              (pad_to_multiple, 'pad_to_multiple', 5),
                               (quantize, 'quantize', 11)):
         if value is not None:
             raise not_ported(f'predict({what}=...)', item)
@@ -141,7 +234,11 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
                          f'predict was asked to run on {device}')
     x, aux, _ = _assemble_inputs(model, array, scale, array_in_hr,
                                  static_vars, predictors, time_window,
-                                 interpolation, device)
+                                 interpolation, device, time_metadata)
+    batch_lr = x
+    out_hw = None
+    if pad_to_multiple is not None:
+        x, aux, out_hw = _pad_spatial_to_multiple(x, aux, pad_to_multiple)
     # eval mode, as the JAX package applies training=False
     # (dl4ds_tpu/inference.py:349-350); the caller's mode comes back after
     was_training = net.training
@@ -151,7 +248,8 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
             out = _batched_apply(net, x, aux, batch_size)
     finally:
         net.train(was_training)
-    return _finalize_predict(out, x, time_window, scaler, save_path,
+    out = _crop_padded(out, x, out_hw)
+    return _finalize_predict(out, batch_lr, time_window, scaler, save_path,
                              save_fname, return_lr, timing)
 
 

@@ -16,7 +16,7 @@ import torch
 
 from . import INTERPOLATION_METHODS
 
-__all__ = ['resize_matrix', 'resize2d']
+__all__ = ['resize_matrix', 'resize2d', 'resize_array']
 
 
 # -----------------------------------------------------------------------------
@@ -192,3 +192,36 @@ def resize2d(x, out_hw, interpolation='inter_area'):
     y = torch.matmul(wy, x.reshape(*lead, h_in, w_in * c))
     y = y.reshape(*lead, h_out, w_in, c)
     return torch.matmul(wx, y)
+
+
+def resize_array(array, newsize, interpolation='inter_area', squeezed=True,
+                 keep_dynamic_range=False):
+    """The reference's resize helper (dl4ds/utils.py:341-401), as the JAX
+    package's `resize_array` (dl4ds_tpu/interpolation.py:197-231): a 2-D
+    [y, x], 3-D [y, x, c] or 4-D [t, y, x, c] array resized to `newsize`,
+    given as (X, Y), with `resize2d` in float32. Integer and bool inputs
+    are forced to 'nearest' and rounded back to their dtype; `squeezed`
+    drops length-1 axes; `keep_dynamic_range` clips to the input's range.
+    A numpy array gives a numpy array (resized on the CPU), a tensor a
+    tensor on its device."""
+    is_np = not isinstance(array, torch.Tensor)
+    x = torch.from_numpy(np.asarray(array)) if is_np else array
+    in_dtype = x.dtype
+    is_intlike = not (x.is_floating_point() or x.is_complex())
+    if is_intlike:
+        # nearest only selects input values: the float32 trip is exact
+        interpolation = 'nearest'
+    if x.ndim not in (2, 3, 4):
+        raise RuntimeError(f'Wrong dimensions, got {x.ndim}')
+    size_x, size_y = newsize
+    x = x.to(torch.float32)
+    out = resize2d(x, (size_y, size_x), interpolation)
+    if squeezed:
+        out = torch.squeeze(out)
+    if keep_dynamic_range:
+        out = torch.clamp(out, x.min(), x.max())
+    if is_intlike:
+        out = torch.round(out).to(in_dtype)
+    elif in_dtype != torch.float32:
+        out = out.to(in_dtype)
+    return out.numpy() if is_np else out

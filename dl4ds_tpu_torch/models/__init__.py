@@ -217,17 +217,13 @@ def save_model(model, net, path):
 
 def load_model(path, device='cuda'):
     """Rebuild a model saved by `save_model` or by the JAX package's
-    `save_model` with its pickle fallback (dl4ds_tpu/models/__init__.py:
-    285-307); returns (DSModel, nn.Module) on `device`. An orbax
-    `variables/` directory needs JAX to read and raises."""
+    `save_model` (dl4ds_tpu/models/__init__.py:285-307), from its orbax
+    `variables/` directory (read through tensorstore, `_read_orbax_tree`)
+    or its pickle fallback `variables.pkl`; returns (DSModel, nn.Module) on
+    `device`."""
     from ..weights import load_jax_params
     with open(os.path.join(path, 'model_config.json')) as fh:
         meta = json.load(fh)
-    if os.path.isdir(os.path.join(path, 'variables')):
-        raise ValueError(
-            f'{path} holds its variables as an orbax checkpoint '
-            f'(variables/), which only JAX can read; save it with the JAX '
-            f'package\'s pickle fallback (variables.pkl) to load it here')
     factory = _FACTORIES.get(meta['module_class'])
     if factory is None:
         raise not_ported(f"model class {meta['module_class']!r}", 6)
@@ -243,11 +239,53 @@ def load_model(path, device='cuda'):
     model = factory(backbone, upsampling, n_channels=n_channels,
                     n_aux_channels=aux[-1] if aux else 0, lr_size=(h, w),
                     **cfg)
-    with open(os.path.join(path, 'variables.pkl'), 'rb') as fh:
-        variables = pickle.load(fh)
+    var_dir = os.path.abspath(os.path.join(path, 'variables'))
+    if os.path.isdir(var_dir):
+        variables = _read_orbax_tree(var_dir)
+    else:
+        with open(os.path.join(path, 'variables.pkl'), 'rb') as fh:
+            variables = pickle.load(fh)
     net = load_jax_params(model.init(0, device=device),
                           _as_numpy_tree(variables['params']))
     return model, net
+
+
+def _read_orbax_tree(directory):
+    """The nested dict of numpy arrays that `orbax.checkpoint`'s
+    PyTreeCheckpointer saved in `directory`, read with tensorstore alone.
+    `_METADATA` (JSON) lists each leaf's keys under `tree_metadata` and the
+    layout: with `use_ocdbt` (orbax's default) every leaf is a zarr array
+    in the directory's one OCDBT store under its keys joined by '.', else
+    one directory a leaf under that name; `use_zarr3` selects zarr v3."""
+    try:
+        import tensorstore as ts
+    except ImportError as exc:
+        raise ImportError(
+            f'{directory} is an orbax checkpoint, which is read with the '
+            f'`tensorstore` package; install it, or save the model with '
+            f'variables.pkl') from exc
+    with open(os.path.join(directory, '_METADATA')) as fh:
+        meta = json.load(fh)
+    zarr = 'zarr3' if meta.get('use_zarr3', False) else 'zarr'
+    ocdbt = meta.get('use_ocdbt', True)
+    tree = {}
+    for leaf in meta['tree_metadata'].values():
+        keys = [str(k['key']) for k in leaf['key_metadata']]
+        kind = leaf.get('value_metadata', {}).get('value_type', 'np.ndarray')
+        if kind not in ('np.ndarray', 'jax.Array', 'scalar'):
+            raise ValueError(f'{directory}: leaf {keys} holds a {kind!r}, '
+                             f'not an array')
+        name = '.'.join(keys)
+        kvstore = ({'driver': 'ocdbt', 'base': f'file://{directory}',
+                    'path': name} if ocdbt else
+                   {'driver': 'file',
+                    'path': os.path.join(directory, name)})
+        value = ts.open({'driver': zarr, 'kvstore': kvstore}).result()
+        node = tree
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = np.asarray(value.read().result())
+    return tree
 
 
 def _as_numpy_tree(tree):

@@ -40,12 +40,22 @@ class Trainer(ABC):
                  gpu_memory_growth=None):
         if mesh is not None or devices is not None:
             raise not_ported('`mesh` and `devices` (multi-GPU training)', 10)
-        if data_train_lr is not None:
-            raise not_ported('a given LR training array (`data_train_lr`)', 5)
         self.data_train = self._as_array(data_train, 'data_train')
         if not self.data_train.ndim > 3:
             raise ValueError(
                 '`data_train` must be at least 4D [samples, lat, lon, variables]')
+        # a given LR training array (MOS; dl4ds_tpu/training/base.py:66-76)
+        self.data_train_lr = (self._as_array(data_train_lr, 'data_train_lr')
+                              if data_train_lr is not None else None)
+        if self.data_train_lr is not None:
+            if self.data_train_lr.shape[0] != self.data_train.shape[0]:
+                raise ValueError(
+                    '`data_train_lr` and `data_train` must contain the same '
+                    'number of samples (equal 1st dim length)')
+            if not self.data_train_lr.ndim > 3:
+                raise ValueError(
+                    '`data_train_lr` must be at least 4D '
+                    '[samples, lat, lon, variables]')
         self.backbone, self.upsampling = check_compatibility_upsbackb(
             backbone, upsampling, time_window)
         self.time_window = time_window
@@ -77,6 +87,20 @@ class Trainer(ABC):
                 f'The image size {sizes} must be divisible by `scale` '
                 f'(remainder must be zero). Crop the images or set '
                 f'`patch_size` accordingly')
+        if self.scale is not None and self.data_train_lr is not None:
+            hr_yx = self.data_train.shape[-3:-1]
+            lr_yx = self.data_train_lr.shape[-3:-1]
+            if self.upsampling in POSTUPSAMPLING_METHODS:
+                # a post-upsampling model upsamples LR by exactly `scale`
+                if any(h != l * self.scale for h, l in zip(hr_yx, lr_yx)):
+                    raise ValueError(
+                        f'Wrong `scale` value: HR grid {tuple(hr_yx)} is '
+                        f'not exactly {self.scale}x the LR grid '
+                        f'{tuple(lr_yx)}')
+            elif int(hr_yx[0] / lr_yx[0]) != int(self.scale):
+                raise ValueError(
+                    'Wrong `scale` value, check `data_train` and '
+                    '`data_train_lr` grid sizes')
         self.lossf = checkarg_loss(self.loss)
 
     @staticmethod
@@ -126,19 +150,22 @@ class Trainer(ABC):
         with open(self.save_path + 'scalars.jsonl', 'a') as fh:
             fh.write(json.dumps({'step': step, **scalars}) + '\n')
 
-    def channel_counts(self, predictors_train, static_vars):
+    def channel_counts(self, predictors_train, static_vars,
+                       season_ids=None):
         """Model input and aux channel counts
         (dl4ds_tpu/training/base.py:233-260): spatial samples put the
-        statics into the LR input and the HR aux branch, spatio-temporal
-        samples into the aux branch only."""
+        statics and the 4 season channels into the LR input and the HR aux
+        branch, spatio-temporal samples into the aux branch only."""
         n_channels = self.data_train.shape[-1]
         n_aux_channels = 0
-        if static_vars is not None:
-            n_aux_channels = len(static_vars)
-            if not self.model_is_spatiotemporal:
-                n_channels += len(static_vars)
         if predictors_train is not None:
             n_channels += len(predictors_train)
+        if static_vars is not None:
+            n_aux_channels += len(static_vars)
+        if season_ids is not None:
+            n_aux_channels += 4
+        if not self.model_is_spatiotemporal:
+            n_channels += n_aux_channels
         return n_channels, n_aux_channels
 
     def grid_sizes(self):

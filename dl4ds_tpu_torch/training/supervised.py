@@ -32,7 +32,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..dataloader import BatchSynthesizer
+from ..dataloader import BatchSynthesizer, _time_coord, season_ids_from_time
 from ..models import build_model
 from ..utils import Timing, not_ported
 from .base import Trainer
@@ -52,8 +52,16 @@ class SupervisedTrainer(Trainer):
     `use_multiprocessing`, `model_list`, `gpu_memory_growth` and
     `show_plot` are accepted and do nothing, as in the JAX package. The
     options that are not ported raise NotImplementedError naming their
-    ROADMAP item: seasons (3); `data_*_lr` (5); `data_in_hbm=False` (9);
-    `mesh` and `devices` (10); `init_weights` (11).
+    ROADMAP item: `data_in_hbm=False` (9); `mesh` and `devices` (10);
+    `init_weights` (11).
+
+    MOS training takes the given LR arrays `data_train_lr`, `data_val_lr`
+    and `data_test_lr` (each [n, y, x, c] beside its HR split, HR exactly
+    `scale` times LR); PerfectProg training, without them, coarsens the HR
+    data. Season channels come from `season_ids`, a (train, val, test)
+    tuple of [n] id tables, or from `time_metadata`, a (train, val, test)
+    tuple of datetime-like arrays or 'auto' (the splits' xr time
+    coordinates).
 
     After `run`, `net` holds the weights to serve (the EMA ones with
     `ema_decay`), `train_net` the raw ones, and `fithist`, `test_loss` and
@@ -80,10 +88,6 @@ class SupervisedTrainer(Trainer):
                  gradient_accumulation_steps=1, lr_schedule=None,
                  warmup_steps=0, ema_decay=0.0, **architecture_params):
         unported = [
-            (data_val_lr is not None or data_test_lr is not None,
-             'given LR arrays (`data_val_lr`, `data_test_lr`)', 5),
-            (season_ids is not None or time_metadata is not None,
-             'season channels (`season_ids`, `time_metadata`)', 3),
             (not data_in_hbm, 'host streaming (`data_in_hbm=False`)', 9),
             (init_weights is not None, 'Keras weight import (`init_weights`)',
              11)]
@@ -123,6 +127,10 @@ class SupervisedTrainer(Trainer):
             self.time_window = None
         self.data_val = self._as_array(data_val, 'data_val')
         self.data_test = self._as_array(data_test, 'data_test')
+        self.data_val_lr = (self._as_array(data_val_lr, 'data_val_lr')
+                            if data_val_lr is not None else None)
+        self.data_test_lr = (self._as_array(data_test_lr, 'data_test_lr')
+                             if data_test_lr is not None else None)
         for name, preds in (('predictors_train', predictors_train),
                             ('predictors_val', predictors_val),
                             ('predictors_test', predictors_test)):
@@ -163,6 +171,9 @@ class SupervisedTrainer(Trainer):
         self.profile = profile
         self.seed = seed
         self.terminate_on_nan = terminate_on_nan
+        self.season_ids = _season_tables(season_ids, time_metadata,
+                                         (data_train, data_val, data_test),
+                                         time_window)
         self.model = None
         self.net = None
 
@@ -175,12 +186,16 @@ class SupervisedTrainer(Trainer):
                       time_window=self.time_window,
                       static_vars=self.static_vars,
                       interpolation=self.interpolation, device=self.device)
+        season = self.season_ids or (None, None, None)
         self.ds_train = BatchSynthesizer(
-            self.data_train, None, predictors=self.predictors_train, **common)
+            self.data_train, self.data_train_lr,
+            predictors=self.predictors_train, season_ids=season[0], **common)
         self.ds_val = BatchSynthesizer(
-            self.data_val, None, predictors=self.predictors_val, **common)
+            self.data_val, self.data_val_lr, predictors=self.predictors_val,
+            season_ids=season[1], **common)
         self.ds_test = BatchSynthesizer(
-            self.data_test, None, predictors=self.predictors_test, **common)
+            self.data_test, self.data_test_lr,
+            predictors=self.predictors_test, season_ids=season[2], **common)
 
     def setup_model(self):
         """Channel bookkeeping and the model, its weights drawn from `seed`,
@@ -194,7 +209,7 @@ class SupervisedTrainer(Trainer):
                 print('Loading pre-trained model')
             return
         n_channels, n_aux_channels = self.channel_counts(
-            self.predictors_train, self.static_vars)
+            self.predictors_train, self.static_vars, self.season_ids)
         (hr_height, hr_width), (lr_height, lr_width) = self.grid_sizes()
         self.model = build_model(
             backbone=self.backbone, upsampling=self.upsampling,
@@ -493,6 +508,39 @@ class SupervisedTrainer(Trainer):
         self._set_rate()
         generator.set_state(payload['generator'])
         return int(payload['epoch'])
+
+
+def _season_tables(season_ids, time_metadata, splits, time_window):
+    """The (train, val, test) season id tables: `season_ids` as given, or
+    decoded from `time_metadata`, a (train, val, test) tuple of
+    datetime-like arrays or 'auto' (each split's xr time coordinate), with
+    the JAX trainer's checks (dl4ds_tpu/training/supervised.py:194-231)."""
+    if season_ids is not None and (not isinstance(season_ids, (tuple, list))
+                                   or len(season_ids) != 3):
+        raise ValueError('`season_ids` must be a (train, val, test) '
+                         'tuple of int arrays')
+    if season_ids is not None and time_metadata is not None:
+        raise ValueError('pass either `season_ids` or `time_metadata`, '
+                         'not both (time_metadata would be silently '
+                         'shadowed by the explicit season_ids)')
+    if time_metadata is None:
+        return season_ids
+    if isinstance(time_metadata, str):
+        if time_metadata != 'auto':
+            raise ValueError(
+                f'unknown time_metadata={time_metadata!r}; pass a '
+                f"(train, val, test) tuple of datetimes or 'auto'")
+        time_metadata = tuple(_time_coord(a) for a in splits)
+        if any(t is None for t in time_metadata):
+            raise ValueError(
+                "time_metadata='auto' requires all three splits to "
+                "be xr.DataArrays with time coordinates")
+    elif (not isinstance(time_metadata, (tuple, list))
+            or len(time_metadata) != 3):
+        raise ValueError('`time_metadata` must be a (train, val, '
+                         "test) tuple of datetime-like arrays or "
+                         "'auto'")
+    return tuple(season_ids_from_time(t, time_window) for t in time_metadata)
 
 
 def _cpu(tensors):

@@ -16,7 +16,7 @@ __all__ = ['checkarray_ndim', 'checkarg_upsampling', 'checkarg_backbone',
            'checkarg_dropout_variant', 'checkarg_loss',
            'check_compatibility_upsbackb', 'resolve_device', 'not_ported',
            'spatiotemporal_to_spatial_samples', 'Timing', 'plot_history',
-           '_values']
+           'plot_ndarray', '_values']
 
 
 def not_ported(what, item):
@@ -206,3 +206,70 @@ def plot_history(history, path=None):
             os.makedirs(dirname, exist_ok=True)
         fig.savefig(path)
     return fig, axes
+
+
+def plot_ndarray(data, plot_title=None, subplot_titles=None, dpi=100,
+                 cmap='viridis', share_colorbar=False, lats=None, lons=None,
+                 save_fname=None, interactive=False, **_ignored):
+    """Multi-panel grid plot of 2-D field(s) — the static stand-in for the
+    reference's `ecubevis.plot_ndarray` debug/inspection panels
+    (used at dl4ds/dataloader.py:260-289 and dl4ds/metrics.py via `ecv`).
+
+    `data`: one 2-D array, a [N, H, W] stack, or a tuple/list of 2-D
+    arrays. With `lats`/`lons` (1-D coordinate vectors) the panels are
+    drawn on the geographic extent with degree axis labels.
+    Returns the matplotlib figure (a copy of dl4ds_tpu/utils.py:31;
+    matplotlib is imported here only). `interactive=True`, the JAX
+    package's HTML viewer, is `viz.py`'s and not ported.
+    """
+    if interactive:
+        raise not_ported('plot_ndarray(interactive=True) (viz.py)', 11)
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+
+    if isinstance(data, (tuple, list)):
+        panels = [np.squeeze(np.asarray(d)) for d in data]
+    else:
+        data = np.squeeze(np.asarray(data))
+        panels = [data] if data.ndim == 2 else [data[i]
+                                                for i in range(data.shape[0])]
+    for p in panels:
+        if p.ndim != 2:
+            raise ValueError('plot_ndarray expects 2-D fields (or stacks/'
+                             f'tuples of them); got shape {p.shape}')
+    extent = None
+    origin = 'lower'
+    if lats is not None and lons is not None:
+        lats, lons = np.asarray(lats), np.asarray(lons)
+        extent = (float(lons.min()), float(lons.max()),
+                  float(lats.min()), float(lats.max()))
+        if lats[0] > lats[-1]:       # descending latitude grids
+            origin = 'upper'
+    vmin = vmax = None
+    if share_colorbar:
+        vmin = min(float(np.nanmin(p)) for p in panels)
+        vmax = max(float(np.nanmax(p)) for p in panels)
+    n = len(panels)
+    fig, axes = plt.subplots(1, n, figsize=(4.6 * n, 4), dpi=dpi,
+                             squeeze=False)
+    for i, (ax, img) in enumerate(zip(axes[0], panels)):
+        im = ax.imshow(img, cmap=cmap, origin=origin, extent=extent,
+                       vmin=vmin, vmax=vmax,
+                       aspect='auto' if extent else None)
+        if subplot_titles is not None and i < len(subplot_titles):
+            ax.set_title(subplot_titles[i], fontsize=10)
+        if extent is not None:
+            ax.set_xlabel('lon [deg]')
+            if i == 0:
+                ax.set_ylabel('lat [deg]')
+        if not share_colorbar:
+            fig.colorbar(im, ax=ax, shrink=0.85)
+    if share_colorbar:
+        fig.colorbar(im, ax=list(axes[0]), shrink=0.85)
+    if plot_title:
+        fig.suptitle(plot_title)
+    if save_fname is not None:
+        fig.savefig(save_fname, bbox_inches='tight')
+        plt.close(fig)
+    return fig

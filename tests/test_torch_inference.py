@@ -99,13 +99,56 @@ def test_batch_synthesizer_matches_jax(data):
 
 @pytest.mark.parametrize('kwargs', [
     dict(tile=32), dict(mesh=object()), dict(spatial_mesh=object()),
-    dict(quantize='int8'), dict(pad_to_multiple=32),
-    dict(time_metadata=np.arange(N).astype('datetime64[D]')),
-    dict(time_metadata='auto'), dict(array_in_hr=False)])
+    dict(quantize='int8'), dict(tile=32, halo=8),
+    dict(spatial_mesh=object(), halo=8),
+    dict(quantize='int8', calibration_quantile=0.999),
+    dict(quantize='int8', calibration=np.zeros((2, 16, 16, 4), np.float32))])
 def test_unported_predict_modes_raise(data, models, kwargs):
+    """Tiling and meshes (ROADMAP item 10, `halo` with them) and int8
+    serving (item 11, the `calibration*` arguments with it)."""
     hr = data[0]
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tds.predict(models[1], hr, scale=SCALE, device='cpu', **kwargs)
+
+
+def _parameters(fn):
+    import inspect
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize('name', ['predict', 'Predictor'])
+def test_signatures_equal_the_jax_ones(name):
+    """`predict` and `Predictor` take the JAX package's parameters, in its
+    order and with its defaults, `device`'s default ('cuda') apart: a
+    positional call means the same in both."""
+    jax_fn, port_fn = getattr(dds, name), getattr(tds, name)
+    if name == 'Predictor':
+        jax_fn, port_fn = jax_fn.__init__, port_fn.__init__
+    want = [p if p[0] != 'device' else p[:2] + ('cuda',)
+            for p in _parameters(jax_fn)]
+    assert _parameters(port_fn) == want
+
+
+def test_unused_options_do_nothing_and_calibration_needs_quantize(
+        data, models):
+    """`halo` and `calibration_quantile` take effect only with tiling or
+    quantization, and do nothing without; a calibration batch without
+    `quantize` is the JAX package's ValueError."""
+    hr, topo, mask, pred = data
+    kw = dict(scale=SCALE, static_vars=[topo, mask], predictors=[pred],
+              batch_size=3, device='cpu')
+    plain = tds.predict(models[1], hr, **kw)
+    np.testing.assert_array_equal(
+        tds.predict(models[1], hr, halo=4, calibration_quantile=0.9, **kw),
+        plain)
+    for extra in (dict(calibration=np.zeros((1, 16, 16, 4), np.float32)),
+                  dict(calibration_aux=np.zeros((1, 64, 64, 2),
+                                                np.float32))):
+        with pytest.raises(ValueError, match='quantize'):
+            dds.predict(models[0], hr, **dict(kw, device='TPU', **extra))
+        with pytest.raises(ValueError, match='quantize'):
+            tds.predict(models[1], hr, **kw, **extra)
 
 
 def test_predict_does_not_fall_back_to_the_cpu(data, models):

@@ -333,8 +333,7 @@ def test_terminate_on_nan(data):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(season_ids=([0], [0], [0])),
-    dict(data_val_lr=np.zeros((6, 8, 10, 1), np.float32)),
+    dict(backbone='densenet'), dict(upsampling='dc'),
     dict(data_in_hbm=False), dict(mesh=object()), dict(devices=['cpu']),
     dict(init_weights='keras.npz'), dict(backbone='convnet'),
     dict(upsampling='pin')])

@@ -4,7 +4,9 @@ today's per-step draws, `steps_per_execution` (whole chunks, the JAX
 trainer's warning), resume from a full checkpoint against an unbroken run
 (bit for bit, with EMA, accumulation and a schedule), saving (the JAX
 package's files; a port-saved model loaded by the JAX `load_model`
-predicts as the port does, atol 1e-5), `trained_model`, the scalar log,
+predicts as the port does, atol 1e-5), loading (the JAX `save_model`'s
+orbax tree read through tensorstore, float32 and bfloat16, predict within
+1e-5 of the JAX `predict`), `trained_model`, the scalar log,
 the profiler, `remat` (its gradients equal the plain ones), EMA as the
 public weights, and every ported option running instead of raising.
 Small sizes, float32."""
@@ -187,12 +189,51 @@ def test_saved_results_and_the_jax_load_model(hr, tmp_path):
 
 
 def test_load_model_refuses_an_orbax_tree(hr, tmp_path):
+    """An orbax `variables/` tree, the JAX `save_model`'s default format,
+    is read, not refused: through tensorstore, with neither JAX nor orbax
+    involved, into the same parameters, for a float32 and a bfloat16
+    flagship; the loaded model's `predict` is the JAX `predict`'s within
+    1e-5."""
+    import jax
+    import jax.numpy as jnp
+    spec = dict(scale=SCALE, n_channels=1, n_aux_channels=0,
+                lr_size=(HR_Y // SCALE, HR_X // SCALE), n_filters=4,
+                n_blocks=1, attention=True)
+    for dtype in (jnp.float32, jnp.bfloat16):
+        path = str(tmp_path / jnp.dtype(dtype).name)
+        jm = dds.net_postupsampling('resnet', 'spc', dtype=dtype, **spec)
+        variables = jm.init(jax.random.PRNGKey(4))
+        dds.models.save_model(jm, variables, path)
+        assert os.path.isdir(os.path.join(path, 'variables'))
+        assert not os.path.exists(os.path.join(path, 'variables.pkl'))
+        model, net = tds.models.load_model(path, device='cpu')
+        assert str(model.dtype) == f'torch.{jnp.dtype(dtype).name}'
+        carried = tds.load_jax_params(
+            model.init(1, device='cpu'),
+            jax.tree_util.tree_map(np.asarray, variables['params']))
+        assert _same(_params(net), _params(carried))
+        want = np.asarray(dds.predict((jm, variables), hr[:3], scale=SCALE,
+                                      batch_size=2), np.float32)
+        got = tds.predict((model, net), hr[:3], scale=SCALE, batch_size=2,
+                          device='cpu')
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0,
+                                   err_msg=str(dtype))
+
+
+def test_orbax_read_needs_tensorstore(hr, tmp_path, monkeypatch):
+    """Without tensorstore an orbax tree raises a clear ImportError; the
+    pickle fallback is read as before."""
+    import sys
     tr = _trainer(hr, epochs=1)
     tr.setup_model()
     tds.models.save_model(tr.model, tr.net, str(tmp_path))
     os.makedirs(tmp_path / 'variables')
-    with pytest.raises(ValueError, match='orbax'):
+    monkeypatch.setitem(sys.modules, 'tensorstore', None)
+    with pytest.raises(ImportError, match='tensorstore'):
         tds.models.load_model(str(tmp_path), device='cpu')
+    os.rmdir(tmp_path / 'variables')
+    _, net = tds.models.load_model(str(tmp_path), device='cpu')
+    assert _same(_params(net), _params(tr.net))
 
 
 def test_save_model_writes_the_flax_tree(hr, tmp_path):

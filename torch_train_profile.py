@@ -3,7 +3,7 @@
 
     python3 torch_train_profile.py [--model recresnet_spc|resnet_spc]
         [--loss mae] [--batch 128] [--reps 5] [--width 8] [--attention]
-        [--graphed] [--dtype bf16]                   # from the repo root
+        [--graphed] [--dtype bf16] [--mos]           # from the repo root
 
 Builds the training configuration of `chip_smoke.py` phase 7 (BASELINE
 config 4 as bench_suite.py's measure_supervised trains it:
@@ -14,7 +14,10 @@ n_filters=8, scale=4, patch_size=64, loss='mae')` on 256 seeded grids of
 with `--model resnet_spc --attention` the flagship of phase 10 (bench.py's
 resnet_spc: n_blocks 6, no time window; `--loss dssim_mae` as phase 10
 trains it); `--dtype bf16` trains the bfloat16 model (float32 parameters,
-Adam and loss; bfloat16 convolutions and kernels). Runs 3 warm-up steps, then `reps` steps (batch synthesis,
+Adam and loss; bfloat16 convolutions and kernels); `--mos` trains the
+flagship of `chip_smoke.py` phase 13 MOS-style, from given LR arrays with
+two statics, a predictor and season channels (`--batch`, `--dtype` and the
+model options above are still read; the model is phase 13's). Runs 3 warm-up steps, then `reps` steps (batch synthesis,
 forward, backward, Adam) under `torch.profiler` on one GPU, and prints one
 JSON line: device time per kernel group and for the top kernels, every
 kernel's launches and device time a step (`kernels_per_step`), the device
@@ -95,6 +98,8 @@ def main():
     ap.add_argument('--graphed', action='store_true',
                     help='profile replays of the captured step')
     ap.add_argument('--dtype', choices=('f32', 'bf16'), default='f32')
+    ap.add_argument('--mos', action='store_true',
+                    help="chip_smoke.py phase 13's MOS training")
     args = ap.parse_args()
 
     import numpy as np
@@ -109,17 +114,22 @@ def main():
     if not args.graphed:
         annotate_backwards(torch, ops)
 
-    data = np.random.default_rng(0).standard_normal(
-        (256, 128, 128, 1)).astype('float32')
-    model = (dict(time_window=4, n_blocks=2)
-             if args.model == 'recresnet_spc' else dict(n_blocks=6))
-    tr = tds.SupervisedTrainer(
-        'resnet', 'spc', data_train=data, data_val=data[:64],
-        data_test=data[:64], scale=4, patch_size=64, batch_size=args.batch,
-        loss=args.loss, n_filters=args.width, attention=args.attention,
-        verbose=False,
-        dtype={'f32': torch.float32, 'bf16': torch.bfloat16}[args.dtype],
-        **model)
+    dtype = {'f32': torch.float32, 'bf16': torch.bfloat16}[args.dtype]
+    if args.mos:
+        import chip_smoke
+        config = chip_smoke._mos_config(tds)[0]
+        tr = tds.SupervisedTrainer(batch_size=args.batch, dtype=dtype,
+                                   **config)
+    else:
+        data = np.random.default_rng(0).standard_normal(
+            (256, 128, 128, 1)).astype('float32')
+        model = (dict(time_window=4, n_blocks=2)
+                 if args.model == 'recresnet_spc' else dict(n_blocks=6))
+        tr = tds.SupervisedTrainer(
+            'resnet', 'spc', data_train=data, data_val=data[:64],
+            data_test=data[:64], scale=4, patch_size=64,
+            batch_size=args.batch, loss=args.loss, n_filters=args.width,
+            attention=args.attention, verbose=False, dtype=dtype, **model)
     tr.setup_datagen()
     tr.setup_model()
     tr.setup_optimizer()
@@ -181,8 +191,11 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     print(json.dumps({
         'device': torch.cuda.get_device_name(0), 'model': tr.model.name,
-        'dtype': args.dtype,
-        'loss': args.loss, 'width': args.width, 'attention': args.attention,
+        'dtype': args.dtype, 'mos': args.mos,
+        'input_channels': tr.model.input_shape[-1],
+        'aux_channels': (tr.model.aux_shape or (0,))[-1],
+        'loss': tr.loss, 'width': tr.architecture_params['n_filters'],
+        'attention': tr.architecture_params.get('attention', False),
         'batch': args.batch, 'reps': args.reps,
         'mode': 'graphed' if args.graphed else 'eager',
         'kernel_launches_per_step': len(kernels) / args.reps,
