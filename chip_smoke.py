@@ -142,14 +142,33 @@ Phases, each of which exits non-zero on failure:
      on the card: K6 launched once, the per-grid SSIM against the plain
      ssim in float64, the PSNR, the maps against device='cpu', K6 timed at
      [16, 512, 512, 1];
- 14. print the `kernels` JSON line, then, last, the device JSON line. In
+ 14. the pre-upsampled models and the 'rc' and 'dc' heads: BASELINE
+     configs 1 and 3 (convnet_pin: n_blocks 6; unet_pin: n_blocks 4, the
+     'rc' decoder; n_filters 8) trained as phase 10 with mae: K1 held and
+     timed at the step's gate (the output head's, [128, 64, 64, 8]) both
+     ways and in the mixed mode, 2 epochs of 20 steps with validation and
+     test through `run()`'s replayed graphs with K1's launches both ways in
+     the device trace, finite losses, the speed, 3 steps against the CPU in
+     float64, 8 replayed steps against 8 eager ones bit for bit, then 2
+     epochs in bfloat16; `predict` of each trained model on 16 HR grids of
+     128x128 at batch 8 (K1 2 launches), the U-Net also on grids of
+     100x100 (max-pool floors, pad_concat pads), grid 0 against the CPU,
+     and the same weights in bfloat16 by the mean criterion; then
+     `predict` of net_postupsampling('resnet', 'rc' | 'dc', x4, n_blocks
+     6, attention) on 16 LR grids of 128x128 into 512x512 (K1 14
+     launches) and of recnet_postupsampling('resnet', 'dc', time_window=4)
+     on 19 grids (K2 48 launches), grid 0 against the CPU;
+ 15. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
-     K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train)
-     is what the device trace of its phase's run holds, and `wrapper_calls`
-     what its wrapper counted (the warm-up calls and the capture: a replay
-     calls no wrapper); the serving kernels (K1_channel_attention,
-     K2_convlstm, K1_channel_attention_mos_serve) and K6_ssim_metrics run
-     eagerly, and their `launches` are their wrappers' counts.
+     K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
+     K1_channel_attention_convnet_pin_train,
+     K1_channel_attention_unet_pin_train) is what the device trace of its
+     phase's run holds, and `wrapper_calls` what its wrapper counted (the
+     warm-up calls and the capture: a replay calls no wrapper); the
+     serving kernels (K1_channel_attention, K2_convlstm,
+     K1_channel_attention_mos_serve, K1_channel_attention_pin_serve,
+     K1_channel_attention_rc_dc_serve) and K6_ssim_metrics run eagerly, and
+     their `launches` are their wrappers' counts.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -1365,14 +1384,14 @@ def _expected_launches(conv, layers, steps, eval_steps, itemsize=4):
             'K6': 0, 'K6 backward': 0}
 
 
-def _training_config(**model):
+def _training_config(backbone='resnet', upsampling='spc', **model):
     """SupervisedTrainer arguments of a training phase: 256 seeded grids of
     128x128, 64x64 HR patches, scale 4, and the model's `model` options."""
     import numpy as np
     rng = np.random.default_rng(0)
     data = rng.standard_normal(
         (TRAIN_GRIDS, TRAIN_HR, TRAIN_HR, 1)).astype('float32')
-    return dict(backbone='resnet', upsampling='spc', data_train=data,
+    return dict(backbone=backbone, upsampling=upsampling, data_train=data,
                 data_val=data[:64], data_test=data[:64], scale=SCALE,
                 patch_size=TRAIN_PATCH, verbose=False, **model)
 
@@ -1485,7 +1504,7 @@ def _check_launches(tds, runner, label, per_step, replays, calls, kernels):
 
 
 def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
-                    shares):
+                    shares, keep_model=False, f32_yardstick=False):
     """Drive training through SupervisedTrainer(**config) on the card at
     batch 128 (2 epochs of `steps` steps, validation and test, replayed as
     captured CUDA graphs) under torch.profiler, with every launch counter
@@ -1496,8 +1515,11 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
     (host clock, and one step on CUDA events, with the kernels' shares of it
     from `shares`, {name: ms}; phase 11 times the graphs); then 3 steps at
     `cpu_batch` from one seed on the GPU (TF32 off, PyTorch's own float32
-    convolutions, not cuDNN's) and on the CPU in float64. Returns the
-    launches in the device trace, the wrappers' calls and the numbers."""
+    convolutions, not cuDNN's) and on the CPU in float64 (with
+    `f32_yardstick` also in float32 on the CPU, the yardstick of the third
+    step's parameters). Returns the launches in the device trace, the
+    wrappers' calls and the numbers, and with `keep_model` the trained
+    (model, net) under the numbers' 'model'."""
     import numpy as np
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1535,6 +1557,7 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
     step_ms = statistics.median(
         device_times(torch, lambda: tr.train_step(batch), reps=10))
     graphed = _graphed_speed(torch, tds, tr, steps, per_step, label)
+    trained = (tr.model, tr.net) if keep_model else None
     del tr, batch
     print(f'training step at batch {TRAIN_BATCH}, {label} (TF32 convs, the '
           f'default; the port\'s kernels and the GEMM tail are float32): '
@@ -1552,7 +1575,10 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
     # 3 steps from one seed on the GPU and on the CPU
     torch.backends.cudnn.allow_tf32 = False
     runs = {}
-    for device, dtype in (('cuda', torch.float32), ('cpu', torch.float64)):
+    sides = [('cuda', torch.float32), ('cpu', torch.float64)]
+    if f32_yardstick:
+        sides.append(('cpu', torch.float32))
+    for device, dtype in sides:
         torch.backends.cudnn.enabled = device == 'cpu'
         small = tds.SupervisedTrainer(batch_size=cpu_batch, epochs=1,
                                       device=device, **config)
@@ -1563,32 +1589,60 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
         small.net.train()
         gen = torch.Generator().manual_seed(3)
         idx = small.ds_train.epoch_indices(gen, steps=3)
-        losses = []
+        losses, params = [], []
         for c in range(3):
             batch = small.ds_train(idx[c], generator=gen)
             losses.append(small.train_step(
                 {k: None if v is None else v.to(dtype)
                  for k, v in batch.items()}).item())
-        runs[device] = (losses, {n: p.detach().cpu().double() for n, p in
-                                 small.net.named_parameters()})
+            # copies: .double() of a float64 parameter is the parameter
+            params.append({n: p.detach().to('cpu', torch.float64, copy=True)
+                           for n, p in small.net.named_parameters()})
+        runs[device, dtype] = (losses, params)
     torch.backends.cudnn.enabled = True
-    (gpu_losses, gpu_params), (cpu_losses, cpu_params) = (runs['cuda'],
-                                                          runs['cpu'])
+    (gpu_losses, gpu_params), (cpu_losses, cpu_params) = (
+        runs['cuda', torch.float32], runs['cpu', torch.float64])
+
+    def distance(params, step):
+        return max((params[step][n] - cpu_params[step][n]).abs().max().item()
+                   for n in cpu_params[step])
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses,
                                                        cpu_losses))
-    param_err = max((gpu_params[n] - cpu_params[n]).abs().max().item()
-                    for n in cpu_params)
+    param_err = distance(gpu_params, 2)
     print(f'3 training steps at batch {cpu_batch}, {label}, GPU (TF32 off, '
           f'PyTorch\'s own float32 convolutions, not cuDNN\'s) vs CPU '
-          f'(float64): losses {gpu_losses} vs {cpu_losses}, max relative difference {loss_err:.3e} (rtol '
-          f'{TRAIN_LOSS_RTOL}); parameters max|d| {param_err:.3e} (atol '
-          f'{TRAIN_PARAM_ATOL})', flush=True)
-    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL):
+          f'(float64): losses {gpu_losses} vs {cpu_losses}, max relative '
+          f'difference {loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); parameters '
+          f'max|d| {param_err:.3e} (atol {TRAIN_PARAM_ATOL})', flush=True)
+    ok = loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL
+    yardstick = {}
+    if f32_yardstick:
+        # where float32 itself lands farther than the atol from float64
+        # after 3 steps (F32_YARDSTICK), the first step is held to the atol
+        # and the third to the CPU's own float32 run
+        first = distance(gpu_params, 0)
+        own = distance(runs['cpu', torch.float32][1], 2)
+        own_first = distance(runs['cpu', torch.float32][1], 0)
+        print(f'{label}: parameters after one step max|d| {first:.3e} from '
+              f'float64 (atol {TRAIN_PARAM_ATOL}; the CPU\'s float32 run '
+              f'{own_first:.3e}); after three {param_err:.3e}, the CPU\'s '
+              f'float32 run {own:.3e} (at most {F32_YARDSTICK_RATIO}x it '
+              f'required)', flush=True)
+        ok = (loss_err <= TRAIN_LOSS_RTOL and first <= TRAIN_PARAM_ATOL
+              and param_err <= max(TRAIN_PARAM_ATOL,
+                                   F32_YARDSTICK_RATIO * own))
+        yardstick = dict(cpu_first_step_param_err=first,
+                         cpu_f32_param_err=own,
+                         cpu_f32_first_step_param_err=own_first)
+    if not ok:
         fail(f'GPU training steps ({label}) disagree with the CPU: losses '
              f'{loss_err:.3e}, parameters {param_err:.3e}')
-    return got, calls, dict(patches_per_s=patches_per_s, step_ms=step_ms,
-                            run_s=run_s, cpu_loss_rel_err=loss_err,
-                            cpu_param_err=param_err, graphed=graphed)
+    numbers = dict(patches_per_s=patches_per_s, step_ms=step_ms, run_s=run_s,
+                   cpu_loss_rel_err=loss_err, cpu_param_err=param_err,
+                   graphed=graphed, **yardstick)
+    if keep_model:
+        numbers['model'] = trained
+    return got, calls, numbers
 
 
 def _graphed_speed(torch, tds, tr, steps, per_step, label):
@@ -3264,6 +3318,333 @@ def _mos_kernel_rows(report):
                   f'grid against the plain ssim in float64')]
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the pre-upsampled models and the 'rc' and 'dc' heads
+# ---------------------------------------------------------------------------
+
+# BASELINE configs 1 and 3 (bench_suite.py's convnet_pin_4x and unet_pin_4x:
+# n_filters 8, default normalisation and dropout, the U-Net's decoder 'rc')
+# trained as phase 10 (256 grids of 128x128, 64x64 patches, batch 128, 2
+# epochs of 20 steps) with mae, and served on 16 HR grids of 128x128; the
+# U-Net again on grids of PIN_ODD, which 2**4 does not divide (pad_concat)
+PIN_CONFIGS = {'convnet_pin': dict(backbone='convnet', n_blocks=6),
+               'unet_pin': dict(backbone='unet', n_blocks=4)}
+PIN_ODD = 100
+# The pin models' mae gradients are small (max |g| about 2e-5 at batch 16)
+# and many of their elements cancel to 1e-8 or less, where float32's sums
+# set their sign; Adam's g / (|g| + 1e-7) turns that into parameter steps of
+# up to lr, so after 3 steps even the CPU's own float32 run of convnet_pin
+# lands 5.5e-4 from float64 (after one step 1.6e-5; on the CPU). There the
+# first step is held to TRAIN_PARAM_ATOL and the third to at most
+# F32_YARDSTICK_RATIO times the CPU's float32 run's distance; the losses stay
+# at TRAIN_LOSS_RTOL
+F32_YARDSTICK_RATIO = 4
+# the output head's gate is the only K1 gate of both models (attention is
+# off in their bodies): [128, 64, 64, 8] in a training step, [8, H, W, 8]
+# serving 128x128 HR grids and [8, 512, 512, 8] behind the x4 'rc' and 'dc'
+# heads
+PIN_TRAIN_GATES = [(TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, N_FILTERS)]
+
+
+def _pin_config(name, **extra):
+    return _training_config(upsampling='pin', loss='mae', n_filters=N_FILTERS,
+                            **PIN_CONFIGS[name], **extra)
+
+
+def _k1_gate_rows(torch, tds, shapes, label):
+    """K1 at the gate `shapes` of a path, float32 forward and backward
+    against their plain versions (the backward against the plain one in
+    float64, `_check_k1_backward`) and the mixed mode (`_check_k1_mixed`),
+    each timed against its plain version (float32). Returns the rows."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    fca, ref = tds.fused_channel_attention, tds.channel_attention_reference
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(14)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for shape in shapes:
+        c = shape[-1]
+        cr = max(int(c / 4), 1)
+        # the inputs of phases 2, 10 and 12 at these shapes
+        x, weights, dy = _gate_case(torch, gen, dev, shape, cr, torch.float32)
+        err = (fca(x, *weights) - ref(x, *weights)).abs().max().item()
+        if not err <= K1_TOL['float32']['atol']:
+            fail(f'K1 {label} x{list(shape)}: max|d| {err:.3e}')
+        bwd_err = _check_k1_backward(torch, fo, x, weights, dy,
+                                     f'{label} x{list(shape)}')
+        mixed_err = _check_k1_mixed(torch, fo, x.to(torch.bfloat16), weights,
+                                    dy, f'{label} x{list(shape)}')
+        ms, plain_ms = paired_ms(torch, lambda: fca(x, *weights),
+                                 lambda: ref(x, *weights), flush)
+        _, m, g = fo._launch(x, *weights)
+        bwd_ms, bwd_plain_ms = paired_ms(
+            torch, lambda: fo._launch_backward(x, *weights, dy, m, g),
+            lambda: fo._channel_attention_backward(x, *weights, dy, m, g),
+            flush)
+        n_bytes = 2 * x.numel() * 4 + 4 * (2 * c * cr + c + cr)
+        n_ops = 2 * x.numel() + 4 * shape[0] * c * cr
+        bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS) * 1e3
+        rows.append(dict(shape=list(shape), cr=cr, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bwd_rel_err=bwd_err, bwd_ms=bwd_ms,
+                         bwd_plain_ms=bwd_plain_ms,
+                         bwd_bound_ms=k1_bwd_bound_ms(x, cr),
+                         mixed_rel_err=mixed_err))
+        print(f'K1 {label} x{list(shape)} cr={cr}  max|d| {err:.3e}  kernel '
+              f'{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms '
+              f'(bytes); backward max|d|/max|ref| ' + _k1_bwd_errors(bwd_err)
+              + f'  kernel {bwd_ms:.4f} ms  plain {bwd_plain_ms:.4f} ms  '
+              f'bound {rows[-1]["bwd_bound_ms"]:.4f} ms; mixed mode max|d|/'
+              f'max|ref| {max(mixed_err.values()):.2e}; {card_line()}',
+              flush=True)
+    return rows
+
+
+def _pin_training(torch, tds, name, report):
+    """Phase 14, training one pin configuration: its gates held and timed
+    (`_k1_gate_rows`), 2 epochs through run()'s graphs in float32 with the
+    launches in the device trace, 3 steps against the CPU in float64
+    (`_drive_training`), 8 replayed steps against 8 eager ones bit for bit
+    (`_graphs_vs_eager`), then 2 epochs in bfloat16. Returns the trained
+    float32 (model, net)."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    config = _pin_config(name)
+    shapes = _gate_inputs(torch, tds, config)
+    if shapes != PIN_TRAIN_GATES:
+        fail(f'phase 14: the {name} step\'s gates are {shapes}, not '
+             f'{PIN_TRAIN_GATES}')
+    rows = _k1_gate_rows(torch, tds, shapes, f'{name} training gate')
+    per_step = _flagship_per_step(len(shapes), ssim=False)
+    label = f'{name}, n_filters {N_FILTERS}, mae'
+    got, calls, numbers = _drive_training(
+        torch, tds, config, label, TRAIN_STEPS, per_step, FLAG_CPU_BATCH,
+        {'K1 forward': sum(r['ms'] for r in rows),
+         'K1 backward': sum(r['bwd_ms'] for r in rows)}, keep_model=True,
+        f32_yardstick=True)
+    trained = numbers.pop('model')
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    graphs = _graphs_vs_eager(torch, tds, fo, config, label, per_step)
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+    bf16 = _bf16_training(torch, tds, dict(config, dtype=torch.bfloat16),
+                          f'{label}, bfloat16', TRAIN_STEPS, per_step)
+    g = numbers['graphed']
+    print(f'phase 14, {label}, batch {TRAIN_BATCH}: float32 graphed '
+          f'{g["patches_per_s"]:.1f} patches/s, eager '
+          f'{numbers["patches_per_s"]:.1f} (host clock); one replay '
+          f'{g["replay_ms"]:.3f} ms, one eager step {numbers["step_ms"]:.3f} '
+          f'ms (CUDA events), device busy {100 * g["busy_share"]:.1f}%, '
+          f'{g["launches_per_replay"]:.0f} launches a replay; bfloat16 '
+          f'graphed {bf16["graphed"]["patches_per_s"]:.1f} patches/s, one '
+          f'replay {bf16["graphed"]["replay_ms"]:.3f} ms; {card_line()}',
+          flush=True)
+    report['pin_train'][name] = dict(
+        gates=rows, launches=got, wrapper_calls=calls,
+        graphs_vs_eager=graphs['max_abs_diff'], bf16=bf16, **numbers)
+    return trained
+
+
+def _check_served(torch, tds, label, model, net, grids, kwargs, want,
+                  cpu_slice=slice(0, 1), bf16=None):
+    """`predict` of `grids` on the card: its launches ({'K1': n, 'K2': n},
+    K1's backward none), a finite output of the grids' shape, its speed
+    (host clock, and one forward on CUDA events), and grid 0 against the
+    same model on the CPU (TF32 off, PREDICT_TOL; `cpu_slice` the grids
+    whose windows give grid 0). With `bf16`, a bfloat16 model with the
+    same weights: grid 0 against the CPU in bfloat16 by the mean criterion
+    (at most BF16_PREDICT_RATIO of the float32 model's distance). Returns
+    the numbers."""
+    import numpy as np
+    fca, fcl = tds.fused_channel_attention, tds.fused_convlstm
+    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fca.launches = fca.bwd_launches = fcl.launches = 0
+    y = tds.predict((model, net), grids, **kwargs)
+    got = {'K1': fca.launches, 'K2': fcl.launches}
+    out_hw = tuple(s * (SCALE if not kwargs.get('array_in_hr', True) else 1)
+                   for s in grids.shape[1:3])
+    print(f'phase 14, {label}: {model.param_count(net)} parameters, output '
+          f'{y.shape}, launches {got} (expected {want}), K1 backward '
+          f'{fca.bwd_launches}', flush=True)
+    if got != want or fca.bwd_launches:
+        fail(f'phase 14: {label} launched {got} (K1 backward '
+             f'{fca.bwd_launches}), expected {want}')
+    if y.shape[1:3] != out_hw or not np.isfinite(y).all():
+        fail(f'phase 14: {label} gave {y.shape}, finite '
+             f'{bool(np.isfinite(y).all())}')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tds.predict((model, net), grids, **kwargs)
+    grids_per_s = len(grids) / (time.perf_counter() - t0)
+
+    torch.backends.cudnn.allow_tf32 = False
+    y32 = tds.predict((model, net), grids, **kwargs)
+    net_cpu = copy.deepcopy(net).cpu()
+    one = {k: ([v[0][cpu_slice]] if k == 'predictors' else v)
+           for k, v in kwargs.items()}
+    y_cpu = tds.predict((model, net_cpu), grids[cpu_slice], device='cpu',
+                        **one)[:1]
+    diff = np.abs(y32[:1] - y_cpu)
+    err = float(diff.max())
+    ok = bool((diff <= PREDICT_TOL['atol']
+               + PREDICT_TOL['rtol'] * np.abs(y_cpu)).all())
+    print(f'phase 14, {label}: {grids_per_s:.2f} grids/s end to end (host '
+          f'clock, TF32 convs); grid 0, GPU (TF32 off) vs CPU: max|d| '
+          f'{err:.3e}, max|y| {float(np.abs(y_cpu).max()):.3e} (atol '
+          f'{PREDICT_TOL["atol"]}, rtol {PREDICT_TOL["rtol"]}); '
+          f'{card_line()}', flush=True)
+    if not ok:
+        fail(f'phase 14: {label} on the GPU disagrees with the CPU: max|d| '
+             f'{err:.3e}')
+    out = dict(launches=got, grids_per_s=grids_per_s, cpu_max_abs_err=err)
+    if bf16 is not None:
+        model16 = bf16
+        net16 = model16.init(0, device='cuda')
+        net16.load_state_dict(net.state_dict())
+        fca.launches = fcl.launches = 0
+        y16 = tds.predict((model16, net16), grids, **kwargs)
+        got16 = {'K1': fca.launches, 'K2': fcl.launches}
+        if got16 != want:
+            fail(f'phase 14: bfloat16 {label} launched {got16}, expected '
+                 f'{want}')
+        y16_cpu = tds.predict((model16, copy.deepcopy(net16).cpu()),
+                              grids[cpu_slice], device='cpu', **one)[:1]
+        scale = float(np.abs(y16_cpu).mean())
+        port = float(np.abs(y16[:1] - y16_cpu).mean()) / scale
+        own = float(np.abs(y32[:1] - y16[:1]).mean()) / scale
+        print(f'phase 14, bfloat16 {label}: launches {got16}; grid 0 against '
+              f'the CPU in bfloat16 mean|d|/mean|y| {port:.3e}, the card\'s '
+              f'float32 model {own:.3e} from it (at most '
+              f'{BF16_PREDICT_RATIO} of it required); {card_line()}',
+              flush=True)
+        if not port <= BF16_PREDICT_RATIO * own:
+            fail(f'phase 14: bfloat16 {label} on the card is {port:.3e} '
+                 f'from the CPU, more than {BF16_PREDICT_RATIO} of the '
+                 f'float32 model\'s {own:.3e}')
+        out.update(bf16_launches=got16, bf16_cpu_mean_rel_err=port,
+                   bf16_f32_mean_rel_dist=own)
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def phase_pin(torch, tds, report):
+    """Phase 14: BASELINE configs 1 and 3 trained (float32 and bfloat16)
+    and served on the card, and the 'rc' and 'dc' heads served."""
+    import numpy as np
+    report['pin_train'] = {}
+    serve = report['pin_serve'] = {}
+    rng = np.random.default_rng(14)
+    hr = rng.standard_normal((N_GRIDS, LR, LR)).astype('float32')
+    odd = rng.standard_normal((N_GRIDS, PIN_ODD, PIN_ODD)).astype('float32')
+    batches = -(-N_GRIDS // BATCH)
+    for name in PIN_CONFIGS:
+        model, net = _pin_training(torch, tds, name, report)
+        spec = dict(n_channels=1, n_aux_channels=0,
+                    hr_size=model.input_shape[:2], n_filters=N_FILTERS,
+                    n_blocks=model.config['n_blocks'], dtype=torch.bfloat16)
+        factory = tds.unet_pin if name == 'unet_pin' else tds.net_pin
+        bf16 = factory(PIN_CONFIGS[name]['backbone'], **spec)
+        kwargs = dict(scale=SCALE, array_in_hr=True, batch_size=BATCH)
+        serve[name] = _check_served(
+            torch, tds, f'{name} predict, {N_GRIDS} HR grids {LR}x{LR}',
+            model, net, hr, kwargs, {'K1': batches, 'K2': 0}, bf16=bf16)
+        if name == 'unet_pin':
+            serve[f'{name}_odd'] = _check_served(
+                torch, tds, f'{name} predict, {N_GRIDS} HR grids '
+                f'{PIN_ODD}x{PIN_ODD}', model, net, odd, kwargs,
+                {'K1': batches, 'K2': 0})
+    report['pin_serve_gates'] = _k1_gate_rows(
+        torch, tds, [(BATCH, LR, LR, N_FILTERS)], 'pin serving gate')
+    lr_grids = rng.standard_normal((N_GRIDS, LR, LR)).astype('float32')
+    for ups in ('rc', 'dc'):
+        model = tds.net_postupsampling(
+            'resnet', ups, scale=SCALE, n_channels=1, n_aux_channels=0,
+            lr_size=(LR, LR), n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+            attention=True)
+        serve[f'resnet_{ups}'] = _check_served(
+            torch, tds, f'resnet_{ups} predict, {N_GRIDS} LR grids '
+            f'{LR}x{LR} -> {LR * SCALE}', model, model.init(0, 'cuda'),
+            lr_grids, dict(scale=SCALE, array_in_hr=False, batch_size=BATCH),
+            {'K1': len(K1_SHAPES) * batches, 'K2': 0})
+    model = tds.recnet_postupsampling(
+        'resnet', 'dc', scale=SCALE, n_channels=1, n_aux_channels=0,
+        lr_size=(LR, LR), time_window=REC_T, n_filters=N_FILTERS,
+        n_blocks=REC_BLOCKS)
+    rec = rng.standard_normal((REC_GRIDS, LR * SCALE, LR * SCALE)).astype(
+        'float32')
+    n_windows = REC_GRIDS - REC_T + 1
+    serve['recresnet_dc'] = _check_served(
+        torch, tds, f'recresnet_dc predict(time_window={REC_T}), '
+        f'{REC_GRIDS} HR grids {LR * SCALE}x{LR * SCALE}', model,
+        model.init(0, 'cuda'), rec,
+        dict(scale=SCALE, time_window=REC_T, batch_size=BATCH),
+        {'K1': 0, 'K2': len(K2_LAYERS) * REC_T * -(-n_windows // BATCH)},
+        cpu_slice=slice(0, REC_T))
+    head = [r for r in report['k1_rows'] if r['dtype'] == 'float32'
+            and r['shape'] == [BATCH, LR * SCALE, LR * SCALE, N_FILTERS]]
+    if len(head) != 1:
+        fail(f'phase 2 timed no gate at the x4 heads\' shape: {head}')
+    report['rc_dc_head_gate'] = head[0]
+
+
+def _pin_kernel_rows(report):
+    """The `kernels` line's rows of phase 14: K1 in the training steps of
+    BASELINE configs 1 and 3 (launches from the float32 runs' device
+    traces, times at the step's gate shape measured in phase 14) and K1
+    serving the pin models and the 'rc'/'dc' heads (launches from their
+    wrappers; the pin serving gate timed in phase 14, the x4 heads' gates
+    at phase 2's shapes, timed there)."""
+    k1 = dict(route='cuda', source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39', bound_by='bytes',
+              library_ms=None)
+    rows = []
+    for name, train in report['pin_train'].items():
+        gates = train['gates']
+        rows.append(dict(
+            k1, name=f'K1_channel_attention_{name}_train',
+            launches=train['launches']['K1'],
+            wrapper_calls=train['wrapper_calls']['K1'],
+            max_abs_err=max(r['max_abs_err'] for r in gates),
+            ms=sum(r['ms'] for r in gates),
+            plain_ms=sum(r['plain_ms'] for r in gates),
+            bound_ms=sum(r['bound_ms'] for r in gates),
+            bwd_ms=sum(r['bwd_ms'] for r in gates),
+            bwd_plain_ms=sum(r['bwd_plain_ms'] for r in gates),
+            bwd_bound_ms=sum(r['bwd_bound_ms'] for r in gates),
+            bwd_launches=train['launches']['K1 backward'],
+            bf16_launches=train['bf16']['launches']['K1'],
+            work=f'the output head\'s gate of one float32 {name} training '
+                 f'step at batch {TRAIN_BATCH}, x{gates[0]["shape"]}, '
+                 f'forward and backward; launches from phase 14\'s device '
+                 f'trace'))
+    serve = report['pin_serve']
+    gate = report['pin_serve_gates'][0]
+    rows.append(dict(
+        k1, name='K1_channel_attention_pin_serve',
+        launches=serve['convnet_pin']['launches']['K1']
+        + serve['unet_pin']['launches']['K1'],
+        max_abs_err=gate['max_abs_err'], ms=gate['ms'],
+        plain_ms=gate['plain_ms'], bound_ms=gate['bound_ms'],
+        work=f'the output head\'s gate of one pin serving forward at batch '
+             f'{BATCH}, x{gate["shape"]}; launches of predict on {N_GRIDS} '
+             f'grids of convnet_pin and unet_pin'))
+    head = report['rc_dc_head_gate']
+    rows.append(dict(
+        k1, name='K1_channel_attention_rc_dc_serve',
+        launches=serve['resnet_rc']['launches']['K1']
+        + serve['resnet_dc']['launches']['K1'],
+        max_abs_err=head['max_abs_err'], ms=head['ms'],
+        plain_ms=head['plain_ms'], bound_ms=head['bound_ms'],
+        work=f'the output head\'s gate behind the x4 rc and dc heads at '
+             f'batch {BATCH}, x{head["shape"]} (phase 2\'s shape, timed '
+             f'there); launches of predict on {N_GRIDS} grids of resnet_rc '
+             f'and resnet_dc, whose six residual gates are phase 2\'s too'))
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3295,7 +3676,7 @@ def main():
               (6, phase_convlstm_split), (7, phase_training),
               (8, phase_wide_training), (9, phase_ssim),
               (10, phase_flagship_training), (11, phase_graphs),
-              (12, phase_bf16), (13, phase_mos))
+              (12, phase_bf16), (13, phase_mos), (14, phase_pin))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -3462,7 +3843,8 @@ def main():
                   f'ssim_backward_reference; autograd through the plain ssim '
                   f'took {k6_step["autograd_bwd_ms"]:.4f} ms)'}
     kernels = ([k1, k2, k2_train, k3, k4, k1_train, k6]
-               + _bf16_kernel_rows(report) + _mos_kernel_rows(report))
+               + _bf16_kernel_rows(report) + _mos_kernel_rows(report)
+               + _pin_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)

@@ -8,10 +8,13 @@ package wrote in Pallas are written by hand in CUDA C++ (`csrc/`), built
 with `nvcc` at first use and launched on PyTorch's current stream.
 
 Entry points (`predict`, `SupervisedTrainer`, `compute_metrics`) run on
-the GPU unless the caller passes `device='cpu'`. Both of DL4DS's training
-modes run: PerfectProg (HR data alone, coarsened on the device) and MOS
-(given LR/HR pairs, `data_train_lr=`, served by
-`predict(array_in_hr=False)`), with season channels from time metadata.
+the GPU unless the caller passes `device='cpu'`. The spatial models take
+the convnet, resnet and densenet backbones with the sub-pixel, resize or
+transposed-convolution head, or the pre-upsampled input ('pin', `net_pin`
+and the U-Net `unet_pin`). Both of DL4DS's training modes run: PerfectProg
+(HR data alone, coarsened on the device) and MOS (given LR/HR pairs,
+`data_train_lr=`, served by `predict(array_in_hr=False)`), with season
+channels from time metadata.
 """
 
 __version__ = "0.1.0"
@@ -68,8 +71,8 @@ from .losses import (mae, mse, dssim, dssim_mae, dssim_mse, dssim_mae_mse,
                      msdssim, msdssim_mae, msdssim_mae_mse)
 from .preprocessing import MinMaxScaler, StandardScaler
 from .dataloader import BatchSynthesizer, _get_season_, _get_season_array_
-from .models import (DSModel, build_model, net_postupsampling,
-                     recnet_postupsampling, save_model, load_model)
+from .models import (DSModel, build_model, net_postupsampling, net_pin,
+                     unet_pin, recnet_postupsampling, save_model, load_model)
 from .weights import load_jax_params
 from .inference import Predictor, predict
 from .training import SupervisedTrainer

@@ -9,9 +9,13 @@ whole or as random patches, takes their LR input from the given LR array
 (MOS) or coarsens them to the LR grid with the matmul resize
 (PerfectProg), and stacks the LR channels as [lr, predictors, static_lr,
 season_lr]; the aux input is [static_hr, season_hr]. With time windows the
-statics and the season go to aux only. Patch offsets and epoch
-permutations are drawn from a CPU `torch.Generator` and then moved to the
-device, so one seed gives the same batches on every device. A batch has a
+statics and the season go to aux only. For a pre-upsampled ('pin') model
+the LR input is on the HR grid: the LR field interpolated back to HR once
+for the whole dataset (`lr_pre`), cropped at the HR patch offsets, with
+the predictors on the HR grid and the HR statics in place of LR ones.
+Patch offsets and epoch permutations are drawn from a CPU
+`torch.Generator` and then moved to the device, so one seed gives the same
+batches on every device. A batch has a
 host half (`plan` for a whole epoch, or `__call__`'s checks and draws) and
 a device half (`build`, `step_batch`), which never leaves the device.
 
@@ -24,7 +28,7 @@ import torch
 
 from . import POSTUPSAMPLING_METHODS
 from .interpolation import resize2d
-from .utils import _values, not_ported, resolve_device
+from .utils import _values, resolve_device
 
 __all__ = ['BatchSynthesizer', '_get_season_', '_get_season_array_',
            'season_ids_from_time']
@@ -107,19 +111,24 @@ class BatchSynthesizer:
     table of season ids 0..3, one-hot encoded into 4 channels of the LR
     and aux inputs. `device` defaults to CUDA, and device='cpu' must be
     asked for.
+
+    With upsampling='pin' the LR field (the given one, or `array`
+    coarsened to the LR grid) is interpolated back to the HR grid once,
+    `lr_pre` [n, Y, X, c] on the device (dl4ds_tpu/dataloader.py:545-556),
+    and patches are cropped from it and from the HR grids at the same HR
+    offsets; `patch_size` need not divide by `scale`.
     """
 
     def __init__(self, array, array_lr, upsampling, scale, batch_size,
                  patch_size=None, time_window=None, static_vars=None,
                  predictors=None, interpolation='inter_area',
                  season_ids=None, device='cuda'):
-        if upsampling not in POSTUPSAMPLING_METHODS:
-            raise not_ported(f'upsampling {upsampling!r}', 6)
         array = np.asarray(_values(array), 'float32')
         if array.ndim != 4:
             raise ValueError('`array` must be [n, y, x, c]')
         self.device = resolve_device(device)
         self.upsampling = upsampling
+        self.is_postups = upsampling in POSTUPSAMPLING_METHODS
         self.scale = int(scale)
         self.batch_size = int(batch_size)
         self.interpolation = interpolation
@@ -141,27 +150,40 @@ class BatchSynthesizer:
             self.lr_x = int(self.hr_x / scale)
         self.patch_size = patch_size
         if patch_size is not None:
-            if patch_size % self.scale != 0:
+            if self.is_postups and patch_size % self.scale != 0:
                 raise ValueError('`patch_size` must be divisible by `scale`')
             if patch_size > min(self.hr_y, self.hr_x):
                 raise ValueError(
                     f'patch_size={patch_size} exceeds the HR grid '
                     f'({self.hr_y}x{self.hr_x})')
-            self.patch_lr = patch_size // self.scale
+            self.patch_lr = int(patch_size / self.scale)
             if self.patch_lr > min(self.lr_y, self.lr_x):
                 raise ValueError(
                     f'LR patch {self.patch_lr} exceeds the LR grid '
                     f'({self.lr_y}x{self.lr_x})')
         self.hr = torch.as_tensor(array, device=self.device)
+        self.lr_pre = None
+        if not self.is_postups:
+            # the interpolated LR field does not depend on the crop: once a
+            # dataset (dl4ds_tpu/dataloader.py:545-556)
+            base = (self.lr if self.lr is not None else
+                    resize2d(self.hr, (self.lr_y, self.lr_x), interpolation))
+            self.lr_pre = resize2d(base, (self.hr_y, self.hr_x),
+                                   interpolation)
+            self.lr = None
         self.pred, self.n_pred, self.static_hr, self.n_static = \
             _prep_aux_inputs((self.lr_y, self.lr_x), interpolation,
-                             self.device, predictors, static_vars)
+                             self.device, predictors, static_vars,
+                             hr_hw=None if self.is_postups
+                             else (self.hr_y, self.hr_x))
         # LR statics join the LR channels of spatial samples only; patches
-        # resize them from each crop
-        self.static_lr = (resize2d(self.static_hr, (self.lr_y, self.lr_x),
-                                   interpolation)
-                          if self.static_hr is not None and time_window is None
-                          and patch_size is None else None)
+        # resize them from each crop; a 'pin' model takes the HR statics
+        self.static_lr = None
+        if self.static_hr is not None and time_window is None \
+                and patch_size is None:
+            self.static_lr = (resize2d(self.static_hr, (self.lr_y, self.lr_x),
+                                       interpolation) if self.is_postups
+                              else self.static_hr)
         self.season_ids = None
         if season_ids is not None:
             if len(season_ids) < self.n:
@@ -173,6 +195,20 @@ class BatchSynthesizer:
             self.season_ids = torch.as_tensor(
                 np.asarray(season_ids, np.int64), device=self.device)
             self._seasons = torch.arange(4, device=self.device)
+
+    @property
+    def hr_sample_hw(self):
+        p = self.patch_size
+        return (p, p) if p is not None else (self.hr_y, self.hr_x)
+
+    @property
+    def lr_sample_hw(self):
+        """The grid of the model input: the HR sample's for 'pin'."""
+        if not self.is_postups:
+            return self.hr_sample_hw
+        p = self.patch_size
+        return ((self.patch_lr, self.patch_lr) if p is not None
+                else (self.lr_y, self.lr_x))
 
     @property
     def n_channels_lr(self):
@@ -197,7 +233,9 @@ class BatchSynthesizer:
         offsets (ys, xs) = `offsets` ([2, B] integers), or, when not given,
         are drawn uniformly from [0, max(lr - patch_lr, 1)) with the CPU
         `generator` (ys first), as `_make_batch` draws them
-        (dl4ds_tpu/dataloader.py:683-741).
+        (dl4ds_tpu/dataloader.py:683-741). For 'pin' the offsets are HR
+        ones, drawn from [0, max(hr - patch_size, 1)), and the HR patch
+        and the pre-upsampled LR patch are both cropped there.
 
         The host half (checks, draws, one copy to the device) runs here,
         the device half in `build`."""
@@ -243,16 +281,19 @@ class BatchSynthesizer:
 
     def build(self, idx, ys=None, xs=None):
         """The device half of `__call__`: the batch of samples `idx` [B]
-        at the LR patch offsets (ys, xs) [B] (with patches), all long
+        at the patch offsets (ys, xs) [B] (LR ones, HR for 'pin'), all long
         tensors on the device, checked by the host half. Device work only:
         no host read, no host copy (dl4ds_tpu/dataloader.py:683-784)."""
         b = idx.shape[0]
         static_hr = static_lr = None
         if self.patch_size is None:
             hr = self._gather(self.hr, idx)
-            lr = (self._gather(self.lr, idx) if self.lr is not None
-                  else resize2d(hr, (self.lr_y, self.lr_x),
-                                self.interpolation))
+            if self.lr_pre is not None:
+                lr = self._gather(self.lr_pre, idx)
+            elif self.lr is not None:
+                lr = self._gather(self.lr, idx)
+            else:
+                lr = resize2d(hr, (self.lr_y, self.lr_x), self.interpolation)
             pred = (self._gather(self.pred, idx) if self.pred is not None
                     else None)
             if self.static_hr is not None:
@@ -261,19 +302,26 @@ class BatchSynthesizer:
                     static_lr = self.static_lr.expand(b,
                                                       *self.static_lr.shape)
         else:
-            p, plr, s = self.patch_size, self.patch_lr, self.scale
+            # the model input's patch is `size` pixels at (ys, xs): LR ones,
+            # or for 'pin' HR ones, where the HR patch lies too (s = 1)
+            p = self.patch_size
+            pin = self.lr_pre is not None
+            s, size = (1, p) if pin else (self.scale, self.patch_lr)
             hr = self._gather_crop(self.hr, idx, ys * s, xs * s, p)
-            lr = (self._gather_crop(self.lr, idx, ys, xs, plr)
-                  if self.lr is not None
-                  else resize2d(hr, (plr, plr), self.interpolation))
-            pred = (self._gather_crop(self.pred, idx, ys, xs, plr)
+            if pin:
+                lr = self._gather_crop(self.lr_pre, idx, ys, xs, p)
+            elif self.lr is not None:
+                lr = self._gather_crop(self.lr, idx, ys, xs, size)
+            else:
+                lr = resize2d(hr, (size, size), self.interpolation)
+            pred = (self._gather_crop(self.pred, idx, ys, xs, size)
                     if self.pred is not None else None)
             if self.static_hr is not None:
                 rows, cols = _crop_index(ys * s, xs * s, p)
                 static_hr = self.static_hr[rows[:, :, None], cols[:, None, :]]
                 if self.time_window is None:
-                    static_lr = resize2d(static_hr, (plr, plr),
-                                         self.interpolation)
+                    static_lr = (static_hr if pin else resize2d(
+                        static_hr, (size, size), self.interpolation))
         parts_lr = [lr] + ([pred] if pred is not None else [])
         parts_aux = []
         if static_hr is not None:
@@ -303,11 +351,15 @@ class BatchSynthesizer:
                              f'{self.n_total} grids')
 
     def _patch_offsets(self, b, offsets=None, generator=None):
-        """LR patch offsets (ys, xs) of a batch of b, as long CPU tensors:
-        `offsets` ([2, b]) checked against the grid, or drawn with the CPU
-        `generator`."""
-        max_y = self.lr_y - self.patch_lr
-        max_x = self.lr_x - self.patch_lr
+        """Patch offsets (ys, xs) of a batch of b, LR ones (HR for 'pin'),
+        as long CPU tensors: `offsets` ([2, b]) checked against the grid,
+        or drawn with the CPU `generator`."""
+        if self.is_postups:
+            max_y = self.lr_y - self.patch_lr
+            max_x = self.lr_x - self.patch_lr
+        else:
+            max_y = self.hr_y - self.patch_size
+            max_x = self.hr_x - self.patch_size
         if offsets is None:
             ys = torch.randint(0, max(max_y, 1), (b,), generator=generator)
             xs = torch.randint(0, max(max_x, 1), (b,), generator=generator)
@@ -375,10 +427,11 @@ def _crop_index(ys, xs, size):
 
 
 def _prep_aux_inputs(lr_hw, interpolation, device, predictors=None,
-                     static_vars=None):
-    """Concat the predictors and move them to the LR grid; stack the static
-    variables to [y, x, S]. Returns (pred, n_pred, statics, n_static) as
-    tensors on `device` or None (dl4ds_tpu/dataloader.py:797-820)."""
+                     static_vars=None, hr_hw=None):
+    """Concat the predictors and move them to the LR grid, and then to the
+    HR grid `hr_hw` where given ('pin'); stack the static variables to [y,
+    x, S]. Returns (pred, n_pred, statics, n_static) as tensors on
+    `device` or None (dl4ds_tpu/dataloader.py:797-820)."""
     pred, n_pred = None, 0
     if predictors is not None:
         pred = (np.concatenate([_values(p) for p in predictors], axis=-1)
@@ -388,6 +441,8 @@ def _prep_aux_inputs(lr_hw, interpolation, device, predictors=None,
         n_pred = pred.shape[-1]
         if tuple(pred.shape[1:3]) != tuple(lr_hw):
             pred = resize2d(pred, lr_hw, interpolation)
+        if hr_hw is not None:
+            pred = resize2d(pred, hr_hw, interpolation)
     statics, n_static = None, 0
     if static_vars is not None:
         statics = np.stack([np.squeeze(np.asarray(_values(s), 'float32'))

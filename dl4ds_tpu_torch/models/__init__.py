@@ -20,12 +20,14 @@ from .. import POSTUPSAMPLING_METHODS
 from ..utils import (checkarg_backbone, checkarg_upsampling,
                      checkarg_dropout_variant, check_compatibility_upsbackb,
                      not_ported, resolve_device)
-from .nets import NetPostupsampling, RecNetPostupsampling
+from .nets import (NetPostupsampling, NetPIN, UnetPIN, RecNetPostupsampling,
+                   _check_nblocks)
 from .blocks import check_dtype
 from . import blocks
 
-__all__ = ['DSModel', 'net_postupsampling', 'recnet_postupsampling',
-           'build_model', 'save_model', 'load_model', 'blocks']
+__all__ = ['DSModel', 'net_postupsampling', 'net_pin', 'unet_pin',
+           'recnet_postupsampling', 'build_model', 'save_model',
+           'load_model', 'blocks']
 
 
 @dataclasses.dataclass
@@ -33,8 +35,9 @@ class DSModel:
     """A configured model: how to build it, its name and input specs.
 
     `name` follows the reference convention '<backbone>_<upsampling>'
-    (e.g. 'resnet_spc', 'recresnet_spc'). Shapes are per sample, NHWC
-    (T, H, W, C for a spatio-temporal model), without batch dim.
+    (e.g. 'resnet_spc', 'recresnet_spc', 'unet_pin'). Shapes are per
+    sample, NHWC (T, H, W, C for a spatio-temporal model; the HR grid for
+    a 'pin' model), without batch dim.
     `module_class` and `config` name the JAX package's Flax module and its
     fields, which `save_model` writes; `dtype` is the compute dtype
     (float32 or bfloat16; the parameters are float32 either way).
@@ -85,14 +88,14 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
                        output_attention=True, remat=False,
                        dtype=torch.float32):
     """Spatial network + post-upsampling head
-    (dl4ds_tpu/models/__init__.py:77-104), with the JAX signature. This
-    slice builds the 'resnet' backbone with the 'spc' head, computing in
-    `dtype` float32 or bfloat16 with float32 parameters;
-    `rc_interpolation` is read by the 'rc' head alone (not ported yet), as
-    in `recnet_postupsampling`. `remat=True` recomputes each backbone
-    block's activations in the backward pass (`torch.utils.checkpoint`),
-    as `nn.remat` wraps the blocks in the JAX package. The rest raises
-    NotImplementedError naming its ROADMAP item."""
+    (dl4ds_tpu/models/__init__.py:77-104), with the JAX signature: the
+    'convnet', 'resnet' or 'densenet' backbone with the 'spc', 'rc' or 'dc'
+    head, computing in `dtype` float32 or bfloat16 with float32
+    parameters; `rc_interpolation` is read by the 'rc' head alone.
+    `remat=True` recomputes each backbone block's activations in the
+    backward pass (`torch.utils.checkpoint`), as `nn.remat` wraps the
+    blocks in the JAX package. The rest raises NotImplementedError naming
+    its ROADMAP item."""
     backbone_block = checkarg_backbone(backbone_block)
     upsampling = checkarg_upsampling(upsampling)
     dropout_variant = checkarg_dropout_variant(dropout_variant)
@@ -113,7 +116,8 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
         n_filters=n_filters, n_blocks=n_blocks, normalization=normalization,
         dropout_rate=dropout_rate, dropout_variant=dropout_variant,
         attention=attention, activation=activation,
-        output_activation=output_activation, localcon_layer=localcon_layer,
+        output_activation=output_activation,
+        rc_interpolation=rc_interpolation, localcon_layer=localcon_layer,
         output_attention=output_attention, remat=remat, dtype=dtype)
     build()   # raise now, not at init, on a configuration not ported yet
     aux_shape = ((int(h_lr * scale), int(w_lr * scale), n_aux_channels)
@@ -121,6 +125,68 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
     return DSModel(build, f'{backbone_block}_{upsampling}',
                    (h_lr, w_lr, n_channels), aux_shape,
                    'NetPostupsampling', config, dtype)
+
+
+def net_pin(backbone_block, n_channels, n_aux_channels, hr_size,
+            n_channels_out=1, n_filters=8, n_blocks=6, dropout_rate=0,
+            dropout_variant=None, normalization=None, attention=False,
+            activation='relu', output_activation=None, localcon_layer=False,
+            output_attention=True, remat=False, dtype=torch.float32):
+    """Spatial pre-upsampled network (dl4ds_tpu/models/__init__.py:
+    107-125), with the JAX signature: the 'convnet', 'resnet' or
+    'densenet' backbone on the input interpolated to the HR grid
+    `hr_size`, named '<backbone>_pin'."""
+    backbone_block = checkarg_backbone(backbone_block)
+    dropout_variant = checkarg_dropout_variant(dropout_variant)
+    check_dtype(dtype)
+    h_hr, w_hr = hr_size
+    config = dict(
+        backbone=backbone_block, n_channels_out=n_channels_out,
+        n_filters=n_filters, n_blocks=n_blocks, dropout_rate=dropout_rate,
+        dropout_variant=dropout_variant, normalization=normalization,
+        attention=attention, activation=activation,
+        output_activation=output_activation, localcon_layer=localcon_layer,
+        output_attention=output_attention, remat=remat)
+    build = functools.partial(NetPIN, n_channels, n_aux_channels,
+                              dtype=dtype, **config)
+    build()   # raise now, not at init, on a configuration not ported yet
+    aux_shape = (h_hr, w_hr, n_aux_channels) if n_aux_channels > 0 else None
+    return DSModel(build, f'{backbone_block}_pin', (h_hr, w_hr, n_channels),
+                   aux_shape, 'NetPIN', config, dtype)
+
+
+def unet_pin(backbone_block, n_channels, n_aux_channels, hr_size,
+             n_filters=8, n_blocks=6, n_channels_out=1, activation='relu',
+             dropout_rate=0, dropout_variant=None, normalization=None,
+             attention=False, decoder_upsampling='rc',
+             rc_interpolation='bilinear', output_activation=None,
+             width_cap=256, localcon_layer=False, output_attention=True,
+             dtype=torch.float32):
+    """U-Net pre-upsampled network (dl4ds_tpu/models/__init__.py:128-154),
+    with the JAX signature. Its depth is fixed here from `hr_size`
+    (`_check_nblocks`: fewer levels, with a RuntimeWarning, where the grid
+    would fall below 2 pixels at the bottleneck), so that a patch-trained
+    model keeps its parameters on a full grid."""
+    backbone_block = checkarg_backbone(backbone_block)
+    dropout_variant = checkarg_dropout_variant(dropout_variant)
+    check_dtype(dtype)
+    h_hr, w_hr = hr_size
+    n_blocks = _check_nblocks((h_hr, w_hr), n_blocks)
+    config = dict(
+        backbone=backbone_block, n_channels_out=n_channels_out,
+        n_filters=n_filters, n_blocks=n_blocks, activation=activation,
+        dropout_rate=dropout_rate, dropout_variant=dropout_variant,
+        normalization=normalization, attention=attention,
+        decoder_upsampling=decoder_upsampling,
+        rc_interpolation=rc_interpolation,
+        output_activation=output_activation, width_cap=width_cap,
+        localcon_layer=localcon_layer, output_attention=output_attention)
+    build = functools.partial(UnetPIN, n_channels, n_aux_channels,
+                              dtype=dtype, **config)
+    build()   # raise now, not at init, on a configuration not ported yet
+    aux_shape = (h_hr, w_hr, n_aux_channels) if n_aux_channels > 0 else None
+    return DSModel(build, f'{backbone_block}_pin', (h_hr, w_hr, n_channels),
+                   aux_shape, 'UnetPIN', config, dtype)
 
 
 def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
@@ -132,8 +198,8 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
                           rc_interpolation='bilinear', localcon_layer=False,
                           output_attention=True, dtype=torch.float32):
     """Spatio-temporal (ConvLSTM) network + post-upsampling head
-    (dl4ds_tpu/models/__init__.py:157-183), named 'rec<backbone>_<ups>'.
-    This slice builds the 'resnet' backbone with the 'spc' head in `dtype`
+    (dl4ds_tpu/models/__init__.py:157-183), named 'rec<backbone>_<ups>':
+    the 'resnet' backbone with the 'spc', 'rc' or 'dc' head in `dtype`
     float32 or bfloat16 (float32 parameters); the rest raises
     NotImplementedError naming its ROADMAP item."""
     backbone_block = checkarg_backbone(backbone_block)
@@ -156,7 +222,8 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
         n_filters=n_filters, n_blocks=n_blocks, normalization=normalization,
         dropout_rate=dropout_rate, dropout_variant=dropout_variant,
         attention=attention, activation=activation,
-        output_activation=output_activation, localcon_layer=localcon_layer,
+        output_activation=output_activation,
+        rc_interpolation=rc_interpolation, localcon_layer=localcon_layer,
         output_attention=output_attention, dtype=dtype)
     build()   # raise now, not at init, on a configuration not ported yet
     aux_shape = ((int(h_lr * scale), int(w_lr * scale), n_aux_channels)
@@ -170,8 +237,8 @@ def build_model(backbone, upsampling, scale, n_channels, n_aux_channels,
                 lr_size, hr_size, time_window=None, **params):
     """Single dispatcher over the model factories, as the JAX package's
     (dl4ds_tpu/models/__init__.py:309-342): a time window above 1 builds the
-    spatio-temporal model. The post-upsampling factories are ported; 'pin'
-    raises."""
+    spatio-temporal model, 'pin' the pre-upsampled one (`unet_pin` for the
+    'unet' backbone, else `net_pin`) on `hr_size`. `recnet_pin` raises."""
     spatiotemporal = time_window is not None and time_window > 1
     check_compatibility_upsbackb(backbone, upsampling,
                                  time_window if spatiotemporal else None)
@@ -185,11 +252,17 @@ def build_model(backbone, upsampling, scale, n_channels, n_aux_channels,
             backbone_block=backbone, upsampling=upsampling, scale=scale,
             n_channels=n_channels, n_aux_channels=n_aux_channels,
             lr_size=lr_size, **params)
-    raise not_ported(f'upsampling {upsampling!r} (recnet_pin, unet_pin, '
-                     f'net_pin)', 6)
+    if upsampling != 'pin':
+        raise ValueError(f'unrecognized upsampling: {upsampling}')
+    if spatiotemporal:
+        raise not_ported('recnet_pin (spatio-temporal pre-upsampling)', 7)
+    factory = unet_pin if backbone == 'unet' else net_pin
+    return factory(backbone_block=backbone, n_channels=n_channels,
+                   n_aux_channels=n_aux_channels, hr_size=hr_size, **params)
 
 
 _FACTORIES = {'NetPostupsampling': net_postupsampling,
+              'NetPIN': net_pin, 'UnetPIN': unet_pin,
               'RecNetPostupsampling': recnet_postupsampling}
 
 
@@ -226,19 +299,25 @@ def load_model(path, device='cuda'):
         meta = json.load(fh)
     factory = _FACTORIES.get(meta['module_class'])
     if factory is None:
-        raise not_ported(f"model class {meta['module_class']!r}", 6)
+        raise not_ported(f"model class {meta['module_class']!r}",
+                         {'RecNetPIN': 7}.get(meta['module_class'], 8))
     cfg = dict(meta['config'])
     name = cfg.pop('dtype', 'float32')
     dtype = getattr(torch, name, None)
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f'{path}: unknown model dtype {name!r}')
     cfg['dtype'] = check_dtype(dtype)
-    backbone, upsampling = cfg.pop('backbone'), cfg.pop('upsampling')
     *_, h, w, n_channels = meta['input_shape']
     aux = meta['aux_shape']
-    model = factory(backbone, upsampling, n_channels=n_channels,
-                    n_aux_channels=aux[-1] if aux else 0, lr_size=(h, w),
-                    **cfg)
+    args = dict(backbone_block=cfg.pop('backbone'), n_channels=n_channels,
+                n_aux_channels=aux[-1] if aux else 0)
+    if 'upsampling' in cfg:
+        args.update(upsampling=cfg.pop('upsampling'), lr_size=(h, w))
+    else:
+        # a 'pin' model's input is its HR grid; a U-Net keeps the depth
+        # its config holds, which _check_nblocks fixed for that grid
+        args.update(hr_size=(h, w))
+    model = factory(**args, **cfg)
     var_dir = os.path.abspath(os.path.join(path, 'variables'))
     if os.path.isdir(var_dir):
         variables = _read_orbax_tree(var_dir)

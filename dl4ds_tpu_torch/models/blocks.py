@@ -1,8 +1,10 @@
 """
 Model building blocks (PyTorch, NHWC at every boundary).
 
-Counterparts of `dl4ds_tpu/models/blocks.py` for the post-upsampling
-residual model and the ConvLSTM blocks of the spatio-temporal one.
+Counterparts of `dl4ds_tpu/models/blocks.py` for the convnet, resnet and
+densenet backbones, the three post-upsampling heads (sub-pixel, resize and
+transposed convolutions), the U-Net's encoder and padded concatenation,
+and the ConvLSTM blocks of the spatio-temporal models.
 Activations stay [B, H, W, C] ([B, T, H, W, C] through the ConvLSTM layers,
 which run the fused kernel K2 on the GPU): a convolution views its input
 as NCHW with channels-last strides (a permute, no copy), so the gate kernel
@@ -23,19 +25,23 @@ for ConvLSTM2D an orthogonal recurrent kernel and the unit forget bias.
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..interpolation import resize2d
 from ..ops import depth_to_space, fused_channel_attention, fused_convlstm
 from ..utils import not_ported
 
 MODEL_DTYPES = (torch.float32, torch.bfloat16)
 
-__all__ = ['MODEL_DTYPES', 'check_dtype', 'Conv', 'get_activation',
-           'ChannelAttention2D', 'ConvBlock', 'ResidualBlock',
-           'TransitionBlock', 'SubpixelConvolutionBlock', 'ConvLSTM2D',
-           'RecurrentConvBlock']
+__all__ = ['MODEL_DTYPES', 'check_dtype', 'Conv', 'ConvTranspose',
+           'get_activation', 'ChannelAttention2D', 'ConvBlock',
+           'ResidualBlock', 'DenseBlock', 'TransitionBlock',
+           'SubpixelConvolutionBlock', 'ResizeConvolutionBlock',
+           'DeconvolutionBlock', 'EncoderBlock', 'PadConcat', 'pad_concat',
+           'ConvLSTM2D', 'RecurrentConvBlock']
 
 
 def _glorot_uniform_(tensor, fan_in, fan_out, generator):
@@ -132,6 +138,66 @@ class Conv(nn.Module):
                          padding=self.padding).to(self.dtype)
         y = y.permute(0, 2, 3, 1).contiguous()
         return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+def _transpose_pad_before(k, s):
+    """The padding before the stride-dilated input that `lax.conv_transpose`
+    takes for padding='SAME' (jax._src.lax.convolution.
+    _conv_transpose_padding; k + s - 2 in all)."""
+    return k - 1 if s > k - 1 else int(np.ceil((k + s - 2) / 2))
+
+
+class ConvTranspose(nn.Module):
+    """Flax's `ConvTranspose` (transpose_kernel=False, padding='SAME', no
+    bias) of an NHWC tensor: the input dilated by the stride, padded
+    (`_transpose_pad_before` before it) and correlated with the unflipped
+    kernel, so an [H, W] grid becomes [H*s, W*s]. The kernel is held in the
+    Flax layout, HWIO [kh, kw, Cin, Co], under the leaf name `kernel`.
+
+    It runs as `F.conv_transpose2d` with the kernel flipped: output o sums
+    x[i] * K[s*i + pad_a - o], which is torch's x[i] * W[o + p - s*i] with
+    W the flipped kernel and p = k - 1 - pad_a; torch's output then starts
+    at the same o and is cropped to H*s (or extended by `output_padding`
+    where it falls short). In bfloat16 the input and kernel are cast to it;
+    on the CPU the product is taken in float32 and rounded once, as the
+    port's `Conv`."""
+
+    def __init__(self, in_channels, filters, kernel_size=(9, 9), strides=2,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = check_dtype(dtype)
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else tuple(kernel_size))
+        self.stride = int(strides)
+        self.kernel = nn.Parameter(torch.empty(kh, kw, in_channels, filters))
+        # (padding, output_padding) of conv_transpose2d per spatial axis;
+        # its output is 2 pad_a - k + 2 - s longer than H*s, and cropped
+        self.geometry = []
+        for k in (kh, kw):
+            pad_a = _transpose_pad_before(k, self.stride)
+            extra = 2 * pad_a - k + 2 - self.stride
+            self.geometry.append((k - 1 - pad_a, max(-extra, 0)))
+
+    def reset_parameters(self, generator):
+        kh, kw, cin, co = self.kernel.shape
+        _glorot_uniform_(self.kernel, kh * kw * cin, kh * kw * co, generator)
+
+    def forward(self, x):
+        h, w = x.shape[1:3]
+        s = self.stride
+        k = self.kernel
+        if self.dtype == torch.bfloat16:
+            x, k = x.to(self.dtype), k.to(self.dtype)
+        weight = torch.flip(k, (0, 1)).permute(2, 3, 0, 1)
+        (ph, oph), (pw, opw) = self.geometry
+        args = dict(stride=s, padding=(ph, pw), output_padding=(oph, opw))
+        xt = x.permute(0, 3, 1, 2)
+        if self.dtype == torch.bfloat16 and not x.is_cuda:
+            y = F.conv_transpose2d(xt.float(), weight.float(),
+                                   **args).to(self.dtype)
+        else:
+            y = F.conv_transpose2d(xt, weight, **args)
+        return y[:, :, :h * s, :w * s].permute(0, 2, 3, 1).contiguous()
 
 
 class ChannelAttention2D(nn.Module):
@@ -240,6 +306,32 @@ class ResidualBlock(nn.Module):
         return self.act(y + x)
 
 
+class DenseBlock(nn.Module):
+    """DenseNet-style block (dl4ds_tpu/models/blocks.py:349-375): a 1x1
+    conv to 4 * filters -> act -> a 3x3 conv to filters -> [attention],
+    concatenated before the input: in_channels + filters channels out."""
+
+    def __init__(self, in_channels, filters, activation='relu',
+                 normalization=None, attention=False, dropout_rate=0.0,
+                 dtype=torch.float32):
+        super().__init__()
+        _check_norm(normalization)
+        _check_dropout(dropout_rate)
+        self.act = get_activation(activation)
+        self.Conv_0 = Conv(in_channels, 4 * filters, (1, 1), dtype=dtype)
+        self.Conv_1 = Conv(4 * filters, filters, (3, 3), dtype=dtype)
+        self.ChannelAttention2D_0 = (ChannelAttention2D(filters, filters)
+                                     if attention else None)
+
+    def forward(self, x):
+        y = self.Conv_1(self.act(self.Conv_0(x)))
+        if self.ChannelAttention2D_0 is not None:
+            y = self.ChannelAttention2D_0(y)
+        # torch.cat promotes a float32 gate output against a bfloat16 input,
+        # as jnp.concatenate does
+        return torch.cat([y, x], dim=-1)
+
+
 class TransitionBlock(nn.Module):
     """1x1-conv channel controller (dl4ds_tpu/models/blocks.py:378-394):
     conv -> act."""
@@ -263,20 +355,148 @@ class SubpixelConvolutionBlock(nn.Module):
 
     _STAGES = {2: (2,), 4: (2, 2), 8: (2, 2, 2), 10: (2, 5), 20: (2, 2, 5)}
 
-    def __init__(self, scale, n_filters, dtype=torch.float32):
+    def __init__(self, scale, n_filters, in_channels=None,
+                 dtype=torch.float32):
         super().__init__()
-        # (factor, conv name) per stage; a name seen twice is one module
+        # (factor, conv name) per stage; a name seen twice is one module.
+        # `in_channels` (the U-Net decoder's) feeds the first stage alone:
+        # a tied stage after it takes n_filters, as in Flax, where a second
+        # input width would not fit the tied kernel
         self.stages = [(f, {2: 'conv2x', 5: 'conv5x'}.get(f, 'convNx'))
                        for f in self._STAGES.get(scale, (scale,))]
+        c_in = n_filters if in_channels is None else in_channels
         for f, name in self.stages:
-            if name not in self._modules:
-                self.add_module(name, Conv(n_filters, n_filters * f * f,
-                                           dtype=dtype))
+            if name in self._modules:
+                if c_in != self._modules[name].weight.shape[1]:
+                    raise ValueError(f'tied {name} takes '
+                                     f'{self._modules[name].weight.shape[1]}'
+                                     f' channels, not {c_in}')
+                continue
+            self.add_module(name, Conv(c_in, n_filters * f * f, dtype=dtype))
+            c_in = n_filters
 
     def forward(self, x):
         for f, name in self.stages:
             x = depth_to_space(self._modules[name](x), f)
         return x
+
+
+# keras.Resizing vocabulary -> resize2d modes, copied from
+# dl4ds_tpu/models/blocks.py:725-732. 'gaussian' and 'mitchellcubic' are
+# the JAX package's documented approximations (the nearest smooth kernels
+# the matmul resize implements)
+_RC_INTERP = {'bilinear': 'bilinear', 'nearest': 'nearest',
+              'bicubic': 'bicubic', 'area': 'inter_area',
+              'inter_area': 'inter_area', 'lanczos3': 'lanczos',
+              'lanczos5': 'lanczos', 'lanczos': 'lanczos',
+              'gaussian': 'bilinear', 'mitchellcubic': 'bicubic'}
+
+
+class ResizeConvolutionBlock(nn.Module):
+    """Interpolation upsampling, then a 3x3 conv to n_filters
+    (dl4ds_tpu/models/blocks.py:735-753): the matmul `resize2d` in the
+    input's dtype (a bfloat16 input is resized with bfloat16 matrices, each
+    of the two contractions rounded, as the JAX resize2d takes them)."""
+
+    def __init__(self, scale, n_filters, in_channels=None,
+                 interpolation='bilinear', dtype=torch.float32):
+        super().__init__()
+        if interpolation not in _RC_INTERP:
+            raise ValueError(
+                f'unknown rc interpolation {interpolation!r}; one of '
+                f'{sorted(_RC_INTERP)}')
+        self.scale = scale
+        self.mode = _RC_INTERP[interpolation]
+        self.Conv_0 = Conv(n_filters if in_channels is None else in_channels,
+                           n_filters, (3, 3), dtype=dtype)
+
+    def forward(self, x):
+        h, w = x.shape[-3], x.shape[-2]
+        y = resize2d(x, (int(h * self.scale), int(w * self.scale)),
+                     self.mode)
+        return self.Conv_0(y.to(x.dtype))
+
+
+class DeconvolutionBlock(nn.Module):
+    """Transposed-convolution upsampler (dl4ds_tpu/models/blocks.py:
+    756-789), 9x9 kernels without bias: scale 4 is two stride-2 stages,
+    `deconv_1of2` (no activation) and `deconv_2of2`; scale 8 is
+    `deconv_1of3` and then ONE `deconv_2of3` applied twice (tied weights);
+    any other scale one `deconv_x{scale}`. `output_activation` follows
+    every stage but the first of a chain."""
+
+    def __init__(self, scale, n_filters, output_activation=None,
+                 in_channels=None, dtype=torch.float32):
+        super().__init__()
+        self.act = get_activation(output_activation)
+        # (module, stride, activate) per stage; a name seen twice is one
+        # module
+        if scale == 4:
+            plan = [('deconv_1of2', 2, False), ('deconv_2of2', 2, True)]
+        elif scale == 8:
+            plan = [('deconv_1of3', 2, False), ('deconv_2of3', 2, True),
+                    ('deconv_2of3', 2, True)]
+        else:
+            plan = [(f'deconv_x{scale}', scale, True)]
+        c_in = n_filters if in_channels is None else in_channels
+        for name, s, _ in plan:
+            if name not in self._modules:
+                self.add_module(name, ConvTranspose(c_in, n_filters, (9, 9),
+                                                    s, dtype=dtype))
+                c_in = n_filters
+        self.stages = [(name, activate) for name, _, activate in plan]
+
+    def forward(self, x):
+        for name, activate in self.stages:
+            x = self._modules[name](x)
+            if activate:
+                x = self.act(x)
+        return x
+
+
+def _max_pool_2x2(x):
+    """2x2 max-pool with stride 2 and VALID padding of an NHWC tensor (odd
+    sizes floor), as `nn.max_pool(y, (2, 2), strides=(2, 2))`."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+class EncoderBlock(nn.Module):
+    """U-Net encoder step (dl4ds_tpu/models/blocks.py:792-811): a ConvBlock,
+    then a 2x2 max-pool; returns (downsampled, skip)."""
+
+    def __init__(self, in_channels, n_filters, activation=None,
+                 dropout_rate=0.0, normalization=None, attention=False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.ConvBlock_0 = ConvBlock(
+            in_channels, n_filters, activation=activation,
+            normalization=normalization, attention=attention,
+            dropout_rate=dropout_rate, dtype=dtype)
+
+    def forward(self, x):
+        y = self.ConvBlock_0(x)
+        return _max_pool_2x2(y), y
+
+
+def pad_concat(t1, t2):
+    """Zero-pad two NHWC tensors at the bottom and right to the larger grid
+    and concatenate them on channels, promoting their dtypes as
+    jnp.concatenate does (dl4ds_tpu/models/blocks.py:824-840)."""
+    ty = max(t1.shape[-3], t2.shape[-3])
+    tx = max(t1.shape[-2], t2.shape[-2])
+
+    def pad_to(t):
+        dy, dx = ty - t.shape[-3], tx - t.shape[-2]
+        return F.pad(t, (0, 0, 0, dx, 0, dy)) if dy or dx else t
+    return torch.cat([pad_to(t1), pad_to(t2)], dim=-1)
+
+
+class PadConcat(nn.Module):
+    """Module form of `pad_concat` (dl4ds_tpu/models/blocks.py:814-821)."""
+
+    def forward(self, t1, t2):
+        return pad_concat(t1, t2)
 
 
 class _Kernel(nn.Module):

@@ -1,74 +1,113 @@
 """
 Network architectures (PyTorch, NHWC at every boundary).
 
-Counterparts of `dl4ds_tpu/models/nets.py` for the post-upsampling models
-with the residual backbone and the sub-pixel head: the spatial one and the
-spatio-temporal (ConvLSTM) one. Submodule names follow the Flax parameter
-tree (`_Backbone_0`, `ResidualBlock1`, `RecurrentConvBlock1`, ...). The other
-backbones and heads raise until they are ported. `dtype` (float32 or
-bfloat16) is threaded through the backbone, the aux branch, the sub-pixel
-head and the output module, as the JAX package threads it; parameters stay
-float32.
+Counterparts of `dl4ds_tpu/models/nets.py`: the post-upsampling models
+with the convnet, resnet or densenet backbone and the sub-pixel ('spc'),
+resize ('rc') or transposed-convolution ('dc') head; the pre-upsampled
+models `NetPIN` and `UnetPIN`; and the spatio-temporal (ConvLSTM) model
+with the resnet merge and any of the three heads. Submodule names follow
+the Flax parameter tree (`_Backbone_0`, `ResidualBlock1`, `DenseBlock1`,
+`EncoderBlock1`, `RecurrentConvBlock1`, ...), and the input channels of
+every module are counted here, where Flax infers them. The other
+backbones raise until they are ported. `dtype` (float32 or bfloat16) is
+threaded through every module, as the JAX package threads it; parameters
+stay float32.
 """
+
+import warnings
 
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..utils import not_ported
-from .blocks import (Conv, ConvBlock, ResidualBlock, TransitionBlock,
-                     SubpixelConvolutionBlock, RecurrentConvBlock,
-                     get_activation, _check_dropout, check_dtype)
+from .blocks import (Conv, ConvBlock, ResidualBlock, DenseBlock,
+                     TransitionBlock, SubpixelConvolutionBlock,
+                     ResizeConvolutionBlock, DeconvolutionBlock,
+                     EncoderBlock, RecurrentConvBlock, get_activation,
+                     pad_concat, _check_dropout, check_dtype)
 
-__all__ = ['NetPostupsampling', 'RecNetPostupsampling']
+__all__ = ['NetPostupsampling', 'NetPIN', 'UnetPIN', 'RecNetPostupsampling',
+           '_check_nblocks']
 
 
 class _Backbone(nn.Module):
-    """Stem conv + N residual blocks with filters growing as i * n_filters,
-    then the out conv and the merge with the stem
-    (dl4ds_tpu/models/nets.py:32-119, resnet branch). With `remat` each
-    block's activations are recomputed in the backward pass instead of
-    kept, as `nn.remat` wraps the blocks there."""
+    """Stem conv + N blocks with filters growing as i * n_filters, then the
+    out conv and the backbone's merge with the stem
+    (dl4ds_tpu/models/nets.py:32-119): convnet `ConvBlock{i}`s and no
+    merge; resnet `ResidualBlock{i}`s and `TransitionBlock_0(stem) + b`;
+    densenet `DenseBlock{i}`s (each adding its filters to the channels),
+    each followed by `Transition{i}` to half the channels, and
+    `TransitionBackboneLast` over concat([stem, b]). With `remat` each
+    block's activations (not the transitions') are recomputed in the
+    backward pass instead of kept, as `nn.remat` wraps the blocks there.
+    `n_filters` is the width it returns."""
 
     def __init__(self, in_channels, backbone, n_filters, n_blocks,
                  activation='relu', normalization=None, attention=False,
                  dropout_rate=0.0, remat=False, dtype=torch.float32):
         super().__init__()
-        if backbone != 'resnet':
+        if backbone == 'convnext':
             raise not_ported(f'backbone {backbone!r}', 6)
+        if backbone not in ('convnet', 'resnet', 'densenet'):
+            raise ValueError(f'unsupported backbone {backbone}')
         _check_dropout(dropout_rate)
         f0 = n_filters
+        self.backbone = backbone
         self.remat = remat
         self.act = get_activation(activation)
         self.stem = Conv(in_channels, f0, (3, 3), dtype=dtype)
         self.n_blocks = n_blocks
-        c_in = f0
+        block_args = dict(activation=activation, normalization=normalization,
+                          attention=attention, dtype=dtype)
+        c_in = filters = f0
         for i in range(n_blocks):
             filters = f0 * (i + 1)
-            self.add_module(f'ResidualBlock{i + 1}', ResidualBlock(
-                c_in, filters, activation=activation,
-                normalization=normalization, attention=attention,
-                use_1x1conv=(i != 0), dtype=dtype))
-            c_in = filters
-        self.n_filters = c_in
-        self.backbone_out_conv = Conv(c_in, c_in, (3, 3), dtype=dtype)
-        self.TransitionBlock_0 = TransitionBlock(f0, c_in,
-                                                 activation=activation,
-                                                 dtype=dtype)
+            if backbone == 'convnet':
+                self.add_module(f'ConvBlock{i + 1}', ConvBlock(
+                    c_in, filters, **block_args))
+                c_in = filters
+            elif backbone == 'resnet':
+                self.add_module(f'ResidualBlock{i + 1}', ResidualBlock(
+                    c_in, filters, use_1x1conv=(i != 0), **block_args))
+                c_in = filters
+            else:
+                self.add_module(f'DenseBlock{i + 1}', DenseBlock(
+                    c_in, filters, **block_args))
+                # the JAX Transitions take TransitionBlock's default relu
+                self.add_module(f'Transition{i + 1}', TransitionBlock(
+                    c_in + filters, (c_in + filters) // 2, dtype=dtype))
+                c_in = (c_in + filters) // 2
+        self.n_filters = filters
+        self.backbone_out_conv = Conv(c_in, filters, (3, 3), dtype=dtype)
+        if backbone == 'resnet':
+            self.TransitionBlock_0 = TransitionBlock(
+                f0, filters, activation=activation, dtype=dtype)
+        elif backbone == 'densenet':
+            self.TransitionBackboneLast = TransitionBlock(
+                f0 + filters, filters, activation=activation, dtype=dtype)
 
     def forward(self, x):
         stem = self.stem(x)
         b = stem
+        kind = {'convnet': 'ConvBlock', 'resnet': 'ResidualBlock',
+                'densenet': 'DenseBlock'}[self.backbone]
         for i in range(self.n_blocks):
-            block = self._modules[f'ResidualBlock{i + 1}']
+            block = self._modules[f'{kind}{i + 1}']
             if self.remat and torch.is_grad_enabled():
                 # the models draw no random numbers: no RNG state to keep
                 b = checkpoint(block, b, use_reentrant=False,
                                preserve_rng_state=False)
             else:
                 b = block(b)
+            if self.backbone == 'densenet':
+                b = self._modules[f'Transition{i + 1}'](b)
         b = self.act(self.backbone_out_conv(b))
-        return self.TransitionBlock_0(stem) + b
+        if self.backbone == 'resnet':
+            return self.TransitionBlock_0(stem) + b
+        if self.backbone == 'densenet':
+            return self.TransitionBackboneLast(torch.cat([stem, b], dim=-1))
+        return b
 
 
 class _OutputModule(nn.Module):
@@ -109,21 +148,57 @@ class _AuxBranch(nn.Module):
         return self.ConvBlock_aux(s)
 
 
+def _check_aux(n_aux_channels, aux):
+    if (aux is not None) != (n_aux_channels > 0):
+        raise ValueError(f'model built for {n_aux_channels} aux channels, '
+                         f'got aux={None if aux is None else tuple(aux.shape)}')
+
+
+def _attach_head(model, upsampling, scale, width, rc_interpolation,
+                 activation=None, transition_dc=None, dtype=torch.float32):
+    """Add the upsampling head of a post-upsampling model to `model`, where
+    the Flax tree holds it (dl4ds_tpu/models/nets.py:205-219, 461-472),
+    [.., h, w, width] -> [.., h*scale, w*scale, width], and return its
+    submodules' names in call order: 'spc' `SubpixelConvolutionBlock_0`;
+    'rc' `ResizeConvolutionBlock_0`; 'dc' `DeconvolutionBlock_0`, which in
+    the spatial model comes after `TransitionDC`, a 1x1 conv to
+    `transition_dc` (f0) channels, and takes `activation` as its output
+    activation (the recurrent head has neither, as in the JAX package)."""
+    if upsampling == 'spc':
+        model.SubpixelConvolutionBlock_0 = SubpixelConvolutionBlock(
+            scale, width, dtype=dtype)
+        return ['SubpixelConvolutionBlock_0']
+    if upsampling == 'rc':
+        model.ResizeConvolutionBlock_0 = ResizeConvolutionBlock(
+            scale, width, interpolation=rc_interpolation, dtype=dtype)
+        return ['ResizeConvolutionBlock_0']
+    if upsampling != 'dc':
+        raise ValueError(f'bad post-upsampling: {upsampling}')
+    if transition_dc is None:
+        model.DeconvolutionBlock_0 = DeconvolutionBlock(scale, width,
+                                                        dtype=dtype)
+        return ['DeconvolutionBlock_0']
+    model.TransitionDC = TransitionBlock(width, transition_dc,
+                                         activation=activation, dtype=dtype)
+    model.DeconvolutionBlock_0 = DeconvolutionBlock(
+        scale, width, activation, in_channels=transition_dc, dtype=dtype)
+    return ['TransitionDC', 'DeconvolutionBlock_0']
+
+
 class NetPostupsampling(nn.Module):
     """Spatial model with a post-upsampling head
     (dl4ds_tpu/models/nets.py:175-232). Input [B, h, w, C] at LR and an
     optional HR aux [B, h*scale, w*scale, A]; output
-    [B, h*scale, w*scale, n_channels_out]. 'spc' only."""
+    [B, h*scale, w*scale, n_channels_out]. Heads 'spc', 'rc' (resized with
+    `rc_interpolation`) and 'dc'."""
 
     def __init__(self, n_channels, n_aux_channels, backbone, upsampling,
                  scale, n_channels_out=1, n_filters=8, n_blocks=6,
                  normalization=None, dropout_rate=0.0, dropout_variant=None,
                  attention=False, activation='relu', output_activation=None,
-                 localcon_layer=False, output_attention=True, remat=False,
-                 dtype=torch.float32):
+                 rc_interpolation='bilinear', localcon_layer=False,
+                 output_attention=True, remat=False, dtype=torch.float32):
         super().__init__()
-        if upsampling != 'spc':
-            raise not_ported(f'upsampling {upsampling!r}', 6)
         if localcon_layer:
             raise not_ported('localcon_layer', 6)
         _check_dropout(dropout_rate)
@@ -132,8 +207,9 @@ class NetPostupsampling(nn.Module):
                                      n_blocks, activation, normalization,
                                      attention, remat=remat, dtype=dtype)
         width = self._Backbone_0.n_filters
-        self.SubpixelConvolutionBlock_0 = SubpixelConvolutionBlock(
-            scale, width, dtype=dtype)
+        self.head = _attach_head(self, upsampling, scale, width,
+                                 rc_interpolation, activation,
+                                 transition_dc=n_filters, dtype=dtype)
         self.n_aux_channels = n_aux_channels
         if n_aux_channels > 0:
             self._AuxBranch_0 = _AuxBranch(n_aux_channels, width, activation,
@@ -144,13 +220,151 @@ class NetPostupsampling(nn.Module):
             attention=output_attention, dtype=dtype)
 
     def forward(self, x, aux=None):
-        if (aux is not None) != (self.n_aux_channels > 0):
-            raise ValueError(f'model built for {self.n_aux_channels} aux '
-                             f'channels, got aux={None if aux is None else tuple(aux.shape)}')
-        x = self.SubpixelConvolutionBlock_0(self._Backbone_0(x))
+        _check_aux(self.n_aux_channels, aux)
+        x = self._Backbone_0(x)
+        for name in self.head:
+            x = self._modules[name](x)
         if aux is not None:
             x = torch.cat([x, self._AuxBranch_0(aux)], dim=-1)
         return self._OutputModule_0(x)
+
+
+class NetPIN(nn.Module):
+    """Spatial pre-upsampled model (dl4ds_tpu/models/nets.py:235-274): the
+    backbone runs on the input already interpolated to the HR grid, [B, H,
+    W, C] -> [B, H, W, n_channels_out], then the optional aux branch and
+    the output module."""
+
+    def __init__(self, n_channels, n_aux_channels, backbone,
+                 n_channels_out=1, n_filters=8, n_blocks=6, dropout_rate=0.0,
+                 dropout_variant=None, normalization=None, attention=False,
+                 activation='relu', output_activation=None,
+                 localcon_layer=False, output_attention=True, remat=False,
+                 dtype=torch.float32):
+        super().__init__()
+        if localcon_layer:
+            raise not_ported('localcon_layer', 6)
+        _check_dropout(dropout_rate)
+        check_dtype(dtype)
+        self._Backbone_0 = _Backbone(n_channels, backbone, n_filters,
+                                     n_blocks, activation, normalization,
+                                     attention, remat=remat, dtype=dtype)
+        width = self._Backbone_0.n_filters
+        self.n_aux_channels = n_aux_channels
+        if n_aux_channels > 0:
+            self._AuxBranch_0 = _AuxBranch(n_aux_channels, width, activation,
+                                           normalization, dtype=dtype)
+        self._OutputModule_0 = _OutputModule(
+            width * (2 if n_aux_channels > 0 else 1), n_filters,
+            n_channels_out, output_activation, normalization,
+            attention=output_attention, dtype=dtype)
+
+    def forward(self, x, aux=None):
+        _check_aux(self.n_aux_channels, aux)
+        x = self._Backbone_0(x)
+        if aux is not None:
+            x = torch.cat([x, self._AuxBranch_0(aux)], dim=-1)
+        return self._OutputModule_0(x)
+
+
+class UnetPIN(nn.Module):
+    """U-Net encoder/decoder on the pre-upsampled input
+    (dl4ds_tpu/models/nets.py:277-359). `EncoderBlock{i}`s with filters
+    doubling per level, capped at `width_cap`; a `Bottleneck` ConvBlock
+    (no normalisation); per level a x2 upsampler ('rc', 'spc' or 'dc'
+    `decoder_upsampling`), `pad_concat` with the level's skip (odd grids:
+    max-pool floors, the padding restores the skip's size) and
+    `DecoderConvBlock{j}`; then the aux ConvBlock (Flax's `ConvBlock_0`)
+    and the output module. `n_blocks` is the depth as built
+    (`_check_nblocks` in the factory)."""
+
+    def __init__(self, n_channels, n_aux_channels, backbone='unet',
+                 n_channels_out=1, n_filters=8, n_blocks=6, activation='relu',
+                 dropout_rate=0.0, dropout_variant=None, normalization=None,
+                 attention=False, decoder_upsampling='rc',
+                 rc_interpolation='bilinear', output_activation=None,
+                 width_cap=256, localcon_layer=False, output_attention=True,
+                 dtype=torch.float32):
+        super().__init__()
+        if localcon_layer:
+            raise not_ported('localcon_layer', 6)
+        _check_dropout(dropout_rate)
+        check_dtype(dtype)
+        if decoder_upsampling not in ('rc', 'spc', 'dc'):
+            raise ValueError(
+                f'bad decoder_upsampling: {decoder_upsampling}')
+        self.n_blocks = n_blocks
+        common = dict(normalization=normalization, attention=attention,
+                      dtype=dtype)
+        c_in, filters, filt_list = n_channels, n_filters, []
+        for i in range(n_blocks):
+            self.add_module(f'EncoderBlock{i + 1}', EncoderBlock(
+                c_in, filters, activation=activation, **common))
+            filt_list.append(filters)
+            c_in, filters = filters, min(width_cap, filters * 2)
+        self.Bottleneck = ConvBlock(c_in, filters, activation=activation,
+                                    dtype=dtype)
+        c_in = filters
+        # (upsampler name, decoder ConvBlock name) per level; Flax
+        # auto-names the upsamplers in call order
+        kind = {'rc': 'ResizeConvolutionBlock', 'spc':
+                'SubpixelConvolutionBlock', 'dc': 'DeconvolutionBlock'}[
+                    decoder_upsampling]
+        self.levels = []
+        for j, filters in enumerate(reversed(filt_list)):
+            if decoder_upsampling == 'rc':
+                up = ResizeConvolutionBlock(2, filters, in_channels=c_in,
+                                            interpolation=rc_interpolation,
+                                            dtype=dtype)
+            elif decoder_upsampling == 'spc':
+                up = SubpixelConvolutionBlock(2, filters, in_channels=c_in,
+                                              dtype=dtype)
+            else:
+                up = DeconvolutionBlock(2, filters, activation,
+                                        in_channels=c_in, dtype=dtype)
+            self.add_module(f'{kind}_{j}', up)
+            self.add_module(f'DecoderConvBlock{j + 1}', ConvBlock(
+                2 * filters, filters, activation=activation, **common))
+            self.levels.append((f'{kind}_{j}', f'DecoderConvBlock{j + 1}'))
+            c_in = filters
+        self.n_aux_channels = n_aux_channels
+        if n_aux_channels > 0:
+            self.ConvBlock_0 = ConvBlock(n_aux_channels, c_in,
+                                         activation=activation,
+                                         normalization=normalization,
+                                         dtype=dtype)
+        self._OutputModule_0 = _OutputModule(
+            c_in * (2 if n_aux_channels > 0 else 1), n_filters,
+            n_channels_out, output_activation, normalization,
+            attention=output_attention, dtype=dtype)
+
+    def forward(self, x, aux=None):
+        _check_aux(self.n_aux_channels, aux)
+        skips = []
+        for i in range(self.n_blocks):
+            x, skip = self._modules[f'EncoderBlock{i + 1}'](x)
+            skips.append(skip)
+        x = self.Bottleneck(x)
+        for (up, conv), skip in zip(self.levels, reversed(skips)):
+            x = self._modules[conv](pad_concat(self._modules[up](x), skip))
+        if aux is not None:
+            x = torch.cat([x, self.ConvBlock_0(aux)], dim=-1)
+        return self._OutputModule_0(x)
+
+
+def _check_nblocks(shape, power):
+    """The U-Net depth for an HR grid `shape`: `power` levels, fewer where
+    the grid would fall below 2 pixels at the bottleneck, with the JAX
+    package's RuntimeWarning (dl4ds_tpu/models/nets.py:362-375)."""
+    requested = power
+    while shape[0] // 2 ** power < 2 or shape[1] // 2 ** power < 2:
+        power -= 1
+    if power != requested:
+        warnings.warn(
+            f'`n_blocks` of the U-Net encoder reduced {requested} -> '
+            f'{power} so the {shape} grid stays >= 2 px at the bottleneck',
+            RuntimeWarning)
+    return power
 
 
 class _RecBackbone(nn.Module):
@@ -186,20 +400,20 @@ class RecNetPostupsampling(nn.Module):
     (dl4ds_tpu/models/nets.py:422-499). Input [B, T, h, w, C] at LR and an
     optional HR aux [B, h*scale, w*scale, A]; output
     [B, T, h*scale, w*scale, n_channels_out]. The head runs per frame on the
-    [B*T]-flattened frames: the sub-pixel upsampler, the aux branch
-    (`ConvBlock_0`, its output repeated over time), `TransitionLast` to half
-    the channels, then the gated ConvBlock (its attention pools over (T, H))
-    and the output ConvBlock. 'spc' only."""
+    [B*T]-flattened frames: the upsampler ('spc', 'rc' or 'dc'; the 'dc'
+    head has no TransitionDC and no activation, as in the JAX package), the
+    aux branch (`ConvBlock_0`, its output repeated over time),
+    `TransitionLast` to half the channels, then the gated ConvBlock (its
+    attention pools over (T, H)) and the output ConvBlock."""
 
     def __init__(self, n_channels, n_aux_channels, backbone, upsampling,
                  scale, time_window, n_channels_out=1, n_filters=8,
                  n_blocks=4, normalization=None, dropout_rate=0.0,
                  dropout_variant=None, attention=False, activation='relu',
-                 output_activation=None, localcon_layer=False,
-                 output_attention=True, dtype=torch.float32):
+                 output_activation=None, rc_interpolation='bilinear',
+                 localcon_layer=False, output_attention=True,
+                 dtype=torch.float32):
         super().__init__()
-        if upsampling != 'spc':
-            raise not_ported(f'upsampling {upsampling!r}', 6)
         if localcon_layer:
             raise not_ported('localcon_layer', 6)
         _check_dropout(dropout_rate)
@@ -208,8 +422,8 @@ class RecNetPostupsampling(nn.Module):
         self._RecBackbone_0 = _RecBackbone(n_channels, backbone, n_filters,
                                            n_blocks, activation,
                                            normalization, dtype=dtype)
-        self.SubpixelConvolutionBlock_0 = SubpixelConvolutionBlock(
-            scale, n_filters, dtype=dtype)
+        self.head = _attach_head(self, upsampling, scale, n_filters,
+                                 rc_interpolation, dtype=dtype)
         self.n_aux_channels = n_aux_channels
         width = n_filters
         # Flax auto-names the head's ConvBlocks in call order, so the aux
@@ -232,15 +446,15 @@ class RecNetPostupsampling(nn.Module):
             normalization=normalization, dtype=dtype))
 
     def forward(self, x, aux=None):
-        if (aux is not None) != (self.n_aux_channels > 0):
-            raise ValueError(f'model built for {self.n_aux_channels} aux '
-                             f'channels, got aux={None if aux is None else tuple(aux.shape)}')
+        _check_aux(self.n_aux_channels, aux)
         b, t = x.shape[:2]
         if t != self.time_window:
             raise ValueError(f'model built for time_window='
                              f'{self.time_window}, got {t} frames')
         x = self._RecBackbone_0(x)
-        x = self.SubpixelConvolutionBlock_0(x.reshape(b * t, *x.shape[2:]))
+        x = x.reshape(b * t, *x.shape[2:])
+        for name in self.head:
+            x = self._modules[name](x)
         if aux is not None:
             s = self._modules[self.aux_name](aux)
             # broadcast over time, [b*t] major (jnp.repeat on axis 0)

@@ -1,8 +1,9 @@
 """Carry a Flax parameter tree across into the port's modules, and back.
 
 The torch modules carry the Flax tree's names (explicit ones such as `stem`,
-`ResidualBlock1`, `conv2x`, `input_conv`, and Flax's auto-names such as
-`Conv_0`, `ChannelAttention2D_0`, `ConvLSTM2D_0`), so the tree and the module
+`ResidualBlock1`, `Transition1`, `EncoderBlock1`, `conv2x`, `deconv_2of3`,
+`input_conv`, and Flax's auto-names such as `Conv_0`, `ChannelAttention2D_0`,
+`ResizeConvolutionBlock_0`, `ConvLSTM2D_0`), so the tree and the module
 hierarchy are walked together. The tree is a nested dict of numpy arrays
 (`jax.tree_util.tree_map(np.asarray, variables['params'])`): the port never
 sees a JAX type.
@@ -11,7 +12,12 @@ sees a JAX type.
 import numpy as np
 import torch
 
-from .models.blocks import Conv, ChannelAttention2D, _Kernel
+from .models.blocks import Conv, ConvTranspose, ChannelAttention2D, _Kernel
+
+# modules whose parameters carry the Flax leaf names and layout: the gate's
+# w1/b1/w2/b2, a ConvLSTM kernel's HWIO kernel/bias, a transposed conv's
+# HWIO kernel
+_SAME_LAYOUT = (ChannelAttention2D, _Kernel, ConvTranspose)
 
 __all__ = ['load_jax_params', 'export_jax_params']
 
@@ -38,9 +44,7 @@ def _load_conv(conv, leaves, path, done):
 
 
 def _load_same_layout(module, leaves, path, done):
-    """Copy leaves into a module whose own parameters carry the Flax leaf
-    names and layout (the attention gate's w1/b1/w2/b2, a ConvLSTM kernel's
-    HWIO kernel/bias)."""
+    """Copy leaves into a module of `_SAME_LAYOUT`."""
     params = dict(module.named_parameters(recurse=False))
     if set(leaves) != set(params):
         raise KeyError(f'{path}: Flax leaves {sorted(leaves)}, expected '
@@ -58,7 +62,7 @@ def _walk(module, tree, path, done):
                            f'in {type(module).__name__}')
         if isinstance(child, Conv):
             _load_conv(child, sub, sub_path, done)
-        elif isinstance(child, (ChannelAttention2D, _Kernel)):
+        elif isinstance(child, _SAME_LAYOUT):
             _load_same_layout(child, sub, sub_path, done)
         else:
             _walk(child, sub, sub_path, done)
@@ -68,8 +72,8 @@ def load_jax_params(net, params):
     """Copy the Flax `params` tree (nested dict of numpy arrays) into `net`,
     in place, and return `net`. Raises on any Flax leaf without a torch
     parameter, on any shape mismatch, and on any torch parameter left unset.
-    A tied module (the spc head's `conv2x`) has one entry and is copied
-    once."""
+    A tied module (the spc head's `conv2x`, the x8 dc head's `deconv_2of3`)
+    has one entry and is copied once."""
     done = set()
     with torch.no_grad():
         _walk(net, params, '', done)
@@ -96,7 +100,7 @@ def export_jax_params(net):
                 sub = {'kernel': leaf(child.weight.permute(2, 3, 1, 0))}
                 if child.bias is not None:
                     sub['bias'] = leaf(child.bias)
-            elif isinstance(child, (ChannelAttention2D, _Kernel)):
+            elif isinstance(child, _SAME_LAYOUT):
                 sub = {name: leaf(p) for name, p
                        in child.named_parameters(recurse=False)}
             else:

@@ -453,7 +453,9 @@ def test_load_jax_params_rejects_a_stray_convlstm_leaf():
 
 @pytest.mark.parametrize('kwargs', [
     dict(backbone_block='convnet'), dict(backbone_block='densenet'),
-    dict(upsampling='rc'), dict(upsampling='dc'), dict(normalization='bn'),
+    dict(normalization='ln'),
+    dict(dropout_variant='mcspatialdrop', dropout_rate=0.2),
+    dict(normalization='bn'),
     dict(dropout_rate=0.2), dict(dtype=torch.float16),
     dict(localcon_layer=True)])
 def test_unported_recurrent_configurations_raise(kwargs):

@@ -113,7 +113,8 @@ def test_activation_matches_jax(name):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(backbone_block='convnet'), dict(upsampling='rc'),
+    dict(backbone_block='convnext'),
+    dict(dropout_variant='mcdrop', dropout_rate=0.2),
     dict(normalization='bn'), dict(normalization='ln'),
     dict(dropout_rate=0.2), dict(dtype=torch.float16),
     dict(localcon_layer=True)])

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the device time of a PyTorch port training step goes.
 
-    python3 torch_train_profile.py [--model recresnet_spc|resnet_spc]
-        [--loss mae] [--batch 128] [--reps 5] [--width 8] [--attention]
-        [--graphed] [--dtype bf16] [--mos]           # from the repo root
+    python3 torch_train_profile.py [--model recresnet_spc|resnet_spc|
+        convnet_pin|unet_pin] [--loss mae] [--batch 128] [--reps 5]
+        [--width 8] [--attention] [--graphed] [--dtype bf16] [--mos]
+        # from the repo root
 
 Builds the training configuration of `chip_smoke.py` phase 7 (BASELINE
 config 4 as bench_suite.py's measure_supervised trains it:
@@ -13,8 +14,12 @@ n_filters=8, scale=4, patch_size=64, loss='mae')` on 256 seeded grids of
 --attention` that of phase 8 (bench_suite.py's recresnet_spc_width64), or
 with `--model resnet_spc --attention` the flagship of phase 10 (bench.py's
 resnet_spc: n_blocks 6, no time window; `--loss dssim_mae` as phase 10
-trains it); `--dtype bf16` trains the bfloat16 model (float32 parameters,
-Adam and loss; bfloat16 convolutions and kernels); `--mos` trains the
+trains it); with `--model convnet_pin` or `--model unet_pin` BASELINE
+configs 1 and 3 as `chip_smoke.py` phase 14 trains them (bench_suite.py's
+convnet_pin_4x, n_blocks 6, and unet_pin_4x, n_blocks 4 with the 'rc'
+decoder: the pre-upsampled 64x64 patches, n_filters 8); `--dtype bf16`
+trains the bfloat16 model (float32 parameters, Adam and loss; bfloat16
+convolutions and kernels); `--mos` trains the
 flagship of `chip_smoke.py` phase 13 MOS-style, from given LR arrays with
 two statics, a predictor and season channels (`--batch`, `--dtype` and the
 model options above are still read; the model is phase 13's). Runs 3 warm-up steps, then `reps` steps (batch synthesis,
@@ -92,7 +97,8 @@ def main():
     ap.add_argument('--reps', type=int, default=5)
     ap.add_argument('--width', type=int, default=8, help='n_filters')
     ap.add_argument('--attention', action='store_true')
-    ap.add_argument('--model', choices=('recresnet_spc', 'resnet_spc'),
+    ap.add_argument('--model', choices=('recresnet_spc', 'resnet_spc',
+                                        'convnet_pin', 'unet_pin'),
                     default='recresnet_spc')
     ap.add_argument('--loss', default='mae')
     ap.add_argument('--graphed', action='store_true',
@@ -123,10 +129,16 @@ def main():
     else:
         data = np.random.default_rng(0).standard_normal(
             (256, 128, 128, 1)).astype('float32')
-        model = (dict(time_window=4, n_blocks=2)
-                 if args.model == 'recresnet_spc' else dict(n_blocks=6))
+        model = {'recresnet_spc': dict(time_window=4, n_blocks=2),
+                 'resnet_spc': dict(n_blocks=6),
+                 'convnet_pin': dict(backbone='convnet', upsampling='pin',
+                                     n_blocks=6),
+                 'unet_pin': dict(backbone='unet', upsampling='pin',
+                                  n_blocks=4)}[args.model]
+        model.setdefault('backbone', 'resnet')
+        model.setdefault('upsampling', 'spc')
         tr = tds.SupervisedTrainer(
-            'resnet', 'spc', data_train=data, data_val=data[:64],
+            data_train=data, data_val=data[:64],
             data_test=data[:64], scale=4, patch_size=64,
             batch_size=args.batch, loss=args.loss, n_filters=args.width,
             attention=args.attention, verbose=False, dtype=dtype, **model)
