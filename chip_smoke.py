@@ -158,17 +158,44 @@ Phases, each of which exits non-zero on failure:
      6, attention) on 16 LR grids of 128x128 into 512x512 (K1 14
      launches) and of recnet_postupsampling('resnet', 'dc', time_window=4)
      on 19 grids (K2 48 launches), grid 0 against the CPU;
- 15. print the `kernels` JSON line, then, last, the device JSON line. In
+ 15. train-mode state, ConvNeXt and the localized layer, at the bench's
+     full width (n_filters 8, n_blocks 6, scale 4): (a) net_postupsampling(
+     'convnext', 'spc', localcon_layer=True) with 2 statics and a
+     predictor, trained on whole 128x128 grids (the localized weights fix
+     the grid) at batch 32 for 2 epochs of 20 steps with validation and
+     test through `run()`'s replayed graphs, K1's launches both ways in the
+     device trace, finite losses, the speed, 3 steps at batch 4 against
+     the CPU in float64 (the third step's parameters also held to 4x the
+     CPU's own float32 run), 8 replayed steps against 8 eager ones bit for
+     bit, 2 epochs in bfloat16, and `predict` of 16 grids at batch 8 (K1 2
+     launches), grid 0 against the CPU in float64; (b) the flagship with
+     bn, 'mcdrop' dropout at 0.2 and an EMA of 0.999, trained as phase 10
+     with mae (the CPU steps consume the masks the card drew, through
+     `_dropout_mask`; the running statistics compared with the
+     parameters), replayed against eager bit for bit with dropout on, then
+     `predict` twice (the same bits: one fixed member) and
+     `predict_mc(n_members=8)` of 16 LR grids of 128x128 at batch 8 (K1 14
+     launches a member, the members differing, std > 0, one seed the same
+     bits twice); (c) recresnet_spc (T 4, n_blocks 2) with ln and
+     'mcspatialdrop' at 0.2 trained as phase 7 (K2 and K3 counted against
+     `dispatch_info`, the CPU steps on the card's masks), then
+     `predict_mc(n_members=4, time_window=4)` on 19 grids (K2 48 launches a
+     member);
+ 16. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
-     K1_channel_attention_unet_pin_train) is what the device trace of its
-     phase's run holds, and `wrapper_calls` what its wrapper counted (the
-     warm-up calls and the capture: a replay calls no wrapper); the
-     serving kernels (K1_channel_attention, K2_convlstm,
+     K1_channel_attention_unet_pin_train,
+     K1_channel_attention_convnext_train, K1_channel_attention_bn_train,
+     K2_convlstm_train_ln_dropout, K3_convlstm_bptt_ln_dropout) is what the
+     device trace of its phase's run holds, and `wrapper_calls` what its
+     wrapper counted (the warm-up calls and the capture: a replay calls no
+     wrapper); the serving kernels (K1_channel_attention, K2_convlstm,
      K1_channel_attention_mos_serve, K1_channel_attention_pin_serve,
-     K1_channel_attention_rc_dc_serve) and K6_ssim_metrics run eagerly, and
-     their `launches` are their wrappers' counts.
+     K1_channel_attention_rc_dc_serve, K1_channel_attention_convnext_serve,
+     K1_channel_attention_mc_serve, K2_convlstm_mc_serve) and
+     K6_ssim_metrics run eagerly, and their `launches` are their wrappers'
+     counts.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -1503,8 +1530,40 @@ def _check_launches(tds, runner, label, per_step, replays, calls, kernels):
     return launches
 
 
+@contextlib.contextmanager
+def _dropout_draws(torch, feed=None):
+    """Record the port's dropout draws (`_dropout_mask`) in call order into
+    the list it yields, or with `feed` (a list of earlier draws) return
+    those in order instead, each moved to the device the call asks for (a
+    noise draw cast to its dtype), so that a CPU run consumes the masks of
+    a GPU run."""
+    from dl4ds_tpu_torch.models import blocks
+    real = blocks._dropout_mask
+    log = []
+
+    def record(shape, keep, generator, dtype, device, kind='bernoulli'):
+        log.append(real(shape, keep, generator, dtype, device, kind))
+        return log[-1]
+
+    def replay(shape, keep, generator, dtype, device, kind='bernoulli'):
+        if not feed or tuple(feed[0].shape) != tuple(shape):
+            fail(f'dropout draw {tuple(shape)} ({kind}) has no recorded '
+                 f'counterpart')
+        value = feed.pop(0)
+        return value.to(device=device, dtype=(
+            torch.bool if value.dtype == torch.bool else dtype))
+    blocks._dropout_mask = record if feed is None else replay
+    try:
+        yield log
+    finally:
+        blocks._dropout_mask = real
+    if feed:
+        fail(f'{len(feed)} recorded dropout draws were not consumed')
+
+
 def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
-                    shares, keep_model=False, f32_yardstick=False):
+                    shares, keep_model=False, f32_yardstick=False,
+                    batch=TRAIN_BATCH, draws=False, retraces=0):
     """Drive training through SupervisedTrainer(**config) on the card at
     batch 128 (2 epochs of `steps` steps, validation and test, replayed as
     captured CUDA graphs) under torch.profiler, with every launch counter
@@ -1517,20 +1576,26 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
     `cpu_batch` from one seed on the GPU (TF32 off, PyTorch's own float32
     convolutions, not cuDNN's) and on the CPU in float64 (with
     `f32_yardstick` also in float32 on the CPU, the yardstick of the third
-    step's parameters). Returns the launches in the device trace, the
+    step's parameters; with `f32_yardstick='all'` of the losses and the
+    first step's parameters too, where one float32 step already lands
+    farther than the atol). Returns the launches in the device trace, the
     wrappers' calls and the numbers, and with `keep_model` the trained
-    (model, net) under the numbers' 'model'."""
+    (model, net) under the numbers' 'model'. `batch` is the training
+    batch; with `draws` (a model with dropout) the CPU runs consume the
+    dropout draws of the GPU run (`_dropout_draws`). The running
+    statistics of a model with batch norm are compared as the
+    parameters are."""
     import numpy as np
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
     torch.backends.cuda.matmul.allow_tf32 = False
     tr = tds.SupervisedTrainer(
-        batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, steps_per_epoch=steps,
+        batch_size=batch, epochs=TRAIN_EPOCHS, steps_per_epoch=steps,
         validation_steps=TRAIN_VAL_STEPS, test_steps=TRAIN_TEST_STEPS,
         **config)
     run_s, calls, kernels = _traced_run(torch, tds, tr)
     losses = tr.fithist['loss'] + tr.fithist['val_loss'] + [tr.test_loss]
     print(f'training: {tr.model.name}, {label}, '
-          f'{tr.model.param_count(tr.net)} parameters, batch {TRAIN_BATCH}, '
+          f'{tr.model.param_count(tr.net)} parameters, batch {batch}, '
           f'{TRAIN_EPOCHS} epochs of {steps} steps in {run_s:.2f} s under '
           f'torch.profiler; history {tr.fithist}, test loss '
           f'{tr.test_loss:.6f}', flush=True)
@@ -1552,18 +1617,19 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
     for c in range(steps):
         tr.train_step(tr.ds_train(idx[c], generator=gen))
     torch.cuda.synchronize()
-    patches_per_s = steps * TRAIN_BATCH / (time.perf_counter() - t0)
-    batch = tr.ds_train(idx[0], generator=gen)
+    patches_per_s = steps * batch / (time.perf_counter() - t0)
+    one = tr.ds_train(idx[0], generator=gen)
     step_ms = statistics.median(
-        device_times(torch, lambda: tr.train_step(batch), reps=10))
-    graphed = _graphed_speed(torch, tds, tr, steps, per_step, label)
+        device_times(torch, lambda: tr.train_step(one), reps=10))
+    graphed = _graphed_speed(torch, tds, tr, steps, per_step, label, batch,
+                             retraces)
     trained = (tr.model, tr.net) if keep_model else None
-    del tr, batch
-    print(f'training step at batch {TRAIN_BATCH}, {label} (TF32 convs, the '
+    del tr, one
+    print(f'training step at batch {batch}, {label} (TF32 convs, the '
           f'default; the port\'s kernels and the GEMM tail are float32): '
           f'{patches_per_s:.1f} patches/s end to end eager (host clock, batch '
           f'synthesis included); one eager step {step_ms:.3f} ms (CUDA '
-          f'events) = {TRAIN_BATCH / step_ms * 1e3:.1f} patches/s; of which '
+          f'events) = {batch / step_ms * 1e3:.1f} patches/s; of which '
           + ', '.join(f'{name} {ms:.3f} ms ({100 * ms / step_ms:.1f}%)'
                       for name, ms in shares.items())
           + f', timed alone above; replayed: {graphed["patches_per_s"]:.1f} '
@@ -1578,6 +1644,7 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
     sides = [('cuda', torch.float32), ('cpu', torch.float64)]
     if f32_yardstick:
         sides.append(('cpu', torch.float32))
+    drawn = []
     for device, dtype in sides:
         torch.backends.cudnn.enabled = device == 'cpu'
         small = tds.SupervisedTrainer(batch_size=cpu_batch, epochs=1,
@@ -1590,14 +1657,22 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
         gen = torch.Generator().manual_seed(3)
         idx = small.ds_train.epoch_indices(gen, steps=3)
         losses, params = [], []
-        for c in range(3):
-            batch = small.ds_train(idx[c], generator=gen)
-            losses.append(small.train_step(
-                {k: None if v is None else v.to(dtype)
-                 for k, v in batch.items()}).item())
-            # copies: .double() of a float64 parameter is the parameter
-            params.append({n: p.detach().to('cpu', torch.float64, copy=True)
-                           for n, p in small.net.named_parameters()})
+        feed = None if device == 'cuda' or not draws else list(drawn)
+        with _dropout_draws(torch, feed) as log:
+            for c in range(3):
+                step = small.ds_train(idx[c], generator=gen)
+                losses.append(small.train_step(
+                    {k: None if v is None else v.to(dtype)
+                     for k, v in step.items()}).item())
+                # copies: .double() of a float64 parameter is the parameter
+                params.append({
+                    n: p.detach().to('cpu', torch.float64, copy=True)
+                    for n, p in list(small.net.named_parameters())
+                    + list(small.net.named_buffers())})
+        if device == 'cuda':
+            drawn = log
+        if draws and not drawn:
+            fail(f'{label}: the GPU steps drew no dropout mask')
         runs[device, dtype] = (losses, params)
     torch.backends.cudnn.enabled = True
     (gpu_losses, gpu_params), (cpu_losses, cpu_params) = (
@@ -1634,6 +1709,29 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
         yardstick = dict(cpu_first_step_param_err=first,
                          cpu_f32_param_err=own,
                          cpu_f32_first_step_param_err=own_first)
+        if f32_yardstick == 'all':
+            f32_losses, f32_params = runs['cpu', torch.float32]
+            own_loss = max(abs(a - b) / abs(b) for a, b in zip(f32_losses,
+                                                               cpu_losses))
+            worst = max(cpu_params[0], key=lambda n: (
+                f32_params[0][n] - cpu_params[0][n]).abs().max().item())
+            gpu_worst = max(cpu_params[2], key=lambda n: (
+                gpu_params[2][n] - cpu_params[2][n]).abs().max().item())
+            apart = max((gpu_params[2][n] - f32_params[2][n]).abs().max()
+                        .item() for n in cpu_params[2])
+            print(f'{label}: losses {loss_err:.3e} from float64, the CPU\'s '
+                  f'float32 run {own_loss:.3e}; the CPU\'s float32 run '
+                  f'lands farthest after one step at {worst}, the GPU '
+                  f'after three at {gpu_worst}; GPU vs the CPU\'s float32 '
+                  f'run after three steps max|d| {apart:.3e}', flush=True)
+            ok = (loss_err <= max(TRAIN_LOSS_RTOL,
+                                  F32_YARDSTICK_RATIO * own_loss)
+                  and first <= max(TRAIN_PARAM_ATOL,
+                                   F32_YARDSTICK_RATIO * own_first)
+                  and param_err <= max(TRAIN_PARAM_ATOL,
+                                       F32_YARDSTICK_RATIO * own))
+            yardstick.update(cpu_f32_loss_rel_err=own_loss,
+                             cpu_f32_worst_first_step=worst)
     if not ok:
         fail(f'GPU training steps ({label}) disagree with the CPU: losses '
              f'{loss_err:.3e}, parameters {param_err:.3e}')
@@ -1645,12 +1743,16 @@ def _drive_training(torch, tds, config, label, steps, per_step, cpu_batch,
     return got, calls, numbers
 
 
-def _graphed_speed(torch, tds, tr, steps, per_step, label):
+def _graphed_speed(torch, tds, tr, steps, per_step, label,
+                   batch=TRAIN_BATCH, retraces=0):
     """The replayed training graph of a run trainer: a chunk of `steps`
     replays with its plan upload on the host clock (after one warm chunk),
     one replay on CUDA events, and a chunk under torch.profiler: the
     device's busy share of its span, and the port's kernels, which must
-    have run in every replay."""
+    have run in every replay. With `retraces`, a trace that misses
+    launches (the profiler lost 2 of 480 K2 launches in one of five runs
+    of phase 15 (c) on the H100; a replay cannot skip a kernel) is taken
+    again, up to that many times, and every trace is printed."""
     gen = torch.Generator().manual_seed(7)
     plans = [tr.ds_train.plan(gen, steps) for _ in range(2)]
     tr.runner.train(plans[0])
@@ -1658,16 +1760,23 @@ def _graphed_speed(torch, tds, tr, steps, per_step, label):
     t0 = time.perf_counter()
     tr.runner.train(plans[1])
     torch.cuda.synchronize()
-    rate = steps * TRAIN_BATCH / (time.perf_counter() - t0)
+    rate = steps * batch / (time.perf_counter() - t0)
     graph = tr.runner.graphs['step']
 
     def replay():
         tr._row.zero_()
         graph.replay()
     replay_ms = statistics.median(device_times(torch, replay, reps=10))
-    kernels, busy_ms, span_ms = _replay_profile(torch, tr.runner, plans[0])
     want = {name: n * steps for name, n in per_step['train'].items()}
-    port = _device_launches(tds, kernels)
+    for attempt in range(retraces + 1):
+        kernels, busy_ms, span_ms = _replay_profile(torch, tr.runner,
+                                                    plans[0])
+        port = _device_launches(tds, kernels)
+        if port == want:
+            break
+        print(f'{label}: trace {attempt + 1} of {steps} replays holds '
+              f'{port} launches of the port\'s kernels, expected {want}',
+              flush=True)
     if port != want:
         fail(f'{label}: the profiler saw {port} launches of the port\'s '
              f'kernels in {steps} replays, expected {per_step["train"]} in '
@@ -1945,11 +2054,11 @@ def phase_ssim(torch, tds, report):
                                    grad_rel_err=grad_err)
 
 
-def _gate_inputs(torch, tds, config):
+def _gate_inputs(torch, tds, config, batch=TRAIN_BATCH):
     """The input shapes of the flagship's K1 gates in a training step, in
     order, read by hooks on one forward of a training batch."""
     from dl4ds_tpu_torch.models.blocks import ChannelAttention2D
-    tr = tds.SupervisedTrainer(batch_size=TRAIN_BATCH, epochs=1, **config)
+    tr = tds.SupervisedTrainer(batch_size=batch, epochs=1, **config)
     tr.setup_datagen()
     tr.setup_model()
     shapes = []
@@ -2077,13 +2186,14 @@ def _replay_profile(torch, runner, plan):
     return kernels, busy / 1e3, span / 1e3
 
 
-def _graphs_vs_eager(torch, tds, fo, config, label, per_step):
+def _graphs_vs_eager(torch, tds, fo, config, label, per_step,
+                     batch=TRAIN_BATCH):
     """GRAPH_STEPS training steps of `config` at batch TRAIN_BATCH through
     `run()`'s captured graphs and as many eager `train_step`s from the same
     seed (weights) and plan: the same bits in every loss, parameter and EMA
     weight. Checks the graphed run's launches and replays (`_check_launches`)
     and the arrival counters. Returns the row."""
-    args = dict(batch_size=TRAIN_BATCH, epochs=1, steps_per_epoch=GRAPH_STEPS,
+    args = dict(batch_size=batch, epochs=1, steps_per_epoch=GRAPH_STEPS,
                 validation_steps=1, test_steps=1, **config)
     graphed = tds.SupervisedTrainer(**args)
     _, calls, kernels = _traced_run(torch, tds, graphed)
@@ -2106,8 +2216,10 @@ def _graphs_vs_eager(torch, tds, fo, config, label, per_step):
     eager.train_net.train()
     plan = eager.ds_train.plan(torch.Generator().manual_seed(eager.seed),
                                GRAPH_STEPS)
+    # whole grids (patch_size None) have no offsets in the plan
     losses = torch.stack([eager.train_step(eager.ds_train(
-        plan['idx'][c], offsets=(plan['ys'][c], plan['xs'][c])))
+        plan['idx'][c], offsets=((plan['ys'][c], plan['xs'][c])
+                                 if 'ys' in plan else None)))
         for c in range(GRAPH_STEPS)])
     pairs = {'losses': ([losses], [graphed.train_losses]),
              'parameters': (list(eager.train_net.parameters()),
@@ -2763,7 +2875,8 @@ def _bf16_predict(torch, tds, recurrent):
                 f32_max_rel_dist=own_max)
 
 
-def _bf16_training(torch, tds, config, label, steps, per_step):
+def _bf16_training(torch, tds, config, label, steps, per_step,
+                   batch=TRAIN_BATCH, retraces=0):
     """Phase 12, training: `run()` at batch 128 for 2 epochs of `steps`
     steps with validation and test through the replayed graphs, under
     torch.profiler with the counters zeroed just before: the launches in
@@ -2771,7 +2884,7 @@ def _bf16_training(torch, tds, config, label, steps, per_step):
     losses; then the eager steps' and the replays' speed."""
     import numpy as np
     tr = tds.SupervisedTrainer(
-        batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, steps_per_epoch=steps,
+        batch_size=batch, epochs=TRAIN_EPOCHS, steps_per_epoch=steps,
         validation_steps=TRAIN_VAL_STEPS, test_steps=TRAIN_TEST_STEPS,
         **config)
     run_s, calls, kernels = _traced_run(torch, tds, tr)
@@ -2791,8 +2904,9 @@ def _bf16_training(torch, tds, config, label, steps, per_step):
     for c in range(steps):
         tr.train_step(tr.ds_train(idx[c], generator=gen))
     torch.cuda.synchronize()
-    eager = steps * TRAIN_BATCH / (time.perf_counter() - t0)
-    graphed = _graphed_speed(torch, tds, tr, steps, per_step, label)
+    eager = steps * batch / (time.perf_counter() - t0)
+    graphed = _graphed_speed(torch, tds, tr, steps, per_step, label, batch,
+                             retraces)
     print(f'phase 12, {label}: history {tr.fithist}, test loss '
           f'{tr.test_loss:.6f}; replayed {graphed["patches_per_s"]:.1f} '
           f'patches/s, eager {eager:.1f} (host clock); one replay '
@@ -3645,6 +3759,448 @@ def _pin_kernel_rows(report):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: train-mode state (bn, ln, every dropout, MC dropout), ConvNeXt
+# and the localized layer, trained and served
+# ---------------------------------------------------------------------------
+
+# (a) convnext_spc x4 with the localized layer at full width (n_filters 8,
+# n_blocks 6, 2 statics, a predictor), trained on whole 128x128 HR grids
+# (its per-pixel weights fix the grid) at batch 32: the pixels of bench.py's
+# 128 patches of 64x64. Its one K1 gate is the output head's: [32, 128, 128,
+# 8] in a training step, [8, 128, 128, 8] serving (phase 14's pin serving
+# gate, timed there)
+CNX_BATCH, CNX_CPU_BATCH = 32, 4
+CNX_GATES = [(CNX_BATCH, TRAIN_HR, TRAIN_HR, N_FILTERS)]
+# (b) the flagship with batch norm, MC dropout at the reference factory's
+# default rate and an EMA, trained as phase 10 with mae and served as an
+# ensemble of MC_MEMBERS members; (c) recresnet_spc with layer norm and MC
+# spatial dropout, trained as phase 7, served as REC_MC_MEMBERS members
+MC_RATE, MC_EMA = 0.2, 0.999
+MC_MEMBERS, REC_MC_MEMBERS = 8, 4
+# (a)'s served grid 0 against float64 where float32 is ill-conditioned:
+# the bound of its worst pixels, in units of PREDICT_TOL (float32's sum
+# order alone moved them up to 4.9e-4 in runs of this phase on the H100)
+SERVE_ILL_FACTOR = 100
+
+
+def _convnext_config():
+    """(a)'s SupervisedTrainer arguments: phase 7's 256 seeded grids of
+    128x128, whole grids, 2 statics and a predictor."""
+    import numpy as np
+    config = _training_config(backbone='convnext', loss='mae',
+                              n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+                              localcon_layer=True)
+    rng = np.random.default_rng(15)
+    topo = rng.standard_normal((TRAIN_HR, TRAIN_HR)).astype('float32')
+    mask = (rng.random((TRAIN_HR, TRAIN_HR)) > 0.5).astype('float32')
+    pred = rng.standard_normal(
+        (TRAIN_GRIDS, TRAIN_HR, TRAIN_HR, 1)).astype('float32')
+    v = slice(0, 64)
+    config.update(patch_size=None, static_vars=[topo, mask],
+                  predictors_train=[pred], predictors_val=[pred[v]],
+                  predictors_test=[pred[v]])
+    return config
+
+
+def _state_config(name):
+    """The SupervisedTrainer arguments of phase 15's (a) 'convnext', (b)
+    'bn_mc' and (c) 'recurrent' training (also read by
+    torch_train_profile.py --state)."""
+    if name == 'convnext':
+        return _convnext_config()
+    if name == 'bn_mc':
+        return _training_config(loss='mae', n_filters=N_FILTERS,
+                                n_blocks=N_BLOCKS, attention=True,
+                                normalization='bn', dropout_rate=MC_RATE,
+                                dropout_variant='mcdrop', ema_decay=MC_EMA)
+    return _training_config(loss='mae', time_window=REC_T,
+                            n_blocks=REC_BLOCKS, n_filters=N_FILTERS,
+                            normalization='ln', dropout_rate=MC_RATE,
+                            dropout_variant='mcspatialdrop')
+
+
+def _served_vs_float64(torch, tds, label, model, net, grids, kwargs, y32):
+    """Grid 0 of `y32` (the card's `predict`, TF32 off) against the same
+    model run on the CPU in float64 on the same assembled input: every
+    pixel within PREDICT_TOL of max(1, max|y|), or, where float32 itself
+    lands farther at single pixels (a layer norm with eps 1e-6 over
+    ConvNeXt's 2 static channels: where they nearly agree, float32's sum
+    order alone moves its output by up to 1e-2, and the 7x7 head spreads
+    that over a few hundred pixels), 99% of the pixels within it and every
+    pixel within SERVE_ILL_FACTOR times it. The CPU's own float32 run is
+    printed beside."""
+    import numpy as np
+    preds = kwargs.get('predictors')
+    x, aux, _ = tds.inference._assemble_inputs(
+        model, grids[:1], kwargs['scale'], kwargs.get('array_in_hr', True),
+        kwargs.get('static_vars'), None if preds is None else [preds[0][:1]],
+        None, 'inter_area', torch.device('cpu'))
+    with torch.no_grad():
+        y64 = copy.deepcopy(net).cpu().double().eval()(
+            x.double(), None if aux is None else aux.double()).numpy()[0]
+        y_f32 = copy.deepcopy(net).cpu().eval()(x, aux).numpy()[0]
+    gpu, own = np.abs(y32[0] - y64), np.abs(y_f32 - y64)
+    tol = PREDICT_TOL['atol'] * max(1.0, float(np.abs(y64).max()))
+    numbers = dict(cpu_f64_max_abs_err=float(gpu.max()),
+                   cpu_f32_max_abs_err=float(own.max()),
+                   cpu_f64_p99_abs_err=float(np.quantile(gpu, 0.99)),
+                   cpu_f32_p99_abs_err=float(np.quantile(own, 0.99)),
+                   cpu_f64_mean_abs_err=float(gpu.mean()),
+                   cpu_f32_mean_abs_err=float(own.mean()))
+    print(f'phase 15, {label}: grid 0, GPU (TF32 off) vs CPU float64 max|d| '
+          f'{gpu.max():.3e}, 99th percentile '
+          f'{numbers["cpu_f64_p99_abs_err"]:.3e}, mean {gpu.mean():.3e}; the '
+          f'CPU\'s float32 run {own.max():.3e}, '
+          f'{numbers["cpu_f32_p99_abs_err"]:.3e}, {own.mean():.3e} from it '
+          f'(max|y| {float(np.abs(y64).max()):.3e}; every pixel within '
+          f'{tol:.3g}, or 99% within it and all within '
+          f'{SERVE_ILL_FACTOR * tol:.3g} required); {card_line()}',
+          flush=True)
+    if not (gpu.max() <= tol or (numbers['cpu_f64_p99_abs_err'] <= tol
+                                 and gpu.max() <= SERVE_ILL_FACTOR * tol)):
+        fail(f'phase 15: {label} on the GPU is {gpu.max():.3e} (99th '
+             f'percentile {numbers["cpu_f64_p99_abs_err"]:.3e}) from the CPU '
+             f'in float64, the CPU\'s float32 run {own.max():.3e}')
+    return numbers
+
+
+def _serve_counted(torch, tds, fn):
+    """`fn()` with the launch counters zeroed just before and read just
+    after; returns (its result, {counter: launches}, seconds)."""
+    counters = _counters(tds)
+    for _, c, attr in counters:
+        setattr(c, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, {name: getattr(c, attr) for name, c, attr in counters}, \
+        seconds
+
+
+def _state_convnext(torch, tds, report):
+    """(a): convnext_spc with the localized layer trained (float32 and
+    bfloat16), replayed against eager, and served."""
+    import numpy as np
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    config = _convnext_config()
+    shapes = _gate_inputs(torch, tds, config, batch=CNX_BATCH)
+    if shapes != CNX_GATES:
+        fail(f'phase 15: the convnext step\'s gates are {shapes}, not '
+             f'{CNX_GATES}')
+    rows = _k1_gate_rows(torch, tds, shapes, 'convnext training gate')
+    per_step = _flagship_per_step(len(shapes), ssim=False)
+    label = (f'convnext_spc + localized layer, n_filters {N_FILTERS}, '
+             f'n_blocks {N_BLOCKS}, whole {TRAIN_HR}x{TRAIN_HR} grids, mae')
+    got, calls, numbers = _drive_training(
+        torch, tds, config, label, TRAIN_STEPS, per_step, CNX_CPU_BATCH,
+        {'K1 forward': sum(r['ms'] for r in rows),
+         'K1 backward': sum(r['bwd_ms'] for r in rows)}, keep_model=True,
+        f32_yardstick='all', batch=CNX_BATCH, retraces=1)
+    model, net = numbers.pop('model')
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    graphs = _graphs_vs_eager(torch, tds, fo, config, label, per_step,
+                              batch=CNX_BATCH)
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+    bf16 = _bf16_training(torch, tds, dict(config, dtype=torch.bfloat16),
+                          f'{label}, bfloat16', TRAIN_STEPS, per_step,
+                          batch=CNX_BATCH, retraces=1)
+    # serving: 16 HR grids of the training grid with the statics and a
+    # predictor, at batch 8
+    rng = np.random.default_rng(151)
+    grids = rng.standard_normal((N_GRIDS, TRAIN_HR, TRAIN_HR)).astype(
+        'float32')
+    pred = rng.standard_normal((N_GRIDS, TRAIN_HR, TRAIN_HR, 1)).astype(
+        'float32')
+    kwargs = dict(scale=SCALE, array_in_hr=True,
+                  static_vars=config['static_vars'], predictors=[pred],
+                  batch_size=BATCH)
+    torch.backends.cudnn.allow_tf32 = True
+    y, served, serve_s = _serve_counted(
+        torch, tds, lambda: tds.predict((model, net), grids, **kwargs))
+    want = -(-N_GRIDS // BATCH)
+    print(f'phase 15, convnext_spc predict, {N_GRIDS} HR grids '
+          f'{TRAIN_HR}x{TRAIN_HR} at batch {BATCH}: output {y.shape}, '
+          f'launches {served} (K1 {want} expected, no backward), '
+          f'{N_GRIDS / serve_s:.2f} grids/s end to end (host clock, the '
+          f'first call); {card_line()}', flush=True)
+    if (served['K1'] != want or served['K1 backward']
+            or y.shape != (N_GRIDS, TRAIN_HR, TRAIN_HR, 1)
+            or not np.isfinite(y).all()):
+        fail(f'phase 15: convnext predict launched {served}, output '
+             f'{y.shape}, finite {bool(np.isfinite(y).all())}')
+    torch.backends.cudnn.allow_tf32 = False
+    y32 = tds.predict((model, net), grids, **kwargs)
+    cpu = _served_vs_float64(torch, tds, 'convnext_spc predict', model, net,
+                             grids, kwargs, y32)
+    torch.backends.cudnn.allow_tf32 = True
+    g = numbers['graphed']
+    print(f'phase 15, {label}, batch {CNX_BATCH}: float32 graphed '
+          f'{g["patches_per_s"]:.1f} grids/s, eager '
+          f'{numbers["patches_per_s"]:.1f} (host clock); one replay '
+          f'{g["replay_ms"]:.3f} ms, one eager step {numbers["step_ms"]:.3f} '
+          f'ms (CUDA events), device busy {100 * g["busy_share"]:.1f}%; '
+          f'bfloat16 graphed {bf16["graphed"]["patches_per_s"]:.1f} grids/s; '
+          f'{card_line()}', flush=True)
+    report['state']['convnext'] = dict(
+        gates=rows, launches=got, wrapper_calls=calls,
+        graphs_vs_eager=graphs['max_abs_diff'], bf16=bf16,
+        serve_launches=served, serve_grids_per_s=N_GRIDS / serve_s, **cpu,
+        **numbers)
+
+
+def _mc_serve(torch, tds, label, model, net, grids, kwargs, members,
+              per_member, seed=0, probe=None):
+    """`predict` of an 'mc*' model twice (the same bits), then
+    `predict_mc(n_members=members)` with the launches counted ({counter:
+    n} a member, `per_member`), one seed giving the same bits twice, and
+    the members differing with std > 0 somewhere. With `probe` (a
+    submodule's name) the members are told apart by that submodule's
+    output instead, for a model whose output does not depend on its
+    dropout (an 'ln' model with one output channel: see phase 15 (c)).
+    Returns the numbers."""
+    import numpy as np
+    a, first, _ = _serve_counted(
+        torch, tds, lambda: tds.predict((model, net), grids, SCALE,
+                                        **kwargs))
+    b = tds.predict((model, net), grids, SCALE, **kwargs)
+    if not np.array_equal(a, b):
+        fail(f'phase 15: {label} predict gave other bits the second time')
+    sums = []
+    hook = None if probe is None else net.get_submodule(probe)\
+        .register_forward_hook(lambda m, i, o: sums.append(
+            float(o.double().abs().sum())))
+
+    def ensemble():
+        return tds.predict_mc((model, net), grids, SCALE, n_members=members,
+                              seed=seed, return_members=True, **kwargs)
+    (mean, std, stack), got, seconds = _serve_counted(torch, tds, ensemble)
+    if hook is not None:
+        hook.remove()
+    want = {name: n * members for name, n in per_member.items()}
+    again = ensemble()[2]
+    same_seed = bool(np.array_equal(again, stack))
+    if probe is None:
+        differ = all(not np.array_equal(stack[0], stack[k])
+                     for k in range(1, members))
+    else:
+        # one probe output a batch: member k's are sums[k * per : ...]
+        per = len(sums) // members
+        rows = [tuple(sums[k * per:(k + 1) * per]) for k in range(members)]
+        differ = len(set(rows)) == members
+    spread = float((std > 0).mean())
+    print(f'phase 15, {label}: predict twice the same bits, launches '
+          f'{first}; predict_mc({members} members) output {stack.shape}, '
+          f'launches {got} (expected {want}), members differ {differ}'
+          + (f' (by {probe}\'s output)' if probe else '')
+          + f', std > 0 at {100 * spread:.1f}% of the values (mean std '
+          f'{float(std.mean()):.3e}), the same seed the same bits '
+          f'{same_seed}; {members / seconds:.2f} members/s '
+          f'({members * stack.shape[1] / seconds:.2f} grids/s, host clock); '
+          f'{card_line()}', flush=True)
+    kept = {k: v for k, v in got.items() if v or want.get(k)}
+    if (kept != {k: v for k, v in want.items() if v} or not differ
+            or not (spread > 0 or probe) or not same_seed
+            or not np.isfinite(stack).all()):
+        fail(f'phase 15: {label} predict_mc launched {got}, expected '
+             f'{want}; members differ {differ}, std > 0 at {spread}, '
+             f'same seed same bits {same_seed}')
+    return dict(predict_launches=first, mc_launches=got,
+                members_per_s=members / seconds, std_share=spread,
+                mean_std=float(std.mean()), members_differ=differ)
+
+
+def _state_bn_mc(torch, tds, report):
+    """(b): the flagship with bn, MC dropout and an EMA, trained (the CPU
+    steps on the card's masks, the running statistics compared), replayed
+    against eager, and served as one fixed member and as an ensemble."""
+    import numpy as np
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    config = _state_config('bn_mc')
+    shapes = _gate_inputs(torch, tds, config)
+    if shapes != K1_TRAIN_SHAPES:
+        fail(f'phase 15: the bn flagship step\'s gates are {shapes}, not '
+             f'{K1_TRAIN_SHAPES}')
+    rows = report['k1_train_rows']      # phase 10's, at the same shapes
+    per_step = _flagship_per_step(len(shapes), ssim=False)
+    label = (f'resnet_spc bn + mcdrop {MC_RATE} + EMA {MC_EMA}, n_filters '
+             f'{N_FILTERS}, mae')
+    got, calls, numbers = _drive_training(
+        torch, tds, config, label, TRAIN_STEPS, per_step, FLAG_CPU_BATCH,
+        {'K1 forward': sum(r['ms'] for r in rows),
+         'K1 backward': sum(r['bwd_ms'] for r in rows)}, keep_model=True,
+        f32_yardstick='all', draws=True, retraces=1)
+    model, net = numbers.pop('model')
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    graphs = _graphs_vs_eager(torch, tds, fo, config, label, per_step)
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+    lr_grids = np.random.default_rng(152).standard_normal(
+        (N_GRIDS, LR, LR)).astype('float32')
+    batches = -(-N_GRIDS // BATCH)
+    serve = _mc_serve(torch, tds, f'{label}, {N_GRIDS} LR grids {LR}x{LR} '
+                      f'-> {LR * SCALE}', model, net, lr_grids,
+                      dict(array_in_hr=False, batch_size=BATCH), MC_MEMBERS,
+                      {'K1': len(K1_SHAPES) * batches})
+    report['state']['bn_mc'] = dict(
+        launches=got, wrapper_calls=calls,
+        graphs_vs_eager=graphs['max_abs_diff'], serve=serve, **numbers)
+
+
+def _state_recurrent(torch, tds, report):
+    """(c): recresnet_spc with ln and MC spatial dropout trained as phase 7
+    (the CPU steps on the card's masks) and served as an ensemble. Its
+    output ConvBlock normalizes its one output channel with a layer norm,
+    as the JAX package's does, so the model's output is that norm's bias
+    whatever its input: the members are told apart by the backbone's
+    output, where the ConvLSTM layers (K2) run on the dropped channels."""
+    import numpy as np
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    step = report['k3_step']
+    config = _state_config('recurrent')
+    label = (f'recresnet_spc ln + mcspatialdrop {MC_RATE}, n_filters '
+             f'{N_FILTERS}')
+    got, calls, numbers = _drive_training(
+        torch, tds, config, label, TRAIN_STEPS,
+        _recurrent_per_step(conv, K3_LAYERS), 16,
+        {'K2-train': sum(r['k2_ms'] for r in step),
+         'K3': sum(r['k3_ms'] for r in step)}, keep_model=True,
+        f32_yardstick='all', draws=True, retraces=1)
+    model, net = numbers.pop('model')
+    rec = np.random.default_rng(153).standard_normal(
+        (REC_GRIDS, LR * SCALE, LR * SCALE)).astype('float32')
+    n_windows = REC_GRIDS - REC_T + 1
+    serve = _mc_serve(
+        torch, tds, f'{label}, {REC_GRIDS} HR grids {LR * SCALE}x'
+        f'{LR * SCALE}, time_window {REC_T}', model, net, rec,
+        dict(time_window=REC_T, batch_size=BATCH), REC_MC_MEMBERS,
+        {'K2 inference': len(K2_LAYERS) * REC_T * -(-n_windows // BATCH)},
+        probe='_RecBackbone_0')
+    report['state']['recurrent'] = dict(launches=got, wrapper_calls=calls,
+                                        serve=serve, **numbers)
+
+
+def phase_state(torch, tds, report):
+    """Phase 15: train-mode state, ConvNeXt and the localized layer."""
+    report['state'] = {}
+    _state_convnext(torch, tds, report)
+    _state_bn_mc(torch, tds, report)
+    _state_recurrent(torch, tds, report)
+
+
+def _state_kernel_rows(report):
+    """The `kernels` line's rows of phase 15. Training kernels: `launches`
+    from the phase's device traces, `wrapper_calls` their wrappers'
+    counts; serving: the wrappers' counts of the `predict_mc` runs. Times
+    at shapes an earlier phase timed come from that phase (the bn
+    flagship's gates are phase 10's, the MC serving gates phase 2's, the
+    recurrent layers phases 6 and 4's), the convnext training gate's from
+    phase 15 and its serving gate's from phase 14."""
+    st = report['state']
+    k1 = dict(route='cuda', source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39', bound_by='bytes',
+              library_ms=None)
+
+    def k1_row(name, rows, launches, work, **extra):
+        row = dict(k1, name=name, launches=launches,
+                   max_abs_err=max(r['max_abs_err'] for r in rows),
+                   ms=sum(r['ms'] for r in rows),
+                   plain_ms=sum(r['plain_ms'] for r in rows),
+                   bound_ms=sum(r['bound_ms'] for r in rows), work=work,
+                   **extra)
+        if 'bwd_ms' in rows[0] and 'bwd_launches' in extra:
+            row.update(bwd_ms=sum(r['bwd_ms'] for r in rows),
+                       bwd_plain_ms=sum(r['bwd_plain_ms'] for r in rows),
+                       bwd_bound_ms=sum(r['bwd_bound_ms'] for r in rows))
+        return row
+    cnx, bn, rec = st['convnext'], st['bn_mc'], st['recurrent']
+    f32 = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
+    out = [
+        k1_row('K1_channel_attention_convnext_train', cnx['gates'],
+               cnx['launches']['K1'],
+               f'the output head\'s gate of one float32 convnext_spc '
+               f'(localized layer) training step at batch {CNX_BATCH}, '
+               f'x{cnx["gates"][0]["shape"]}, forward and backward; '
+               f'launches from phase 15\'s device trace',
+               wrapper_calls=cnx['wrapper_calls']['K1'],
+               bwd_launches=cnx['launches']['K1 backward'],
+               bf16_launches=cnx['bf16']['launches']['K1']),
+        k1_row('K1_channel_attention_convnext_serve',
+               report['pin_serve_gates'], cnx['serve_launches']['K1'],
+               f'the output head\'s gate serving convnext_spc at batch '
+               f'{BATCH}, x{report["pin_serve_gates"][0]["shape"]} (phase '
+               f'14\'s pin serving gate, timed there); launches of predict '
+               f'on {N_GRIDS} grids'),
+        k1_row('K1_channel_attention_bn_train', report['k1_train_rows'],
+               bn['launches']['K1'],
+               f'the {len(report["k1_train_rows"])} gates of one float32 '
+               f'training step of the flagship with bn, MC dropout and an '
+               f'EMA at batch {TRAIN_BATCH} (phase 10\'s shapes, timed '
+               f'there), forward and backward; launches from phase 15\'s '
+               f'device trace', wrapper_calls=bn['wrapper_calls']['K1'],
+               bwd_launches=bn['launches']['K1 backward']),
+        k1_row('K1_channel_attention_mc_serve', f32,
+               bn['serve']['mc_launches']['K1'],
+               f'the {len(f32)} gates of one float32 forward at batch '
+               f'{BATCH} (phase 2\'s shapes, timed there); launches of '
+               f'predict_mc with {MC_MEMBERS} members on {N_GRIDS} grids'),
+    ]
+    step = report['k3_step']
+    conv = dict(route='cuda', bound_by='operations', library_ms=None)
+    out.append(dict(
+        conv, name='K2_convlstm_train_ln_dropout',
+        source='dl4ds_tpu_torch/csrc/convlstm.cu',
+        replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+        launches=rec['launches']['K2-train'],
+        wrapper_calls=rec['wrapper_calls']['K2-train'],
+        max_abs_err=max(max(r['ys_cs_zs_err'][:2]) for r in
+                        report['k3_rows'] if 'ys_cs_zs_err' in r),
+        ms=sum(r['k2_ms'] for r in step),
+        plain_ms=sum(r['k2_plain_ms'] for r in step),
+        bound_ms=sum(r['k2_bound_ms'] for r in step),
+        work=f'the {len(step)} ConvLSTM layers of one float32 recresnet_spc '
+             f'training step at batch {TRAIN_BATCH} (phase 6\'s shapes, '
+             f'timed there), under ln and MC spatial dropout; launches '
+             f'from phase 15\'s device trace'))
+    out.append(dict(
+        conv, name='K3_convlstm_bptt_ln_dropout',
+        source='dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+        replaces='dl4ds_tpu/ops/pallas_convlstm.py:335',
+        launches=rec['launches']['K3'],
+        wrapper_calls=rec['wrapper_calls']['K3'],
+        max_abs_err=max(max(v for k, v in r['grad_rel_err'].items()
+                            if k != 'plain_f32') for r in report['k3_rows']),
+        ms=sum(r['k3_ms'] for r in step),
+        plain_ms=sum(r['k3_plain_ms'] for r in step),
+        bound_ms=sum(r['k3_bound_ms'] for r in step),
+        work='the BPTT of the same layers (phase 6\'s timing); launches '
+             'from phase 15\'s device trace'))
+    fwd = report['k2_forward']
+    out.append(dict(
+        conv, name='K2_convlstm_mc_serve',
+        source='dl4ds_tpu_torch/csrc/convlstm.cu',
+        replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+        launches=rec['serve']['mc_launches']['K2 inference'],
+        max_abs_err=max(r['max_abs_err'] for r in report['k2_rows']),
+        ms=sum(r['ms'] for r in fwd),
+        plain_ms=sum(r['plain_ms'] for r in fwd),
+        bound_ms=sum(r['bound_ms'] for r in fwd),
+        work=f'the {len(fwd)} ConvLSTM layers of one float32 forward at '
+             f'batch {BATCH} (phase 4\'s shapes, timed there); launches of '
+             f'predict_mc with {REC_MC_MEMBERS} members on {REC_GRIDS} '
+             f'grids'))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3676,7 +4232,8 @@ def main():
               (6, phase_convlstm_split), (7, phase_training),
               (8, phase_wide_training), (9, phase_ssim),
               (10, phase_flagship_training), (11, phase_graphs),
-              (12, phase_bf16), (13, phase_mos), (14, phase_pin))
+              (12, phase_bf16), (13, phase_mos), (14, phase_pin),
+              (15, phase_state))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -3844,7 +4401,7 @@ def main():
                   f'took {k6_step["autograd_bwd_ms"]:.4f} ms)'}
     kernels = ([k1, k2, k2_train, k3, k4, k1_train, k6]
                + _bf16_kernel_rows(report) + _mos_kernel_rows(report)
-               + _pin_kernel_rows(report))
+               + _pin_kernel_rows(report) + _state_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)

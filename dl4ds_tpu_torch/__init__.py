@@ -9,10 +9,13 @@ with `nvcc` at first use and launched on PyTorch's current stream.
 
 Entry points (`predict`, `SupervisedTrainer`, `compute_metrics`) run on
 the GPU unless the caller passes `device='cpu'`. The spatial models take
-the convnet, resnet and densenet backbones with the sub-pixel, resize or
-transposed-convolution head, or the pre-upsampled input ('pin', `net_pin`
-and the U-Net `unet_pin`). Both of DL4DS's training modes run: PerfectProg
-(HR data alone, coarsened on the device) and MOS (given LR/HR pairs,
+the convnet, resnet, densenet and ConvNeXt backbones with the sub-pixel,
+resize or transposed-convolution head, or the pre-upsampled input
+('pin', `net_pin` and the U-Net `unet_pin`); every model takes batch or
+layer normalization, each dropout variant and the localized output
+layer, and `predict_mc` serves an 'mc*' dropout model as a Monte-Carlo
+ensemble. Both of DL4DS's training modes run: PerfectProg (HR data
+alone, coarsened on the device) and MOS (given LR/HR pairs,
 `data_train_lr=`, served by `predict(array_in_hr=False)`), with season
 channels from time metadata.
 """
@@ -73,8 +76,12 @@ from .preprocessing import MinMaxScaler, StandardScaler
 from .dataloader import BatchSynthesizer, _get_season_, _get_season_array_
 from .models import (DSModel, build_model, net_postupsampling, net_pin,
                      unet_pin, recnet_postupsampling, save_model, load_model)
+from .models.blocks import (Dropout, get_dropout_layer, MCDropout,
+                            MCGaussianDropout, MCSpatialDropout2D,
+                            MCSpatialDropout3D, DropPath, ConvNextBlock,
+                            LocalizedConvBlock, use_dropout_generator)
 from .weights import load_jax_params
-from .inference import Predictor, predict
+from .inference import Predictor, predict, predict_mc
 from .training import SupervisedTrainer
 from .metrics import (compute_rmse, compute_correlation, compute_metrics,
                       crps_ensemble, spread_skill, rank_histogram,

@@ -12,6 +12,11 @@ It then runs the network over the batch in fixed-size batches under
 sample, so every forward has the same shape. It runs on CUDA unless the
 caller passes device='cpu'. Modes not ported yet raise
 NotImplementedError naming their ROADMAP item.
+
+`predict` runs a model with an 'mc*' dropout as one fixed member (each
+dropout draws from a generator seeded 0 afresh, the counterpart of the
+JAX package's `PRNGKey(0)` fallback); `predict_mc` runs an ensemble of
+members, member k drawing from a generator derived from its seed and k.
 """
 
 import os
@@ -19,12 +24,13 @@ import os
 import numpy as np
 import torch
 
+from .models.blocks import use_dropout_generator
 from .dataloader import BatchSynthesizer, _time_coord, season_ids_from_time
 from .interpolation import resize_array
 from .utils import (Timing, checkarray_ndim, not_ported, resolve_device,
                     spatiotemporal_to_spatial_samples, _values)
 
-__all__ = ['Predictor', 'predict']
+__all__ = ['Predictor', 'predict', 'predict_mc']
 
 
 class Predictor:
@@ -221,6 +227,21 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     device = resolve_device(device)
     timing = Timing()
     model, net = _resolve_model(trainer)
+    _check_model_inputs(model, net, time_window, device)
+    x, aux, _ = _assemble_inputs(model, array, scale, array_in_hr,
+                                 static_vars, predictors, time_window,
+                                 interpolation, device, time_metadata)
+    batch_lr = x
+    out_hw = None
+    if pad_to_multiple is not None:
+        x, aux, out_hw = _pad_spatial_to_multiple(x, aux, pad_to_multiple)
+    out = _eval_apply(net, x, aux, batch_size, None)
+    out = _crop_padded(out, x, out_hw)
+    return _finalize_predict(out, batch_lr, time_window, scaler, save_path,
+                             save_fname, return_lr, timing)
+
+
+def _check_model_inputs(model, net, time_window, device):
     is_spatiotemporal = len(model.input_shape) == 4
     if is_spatiotemporal and time_window is None:
         raise ValueError(
@@ -232,25 +253,83 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     if where != {device}:
         raise ValueError(f'the network is on {sorted(map(str, where))}, '
                          f'predict was asked to run on {device}')
-    x, aux, _ = _assemble_inputs(model, array, scale, array_in_hr,
-                                 static_vars, predictors, time_window,
-                                 interpolation, device, time_metadata)
-    batch_lr = x
-    out_hw = None
-    if pad_to_multiple is not None:
-        x, aux, out_hw = _pad_spatial_to_multiple(x, aux, pad_to_multiple)
-    # eval mode, as the JAX package applies training=False
-    # (dl4ds_tpu/inference.py:349-350); the caller's mode comes back after
+
+
+def _eval_apply(net, x, aux, batch_size, generator):
+    """`_batched_apply` of `net` in eval mode, as the JAX package applies
+    training=False (dl4ds_tpu/inference.py:349-350), its dropouts drawing
+    from `generator` (None: an 'mc*' dropout's fixed member); the
+    caller's mode and generators come back after."""
     was_training = net.training
     net.eval()
     try:
-        with torch.inference_mode():
-            out = _batched_apply(net, x, aux, batch_size)
+        with use_dropout_generator(net, generator), torch.inference_mode():
+            return _batched_apply(net, x, aux, batch_size)
     finally:
         net.train(was_training)
-    out = _crop_padded(out, x, out_hw)
-    return _finalize_predict(out, batch_lr, time_window, scaler, save_path,
-                             save_fname, return_lr, timing)
+
+
+# the `predict` options that `predict_mc` takes, as the JAX package's
+# (dl4ds_tpu/inference.py:468-476)
+_MC_OPTIONS = {'array_in_hr', 'static_vars', 'predictors', 'time_window',
+               'time_metadata', 'interpolation', 'batch_size', 'scaler',
+               'pad_to_multiple', 'device'}
+
+
+def predict_mc(trainer, array, scale, n_members=20, seed=0,
+               return_members=False, **kwargs):
+    """Monte-Carlo-dropout ensemble inference
+    (dl4ds_tpu/inference.py:451-507): `predict` n_members times, member k's
+    dropouts drawing from a generator seeded from (`seed`, k), and return
+    (mean, std) over the members, with the [M, N, H, W, C] member stack as
+    a third element with `return_members=True` (the input of
+    `compute_prob_metrics`). The inputs are assembled once; each member
+    is collapsed over `time_window` and inverse-scaled by `scaler` before
+    the statistics. Takes `predict`'s options `array_in_hr`,
+    `static_vars`, `predictors`, `time_window`, `time_metadata`,
+    `interpolation`, `batch_size`, `scaler`, `pad_to_multiple` and
+    `device` (and drops `return_lr`); any other raises TypeError.
+
+    Only a model with an 'mc*' dropout variant draws in eval mode; for any
+    other all members are identical and std is 0. The members' bits are
+    not the JAX package's (torch's Philox stream, not threefry)."""
+    model, net = _resolve_model(trainer)
+    kw = dict(kwargs)
+    kw.pop('return_lr', None)
+    unknown = set(kw) - _MC_OPTIONS
+    if unknown:
+        raise TypeError(
+            f'predict_mc got unsupported predict option(s): '
+            f'{sorted(unknown)} (save_path/mesh/return_lr are predict-only)')
+    device = resolve_device(kw.get('device', 'cuda'))
+    time_window = kw.get('time_window')
+    _check_model_inputs(model, net, time_window, device)
+    x, aux, _ = _assemble_inputs(
+        model, array, scale, kw.get('array_in_hr', True),
+        kw.get('static_vars'), kw.get('predictors'), time_window,
+        kw.get('interpolation', 'inter_area'), device,
+        kw.get('time_metadata'))
+    out_hw = None
+    if kw.get('pad_to_multiple') is not None:
+        x, aux, out_hw = _pad_spatial_to_multiple(x, aux,
+                                                  kw['pad_to_multiple'])
+    scaler = kw.get('scaler')
+    members = []
+    for k in range(n_members):
+        member_seed = int(np.random.SeedSequence((seed, k)).generate_state(
+            1, np.uint64)[0])
+        gen = torch.Generator(device=device).manual_seed(member_seed)
+        out = _eval_apply(net, x, aux, kw.get('batch_size', 64), gen)
+        out = _crop_padded(out, x, out_hw)
+        if out.ndim == 5 and time_window is not None:
+            out = spatiotemporal_to_spatial_samples(out, time_window)
+        if scaler is not None:
+            out = scaler.inverse_transform(out)
+        members.append(out)
+    stack = np.stack(members, axis=0)
+    if return_members:
+        return stack.mean(axis=0), stack.std(axis=0), stack
+    return stack.mean(axis=0), stack.std(axis=0)
 
 
 def _batched_apply(apply, x, aux, batch_size):

@@ -89,13 +89,15 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
                        dtype=torch.float32):
     """Spatial network + post-upsampling head
     (dl4ds_tpu/models/__init__.py:77-104), with the JAX signature: the
-    'convnet', 'resnet' or 'densenet' backbone with the 'spc', 'rc' or 'dc'
-    head, computing in `dtype` float32 or bfloat16 with float32
-    parameters; `rc_interpolation` is read by the 'rc' head alone.
-    `remat=True` recomputes each backbone block's activations in the
-    backward pass (`torch.utils.checkpoint`), as `nn.remat` wraps the
-    blocks in the JAX package. The rest raises NotImplementedError naming
-    its ROADMAP item."""
+    'convnet', 'resnet', 'densenet' or 'convnext' backbone with the 'spc',
+    'rc' or 'dc' head, 'bn' or 'ln' normalization, any dropout variant, the
+    localized output layer on the HR grid lr_size * scale, computing in
+    `dtype` float32 or bfloat16 with float32 parameters;
+    `rc_interpolation` is read by the 'rc' head alone. `remat=True`
+    recomputes each backbone block's activations in the backward pass
+    (`torch.utils.checkpoint`), as `nn.remat` wraps the blocks in the JAX
+    package. Other dtypes raise NotImplementedError naming their ROADMAP
+    item."""
     backbone_block = checkarg_backbone(backbone_block)
     upsampling = checkarg_upsampling(upsampling)
     dropout_variant = checkarg_dropout_variant(dropout_variant)
@@ -118,7 +120,8 @@ def net_postupsampling(backbone_block, upsampling, scale, n_channels,
         attention=attention, activation=activation,
         output_activation=output_activation,
         rc_interpolation=rc_interpolation, localcon_layer=localcon_layer,
-        output_attention=output_attention, remat=remat, dtype=dtype)
+        output_attention=output_attention, remat=remat,
+        hr_size=(int(h_lr * scale), int(w_lr * scale)), dtype=dtype)
     build()   # raise now, not at init, on a configuration not ported yet
     aux_shape = ((int(h_lr * scale), int(w_lr * scale), n_aux_channels)
                  if n_aux_channels > 0 else None)
@@ -133,8 +136,8 @@ def net_pin(backbone_block, n_channels, n_aux_channels, hr_size,
             activation='relu', output_activation=None, localcon_layer=False,
             output_attention=True, remat=False, dtype=torch.float32):
     """Spatial pre-upsampled network (dl4ds_tpu/models/__init__.py:
-    107-125), with the JAX signature: the 'convnet', 'resnet' or
-    'densenet' backbone on the input interpolated to the HR grid
+    107-125), with the JAX signature: the 'convnet', 'resnet', 'densenet'
+    or 'convnext' backbone on the input interpolated to the HR grid
     `hr_size`, named '<backbone>_pin'."""
     backbone_block = checkarg_backbone(backbone_block)
     dropout_variant = checkarg_dropout_variant(dropout_variant)
@@ -148,7 +151,7 @@ def net_pin(backbone_block, n_channels, n_aux_channels, hr_size,
         output_activation=output_activation, localcon_layer=localcon_layer,
         output_attention=output_attention, remat=remat)
     build = functools.partial(NetPIN, n_channels, n_aux_channels,
-                              dtype=dtype, **config)
+                              hr_size=(h_hr, w_hr), dtype=dtype, **config)
     build()   # raise now, not at init, on a configuration not ported yet
     aux_shape = (h_hr, w_hr, n_aux_channels) if n_aux_channels > 0 else None
     return DSModel(build, f'{backbone_block}_pin', (h_hr, w_hr, n_channels),
@@ -182,7 +185,7 @@ def unet_pin(backbone_block, n_channels, n_aux_channels, hr_size,
         output_activation=output_activation, width_cap=width_cap,
         localcon_layer=localcon_layer, output_attention=output_attention)
     build = functools.partial(UnetPIN, n_channels, n_aux_channels,
-                              dtype=dtype, **config)
+                              hr_size=(h_hr, w_hr), dtype=dtype, **config)
     build()   # raise now, not at init, on a configuration not ported yet
     aux_shape = (h_hr, w_hr, n_aux_channels) if n_aux_channels > 0 else None
     return DSModel(build, f'{backbone_block}_pin', (h_hr, w_hr, n_channels),
@@ -199,9 +202,11 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
                           output_attention=True, dtype=torch.float32):
     """Spatio-temporal (ConvLSTM) network + post-upsampling head
     (dl4ds_tpu/models/__init__.py:157-183), named 'rec<backbone>_<ups>':
-    the 'resnet' backbone with the 'spc', 'rc' or 'dc' head in `dtype`
-    float32 or bfloat16 (float32 parameters); the rest raises
-    NotImplementedError naming its ROADMAP item."""
+    the 'resnet' backbone with the 'spc', 'rc' or 'dc' head, 'bn' or 'ln'
+    normalization, any dropout variant and the localized layer, in `dtype`
+    float32 or bfloat16 (float32 parameters); the convnet and densenet
+    merges and other dtypes raise NotImplementedError naming their ROADMAP
+    item."""
     backbone_block = checkarg_backbone(backbone_block)
     upsampling = checkarg_upsampling(upsampling)
     dropout_variant = checkarg_dropout_variant(dropout_variant)
@@ -224,7 +229,8 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
         attention=attention, activation=activation,
         output_activation=output_activation,
         rc_interpolation=rc_interpolation, localcon_layer=localcon_layer,
-        output_attention=output_attention, dtype=dtype)
+        output_attention=output_attention,
+        hr_size=(int(h_lr * scale), int(w_lr * scale)), dtype=dtype)
     build()   # raise now, not at init, on a configuration not ported yet
     aux_shape = ((int(h_lr * scale), int(w_lr * scale), n_aux_channels)
                  if n_aux_channels > 0 else None)
@@ -270,11 +276,13 @@ def save_model(model, net, path):
     """Persist a model as the JAX package's `save_model` does
     (dl4ds_tpu/models/__init__.py:245-282): `model_config.json`, the Flax
     module's class and fields with the input specs, and `variables.pkl`,
-    the pickled {'params': Flax-named tree of numpy arrays} that is the JAX
-    package's own fallback format, so that its `load_model` reads the
-    model too. The config's `dtype` is the model dtype's name ('float32'
-    or 'bfloat16'), as the JAX package writes it."""
-    from ..weights import export_jax_params
+    the pickled {'params': Flax-named tree of numpy arrays} (with
+    'batch_stats', the running statistics, for a model with batch norm)
+    that is the JAX package's own fallback format, so that its
+    `load_model` reads the model too. The config's `dtype` is the model
+    dtype's name ('float32' or 'bfloat16'), as the JAX package writes
+    it."""
+    from ..weights import export_jax_variables
     os.makedirs(path, exist_ok=True)
     meta = {'module_class': model.module_class,
             'config': dict(model.config,
@@ -285,15 +293,15 @@ def save_model(model, net, path):
     with open(os.path.join(path, 'model_config.json'), 'w') as fh:
         json.dump(meta, fh, indent=2)
     with open(os.path.join(path, 'variables.pkl'), 'wb') as fh:
-        pickle.dump({'params': export_jax_params(net)}, fh)
+        pickle.dump(export_jax_variables(net), fh)
 
 
 def load_model(path, device='cuda'):
     """Rebuild a model saved by `save_model` or by the JAX package's
     `save_model` (dl4ds_tpu/models/__init__.py:285-307), from its orbax
     `variables/` directory (read through tensorstore, `_read_orbax_tree`)
-    or its pickle fallback `variables.pkl`; returns (DSModel, nn.Module) on
-    `device`."""
+    or its pickle fallback `variables.pkl`, the `batch_stats` collection
+    too; returns (DSModel, nn.Module) on `device`."""
     from ..weights import load_jax_params
     with open(os.path.join(path, 'model_config.json')) as fh:
         meta = json.load(fh)
@@ -324,8 +332,10 @@ def load_model(path, device='cuda'):
     else:
         with open(os.path.join(path, 'variables.pkl'), 'rb') as fh:
             variables = pickle.load(fh)
-    net = load_jax_params(model.init(0, device=device),
-                          _as_numpy_tree(variables['params']))
+    stats = variables.get('batch_stats')
+    net = load_jax_params(
+        model.init(0, device=device), _as_numpy_tree(variables['params']),
+        None if stats is None else _as_numpy_tree(stats))
     return model, net
 
 

@@ -1,16 +1,20 @@
 """
 Model building blocks (PyTorch, NHWC at every boundary).
 
-Counterparts of `dl4ds_tpu/models/blocks.py` for the convnet, resnet and
-densenet backbones, the three post-upsampling heads (sub-pixel, resize and
-transposed convolutions), the U-Net's encoder and padded concatenation,
-and the ConvLSTM blocks of the spatio-temporal models.
+Counterparts of `dl4ds_tpu/models/blocks.py` for the convnet, resnet,
+densenet and ConvNeXt backbones, the three post-upsampling heads (sub-pixel,
+resize and transposed convolutions), the U-Net's encoder and padded
+concatenation, the localized (per-pixel) output layer, the ConvLSTM blocks
+of the spatio-temporal models, and the train-mode state: batch and layer
+normalization (`_Norm`), every dropout variant and `DropPath`.
 Activations stay [B, H, W, C] ([B, T, H, W, C] through the ConvLSTM layers,
 which run the fused kernel K2 on the GPU): a convolution views its input
 as NCHW with channels-last strides (a permute, no copy), so the gate kernel
 and the pixel shuffle see the JAX package's layout. Submodules carry the
-names of the Flax parameter tree (`Conv_0`, `ChannelAttention2D_0`, ...), so
-`weights.load_jax_params` maps one onto the other by walking both.
+names of the Flax parameter tree (`Conv_0`, `ChannelAttention2D_0`,
+`_Norm_0/BatchNorm_0`, ...), so `weights.load_jax_params` maps one onto the
+other by walking both; a batch norm's running statistics are buffers named
+as the Flax `batch_stats` collection names them (`mean`, `var`).
 
 Parameters are float32 whatever the model dtype, as Flax's `param_dtype`
 keeps them; `dtype` (float32 or bfloat16) is the compute dtype, with the
@@ -20,28 +24,45 @@ and returns it, as a Flax `Conv(dtype=...)` does, the gate returns float32
 blocks add and activate in the promoted dtype, so a bfloat16 model's
 residual stream is float32. `reset_parameters(generator)` draws the Keras
 defaults the JAX package uses: glorot_uniform kernels and zero biases, and
-for ConvLSTM2D an orthogonal recurrent kernel and the unit forget bias.
+for ConvLSTM2D an orthogonal recurrent kernel and the unit forget bias;
+Flax's own defaults where the JAX package keeps them (lecun_normal for the
+ConvNeXt block's `Dense` layers, ones and zeros for a norm's scale and bias,
+running mean 0 and variance 1).
+
+Dropout draws come from an explicit `torch.Generator` that the caller sets
+on the modules (`use_dropout_generator`; the trainer's is seeded from its
+`seed`, `predict_mc`'s from its seed and the member), never from the
+global RNG, through one function, `_dropout_mask`. The semantics are the
+JAX package's; the bits are not, since torch's Philox stream is not JAX's
+threefry. An 'mc*' dropout in eval mode without a generator (`predict`)
+draws from a generator seeded 0 afresh at each call, the counterpart of the
+JAX package's fixed `PRNGKey(0)` mask: one deterministic member, other
+bits than JAX's.
 """
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..interpolation import resize2d
 from ..ops import depth_to_space, fused_channel_attention, fused_convlstm
-from ..utils import not_ported
+from ..utils import checkarg_dropout_variant, not_ported
 
 MODEL_DTYPES = (torch.float32, torch.bfloat16)
 
-__all__ = ['MODEL_DTYPES', 'check_dtype', 'Conv', 'ConvTranspose',
+__all__ = ['MODEL_DTYPES', 'check_dtype', 'Conv', 'ConvTranspose', 'Dense',
            'get_activation', 'ChannelAttention2D', 'ConvBlock',
-           'ResidualBlock', 'DenseBlock', 'TransitionBlock',
-           'SubpixelConvolutionBlock', 'ResizeConvolutionBlock',
-           'DeconvolutionBlock', 'EncoderBlock', 'PadConcat', 'pad_concat',
-           'ConvLSTM2D', 'RecurrentConvBlock']
+           'ResidualBlock', 'DenseBlock', 'TransitionBlock', 'ConvNextBlock',
+           'DropPath', 'LocalizedConvBlock', 'SubpixelConvolutionBlock',
+           'ResizeConvolutionBlock', 'DeconvolutionBlock', 'EncoderBlock',
+           'PadConcat', 'pad_concat', 'ConvLSTM2D', 'RecurrentConvBlock',
+           'Dropout', 'get_dropout_layer', 'MCDropout', 'MCGaussianDropout',
+           'MCSpatialDropout2D', 'MCSpatialDropout3D', 'use_dropout_generator']
 
 
 def _glorot_uniform_(tensor, fan_in, fan_out, generator):
@@ -50,17 +71,337 @@ def _glorot_uniform_(tensor, fan_in, fan_out, generator):
         tensor.uniform_(-limit, limit, generator=generator)
 
 
-def _check_norm(normalization):
-    """Only normalization=None is ported; 'bn' and 'ln' are queued."""
-    if normalization in ('bn', 'ln'):
-        raise not_ported(f'normalization={normalization!r}', 6)
-    if normalization is not None:
-        raise ValueError(f'Normalization not supported, got {normalization}')
+def _lecun_normal_(tensor, fan_in, generator):
+    """Flax's default kernel initializer, `lecun_normal`: a normal of
+    variance 1 / fan_in truncated at two standard deviations."""
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
 
 
-def _check_dropout(dropout_rate):
-    if dropout_rate:
-        raise not_ported('dropout', 6)
+def _rounded(value, dtype):
+    """A Python scalar as JAX's weak typing takes it beside an array of
+    `dtype`: rounded to that dtype first (keep = 0.8 is 0.80078125 in
+    bfloat16). torch would keep it in float32 for a bfloat16 tensor."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _maybe(module, x):
+    return x if module is None else module(x)
+
+
+# ---------------------------------------------------------------------------
+# Dropout, DropPath and their random draws
+# ---------------------------------------------------------------------------
+
+_MC_VARIANTS = ('mcdrop', 'mcgaussiandrop', 'mcspatialdrop')
+
+
+def _dropout_mask(shape, keep, generator, dtype, device, kind='bernoulli'):
+    """The one random draw of a dropout call, from `generator`: 'bernoulli'
+    a bool mask of `shape`, True with probability `keep` (JAX's
+    `random.bernoulli`); 'normal' standard normal noise in `dtype` (the
+    gaussian variants); 'uniform' U[0, 1) in `dtype` (`DropPath`). Tests
+    feed JAX's own draws through it."""
+    if kind == 'normal':
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device)
+    if kind == 'uniform':
+        return torch.rand(shape, generator=generator, dtype=dtype,
+                          device=device)
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+class _Replay:
+    """The dropout draws of one rematerialized block (`remat_call`): its
+    first run, the forward, records each draw; its rerun, the backward's
+    recomputation, returns them in order and updates no running
+    statistics, as Flax's `nn.remat` reruns a block on the same rng keys
+    and discards the rerun's `batch_stats`. The draws are kept beside the
+    checkpoint (a bool mask, or the gaussian noise), since a replayed CUDA
+    graph holds its generator's offset on the device, where no rerun could
+    rewind it."""
+    active = None
+
+    def __init__(self):
+        self.draws = []
+        self.rerun = False
+        self.pos = 0
+
+
+def _draw(shape, keep, generator, dtype, device, kind):
+    tape = _Replay.active
+    if tape is not None and tape.rerun:
+        tape.pos += 1
+        return tape.draws[tape.pos - 1]
+    value = _dropout_mask(shape, keep, generator, dtype, device, kind)
+    if tape is not None:
+        tape.draws.append(value)
+    return value
+
+
+def _updates_running_stats():
+    tape = _Replay.active
+    return tape is None or not tape.rerun
+
+
+def remat_call(block, x):
+    """`block(x)` with its activations recomputed in the backward pass
+    instead of kept (`torch.utils.checkpoint`), its dropout draws replayed
+    and its running statistics updated once (`_Replay`)."""
+    tape = _Replay()
+
+    def run(x):
+        outer, _Replay.active = _Replay.active, tape
+        tape.pos = 0
+        try:
+            return block(x)
+        finally:
+            _Replay.active = outer
+            tape.rerun = True
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
+class _Draws(nn.Module):
+    """A module that draws from `generator`. A copy (deepcopy, pickle)
+    holds no generator until it is given one: a generator is the state of
+    the run that set it, not of the network."""
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state['generator'] = None
+        return state
+
+
+class Dropout(_Draws):
+    """Every dropout variant of the JAX package in one module
+    (dl4ds_tpu/models/blocks.py:85-140). `variant` None/'vanilla' drops
+    single elements, 'gaussian' multiplies by 1 + sqrt(rate / (1 - rate))
+    * N(0, 1) drawn in x's dtype, 'spatial' drops whole channels (the mask
+    broadcast over (H, W), or over (T, H, W) with `dim` 3 on a rank-5
+    input); the 'mc*' variants are the same and stay active in eval mode.
+    Kept values are x / keep, cast back to x's dtype.
+
+    The draws come from `generator` (`use_dropout_generator`). Without one
+    a train-mode call raises, as Flax's `make_rng` does, and an eval-mode
+    'mc*' call draws from a generator seeded 0 afresh at each call: one
+    fixed member, as the JAX package's `PRNGKey(0)` fallback gives one
+    (other bits: torch's Philox stream is not JAX's threefry)."""
+
+    def __init__(self, rate, variant=None, dim=2):
+        super().__init__()
+        self.rate = float(rate)
+        self.variant = checkarg_dropout_variant(variant)
+        self.dim = dim
+        self.generator = None
+
+    def extra_repr(self):
+        return f'rate={self.rate}, variant={self.variant}, dim={self.dim}'
+
+    def forward(self, x):
+        if self.rate <= 0.0:
+            return x
+        if not (self.training or self.variant in _MC_VARIANTS):
+            return x
+        gen = self.generator
+        if gen is None:
+            if self.training:
+                raise ValueError('dropout in train mode draws from an '
+                                 'explicit generator: set one with '
+                                 '`use_dropout_generator`')
+            gen = torch.Generator(device=x.device).manual_seed(0)
+        dtype = x.dtype
+        if self.variant in ('gaussian', 'mcgaussiandrop'):
+            stddev = _rounded((self.rate / (1.0 - self.rate)) ** 0.5, dtype)
+            z = _draw(tuple(x.shape), None, gen, dtype, x.device, 'normal')
+            return x * (1.0 + stddev * z)
+        keep = 1.0 - self.rate
+        shape = list(x.shape)
+        if self.variant in ('spatial', 'mcspatialdrop'):
+            n_bcast = 3 if (self.dim == 3 and x.dim() >= 5) else 2
+            for ax in range(x.dim() - 1 - n_bcast, x.dim() - 1):
+                shape[ax] = 1
+        mask = _draw(tuple(shape), keep, gen, dtype, x.device, 'bernoulli')
+        return torch.where(mask, x / _rounded(keep, dtype), 0.0).to(dtype)
+
+
+def _dropout(rate, variant, dim=2):
+    """A `Dropout`, or None where it would be the identity (rate 0)."""
+    return Dropout(rate, variant, dim) if rate and rate > 0 else None
+
+
+def get_dropout_layer(dropout_rate=0.2, dropout_variant=None, dim=2):
+    """Resolve a dropout variant name to a `Dropout`
+    (dl4ds_tpu/models/blocks.py:143-148)."""
+    return Dropout(dropout_rate, dropout_variant, dim=dim)
+
+
+def MCDropout(rate, **kwargs):
+    """Monte-Carlo dropout, active in eval mode."""
+    return Dropout(rate, variant='mcdrop', **kwargs)
+
+
+def MCGaussianDropout(rate, **kwargs):
+    """Monte-Carlo multiplicative gaussian noise."""
+    return Dropout(rate, variant='mcgaussiandrop', **kwargs)
+
+
+def MCSpatialDropout2D(rate, **kwargs):
+    """Monte-Carlo channel dropout over (H, W)."""
+    return Dropout(rate, variant='mcspatialdrop', dim=2, **kwargs)
+
+
+def MCSpatialDropout3D(rate, **kwargs):
+    """Monte-Carlo channel dropout over (T, H, W)."""
+    return Dropout(rate, variant='mcspatialdrop', dim=3, **kwargs)
+
+
+class DropPath(_Draws):
+    """Per-sample stochastic depth (dl4ds_tpu/models/blocks.py:397-409):
+    in train mode x / keep * floor(keep + U), U ~ U[0, 1) a sample, drawn in
+    x's dtype from `generator`; the identity in eval mode or at rate 0."""
+
+    def __init__(self, drop_prob=0.0):
+        super().__init__()
+        self.drop_prob = float(drop_prob)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.drop_prob == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError('DropPath in train mode draws from an explicit '
+                             'generator: set one with `use_dropout_generator`')
+        keep = _rounded(1.0 - self.drop_prob, x.dtype)
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        u = _draw(shape, None, self.generator, x.dtype, x.device, 'uniform')
+        return x / keep * torch.floor(keep + u)
+
+
+def set_dropout_generator(net, generator):
+    """Point every `Dropout` and `DropPath` of `net` at `generator` (None:
+    the fixed member of an 'mc*' dropout in eval mode). Returns the
+    generators they held."""
+    mods = [m for m in net.modules() if isinstance(m, (Dropout, DropPath))]
+    saved = [m.generator for m in mods]
+    for m in mods:
+        m.generator = generator
+    return saved
+
+
+@contextlib.contextmanager
+def use_dropout_generator(net, generator):
+    """`set_dropout_generator` for the duration of a `with` block."""
+    mods = [m for m in net.modules() if isinstance(m, (Dropout, DropPath))]
+    saved = set_dropout_generator(net, generator)
+    try:
+        yield net
+    finally:
+        for m, gen in zip(mods, saved):
+            m.generator = gen
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def _moments(x, dims, keepdim=False):
+    """Flax's `_compute_stats`: the mean and E[x^2] - mean^2 (clipped at 0)
+    over `dims`, in float32 at least (`force_float32_reductions`,
+    `use_fast_variance`)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dims, keepdim=keepdim)
+    var = (xf * xf).mean(dims, keepdim=keepdim) - mean * mean
+    return mean, var.clamp_min(0.0)
+
+
+class _NormBase(nn.Module):
+    """Scale and bias over the channel axis, as Flax's `_normalize` applies
+    them: (x - mean) * (rsqrt(var + eps) * scale) + bias in float32 at
+    least, returned in the model dtype (bfloat16) or the promoted one."""
+
+    def __init__(self, channels, eps, dtype):
+        super().__init__()
+        self.eps = eps
+        self.dtype = check_dtype(dtype)
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def _normalize(self, x, mean, var):
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.scale)
+        y = y + self.bias
+        return y.to(self.dtype) if self.dtype == torch.bfloat16 else y
+
+
+class BatchNorm(_NormBase):
+    """Flax's `BatchNorm(momentum=0.99, epsilon=1e-3)` over every axis but
+    the channels (dl4ds_tpu/models/blocks.py:166-181). Train mode
+    normalizes with the batch's statistics and moves the running ones, the
+    buffers `mean` and `var` (the `batch_stats` collection), by
+    ra = 0.99 * ra + 0.01 * stat with the biased batch variance, as Flax
+    does (PyTorch's BatchNorm takes the unbiased one); eval mode
+    normalizes with the running statistics."""
+
+    def __init__(self, channels, dtype=torch.float32):
+        super().__init__(channels, 1e-3, dtype)
+        self.register_buffer('mean', torch.zeros(channels))
+        self.register_buffer('var', torch.ones(channels))
+
+    def reset_parameters(self, generator):
+        super().reset_parameters(generator)
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x):
+        if not self.training:
+            return self._normalize(x, self.mean, self.var)
+        mean, var = _moments(x, tuple(range(x.dim() - 1)))
+        if _updates_running_stats():
+            with torch.no_grad():
+                self.mean.copy_(self.mean * 0.99 + mean * (1 - 0.99))
+                self.var.copy_(self.var * 0.99 + var * (1 - 0.99))
+        return self._normalize(x, mean, var)
+
+
+class LayerNorm(_NormBase):
+    """Flax's `LayerNorm` over the channel axis, eps 1e-3 (`_Norm`'s) or
+    1e-6 (`ConvNextBlock`'s)."""
+
+    def __init__(self, channels, eps=1e-3, dtype=torch.float32):
+        super().__init__(channels, eps, dtype)
+
+    def forward(self, x):
+        mean, var = _moments(x, (-1,), keepdim=True)
+        return self._normalize(x, mean, var)
+
+
+class _Norm(nn.Module):
+    """'bn' or 'ln' over the channel axis (dl4ds_tpu/models/blocks.py:
+    166-181), on rank-4 and rank-5 activations, with Flax's tree:
+    `BatchNorm_0` or `LayerNorm_0` (eps 1e-3)."""
+
+    def __init__(self, kind, channels, dtype=torch.float32):
+        super().__init__()
+        if kind == 'bn':
+            self.BatchNorm_0 = BatchNorm(channels, dtype)
+        elif kind == 'ln':
+            self.LayerNorm_0 = LayerNorm(channels, 1e-3, dtype)
+        else:
+            raise ValueError(f'Normalization not supported, got {kind}')
+        self.child = 'BatchNorm_0' if kind == 'bn' else 'LayerNorm_0'
+
+    def forward(self, x):
+        return self._modules[self.child](x)
+
+
+def _norm(kind, channels, dtype):
+    """A `_Norm`, or None for normalization=None."""
+    return None if kind is None else _Norm(kind, channels, dtype)
 
 
 def check_dtype(dtype):
@@ -94,7 +435,9 @@ def get_activation(name):
 class Conv(nn.Module):
     """SAME-padded stride-1 2-D convolution of an NHWC tensor. The kernel is
     held in torch's OIHW layout; odd kernel sizes only (SAME padding is then
-    symmetric). In `dtype` bfloat16 the input, weight and bias are cast to
+    symmetric). `groups` is Flax's `feature_group_count` (the ConvNeXt
+    block's depthwise conv: a Flax kernel [kh, kw, 1, C] is [C, 1, kh, kw]
+    here). In `dtype` bfloat16 the input, weight and bias are cast to
     it and the bias is added after the convolution's rounding, as Flax's
     `Conv` adds it (a bias inside cuDNN's convolution would be added
     before the rounding). cuDNN's bfloat16 convolution accumulates in
@@ -103,7 +446,7 @@ class Conv(nn.Module):
     rounds a few outputs otherwise)."""
 
     def __init__(self, in_channels, filters, kernel_size=(3, 3),
-                 use_bias=True, dtype=torch.float32):
+                 use_bias=True, dtype=torch.float32, groups=1):
         super().__init__()
         self.dtype = check_dtype(dtype)
         kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
@@ -112,7 +455,9 @@ class Conv(nn.Module):
             raise NotImplementedError(
                 f'even kernel {kh}x{kw}: SAME padding would be asymmetric')
         self.padding = (kh // 2, kw // 2)
-        self.weight = nn.Parameter(torch.empty(filters, in_channels, kh, kw))
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.empty(filters, in_channels // groups, kh, kw))
         if use_bias:
             self.bias = nn.Parameter(torch.zeros(filters))
         else:
@@ -126,17 +471,67 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
+        args = dict(padding=self.padding, groups=self.groups)
         if self.dtype == torch.float32:   # (also float64 reference runs)
             y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                         padding=self.padding)
+                         **args)
             return y.permute(0, 2, 3, 1).contiguous()
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
         if x.is_cuda:
-            y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=self.padding)
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, **args)
         else:   # rounded once from float32, as XLA's CPU convolution
             y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float(),
-                         padding=self.padding).to(self.dtype)
+                         **args).to(self.dtype)
         y = y.permute(0, 2, 3, 1).contiguous()
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class _SeparableConv(nn.Module):
+    """Depthwise-separable conv (dl4ds_tpu/models/blocks.py:256-272): a
+    depthwise `Conv_0` without bias, then a 1x1 `Conv_1`."""
+
+    def __init__(self, in_channels, filters, kernel_size=(3, 3),
+                 use_bias=True, dtype=torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(in_channels, in_channels, kernel_size,
+                           use_bias=False, dtype=dtype, groups=in_channels)
+        self.Conv_1 = Conv(in_channels, filters, (1, 1), use_bias=use_bias,
+                           dtype=dtype)
+
+    def forward(self, x):
+        return self.Conv_1(self.Conv_0(x))
+
+
+class Dense(nn.Module):
+    """Flax's `nn.Dense` over the last axis: the kernel held in the Flax
+    layout [in, out] under the leaf name `kernel`, a `bias`, Flax's
+    lecun_normal init. In bfloat16 it is cast as `Conv` casts: the input
+    and kernel in bfloat16 (cuBLAS accumulates in float32 on the card; on
+    the CPU the product is taken in float32 and rounded once), the bias
+    added after the rounding."""
+
+    def __init__(self, in_features, features, use_bias=True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = check_dtype(dtype)
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_parameter('bias', None)
+
+    def reset_parameters(self, generator):
+        _lecun_normal_(self.kernel, self.kernel.shape[0], generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x):
+        if self.dtype == torch.float32:   # (also float64 reference runs)
+            y = x @ self.kernel
+            return y if self.bias is None else y + self.bias
+        x, k = x.to(self.dtype), self.kernel.to(self.dtype)
+        y = x @ k if x.is_cuda else (x.float() @ k.float()).to(self.dtype)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
@@ -252,81 +647,98 @@ class ChannelAttention2D(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Two-conv block (dl4ds_tpu/models/blocks.py:275-312):
-    conv -> act -> conv -> act -> [channel attention]. `attention_time` is
-    the recurrent heads' time window, for the gate's rank-5 quirk."""
+    """Two-conv block (dl4ds_tpu/models/blocks.py:275-312): [dropout] ->
+    conv -> [norm] -> act -> [dropout] -> conv -> [norm] -> act ->
+    [channel attention]; the convs have no bias under a normalization, and
+    are depthwise-separable (`_SeparableConv_0`, `_SeparableConv_1`) with
+    `depthwise_separable`. `attention_time` is the recurrent heads' time
+    window, for the gate's rank-5 quirk."""
 
     def __init__(self, in_channels, filters, ks_cl1=(3, 3), ks_cl2=(3, 3),
                  activation='relu', normalization=None, attention=False,
-                 attention_time=None, dropout_rate=0.0, dtype=torch.float32):
+                 attention_time=None, dropout_rate=0.0, dropout_variant=None,
+                 depthwise_separable=False, dtype=torch.float32):
         super().__init__()
-        _check_norm(normalization)
-        _check_dropout(dropout_rate)
         self.act = get_activation(activation)
-        self.Conv_0 = Conv(in_channels, filters, ks_cl1, dtype=dtype)
-        self.Conv_1 = Conv(filters, filters, ks_cl2, dtype=dtype)
+        use_bias = normalization is None
+        conv, kind = ((_SeparableConv, '_SeparableConv')
+                      if depthwise_separable else (Conv, 'Conv'))
+        self.convs = (f'{kind}_0', f'{kind}_1')
+        self.add_module(self.convs[0], conv(in_channels, filters, ks_cl1,
+                                            use_bias=use_bias, dtype=dtype))
+        self.add_module(self.convs[1], conv(filters, filters, ks_cl2,
+                                            use_bias=use_bias, dtype=dtype))
+        self._Norm_0 = _norm(normalization, filters, dtype)
+        self._Norm_1 = _norm(normalization, filters, dtype)
+        self.Dropout_0 = _dropout(dropout_rate, dropout_variant)
+        self.Dropout_1 = _dropout(dropout_rate, dropout_variant)
         self.ChannelAttention2D_0 = (
             ChannelAttention2D(filters, filters, time_window=attention_time)
             if attention else None)
 
     def forward(self, x):
-        y = self.act(self.Conv_0(x))
-        y = self.act(self.Conv_1(y))
-        if self.ChannelAttention2D_0 is not None:
-            y = self.ChannelAttention2D_0(y)
-        return y
+        y = self._modules[self.convs[0]](_maybe(self.Dropout_0, x))
+        y = self.act(_maybe(self._Norm_0, y))
+        y = self._modules[self.convs[1]](_maybe(self.Dropout_1, y))
+        y = self.act(_maybe(self._Norm_1, y))
+        return _maybe(self.ChannelAttention2D_0, y)
 
 
 class ResidualBlock(nn.Module):
-    """Residual block (dl4ds_tpu/models/blocks.py:315-346): conv -> act ->
-    conv -> [attention] -> add the input ([1x1 conv] first) -> act. The gate
-    comes before the residual add."""
+    """Residual block (dl4ds_tpu/models/blocks.py:315-346): [dropout] ->
+    conv -> [norm] -> act -> [dropout] -> conv -> [norm] -> [attention] ->
+    add the input ([1x1 conv] first) -> act. The gate comes before the
+    residual add; the two convs have no bias under a normalization."""
 
     def __init__(self, in_channels, filters, activation='relu',
                  normalization=None, attention=False, dropout_rate=0.0,
-                 use_1x1conv=False, dtype=torch.float32):
+                 dropout_variant=None, use_1x1conv=False,
+                 dtype=torch.float32):
         super().__init__()
-        _check_norm(normalization)
-        _check_dropout(dropout_rate)
         self.act = get_activation(activation)
-        self.Conv_0 = Conv(in_channels, filters, (3, 3), dtype=dtype)
-        self.Conv_1 = Conv(filters, filters, (3, 3), dtype=dtype)
+        use_bias = normalization is None
+        self.Conv_0 = Conv(in_channels, filters, (3, 3), use_bias, dtype)
+        self.Conv_1 = Conv(filters, filters, (3, 3), use_bias, dtype)
+        self._Norm_0 = _norm(normalization, filters, dtype)
+        self._Norm_1 = _norm(normalization, filters, dtype)
+        self.Dropout_0 = _dropout(dropout_rate, dropout_variant)
+        self.Dropout_1 = _dropout(dropout_rate, dropout_variant)
         self.ChannelAttention2D_0 = (ChannelAttention2D(filters, filters)
                                      if attention else None)
         self.Conv_2 = (Conv(in_channels, filters, (1, 1), dtype=dtype)
                        if use_1x1conv else None)
 
     def forward(self, x):
-        y = self.act(self.Conv_0(x))
-        y = self.Conv_1(y)
-        if self.ChannelAttention2D_0 is not None:
-            y = self.ChannelAttention2D_0(y)
-        if self.Conv_2 is not None:
-            x = self.Conv_2(x)
-        return self.act(y + x)
+        y = self.Conv_0(_maybe(self.Dropout_0, x))
+        y = self.act(_maybe(self._Norm_0, y))
+        y = self.Conv_1(_maybe(self.Dropout_1, y))
+        y = _maybe(self.ChannelAttention2D_0, _maybe(self._Norm_1, y))
+        return self.act(y + _maybe(self.Conv_2, x))
 
 
 class DenseBlock(nn.Module):
     """DenseNet-style block (dl4ds_tpu/models/blocks.py:349-375): a 1x1
-    conv to 4 * filters -> act -> a 3x3 conv to filters -> [attention],
-    concatenated before the input: in_channels + filters channels out."""
+    conv to 4 * filters -> [norm] -> act -> [dropout] -> a 3x3 conv to
+    filters -> [attention], concatenated before the input: in_channels +
+    filters channels out. Its convs keep their bias under a normalization,
+    as the JAX block's do."""
 
     def __init__(self, in_channels, filters, activation='relu',
                  normalization=None, attention=False, dropout_rate=0.0,
-                 dtype=torch.float32):
+                 dropout_variant=None, dtype=torch.float32):
         super().__init__()
-        _check_norm(normalization)
-        _check_dropout(dropout_rate)
         self.act = get_activation(activation)
         self.Conv_0 = Conv(in_channels, 4 * filters, (1, 1), dtype=dtype)
+        self._Norm_0 = _norm(normalization, 4 * filters, dtype)
+        self.Dropout_0 = _dropout(dropout_rate, dropout_variant)
         self.Conv_1 = Conv(4 * filters, filters, (3, 3), dtype=dtype)
         self.ChannelAttention2D_0 = (ChannelAttention2D(filters, filters)
                                      if attention else None)
 
     def forward(self, x):
-        y = self.Conv_1(self.act(self.Conv_0(x)))
-        if self.ChannelAttention2D_0 is not None:
-            y = self.ChannelAttention2D_0(y)
+        y = self.act(_maybe(self._Norm_0, self.Conv_0(x)))
+        y = self.Conv_1(_maybe(self.Dropout_0, y))
+        y = _maybe(self.ChannelAttention2D_0, y)
         # torch.cat promotes a float32 gate output against a bfloat16 input,
         # as jnp.concatenate does
         return torch.cat([y, x], dim=-1)
@@ -334,17 +746,116 @@ class DenseBlock(nn.Module):
 
 class TransitionBlock(nn.Module):
     """1x1-conv channel controller (dl4ds_tpu/models/blocks.py:378-394):
-    conv -> act."""
+    with 'bn' bn -> act -> conv, otherwise conv -> act."""
 
     def __init__(self, in_channels, filters, activation='relu',
                  normalization=None, dtype=torch.float32):
         super().__init__()
-        _check_norm(normalization)
         self.act = get_activation(activation)
+        self._Norm_0 = (_Norm('bn', in_channels, dtype)
+                        if normalization == 'bn' else None)
         self.Conv_0 = Conv(in_channels, filters, (1, 1), dtype=dtype)
 
     def forward(self, x):
+        if self._Norm_0 is not None:
+            return self.Conv_0(self.act(self._Norm_0(x)))
         return self.act(self.Conv_0(x))
+
+
+class ConvNextBlock(nn.Module):
+    """ConvNeXt block (dl4ds_tpu/models/blocks.py:412-449): a 7x7 depthwise
+    conv -> LayerNorm (eps 1e-6; `_Norm_0` bn with normalization 'bn') ->
+    `Dense` to 4 * filters -> act -> `Dense` to filters -> [layer-scale
+    `gamma`, with `layer_scale_init_value` > 0] -> `DropPath`, added to the
+    input ([1x1 conv] first with `use_1x1conv`)."""
+
+    def __init__(self, in_channels, filters, drop_path=0.0,
+                 layer_scale_init_value=0.0, use_1x1conv=False,
+                 activation='gelu', normalization='ln', dtype=torch.float32):
+        super().__init__()
+        self.act = get_activation(activation)
+        self.layer_scale_init_value = layer_scale_init_value
+        self.Conv_0 = Conv(in_channels, in_channels, (7, 7), dtype=dtype,
+                           groups=in_channels)
+        if (normalization or 'ln') == 'bn':
+            self._Norm_0 = _Norm('bn', in_channels, dtype)
+        else:
+            self.LayerNorm_0 = LayerNorm(in_channels, 1e-6, dtype)
+        self.norm = '_Norm_0' if normalization == 'bn' else 'LayerNorm_0'
+        self.Dense_0 = Dense(in_channels, 4 * filters, dtype=dtype)
+        self.Dense_1 = Dense(4 * filters, filters, dtype=dtype)
+        if layer_scale_init_value > 0:
+            self.gamma = nn.Parameter(
+                torch.full((filters,), float(layer_scale_init_value)))
+        else:
+            self.register_parameter('gamma', None)
+        self.Conv_1 = (Conv(in_channels, filters, (1, 1), dtype=dtype)
+                       if use_1x1conv else None)
+        self.DropPath_0 = DropPath(drop_path)
+
+    def reset_parameters(self, generator):
+        if self.gamma is not None:
+            with torch.no_grad():
+                self.gamma.fill_(self.layer_scale_init_value)
+
+    def forward(self, x):
+        y = self._modules[self.norm](self.Conv_0(x))
+        y = self.Dense_1(self.act(self.Dense_0(y)))
+        if self.gamma is not None:
+            y = self.gamma.to(y.dtype) * y
+        return _maybe(self.Conv_1, x) + self.DropPath_0(y)
+
+
+class LocalizedConvBlock(nn.Module):
+    """Location-specific weights (dl4ds_tpu/models/blocks.py:452-481): a
+    `TransitionBlock` to `filters` channels, then a per-pixel 1x1 layer,
+    out[..., h, w, f] = sum_c y[..., h, w, c] local_kernel[h, w, c, f] +
+    local_bias[h, w, f], with [H, W, filters, filters] weights, glorot per
+    position. The weights fix the grid `grid` (H, W), as in the JAX
+    package: training and serving use the same HR grid. The JAX package
+    contracts at `precision=HIGHEST` outside any kernel; here the
+    products and their sum over the `filters` input channels are float32
+    element-wise arithmetic, TF32 nowhere (in bfloat16: y and the kernel
+    rounded to bfloat16, the float32 sum rounded once, the bias added
+    after)."""
+
+    def __init__(self, in_channels, grid, filters=2, activation=None,
+                 use_bias=True, dtype=torch.float32):
+        super().__init__()
+        self.dtype = check_dtype(dtype)
+        self.grid = tuple(grid)
+        self.act = get_activation(activation)
+        self.TransitionBlock_0 = TransitionBlock(in_channels, filters,
+                                                 dtype=dtype)
+        h, w = self.grid
+        self.local_kernel = nn.Parameter(torch.empty(h, w, filters, filters))
+        if use_bias:
+            self.local_bias = nn.Parameter(torch.zeros(h, w, filters))
+        else:
+            self.register_parameter('local_bias', None)
+
+    def reset_parameters(self, generator):
+        *_, cin, f = self.local_kernel.shape
+        _glorot_uniform_(self.local_kernel, cin, f, generator)
+        if self.local_bias is not None:
+            with torch.no_grad():
+                self.local_bias.zero_()
+
+    def forward(self, x):
+        y = self.TransitionBlock_0(x)
+        if tuple(y.shape[-3:-1]) != self.grid:
+            raise ValueError(f'the localized layer was built for the grid '
+                             f'{self.grid}, got {tuple(y.shape[-3:-1])}')
+        k = self.local_kernel
+        if self.dtype == torch.bfloat16:
+            k = k.to(self.dtype).float()
+            out = (y.to(self.dtype).float().unsqueeze(-1) * k).sum(-2)
+            out = out.to(self.dtype)
+        else:
+            out = (y.unsqueeze(-1) * k.to(y.dtype)).sum(-2)
+        if self.local_bias is not None:
+            out = out + self.local_bias.to(out.dtype)
+        return self.act(out)
 
 
 class SubpixelConvolutionBlock(nn.Module):
@@ -466,13 +977,14 @@ class EncoderBlock(nn.Module):
     then a 2x2 max-pool; returns (downsampled, skip)."""
 
     def __init__(self, in_channels, n_filters, activation=None,
-                 dropout_rate=0.0, normalization=None, attention=False,
-                 dtype=torch.float32):
+                 dropout_rate=0.0, dropout_variant=None, normalization=None,
+                 attention=False, dtype=torch.float32):
         super().__init__()
         self.ConvBlock_0 = ConvBlock(
             in_channels, n_filters, activation=activation,
             normalization=normalization, attention=attention,
-            dropout_rate=dropout_rate, dtype=dtype)
+            dropout_rate=dropout_rate, dropout_variant=dropout_variant,
+            dtype=dtype)
 
     def forward(self, x):
         y = self.ConvBlock_0(x)
@@ -570,18 +1082,25 @@ class ConvLSTM2D(nn.Module):
 
 
 class RecurrentConvBlock(nn.Module):
-    """Two stacked ConvLSTM layers (dl4ds_tpu/models/blocks.py:654-678): a
-    ks_cl1 ConvLSTM -> act -> a ks_cl2 ConvLSTM -> act, on [B, T, H, W, C]."""
+    """Two stacked ConvLSTM layers (dl4ds_tpu/models/blocks.py:654-678) on
+    [B, T, H, W, C]: [dropout] -> a ks_cl1 ConvLSTM -> [norm] -> act ->
+    [dropout] -> a ks_cl2 ConvLSTM -> [norm] -> act, the dropouts with
+    `dim` 3 (a spatial variant drops a channel over (T, H, W))."""
 
     def __init__(self, in_channels, filters, ks_cl1=(5, 5), ks_cl2=(3, 3),
                  activation='relu', normalization=None, dropout_rate=0.0,
-                 dtype=torch.float32):
+                 dropout_variant=None, dtype=torch.float32):
         super().__init__()
-        _check_norm(normalization)
-        _check_dropout(dropout_rate)
         self.act = get_activation(activation)
+        self.Dropout_0 = _dropout(dropout_rate, dropout_variant, dim=3)
         self.ConvLSTM2D_0 = ConvLSTM2D(in_channels, filters, ks_cl1, dtype)
+        self._Norm_0 = _norm(normalization, filters, dtype)
+        self.Dropout_1 = _dropout(dropout_rate, dropout_variant, dim=3)
         self.ConvLSTM2D_1 = ConvLSTM2D(filters, filters, ks_cl2, dtype)
+        self._Norm_1 = _norm(normalization, filters, dtype)
 
     def forward(self, x):
-        return self.act(self.ConvLSTM2D_1(self.act(self.ConvLSTM2D_0(x))))
+        y = self.ConvLSTM2D_0(_maybe(self.Dropout_0, x))
+        y = self.act(_maybe(self._Norm_0, y))
+        y = self.ConvLSTM2D_1(_maybe(self.Dropout_1, y))
+        return self.act(_maybe(self._Norm_1, y))

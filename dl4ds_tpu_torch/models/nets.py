@@ -2,64 +2,74 @@
 Network architectures (PyTorch, NHWC at every boundary).
 
 Counterparts of `dl4ds_tpu/models/nets.py`: the post-upsampling models
-with the convnet, resnet or densenet backbone and the sub-pixel ('spc'),
-resize ('rc') or transposed-convolution ('dc') head; the pre-upsampled
-models `NetPIN` and `UnetPIN`; and the spatio-temporal (ConvLSTM) model
-with the resnet merge and any of the three heads. Submodule names follow
-the Flax parameter tree (`_Backbone_0`, `ResidualBlock1`, `DenseBlock1`,
-`EncoderBlock1`, `RecurrentConvBlock1`, ...), and the input channels of
-every module are counted here, where Flax infers them. The other
-backbones raise until they are ported. `dtype` (float32 or bfloat16) is
-threaded through every module, as the JAX package threads it; parameters
-stay float32.
+with the convnet, resnet, densenet or ConvNeXt backbone and the sub-pixel
+('spc'), resize ('rc') or transposed-convolution ('dc') head; the
+pre-upsampled models `NetPIN` and `UnetPIN`; and the spatio-temporal
+(ConvLSTM) model with the resnet merge and any of the three heads. Every
+model takes the JAX package's normalization ('bn', 'ln'), dropout (rate
+and variant, at the JAX package's places) and localized output layer
+(`localcon_layer`, whose weights fix the HR grid `hr_size`). Submodule
+names follow the Flax parameter tree (`_Backbone_0`, `ResidualBlock1`,
+`ConvNextBlock1`, `DenseBlock1`, `EncoderBlock1`, `RecurrentConvBlock1`,
+`LocalizedConvBlock_0`, ...), and the input channels of every module are
+counted here, where Flax infers them. The recurrent convnet and densenet
+merges and the pre-upsampled recurrent model raise until they are ported.
+`dtype` (float32 or bfloat16) is threaded through every module, as the JAX
+package threads it; parameters stay float32.
 """
 
 import warnings
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
 
 from ..utils import not_ported
 from .blocks import (Conv, ConvBlock, ResidualBlock, DenseBlock,
-                     TransitionBlock, SubpixelConvolutionBlock,
-                     ResizeConvolutionBlock, DeconvolutionBlock,
-                     EncoderBlock, RecurrentConvBlock, get_activation,
-                     pad_concat, _check_dropout, check_dtype)
+                     TransitionBlock, ConvNextBlock, LocalizedConvBlock,
+                     SubpixelConvolutionBlock, ResizeConvolutionBlock,
+                     DeconvolutionBlock, EncoderBlock, RecurrentConvBlock,
+                     get_activation, pad_concat, check_dtype, remat_call,
+                     _dropout, _maybe)
 
 __all__ = ['NetPostupsampling', 'NetPIN', 'UnetPIN', 'RecNetPostupsampling',
            '_check_nblocks']
 
 
 class _Backbone(nn.Module):
-    """Stem conv + N blocks with filters growing as i * n_filters, then the
-    out conv and the backbone's merge with the stem
+    """Stem conv + N blocks with filters growing as i * n_filters
     (dl4ds_tpu/models/nets.py:32-119): convnet `ConvBlock{i}`s and no
     merge; resnet `ResidualBlock{i}`s and `TransitionBlock_0(stem) + b`;
     densenet `DenseBlock{i}`s (each adding its filters to the channels),
     each followed by `Transition{i}` to half the channels, and
-    `TransitionBackboneLast` over concat([stem, b]). With `remat` each
-    block's activations (not the transitions') are recomputed in the
-    backward pass instead of kept, as `nn.remat` wraps the blocks there.
-    `n_filters` is the width it returns."""
+    `TransitionBackboneLast` over concat([stem, b]); for these three the
+    blocks take the dropout and normalization, and the out conv, its
+    activation and a dropout follow them. ConvNeXt: a 7x7 stem,
+    `ConvNextBlock{i}`s (a 1x1 residual conv from the second on), and
+    `TransitionBlock_0(stem) + b`, without out conv or dropout. With
+    `remat` each block's activations (not the transitions') are recomputed
+    in the backward pass instead of kept, as `nn.remat` wraps the blocks
+    there, its dropout masks replayed and its running statistics moved
+    once (`remat_call`). `n_filters` is the width it returns."""
 
     def __init__(self, in_channels, backbone, n_filters, n_blocks,
                  activation='relu', normalization=None, attention=False,
-                 dropout_rate=0.0, remat=False, dtype=torch.float32):
+                 dropout_rate=0.0, dropout_variant=None, remat=False,
+                 dtype=torch.float32):
         super().__init__()
-        if backbone == 'convnext':
-            raise not_ported(f'backbone {backbone!r}', 6)
-        if backbone not in ('convnet', 'resnet', 'densenet'):
+        if backbone not in ('convnet', 'resnet', 'densenet', 'convnext'):
             raise ValueError(f'unsupported backbone {backbone}')
-        _check_dropout(dropout_rate)
         f0 = n_filters
         self.backbone = backbone
         self.remat = remat
         self.act = get_activation(activation)
-        self.stem = Conv(in_channels, f0, (3, 3), dtype=dtype)
+        ks = (7, 7) if backbone == 'convnext' else (3, 3)
+        self.stem = Conv(in_channels, f0, ks, dtype=dtype)
         self.n_blocks = n_blocks
         block_args = dict(activation=activation, normalization=normalization,
-                          attention=attention, dtype=dtype)
+                          dtype=dtype)
+        if backbone != 'convnext':
+            block_args.update(attention=attention, dropout_rate=dropout_rate,
+                              dropout_variant=dropout_variant)
         c_in = filters = f0
         for i in range(n_blocks):
             filters = f0 * (i + 1)
@@ -71,6 +81,11 @@ class _Backbone(nn.Module):
                 self.add_module(f'ResidualBlock{i + 1}', ResidualBlock(
                     c_in, filters, use_1x1conv=(i != 0), **block_args))
                 c_in = filters
+            elif backbone == 'convnext':
+                self.add_module(f'ConvNextBlock{i + 1}', ConvNextBlock(
+                    c_in, filters, drop_path=0.0, use_1x1conv=(i != 0),
+                    **block_args))
+                c_in = filters
             else:
                 self.add_module(f'DenseBlock{i + 1}', DenseBlock(
                     c_in, filters, **block_args))
@@ -79,8 +94,10 @@ class _Backbone(nn.Module):
                     c_in + filters, (c_in + filters) // 2, dtype=dtype))
                 c_in = (c_in + filters) // 2
         self.n_filters = filters
-        self.backbone_out_conv = Conv(c_in, filters, (3, 3), dtype=dtype)
-        if backbone == 'resnet':
+        if backbone != 'convnext':
+            self.backbone_out_conv = Conv(c_in, filters, (3, 3), dtype=dtype)
+            self.Dropout_0 = _dropout(dropout_rate, dropout_variant)
+        if backbone in ('resnet', 'convnext'):
             self.TransitionBlock_0 = TransitionBlock(
                 f0, filters, activation=activation, dtype=dtype)
         elif backbone == 'densenet':
@@ -91,18 +108,19 @@ class _Backbone(nn.Module):
         stem = self.stem(x)
         b = stem
         kind = {'convnet': 'ConvBlock', 'resnet': 'ResidualBlock',
-                'densenet': 'DenseBlock'}[self.backbone]
+                'densenet': 'DenseBlock',
+                'convnext': 'ConvNextBlock'}[self.backbone]
         for i in range(self.n_blocks):
             block = self._modules[f'{kind}{i + 1}']
             if self.remat and torch.is_grad_enabled():
-                # the models draw no random numbers: no RNG state to keep
-                b = checkpoint(block, b, use_reentrant=False,
-                               preserve_rng_state=False)
+                b = remat_call(block, b)
             else:
                 b = block(b)
             if self.backbone == 'densenet':
                 b = self._modules[f'Transition{i + 1}'](b)
-        b = self.act(self.backbone_out_conv(b))
+        if self.backbone == 'convnext':
+            return self.TransitionBlock_0(stem) + b
+        b = _maybe(self.Dropout_0, self.act(self.backbone_out_conv(b)))
         if self.backbone == 'resnet':
             return self.TransitionBlock_0(stem) + b
         if self.backbone == 'densenet':
@@ -112,19 +130,23 @@ class _Backbone(nn.Module):
 
 class _OutputModule(nn.Module):
     """Transition -> ConvBlock(attention) -> ConvBlock(n_channels_out)
-    (dl4ds_tpu/models/nets.py:122-149). The first ConvBlock has no
-    activation."""
+    (dl4ds_tpu/models/nets.py:122-149), their convs `ks` (7x7 behind the
+    ConvNeXt backbone). The first ConvBlock has no activation and takes
+    the model's dropout rate with the vanilla variant: the JAX module
+    passes it no variant."""
 
-    def __init__(self, in_channels, n_filters, n_channels_out,
-                 output_activation=None, normalization=None, attention=True,
-                 dtype=torch.float32):
+    def __init__(self, in_channels, n_filters, n_channels_out, ks=(3, 3),
+                 output_activation=None, normalization=None, dropout_rate=0.0,
+                 attention=True, dtype=torch.float32):
         super().__init__()
         self.TransitionLast = TransitionBlock(in_channels, n_filters,
                                               dtype=dtype)
-        self.ConvBlock_0 = ConvBlock(n_filters, n_filters, activation=None,
+        self.ConvBlock_0 = ConvBlock(n_filters, n_filters, ks, ks,
+                                     activation=None,
                                      normalization=normalization,
-                                     attention=attention, dtype=dtype)
-        self.ConvBlock_1 = ConvBlock(n_filters, n_channels_out,
+                                     attention=attention,
+                                     dropout_rate=dropout_rate, dtype=dtype)
+        self.ConvBlock_1 = ConvBlock(n_filters, n_channels_out, ks, ks,
                                      activation=output_activation,
                                      normalization=normalization, dtype=dtype)
 
@@ -133,19 +155,46 @@ class _OutputModule(nn.Module):
 
 
 class _AuxBranch(nn.Module):
-    """ConvBlock over the HR auxiliary input
-    (dl4ds_tpu/models/nets.py:152-172)."""
+    """The HR auxiliary input's branch (dl4ds_tpu/models/nets.py:152-172):
+    `ConvBlock_aux`, or behind the ConvNeXt backbone `ConvNextBlock_aux`
+    (with its 1x1 residual conv)."""
 
-    def __init__(self, in_channels, n_filters, activation='relu',
+    def __init__(self, in_channels, backbone, n_filters, activation='relu',
                  normalization=None, dtype=torch.float32):
         super().__init__()
-        self.ConvBlock_aux = ConvBlock(in_channels, n_filters,
-                                       activation=activation,
-                                       normalization=normalization,
-                                       dtype=dtype)
+        if backbone == 'convnext':
+            self.block = 'ConvNextBlock_aux'
+            self.ConvNextBlock_aux = ConvNextBlock(
+                in_channels, n_filters, drop_path=0.0, use_1x1conv=True,
+                activation=activation, normalization=normalization,
+                dtype=dtype)
+        else:
+            self.block = 'ConvBlock_aux'
+            self.ConvBlock_aux = ConvBlock(in_channels, n_filters,
+                                           activation=activation,
+                                           normalization=normalization,
+                                           dtype=dtype)
 
     def forward(self, s):
-        return self.ConvBlock_aux(s)
+        return self._modules[self.block](s)
+
+
+def _localcon(model, localcon_layer, in_channels, grid, dtype):
+    """Add `LocalizedConvBlock_0` (2 channels, on the HR `grid`) to `model`
+    with `localcon_layer`; returns the channels it adds."""
+    if not localcon_layer:
+        return 0
+    if grid is None:
+        raise ValueError('localcon_layer needs the HR grid `hr_size`: its '
+                         'weights are per pixel')
+    model.LocalizedConvBlock_0 = LocalizedConvBlock(in_channels, grid, 2,
+                                                    dtype=dtype)
+    return 2
+
+
+def _with_localcon(model, x):
+    lcb = model._modules.get('LocalizedConvBlock_0')
+    return x if lcb is None else torch.cat([x, lcb(x)], dim=-1)
 
 
 def _check_aux(n_aux_channels, aux):
@@ -190,40 +239,47 @@ class NetPostupsampling(nn.Module):
     (dl4ds_tpu/models/nets.py:175-232). Input [B, h, w, C] at LR and an
     optional HR aux [B, h*scale, w*scale, A]; output
     [B, h*scale, w*scale, n_channels_out]. Heads 'spc', 'rc' (resized with
-    `rc_interpolation`) and 'dc'."""
+    `rc_interpolation`) and 'dc'; with `localcon_layer` the localized
+    layer's 2 channels (on the HR grid `hr_size`) join the head's output
+    before the aux branch's."""
 
     def __init__(self, n_channels, n_aux_channels, backbone, upsampling,
                  scale, n_channels_out=1, n_filters=8, n_blocks=6,
                  normalization=None, dropout_rate=0.0, dropout_variant=None,
                  attention=False, activation='relu', output_activation=None,
                  rc_interpolation='bilinear', localcon_layer=False,
-                 output_attention=True, remat=False, dtype=torch.float32):
+                 output_attention=True, remat=False, hr_size=None,
+                 dtype=torch.float32):
         super().__init__()
-        if localcon_layer:
-            raise not_ported('localcon_layer', 6)
-        _check_dropout(dropout_rate)
         check_dtype(dtype)
         self._Backbone_0 = _Backbone(n_channels, backbone, n_filters,
                                      n_blocks, activation, normalization,
-                                     attention, remat=remat, dtype=dtype)
+                                     attention, dropout_rate,
+                                     dropout_variant, remat=remat,
+                                     dtype=dtype)
         width = self._Backbone_0.n_filters
         self.head = _attach_head(self, upsampling, scale, width,
                                  rc_interpolation, activation,
                                  transition_dc=n_filters, dtype=dtype)
+        c_out = width + _localcon(self, localcon_layer, width, hr_size, dtype)
         self.n_aux_channels = n_aux_channels
         if n_aux_channels > 0:
-            self._AuxBranch_0 = _AuxBranch(n_aux_channels, width, activation,
-                                           normalization, dtype=dtype)
+            self._AuxBranch_0 = _AuxBranch(n_aux_channels, backbone, width,
+                                           activation, normalization,
+                                           dtype=dtype)
+            c_out += width
+        ks = (7, 7) if backbone == 'convnext' else (3, 3)
         self._OutputModule_0 = _OutputModule(
-            width * (2 if n_aux_channels > 0 else 1), n_filters,
-            n_channels_out, output_activation, normalization,
-            attention=output_attention, dtype=dtype)
+            c_out, n_filters, n_channels_out, ks, output_activation,
+            normalization, dropout_rate, attention=output_attention,
+            dtype=dtype)
 
     def forward(self, x, aux=None):
         _check_aux(self.n_aux_channels, aux)
         x = self._Backbone_0(x)
         for name in self.head:
             x = self._modules[name](x)
+        x = _with_localcon(self, x)
         if aux is not None:
             x = torch.cat([x, self._AuxBranch_0(aux)], dim=-1)
         return self._OutputModule_0(x)
@@ -232,36 +288,39 @@ class NetPostupsampling(nn.Module):
 class NetPIN(nn.Module):
     """Spatial pre-upsampled model (dl4ds_tpu/models/nets.py:235-274): the
     backbone runs on the input already interpolated to the HR grid, [B, H,
-    W, C] -> [B, H, W, n_channels_out], then the optional aux branch and
-    the output module."""
+    W, C] -> [B, H, W, n_channels_out], then the optional localized layer
+    (on `hr_size`) and aux branch, and the output module."""
 
     def __init__(self, n_channels, n_aux_channels, backbone,
                  n_channels_out=1, n_filters=8, n_blocks=6, dropout_rate=0.0,
                  dropout_variant=None, normalization=None, attention=False,
                  activation='relu', output_activation=None,
                  localcon_layer=False, output_attention=True, remat=False,
-                 dtype=torch.float32):
+                 hr_size=None, dtype=torch.float32):
         super().__init__()
-        if localcon_layer:
-            raise not_ported('localcon_layer', 6)
-        _check_dropout(dropout_rate)
         check_dtype(dtype)
         self._Backbone_0 = _Backbone(n_channels, backbone, n_filters,
                                      n_blocks, activation, normalization,
-                                     attention, remat=remat, dtype=dtype)
+                                     attention, dropout_rate,
+                                     dropout_variant, remat=remat,
+                                     dtype=dtype)
         width = self._Backbone_0.n_filters
+        c_out = width + _localcon(self, localcon_layer, width, hr_size, dtype)
         self.n_aux_channels = n_aux_channels
         if n_aux_channels > 0:
-            self._AuxBranch_0 = _AuxBranch(n_aux_channels, width, activation,
-                                           normalization, dtype=dtype)
+            self._AuxBranch_0 = _AuxBranch(n_aux_channels, backbone, width,
+                                           activation, normalization,
+                                           dtype=dtype)
+            c_out += width
+        ks = (7, 7) if backbone == 'convnext' else (3, 3)
         self._OutputModule_0 = _OutputModule(
-            width * (2 if n_aux_channels > 0 else 1), n_filters,
-            n_channels_out, output_activation, normalization,
-            attention=output_attention, dtype=dtype)
+            c_out, n_filters, n_channels_out, ks, output_activation,
+            normalization, dropout_rate, attention=output_attention,
+            dtype=dtype)
 
     def forward(self, x, aux=None):
         _check_aux(self.n_aux_channels, aux)
-        x = self._Backbone_0(x)
+        x = _with_localcon(self, self._Backbone_0(x))
         if aux is not None:
             x = torch.cat([x, self._AuxBranch_0(aux)], dim=-1)
         return self._OutputModule_0(x)
@@ -271,12 +330,13 @@ class UnetPIN(nn.Module):
     """U-Net encoder/decoder on the pre-upsampled input
     (dl4ds_tpu/models/nets.py:277-359). `EncoderBlock{i}`s with filters
     doubling per level, capped at `width_cap`; a `Bottleneck` ConvBlock
-    (no normalisation); per level a x2 upsampler ('rc', 'spc' or 'dc'
-    `decoder_upsampling`), `pad_concat` with the level's skip (odd grids:
-    max-pool floors, the padding restores the skip's size) and
-    `DecoderConvBlock{j}`; then the aux ConvBlock (Flax's `ConvBlock_0`)
-    and the output module. `n_blocks` is the depth as built
-    (`_check_nblocks` in the factory)."""
+    (no normalisation; the model's dropout); per level a x2 upsampler
+    ('rc', 'spc' or 'dc' `decoder_upsampling`), `pad_concat` with the
+    level's skip (odd grids: max-pool floors, the padding restores the
+    skip's size) and `DecoderConvBlock{j}`; then a dropout, the localized
+    layer (on `hr_size`), the aux ConvBlock (Flax's `ConvBlock_0`) and the
+    output module. `n_blocks` is the depth as built (`_check_nblocks` in
+    the factory)."""
 
     def __init__(self, n_channels, n_aux_channels, backbone='unet',
                  n_channels_out=1, n_filters=8, n_blocks=6, activation='relu',
@@ -284,11 +344,8 @@ class UnetPIN(nn.Module):
                  attention=False, decoder_upsampling='rc',
                  rc_interpolation='bilinear', output_activation=None,
                  width_cap=256, localcon_layer=False, output_attention=True,
-                 dtype=torch.float32):
+                 hr_size=None, dtype=torch.float32):
         super().__init__()
-        if localcon_layer:
-            raise not_ported('localcon_layer', 6)
-        _check_dropout(dropout_rate)
         check_dtype(dtype)
         if decoder_upsampling not in ('rc', 'spc', 'dc'):
             raise ValueError(
@@ -303,6 +360,8 @@ class UnetPIN(nn.Module):
             filt_list.append(filters)
             c_in, filters = filters, min(width_cap, filters * 2)
         self.Bottleneck = ConvBlock(c_in, filters, activation=activation,
+                                    dropout_rate=dropout_rate,
+                                    dropout_variant=dropout_variant,
                                     dtype=dtype)
         c_in = filters
         # (upsampler name, decoder ConvBlock name) per level; Flax
@@ -327,16 +386,19 @@ class UnetPIN(nn.Module):
                 2 * filters, filters, activation=activation, **common))
             self.levels.append((f'{kind}_{j}', f'DecoderConvBlock{j + 1}'))
             c_in = filters
+        self.Dropout_0 = _dropout(dropout_rate, dropout_variant)
+        c_out = c_in + _localcon(self, localcon_layer, c_in, hr_size, dtype)
         self.n_aux_channels = n_aux_channels
         if n_aux_channels > 0:
             self.ConvBlock_0 = ConvBlock(n_aux_channels, c_in,
                                          activation=activation,
                                          normalization=normalization,
                                          dtype=dtype)
+            c_out += c_in
         self._OutputModule_0 = _OutputModule(
-            c_in * (2 if n_aux_channels > 0 else 1), n_filters,
-            n_channels_out, output_activation, normalization,
-            attention=output_attention, dtype=dtype)
+            c_out, n_filters, n_channels_out, (3, 3), output_activation,
+            normalization, dropout_rate, attention=output_attention,
+            dtype=dtype)
 
     def forward(self, x, aux=None):
         _check_aux(self.n_aux_channels, aux)
@@ -347,6 +409,7 @@ class UnetPIN(nn.Module):
         x = self.Bottleneck(x)
         for (up, conv), skip in zip(self.levels, reversed(skips)):
             x = self._modules[conv](pad_concat(self._modules[up](x), skip))
+        x = _with_localcon(self, _maybe(self.Dropout_0, x))
         if aux is not None:
             x = torch.cat([x, self.ConvBlock_0(aux)], dim=-1)
         return self._OutputModule_0(x)
@@ -369,16 +432,16 @@ def _check_nblocks(shape, power):
 
 class _RecBackbone(nn.Module):
     """Spatio-temporal backbone (dl4ds_tpu/models/nets.py:378-419): a stem
-    RecurrentConvBlock, N more at n_filters, then the resnet merge
-    x0 + b. [B, T, h, w, C] -> [B, T, h, w, n_filters]."""
+    RecurrentConvBlock (normalization, no dropout), N more at n_filters
+    (normalization and dropout), a dropout over (T, H, W), then the resnet
+    merge x0 + b. [B, T, h, w, C] -> [B, T, h, w, n_filters]."""
 
     def __init__(self, in_channels, backbone, n_filters, n_blocks,
                  activation='relu', normalization=None, dropout_rate=0.0,
-                 dtype=torch.float32):
+                 dropout_variant=None, dtype=torch.float32):
         super().__init__()
         if backbone != 'resnet':
             raise not_ported(f'recurrent backbone {backbone!r}', 7)
-        _check_dropout(dropout_rate)
         self.n_blocks = n_blocks
         self.RecurrentConvBlock1 = RecurrentConvBlock(
             in_channels, n_filters, activation=activation,
@@ -386,13 +449,15 @@ class _RecBackbone(nn.Module):
         for i in range(n_blocks):
             self.add_module(f'RecurrentConvBlock{i + 2}', RecurrentConvBlock(
                 n_filters, n_filters, activation=activation,
-                normalization=normalization, dtype=dtype))
+                normalization=normalization, dropout_rate=dropout_rate,
+                dropout_variant=dropout_variant, dtype=dtype))
+        self.Dropout_0 = _dropout(dropout_rate, dropout_variant, dim=3)
 
     def forward(self, x):
         x0 = b = self.RecurrentConvBlock1(x)
         for i in range(self.n_blocks):
             b = self._modules[f'RecurrentConvBlock{i + 2}'](b)
-        return x0 + b
+        return x0 + _maybe(self.Dropout_0, b)
 
 
 class RecNetPostupsampling(nn.Module):
@@ -402,26 +467,26 @@ class RecNetPostupsampling(nn.Module):
     [B, T, h*scale, w*scale, n_channels_out]. The head runs per frame on the
     [B*T]-flattened frames: the upsampler ('spc', 'rc' or 'dc'; the 'dc'
     head has no TransitionDC and no activation, as in the JAX package), the
-    aux branch (`ConvBlock_0`, its output repeated over time),
-    `TransitionLast` to half the channels, then the gated ConvBlock (its
-    attention pools over (T, H)) and the output ConvBlock."""
+    aux branch (`ConvBlock_0`, no normalization, its output repeated over
+    time), the localized layer (on the HR grid `hr_size`), `TransitionLast`
+    to half the channels, then the gated ConvBlock (its attention pools
+    over (T, H); the model's dropout rate, vanilla variant) and the output
+    ConvBlock."""
 
     def __init__(self, n_channels, n_aux_channels, backbone, upsampling,
                  scale, time_window, n_channels_out=1, n_filters=8,
                  n_blocks=4, normalization=None, dropout_rate=0.0,
                  dropout_variant=None, attention=False, activation='relu',
                  output_activation=None, rc_interpolation='bilinear',
-                 localcon_layer=False, output_attention=True,
+                 localcon_layer=False, output_attention=True, hr_size=None,
                  dtype=torch.float32):
         super().__init__()
-        if localcon_layer:
-            raise not_ported('localcon_layer', 6)
-        _check_dropout(dropout_rate)
         check_dtype(dtype)
         self.time_window = time_window
         self._RecBackbone_0 = _RecBackbone(n_channels, backbone, n_filters,
                                            n_blocks, activation,
-                                           normalization, dtype=dtype)
+                                           normalization, dropout_rate,
+                                           dropout_variant, dtype=dtype)
         self.head = _attach_head(self, upsampling, scale, n_filters,
                                  rc_interpolation, dtype=dtype)
         self.n_aux_channels = n_aux_channels
@@ -435,12 +500,14 @@ class RecNetPostupsampling(nn.Module):
                 n_aux_channels, n_filters, activation=activation,
                 attention=attention, dtype=dtype))
             width += n_filters
+        width += _localcon(self, localcon_layer, width, hr_size, dtype)
         self.TransitionLast = TransitionBlock(width, width // 2, dtype=dtype)
         self.gate_name, self.out_name = next(names), next(names)
         self.add_module(self.gate_name, ConvBlock(
             width // 2, n_filters, activation=None,
             normalization=normalization, attention=output_attention,
-            attention_time=time_window, dtype=dtype))
+            attention_time=time_window, dropout_rate=dropout_rate,
+            dtype=dtype))
         self.add_module(self.out_name, ConvBlock(
             n_filters, n_channels_out, activation=output_activation,
             normalization=normalization, dtype=dtype))
@@ -459,6 +526,6 @@ class RecNetPostupsampling(nn.Module):
             s = self._modules[self.aux_name](aux)
             # broadcast over time, [b*t] major (jnp.repeat on axis 0)
             x = torch.cat([x, s.repeat_interleave(t, dim=0)], dim=-1)
-        x = self.TransitionLast(x)
+        x = self.TransitionLast(_with_localcon(self, x))
         x = self._modules[self.out_name](self._modules[self.gate_name](x))
         return x.reshape(b, t, *x.shape[1:])

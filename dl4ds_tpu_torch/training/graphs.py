@@ -11,7 +11,11 @@ counter and a loss buffer. So one capture serves every step, and a replay
 makes no host read. `CapturedStep` first runs the function on a side
 stream to warm it up (kernel builds, the kernels' first-use allocations
 and attributes, cuDNN and cuBLAS plans, the optimizer's state), puts the
-tensors it changed back as they were, then captures it once. The kernel
+tensors it changed back as they were, then captures it once. The dropout
+generator is registered with the graph (`register_generator_state`), so
+that each replay draws from where the generator stands and advances it
+by a step's draws, as an eager step does; the warm-up and the capture
+leave its state as they found it. The kernel
 wrappers count their calls in the warm-up and the capture; a replay calls
 no wrapper, so it counts nothing there. There is no eager fallback: a
 capture or replay that fails raises.
@@ -30,15 +34,18 @@ class CapturedStep:
 
     `state` lists every tensor that `fn` changes in place; the warm-up
     calls change them, and they are restored before the capture, so the
-    warm-up leaves no trace in the run. `rewind` (tensors of `state`, such
-    as a row counter) is zeroed before each warm-up call, so that each call
-    reads what the first replay will. `pool` is the memory pool of an
+    warm-up leaves no trace in the run. `generators` are the CUDA
+    generators `fn` draws from: registered with the graph, their states
+    restored after the warm-up and after the capture. `rewind` (tensors of
+    `state`, such as a row counter) is zeroed before each warm-up call, so
+    that each call reads what the first replay will. `pool` is the memory pool of an
     earlier capture to share (the steps of a run never overlap, and they
     hand results to each other only through `state`). `replays` counts the
     replays so far."""
 
-    def __init__(self, fn, state, pool=None, rewind=()):
+    def __init__(self, fn, state, pool=None, rewind=(), generators=()):
         saved = [t.detach().clone() for t in state]
+        rng = [g.get_state() for g in generators]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -52,8 +59,13 @@ class CapturedStep:
                 t.copy_(s)
         del saved
         self.graph = torch.cuda.CUDAGraph()
+        for g, r in zip(generators, rng):
+            g.set_state(r)
+            self.graph.register_generator_state(g)
         with torch.cuda.graph(self.graph, pool=pool):
             fn()
+        for g, r in zip(generators, rng):
+            g.set_state(r)
         self.replays = 0
 
     def pool(self):

@@ -9,7 +9,12 @@ the same batches on every device. A step is then device work only: the
 batch built from its plan row, the forward in train mode, the loss, the
 backward (for a spatio-temporal model, K2's training variant and the K3 or
 K4 BPTT kernels on the GPU), and, on the optimizer's commit, the Adam
-update at the scheduled rate and the EMA of the parameters.
+update at the scheduled rate and the EMA of the parameters. Dropout draws
+from the trainer's own generator on the device, seeded from `seed`
+(`dropout_generator`), which a captured step advances on each replay, as
+an eager one does; a batch norm's running statistics are buffers of the
+network, which the EMA network shares, so that validation scores the
+averaged parameters with the live statistics, as the JAX trainer does.
 
 On the card the step is captured once as a CUDA graph and replayed, a
 chunk of `steps_per_execution` plan rows at a time (default: the whole
@@ -34,6 +39,7 @@ import torch
 
 from ..dataloader import BatchSynthesizer, _time_coord, season_ids_from_time
 from ..models import build_model
+from ..models.blocks import set_dropout_generator
 from ..utils import Timing, not_ported
 from .base import Trainer
 from .graphs import CapturedStep
@@ -228,11 +234,13 @@ class SupervisedTrainer(Trainer):
     def setup_optimizer(self):
         """Adam with eps 1e-7 over the network's parameters, its state
         created now; the device scalars of the rate, the update count and
-        the accumulation's mini-step; the EMA copy and the gradient
-        accumulators (dl4ds_tpu/training/supervised.py:330-385, one
-        device). On the card Adam is the fused, capturable one (one
-        multi-tensor kernel an update), its rate the device scalar, so that
-        an eager step and a replayed one compute the same bits."""
+        the accumulation's mini-step; the dropout generator, seeded from
+        `seed` on the device; the EMA copy, which shares the network's
+        buffers (the running statistics), and the gradient accumulators
+        (dl4ds_tpu/training/supervised.py:330-385, one device). On the card
+        Adam is the fused, capturable one (one multi-tensor kernel an
+        update), its rate the device scalar, so that an eager step and a
+        replayed one compute the same bits."""
         dev = self.device
         cuda = dev.type == 'cuda'
         self.train_net = self.net
@@ -254,8 +262,17 @@ class SupervisedTrainer(Trainer):
                 exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
                 exp_avg_sq=torch.zeros_like(
                     p, memory_format=torch.preserve_format))
-        self.ema_net = (copy.deepcopy(self.net) if self.ema_decay > 0
-                        else None)
+        self.dropout_generator = torch.Generator(device=dev).manual_seed(
+            int(self.seed))
+        set_dropout_generator(self.net, self.dropout_generator)
+        self.ema_net = None
+        if self.ema_decay > 0:
+            self.ema_net = copy.deepcopy(self.net)
+            set_dropout_generator(self.ema_net, self.dropout_generator)
+            live = dict(self.net.named_modules())
+            for name, m in self.ema_net.named_modules():
+                for key in m._buffers:
+                    m._buffers[key] = live[name]._buffers[key]
         self._ema = (list(self.ema_net.parameters())
                      if self.ema_net is not None else None)
         self._acc = ([torch.zeros_like(p) for p in self._params]
@@ -471,14 +488,16 @@ class SupervisedTrainer(Trainer):
     def _save_full_checkpoint(self, epoch, generator):
         """The full training state after `epoch` epochs, for
         `resume_from_checkpoint`: parameters, Adam's state, the EMA, the
-        accumulators, the counts, the epoch and the plan generator's state,
-        under save_path/checkpoints/epoch-<epoch>."""
+        accumulators, the counts, the epoch and the states of the plan
+        generator and the dropout generator, under
+        save_path/checkpoints/epoch-<epoch>."""
         payload = {
             'params': _cpu(self.train_net.state_dict()),
             'opt_state': [_cpu(self.optimizer.state[p])
                           for p in self._params],
             'n_updates': self.n_updates, 'mini_step': self.mini_step,
-            'epoch': epoch, 'generator': generator.get_state()}
+            'epoch': epoch, 'generator': generator.get_state(),
+            'dropout_generator': self.dropout_generator.get_state()}
         if self.ema_net is not None:
             payload['ema_params'] = _cpu(self.ema_net.state_dict())
         if self._acc is not None:
@@ -490,7 +509,7 @@ class SupervisedTrainer(Trainer):
     @torch.no_grad()
     def _restore_checkpoint(self, path, generator):
         """Load a full checkpoint into the trainer's tensors in place and
-        the generator; returns its epoch."""
+        the generators; returns its epoch."""
         payload = self._checkpoint_load(path)
         self.train_net.load_state_dict(payload['params'])
         for p, saved in zip(self._params, payload['opt_state']):
@@ -507,6 +526,8 @@ class SupervisedTrainer(Trainer):
         self._mini.fill_(self.mini_step)
         self._set_rate()
         generator.set_state(payload['generator'])
+        if 'dropout_generator' in payload:
+            self.dropout_generator.set_state(payload['dropout_generator'])
         return int(payload['epoch'])
 
 
@@ -591,8 +612,9 @@ class StepRunner:
                     net.eval()
                 else:
                     tr.train_net.train()
-                self.graphs[name] = CapturedStep(fn, state, pool=pool,
-                                                 rewind=[tr._row])
+                self.graphs[name] = CapturedStep(
+                    fn, state, pool=pool, rewind=[tr._row],
+                    generators=[tr.dropout_generator])
                 pool = self.graphs[name].pool()
             tr.train_net.train()
 

@@ -1,10 +1,16 @@
-"""Carry a Flax parameter tree across into the port's modules, and back.
+"""Carry a Flax variable tree across into the port's modules, and back.
 
 The torch modules carry the Flax tree's names (explicit ones such as `stem`,
 `ResidualBlock1`, `Transition1`, `EncoderBlock1`, `conv2x`, `deconv_2of3`,
 `input_conv`, and Flax's auto-names such as `Conv_0`, `ChannelAttention2D_0`,
-`ResizeConvolutionBlock_0`, `ConvLSTM2D_0`), so the tree and the module
-hierarchy are walked together. The tree is a nested dict of numpy arrays
+`_Norm_0`, `Dense_0`, `ResizeConvolutionBlock_0`, `ConvLSTM2D_0`), so the
+tree and the module hierarchy are walked together. A leaf of the `params`
+collection is a parameter of the module at its path under the same name
+(a gate's w1/b1/w2/b2, a ConvLSTM's or transposed conv's HWIO `kernel`, a
+`Dense` kernel [in, out], a norm's `scale` and `bias`, `gamma`,
+`local_kernel`, `local_bias`), except a `Conv`'s, whose HWIO `kernel` is
+held OIHW here; a leaf of the `batch_stats` collection (a batch norm's
+`mean` and `var`) is a buffer. The trees are nested dicts of numpy arrays
 (`jax.tree_util.tree_map(np.asarray, variables['params'])`): the port never
 sees a JAX type.
 """
@@ -12,23 +18,18 @@ sees a JAX type.
 import numpy as np
 import torch
 
-from .models.blocks import Conv, ConvTranspose, ChannelAttention2D, _Kernel
+from .models.blocks import Conv
 
-# modules whose parameters carry the Flax leaf names and layout: the gate's
-# w1/b1/w2/b2, a ConvLSTM kernel's HWIO kernel/bias, a transposed conv's
-# HWIO kernel
-_SAME_LAYOUT = (ChannelAttention2D, _Kernel, ConvTranspose)
-
-__all__ = ['load_jax_params', 'export_jax_params']
+__all__ = ['load_jax_params', 'export_jax_params', 'export_jax_variables']
 
 
-def _copy(param, value, path, done):
+def _copy(tensor, value, path, done):
     value = torch.from_numpy(np.array(value, dtype=np.float32))
-    if tuple(value.shape) != tuple(param.shape):
+    if tuple(value.shape) != tuple(tensor.shape):
         raise ValueError(f'{path}: Flax shape {tuple(value.shape)} does not '
-                         f'match torch shape {tuple(param.shape)}')
-    param.copy_(value)
-    done.add(id(param))
+                         f'match torch shape {tuple(tensor.shape)}')
+    tensor.copy_(value)
+    done.add(id(tensor))
 
 
 def _load_conv(conv, leaves, path, done):
@@ -43,44 +44,66 @@ def _load_conv(conv, leaves, path, done):
         _copy(conv.bias, leaves['bias'], f'{path}/bias', done)
 
 
-def _load_same_layout(module, leaves, path, done):
-    """Copy leaves into a module of `_SAME_LAYOUT`."""
-    params = dict(module.named_parameters(recurse=False))
-    if set(leaves) != set(params):
-        raise KeyError(f'{path}: Flax leaves {sorted(leaves)}, expected '
-                       f'{sorted(params)}')
-    for name, param in params.items():
-        _copy(param, leaves[name], f'{path}/{name}', done)
-
-
-def _walk(module, tree, path, done):
+def _walk(module, tree, path, done, buffers):
+    """Copy `tree` into `module`: its leaves into the parameters (or, with
+    `buffers`, the buffers) of the same name, its subtrees into the
+    submodules."""
     for key, sub in tree.items():
         sub_path = f'{path}/{key}'
+        if not isinstance(sub, dict):
+            store = module._buffers if buffers else module._parameters
+            if store.get(key) is None:
+                raise KeyError(f'{sub_path}: Flax leaf has no torch '
+                               f'counterpart in {type(module).__name__}')
+            _copy(store[key], sub, sub_path, done)
+            continue
         child = module._modules.get(key)
-        if child is None or not isinstance(sub, dict):
+        if child is None:
             raise KeyError(f'{sub_path}: Flax entry has no torch counterpart '
                            f'in {type(module).__name__}')
-        if isinstance(child, Conv):
+        if isinstance(child, Conv) and not buffers:
             _load_conv(child, sub, sub_path, done)
-        elif isinstance(child, _SAME_LAYOUT):
-            _load_same_layout(child, sub, sub_path, done)
         else:
-            _walk(child, sub, sub_path, done)
+            _walk(child, sub, sub_path, done, buffers)
 
 
-def load_jax_params(net, params):
+def load_jax_params(net, params, batch_stats=None):
     """Copy the Flax `params` tree (nested dict of numpy arrays) into `net`,
-    in place, and return `net`. Raises on any Flax leaf without a torch
-    parameter, on any shape mismatch, and on any torch parameter left unset.
-    A tied module (the spc head's `conv2x`, the x8 dc head's `deconv_2of3`)
-    has one entry and is copied once."""
+    and the `batch_stats` tree (the running statistics of its batch norms)
+    into its buffers, in place, and return `net`. Raises on any Flax leaf
+    without a torch counterpart, on any shape mismatch, and on any torch
+    parameter or buffer left unset (a model with batch norm needs
+    `batch_stats`). A tied module (the spc head's `conv2x`, the x8 dc
+    head's `deconv_2of3`) has one entry and is copied once."""
     done = set()
     with torch.no_grad():
-        _walk(net, params, '', done)
-    unset = [name for name, p in net.named_parameters() if id(p) not in done]
+        _walk(net, params, '', done, False)
+        if batch_stats is not None:
+            _walk(net, batch_stats, '', done, True)
+    unset = [name for name, t in list(net.named_parameters())
+             + list(net.named_buffers()) if id(t) not in done]
     if unset:
-        raise KeyError(f'torch parameters without a Flax leaf: {unset}')
+        raise KeyError(f'torch parameters and buffers without a Flax leaf '
+                       f'(params, batch_stats): {unset}')
     return net
+
+
+def _export(module, buffers):
+    def leaf(t):
+        return np.ascontiguousarray(t.detach().cpu().float().numpy())
+    if isinstance(module, Conv) and not buffers:
+        tree = {'kernel': leaf(module.weight.permute(2, 3, 1, 0))}
+        if module.bias is not None:
+            tree['bias'] = leaf(module.bias)
+        return tree
+    store = module._buffers if buffers else module._parameters
+    tree = {name: leaf(t) for name, t in store.items() if t is not None}
+    for key, child in module._modules.items():
+        if child is not None:
+            sub = _export(child, buffers)
+            if sub:
+                tree[key] = sub
+    return tree
 
 
 def export_jax_params(net):
@@ -88,24 +111,15 @@ def export_jax_params(net):
     nested dicts of float32 numpy arrays under the Flax names, conv kernels
     HWIO. A tied module is one entry, as in the Flax tree; modules without
     parameters have none."""
-    def leaf(t):
-        return np.ascontiguousarray(t.detach().cpu().float().numpy())
+    return _export(net, False)
 
-    def walk(module):
-        tree = {}
-        for key, child in module._modules.items():
-            if child is None:
-                continue
-            if isinstance(child, Conv):
-                sub = {'kernel': leaf(child.weight.permute(2, 3, 1, 0))}
-                if child.bias is not None:
-                    sub['bias'] = leaf(child.bias)
-            elif isinstance(child, _SAME_LAYOUT):
-                sub = {name: leaf(p) for name, p
-                       in child.named_parameters(recurse=False)}
-            else:
-                sub = walk(child)
-            if sub:
-                tree[key] = sub
-        return tree
-    return walk(net)
+
+def export_jax_variables(net):
+    """The Flax variables of `net`: {'params': ...} and, for a model with
+    batch norm, its running statistics under 'batch_stats', as
+    `model.init` gives them in the JAX package."""
+    variables = {'params': export_jax_params(net)}
+    stats = _export(net, True)
+    if stats:
+        variables['batch_stats'] = stats
+    return variables

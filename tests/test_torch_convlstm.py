@@ -453,11 +453,7 @@ def test_load_jax_params_rejects_a_stray_convlstm_leaf():
 
 @pytest.mark.parametrize('kwargs', [
     dict(backbone_block='convnet'), dict(backbone_block='densenet'),
-    dict(normalization='ln'),
-    dict(dropout_variant='mcspatialdrop', dropout_rate=0.2),
-    dict(normalization='bn'),
-    dict(dropout_rate=0.2), dict(dtype=torch.float16),
-    dict(localcon_layer=True)])
+    dict(dtype=torch.float16)])
 def test_unported_recurrent_configurations_raise(kwargs):
     args = dict(backbone_block='resnet', upsampling='spc', n_aux_channels=2,
                 **SMALL)

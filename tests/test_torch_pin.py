@@ -248,15 +248,7 @@ def test_factory_signatures_equal_the_jax_ones(name):
     assert _parameters(getattr(tds, name)) == want
 
 
-@pytest.mark.parametrize('kwargs', [
-    dict(backbone='convnext'), dict(localcon_layer=True),
-    dict(normalization='bn')])
-def test_unported_pin_configurations_raise(kwargs):
-    args = dict(backbone_block='convnet', n_aux_channels=0, **PIN)
-    if 'backbone' in kwargs:
-        args['backbone_block'] = kwargs.pop('backbone')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tds.net_pin(**args, **kwargs)
+def test_unported_pin_configurations_raise():
     with pytest.raises(NotImplementedError, match='item 7'):
         tds.build_model('convnet', 'pin', 4, 1, 0, (8, 8), (32, 32),
                         time_window=3)

@@ -333,7 +333,7 @@ def test_terminate_on_nan(data):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(backbone='densenet'), dict(normalization='ln'),
+    dict(backbone='densenet'),
     dict(data_in_hbm=False), dict(mesh=object()), dict(devices=['cpu']),
     dict(init_weights='keras.npz'), dict(backbone='convnet'),
     dict(upsampling='pin')])

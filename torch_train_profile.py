@@ -4,38 +4,41 @@
     python3 torch_train_profile.py [--model recresnet_spc|resnet_spc|
         convnet_pin|unet_pin] [--loss mae] [--batch 128] [--reps 5]
         [--width 8] [--attention] [--graphed] [--dtype bf16] [--mos]
-        # from the repo root
+        [--state convnext|bn_mc|recurrent]   # from the repo root
 
 Builds the training configuration of `chip_smoke.py` phase 7 (BASELINE
 config 4 as bench_suite.py's measure_supervised trains it:
-`SupervisedTrainer('resnet', 'spc', time_window=4, n_blocks=2,
-n_filters=8, scale=4, patch_size=64, loss='mae')` on 256 seeded grids of
-128x128, float32, TF32 convs as PyTorch's default), with `--width 64
---attention` that of phase 8 (bench_suite.py's recresnet_spc_width64), or
-with `--model resnet_spc --attention` the flagship of phase 10 (bench.py's
-resnet_spc: n_blocks 6, no time window; `--loss dssim_mae` as phase 10
-trains it); with `--model convnet_pin` or `--model unet_pin` BASELINE
-configs 1 and 3 as `chip_smoke.py` phase 14 trains them (bench_suite.py's
-convnet_pin_4x, n_blocks 6, and unet_pin_4x, n_blocks 4 with the 'rc'
-decoder: the pre-upsampled 64x64 patches, n_filters 8); `--dtype bf16`
-trains the bfloat16 model (float32 parameters, Adam and loss; bfloat16
-convolutions and kernels); `--mos` trains the
-flagship of `chip_smoke.py` phase 13 MOS-style, from given LR arrays with
-two statics, a predictor and season channels (`--batch`, `--dtype` and the
-model options above are still read; the model is phase 13's). Runs 3 warm-up steps, then `reps` steps (batch synthesis,
-forward, backward, Adam) under `torch.profiler` on one GPU, and prints one
-JSON line: device time per kernel group and for the top kernels, every
-kernel's launches and device time a step (`kernels_per_step`), the device
-time inside the backwards of K1 and K6 (read from record_function ranges
-put around them here), the device's busy share over the profiled
-window, launches and the host clock per step (the profiler slows the host;
-chip_smoke.py times the steps without it). With `--graphed` the steps are
-those `SupervisedTrainer.run` replays: the step captured as a CUDA graph
+`SupervisedTrainer('resnet', 'spc', time_window=4, n_blocks=2, n_filters=8,
+scale=4, patch_size=64, loss='mae')` on 256 seeded grids of 128x128,
+float32, TF32 convs as PyTorch's default), with `--width 64 --attention`
+that of phase 8 (bench_suite.py's recresnet_spc_width64), or with `--model
+resnet_spc --attention` the flagship of phase 10 (bench.py's resnet_spc:
+n_blocks 6, no time window; `--loss dssim_mae` as phase 10 trains it); with
+`--model convnet_pin` or `--model unet_pin` BASELINE configs 1 and 3 as
+`chip_smoke.py` phase 14 trains them (bench_suite.py's convnet_pin_4x,
+n_blocks 6, and unet_pin_4x, n_blocks 4 with the 'rc' decoder: the pre-
+upsampled 64x64 patches, n_filters 8); `--dtype bf16` trains the bfloat16
+model (float32 parameters, Adam and loss; bfloat16 convolutions and
+kernels); `--mos` trains the flagship of `chip_smoke.py` phase 13 MOS-style,
+from given LR arrays with two statics, a predictor and season channels
+(`--batch`, `--dtype` and the model options above are still read; the model
+is phase 13's); `--state` trains `chip_smoke.py` phase 15's (a) convnext_spc
+with the localized layer on whole 128x128 grids (pass `--batch 32`, as phase
+15 trains it), (b) the flagship with bn, 'mcdrop' and an EMA, or (c)
+recresnet_spc with ln and 'mcspatialdrop' (`--batch` and `--dtype` still
+read). Runs 3 warm-up steps, then `reps` steps (batch synthesis, forward,
+backward, Adam) under `torch.profiler` on one GPU, and prints one JSON line:
+device time per kernel group and for the top kernels, every kernel's
+launches and device time a step (`kernels_per_step`), the device time inside
+the backwards of K1 and K6 (read from record_function ranges put around them
+here), the device's busy share over the profiled window, launches and the
+host clock per step (the profiler slows the host; chip_smoke.py times the
+steps without it). With `--graphed` the steps are those
+`SupervisedTrainer.run` replays: the step captured as a CUDA graph
 (`training/graphs.py`), a chunk of `reps` plan rows uploaded and replayed
 once to warm up, then once more under the profiler (the backwards are not
 read apart there: no range runs inside a replay). Fails when the profiler
-records no device kernel.
-"""
+records no device kernel. """
 
 import argparse
 import json
@@ -106,6 +109,8 @@ def main():
     ap.add_argument('--dtype', choices=('f32', 'bf16'), default='f32')
     ap.add_argument('--mos', action='store_true',
                     help="chip_smoke.py phase 13's MOS training")
+    ap.add_argument('--state', choices=('convnext', 'bn_mc', 'recurrent'),
+                    help="chip_smoke.py phase 15's training (a), (b), (c)")
     args = ap.parse_args()
 
     import numpy as np
@@ -121,9 +126,10 @@ def main():
         annotate_backwards(torch, ops)
 
     dtype = {'f32': torch.float32, 'bf16': torch.bfloat16}[args.dtype]
-    if args.mos:
+    if args.mos or args.state:
         import chip_smoke
-        config = chip_smoke._mos_config(tds)[0]
+        config = (chip_smoke._state_config(args.state) if args.state
+                  else chip_smoke._mos_config(tds)[0])
         tr = tds.SupervisedTrainer(batch_size=args.batch, dtype=dtype,
                                    **config)
     else:
@@ -203,7 +209,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     print(json.dumps({
         'device': torch.cuda.get_device_name(0), 'model': tr.model.name,
-        'dtype': args.dtype, 'mos': args.mos,
+        'dtype': args.dtype, 'mos': args.mos, 'state': args.state,
         'input_channels': tr.model.input_shape[-1],
         'aux_channels': (tr.model.aux_shape or (0,))[-1],
         'loss': tr.loss, 'width': tr.architecture_params['n_filters'],
