@@ -181,21 +181,44 @@ Phases, each of which exits non-zero on failure:
      `dispatch_info`, the CPU steps on the card's masks), then
      `predict_mc(n_members=4, time_window=4)` on 19 grids (K2 48 launches a
      member);
- 16. print the `kernels` JSON line, then, last, the device JSON line. In
+ 16. CGAN training, BASELINE config 5: (a) bench_suite.py's
+     cgan_resnet_spc_4x (G resnet_spc x4 with n_filters 8, n_blocks 6 and
+     attention; D n_filters 32, 4 residual blocks) trained by
+     `CGANTrainer.run()` on phase 7's data for 2 epochs of 20 fused G+D
+     steps replayed as a captured CUDA graph, under torch.profiler: K1's
+     launches both ways in the device trace (G's 7 gates a step each way,
+     and the test loss's eager gates), finite losses, the speed; 3 steps
+     at batch 4 against the CPU in float64 on the card's dropout masks; 8
+     replayed steps against 8 eager ones bit for bit; the same 2 epochs in
+     bfloat16; `predict(trainer)` (the raw generator) of 16 LR grids of
+     128x128 into 512x512 against the CPU, the float32-trained weights in
+     bfloat16 by the mean, the bfloat16-trained weights in float32; (b)
+     the spatio-temporal pair (recresnet_spc with n_filters 8, T 4; D with
+     its recurrent layer-norm stem and attention) trained the same way for
+     2 epochs of 10 steps, K1 in D's gates and K2's training variant and
+     K3 in G and D's stem counted against `dispatch_info`'s routes, D's
+     gates and stem layers held against their plain versions and timed
+     first, 3 steps at batch 2 against the CPU; (c) checkpoints every
+     epoch with an EMA, `load_checkpoint` giving the trained generator's
+     output and D's weights, and a resumed run;
+ 17. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
      K1_channel_attention_unet_pin_train,
      K1_channel_attention_convnext_train, K1_channel_attention_bn_train,
-     K2_convlstm_train_ln_dropout, K3_convlstm_bptt_ln_dropout) is what the
-     device trace of its phase's run holds, and `wrapper_calls` what its
-     wrapper counted (the warm-up calls and the capture: a replay calls no
-     wrapper); the serving kernels (K1_channel_attention, K2_convlstm,
+     K2_convlstm_train_ln_dropout, K3_convlstm_bptt_ln_dropout,
+     K1_channel_attention_cgan_train, K1_channel_attention_cgan_disc_train,
+     K2_convlstm_train_cgan, K3_convlstm_bptt_cgan) is what the device
+     trace of its phase's run holds, and `wrapper_calls` what its wrapper
+     counted (the warm-up calls and the capture: a replay calls no
+     wrapper; a CGAN run's eager test loss adds to both); the serving
+     kernels (K1_channel_attention, K2_convlstm,
      K1_channel_attention_mos_serve, K1_channel_attention_pin_serve,
      K1_channel_attention_rc_dc_serve, K1_channel_attention_convnext_serve,
-     K1_channel_attention_mc_serve, K2_convlstm_mc_serve) and
-     K6_ssim_metrics run eagerly, and their `launches` are their wrappers'
-     counts.
+     K1_channel_attention_mc_serve, K2_convlstm_mc_serve,
+     K1_channel_attention_cgan_serve) and K6_ssim_metrics run eagerly, and
+     their `launches` are their wrappers' counts.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -1492,17 +1515,23 @@ def _traced_run(torch, tds, tr):
     return run_s, calls, _device_kernels(torch, prof)
 
 
-def _check_launches(tds, runner, label, per_step, replays, calls, kernels):
+def _check_launches(tds, runner, label, per_step, replays, calls, kernels,
+                    outside=None):
     """Hold a traced run's launches of the port's kernels against the
     launches a step should make (`per_step`: {'train': {counter: n},
     'eval': ...}) and each graph's replays against `replays` ({graph: n}).
     A graph's wrappers are called in its warm-up calls and its capture
     (a step x (WARMUP_CALLS + 1)); its kernels run on the device in the
     warm-up calls and the replays (a step x (WARMUP_CALLS + replays)), as
-    the device trace must show. Returns the launches the trace holds."""
+    the device trace must show. `outside` ({counter: n}) are the launches
+    the run makes eagerly, outside its graphs (the CGAN trainer's test
+    loss), counted in both. Returns the launches the trace holds."""
     from dl4ds_tpu_torch.training.graphs import WARMUP_CALLS
     want_calls = dict.fromkeys(calls, 0)
     want = dict.fromkeys(calls, 0)
+    for name, n in (outside or {}).items():
+        want_calls[name] += n
+        want[name] += n
     for gname, graph in runner.graphs.items():
         if graph.replays != replays[gname]:
             fail(f'{label}: graph {gname!r} replayed {graph.replays} times, '
@@ -2166,12 +2195,30 @@ def _max_diff(a, b):
 def _replay_profile(torch, runner, plan):
     """(the device kernels, busy ms, span ms) of one `runner.train(plan)`
     (a chunk of replays with its plan upload) under torch.profiler; busy is
-    the union of the kernels' intervals."""
+    the union of the kernels' intervals. The chunk runs twice in the trace,
+    PROFILE_GUARD_S apart, and the second is read (the kernels after the
+    widest gap on the device): the first is the profiler's warm-up. A
+    trace of one chunk lost 4 of 400 K2 launches (one layer's T) both
+    times it was taken in one full run of this script (phase 16 (b) on the
+    H100), and 2 of 480 once in phase 15 (c)."""
     with _device_trace(torch) as prof:
         runner.train(plan)
-    kernels = _device_kernels(torch, prof)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_S)
+        runner.train(plan)
+    kernels = sorted(_device_kernels(torch, prof),
+                     key=lambda e: e.time_range.start)
     if not kernels:
         fail('torch.profiler recorded no kernel of the replays')
+    gaps, end = [], kernels[0].time_range.end
+    for i, e in enumerate(kernels[1:], 1):
+        gaps.append((e.time_range.start - end, i))
+        end = max(end, e.time_range.end)
+    gap, split = max(gaps)
+    if gap < PROFILE_GUARD_S * 1e6 / 2:
+        fail(f'no gap between the two traced chunks of replays (widest '
+             f'{gap} us)')
+    kernels = kernels[split:]
     busy, end = 0, None
     for start, stop in sorted((e.time_range.start, e.time_range.end)
                               for e in kernels):
@@ -3562,15 +3609,16 @@ def _pin_training(torch, tds, name, report):
 
 
 def _check_served(torch, tds, label, model, net, grids, kwargs, want,
-                  cpu_slice=slice(0, 1), bf16=None):
+                  cpu_slice=slice(0, 1), bf16=None, phase=14, hold=True):
     """`predict` of `grids` on the card: its launches ({'K1': n, 'K2': n},
     K1's backward none), a finite output of the grids' shape, its speed
     (host clock, and one forward on CUDA events), and grid 0 against the
     same model on the CPU (TF32 off, PREDICT_TOL; `cpu_slice` the grids
     whose windows give grid 0). With `bf16`, a bfloat16 model with the
     same weights: grid 0 against the CPU in bfloat16 by the mean criterion
-    (at most BF16_PREDICT_RATIO of the float32 model's distance). Returns
-    the numbers."""
+    (at most BF16_PREDICT_RATIO of the float32 model's distance; with
+    `hold` False the distances are printed and returned, not held).
+    Returns the numbers."""
     import numpy as np
     fca, fcl = tds.fused_channel_attention, tds.fused_convlstm
     torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
@@ -3580,14 +3628,15 @@ def _check_served(torch, tds, label, model, net, grids, kwargs, want,
     got = {'K1': fca.launches, 'K2': fcl.launches}
     out_hw = tuple(s * (SCALE if not kwargs.get('array_in_hr', True) else 1)
                    for s in grids.shape[1:3])
-    print(f'phase 14, {label}: {model.param_count(net)} parameters, output '
+    print(f'phase {phase}, {label}: {model.param_count(net)} parameters, '
+          f'output '
           f'{y.shape}, launches {got} (expected {want}), K1 backward '
           f'{fca.bwd_launches}', flush=True)
     if got != want or fca.bwd_launches:
-        fail(f'phase 14: {label} launched {got} (K1 backward '
+        fail(f'phase {phase}: {label} launched {got} (K1 backward '
              f'{fca.bwd_launches}), expected {want}')
     if y.shape[1:3] != out_hw or not np.isfinite(y).all():
-        fail(f'phase 14: {label} gave {y.shape}, finite '
+        fail(f'phase {phase}: {label} gave {y.shape}, finite '
              f'{bool(np.isfinite(y).all())}')
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3605,13 +3654,15 @@ def _check_served(torch, tds, label, model, net, grids, kwargs, want,
     err = float(diff.max())
     ok = bool((diff <= PREDICT_TOL['atol']
                + PREDICT_TOL['rtol'] * np.abs(y_cpu)).all())
-    print(f'phase 14, {label}: {grids_per_s:.2f} grids/s end to end (host '
+    print(f'phase {phase}, {label}: {grids_per_s:.2f} grids/s end to end '
+          f'(host '
           f'clock, TF32 convs); grid 0, GPU (TF32 off) vs CPU: max|d| '
           f'{err:.3e}, max|y| {float(np.abs(y_cpu).max()):.3e} (atol '
           f'{PREDICT_TOL["atol"]}, rtol {PREDICT_TOL["rtol"]}); '
           f'{card_line()}', flush=True)
     if not ok:
-        fail(f'phase 14: {label} on the GPU disagrees with the CPU: max|d| '
+        fail(f'phase {phase}: {label} on the GPU disagrees with the CPU: '
+             f'max|d| '
              f'{err:.3e}')
     out = dict(launches=got, grids_per_s=grids_per_s, cpu_max_abs_err=err)
     if bf16 is not None:
@@ -3622,20 +3673,22 @@ def _check_served(torch, tds, label, model, net, grids, kwargs, want,
         y16 = tds.predict((model16, net16), grids, **kwargs)
         got16 = {'K1': fca.launches, 'K2': fcl.launches}
         if got16 != want:
-            fail(f'phase 14: bfloat16 {label} launched {got16}, expected '
+            fail(f'phase {phase}: bfloat16 {label} launched {got16}, expected '
                  f'{want}')
         y16_cpu = tds.predict((model16, copy.deepcopy(net16).cpu()),
                               grids[cpu_slice], device='cpu', **one)[:1]
         scale = float(np.abs(y16_cpu).mean())
         port = float(np.abs(y16[:1] - y16_cpu).mean()) / scale
         own = float(np.abs(y32[:1] - y16[:1]).mean()) / scale
-        print(f'phase 14, bfloat16 {label}: launches {got16}; grid 0 against '
+        print(f'phase {phase}, bfloat16 {label}: launches {got16}; grid 0 '
+              f'against '
               f'the CPU in bfloat16 mean|d|/mean|y| {port:.3e}, the card\'s '
-              f'float32 model {own:.3e} from it (at most '
-              f'{BF16_PREDICT_RATIO} of it required); {card_line()}',
-              flush=True)
-        if not port <= BF16_PREDICT_RATIO * own:
-            fail(f'phase 14: bfloat16 {label} on the card is {port:.3e} '
+              f'float32 model {own:.3e} from it ('
+              + (f'at most {BF16_PREDICT_RATIO} of it required' if hold
+                 else 'recorded, not held: PERF.md section 7')
+              + f'); {card_line()}', flush=True)
+        if hold and not port <= BF16_PREDICT_RATIO * own:
+            fail(f'phase {phase}: bfloat16 {label} on the card is {port:.3e} '
                  f'from the CPU, more than {BF16_PREDICT_RATIO} of the '
                  f'float32 model\'s {own:.3e}')
         out.update(bf16_launches=got16, bf16_cpu_mean_rel_err=port,
@@ -4201,6 +4254,582 @@ def _state_kernel_rows(report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: CGAN training (BASELINE config 5)
+# ---------------------------------------------------------------------------
+
+# (a) bench_suite.py's cgan_resnet_spc_4x (measure_cgan, bench_suite.py:
+# 149-175): G resnet_spc x4 (n_filters 8, n_blocks 6, attention), D
+# n_filters 32 and n_res_blocks 4 without attention, both Adam(2e-4, b1
+# 0.5, eps 1e-7), on phase 7's 256 grids of 128x128, 64x64 patches, batch
+# 128, mae; trained in float32 and bfloat16 (the bench's dtype), its test
+# loss on CGAN_TEST grids; 3 steps at CGAN_CPU_BATCH against the CPU in
+# float64. Its K1 gates are G's, at phase 10's shapes
+CGAN_G = dict(n_filters=N_FILTERS, n_blocks=N_BLOCKS, attention=True)
+CGAN_D = dict(n_filters=32, n_res_blocks=4)
+CGAN_TEST, CGAN_CPU_BATCH = 64, 4
+# (b) the spatio-temporal pair: recresnet_spc x4 (n_filters 8, REC_BLOCKS
+# blocks, T 4) and D with its recurrent stem (layer norm, F 32), attention
+# in both (G's recurrent head gates are plain tensor math, so K1 runs in D
+# alone): 2 epochs of CGAN_REC_STEPS steps; its D flattens [B, T] to 512
+# frames, so its gates are [512, 16, 16, 32] (branch 1), [512, 64, 64, 32]
+# (branch 2) and [512, 16, 16, 64] (the merge)
+CGAN_REC_STEPS, CGAN_REC_CPU_BATCH = 10, 2
+CGAN_D_GATES = [(TRAIN_BATCH * REC_T, TRAIN_LR, TRAIN_LR, 32),
+                (TRAIN_BATCH * REC_T, TRAIN_PATCH, TRAIN_PATCH, 32),
+                (TRAIN_BATCH * REC_T, TRAIN_LR, TRAIN_LR, 64)]
+# (Cin, F, k, x needs a gradient) of D's recurrent stem: the LR input (no
+# gradient), then F -> F
+CGAN_D_STEM = [(1, 32, 5, False), (32, 32, 3, True)]
+# (c) checkpoints of (a)'s float32 pair with D's gates on too (the JAX
+# `load_checkpoint`'s one `attention` flag builds both networks), an EMA,
+# 2 epochs of CGAN_CKPT_STEPS steps, then one resumed epoch
+CGAN_CKPT_STEPS, CGAN_EMA = 5, 0.999
+
+
+def _cgan_config(recurrent=False, dtype=None):
+    """CGANTrainer arguments of phase 16's (a) or, with `recurrent`, (b)
+    (also read by torch_train_profile.py --cgan)."""
+    import numpy as np
+    data = np.random.default_rng(0).standard_normal(
+        (TRAIN_GRIDS, TRAIN_HR, TRAIN_HR, 1)).astype('float32')
+    gen, disc = dict(CGAN_G), dict(CGAN_D)
+    if recurrent:
+        gen.update(n_blocks=REC_BLOCKS)
+        disc.update(attention=True)
+    if dtype is not None:
+        gen.update(dtype=dtype)
+        disc.update(dtype=dtype)
+    return dict(backbone='resnet', upsampling='spc', data_train=data,
+                data_test=data[:CGAN_TEST], scale=SCALE,
+                patch_size=TRAIN_PATCH, batch_size=TRAIN_BATCH, loss='mae',
+                learning_rates=(2e-4, 2e-4),
+                time_window=REC_T if recurrent else None,
+                generator_params=gen, discriminator_params=disc,
+                verbose=False, save_loss_history=False)
+
+
+def _cgan_per_step(tr):
+    """({'train': {counter: launches}, 'eval': ...}, {counter: launches of
+    the eager test loss}) of a set-up CGAN trainer, read from its
+    networks: K1 a gate of G's forward and two of D's (D(fake), D(real));
+    its backward G's gates, D(fake)'s gates on the way to the generated
+    grids (branch 2 and the merge) in G's pass, and every gate of both D
+    calls in D's pass; K2's training variant T launches a ConvLSTM layer
+    of G and two of D's stem, and by `dispatch_info`'s route K3 (T chain
+    steps, dx where the layer's input needs a gradient, the two weight
+    passes and the reduction) or K4 (T chain steps) as many times. The
+    test loss runs G's gates and its ConvLSTM layers in eval mode over
+    chunks of min(batch, n_test)."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    from dl4ds_tpu_torch.models.blocks import ChannelAttention2D, ConvLSTM2D
+
+    def gates(net, where=lambda name: True):
+        return sum(1 for n, m in net.named_modules()
+                   if isinstance(m, ChannelAttention2D) and where(n)
+                   and not (m.time_window and m.time_window > 1))
+
+    def layers(net, first):
+        return [(m.input_conv.kernel.shape, m.cell.recurrent_conv.kernel
+                 .shape, n != first) for n, m in net.named_modules()
+                if isinstance(m, ConvLSTM2D)]
+    g, d = gates(tr.gen_net), gates(tr.disc_net)
+    d_fake = gates(tr.disc_net, lambda n: n.startswith('ResidualBlock_0')
+                   or '_branch2' in n)
+    train = {'K2-train': 0, 'K2 inference': 0, 'K3': 0, 'K4': 0,
+             'K1': g + 2 * d, 'K1 backward': g + d_fake + 2 * d, 'K6': 0,
+             'K6 backward': 0}
+    itemsize = 2 if str(tr.generator.dtype).endswith('bfloat16') else 4
+    g_layers = layers(tr.gen_net, '_RecBackbone_0.RecurrentConvBlock1.'
+                      'ConvLSTM2D_0')
+    d_layers = layers(tr.disc_net, 'RecurrentConvBlock_0.ConvLSTM2D_0')
+    for calls, group in ((1, g_layers), (2, d_layers)):
+        for wx, wh, need_dx in group:
+            x = (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, wx[2])
+            route = conv.dispatch_info(x, tuple(wx), tuple(wh),
+                                       itemsize)['path']
+            train['K2-train'] += calls * REC_T
+            if route == 'fused':
+                train['K3'] += calls * (REC_T + int(need_dx) + 3)
+            else:
+                train['K4'] += calls * REC_T
+    n_test = CGAN_TEST - (REC_T if tr.time_window else 0)
+    chunks = -(-n_test // min(TRAIN_BATCH, n_test))
+    outside = {'K1': g * chunks, 'K2 inference': len(g_layers) * REC_T
+               * chunks}
+    evaluation = dict.fromkeys(train, 0)
+    return {'train': train, 'eval': evaluation}, outside
+
+
+def _drive_cgan(torch, tds, config, label, steps, shares):
+    """CGANTrainer(**config).run() on the card, 2 epochs of `steps` steps
+    replayed, under torch.profiler with every launch counter set to 0 just
+    before: the wrappers' calls and the launches in the device trace
+    against what a step makes (`_cgan_per_step`, `_check_launches`),
+    finite losses and test loss; then eager steps (host clock, one on CUDA
+    events, with the kernels' shares of it from `shares`) and the replays
+    (`_graphed_speed`). Returns the trainer and the numbers."""
+    import numpy as np
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = tds.CGANTrainer(epochs=TRAIN_EPOCHS, steps_per_epoch=steps,
+                         **config)
+    run_s, calls, kernels = _traced_run(torch, tds, tr)
+    per_step, outside = _cgan_per_step(tr)
+    got = _check_launches(tds, tr.runner, f'phase 16 ({label})', per_step,
+                          {'step': TRAIN_EPOCHS * steps}, calls, kernels,
+                          outside)
+    losses = np.array([tr.gentotal, tr.gengan, tr.gen_pxloss, tr.disc])
+    print(f'phase 16, {label}: G {tr.generator.name} '
+          f'{tr.generator.param_count(tr.gen_net)} parameters, D '
+          f'{tr.discriminator.param_count(tr.disc_net)}, batch '
+          f'{TRAIN_BATCH}, {TRAIN_EPOCHS} epochs of {steps} steps in '
+          f'{run_s:.2f} s under torch.profiler; losses (gentotal, gengan, '
+          f'gen_pxloss, disc) by epoch {losses.tolist()}, test loss '
+          f'{tr.test_loss:.6f}', flush=True)
+    if not (np.isfinite(losses).all() and np.isfinite(tr.test_loss)):
+        fail(f'phase 16 ({label}) gave non-finite losses {losses.tolist()}, '
+             f'test loss {tr.test_loss}')
+    gen = torch.Generator().manual_seed(1)
+    idx = tr.ds_train.epoch_indices(gen, steps=steps)
+    tr.train_net.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(steps):
+        tr.train_step(tr.ds_train(idx[c], generator=gen))
+    torch.cuda.synchronize()
+    eager = steps * TRAIN_BATCH / (time.perf_counter() - t0)
+    one = tr.ds_train(idx[0], generator=gen)
+    step_ms = statistics.median(
+        device_times(torch, lambda: tr.train_step(one), reps=10))
+    graphed = _graphed_speed(torch, tds, tr, steps, per_step, label,
+                             TRAIN_BATCH, retraces=1)
+    print(f'phase 16, {label}, batch {TRAIN_BATCH}: replayed '
+          f'{graphed["patches_per_s"]:.1f} patches/s, eager {eager:.1f} '
+          f'(host clock); one replay {graphed["replay_ms"]:.3f} ms, one '
+          f'eager step {step_ms:.3f} ms (CUDA events), of which '
+          + ', '.join(f'{name} {ms:.3f} ms' for name, ms in shares.items())
+          + f' timed alone; {graphed["launches_per_replay"]:.0f} launches a '
+          f'replay ({graphed["port_launches_per_replay"]:.0f} of the '
+          f'port\'s kernels), device busy {100 * graphed["busy_share"]:.1f}%'
+          f' of the replays\' span; {card_line()}', flush=True)
+    return tr, dict(launches=got, wrapper_calls=calls, per_step=per_step,
+                    run_s=run_s, losses=losses.tolist(),
+                    test_loss=tr.test_loss, eager_patches_per_s=eager,
+                    step_ms=step_ms, graphed=graphed)
+
+
+def _cgan_vs_cpu(torch, tds, config, label, cpu_batch):
+    """3 fused steps at `cpu_batch` from one seed on the card (TF32 off,
+    PyTorch's own convolutions, not cuDNN's) and on the CPU in float64 and
+    float32, the CPU runs on the card's dropout masks: the four losses
+    within TRAIN_LOSS_RTOL and G's and D's parameters within
+    TRAIN_PARAM_ATOL of float64, or, where float32 itself lands farther,
+    within F32_YARDSTICK_RATIO times the CPU's float32 run (losses, the
+    first and the third step's parameters). Returns the numbers."""
+    import numpy as np
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs, drawn = {}, []
+    for device, dtype in (('cuda', torch.float32), ('cpu', torch.float64),
+                          ('cpu', torch.float32)):
+        torch.backends.cudnn.enabled = device == 'cpu'
+        small = tds.CGANTrainer(**dict(config, batch_size=cpu_batch,
+                                       epochs=1, device=device))
+        small.setup_datagen()
+        small.setup_model()
+        small.train_net.to(dtype)
+        small.setup_optimizer(3)
+        small.train_net.train()
+        gen = torch.Generator().manual_seed(3)
+        idx = small.ds_train.epoch_indices(gen, steps=3)
+        losses, params = [], []
+        with _dropout_draws(torch, None if device == 'cuda'
+                            else list(drawn)) as log:
+            for c in range(3):
+                batch = small.ds_train(idx[c], generator=gen)
+                losses.append(small.train_step(
+                    {k: None if v is None else v.to(dtype)
+                     for k, v in batch.items()}).tolist())
+                params.append({n: p.detach().to('cpu', torch.float64,
+                                                copy=True)
+                               for n, p in small.train_net.named_parameters()})
+        if device == 'cuda':
+            drawn = log
+            if not drawn:
+                fail(f'phase 16 ({label}): the GPU steps drew no dropout '
+                     f'mask')
+        runs[device, dtype] = (np.array(losses), params)
+    torch.backends.cudnn.enabled = True
+    (gpu_l, gpu_p), (ref_l, ref_p), (f32_l, f32_p) = (
+        runs['cuda', torch.float32], runs['cpu', torch.float64],
+        runs['cpu', torch.float32])
+
+    def distance(params, step):
+        return max((params[step][n] - ref_p[step][n]).abs().max().item()
+                   for n in ref_p[step])
+    loss_err = float((np.abs(gpu_l - ref_l) / np.abs(ref_l)).max())
+    own_loss = float((np.abs(f32_l - ref_l) / np.abs(ref_l)).max())
+    first, third = distance(gpu_p, 0), distance(gpu_p, 2)
+    own_first, own_third = distance(f32_p, 0), distance(f32_p, 2)
+    print(f'phase 16, {label}: 3 fused steps at batch {cpu_batch}, GPU (TF32 '
+          f'off, PyTorch\'s own convolutions) vs CPU float64 on the GPU\'s '
+          f'dropout masks: losses {gpu_l.tolist()} vs {ref_l.tolist()}, max '
+          f'relative difference {loss_err:.3e} (the CPU\'s float32 run '
+          f'{own_loss:.3e}; rtol {TRAIN_LOSS_RTOL}); G and D parameters '
+          f'after one step max|d| {first:.3e} (CPU float32 {own_first:.3e}), '
+          f'after three {third:.3e} (CPU float32 {own_third:.3e}; atol '
+          f'{TRAIN_PARAM_ATOL}, or at most {F32_YARDSTICK_RATIO}x the CPU\'s '
+          f'float32 run)', flush=True)
+    if not (loss_err <= max(TRAIN_LOSS_RTOL, F32_YARDSTICK_RATIO * own_loss)
+            and first <= max(TRAIN_PARAM_ATOL,
+                             F32_YARDSTICK_RATIO * own_first)
+            and third <= max(TRAIN_PARAM_ATOL,
+                             F32_YARDSTICK_RATIO * own_third)):
+        fail(f'phase 16 ({label}): GPU steps disagree with the CPU: losses '
+             f'{loss_err:.3e}, parameters {first:.3e} and {third:.3e}')
+    return dict(cpu_loss_rel_err=loss_err, cpu_f32_loss_rel_err=own_loss,
+                cpu_first_step_param_err=first, cpu_param_err=third,
+                cpu_f32_first_step_param_err=own_first,
+                cpu_f32_param_err=own_third)
+
+
+def _cgan_graphs_vs_eager(torch, tds, config, label):
+    """GRAPH_STEPS fused steps through `run()`'s captured graph and as many
+    eager `train_step`s from the same seed and plan (cuDNN deterministic):
+    the same bits in every loss and in G's and D's parameters; the graphed
+    run's launches and the arrival counters left at zero."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    args = dict(config, epochs=1, steps_per_epoch=GRAPH_STEPS)
+    graphed = tds.CGANTrainer(**args)
+    _, calls, kernels = _traced_run(torch, tds, graphed)
+    per_step, outside = _cgan_per_step(graphed)
+    _check_launches(tds, graphed.runner, f'phase 16 ({label}, graphs)',
+                    per_step, {'step': GRAPH_STEPS}, calls, kernels, outside)
+    busy = [name for name, t in fo._COUNTERS.items()
+            if int(t.count_nonzero()) != 0]
+    if busy:
+        fail(f'phase 16 ({label}): arrival counters {busy} not left at 0')
+    eager = tds.CGANTrainer(**args)
+    eager.setup_datagen()
+    eager.setup_model()
+    eager.setup_optimizer(GRAPH_STEPS)
+    eager.train_net.train()
+    plan = eager.ds_train.plan(torch.Generator().manual_seed(eager.seed),
+                               GRAPH_STEPS)
+    losses = torch.stack([eager.train_step(eager.ds_train(
+        plan['idx'][c], offsets=(plan['ys'][c], plan['xs'][c])))
+        for c in range(GRAPH_STEPS)])
+    diffs = {'losses': _max_diff([losses], [graphed.train_losses]),
+             'parameters': _max_diff(list(eager.train_net.parameters()),
+                                     list(graphed.train_net.parameters()))}
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+    print(f'phase 16, {label}: {GRAPH_STEPS} fused steps through run()\'s '
+          f'graph against {GRAPH_STEPS} eager train_steps from the same '
+          f'weights and plan: max|d| {diffs} (bit-identical required)',
+          flush=True)
+    if any(d != 0 for d in diffs.values()):
+        fail(f'phase 16 ({label}): graphed and eager steps differ: {diffs}')
+    return diffs
+
+
+def _k3_layer_rows(torch, layers, label, seed=300):
+    """K2's training variant and K3 at a path's (Cin, F, k, x needs a
+    gradient) layers at batch TRAIN_BATCH, T REC_T, TRAIN_LR x TRAIN_LR,
+    held against their plain versions (`_check_k3_case`, TF32 off) and
+    timed against them and their bounds. Returns the rows, with phase 6's
+    keys."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for i, (cin, f, k, need_dx) in enumerate(layers):
+        wx, bx, wh = _layer_weights(torch, cin, f, k, k, seed + i, dev)
+        x = torch.randn((TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin),
+                        generator=gen, device=dev)
+        dys = torch.randn((TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, f),
+                          generator=gen, device=dev)
+        what = f'{label} x{list(x.shape)} F={f} k={k}'
+        fwd_err, errs, (ys, cs, zs) = _check_k3_case(
+            torch, conv, x, wx, bx, wh, dys, need_dx, what)
+        with torch.no_grad():
+            k2_ms, k2_plain_ms = paired_ms(
+                torch, lambda: conv._launch(x, wx, bx, wh, train=True),
+                lambda: conv.convlstm_train_reference(x, wx, bx, wh), flush)
+            k3_ms, k3_plain_ms = paired_ms(
+                torch, lambda: conv._launch_backward(
+                    x, wx, wh, zs, cs, ys, dys, need_dx),
+                lambda: conv.convlstm_backward_reference(
+                    x, wx, wh, zs, cs, ys, dys), flush)
+        flops, n_bytes = k2_work(x, wx, wh)
+        n_bytes += 4 * 5 * ys.numel()                # cs and zs written
+        k3_flops, k3_bytes = k3_work(x, wx, wh, need_dx)
+        rows.append(dict(
+            x=list(x.shape), f=f, k=k, dx=need_dx,
+            ys_cs_zs_err=fwd_err[:3], grad_rel_err=errs, k2_ms=k2_ms,
+            k2_plain_ms=k2_plain_ms,
+            k2_bound_ms=max(flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S)
+            * 1e3,
+            k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
+            k3_bound_ms=max(k3_flops / F32_FLOPS, k3_bytes / HBM_BYTES_PER_S)
+            * 1e3))
+        print(f'K2-train/K3 {what}{"" if need_dx else " (no dx)"}: ys, cs, '
+              f'zs max|d| ' + ' '.join(f'{e:.3e}' for e in fwd_err[:3])
+              + '  grads max|d|/max|ref| '
+              + ' '.join(f'{n} {v:.2e}' for n, v in errs.items())
+              + f'  K2-train {k2_ms:.4f} ms (plain {k2_plain_ms:.4f}, bound '
+              f'{rows[-1]["k2_bound_ms"]:.4f})  K3 {k3_ms:.4f} ms (plain '
+              f'{k3_plain_ms:.4f}, bound {rows[-1]["k3_bound_ms"]:.4f}); '
+              f'{card_line()}', flush=True)
+    return rows
+
+
+def _cgan_serving(torch, tds, tr, tr16, report):
+    """`predict` of the trained generators on N_GRIDS LR grids of LRxLR into
+    the x4 grid at batch BATCH (`_check_served`): `predict(trainer)` is the
+    raw generator's output (the same bits as `predict((generator,
+    gen_net))`), K1 its gates a batch, grid 0 against the CPU (phase 3's
+    criteria), and the float32-trained weights in the bfloat16 model by the
+    mean criterion, as phase 14 serves its trained weights; the bfloat16-
+    trained weights served in float32 by phase 3's criteria, their
+    bfloat16 serving distance recorded."""
+    import numpy as np
+    grids = np.random.default_rng(16).standard_normal(
+        (N_GRIDS, LR, LR)).astype('float32')
+    kwargs = dict(scale=SCALE, array_in_hr=False, batch_size=BATCH)
+    want = {'K1': len(K1_SHAPES) * -(-N_GRIDS // BATCH), 'K2': 0}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    same = np.array_equal(tds.predict(tr, grids, **kwargs), tds.predict(
+        (tr.generator, tr.gen_net), grids, **kwargs))
+    torch.backends.cudnn.deterministic = False
+    if not same:
+        fail('phase 16: predict(trainer) is not the raw generator\'s output')
+    bf16 = tds.net_postupsampling(
+        'resnet', 'spc', scale=SCALE, n_channels=1, n_aux_channels=0,
+        lr_size=(TRAIN_LR, TRAIN_LR), dtype=torch.bfloat16, **CGAN_G)
+    serve = _check_served(torch, tds, 'CGAN generator predict, '
+                          f'{N_GRIDS} LR grids {LR}x{LR} -> {LR * SCALE}',
+                          tr.generator, tr.gen_net, grids, kwargs, want,
+                          bf16=bf16, phase=16)
+    f32 = tds.net_postupsampling('resnet', 'spc', scale=SCALE, n_channels=1,
+                                 n_aux_channels=0, lr_size=(TRAIN_LR,
+                                                            TRAIN_LR),
+                                 **CGAN_G)
+    net32 = f32.init(0, 'cuda')
+    net32.load_state_dict(tr16.gen_net.state_dict())
+    serve16 = _check_served(torch, tds, 'bfloat16-trained CGAN generator '
+                            f'predict, {N_GRIDS} LR grids', f32, net32,
+                            grids, kwargs, want, bf16=tr16.generator,
+                            phase=16, hold=False)
+    return dict(f32=serve, bf16=serve16)
+
+
+def _cgan_checkpoints(torch, tds):
+    """(c): (a)'s float32 pair with D's gates and an EMA, checkpointed
+    every epoch under the git-ignored build/; `load_checkpoint` of 'final'
+    gives the trained raw generator's `predict` output and D's weights;
+    a trainer resumed from it runs on from its update count."""
+    import shutil
+    import numpy as np
+    root = Path(__file__).resolve().parent / 'build' / 'phase16'
+    shutil.rmtree(root, ignore_errors=True)
+    config = _cgan_config()
+    config['discriminator_params'] = dict(CGAN_D, attention=True)
+    torch.backends.cudnn.allow_tf32 = False
+    tr = tds.CGANTrainer(epochs=TRAIN_EPOCHS, steps_per_epoch=CGAN_CKPT_STEPS,
+                         checkpoints_frequency=1, ema_decay=CGAN_EMA,
+                         save_path=str(root) + '/', **config).run()
+    saved = sorted(p.name for p in (root / 'checkpoints').iterdir())
+    g, gnet, d, dnet = tds.load_checkpoint(
+        str(root), None, 'resnet', 'spc', SCALE, (TRAIN_LR, TRAIN_LR),
+        n_blocks=(N_BLOCKS, CGAN_D['n_res_blocks']),
+        n_filters=(N_FILTERS, CGAN_D['n_filters']), attention=True)
+    grids = np.random.default_rng(161).standard_normal(
+        (BATCH, LR, LR)).astype('float32')
+    kwargs = dict(scale=SCALE, array_in_hr=False, batch_size=BATCH)
+    torch.backends.cudnn.deterministic = True
+    same_g = np.array_equal(tds.predict((g, gnet), grids, **kwargs),
+                            tds.predict(tr, grids, **kwargs))
+    torch.backends.cudnn.deterministic = False
+    same_d = all(torch.equal(a, b) for a, b in zip(
+        dnet.state_dict().values(), tr.disc_net.state_dict().values()))
+    resumed = tds.CGANTrainer(
+        epochs=1, steps_per_epoch=CGAN_CKPT_STEPS, ema_decay=CGAN_EMA,
+        resume_from_checkpoint=str(root / 'checkpoints' / 'final'),
+        save_path=str(root / 'resumed') + '/', **config).run()
+    print(f'phase 16 (c), checkpoints: {saved}; load_checkpoint(final) '
+          f'predicts the trained generator\'s bits {same_g}, holds its D '
+          f'{same_d}; resumed from final at update {tr.n_updates}, ran on to '
+          f'{resumed.n_updates} with losses {resumed.gentotal} (G) '
+          f'{resumed.disc} (D); {card_line()}', flush=True)
+    if (saved != ['epoch-1', 'epoch-2', 'final'] or not same_g or not same_d
+            or resumed.n_updates != tr.n_updates + CGAN_CKPT_STEPS
+            or not np.isfinite(resumed.gentotal + resumed.disc).all()):
+        fail(f'phase 16 (c): checkpoints {saved}, load_checkpoint G {same_g}'
+             f' D {same_d}, resumed at {resumed.n_updates}')
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(checkpoints=saved, load_checkpoint_same_bits=same_g,
+                resumed_updates=resumed.n_updates)
+
+
+def phase_cgan(torch, tds, report):
+    """Phase 16: CGAN training, BASELINE config 5: (a) the bench's pair in
+    float32 and bfloat16, against the CPU, replayed against eager, served;
+    (b) the spatio-temporal pair; (c) checkpoints."""
+    out = report['cgan'] = {}
+    gates = report['k1_train_rows']      # phase 10's: G's gates
+    k1 = {'K1 forward': sum(r['ms'] for r in gates),
+          'K1 backward': sum(r['bwd_ms'] for r in gates)}
+    label = (f'cgan resnet_spc x{SCALE} (n_filters {N_FILTERS}, n_blocks '
+             f'{N_BLOCKS}, attention) + D (n_filters {CGAN_D["n_filters"]}, '
+             f'{CGAN_D["n_res_blocks"]} blocks), mae')
+    tr, out['f32'] = _drive_cgan(torch, tds, _cgan_config(), label,
+                                 TRAIN_STEPS, k1)
+    if out['f32']['per_step']['train']['K1'] != len(K1_TRAIN_SHAPES):
+        fail(f'phase 16: {out["f32"]["per_step"]["train"]} K1 launches a '
+             f'step, not G\'s {len(K1_TRAIN_SHAPES)} gates')
+    out['f32'].update(_cgan_vs_cpu(torch, tds, _cgan_config(), label,
+                                   CGAN_CPU_BATCH))
+    out['graphs_vs_eager'] = _cgan_graphs_vs_eager(torch, tds, _cgan_config(),
+                                                   label)
+    tr16, out['bf16'] = _drive_cgan(
+        torch, tds, _cgan_config(dtype=torch.bfloat16), f'{label}, bfloat16',
+        TRAIN_STEPS, k1)
+    out['serve'] = _cgan_serving(torch, tds, tr, tr16, report)
+    del tr, tr16
+
+    # (b) the spatio-temporal pair: D's gates and stem timed first
+    out['d_gates'] = _k1_gate_rows(torch, tds, CGAN_D_GATES,
+                                   'CGAN discriminator gate')
+    out['d_stem'] = _k3_layer_rows(torch, CGAN_D_STEM, 'CGAN D stem')
+    step = report['k3_step']
+    rec_label = (f'cgan recresnet_spc x{SCALE} (n_filters {N_FILTERS}, T '
+                 f'{REC_T}) + recurrent D (attention), mae')
+    shares = {'K2-train': sum(r['k2_ms'] for r in step)
+              + 2 * sum(r['k2_ms'] for r in out['d_stem']),
+              'K3': sum(r['k3_ms'] for r in step)
+              + 2 * sum(r['k3_ms'] for r in out['d_stem']),
+              'K1 forward': 2 * sum(r['ms'] for r in out['d_gates']),
+              'K1 backward': 2 * sum(r['bwd_ms'] for r in out['d_gates'])}
+    rec, out['recurrent'] = _drive_cgan(
+        torch, tds, _cgan_config(recurrent=True), rec_label, CGAN_REC_STEPS,
+        shares)
+    del rec
+    out['recurrent'].update(_cgan_vs_cpu(
+        torch, tds, _cgan_config(recurrent=True), rec_label,
+        CGAN_REC_CPU_BATCH))
+    out['checkpoints'] = _cgan_checkpoints(torch, tds)
+    card = card_line()
+    for key, what in (('f32', 'float32'), ('bf16', 'bfloat16'),
+                      ('recurrent', 'spatio-temporal float32')):
+        g = out[key]['graphed']
+        print(f'phase 16 summary, {what}: replayed {g["patches_per_s"]:.1f} '
+              f'patches/s, eager {out[key]["eager_patches_per_s"]:.1f} (host '
+              f'clock); one replay {g["replay_ms"]:.3f} ms (CUDA events); '
+              f'{g["launches_per_replay"]:.0f} launches a replay; device busy '
+              f'{100 * g["busy_share"]:.1f}%; {card}', flush=True)
+    serve = out['serve']
+    print(f'phase 16 summary, predict: {serve["f32"]["grids_per_s"]:.2f}'
+          f' grids/s (float32-trained), '
+          f'{serve["bf16"]["grids_per_s"]:.2f} (bfloat16-trained, '
+          f'served in float32); {card}', flush=True)
+
+
+def _cgan_kernel_rows(report):
+    """The `kernels` line's rows of phase 16: K1 in (a)'s training step
+    (G's gates, phase 10's shapes and times; launches from (a)'s float32
+    device trace) and serving (phase 2's shapes and times; launches of the
+    float32-trained generator's predict), K1 in (b)'s discriminator (its
+    gates timed in phase 16), and K2's training variant and K3 in (b)'s
+    step (G's layers at phase 6's shapes and times, D's stem at phase 16's,
+    counted twice: D runs on the real and the generated grids)."""
+    cg = report['cgan']
+    k1 = dict(route='cuda', source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39', bound_by='bytes',
+              library_ms=None)
+
+    def k1_row(name, rows, launches, work, times=1, **extra):
+        row = dict(k1, name=name, launches=launches,
+                   max_abs_err=max(r['max_abs_err'] for r in rows),
+                   ms=times * sum(r['ms'] for r in rows),
+                   plain_ms=times * sum(r['plain_ms'] for r in rows),
+                   bound_ms=times * sum(r['bound_ms'] for r in rows),
+                   work=work, **extra)
+        if 'bwd_launches' in extra:
+            row.update(bwd_ms=times * sum(r['bwd_ms'] for r in rows),
+                       bwd_plain_ms=times * sum(r['bwd_plain_ms']
+                                                for r in rows),
+                       bwd_bound_ms=times * sum(r['bwd_bound_ms']
+                                                for r in rows))
+        return row
+    gates = report['k1_train_rows']
+    f32 = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
+    a, rec = cg['f32'], cg['recurrent']
+    out = [
+        k1_row('K1_channel_attention_cgan_train', gates, a['launches']['K1'],
+               f'the {len(gates)} gates of G in one float32 CGAN step at '
+               f'batch {TRAIN_BATCH} (phase 10\'s shapes and times), forward '
+               f'and backward; launches from phase 16\'s device trace',
+               wrapper_calls=a['wrapper_calls']['K1'],
+               bwd_launches=a['launches']['K1 backward'],
+               bf16_launches=cg['bf16']['launches']['K1']),
+        k1_row('K1_channel_attention_cgan_serve', f32,
+               cg['serve']['f32']['launches']['K1'],
+               f'the {len(f32)} gates of one float32 generator forward at '
+               f'batch {BATCH} (phase 2\'s shapes and times); launches of '
+               f'predict on {N_GRIDS} grids'),
+        k1_row('K1_channel_attention_cgan_disc_train', cg['d_gates'],
+               rec['launches']['K1'],
+               f'the {len(cg["d_gates"])} gates of the spatio-temporal D, '
+               f'x{[r["shape"] for r in cg["d_gates"]]}, twice (D(fake), '
+               f'D(real)) in one float32 step, forward and backward (the '
+               f'backward a third time on D(fake)\'s way to G: launches '
+               f'{rec["per_step"]["train"]["K1 backward"]} a step); '
+               f'launches from phase 16\'s device trace', times=2,
+               wrapper_calls=rec['wrapper_calls']['K1'],
+               bwd_launches=rec['launches']['K1 backward'])]
+    conv = dict(route='cuda', bound_by='operations', library_ms=None)
+    step, stem = report['k3_step'], cg['d_stem']
+
+    def total(key):
+        return (sum(r[key] for r in step) + 2 * sum(r[key] for r in stem))
+    out.append(dict(
+        conv, name='K2_convlstm_train_cgan',
+        source='dl4ds_tpu_torch/csrc/convlstm.cu',
+        replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+        launches=rec['launches']['K2-train'],
+        wrapper_calls=rec['wrapper_calls']['K2-train'],
+        max_abs_err=max(max(r['ys_cs_zs_err'][:2]) for r in stem),
+        ms=total('k2_ms'), plain_ms=total('k2_plain_ms'),
+        bound_ms=total('k2_bound_ms'),
+        work=f'the {len(step)} ConvLSTM layers of G (phase 6\'s shapes and '
+             f'times) and twice the {len(stem)} of D\'s stem (phase 16\'s) '
+             f'in one float32 spatio-temporal CGAN step; launches from '
+             f'phase 16\'s device trace'))
+    out.append(dict(
+        conv, name='K3_convlstm_bptt_cgan',
+        source='dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+        replaces='dl4ds_tpu/ops/pallas_convlstm.py:335',
+        launches=rec['launches']['K3'],
+        wrapper_calls=rec['wrapper_calls']['K3'],
+        max_abs_err=max(max(v for k, v in r['grad_rel_err'].items()
+                            if k != 'plain_f32') for r in stem),
+        ms=total('k3_ms'), plain_ms=total('k3_plain_ms'),
+        bound_ms=total('k3_bound_ms'),
+        work='the BPTT of the same layers (D\'s stem without dx at its LR '
+             'input); launches from phase 16\'s device trace'))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4233,7 +4862,7 @@ def main():
               (8, phase_wide_training), (9, phase_ssim),
               (10, phase_flagship_training), (11, phase_graphs),
               (12, phase_bf16), (13, phase_mos), (14, phase_pin),
-              (15, phase_state))
+              (15, phase_state), (16, phase_cgan))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -4401,7 +5030,8 @@ def main():
                   f'took {k6_step["autograd_bwd_ms"]:.4f} ms)'}
     kernels = ([k1, k2, k2_train, k3, k4, k1_train, k6]
                + _bf16_kernel_rows(report) + _mos_kernel_rows(report)
-               + _pin_kernel_rows(report) + _state_kernel_rows(report))
+               + _pin_kernel_rows(report) + _state_kernel_rows(report)
+               + _cgan_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)

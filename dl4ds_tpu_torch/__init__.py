@@ -7,7 +7,8 @@ inputs and weights can be fed through both. The hot kernels that the JAX
 package wrote in Pallas are written by hand in CUDA C++ (`csrc/`), built
 with `nvcc` at first use and launched on PyTorch's current stream.
 
-Entry points (`predict`, `SupervisedTrainer`, `compute_metrics`) run on
+Entry points (`predict`, `SupervisedTrainer`, `CGANTrainer`,
+`compute_metrics`) run on
 the GPU unless the caller passes `device='cpu'`. The spatial models take
 the convnet, resnet, densenet and ConvNeXt backbones with the sub-pixel,
 resize or transposed-convolution head, or the pre-upsampled input
@@ -17,7 +18,9 @@ layer, and `predict_mc` serves an 'mc*' dropout model as a Monte-Carlo
 ensemble. Both of DL4DS's training modes run: PerfectProg (HR data
 alone, coarsened on the device) and MOS (given LR/HR pairs,
 `data_train_lr=`, served by `predict(array_in_hr=False)`), with season
-channels from time metadata.
+channels from time metadata. `CGANTrainer` trains a generator of the zoo
+against the two-branch `residual_discriminator` (pix2pix-style), one fused
+G+D step at a time.
 """
 
 __version__ = "0.1.0"
@@ -75,14 +78,16 @@ from .losses import (mae, mse, dssim, dssim_mae, dssim_mse, dssim_mae_mse,
 from .preprocessing import MinMaxScaler, StandardScaler
 from .dataloader import BatchSynthesizer, _get_season_, _get_season_array_
 from .models import (DSModel, build_model, net_postupsampling, net_pin,
-                     unet_pin, recnet_postupsampling, save_model, load_model)
+                     unet_pin, recnet_postupsampling, residual_discriminator,
+                     save_model, load_model)
 from .models.blocks import (Dropout, get_dropout_layer, MCDropout,
                             MCGaussianDropout, MCSpatialDropout2D,
                             MCSpatialDropout3D, DropPath, ConvNextBlock,
                             LocalizedConvBlock, use_dropout_generator)
 from .weights import load_jax_params
 from .inference import Predictor, predict, predict_mc
-from .training import SupervisedTrainer
+from .training import (SupervisedTrainer, CGANTrainer, load_checkpoint,
+                       train_step)
 from .metrics import (compute_rmse, compute_correlation, compute_metrics,
                       crps_ensemble, spread_skill, rank_histogram,
                       compute_prob_metrics)

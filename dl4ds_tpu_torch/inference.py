@@ -67,12 +67,18 @@ class Predictor:
 
 
 def _resolve_model(trainer):
-    """(DSModel, nn.Module) from a (model, net) pair or from a trainer that
-    holds `.model` and `.net` (the port's `SupervisedTrainer` after its
-    setup or `run`), as the JAX `_resolve_model` takes a trainer's `.model`
-    and `.variables` (dl4ds_tpu/inference.py:83-93)."""
+    """(DSModel, nn.Module) from a (model, net) pair, from a trained
+    `CGANTrainer` (its `.generator` and raw `.gen_net`: the JAX
+    `_resolve_model` serves a CGAN trainer's raw generator parameters, not
+    the EMA ones that its `.variables` hold), or from a trainer that holds
+    `.model` and `.net` (the port's `SupervisedTrainer` after its setup or
+    `run`), as the JAX `_resolve_model` takes a trainer's `.model` and
+    `.variables` (dl4ds_tpu/inference.py:83-93)."""
     if isinstance(trainer, (tuple, list)) and len(trainer) == 2:
         return trainer[0], trainer[1]
+    if (getattr(trainer, 'generator', None) is not None
+            and getattr(trainer, 'gen_net', None) is not None):
+        return trainer.generator, trainer.gen_net
     if (getattr(trainer, 'model', None) is not None
             and getattr(trainer, 'net', None) is not None):
         return trainer.model, trainer.net

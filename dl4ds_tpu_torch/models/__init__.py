@@ -21,13 +21,13 @@ from ..utils import (checkarg_backbone, checkarg_upsampling,
                      checkarg_dropout_variant, check_compatibility_upsbackb,
                      not_ported, resolve_device)
 from .nets import (NetPostupsampling, NetPIN, UnetPIN, RecNetPostupsampling,
-                   _check_nblocks)
+                   ResidualDiscriminator, _check_nblocks)
 from .blocks import check_dtype
 from . import blocks
 
 __all__ = ['DSModel', 'net_postupsampling', 'net_pin', 'unet_pin',
-           'recnet_postupsampling', 'build_model', 'save_model',
-           'load_model', 'blocks']
+           'recnet_postupsampling', 'residual_discriminator', 'build_model',
+           'save_model', 'load_model', 'blocks']
 
 
 @dataclasses.dataclass
@@ -267,9 +267,38 @@ def build_model(backbone, upsampling, scale, n_channels, n_aux_channels,
                    n_aux_channels=n_aux_channels, hr_size=hr_size, **params)
 
 
+def residual_discriminator(n_channels, upsampling, is_spatiotemporal, scale,
+                           lr_size, n_filters=8, n_res_blocks=4,
+                           normalization=None, activation='relu',
+                           attention=False, time_window=None,
+                           dtype=torch.float32):
+    """Two-branch conditional discriminator of CGAN training
+    (dl4ds_tpu/models/__init__.py:210-237), named 'discriminator'. Its
+    input is the generator's input, LR-sized for the post-upsampling heads
+    and HR-sized for 'pin' (T frames of it when spatio-temporal); its
+    second input, `aux_shape` here as in the JAX `DSModel`, is the HR
+    reference or candidate [(T,) H, W, 1]."""
+    check_dtype(dtype)
+    config = dict(n_channels=n_channels, upsampling=upsampling,
+                  is_spatiotemporal=is_spatiotemporal, scale=scale,
+                  lr_size=tuple(lr_size), n_filters=n_filters,
+                  n_res_blocks=n_res_blocks, normalization=normalization,
+                  activation=activation, attention=attention)
+    build = functools.partial(ResidualDiscriminator, dtype=dtype, **config)
+    build()   # raise now, not at init, on a configuration not ported yet
+    h_lr, w_lr = lr_size
+    h_in, w_in = ((h_lr, w_lr) if upsampling in POSTUPSAMPLING_METHODS
+                  else (h_lr * scale, w_lr * scale))
+    frames = (time_window or 1,) if is_spatiotemporal else ()
+    return DSModel(build, 'discriminator', frames + (h_in, w_in, n_channels),
+                   frames + (h_lr * scale, w_lr * scale, 1),
+                   'ResidualDiscriminator', config, dtype)
+
+
 _FACTORIES = {'NetPostupsampling': net_postupsampling,
               'NetPIN': net_pin, 'UnetPIN': unet_pin,
-              'RecNetPostupsampling': recnet_postupsampling}
+              'RecNetPostupsampling': recnet_postupsampling,
+              'ResidualDiscriminator': residual_discriminator}
 
 
 def save_model(model, net, path):
@@ -307,24 +336,30 @@ def load_model(path, device='cuda'):
         meta = json.load(fh)
     factory = _FACTORIES.get(meta['module_class'])
     if factory is None:
-        raise not_ported(f"model class {meta['module_class']!r}",
-                         {'RecNetPIN': 7}.get(meta['module_class'], 8))
+        raise not_ported(f"model class {meta['module_class']!r}", 7)
     cfg = dict(meta['config'])
     name = cfg.pop('dtype', 'float32')
     dtype = getattr(torch, name, None)
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f'{path}: unknown model dtype {name!r}')
     cfg['dtype'] = check_dtype(dtype)
-    *_, h, w, n_channels = meta['input_shape']
+    *frames, h, w, n_channels = meta['input_shape']
     aux = meta['aux_shape']
-    args = dict(backbone_block=cfg.pop('backbone'), n_channels=n_channels,
-                n_aux_channels=aux[-1] if aux else 0)
-    if 'upsampling' in cfg:
-        args.update(upsampling=cfg.pop('upsampling'), lr_size=(h, w))
+    if meta['module_class'] == 'ResidualDiscriminator':
+        # the Flax module's fields are the factory's arguments; the time
+        # window is the input's first axis
+        args = dict(lr_size=tuple(cfg.pop('lr_size')),
+                    time_window=frames[0] if frames else None)
     else:
-        # a 'pin' model's input is its HR grid; a U-Net keeps the depth
-        # its config holds, which _check_nblocks fixed for that grid
-        args.update(hr_size=(h, w))
+        args = dict(backbone_block=cfg.pop('backbone'),
+                    n_channels=n_channels,
+                    n_aux_channels=aux[-1] if aux else 0)
+        if 'upsampling' in cfg:
+            args.update(upsampling=cfg.pop('upsampling'), lr_size=(h, w))
+        else:
+            # a 'pin' model's input is its HR grid; a U-Net keeps the depth
+            # its config holds, which _check_nblocks fixed for that grid
+            args.update(hr_size=(h, w))
     model = factory(**args, **cfg)
     var_dir = os.path.abspath(os.path.join(path, 'variables'))
     if os.path.isdir(var_dir):
@@ -339,9 +374,10 @@ def load_model(path, device='cuda'):
     return model, net
 
 
-def _read_orbax_tree(directory):
+def _read_orbax_tree(directory, keep=None):
     """The nested dict of numpy arrays that `orbax.checkpoint`'s
-    PyTreeCheckpointer saved in `directory`, read with tensorstore alone.
+    PyTreeCheckpointer saved in `directory`, read with tensorstore alone
+    (with `keep`, the top-level subtrees of those names alone).
     `_METADATA` (JSON) lists each leaf's keys under `tree_metadata` and the
     layout: with `use_ocdbt` (orbax's default) every leaf is a zarr array
     in the directory's one OCDBT store under its keys joined by '.', else
@@ -360,6 +396,8 @@ def _read_orbax_tree(directory):
     tree = {}
     for leaf in meta['tree_metadata'].values():
         keys = [str(k['key']) for k in leaf['key_metadata']]
+        if keep is not None and keys[0] not in keep:
+            continue
         kind = leaf.get('value_metadata', {}).get('value_type', 'np.ndarray')
         if kind not in ('np.ndarray', 'jax.Array', 'scalar'):
             raise ValueError(f'{directory}: leaf {keys} holds a {kind!r}, '

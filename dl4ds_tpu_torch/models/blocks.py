@@ -433,9 +433,13 @@ def get_activation(name):
 
 
 class Conv(nn.Module):
-    """SAME-padded stride-1 2-D convolution of an NHWC tensor. The kernel is
-    held in torch's OIHW layout; odd kernel sizes only (SAME padding is then
-    symmetric). `groups` is Flax's `feature_group_count` (the ConvNeXt
+    """2-D convolution of an NHWC tensor, SAME-padded at stride 1 by
+    default. The kernel is held in torch's OIHW layout; odd kernel sizes
+    only (SAME padding is then symmetric at stride 1). With `strides` s > 1
+    (the discriminator's downsampling convs) the output has ceil(n / s)
+    rows for 'SAME', XLA's padding of (out - 1) * s + k - n rows split with
+    the smaller half first, and (n - k) // s + 1 for 'VALID'. `groups` is
+    Flax's `feature_group_count` (the ConvNeXt
     block's depthwise conv: a Flax kernel [kh, kw, 1, C] is [C, 1, kh, kw]
     here). In `dtype` bfloat16 the input, weight and bias are cast to
     it and the bias is added after the convolution's rounding, as Flax's
@@ -446,7 +450,8 @@ class Conv(nn.Module):
     rounds a few outputs otherwise)."""
 
     def __init__(self, in_channels, filters, kernel_size=(3, 3),
-                 use_bias=True, dtype=torch.float32, groups=1):
+                 use_bias=True, dtype=torch.float32, groups=1, strides=1,
+                 padding='SAME'):
         super().__init__()
         self.dtype = check_dtype(dtype)
         kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
@@ -454,7 +459,12 @@ class Conv(nn.Module):
         if kh % 2 == 0 or kw % 2 == 0:
             raise NotImplementedError(
                 f'even kernel {kh}x{kw}: SAME padding would be asymmetric')
-        self.padding = (kh // 2, kw // 2)
+        if padding not in ('SAME', 'VALID'):
+            raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                             f'{padding!r}')
+        self.stride = int(strides)
+        self.pad_mode = padding
+        self.padding = ((kh // 2, kw // 2) if padding == 'SAME' else (0, 0))
         self.groups = groups
         self.weight = nn.Parameter(
             torch.empty(filters, in_channels // groups, kh, kw))
@@ -470,18 +480,31 @@ class Conv(nn.Module):
             with torch.no_grad():
                 self.bias.zero_()
 
+    def _same_pads(self, x):
+        """XLA's SAME padding of a strided conv on x [B, H, W, C]: (left,
+        right, top, bottom), the smaller half first."""
+        pads = []
+        for n, k in zip(x.shape[1:3], self.weight.shape[2:]):
+            out = -(-n // self.stride)
+            total = max((out - 1) * self.stride + k - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads[1] + pads[0]
+
     def forward(self, x):
-        args = dict(padding=self.padding, groups=self.groups)
+        args = dict(padding=self.padding, groups=self.groups,
+                    stride=self.stride)
+        xt = x.permute(0, 3, 1, 2)
+        if self.stride > 1 and self.pad_mode == 'SAME':
+            xt = F.pad(xt, self._same_pads(x))
+            args['padding'] = 0
         if self.dtype == torch.float32:   # (also float64 reference runs)
-            y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                         **args)
+            y = F.conv2d(xt, self.weight, self.bias, **args)
             return y.permute(0, 2, 3, 1).contiguous()
-        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        xt, w = xt.to(self.dtype), self.weight.to(self.dtype)
         if x.is_cuda:
-            y = F.conv2d(x.permute(0, 3, 1, 2), w, **args)
+            y = F.conv2d(xt, w, **args)
         else:   # rounded once from float32, as XLA's CPU convolution
-            y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float(),
-                         **args).to(self.dtype)
+            y = F.conv2d(xt.float(), w.float(), **args).to(self.dtype)
         y = y.permute(0, 2, 3, 1).contiguous()
         return y if self.bias is None else y + self.bias.to(self.dtype)
 

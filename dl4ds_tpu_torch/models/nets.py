@@ -8,7 +8,8 @@ pre-upsampled models `NetPIN` and `UnetPIN`; and the spatio-temporal
 (ConvLSTM) model with the resnet merge and any of the three heads. Every
 model takes the JAX package's normalization ('bn', 'ln'), dropout (rate
 and variant, at the JAX package's places) and localized output layer
-(`localcon_layer`, whose weights fix the HR grid `hr_size`). Submodule
+(`localcon_layer`, whose weights fix the HR grid `hr_size`); and CGAN's
+two-branch `ResidualDiscriminator`. Submodule
 names follow the Flax parameter tree (`_Backbone_0`, `ResidualBlock1`,
 `ConvNextBlock1`, `DenseBlock1`, `EncoderBlock1`, `RecurrentConvBlock1`,
 `LocalizedConvBlock_0`, ...), and the input channels of every module are
@@ -23,16 +24,17 @@ import warnings
 import torch
 import torch.nn as nn
 
+from ..interpolation import resize2d
 from ..utils import not_ported
 from .blocks import (Conv, ConvBlock, ResidualBlock, DenseBlock,
                      TransitionBlock, ConvNextBlock, LocalizedConvBlock,
                      SubpixelConvolutionBlock, ResizeConvolutionBlock,
                      DeconvolutionBlock, EncoderBlock, RecurrentConvBlock,
-                     get_activation, pad_concat, check_dtype, remat_call,
-                     _dropout, _maybe)
+                     Dense, Dropout, get_activation, pad_concat, check_dtype,
+                     remat_call, _dropout, _maybe)
 
 __all__ = ['NetPostupsampling', 'NetPIN', 'UnetPIN', 'RecNetPostupsampling',
-           '_check_nblocks']
+           'ResidualDiscriminator', '_check_nblocks']
 
 
 class _Backbone(nn.Module):
@@ -529,3 +531,163 @@ class RecNetPostupsampling(nn.Module):
         x = self.TransitionLast(_with_localcon(self, x))
         x = self._modules[self.out_name](self._modules[self.gate_name](x))
         return x.reshape(b, t, *x.shape[1:])
+
+
+def _mean(x, dims=None):
+    """jnp.mean over `dims` (all: None): a bfloat16 input summed and
+    divided in float32, then rounded once."""
+    dims = tuple(range(x.dim())) if dims is None else dims
+    if x.dtype == torch.bfloat16:
+        return x.float().mean(dims).to(x.dtype)
+    return x.mean(dims)
+
+
+class _Logistic(torch.autograd.Function):
+    """jax.nn.sigmoid as XLA computes it: 1 / (1 + exp(-x)), each op
+    rounded to x's dtype (so in bfloat16 three roundings, where
+    torch.sigmoid rounds once), with its JVP's backward g * (y * (1 - y))
+    in the same order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+def _valid_chain_fits(hr_hw, lr_size):
+    """True iff the reference's scale-5 chain (two 3x3 VALID stride-2
+    convs, then a crop of 1 at the bottom and right) maps the HR grid
+    `hr_hw` exactly onto `lr_size` (dl4ds_tpu/models/nets.py:583-591)."""
+    def out(n):
+        return (n - 3) // 2 + 1
+    return tuple(out(out(n)) - 1 for n in hr_hw) == tuple(lr_size)
+
+
+class ResidualDiscriminator(nn.Module):
+    """Two-branch conditional discriminator
+    (dl4ds_tpu/models/nets.py:560-655). Branch 1 takes the model input
+    (LR, or HR for 'pin'): a stem conv, `n_res_blocks` residual blocks and
+    a conv, plus the stem; a spatio-temporal discriminator's stem is a
+    `RecurrentConvBlock` with layer norm, after which [B, T] is one batch
+    axis. Branch 2 takes the HR candidate [B(, T), H, W, 1]: a stem conv and
+    residual blocks, then down to the LR grid by two SAME stride-2 convs
+    (scale 4), two VALID stride-2 convs and a bottom/right crop (scale 5
+    where that lands on `lr_size`), bilinear `resize2d` (other scales), or
+    for 'pin' a conv and the stem added. The branches are concatenated, a
+    residual block runs over 2f channels, the mean is taken over the grid
+    (and then over T), and Dropout(0.4), Dense(32), sigmoid, Dense(1),
+    sigmoid give [B, 1] (the sigmoid as XLA computes it, `_Logistic`). The
+    branches' residual blocks take the default relu; `activation` reaches
+    the recurrent stem alone, as in the JAX module.
+
+    The submodules carry the Flax names: `Conv_<i>` in creation order
+    (the stems, branch 1's out conv, branch 2's strided or 'pin' convs),
+    `RecurrentConvBlock_0`, `ResidualBlock<i>_branch1|2`, the merge's
+    `ResidualBlock_0`, `Dropout_0`, `Dense_0`, `Dense_1`. The branch-2
+    route is fixed here from the HR grid lr_size * scale; another grid
+    that would route otherwise raises at the call."""
+
+    def __init__(self, n_channels, upsampling, is_spatiotemporal, scale,
+                 lr_size, n_filters=8, n_res_blocks=4, normalization=None,
+                 activation='relu', attention=False, dtype=torch.float32):
+        super().__init__()
+        check_dtype(dtype)
+        f = n_filters
+        self.is_spatiotemporal = is_spatiotemporal
+        self.lr_size = tuple(int(s) for s in lr_size)
+        self.scale = scale
+        self.n_res_blocks = n_res_blocks
+        self.upsampling = upsampling
+        names = iter(f'Conv_{i}' for i in range(6))
+        block = dict(normalization=normalization, attention=attention,
+                     dtype=dtype)
+        if is_spatiotemporal:
+            self.RecurrentConvBlock_0 = RecurrentConvBlock(
+                n_channels, f, activation=activation, normalization='ln',
+                dtype=dtype)
+            self.stem1 = 'RecurrentConvBlock_0'
+        else:
+            self.stem1 = next(names)
+            self.add_module(self.stem1, Conv(n_channels, f, dtype=dtype))
+        for i in range(n_res_blocks):
+            self.add_module(f'ResidualBlock{i + 1}_branch1',
+                            ResidualBlock(f, f, **block))
+        self.out1 = next(names)
+        self.add_module(self.out1, Conv(f, f, dtype=dtype))
+        self.stem2 = next(names)
+        self.add_module(self.stem2, Conv(1, f, dtype=dtype))
+        for i in range(n_res_blocks):
+            self.add_module(f'ResidualBlock{i + 1}_branch2',
+                            ResidualBlock(f, f, **block))
+        hr_hw = tuple(s * scale for s in self.lr_size)
+        self.route = self._route(hr_hw)
+        self.down = []
+        if self.route in ('same', 'valid'):
+            pad = self.route.upper()
+            for _ in range(2):
+                self.down.append(next(names))
+                self.add_module(self.down[-1], Conv(
+                    f, f, strides=2, padding=pad, dtype=dtype))
+        elif self.route == 'pin':
+            self.down.append(next(names))
+            self.add_module(self.down[-1], Conv(f, f, dtype=dtype))
+        self.ResidualBlock_0 = ResidualBlock(2 * f, 2 * f, **block)
+        self.Dropout_0 = Dropout(0.4)
+        self.Dense_0 = Dense(2 * f, 32, dtype=dtype)
+        self.Dense_1 = Dense(32, 1, dtype=dtype)
+
+    def _route(self, hr_hw):
+        from .. import POSTUPSAMPLING_METHODS
+        if self.upsampling not in POSTUPSAMPLING_METHODS:
+            return 'pin'
+        if self.scale == 4:
+            return 'same'
+        if self.scale == 5 and _valid_chain_fits(hr_hw, self.lr_size):
+            return 'valid'
+        return 'resize'
+
+    def forward(self, x, x_ref):
+        bt = None
+        if self.is_spatiotemporal:
+            # everything after the recurrent stem runs per frame, on [B*T]
+            x1 = self.RecurrentConvBlock_0(x)
+            bt = tuple(x1.shape[:2])
+            x1 = x1.reshape(bt[0] * bt[1], *x1.shape[2:])
+            x_ref = x_ref.reshape(bt[0] * bt[1], *x_ref.shape[2:])
+        else:
+            x1 = self._modules[self.stem1](x)
+        b = x1
+        for i in range(self.n_res_blocks):
+            b = self._modules[f'ResidualBlock{i + 1}_branch1'](b)
+        x1 = x1 + self._modules[self.out1](b)
+        x2 = c = self._modules[self.stem2](x_ref)
+        for i in range(self.n_res_blocks):
+            c = self._modules[f'ResidualBlock{i + 1}_branch2'](c)
+        route = self._route(tuple(c.shape[1:3]))
+        if route != self.route:
+            raise ValueError(f'discriminator built for the HR grid '
+                             f'{tuple(s * self.scale for s in self.lr_size)}'
+                             f' ({self.route!r}); a {tuple(c.shape[1:3])} '
+                             f'grid routes {route!r}')
+        if route in ('same', 'valid'):
+            x2 = self._modules[self.down[1]](self._modules[self.down[0]](c))
+            if route == 'valid':
+                x2 = x2[:, :-1, :-1, :]   # Cropping2D ((0, 1), (0, 1))
+        elif route == 'resize':
+            x2 = resize2d(c, self.lr_size, 'bilinear').to(c.dtype)
+        else:
+            x2 = x2 + self._modules[self.down[0]](c)
+        dt = torch.promote_types(x1.dtype, x2.dtype)
+        x = self.ResidualBlock_0(torch.cat([x1.to(dt), x2.to(dt)], dim=-1))
+        x = _mean(x, (1, 2))
+        if bt is not None:
+            # the mean over the merged rows, then over T, in JAX's order
+            x = _mean(x.reshape(*bt, x.shape[-1]), 1)
+        x = _Logistic.apply(self.Dense_0(self.Dropout_0(x)))
+        return _Logistic.apply(self.Dense_1(x))

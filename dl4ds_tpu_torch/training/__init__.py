@@ -2,5 +2,7 @@
 
 from .base import Trainer
 from .supervised import SupervisedTrainer
+from .cgan import CGANTrainer, load_checkpoint, train_step
 
-__all__ = ['Trainer', 'SupervisedTrainer']
+__all__ = ['Trainer', 'SupervisedTrainer', 'CGANTrainer', 'load_checkpoint',
+           'train_step']

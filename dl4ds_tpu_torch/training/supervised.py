@@ -578,14 +578,16 @@ class StepRunner:
     host's mini-step picks them; the evaluation functions are one a split
     of `evals` ({split: (synthesizer, steps)}), scoring `eval_net()`.
     Graphs share one memory pool. `graphs` maps each name to its
-    `CapturedStep` on the card."""
+    `CapturedStep` on the card. A training step's loss is a float32 tensor
+    of `loss_shape` (a scalar; the CGAN trainer's four losses)."""
 
-    def __init__(self, trainer, steps_per_execution, evals):
+    def __init__(self, trainer, steps_per_execution, evals, loss_shape=()):
         tr = self.trainer = trainer
         dev = tr.device
         self.spe = steps_per_execution
         self.plan = tr.ds_train.plan_buffers(self.spe)
-        self.losses = torch.zeros(self.spe, dtype=torch.float32, device=dev)
+        self.losses = torch.zeros((self.spe, *loss_shape),
+                                  dtype=torch.float32, device=dev)
         fns = {}
         if tr.gradient_accumulation_steps > 1:
             fns['accumulate'] = lambda: tr._plan_step(self.plan, self.losses,
@@ -636,7 +638,8 @@ class StepRunner:
         n = plan['idx'].shape[0]
         if self.graphs:
             plan = {k: v.pin_memory() for k, v in plan.items()}
-        out = torch.empty(n, dtype=torch.float32, device=tr.device)
+        out = torch.empty((n, *self.losses.shape[1:]), dtype=torch.float32,
+                          device=tr.device)
         accumulate = tr.gradient_accumulation_steps > 1
         for c in range(0, n, self.spe):
             self._upload(self.plan, plan, slice(c, c + self.spe))

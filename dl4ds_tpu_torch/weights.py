@@ -2,8 +2,9 @@
 
 The torch modules carry the Flax tree's names (explicit ones such as `stem`,
 `ResidualBlock1`, `Transition1`, `EncoderBlock1`, `conv2x`, `deconv_2of3`,
-`input_conv`, and Flax's auto-names such as `Conv_0`, `ChannelAttention2D_0`,
-`_Norm_0`, `Dense_0`, `ResizeConvolutionBlock_0`, `ConvLSTM2D_0`), so the
+`input_conv`, the discriminator's `ResidualBlock1_branch1`, and Flax's
+auto-names such as `Conv_0`, `ChannelAttention2D_0`, `_Norm_0`, `Dense_0`,
+`ResizeConvolutionBlock_0`, `ConvLSTM2D_0`, `RecurrentConvBlock_0`), so the
 tree and the module hierarchy are walked together. A leaf of the `params`
 collection is a parameter of the module at its path under the same name
 (a gate's w1/b1/w2/b2, a ConvLSTM's or transposed conv's HWIO `kernel`, a

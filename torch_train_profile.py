@@ -4,7 +4,8 @@
     python3 torch_train_profile.py [--model recresnet_spc|resnet_spc|
         convnet_pin|unet_pin] [--loss mae] [--batch 128] [--reps 5]
         [--width 8] [--attention] [--graphed] [--dtype bf16] [--mos]
-        [--state convnext|bn_mc|recurrent]   # from the repo root
+        [--state convnext|bn_mc|recurrent] [--cgan [--time-window 4]]
+        # from the repo root
 
 Builds the training configuration of `chip_smoke.py` phase 7 (BASELINE
 config 4 as bench_suite.py's measure_supervised trains it:
@@ -26,7 +27,10 @@ is phase 13's); `--state` trains `chip_smoke.py` phase 15's (a) convnext_spc
 with the localized layer on whole 128x128 grids (pass `--batch 32`, as phase
 15 trains it), (b) the flagship with bn, 'mcdrop' and an EMA, or (c)
 recresnet_spc with ln and 'mcspatialdrop' (`--batch` and `--dtype` still
-read). Runs 3 warm-up steps, then `reps` steps (batch synthesis, forward,
+read); `--cgan` trains `chip_smoke.py` phase 16's CGAN pair, (a) the bench's
+(bench_suite.py's cgan_resnet_spc_4x) or with `--time-window 4` (b) the
+spatio-temporal one, one fused G+D step a step (`--batch` and `--dtype`
+still read). Runs 3 warm-up steps, then `reps` steps (batch synthesis, forward,
 backward, Adam) under `torch.profiler` on one GPU, and prints one JSON line:
 device time per kernel group and for the top kernels, every kernel's
 launches and device time a step (`kernels_per_step`), the device time inside
@@ -111,6 +115,10 @@ def main():
                     help="chip_smoke.py phase 13's MOS training")
     ap.add_argument('--state', choices=('convnext', 'bn_mc', 'recurrent'),
                     help="chip_smoke.py phase 15's training (a), (b), (c)")
+    ap.add_argument('--cgan', action='store_true',
+                    help="chip_smoke.py phase 16's CGAN training")
+    ap.add_argument('--time-window', type=int, choices=(4,),
+                    help='with --cgan: the spatio-temporal pair, (b)')
     args = ap.parse_args()
 
     import numpy as np
@@ -126,7 +134,18 @@ def main():
         annotate_backwards(torch, ops)
 
     dtype = {'f32': torch.float32, 'bf16': torch.bfloat16}[args.dtype]
-    if args.mos or args.state:
+    if args.cgan:
+        import chip_smoke
+        config = chip_smoke._cgan_config(recurrent=bool(args.time_window),
+                                         dtype=dtype)
+        config['batch_size'] = args.batch
+        tr = tds.CGANTrainer(**config)
+        tr.setup_datagen()
+        tr.setup_model()
+        tr.setup_optimizer(args.reps)
+        tr.train_net.train()
+        model, arch = tr.generator, config['generator_params']
+    elif args.mos or args.state:
         import chip_smoke
         config = (chip_smoke._state_config(args.state) if args.state
                   else chip_smoke._mos_config(tds)[0])
@@ -148,14 +167,17 @@ def main():
             data_test=data[:64], scale=4, patch_size=64,
             batch_size=args.batch, loss=args.loss, n_filters=args.width,
             attention=args.attention, verbose=False, dtype=dtype, **model)
-    tr.setup_datagen()
-    tr.setup_model()
-    tr.setup_optimizer()
-    tr.net.train()
+    if not args.cgan:
+        tr.setup_datagen()
+        tr.setup_model()
+        tr.setup_optimizer()
+        tr.net.train()
+        model, arch = tr.model, tr.architecture_params
     gen = torch.Generator().manual_seed(0)
     if args.graphed:
         from dl4ds_tpu_torch.training.supervised import StepRunner
-        runner = StepRunner(tr, args.reps, {})
+        runner = StepRunner(tr, args.reps, {},
+                            loss_shape=(4,) if args.cgan else ())
         runner.train(tr.ds_train.plan(gen, args.reps))
         plan = tr.ds_train.plan(gen, args.reps)
 
@@ -208,12 +230,13 @@ def main():
     per = 1e3 * args.reps                 # us summed over reps -> ms a step
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     print(json.dumps({
-        'device': torch.cuda.get_device_name(0), 'model': tr.model.name,
+        'device': torch.cuda.get_device_name(0), 'model': model.name,
         'dtype': args.dtype, 'mos': args.mos, 'state': args.state,
-        'input_channels': tr.model.input_shape[-1],
-        'aux_channels': (tr.model.aux_shape or (0,))[-1],
-        'loss': tr.loss, 'width': tr.architecture_params['n_filters'],
-        'attention': tr.architecture_params.get('attention', False),
+        'cgan': args.cgan, 'time_window': args.time_window,
+        'input_channels': model.input_shape[-1],
+        'aux_channels': (model.aux_shape or (0,))[-1],
+        'loss': tr.loss, 'width': arch['n_filters'],
+        'attention': arch.get('attention', False),
         'batch': args.batch, 'reps': args.reps,
         'mode': 'graphed' if args.graphed else 'eager',
         'kernel_launches_per_step': len(kernels) / args.reps,
