@@ -201,7 +201,33 @@ Phases, each of which exits non-zero on failure:
      first, 3 steps at batch 2 against the CPU; (c) checkpoints every
      epoch with an EMA, `load_checkpoint` giving the trained generator's
      output and D's weights, and a resumed run;
- 17. print the `kernels` JSON line, then, last, the device JSON line. In
+ 17. the rest of the spatio-temporal zoo and the streaming tier: (a)
+     recresnet_pin x4 (`SupervisedTrainer('resnet', 'pin', scale=4,
+     time_window=4, patch_size=64, batch_size=128, n_filters=8, n_blocks=6,
+     loss='mae')` on phase 7's data), whose 14 ConvLSTM layers run on the
+     64x64 HR frames: each layer's route printed (float32 and bfloat16), K2's
+     training variant and K3 held against their plain versions and timed at
+     its three HR layer shapes, 2 epochs of 10 steps through `run()`'s
+     replayed graphs with K2, K3 and K4 counted in the device trace against
+     `dispatch_info`'s routes, finite losses, the speed, the peak device
+     memory, 3 steps at batch 8 against the CPU in float64, 2 epochs in
+     bfloat16, `predict(time_window=4)` of 19 HR grids of 128x128 (K2 112
+     launches) against the CPU, K2 at its serving layers held and timed;
+     (b) recconvnet_spc and recdensenet_spc (phase 7's configuration with
+     the merge swapped) trained the same way for 2 epochs of 10 steps, 3
+     steps against the CPU, served on 19 LR grids; (c) the streaming tier
+     (`data_in_hbm=False`) at STREAM.json's size, the flagship on 1024
+     grids of 128x128: the native host library loaded, three batches
+     streamed through the pinned slots equal to `BatchSynthesizer.build` at
+     the same indices and offsets, a batch's gather + crop (host clock) and
+     copy to the card (CUDA events) from host RAM and from a memmapped
+     .npy (kept a view), `run()` from host RAM, from the memmap and in
+     device memory with the replayed patches/s and the device's busy share
+     of each tier, 8 streamed steps through `run()`'s graph bit for bit
+     against 8 eager steps with K1's launches in the device trace, then
+     CGAN (a) and recresnet_pin streamed for one epoch of 4 steps with their
+     launches in the device trace;
+ 18. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -209,15 +235,20 @@ Phases, each of which exits non-zero on failure:
      K1_channel_attention_convnext_train, K1_channel_attention_bn_train,
      K2_convlstm_train_ln_dropout, K3_convlstm_bptt_ln_dropout,
      K1_channel_attention_cgan_train, K1_channel_attention_cgan_disc_train,
-     K2_convlstm_train_cgan, K3_convlstm_bptt_cgan) is what the device
-     trace of its phase's run holds, and `wrapper_calls` what its wrapper
+     K2_convlstm_train_cgan, K3_convlstm_bptt_cgan,
+     K2_convlstm_train_recnet_pin, K3_convlstm_bptt_recnet_pin,
+     K2_convlstm_train_recconvnet, K3_convlstm_bptt_recconvnet,
+     K2_convlstm_train_recdensenet, K3_convlstm_bptt_recdensenet,
+     K1_channel_attention_stream_train) is what the device trace of its
+     phase's run holds, and `wrapper_calls` what its wrapper
      counted (the warm-up calls and the capture: a replay calls no
      wrapper; a CGAN run's eager test loss adds to both); the serving
      kernels (K1_channel_attention, K2_convlstm,
      K1_channel_attention_mos_serve, K1_channel_attention_pin_serve,
      K1_channel_attention_rc_dc_serve, K1_channel_attention_convnext_serve,
      K1_channel_attention_mc_serve, K2_convlstm_mc_serve,
-     K1_channel_attention_cgan_serve) and K6_ssim_metrics run eagerly, and
+     K1_channel_attention_cgan_serve, K2_convlstm_recnet_pin_serve) and
+     K6_ssim_metrics run eagerly, and
      their `launches` are their wrappers' counts.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
@@ -1411,17 +1442,18 @@ def _counters(tds):
             ('K6 backward', tds.fused_ssim_per_image, 'bwd_launches')]
 
 
-def _expected_launches(conv, layers, steps, eval_steps, itemsize=4):
+def _expected_launches(conv, layers, steps, eval_steps, itemsize=4,
+                       hw=TRAIN_LR):
     """{counter: launches} of `steps` training steps and `eval_steps`
     validation or test steps of a recurrent model with these (Cin, F, k)
-    ConvLSTM layers, by `dispatch_info`'s route of each (for the model
-    dtype's `itemsize`): K3 a layer is T chain steps, dx (not for the stem,
-    whose input needs no gradient), the Wx and Wh passes and one
-    reduction; K4 a layer is T chain steps. With (1, 0) and (0, 1), the
-    launches a captured step must hold."""
+    ConvLSTM layers on hw x hw frames, by `dispatch_info`'s route of each
+    (for the model dtype's `itemsize`): K3 a layer is T chain steps, dx
+    (not for the stem, whose input needs no gradient), the Wx and Wh passes
+    and one reduction; K4 a layer is T chain steps. With (1, 0) and (0, 1),
+    the launches a captured step must hold."""
     k3 = k4 = 0
     for cin, f, k in layers:
-        x_shape = (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin)
+        x_shape = (TRAIN_BATCH, REC_T, hw, hw, cin)
         route = conv.dispatch_info(x_shape, (k, k, cin, 4 * f),
                                    (k, k, f, 4 * f), itemsize)['path']
         if route == 'fused':
@@ -1818,19 +1850,23 @@ def _graphed_speed(torch, tds, tr, steps, per_step, label,
                 launches_per_replay=len(kernels) / steps)
 
 
-def _print_routes(conv, layers):
+def _print_routes(conv, layers, hw=TRAIN_LR, itemsize=4):
+    routes = {}
     for cin, f, k in dict.fromkeys(layers):
         info = conv.dispatch_info(
-            (TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin), (k, k, cin, 4 * f),
-            (k, k, f, 4 * f))
+            (TRAIN_BATCH, REC_T, hw, hw, cin), (k, k, cin, 4 * f),
+            (k, k, f, 4 * f), itemsize)
+        routes[f'Cin {cin}, F {f}, {k}x{k}'] = info['path']
         print(f'ConvLSTM layer (Cin {cin}, F {f}, {k}x{k}) at batch '
-              f'{TRAIN_BATCH}: backward route {info["path"]} '
-              f'({info["reason"]})', flush=True)
+              f'{TRAIN_BATCH}, {hw}x{hw} frames, itemsize {itemsize}: '
+              f'backward route {info["path"]} ({info["reason"]})',
+              flush=True)
+    return routes
 
 
-def _recurrent_per_step(conv, layers, itemsize=4):
-    return {'train': _expected_launches(conv, layers, 1, 0, itemsize),
-            'eval': _expected_launches(conv, layers, 0, 1, itemsize)}
+def _recurrent_per_step(conv, layers, itemsize=4, hw=TRAIN_LR):
+    return {'train': _expected_launches(conv, layers, 1, 0, itemsize, hw),
+            'eval': _expected_launches(conv, layers, 0, 1, itemsize, hw)}
 
 
 def phase_training(torch, tds, report):
@@ -2192,20 +2228,22 @@ def _max_diff(a, b):
                for x, y in zip(a, b))
 
 
-def _replay_profile(torch, runner, plan):
+def _replay_profile(torch, runner, plan, run=None):
     """(the device kernels, busy ms, span ms) of one `runner.train(plan)`
-    (a chunk of replays with its plan upload) under torch.profiler; busy is
-    the union of the kernels' intervals. The chunk runs twice in the trace,
+    (a chunk of replays with its plan upload), or of `run()`, under
+    torch.profiler; busy is the union of the kernels' intervals. The chunk
+    runs twice in the trace,
     PROFILE_GUARD_S apart, and the second is read (the kernels after the
     widest gap on the device): the first is the profiler's warm-up. A
     trace of one chunk lost 4 of 400 K2 launches (one layer's T) both
     times it was taken in one full run of this script (phase 16 (b) on the
     H100), and 2 of 480 once in phase 15 (c)."""
+    run = run or (lambda: runner.train(plan))
     with _device_trace(torch) as prof:
-        runner.train(plan)
+        run()
         torch.cuda.synchronize()
         time.sleep(PROFILE_GUARD_S)
-        runner.train(plan)
+        run()
     kernels = sorted(_device_kernels(torch, prof),
                      key=lambda e: e.time_range.start)
     if not kernels:
@@ -2923,7 +2961,7 @@ def _bf16_predict(torch, tds, recurrent):
 
 
 def _bf16_training(torch, tds, config, label, steps, per_step,
-                   batch=TRAIN_BATCH, retraces=0):
+                   batch=TRAIN_BATCH, retraces=0, phase=12):
     """Phase 12, training: `run()` at batch 128 for 2 epochs of `steps`
     steps with validation and test through the replayed graphs, under
     torch.profiler with the counters zeroed just before: the launches in
@@ -2937,12 +2975,12 @@ def _bf16_training(torch, tds, config, label, steps, per_step,
     run_s, calls, kernels = _traced_run(torch, tds, tr)
     losses = tr.fithist['loss'] + tr.fithist['val_loss'] + [tr.test_loss]
     got = _check_launches(
-        tds, tr.runner, f'phase 12 ({label})', per_step,
+        tds, tr.runner, f'phase {phase} ({label})', per_step,
         {'step': TRAIN_EPOCHS * steps,
          'val': TRAIN_EPOCHS * TRAIN_VAL_STEPS, 'test': TRAIN_TEST_STEPS},
         calls, kernels)
     if not all(np.isfinite(v) for v in losses):
-        fail(f'phase 12 ({label}) gave non-finite losses {losses}')
+        fail(f'phase {phase} ({label}) gave non-finite losses {losses}')
     gen = torch.Generator().manual_seed(1)
     idx = tr.ds_train.epoch_indices(gen, steps=steps)
     tr.net.train()
@@ -2954,7 +2992,7 @@ def _bf16_training(torch, tds, config, label, steps, per_step,
     eager = steps * batch / (time.perf_counter() - t0)
     graphed = _graphed_speed(torch, tds, tr, steps, per_step, label, batch,
                              retraces)
-    print(f'phase 12, {label}: history {tr.fithist}, test loss '
+    print(f'phase {phase}, {label}: history {tr.fithist}, test loss '
           f'{tr.test_loss:.6f}; replayed {graphed["patches_per_s"]:.1f} '
           f'patches/s, eager {eager:.1f} (host clock); one replay '
           f'{graphed["replay_ms"]:.3f} ms (CUDA events), '
@@ -4538,12 +4576,12 @@ def _cgan_graphs_vs_eager(torch, tds, config, label):
     return diffs
 
 
-def _k3_layer_rows(torch, layers, label, seed=300):
+def _k3_layer_rows(torch, layers, label, seed=300, hw=TRAIN_LR):
     """K2's training variant and K3 at a path's (Cin, F, k, x needs a
-    gradient) layers at batch TRAIN_BATCH, T REC_T, TRAIN_LR x TRAIN_LR,
-    held against their plain versions (`_check_k3_case`, TF32 off) and
-    timed against them and their bounds. Returns the rows, with phase 6's
-    keys."""
+    gradient) layers at batch TRAIN_BATCH, T REC_T, hw x hw frames (LR
+    patches by default), held against their plain versions
+    (`_check_k3_case`, TF32 off) and timed against them and their bounds.
+    Returns the rows, with phase 6's keys."""
     import dl4ds_tpu_torch.ops.convlstm as conv
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4553,10 +4591,10 @@ def _k3_layer_rows(torch, layers, label, seed=300):
     rows = []
     for i, (cin, f, k, need_dx) in enumerate(layers):
         wx, bx, wh = _layer_weights(torch, cin, f, k, k, seed + i, dev)
-        x = torch.randn((TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, cin),
-                        generator=gen, device=dev)
-        dys = torch.randn((TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, f),
-                          generator=gen, device=dev)
+        x = torch.randn((TRAIN_BATCH, REC_T, hw, hw, cin), generator=gen,
+                        device=dev)
+        dys = torch.randn((TRAIN_BATCH, REC_T, hw, hw, f), generator=gen,
+                          device=dev)
         what = f'{label} x{list(x.shape)} F={f} k={k}'
         fwd_err, errs, (ys, cs, zs) = _check_k3_case(
             torch, conv, x, wx, bx, wh, dys, need_dx, what)
@@ -4830,6 +4868,534 @@ def _cgan_kernel_rows(report):
     return out
 
 
+# phase 17: the rest of the spatio-temporal zoo, and the streaming tier.
+# (a) recresnet_pin x4: SupervisedTrainer('resnet', 'pin', scale=4,
+# time_window=4, patch_size=64, batch_size=128, n_filters=8, n_blocks=6,
+# loss='mae'), n_blocks 6 being recnet_pin's default
+# (dl4ds_tpu/models/__init__.py:187), on phase 7's data (bench_suite.py:
+# 111-121): its 14 ConvLSTM layers (a 5x5 and a 3x3 a block, the stem's
+# input the one pre-upsampled channel) run on the 64x64 HR frames, 16
+# times the pixels of recresnet_spc's LR frames; 2 epochs of PINREC_STEPS
+# steps in float32 and bfloat16, 3 steps at PINREC_CPU_BATCH against the
+# CPU in float64, `predict(time_window=4)` of 19 HR grids of 128x128
+PINREC_BLOCKS, PINREC_STEPS, PINREC_CPU_BATCH = 6, 10, 8
+PINREC_LAYERS = [layer for cin in [1] + [N_FILTERS] * PINREC_BLOCKS
+                 for layer in ((cin, N_FILTERS, 5), (N_FILTERS, N_FILTERS, 3))]
+# (b) bench_suite.py's recresnet_spc_4x_tw4 (bench_suite.py:224-226) with
+# the convnet and the densenet merge: phase 7's layers, 2 epochs of
+# MERGE_STEPS steps, 3 steps at batch 16 against the CPU, predict
+MERGE_STEPS = 10
+# (c) the streaming tier at STREAM.json's size: the flagship (resnet_spc
+# x4, attention, n_filters 8, n_blocks 6, mae) on 1024 grids of 128x128
+# (67 MB), 64x64 patches at batch 128, from host RAM and from a memmapped
+# .npy file, beside the in-device tier; then CGAN (a) and configuration (a)
+# streamed for one epoch of STREAM_SHORT steps each
+STREAM_GRIDS, STREAM_VAL, STREAM_EPOCHS, STREAM_SHORT = 1024, 256, 3, 4
+STREAM_HOST_REPS = 20
+
+
+def _pinrec_config(**extra):
+    """SupervisedTrainer arguments of phase 17 (a)."""
+    return _training_config(backbone='resnet', upsampling='pin', loss='mae',
+                            time_window=REC_T, n_blocks=PINREC_BLOCKS,
+                            n_filters=N_FILTERS, **extra)
+
+
+def _layer_totals(rows, layers, key):
+    """The sum of `key` over a step's (Cin, F, k) `layers`, each timed in
+    `rows` (phase 6's keys) at its shape."""
+    by_shape = {(r['x'][-1], r['f'], r['k']): r for r in rows}
+    return sum(by_shape[layer][key] for layer in layers)
+
+
+def _k2_serve_rows(torch, tds, layers, hw, label, seed=170):
+    """K2 (inference) at serving shapes [BATCH, REC_T, hw, hw, Cin] of the
+    (Cin, F, k) `layers`, held against its plain version with TF32 off
+    (K2_TOL) and timed against it and its bound, as phase 4 does."""
+    from dl4ds_tpu_torch.models.blocks import ConvLSTM2D
+    fcl, ref = tds.fused_convlstm, tds.convlstm_reference
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for i, (cin, f, k) in enumerate(dict.fromkeys(layers)):
+        layer = ConvLSTM2D(cin, f, (k, k))
+        layer.reset_parameters(torch.Generator().manual_seed(seed + i))
+        wx, bx, wh = (p.detach().to(dev) for p in (
+            layer.input_conv.kernel, layer.input_conv.bias,
+            layer.cell.recurrent_conv.kernel))
+        x = torch.randn((BATCH, REC_T, hw, hw, cin), generator=gen,
+                        device=dev)
+        with torch.no_grad():
+            err = (fcl(x, wx, bx, wh) - ref(x, wx, bx, wh)[0]).abs().max()
+            err = err.item()
+            ms, plain_ms = paired_ms(torch, lambda: fcl(x, wx, bx, wh),
+                                     lambda: ref(x, wx, bx, wh), flush)
+        if not err <= K2_TOL:
+            fail(f'phase 17: K2 {label} x{list(x.shape)} F={f} k={k}: '
+                 f'max|d| {err:.3e}')
+        flops, n_bytes = k2_work(x, wx, wh)
+        rows.append(dict(x=list(x.shape), f=f, k=k, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=max(
+                             flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S)
+                         * 1e3))
+        print(f'K2 {label} x{list(x.shape)} F={f} k={k}  max|d| {err:.3e}  '
+              f'kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound '
+              f'{rows[-1]["bound_ms"]:.4f} ms; {card_line()}', flush=True)
+    return rows
+
+
+def _pinrec(torch, tds, report):
+    """(a): recresnet_pin trained and served."""
+    import numpy as np
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    out = report['pinrec'] = {}
+    hw = TRAIN_PATCH
+    out['routes'] = _print_routes(conv, PINREC_LAYERS, hw)
+    out['routes_bf16'] = _print_routes(conv, PINREC_LAYERS, hw, itemsize=2)
+    rows = out['layers'] = _k3_layer_rows(
+        torch, [(cin, f, k, cin != 1)
+                for cin, f, k in dict.fromkeys(PINREC_LAYERS)],
+        'recresnet_pin HR layer', seed=170, hw=hw)
+    shares = {name: _layer_totals(rows, PINREC_LAYERS, key)
+              for name, key in (('K2-train', 'k2_ms'), ('K3', 'k3_ms'))}
+    per_step = _recurrent_per_step(conv, PINREC_LAYERS, hw=hw)
+    label = (f'recresnet_pin x{SCALE} (n_filters {N_FILTERS}, '
+             f'{PINREC_BLOCKS} blocks, T {REC_T}, {hw}x{hw} HR frames), mae')
+    torch.cuda.reset_peak_memory_stats()
+    got, calls, numbers = _drive_training(
+        torch, tds, _pinrec_config(), label, PINREC_STEPS, per_step,
+        PINREC_CPU_BATCH, shares, keep_model=True)
+    model, net = numbers.pop('model')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'phase 17 (a): peak device memory {peak:.2f} GiB over the run, '
+          f'its replays and the eager steps; {card_line()}', flush=True)
+    per16 = _recurrent_per_step(conv, PINREC_LAYERS, itemsize=2, hw=hw)
+    bf16 = _bf16_training(torch, tds, _pinrec_config(dtype=torch.bfloat16),
+                          f'{label}, bfloat16', PINREC_STEPS, per16,
+                          phase=17)
+    grids = np.random.default_rng(17).standard_normal(
+        (REC_GRIDS, LR, LR)).astype('float32')
+    n_windows = REC_GRIDS - REC_T + 1
+    want = {'K1': 0, 'K2': len(PINREC_LAYERS) * REC_T
+            * -(-n_windows // BATCH)}
+    model16 = tds.recnet_pin('resnet', 1, 0, model.input_shape[1:3], REC_T,
+                             n_filters=N_FILTERS, n_blocks=PINREC_BLOCKS,
+                             dtype=torch.bfloat16)
+    out['serve'] = _check_served(
+        torch, tds, f'recresnet_pin predict(time_window={REC_T}), '
+        f'{REC_GRIDS} HR grids {LR}x{LR}', model, net, grids,
+        dict(scale=SCALE, time_window=REC_T, batch_size=BATCH,
+             array_in_hr=True), want, cpu_slice=slice(0, REC_T),
+        bf16=model16, phase=17)
+    out['serve_layers'] = _k2_serve_rows(torch, tds, PINREC_LAYERS, LR,
+                                         'recresnet_pin serving layer')
+    out.update(launches=got, wrapper_calls=calls, peak_gib=peak, bf16=bf16,
+               **numbers)
+
+
+def _merges(torch, tds, report):
+    """(b): the convnet and densenet recurrent merges trained and served."""
+    import numpy as np
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    out = report['merges'] = {}
+    step = report['k3_step']      # phase 6's rows, at these layer shapes
+    shares = {'K2-train': sum(r['k2_ms'] for r in step),
+              'K3': sum(r['k3_ms'] for r in step)}
+    per_step = _recurrent_per_step(conv, K3_LAYERS)
+    grids = np.random.default_rng(171).standard_normal(
+        (REC_GRIDS, LR, LR)).astype('float32')
+    n_windows = REC_GRIDS - REC_T + 1
+    for backbone in ('convnet', 'densenet'):
+        config = _training_config(backbone=backbone, loss='mae',
+                                  time_window=REC_T, n_blocks=REC_BLOCKS,
+                                  n_filters=N_FILTERS)
+        label = (f'rec{backbone}_spc x{SCALE} (n_filters {N_FILTERS}, '
+                 f'{REC_BLOCKS} blocks, T {REC_T}), mae')
+        got, calls, numbers = _drive_training(
+            torch, tds, config, label, MERGE_STEPS, per_step, 16, shares,
+            keep_model=True)
+        model, net = numbers.pop('model')
+        serve = _check_served(
+            torch, tds, f'rec{backbone}_spc predict(time_window={REC_T}), '
+            f'{REC_GRIDS} LR grids {LR}x{LR} -> {LR * SCALE}', model, net,
+            grids, dict(scale=SCALE, time_window=REC_T, batch_size=BATCH,
+                        array_in_hr=False),
+            {'K1': 0, 'K2': len(K3_LAYERS) * REC_T * -(-n_windows // BATCH)},
+            cpu_slice=slice(0, REC_T), phase=17)
+        out[backbone] = dict(launches=got, wrapper_calls=calls, serve=serve,
+                             **numbers)
+
+
+def _stream_config(data, **extra):
+    """SupervisedTrainer arguments of phase 17 (c) on `data`."""
+    return dict(backbone='resnet', upsampling='spc', data_train=data,
+                data_val=data[:STREAM_VAL], data_test=data[:STREAM_VAL],
+                scale=SCALE, patch_size=TRAIN_PATCH, batch_size=TRAIN_BATCH,
+                loss='mae', n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+                attention=True, verbose=False, **extra)
+
+
+def _stream_batches_equal(torch, tds, data):
+    """Three batches streamed through the pinned slots and the side
+    stream equal `BatchSynthesizer.build` at the indices and offsets the
+    streamer drew (its permutation, then each batch's ys and xs)."""
+    st = tds.HostStreamer(data, 'spc', SCALE, TRAIN_BATCH,
+                          patch_size=TRAIN_PATCH, seed=11)
+    synth = tds.BatchSynthesizer(data, None, 'spc', SCALE, TRAIN_BATCH,
+                                 patch_size=TRAIN_PATCH)
+    probe = copy.deepcopy(st.rng)
+    perm = probe.permutation(st.n)
+    plr, b = TRAIN_PATCH // SCALE, TRAIN_BATCH
+    same = []
+    for i, raw in enumerate(st.stream(1, 3)):
+        idx = perm[i * b:(i + 1) * b]
+        ys = probe.integers(0, max(st.lr_y - plr, 1), size=b)
+        xs = probe.integers(0, max(st.lr_x - plr, 1), size=b)
+        want = synth.build(*(torch.as_tensor(a, device='cuda')
+                             for a in (idx, ys, xs)))
+        got = st.build(**raw)
+        same.append(all(torch.equal(got[k], want[k]) for k in ('lr', 'hr'))
+                    and got['aux'] is None and want['aux'] is None)
+    print(f'phase 17 (c): 3 streamed batches (native gather/crop into pinned '
+          f'slots, side-stream copies) equal BatchSynthesizer.build at the '
+          f'streamer\'s indices and offsets: {same}', flush=True)
+    if not all(same):
+        fail(f'phase 17 (c): streamed batches differ from the device '
+             f'tier\'s: {same}')
+    return st, perm
+
+
+def _host_times(torch, st, perm, label):
+    """Host ms of a batch's gather + crop into a pinned slot, and of its
+    copy to the card (CUDA events), each the median of STREAM_HOST_REPS."""
+    slot = st._ring()[0]
+    arrays = {k: v.numpy() for k, v in slot.items()}
+    idx = perm[:TRAIN_BATCH]
+    gather = []
+    for _ in range(STREAM_HOST_REPS):
+        t0 = time.perf_counter()
+        st._host_batch(idx, arrays)
+        gather.append((time.perf_counter() - t0) * 1e3)
+    copy_ms = statistics.median(device_times(
+        torch, lambda: [v.to('cuda', non_blocking=True)
+                        for v in slot.values()], reps=STREAM_HOST_REPS))
+    n_bytes = sum(v.numel() * v.element_size() for v in slot.values())
+    out = dict(gather_crop_ms=statistics.median(gather), h2d_ms=copy_ms,
+               batch_bytes=n_bytes)
+    print(f'phase 17 (c), {label}: a batch of {n_bytes / 2 ** 20:.2f} MiB: '
+          f'gather + crop {out["gather_crop_ms"]:.3f} ms (host clock, '
+          f'{n_bytes / out["gather_crop_ms"] / 1e6:.2f} GB/s), copy to the '
+          f'card {copy_ms:.3f} ms (CUDA events, '
+          f'{n_bytes / copy_ms / 1e6:.2f} GB/s); {card_line()}', flush=True)
+    return out
+
+
+def _tier_speed(torch, tr, streaming):
+    """patches/s of STREAM_EPOCHS epochs of a run trainer's replayed steps
+    (host clock, the streaming or the plan upload included); the device's
+    busy share of that time, one replay's CUDA-event time a step
+    (`clock_busy_share`), and of one epoch under torch.profiler
+    (`busy_share`, which the profiler's host overhead lowers where the
+    host feeds the steps)."""
+    steps = tr._steps()
+    gen = torch.Generator().manual_seed(5)
+    if streaming:
+        def epoch():
+            tr.runner.train_stream(tr.ds_train, steps)
+    else:
+        def epoch():
+            tr.runner.train(tr.ds_train.plan(gen, steps))
+    epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STREAM_EPOCHS):
+        epoch()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    rate = STREAM_EPOCHS * steps * TRAIN_BATCH / wall_s
+    graph = tr.runner.graphs['step']
+
+    def replay():
+        tr._row.zero_()
+        graph.replay()
+    replay_ms = statistics.median(device_times(torch, replay, reps=10))
+    _, busy_ms, span_ms = _replay_profile(torch, tr.runner, None, run=epoch)
+    return dict(patches_per_s=rate, replay_ms=replay_ms,
+                clock_busy_share=replay_ms * STREAM_EPOCHS * steps
+                / (wall_s * 1e3),
+                busy_share=busy_ms / span_ms,
+                busy_ms_per_step=busy_ms / steps,
+                span_ms_per_step=span_ms / steps)
+
+
+def _stream(torch, tds, report):
+    """(c): the streaming tier against the in-device tier."""
+    import shutil
+    import numpy as np
+    from dl4ds_tpu_torch import native
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    out = report['stream'] = {}
+    if not native.available():
+        fail('phase 17 (c): the native host gather/crop did not build')
+    print(f'phase 17 (c): native host library {native.lib_path()}',
+          flush=True)
+    data = np.random.default_rng(0).standard_normal(
+        (STREAM_GRIDS, TRAIN_HR, TRAIN_HR, 1)).astype('float32')
+    st, perm = _stream_batches_equal(torch, tds, data)
+    out['host'] = _host_times(torch, st, perm, 'host RAM')
+    root = Path(__file__).resolve().parent / 'build' / 'phase17'
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    np.save(root / 'stream.npy', data)
+    mm = np.load(root / 'stream.npy', mmap_mode='r')
+    mst = tds.HostStreamer(mm, 'spc', SCALE, TRAIN_BATCH,
+                           patch_size=TRAIN_PATCH, seed=11)
+    if not np.shares_memory(mst.array, mm):
+        fail('phase 17 (c): the memmapped dataset was copied into RAM')
+    out['memmap_host'] = _host_times(torch, mst, perm, 'memmap')
+    del st, mst
+
+    # the three tiers, each trained through run() and then timed
+    torch.backends.cudnn.allow_tf32 = True
+    tiers = {}
+    for tier, train, hbm in (('in-device', data, True),
+                             ('host RAM', data, False),
+                             ('memmap', mm, False)):
+        tr = tds.SupervisedTrainer(
+            epochs=TRAIN_EPOCHS, validation_steps=1, test_steps=1,
+            data_in_hbm=hbm, **_stream_config(train))
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        losses = tr.fithist['loss'] + tr.fithist['val_loss'] + [tr.test_loss]
+        if not np.isfinite(losses).all():
+            fail(f'phase 17 (c), {tier}: non-finite losses {losses}')
+        if tier == 'memmap' and not np.shares_memory(tr.ds_train.array, mm):
+            fail('phase 17 (c): the trainer copied the memmap into RAM')
+        tiers[tier] = dict(run_s=run_s, losses=losses,
+                           **_tier_speed(torch, tr, not hbm))
+        print(f'phase 17 (c), {tier}: run() of {TRAIN_EPOCHS} epochs of '
+              f'{tr._steps()} steps with validation and test in {run_s:.2f} '
+              f's, losses {losses}; replayed '
+              f'{tiers[tier]["patches_per_s"]:.1f} patches/s over '
+              f'{STREAM_EPOCHS} epochs (host clock); one replay '
+              f'{tiers[tier]["replay_ms"]:.3f} ms (CUDA events), so the '
+              f'device busy {100 * tiers[tier]["clock_busy_share"]:.1f}% of '
+              f'the epochs\' time; under torch.profiler busy '
+              f'{100 * tiers[tier]["busy_share"]:.1f}% of an epoch '
+              f'({tiers[tier]["busy_ms_per_step"]:.3f} of '
+              f'{tiers[tier]["span_ms_per_step"]:.3f} ms a step); '
+              f'{card_line()}', flush=True)
+        del tr
+    out['tiers'] = tiers
+
+    # 8 replayed streaming steps against 8 eager ones, bit for bit
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    args = dict(epochs=1, steps_per_epoch=GRAPH_STEPS, validation_steps=1,
+                test_steps=1, data_in_hbm=False, **_stream_config(data))
+    graphed = tds.SupervisedTrainer(**args)
+    _, calls, kernels = _traced_run(torch, tds, graphed)
+    per_step = _flagship_per_step(len(K1_TRAIN_SHAPES), ssim=False)
+    out['launches'] = _check_launches(
+        tds, graphed.runner, 'phase 17 (c), streamed flagship', per_step,
+        {'step': GRAPH_STEPS, 'val': 1, 'test': 1}, calls, kernels)
+    out['wrapper_calls'] = calls
+    busy = [name for name, t in fo._COUNTERS.items()
+            if int(t.count_nonzero()) != 0]
+    if busy:
+        fail(f'phase 17 (c): arrival counters {busy} not left at 0')
+    eager = tds.SupervisedTrainer(**args)
+    eager.setup_datagen()
+    eager.setup_model()
+    eager.setup_optimizer()
+    eager.train_net.train()
+    losses = torch.stack([eager.train_step(eager.ds_train.build(**raw))
+                          for raw in eager.ds_train.stream(1, GRAPH_STEPS)])
+    diffs = {'losses': _max_diff([losses], [graphed.train_losses]),
+             'parameters': _max_diff(list(eager.train_net.parameters()),
+                                     list(graphed.train_net.parameters()))}
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+    print(f'phase 17 (c): {GRAPH_STEPS} streamed steps replayed through '
+          f'run()\'s graph against {GRAPH_STEPS} eager train_steps on the '
+          f'same streamed batches: max|d| {diffs} (bit-identical required)',
+          flush=True)
+    if any(d != 0 for d in diffs.values()):
+        fail(f'phase 17 (c): streamed replays and eager steps differ: '
+             f'{diffs}')
+    out['graphs_vs_eager'] = diffs
+    del graphed, eager, mm
+    shutil.rmtree(root, ignore_errors=True)
+
+    # CGAN (a) and configuration (a), streamed for one short epoch each
+    cg = tds.CGANTrainer(epochs=1, steps_per_epoch=STREAM_SHORT,
+                         data_in_hbm=False, **_cgan_config())
+    run_s, calls, kernels = _traced_run(torch, tds, cg)
+    cg_step, outside = _cgan_per_step(cg)
+    cg_launches = _check_launches(
+        tds, cg.runner, 'phase 17 (c), streamed CGAN (a)', cg_step,
+        {'step': STREAM_SHORT}, calls, kernels, outside)
+    if not np.isfinite(cg.gentotal + cg.disc + [cg.test_loss]).all():
+        fail(f'phase 17 (c): streamed CGAN losses {cg.gentotal} {cg.disc}')
+    out['cgan'] = dict(run_s=run_s, launches=cg_launches,
+                       losses=[cg.gentotal, cg.disc], test_loss=cg.test_loss)
+    del cg
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    # the streaming tier draws whole batches: val and test of 160 grids
+    # (156 windows of 4)
+    config = _pinrec_config()
+    config.update(data_val=config['data_train'][:160],
+                  data_test=config['data_train'][:160])
+    pr = tds.SupervisedTrainer(
+        epochs=1, steps_per_epoch=STREAM_SHORT, validation_steps=1,
+        test_steps=1, batch_size=TRAIN_BATCH, data_in_hbm=False, **config)
+    pr_s, calls, kernels = _traced_run(torch, tds, pr)
+    pr_launches = _check_launches(
+        tds, pr.runner, 'phase 17 (c), streamed recresnet_pin',
+        _recurrent_per_step(conv, PINREC_LAYERS, hw=TRAIN_PATCH),
+        {'step': STREAM_SHORT, 'val': 1, 'test': 1}, calls, kernels)
+    pr_losses = pr.fithist['loss'] + pr.fithist['val_loss'] + [pr.test_loss]
+    if not np.isfinite(pr_losses).all():
+        fail(f'phase 17 (c): streamed recresnet_pin losses {pr_losses}')
+    out['pinrec'] = dict(run_s=pr_s, launches=pr_launches, losses=pr_losses)
+    print(f'phase 17 (c): streamed for one epoch of {STREAM_SHORT} steps '
+          f'(run(), captures and traces included): CGAN (a) in {run_s:.2f} '
+          f's, losses {out["cgan"]["losses"]}; recresnet_pin in {pr_s:.2f} '
+          f's, losses {pr_losses}; {card_line()}', flush=True)
+
+
+def phase_zoo_stream(torch, tds, report):
+    """Phase 17: (a) recresnet_pin, (b) the recurrent convnet and densenet
+    merges, (c) the streaming tier."""
+    t0 = time.perf_counter()
+    _pinrec(torch, tds, report)
+    t1 = time.perf_counter()
+    _merges(torch, tds, report)
+    t2 = time.perf_counter()
+    _stream(torch, tds, report)
+    t3 = time.perf_counter()
+    report['zoo_stream_seconds'] = dict(a=t1 - t0, b=t2 - t1, c=t3 - t2)
+    a, tiers = report['pinrec'], report['stream']['tiers']
+    card = card_line()
+    print(f'phase 17 summary (a): recresnet_pin replayed '
+          f'{a["graphed"]["patches_per_s"]:.1f} patches/s, one replay '
+          f'{a["graphed"]["replay_ms"]:.3f} ms, device busy '
+          f'{100 * a["graphed"]["busy_share"]:.1f}%; bfloat16 '
+          f'{a["bf16"]["graphed"]["patches_per_s"]:.1f} patches/s; predict '
+          f'{a["serve"]["grids_per_s"]:.2f} grids/s; peak '
+          f'{a["peak_gib"]:.2f} GiB; {card}', flush=True)
+    for backbone, m in report['merges'].items():
+        print(f'phase 17 summary (b): rec{backbone}_spc replayed '
+              f'{m["graphed"]["patches_per_s"]:.1f} patches/s, one replay '
+              f'{m["graphed"]["replay_ms"]:.3f} ms; predict '
+              f'{m["serve"]["grids_per_s"]:.2f} grids/s; {card}', flush=True)
+    print('phase 17 summary (c): ' + '; '.join(
+        f'{tier} {t["patches_per_s"]:.1f} patches/s (busy '
+        f'{100 * t["clock_busy_share"]:.1f}%, under the profiler '
+        f'{100 * t["busy_share"]:.1f}%)' for tier, t in tiers.items())
+        + f'; seconds (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) '
+        f'{t3 - t2:.1f}; {card}', flush=True)
+
+
+def _zoo_stream_kernel_rows(report):
+    """The `kernels` line's rows of phase 17: K2's training variant and K3
+    at (a)'s HR layers (launches from (a)'s float32 device trace), K2 at
+    (a)'s serving layers (launches of its predict), K2-train and K3 in
+    (b)'s steps (phase 6's shapes and times; launches from each merge's
+    trace), and K1 in the streamed flagship step (phase 10's shapes and
+    times; launches from (c)'s graphed trace)."""
+    a, rows = report['pinrec'], report['pinrec']['layers']
+    conv = dict(route='cuda', bound_by='operations', library_ms=None)
+    k2 = dict(conv, source='dl4ds_tpu_torch/csrc/convlstm.cu',
+              replaces='dl4ds_tpu/ops/pallas_convlstm.py:219')
+    k3 = dict(conv, source='dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+              replaces='dl4ds_tpu/ops/pallas_convlstm.py:335')
+
+    def totals(rows, layers, prefix):
+        return {name: _layer_totals(rows, layers, f'{prefix}_{key}')
+                for name, key in (('ms', 'ms'), ('plain_ms', 'plain_ms'),
+                                  ('bound_ms', 'bound_ms'))}
+    hr_work = (f'the {len(PINREC_LAYERS)} ConvLSTM layers of one float32 '
+               f'recresnet_pin step at batch {TRAIN_BATCH}, T {REC_T}, '
+               f'{TRAIN_PATCH}x{TRAIN_PATCH} HR frames, summed from the '
+               f'{len(rows)} layer shapes timed in phase 17')
+    out = [
+        dict(k2, name='K2_convlstm_train_recnet_pin',
+             launches=a['launches']['K2-train'],
+             wrapper_calls=a['wrapper_calls']['K2-train'],
+             bf16_launches=a['bf16']['launches']['K2-train'],
+             max_abs_err=max(max(r['ys_cs_zs_err'][:2]) for r in rows),
+             work=hr_work + '; launches from phase 17 (a)\'s device trace',
+             **totals(rows, PINREC_LAYERS, 'k2')),
+        dict(k3, name='K3_convlstm_bptt_recnet_pin',
+             launches=a['launches']['K3'],
+             wrapper_calls=a['wrapper_calls']['K3'],
+             bf16_launches=a['bf16']['launches']['K3'],
+             k4_launches=a['launches']['K4'],
+             max_abs_err=max(max(v for k, v in r['grad_rel_err'].items()
+                                 if k != 'plain_f32') for r in rows),
+             work='the BPTT of the same layers (the stem without dx); '
+                  'launches from phase 17 (a)\'s device trace',
+             **totals(rows, PINREC_LAYERS, 'k3'))]
+    serve = a['serve_layers']
+    out.append(dict(
+        k2, name='K2_convlstm_recnet_pin_serve',
+        launches=a['serve']['launches']['K2'],
+        max_abs_err=max(r['max_abs_err'] for r in serve),
+        ms=_layer_totals(serve, PINREC_LAYERS, 'ms'),
+        plain_ms=_layer_totals(serve, PINREC_LAYERS, 'plain_ms'),
+        bound_ms=_layer_totals(serve, PINREC_LAYERS, 'bound_ms'),
+        work=f'the {len(PINREC_LAYERS)} ConvLSTM layers of one recresnet_pin '
+             f'forward at batch {BATCH}, T {REC_T}, {LR}x{LR}; launches of '
+             f'predict on {REC_GRIDS} grids'))
+    step = report['k3_step']
+    for backbone, m in report['merges'].items():
+        for base, key, kind in ((k2, 'K2-train', 'k2'), (k3, 'K3', 'k3')):
+            name = ('K2_convlstm_train' if kind == 'k2'
+                    else 'K3_convlstm_bptt')
+            out.append(dict(
+                base, name=f'{name}_rec{backbone}',
+                launches=m['launches'][key],
+                wrapper_calls=m['wrapper_calls'][key],
+                max_abs_err=max(
+                    max(r['ys_cs_zs_err'][:2]) if kind == 'k2' else
+                    max(v for k, v in r['grad_rel_err'].items()
+                        if k != 'plain_f32') for r in step),
+                ms=sum(r[f'{kind}_ms'] for r in step),
+                plain_ms=sum(r[f'{kind}_plain_ms'] for r in step),
+                bound_ms=sum(r[f'{kind}_bound_ms'] for r in step),
+                work=f'the {len(step)} ConvLSTM layers of one float32 '
+                     f'rec{backbone}_spc step (phase 6\'s shapes and times); '
+                     f'launches from phase 17 (b)\'s device trace'))
+    gates = report['k1_train_rows']
+    st = report['stream']
+    out.append(dict(
+        route='cuda', name='K1_channel_attention_stream_train',
+        source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+        replaces='dl4ds_tpu/ops/pallas_ops.py:39', bound_by='bytes',
+        library_ms=None, launches=st['launches']['K1'],
+        wrapper_calls=st['wrapper_calls']['K1'],
+        bwd_launches=st['launches']['K1 backward'],
+        max_abs_err=max(r['max_abs_err'] for r in gates),
+        ms=sum(r['ms'] for r in gates),
+        plain_ms=sum(r['plain_ms'] for r in gates),
+        bound_ms=sum(r['bound_ms'] for r in gates),
+        bwd_ms=sum(r['bwd_ms'] for r in gates),
+        bwd_plain_ms=sum(r['bwd_plain_ms'] for r in gates),
+        bwd_bound_ms=sum(r['bwd_bound_ms'] for r in gates),
+        work=f'the {len(gates)} gates of one streamed float32 flagship step '
+             f'(phase 10\'s shapes and times), forward and backward; '
+             f'launches from phase 17 (c)\'s graphed trace of '
+             f'{GRAPH_STEPS} streamed steps'))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4846,7 +5412,7 @@ def main():
 
     card = card_line()
     print(f'card: {card}', flush=True)
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     built = _build.build_all()
     for name, (seconds, log) in built.items():
         print(f'built {name} in {seconds:.1f} s', flush=True)
@@ -4862,7 +5428,7 @@ def main():
               (8, phase_wide_training), (9, phase_ssim),
               (10, phase_flagship_training), (11, phase_graphs),
               (12, phase_bf16), (13, phase_mos), (14, phase_pin),
-              (15, phase_state), (16, phase_cgan))
+              (15, phase_state), (16, phase_cgan), (17, phase_zoo_stream))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -5031,7 +5597,7 @@ def main():
     kernels = ([k1, k2, k2_train, k3, k4, k1_train, k6]
                + _bf16_kernel_rows(report) + _mos_kernel_rows(report)
                + _pin_kernel_rows(report) + _state_kernel_rows(report)
-               + _cgan_kernel_rows(report))
+               + _cgan_kernel_rows(report) + _zoo_stream_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -5047,6 +5613,8 @@ def main():
                                            'k6_rows', 'graph_rows',
                                            'bf16_k'))}),
           flush=True)
+    print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
+          f'kernel build to the end of phase 17', flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -12,7 +12,10 @@ Entry points (`predict`, `SupervisedTrainer`, `CGANTrainer`,
 the GPU unless the caller passes `device='cpu'`. The spatial models take
 the convnet, resnet, densenet and ConvNeXt backbones with the sub-pixel,
 resize or transposed-convolution head, or the pre-upsampled input
-('pin', `net_pin` and the U-Net `unet_pin`); every model takes batch or
+('pin', `net_pin` and the U-Net `unet_pin`); the spatio-temporal
+(ConvLSTM) models the convnet, resnet and densenet merges with the same
+heads (`recnet_postupsampling`) or the pre-upsampled input
+(`recnet_pin`); every model takes batch or
 layer normalization, each dropout variant and the localized output
 layer, and `predict_mc` serves an 'mc*' dropout model as a Monte-Carlo
 ensemble. Both of DL4DS's training modes run: PerfectProg (HR data
@@ -20,7 +23,11 @@ alone, coarsened on the device) and MOS (given LR/HR pairs,
 `data_train_lr=`, served by `predict(array_in_hr=False)`), with season
 channels from time metadata. `CGANTrainer` trains a generator of the zoo
 against the two-branch `residual_discriminator` (pix2pix-style), one fused
-G+D step at a time.
+G+D step at a time. Batches are built on the device from a dataset held
+there, or with `data_in_hbm=False` streamed from host RAM or a memmapped
+file (`HostStreamer`: the native gather/crop into pinned slots, copied
+to the card behind the step); the reference's host tier
+(`create_pair_hr_lr`, `create_batch_hr_lr`, `DataGenerator`) is numpy.
 """
 
 __version__ = "0.1.0"
@@ -67,7 +74,7 @@ DROPOUT_VARIANTS = [
     'mcspatialdrop']    # monte-carlo spatial dropout
 
 from .interpolation import resize2d, resize_array, resize_matrix
-from .utils import (checkarray_ndim, Timing, checkarg_upsampling,
+from .utils import (crop_array, checkarray_ndim, Timing, checkarg_upsampling,
                     checkarg_backbone, checkarg_dropout_variant)
 from .ops import (depth_to_space, fused_channel_attention,
                   channel_attention_reference, fused_convlstm,
@@ -76,10 +83,12 @@ from . import losses
 from .losses import (mae, mse, dssim, dssim_mae, dssim_mse, dssim_mae_mse,
                      msdssim, msdssim_mae, msdssim_mae_mse)
 from .preprocessing import MinMaxScaler, StandardScaler
-from .dataloader import BatchSynthesizer, _get_season_, _get_season_array_
+from .dataloader import (create_pair_hr_lr, create_batch_hr_lr, DataGenerator,
+                         BatchSynthesizer, HostStreamer, _get_season_,
+                         _get_season_array_)
 from .models import (DSModel, build_model, net_postupsampling, net_pin,
-                     unet_pin, recnet_postupsampling, residual_discriminator,
-                     save_model, load_model)
+                     unet_pin, recnet_postupsampling, recnet_pin,
+                     residual_discriminator, save_model, load_model)
 from .models.blocks import (Dropout, get_dropout_layer, MCDropout,
                             MCGaussianDropout, MCSpatialDropout2D,
                             MCSpatialDropout3D, DropPath, ConvNextBlock,

@@ -19,14 +19,15 @@ import torch
 from .. import POSTUPSAMPLING_METHODS
 from ..utils import (checkarg_backbone, checkarg_upsampling,
                      checkarg_dropout_variant, check_compatibility_upsbackb,
-                     not_ported, resolve_device)
+                     resolve_device)
 from .nets import (NetPostupsampling, NetPIN, UnetPIN, RecNetPostupsampling,
-                   ResidualDiscriminator, _check_nblocks)
+                   RecNetPIN, ResidualDiscriminator, _check_nblocks)
 from .blocks import check_dtype
 from . import blocks
 
 __all__ = ['DSModel', 'net_postupsampling', 'net_pin', 'unet_pin',
-           'recnet_postupsampling', 'residual_discriminator', 'build_model',
+           'recnet_postupsampling', 'recnet_pin', 'residual_discriminator',
+           'build_model',
            'save_model', 'load_model', 'blocks']
 
 
@@ -202,11 +203,10 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
                           output_attention=True, dtype=torch.float32):
     """Spatio-temporal (ConvLSTM) network + post-upsampling head
     (dl4ds_tpu/models/__init__.py:157-183), named 'rec<backbone>_<ups>':
-    the 'resnet' backbone with the 'spc', 'rc' or 'dc' head, 'bn' or 'ln'
-    normalization, any dropout variant and the localized layer, in `dtype`
-    float32 or bfloat16 (float32 parameters); the convnet and densenet
-    merges and other dtypes raise NotImplementedError naming their ROADMAP
-    item."""
+    the 'convnet', 'resnet' or 'densenet' merge with the 'spc', 'rc' or
+    'dc' head, 'bn' or 'ln' normalization, any dropout variant and the
+    localized layer, in `dtype` float32 or bfloat16 (float32 parameters);
+    other dtypes raise NotImplementedError naming their ROADMAP item."""
     backbone_block = checkarg_backbone(backbone_block)
     upsampling = checkarg_upsampling(upsampling)
     dropout_variant = checkarg_dropout_variant(dropout_variant)
@@ -239,12 +239,44 @@ def recnet_postupsampling(backbone_block, upsampling, scale, n_channels,
                    'RecNetPostupsampling', config, dtype)
 
 
+def recnet_pin(backbone_block, n_channels, n_aux_channels, hr_size,
+               time_window, n_channels_out=1, n_filters=8, n_blocks=6,
+               normalization=None, dropout_rate=0, dropout_variant=None,
+               attention=False, activation='relu', output_activation=None,
+               localcon_layer=False, output_attention=True,
+               dtype=torch.float32):
+    """Spatio-temporal pre-upsampled network (dl4ds_tpu/models/__init__.py:
+    186-207), with the JAX signature: the 'convnet', 'resnet' or
+    'densenet' recurrent backbone on `time_window` frames interpolated to
+    the HR grid `hr_size`, named 'rec<backbone>_pin'."""
+    backbone_block = checkarg_backbone(backbone_block)
+    dropout_variant = checkarg_dropout_variant(dropout_variant)
+    check_dtype(dtype)
+    h_hr, w_hr = hr_size
+    config = dict(
+        backbone=backbone_block, time_window=time_window,
+        n_channels_out=n_channels_out, n_filters=n_filters,
+        n_blocks=n_blocks, normalization=normalization,
+        dropout_rate=dropout_rate, dropout_variant=dropout_variant,
+        attention=attention, activation=activation,
+        output_activation=output_activation, localcon_layer=localcon_layer,
+        output_attention=output_attention)
+    build = functools.partial(RecNetPIN, n_channels, n_aux_channels,
+                              hr_size=(h_hr, w_hr), dtype=dtype, **config)
+    build()   # raise now, not at init, on a configuration not ported yet
+    aux_shape = (h_hr, w_hr, n_aux_channels) if n_aux_channels > 0 else None
+    return DSModel(build, f'rec{backbone_block}_pin',
+                   (time_window, h_hr, w_hr, n_channels), aux_shape,
+                   'RecNetPIN', config, dtype)
+
+
 def build_model(backbone, upsampling, scale, n_channels, n_aux_channels,
                 lr_size, hr_size, time_window=None, **params):
     """Single dispatcher over the model factories, as the JAX package's
     (dl4ds_tpu/models/__init__.py:309-342): a time window above 1 builds the
-    spatio-temporal model, 'pin' the pre-upsampled one (`unet_pin` for the
-    'unet' backbone, else `net_pin`) on `hr_size`. `recnet_pin` raises."""
+    spatio-temporal model, 'pin' the pre-upsampled one (`recnet_pin` with
+    a time window, `unet_pin` for the 'unet' backbone, else `net_pin`) on
+    `hr_size`."""
     spatiotemporal = time_window is not None and time_window > 1
     check_compatibility_upsbackb(backbone, upsampling,
                                  time_window if spatiotemporal else None)
@@ -261,7 +293,9 @@ def build_model(backbone, upsampling, scale, n_channels, n_aux_channels,
     if upsampling != 'pin':
         raise ValueError(f'unrecognized upsampling: {upsampling}')
     if spatiotemporal:
-        raise not_ported('recnet_pin (spatio-temporal pre-upsampling)', 7)
+        return recnet_pin(backbone_block=backbone, n_channels=n_channels,
+                          n_aux_channels=n_aux_channels, hr_size=hr_size,
+                          time_window=time_window, **params)
     factory = unet_pin if backbone == 'unet' else net_pin
     return factory(backbone_block=backbone, n_channels=n_channels,
                    n_aux_channels=n_aux_channels, hr_size=hr_size, **params)
@@ -298,6 +332,7 @@ def residual_discriminator(n_channels, upsampling, is_spatiotemporal, scale,
 _FACTORIES = {'NetPostupsampling': net_postupsampling,
               'NetPIN': net_pin, 'UnetPIN': unet_pin,
               'RecNetPostupsampling': recnet_postupsampling,
+              'RecNetPIN': recnet_pin,
               'ResidualDiscriminator': residual_discriminator}
 
 
@@ -336,7 +371,8 @@ def load_model(path, device='cuda'):
         meta = json.load(fh)
     factory = _FACTORIES.get(meta['module_class'])
     if factory is None:
-        raise not_ported(f"model class {meta['module_class']!r}", 7)
+        raise ValueError(f"{path}: unknown model class "
+                         f"{meta['module_class']!r}")
     cfg = dict(meta['config'])
     name = cfg.pop('dtype', 'float32')
     dtype = getattr(torch, name, None)

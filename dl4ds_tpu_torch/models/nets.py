@@ -5,7 +5,8 @@ Counterparts of `dl4ds_tpu/models/nets.py`: the post-upsampling models
 with the convnet, resnet, densenet or ConvNeXt backbone and the sub-pixel
 ('spc'), resize ('rc') or transposed-convolution ('dc') head; the
 pre-upsampled models `NetPIN` and `UnetPIN`; and the spatio-temporal
-(ConvLSTM) model with the resnet merge and any of the three heads. Every
+(ConvLSTM) models, with the convnet, resnet or densenet merge: any of the
+three heads (`RecNetPostupsampling`) or pre-upsampled (`RecNetPIN`). Every
 model takes the JAX package's normalization ('bn', 'ln'), dropout (rate
 and variant, at the JAX package's places) and localized output layer
 (`localcon_layer`, whose weights fix the HR grid `hr_size`); and CGAN's
@@ -13,8 +14,7 @@ two-branch `ResidualDiscriminator`. Submodule
 names follow the Flax parameter tree (`_Backbone_0`, `ResidualBlock1`,
 `ConvNextBlock1`, `DenseBlock1`, `EncoderBlock1`, `RecurrentConvBlock1`,
 `LocalizedConvBlock_0`, ...), and the input channels of every module are
-counted here, where Flax infers them. The recurrent convnet and densenet
-merges and the pre-upsampled recurrent model raise until they are ported.
+counted here, where Flax infers them.
 `dtype` (float32 or bfloat16) is threaded through every module, as the JAX
 package threads it; parameters stay float32.
 """
@@ -25,7 +25,6 @@ import torch
 import torch.nn as nn
 
 from ..interpolation import resize2d
-from ..utils import not_ported
 from .blocks import (Conv, ConvBlock, ResidualBlock, DenseBlock,
                      TransitionBlock, ConvNextBlock, LocalizedConvBlock,
                      SubpixelConvolutionBlock, ResizeConvolutionBlock,
@@ -34,7 +33,7 @@ from .blocks import (Conv, ConvBlock, ResidualBlock, DenseBlock,
                      remat_call, _dropout, _maybe)
 
 __all__ = ['NetPostupsampling', 'NetPIN', 'UnetPIN', 'RecNetPostupsampling',
-           'ResidualDiscriminator', '_check_nblocks']
+           'RecNetPIN', 'ResidualDiscriminator', '_check_nblocks']
 
 
 class _Backbone(nn.Module):
@@ -435,16 +434,20 @@ def _check_nblocks(shape, power):
 class _RecBackbone(nn.Module):
     """Spatio-temporal backbone (dl4ds_tpu/models/nets.py:378-419): a stem
     RecurrentConvBlock (normalization, no dropout), N more at n_filters
-    (normalization and dropout), a dropout over (T, H, W), then the resnet
-    merge x0 + b. [B, T, h, w, C] -> [B, T, h, w, n_filters]."""
+    (normalization and dropout), a dropout over (T, H, W), then the merge:
+    'convnet' the blocks' output b, 'resnet' x0 + b, 'densenet' concat([x0,
+    b]). [B, T, h, w, C] -> [B, T, h, w, `n_out`], n_out = n_filters (2 *
+    n_filters for densenet)."""
 
     def __init__(self, in_channels, backbone, n_filters, n_blocks,
                  activation='relu', normalization=None, dropout_rate=0.0,
                  dropout_variant=None, dtype=torch.float32):
         super().__init__()
-        if backbone != 'resnet':
-            raise not_ported(f'recurrent backbone {backbone!r}', 7)
+        if backbone not in ('convnet', 'resnet', 'densenet'):
+            raise ValueError(f'unsupported recurrent backbone {backbone}')
+        self.backbone = backbone
         self.n_blocks = n_blocks
+        self.n_out = 2 * n_filters if backbone == 'densenet' else n_filters
         self.RecurrentConvBlock1 = RecurrentConvBlock(
             in_channels, n_filters, activation=activation,
             normalization=normalization, dtype=dtype)
@@ -459,7 +462,12 @@ class _RecBackbone(nn.Module):
         x0 = b = self.RecurrentConvBlock1(x)
         for i in range(self.n_blocks):
             b = self._modules[f'RecurrentConvBlock{i + 2}'](b)
-        return x0 + _maybe(self.Dropout_0, b)
+        b = _maybe(self.Dropout_0, b)
+        if self.backbone == 'convnet':
+            return b
+        if self.backbone == 'resnet':
+            return x0 + b
+        return torch.cat([x0, b], dim=-1)
 
 
 class RecNetPostupsampling(nn.Module):
@@ -489,10 +497,12 @@ class RecNetPostupsampling(nn.Module):
                                            n_blocks, activation,
                                            normalization, dropout_rate,
                                            dropout_variant, dtype=dtype)
-        self.head = _attach_head(self, upsampling, scale, n_filters,
+        # the head runs on the backbone's width: 2 * n_filters behind the
+        # densenet merge (dl4ds_tpu/models/nets.py:453-454)
+        width = self._RecBackbone_0.n_out
+        self.head = _attach_head(self, upsampling, scale, width,
                                  rc_interpolation, dtype=dtype)
         self.n_aux_channels = n_aux_channels
-        width = n_filters
         # Flax auto-names the head's ConvBlocks in call order, so the aux
         # branch, when there is one, takes ConvBlock_0
         names = iter(f'ConvBlock_{i}' for i in range(3))
@@ -527,6 +537,67 @@ class RecNetPostupsampling(nn.Module):
         if aux is not None:
             s = self._modules[self.aux_name](aux)
             # broadcast over time, [b*t] major (jnp.repeat on axis 0)
+            x = torch.cat([x, s.repeat_interleave(t, dim=0)], dim=-1)
+        x = self.TransitionLast(_with_localcon(self, x))
+        x = self._modules[self.out_name](self._modules[self.gate_name](x))
+        return x.reshape(b, t, *x.shape[1:])
+
+
+class RecNetPIN(nn.Module):
+    """Spatio-temporal pre-upsampled model (dl4ds_tpu/models/nets.py:
+    502-557). Input [B, T, H, W, C] already interpolated to the HR grid and
+    an optional HR aux [B, H, W, A]; output [B, T, H, W, n_channels_out].
+    The backbone's ConvLSTM layers run on the HR frames; then per frame, on
+    the [B*T]-flattened frames: the aux branch (`ConvBlock_0`, no
+    normalization, repeated over time), the localized layer (on `hr_size`),
+    `TransitionLast` to n_filters (not half the width, unlike
+    `RecNetPostupsampling`), the gated ConvBlock (its attention pools over
+    (T, H)) and the output ConvBlock."""
+
+    def __init__(self, n_channels, n_aux_channels, backbone, time_window,
+                 n_channels_out=1, n_filters=8, n_blocks=6,
+                 normalization=None, dropout_rate=0.0, dropout_variant=None,
+                 attention=False, activation='relu', output_activation=None,
+                 localcon_layer=False, output_attention=True, hr_size=None,
+                 dtype=torch.float32):
+        super().__init__()
+        check_dtype(dtype)
+        self.time_window = time_window
+        self._RecBackbone_0 = _RecBackbone(n_channels, backbone, n_filters,
+                                           n_blocks, activation,
+                                           normalization, dropout_rate,
+                                           dropout_variant, dtype=dtype)
+        width = self._RecBackbone_0.n_out
+        self.n_aux_channels = n_aux_channels
+        names = iter(f'ConvBlock_{i}' for i in range(3))
+        if n_aux_channels > 0:
+            self.aux_name = next(names)
+            self.add_module(self.aux_name, ConvBlock(
+                n_aux_channels, n_filters, activation=activation,
+                attention=attention, dtype=dtype))
+            width += n_filters
+        width += _localcon(self, localcon_layer, width, hr_size, dtype)
+        self.TransitionLast = TransitionBlock(width, n_filters, dtype=dtype)
+        self.gate_name, self.out_name = next(names), next(names)
+        self.add_module(self.gate_name, ConvBlock(
+            n_filters, n_filters, activation=None,
+            normalization=normalization, attention=output_attention,
+            attention_time=time_window, dropout_rate=dropout_rate,
+            dtype=dtype))
+        self.add_module(self.out_name, ConvBlock(
+            n_filters, n_channels_out, activation=output_activation,
+            normalization=normalization, dtype=dtype))
+
+    def forward(self, x, aux=None):
+        _check_aux(self.n_aux_channels, aux)
+        b, t = x.shape[:2]
+        if t != self.time_window:
+            raise ValueError(f'model built for time_window='
+                             f'{self.time_window}, got {t} frames')
+        x = self._RecBackbone_0(x)
+        x = x.reshape(b * t, *x.shape[2:])
+        if aux is not None:
+            s = self._modules[self.aux_name](aux)
             x = torch.cat([x, s.repeat_interleave(t, dim=0)], dim=-1)
         x = self.TransitionLast(_with_localcon(self, x))
         x = self._modules[self.out_name](self._modules[self.gate_name](x))

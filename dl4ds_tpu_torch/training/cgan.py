@@ -37,7 +37,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..dataloader import BatchSynthesizer
+from ..dataloader import BatchSynthesizer, HostStreamer
 from ..models import build_model, residual_discriminator
 from ..models.blocks import (BatchNorm, set_dropout_generator,
                              use_dropout_generator, _rounded)
@@ -159,8 +159,11 @@ class CGANTrainer(Trainer):
     ramp from 0 over `warmup_steps` updates, 0 meaning a twentieth of the
     run, then the decay) or a callable of the update count, for both.
     `model_list` and `gpu_memory_growth` are accepted and do nothing. Not
-    ported: `data_in_hbm=False` (ROADMAP item 9), `mesh` and `devices`
-    (10), `init_weights` (11).
+    ported: `mesh` and `devices` (ROADMAP item 10), `init_weights` (11).
+    `data_in_hbm=False` streams the training split from host RAM or a
+    memmapped file (`HostStreamer`, seeded from `seed`), each batch copied
+    into the input buffers of the captured fused step, which is replayed
+    once a batch; the test loss reads the test split as before.
 
     After `run`: `gentotal`, `gengan`, `gen_pxloss` and `disc` hold the
     last step's losses of each epoch; `gen_net` and `disc_net` the trained
@@ -183,12 +186,8 @@ class CGANTrainer(Trainer):
                  data_in_hbm=True, terminate_on_nan=True,
                  gradient_accumulation_steps=1, ema_decay=0.0,
                  lr_schedule=None, warmup_steps=0, init_weights=None):
-        for cond, what, item in (
-                (not data_in_hbm, 'host streaming (`data_in_hbm=False`)', 9),
-                (init_weights is not None,
-                 'Keras weight import (`init_weights`)', 11)):
-            if cond:
-                raise not_ported(what, item)
+        if init_weights is not None:
+            raise not_ported('Keras weight import (`init_weights`)', 11)
         super().__init__(
             backbone=backbone, upsampling=upsampling, data_train=data_train,
             data_train_lr=data_train_lr, time_window=time_window, loss=loss,
@@ -245,13 +244,23 @@ class CGANTrainer(Trainer):
 
     # ------------------------------------------------------------------
     def setup_datagen(self):
-        """The device-resident synthesizer of the training split."""
-        self.ds_train = BatchSynthesizer(
-            self.data_train, self.data_train_lr, upsampling=self.upsampling,
-            scale=self.scale, batch_size=self.global_batch_size,
-            patch_size=self.patch_size, time_window=self.time_window,
-            static_vars=self.static_vars, predictors=self.predictors_train,
-            interpolation=self.interpolation, device=self.device)
+        """The batch source of the training split: the device-resident
+        synthesizer, or with `data_in_hbm=False` the host streamer seeded
+        from `seed` (dl4ds_tpu/training/cgan.py:317-330)."""
+        common = dict(upsampling=self.upsampling, scale=self.scale,
+                      batch_size=self.global_batch_size,
+                      patch_size=self.patch_size,
+                      time_window=self.time_window,
+                      static_vars=self.static_vars,
+                      predictors=self.predictors_train,
+                      interpolation=self.interpolation, device=self.device)
+        if self.data_in_hbm:
+            self.ds_train = BatchSynthesizer(
+                self.data_train, self.data_train_lr, **common)
+        else:
+            self.ds_train = HostStreamer(
+                self.data_train, array_lr=self.data_train_lr,
+                seed=self.seed, **common)
 
     def setup_model(self):
         """Build G and D (dl4ds_tpu/training/cgan.py:230-274) on the
@@ -474,8 +483,10 @@ class CGANTrainer(Trainer):
             if self.verbose:
                 print(f'\nEpoch {epoch + 1}/{self.epochs}')
             self.train_net.train()
-            self.train_losses = self.runner.train(
-                self.ds_train.plan(generator, steps))
+            self.train_losses = (
+                self.runner.train(self.ds_train.plan(generator, steps))
+                if self.data_in_hbm
+                else self.runner.train_stream(self.ds_train, steps))
             # the last step's losses, as the reference records each epoch
             g_total, g_gan, g_px, d_loss = self.train_losses[-1].tolist()
             self.gentotal.append(g_total)

@@ -21,7 +21,10 @@ chunk of `steps_per_execution` plan rows at a time (default: the whole
 epoch), as the JAX trainer runs a chunk as one XLA program; validation and
 test run the same way without the update. There is no eager fallback: a
 capture or replay that fails raises. On the CPU the same step functions
-run eagerly. Losses stay on the device and are read once an epoch.
+run eagerly. Losses stay on the device and are read once an epoch. With
+`data_in_hbm=False` the splits stream from the host (`HostStreamer`):
+each batch is copied into the captured step's input buffers and the step
+replayed, one replay a batch.
 
 Adam uses Keras's eps of 1e-7, with its rate a device scalar set from the
 schedule (optax's, `training/schedules.py`) on the device update count;
@@ -37,7 +40,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..dataloader import BatchSynthesizer, _time_coord, season_ids_from_time
+from ..dataloader import (BatchSynthesizer, HostStreamer, _time_coord,
+                          season_ids_from_time)
 from ..models import build_model
 from ..models.blocks import set_dropout_generator
 from ..utils import Timing, not_ported
@@ -58,8 +62,14 @@ class SupervisedTrainer(Trainer):
     `use_multiprocessing`, `model_list`, `gpu_memory_growth` and
     `show_plot` are accepted and do nothing, as in the JAX package. The
     options that are not ported raise NotImplementedError naming their
-    ROADMAP item: `data_in_hbm=False` (9); `mesh` and `devices` (10);
-    `init_weights` (11).
+    ROADMAP item: `mesh` and `devices` (10); `init_weights` (11).
+
+    `data_in_hbm=False` streams all three splits from host RAM or from a
+    memmapped file (`HostStreamer`, seeded from `seed`): each batch is
+    gathered and cropped on the host into a pinned slot, copied to the
+    device and into the input buffers of the captured step, which is
+    replayed once a batch (`steps_per_execution` is ignored, with a
+    warning); a val or test split smaller than one batch raises.
 
     MOS training takes the given LR arrays `data_train_lr`, `data_val_lr`
     and `data_test_lr` (each [n, y, x, c] beside its HR split, HR exactly
@@ -93,13 +103,8 @@ class SupervisedTrainer(Trainer):
                  season_ids=None, time_metadata=None, terminate_on_nan=True,
                  gradient_accumulation_steps=1, lr_schedule=None,
                  warmup_steps=0, ema_decay=0.0, **architecture_params):
-        unported = [
-            (not data_in_hbm, 'host streaming (`data_in_hbm=False`)', 9),
-            (init_weights is not None, 'Keras weight import (`init_weights`)',
-             11)]
-        for cond, what, item in unported:
-            if cond:
-                raise not_ported(what, item)
+        if init_weights is not None:
+            raise not_ported('Keras weight import (`init_weights`)', 11)
         # the JAX trainer's checks (dl4ds_tpu/training/supervised.py:
         # 122-128, 147-148, 189-193)
         if lr_schedule not in (None, 'cosine', 'warmup_cosine') \
@@ -176,6 +181,7 @@ class SupervisedTrainer(Trainer):
         self.save_logs = save_logs
         self.profile = profile
         self.seed = seed
+        self.data_in_hbm = data_in_hbm
         self.terminate_on_nan = terminate_on_nan
         self.season_ids = _season_tables(season_ids, time_metadata,
                                          (data_train, data_val, data_test),
@@ -185,7 +191,9 @@ class SupervisedTrainer(Trainer):
 
     # ------------------------------------------------------------------
     def setup_datagen(self):
-        """Device-resident batch synthesizers for the three splits."""
+        """The batch sources of the three splits: device-resident
+        synthesizers, or with `data_in_hbm=False` host streamers seeded from
+        `seed` (dl4ds_tpu/training/supervised.py:236-290)."""
         common = dict(upsampling=self.upsampling, scale=self.scale,
                       batch_size=self.global_batch_size,
                       patch_size=self.patch_size,
@@ -193,15 +201,20 @@ class SupervisedTrainer(Trainer):
                       static_vars=self.static_vars,
                       interpolation=self.interpolation, device=self.device)
         season = self.season_ids or (None, None, None)
-        self.ds_train = BatchSynthesizer(
-            self.data_train, self.data_train_lr,
-            predictors=self.predictors_train, season_ids=season[0], **common)
-        self.ds_val = BatchSynthesizer(
-            self.data_val, self.data_val_lr, predictors=self.predictors_val,
-            season_ids=season[1], **common)
-        self.ds_test = BatchSynthesizer(
-            self.data_test, self.data_test_lr,
-            predictors=self.predictors_test, season_ids=season[2], **common)
+        splits = ((self.data_train, self.data_train_lr, self.predictors_train),
+                  (self.data_val, self.data_val_lr, self.predictors_val),
+                  (self.data_test, self.data_test_lr, self.predictors_test))
+        sources = []
+        for (data, data_lr, preds), sids in zip(splits, season):
+            if self.data_in_hbm:
+                sources.append(BatchSynthesizer(
+                    data, data_lr, predictors=preds, season_ids=sids,
+                    **common))
+            else:
+                sources.append(HostStreamer(
+                    data, array_lr=data_lr, predictors=preds,
+                    season_ids=sids, seed=self.seed, **common))
+        self.ds_train, self.ds_val, self.ds_test = sources
 
     def setup_model(self):
         """Channel bookkeeping and the model, its weights drawn from `seed`,
@@ -406,7 +419,26 @@ class SupervisedTrainer(Trainer):
                      else max(self.ds_val.n // b, 1))
         test_steps = (self.test_steps if self.test_steps is not None
                       else max(self.ds_test.n // b, 1))
-        spe = self.steps_per_execution or steps
+        streaming = not self.data_in_hbm
+        if streaming:
+            # the streamer emits whole batches: a split smaller than one
+            # would evaluate no batch (dl4ds_tpu/training/supervised.py:
+            # 592-606)
+            for nm, ds in (('data_val', self.ds_val),
+                           ('data_test', self.ds_test)):
+                if ds.n < b:
+                    raise ValueError(
+                        f'{nm} yields no full global batch in the '
+                        f'streaming tier (n={ds.n}, global_batch_size={b}); '
+                        f'reduce batch_size, use fewer devices, or set '
+                        f'data_in_hbm=True')
+            if self.steps_per_execution:
+                warnings.warn(
+                    'steps_per_execution only applies to the in-HBM tier '
+                    '(data_in_hbm=True); the streaming tier dispatches one '
+                    'jitted step per host batch and will ignore it',
+                    RuntimeWarning)
+        spe = steps if streaming else (self.steps_per_execution or steps)
         # whole chunks, so that one captured step serves every chunk;
         # `epoch_indices` wraps the permutation, so the extra steps
         # resample the epoch (dl4ds_tpu/training/supervised.py:618-647)
@@ -428,11 +460,18 @@ class SupervisedTrainer(Trainer):
             self.start_profiler()
         for epoch in range(self.trained_epochs, self.epochs):
             self.train_net.train()
-            self.train_losses = self.runner.train(
-                self.ds_train.plan(generator, steps_exec))
-            train_loss = self.train_losses.mean().item()
-            val_loss = self.runner.evaluate(
-                'val', self.ds_val.plan(generator, val_steps))
+            if streaming:
+                self.train_losses = self.runner.train_stream(self.ds_train,
+                                                             steps)
+                train_loss = self.train_losses.mean().item()
+                val_loss = self.runner.evaluate_stream('val', self.ds_val,
+                                                       val_steps)
+            else:
+                self.train_losses = self.runner.train(
+                    self.ds_train.plan(generator, steps_exec))
+                train_loss = self.train_losses.mean().item()
+                val_loss = self.runner.evaluate(
+                    'val', self.ds_val.plan(generator, val_steps))
             history['loss'].append(train_loss)
             history['val_loss'].append(val_loss)
             if self.terminate_on_nan and not (np.isfinite(train_loss)
@@ -466,8 +505,10 @@ class SupervisedTrainer(Trainer):
                     break
         self.stop_profiler()
         self.fithist = history
-        self.test_loss = self.runner.evaluate(
-            'test', self.ds_test.plan(generator, test_steps))
+        self.test_loss = (
+            self.runner.evaluate_stream('test', self.ds_test, test_steps)
+            if streaming else self.runner.evaluate(
+                'test', self.ds_test.plan(generator, test_steps)))
         # with EMA on, the public weights are the averaged ones (what
         # predict() and save_results serve); train_net keeps the raw ones
         self.net = self.eval_net()
@@ -498,6 +539,10 @@ class SupervisedTrainer(Trainer):
             'n_updates': self.n_updates, 'mini_step': self.mini_step,
             'epoch': epoch, 'generator': generator.get_state(),
             'dropout_generator': self.dropout_generator.get_state()}
+        if not self.data_in_hbm:
+            # the streamers' draws, so that a resumed run streams on
+            payload['streams'] = [ds.rng.bit_generator.state for ds in
+                                  (self.ds_train, self.ds_val, self.ds_test)]
         if self.ema_net is not None:
             payload['ema_params'] = _cpu(self.ema_net.state_dict())
         if self._acc is not None:
@@ -528,6 +573,10 @@ class SupervisedTrainer(Trainer):
         generator.set_state(payload['generator'])
         if 'dropout_generator' in payload:
             self.dropout_generator.set_state(payload['dropout_generator'])
+        if not self.data_in_hbm and 'streams' in payload:
+            for ds, state in zip((self.ds_train, self.ds_val, self.ds_test),
+                                 payload['streams']):
+                ds.rng.bit_generator.state = state
         return int(payload['epoch'])
 
 
@@ -571,7 +620,10 @@ def _cpu(tensors):
 class StepRunner:
     """The steps of a run: the plan rows of a chunk on the device, the row
     counter and the loss buffers, with each step function captured as a
-    CUDA graph on the card and called eagerly on the CPU.
+    CUDA graph on the card and called eagerly on the CPU. With a
+    `HostStreamer` as a split's source, its 'plan' is the input buffers of
+    one batch (`plan_buffers`), which `train_stream` and `evaluate_stream`
+    fill from each streamed batch before running the step.
 
     The training functions are 'step' (a step with its update), or with
     gradient accumulation 'accumulate' and 'commit', replayed as the
@@ -651,6 +703,39 @@ class StepRunner:
                 tr._advance(commit)
             out[c:c + self.spe].copy_(self.losses)
         return out
+
+    def train_stream(self, stream, steps):
+        """Run one streamed epoch of `steps` training steps: each batch of
+        `stream` (a `HostStreamer`) copied into the step's input buffers on
+        the current stream, then the step run (replayed on the card);
+        returns their losses on the device."""
+        tr = self.trainer
+        accumulate = tr.gradient_accumulation_steps > 1
+        tr._row.zero_()
+        for raw in stream.stream(1, steps):
+            self._fill(self.plan, raw)
+            commit = tr._commits()
+            self._run(('commit' if commit else 'accumulate')
+                      if accumulate else 'step')
+            tr._advance(commit)
+        return self.losses[:steps].clone()
+
+    def evaluate_stream(self, split, stream, steps):
+        """The mean loss of `eval_net()` over `steps` batches of `stream`,
+        in eval mode, each copied into the split's input buffers."""
+        tr = self.trainer
+        bufs, losses = self.evals[split]
+        tr.eval_net().eval()
+        tr._row.zero_()
+        for raw in stream.stream(1, steps):
+            self._fill(bufs, raw)
+            self._run(split)
+        return losses[:steps].mean().item()
+
+    @staticmethod
+    def _fill(bufs, raw):
+        for key, buf in bufs.items():
+            buf.copy_(raw[key], non_blocking=True)
 
     def evaluate(self, split, plan):
         """The mean loss of `eval_net()` over the rows of `plan` (`split`'s

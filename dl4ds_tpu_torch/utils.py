@@ -12,7 +12,7 @@ import torch
 from . import (BACKBONE_BLOCKS, DROPOUT_VARIANTS, LOSS_FUNCTIONS,
                UPSAMPLING_METHODS)
 
-__all__ = ['checkarray_ndim', 'checkarg_upsampling', 'checkarg_backbone',
+__all__ = ['checkarray_ndim', 'crop_array', 'checkarg_upsampling', 'checkarg_backbone',
            'checkarg_dropout_variant', 'checkarg_loss',
            'check_compatibility_upsbackb', 'resolve_device', 'not_ported',
            'spatiotemporal_to_spatial_samples', 'Timing', 'plot_history',
@@ -32,6 +32,52 @@ def checkarray_ndim(array, ndim=3, add_axis_position=-1):
     while array.ndim < ndim:
         array = np.expand_dims(array, axis=add_axis_position)
     return array
+
+
+def crop_array(array, size, yx=None, position=False, exclude_borders=False,
+               get_copy=False, rng=None):
+    """Square crop of a 2-5D numpy array with the reference's axis
+    conventions (dl4ds_tpu/utils.py:274-316): rank 2/3 crops axes (0, 1),
+    rank 4 (1, 2), rank 5 (2, 3). At `yx` = (y, x), or at an origin drawn
+    y first, then x, from `rng` (default: the global `np.random`; its
+    `randint`, or a `Generator`'s `integers`). With `position` returns
+    (crop, y, x)."""
+    if array.ndim not in (2, 3, 4, 5):
+        raise TypeError('Input array is not a 2D, 3D, 4D or 5D ndarray')
+    if not isinstance(size, int):
+        raise TypeError('`size` must be an integer')
+    ax = {2: 0, 3: 0, 4: 1, 5: 2}[array.ndim]
+    ny, nx = array.shape[ax], array.shape[ax + 1]
+    if size > ny or size > nx:
+        raise ValueError('`size` larger than the input image size')
+    if yx is not None and isinstance(yx, tuple):
+        y, x = yx
+    else:
+        rng = rng or np.random
+        randint = getattr(rng, 'randint', None) or rng.integers
+        lo = 1 if exclude_borders else 0
+        hi_y = ny - size - (1 if exclude_borders else 0)
+        hi_x = nx - size - (1 if exclude_borders else 0)
+        if hi_y <= lo - 1 or hi_x <= lo - 1 or (exclude_borders
+                                                and (hi_y <= lo
+                                                     or hi_x <= lo)):
+            raise ValueError(
+                f'cannot crop size={size} from a {ny}x{nx} grid with '
+                f'exclude_borders={exclude_borders}')
+        y = randint(lo, max(hi_y, lo + 1))
+        x = randint(lo, max(hi_x, lo + 1))
+    y0, y1 = int(y), int(y) + size
+    x0, x1 = int(x), int(x) + size
+    if y0 < 0 or x0 < 0 or y1 > ny or x1 > nx:
+        raise RuntimeError(
+            f'Cropped image cannot be obtained with size={size}, y={y}, x={x}')
+    sl = [slice(None)] * array.ndim
+    sl[ax] = slice(y0, y1)
+    sl[ax + 1] = slice(x0, x1)
+    out = array[tuple(sl)]
+    if get_copy:
+        out = out.copy()
+    return (out, y, x) if position else out
 
 
 def checkarg_upsampling(upsampling):

@@ -546,8 +546,7 @@ def test_signature_checks_and_refusals(tmp_path):
                     (dict(predictors_train=np.zeros(1)), TypeError)):
         with pytest.raises(err):
             _trainer(data, **kw)
-    for kw, item in ((dict(data_in_hbm=False), 9),
-                     (dict(mesh=object()), 10), (dict(devices=[0]), 10),
+    for kw, item in ((dict(mesh=object()), 10), (dict(devices=[0]), 10),
                      (dict(init_weights='w.h5'), 11)):
         with pytest.raises(NotImplementedError, match=f'item {item}'):
             _trainer(data, **kw)

@@ -451,9 +451,7 @@ def test_load_jax_params_rejects_a_stray_convlstm_leaf():
             tds.load_jax_params(tm.init(0, device='cpu'), params)
 
 
-@pytest.mark.parametrize('kwargs', [
-    dict(backbone_block='convnet'), dict(backbone_block='densenet'),
-    dict(dtype=torch.float16)])
+@pytest.mark.parametrize('kwargs', [dict(dtype=torch.float16)])
 def test_unported_recurrent_configurations_raise(kwargs):
     args = dict(backbone_block='resnet', upsampling='spc', n_aux_channels=2,
                 **SMALL)

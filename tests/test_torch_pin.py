@@ -249,9 +249,9 @@ def test_factory_signatures_equal_the_jax_ones(name):
 
 
 def test_unported_pin_configurations_raise():
-    with pytest.raises(NotImplementedError, match='item 7'):
+    with pytest.raises(NotImplementedError, match='item 5'):
         tds.build_model('convnet', 'pin', 4, 1, 0, (8, 8), (32, 32),
-                        time_window=3)
+                        time_window=3, dtype=torch.float16)
 
 
 # ---------------------------------------------------------------------------

@@ -333,10 +333,8 @@ def test_terminate_on_nan(data):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(backbone='densenet'),
-    dict(data_in_hbm=False), dict(mesh=object()), dict(devices=['cpu']),
-    dict(init_weights='keras.npz'), dict(backbone='convnet'),
-    dict(upsampling='pin')])
+    dict(mesh=object()), dict(devices=['cpu']),
+    dict(init_weights='keras.npz')])
 def test_unported_training_options_raise(data, kwargs):
     hr = data[0]
     args = dict(REC, data_train=hr, data_val=hr[:6], data_test=hr[:6],

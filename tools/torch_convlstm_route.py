@@ -3,12 +3,15 @@
 each route on one GPU.
 
     python3 tools/torch_convlstm_route.py [--out route_table.json]
-                                          [--dtype bf16]
+                                          [--dtype bf16] [--size 64]
+                                          [--widths 8]
 
 For every layer shape F in {8, 16, 32, 64}, Cin in {1, F}, k in {3, 5} (the
 six layer shapes of both recresnet_spc training paths among them: n_filters
 8, BASELINE config 4, and n_filters 64, bench_suite.py's
-recresnet_spc_width64), at batch 128, T 4 and 16x16 LR patches, float32, it
+recresnet_spc_width64), at batch 128, T 4 and 16x16 LR patches (`--size`:
+64 for the 64x64 HR frames of recnet_pin; `--widths`: a subset of F),
+float32, it
 runs K2's training variant once for the residuals, then times the backward by
 each route on CUDA events with the 50 MB L2 flushed before each call, in
 turns (fused, split, split, fused):
@@ -52,6 +55,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default=None)
     ap.add_argument('--dtype', choices=('f32', 'bf16'), default='f32')
+    ap.add_argument('--size', type=int, default=SIZE,
+                    help='frame height and width')
+    ap.add_argument('--widths', type=int, nargs='+', default=WIDTHS,
+                    help='layer widths F')
     args = ap.parse_args()
 
     import torch
@@ -75,9 +82,9 @@ def main():
     tol, peak = TOL[args.dtype], PEAK_FLOPS[args.dtype]
     gen = torch.Generator(device=dev).manual_seed(4)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    b, t, s = BATCH, T, SIZE
+    b, t, s = BATCH, T, args.size
     rows = []
-    for f in WIDTHS:
+    for f in args.widths:
         for cin in dict.fromkeys((1, f)):
             for k in (3, 5):
                 wx, bx, wh = (u.to(dtype) for u in _layer_weights(

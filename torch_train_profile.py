@@ -2,9 +2,11 @@
 """Where the device time of a PyTorch port training step goes.
 
     python3 torch_train_profile.py [--model recresnet_spc|resnet_spc|
-        convnet_pin|unet_pin] [--loss mae] [--batch 128] [--reps 5]
+        convnet_pin|unet_pin|recresnet_pin|recconvnet_spc|
+        recdensenet_spc] [--loss mae] [--batch 128] [--reps 5]
         [--width 8] [--attention] [--graphed] [--dtype bf16] [--mos]
         [--state convnext|bn_mc|recurrent] [--cgan [--time-window 4]]
+        [--stream]
         # from the repo root
 
 Builds the training configuration of `chip_smoke.py` phase 7 (BASELINE
@@ -18,7 +20,13 @@ n_blocks 6, no time window; `--loss dssim_mae` as phase 10 trains it); with
 `--model convnet_pin` or `--model unet_pin` BASELINE configs 1 and 3 as
 `chip_smoke.py` phase 14 trains them (bench_suite.py's convnet_pin_4x,
 n_blocks 6, and unet_pin_4x, n_blocks 4 with the 'rc' decoder: the pre-
-upsampled 64x64 patches, n_filters 8); `--dtype bf16` trains the bfloat16
+upsampled 64x64 patches, n_filters 8); with `--model recresnet_pin`
+`chip_smoke.py` phase 17's (a) (time window 4, n_blocks 6, its ConvLSTM
+layers on the 64x64 HR frames), with `--model recconvnet_spc` or
+`recdensenet_spc` its (b) (phase 7's configuration with the merge
+swapped); `--stream` streams the training batches from host RAM
+(`data_in_hbm=False`: `HostStreamer`, each batch copied into the step's
+inputs; graphed, `reps` streamed replays); `--dtype bf16` trains the bfloat16
 model (float32 parameters, Adam and loss; bfloat16 convolutions and
 kernels); `--mos` trains the flagship of `chip_smoke.py` phase 13 MOS-style,
 from given LR arrays with two statics, a predictor and season channels
@@ -105,7 +113,9 @@ def main():
     ap.add_argument('--width', type=int, default=8, help='n_filters')
     ap.add_argument('--attention', action='store_true')
     ap.add_argument('--model', choices=('recresnet_spc', 'resnet_spc',
-                                        'convnet_pin', 'unet_pin'),
+                                        'convnet_pin', 'unet_pin',
+                                        'recresnet_pin', 'recconvnet_spc',
+                                        'recdensenet_spc'),
                     default='recresnet_spc')
     ap.add_argument('--loss', default='mae')
     ap.add_argument('--graphed', action='store_true',
@@ -119,6 +129,8 @@ def main():
                     help="chip_smoke.py phase 16's CGAN training")
     ap.add_argument('--time-window', type=int, choices=(4,),
                     help='with --cgan: the spatio-temporal pair, (b)')
+    ap.add_argument('--stream', action='store_true',
+                    help='stream the batches from the host')
     args = ap.parse_args()
 
     import numpy as np
@@ -139,7 +151,7 @@ def main():
         config = chip_smoke._cgan_config(recurrent=bool(args.time_window),
                                          dtype=dtype)
         config['batch_size'] = args.batch
-        tr = tds.CGANTrainer(**config)
+        tr = tds.CGANTrainer(data_in_hbm=not args.stream, **config)
         tr.setup_datagen()
         tr.setup_model()
         tr.setup_optimizer(args.reps)
@@ -150,7 +162,7 @@ def main():
         config = (chip_smoke._state_config(args.state) if args.state
                   else chip_smoke._mos_config(tds)[0])
         tr = tds.SupervisedTrainer(batch_size=args.batch, dtype=dtype,
-                                   **config)
+                                   data_in_hbm=not args.stream, **config)
     else:
         data = np.random.default_rng(0).standard_normal(
             (256, 128, 128, 1)).astype('float32')
@@ -159,14 +171,21 @@ def main():
                  'convnet_pin': dict(backbone='convnet', upsampling='pin',
                                      n_blocks=6),
                  'unet_pin': dict(backbone='unet', upsampling='pin',
-                                  n_blocks=4)}[args.model]
+                                  n_blocks=4),
+                 'recresnet_pin': dict(upsampling='pin', time_window=4,
+                                       n_blocks=6),
+                 'recconvnet_spc': dict(backbone='convnet', time_window=4,
+                                        n_blocks=2),
+                 'recdensenet_spc': dict(backbone='densenet', time_window=4,
+                                         n_blocks=2)}[args.model]
         model.setdefault('backbone', 'resnet')
         model.setdefault('upsampling', 'spc')
         tr = tds.SupervisedTrainer(
             data_train=data, data_val=data[:64],
             data_test=data[:64], scale=4, patch_size=64,
             batch_size=args.batch, loss=args.loss, n_filters=args.width,
-            attention=args.attention, verbose=False, dtype=dtype, **model)
+            attention=args.attention, verbose=False, dtype=dtype,
+            data_in_hbm=not args.stream, **model)
     if not args.cgan:
         tr.setup_datagen()
         tr.setup_model()
@@ -178,11 +197,24 @@ def main():
         from dl4ds_tpu_torch.training.supervised import StepRunner
         runner = StepRunner(tr, args.reps, {},
                             loss_shape=(4,) if args.cgan else ())
-        runner.train(tr.ds_train.plan(gen, args.reps))
-        plan = tr.ds_train.plan(gen, args.reps)
+        if args.stream:
+            def steps():
+                runner.train_stream(tr.ds_train, args.reps)
+            steps()
+        else:
+            runner.train(tr.ds_train.plan(gen, args.reps))
+            plan = tr.ds_train.plan(gen, args.reps)
+
+            def steps():
+                runner.train(plan)
+    elif args.stream:
+        batches = tr.ds_train.stream(1, 3 + args.reps)
+        for _ in range(3):
+            tr.train_step(tr.ds_train.build(**next(batches)))
 
         def steps():
-            runner.train(plan)
+            for raw in batches:
+                tr.train_step(tr.ds_train.build(**raw))
     else:
         idx = tr.ds_train.epoch_indices(gen, steps=3 + args.reps)
         for c in range(3):
@@ -233,6 +265,7 @@ def main():
         'device': torch.cuda.get_device_name(0), 'model': model.name,
         'dtype': args.dtype, 'mos': args.mos, 'state': args.state,
         'cgan': args.cgan, 'time_window': args.time_window,
+        'stream': args.stream,
         'input_channels': model.input_shape[-1],
         'aux_channels': (model.aux_shape or (0,))[-1],
         'loss': tr.loss, 'width': arch['n_filters'],
