@@ -227,7 +227,33 @@ Phases, each of which exits non-zero on failure:
      against 8 eager steps with K1's launches in the device trace, then
      CGAN (a) and recresnet_pin streamed for one epoch of 4 steps with their
      launches in the device trace;
- 18. print the `kernels` JSON line, then, last, the device JSON line. In
+ 18. one-card parallelism: (a) the flagship (bench.py's widths, attention)
+     served by `predict(tile=128, halo=32, batch_size=8)` on 2 grids of
+     the 0.25-degree global ERA5 grid (721x1440 LR, HR grids coarsened on
+     the card; 72 windows of 192x192 a grid, the clipped border windows
+     included): K1's launches (7 a dispatch, no backward), the output's
+     shape, grids/s on the host clock and a dispatch's forward on CUDA
+     events, grid 0 against the same tiled call on the CPU (TF32 off) and
+     the attention-free twin tiled against untiled on the card, within
+     1e-4; K1 at the window gates against its plain version and timed; (b)
+     recresnet_spc (T 4) with tile 128 and halo 64 on 5 grids: K2's
+     launches (24 a dispatch), the speed, the attention-free twin tiled
+     against untiled, K2 at the [8, 4, 256, 256, C] window layers held and
+     timed; (c) a 4-member ensemble of the flagship
+     (`parallel.init_ensemble`, `make_ensemble_step`, `predict_ensemble`)
+     on phase 10's data: 3 steps (bootstrap off) and one dssim_mae step at
+     batch 16 against the port's CPU ensemble step in float64 at phase 7's
+     tolerances (K1 one member-mode launch a gate each way, K6 one a member
+     each way), 3 bootstrapped steps from 4 copies of one member (finite,
+     the members part), 10 eager steps at batch 128 (member-patches/s
+     beside 4x phase 12's single model; K1 7 launches a step each way),
+     `predict_ensemble` of 16 grids (K1 7 launches; two members against
+     the member served alone) fed to `compute_prob_metrics`; (d) K1's
+     member mode alone at [512, 16, 16, 8] and [64, 128, 128, 8], float32
+     and the mixed mode, forward and backward: the bits of 4 one-member
+     launches, the per-member plain version's values, timed against it
+     and the byte bound;
+ 19. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -247,9 +273,11 @@ Phases, each of which exits non-zero on failure:
      K1_channel_attention_mos_serve, K1_channel_attention_pin_serve,
      K1_channel_attention_rc_dc_serve, K1_channel_attention_convnext_serve,
      K1_channel_attention_mc_serve, K2_convlstm_mc_serve,
-     K1_channel_attention_cgan_serve, K2_convlstm_recnet_pin_serve) and
-     K6_ssim_metrics run eagerly, and
-     their `launches` are their wrappers' counts.
+     K1_channel_attention_cgan_serve, K2_convlstm_recnet_pin_serve,
+     K1_channel_attention_tiled_serve, K2_convlstm_tiled_serve,
+     K1_channel_attention_member_serve), K6_ssim_metrics and the ensemble
+     step's kernels (K1_channel_attention_member_train, K6_ssim_ensemble)
+     run eagerly, and their `launches` are their wrappers' counts.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -4933,8 +4961,8 @@ def _k2_serve_rows(torch, tds, layers, hw, label, seed=170):
             ms, plain_ms = paired_ms(torch, lambda: fcl(x, wx, bx, wh),
                                      lambda: ref(x, wx, bx, wh), flush)
         if not err <= K2_TOL:
-            fail(f'phase 17: K2 {label} x{list(x.shape)} F={f} k={k}: '
-                 f'max|d| {err:.3e}')
+            fail(f'K2 {label} x{list(x.shape)} F={f} k={k}: max|d| '
+                 f'{err:.3e}')
         flops, n_bytes = k2_work(x, wx, wh)
         rows.append(dict(x=list(x.shape), f=f, k=k, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=max(
@@ -4989,8 +5017,8 @@ def _pinrec(torch, tds, report):
         dict(scale=SCALE, time_window=REC_T, batch_size=BATCH,
              array_in_hr=True), want, cpu_slice=slice(0, REC_T),
         bf16=model16, phase=17)
-    out['serve_layers'] = _k2_serve_rows(torch, tds, PINREC_LAYERS, LR,
-                                         'recresnet_pin serving layer')
+    out['serve_layers'] = _k2_serve_rows(
+        torch, tds, PINREC_LAYERS, LR, 'phase 17: recresnet_pin serving layer')
     out.update(launches=got, wrapper_calls=calls, peak_gib=peak, bf16=bf16,
                **numbers)
 
@@ -5396,6 +5424,598 @@ def _zoo_stream_kernel_rows(report):
     return out
 
 
+# phase 18: one-card parallelism. Tiled serving on the 0.25-degree global
+# ERA5 grid (721 x 1440 LR, x4 to 2884 x 5760; HR grids coarsened on the
+# card): the flagship in 192x192 windows (tile 128, halo 32), 72 a grid, the
+# clipped border windows included; recresnet_spc (T 4) with halo 64, which
+# covers its receptive field (`parallel.receptive_field_radius`). Then a
+# 4-member ensemble of the flagship on phase 10's data, 3 steps (batch
+# ENS_CPU_BATCH) against the port's CPU ensemble step in float64 at phase
+# 7's tolerances, and K1's member mode alone at the step's and the serving
+# gate's shapes.
+TILED_GRID = (721, 1440)
+TILED_GRIDS, TILED_REC_GRIDS = 2, 5
+TILE, TILE_HALO, REC_TILE_HALO = 128, 32, 64
+TILE_WINDOW = TILE + 2 * TILE_HALO
+REC_TILE_WINDOW = TILE + 2 * REC_TILE_HALO
+# the K1 gates of a tiled flagship dispatch: phase 2's on a window batch
+TILED_GATES = [(BATCH, TILE_WINDOW * (hh // LR), TILE_WINDOW * (ww // LR), c)
+               for hh, ww, c in K1_SHAPES]
+# K2's layers in recresnet_spc with one input channel (the stem takes the
+# grid alone)
+TILED_K2_LAYERS = K3_LAYERS
+ENS_M, ENS_STEPS, ENS_CPU_BATCH, ENS_SPEED_STEPS = 4, 3, FLAG_CPU_BATCH, 10
+# K1's member mode alone: the ensemble step's first gate and the serving
+# forward's first gate, M members of TRAIN_BATCH and N_GRIDS samples
+MEMBER_SHAPES = [(ENS_M * TRAIN_BATCH, TRAIN_LR, TRAIN_LR, N_FILTERS),
+                 (ENS_M * N_GRIDS, LR, LR, N_FILTERS)]
+
+
+def _tiled_gate_rows(torch, tds):
+    """K1's forward at the gates of a tiled flagship dispatch (stream
+    regime), against its plain version and timed; serving runs no
+    backward."""
+    fca, ref = tds.fused_channel_attention, tds.channel_attention_reference
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(18)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for shape in TILED_GATES:
+        c = shape[-1]
+        cr = max(int(c / 4), 1)
+        x, weights, _ = _gate_case(torch, gen, dev, shape, cr, torch.float32)
+        err = (fca(x, *weights) - ref(x, *weights)).abs().max().item()
+        if not err <= K1_TOL['float32']['atol']:
+            fail(f'K1 tiled window gate x{list(shape)}: max|d| {err:.3e}')
+        ms, plain_ms = paired_ms(torch, lambda: fca(x, *weights),
+                                 lambda: ref(x, *weights), flush)
+        n_bytes = 2 * x.numel() * 4 + 4 * (2 * c * cr + c + cr)
+        n_ops = 2 * x.numel() + 4 * shape[0] * c * cr
+        rows.append(dict(shape=list(shape), cr=cr, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=max(
+                             n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
+                         * 1e3))
+        print(f'K1 tiled window gate x{list(shape)} cr={cr}  max|d| '
+              f'{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  '
+              f'bound {rows[-1]["bound_ms"]:.4f} ms (bytes); {card_line()}',
+              flush=True)
+    return rows
+
+
+def _compare(got, want, label, tol=PREDICT_TOL):
+    import numpy as np
+    diff = np.abs(got - want)
+    err = float(diff.max())
+    print(f'{label}: max|d| {err:.3e}, max|y| {float(np.abs(want).max()):.3e}'
+          f' (atol {tol["atol"]}, rtol {tol["rtol"]})', flush=True)
+    if not bool((diff <= tol['atol'] + tol['rtol'] * np.abs(want)).all()):
+        fail(f'{label}: max|d| {err:.3e}')
+    return err
+
+
+def _tiled_flagship(torch, tds, report):
+    """(a): the flagship served tiled on 2 global grids; its gated model
+    against the same tiled call on the CPU, its attention-free twin tiled
+    against untiled on the card."""
+    import numpy as np
+    fca = tds.fused_channel_attention
+    h, w = TILED_GRID
+    hr = np.random.default_rng(18).standard_normal(
+        (TILED_GRIDS, h * SCALE, w * SCALE)).astype('float32')
+    kwargs = dict(scale=SCALE, array_in_hr=True, tile=TILE, halo=TILE_HALO,
+                  batch_size=BATCH)
+
+    def build(**kw):
+        return tds.net_postupsampling(
+            'resnet', 'spc', scale=SCALE, n_channels=1, n_aux_channels=0,
+            lr_size=TILED_GRID, n_filters=N_FILTERS, n_blocks=N_BLOCKS, **kw)
+    model = build(attention=True)
+    net = model.init(seed=0, device='cuda')
+    n_win = TILED_GRIDS * (-(-h // TILE)) * (-(-w // TILE))
+    dispatches = -(-n_win // BATCH)
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    fca.launches = fca.bwd_launches = 0
+    y = tds.predict((model, net), hr, **kwargs)
+    launches, bwd = fca.launches, fca.bwd_launches
+    expected = len(K1_SHAPES) * dispatches
+    print(f'tiled predict: {TILED_GRIDS} grids {h}x{w} -> {y.shape}, '
+          f'{n_win} windows of {TILE_WINDOW}x{TILE_WINDOW} in {dispatches} '
+          f'dispatches of {BATCH}; K1 launches {launches} (expected '
+          f'{expected}), backward {bwd} (expected 0)', flush=True)
+    if y.shape != (TILED_GRIDS, h * SCALE, w * SCALE, 1):
+        fail(f'tiled predict output shape {y.shape}')
+    if not np.isfinite(y).all():
+        fail('tiled predict output is not finite')
+    if launches != expected or bwd != 0:
+        fail(f'tiled predict launched K1 {launches} and its backward {bwd} '
+             f'times, expected {expected} and 0')
+    t0 = time.perf_counter()
+    tds.predict((model, net), hr, **kwargs)
+    predict_s = time.perf_counter() - t0
+    win = torch.randn((BATCH, TILE_WINDOW, TILE_WINDOW, 1), device='cuda')
+    with torch.inference_mode():
+        fwd_ms = statistics.median(device_times(torch, lambda: net(win),
+                                                reps=10))
+    print(f'tiled predict of {TILED_GRIDS} global grids (TF32 convs, the '
+          f'default): {TILED_GRIDS / predict_s:.4f} grids/s end to end (host '
+          f'clock, data assembly, window gather and copy out included); a '
+          f'window dispatch\'s forward {fwd_ms:.3f} ms (CUDA events), '
+          f'{dispatches} of them {dispatches * fwd_ms:.1f} ms; '
+          f'{card_line()}', flush=True)
+
+    torch.backends.cudnn.allow_tf32 = False
+    y32 = tds.predict((model, net), hr[:1], **kwargs)
+    net_cpu = copy.deepcopy(net).cpu()
+    t0 = time.perf_counter()
+    y_cpu = tds.predict((model, net_cpu), hr[:1], device='cpu', **kwargs)
+    cpu_s = time.perf_counter() - t0
+    del net_cpu
+    gated_err = _compare(y32[0], y_cpu[0], f'tiled predict grid 0, GPU (TF32 '
+                         f'off) vs the same tiled call on the CPU '
+                         f'({cpu_s:.1f} s there)')
+    free = build(attention=False, output_attention=False)
+    fnet = free.init(seed=0, device='cuda')
+    tiled = tds.predict((free, fnet), hr, **kwargs)
+    untiled = tds.predict((free, fnet), hr, **dict(kwargs, tile=None))
+    free_err = _compare(tiled, untiled, 'attention-free twin, tiled vs '
+                        'untiled on the card (TF32 off)')
+    report['tiled'] = dict(launches=launches, bwd_launches=bwd,
+                           grids_per_s=TILED_GRIDS / predict_s,
+                           window_forward_ms=fwd_ms, dispatches=dispatches,
+                           cpu_err=gated_err, twin_err=free_err)
+
+
+def _tiled_recurrent(torch, tds, report):
+    """(b): recresnet_spc served tiled (halo 64) on 5 global grids, K2 on
+    [8, 4, 256, 256, C] windows; its attention-free twin tiled against
+    untiled on the card."""
+    import numpy as np
+    from dl4ds_tpu_torch.parallel import receptive_field_radius
+    fcl = tds.fused_convlstm
+    h, w = TILED_GRID
+    hr = np.random.default_rng(19).standard_normal(
+        (TILED_REC_GRIDS, h * SCALE, w * SCALE)).astype('float32')
+    kwargs = dict(scale=SCALE, array_in_hr=True, time_window=REC_T,
+                  tile=TILE, halo=REC_TILE_HALO, batch_size=BATCH)
+
+    def build(**kw):
+        return tds.recnet_postupsampling(
+            'resnet', 'spc', scale=SCALE, n_channels=1, n_aux_channels=0,
+            lr_size=TILED_GRID, time_window=REC_T, n_filters=N_FILTERS,
+            n_blocks=REC_BLOCKS, **kw)
+    model = build()
+    net = model.init(seed=0, device='cuda')
+    samples = TILED_REC_GRIDS - REC_T + 1
+    n_win = samples * (-(-h // TILE)) * (-(-w // TILE))
+    dispatches = -(-n_win // BATCH)
+    torch.backends.cudnn.allow_tf32 = True
+    fcl.launches = 0
+    y = tds.predict((model, net), hr, **kwargs)
+    launches = fcl.launches
+    expected = len(TILED_K2_LAYERS) * REC_T * dispatches
+    print(f'tiled recurrent predict: {TILED_REC_GRIDS} grids {h}x{w} '
+          f'({samples} windows of {REC_T}) -> {y.shape}, {n_win} windows of '
+          f'{REC_TILE_WINDOW}x{REC_TILE_WINDOW} (halo {REC_TILE_HALO}; the '
+          f'receptive-field estimate {receptive_field_radius(REC_BLOCKS, time_window=REC_T)})'
+          f' in {dispatches} dispatches; K2 launches {launches} (expected '
+          f'{expected})', flush=True)
+    if y.shape != (TILED_REC_GRIDS, h * SCALE, w * SCALE, 1):
+        fail(f'tiled recurrent predict output shape {y.shape}')
+    if not np.isfinite(y).all():
+        fail('tiled recurrent predict output is not finite')
+    if launches != expected:
+        fail(f'tiled recurrent predict launched K2 {launches} times, '
+             f'expected {expected}')
+    t0 = time.perf_counter()
+    tds.predict((model, net), hr, **kwargs)
+    predict_s = time.perf_counter() - t0
+    win = torch.randn((BATCH, REC_T, REC_TILE_WINDOW, REC_TILE_WINDOW, 1),
+                      device='cuda')
+    with torch.inference_mode():
+        fwd_ms = statistics.median(device_times(torch, lambda: net(win),
+                                                reps=5))
+    print(f'tiled recurrent predict of {TILED_REC_GRIDS} global grids: '
+          f'{TILED_REC_GRIDS / predict_s:.4f} grids/s end to end (host '
+          f'clock); a window dispatch\'s forward {fwd_ms:.3f} ms (CUDA '
+          f'events); {card_line()}', flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    free = build(attention=False, output_attention=False)
+    fnet = free.init(seed=0, device='cuda')
+    tiled = tds.predict((free, fnet), hr, **kwargs)
+    untiled = tds.predict((free, fnet), hr, **dict(kwargs, tile=None))
+    free_err = _compare(tiled, untiled, 'recurrent attention-free twin, '
+                        'tiled vs untiled on the card (TF32 off)')
+    report['tiled_rec'] = dict(launches=launches,
+                               grids_per_s=TILED_REC_GRIDS / predict_s,
+                               window_forward_ms=fwd_ms,
+                               dispatches=dispatches, twin_err=free_err)
+    report['tiled_k2_rows'] = _k2_serve_rows(
+        torch, tds, TILED_K2_LAYERS, REC_TILE_WINDOW,
+        'phase 18: tiled window layer')
+
+
+def _ensemble_batches(torch, tds, config, batch, n):
+    """n training batches of `batch` from the flagship's synthesizer (phase
+    10's data and patches), on the card."""
+    tr = tds.SupervisedTrainer(batch_size=batch, epochs=1, **config)
+    tr.setup_datagen()
+    tr.setup_model()
+    gen = torch.Generator().manual_seed(3)
+    idx = tr.ds_train.epoch_indices(gen, steps=n)
+    return tr.model, [tr.ds_train(idx[c], generator=gen) for c in range(n)]
+
+
+def _ensemble_vs_cpu(torch, tds, model, stacked, batches, loss, label):
+    """ENS_STEPS ensemble steps (bootstrap off) on the card (TF32 off,
+    PyTorch's own convolutions) and on the CPU in float64 from the same
+    stack and batches: the losses and the parameters after the last step
+    at phase 7's tolerances."""
+    from dl4ds_tpu_torch import parallel
+    fca, fss = tds.fused_channel_attention, tds.fused_ssim_per_image
+    es = parallel.make_ensemble_step(model, loss=loss, bootstrap=False)
+    runs = {}
+    counts = {}
+    for device, dtype in (('cuda', torch.float32), ('cpu', torch.float64)):
+        torch.backends.cudnn.enabled = device == 'cpu'
+        torch.backends.cudnn.allow_tf32 = False
+        st = {k: v.detach().to(device, dtype, copy=True)
+              for k, v in stacked.items()}
+        opt = es.init_opt(st)
+        fca.launches = fca.bwd_launches = 0
+        fss.launches = fss.bwd_launches = 0
+        losses = []
+        for c, b in enumerate(batches):
+            st, opt, ls = es.step(st, opt, b['lr'].to(device),
+                                  b['hr'].to(device), c)
+            losses.append(ls.double().cpu())
+        if device == 'cuda':
+            counts = dict(k1=fca.launches, k1_bwd=fca.bwd_launches,
+                          k6=fss.launches, k6_bwd=fss.bwd_launches)
+        runs[device] = (torch.stack(losses), {
+            k: v.detach().to('cpu', torch.float64) for k, v in st.items()})
+    torch.backends.cudnn.enabled = True
+    (gl, gp), (cl, cp) = runs['cuda'], runs['cpu']
+    loss_err = ((gl - cl).abs() / cl.abs()).max().item()
+    param_err = max((gp[k] - cp[k]).abs().max().item() for k in cp)
+    print(f'{label}: {len(batches)} ensemble steps of {ENS_M} members at '
+          f'batch {batches[0]["lr"].shape[0]}, GPU (TF32 off, PyTorch\'s own '
+          f'convolutions) vs CPU (float64): losses max relative difference '
+          f'{loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}), parameters max|d| '
+          f'{param_err:.3e} (atol {TRAIN_PARAM_ATOL}); launches on the card '
+          f'{counts}', flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL):
+        fail(f'{label}: ensemble steps on the GPU disagree with the CPU: '
+             f'losses {loss_err:.3e}, parameters {param_err:.3e}')
+    return dict(loss_rel_err=loss_err, param_err=param_err, launches=counts)
+
+
+def _ensemble(torch, tds, report):
+    """(c): a 4-member ensemble of the flagship trained and served."""
+    import numpy as np
+    from dl4ds_tpu_torch import parallel
+    fca = tds.fused_channel_attention
+    config = _training_config(loss='mae', n_filters=N_FILTERS,
+                              n_blocks=N_BLOCKS, attention=True)
+    model, small = _ensemble_batches(torch, tds, config, ENS_CPU_BATCH,
+                                     ENS_STEPS)
+    stacked = parallel.init_ensemble(model, ENS_M, seed=0)
+    gates = len(K1_TRAIN_SHAPES)
+    out = {'mae_vs_cpu': _ensemble_vs_cpu(
+        torch, tds, model, stacked, small, 'mae', 'ensemble, mae')}
+    ssim = _ensemble_vs_cpu(torch, tds, model, stacked, small[:1],
+                            'dssim_mae', 'ensemble, dssim_mae')
+    # one K6 launch a member each way: each member's data range is its own
+    if ssim['launches'] != dict(k1=gates, k1_bwd=gates, k6=ENS_M,
+                                k6_bwd=ENS_M):
+        fail(f'ensemble dssim_mae step launched {ssim["launches"]}, expected '
+             f'K1 {gates} each way and K6 {ENS_M} each way')
+    out['dssim_vs_cpu'] = ssim
+
+    # bootstrap: 4 copies of member 0, each on its own resample
+    _, big = _ensemble_batches(torch, tds, config, TRAIN_BATCH,
+                               ENS_SPEED_STEPS)
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    same = {k: v[:1].repeat(ENS_M, *[1] * (v.dim() - 1))
+            for k, v in stacked.items()}
+    es = parallel.make_ensemble_step(model, loss='mae', bootstrap=True)
+    opt = es.init_opt(same)
+    gen = torch.Generator(device='cuda').manual_seed(18)
+    boot = []
+    for b in big[:ENS_STEPS]:
+        same, opt, ls = es.step(same, opt, b['lr'], b['hr'], gen)
+        boot.append(ls.tolist())
+    spread = max((v[1:] - v[:1]).abs().max().item() for v in same.values())
+    print(f'ensemble, bootstrap: losses {boot}; members from one init '
+          f'apart by {spread:.3e} after {ENS_STEPS} steps', flush=True)
+    if not (np.isfinite(boot).all() and spread > 0):
+        fail(f'bootstrapped ensemble: losses {boot}, members apart by '
+             f'{spread}')
+
+    # speed: eager ensemble steps at batch 128, launches counted
+    st = {k: v.clone() for k, v in stacked.items()}
+    opt = es.init_opt(st)
+    es.step(st, opt, big[0]['lr'], big[0]['hr'], gen)
+    torch.cuda.synchronize()
+    fca.launches = fca.bwd_launches = 0
+    t0 = time.perf_counter()
+    for b in big:
+        st, opt, ls = es.step(st, opt, b['lr'], b['hr'], gen)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / len(big)
+    launches, bwd = fca.launches, fca.bwd_launches
+    if launches != gates * len(big) or bwd != gates * len(big):
+        fail(f'ensemble steps launched K1 {launches} and its backward {bwd} '
+             f'times, expected {gates * len(big)} each (one member-mode '
+             f'launch a gate)')
+    step_ms = statistics.median(device_times(
+        torch, lambda: es.step(st, opt, big[0]['lr'], big[0]['hr'], gen),
+        reps=5))
+    rate = ENS_M * TRAIN_BATCH / step_s
+    single = report.get('bf16_train', {}).get('resnet_spc, mae, float32')
+    print(f'ensemble training, {ENS_M} members at batch {TRAIN_BATCH}, mae, '
+          f'eager: {rate:.1f} member-patches/s (host clock), one step '
+          f'{step_ms:.3f} ms (CUDA events); K1 {launches} launches and '
+          f'{bwd} backward in {len(big)} steps; '
+          + (f'{ENS_M}x phase 12\'s single model: eager '
+             f'{ENS_M * single["eager_patches_per_s"]:.1f}, replayed '
+             f'{ENS_M * single["graphed"]["patches_per_s"]:.1f} patches/s'
+             if single else 'phase 12 did not run in this call')
+          + f'; {card_line()}', flush=True)
+    out.update(k1_launches=launches, k1_bwd_launches=bwd,
+               member_patches_per_s=rate, step_ms=step_ms)
+
+    # serving: one vmapped forward of 16 grids, its members checked
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal((N_GRIDS, LR, LR, 1)).astype('float32')
+    truth = rng.standard_normal((N_GRIDS, LR * SCALE, LR * SCALE, 1)).astype(
+        'float32')
+    torch.backends.cudnn.allow_tf32 = False
+    fca.launches = 0
+    _, std, members = parallel.predict_ensemble(model, st, x,
+                                                return_members=True)
+    serve_launches = fca.launches
+    if serve_launches != gates:
+        fail(f'predict_ensemble launched K1 {serve_launches} times, '
+             f'expected {gates}')
+    if members.shape != (ENS_M, N_GRIDS, LR * SCALE, LR * SCALE, 1) or not (
+            np.isfinite(members).all() and std.max() > 0):
+        fail(f'predict_ensemble: members {members.shape}, std max '
+             f'{std.max()}')
+    net = model.init(0, device='cuda').eval()
+    with torch.no_grad():
+        for i in (0, ENS_M - 1):
+            for name, p in net.named_parameters():
+                p.copy_(st[name][i])
+            with torch.inference_mode():
+                alone = net(torch.from_numpy(x).cuda()).float().cpu().numpy()
+            _compare(members[i], alone, f'predict_ensemble member {i} vs the '
+                     f'member served alone (TF32 off)')
+    torch.backends.cudnn.allow_tf32 = True
+    parallel.predict_ensemble(model, st, x, return_members=True)
+    t0 = time.perf_counter()
+    parallel.predict_ensemble(model, st, x, return_members=True)
+    serve_s = time.perf_counter() - t0
+    crps, ratio, counts = tds.compute_prob_metrics(truth, members,
+                                                   save_path=None)
+    print(f'predict_ensemble of {N_GRIDS} grids {LR}x{LR} -> members '
+          f'{members.shape}, K1 {serve_launches} launches; '
+          f'{N_GRIDS / serve_s:.2f} grids/s (host clock, {ENS_M} members, '
+          f'TF32 convs); compute_prob_metrics: CRPS map {np.shape(crps)} '
+          f'mean {float(np.mean(crps)):.4f}, spread-skill {float(ratio):.4f}, '
+          f'rank histogram {np.asarray(counts).tolist()}; {card_line()}',
+          flush=True)
+    if not (np.isfinite(crps).all() and np.isfinite(ratio)
+            and int(np.sum(counts)) == truth.size):
+        fail(f'compute_prob_metrics: CRPS finite {np.isfinite(crps).all()}, '
+             f'ratio {ratio}, {int(np.sum(counts))} ranks')
+    out.update(serve_launches=serve_launches, serve_grids_per_s=N_GRIDS /
+               serve_s)
+    report['ensemble'] = out
+
+
+def _member_scales(torch, fo, x64, w64, dy64):
+    """The weight gradients' scales of a member: the largest sum of the
+    samples' terms in magnitude (they cancel; `_check_k1_backward`)."""
+    mags = None
+    for i in range(x64.shape[0]):
+        terms = fo._channel_attention_backward(x64[i:i + 1], *w64,
+                                               dy64[i:i + 1])[1:]
+        mags = ([t.abs() for t in terms] if mags is None
+                else [m + t.abs() for m, t in zip(mags, terms)])
+    return [m.max().item() for m in mags]
+
+
+def _member_rows(torch, tds):
+    """(d): K1's member mode alone at MEMBER_SHAPES, forward and backward,
+    float32 and the mixed mode: the same bits as ENS_M one-member launches,
+    the per-member plain version's values (float32 forward 1e-5; backward
+    against float64, K1_BWD_TOL of each gradient's scale; mixed mode
+    `_check_k1_mixed`'s tolerances), timed against the plain version and
+    the byte bound."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(21)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for shape in MEMBER_SHAPES:
+        c = shape[-1]
+        cr = max(int(c / 4), 1)
+        per = shape[0] // ENS_M
+        scale = (2.0 / (c + cr)) ** 0.5
+        x = torch.randn(shape, generator=gen, device=dev)
+        dy = torch.randn(shape, generator=gen, device=dev)
+        ws = [torch.randn((ENS_M,) + s, generator=gen, device=dev) * k
+              for s, k in (((c, cr), scale), ((cr,), 0.1), ((cr, c), scale),
+                           ((c,), 0.1))]
+
+        def member(t, i):
+            return t[i * per:(i + 1) * per].contiguous()
+        errs = {}
+        for mixed, xt, dyt in ((False, x, dy),
+                               (True, x.to(torch.bfloat16), dy)):
+            y, m, g = fo._launch(xt, *ws, mixed=mixed)
+            grads = fo._launch_backward(xt, *ws, dyt, m, g, mixed=mixed)
+            ones = [fo._launch(member(xt, i), *[w[i] for w in ws],
+                               mixed=mixed) for i in range(ENS_M)]
+            gones = [fo._launch_backward(
+                member(xt, i), *[w[i] for w in ws], member(dyt, i),
+                member(m, i), member(g, i), mixed=mixed)
+                for i in range(ENS_M)]
+            same = (all(torch.equal(a, torch.cat([o[k] for o in ones]))
+                        for k, a in enumerate((y, m, g)))
+                    and torch.equal(grads[0], torch.cat([o[0] for o in gones]))
+                    and all(torch.equal(grads[k], torch.stack(
+                        [o[k] for o in gones])) for k in range(1, 5)))
+            mode = 'mixed' if mixed else 'float32'
+            if not same:
+                fail(f'K1 member mode x{list(shape)} {mode}: not the bits of '
+                     f'{ENS_M} one-member launches')
+            if mixed:
+                errs[mode] = max(max(_check_k1_mixed(
+                    torch, fo, member(xt, i), [w[i] for w in ws],
+                    member(dyt, i), f'member {i} x{list(shape)}').values())
+                    for i in range(ENS_M))
+                continue
+            y_ref = fo._plain_forward(x, *ws)[0]
+            fwd_err = (y - y_ref).abs().max().item()
+            if not fwd_err <= K1_TOL['float32']['atol']:
+                fail(f'K1 member mode x{list(shape)}: max|d| {fwd_err:.3e}')
+            bwd_err = 0.0
+            for i in range(ENS_M):
+                x64, dy64 = member(x, i).double(), member(dy, i).double()
+                w64 = [w[i].double() for w in ws]
+                ref = fo._channel_attention_backward(x64, *w64, dy64)
+                scales = ([ref[0].abs().max().item()]
+                          + [max(a, r.abs().max().item()) for a, r in zip(
+                              _member_scales(torch, fo, x64, w64, dy64),
+                              ref[1:])])
+                for k, (a, r, sc) in enumerate(zip(
+                        (gones[i][0],) + tuple(gones[i][1:]), ref, scales)):
+                    d = (a.double() - r).abs().max().item()
+                    d = d / sc if sc else d      # a dead relu: all zero
+                    bwd_err = max(bwd_err, d)
+                    if not d <= K1_BWD_TOL:
+                        fail(f'K1 member mode backward x{list(shape)} member '
+                             f'{i} gradient {k}: max|d| / scale {d:.3e}')
+            errs[mode] = fwd_err
+            errs['backward'] = bwd_err
+        ms, plain_ms = paired_ms(torch, lambda: fo._launch(x, *ws),
+                                 lambda: fo._plain_forward(x, *ws), flush)
+        _, m, g = fo._launch(x, *ws)
+        bwd_ms, bwd_plain_ms = paired_ms(
+            torch, lambda: fo._launch_backward(x, *ws, dy, m, g),
+            lambda: fo._plain_backward(x, *ws, dy, m, g), flush)
+        w_bytes = 4 * ENS_M * (2 * c * cr + c + cr)
+        bound_ms = max((2 * x.numel() * 4 + w_bytes) / HBM_BYTES_PER_S,
+                       (2 * x.numel() + 4 * shape[0] * c * cr) / F32_FLOPS
+                       ) * 1e3
+        bwd_bound_ms = (3 * x.numel() * 4 + 2 * w_bytes) / HBM_BYTES_PER_S * 1e3
+        plan = fo._ca_plan(shape, cr, torch.float32, *fo._ca_limits(dev),
+                           members=ENS_M)
+        rows.append(dict(shape=list(shape), members=ENS_M, cr=cr,
+                         regime=plan['regime'], max_abs_err=errs['float32'],
+                         bwd_rel_err=errs['backward'],
+                         mixed_rel_err=errs['mixed'], ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bwd_ms=bwd_ms,
+                         bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bwd_bound_ms))
+        print(f'K1 member mode x{list(shape)} ({ENS_M} members, '
+              f'{plan["regime"]}) cr={cr}: the bits of {ENS_M} one-member '
+              f'launches both ways, f32 and mixed; max|d| {errs["float32"]:.3e}'
+              f', backward max|d|/scale {errs["backward"]:.2e}, mixed '
+              f'{errs["mixed"]:.2e}; kernel {ms:.4f} ms  plain {plain_ms:.4f} '
+              f'ms  bound {bound_ms:.4f} ms (bytes); backward kernel '
+              f'{bwd_ms:.4f} ms  plain {bwd_plain_ms:.4f} ms  bound '
+              f'{bwd_bound_ms:.4f} ms; {card_line()}', flush=True)
+    return rows
+
+
+def phase_parallel(torch, tds, report):
+    """Phase 18: one-card parallelism: tiled serving of the flagship and of
+    recresnet_spc on global grids, a 4-member flagship ensemble trained and
+    served, K1's member mode alone."""
+    _tiled_flagship(torch, tds, report)
+    report['tiled_k1_rows'] = _tiled_gate_rows(torch, tds)
+    _tiled_recurrent(torch, tds, report)
+    _ensemble(torch, tds, report)
+    report['member_rows'] = _member_rows(torch, tds)
+
+
+def _parallel_kernel_rows(report):
+    """The `kernels` line's rows of phase 18: K1 and K2 at the tiled window
+    shapes (launches of (a)'s and (b)'s first predict), K1's member mode in
+    the ensemble step and in predict_ensemble (launches of (c)'s timed
+    steps and of its first serving call; times of (d)), and K6 under the
+    ensemble's dssim_mae step."""
+    k1 = dict(route='cuda', source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39', bound_by='bytes',
+              library_ms=None)
+    gates = report['tiled_k1_rows']
+    k2 = report['tiled_k2_rows']
+    ens = report['ensemble']
+    step, serve = report['member_rows']
+    out = [
+        dict(k1, name='K1_channel_attention_tiled_serve',
+             launches=report['tiled']['launches'],
+             max_abs_err=max(r['max_abs_err'] for r in gates),
+             ms=sum(r['ms'] for r in gates),
+             plain_ms=sum(r['plain_ms'] for r in gates),
+             bound_ms=sum(r['bound_ms'] for r in gates),
+             work=f'the {len(gates)} gates of one tiled flagship dispatch, '
+                  f'{BATCH} windows of {TILE_WINDOW}x{TILE_WINDOW}; launches '
+                  f'of predict(tile={TILE}, halo={TILE_HALO}) on '
+                  f'{TILED_GRIDS} grids {TILED_GRID[0]}x{TILED_GRID[1]}'),
+        dict(route='cuda', name='K2_convlstm_tiled_serve',
+             source='dl4ds_tpu_torch/csrc/convlstm.cu',
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+             bound_by='operations', library_ms=None,
+             launches=report['tiled_rec']['launches'],
+             max_abs_err=max(r['max_abs_err'] for r in k2),
+             ms=_layer_totals(k2, TILED_K2_LAYERS, 'ms'),
+             plain_ms=_layer_totals(k2, TILED_K2_LAYERS, 'plain_ms'),
+             bound_ms=_layer_totals(k2, TILED_K2_LAYERS, 'bound_ms'),
+             work=f'the {len(TILED_K2_LAYERS)} ConvLSTM layers of one tiled '
+                  f'recresnet_spc dispatch, [{BATCH}, {REC_T}, '
+                  f'{REC_TILE_WINDOW}, {REC_TILE_WINDOW}, C]; launches of '
+                  f'predict(tile={TILE}, halo={REC_TILE_HALO}) on '
+                  f'{TILED_REC_GRIDS} grids'),
+        dict(k1, name='K1_channel_attention_member_train',
+             launches=ens['k1_launches'], bwd_launches=ens['k1_bwd_launches'],
+             max_abs_err=step['max_abs_err'], ms=step['ms'],
+             plain_ms=step['plain_ms'], bound_ms=step['bound_ms'],
+             bwd_ms=step['bwd_ms'], bwd_plain_ms=step['bwd_plain_ms'],
+             bwd_bound_ms=step['bwd_bound_ms'],
+             work=f'the member mode at the ensemble step\'s first gate '
+                  f'x{step["shape"]} ({ENS_M} members, {step["regime"]}), '
+                  f'the plain version the per-member gate; launches of '
+                  f'{ENS_SPEED_STEPS} ensemble steps (one a gate each way)'),
+        dict(k1, name='K1_channel_attention_member_serve',
+             launches=ens['serve_launches'], max_abs_err=serve['max_abs_err'],
+             ms=serve['ms'], plain_ms=serve['plain_ms'],
+             bound_ms=serve['bound_ms'], bwd_ms=serve['bwd_ms'],
+             bwd_plain_ms=serve['bwd_plain_ms'],
+             bwd_bound_ms=serve['bwd_bound_ms'],
+             work=f'the member mode at predict_ensemble\'s first gate '
+                  f'x{serve["shape"]} ({ENS_M} members, {serve["regime"]}); '
+                  f'launches of predict_ensemble on {N_GRIDS} grids'),
+    ]
+    k6 = report.get('k6_rows')
+    if k6:
+        row = k6[0]
+        out.append(dict(
+            route='cuda', name='K6_ssim_ensemble',
+            source='dl4ds_tpu_torch/csrc/ssim.cu',
+            replaces='dl4ds_tpu/ops/pallas_ops.py:145',
+            bound_by=row['bound_by'], library_ms=None,
+            launches=ens['dssim_vs_cpu']['launches']['k6'],
+            bwd_launches=ens['dssim_vs_cpu']['launches']['k6_bwd'],
+            max_abs_err=max(r['max_abs_err'] for r in k6), ms=row['ms'],
+            plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
+            work=f'one launch a member each way in the ensemble\'s dssim_mae '
+                 f'step (each member\'s own data range); times of phase 9 at '
+                 f'x{row["shape"]}'))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5428,7 +6048,8 @@ def main():
               (8, phase_wide_training), (9, phase_ssim),
               (10, phase_flagship_training), (11, phase_graphs),
               (12, phase_bf16), (13, phase_mos), (14, phase_pin),
-              (15, phase_state), (16, phase_cgan), (17, phase_zoo_stream))
+              (15, phase_state), (16, phase_cgan), (17, phase_zoo_stream),
+              (18, phase_parallel))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -5597,7 +6218,8 @@ def main():
     kernels = ([k1, k2, k2_train, k3, k4, k1_train, k6]
                + _bf16_kernel_rows(report) + _mos_kernel_rows(report)
                + _pin_kernel_rows(report) + _state_kernel_rows(report)
-               + _cgan_kernel_rows(report) + _zoo_stream_kernel_rows(report))
+               + _cgan_kernel_rows(report) + _zoo_stream_kernel_rows(report)
+               + _parallel_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -5611,10 +6233,12 @@ def main():
     print(json.dumps({k: v for k, v in report.items()
                       if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_',
                                            'k6_rows', 'graph_rows',
-                                           'bf16_k'))}),
+                                           'bf16_k', 'tiled_k', 'member_'))}),
           flush=True)
+    print(json.dumps({'phase18_shapes': {k: report[k] for k in (
+        'tiled_k1_rows', 'tiled_k2_rows', 'member_rows')}}), flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
-          f'kernel build to the end of phase 17', flush=True)
+          f'kernel build to the end of phase 18', flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

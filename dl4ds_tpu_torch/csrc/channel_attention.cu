@@ -63,6 +63,17 @@
 // The arrival counters are zero between launches (the last arrival resets
 // them); the caller allocates them once per device, and launches that share
 // them must be ordered on one stream.
+//
+// Member mode (a deep ensemble's gates under torch.func.vmap, the batching
+// rule that `vmap` of the Pallas call gets in JAX: a grid axis over the
+// members with weight blocks indexed by member): the batch is M members of
+// `per_member` samples each, sample b reads the weights of member b /
+// per_member from [M, ...] stacks, and the backward's weight gradients come
+// out [M, ...], each summed over its own member's samples only. The chunks
+// of kChunk samples never straddle two members, and each member sums its
+// chunks after its own arrival counter, in the same fixed order as a launch
+// of that member alone: a member-mode call equals M one-member calls bit
+// for bit (per_member = B is the one-member call).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,9 +133,25 @@ struct Geometry {
   int parts;            // CTAs a sample
   long long ppp;        // pixels a part (the last part may hold fewer)
   long long region;     // bytes of the sample / staging region of shared memory
-  long long counter_slot;  // index of the batch-wide arrival counter
+  long long counter_slot;  // index of the first member's arrival counter
   int mixed;            // the mixed mode's rounding points (type code 2)
+  int per_member;       // samples a member (batch: one member)
 };
+
+// The gate weights of one member: w1 [C, Cr], b1 [Cr], w2 [Cr, C], b2 [C]
+// inside [M, ...] stacks.
+struct Weights {
+  const float *w1, *b1, *w2, *b2;
+};
+
+__device__ __forceinline__ Weights member_weights(const Geometry& geo, int b,
+                                                  const float* w1, const float* b1,
+                                                  const float* w2, const float* b2) {
+  const long long mem = b / geo.per_member;
+  const long long c = geo.c, cr = geo.cr;
+  return {w1 + mem * c * cr, b1 + mem * cr, w2 + mem * cr * c,
+          b2 == nullptr ? nullptr : b2 + mem * c};
+}
 
 // floats of a sample's weight-gradient row: dg_pre C | dh_pre Cr | hh Cr,
 // and in the mixed mode bf(dh_pre) Cr
@@ -397,27 +424,35 @@ __device__ void chunk_sums(const Smem& s, const Geometry& geo, const float* __re
 }
 
 // After a sample's rows are stored: the last sample of each chunk of kChunk
-// to arrive sums its chunk into chunks [n_chunks, n_out]; the last chunk to
-// finish sums the chunks in order into dw1, db1, dw2, db2.
+// of its member to arrive sums its chunk into chunks [M * cpm, n_out] (cpm
+// chunks a member); the member's last chunk to finish sums its chunks in
+// order into its dw1, db1, dw2, db2. Counters: at counter_slot one a
+// member, then one a chunk.
 __device__ void weight_grads(const Smem& s, const Geometry& geo, int b,
                              const float* __restrict__ m_all, const float* rows,
                              float* chunks, unsigned* counters, float* __restrict__ dw1,
                              float* __restrict__ db1, float* __restrict__ dw2,
                              float* __restrict__ db2) {
-  const int chunk = b / kChunk, first = chunk * kChunk;
-  const int count = min(kChunk, geo.batch - first);
-  const int n_chunks = (geo.batch + kChunk - 1) / kChunk;
+  const int pm = geo.per_member, members = geo.batch / pm;
+  const int mem = b / pm, local = b % pm;
+  const int cpm = (pm + kChunk - 1) / kChunk;
+  const int lchunk = local / kChunk;
+  const int first = mem * pm + lchunk * kChunk;
+  const int count = min(kChunk, pm - lchunk * kChunk);
+  const int chunk = mem * cpm + lchunk;
   const int n_out = n_weight_outputs(geo), n_w = geo.c * geo.cr;
-  if (!last_arrival(counters + geo.counter_slot + 1 + chunk, (unsigned)count)) return;
+  if (!last_arrival(counters + geo.counter_slot + members + chunk, (unsigned)count)) return;
   chunk_sums(s, geo, m_all, rows, first, count, chunks + (long long)chunk * n_out);
-  if (!last_arrival(counters + geo.counter_slot, (unsigned)n_chunks)) return;
+  if (!last_arrival(counters + geo.counter_slot + mem, (unsigned)cpm)) return;
+  const float* mine = chunks + (long long)mem * cpm * n_out;
+  const long long w_off = (long long)mem * n_w;
   for (int o = threadIdx.x; o < n_out; o += kThreads) {
     float acc = 0.f;
-    for (int k = 0; k < n_chunks; ++k) acc += __ldcg(chunks + (long long)k * n_out + o);
-    if (o < n_w) dw1[o] = geo.mixed ? rb(acc) : acc;
-    else if (o < 2 * n_w) dw2[o - n_w] = geo.mixed ? rb(acc) : acc;
-    else if (o < 2 * n_w + geo.cr) db1[o - 2 * n_w] = acc;
-    else db2[o - 2 * n_w - geo.cr] = acc;
+    for (int k = 0; k < cpm; ++k) acc += __ldcg(mine + (long long)k * n_out + o);
+    if (o < n_w) dw1[w_off + o] = geo.mixed ? rb(acc) : acc;
+    else if (o < 2 * n_w) dw2[w_off + o - n_w] = geo.mixed ? rb(acc) : acc;
+    else if (o < 2 * n_w + geo.cr) db1[(long long)mem * geo.cr + o - 2 * n_w] = acc;
+    else db2[(long long)mem * geo.c + o - 2 * n_w - geo.cr] = acc;
   }
 }
 
@@ -508,11 +543,12 @@ ca_fwd_resident(const T* __restrict__ x, const float* __restrict__ w1,
   const long long n = geo.hw * geo.c;
   const long long off = (long long)b * n;
   T* xs = reinterpret_cast<T*>(s.region);
+  const Weights wt = member_weights(geo, b, w1, b1, w2, b2);
 
   stage_arrays<T, T, VEC>(xs, x + off, (T*)nullptr, (const T*)nullptr, n);
   channel_sums<VEC>(n, geo.c, s.red, s.tot,
                     [&](long long j, float (&v)[VEC]) { load_pack<T, VEC>(xs, j, v); });
-  form_gate(s, geo, w1, b1, w2, b2);
+  form_gate(s, geo, wt.w1, wt.b1, wt.w2, wt.b2);
   for (int ch = threadIdx.x; ch < geo.c; ch += kThreads) {
     m_out[(long long)b * geo.c + ch] = s.m[ch];
     g_out[(long long)b * geo.c + ch] = s.g[ch];
@@ -577,8 +613,9 @@ ca_stream_sums(const T* __restrict__ x, const D* __restrict__ dy, const float* _
     s.tot[ch] = v;
   }
   __syncthreads();
+  const Weights wt = member_weights(geo, b, w1, b1, w2, b2);
   if constexpr (!BWD) {
-    form_gate(s, geo, w1, b1, w2, b2);
+    form_gate(s, geo, wt.w1, wt.b1, wt.w2, wt.b2);
     for (int ch = threadIdx.x; ch < c; ch += kThreads) {
       m_io[(long long)b * c + ch] = s.m[ch];
       g_io[(long long)b * c + ch] = s.g[ch];
@@ -589,7 +626,7 @@ ca_stream_sums(const T* __restrict__ x, const D* __restrict__ dy, const float* _
       s.g[ch] = g_io[(long long)b * c + ch];
     }
     __syncthreads();
-    gate_backward(s, geo, w1, b1, w2);
+    gate_backward(s, geo, wt.w1, wt.b1, wt.w2);
     for (int ch = threadIdx.x; ch < c; ch += kThreads) dmh[(long long)b * c + ch] = s.v5[ch];
     store_sample(s, geo, b, rows);
     weight_grads(s, geo, b, m_io, rows, chunks, counters, dw1, db1, dw2, db2);
@@ -661,6 +698,7 @@ ca_bwd_resident(const T* __restrict__ x, const D* __restrict__ dy,
   const long long off = (long long)b * n;
   const int c = geo.c;
   D* dys = reinterpret_cast<D*>(s.region);
+  const Weights wt = member_weights(geo, b, w1, b1, w2, nullptr);
 
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     s.m[ch] = m_in[(long long)b * c + ch];
@@ -679,7 +717,7 @@ ca_bwd_resident(const T* __restrict__ x, const D* __restrict__ dy,
 #pragma unroll
     for (int k = 0; k < VEC; ++k) v[k] *= a[k];
   });
-  gate_backward(s, geo, w1, b1, w2);
+  gate_backward(s, geo, wt.w1, wt.b1, wt.w2);
   const Pack<D, VEC>* dv = reinterpret_cast<const Pack<D, VEC>*>(dys);
   Pack<T, VEC>* xv = reinterpret_cast<Pack<T, VEC>*>(dx + off);
   ChannelWalk walk(threadIdx.x, VEC, c);
@@ -723,6 +761,7 @@ cudaError_t launch(K kernel, long long grid, size_t smem, cudaStream_t stream, A
 bool valid(const Geometry& geo, int vec, int regime, int elem) {
   if (geo.batch < 1 || geo.c < 1 || geo.cr < 1 || geo.hw < 1 || geo.parts < 1 || geo.ppp < 1)
     return false;
+  if (geo.per_member < 1 || geo.batch % geo.per_member) return false;
   if ((geo.hw * geo.c) % vec || (geo.ppp * geo.c) % vec || geo.region % 16) return false;
   if ((long long)(geo.parts - 1) * geo.ppp >= geo.hw || (long long)geo.parts * geo.ppp < geo.hw)
     return false;
@@ -777,7 +816,7 @@ cudaError_t backward(int regime, const void* x, const void* dy, const float* m, 
 }
 
 Geometry make_geometry(int batch, long long hw, int c, int cr, int parts, long long ppp,
-                       long long region, long long counter_slot, int mixed) {
+                       long long region, long long counter_slot, int mixed, int per_member) {
   Geometry geo;
   geo.batch = batch;
   geo.hw = hw;
@@ -788,6 +827,7 @@ Geometry make_geometry(int batch, long long hw, int c, int cr, int parts, long l
   geo.region = region;
   geo.counter_slot = counter_slot;
   geo.mixed = mixed;
+  geo.per_member = per_member;
   return geo;
 }
 
@@ -809,7 +849,8 @@ extern "C" int dl4ds_ca_limits(int device, int* n_sm, int* smem_optin) {
 
 // Forward. dtype: 0 = float32, 1 = bfloat16, 2 = the mixed mode (x
 // bfloat16, y float32); regime 0 block, 1 stream; vec: elements of x a
-// 16-byte pack or 1. m_out, g_out [B, C] float32;
+// 16-byte pack or 1. per_member: samples a member (B: one member); the
+// weights are [B / per_member, ...] stacks. m_out, g_out [B, C] float32;
 // partial [B, parts, C] float32 scratch (stream only); counters: B zeroed
 // unsigned ints (stream only). smem must equal the kernel's layout (checked).
 // Returns the cudaError_t of the launches (0 on success); launches on
@@ -820,8 +861,9 @@ extern "C" int dl4ds_channel_attention(int dtype, int regime, int vec, const voi
                                        float* partial, unsigned* counters, int batch,
                                        long long hw, int c, int cr, int parts, long long ppp,
                                        long long region, long long smem, int apply_blocks,
-                                       void* stream) {
-  const Geometry geo = make_geometry(batch, hw, c, cr, parts, ppp, region, 0, dtype == 2);
+                                       int per_member, void* stream) {
+  const Geometry geo =
+      make_geometry(batch, hw, c, cr, parts, ppp, region, 0, dtype == 2, per_member);
   if (!valid(geo, vec, regime, dtype == 0 ? 4 : 2) || (long long)smem_bytes(geo, vec) != smem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -847,23 +889,24 @@ extern "C" int dl4ds_channel_attention(int dtype, int regime, int vec, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward: dx like x; dw1 [C, Cr], db1 [Cr], dw2 [Cr, C], db2 [C] float32;
+// Backward: dx like x; dw1 [M, C, Cr], db1 [M, Cr], dw2 [M, Cr, C], db2
+// [M, C] float32 (M = B / per_member members, the weights' stacks);
 // dtype as the forward's (2: dy float32, x and dx bfloat16);
 // m, g [B, C] float32 from the forward; scratch: rows [B, C + 2 Cr] (C + 3
 // Cr in the mixed mode), chunks
-// [ceil(B / kChunk), 2 C Cr + Cr + C], and for the stream regime partial [B,
-// parts, C] and dmh [B, C]; counters: zeroed unsigned ints, B of them for
-// the stream regime's samples, then at counter_slot the count of chunks and
-// after it one for each chunk.
+// [M * ceil(per_member / kChunk), 2 C Cr + Cr + C], and for the stream
+// regime partial [B, parts, C] and dmh [B, C]; counters: zeroed unsigned
+// ints, B of them for the stream regime's samples, then at counter_slot one
+// for each member's count of chunks and after them one for each chunk.
 extern "C" int dl4ds_channel_attention_bwd(
     int dtype, int regime, int vec, const void* x, const void* dy, const float* m,
     const float* g, const float* w1, const float* b1, const float* w2, void* dx, float* dw1,
     float* db1, float* dw2, float* db2, float* partial, float* dmh, float* rows, float* chunks,
     unsigned* counters, long long counter_slot, int batch, long long hw, int c, int cr,
-    int parts, long long ppp, long long region, long long smem, int apply_blocks,
+    int parts, long long ppp, long long region, long long smem, int apply_blocks, int per_member,
     void* stream) {
-  const Geometry geo =
-      make_geometry(batch, hw, c, cr, parts, ppp, region, counter_slot, dtype == 2);
+  const Geometry geo = make_geometry(batch, hw, c, cr, parts, ppp, region, counter_slot,
+                                     dtype == 2, per_member);
   if (!valid(geo, vec, regime, dtype == 1 ? 2 : 4) || (long long)smem_bytes(geo, vec) != smem ||
       counter_slot < batch || region < (long long)sizeof(float) * (c + row_len(geo)))
     return (int)cudaErrorInvalidValue;

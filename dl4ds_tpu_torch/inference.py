@@ -19,6 +19,7 @@ JAX package's `PRNGKey(0)` fallback); `predict_mc` runs an ensemble of
 members, member k drawing from a generator derived from its seed and k.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -215,21 +216,31 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     collapses back to N grids (the first frame of every window, then the
     last window's other frames).
 
+    Large grids: `tile=T` routes through `parallel.predict_tiled`,
+    inference in halo-overlapped TxT windows (`halo` rows and columns of
+    context, at least the network's receptive-field radius for exactness);
+    exact against untiled inference for attention-free models
+    (`attention=False, output_attention=False`). It does not combine with
+    `pad_to_multiple`.
+
     `device` is where the network and the data live ('cuda' by default;
     device='cpu' must be asked for). The network must already be there.
-    `mesh`, `tile` and `spatial_mesh` (with `halo`) are ROADMAP item 10,
-    `quantize` (with `calibration_quantile`, `calibration` and
-    `calibration_aux`) item 11: they raise when given.
+    `mesh` and `spatial_mesh` are ROADMAP item 10, `quantize` (with
+    `calibration_quantile`, `calibration` and `calibration_aux`) item 11:
+    they raise when given.
     """
     if quantize is None and (calibration is not None
                              or calibration_aux is not None):
         raise ValueError('`calibration`/`calibration_aux` only apply to '
                          'quantized inference; pass quantize= as well')
-    for value, what, item in ((mesh, 'mesh', 10), (tile, 'tile', 10),
+    for value, what, item in ((mesh, 'mesh', 10),
                               (spatial_mesh, 'spatial_mesh', 10),
                               (quantize, 'quantize', 11)):
         if value is not None:
             raise not_ported(f'predict({what}=...)', item)
+    if tile is not None and pad_to_multiple is not None:
+        raise ValueError('`pad_to_multiple` is redundant with tiled '
+                         'inference (every window already has one shape)')
     device = resolve_device(device)
     timing = Timing()
     model, net = _resolve_model(trainer)
@@ -238,6 +249,12 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
                                  static_vars, predictors, time_window,
                                  interpolation, device, time_metadata)
     batch_lr = x
+    if tile is not None:
+        from .parallel import predict_tiled
+        out = predict_tiled(model, net, x, aux=aux, tile=tile, halo=halo,
+                            batch_size=batch_size)
+        return _finalize_predict(out, batch_lr, time_window, scaler,
+                                 save_path, save_fname, return_lr, timing)
     out_hw = None
     if pad_to_multiple is not None:
         x, aux, out_hw = _pad_spatial_to_multiple(x, aux, pad_to_multiple)
@@ -261,18 +278,25 @@ def _check_model_inputs(model, net, time_window, device):
                          f'predict was asked to run on {device}')
 
 
-def _eval_apply(net, x, aux, batch_size, generator):
-    """`_batched_apply` of `net` in eval mode, as the JAX package applies
-    training=False (dl4ds_tpu/inference.py:349-350), its dropouts drawing
-    from `generator` (None: an 'mc*' dropout's fixed member); the
+@contextlib.contextmanager
+def _serving(net, generator=None):
+    """`net` in eval mode under `torch.inference_mode()`, as the JAX package
+    applies training=False (dl4ds_tpu/inference.py:349-350), its dropouts
+    drawing from `generator` (None: an 'mc*' dropout's fixed member); the
     caller's mode and generators come back after."""
     was_training = net.training
     net.eval()
     try:
         with use_dropout_generator(net, generator), torch.inference_mode():
-            return _batched_apply(net, x, aux, batch_size)
+            yield
     finally:
         net.train(was_training)
+
+
+def _eval_apply(net, x, aux, batch_size, generator):
+    """`_batched_apply` of `net` under `_serving(net, generator)`."""
+    with _serving(net, generator):
+        return _batched_apply(net, x, aux, batch_size)
 
 
 # the `predict` options that `predict_mc` takes, as the JAX package's

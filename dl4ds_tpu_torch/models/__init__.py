@@ -345,8 +345,10 @@ def save_model(model, net, path):
     that is the JAX package's own fallback format, so that its
     `load_model` reads the model too. The config's `dtype` is the model
     dtype's name ('float32' or 'bfloat16'), as the JAX package writes
-    it."""
-    from ..weights import export_jax_variables
+    it. `net` may be a stacked ensemble (`parallel.init_ensemble`'s dict
+    of [M, ...] tensors): its tree then carries the leading member axis on
+    every leaf, as the JAX package saves its stacked tree."""
+    from ..weights import export_jax_ensemble, export_jax_variables
     os.makedirs(path, exist_ok=True)
     meta = {'module_class': model.module_class,
             'config': dict(model.config,
@@ -356,8 +358,10 @@ def save_model(model, net, path):
                           if model.aux_shape is not None else None)}
     with open(os.path.join(path, 'model_config.json'), 'w') as fh:
         json.dump(meta, fh, indent=2)
+    variables = ({'params': export_jax_ensemble(model, net)}
+                 if isinstance(net, dict) else export_jax_variables(net))
     with open(os.path.join(path, 'variables.pkl'), 'wb') as fh:
-        pickle.dump(export_jax_variables(net), fh)
+        pickle.dump(variables, fh)
 
 
 def load_model(path, device='cuda'):
@@ -365,8 +369,12 @@ def load_model(path, device='cuda'):
     `save_model` (dl4ds_tpu/models/__init__.py:285-307), from its orbax
     `variables/` directory (read through tensorstore, `_read_orbax_tree`)
     or its pickle fallback `variables.pkl`, the `batch_stats` collection
-    too; returns (DSModel, nn.Module) on `device`."""
-    from ..weights import load_jax_params
+    too; returns (DSModel, nn.Module) on `device`. A stacked ensemble's
+    tree (each leaf one leading member axis longer than the network's
+    parameter) gives (DSModel, stacked), the stacked dict of
+    `parallel.init_ensemble` on `device`."""
+    from ..weights import export_jax_params, load_jax_ensemble, \
+        load_jax_params
     with open(os.path.join(path, 'model_config.json')) as fh:
         meta = json.load(fh)
     factory = _FACTORIES.get(meta['module_class'])
@@ -404,10 +412,24 @@ def load_model(path, device='cuda'):
         with open(os.path.join(path, 'variables.pkl'), 'rb') as fh:
             variables = pickle.load(fh)
     stats = variables.get('batch_stats')
-    net = load_jax_params(
-        model.init(0, device=device), _as_numpy_tree(variables['params']),
-        None if stats is None else _as_numpy_tree(stats))
+    params = _as_numpy_tree(variables['params'])
+    net = model.init(0, device=device)
+    if _is_stacked(params, export_jax_params(net)):
+        return model, load_jax_ensemble(model, params, device)
+    net = load_jax_params(net, params,
+                          None if stats is None else _as_numpy_tree(stats))
     return model, net
+
+
+def _is_stacked(tree, like):
+    """Whether the Flax tree's first leaf has one leading axis more than
+    the same leaf of `like`, the network's own tree."""
+    while isinstance(tree, dict):
+        key = next(iter(tree))
+        tree, like = tree[key], like.get(key, {})
+    return (not isinstance(like, dict)
+            and np.ndim(tree) == np.ndim(like) + 1
+            and tuple(np.shape(tree)[1:]) == tuple(np.shape(like)))
 
 
 def _read_orbax_tree(directory, keep=None):

@@ -23,6 +23,16 @@ everywhere but on a TPU with DL4DS_USE_PALLAS=1: the mean, w1, w2 and
 m @ w1 are bfloat16, the float32 biases promote the rest, y = x * g in
 float32. Its backward takes a float32 dy and returns a bfloat16 dx, with
 the rounding points of that function's VJP (`_channel_attention_backward`).
+
+The gate has a member mode for deep ensembles: weights stacked [M, ...]
+(w1 [M, C, Cr] and so on) with x [M * B, H, W, C], sample b taking the
+weights of member b // B, and the weight gradients [M, ...], each summed
+over its own member's samples. `torch.func.vmap` reaches it through the
+`vmap` rules of `_FusedGate` and `_GateBackward`, as `vmap` of the Pallas
+call reaches a grid axis over the members in JAX; on the GPU it is one
+launch (each way) whose results equal M one-member launches bit for bit,
+on the CPU the plain versions applied member by member. K6's `vmap` rules
+(`FusedSSIM`, `_SSIMBackward`) fold the members into the image axis.
 """
 
 import ctypes
@@ -42,8 +52,11 @@ _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _CA_THREADS = 512            # kThreads of csrc/channel_attention.cu
 _CA_CHUNK_ELEMS = 16384      # elements a stream-regime chunk sums, at least
 _CA_MAX_BATCH = 65535        # samples a call: one arrival counter each
-_CA_COUNTER_SLOT = 65536     # the backward's count of weight-gradient chunks,
-_CA_CHUNK = 16               # then one counter a chunk of 16 samples (kChunk)
+_CA_COUNTER_SLOT = 65536     # the backward's count of weight-gradient chunks
+_CA_CHUNK = 16               # of each member, then one counter a chunk of 16
+                             # samples of a member (kChunk)
+_CA_COUNTERS = (_CA_COUNTER_SLOT + 2 * _CA_MAX_BATCH
+                + -(-_CA_MAX_BATCH // _CA_CHUNK))
 _CA_MAX_WIDTH = 4096         # C + Cr
 # opt-in shared memory a block keeps for static variables (both .cu files'
 # kStaticSmemReserve; their limits queries subtract it)
@@ -181,11 +194,14 @@ def _ca_smem(region, vec, c, cr):
 
 
 def _ca_plan(shape, cr, dtype, n_sm, smem_per_block, aligned=True,
-             out_dtype=None):
+             out_dtype=None, members=1):
     """K1's launch plan, forward and backward, a pure function of x's shape
     [B, H, W, C], Cr, x's dtype, y's (`out_dtype`, None for x's: float32
-    with a bfloat16 x is the mixed mode, whose dy is float32 too) and the
+    with a bfloat16 x is the mixed mode, whose dy is float32 too), the
+    member count (the member mode: B / members samples a member) and the
     card's limits: its SMs and the dynamic shared memory a block may take.
+    A member's chunks are those of a one-member call on its B / members
+    samples, so that the member mode's sums are that call's.
 
     Packs are 16 bytes of x (`vec` elements; 1 when a tensor is not 16-byte
     aligned or H*W*C is not a multiple of a pack). Regimes:
@@ -229,7 +245,8 @@ def _ca_plan(shape, cr, dtype, n_sm, smem_per_block, aligned=True,
         return plan
     unit = vec // math.gcd(c, vec)      # pixels between pack boundaries
     ppp = cdiv(cdiv(hw, min(hw, max(cdiv(hw * c, _CA_CHUNK_ELEMS),
-                                    cdiv(2 * n_sm, bsz)))), unit) * unit
+                                    cdiv(2 * n_sm, bsz // members)))),
+               unit) * unit
     parts = cdiv(hw, ppp)
     smem = _ca_smem(staging, vec, c, cr)
     if smem > smem_per_block:
@@ -255,9 +272,9 @@ def _ca_lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dl4ds_ca_limits.argtypes = [i, p, p]
         lib.dl4ds_channel_attention.argtypes = (
-            [i, i, i] + [p] * 10 + [i, ll, i, i, i, ll, ll, ll, i, p])
+            [i, i, i] + [p] * 10 + [i, ll, i, i, i, ll, ll, ll, i, i, p])
         lib.dl4ds_channel_attention_bwd.argtypes = (
-            [i, i, i] + [p] * 17 + [ll, i, ll, i, i, i, ll, ll, ll, i, p])
+            [i, i, i] + [p] * 17 + [ll, i, ll, i, i, i, ll, ll, ll, i, i, p])
         for fn in (lib.dl4ds_ca_limits, lib.dl4ds_channel_attention,
                    lib.dl4ds_channel_attention_bwd):
             fn.restype = ctypes.c_int
@@ -298,7 +315,7 @@ def _arrival_counters(dev, key, n):
 
 def _check_gate(x, w1, b1, w2, b2):
     """The checks both K1 wrappers make before anything reaches the card;
-    returns (B, H, W, C, Cr)."""
+    returns (B, H, W, C, Cr, members)."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f'channel-attention kernel takes float32 or bfloat16, '
                         f'got {x.dtype}')
@@ -306,11 +323,17 @@ def _check_gate(x, w1, b1, w2, b2):
         raise ValueError('channel-attention kernel needs a contiguous NHWC x')
     bsz, h, w, c = x.shape
     cr = w1.shape[-1]
-    if w1.shape != (c, cr) or b1.shape != (cr,) or w2.shape != (cr, c) \
-            or b2.shape != (c,):
+    # w1 [C, Cr], or the member mode's stack [M, C, Cr]
+    lead = tuple(w1.shape[:-2])
+    members = lead[0] if lead else 1
+    if w1.shape != lead + (c, cr) or b1.shape != lead + (cr,) \
+            or w2.shape != lead + (cr, c) or b2.shape != lead + (c,):
         raise ValueError(
             f'gate weights do not match x [.., {c}]: w1 {tuple(w1.shape)}, '
             f'b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}')
+    if members == 0 or bsz % members:
+        raise ValueError(f'channel-attention member mode: {bsz} samples do '
+                         f'not divide over {members} members')
     if bsz == 0 or h * w == 0 or c == 0 or cr == 0:
         raise ValueError(f'channel-attention kernel got an empty x {x.shape} '
                          f'or Cr {cr}')
@@ -320,7 +343,7 @@ def _check_gate(x, w1, b1, w2, b2):
     if c + cr > _CA_MAX_WIDTH:
         raise ValueError(f'channel-attention kernel takes C + Cr <= '
                          f'{_CA_MAX_WIDTH}, got {c} + {cr}')
-    return bsz, h, w, c, cr
+    return bsz, h, w, c, cr, members
 
 
 def _weights32(dev, *ws):
@@ -339,20 +362,19 @@ def _type_code(x, mixed):
 def _launch(x, w1, b1, w2, b2, mixed=False):
     """Run K1's forward on x [B, H, W, C]; returns y (like x, or float32 in
     the mixed mode) and the mean and gate [B, C] in float32, which the
-    backward takes."""
-    bsz, h, w, c, cr = _check_gate(x, w1, b1, w2, b2)
+    backward takes. Weights stacked [M, ...] run the member mode."""
+    bsz, h, w, c, cr, members = _check_gate(x, w1, b1, w2, b2)
     dev = x.device
     w1, b1, w2, b2 = _weights32(dev, w1, b1, w2, b2)
     y = torch.empty_like(x, dtype=torch.float32 if mixed else x.dtype)
     plan = _ca_plan((bsz, h, w, c), cr, x.dtype, *_ca_limits(dev),
                     aligned=x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0,
-                    out_dtype=y.dtype)
+                    out_dtype=y.dtype, members=members)
     m, g = torch.empty((2, bsz, c), dtype=torch.float32, device=dev)
     stream_regime = plan['regime'] == 'stream'
     partial = (torch.empty((bsz, plan['parts'], c), dtype=torch.float32,
                            device=dev) if stream_regime else None)
-    counters = _arrival_counters(
-        dev, 'ca', _CA_COUNTER_SLOT + 1 + -(-_CA_MAX_BATCH // _CA_CHUNK))
+    counters = _arrival_counters(dev, 'ca', _CA_COUNTERS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _ca_lib().dl4ds_channel_attention(
@@ -362,7 +384,7 @@ def _launch(x, w1, b1, w2, b2, mixed=False):
             partial.data_ptr() if stream_regime else None,
             counters.data_ptr(), bsz, h * w, c, cr, plan['parts'],
             plan['ppp'], plan['region'], plan['smem'], plan['apply_blocks'],
-            stream)
+            bsz // members, stream)
     if err != 0:
         raise RuntimeError(f'channel-attention kernel launch failed with CUDA '
                            f'error {err} (plan {plan})')
@@ -373,8 +395,9 @@ def _launch(x, w1, b1, w2, b2, mixed=False):
 def _launch_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
     """Run K1's backward: (dx, dw1, db1, dw2, db2) from x, dy [B, H, W, C]
     and the forward's mean and gate m, g [B, C] float32; dx like x. In the
-    mixed mode dy is float32 and x bfloat16."""
-    bsz, h, w, c, cr = _check_gate(x, w1, b1, w2, b2)
+    mixed mode dy is float32 and x bfloat16. Weights stacked [M, ...] run
+    the member mode, whose weight gradients are [M, ...]."""
+    bsz, h, w, c, cr, members = _check_gate(x, w1, b1, w2, b2)
     dy_dtype = torch.float32 if mixed else x.dtype
     if dy.dtype != dy_dtype or dy.shape != x.shape:
         raise ValueError(f'channel-attention backward needs dy of x\'s shape '
@@ -396,11 +419,16 @@ def _launch_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
     dx = torch.empty_like(x)
     plan = _ca_plan((bsz, h, w, c), cr, x.dtype, *_ca_limits(dev),
                     aligned=all(t.data_ptr() % 16 == 0 for t in (x, dy, dx)),
-                    out_dtype=dy.dtype)
-    dw = torch.empty(2 * c * cr + c + cr, dtype=torch.float32, device=dev)
-    dw1, dw2 = dw[:c * cr].view(c, cr), dw[c * cr:2 * c * cr].view(cr, c)
-    db1, db2 = dw[2 * c * cr:2 * c * cr + cr], dw[2 * c * cr + cr:]
-    n_chunks, n_out = -(-bsz // _CA_CHUNK), 2 * c * cr + c + cr
+                    out_dtype=dy.dtype, members=members)
+    n_out = 2 * c * cr + c + cr
+    lead = w1.shape[:-2]
+    dw = torch.empty(members * n_out, dtype=torch.float32, device=dev)
+    nw = members * c * cr
+    dw1 = dw[:nw].view(*lead, c, cr)
+    dw2 = dw[nw:2 * nw].view(*lead, cr, c)
+    db1 = dw[2 * nw:2 * nw + members * cr].view(*lead, cr)
+    db2 = dw[2 * nw + members * cr:].view(*lead, c)
+    n_chunks = members * -(-(bsz // members) // _CA_CHUNK)
     row_len = c + (3 if mixed else 2) * cr
     rows = torch.empty(bsz * row_len + n_chunks * n_out,
                        dtype=torch.float32, device=dev)
@@ -410,8 +438,7 @@ def _launch_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
         scratch = torch.empty(bsz * c * (plan['parts'] + 1),
                               dtype=torch.float32, device=dev)
         partial, dmh = scratch[:bsz * c * plan['parts']], scratch[-bsz * c:]
-    counters = _arrival_counters(
-        dev, 'ca', _CA_COUNTER_SLOT + 1 + -(-_CA_MAX_BATCH // _CA_CHUNK))
+    counters = _arrival_counters(dev, 'ca', _CA_COUNTERS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _ca_lib().dl4ds_channel_attention_bwd(
@@ -422,8 +449,9 @@ def _launch_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
             partial.data_ptr() if stream_regime else None,
             dmh.data_ptr() if stream_regime else None, rows.data_ptr(),
             rows[bsz * row_len:].data_ptr(), counters.data_ptr(),
-            _CA_COUNTER_SLOT, bsz, h * w, c, cr, plan['parts'], plan['ppp'], plan['bwd_region'], plan['bwd_smem'],
-            plan['apply_blocks'], stream)
+            _CA_COUNTER_SLOT, bsz, h * w, c, cr, plan['parts'], plan['ppp'],
+            plan['bwd_region'], plan['bwd_smem'], plan['apply_blocks'],
+            bsz // members, stream)
     if err != 0:
         raise RuntimeError(f'channel-attention backward kernel launch failed '
                            f'with CUDA error {err} (plan {plan})')
@@ -432,35 +460,162 @@ def _launch_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
             db2.to(b2.dtype))
 
 
-class FusedChannelAttention(torch.autograd.Function):
+def _by_member(fn, per_sample, weights, n_cat):
+    """fn(*per-sample chunks, *weights) member by member: the per-sample
+    tensors [M * B, ...] cut into M chunks, the weights [M, ...] indexed;
+    the first `n_cat` results (per sample) concatenated, the others (per
+    member) stacked. The member mode's plain version."""
+    n = weights[0].shape[0]
+    outs = [fn(*(t.chunk(n)[i] for t in per_sample), *(w[i] for w in weights))
+            for i in range(n)]
+    return tuple(torch.cat(o) if k < n_cat else torch.stack(o)
+                 for k, o in enumerate(zip(*outs)))
+
+
+def _plain_forward(x, w1, b1, w2, b2, mixed=False):
+    """(y, m, g) of the gate on the CPU: `_gate` and the multiply, member by
+    member for stacked weights."""
+    if w1.dim() == 3:
+        return _by_member(lambda xs, *w: _plain_forward(xs, *w, mixed),
+                          (x,), (w1, b1, w2, b2), 3)
+    m, g = _gate(x, w1, b1, w2, b2, mixed)
+    y = (x.float() * g[..., None, None, :] if mixed
+         else x * g.to(x.dtype)[..., None, None, :])
+    return y, m, g
+
+
+def _plain_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
+    """`_channel_attention_backward`, member by member for stacked weights
+    (the weight gradients [M, ...])."""
+    if w1.dim() == 3:
+        return _by_member(
+            lambda xs, dys, ms, gs, *w: _channel_attention_backward(
+                xs, *w, dys, ms, gs, mixed),
+            (x, dy, m, g), (w1, b1, w2, b2), 1)
+    return _channel_attention_backward(x, w1, b1, w2, b2, dy, m, g, mixed)
+
+
+def _front(t, d, n):
+    """A vmap rule's operand with its mapped dim first, [n, ...]; expanded
+    to n where the operand is not mapped (d None)."""
+    return t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+
+
+def _check_vmapped_weights(in_dims, weights):
+    """Raise on weights that are already a member stack (w1, b1, w2, b2 of
+    2, 1, 2 and 1 dims each instance): the gate has one member axis."""
+    for d, t, ndim in zip(in_dims, weights, (2, 1, 2, 1)):
+        if t.dim() - (d is not None) != ndim:
+            raise NotImplementedError(
+                'channel-attention gate: vmap over weights that are already '
+                'a member stack')
+
+
+class _FusedGate(torch.autograd.Function):
     """The gate on x [B, H, W, C]: the CUDA kernels forward and backward on
-    the GPU, the plain versions on the CPU. The forward saves the per-sample
-    mean and gate for the backward. `mixed` selects the mixed mode."""
+    the GPU, the plain versions on the CPU. `mixed` selects the mixed mode;
+    weights stacked [M, ...] the member mode. `forward` returns y with the
+    per-sample mean and gate [B, C], which the backward takes (outputs, not
+    saved intermediates, as torch.func needs them).
+
+    Under `torch.func.vmap` the `vmap` rule flattens the mapped axis into
+    the batch: with mapped weights (an ensemble's members) it runs the
+    member mode, else today's gate on the flattened batch. The backward is
+    `_GateBackward`, a Function with a `vmap` rule of its own (under
+    `vmap(grad(...))` the backward meets batched tensors), which always runs
+    the member mode, so that each mapped instance gets its own weight
+    gradients."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, mixed=False):
+    def forward(x, w1, b1, w2, b2, mixed=False):
         if x.device.type == 'cuda':
-            y, m, g = _launch(x, w1, b1, w2, b2, mixed)
-        elif x.device.type == 'cpu':
-            m, g = _gate(x, w1, b1, w2, b2, mixed)
-            y = (x.float() * g[..., None, None, :] if mixed
-                 else x * g.to(x.dtype)[..., None, None, :])
-        else:
-            raise ValueError(f'unsupported device {x.device}')
+            return _launch(x, w1, b1, w2, b2, mixed)
+        if x.device.type == 'cpu':
+            return _plain_forward(x, w1, b1, w2, b2, mixed)
+        raise ValueError(f'unsupported device {x.device}')
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w1, b1, w2, b2, mixed = inputs
+        _, m, g = output
+        ctx.mark_non_differentiable(m, g)
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, w1, b1, w2, b2, m, g)
         ctx.mixed = mixed
-        return y
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, dy, _dm, _dg):
         x, w1, b1, w2, b2, m, g = ctx.saved_tensors
+        return _GateBackward.apply(x, w1, b1, w2, b2, dy, m, g,
+                                   ctx.mixed) + (None,)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w1, b1, w2, b2, mixed=False):
+        n = info.batch_size
+        weights, wdims = (w1, b1, w2, b2), in_dims[1:5]
+        _check_vmapped_weights(wdims, weights)
+        x = _front(x, in_dims[0], n)
+        flat = x.reshape(-1, *x.shape[2:]).contiguous()
+        if any(d is not None for d in wdims):
+            weights = [_front(t, d, n).contiguous()
+                       for t, d in zip(weights, wdims)]
+        y, m, g = _FusedGate.apply(flat, *weights, mixed)
+        return ((y.reshape(x.shape[:2] + y.shape[1:]),
+                 m.reshape(n, -1, m.shape[-1]),
+                 g.reshape(n, -1, g.shape[-1])), (0, 0, 0))
+
+
+class FusedChannelAttention:
+    """The gate as an autograd function of (x, w1, b1, w2, b2, mixed=False)
+    that returns y: `_FusedGate`, which also returns the mean and gate that
+    its backward takes."""
+
+    @staticmethod
+    def apply(x, w1, b1, w2, b2, mixed=False):
+        return _FusedGate.apply(x, w1, b1, w2, b2, mixed)[0]
+
+
+class _GateBackward(torch.autograd.Function):
+    """K1's backward as a Function of its own: (dx, dw1, db1, dw2, db2) from
+    x, the weights, dy and the forward's m and g, the CUDA kernel on the GPU
+    and `_plain_backward` on the CPU. Its `vmap` rule flattens the mapped
+    axis into the batch and runs the member mode with the weights expanded
+    to the mapped size, so that each instance's weight gradients are its
+    own. It is not differentiable again."""
+
+    @staticmethod
+    def forward(x, w1, b1, w2, b2, dy, m, g, mixed):
         if x.device.type == 'cuda':
-            grads = _launch_backward(x, w1, b1, w2, b2, dy.contiguous(), m, g,
-                                     ctx.mixed)
-        else:
-            grads = _channel_attention_backward(x, w1, b1, w2, b2, dy, m, g,
-                                                ctx.mixed)
-        return grads + (None,)
+            return _launch_backward(x, w1, b1, w2, b2, dy.contiguous(), m, g,
+                                    mixed)
+        if x.device.type == 'cpu':
+            return _plain_backward(x, w1, b1, w2, b2, dy, m, g, mixed)
+        raise ValueError(f'unsupported device {x.device}')
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError('the channel-attention gate is '
+                                  'differentiable once')
+
+    @staticmethod
+    def vmap(info, in_dims, x, w1, b1, w2, b2, dy, m, g, mixed):
+        n = info.batch_size
+        weights, wdims = (w1, b1, w2, b2), in_dims[1:5]
+        _check_vmapped_weights(wdims, weights)
+        x, dy, m, g = (_front(t, d, n) for t, d in (
+            (x, in_dims[0]), (dy, in_dims[5]), (m, in_dims[6]),
+            (g, in_dims[7])))
+        lead = x.shape[:2]
+        x, dy, m, g = (t.reshape(-1, *t.shape[2:]).contiguous()
+                       for t in (x, dy, m, g))
+        weights = [_front(t, d, n).contiguous()
+                   for t, d in zip(weights, wdims)]
+        dx, *dws = _GateBackward.apply(x, *weights, dy, m, g, mixed)
+        return ((dx.reshape(lead + dx.shape[1:]), *dws), (0,) * 5)
 
 
 def fused_channel_attention(x, w1, b1, w2, b2, out_dtype=None):
@@ -468,7 +623,8 @@ def fused_channel_attention(x, w1, b1, w2, b2, out_dtype=None):
     @ w1 + b1)) @ w2 + b2).
 
     x: [..., H, W, C] (leading dims flattened); w1: [C, Cr]; b1: [Cr];
-    w2: [Cr, C]; b2: [C]. y is in x's dtype, or float32 with
+    w2: [Cr, C]; b2: [C] (stacked [M, ...], the member mode: M members of
+    the flattened samples in turn). y is in x's dtype, or float32 with
     out_dtype=torch.float32: for a bfloat16 x that is the mixed mode (the
     module docstring), the gate of a bfloat16 model.
     `fused_channel_attention.launches` counts the CUDA forward's calls,
@@ -686,38 +842,102 @@ class FusedSSIM(torch.autograd.Function):
     backward on the GPU, the plain versions on the CPU (`ssim`, and the
     closed-form `ssim_backward_reference`). The backward gives the gradients
     of both images and of `max_val` (a tensor that requires grad: the DSSIM
-    losses pass the data range of their inputs)."""
+    losses pass the data range of their inputs).
+
+    Under `torch.func.vmap` the `vmap` rules fold the mapped axis into the
+    images' leading axes, one launch each way, where `max_val` is shared
+    (not mapped, and in the backward not asked for); a mapped `max_val`
+    (the DSSIM losses under an ensemble: each member's own data range)
+    takes one launch a mapped instance, since the kernel reads one
+    `max_val`. The backward is `_SSIMBackward`, a Function with a `vmap`
+    rule of its own."""
 
     @staticmethod
-    def forward(ctx, img1, img2, max_val, filter_size, filter_sigma, k1, k2):
-        ctx.params = (filter_size, filter_sigma, k1, k2)
+    def forward(img1, img2, max_val, filter_size, filter_sigma, k1, k2):
+        if img1.device.type == 'cuda':
+            return _launch_ssim(img1, img2, max_val, filter_size,
+                                filter_sigma, k1, k2)
+        if img1.device.type == 'cpu':
+            return ssim(img1, img2, max_val, filter_size, filter_sigma, k1,
+                        k2)
+        raise ValueError(f'unsupported device {img1.device}')
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        img1, img2, max_val, *params = inputs
+        ctx.params = tuple(params)
         if torch.is_tensor(max_val):
             ctx.save_for_backward(img1, img2, max_val)
         else:
             ctx.save_for_backward(img1, img2)
             ctx.max_val = max_val
-        if img1.device.type == 'cuda':
-            return _launch_ssim(img1, img2, max_val, *ctx.params)
-        if img1.device.type == 'cpu':
-            return ssim(img1, img2, max_val, *ctx.params)
-        raise ValueError(f'unsupported device {img1.device}')
 
     @staticmethod
     def backward(ctx, g):
         img1, img2, *max_val = ctx.saved_tensors
         max_val = max_val[0] if max_val else ctx.max_val
-        need = tuple(ctx.needs_input_grad[:3])
-        if img1.device.type == 'cuda':
-            d1, d2, dm = _launch_ssim_backward(img1, img2, max_val, g,
-                                               *ctx.params, need=need)
-        else:
-            d1, d2, dm = ssim_backward_reference(img1, img2, max_val, g,
-                                                 *ctx.params, need=need)
+        d1, d2, dm = _SSIMBackward.apply(img1, img2, max_val, g, *ctx.params,
+                                         tuple(ctx.needs_input_grad[:3]))
         grads = [None if d is None else d.to(t.dtype)
                  for d, t in ((d1, img1), (d2, img2))]
         if dm is not None:
             dm = dm.to(max_val.dtype).reshape(max_val.shape)
         return (*grads, dm, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, img1, img2, max_val, *params):
+        n = info.batch_size
+        a, b = (_front(t, d, n) for t, d in zip((img1, img2), in_dims))
+        if in_dims[2] is None:
+            return FusedSSIM.apply(a, b, max_val, *params), 0
+        mv = _front(max_val, in_dims[2], n)
+        return torch.stack([FusedSSIM.apply(a[i], b[i], mv[i], *params)
+                            for i in range(n)]), 0
+
+
+class _SSIMBackward(torch.autograd.Function):
+    """K6's backward as a Function: the gradients (img1, img2, max_val) of
+    sum(g * ssim), None where `need` does not ask; the CUDA kernel on the
+    GPU, `ssim_backward_reference` on the CPU. Its `vmap` rule folds the
+    mapped axis into the images' leading axes where `max_val` is shared
+    and its gradient not asked for (a shared max_val's gradient would sum
+    over every instance), else launches once a mapped instance. It is not
+    differentiable again."""
+
+    @staticmethod
+    def forward(img1, img2, max_val, g, filter_size, filter_sigma, k1, k2,
+                need):
+        args = (img1, img2, max_val, g, filter_size, filter_sigma, k1, k2)
+        if img1.device.type == 'cuda':
+            return _launch_ssim_backward(*args, need=need)
+        if img1.device.type == 'cpu':
+            return ssim_backward_reference(*args, need=need)
+        raise ValueError(f'unsupported device {img1.device}')
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError('the fused SSIM is differentiable once')
+
+    @staticmethod
+    def vmap(info, in_dims, img1, img2, max_val, g, *params):
+        n = info.batch_size
+        need = params[-1]
+        a, b = (_front(t, d, n) for t, d in zip((img1, img2), in_dims))
+        gs = _front(g, in_dims[3], n)
+        if in_dims[2] is None and not need[2]:
+            out = _SSIMBackward.apply(a, b, max_val, gs, *params)
+        else:
+            mv = (_front(max_val, in_dims[2], n) if torch.is_tensor(max_val)
+                  else [max_val] * n)
+            outs = [_SSIMBackward.apply(a[i], b[i], mv[i], gs[i], *params)
+                    for i in range(n)]
+            out = tuple(None if o[0] is None else torch.stack(o)
+                        for o in zip(*outs))
+        return out, tuple(None if t is None else 0 for t in out)
 
 
 def fused_ssim_per_image(img1, img2, max_val, filter_size=11,

@@ -18,10 +18,12 @@ sees a JAX type.
 
 import numpy as np
 import torch
+from torch.func import stack_module_state
 
 from .models.blocks import Conv
 
-__all__ = ['load_jax_params', 'export_jax_params', 'export_jax_variables']
+__all__ = ['load_jax_params', 'export_jax_params', 'export_jax_variables',
+           'load_jax_ensemble', 'export_jax_ensemble']
 
 
 def _copy(tensor, value, path, done):
@@ -124,3 +126,54 @@ def export_jax_variables(net):
     if stats:
         variables['batch_stats'] = stats
     return variables
+
+
+def _params_tree(tree):
+    """The Flax `params` tree of a variables dict {'params': ...}, or the
+    tree itself."""
+    return tree['params'] if isinstance(tree.get('params'), dict) else tree
+
+
+def _map_leaves(fn, tree):
+    return {k: (_map_leaves(fn, v) if isinstance(v, dict) else fn(v))
+            for k, v in tree.items()}
+
+
+def load_jax_ensemble(model, stacked_params, device):
+    """The port's stacked ensemble (a dict from parameter name to [M, ...]
+    tensor on `device`, `parallel.init_ensemble`'s form) from the JAX
+    package's stacked Flax tree, a leading member axis on every leaf
+    (`init_ensemble`'s variables {'params': ...}, or their `params`
+    tree): `load_jax_params` member by member into networks of `model`,
+    then `torch.func.stack_module_state`."""
+    tree = _params_tree(stacked_params)
+    first = tree
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    nets = [load_jax_params(model.init(0, device=device),
+                            _map_leaves(lambda v: np.asarray(v)[i], tree))
+            for i in range(np.shape(first)[0])]
+    params, _ = stack_module_state(nets)
+    return {name: p.detach().contiguous() for name, p in params.items()}
+
+
+def export_jax_ensemble(model, stacked):
+    """The JAX package's stacked Flax `params` tree of the port's stacked
+    ensemble, the inverse of `load_jax_ensemble`: `export_jax_params` of a
+    network of `model` holding each member's parameters in turn, the
+    members' leaves stacked on a leading axis."""
+    net = model.init(0, device='cpu')
+    named = dict(net.named_parameters())
+    members = []
+    with torch.no_grad():
+        for i in range(len(next(iter(stacked.values())))):
+            for name, t in stacked.items():
+                named[name].copy_(t[i])
+            # the exported leaves share the CPU parameters' memory
+            members.append(_map_leaves(np.array, export_jax_params(net)))
+
+    def stack(trees):
+        return {k: (stack([t[k] for t in trees]) if isinstance(v, dict)
+                    else np.stack([t[k] for t in trees]))
+                for k, v in trees[0].items()}
+    return stack(members)

@@ -549,8 +549,8 @@ def test_predict_time_window_is_needed_and_only_for_recurrent_models(
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(tile=32), dict(mesh=object()), dict(quantize='int8'),
-    dict(spatial_mesh=object()), dict(tile=32, halo=8)])
+    dict(tile=32, mesh=object()), dict(mesh=object()), dict(quantize='int8'),
+    dict(spatial_mesh=object()), dict(tile=32, halo=8, quantize='int8')])
 def test_unported_recurrent_predict_modes_raise(data, rec_models, kwargs):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tds.predict(rec_models[1], data[0], scale=SCALE, time_window=T,

@@ -98,14 +98,16 @@ def test_batch_synthesizer_matches_jax(data):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(tile=32), dict(mesh=object()), dict(spatial_mesh=object()),
-    dict(quantize='int8'), dict(tile=32, halo=8),
+    dict(tile=32, mesh=object()), dict(mesh=object()),
+    dict(spatial_mesh=object()),
+    dict(quantize='int8'), dict(tile=32, halo=8, quantize='int8'),
     dict(spatial_mesh=object(), halo=8),
     dict(quantize='int8', calibration_quantile=0.999),
     dict(quantize='int8', calibration=np.zeros((2, 16, 16, 4), np.float32))])
 def test_unported_predict_modes_raise(data, models, kwargs):
-    """Tiling and meshes (ROADMAP item 10, `halo` with them) and int8
-    serving (item 11, the `calibration*` arguments with it)."""
+    """Meshes (ROADMAP item 10, tiled or not, `halo` with them) and int8
+    serving (item 11, tiled or not, the `calibration*` arguments with it);
+    tiling alone is ported (tests/test_torch_parallel.py)."""
     hr = data[0]
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tds.predict(models[1], hr, scale=SCALE, device='cpu', **kwargs)

@@ -91,7 +91,7 @@ def group_of(name):
 # autograd Functions whose backward is read apart from their forward (both
 # are kernels of the same group): the device time inside a record_function
 # range around the backward
-ANNOTATED = {'K1_backward': ('fused_ops', 'FusedChannelAttention'),
+ANNOTATED = {'K1_backward': ('fused_ops', '_FusedGate'),
              'K6_backward': ('fused_ops', 'FusedSSIM')}
 
 
