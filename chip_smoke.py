@@ -253,7 +253,28 @@ Phases, each of which exits non-zero on failure:
      and the mixed mode, forward and backward: the bits of 4 one-member
      launches, the per-member plain version's values, timed against it
      and the byte bound;
- 19. print the `kernels` JSON line, then, last, the device JSON line. In
+ 19. frozen serving artifacts and the HTTP model server: (a) the flagship
+     (phase 3's model and grids) exported by `save_serving_artifact` with
+     a symbolic batch (7 `dl4ds_tpu_torch.channel_attention` nodes in its
+     graph), loaded by `serve.ModelServer` and called at batches 1, 8 and
+     13 with pow2 padding off and on: K1 7 launches a device batch, the
+     output within 1e-5 of max |y| of `predict` on the same grids (TF32
+     off), the artifact call timed on CUDA events; (b) the same artifact
+     over HTTP on 127.0.0.1: 64 one-grid npz requests from 8 client
+     threads under eager micro-batching (`batch_window_ms=2`), each answer
+     within 1e-5 of max |y| of the in-process one, requests/s, p50 and p99
+     latency, device batches and the mean merge size; one npy request and
+     one JSON request to an aux-free flagship artifact (an npy body
+     carries no aux), bit for bit against the in-process answers; (c)
+     recresnet_spc (phase 5's model and grids) exported with a symbolic
+     batch and with batch 8 (6 `dl4ds_tpu_torch.convlstm` nodes), served
+     on its 16 windows: K2 T launches a layer a device batch, the output
+     against `predict(time_window=4)`; (d) the bfloat16 flagship's
+     artifact against bfloat16 `predict` by phase 12's mean criterion, its
+     7 K1 nodes in the mixed mode; then K1 (float32 and mixed) and K2
+     through their operators at the shapes of an artifact call at batch 8,
+     against their plain versions and timed;
+ 20. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -275,7 +296,10 @@ Phases, each of which exits non-zero on failure:
      K1_channel_attention_mc_serve, K2_convlstm_mc_serve,
      K1_channel_attention_cgan_serve, K2_convlstm_recnet_pin_serve,
      K1_channel_attention_tiled_serve, K2_convlstm_tiled_serve,
-     K1_channel_attention_member_serve), K6_ssim_metrics and the ensemble
+     K1_channel_attention_member_serve,
+     K1_channel_attention_artifact_serve,
+     K1_channel_attention_artifact_bf16_serve, K2_convlstm_artifact_serve),
+     K6_ssim_metrics and the ensemble
      step's kernels (K1_channel_attention_member_train, K6_ssim_ensemble)
      run eagerly, and their `launches` are their wrappers' counts.
 
@@ -6016,6 +6040,516 @@ def _parallel_kernel_rows(report):
     return out
 
 
+# phase 19: frozen serving artifacts and the HTTP model server. The flagship
+# (phase 3's model: resnet_spc x4 with n_filters 8, n_blocks 6, attention, 2
+# statics and a predictor) exported with a symbolic batch and served by
+# `serve.ModelServer` at batches 1, 8 and 13 (pow2 padding off and on) and
+# over HTTP on 127.0.0.1; recresnet_spc (phase 5's model) exported with a
+# symbolic batch and with batch 8; the bfloat16 flagship. Every output is
+# held against `predict` of the same grids on the card (TF32 off).
+SERVE_BATCHES = (1, 8, 13)
+SERVE_MAX_BATCH = 16
+# artifact against predict, both on the card: cuDNN may pick other
+# convolution algorithms at other batch sizes (float32 sums in other orders)
+SERVE_REL = 1e-5
+HTTP_REQUESTS, HTTP_THREADS, HTTP_WINDOW_MS = 64, 8, 2
+K1_OP = 'dl4ds_tpu_torch.channel_attention.default'
+K2_OP = 'dl4ds_tpu_torch.convlstm.default'
+
+
+def _phase3_grids():
+    """Phase 3's grids, statics and predictor (the same seeded draws)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    hr_size = LR * SCALE
+    hr = rng.standard_normal((N_GRIDS, hr_size, hr_size)).astype('float32')
+    topo = rng.standard_normal((hr_size, hr_size)).astype('float32')
+    mask = (rng.random((hr_size, hr_size)) > 0.5).astype('float32')
+    pred = rng.standard_normal((N_GRIDS, hr_size, hr_size, 1)).astype(
+        'float32')
+    return hr, dict(scale=SCALE, array_in_hr=True, static_vars=[topo, mask],
+                    predictors=[pred], batch_size=BATCH)
+
+
+def _served_inputs(torch, model, hr, kwargs, time_window=None):
+    """The (x, aux) numpy batch that `predict` builds from `hr` on the
+    card, the input a client of the artifact sends."""
+    from dl4ds_tpu_torch.inference import _assemble_inputs
+    x, aux, _ = _assemble_inputs(
+        model, hr, SCALE, kwargs.get('array_in_hr', True),
+        kwargs.get('static_vars'), kwargs.get('predictors'), time_window,
+        'inter_area', torch.device('cuda', torch.cuda.current_device()))
+    return x.cpu().numpy(), None if aux is None else aux.cpu().numpy()
+
+
+def _graph_ops(torch, path):
+    """{operator: nodes} of the kernels' operators in the artifact's graph,
+    and the `mixed` flags of its K1 nodes."""
+    ep = torch.export.load(str(Path(path) / 'forward.pt2'))
+    nodes = [n for n in ep.graph.nodes if n.op == 'call_function']
+    k1 = [n for n in nodes if str(n.target) == K1_OP]
+    return ({K1_OP: len(k1),
+             K2_OP: sum(str(n.target) == K2_OP for n in nodes)},
+            [bool(n.args[-1]) for n in k1])
+
+
+def _save_artifact(torch, tds, model, net, path, label, **opts):
+    t0 = time.perf_counter()
+    nbytes = tds.save_serving_artifact(model, net, str(path), **opts)
+    seconds = time.perf_counter() - t0
+    ops, mixed = _graph_ops(torch, path)
+    print(f'artifact {label}: {nbytes} bytes, exported and saved in '
+          f'{seconds:.1f} s; operator nodes {ops}', flush=True)
+    return ops, mixed, seconds
+
+
+def _held(got, want, label, rel=SERVE_REL):
+    import numpy as np
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    if got.shape != want.shape or not np.isfinite(got).all() \
+            or not err <= rel * scale:
+        fail(f'{label}: output {got.shape} against {want.shape}, max|d| '
+             f'{err:.3e}, {rel} of max|y| {scale:.3e} allowed')
+    return err / scale
+
+
+def _artifact_flagship(torch, tds, root, report):
+    """(a): the flagship artifact through ModelServer at batches 1, 8 and
+    13, pow2 padding off and on, against predict; K1's launches a device
+    batch."""
+    from dl4ds_tpu_torch.serve import ModelServer
+    fca = tds.fused_channel_attention
+    model = tds.net_postupsampling(
+        'resnet', 'spc', scale=SCALE, n_channels=4, n_aux_channels=2,
+        lr_size=(LR, LR), n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+        attention=True)
+    net = model.init(seed=0, device='cuda')
+    hr, kwargs = _phase3_grids()
+    x, aux = _served_inputs(torch, model, hr, kwargs)
+    path = root / 'flagship'
+    ops, _, export_s = _save_artifact(torch, tds, model, net, path,
+                                      'resnet_spc (batch poly)')
+    if ops != {K1_OP: len(K1_SHAPES), K2_OP: 0}:
+        fail(f'flagship artifact holds {ops}, expected {len(K1_SHAPES)} K1 '
+             f'nodes')
+    y_pred = tds.predict((model, net), hr, **kwargs)
+    rows, launches, servers = [], 0, []
+    for pad in (False, True):
+        srv = ModelServer(str(path), pad_pow2=pad,
+                          max_batch=SERVE_MAX_BATCH)
+        servers.append(srv)
+        for n in SERVE_BATCHES:
+            fca.launches = fca.bwd_launches = 0
+            y = srv.predict(x[:n], aux[:n])
+            got = fca.launches
+            launches += got
+            if got != len(K1_SHAPES) or fca.bwd_launches:
+                fail(f'flagship artifact at batch {n} (pad_pow2 {pad}) '
+                     f'launched K1 {got} times and its backward '
+                     f'{fca.bwd_launches}, expected {len(K1_SHAPES)} and 0')
+            rel = _held(y, y_pred[:n], f'flagship artifact at batch {n} '
+                        f'(pad_pow2 {pad}) against predict')
+            rows.append(dict(batch=n, pad_pow2=pad, k1_launches=got,
+                             rel_err=rel))
+            print(f'flagship artifact via ModelServer, batch {n}, pad_pow2 '
+                  f'{pad}: K1 {got} launches, max|d| / max|y| against '
+                  f'predict {rel:.3e}', flush=True)
+    call, _ = tds.load_serving_artifact(str(path))
+    xb = torch.from_numpy(x[:BATCH]).cuda()
+    ab = torch.from_numpy(aux[:BATCH]).cuda()
+    call_ms = statistics.median(device_times(torch, lambda: call(xb, ab),
+                                             reps=10))
+    with torch.inference_mode():
+        net_ms = statistics.median(device_times(torch, lambda: net(xb, ab),
+                                                reps=10))
+    print(f'flagship artifact call at batch {BATCH}: {call_ms:.3f} ms, the '
+          f'network\'s own forward {net_ms:.3f} ms (CUDA events); '
+          f'{card_line()}', flush=True)
+    report['artifact'] = dict(rows=rows, k1_launches=launches,
+                              export_s=export_s, call_ms=call_ms,
+                              forward_ms=net_ms)
+    return servers[0], path, x, aux
+
+
+def _http_round(torch, tds, ref, path, x, aux, report):
+    """(b): HTTP on 127.0.0.1: HTTP_REQUESTS one-grid npz requests from
+    HTTP_THREADS client threads under eager micro-batching, each answer held
+    against the in-process one at batch 1 (`ref`, a ModelServer of the same
+    artifact without micro-batching)."""
+    import io
+    import threading
+    import urllib.request
+    import numpy as np
+    from dl4ds_tpu_torch.serve import make_http_server
+    want = [ref.predict(x[i:i + 1], aux[i:i + 1]) for i in range(len(x))]
+    httpd, srv = make_http_server(str(path), host='127.0.0.1', port=0,
+                                  batch_window_ms=HTTP_WINDOW_MS,
+                                  max_batch=SERVE_MAX_BATCH, eager=True)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f'http://127.0.0.1:{httpd.server_address[1]}/predict'
+
+    def post(body, ctype):
+        req = urllib.request.Request(url, data=body, method='POST',
+                                     headers={'Content-Type': ctype})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.read()
+
+    bodies = []
+    for i in range(len(x)):
+        buf = io.BytesIO()
+        np.savez(buf, data=x[i:i + 1], aux=aux[i:i + 1])
+        bodies.append(buf.getvalue())
+    try:
+        post(bodies[0], 'application/x-npz')          # the first connection
+        before = srv.health()
+        lat, answers, errors = {}, {}, []
+        start = threading.Barrier(HTTP_THREADS)
+
+        def client(k):
+            start.wait()
+            for j in range(k, HTTP_REQUESTS, HTTP_THREADS):
+                t1 = time.perf_counter()
+                try:
+                    raw = post(bodies[j % len(x)], 'application/x-npz')
+                except Exception as exc:   # counted, then failed below
+                    errors.append(f'{j}: {exc}')
+                    continue
+                lat[j] = (t1 - t0, time.perf_counter() - t1)
+                answers[j] = np.load(io.BytesIO(raw))
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(HTTP_THREADS)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        after = srv.health()
+        if errors or len(answers) != HTTP_REQUESTS:
+            fail(f'HTTP: {len(answers)} of {HTTP_REQUESTS} answers, errors '
+                 f'{errors[:3]}')
+        worst, same = 0.0, 0
+        for j, y in answers.items():
+            w = want[j % len(x)]
+            worst = max(worst, _held(y, w, f'HTTP answer {j}'))
+            same += bool(np.array_equal(y, w))
+        batches = after['device_batches'] - before['device_batches']
+        samples = after['samples'] - before['samples']
+        waits = [w for _, w in lat.values()]
+        q = statistics.quantiles(waits, n=100)
+        slowest = sorted(lat.items(), key=lambda kv: -kv[1][1])[:4]
+        http = dict(requests_per_s=HTTP_REQUESTS / wall,
+                    p50_ms=statistics.median(waits) * 1e3,
+                    p99_ms=q[98] * 1e3, device_batches=batches,
+                    mean_merge=samples / batches, max_rel_err=worst,
+                    bit_equal=same,
+                    slowest=[(j, round(a * 1e3, 1), round(w * 1e3, 1))
+                             for j, (a, w) in slowest])
+        print(f'HTTP on 127.0.0.1: {HTTP_REQUESTS} one-grid npz requests '
+              f'(128x128x4 LR and 512x512x2 aux in, 512x512 out) from '
+              f'{HTTP_THREADS} client threads, batch_window_ms '
+              f'{HTTP_WINDOW_MS}, eager: {http["requests_per_s"]:.2f} '
+              f'requests/s, latency p50 {http["p50_ms"]:.1f} ms, p99 '
+              f'{http["p99_ms"]:.1f} ms (host clock); {batches} device '
+              f'batches, mean merge {http["mean_merge"]:.2f} samples; '
+              f'answers against the in-process ones max|d| / max|y| '
+              f'{worst:.3e}, {same} of {HTTP_REQUESTS} bit for bit; the '
+              f'slowest (request, sent at ms, took ms) {http["slowest"]}; '
+              f'{card_line()}', flush=True)
+    finally:
+        httpd.shutdown()
+        th.join(timeout=30)
+    report['http'] = http
+
+
+def _http_npy(torch, tds, root, report):
+    """(b), the npy and the JSON request, bit for bit against the
+    in-process answers: an npy body carries no aux, so both go to the
+    flagship's widths without statics (one input channel, no aux)."""
+    import io
+    import threading
+    import urllib.request
+    import numpy as np
+    from dl4ds_tpu_torch.serve import make_http_server, _npy_bytes
+    model = tds.net_postupsampling(
+        'resnet', 'spc', scale=SCALE, n_channels=1, n_aux_channels=0,
+        lr_size=(LR, LR), n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+        attention=True)
+    net = model.init(seed=0, device='cuda')
+    path = root / 'flagship_noaux'
+    ops, _, _ = _save_artifact(torch, tds, model, net, path,
+                               'resnet_spc without aux (batch poly)')
+    if ops[K1_OP] != len(K1_SHAPES):
+        fail(f'aux-free flagship artifact holds {ops}')
+    x = np.random.default_rng(19).standard_normal(
+        (2, LR, LR, 1)).astype('float32')
+    httpd, srv = make_http_server(str(path), host='127.0.0.1', port=0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        req = urllib.request.Request(
+            f'http://127.0.0.1:{httpd.server_address[1]}/predict',
+            data=_npy_bytes(x), method='POST',
+            headers={'Content-Type': 'application/x-npy'})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            y = np.load(io.BytesIO(resp.read()))
+        req = urllib.request.Request(
+            f'http://127.0.0.1:{httpd.server_address[1]}/predict',
+            data=json.dumps({'data': x[:1].tolist()}).encode(),
+            method='POST', headers={'Content-Type': 'application/json'})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            out = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        th.join(timeout=30)
+    want = srv.predict(x)
+    if not np.array_equal(y, want):
+        fail('HTTP npy answer differs from the in-process one')
+    if out['shape'] != [1, LR * SCALE, LR * SCALE, 1] or not np.array_equal(
+            np.asarray(out['prediction'], np.float32), srv.predict(x[:1])):
+        fail('HTTP JSON answer differs from the in-process one')
+    y_pred = tds.predict((model, net), x, scale=SCALE, array_in_hr=False,
+                         batch_size=2)
+    rel = _held(y, y_pred, 'aux-free flagship artifact over HTTP against '
+                'predict')
+    print(f'HTTP npy request (aux-free flagship, 2 grids) and JSON request '
+          f'(1 grid): the in-process answers bit for bit; max|d| / max|y| '
+          f'against predict {rel:.3e}', flush=True)
+    report['http']['npy_rel_err'] = rel
+
+
+def _artifact_recurrent(torch, tds, root, report):
+    """(c): recresnet_spc exported with a symbolic batch and with batch 8,
+    served on phase 5's 16 windows: K2's inference operator in the graph,
+    T launches a layer a device batch, the collapsed output against
+    predict(time_window=4)."""
+    import numpy as np
+    from dl4ds_tpu_torch.serve import ModelServer
+    from dl4ds_tpu_torch.utils import spatiotemporal_to_spatial_samples
+    fca, fcl = tds.fused_channel_attention, tds.fused_convlstm
+    model = tds.recnet_postupsampling(
+        'resnet', 'spc', scale=SCALE, n_channels=2, n_aux_channels=2,
+        lr_size=(LR, LR), time_window=REC_T, n_filters=N_FILTERS,
+        n_blocks=REC_BLOCKS)
+    net = model.init(seed=0, device='cuda')
+    rng = np.random.default_rng(1)
+    hr_size = LR * SCALE
+    hr = rng.standard_normal((REC_GRIDS, hr_size, hr_size)).astype('float32')
+    topo = rng.standard_normal((hr_size, hr_size)).astype('float32')
+    mask = (rng.random((hr_size, hr_size)) > 0.5).astype('float32')
+    pred = rng.standard_normal((REC_GRIDS, hr_size, hr_size, 1)).astype(
+        'float32')
+    kwargs = dict(scale=SCALE, time_window=REC_T, static_vars=[topo, mask],
+                  predictors=[pred], batch_size=BATCH)
+    x, aux = _served_inputs(torch, model, hr, kwargs, time_window=REC_T)
+    y_pred = tds.predict((model, net), hr, **kwargs)
+    out = {}
+    for batch in ('poly', BATCH):
+        path = root / f'recurrent_{batch}'
+        ops, _, _ = _save_artifact(torch, tds, model, net, path,
+                                   f'recresnet_spc (batch {batch})',
+                                   batch=batch)
+        if ops != {K1_OP: 0, K2_OP: len(K2_LAYERS)}:
+            fail(f'recurrent artifact (batch {batch}) holds {ops}, expected '
+                 f'{len(K2_LAYERS)} K2 nodes')
+        srv = ModelServer(str(path))
+        fca.launches = fcl.launches = fcl.train_launches = 0
+        y = srv.predict(x, aux)
+        calls = 1 if batch == 'poly' else -(-len(x) // BATCH)
+        want = len(K2_LAYERS) * REC_T * calls
+        got = fcl.launches
+        if got != want or fcl.train_launches or fca.launches:
+            fail(f'recurrent artifact (batch {batch}) launched K2 {got} '
+                 f'times (training variant {fcl.train_launches}, K1 '
+                 f'{fca.launches}), expected {want}')
+        grids = spatiotemporal_to_spatial_samples(y, REC_T)
+        rel = _held(grids, y_pred, f'recurrent artifact (batch {batch}) '
+                    f'against predict(time_window={REC_T})')
+        print(f'recresnet_spc artifact (batch {batch}) via ModelServer on '
+              f'{len(x)} windows: {calls} device calls, K2 {got} launches '
+              f'(expected {want}), max|d| / max|y| against predict '
+              f'{rel:.3e}', flush=True)
+        out[str(batch)] = dict(k2_launches=got, rel_err=rel)
+    report['artifact_rec'] = out
+
+
+def _artifact_bf16(torch, tds, root, report):
+    """(d): the bfloat16 flagship's artifact against bfloat16 predict by the
+    mean criterion of phase 12, K1 in its mixed mode."""
+    import numpy as np
+    from dl4ds_tpu_torch.serve import ModelServer
+    fca = tds.fused_channel_attention
+    make = lambda dt: tds.net_postupsampling(  # noqa: E731
+        'resnet', 'spc', scale=SCALE, n_channels=4, n_aux_channels=2,
+        lr_size=(LR, LR), n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+        attention=True, dtype=dt)
+    model, model32 = make(torch.bfloat16), make(torch.float32)
+    net, net32 = (m.init(seed=0, device='cuda') for m in (model, model32))
+    hr, kwargs = _phase3_grids()
+    x, aux = _served_inputs(torch, model, hr, kwargs)
+    path = root / 'flagship_bf16'
+    ops, mixed, _ = _save_artifact(torch, tds, model, net, path,
+                                   'resnet_spc bfloat16 (batch poly)')
+    if ops[K1_OP] != len(K1_SHAPES) or not all(mixed):
+        fail(f'bfloat16 artifact holds {ops}, mixed flags {mixed}')
+    srv = ModelServer(str(path))
+    fca.launches = 0
+    y = srv.predict(x[:BATCH], aux[:BATCH])
+    if fca.launches != len(K1_SHAPES):
+        fail(f'bfloat16 artifact launched K1 {fca.launches} times, '
+             f'expected {len(K1_SHAPES)}')
+    y_pred = tds.predict((model, net), hr[:BATCH],
+                         **dict(kwargs, predictors=[kwargs['predictors'][0]
+                                                    [:BATCH]]))
+    y32 = tds.predict((model32, net32), hr[:BATCH],
+                      **dict(kwargs, predictors=[kwargs['predictors'][0]
+                                                 [:BATCH]]))
+    yt = torch.from_numpy(y)
+    if y.shape != y_pred.shape or not torch.equal(
+            yt, yt.to(torch.bfloat16).float()):
+        fail(f'bfloat16 artifact output {y.shape}: not the bfloat16 values '
+             f'of a {y_pred.shape} batch')
+    scale = float(np.abs(y_pred).mean())
+    port = float(np.abs(y - y_pred).mean()) / scale
+    own = float(np.abs(y32 - y_pred).mean()) / scale
+    print(f'bfloat16 flagship artifact via ModelServer at batch {BATCH}: K1 '
+          f'{len(K1_SHAPES)} launches in the mixed mode; mean|d|/mean|y| '
+          f'against bfloat16 predict {port:.3e}, the float32 model '
+          f'{own:.3e} from it (at most {BF16_PREDICT_RATIO} of it '
+          f'required); {card_line()}', flush=True)
+    if not port <= BF16_PREDICT_RATIO * own:
+        fail(f'bfloat16 artifact is {port:.3e} from bfloat16 predict, more '
+             f'than {BF16_PREDICT_RATIO} of the float32 model\'s {own:.3e}')
+    report['artifact_bf16'] = dict(k1_launches=len(K1_SHAPES),
+                                   mean_rel_err=port, f32_mean_rel_dist=own)
+
+
+def _op_gate_rows(torch, tds, dtype):
+    """K1 through its operator at the gates of one flagship artifact call
+    at batch BATCH (the mixed mode for a bfloat16 x), against the plain
+    version and timed against it and the byte bound."""
+    op = torch.ops.dl4ds_tpu_torch.channel_attention
+    ref = tds.channel_attention_reference
+    mixed = dtype == torch.bfloat16
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(190)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for hh, ww, c in K1_SHAPES:
+        shape = (BATCH, hh, ww, c)
+        cr = max(int(c / 4), 1)
+        x, weights, _ = _gate_case(torch, gen, dev, shape, cr, dtype,
+                                   glorot=True)
+        out = torch.float32 if mixed else None
+        y = op(x, *weights, mixed)[0]
+        want = ref(x, *weights, out_dtype=out)
+        err = _rel_err(y, want) if mixed else (y - want).abs().max().item()
+        tol = BF16_F32_TOL if mixed else K1_TOL['float32']['atol']
+        if not err <= tol:
+            fail(f'K1 operator x{list(shape)} {dtype}: error {err:.3e}')
+        ms, plain_ms = paired_ms(torch, lambda: op(x, *weights, mixed),
+                                 lambda: ref(x, *weights, out_dtype=out),
+                                 flush)
+        n_bytes = (x.numel() * (x.element_size() + y.element_size())
+                   + 4 * (2 * c * cr + c + cr))
+        n_ops = 2 * x.numel() + 4 * BATCH * c * cr
+        rows.append(dict(shape=list(shape), max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=max(
+                             n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS)
+                         * 1e3))
+        print(f'K1 operator x{list(shape)} {str(dtype)[6:]} cr={cr}  error '
+              f'{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  '
+              f'bound {rows[-1]["bound_ms"]:.4f} ms; {card_line()}',
+              flush=True)
+    return rows
+
+
+def phase_serving(torch, tds, report):
+    """Phase 19: frozen serving artifacts on the card, served in process
+    and over HTTP."""
+    import tempfile
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parts = {}
+    t0 = time.perf_counter()
+
+    def done(name):
+        nonlocal t0
+        parts[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ref, path, x, aux = _artifact_flagship(torch, tds, root, report)
+        done('a')
+        _http_round(torch, tds, ref, path, x, aux, report)
+        _http_npy(torch, tds, root, report)
+        done('b')
+        _artifact_recurrent(torch, tds, root, report)
+        done('c')
+        _artifact_bf16(torch, tds, root, report)
+        done('d')
+    report['artifact_k1_rows'] = _op_gate_rows(torch, tds, torch.float32)
+    report['artifact_k1_bf16_rows'] = _op_gate_rows(torch, tds,
+                                                    torch.bfloat16)
+    report['artifact_k2_rows'] = _k2_serve_rows(torch, tds, K2_LAYERS, LR,
+                                                'artifact layer', seed=190)
+    done('kernels')
+    print(f'phase 19 parts (s): {parts}', flush=True)
+
+
+def _serving_kernel_rows(report):
+    """The `kernels` line's rows of phase 19: K1 and K2 launched from loaded
+    artifacts (launches of (a)'s six ModelServer calls, (c)'s two runs and
+    (d)'s call), each kernel's time an artifact call at batch BATCH through
+    its operator."""
+    k1 = dict(route='cuda', source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39', bound_by='bytes',
+              library_ms=None)
+    art = report['artifact']
+    rec = report['artifact_rec']
+    k2 = report['artifact_k2_rows']
+
+    def gates(rows, **extra):
+        return dict(max_abs_err=max(r['max_abs_err'] for r in rows),
+                    ms=sum(r['ms'] for r in rows),
+                    plain_ms=sum(r['plain_ms'] for r in rows),
+                    bound_ms=sum(r['bound_ms'] for r in rows), **extra)
+    return [
+        dict(k1, name='K1_channel_attention_artifact_serve',
+             launches=art['k1_launches'],
+             artifact_call_ms=art['call_ms'],
+             **gates(report['artifact_k1_rows']),
+             work=f'the {len(K1_SHAPES)} gates of one flagship artifact '
+                  f'call at batch {BATCH} through the operator '
+                  f'dl4ds_tpu_torch::channel_attention, summed; launches of '
+                  f'{len(art["rows"])} ModelServer calls at batches '
+                  f'{list(SERVE_BATCHES)}, pow2 padding off and on; '
+                  f'artifact_call_ms the whole call'),
+        dict(k1, name='K1_channel_attention_artifact_bf16_serve',
+             launches=report['artifact_bf16']['k1_launches'],
+             **gates(report['artifact_k1_bf16_rows']),
+             work=f'the {len(K1_SHAPES)} gates of one bfloat16 flagship '
+                  f'artifact call at batch {BATCH} in the mixed mode; '
+                  f'max_abs_err is max|d| / max|ref|'),
+        dict(route='cuda', name='K2_convlstm_artifact_serve',
+             source='dl4ds_tpu_torch/csrc/convlstm.cu',
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+             bound_by='operations', library_ms=None,
+             launches=sum(r['k2_launches'] for r in rec.values()),
+             max_abs_err=max(r['max_abs_err'] for r in k2),
+             ms=_layer_totals(k2, K2_LAYERS, 'ms'),
+             plain_ms=_layer_totals(k2, K2_LAYERS, 'plain_ms'),
+             bound_ms=_layer_totals(k2, K2_LAYERS, 'bound_ms'),
+             work=f'the {len(K2_LAYERS)} ConvLSTM layers of one recresnet_spc '
+                  f'artifact call at batch {BATCH}, [{BATCH}, {REC_T}, {LR}, '
+                  f'{LR}, C], through the operator dl4ds_tpu_torch::convlstm; '
+                  f'launches of the batch-poly and batch-{BATCH} artifacts '
+                  f'on 16 windows'),
+    ]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6025,6 +6559,8 @@ def main():
         fail(f'no dl4ds_tpu_torch package beside {Path(__file__).name}')
     sys.path.insert(0, str(repo))
     import dl4ds_tpu_torch as tds
+    import dl4ds_tpu_torch.export  # noqa: F401
+    import dl4ds_tpu_torch.serve  # noqa: F401
     from dl4ds_tpu_torch.ops import _build
     if any(m == 'jax' or m.startswith(('jax.', 'dl4ds_tpu.'))
            or m == 'dl4ds_tpu' for m in sys.modules):
@@ -6049,7 +6585,7 @@ def main():
               (10, phase_flagship_training), (11, phase_graphs),
               (12, phase_bf16), (13, phase_mos), (14, phase_pin),
               (15, phase_state), (16, phase_cgan), (17, phase_zoo_stream),
-              (18, phase_parallel))
+              (18, phase_parallel), (19, phase_serving))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -6219,7 +6755,8 @@ def main():
                + _bf16_kernel_rows(report) + _mos_kernel_rows(report)
                + _pin_kernel_rows(report) + _state_kernel_rows(report)
                + _cgan_kernel_rows(report) + _zoo_stream_kernel_rows(report)
-               + _parallel_kernel_rows(report))
+               + _parallel_kernel_rows(report)
+               + _serving_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -6233,12 +6770,16 @@ def main():
     print(json.dumps({k: v for k, v in report.items()
                       if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_',
                                            'k6_rows', 'graph_rows',
-                                           'bf16_k', 'tiled_k', 'member_'))}),
+                                           'bf16_k', 'tiled_k', 'member_',
+                                           'artifact_k'))}),
           flush=True)
     print(json.dumps({'phase18_shapes': {k: report[k] for k in (
         'tiled_k1_rows', 'tiled_k2_rows', 'member_rows')}}), flush=True)
+    print(json.dumps({'phase19_shapes': {k: report[k] for k in (
+        'artifact_k1_rows', 'artifact_k1_bf16_rows', 'artifact_k2_rows')}}),
+        flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
-          f'kernel build to the end of phase 18', flush=True)
+          f'kernel build to the end of phase 19', flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -28,6 +28,9 @@ there, or with `data_in_hbm=False` streamed from host RAM or a memmapped
 file (`HostStreamer`: the native gather/crop into pinned slots, copied
 to the card behind the step); the reference's host tier
 (`create_pair_hr_lr`, `create_batch_hr_lr`, `DataGenerator`) is numpy.
+A trained model is frozen for serving by `save_serving_artifact`
+(`torch.export`, the kernels kept as operator nodes) and served over HTTP
+by `python -m dl4ds_tpu_torch.serve --artifact DIR` (`serve.ModelServer`).
 """
 
 __version__ = "0.1.0"
@@ -95,6 +98,8 @@ from .models.blocks import (Dropout, get_dropout_layer, MCDropout,
                             LocalizedConvBlock, use_dropout_generator)
 from .weights import load_jax_params
 from .inference import Predictor, predict, predict_mc
+from .export import (export_forward, save_serving_artifact,
+                     load_serving_artifact)
 from .training import (SupervisedTrainer, CGANTrainer, load_checkpoint,
                        train_step)
 from .metrics import (compute_rmse, compute_correlation, compute_metrics,

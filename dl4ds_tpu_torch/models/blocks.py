@@ -37,11 +37,14 @@ JAX package's; the bits are not, since torch's Philox stream is not JAX's
 threefry. An 'mc*' dropout in eval mode without a generator (`predict`)
 draws from a generator seeded 0 afresh at each call, the counterpart of the
 JAX package's fixed `PRNGKey(0)` mask: one deterministic member, other
-bits than JAX's.
+bits than JAX's. That draw is the operator
+`dl4ds_tpu_torch::fixed_member_draw`, so that an exported forward
+(`export.export_forward`) keeps it.
 """
 
 import contextlib
 import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -140,6 +143,26 @@ def _draw(shape, keep, generator, dtype, device, kind):
     return value
 
 
+@torch.library.custom_op('dl4ds_tpu_torch::fixed_member_draw',
+                         mutates_args=())
+def _fixed_member_draw(like: torch.Tensor, shape: Sequence[int],
+                       keep: Optional[float], kind: str) -> torch.Tensor:
+    """The draw of an 'mc*' dropout in eval mode without a generator:
+    `_dropout_mask` from a generator seeded 0 afresh (one fixed member), on
+    `like`'s device and in its dtype. An operator, so that `torch.export`
+    freezes the draw as one node that draws the same member at every call,
+    as the JAX package's artifact applies its `PRNGKey(0)` mask."""
+    gen = torch.Generator(device=like.device).manual_seed(0)
+    return _dropout_mask(tuple(shape), keep, gen, like.dtype, like.device,
+                         kind)
+
+
+@_fixed_member_draw.register_fake
+def _(like, shape, keep, kind):
+    dtype = torch.bool if kind == 'bernoulli' else like.dtype
+    return like.new_empty(tuple(shape), dtype=dtype)
+
+
 def _updates_running_stats():
     tape = _Replay.active
     return tape is None or not tape.rerun
@@ -204,16 +227,18 @@ class Dropout(_Draws):
         if not (self.training or self.variant in _MC_VARIANTS):
             return x
         gen = self.generator
-        if gen is None:
-            if self.training:
-                raise ValueError('dropout in train mode draws from an '
-                                 'explicit generator: set one with '
-                                 '`use_dropout_generator`')
-            gen = torch.Generator(device=x.device).manual_seed(0)
+        if gen is None and self.training:
+            raise ValueError('dropout in train mode draws from an explicit '
+                             'generator: set one with `use_dropout_generator`')
+
+        def draw(shape, keep, kind):
+            if gen is None:
+                return _fixed_member_draw(x, shape, keep, kind)
+            return _draw(shape, keep, gen, dtype, x.device, kind)
         dtype = x.dtype
         if self.variant in ('gaussian', 'mcgaussiandrop'):
             stddev = _rounded((self.rate / (1.0 - self.rate)) ** 0.5, dtype)
-            z = _draw(tuple(x.shape), None, gen, dtype, x.device, 'normal')
+            z = draw(tuple(x.shape), None, 'normal')
             return x * (1.0 + stddev * z)
         keep = 1.0 - self.rate
         shape = list(x.shape)
@@ -221,7 +246,7 @@ class Dropout(_Draws):
             n_bcast = 3 if (self.dim == 3 and x.dim() >= 5) else 2
             for ax in range(x.dim() - 1 - n_bcast, x.dim() - 1):
                 shape[ax] = 1
-        mask = _draw(tuple(shape), keep, gen, dtype, x.device, 'bernoulli')
+        mask = draw(tuple(shape), keep, 'bernoulli')
         return torch.where(mask, x / _rounded(keep, dtype), 0.0).to(dtype)
 
 

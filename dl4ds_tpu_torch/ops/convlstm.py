@@ -20,7 +20,8 @@ plain PyTorch versions (`convlstm_train_reference`,
 `convlstm_backward_reference`, `convlstm_seq_reference`; the tail is the
 same code on both devices), which are the kernels' oracles. There is no
 size-based or error-based fallback on the GPU: each route launches its
-kernels or raises.
+kernels or raises. K2's inference variant is the `torch.library` operator
+`dl4ds_tpu_torch::convlstm`, which `torch.export` freezes as one node.
 
 Weights keep the JAX layout: wx [kh, kw, Cin, 4F] (HWIO), bx [4F],
 wh [kh, kw, F, 4F], gates split along 4F in the order i, f, c, o.
@@ -825,15 +826,42 @@ class FusedConvLSTM(torch.autograd.Function):
                      zip(grads, ctx.needs_input_grad)) + (None,)
 
 
+@torch.library.custom_op('dl4ds_tpu_torch::convlstm', mutates_args=())
+def _convlstm_op(x: torch.Tensor, wx: torch.Tensor, bx: torch.Tensor,
+                 wh: torch.Tensor) -> torch.Tensor:
+    """K2's inference variant as the operator `dl4ds_tpu_torch::convlstm`:
+    ys [B, T, H, W, F] in x's dtype from x [B, T, H, W, Cin]. Its CUDA
+    kernel is `_launch`, its CPU kernel `convlstm_reference`, and its fake
+    kernel gives the shape alone, so that `torch.export` traces a model
+    through it and freezes the node, not the launches."""
+    raise ValueError(f'unsupported device {x.device}')
+
+
+@_convlstm_op.register_kernel('cuda')
+def _(x, wx, bx, wh):
+    return _launch(x, wx, bx, wh)
+
+
+@_convlstm_op.register_kernel('cpu')
+def _(x, wx, bx, wh):
+    return convlstm_reference(x, wx, bx, wh)[0]
+
+
+@_convlstm_op.register_fake
+def _(x, wx, bx, wh):
+    return x.new_empty((*x.shape[:4], wx.shape[-1] // 4))
+
+
 def fused_convlstm(x, wx, bx, wh):
     """Whole ConvLSTM layer forward: ys [B, T, H, W, F] from x
     [B, T, H, W, Cin] (h and c start at zero).
 
     With grad mode on and any input that requires grad, `FusedConvLSTM`
     (differentiable; on CUDA K2's training variant, and K3 or K4 with the
-    GEMM tail as `dispatch_info` routes the layer). Otherwise, on CUDA
-    tensors K2's inference variant, float32 or bfloat16;
-    on CPU tensors `convlstm_reference`. `fused_convlstm.launches` counts K2
+    GEMM tail as `dispatch_info` routes the layer). Otherwise the operator
+    `dl4ds_tpu_torch::convlstm`, which `torch.export` freezes as one node:
+    on CUDA tensors K2's inference variant, float32 or bfloat16; on CPU
+    tensors `convlstm_reference`. `fused_convlstm.launches` counts K2
     inference launches (T a layer: the input launch and T-1 steps), `.train_launches` K2 training launches,
     `.bwd_launches` K3 launches and `.seq_launches` K4 launches; the CPU path
     launches nothing."""
@@ -842,9 +870,7 @@ def fused_convlstm(x, wx, bx, wh):
     if torch.is_grad_enabled() and any(
             u.requires_grad for u in (x, wx, bx, wh)):
         return FusedConvLSTM.apply(x, wx, bx, wh)
-    if x.device.type == 'cuda':
-        return _launch(x, wx, bx, wh)
-    return convlstm_reference(x, wx, bx, wh)[0]
+    return _convlstm_op(x, wx, bx, wh)
 
 
 fused_convlstm.launches = 0

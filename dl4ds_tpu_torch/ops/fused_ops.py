@@ -13,6 +13,13 @@ the VJP the JAX package takes through its XLA ssim). There is no size-based
 or error-based fallback on the GPU. The launch plans, pure functions of the
 shapes and the card's limits, are `_ca_plan` and `_ssim_plan`.
 
+K1's forward is the `torch.library` operator
+`dl4ds_tpu_torch::channel_attention` (its CUDA kernel `_launch`, its CPU
+kernel `_plain_forward`, a fake kernel for tracing and a `vmap` rule), the
+one launch site of the forward kernel: the differentiable `_FusedGate`
+calls it, and with grad mode off `fused_channel_attention` calls it alone,
+so that `torch.export` freezes it as one node.
+
 The gate has two bfloat16 modes. `out_dtype=None` gives y in x's dtype
 with a float32 mean and gate, the gate rounded before the multiply: the
 Pallas `_kernel`'s semantics (dl4ds_tpu/ops/pallas_ops.py:39-50).
@@ -370,7 +377,9 @@ def _launch(x, w1, b1, w2, b2, mixed=False):
     plan = _ca_plan((bsz, h, w, c), cr, x.dtype, *_ca_limits(dev),
                     aligned=x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0,
                     out_dtype=y.dtype, members=members)
-    m, g = torch.empty((2, bsz, c), dtype=torch.float32, device=dev)
+    # two allocations: a custom op's outputs may not alias one another
+    m, g = (torch.empty((bsz, c), dtype=torch.float32, device=dev)
+            for _ in range(2))
     stream_regime = plan['regime'] == 'stream'
     partial = (torch.empty((bsz, plan['parts'], c), dtype=torch.float32,
                            device=dev) if stream_regime else None)
@@ -495,6 +504,40 @@ def _plain_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
     return _channel_attention_backward(x, w1, b1, w2, b2, dy, m, g, mixed)
 
 
+@torch.library.custom_op('dl4ds_tpu_torch::channel_attention',
+                         mutates_args=())
+def _channel_attention_op(x: torch.Tensor, w1: torch.Tensor,
+                          b1: torch.Tensor, w2: torch.Tensor,
+                          b2: torch.Tensor, mixed: bool
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """K1's forward as the operator `dl4ds_tpu_torch::channel_attention`:
+    (y, m, g) of the gate on x [B, H, W, C], y in x's dtype (float32 when
+    `mixed`), the mean and gate [B, C] in float32, which the backward takes.
+    Its CUDA kernel is `_launch`, its CPU kernel `_plain_forward`, and its
+    fake kernel gives the shapes alone, so that `torch.export` traces a
+    model through it and freezes the node, not the launch."""
+    raise ValueError(f'unsupported device {x.device}')
+
+
+@_channel_attention_op.register_kernel('cuda')
+def _(x, w1, b1, w2, b2, mixed):
+    return _launch(x, w1, b1, w2, b2, mixed)
+
+
+@_channel_attention_op.register_kernel('cpu')
+def _(x, w1, b1, w2, b2, mixed):
+    return _plain_forward(x, w1, b1, w2, b2, mixed)
+
+
+@_channel_attention_op.register_fake
+def _(x, w1, b1, w2, b2, mixed):
+    acc = _acc_dtype(x)
+    return (x.new_empty(x.shape, dtype=torch.float32 if mixed else x.dtype),
+            x.new_empty((x.shape[0], x.shape[-1]), dtype=acc),
+            x.new_empty((x.shape[0], x.shape[-1]), dtype=acc))
+
+
 def _front(t, d, n):
     """A vmap rule's operand with its mapped dim first, [n, ...]; expanded
     to n where the operand is not mapped (d None)."""
@@ -511,12 +554,37 @@ def _check_vmapped_weights(in_dims, weights):
                 'a member stack')
 
 
+def _gate_vmap(gate, info, in_dims, x, w1, b1, w2, b2, mixed):
+    """The `vmap` rule of the gate's forward, `gate` (the operator or
+    `_FusedGate.apply`): the mapped axis flattened into the batch; with
+    mapped weights (an ensemble's members) the member mode, else the gate on
+    the flattened batch."""
+    n = info.batch_size
+    weights, wdims = (w1, b1, w2, b2), in_dims[1:5]
+    _check_vmapped_weights(wdims, weights)
+    x = _front(x, in_dims[0], n)
+    flat = x.reshape(-1, *x.shape[2:]).contiguous()
+    if any(d is not None for d in wdims):
+        weights = [_front(t, d, n).contiguous()
+                   for t, d in zip(weights, wdims)]
+    y, m, g = gate(flat, *weights, mixed)
+    return ((y.reshape(x.shape[:2] + y.shape[1:]),
+             m.reshape(n, -1, m.shape[-1]),
+             g.reshape(n, -1, g.shape[-1])), (0, 0, 0))
+
+
+_channel_attention_op.register_vmap(
+    lambda info, in_dims, *args: _gate_vmap(_channel_attention_op, info,
+                                            in_dims, *args))
+
+
 class _FusedGate(torch.autograd.Function):
-    """The gate on x [B, H, W, C]: the CUDA kernels forward and backward on
-    the GPU, the plain versions on the CPU. `mixed` selects the mixed mode;
-    weights stacked [M, ...] the member mode. `forward` returns y with the
-    per-sample mean and gate [B, C], which the backward takes (outputs, not
-    saved intermediates, as torch.func needs them).
+    """The differentiable gate on x [B, H, W, C]: forward the operator
+    `dl4ds_tpu_torch::channel_attention`, backward `_GateBackward` (the CUDA
+    kernels on the GPU, the plain versions on the CPU). `mixed` selects the
+    mixed mode; weights stacked [M, ...] the member mode. `forward` returns
+    y with the per-sample mean and gate [B, C], which the backward takes
+    (outputs, not saved intermediates, as torch.func needs them).
 
     Under `torch.func.vmap` the `vmap` rule flattens the mapped axis into
     the batch: with mapped weights (an ensemble's members) it runs the
@@ -528,11 +596,7 @@ class _FusedGate(torch.autograd.Function):
 
     @staticmethod
     def forward(x, w1, b1, w2, b2, mixed=False):
-        if x.device.type == 'cuda':
-            return _launch(x, w1, b1, w2, b2, mixed)
-        if x.device.type == 'cpu':
-            return _plain_forward(x, w1, b1, w2, b2, mixed)
-        raise ValueError(f'unsupported device {x.device}')
+        return _channel_attention_op(x, w1, b1, w2, b2, mixed)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -551,18 +615,8 @@ class _FusedGate(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, w1, b1, w2, b2, mixed=False):
-        n = info.batch_size
-        weights, wdims = (w1, b1, w2, b2), in_dims[1:5]
-        _check_vmapped_weights(wdims, weights)
-        x = _front(x, in_dims[0], n)
-        flat = x.reshape(-1, *x.shape[2:]).contiguous()
-        if any(d is not None for d in wdims):
-            weights = [_front(t, d, n).contiguous()
-                       for t, d in zip(weights, wdims)]
-        y, m, g = _FusedGate.apply(flat, *weights, mixed)
-        return ((y.reshape(x.shape[:2] + y.shape[1:]),
-                 m.reshape(n, -1, m.shape[-1]),
-                 g.reshape(n, -1, g.shape[-1])), (0, 0, 0))
+        return _gate_vmap(_FusedGate.apply, info, in_dims, x, w1, b1, w2, b2,
+                          mixed)
 
 
 class FusedChannelAttention:
@@ -627,13 +681,22 @@ def fused_channel_attention(x, w1, b1, w2, b2, out_dtype=None):
     the flattened samples in turn). y is in x's dtype, or float32 with
     out_dtype=torch.float32: for a bfloat16 x that is the mixed mode (the
     module docstring), the gate of a bfloat16 model.
+    With grad mode on, `_FusedGate` (differentiable, under torch.func's
+    transforms too, where an input's `requires_grad` does not show whether
+    a transform differentiates it); with grad mode off, the operator
+    `dl4ds_tpu_torch::channel_attention` alone, which `torch.export`
+    freezes as one node (`export.export_forward`). Both launch the same
+    forward kernel once.
     `fused_channel_attention.launches` counts the CUDA forward's calls,
     `.bwd_launches` the backward's (each one or two kernel launches, by
     `_ca_plan`); the CPU path launches nothing.
     """
     *_, h, w, c = x.shape
-    y = FusedChannelAttention.apply(x.reshape(-1, h, w, c), w1, b1, w2, b2,
-                                    _mixed(x, out_dtype))
+    args = (x.reshape(-1, h, w, c), w1, b1, w2, b2, _mixed(x, out_dtype))
+    if torch.is_grad_enabled():
+        y = FusedChannelAttention.apply(*args)
+    else:
+        y = _channel_attention_op(*args)[0]
     return y.reshape(x.shape)
 
 
