@@ -162,7 +162,7 @@ Phases, each of which exits non-zero on failure:
      full width (n_filters 8, n_blocks 6, scale 4): (a) net_postupsampling(
      'convnext', 'spc', localcon_layer=True) with 2 statics and a
      predictor, trained on whole 128x128 grids (the localized weights fix
-     the grid) at batch 32 for 2 epochs of 20 steps with validation and
+     the grid) at batch 32 for 2 epochs of 10 steps with validation and
      test through `run()`'s replayed graphs, K1's launches both ways in the
      device trace, finite losses, the speed, 3 steps at batch 4 against
      the CPU in float64 (the third step's parameters also held to 4x the
@@ -170,7 +170,8 @@ Phases, each of which exits non-zero on failure:
      bit, 2 epochs in bfloat16, and `predict` of 16 grids at batch 8 (K1 2
      launches), grid 0 against the CPU in float64; (b) the flagship with
      bn, 'mcdrop' dropout at 0.2 and an EMA of 0.999, trained as phase 10
-     with mae (the CPU steps consume the masks the card drew, through
+     with mae but for 2 epochs of 10 steps, as are (a) and (c) (the CPU
+     steps consume the masks the card drew, through
      `_dropout_mask`; the running statistics compared with the
      parameters), replayed against eager bit for bit with dropout on, then
      `predict` twice (the same bits: one fixed member) and
@@ -274,7 +275,32 @@ Phases, each of which exits non-zero on failure:
      7 K1 nodes in the mixed mode; then K1 (float32 and mixed) and K2
      through their operators at the shapes of an artifact call at batch 8,
      against their plain versions and timed;
- 20. print the `kernels` JSON line, then, last, the device JSON line. In
+ 20. int8 post-training quantization: (a) K7 (the int8 convolution,
+     csrc/conv_int8.cu) held against its plain version at every site of
+     the flagship's int8 forward at batch 8 (phase 3's grids), of the
+     width-64 flagship, of recresnet_spc and of a tiled window dispatch,
+     and at a width-64 3x3, a depthwise 7x7 and a transposed 'dc' site
+     (the flagship's and the extra sites' int32 sums and float32 and
+     bfloat16 outputs equal, the other paths' float32 outputs); each
+     distinct site of the flagship and the extra sites timed (40 CUDA-event
+     medians, L2 flushed) against the plain version, its bound (int8
+     tensor cores, HBM), torch._int_mm on the site's unfolded matrix (the
+     unfold beside) and cuDNN's bfloat16 convolution at the site; (b) the
+     flagship's `predict(quantize='int8')`
+     on phase 3's grids (K7 its sites a batch, K1 7 a batch and 7 in the
+     calibration forward) and 'weight-only' (no K7), the card's activation
+     scales against the port's own calibration on the CPU (rtol 1e-4),
+     one sample's output against the card's quantized network run on the
+     CPU (within 5% of the CPU's own int8 error), and int8, weight-only,
+     float32
+     and bfloat16 `predict` in grids/s; (c) the same four rates at width
+     64; (d) recresnet_spc's int8 `predict` on phase 5's grids (K2's
+     inference launches, K7's, a window against the CPU); (e) the int8
+     flagship tiled on one 0.25-degree global grid (K7 its sites a
+     dispatch, grids/s); (f) an int8 artifact at batch 8 saved, loaded and
+     served by `serve.ModelServer` (K7 and K1 launches a device batch, the
+     output within 1e-5 of max |y| of (b)'s `predict`);
+ 21. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -301,13 +327,15 @@ Phases, each of which exits non-zero on failure:
      K1_channel_attention_artifact_bf16_serve, K2_convlstm_artifact_serve),
      K6_ssim_metrics and the ensemble
      step's kernels (K1_channel_attention_member_train, K6_ssim_ensemble)
-     run eagerly, and their `launches` are their wrappers' counts.
+     and K7_conv_int8 (its `launches_other_paths` beside) run eagerly, and
+     their `launches` are their wrappers' counts.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
 
 import contextlib
 import copy
+import functools
 import json
 import math
 import re
@@ -531,7 +559,11 @@ def fail(msg):
     sys.exit(1)
 
 
+@functools.cache
 def card_line():
+    """The card's name and power limit, as nvidia-smi gives them, read
+    once: each query starts a process, and the run prints the line beside
+    every time."""
     out = subprocess.run(
         ['nvidia-smi', '--id=0', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], check=True, capture_output=True,
@@ -539,19 +571,20 @@ def card_line():
     return out.stdout.strip()
 
 
-def device_times(torch, fn, reps=20, l2_flush=None):
+def device_times(torch, fn, reps=20, l2_flush=None,
+                 sleep_cycles=100_000_000):
     """Device times of `reps` calls of fn() in ms, from CUDA events around
-    each call. A long device sleep is queued first, so the host has
-    enqueued every call before the device reaches them: host overhead stays
-    out of the events. With `l2_flush` (a buffer larger than L2), it is
-    rewritten before each call, so each call finds its input in device
-    memory, not in L2."""
+    each call. A device sleep of `sleep_cycles` is queued first, so the
+    host has enqueued every call before the device reaches them: host
+    overhead stays out of the events. With `l2_flush` (a buffer larger
+    than L2), it is rewritten before each call, so each call finds its
+    input in device memory, not in L2."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(sleep_cycles)
     for start, end in events:
         if l2_flush is not None:
             l2_flush.zero_()
@@ -3921,6 +3954,10 @@ CNX_GATES = [(CNX_BATCH, TRAIN_HR, TRAIN_HR, N_FILTERS)]
 # spatial dropout, trained as phase 7, served as REC_MC_MEMBERS members
 MC_RATE, MC_EMA = 0.2, 0.999
 MC_MEMBERS, REC_MC_MEMBERS = 8, 4
+# the steps of an epoch in phase 15's training runs (half of TRAIN_STEPS):
+# each step is checked as before, a run traces, times and replays half as
+# many (the phase took 104-111 s with 20)
+STATE_STEPS = 10
 # (a)'s served grid 0 against float64 where float32 is ill-conditioned:
 # the bound of its worst pixels, in units of PREDICT_TOL (float32's sum
 # order alone moved them up to 4.9e-4 in runs of this phase on the H100)
@@ -4038,7 +4075,7 @@ def _state_convnext(torch, tds, report):
     label = (f'convnext_spc + localized layer, n_filters {N_FILTERS}, '
              f'n_blocks {N_BLOCKS}, whole {TRAIN_HR}x{TRAIN_HR} grids, mae')
     got, calls, numbers = _drive_training(
-        torch, tds, config, label, TRAIN_STEPS, per_step, CNX_CPU_BATCH,
+        torch, tds, config, label, STATE_STEPS, per_step, CNX_CPU_BATCH,
         {'K1 forward': sum(r['ms'] for r in rows),
          'K1 backward': sum(r['bwd_ms'] for r in rows)}, keep_model=True,
         f32_yardstick='all', batch=CNX_BATCH, retraces=1)
@@ -4052,7 +4089,7 @@ def _state_convnext(torch, tds, report):
     (torch.backends.cudnn.deterministic,
      torch.backends.cudnn.benchmark) = saved
     bf16 = _bf16_training(torch, tds, dict(config, dtype=torch.bfloat16),
-                          f'{label}, bfloat16', TRAIN_STEPS, per_step,
+                          f'{label}, bfloat16', STATE_STEPS, per_step,
                           batch=CNX_BATCH, retraces=1)
     # serving: 16 HR grids of the training grid with the statics and a
     # predictor, at batch 8
@@ -4175,7 +4212,7 @@ def _state_bn_mc(torch, tds, report):
     label = (f'resnet_spc bn + mcdrop {MC_RATE} + EMA {MC_EMA}, n_filters '
              f'{N_FILTERS}, mae')
     got, calls, numbers = _drive_training(
-        torch, tds, config, label, TRAIN_STEPS, per_step, FLAG_CPU_BATCH,
+        torch, tds, config, label, STATE_STEPS, per_step, FLAG_CPU_BATCH,
         {'K1 forward': sum(r['ms'] for r in rows),
          'K1 backward': sum(r['bwd_ms'] for r in rows)}, keep_model=True,
         f32_yardstick='all', draws=True, retraces=1)
@@ -4213,7 +4250,7 @@ def _state_recurrent(torch, tds, report):
     label = (f'recresnet_spc ln + mcspatialdrop {MC_RATE}, n_filters '
              f'{N_FILTERS}')
     got, calls, numbers = _drive_training(
-        torch, tds, config, label, TRAIN_STEPS,
+        torch, tds, config, label, STATE_STEPS,
         _recurrent_per_step(conv, K3_LAYERS), 16,
         {'K2-train': sum(r['k2_ms'] for r in step),
          'K3': sum(r['k3_ms'] for r in step)}, keep_model=True,
@@ -6550,6 +6587,696 @@ def _serving_kernel_rows(report):
     ]
 
 
+
+# phase 20: int8 post-training quantization on the card. K7 (the int8
+# convolution, csrc/conv_int8.cu) held against its plain version at every
+# site of the flagship's int8 forward at batch 8 (phase 3's grids), of the
+# width-64 flagship, of recresnet_spc and of a tiled window dispatch, and at
+# a width-64 3x3, a depthwise 7x7 and a transposed 'dc' site: at the
+# flagship's and the extra sites the int32 sums and the float32 and
+# bfloat16 outputs equal, on the other paths the float32 outputs. The
+# flagship's distinct sites and the extra ones timed against the plain
+# version, the bound,
+# torch._int_mm on the site's unfolded matrix (the GEMM alone; the unfold
+# beside) and cuDNN's bfloat16 convolution at the same site (the float
+# path int8 replaces). Then int8 serving through
+# the entry points: the flagship's predict(quantize='int8' | 'weight-only')
+# beside float32 and bfloat16 predict at widths 8 and 64, recresnet_spc,
+# the tiled global grid and an int8 artifact served by ModelServer.
+INT8_OPS = 1979e12              # H100 SXM dense int8 tensor-core rate
+Q_WIDE = 64                     # the width of (c)
+Q_RATE_RUNS = 3                 # timed predict calls a mode (after one warm)
+Q_OUT_SHARE = 0.05              # rel(card, its CPU copy) / CPU int8 error
+Q_SCALE_RTOL = 1e-4             # act_scales, card against CPU
+K7_SLEEP_CYCLES = 25_000_000    # (a)'s device sleep before each timing, a
+                                # quarter of `device_times`' default: one
+                                # site's calls are few and short to enqueue
+# (a)'s extra sites: (x shape, (Co, Cin / groups, kh, kw), stride,
+# dilation, pads, groups): the width-64 3x3 at phase 3's LR grid, the
+# ConvNeXt depthwise 7x7 and the 'dc' head's 9x9 stride-2 transposed conv
+Q_EXTRA_SITES = {
+    'width-64 3x3': ((BATCH, LR, LR, 64), (64, 64, 3, 3), 1, 1,
+                     (1, 1, 1, 1), 1),
+    'depthwise 7x7': ((2, 64, 64, 8), (8, 1, 7, 7), 1, 1, (3, 3, 3, 3), 8),
+    "'dc' 9x9 stride 2": ((2, 32, 32, 8), (8, 8, 9, 9), 1, 2,
+                          (4, 5, 4, 5), 1),
+}
+
+
+def _rel_err_q(a, b):
+    """tests/test_quantization.py's rel: RMS(a - b) / std(b)."""
+    import numpy as np
+    a, b = np.asarray(a, 'float32'), np.asarray(b, 'float32')
+    return float(np.sqrt(np.mean((a - b) ** 2)) / (np.std(b) + 1e-12))
+
+
+@contextlib.contextmanager
+def _k7_calls():
+    """The K7 launches made inside the block, each as the arguments of
+    `ops.conv_int8._launch` (x_q, w, scale, kh, kw, stride, dilation,
+    pads, groups, out_dtype)."""
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    calls, real = [], ci._launch
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+    ci._launch = spy
+    try:
+        yield calls
+    finally:
+        ci._launch = real
+
+
+def _real_taps(n, k, stride, dil, before, out):
+    """The (output, tap) pairs of one dimension whose input index lands on
+    one of the n real pixels: not on the padding, and not on a zero that
+    the input dilation of a transposed convolution inserts."""
+    return sum(1 for o in range(out) for t in range(k)
+               if (p := o * stride + t - before) >= 0 and p % dil == 0
+               and p // dil < n)
+
+
+def _k7_work(x, co, kh, kw, stride, dil, pads, groups, out_bytes):
+    """(operations, bytes) of one K7 call: 2 multiply-adds' worth for each
+    tap that lands on a real input pixel, B x Co x Cin / groups x the
+    taps of each dimension; and x, the unpadded weight [Co, kh, kw,
+    Cin / groups] and the scale read once, y written once."""
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    b, h, wd, cin = x.shape
+    ho = ci.conv_out_size(h, kh, stride, dil, pads[0], pads[1])
+    wo = ci.conv_out_size(wd, kw, stride, dil, pads[2], pads[3])
+    taps = (_real_taps(h, kh, stride, dil, pads[0], ho)
+            * _real_taps(wd, kw, stride, dil, pads[2], wo))
+    ops = 2 * b * co * cin // groups * taps
+    n_bytes = (x.numel() + co * kh * kw * cin // groups + 4 * co
+               + b * ho * wo * co * out_bytes)
+    return ops, n_bytes
+
+
+def _k7_unfold(torch, x, kh, kw, stride, dil, pads, k_pad):
+    """The site's im2col matrix [B Ho Wo (padded to 8), k_pad] int8, k in
+    the packed weight's order (ky, kx, ci), zero-padded: torch._int_mm's
+    operand."""
+    import torch.nn.functional as F
+    b, h, w, c = x.shape
+    if dil > 1:
+        xd = x.new_zeros((b, (h - 1) * dil + 1, (w - 1) * dil + 1, c))
+        xd[:, ::dil, ::dil] = x
+        x = xd
+    x = F.pad(x, (0, 0, pads[2], pads[3], pads[0], pads[1]))
+    ho = (x.shape[1] - kh) // stride + 1
+    wo = (x.shape[2] - kw) // stride + 1
+    sb, sh, sw, sc = x.stride()
+    cols = x.as_strided((b, ho, wo, kh, kw, c),
+                        (sb, sh * stride, sw * stride, sh, sw, sc))
+    m = b * ho * wo
+    out = x.new_zeros((-(-m // 8) * 8, k_pad))
+    out[:m, :kh * kw * c] = cols.reshape(m, kh * kw * c)
+    return out
+
+
+def _k7_cudnn_bf16(torch, x, w_oihw, kh, kw, stride, dil, pads, groups):
+    """A callable of cuDNN's bfloat16 convolution at the site (the port's
+    bfloat16 `Conv`/`ConvTranspose` path, channels-last), the input
+    pre-padded where the padding is asymmetric."""
+    import torch.nn.functional as F
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    if dil > 1:
+        wt = torch.flip(w_oihw, (2, 3)).permute(1, 0, 2, 3).contiguous(
+            memory_format=torch.channels_last).to(torch.bfloat16)
+        p = (kh - 1 - pads[0], kw - 1 - pads[2])
+        out = [(n - 1) * dil + 1 + pads[2 * i] + pads[2 * i + 1] - k + 1
+               for i, (n, k) in enumerate(zip(x.shape[1:3], (kh, kw)))]
+        opad = [max(o - ((n - 1) * dil - 2 * pp + k), 0) for o, n, pp, k in
+                zip(out, x.shape[1:3], p, (kh, kw))]
+        return lambda: F.conv_transpose2d(xb, wt, stride=dil, padding=p,
+                                          output_padding=tuple(opad))
+    wb = w_oihw.to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    if pads[0] == pads[1] and pads[2] == pads[3]:
+        return lambda: F.conv2d(xb, wb, stride=stride,
+                                padding=(pads[0], pads[2]), groups=groups)
+    xp = F.pad(xb, (pads[2], pads[3], pads[0], pads[1]))
+    return lambda: F.conv2d(xp, wb, stride=stride, groups=groups)
+
+
+def _k7_rows(torch, calls, label, flush=None, reps=10):
+    """Hold every K7 call against its plain version: with `flush` (an
+    L2-sized buffer) the int32 sums and the float32 and bfloat16 outputs
+    equal, and without it the output in the dtype the call made; with
+    `flush` also
+    time each distinct site: K7 (40 CUDA-event medians, L2 flushed), the
+    plain version, torch._int_mm on the unfolded matrix, the unfold and
+    cuDNN's bfloat16 convolution (`reps` each), and its bound. Returns one
+    row a distinct site, with the number of calls it stands for."""
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    rows, seen = [], {}
+
+    def timed(fn, n):
+        return statistics.median(device_times(
+            torch, fn, reps=n, l2_flush=flush,
+            sleep_cycles=K7_SLEEP_CYCLES))
+    for x, w, scale, kh, kw, stride, dil, pads, groups, made in calls:
+        geo = (kh, kw, stride, dil, tuple(pads), groups)
+        for dtype in ((torch.int32, torch.float32, torch.bfloat16)
+                      if flush is not None else (made,)):
+            got = ci.conv_int8(x, w, scale, *geo, out_dtype=dtype)
+            want = ci.conv_int8_reference(x, w, scale, *geo, out_dtype=dtype)
+            if not torch.equal(got, want):
+                err = (got.double() - want.double()).abs().max().item()
+                fail(f'K7 {label} x{list(x.shape)} kernel {kh}x{kw} '
+                     f'geometry {geo} {dtype}: max|d| {err:.3e}, equal '
+                     f'required')
+        key = (tuple(x.shape), tuple(w.shape), scale.shape[0], geo)
+        if key in seen:
+            seen[key]['calls'] += 1
+            continue
+        if flush is None:
+            seen[key] = dict(label=label, x=list(x.shape), co=scale.shape[0],
+                             kernel=[kh, kw], calls=1)
+            rows.append(seen[key])
+            continue
+        co = scale.shape[0]
+        args = (x, w, scale, *geo)
+        ms = timed(lambda: ci.conv_int8(*args), 40)
+        plain_ms = timed(lambda: ci.conv_int8_reference(*args), reps)
+        ops, n_bytes = _k7_work(x, co, *geo, 4)
+        ops_ms, bytes_ms = ops / INT8_OPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        w_oihw = ci._unpack(w, co, x.shape[-1], kh, kw, groups).float()
+        conv_bf16 = _k7_cudnn_bf16(torch, x, w_oihw, kh, kw, stride, dil,
+                                   pads, groups)
+        cudnn_ms = timed(conv_bf16, reps)
+        library_ms = unfold_ms = library_n = None
+        if groups == 1:
+            k_pad = w.shape[1]
+            unfold_ms = timed(lambda: _k7_unfold(torch, x, kh, kw, stride,
+                                                 dil, pads, k_pad), reps)
+            a = _k7_unfold(torch, x, kh, kw, stride, dil, pads, k_pad)
+            # Co padded to _int_mm's multiple of 8; cuBLASLt refused some
+            # (40 on the H100), so to 16, 32, 64 where it does
+            for step in (8, 16, 32, 64):
+                b = w[:-(-co // step) * step].t()
+                try:
+                    torch._int_mm(a, b)
+                    break
+                except RuntimeError:
+                    continue
+            library_ms = timed(lambda: torch._int_mm(a, b), reps)
+            library_n = b.shape[1]
+        row = dict(label=label, x=list(x.shape), w=list(w.shape), co=co,
+                   kernel=[kh, kw], stride=stride, dilation=dil,
+                   pads=list(pads), groups=groups, calls=1, max_abs_err=0.0,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
+                   bound_by='operations' if ops_ms > bytes_ms else 'bytes',
+                   library_ms=library_ms, library_n=library_n,
+                   unfold_ms=unfold_ms, cudnn_bf16_ms=cudnn_ms)
+        seen[key] = row
+        rows.append(row)
+        lib = ('depthwise: no GEMM' if library_ms is None else
+               f'_int_mm {library_ms:.4f} ms (N {library_n}; unfold '
+               f'{unfold_ms:.4f})')
+        print(f'K7 {label} x{list(x.shape)} -> {co} {kh}x{kw} s{stride} '
+              f'd{dil} pads {list(pads)} g{groups}: equal (int32, f32, '
+              f'bf16); kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound '
+              f'{bound_ms:.4g} ms ({row["bound_by"]})  {lib}  cuDNN bf16 '
+              f'{cudnn_ms:.4f} ms; {card_line()}', flush=True)
+    kinds = ('int32, float32, bfloat16' if flush is not None
+             else 'their output dtype')
+    print(f'K7 {label}s: {len(calls)} calls, all equal to the plain '
+          f'version ({kinds}), at {len(rows)} distinct shapes; calls a '
+          f'shape {[r["calls"] for r in rows]}', flush=True)
+    return rows
+
+
+def _k7_totals(rows):
+    """A forward's K7 numbers: each distinct site's times its calls."""
+    def total(key):
+        vals = [r[key] for r in rows]
+        if any(v is None for v in vals):
+            return None
+        return sum(r[key] * r['calls'] for r in rows)
+    out = {k: total(k) for k in ('ms', 'plain_ms', 'bound_ms', 'bound_ops_ms',
+                                 'bound_bytes_ms', 'library_ms', 'unfold_ms',
+                                 'cudnn_bf16_ms')}
+    for key in ('library_ms', 'unfold_ms'):   # depthwise sites: no GEMM
+        if out[key] is None:
+            out[key] = sum(r[key] * r['calls'] for r in rows
+                           if r[key] is not None)
+    out['calls'] = sum(r['calls'] for r in rows)
+    return out
+
+
+def _flagship_int8(tds, width=N_FILTERS, **dtype):
+    """Phase 3's flagship at `width` (and `dtype`), weights from seed 0."""
+    model = tds.net_postupsampling(
+        'resnet', 'spc', scale=SCALE, n_channels=4, n_aux_channels=2,
+        lr_size=(LR, LR), n_filters=width, n_blocks=N_BLOCKS,
+        attention=True, **dtype)
+    return model, model.init(seed=0, device='cuda')
+
+
+def _rates(torch, tds, pairs, hr, kwargs, label):
+    """grids/s of predict in each mode ({mode: (model, net, quantize)}),
+    the median of Q_RATE_RUNS timed calls after a warm one, host clock;
+    and the forward alone at batch 8 (CUDA events)."""
+    import numpy as np
+    out = {}
+    for mode, (model, net, q) in pairs.items():
+        tds.predict((model, net), hr, quantize=q, **kwargs)
+        runs = []
+        for _ in range(Q_RATE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tds.predict((model, net), hr, quantize=q, **kwargs)
+            torch.cuda.synchronize()
+            runs.append(N_GRIDS / (time.perf_counter() - t0))
+        out[mode] = statistics.median(runs)
+    print(f'phase 20 {label}: predict of {N_GRIDS} grids at batch {BATCH} '
+          + ', '.join(f'{m} {r:.2f}' for m, r in out.items())
+          + f' grids/s (host clock, median of {Q_RATE_RUNS}; int8 and '
+          f'weight-only calibrate in each call); int8 / bf16 '
+          f'{out["int8"] / out["bf16"]:.3f}; {card_line()}', flush=True)
+    return out
+
+
+def _forward_ms(torch, fns):
+    with torch.inference_mode():
+        return {k: statistics.median(device_times(torch, f, reps=10))
+                for k, f in fns.items()}
+
+
+def _card_vs_cpu(torch, tds, model, net, qf, calibration, y_card0, part):
+    """The card's int8 network against the port's on the CPU, each side
+    calibrating itself on the same weights and batch: every site's weight
+    codes and weight scales equal, the activation scales within
+    Q_SCALE_RTOL. Then sample 0 (`y_card0`, the card's output) against
+    the CPU's own quantized network, and against the card's network
+    copied to the CPU (its scales): the check, at most Q_OUT_SHARE of the
+    CPU's int8 error. The two CPU outputs differ only in the scales; their
+    distance is what the scales' float difference alone does."""
+    from dl4ds_tpu_torch.quantization import _Int8Conv
+    net_cpu = copy.deepcopy(net).cpu().eval()
+    t0 = time.perf_counter()
+    args_cpu = tuple(None if a is None else a.cpu() for a in calibration)
+    qf_cpu = tds.quantize_forward(model, net_cpu, *args_cpu)
+    scale_err = max(abs(a - b) / b for a, b in zip(qf.act_scales,
+                                                    qf_cpu.act_scales))
+    n_equal = sum(a == b for a, b in zip(qf.act_scales, qf_cpu.act_scales))
+    card_sites, cpu_sites = (
+        [m for m in q.module.modules() if isinstance(m, _Int8Conv)]
+        for q in (qf, qf_cpu))
+    codes_equal = len(card_sites) == len(cpu_sites) and all(
+        torch.equal(a.w.cpu(), b.w) and torch.equal(a.w_scale.cpu(),
+                                                    b.w_scale)
+        and torch.equal(a.scale.cpu(), a.s_x.cpu()[:, None] * b.w_scale)
+        for a, b in zip(card_sites, cpu_sites))
+    sample = tuple(None if a is None else a[:1] for a in args_cpu)
+    with torch.inference_mode():
+        y_own = qf_cpu.module.eval()(*sample).numpy()
+        y_same = copy.deepcopy(qf.module).cpu().eval()(*sample).numpy()
+        y_cpu_f = net_cpu(*sample).numpy()
+    seconds = time.perf_counter() - t0
+    own = _rel_err_q(y_own, y_cpu_f)
+    rel_own, rel = _rel_err_q(y_card0, y_own), _rel_err_q(y_card0, y_same)
+    alone = _rel_err_q(y_same, y_own)
+    print(f'phase 20 {part}: {len(card_sites)} site modules, weight codes '
+          f'and weight scales card vs CPU equal: {codes_equal}; act_scales '
+          f'max relative difference {scale_err:.3e} (rtol {Q_SCALE_RTOL}), '
+          f'{n_equal} of {qf.n_sites} equal; sample 0, the CPU int8 vs its '
+          f'float32 {own:.4f}; the card vs the CPU on its own scales '
+          f'{rel_own:.3e} (ratio {rel_own / own:.3e}); on the CPU, its own '
+          f'scales vs the card\'s {alone:.3e} (ratio {alone / own:.3e}: '
+          f'the scales alone); the card vs the CPU on the card\'s scales '
+          f'{rel:.3e} (ratio {rel / own:.3e}, at most {Q_OUT_SHARE}) '
+          f'({seconds:.1f} s on the CPU)', flush=True)
+    if not (codes_equal and scale_err <= Q_SCALE_RTOL
+            and rel <= Q_OUT_SHARE * own):
+        fail(f'phase 20 {part}: card vs CPU codes equal {codes_equal}, '
+             f'act_scales {scale_err:.3e}, output ratio {rel / own:.3e}')
+    return dict(scale_err=scale_err, scales_equal=n_equal, cpu_rel=rel,
+                cpu_int8_err=own, cpu_rel_own_scales=rel_own,
+                cpu_scales_alone=alone)
+
+
+def _quant_flagship(torch, tds, flush, report):
+    """(a) at the flagship's sites and (b): int8 and weight-only predict,
+    the launches, the card against the CPU, the four rates."""
+    import numpy as np
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    fca = tds.fused_channel_attention
+    model, net = _flagship_int8(tds)
+    hr, kwargs = _phase3_grids()
+    x, aux = (torch.from_numpy(a).cuda()
+              for a in _served_inputs(torch, model, hr, kwargs))
+    xb, ab = x[:BATCH], aux[:BATCH]
+    torch.backends.cudnn.allow_tf32 = False
+    qf = tds.quantize_forward(model, net, xb, ab)
+    with _k7_calls() as calls:
+        y_card = qf(xb, ab)
+    rows = _k7_rows(torch, calls, 'flagship site', flush)
+    del calls
+    if qf.n_sites != sum(r['calls'] for r in rows):
+        fail(f'phase 20: {qf.n_sites} sites, {len(rows)} K7 calls')
+    # (b) the main path: predict(quantize=) with the counters zeroed
+    batches = -(-N_GRIDS // BATCH)
+    ci.conv_int8.launches = fca.launches = fca.bwd_launches = 0
+    y8 = tds.predict((model, net), hr, quantize='int8', **kwargs)
+    k7, k1 = ci.conv_int8.launches, fca.launches
+    ci.conv_int8.launches = fca.launches = 0
+    yw = tds.predict((model, net), hr, quantize='weight-only', **kwargs)
+    k7_w, k1_w = ci.conv_int8.launches, fca.launches
+    want_k1 = len(K1_SHAPES) * (batches + 1)      # the calibration forward
+    print(f'phase 20 (b): flagship predict(quantize=\'int8\') output '
+          f'{y8.shape}, {qf.n_sites} sites; K7 {k7} launches (expected '
+          f'{qf.n_sites * batches}: the sites a batch), K1 {k1} (expected '
+          f'{want_k1}: 7 a batch and 7 in the calibration forward), K1 '
+          f'backward {fca.bwd_launches}; weight-only: K7 {k7_w} (expected '
+          f'0), K1 {k1_w}', flush=True)
+    if (k7 != qf.n_sites * batches or k1 != want_k1 or fca.bwd_launches
+            or k7_w != 0 or k1_w != want_k1 or y8.shape != yw.shape
+            or not np.isfinite(y8).all() or not np.isfinite(yw).all()):
+        fail(f'phase 20 (b): launches K7 {k7}/{k7_w}, K1 {k1}/{k1_w}')
+    y_f = tds.predict((model, net), hr, **kwargs)
+    _held(y8[:BATCH], y_card.float().cpu().numpy(), 'phase 20 (b): predict('
+          'quantize=\'int8\') against the quantized forward on its first '
+          'batch')
+    cmp = _card_vs_cpu(torch, tds, model, net, qf, (xb, ab), y8[:1],
+                       '(b)')
+    print(f'phase 20 (b): weight-only vs float32 on the card rel '
+          f'{_rel_err_q(yw, y_f):.4f}, int8 {_rel_err_q(y8, y_f):.4f}',
+          flush=True)
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    m16, n16 = _flagship_int8(tds, dtype=torch.bfloat16)
+    n16.load_state_dict(net.state_dict())
+    rates = _rates(torch, tds, {'int8': (model, net, 'int8'),
+                                'weight-only': (model, net, 'weight-only'),
+                                'f32': (model, net, None),
+                                'bf16': (m16, n16, None)},
+                   hr, kwargs, f'flagship, width {N_FILTERS}')
+    qw = tds.quantize_forward(model, net, xb, ab, mode='weight-only')
+    fwd = _forward_ms(torch, {'int8': lambda: qf(xb, ab),
+                              'weight-only': lambda: qw(xb, ab),
+                              'f32': lambda: net(xb, ab),
+                              'bf16': lambda: n16(xb, ab)})
+    print(f'phase 20 (b): forward at batch {BATCH} (CUDA events) '
+          + ', '.join(f'{m} {v:.3f} ms' for m, v in fwd.items())
+          + f'; {card_line()}', flush=True)
+    report['quant'] = dict(
+        k7_launches=k7, k1_launches=k1, n_sites=qf.n_sites,
+        **cmp,
+        int8_vs_f32=_rel_err_q(y8, y_f), weight_only_vs_f32=_rel_err_q(yw, y_f),
+        rates_w8=rates, forward_ms_w8=fwd, y8=y8, calibration=(xb, ab))
+    report['k7_rows'] = rows
+    return model, net, hr, kwargs
+
+
+def _quant_wide(torch, tds, flush, report):
+    """(c): the flagship at width 64, its sites held and timed, the four
+    rates."""
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    model, net = _flagship_int8(tds, width=Q_WIDE)
+    m16, n16 = _flagship_int8(tds, width=Q_WIDE, dtype=torch.bfloat16)
+    n16.load_state_dict(net.state_dict())
+    hr, kwargs = _phase3_grids()
+    x, aux = (torch.from_numpy(a).cuda() for a in _served_inputs(
+        torch, model, hr[:BATCH], dict(kwargs, predictors=[
+            kwargs['predictors'][0][:BATCH]])))
+    qf = tds.quantize_forward(model, net, x, aux)
+    with _k7_calls() as calls:
+        qf(x, aux)
+    _k7_rows(torch, calls, f'width-{Q_WIDE} flagship site')
+    del calls
+    ci.conv_int8.launches = 0
+    tds.predict((model, net), hr, quantize='int8', **kwargs)
+    k7 = ci.conv_int8.launches
+    if k7 != qf.n_sites * -(-N_GRIDS // BATCH):
+        fail(f'phase 20 (c): K7 {k7} launches, {qf.n_sites} sites a batch')
+    rates = _rates(torch, tds, {'int8': (model, net, 'int8'),
+                                'weight-only': (model, net, 'weight-only'),
+                                'f32': (model, net, None),
+                                'bf16': (m16, n16, None)},
+                   hr, kwargs, f'flagship, width {Q_WIDE}')
+    qw = tds.quantize_forward(model, net, x, aux, mode='weight-only')
+    fwd = _forward_ms(torch, {'int8': lambda: qf(x, aux),
+                              'weight-only': lambda: qw(x, aux),
+                              'f32': lambda: net(x, aux),
+                              'bf16': lambda: n16(x, aux)})
+    print(f'phase 20 (c): width {Q_WIDE}, K7 {k7} launches in predict; '
+          f'forward at batch {BATCH} (CUDA events) '
+          + ', '.join(f'{m} {v:.3f} ms' for m, v in fwd.items())
+          + f'; {card_line()}', flush=True)
+    report['quant'].update(k7_launches_w64=k7, rates_w64=rates,
+                           forward_ms_w64=fwd, n_sites_w64=qf.n_sites)
+
+
+def _quant_recurrent(torch, tds, flush, report):
+    """(d): recresnet_spc int8 predict on phase 5's grids: K2's inference
+    launches, K7's, one window against the CPU."""
+    import numpy as np
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    fcl = tds.fused_convlstm
+    model = tds.recnet_postupsampling(
+        'resnet', 'spc', scale=SCALE, n_channels=2, n_aux_channels=2,
+        lr_size=(LR, LR), time_window=REC_T, n_filters=N_FILTERS,
+        n_blocks=REC_BLOCKS)
+    net = model.init(seed=0, device='cuda')
+    rng = np.random.default_rng(1)
+    hr_size = LR * SCALE
+    hr = rng.standard_normal((REC_GRIDS, hr_size, hr_size)).astype('float32')
+    topo = rng.standard_normal((hr_size, hr_size)).astype('float32')
+    mask = (rng.random((hr_size, hr_size)) > 0.5).astype('float32')
+    pred = rng.standard_normal((REC_GRIDS, hr_size, hr_size, 1)).astype(
+        'float32')
+    kwargs = dict(scale=SCALE, time_window=REC_T, static_vars=[topo, mask],
+                  predictors=[pred], batch_size=BATCH)
+    batches = -(-(REC_GRIDS - REC_T + 1) // BATCH)
+    torch.backends.cudnn.allow_tf32 = False
+    ci.conv_int8.launches = fcl.launches = 0
+    y8 = tds.predict((model, net), hr, quantize='int8', **kwargs)
+    k7, k2 = ci.conv_int8.launches, fcl.launches
+    from dl4ds_tpu_torch.inference import _assemble_inputs
+    x, aux, _ = _assemble_inputs(model, hr, SCALE, True, [topo, mask],
+                                 [pred], REC_T, 'inter_area',
+                                 torch.device('cuda', 0))
+    qf = tds.quantize_forward(model, net, x[:BATCH], aux[:BATCH])
+    want_k2 = len(K2_LAYERS) * REC_T * (batches + 1)
+    print(f'phase 20 (d): recresnet_spc predict(quantize=\'int8\', '
+          f'time_window={REC_T}) output {y8.shape}, {qf.n_sites} sites; K7 '
+          f'{k7} launches (expected {qf.n_sites * batches}), K2 inference '
+          f'{k2} (expected {want_k2}: {len(K2_LAYERS) * REC_T} a batch and as '
+          f'many in the calibration forward)', flush=True)
+    if (k7 != qf.n_sites * batches or k2 != want_k2
+            or not np.isfinite(y8).all()):
+        fail(f'phase 20 (d): launches K7 {k7}, K2 {k2}')
+    with _k7_calls() as calls:
+        y_card = qf(x[:BATCH], aux[:BATCH])
+    _k7_rows(torch, calls, 'recresnet_spc site')
+    del calls
+    cmp = _card_vs_cpu(torch, tds, model, net, qf,
+                       (x[:BATCH], aux[:BATCH]), y_card[:1].cpu().numpy(),
+                       '(d)')
+    t0 = time.perf_counter()
+    tds.predict((model, net), hr, quantize='int8', **kwargs)
+    rate = REC_GRIDS / (time.perf_counter() - t0)
+    report['quant'].update(rec_k7_launches=k7, rec_k2_launches=k2,
+                           **{f'rec_{k}': v for k, v in cmp.items()},
+                           rec_grids_per_s=rate, rec_n_sites=qf.n_sites)
+
+
+def _quant_tiled(torch, tds, flush, report):
+    """(e): the flagship int8 and tiled on one 0.25-degree global grid."""
+    import numpy as np
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    h, w = TILED_GRID
+    hr = np.random.default_rng(18).standard_normal(
+        (1, h * SCALE, w * SCALE)).astype('float32')
+    model = tds.net_postupsampling(
+        'resnet', 'spc', scale=SCALE, n_channels=1, n_aux_channels=0,
+        lr_size=TILED_GRID, n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+        attention=True)
+    net = model.init(seed=0, device='cuda')
+    kwargs = dict(scale=SCALE, array_in_hr=True, tile=TILE, halo=TILE_HALO,
+                  batch_size=BATCH)
+    n_win = (-(-h // TILE)) * (-(-w // TILE))
+    dispatches = -(-n_win // BATCH)
+    ci.conv_int8.launches = 0
+    y = tds.predict((model, net), hr, quantize='int8', **kwargs)
+    k7 = ci.conv_int8.launches
+    win = torch.randn((BATCH, TILE_WINDOW, TILE_WINDOW, 1), device='cuda')
+    qf = tds.quantize_forward(model, net, win)
+    if (k7 != qf.n_sites * dispatches or not np.isfinite(y).all()
+            or y.shape != (1, h * SCALE, w * SCALE, 1)):
+        fail(f'phase 20 (e): tiled int8 output {y.shape}, K7 {k7} launches, '
+             f'{qf.n_sites} sites x {dispatches} dispatches expected')
+    t0 = time.perf_counter()
+    tds.predict((model, net), hr, quantize='int8', **kwargs)
+    rate = 1 / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tds.predict((model, net), hr, **kwargs)
+    rate_f32 = 1 / (time.perf_counter() - t0)
+    with _k7_calls() as calls:
+        qf(win)
+    _k7_rows(torch, calls, 'tiled window site')
+    del calls
+    print(f'phase 20 (e): tiled int8 flagship on a {h}x{w} grid -> '
+          f'{y.shape}: {n_win} windows in {dispatches} dispatches, K7 {k7} '
+          f'launches ({qf.n_sites} a dispatch); {rate:.4f} grids/s int8, '
+          f'{rate_f32:.4f} float32 (TF32 off; host clock, one call each); '
+          f'{card_line()}', flush=True)
+    report['quant'].update(tiled_k7_launches=k7, tiled_grids_per_s=rate,
+                           tiled_f32_grids_per_s=rate_f32,
+                           tiled_dispatches=dispatches)
+
+
+def _quant_artifact(torch, tds, model, net, report):
+    """(f): an int8 artifact at batch 8 on (b)'s calibration batch, served
+    by ModelServer in process: K7 and K1 launches a device batch, the
+    output against (b)'s predict."""
+    import tempfile
+    import numpy as np
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    from dl4ds_tpu_torch.serve import ModelServer
+    fca = tds.fused_channel_attention
+    xb, ab = report['quant']['calibration']
+    y8 = report['quant']['y8']
+    n_sites = report['quant']['n_sites']
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / 'int8'
+        t0 = time.perf_counter()
+        tds.save_serving_artifact(model, net, str(path), batch=BATCH,
+                                  quantize='int8', calibration=xb,
+                                  calibration_aux=ab)
+        export_s = time.perf_counter() - t0
+        ep = torch.export.load(str(path / 'forward.pt2'))
+        nodes = [str(n.target) for n in ep.graph.nodes
+                 if n.op == 'call_function']
+        k7_nodes = nodes.count('dl4ds_tpu_torch.conv_int8.default')
+        k1_nodes = nodes.count(K1_OP)
+        srv = ModelServer(str(path))
+        x, aux = xb.cpu().numpy(), ab.cpu().numpy()
+        counts = []
+        for n in (BATCH, 1):
+            ci.conv_int8.launches = fca.launches = 0
+            y = srv.predict(x[:n], aux[:n])
+            counts.append((ci.conv_int8.launches, fca.launches))
+            _held(y, y8[:n], f'phase 20 (f): int8 artifact at batch {n} '
+                  f'against predict(quantize=\'int8\')')
+        info = srv.health()
+        call, _ = tds.load_serving_artifact(str(path))
+        call_ms = statistics.median(device_times(torch, lambda: call(xb, ab),
+                                                 reps=10))
+    print(f'phase 20 (f): int8 artifact at batch {BATCH}: {k7_nodes} '
+          f'conv_int8 and {k1_nodes} channel_attention nodes, exported and '
+          f'saved in {export_s:.1f} s; ModelServer (quantize '
+          f'{info["quantize"]!r}) K7/K1 launches a device batch {counts} '
+          f'(requests of {BATCH} and 1), output within {SERVE_REL} of max|y| '
+          f'of predict; a call {call_ms:.3f} ms (CUDA events); {card_line()}',
+          flush=True)
+    if (k7_nodes != n_sites or k1_nodes != len(K1_SHAPES)
+            or any(c != (n_sites, len(K1_SHAPES)) for c in counts)
+            or info['quantize'] != 'int8'):
+        fail(f'phase 20 (f): nodes K7 {k7_nodes} K1 {k1_nodes}, launches '
+             f'{counts}, quantize {info["quantize"]!r}')
+    report['quant'].update(artifact_k7_launches=sum(c[0] for c in counts),
+                           artifact_call_ms=call_ms,
+                           artifact_export_s=export_s)
+
+
+def _quant_extra_sites(torch, flush, report):
+    """(a)'s sites beyond the models': the width-64 3x3 at phase 3's grid,
+    the depthwise 7x7 and the transposed 'dc' site, with seeded codes."""
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    gen = torch.Generator(device='cuda').manual_seed(20)
+    calls = []
+    for xs, ws, stride, dil, pads, groups in Q_EXTRA_SITES.values():
+        x = torch.randint(-127, 128, xs, generator=gen, device='cuda',
+                          dtype=torch.int32).to(torch.int8)
+        wq = torch.randint(-127, 128, ws, generator=gen, device='cuda',
+                           dtype=torch.int32).to(torch.int8)
+        scale = torch.rand(ws[0], generator=gen, device='cuda') * 1e-4
+        calls.append((x, ci.pack_weight(wq, groups), scale, ws[2], ws[3],
+                      stride, dil, pads, groups, torch.float32))
+    report['k7_extra_rows'] = _k7_rows(torch, calls, 'extra site', flush)
+
+
+def phase_quantization(torch, tds, report):
+    """Phase 20: int8 post-training quantization on the card."""
+    parts = {}
+    t0 = time.perf_counter()
+
+    def done(name):
+        nonlocal t0
+        parts[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device='cuda')
+    model, net, _, _ = _quant_flagship(torch, tds, flush, report)
+    done('a, b')
+    _quant_extra_sites(torch, flush, report)
+    done('a extra')
+    _quant_wide(torch, tds, flush, report)
+    done('c')
+    _quant_recurrent(torch, tds, flush, report)
+    done('d')
+    _quant_tiled(torch, tds, flush, report)
+    done('e')
+    _quant_artifact(torch, tds, model, net, report)
+    done('f')
+    torch.backends.cudnn.allow_tf32 = True
+    q = report['quant']
+    q.pop('y8')
+    q.pop('calibration')
+    r8, r64 = (q[k]['int8'] / q[k]['bf16'] for k in ('rates_w8', 'rates_w64'))
+    print(f'phase 20: int8 / bfloat16 predict rate {r8:.3f} at width '
+          f'{N_FILTERS}, {r64:.3f} at width {Q_WIDE} (the narrow-width '
+          f'warning of quantization.py states these); {card_line()}',
+          flush=True)
+    print(f'phase 20 parts (s): {parts}', flush=True)
+
+
+def _quant_kernel_rows(report):
+    """The `kernels` line's row of phase 20: K7, its launches those of the
+    main path's run (the flagship's predict(quantize='int8')) and, beside
+    them, of the other int8 paths; its times the sum over one flagship
+    forward's K7 calls (each distinct site timed, times its calls)."""
+    q, rows = report['quant'], report['k7_rows']
+    t = _k7_totals(rows)
+    return [dict(
+        name='K7_conv_int8', route='cuda',
+        source='dl4ds_tpu_torch/csrc/conv_int8.cu',
+        sources=['dl4ds_tpu_torch/csrc/conv_int8.cu',
+                 'dl4ds_tpu_torch/csrc/s8_mma.cuh'],
+        replaces='dl4ds_tpu/quantization.py:276 (XLA\'s s8 convolution in '
+                 'the int8 replay; no Pallas kernel)',
+        launches=q['k7_launches'],
+        launches_other_paths={
+            f'width-{Q_WIDE} predict': q['k7_launches_w64'],
+            'recresnet_spc predict': q['rec_k7_launches'],
+            'tiled global grid': q['tiled_k7_launches'],
+            'artifact via ModelServer': q['artifact_k7_launches']},
+        max_abs_err=0.0, ms=t['ms'], plain_ms=t['plain_ms'],
+        bound_ms=t['bound_ms'],
+        bound_by=('operations' if t['bound_ops_ms'] > t['bound_bytes_ms']
+                  else 'bytes'),
+        library_ms=t['library_ms'], unfold_ms=t['unfold_ms'],
+        cudnn_bf16_ms=t['cudnn_bf16_ms'],
+        work=f'the {q["n_sites"]} int8 sites of one flagship forward at '
+             f'batch {BATCH} (phase 3\'s grids), {len(rows)} distinct shapes '
+             f'timed and summed over their calls; launches of predict('
+             f'quantize=\'int8\') on {N_GRIDS} grids; library_ms '
+             f'torch._int_mm on each site\'s unfolded matrix (unfold_ms '
+             f'beside), cudnn_bf16_ms the bfloat16 float path at the same '
+             f'sites; max_abs_err 0: the int32 sums and the float32 and '
+             f'bfloat16 outputs equal the plain version at every call of '
+             f'the flagship forward and at the extra sites, the float32 '
+             f'outputs at every call of the width-{Q_WIDE}, recurrent and '
+             f'tiled forwards')]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6585,7 +7312,8 @@ def main():
               (10, phase_flagship_training), (11, phase_graphs),
               (12, phase_bf16), (13, phase_mos), (14, phase_pin),
               (15, phase_state), (16, phase_cgan), (17, phase_zoo_stream),
-              (18, phase_parallel), (19, phase_serving))
+              (18, phase_parallel), (19, phase_serving),
+              (20, phase_quantization))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -6756,7 +7484,7 @@ def main():
                + _pin_kernel_rows(report) + _state_kernel_rows(report)
                + _cgan_kernel_rows(report) + _zoo_stream_kernel_rows(report)
                + _parallel_kernel_rows(report)
-               + _serving_kernel_rows(report))
+               + _serving_kernel_rows(report) + _quant_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -6771,15 +7499,17 @@ def main():
                       if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_',
                                            'k6_rows', 'graph_rows',
                                            'bf16_k', 'tiled_k', 'member_',
-                                           'artifact_k'))}),
+                                           'artifact_k', 'k7_'))}),
           flush=True)
     print(json.dumps({'phase18_shapes': {k: report[k] for k in (
         'tiled_k1_rows', 'tiled_k2_rows', 'member_rows')}}), flush=True)
     print(json.dumps({'phase19_shapes': {k: report[k] for k in (
         'artifact_k1_rows', 'artifact_k1_bf16_rows', 'artifact_k2_rows')}}),
         flush=True)
+    print(json.dumps({'phase20_shapes': {k: report[k] for k in (
+        'k7_rows', 'k7_extra_rows')}}), flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
-          f'kernel build to the end of phase 19', flush=True)
+          f'kernel build to the end of phase 20', flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

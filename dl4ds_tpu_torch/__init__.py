@@ -31,6 +31,9 @@ to the card behind the step); the reference's host tier
 A trained model is frozen for serving by `save_serving_artifact`
 (`torch.export`, the kernels kept as operator nodes) and served over HTTP
 by `python -m dl4ds_tpu_torch.serve --artifact DIR` (`serve.ModelServer`).
+Int8 post-training quantization (`quantize_forward`; `quantize=` in
+`predict`, tiled `predict` and the artifacts) runs every convolution
+through the hand-written int8 convolution (K7, `csrc/conv_int8.cu`).
 """
 
 __version__ = "0.1.0"
@@ -100,6 +103,7 @@ from .weights import load_jax_params
 from .inference import Predictor, predict, predict_mc
 from .export import (export_forward, save_serving_artifact,
                      load_serving_artifact)
+from .quantization import quantize_forward
 from .training import (SupervisedTrainer, CGANTrainer, load_checkpoint,
                        train_step)
 from .metrics import (compute_rmse, compute_correlation, compute_metrics,

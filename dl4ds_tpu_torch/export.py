@@ -7,8 +7,11 @@ Frozen serving artifacts through `torch.export` (the counterpart of
 one artifact serves any batch size. The hand-written kernels stay in it as
 operator nodes: K1's gate as `dl4ds_tpu_torch::channel_attention`, K2's
 inference variant as `dl4ds_tpu_torch::convlstm` (`ops/fused_ops.py`,
-`ops/convlstm.py`), whose fake kernels let the trace through without a
-launch; the artifact launches the kernels each time it runs on the card.
+`ops/convlstm.py`), and in an int8 artifact (`quantize='int8'`) K7, the
+int8 convolution, as `dl4ds_tpu_torch::conv_int8` (`ops/conv_int8.py`), at
+every site of `quantization.quantize_forward`; their fake kernels let the
+trace through without a launch, and the artifact launches the kernels each
+time it runs on the card.
 `save_serving_artifact` writes `forward.pt2` (`torch.export.save`) and
 `serving_meta.json` into a directory, `load_serving_artifact` reads them
 back into a callable, which `serve.ModelServer` serves without the
@@ -29,10 +32,11 @@ import numpy as np
 import torch
 
 # (importing the models registers the operators that an artifact names:
-# the kernels' in ops/, the fixed-member dropout draw in models/blocks.py)
+# the kernels' in ops/, K7's among them, the fixed-member dropout draw in
+# models/blocks.py)
 from .models.blocks import LocalizedConvBlock
 from .parallel import _net_device
-from .utils import not_ported, resolve_device
+from .utils import resolve_device
 
 __all__ = ['export_forward', 'save_serving_artifact',
            'load_serving_artifact']
@@ -75,9 +79,15 @@ def export_forward(model, net, batch='poly', platforms=None,
         models are fully convolutional, so a patch-trained model exports a
         full-grid artifact (the aux input is scaled to match). A model with
         a `LocalizedConvBlock` is bound to its grid and raises ValueError.
-      quantize: int8 inference is ROADMAP item 11 and raises. `calibration`,
-        `calibration_aux` and `calibration_quantile` are read with it alone,
-        and ignored without it, as in the JAX package.
+      quantize: None (the float forward), or 'int8' or 'weight-only' to
+        freeze the quantized forward of `quantization.quantize_forward`,
+        calibrated on `calibration` (with `calibration_aux` for a model
+        with aux, and `calibration_quantile`). It is pinned to the
+        calibration batch's shape, which is the artifact's signature: `batch`
+        must equal its batch (ModelServer pads and chunks requests to it),
+        'poly' and `spatial_size` raise (dl4ds_tpu/export.py:112-153). The
+        `calibration*` arguments are read with `quantize` alone, and
+        ignored without it, as in the JAX package.
 
     The input (and aux) is float32; the output has the dtype of `net`'s
     forward (a bfloat16 model's, as the JAX artifact's). The trace runs in
@@ -85,13 +95,15 @@ def export_forward(model, net, batch='poly', platforms=None,
     its inference variant); the caller's mode comes back after. Call the
     program with `ep.module()(x[, aux])`, save it with `torch.export.save`.
     """
-    if quantize is not None:
-        raise not_ported('export_forward(quantize=...)', 11)
     device = _net_device(net)
     if platforms is not None and list(platforms) != [device.type]:
         raise ValueError(f'platforms={list(platforms)!r}: an artifact runs on '
                          f"the network's own device, {[device.type]!r} (it "
                          f'is traced there); move the network first')
+    if quantize is not None:
+        return _export_quantized(model, net, batch, spatial_size, quantize,
+                                 calibration, calibration_aux,
+                                 calibration_quantile)
     if spatial_size is not None and any(
             isinstance(m, LocalizedConvBlock) for m in net.modules()):
         raise ValueError(f'spatial_size={tuple(spatial_size)}: {model.name} '
@@ -117,13 +129,56 @@ def export_forward(model, net, batch='poly', platforms=None,
         net.train(was_training)
 
 
+def _shape(a):
+    """The shape of a numpy array, a tensor (on any device) or nested
+    lists."""
+    return tuple(a.shape) if hasattr(a, 'shape') else np.shape(a)
+
+
+def _export_quantized(model, net, batch, spatial_size, mode, calibration,
+                      calibration_aux, calibration_quantile):
+    """Freeze the int8 or weight-only forward at the calibration batch's
+    shape, with the JAX package's checks (dl4ds_tpu/export.py:112-153)."""
+    from .quantization import quantize_forward
+    if calibration is None:
+        raise ValueError(f"quantize={mode!r} needs a calibration batch "
+                         "(it defines the pinned export shapes)")
+    if spatial_size is not None:
+        raise ValueError('spatial_size cannot combine with quantize=; the '
+                         'calibration array defines the export shapes '
+                         '(calibrate on full grids to export a full-grid '
+                         'artifact)')
+    n = _shape(calibration)[0]
+    if batch == 'poly':
+        raise ValueError(
+            "the int8 replay is shape-pinned (reshape sites pin the batch "
+            f"size): pass batch=calibration.shape[0] (= {n}) and serve at "
+            "that batch (dl4ds_tpu_torch.serve pads/chunks requests to a "
+            "pinned batch)")
+    if int(batch) != n:
+        raise ValueError(f'batch={batch} != calibration batch {n}; the '
+                         f'quantized replay serves exactly the calibration '
+                         f'shape')
+    qf = quantize_forward(model, net, calibration,
+                          calibration_aux=calibration_aux, mode=mode,
+                          calibration_quantile=calibration_quantile)
+    device = _net_device(net)
+    args = (torch.zeros(qf.input_shape, device=device),)
+    if qf.aux_shape is not None:
+        args += (torch.zeros(qf.aux_shape, device=device),)
+    qf.module.eval()
+    with torch.inference_mode(False), torch.no_grad():
+        return torch.export.export(qf.module, args)
+
+
 def save_serving_artifact(model, net, path, batch='poly', platforms=None,
                           spatial_size=None, quantize=None, calibration=None,
                           calibration_aux=None, calibration_quantile=None):
     """Export (`export_forward`) and write `path/forward.pt2` and
     `path/serving_meta.json`: the JAX meta's keys (`name`, `input_shape`,
     `aux_shape`, `batch`, `platforms`, `quantize`) with `torch_version` in
-    place of `jax_version`. Returns the artifact's size in bytes."""
+    place of `jax_version`; a quantized artifact's shapes are those of the
+    calibration arrays. Returns the artifact's size in bytes."""
     ep = export_forward(model, net, batch=batch, platforms=platforms,
                         spatial_size=spatial_size, quantize=quantize,
                         calibration=calibration,
@@ -133,6 +188,11 @@ def save_serving_artifact(model, net, path, batch='poly', platforms=None,
     forward = os.path.join(path, FORWARD_FILE)
     torch.export.save(ep, forward)
     in_shape, aux_shape = _signature(model, spatial_size)
+    if quantize is not None:
+        # the calibration arrays are the exported signature
+        in_shape = _shape(calibration)[1:]
+        if calibration_aux is not None:
+            aux_shape = _shape(calibration_aux)[1:]
     meta = {
         'name': model.name,
         'input_shape': list(in_shape),

@@ -223,21 +223,51 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     (`attention=False, output_attention=False`). It does not combine with
     `pad_to_multiple`.
 
+    Int8 serving: `quantize='int8'` (or 'weight-only') runs the forward
+    through `quantization.quantize_forward`, every convolution through K7
+    (the hand-written int8 convolution) on the card, on the batched path
+    and on the tiled one. On the batched path the activation ranges are
+    calibrated on `calibration` when given, a model-ready input batch (the
+    tensor the network takes: LR values with any static, predictor and
+    season channels stacked, after `pad_to_multiple`'s padding), with
+    `calibration_aux` for a model with an HR-aux input; else on the first
+    `batch_size` samples of this input. The quantized forward is pinned to
+    the serving batch: its first min(batch_size, N) calibration samples,
+    fewer cycled up to it, and the last partial batch padded to it. With
+    `tile=` it calibrates on the first dispatch batch of real windows, and
+    an explicit `calibration` raises. `calibration_quantile` picks
+    quantile-clipped ranges in place of absmax (dl4ds_tpu/inference.py:
+    239-341).
+
     `device` is where the network and the data live ('cuda' by default;
     device='cpu' must be asked for). The network must already be there.
-    `mesh` and `spatial_mesh` are ROADMAP item 10, `quantize` (with
-    `calibration_quantile`, `calibration` and `calibration_aux`) item 11:
-    they raise when given.
+    `mesh` and `spatial_mesh` are ROADMAP item 10: they raise when given.
     """
+    if quantize is not None and spatial_mesh is not None:
+        raise ValueError('quantize= does not combine with spatial_mesh '
+                         '(one grid sharded over its height); use tile= '
+                         'for quantized large-grid inference')
+    if quantize is not None and mesh is not None and tile is None:
+        raise ValueError('quantize= on the plain batched path does not '
+                         'combine with mesh=; pass tile= as well '
+                         '(quantized window dispatches shard over the '
+                         'mesh) or drop mesh=')
+    if quantize is not None and tile is not None and (
+            calibration is not None or calibration_aux is not None):
+        raise ValueError('tiled quantized inference calibrates on the '
+                         'first dispatch batch of real windows; explicit '
+                         '`calibration` is not supported with tile=')
     if quantize is None and (calibration is not None
                              or calibration_aux is not None):
         raise ValueError('`calibration`/`calibration_aux` only apply to '
                          'quantized inference; pass quantize= as well')
-    for value, what, item in ((mesh, 'mesh', 10),
-                              (spatial_mesh, 'spatial_mesh', 10),
-                              (quantize, 'quantize', 11)):
+    if spatial_mesh is not None and mesh is not None:
+        raise ValueError('pass either spatial_mesh (one grid sharded over '
+                         'its height) or mesh (samples sharded over the '
+                         'batch), not both')
+    for value, what in ((mesh, 'mesh'), (spatial_mesh, 'spatial_mesh')):
         if value is not None:
-            raise not_ported(f'predict({what}=...)', item)
+            raise not_ported(f'predict({what}=...)', 10)
     if tile is not None and pad_to_multiple is not None:
         raise ValueError('`pad_to_multiple` is redundant with tiled '
                          'inference (every window already has one shape)')
@@ -252,16 +282,60 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     if tile is not None:
         from .parallel import predict_tiled
         out = predict_tiled(model, net, x, aux=aux, tile=tile, halo=halo,
-                            batch_size=batch_size)
+                            batch_size=batch_size, quantize=quantize,
+                            calibration_quantile=calibration_quantile)
         return _finalize_predict(out, batch_lr, time_window, scaler,
                                  save_path, save_fname, return_lr, timing)
     out_hw = None
     if pad_to_multiple is not None:
         x, aux, out_hw = _pad_spatial_to_multiple(x, aux, pad_to_multiple)
-    out = _eval_apply(net, x, aux, batch_size, None)
+    if quantize is not None:
+        out = _quantized_apply(model, net, x, aux, batch_size, quantize,
+                               calibration_quantile, calibration,
+                               calibration_aux)
+    else:
+        out = _eval_apply(net, x, aux, batch_size, None)
     out = _crop_padded(out, x, out_hw)
     return _finalize_predict(out, batch_lr, time_window, scaler, save_path,
                              save_fname, return_lr, timing)
+
+
+def _pin_batch(c, like, name, bs):
+    """The first `bs` samples of a calibration batch, cycled if it holds
+    fewer (the quantized forward runs at the serving batch's shape), after
+    the check that it is model-ready (dl4ds_tpu/inference.py:301-310)."""
+    c = torch.as_tensor(c).to(device=like.device, dtype=torch.float32)
+    if c.dim() != like.dim() or c.shape[1:] != like.shape[1:]:
+        raise ValueError(
+            f'`{name}` must be a model-ready batch matching the assembled '
+            f'input layout {("N",) + tuple(like.shape[1:])}; got '
+            f'{tuple(c.shape)}')
+    return c[torch.arange(bs, device=c.device) % c.shape[0]]
+
+
+def _quantized_apply(model, net, x, aux, batch_size, mode,
+                     calibration_quantile, calibration, calibration_aux):
+    """`predict`'s batched path through `quantize_forward`, calibrated on
+    `calibration` (pinned to the serving batch) or on the input's first
+    batch, the last partial batch padded as `_batched_apply` pads it
+    (dl4ds_tpu/inference.py:296-336)."""
+    from .quantization import quantize_forward
+    bs = min(batch_size, x.shape[0])
+    if calibration is not None:
+        calib = _pin_batch(calibration, x, 'calibration', bs)
+        caux = None
+        if aux is not None:
+            if calibration_aux is None:
+                raise ValueError('this model takes an HR-aux input; pass '
+                                 '`calibration_aux` alongside `calibration`')
+            caux = _pin_batch(calibration_aux, aux, 'calibration_aux', bs)
+    else:
+        calib = x[:bs]
+        caux = aux[:bs] if aux is not None else None
+    qf = quantize_forward(model, net, calib, calibration_aux=caux, mode=mode,
+                          calibration_quantile=calibration_quantile)
+    with torch.inference_mode():
+        return _batched_apply(qf, x, aux, bs)
 
 
 def _check_model_inputs(model, net, time_window, device):

@@ -155,10 +155,13 @@ def _device_matrix(interpolation, in_size, out_size, area_generic, dtype,
                    device):
     """`resize_matrix` as a tensor of `dtype` on `device`, copied there
     once: a copy from pageable host memory at every call would stall the
-    host, and cannot be made while a CUDA graph is being captured."""
-    return torch.as_tensor(
-        np.array(resize_matrix(interpolation, in_size, out_size,
-                               area_generic)), dtype=dtype, device=device)
+    host, and cannot be made while a CUDA graph is being captured. Made
+    outside inference mode even when the first call runs in it (serving),
+    since the cached tensor is later saved for backward by training."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(
+            np.array(resize_matrix(interpolation, in_size, out_size,
+                                   area_generic)), dtype=dtype, device=device)
 
 
 def resize2d(x, out_hw, interpolation='inter_area'):

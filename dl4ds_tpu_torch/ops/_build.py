@@ -23,6 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 
 # kernel library name -> its source in csrc/
 SOURCES = {'channel_attention': 'channel_attention.cu',
+           'conv_int8': 'conv_int8.cu',
            'convlstm': 'convlstm.cu',
            'convlstm_bwd': 'convlstm_bwd.cu',
            'convlstm_seq': 'convlstm_seq.cu',

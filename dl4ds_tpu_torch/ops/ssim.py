@@ -53,10 +53,13 @@ def band_matrix(kernel1d, n):
 def _band(taps, n, dtype, device):
     """The band matrix of the float32 taps (bytes) for length n, as a tensor
     on `device`, built once: a copy to the card per call would stall the
-    host."""
+    host. Made outside inference mode even when the first call runs in it
+    (metrics), since the cached tensor is later saved for backward by a
+    DSSIM loss."""
     kernel1d = np.frombuffer(taps, dtype=np.float32)
-    return torch.from_numpy(band_matrix(kernel1d, n)).to(device=device,
-                                                         dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(band_matrix(kernel1d, n)).to(device=device,
+                                                             dtype=dtype)
 
 
 def _filter_valid(x, kernel1d):

@@ -82,12 +82,16 @@ def predict_tiled(model, net, x, aux=None, tile=128, halo=32, batch_size=8,
     input (LR for post-upsampling models; HR-sized for 'pin'), with the
     (DSModel, nn.Module) pair; the windows run in eval mode in batches of
     `batch_size` on the network's device. Returns float32 numpy [B(,T),
-    h*s, w*s, C_out], s the model's output scale (1 for 'pin'). `mesh`
-    (item 10) and `quantize` with `calibration_quantile` (item 11) raise."""
+    h*s, w*s, C_out], s the model's output scale (1 for 'pin').
+
+    `quantize` ('int8' or 'weight-only', with `calibration_quantile`)
+    serves the windows through `quantization.quantize_forward`, calibrated
+    on the first dispatch batch of real windows (cycled if there are
+    fewer) and pinned to that batch: the windows are wrap-padded to a
+    multiple of it (dl4ds_tpu/parallel.py:166-200). `mesh` (item 10)
+    raises."""
     if mesh is not None:
         raise not_ported('predict_tiled(mesh=...)', 10)
-    if quantize is not None:
-        raise not_ported('predict_tiled(quantize=...)', 11)
     dev = _net_device(net)
     x = _on(x, dev)
     b = x.shape[0]
@@ -125,11 +129,15 @@ def predict_tiled(model, net, x, aux=None, tile=128, halo=32, batch_size=8,
     aux_tiles = torch.cat(aux_windows) if aux is not None else None
     n_win = tiles.shape[0]
     bs_eff = min(batch_size, n_win)
-    with _serving(net):
-        out_tiles = torch.cat([
-            net(tiles[i:i + bs_eff],
-                aux_tiles[i:i + bs_eff] if aux_tiles is not None else None)
-            .float() for i in range(0, n_win, bs_eff)])
+    if quantize is None:
+        with _serving(net):
+            out_tiles = torch.cat([
+                net(tiles[i:i + bs_eff],
+                    aux_tiles[i:i + bs_eff] if aux_tiles is not None
+                    else None).float() for i in range(0, n_win, bs_eff)])
+    else:
+        out_tiles = _quantized_tiles(model, net, tiles, aux_tiles, bs_eff,
+                                     quantize, calibration_quantile)
 
     c_out = out_tiles.shape[-1]
     full = torch.zeros((b, *out_tiles.shape[1:-3], h * scale, w * scale,
@@ -141,6 +149,30 @@ def predict_tiled(model, net, x, aux=None, tile=128, halo=32, batch_size=8,
             blk[..., oy * scale:(oy + ty_len) * scale,
                 ox * scale:(ox + tx_len) * scale, :]
     return full.cpu().numpy()
+
+
+def _quantized_tiles(model, net, tiles, aux_tiles, bs, mode,
+                     calibration_quantile):
+    """The windows through the quantized forward, pinned to `bs` windows a
+    dispatch: calibrated on the first `bs` windows (cycled), the windows
+    wrap-padded to a multiple of `bs`, the padding's outputs dropped."""
+    from .quantization import quantize_forward
+    n_win = tiles.shape[0]
+    sel = torch.arange(bs, device=tiles.device) % n_win
+    qf = quantize_forward(
+        model, net, tiles[sel],
+        calibration_aux=aux_tiles[sel] if aux_tiles is not None else None,
+        mode=mode, calibration_quantile=calibration_quantile)
+    n_run = -(-n_win // bs) * bs
+    if n_run != n_win:
+        sel = torch.arange(n_run, device=tiles.device) % n_win
+        tiles = tiles[sel]
+        aux_tiles = aux_tiles[sel] if aux_tiles is not None else None
+    with torch.inference_mode():
+        return torch.cat([
+            qf(tiles[i:i + bs],
+               aux_tiles[i:i + bs] if aux_tiles is not None else None)
+            .float() for i in range(0, n_run, bs)])[:n_win]
 
 
 # ---------------------------------------------------------------------------

@@ -291,15 +291,26 @@ def test_localized_model_refuses_spatial_size():
 
 
 def test_quantize_is_not_ported_and_calibration_alone_is_ignored(artifacts):
-    _, _, tm, net, _, _ = artifacts['spatial']
+    """The name is kept from before int8 artifacts were ported: `quantize`
+    now exports (tests/test_torch_quantization.py holds the int8 artifact
+    against `predict`); an aux model without `calibration_aux` raises the
+    JAX package's ValueError and writes nothing; and, as in the JAX
+    package, calibration without quantize= is not read."""
+    jm, variables, tm, net, _, _ = artifacts['spatial']
     calib = np.zeros((2, 8, 8, 1), np.float32)
+    calib_aux = np.zeros((2, 16, 16, 1), np.float32)
     for mode in ('int8', 'weight-only'):
-        with pytest.raises(NotImplementedError, match='item 11'):
-            texport.export_forward(tm, net, batch=2, quantize=mode,
+        with pytest.raises(ValueError, match='calibration_aux') as want:
+            jexport.export_forward(jm, variables, batch=2, quantize=mode,
                                    calibration=calib)
-        with pytest.raises(NotImplementedError, match='item 11'):
+        with pytest.raises(ValueError, match='calibration_aux') as got:
             texport.save_serving_artifact(tm, net, 'unused', batch=2,
                                           quantize=mode, calibration=calib)
+        assert str(got.value) == str(want.value)
+        ep = texport.export_forward(tm, net, batch=2, quantize=mode,
+                                    calibration=calib,
+                                    calibration_aux=calib_aux)
+        assert isinstance(ep, torch.export.ExportedProgram)
     assert not os.path.exists('unused')
     # as in the JAX package, calibration without quantize= is not read
     ep = texport.export_forward(tm, net, batch=2, calibration=calib,

@@ -105,12 +105,25 @@ def test_batch_synthesizer_matches_jax(data):
     dict(quantize='int8', calibration_quantile=0.999),
     dict(quantize='int8', calibration=np.zeros((2, 16, 16, 4), np.float32))])
 def test_unported_predict_modes_raise(data, models, kwargs):
-    """Meshes (ROADMAP item 10, tiled or not, `halo` with them) and int8
-    serving (item 11, tiled or not, the `calibration*` arguments with it);
-    tiling alone is ported (tests/test_torch_parallel.py)."""
-    hr = data[0]
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tds.predict(models[1], hr, scale=SCALE, device='cpu', **kwargs)
+    """Meshes (ROADMAP item 10, tiled or not, `halo` with them) raise;
+    tiling alone is ported (tests/test_torch_parallel.py). Int8 serving
+    (tiled or not, the `calibration*` arguments with it) has been ported
+    since: those cases now serve the model, or raise the JAX package's
+    ValueError where the aux model gets no `calibration_aux` (compared with
+    the JAX package in tests/test_torch_quantization.py)."""
+    hr, topo, mask, pred = data
+    if 'quantize' not in kwargs:
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            tds.predict(models[1], hr, scale=SCALE, device='cpu', **kwargs)
+        return
+    kw = dict(scale=SCALE, static_vars=[topo, mask], predictors=[pred],
+              batch_size=2, device='cpu', **kwargs)
+    if 'calibration' in kwargs:
+        with pytest.raises(ValueError, match='calibration_aux'):
+            tds.predict(models[1], hr, **kw)
+        return
+    y = tds.predict(models[1], hr, **kw)
+    assert y.shape == (N, HR, HR, 1) and np.isfinite(y).all()
 
 
 def _parameters(fn):

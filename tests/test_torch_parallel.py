@@ -143,14 +143,17 @@ def test_receptive_field_radius_matches_jax(args):
 
 
 def test_raises(pairs):
-    """`mesh` (ROADMAP item 10) and `quantize` (item 11) are not ported;
-    `pad_to_multiple` with `tile` is the JAX package's ValueError."""
+    """`mesh` (ROADMAP item 10) is not ported; `quantize` is
+    (tests/test_torch_quantization.py), and a mode it does not know is the
+    JAX package's ValueError; `pad_to_multiple` with `tile` is the JAX
+    package's ValueError."""
     (jm, variables), (tm, net) = pairs['spc_attention']
     x = np.zeros((1, 16, 16, 1), np.float32)
     with pytest.raises(NotImplementedError, match='item 10'):
         tpar.predict_tiled(tm, net, x, mesh=object())
-    with pytest.raises(NotImplementedError, match='item 11'):
-        tpar.predict_tiled(tm, net, x, quantize='int8')
+    for pkg, pair in ((jpar, (jm, variables)), (tpar, (tm, net))):
+        with pytest.raises(ValueError, match='mode'):
+            pkg.predict_tiled(*pair, x, quantize='int4')
     hr = np.zeros((2, 32, 32), np.float32)
     for pkg, pair, kw in ((dds, (jm, variables), {}),
                           (tds, (tm, net), dict(device='cpu'))):
