@@ -185,7 +185,7 @@ Phases, each of which exits non-zero on failure:
  16. CGAN training, BASELINE config 5: (a) bench_suite.py's
      cgan_resnet_spc_4x (G resnet_spc x4 with n_filters 8, n_blocks 6 and
      attention; D n_filters 32, 4 residual blocks) trained by
-     `CGANTrainer.run()` on phase 7's data for 2 epochs of 20 fused G+D
+     `CGANTrainer.run()` on phase 7's data for 2 epochs of 10 fused G+D
      steps replayed as a captured CUDA graph, under torch.profiler: K1's
      launches both ways in the device trace (G's 7 gates a step each way,
      and the test loss's eager gates), finite losses, the speed; 3 steps
@@ -300,7 +300,29 @@ Phases, each of which exits non-zero on failure:
      dispatch, grids/s); (f) an int8 artifact at batch 8 saved, loaded and
      served by `serve.ModelServer` (K7 and K1 launches a device batch, the
      output within 1e-5 of max |y| of (b)'s `predict`);
- 21. print the `kernels` JSON line, then, last, the device JSON line. In
+ 21. the command-line app on the flagship: (a) phase 10's data written as
+     a data module and a flag file (bench.py's flagship at full width,
+     `--loss=dssim_mae --debug`: 2 epochs of 6 steps at batch 128, the
+     test phase on 16 HR grids of 128x128, `--nometrics`, an int8 artifact
+     at batch 8) run in process through `app.main(argv)` under
+     torch.profiler with every launch counter at 0 just before: the
+     training graphs' K1 and K6 launches both ways in the device trace and
+     the wrappers' calls as phase 10 counts them, plus the test phase's
+     and the int8 calibration's eager gates; finite losses; the test
+     phase's y_hat.npy equal to `predict` of the saved model on the same
+     grids at the same batch; the int8 artifact served by
+     `serve.ModelServer` on 8 grids (K7 its sites, K1 7, every K7 call held
+     against its plain version and timed) within 1e-5 of max |y| of
+     `predict(quantize='int8')` on the same calibration; (b) `python -m
+     dl4ds_tpu_torch.app --notrain --trained_model_path=... --test` in a
+     subprocess, its y_hat.npy equal to (a)'s; (c) `ops.flops.count_flops`
+     of the flagship's dssim_mae training step at batch 16, its forward at
+     batch 8 and recresnet_spc's training step at batch 16 on the card and
+     on the CPU, equal, and the flagship step's FLOPs at batch 128 over one
+     replay of (a)'s graph (CUDA events): its FLOP/s and share of the
+     float32 and TF32 peaks. PyTorch's default TF32 settings throughout,
+     which the subprocess runs with;
+ 22. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -327,8 +349,11 @@ Phases, each of which exits non-zero on failure:
      K1_channel_attention_artifact_bf16_serve, K2_convlstm_artifact_serve),
      K6_ssim_metrics and the ensemble
      step's kernels (K1_channel_attention_member_train, K6_ssim_ensemble)
-     and K7_conv_int8 (its `launches_other_paths` beside) run eagerly, and
-     their `launches` are their wrappers' counts.
+     and K7_conv_int8 (its `launches_other_paths` beside) and
+     K7_conv_int8_cli_artifact run eagerly, and their `launches` are their
+     wrappers' counts; K1_channel_attention_cli_train and
+     K6_ssim_cli_train count phase 21 (a)'s device trace, eager launches
+     included.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -338,6 +363,7 @@ import copy
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -4395,6 +4421,9 @@ def _state_kernel_rows(report):
 CGAN_G = dict(n_filters=N_FILTERS, n_blocks=N_BLOCKS, attention=True)
 CGAN_D = dict(n_filters=32, n_res_blocks=4)
 CGAN_TEST, CGAN_CPU_BATCH = 64, 4
+# (a)'s runs, float32 and bfloat16: 2 epochs of CGAN_STEPS steps (half of
+# TRAIN_STEPS: the phase was the longest; every check is kept)
+CGAN_STEPS = 10
 # (b) the spatio-temporal pair: recresnet_spc x4 (n_filters 8, REC_BLOCKS
 # blocks, T 4) and D with its recurrent stem (layer norm, F 32), attention
 # in both (G's recurrent head gates are plain tensor math, so K1 runs in D
@@ -4820,7 +4849,7 @@ def phase_cgan(torch, tds, report):
              f'{N_BLOCKS}, attention) + D (n_filters {CGAN_D["n_filters"]}, '
              f'{CGAN_D["n_res_blocks"]} blocks), mae')
     tr, out['f32'] = _drive_cgan(torch, tds, _cgan_config(), label,
-                                 TRAIN_STEPS, k1)
+                                 CGAN_STEPS, k1)
     if out['f32']['per_step']['train']['K1'] != len(K1_TRAIN_SHAPES):
         fail(f'phase 16: {out["f32"]["per_step"]["train"]} K1 launches a '
              f'step, not G\'s {len(K1_TRAIN_SHAPES)} gates')
@@ -4830,7 +4859,7 @@ def phase_cgan(torch, tds, report):
                                                    label)
     tr16, out['bf16'] = _drive_cgan(
         torch, tds, _cgan_config(dtype=torch.bfloat16), f'{label}, bfloat16',
-        TRAIN_STEPS, k1)
+        CGAN_STEPS, k1)
     out['serve'] = _cgan_serving(torch, tds, tr, tr16, report)
     del tr, tr16
 
@@ -7277,6 +7306,308 @@ def _quant_kernel_rows(report):
              f'tiled forwards')]
 
 
+# phase 21: the flagship through the command-line app. The data module
+# holds phase 10's data (TRAIN_GRIDS seeded grids, validation and test the
+# first 64) and CLI_GRIDS HR inference grids; `--debug` is the app's 2
+# epochs of 6 steps with 6 validation and 6 test steps
+# (dl4ds_tpu_torch/app.py); the int8 artifact serves CLI_EXPORT_BATCH of
+# the inference inputs; (c) counts FLOPs at CLI_COUNT_BATCH on the card and
+# on the CPU
+CLI_GRIDS, CLI_EXPORT_BATCH, CLI_COUNT_BATCH = 16, 8, 16
+CLI_EPOCHS, CLI_STEPS = 2, 6
+TF32_FLOPS = 495e12             # H100 SXM dense TF32 on the tensor cores
+CLI_DATA_MODULE = f"""import numpy as np
+_all = np.random.default_rng(0).standard_normal(
+    ({TRAIN_GRIDS}, {TRAIN_HR}, {TRAIN_HR}, 1)).astype('float32')
+data_train = _all
+data_val = data_test = _all[:64]
+data_train_lr = data_val_lr = data_test_lr = None
+predictors_train = predictors_val = predictors_test = None
+static_vars = None
+inference_data = np.random.default_rng(21).standard_normal(
+    ({CLI_GRIDS}, {TRAIN_HR}, {TRAIN_HR}, 1)).astype('float32')
+inference_scaler = None
+inference_predictors = None
+gt_holdout_dataset = inference_data
+gt_mask = None
+"""
+
+
+def _cli_flags(root):
+    """The flag-file lines phase 21's runs share: the flagship at full
+    width (bench.py's), trained with --debug, served on the HR inference
+    grids, no metrics phase (it draws with matplotlib)."""
+    return [f'--device=GPU', f'--data_module={root}/cli_data.py',
+            '--backbone=resnet', '--upsampling=spc', f'--scale={SCALE}',
+            '--attention', f'--n_filters={N_FILTERS}',
+            f'--n_blocks={N_BLOCKS}', f'--patch_size={TRAIN_PATCH}',
+            f'--batch_size={TRAIN_BATCH}', f'--loss={FLAG_LOSS}', '--debug',
+            '--inference_array_in_hr', f'--save_path={root}/results/',
+            '--nometrics']
+
+
+def _cli_step_flops(torch, tds, count_flops, config, device):
+    """count_flops of one eager training step at CLI_COUNT_BATCH of a
+    trainer of `config` on `device` (seeded weights and batch)."""
+    tr = tds.SupervisedTrainer(batch_size=CLI_COUNT_BATCH, epochs=1,
+                               device=device, **config)
+    tr.setup_datagen()
+    tr.setup_model()
+    tr.setup_optimizer()
+    tr.net.train()
+    gen = torch.Generator().manual_seed(3)
+    batch = tr.ds_train(tr.ds_train.epoch_indices(gen, steps=1)[0],
+                        generator=gen)
+    return count_flops(tr.train_step, batch)
+
+
+def phase_cli(torch, tds, report):
+    """Phase 21: (a) the flagship through `app.main(argv)` with a flag
+    file, under the launch counters and torch.profiler: the launches of
+    the training graphs, the test phase and the int8 export's calibration,
+    finite losses, the test phase's y_hat.npy against `predict` of the
+    saved model, the int8 artifact's call (K7 at every site, held and
+    timed) against `predict(quantize='int8')`; (b) `python -m
+    dl4ds_tpu_torch.app` on the saved model in a subprocess, its y_hat.npy
+    equal to (a)'s; (c) `count_flops` of the flagship's step and batch-8
+    forward and of recresnet_spc's step on the card and on the CPU, equal,
+    and the flagship step's FLOP/s at batch 128 on one replay."""
+    import tempfile
+    import numpy as np
+    from dl4ds_tpu_torch import app
+    from dl4ds_tpu_torch.inference import _assemble_inputs
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    from dl4ds_tpu_torch.ops.flops import count_flops
+    from dl4ds_tpu_torch.serve import ModelServer
+    fca, ssim = tds.fused_channel_attention, tds.fused_ssim_per_image
+    # PyTorch's defaults, which the subprocess of (b) runs with
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    repo = Path(__file__).resolve().parent
+    dev = torch.device('cuda')
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    grids = np.random.default_rng(21).standard_normal(
+        (CLI_GRIDS, TRAIN_HR, TRAIN_HR, 1)).astype('float32')
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / 'cli_data.py').write_text(CLI_DATA_MODULE)
+        train_cfg = root / 'train.cfg'
+        train_cfg.write_text('\n'.join(
+            ['# phase 21 (a): train, test, export'] + _cli_flags(root)
+            + ['--inference_save_fname=y_hat.npy',
+               f'--export_artifact={root}/artifact',
+               '--export_quantize=int8',
+               f'--export_batch={CLI_EXPORT_BATCH}']) + '\n')
+        # (a) in process, every counter at 0 just before and read after
+        counters = _counters(tds)
+        for _, fn, attr in counters:
+            setattr(fn, attr, 0)
+        ci.conv_int8.launches = 0
+        with _device_trace(torch) as prof:
+            t0 = time.perf_counter()
+            tr = app.main(['dl4ds_tpu_torch.app', f'--flagfile={train_cfg}'])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        calls = {name: getattr(fn, attr) for name, fn, attr in counters}
+        k7_run = ci.conv_int8.launches
+        gates = len(K1_TRAIN_SHAPES)
+        per_step = _flagship_per_step(gates)
+        # eager: the test phase's predict (one batch) and the int8
+        # export's calibration forward, a forward's gates each
+        got = _check_launches(
+            tds, tr.runner, 'phase 21 (a)', per_step,
+            {'step': CLI_EPOCHS * CLI_STEPS, 'val': CLI_EPOCHS * CLI_STEPS,
+             'test': CLI_STEPS}, calls, _device_kernels(torch, prof),
+            outside={'K1': 2 * gates})
+        losses = tr.fithist['loss'] + tr.fithist['val_loss'] + [tr.test_loss]
+        patches = CLI_EPOCHS * CLI_STEPS * TRAIN_BATCH
+        print(f'phase 21 (a): app.main on the flag file: {tr.model.name}, '
+              f'{tr.model.param_count(tr.net)} parameters, {CLI_EPOCHS} '
+              f'epochs of {CLI_STEPS} steps at batch {TRAIN_BATCH}, test, '
+              f'int8 export in {run_s:.2f} s under torch.profiler '
+              f'({patches / run_s:.1f} training patches/s over the whole '
+              f'command, host clock); history {tr.fithist}, test loss '
+              f'{tr.test_loss:.6f}; K7 launches in the run {k7_run}; '
+              f'{card_line()}', flush=True)
+        if not all(np.isfinite(v) for v in losses) or k7_run:
+            fail(f'phase 21 (a): losses {losses}, K7 launches {k7_run}')
+        y_a = np.load(root / 'results' / 'y_hat.npy')
+        saved = str(root / 'results' / f'{tr.model.name}')
+        model, net = pair = tds.load_model(saved)
+        fca.launches = 0
+        want = tds.predict(pair, grids, scale=SCALE, array_in_hr=True,
+                           batch_size=TRAIN_BATCH)
+        if fca.launches != gates or not np.isfinite(y_a).all():
+            fail(f'phase 21 (a): predict of the saved model launched K1 '
+                 f'{fca.launches} times, y_hat finite '
+                 f'{np.isfinite(y_a).all()}')
+        if y_a.shape != want.shape or not np.array_equal(y_a, want):
+            fail(f'phase 21 (a): y_hat.npy {y_a.shape} differs from predict '
+                 f'of the saved model {want.shape} by max|d| '
+                 f'{np.abs(y_a - want).max() if y_a.shape == want.shape else None}')
+        # the int8 artifact on the calibration batch, against predict
+        cx, _, _ = _assemble_inputs(model, grids, SCALE, True, None, None,
+                                    None, 'inter_area', dev)
+        xb = cx[:CLI_EXPORT_BATCH]
+        n_sites = tds.quantize_forward(model, net, xb).n_sites
+        # calibrated on its first batch, the artifact's calibration batch
+        y8 = tds.predict(pair, grids, scale=SCALE, array_in_hr=True,
+                         batch_size=CLI_EXPORT_BATCH,
+                         quantize='int8')[:CLI_EXPORT_BATCH]
+        srv = ModelServer(str(root / 'artifact'))
+        srv.predict(xb.cpu().numpy())             # warm
+        ci.conv_int8.launches = fca.launches = fca.bwd_launches = 0
+        with _k7_calls() as k7_calls:
+            y_art = srv.predict(xb.cpu().numpy())
+        k7, k1 = ci.conv_int8.launches, fca.launches
+        print(f'phase 21 (a): the int8 artifact ({srv.health()["quantize"]}, '
+              f'batch {srv.batch}) on {CLI_EXPORT_BATCH} grids: K7 {k7} '
+              f'launches (expected {n_sites}: its sites), K1 {k1} (expected '
+              f'{gates}), K1 backward {fca.bwd_launches}', flush=True)
+        if k7 != n_sites or k1 != gates or fca.bwd_launches:
+            fail(f'phase 21 (a): artifact launches K7 {k7}, K1 {k1}')
+        _held(y_art, y8, 'phase 21 (a): the CLI\'s int8 artifact against '
+              'predict(quantize=\'int8\') on the same calibration')
+        rows = _k7_rows(torch, k7_calls, 'CLI artifact site', flush)
+        del k7_calls
+
+        # (b) the module entry point on the saved model, as users call it
+        test_cfg = root / 'test.cfg'
+        test_cfg.write_text('\n'.join(
+            _cli_flags(root) + ['--inference_save_fname=y_hat_b.npy'])
+            + '\n')
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, '-m', 'dl4ds_tpu_torch.app',
+             f'--flagfile={test_cfg}', '--notrain',
+             f'--trained_model_path={saved}', '--test', '--nometrics'],
+            capture_output=True, text=True, timeout=300, cwd=str(repo),
+            env=dict(os.environ, PYTHONPATH=str(repo)))
+        sub_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail(f'phase 21 (b): python -m dl4ds_tpu_torch.app exited '
+                 f'{res.returncode}: {res.stderr[-3000:]}')
+        y_b = np.load(root / 'results' / 'y_hat_b.npy')
+        print(f'phase 21 (b): python -m dl4ds_tpu_torch.app --notrain '
+              f'--trained_model_path on {CLI_GRIDS} grids in {sub_s:.2f} s '
+              f'(a new process: import, load, predict); y_hat equal to (a)\'s '
+              f'{np.array_equal(y_b, y_a)}', flush=True)
+        if not np.array_equal(y_b, y_a):
+            fail(f'phase 21 (b): y_hat differs from (a)\'s by max|d| '
+                 f'{np.abs(y_b - y_a).max()}')
+
+    # (c) count_flops on the card against the CPU, the kernels counted by
+    # their formulas on the card and their plain versions hidden on the CPU
+    flag = _training_config(loss=FLAG_LOSS, n_filters=N_FILTERS,
+                            n_blocks=N_BLOCKS, attention=True)
+    rec = _training_config(loss='mae', time_window=REC_T,
+                           n_blocks=REC_BLOCKS, n_filters=N_FILTERS)
+    cpu_net = copy.deepcopy(net).cpu()
+    counts = {}
+    for name, fn in (
+            ('flagship step', lambda d: _cli_step_flops(
+                torch, tds, count_flops, flag, d)),
+            (f'flagship forward at batch {CLI_EXPORT_BATCH}', lambda d: (
+                count_flops(net, xb, None) if d == 'cuda'
+                else count_flops(cpu_net, xb.cpu(), None))),
+            ('recresnet_spc step', lambda d: _cli_step_flops(
+                torch, tds, count_flops, rec, d))):
+        counts[name] = {d: fn(d) for d in ('cuda', 'cpu')}
+    print(f'phase 21 (c): count_flops on the card and on the CPU (batch '
+          f'{CLI_COUNT_BATCH} steps): {counts}', flush=True)
+    if any(c['cuda'] != c['cpu'] or not c['cuda'] > 0
+           for c in counts.values()):
+        fail(f'phase 21 (c): the counts differ by device: {counts}')
+    # the flagship step at batch 128 against one replay of (a)'s graph
+    gen = torch.Generator().manual_seed(7)
+    tr.runner.train(tr.ds_train.plan(gen, CLI_STEPS))
+    graph = tr.runner.graphs['step']
+
+    def replay():
+        tr._row.zero_()
+        graph.replay()
+    replay_ms = statistics.median(device_times(torch, replay, reps=10))
+    one = tr.ds_train(tr.ds_train.epoch_indices(gen, steps=1)[0],
+                      generator=gen)
+    step_flops = count_flops(tr.train_step, one)
+    rate = step_flops / (replay_ms * 1e-3)
+    print(f'phase 21 (c): the flagship {FLAG_LOSS} step at batch '
+          f'{TRAIN_BATCH}: {step_flops:.6e} FLOPs (count_flops); one replay '
+          f'{replay_ms:.4f} ms (CUDA events): {rate / 1e12:.4f} TFLOP/s, '
+          f'{100 * rate / F32_FLOPS:.3f}% of the {F32_FLOPS / 1e12:.0f} '
+          f'TFLOP/s float32 peak ({100 * rate / TF32_FLOPS:.3f}% of TF32\'s '
+          f'{TF32_FLOPS / 1e12:.0f}); {card_line()}', flush=True)
+    out.update(run_s=run_s, patches_per_s=patches / run_s,
+               launches=got, wrapper_calls=calls, losses=losses,
+               artifact_k7_launches=k7, artifact_k1_launches=k1,
+               n_sites=n_sites, subprocess_s=sub_s, flop_counts=counts,
+               step_flops=step_flops, replay_ms=replay_ms,
+               tflops=rate / 1e12, f32_peak_share=rate / F32_FLOPS,
+               tf32_peak_share=rate / TF32_FLOPS, k7_rows=rows)
+    report['cli'] = out
+
+
+def _cli_kernel_rows(report):
+    """The `kernels` line's rows of phase 21: K1 and K6 in the CLI's
+    training (launches from its device trace, times those of phase 10's
+    gates and phase 9's DSSIM shape, the same shapes), and K7 in the CLI's
+    int8 artifact (launches of one call, its sites held and timed here)."""
+    cli, gates, k6 = report['cli'], report['k1_train_rows'], \
+        report['k6_rows'][0]
+    t = _k7_totals(cli['k7_rows'])
+    k1 = dict(name='K1_channel_attention_cli_train', route='cuda',
+              source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39',
+              launches=cli['launches']['K1'],
+              wrapper_calls=cli['wrapper_calls']['K1'],
+              max_abs_err=max(r['max_abs_err'] for r in gates),
+              ms=sum(r['ms'] for r in gates),
+              plain_ms=sum(r['plain_ms'] for r in gates),
+              bound_ms=sum(r['bound_ms'] for r in gates), bound_by='bytes',
+              library_ms=None, bwd_ms=sum(r['bwd_ms'] for r in gates),
+              bwd_bound_ms=sum(r['bwd_bound_ms'] for r in gates),
+              bwd_plain_ms=sum(r['bwd_plain_ms'] for r in gates),
+              bwd_launches=cli['launches']['K1 backward'],
+              bwd_wrapper_calls=cli['wrapper_calls']['K1 backward'],
+              work='the gates of one flagship training step at batch '
+                   f'{TRAIN_BATCH} (phase 10\'s shapes and times); launches '
+                   'of `python -m dl4ds_tpu_torch.app`\'s run in process '
+                   '(app.main): training graphs, test predict, int8 '
+                   'calibration')
+    k6_row = dict(name='K6_ssim_cli_train', route='cuda',
+                  source='dl4ds_tpu_torch/csrc/ssim.cu',
+                  replaces='dl4ds_tpu/ops/pallas_ops.py:145',
+                  launches=cli['launches']['K6'],
+                  wrapper_calls=cli['wrapper_calls']['K6'],
+                  max_abs_err=k6['max_abs_err'], ms=k6['ms'],
+                  plain_ms=k6['plain_ms'], bound_ms=k6['bound_ms'],
+                  bound_by=k6['bound_by'], library_ms=None,
+                  bwd_ms=k6['bwd_ms'], bwd_bound_ms=k6['bwd_bound_ms'],
+                  bwd_plain_ms=k6['bwd_plain_ms'],
+                  bwd_launches=cli['launches']['K6 backward'],
+                  bwd_wrapper_calls=cli['wrapper_calls']['K6 backward'],
+                  work=f'the {FLAG_LOSS} loss of the CLI\'s flagship '
+                       f'training (phase 9\'s shape and times)')
+    k7 = dict(name='K7_conv_int8_cli_artifact', route='cuda',
+              source='dl4ds_tpu_torch/csrc/conv_int8.cu',
+              replaces='dl4ds_tpu/quantization.py:276 (XLA\'s s8 '
+                       'convolution in the int8 replay; no Pallas kernel)',
+              launches=cli['artifact_k7_launches'], max_abs_err=0.0,
+              ms=t['ms'], plain_ms=t['plain_ms'], bound_ms=t['bound_ms'],
+              bound_by=('operations' if t['bound_ops_ms'] > t['bound_bytes_ms']
+                        else 'bytes'),
+              library_ms=t['library_ms'], unfold_ms=t['unfold_ms'],
+              cudnn_bf16_ms=t['cudnn_bf16_ms'],
+              work=f'the {cli["n_sites"]} sites of one call of the CLI\'s '
+                   f'int8 artifact at batch {CLI_EXPORT_BATCH} '
+                   f'({TRAIN_HR // SCALE}x{TRAIN_HR // SCALE} LR), '
+                   f'{len(cli["k7_rows"])} distinct shapes held (int32 '
+                   'sums and outputs equal the plain version) and timed, '
+                   'summed over their calls')
+    return [k1, k6_row, k7]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7313,7 +7644,7 @@ def main():
               (12, phase_bf16), (13, phase_mos), (14, phase_pin),
               (15, phase_state), (16, phase_cgan), (17, phase_zoo_stream),
               (18, phase_parallel), (19, phase_serving),
-              (20, phase_quantization))
+              (20, phase_quantization), (21, phase_cli))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -7484,7 +7815,8 @@ def main():
                + _pin_kernel_rows(report) + _state_kernel_rows(report)
                + _cgan_kernel_rows(report) + _zoo_stream_kernel_rows(report)
                + _parallel_kernel_rows(report)
-               + _serving_kernel_rows(report) + _quant_kernel_rows(report))
+               + _serving_kernel_rows(report) + _quant_kernel_rows(report)
+               + _cli_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -7499,7 +7831,7 @@ def main():
                       if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_',
                                            'k6_rows', 'graph_rows',
                                            'bf16_k', 'tiled_k', 'member_',
-                                           'artifact_k', 'k7_'))}),
+                                           'artifact_k', 'k7_', 'cli'))}),
           flush=True)
     print(json.dumps({'phase18_shapes': {k: report[k] for k in (
         'tiled_k1_rows', 'tiled_k2_rows', 'member_rows')}}), flush=True)
@@ -7508,8 +7840,11 @@ def main():
         flush=True)
     print(json.dumps({'phase20_shapes': {k: report[k] for k in (
         'k7_rows', 'k7_extra_rows')}}), flush=True)
+    print(json.dumps({'phase21': report['cli']}), flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
-          f'kernel build to the end of phase 20', flush=True)
+          f'kernel build to the end of phase 21; phase seconds '
+          f'{ {k: round(v, 1) for k, v in report["phase_seconds"].items()} }',
+          flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

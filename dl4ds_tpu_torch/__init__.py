@@ -34,6 +34,12 @@ by `python -m dl4ds_tpu_torch.serve --artifact DIR` (`serve.ModelServer`).
 Int8 post-training quantization (`quantize_forward`; `quantize=` in
 `predict`, tiled `predict` and the artifacts) runs every convolution
 through the hand-written int8 convolution (K7, `csrc/conv_int8.cu`).
+The command-line app `python -m dl4ds_tpu_torch.app --flagfile=F` reads
+the JAX app's flag files; reference Keras checkpoints load with
+`import_keras_weights` (`init_weights=` in the trainers); `viz` draws the
+interactive and projected maps; `ops.flops.count_flops` counts a call's
+matmul and convolution FLOPs, the hand-written kernels' included, alike
+on the CPU and the card.
 """
 
 __version__ = "0.1.0"
@@ -80,8 +86,14 @@ DROPOUT_VARIANTS = [
     'mcspatialdrop']    # monte-carlo spatial dropout
 
 from .interpolation import resize2d, resize_array, resize_matrix
-from .utils import (crop_array, checkarray_ndim, Timing, checkarg_upsampling,
-                    checkarg_backbone, checkarg_dropout_variant)
+from .utils import (crop_array, checkarray_ndim, Timing,
+                    spatial_to_spatiotemporal_samples,
+                    spatiotemporal_to_spatial_samples,
+                    check_compatibility_upsbackb, checkarg_upsampling,
+                    checkarg_backbone, checkarg_dropout_variant,
+                    checkarg_loss, checkarg_interpolation, list_devices,
+                    plot_history)
+from .viz import interactive_panel, plot_projected
 from .ops import (depth_to_space, fused_channel_attention,
                   channel_attention_reference, fused_convlstm,
                   convlstm_reference, fused_ssim_per_image)
@@ -104,8 +116,10 @@ from .inference import Predictor, predict, predict_mc
 from .export import (export_forward, save_serving_artifact,
                      load_serving_artifact)
 from .quantization import quantize_forward
-from .training import (SupervisedTrainer, CGANTrainer, load_checkpoint,
-                       train_step)
+from .training import (Trainer, SupervisedTrainer, CGANTrainer,
+                       load_checkpoint, train_step)
 from .metrics import (compute_rmse, compute_correlation, compute_metrics,
                       crps_ensemble, spread_skill, rank_histogram,
                       compute_prob_metrics)
+from . import compat
+from .compat import import_keras_weights

@@ -20,7 +20,7 @@ import torch
 from .ops import fused_ssim_per_image
 from .ops.ssim import psnr as _psnr
 from .preprocessing import _to_numpy
-from .utils import Timing, checkarray_ndim, not_ported, resolve_device
+from .utils import Timing, checkarray_ndim, resolve_device
 
 __all__ = ['compute_rmse', 'compute_correlation', 'compute_metrics',
            'crps_ensemble', 'spread_skill', 'rank_histogram',
@@ -118,10 +118,9 @@ def compute_metrics(y_test, y_test_hat, dpi=150, plot_size_px=1000,
     maps, the violin plots, the .npy files and the summary are written
     there (matplotlib is imported only then); without it nothing is drawn
     and the summary is printed. With `lats`/`lons` (1-D coordinate
-    vectors) the maps are drawn on the geographic extent.
-    `projection=` is `viz.py`'s, not ported: it raises."""
-    if projection is not None:
-        raise not_ported('compute_metrics(projection=...) (viz.py)', 11)
+    vectors) the maps are drawn on the geographic extent; `projection=`
+    (with lats, lons and `save_path`) adds each map on that geographic
+    projection as `<map>_projected.png` (`viz.plot_projected`)."""
     timing = Timing()
 
     y_test = np.asarray(_to_numpy(y_test), 'float32')
@@ -173,7 +172,7 @@ def compute_metrics(y_test, y_test_hat, dpi=150, plot_size_px=1000,
         temp_rmse_map[np.where(mask == 0)] = 0
     _plot_map(temp_rmse_map, f'RMSE map (mu = {mean_temp_rmse:.6f})',
               save_path, 'metrics_pergridpoint_rmse_map', dpi,
-              cmap='viridis', lats=lats, lons=lons)
+              cmap='viridis', lats=lats, lons=lons, projection=projection)
 
     # normalized per-grid-point RMSE
     norm_temp_rmse_map = temp_rmse_map / (np.mean(y_test) * 100)
@@ -184,7 +183,7 @@ def compute_metrics(y_test, y_test_hat, dpi=150, plot_size_px=1000,
     _plot_map(norm_temp_rmse_map,
               f'nRMSE map (mu = {norm_mean_temp_rmse:.6f})', save_path,
               'metrics_pergridpoint_nrmse_map', dpi, cmap='viridis',
-              lats=lats, lons=lons)
+              lats=lats, lons=lons, projection=projection)
 
     # normalized mean bias
     nmeanbias = np.mean(y_test_hat - y_test, axis=0)
@@ -197,7 +196,7 @@ def compute_metrics(y_test, y_test_hat, dpi=150, plot_size_px=1000,
         nmeanbias[np.where(mask == 0)] = 0
     _plot_map(nmeanbias, f'NMBias map (mu = {mean_nmeanbias:.6f})',
               save_path, 'metrics_nmeanbias_map', dpi, cmap='viridis',
-              lats=lats, lons=lons)
+              lats=lats, lons=lons, projection=projection)
 
     # correlations
     spatial_spearman_corr = compute_correlation(y_test, y_test_hat,
@@ -223,7 +222,7 @@ def compute_metrics(y_test, y_test_hat, dpi=150, plot_size_px=1000,
     _plot_map(temp_pearson_corrmap,
               f'Pearson correlation map (mu = {mean_t_pear:.6f})', save_path,
               'metrics_pergridpoint_corrpears_map', dpi, cmap='magma',
-              lats=lats, lons=lons)
+              lats=lats, lons=lons, projection=projection)
 
     _plot_violins(
         [(np.asarray(psnr_vals), 'PSNR', mean_psnr, std_psnr),
@@ -365,13 +364,11 @@ def compute_prob_metrics(y_test, members, dpi=150, save_path=None,
 
     Beyond-reference capability: the reference's metrics module
     (dl4ds/metrics.py) is deterministic-only. Plots are drawn only with
-    `save_path`; `projection=` (`viz.py`) is not ported and raises.
+    `save_path`; `projection=` adds the maps' projected companions, as in
+    `compute_metrics`.
 
     Returns ``(crps_map, ss_ratio, rank_counts)``.
     """
-    if projection is not None:
-        raise not_ported('compute_prob_metrics(projection=...) (viz.py)',
-                         11)
     timing = Timing()
     y_test = np.asarray(_to_numpy(y_test), 'float32')
     members = np.asarray(_to_numpy(members), 'float32')
@@ -394,10 +391,11 @@ def compute_prob_metrics(y_test, members, dpi=150, save_path=None,
     counts = rank_histogram(y_test, members, seed=seed)
 
     _plot_map(crps_map, f'CRPS map (mu = {mean_crps:.6f})', save_path,
-              'metrics_crps_map', dpi, cmap='viridis', lats=lats, lons=lons)
+              'metrics_crps_map', dpi, cmap='viridis', lats=lats, lons=lons,
+              projection=projection)
     _plot_map(spread_map, f'Ensemble spread map (sigma_bar = {spread:.6f})',
               save_path, 'metrics_spread_map', dpi, cmap='magma',
-              lats=lats, lons=lons)
+              lats=lats, lons=lons, projection=projection)
     _plot_rank_histogram(counts, save_path, dpi)
 
     fh = (open(os.path.join(save_path, 'metrics_prob_summary.txt'), 'a')
@@ -438,7 +436,7 @@ def _plot_rank_histogram(counts, save_path, dpi):
 
 
 def _plot_map(arr, title, save_path, fname, dpi, cmap='viridis',
-              lats=None, lons=None):
+              lats=None, lons=None, projection=None):
     if save_path is None:
         return
     import matplotlib
@@ -451,6 +449,13 @@ def _plot_map(arr, title, save_path, fname, dpi, cmap='viridis',
     np.save(os.path.join(save_path, fname + '.npy'), arr)
     fig.savefig(os.path.join(save_path, fname + '.png'), bbox_inches='tight')
     plt.close(fig)
+    if projection is not None and lats is not None and lons is not None:
+        # the geographic companion (dl4ds_tpu/metrics.py:425-434)
+        from .viz import plot_projected
+        plot_projected(np.squeeze(arr), lats, lons, projection=projection,
+                       cmap=cmap, plot_title=title, dpi=dpi,
+                       save_fname=os.path.join(
+                           save_path, fname + '_projected.png'))
 
 
 def _plot_violins(entries, save_path, dpi):

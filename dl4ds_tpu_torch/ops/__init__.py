@@ -1,6 +1,6 @@
-"""Tensor ops of the port: pixel shuffle, SSIM, the fused kernels and the
+"""Tensor ops of the port: pixel shuffle, SSIM, the fused kernels, the
 int8 convolution (the module `conv_int8`, whose import registers the
-operator `dl4ds_tpu_torch::conv_int8`)."""
+operator `dl4ds_tpu_torch::conv_int8`) and `count_flops` (`flops`)."""
 
 from .array import depth_to_space
 from .fused_ops import (fused_channel_attention, channel_attention_reference,
@@ -11,6 +11,7 @@ from .convlstm import (fused_convlstm, convlstm_reference,
                        convlstm_seq_reference, convlstm_backward_tail,
                        dispatch_info, FusedConvLSTM)
 from . import conv_int8
+from .flops import count_flops
 
 __all__ = ['depth_to_space', 'fused_channel_attention',
            'channel_attention_reference', 'FusedChannelAttention',
@@ -18,4 +19,4 @@ __all__ = ['depth_to_space', 'fused_channel_attention',
            'convlstm_backward_reference', 'convlstm_seq_reference',
            'convlstm_backward_tail', 'dispatch_info', 'FusedConvLSTM',
            'fused_ssim_per_image', 'FusedSSIM', 'ssim', 'ssim_multiscale',
-           'psnr', 'conv_int8']
+           'psnr', 'conv_int8', 'count_flops']

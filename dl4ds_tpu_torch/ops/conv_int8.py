@@ -35,8 +35,10 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
+from .flops import conv_int8_flops
 
 __all__ = ['conv_int8', 'conv_int8_reference', 'pack_weight',
            'quantize_activation', 'conv_out_size']
@@ -251,6 +253,12 @@ def _(x, w, scale, kh, kw, stride, dilation, pads, groups, out_dtype):
     ho = conv_out_size(x.shape[1], kh, stride, dilation, pads[0], pads[1])
     wo = conv_out_size(x.shape[2], kw, stride, dilation, pads[2], pads[3])
     return x.new_empty((x.shape[0], ho, wo, scale.shape[0]), dtype=out_dtype)
+
+
+@register_flop_formula(torch.ops.dl4ds_tpu_torch.conv_int8)
+def _(x_shape, w_shape, scale_shape, kh, kw, stride, dilation, pads, groups,
+      out_dtype, out_shape=None, **kwargs):
+    return conv_int8_flops(x_shape, out_shape, kh, kw, groups)
 
 
 def conv_int8(x, w, scale, kh, kw, stride=1, dilation=1, pads=(0, 0, 0, 0),

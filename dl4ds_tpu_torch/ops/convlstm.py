@@ -45,8 +45,10 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
+from .flops import convlstm_flops, kernel_flops
 
 __all__ = ['fused_convlstm', 'convlstm_reference', 'convlstm_train_reference',
            'convlstm_backward_reference', 'convlstm_seq_reference',
@@ -804,10 +806,11 @@ class FusedConvLSTM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wx, bx, wh, route=None):
-        if x.device.type == 'cuda':
-            ys, cs, zs = _launch(x, wx, bx, wh, train=True)
-        else:
-            ys, cs, zs = convlstm_train_reference(x, wx, bx, wh)
+        with kernel_flops(lambda: convlstm_flops(x.shape, wx.shape)):
+            if x.device.type == 'cuda':
+                ys, cs, zs = _launch(x, wx, bx, wh, train=True)
+            else:
+                ys, cs, zs = convlstm_train_reference(x, wx, bx, wh)
         ctx.save_for_backward(x, wx, wh, zs, cs, ys)
         ctx.route = route
         return ys
@@ -820,8 +823,11 @@ class FusedConvLSTM(torch.autograd.Function):
         itemsize = 2 if x.dtype == torch.bfloat16 else 4
         route = ctx.route or dispatch_info(x.shape, wx.shape, wh.shape,
                                            itemsize)['path']
-        grads = _backward(route, x, wx, wh, zs, cs, ys, dys.contiguous(),
-                          need_dx=ctx.needs_input_grad[0])
+        need_dx = ctx.needs_input_grad[0]
+        with kernel_flops(lambda: convlstm_flops(x.shape, wx.shape, True,
+                                                 need_dx)):
+            grads = _backward(route, x, wx, wh, zs, cs, ys, dys.contiguous(),
+                              need_dx=need_dx)
         return tuple(g if need else None for g, need in
                      zip(grads, ctx.needs_input_grad)) + (None,)
 
@@ -850,6 +856,11 @@ def _(x, wx, bx, wh):
 @_convlstm_op.register_fake
 def _(x, wx, bx, wh):
     return x.new_empty((*x.shape[:4], wx.shape[-1] // 4))
+
+
+@register_flop_formula(torch.ops.dl4ds_tpu_torch.convlstm)
+def _(x_shape, wx_shape, *args, out_shape=None, **kwargs):
+    return convlstm_flops(x_shape, wx_shape)
 
 
 def fused_convlstm(x, wx, bx, wh):

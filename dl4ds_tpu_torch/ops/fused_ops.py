@@ -47,8 +47,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
+from .flops import gate_flops, kernel_flops, ssim_flops
 from .ssim import _gaussian_kernel1d, ssim, ssim_backward_reference
 
 __all__ = ['fused_channel_attention', 'channel_attention_reference',
@@ -538,6 +540,11 @@ def _(x, w1, b1, w2, b2, mixed):
             x.new_empty((x.shape[0], x.shape[-1]), dtype=acc))
 
 
+@register_flop_formula(torch.ops.dl4ds_tpu_torch.channel_attention)
+def _(x_shape, w1_shape, *args, out_shape=None, **kwargs):
+    return gate_flops(x_shape, w1_shape)
+
+
 def _front(t, d, n):
     """A vmap rule's operand with its mapped dim first, [n, ...]; expanded
     to n where the operand is not mapped (d None)."""
@@ -639,11 +646,12 @@ class _GateBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(x, w1, b1, w2, b2, dy, m, g, mixed):
-        if x.device.type == 'cuda':
-            return _launch_backward(x, w1, b1, w2, b2, dy.contiguous(), m, g,
-                                    mixed)
-        if x.device.type == 'cpu':
-            return _plain_backward(x, w1, b1, w2, b2, dy, m, g, mixed)
+        with kernel_flops(lambda: gate_flops(x.shape, w1.shape, True)):
+            if x.device.type == 'cuda':
+                return _launch_backward(x, w1, b1, w2, b2, dy.contiguous(),
+                                        m, g, mixed)
+            if x.device.type == 'cpu':
+                return _plain_backward(x, w1, b1, w2, b2, dy, m, g, mixed)
         raise ValueError(f'unsupported device {x.device}')
 
     @staticmethod
@@ -917,12 +925,13 @@ class FusedSSIM(torch.autograd.Function):
 
     @staticmethod
     def forward(img1, img2, max_val, filter_size, filter_sigma, k1, k2):
-        if img1.device.type == 'cuda':
-            return _launch_ssim(img1, img2, max_val, filter_size,
-                                filter_sigma, k1, k2)
-        if img1.device.type == 'cpu':
-            return ssim(img1, img2, max_val, filter_size, filter_sigma, k1,
-                        k2)
+        with kernel_flops(lambda: ssim_flops(img1.shape, filter_size)):
+            if img1.device.type == 'cuda':
+                return _launch_ssim(img1, img2, max_val, filter_size,
+                                    filter_sigma, k1, k2)
+            if img1.device.type == 'cpu':
+                return ssim(img1, img2, max_val, filter_size, filter_sigma,
+                            k1, k2)
         raise ValueError(f'unsupported device {img1.device}')
 
     @staticmethod
@@ -971,10 +980,14 @@ class _SSIMBackward(torch.autograd.Function):
     def forward(img1, img2, max_val, g, filter_size, filter_sigma, k1, k2,
                 need):
         args = (img1, img2, max_val, g, filter_size, filter_sigma, k1, k2)
-        if img1.device.type == 'cuda':
-            return _launch_ssim_backward(*args, need=need)
-        if img1.device.type == 'cpu':
-            return ssim_backward_reference(*args, need=need)
+        # the images' gradients take the band products; max_val's none
+        flops = (lambda: ssim_flops(img1.shape, filter_size)
+                 if need[0] or need[1] else 0)
+        with kernel_flops(flops):
+            if img1.device.type == 'cuda':
+                return _launch_ssim_backward(*args, need=need)
+            if img1.device.type == 'cpu':
+                return ssim_backward_reference(*args, need=need)
         raise ValueError(f'unsupported device {img1.device}')
 
     @staticmethod

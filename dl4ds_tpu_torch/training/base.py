@@ -9,6 +9,7 @@ profiler and the saving of results; meshes raise until they are ported.
 
 import json
 import os
+import warnings
 from abc import ABC, abstractmethod
 
 import numpy as np
@@ -209,7 +210,9 @@ class Trainer(ABC):
         """Persist the trained model (`models.save_model`: the JAX
         package's model_config.json and variables.pkl), the wall-clock
         time, the test loss and the learning-curve plot
-        (dl4ds_tpu/training/base.py:301-341)."""
+        (dl4ds_tpu/training/base.py:301-341). Without matplotlib (a CUDA
+        host may have none) the plot is left out with a RuntimeWarning;
+        the rest is written."""
         if not self.save:
             return
         prefix = folder_prefix or ''
@@ -229,7 +232,12 @@ class Trainer(ABC):
             np.savetxt(self.save_path + 'test_loss.txt',
                        [float(self.test_loss)], fmt='%0.6f')
         if getattr(self, 'fithist', None):
-            import matplotlib.pyplot as plt
+            try:
+                import matplotlib.pyplot as plt
+            except ImportError:
+                warnings.warn('learning_curve.png not drawn: matplotlib is '
+                              'not installed', RuntimeWarning)
+                return
             fig, _ = plot_history(self.fithist,
                                   path=self.save_path + 'learning_curve.png')
             plt.close(fig)

@@ -42,7 +42,8 @@ from ..models import build_model, residual_discriminator
 from ..models.blocks import (BatchNorm, set_dropout_generator,
                              use_dropout_generator, _rounded)
 from ..models.nets import _mean
-from ..utils import Timing, not_ported, resolve_device
+from ..compat import import_keras_weights
+from ..utils import Timing, resolve_device
 from .base import Trainer
 from .schedules import cosine_decay_schedule, warmup_cosine_decay_schedule
 from .supervised import StepRunner, _cpu
@@ -159,7 +160,9 @@ class CGANTrainer(Trainer):
     ramp from 0 over `warmup_steps` updates, 0 meaning a twentieth of the
     run, then the decay) or a callable of the update count, for both.
     `model_list` and `gpu_memory_growth` are accepted and do nothing. Not
-    ported: `mesh` and `devices` (ROADMAP item 10), `init_weights` (11).
+    ported: `mesh` and `devices` (ROADMAP item 10). `init_weights` loads a
+    reference Keras checkpoint into the generator
+    (`compat.import_keras_weights`); the discriminator starts fresh.
     `data_in_hbm=False` streams the training split from host RAM or a
     memmapped file (`HostStreamer`, seeded from `seed`), each batch copied
     into the input buffers of the captured fused step, which is replayed
@@ -186,8 +189,6 @@ class CGANTrainer(Trainer):
                  data_in_hbm=True, terminate_on_nan=True,
                  gradient_accumulation_steps=1, ema_decay=0.0,
                  lr_schedule=None, warmup_steps=0, init_weights=None):
-        if init_weights is not None:
-            raise not_ported('Keras weight import (`init_weights`)', 11)
         super().__init__(
             backbone=backbone, upsampling=upsampling, data_train=data_train,
             data_train_lr=data_train_lr, time_window=time_window, loss=loss,
@@ -282,6 +283,17 @@ class CGANTrainer(Trainer):
             lr_size=(lr_h, lr_w), time_window=self.time_window,
             **self.discriminator_params)
         self.gen_net = self.generator.init(self.seed, device=self.device)
+        if self.init_weights is not None:
+            # the generator from a reference checkpoint; the discriminator
+            # starts fresh (dl4ds_tpu/training/cgan.py:252-261)
+            import_keras_weights(self.generator, self.gen_net,
+                                 self.init_weights)
+            if self.verbose:
+                src = (self.init_weights
+                       if isinstance(self.init_weights, str)
+                       else type(self.init_weights).__name__)
+                print(f'Initialized generator from reference checkpoint: '
+                      f'{src}')
         self.disc_net = self.discriminator.init(self.seed + 1,
                                                 device=self.device)
         if any(isinstance(m, BatchNorm) for net in (self.gen_net,

@@ -43,8 +43,9 @@ import torch
 from ..dataloader import (BatchSynthesizer, HostStreamer, _time_coord,
                           season_ids_from_time)
 from ..models import build_model
+from ..compat import import_keras_weights
 from ..models.blocks import set_dropout_generator
-from ..utils import Timing, not_ported
+from ..utils import Timing
 from .base import Trainer
 from .graphs import CapturedStep
 from .schedules import build_schedule
@@ -62,7 +63,11 @@ class SupervisedTrainer(Trainer):
     `use_multiprocessing`, `model_list`, `gpu_memory_growth` and
     `show_plot` are accepted and do nothing, as in the JAX package. The
     options that are not ported raise NotImplementedError naming their
-    ROADMAP item: `mesh` and `devices` (10); `init_weights` (11).
+    ROADMAP item: `mesh` and `devices` (10). `init_weights` loads a
+    reference Keras checkpoint into the freshly built network
+    (`compat.import_keras_weights`: a weight list, an `.npz`, a Keras
+    model or a SavedModel path); it cannot be combined with
+    `trained_model`.
 
     `data_in_hbm=False` streams all three splits from host RAM or from a
     memmapped file (`HostStreamer`, seeded from `seed`): each batch is
@@ -103,10 +108,13 @@ class SupervisedTrainer(Trainer):
                  season_ids=None, time_metadata=None, terminate_on_nan=True,
                  gradient_accumulation_steps=1, lr_schedule=None,
                  warmup_steps=0, ema_decay=0.0, **architecture_params):
-        if init_weights is not None:
-            raise not_ported('Keras weight import (`init_weights`)', 11)
         # the JAX trainer's checks (dl4ds_tpu/training/supervised.py:
-        # 122-128, 147-148, 189-193)
+        # 122-128, 147-148, 154-158, 189-193)
+        if init_weights is not None and trained_model is not None:
+            raise ValueError('`init_weights` initializes a freshly-built '
+                             'model; it cannot be combined with '
+                             '`trained_model` (which carries its own '
+                             'variables)')
         if lr_schedule not in (None, 'cosine', 'warmup_cosine') \
                 and not callable(lr_schedule):
             raise ValueError(
@@ -175,6 +183,7 @@ class SupervisedTrainer(Trainer):
         self.architecture_params = architecture_params
         self.trained_model = trained_model
         self.trained_epochs = trained_epochs
+        self.init_weights = init_weights
         self.save_bestmodel = save_bestmodel
         self.checkpoints_frequency = checkpoints_frequency
         self.resume_from_checkpoint = resume_from_checkpoint
@@ -217,10 +226,10 @@ class SupervisedTrainer(Trainer):
         self.ds_train, self.ds_val, self.ds_test = sources
 
     def setup_model(self):
-        """Channel bookkeeping and the model, its weights drawn from `seed`,
-        or the given `trained_model` pair, whose module is copied: the
-        caller's stays as it was (dl4ds_tpu/training/supervised.py:
-        295-327)."""
+        """Channel bookkeeping and the model, its weights drawn from `seed`
+        or imported from `init_weights`, or the given `trained_model` pair,
+        whose module is copied: the caller's stays as it was
+        (dl4ds_tpu/training/supervised.py:295-327)."""
         if self.trained_model is not None:
             self.model, net = self.trained_model
             self.net = copy.deepcopy(net).to(self.device)
@@ -237,6 +246,14 @@ class SupervisedTrainer(Trainer):
             lr_size=(lr_height, lr_width), hr_size=(hr_height, hr_width),
             time_window=self.time_window, **self.architecture_params)
         self.net = self.model.init(self.seed, device=self.device)
+        if self.init_weights is not None:
+            import_keras_weights(self.model, self.net, self.init_weights)
+            if self.verbose:
+                src = (self.init_weights
+                       if isinstance(self.init_weights, str)
+                       else type(self.init_weights).__name__)
+                print(f'Initialized parameters from reference checkpoint: '
+                      f'{src}')
 
     def _steps(self):
         """Steps an epoch, as the JAX trainer counts them."""

@@ -1,6 +1,6 @@
-"""Argument checks, array helpers, device resolution, run timing and the
-learning-curve plot (copies of the JAX package's `utils.py` helpers that
-this port needs)."""
+"""Argument checks, array helpers, the devices, run timing and the plots:
+the port's copy of the JAX package's `utils.py` (dl4ds_tpu/utils.py),
+with the CUDA devices in place of the JAX ones."""
 
 import math
 import os
@@ -9,14 +9,16 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from . import (BACKBONE_BLOCKS, DROPOUT_VARIANTS, LOSS_FUNCTIONS,
-               UPSAMPLING_METHODS)
+from . import (BACKBONE_BLOCKS, DROPOUT_VARIANTS, INTERPOLATION_METHODS,
+               LOSS_FUNCTIONS, UPSAMPLING_METHODS)
 
-__all__ = ['checkarray_ndim', 'crop_array', 'checkarg_upsampling', 'checkarg_backbone',
-           'checkarg_dropout_variant', 'checkarg_loss',
-           'check_compatibility_upsbackb', 'resolve_device', 'not_ported',
-           'spatiotemporal_to_spatial_samples', 'Timing', 'plot_history',
-           'plot_ndarray', '_values']
+__all__ = ['spatial_to_spatiotemporal_samples',
+           'spatiotemporal_to_spatial_samples', 'checkarray_ndim',
+           'check_compatibility_upsbackb', 'checkarg_upsampling',
+           'checkarg_backbone', 'checkarg_dropout_variant', 'checkarg_loss',
+           'checkarg_interpolation', 'list_devices', 'set_gpu_memory_growth',
+           'set_visible_gpus', 'Timing', 'crop_array', 'plot_history',
+           'plot_ndarray', 'rank', 'resolve_device', 'not_ported', '_values']
 
 
 def not_ported(what, item):
@@ -24,6 +26,11 @@ def not_ported(what, item):
     entry in ROADMAP.md's queue 1."""
     return NotImplementedError(f'{what} is not ported yet '
                                f'(ROADMAP.md queue 1, item {item})')
+
+
+def rank(x):
+    """Number of dimensions of an array (reference: dl4ds/utils.py:202)."""
+    return len(x.shape)
 
 
 def checkarray_ndim(array, ndim=3, add_axis_position=-1):
@@ -138,6 +145,39 @@ def checkarg_dropout_variant(dropout_variant):
     raise TypeError('`dropout_variant` must be None or a string')
 
 
+def checkarg_interpolation(interpolation):
+    if interpolation not in INTERPOLATION_METHODS:
+        raise ValueError(
+            f'`interpolation` must be one of {INTERPOLATION_METHODS}, '
+            f'got {interpolation}')
+    return interpolation
+
+
+def set_gpu_memory_growth():
+    """Reference-API compat shim (dl4ds/utils.py:174-177). PyTorch's CUDA
+    caching allocator grows its pool as tensors are made; its settings
+    are `PYTORCH_CUDA_ALLOC_CONF`, read before the first allocation."""
+
+
+def set_visible_gpus(*indices):
+    """Reference-API compat shim (dl4ds/utils.py:195-199). The cards a
+    process sees are set by `CUDA_VISIBLE_DEVICES` before CUDA starts; an
+    entry point runs on the card its `device` names ('cuda:1')."""
+
+
+def list_devices(which='local', verbose=True):
+    """The CUDA devices this process sees, as `torch.device`s (reference
+    analogue: dl4ds/utils.py:180-192). `which` ('local' or any other, the
+    JAX package's all devices) gives one host's cards either way: the port
+    runs on one host."""
+    devices = [torch.device('cuda', i)
+               for i in range(torch.cuda.device_count())]
+    if verbose:
+        print('List of devices:')
+        print([f'{d}: {torch.cuda.get_device_name(d)}' for d in devices])
+    return devices
+
+
 def resolve_device(device):
     """`torch.device` for an entry point's `device` argument, with the
     current CUDA device's index filled in. A CUDA device without a visible
@@ -155,6 +195,15 @@ def resolve_device(device):
     if device.index is None:
         device = torch.device('cuda', torch.cuda.current_device())
     return device
+
+
+def spatial_to_spatiotemporal_samples(array, time_window):
+    """[n, y, x, c] -> [n - tw + 1, tw, y, x, c] sliding windows
+    (dl4ds_tpu/utils.py:111-117)."""
+    array = np.asarray(array)
+    n_t = array.shape[0] - (time_window - 1)
+    idx = np.arange(time_window)[None, :] + np.arange(n_t)[:, None]
+    return array[idx]
 
 
 def spatiotemporal_to_spatial_samples(array, time_window):
@@ -214,42 +263,111 @@ class Timing:
             print(self.sep)
 
 
-def plot_history(history, path=None):
-    """Plot a training history ({'loss': [...], 'val_loss': [...], ...}) as
-    a grid of one graph a metric, each with its train and validation
-    curves, and save it to `path` when given; returns (figure, axes). The
-    learning curve of `save_results`: the default drawing of
-    dl4ds_tpu/utils.py:337 (whose options the port does not take)."""
+def plot_history(history, style='-', side=5, graphs_per_row=4,
+                 customization_callback=None, path=None, single_graphs=False,
+                 max_epochs='max', monitor=None, monitor_mode='max',
+                 log_scale_metrics=False, title=None):
+    """Plot training histories as a per-metric grid, a copy of
+    dl4ds_tpu/utils.py:337 (reference: dl4ds/utils.py:409-672).
+
+    `history` is a dict of lists (e.g. {'loss': [...], 'val_loss': [...]})
+    or a list of such dicts (multiple runs overlaid); `monitor`/
+    `monitor_mode` mark the best epoch of that metric; `max_epochs`
+    ('max' | 'min' | int) windows the x-axis across runs; `single_graphs`
+    saves one PNG per metric next to `path`; `customization_callback(axis)`
+    post-styles every axis. A path-looking `style` is taken as `path`.
+    Returns (figure, axes), or with `single_graphs` (figures, axes).
+    """
     import matplotlib
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt
 
+    _img_exts = ('.png', '.jpg', '.jpeg', '.pdf', '.svg', '.tif', '.tiff',
+                 '.eps')
+    if isinstance(style, str) and ('/' in style or os.sep in style
+                                   or style.lower().endswith(_img_exts)):
+        if path is None:
+            path = style
+        style = '-'
+    if monitor_mode not in ('min', 'max'):
+        raise ValueError(f'monitor_mode {monitor_mode!r} is not supported')
+    if max_epochs not in ('min', 'max') and not isinstance(max_epochs, int):
+        raise ValueError(f'max_epochs {max_epochs!r} is not supported')
+    histories = history if isinstance(history, list) else [history]
+    lengths = [len(next(iter(h.values()))) for h in histories if h]
+    if isinstance(max_epochs, int):
+        n_epochs = max_epochs
+    elif max_epochs == 'min':
+        n_epochs = min(lengths) if lengths else 0
+    else:
+        n_epochs = max(lengths) if lengths else 0
+
     metrics = []
-    for k in history:
-        base = k[4:] if k.startswith('val_') else k
-        if base not in metrics:
-            metrics.append(base)
-    n = max(len(metrics), 1)
-    w, h = min(n, 4), math.ceil(n / 4)
-    fig, axes = plt.subplots(h, w, figsize=(5 * w, 5 * h), dpi=150,
-                             constrained_layout=True, squeeze=False)
-    flat_axes = axes.ravel()
-    for metric, axis in zip(metrics, flat_axes):
-        for prefix, key in (('Train', metric), ('Val', f'val_{metric}')):
-            vals = np.asarray(history.get(key, []), dtype=float)
-            if len(vals):
-                axis.plot(vals, '-', label=f'{prefix} last: {vals[-1]:0.4f}')
+    for h in histories:
+        for k in h:
+            base = k[4:] if k.startswith('val_') else k
+            if base not in metrics:
+                metrics.append(base)
+
+    def _draw_metric(axis, metric):
+        for i, h in enumerate(histories):
+            run = f' run {i + 1}' if len(histories) > 1 else ''
+            for prefix, key in (('Train', metric), ('Val', f'val_{metric}')):
+                if key not in h:
+                    continue
+                vals = np.asarray(h[key], dtype=float)[:n_epochs]
+                if not len(vals):
+                    continue
+                axis.plot(vals, style,
+                          label=f'{prefix}{run} last: {vals[-1]:0.4f}')
+                if monitor is not None and key == monitor:
+                    best = (np.argmax(vals) if monitor_mode == 'max'
+                            else np.argmin(vals))
+                    axis.scatter([best], [vals[best]], marker='*', s=90,
+                                 zorder=5,
+                                 label=f'Best {key}: {vals[best]:0.4f} '
+                                       f'(epoch {best + 1})')
         axis.set_xlabel('Epochs')
         axis.set_ylabel(metric.capitalize())
+        if log_scale_metrics:
+            axis.set_yscale('log')
         axis.set_title(metric.capitalize())
         axis.grid(True)
         axis.legend()
-    for axis in flat_axes[len(metrics):]:
-        axis.axis('off')
+        if customization_callback is not None:
+            customization_callback(axis)
+
     if path is not None:
         dirname = os.path.dirname(path)
         if dirname:
             os.makedirs(dirname, exist_ok=True)
+
+    if single_graphs:
+        figs, all_axes = [], []
+        for metric in metrics:
+            fig, axis = plt.subplots(figsize=(side, side), dpi=150,
+                                     constrained_layout=True)
+            _draw_metric(axis, metric)
+            if path is not None:
+                root, ext = os.path.splitext(path)
+                fig.savefig(f'{root}_{metric}{ext or ".png"}')
+            figs.append(fig)
+            all_axes.append(axis)
+        return figs, all_axes
+
+    n = max(len(metrics), 1)
+    w = min(n, graphs_per_row)
+    h = math.ceil(n / graphs_per_row)
+    fig, axes = plt.subplots(h, w, figsize=(side * w, side * h), dpi=150,
+                             constrained_layout=True, squeeze=False)
+    flat_axes = axes.ravel()
+    for metric, axis in zip(metrics, flat_axes):
+        _draw_metric(axis, metric)
+    for axis in flat_axes[len(metrics):]:
+        axis.axis('off')
+    if title is not None:
+        fig.suptitle(title, fontsize=20)
+    if path is not None:
         fig.savefig(path)
     return fig, axes
 
@@ -264,12 +382,21 @@ def plot_ndarray(data, plot_title=None, subplot_titles=None, dpi=100,
     `data`: one 2-D array, a [N, H, W] stack, or a tuple/list of 2-D
     arrays. With `lats`/`lons` (1-D coordinate vectors) the panels are
     drawn on the geographic extent with degree axis labels.
-    Returns the matplotlib figure (a copy of dl4ds_tpu/utils.py:31;
-    matplotlib is imported here only). `interactive=True`, the JAX
-    package's HTML viewer, is `viz.py`'s and not ported.
+    `interactive=True` writes a self-contained interactive HTML viewer
+    (time slider + hover value/lat-lon readout, `viz.interactive_panel`)
+    to `save_fname` (or 'panel.html') and returns its path. Otherwise
+    returns the matplotlib figure (a copy of dl4ds_tpu/utils.py:31;
+    matplotlib is imported here only).
     """
     if interactive:
-        raise not_ported('plot_ndarray(interactive=True) (viz.py)', 11)
+        from .viz import interactive_panel
+        stack = ([np.squeeze(np.asarray(d)) for d in data]
+                 if isinstance(data, (tuple, list)) else data)
+        return interactive_panel(
+            np.stack(stack) if isinstance(stack, list) else stack,
+            lats=lats, lons=lons,
+            save_path=save_fname or 'panel.html',
+            title=plot_title or 'dl4ds_tpu interactive panel')
     import matplotlib
     matplotlib.use('Agg')
     import matplotlib.pyplot as plt

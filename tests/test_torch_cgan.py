@@ -531,8 +531,8 @@ def _parameters(fn):
 
 def test_signature_checks_and_refusals(tmp_path):
     """The JAX trainer's signature (`device`'s default 'cuda' apart), its
-    checks, the bn refusal, the items not ported, and no GPU without
-    device='cpu'."""
+    checks, the bn refusal, the items not ported, `init_weights` reaching
+    the Keras import, and no GPU without device='cpu'."""
     want = [p if p[0] != 'device' else p[:2] + ('cuda',)
             for p in _parameters(dds.CGANTrainer.__init__)]
     assert _parameters(tds.CGANTrainer.__init__) == want
@@ -546,10 +546,12 @@ def test_signature_checks_and_refusals(tmp_path):
                     (dict(predictors_train=np.zeros(1)), TypeError)):
         with pytest.raises(err):
             _trainer(data, **kw)
-    for kw, item in ((dict(mesh=object()), 10), (dict(devices=[0]), 10),
-                     (dict(init_weights='w.h5'), 11)):
+    for kw, item in ((dict(mesh=object()), 10), (dict(devices=[0]), 10)):
         with pytest.raises(NotImplementedError, match=f'item {item}'):
             _trainer(data, **kw)
+    with pytest.raises(ValueError, match='exhausted'):
+        _trainer(data, init_weights=[np.zeros((3, 3, 1, 8), 'f')]
+                 ).setup_model()
     assert _trainer(data, time_window=1).time_window is None
     bn = _trainer(data, generator_params=dict(G_ARGS, normalization='bn'),
                   save_path=str(tmp_path) + '/')

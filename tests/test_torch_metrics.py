@@ -135,8 +135,9 @@ def test_compute_metrics_without_a_path_draws_nothing(fields, monkeypatch,
     assert len(maps) == 3
     out = capsys.readouterr().out
     assert 'SSIM \tmu = ' in out and 'PSNR \tmu = ' in out
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tds.compute_metrics(y, y_hat, projection='robinson', device='cpu')
+    # a projection without a path draws nothing either
+    assert len(tds.compute_metrics(y, y_hat, projection='robinson',
+                                   device='cpu')) == 3
     with pytest.raises(ImportError):
         tds.compute_metrics(y, y_hat, save_path=str(tmp_path),
                             device='cpu')
@@ -187,8 +188,11 @@ def test_compute_prob_metrics_matches_jax(ensemble, tmp_path):
         assert os.path.getsize(port_dir / (f + '.png')) > 0
     assert _summary(port_dir, 'metrics_prob_summary.txt') == _summary(
         jax_dir, 'metrics_prob_summary.txt')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tds.compute_prob_metrics(y, members, projection='robinson')
+    # a projection without a path draws nothing (its maps: test_torch_viz)
+    again = tds.compute_prob_metrics(y, members, projection='robinson',
+                                     seed=2)
+    for g, w, what in zip(again, want, ('crps map', 'ratio', 'rank counts')):
+        _close(g, w, what)
 
 
 def test_plot_ndarray_writes_the_panels(fields, tmp_path):

@@ -333,8 +333,7 @@ def test_terminate_on_nan(data):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(mesh=object()), dict(devices=['cpu']),
-    dict(init_weights='keras.npz')])
+    dict(mesh=object()), dict(devices=['cpu'])])
 def test_unported_training_options_raise(data, kwargs):
     hr = data[0]
     args = dict(REC, data_train=hr, data_val=hr[:6], data_test=hr[:6],
