@@ -322,7 +322,23 @@ Phases, each of which exits non-zero on failure:
      replay of (a)'s graph (CUDA events): its FLOP/s and share of the
      float32 and TF32 peaks. PyTorch's default TF32 settings throughout,
      which the subprocess runs with;
- 22. print the `kernels` JSON line, then, last, the device JSON line. In
+ 22. data parallelism over processes, at the card's count of one: an NCCL
+     process group of one rank (`distributed.initialize`, tcp on
+     127.0.0.1) and `distributed.global_mesh()`; phase 10's flagship
+     (dssim_mae), the same with bn, and phase 7's recresnet_spc trained by
+     `SupervisedTrainer(mesh=mesh)` and without a mesh from one seed (2
+     epochs of 10 steps, 5 for recresnet_spc, cuDNN deterministic), each
+     under torch.profiler with every launch counter at 0 just before: K1,
+     K6, K2-train and K3 counted in the device trace and the wrappers'
+     calls as phases 7 and 10 count them, the same in both runs; fithist,
+     test_loss and every parameter and buffer equal bit for bit (the bn
+     run within rtol 1e-6 if not); one replay of each step traced: the
+     mesh step's device work beyond the plain step's printed by name, which
+     must hold NCCL's kernel (the gradients' average, captured in the
+     graph; at one rank NCCL's sums and extremes run nothing on the
+     device); both replays timed (median of 20, CUDA events) beside the
+     card's name and power limit; the process group destroyed;
+ 23. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -334,7 +350,9 @@ Phases, each of which exits non-zero on failure:
      K2_convlstm_train_recnet_pin, K3_convlstm_bptt_recnet_pin,
      K2_convlstm_train_recconvnet, K3_convlstm_bptt_recconvnet,
      K2_convlstm_train_recdensenet, K3_convlstm_bptt_recdensenet,
-     K1_channel_attention_stream_train) is what the device trace of its
+     K1_channel_attention_stream_train, K1_channel_attention_dp_train,
+     K6_ssim_dp_train, K2_convlstm_train_dp, K3_convlstm_bptt_dp) is what
+     the device trace of its
      phase's run holds, and `wrapper_calls` what its wrapper
      counted (the warm-up calls and the capture: a replay calls no
      wrapper; a CGAN run's eager test loss adds to both); the serving
@@ -7608,6 +7626,265 @@ def _cli_kernel_rows(report):
     return [k1, k6_row, k7]
 
 
+# phase 22: data parallelism over processes at world size 1
+DP_STEPS, DP_REC_STEPS = 10, 5      # steps an epoch of each pair of runs
+DP_REPLAYS = 20                     # replays timed a graph (CUDA events)
+DP_BN_RTOL = 1e-6                   # a bn run that is not bit for bit
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _state_of(tr):
+    """Every parameter and buffer of a trained network, on the CPU."""
+    return {n: t.detach().cpu() for n, t in
+            list(tr.train_net.named_parameters())
+            + list(tr.train_net.named_buffers())}
+
+
+def _short_name(name):
+    """A device kernel's name without its return type, template arguments
+    and parameters."""
+    name = re.sub(r'^void ', '', name).replace('(anonymous namespace)::', '')
+    depth, out = 0, []
+    for ch in name:
+        if ch in '<(':
+            if ch == '(' and depth == 0 and out:
+                break
+            depth += 1
+        elif ch in '>)':
+            depth -= 1
+        elif depth == 0:
+            out.append(ch)
+    return ''.join(out).strip() or name
+
+
+def _kernel_names(torch, graph, tr):
+    """{short device kernel name: launches} of one replay of `graph`."""
+    import collections
+    tr._row.zero_()
+    graph.replay()
+    with _device_trace(torch) as prof:
+        tr._row.zero_()
+        graph.replay()
+    return collections.Counter(_short_name(e.name)
+                               for e in _device_kernels(torch, prof))
+
+
+def _dp_pair(torch, tds, mesh, config, label, steps, per_step, rtol=0.0):
+    """The same run without a mesh and with `mesh` (NCCL, world size 1),
+    from one seed, each traced with every launch counter at 0 just before
+    (`_traced_run`) and its launches held against `per_step`: fithist,
+    test_loss and every parameter and buffer must be equal bit for bit,
+    or, with `rtol`, within it (the max |d| printed either way); then the
+    collective's device work (the kernels one replay of the mesh step
+    runs beyond the plain step's) and both replays' times."""
+    import numpy as np
+    runs = {}
+    for name, m in (('plain', None), ('mesh', mesh)):
+        tr = tds.SupervisedTrainer(
+            batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+            steps_per_epoch=steps, validation_steps=TRAIN_VAL_STEPS,
+            test_steps=TRAIN_TEST_STEPS, mesh=m, **config)
+        run_s, calls, kernels = _traced_run(torch, tds, tr)
+        got = _check_launches(
+            tds, tr.runner, f'phase 22 ({label}, {name})', per_step,
+            {'step': TRAIN_EPOCHS * steps,
+             'val': TRAIN_EPOCHS * TRAIN_VAL_STEPS,
+             'test': TRAIN_TEST_STEPS}, calls, kernels)
+        runs[name] = dict(tr=tr, launches=got, calls=calls, run_s=run_s)
+    plain, dp = runs['plain']['tr'], runs['mesh']['tr']
+    if dp.n_data_shards != 1 or dp.data_group is None:
+        fail(f'phase 22 ({label}): the mesh trainer has no data group of '
+             f'one rank')
+    if runs['plain']['launches'] != runs['mesh']['launches']:
+        fail(f'phase 22 ({label}): the mesh run launched '
+             f'{runs["mesh"]["launches"]}, the plain run '
+             f'{runs["plain"]["launches"]}')
+    losses = {'fithist': (plain.fithist['loss'] + plain.fithist['val_loss'],
+                          dp.fithist['loss'] + dp.fithist['val_loss']),
+              'test_loss': ([plain.test_loss], [dp.test_loss])}
+    if not all(np.isfinite(v) for v in losses['fithist'][1]):
+        fail(f'phase 22 ({label}): non-finite losses {dp.fithist}')
+    a, b = _state_of(plain), _state_of(dp)
+    diffs = {k: max(abs(x - y) for x, y in zip(*v))
+             for k, v in losses.items()}
+    diffs['parameters and buffers'] = _max_diff(list(a.values()),
+                                                list(b.values()))
+    rel = max((a[n].double() - b[n].double()).abs().max().item()
+              / max(a[n].double().abs().max().item(), 1e-30) for n in a)
+    rel = max([rel] + [abs(x - y) / abs(x) for v in losses.values()
+                       for x, y in zip(*v)])
+    exact = all(d == 0 for d in diffs.values())
+    print(f'phase 22 ({label}): mesh vs plain, {TRAIN_EPOCHS} epochs of '
+          f'{steps} steps at batch {TRAIN_BATCH}: max|d| {diffs} '
+          f'(max relative {rel:.3e}; '
+          + ('bit for bit' if exact else f'within rtol {rtol} required')
+          + f'); histories {dp.fithist}, test loss {dp.test_loss}',
+          flush=True)
+    if not (exact or rel <= rtol):
+        fail(f'phase 22 ({label}): the mesh run differs from the plain run: '
+             f'max|d| {diffs}, relative {rel:.3e}')
+    names = {k: _kernel_names(torch, runs[k]['tr'].runner.graphs['step'],
+                              runs[k]['tr']) for k in runs}
+    extra = names['mesh'] - names['plain']
+    # NCCL's kernels; its one-rank kernel comes mangled
+    # (`..._onerank_cu_..._oneRankReduceI13FuncPreMulSumIfEE...`)
+    nccl = {k: n for k, n in extra.items()
+            if 'nccl' in k.lower() or 'onerank' in k.lower()}
+    if not nccl:
+        fail(f'phase 22 ({label}): one replay of the mesh step runs no NCCL '
+             f'kernel (its device work beyond the plain step\'s: '
+             f'{dict(extra)}): the gradients\' all-reduce is not in the '
+             f'graph')
+    replay_ms = {}
+    for k, run in runs.items():
+        graph, tr = run['tr'].runner.graphs['step'], run['tr']
+
+        def replay(graph=graph, tr=tr):
+            tr._row.zero_()
+            graph.replay()
+        replay_ms[k] = statistics.median(device_times(torch, replay,
+                                                      reps=DP_REPLAYS))
+    print(f'phase 22 ({label}): NCCL\'s kernels in one replay of the mesh '
+          f'step {nccl} (by name: launches a replay; at one rank the '
+          f'gradients\' average is NCCL\'s one-rank kernel and the sums '
+          f'and extremes are no-ops on the device); all its device work '
+          f'beyond the plain step\'s {dict(extra)}; one replay '
+          f'{replay_ms["mesh"]:.3f} ms with the mesh, '
+          f'{replay_ms["plain"]:.3f} ms without (median of {DP_REPLAYS}, '
+          f'CUDA events); {card_line()}', flush=True)
+    return dict(label=label, steps=steps, launches=runs['mesh']['launches'],
+                wrapper_calls=runs['mesh']['calls'],
+                plain_launches=runs['plain']['launches'],
+                max_abs_diff=diffs, max_rel_diff=rel, bit_for_bit=exact,
+                nccl_kernels=nccl, extra_kernels=dict(extra),
+                replay_ms=replay_ms,
+                run_s={k: v['run_s'] for k, v in runs.items()},
+                card=card_line())
+
+
+def phase_data_parallel(torch, tds, report):
+    """Phase 22: SupervisedTrainer(mesh=) over an NCCL process group of one
+    rank (the card's count), against the same runs without a mesh: the
+    flagship with dssim_mae (K1, K6 both ways), a bn flagship and
+    recresnet_spc (K2-train, K3)."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    dev = tds.distributed.initialize(f'127.0.0.1:{_free_port()}', 1, 0,
+                                     device='cuda', timeout=300)
+    if torch.distributed.get_backend() != 'nccl':
+        fail(f'phase 22: the process group runs '
+             f'{torch.distributed.get_backend()}, not NCCL')
+    mesh = tds.distributed.global_mesh()
+    print(f'phase 22: process group {torch.distributed.get_backend()} on '
+          f'{dev}, mesh {mesh}', flush=True)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    per_forward = report['flag_k1_per_forward']
+    rows = []
+    try:
+        flag = _training_config(loss=FLAG_LOSS, n_filters=N_FILTERS,
+                                n_blocks=N_BLOCKS, attention=True)
+        rows.append(_dp_pair(torch, tds, mesh, flag, f'flagship, {FLAG_LOSS}',
+                             DP_STEPS, _flagship_per_step(per_forward)))
+        rows.append(_dp_pair(
+            torch, tds, mesh, dict(flag, normalization='bn'),
+            f'bn flagship, {FLAG_LOSS}', DP_STEPS,
+            _flagship_per_step(per_forward), rtol=DP_BN_RTOL))
+        rec = _training_config(loss='mae', time_window=REC_T,
+                               n_blocks=REC_BLOCKS, n_filters=N_FILTERS)
+        rows.append(_dp_pair(torch, tds, mesh, rec,
+                             f'recresnet_spc n_filters {N_FILTERS}',
+                             DP_REC_STEPS, _recurrent_per_step(conv,
+                                                               K3_LAYERS)))
+        busy = [name for name, t in fo._COUNTERS.items()
+                if int(t.count_nonzero()) != 0]
+        if busy:
+            fail(f'phase 22: arrival counters {busy} not left at 0')
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+        torch.distributed.destroy_process_group()
+    if torch.distributed.is_initialized():
+        fail('phase 22: the process group outlived the phase')
+    report['dp'] = rows
+
+
+def _dp_kernel_rows(report):
+    """The `kernels` line's rows of phase 22: the mesh runs' launches from
+    their device traces; the kernels' times and errors those of the same
+    shapes in phases 6, 9 and 10 (the path runs them unchanged)."""
+    flag, _, rec = report['dp']
+    gates, k6 = report['k1_train_rows'], report['k6_rows'][0]
+    step, k3_rows = report['k3_step'], report['k3_rows']
+    common = dict(route='cuda', library_ms=None)
+    k1 = dict(common, name='K1_channel_attention_dp_train',
+              source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39',
+              launches=flag['launches']['K1'],
+              wrapper_calls=flag['wrapper_calls']['K1'],
+              max_abs_err=max(r['max_abs_err'] for r in gates),
+              ms=sum(r['ms'] for r in gates),
+              plain_ms=sum(r['plain_ms'] for r in gates),
+              bound_ms=sum(r['bound_ms'] for r in gates), bound_by='bytes',
+              bwd_ms=sum(r['bwd_ms'] for r in gates),
+              bwd_bound_ms=sum(r['bwd_bound_ms'] for r in gates),
+              bwd_plain_ms=sum(r['bwd_plain_ms'] for r in gates),
+              bwd_launches=flag['launches']['K1 backward'],
+              bwd_wrapper_calls=flag['wrapper_calls']['K1 backward'],
+              work=f'the gates of one flagship training step at batch '
+                   f'{TRAIN_BATCH} under SupervisedTrainer(mesh=) at world '
+                   f'size 1, NCCL (phase 10\'s shapes and times)')
+    k6_row = dict(common, name='K6_ssim_dp_train',
+                  source='dl4ds_tpu_torch/csrc/ssim.cu',
+                  replaces='dl4ds_tpu/ops/pallas_ops.py:145',
+                  launches=flag['launches']['K6'],
+                  wrapper_calls=flag['wrapper_calls']['K6'],
+                  max_abs_err=k6['max_abs_err'], ms=k6['ms'],
+                  plain_ms=k6['plain_ms'], bound_ms=k6['bound_ms'],
+                  bound_by=k6['bound_by'], bwd_ms=k6['bwd_ms'],
+                  bwd_bound_ms=k6['bwd_bound_ms'],
+                  bwd_plain_ms=k6['bwd_plain_ms'],
+                  bwd_launches=flag['launches']['K6 backward'],
+                  bwd_wrapper_calls=flag['wrapper_calls']['K6 backward'],
+                  work=f'the {FLAG_LOSS} loss of the flagship under the '
+                       f'mesh, its range over the global batch (phase 9\'s '
+                       f'shape and times)')
+    rec_work = (f'recresnet_spc under SupervisedTrainer(mesh=) at world '
+                f'size 1 (phase 7\'s layers, batch {TRAIN_BATCH}, T {REC_T}; '
+                f'phase 6\'s times)')
+    k2 = dict(common, name='K2_convlstm_train_dp',
+              source='dl4ds_tpu_torch/csrc/convlstm.cu',
+              replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+              launches=rec['launches']['K2-train'],
+              wrapper_calls=rec['wrapper_calls']['K2-train'],
+              max_abs_err=max(max(r['ys_cs_zs_err'][:2]) for r in k3_rows
+                              if 'ys_cs_zs_err' in r),
+              ms=sum(r['k2_ms'] for r in step),
+              plain_ms=sum(r['k2_plain_ms'] for r in step),
+              bound_ms=sum(r['k2_bound_ms'] for r in step),
+              bound_by='operations', work=rec_work)
+    k3 = dict(common, name='K3_convlstm_bptt_dp',
+              source='dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+              replaces='dl4ds_tpu/ops/pallas_convlstm.py:335',
+              launches=rec['launches']['K3'],
+              wrapper_calls=rec['wrapper_calls']['K3'],
+              max_abs_err=max(max(v for k, v in r['grad_rel_err'].items()
+                                  if k != 'plain_f32') for r in k3_rows),
+              ms=sum(r['k3_ms'] for r in step),
+              plain_ms=sum(r['k3_plain_ms'] for r in step),
+              bound_ms=sum(r['k3_bound_ms'] for r in step),
+              bound_by='operations', work=rec_work)
+    return [k1, k6_row, k2, k3]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7644,7 +7921,8 @@ def main():
               (12, phase_bf16), (13, phase_mos), (14, phase_pin),
               (15, phase_state), (16, phase_cgan), (17, phase_zoo_stream),
               (18, phase_parallel), (19, phase_serving),
-              (20, phase_quantization), (21, phase_cli))
+              (20, phase_quantization), (21, phase_cli),
+              (22, phase_data_parallel))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -7816,7 +8094,7 @@ def main():
                + _cgan_kernel_rows(report) + _zoo_stream_kernel_rows(report)
                + _parallel_kernel_rows(report)
                + _serving_kernel_rows(report) + _quant_kernel_rows(report)
-               + _cli_kernel_rows(report))
+               + _cli_kernel_rows(report) + _dp_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -7831,7 +8109,8 @@ def main():
                       if not k.startswith(('k1_', 'k2_', 'k3_', 'k4_',
                                            'k6_rows', 'graph_rows',
                                            'bf16_k', 'tiled_k', 'member_',
-                                           'artifact_k', 'k7_', 'cli'))}),
+                                           'artifact_k', 'k7_', 'cli',
+                                           'dp'))}),
           flush=True)
     print(json.dumps({'phase18_shapes': {k: report[k] for k in (
         'tiled_k1_rows', 'tiled_k2_rows', 'member_rows')}}), flush=True)
@@ -7841,8 +8120,9 @@ def main():
     print(json.dumps({'phase20_shapes': {k: report[k] for k in (
         'k7_rows', 'k7_extra_rows')}}), flush=True)
     print(json.dumps({'phase21': report['cli']}), flush=True)
+    print(json.dumps({'phase22': report['dp']}), flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
-          f'kernel build to the end of phase 21; phase seconds '
+          f'kernel build to the end of phase 22; phase seconds '
           f'{ {k: round(v, 1) for k, v in report["phase_seconds"].items()} }',
           flush=True)
     print(card, flush=True)

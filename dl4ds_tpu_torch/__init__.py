@@ -39,7 +39,9 @@ the JAX app's flag files; reference Keras checkpoints load with
 `import_keras_weights` (`init_weights=` in the trainers); `viz` draws the
 interactive and projected maps; `ops.flops.count_flops` counts a call's
 matmul and convolution FLOPs, the hand-written kernels' included, alike
-on the CPU and the card.
+on the CPU and the card. `SupervisedTrainer(mesh=distributed.global_mesh())`
+trains data-parallel over processes, one a device (`torchrun
+--nproc_per_node=N`; NCCL on the GPU, gloo only with device='cpu').
 """
 
 __version__ = "0.1.0"
@@ -123,3 +125,4 @@ from .metrics import (compute_rmse, compute_correlation, compute_metrics,
                       compute_prob_metrics)
 from . import compat
 from .compat import import_keras_weights
+from . import distributed

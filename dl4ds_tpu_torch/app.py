@@ -25,9 +25,16 @@ inference_data, inference_scaler, inference_predictors, gt_holdout_dataset,
 gt_mask — the same contract as the reference (dl4ds/app.py:111-116,
 :177-186, :262-270, :294-297).
 
-`--mesh_shape` (multi-GPU training) is not ported and raises
-NotImplementedError naming its ROADMAP item. The metrics phase draws its
-maps with matplotlib (`--nometrics` skips it).
+`--mesh_shape=data=N` trains the supervised model data-parallel over N
+processes, one a device, launched together:
+    torchrun --nproc_per_node=N -m dl4ds_tpu_torch.app --flagfile=F \
+        --mesh_shape=data=N
+N must be the launcher's world size; the app opens the process group
+(`distributed.initialize`: NCCL on the GPU, gloo with --device=CPU) and
+passes `distributed.global_mesh()` to the trainer. A 'model' or 'space'
+axis, and a mesh for the CGAN trainer, raise NotImplementedError naming
+their ROADMAP item. The metrics phase draws its maps with matplotlib
+(`--nometrics` skips it).
 """
 
 import importlib.util
@@ -153,8 +160,8 @@ FLAG_DEFS = [
      'serving use the averaged weights; CGAN: the averaged generator is '
      'evaluated and served'),
     ('mesh_shape', 'string', None, None,
-     "Device mesh as 'axis=N[,axis=M]' (multi-GPU training: not ported, "
-     'ROADMAP item 10)'),
+     "Device mesh as 'data=N': data parallel over the N processes of a "
+     "torchrun launch (other axes: not ported, ROADMAP item 10)"),
     # INFERENCE/TEST
     ('inference_array_in_hr', 'bool', False, None,
      'Whether the inference array is in high resolution'),
@@ -317,14 +324,43 @@ def _load_data_module(path):
     return module
 
 
+def _parse_mesh_shape(spec, device):
+    """'data=N' -> `distributed.global_mesh()` over the N processes of the
+    launch, the process group opened first if it is not open (None ->
+    None, one process)."""
+    if not spec:
+        return None
+    sizes = {}
+    for part in spec.split(','):
+        try:
+            name, size = part.split('=')
+            sizes[name.strip()] = int(size)
+        except ValueError:
+            raise ValueError(f"--mesh_shape must look like 'data=4'; got "
+                             f'{spec!r}') from None
+    other = sorted(set(sizes) - {'data'})
+    if other:
+        raise not_ported(f'--mesh_shape axes {other} (tensor or spatial '
+                         f'parallelism)', 10, 4)
+    opened = torch.distributed.is_initialized()
+    world = (torch.distributed.get_world_size() if opened
+             else int(os.environ.get('WORLD_SIZE', 1)))
+    if sizes['data'] != world:
+        raise ValueError(
+            f'--mesh_shape={spec} needs {sizes["data"]} processes; this '
+            f'launch has {world} (torchrun --nproc_per_node=N)')
+    if not opened:
+        tds.distributed.initialize(device=device)
+    return tds.distributed.global_mesh()
+
+
 def dl4ds(flags):
     """The app's body on parsed flags (reference: dl4ds/app.py:94-299;
     dl4ds_tpu/app.py:230-511): load the data module, train, load a saved
     model, export a serving artifact, run the test and metrics phases.
     Returns the trainer, the loaded (model, net) pair, or None."""
-    if flags.mesh_shape:
-        raise not_ported('--mesh_shape (multi-GPU training)', 10)
     device = 'cuda' if flags.device == 'GPU' else 'cpu'
+    mesh = _parse_mesh_shape(flags.mesh_shape, device)
     print('<' * 37, 'DL4DS-TPU', '>' * 36, '\n')
 
     if flags.debug:
@@ -404,7 +440,7 @@ def dl4ds(flags):
                 warmup_steps=flags.warmup_steps,
                 ema_decay=flags.ema_decay,
                 init_weights=flags.init_keras_npz,
-                mesh=None,
+                mesh=mesh,
                 dtype=(torch.bfloat16 if flags.dtype == 'bfloat16'
                        else torch.float32),
                 **architecture_params)
@@ -449,7 +485,7 @@ def dl4ds(flags):
                 warmup_steps=flags.warmup_steps,
                 ema_decay=flags.ema_decay,
                 init_weights=flags.init_keras_npz,
-                mesh=None)
+                mesh=mesh)
         trainer.run()
 
     y_hat = None

@@ -129,16 +129,23 @@ class BatchSynthesizer:
     `lr_pre` [n, Y, X, c] on the device (dl4ds_tpu/dataloader.py:545-556),
     and patches are cropped from it and from the HR grids at the same HR
     offsets; `patch_size` need not divide by `scale`.
+
+    `shard` = (rank, ranks) makes this a data-parallel rank's synthesizer,
+    the counterpart of the JAX batch-axis sharding: `batch_size` is the
+    global batch, every rank draws the same global `plan` from the same
+    generator, and rank r builds its batches from columns [r*b, (r+1)*b)
+    of each row, b = batch_size // ranks (`local_part`, `plan_buffers`).
     """
 
     def __init__(self, array, array_lr, upsampling, scale, batch_size,
                  patch_size=None, time_window=None, static_vars=None,
                  predictors=None, interpolation='inter_area',
-                 season_ids=None, device='cuda'):
+                 season_ids=None, device='cuda', shard=None):
         array = np.asarray(_values(array), 'float32')
         if array.ndim != 4:
             raise ValueError('`array` must be [n, y, x, c]')
         self.device = resolve_device(device)
+        self.shard, self.local_batch_size = _check_shard(shard, batch_size)
         self.upsampling = upsampling
         self.is_postups = upsampling in POSTUPSAMPLING_METHODS
         self.scale = int(scale)
@@ -276,12 +283,22 @@ class BatchSynthesizer:
         return plan
 
     def plan_buffers(self, steps):
-        """Zeroed device buffers for `steps` rows of a plan (a valid plan:
-        sample 0 at offset 0), like `plan`'s."""
+        """Zeroed device buffers for `steps` rows of this rank's part of a
+        plan (a valid plan: sample 0 at offset 0)."""
         keys = ('idx',) + (('ys', 'xs') if self.patch_size is not None
                            else ())
-        return {k: torch.zeros((steps, self.batch_size), dtype=torch.long,
-                               device=self.device) for k in keys}
+        return {k: torch.zeros((steps, self.local_batch_size),
+                               dtype=torch.long, device=self.device)
+                for k in keys}
+
+    def local_part(self, plan):
+        """This rank's columns of a global plan (`plan`'s); the plan itself
+        without `shard`."""
+        rank, _ = self.shard
+        b = self.local_batch_size
+        if b == self.batch_size:
+            return plan
+        return {k: v[:, rank * b:(rank + 1) * b] for k, v in plan.items()}
 
     def step_batch(self, plan, row):
         """The batch of row `row` (a one-element long tensor on the device)
@@ -421,6 +438,19 @@ class BatchSynthesizer:
                                           device=idx.device)[None, :]
         return data.index_select(0, win.reshape(-1)).reshape(
             idx.shape[0], self.time_window, *data.shape[1:])
+
+
+def _check_shard(shard, batch_size):
+    """(shard, local batch size) of a synthesizer's `shard` argument:
+    (rank, ranks), the global batch an even multiple of the ranks."""
+    if shard is None:
+        return (0, 1), int(batch_size)
+    rank, ranks = (int(v) for v in shard)
+    if not 0 <= rank < ranks or batch_size % ranks:
+        raise ValueError(f'`shard` must be (rank, ranks) with 0 <= rank < '
+                         f'ranks dividing batch_size={batch_size}; got '
+                         f'{shard}')
+    return (rank, ranks), int(batch_size) // ranks
 
 
 def _to_device(t, device):
@@ -870,13 +900,18 @@ class HostStreamer:
     'static', 'sid': the present ones), which `build` turns into the
     batch dict; `epochs` yields the dicts. A trainer copies the raw
     tensors into the input buffers of a captured step (`plan_buffers`,
-    `step_batch`, as a `BatchSynthesizer`'s plan)."""
+    `step_batch`, as a `BatchSynthesizer`'s plan). With `shard` = (rank,
+    ranks) every rank streams the same global batches (`batch_size` wide,
+    from the same `seed`), and rank r copies rows [r*b, (r+1)*b) of each,
+    b = batch_size // ranks, into buffers of its width (`local_part`,
+    `plan_buffers`)."""
 
     def __init__(self, array, upsampling, scale, batch_size, patch_size=None,
                  time_window=None, interpolation='inter_area', prefetch=2,
                  seed=0, array_lr=None, static_vars=None, predictors=None,
-                 season_ids=None, device='cuda'):
+                 season_ids=None, device='cuda', shard=None):
         self.device = resolve_device(device)
+        self.shard, self.local_batch_size = _check_shard(shard, batch_size)
         self.array = np.ascontiguousarray(_values(array), 'float32')
         if self.array.ndim != 4:
             raise ValueError('`array` must be [n, y, x, c]')
@@ -1076,11 +1111,21 @@ class HostStreamer:
         return {'lr': lr, 'hr': hr, 'aux': aux}
 
     def plan_buffers(self, steps=None):
-        """Zeroed device tensors of a batch's raw inputs (a valid batch),
-        the input buffers of a captured step; `steps` is ignored, one batch
-        at a time streams through them."""
-        return {k: torch.zeros(shape, dtype=dtype, device=self.device)
+        """Zeroed device tensors of this rank's part of a batch's raw
+        inputs (a valid batch), the input buffers of a captured step;
+        `steps` is ignored, one batch at a time streams through them."""
+        return {k: torch.zeros((self.local_batch_size,) + shape[1:],
+                               dtype=dtype, device=self.device)
                 for k, (shape, dtype) in self._raw_shapes().items()}
+
+    def local_part(self, raw):
+        """This rank's rows of a streamed global batch (`stream`'s); the
+        batch itself without `shard`."""
+        rank, _ = self.shard
+        b = self.local_batch_size
+        if b == self.batch_size:
+            return raw
+        return {k: v[rank * b:(rank + 1) * b] for k, v in raw.items()}
 
     def step_batch(self, plan, row=None):
         """The batch of the raw tensors in `plan` (`plan_buffers`)."""

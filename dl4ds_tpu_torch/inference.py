@@ -265,9 +265,10 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
         raise ValueError('pass either spatial_mesh (one grid sharded over '
                          'its height) or mesh (samples sharded over the '
                          'batch), not both')
-    for value, what in ((mesh, 'mesh'), (spatial_mesh, 'spatial_mesh')):
+    for value, what, part in ((mesh, 'mesh', 3),
+                              (spatial_mesh, 'spatial_mesh', 4)):
         if value is not None:
-            raise not_ported(f'predict({what}=...)', 10)
+            raise not_ported(f'predict({what}=...)', 10, part)
     if tile is not None and pad_to_multiple is not None:
         raise ValueError('`pad_to_multiple` is redundant with tiled '
                          'inference (every window already has one shape)')

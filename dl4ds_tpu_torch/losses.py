@@ -12,10 +12,17 @@ kernel K6 on the GPU (`ops.fused_ssim_per_image`); MS-DSSIM runs the plain
 formulation (`ops.ssim.ssim_multiscale`) on every device, as the JAX package
 runs XLA there. Inputs are computed in float32, as in the JAX package, or
 in float64 where they are float64 (a reference run).
+
+Within `distributed.batch_group(group)` (a data-parallel trainer's steps)
+the range and the shifts are the global batch's, the extremes taken over
+every rank's local batch, as the JAX trainer takes them over its sharded
+batch; each rank's loss is then its share of the global loss, whose mean
+over the ranks it is.
 """
 
 import torch
 
+from .distributed import current_batch_group, global_amax, global_amin
 from .ops.fused_ops import fused_ssim_per_image
 from .ops.ssim import _as_float, ssim_multiscale
 
@@ -34,16 +41,26 @@ def mse(y_true, y_pred):
     return torch.mean(d * d)
 
 
+def _amax(a):
+    group = current_batch_group()
+    return torch.amax(a) if group is None else global_amax(a, group)
+
+
+def _amin(a):
+    group = current_batch_group()
+    return torch.amin(a) if group is None else global_amin(a, group)
+
+
 def _shift_nonneg(a):
-    m = torch.amin(a)
+    m = _amin(a)
     return torch.where(m < 0, a - m, a)
 
 
 def _drange(y_true, y_pred):
     """max - min over both arrays; amax/amin share the gradient evenly among
     ties, and maximum/minimum between two equal extremes, as JAX does."""
-    maxv = torch.maximum(torch.amax(y_true), torch.amax(y_pred))
-    minv = torch.minimum(torch.amin(y_true), torch.amin(y_pred))
+    maxv = torch.maximum(_amax(y_true), _amax(y_pred))
+    minv = torch.minimum(_amin(y_true), _amin(y_pred))
     return maxv - minv
 
 

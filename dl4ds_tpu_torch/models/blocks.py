@@ -52,6 +52,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import all_reduce_sum, current_batch_group
 from ..interpolation import resize2d
 from ..ops import depth_to_space, fused_channel_attention, fused_convlstm
 from ..utils import checkarg_dropout_variant, not_ported
@@ -340,6 +341,19 @@ def _moments(x, dims, keepdim=False):
     return mean, var.clamp_min(0.0)
 
 
+def _global_moments(x, dims, group):
+    """`_moments` over the global batch of a data mesh, as Flax's take
+    them over a batch sharded by GSPMD: each rank's mean and E[x^2] over
+    its local batch (the ranks' batches are equally large), averaged over
+    the ranks by one all-reduce that the gradient flows back through, then
+    E[x^2] - mean^2 clipped at 0. At one rank the bits are `_moments`'."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    local = torch.stack([xf.mean(dims), (xf * xf).mean(dims)])
+    both = all_reduce_sum(local, group) / group.size()
+    mean, sq = both[0], both[1]
+    return mean, (sq - mean * mean).clamp_min(0.0)
+
+
 class _NormBase(nn.Module):
     """Scale and bias over the channel axis, as Flax's `_normalize` applies
     them: (x - mean) * (rsqrt(var + eps) * scale) + bias in float32 at
@@ -370,7 +384,10 @@ class BatchNorm(_NormBase):
     buffers `mean` and `var` (the `batch_stats` collection), by
     ra = 0.99 * ra + 0.01 * stat with the biased batch variance, as Flax
     does (PyTorch's BatchNorm takes the unbiased one); eval mode
-    normalizes with the running statistics."""
+    normalizes with the running statistics. Within
+    `distributed.batch_group(group)` train mode takes the statistics of
+    the global batch, the ranks' local batches together
+    (`_global_moments`)."""
 
     def __init__(self, channels, dtype=torch.float32):
         super().__init__(channels, 1e-3, dtype)
@@ -385,7 +402,10 @@ class BatchNorm(_NormBase):
     def forward(self, x):
         if not self.training:
             return self._normalize(x, self.mean, self.var)
-        mean, var = _moments(x, tuple(range(x.dim() - 1)))
+        dims = tuple(range(x.dim() - 1))
+        group = current_batch_group()
+        mean, var = (_moments(x, dims) if group is None
+                     else _global_moments(x, dims, group))
         if _updates_running_stats():
             with torch.no_grad():
                 self.mean.copy_(self.mean * 0.99 + mean * (1 - 0.99))

@@ -91,7 +91,7 @@ def predict_tiled(model, net, x, aux=None, tile=128, halo=32, batch_size=8,
     multiple of it (dl4ds_tpu/parallel.py:166-200). `mesh` (item 10)
     raises."""
     if mesh is not None:
-        raise not_ported('predict_tiled(mesh=...)', 10)
+        raise not_ported('predict_tiled(mesh=...)', 10, 3)
     dev = _net_device(net)
     x = _on(x, dev)
     b = x.shape[0]
@@ -186,7 +186,8 @@ EnsembleStep = collections.namedtuple(
 def _check_ensemble_model(model, what):
     if len(model.input_shape) == 4:
         raise not_ported(f'{what} of a spatio-temporal model (the ConvLSTM '
-                         f'kernels K2-K4 under vmap, a member mode each)', 10)
+                         f'kernels K2-K4 under vmap, a member mode each)', 10,
+                         2)
 
 
 def _base_net(model, dev):
@@ -216,7 +217,7 @@ def init_ensemble(model, n_members, seed=0, mesh=None,
     norm raises, as in the JAX package; `mesh` and spatio-temporal models
     raise naming ROADMAP item 10."""
     if mesh is not None:
-        raise not_ported('init_ensemble(mesh=...)', 10)
+        raise not_ported('init_ensemble(mesh=...)', 10, 3)
     _check_ensemble_model(model, 'init_ensemble')
     if (model.config or {}).get('normalization') == 'bn':
         raise ValueError('ensemble training supports parameter-only models '
@@ -261,7 +262,7 @@ def make_ensemble_step(model, mesh=None, tx=None, loss='mae',
     drawn on the device from it, and the dropout draws come from it under
     vmap's randomness='different'. `mesh` raises naming ROADMAP item 10."""
     if mesh is not None:
-        raise not_ported('make_ensemble_step(mesh=...)', 10)
+        raise not_ported('make_ensemble_step(mesh=...)', 10, 3)
     _check_ensemble_model(model, 'make_ensemble_step')
     lossf = checkarg_loss(loss)
     tx = _adam if tx is None else tx
@@ -331,7 +332,7 @@ def predict_ensemble(model, stacked_variables, x, aux=None, mesh=None,
     `metrics.crps_ensemble` and `metrics.compute_prob_metrics`. `mesh`
     raises naming ROADMAP item 10."""
     if mesh is not None:
-        raise not_ported('predict_ensemble(mesh=...)', 10)
+        raise not_ported('predict_ensemble(mesh=...)', 10, 3)
     _check_ensemble_model(model, 'predict_ensemble')
     dev, dtype = _stack_where(stacked_variables)
     x = _on(x, dev, dtype)

@@ -1,10 +1,15 @@
 """
 Base training class (the counterpart of `dl4ds_tpu/training/base.py`).
 
-One device, no mesh: `device` defaults to CUDA and device='cpu' must be
-asked for. The class ports the input validation, the scale checks, the
-channel bookkeeping, the grid sizes, the loss lookup, the scalar log, the
-profiler and the saving of results; meshes raise until they are ported.
+One process drives one device: `device` defaults to CUDA and device='cpu'
+must be asked for. Data parallelism runs one such process a device: a
+`mesh` (`distributed.global_mesh()`, a `DeviceMesh` whose one dim 'data'
+spans the process group) makes the batch a rank's slice of a global batch
+`batch_size * n_data_shards` wide, and gates the printing and the files on
+the first worker (dl4ds_tpu/training/base.py:98-145). The class ports the
+input validation, the scale checks, the channel bookkeeping, the grid
+sizes, the loss lookup, the scalar log, the profiler and the saving of
+results.
 """
 
 import json
@@ -27,11 +32,17 @@ CHECKPOINT_FILE = 'checkpoint.pt'
 
 
 class Trainer(ABC):
-    """Common training scaffolding: input validation, device, loss
-    resolution, scale checks, logs, profiler and saving
+    """Common training scaffolding: input validation, device, data mesh,
+    loss resolution, scale checks, logs, profiler and saving
     (dl4ds_tpu/training/base.py:48-341). `use_multiprocessing`,
     `model_list`, `show_plot` and `gpu_memory_growth` are accepted for the
-    JAX package's signature and do nothing."""
+    JAX package's signature and do nothing.
+
+    `devices=[d]` selects `d`, as `device=d` does; a longer list raises,
+    since one process drives one device here (launch one process a device
+    and pass `mesh`). `mesh` is a `DeviceMesh` with the one dim 'data' and
+    the trainer's device type; a 'model' or 'space' dim (tensor or spatial
+    parallelism) is not ported."""
 
     def __init__(self, backbone, upsampling, data_train, data_train_lr=None,
                  time_window=None, loss='mae', batch_size=64, patch_size=None,
@@ -39,8 +50,15 @@ class Trainer(ABC):
                  verbose=True, model_list=None, save=False, save_path=None,
                  show_plot=False, mesh=None, devices=None,
                  gpu_memory_growth=None):
-        if mesh is not None or devices is not None:
-            raise not_ported('`mesh` and `devices` (multi-GPU training)', 10)
+        if devices is not None:
+            devices = list(devices)
+            if len(devices) != 1:
+                raise ValueError(
+                    f'`devices` lists {len(devices)} devices, but a process '
+                    f'drives one: launch one process a device (torchrun '
+                    f'--nproc_per_node=N) and pass '
+                    f'mesh=distributed.global_mesh()')
+            device = devices[0]
         self.data_train = self._as_array(data_train, 'data_train')
         if not self.data_train.ndim > 3:
             raise ValueError(
@@ -63,13 +81,13 @@ class Trainer(ABC):
         self.model_is_spatiotemporal = (time_window is not None
                                         and time_window > 1)
         self.batch_size = batch_size
-        # one device: the global batch is the batch
-        self.global_batch_size = batch_size
         self.patch_size = patch_size
         self.loss = loss
         self.scale = scale
         self.device = resolve_device(device)
-        self.verbose = verbose
+        self._setup_mesh(mesh)
+        # the first worker prints (dl4ds_tpu/training/base.py:124-133)
+        self.verbose = verbose if self.running_on_first_worker else False
         self.save = save
         self.save_path = save_path or './'
         if not self.save_path.endswith('/'):
@@ -104,6 +122,55 @@ class Trainer(ABC):
                     '`data_train_lr` grid sizes')
         self.lossf = checkarg_loss(self.loss)
 
+    def _setup_mesh(self, mesh):
+        """The data mesh: the number of ranks, this one, its group and the
+        global batch (dl4ds_tpu/training/base.py:98-133; the batch scales
+        by the data degree, and the first worker does the IO)."""
+        self.mesh = mesh
+        self.data_group = None
+        self.n_devices = self.n_data_shards = 1
+        self.rank = 0
+        if mesh is not None:
+            names = tuple(getattr(mesh, 'mesh_dim_names', None) or ())
+            if not names:
+                raise TypeError('`mesh` must be a DeviceMesh with named dims '
+                                '(distributed.global_mesh())')
+            other = tuple(a for a in names if a != 'data')
+            if other and set(other) <= {'model', 'space'}:
+                raise not_ported(f'a mesh with {other} dims (tensor or '
+                                 f'spatial parallelism)', 10, 4)
+            if other or 'data' not in names:
+                raise ValueError(f"trainer meshes have the one dim 'data'; "
+                                 f'got {names}')
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f'the mesh is over {mesh.device_type!r} devices but the '
+                    f'trainer runs on {str(self.device)!r}')
+            if (self.device.type == 'cuda'
+                    and self.device.index != torch.cuda.current_device()):
+                raise ValueError(
+                    f'this rank drives cuda:{torch.cuda.current_device()} '
+                    f'(distributed.initialize pins it); the trainer was '
+                    f'given {self.device}')
+            self.data_group = mesh.get_group('data')
+            self.n_devices = self.n_data_shards = mesh.size()
+            self.rank = mesh.get_local_rank('data')
+        self.global_batch_size = self.batch_size * self.n_data_shards
+        # first-worker gating (dl4ds_tpu/training/base.py:124-133)
+        self.running_on_first_worker = self.rank == 0
+
+    def _reduce_mean(self, t):
+        """`t` (on the device) averaged over the ranks, in place; unchanged
+        without a mesh."""
+        if self.data_group is not None:
+            torch.distributed.all_reduce(t, group=self.data_group)
+            t.div_(self.n_data_shards)
+        return t
+
+    def _barrier(self):
+        if self.data_group is not None:
+            torch.distributed.barrier(group=self.data_group)
+
     @staticmethod
     def _as_array(x, name):
         try:
@@ -124,7 +191,9 @@ class Trainer(ABC):
     def start_profiler(self, logdir=None):
         """Begin a torch.profiler trace of the host and, on the card, of
         the device, written as `trace.json` under `logdir` (default
-        save_path + 'profile') when it stops."""
+        save_path + 'profile') when it stops; on the first worker only."""
+        if not self.running_on_first_worker:
+            return
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if self.device.type == 'cuda':
@@ -146,7 +215,9 @@ class Trainer(ABC):
 
     def log_scalars(self, step, **scalars):
         """Append one JSONL record of named scalars to
-        save_path + 'scalars.jsonl'."""
+        save_path + 'scalars.jsonl', on the first worker."""
+        if not self.running_on_first_worker:
+            return
         os.makedirs(self.save_path, exist_ok=True)
         with open(self.save_path + 'scalars.jsonl', 'a') as fh:
             fh.write(json.dumps({'step': step, **scalars}) + '\n')
@@ -212,8 +283,8 @@ class Trainer(ABC):
         time, the test loss and the learning-curve plot
         (dl4ds_tpu/training/base.py:301-341). Without matplotlib (a CUDA
         host may have none) the plot is left out with a RuntimeWarning;
-        the rest is written."""
-        if not self.save:
+        the rest is written. Only the first worker writes."""
+        if not self.save or not self.running_on_first_worker:
             return
         prefix = folder_prefix or ''
         self.model_save_path = (self.save_path + prefix + self.backbone

@@ -43,7 +43,7 @@ from ..models.blocks import (BatchNorm, set_dropout_generator,
                              use_dropout_generator, _rounded)
 from ..models.nets import _mean
 from ..compat import import_keras_weights
-from ..utils import Timing, resolve_device
+from ..utils import Timing, not_ported, resolve_device
 from .base import Trainer
 from .schedules import cosine_decay_schedule, warmup_cosine_decay_schedule
 from .supervised import StepRunner, _cpu
@@ -160,7 +160,8 @@ class CGANTrainer(Trainer):
     ramp from 0 over `warmup_steps` updates, 0 meaning a twentieth of the
     run, then the decay) or a callable of the update count, for both.
     `model_list` and `gpu_memory_growth` are accepted and do nothing. Not
-    ported: `mesh` and `devices` (ROADMAP item 10). `init_weights` loads a
+    ported: `mesh` and `devices` (ROADMAP item 10, part 3; the supervised
+    trainer has them). `init_weights` loads a
     reference Keras checkpoint into the generator
     (`compat.import_keras_weights`); the discriminator starts fresh.
     `data_in_hbm=False` streams the training split from host RAM or a
@@ -189,6 +190,9 @@ class CGANTrainer(Trainer):
                  data_in_hbm=True, terminate_on_nan=True,
                  gradient_accumulation_steps=1, ema_decay=0.0,
                  lr_schedule=None, warmup_steps=0, init_weights=None):
+        if mesh is not None or devices is not None:
+            raise not_ported('`mesh` and `devices` in CGANTrainer '
+                             '(multi-GPU adversarial training)', 10, 3)
         super().__init__(
             backbone=backbone, upsampling=upsampling, data_train=data_train,
             data_train_lr=data_train_lr, time_window=time_window, loss=loss,

@@ -19,6 +19,16 @@ leave its state as they found it. The kernel
 wrappers count their calls in the warm-up and the capture; a replay calls
 no wrapper, so it counts nothing there. There is no eager fallback: a
 capture or replay that fails raises.
+
+A data-parallel step holds NCCL collectives (the gradients' all-reduce,
+the global batch norms and loss ranges). The process group's communicator
+exists before the capture (`distributed.initialize` binds the device, and
+the warm-up calls run every collective of the step once); each
+collective is issued synchronously on the capturing stream, so the graph
+holds it and a replay runs it. In a process with a process group a step
+is captured after the device has drained the warm-up, in the
+'thread_local' capture mode, so that the group's watchdog thread may
+query its events meanwhile.
 """
 
 import torch
@@ -40,8 +50,8 @@ class CapturedStep:
     `state`, such as a row counter) is zeroed before each warm-up call, so
     that each call reads what the first replay will. `pool` is the memory pool of an
     earlier capture to share (the steps of a run never overlap, and they
-    hand results to each other only through `state`). `replays` counts the
-    replays so far."""
+    hand results to each other only through `state`). `replays` counts
+    the replays so far."""
 
     def __init__(self, fn, state, pool=None, rewind=(), generators=()):
         saved = [t.detach().clone() for t in state]
@@ -62,7 +72,12 @@ class CapturedStep:
         for g, r in zip(generators, rng):
             g.set_state(r)
             self.graph.register_generator_state(g)
-        with torch.cuda.graph(self.graph, pool=pool):
+        mode = 'global'
+        if torch.distributed.is_initialized():
+            torch.cuda.synchronize()
+            mode = 'thread_local'
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode=mode):
             fn()
         for g, r in zip(generators, rng):
             g.set_state(r)

@@ -79,14 +79,15 @@ def warmup_cosine_decay_schedule(init_value, peak_value, warmup_steps,
 
 
 def build_schedule(learning_rate, lr_decay_after, lr_schedule, warmup_steps,
-                   total_steps):
+                   total_steps, scale_by=1):
     """The schedule of a trainer's options, as the JAX trainer's
-    `_build_optimizer` picks it (one device, so no rate scaling): a callable
-    `lr_schedule` as given; 'cosine' decays lr[0] to lr[1] (or 0 for one
-    rate) over `total_steps`; 'warmup_cosine' ramps up over `warmup_steps`
-    (0: total // 20, at least 1) first; otherwise a 2-tuple is the
-    piecewise schedule at `lr_decay_after`. Returns (initial rate, schedule
-    or None for a constant rate)."""
+    `_build_optimizer` picks it: a callable `lr_schedule` as given;
+    'cosine' decays lr[0] to lr[1] (or 0 for one rate) over `total_steps`;
+    'warmup_cosine' ramps up over `warmup_steps` (0: total // 20, at least
+    1) first; otherwise a 2-tuple is the piecewise schedule at
+    `lr_decay_after`. Every rate but a callable's is scaled by `scale_by`,
+    the number of data-parallel ranks (Goyal et al.'s linear scaling).
+    Returns (initial rate, schedule or None for a constant rate)."""
     lr = learning_rate
     if callable(lr_schedule):
         return None, lr_schedule
@@ -98,11 +99,13 @@ def build_schedule(learning_rate, lr_decay_after, lr_schedule, warmup_steps,
             lr1 = 0.0
         total = max(int(total_steps), 1)
         if lr_schedule == 'cosine':
-            return None, cosine_decay_schedule(lr0, total, lr1 / lr0)
+            return None, cosine_decay_schedule(lr0 * scale_by, total,
+                                               lr1 / lr0)
         warmup = warmup_steps or max(total // 20, 1)
-        return None, warmup_cosine_decay_schedule(0.0, lr0, warmup, total,
-                                                  lr1)
+        return None, warmup_cosine_decay_schedule(
+            0.0, lr0 * scale_by, warmup, total, lr1 * scale_by)
     if isinstance(lr, (tuple, list)) and len(lr) > 1:
         return None, piecewise_constant_schedule(
-            float(lr[0]), {int(lr_decay_after): lr[1] / lr[0]})
-    return float(lr[0] if isinstance(lr, (tuple, list)) else lr), None
+            float(lr[0]) * scale_by, {int(lr_decay_after): lr[1] / lr[0]})
+    return float(lr[0] if isinstance(lr, (tuple, list)) else lr) * scale_by, \
+        None

@@ -2,14 +2,15 @@
 Supervised training procedure (the counterpart of
 `dl4ds_tpu/training/supervised.py`).
 
-One device. Each epoch's batches are planned on the host first: a CPU
-`torch.Generator`, seeded by `seed`, draws the shuffled indices and the
-patch offsets of every step (`BatchSynthesizer.plan`), so one seed gives
-the same batches on every device. A step is then device work only: the
-batch built from its plan row, the forward in train mode, the loss, the
-backward (for a spatio-temporal model, K2's training variant and the K3 or
-K4 BPTT kernels on the GPU), and, on the optimizer's commit, the Adam
-update at the scheduled rate and the EMA of the parameters. Dropout draws
+One device a process. Each epoch's batches are planned on the host
+first: a CPU `torch.Generator`, seeded by `seed`, draws the shuffled
+indices and the patch offsets of every step (`BatchSynthesizer.plan`), so
+one seed gives the same batches on every device. A step is then device
+work only: the batch built from its plan row, the forward in train mode,
+the loss, the backward (for a spatio-temporal model, K2's training
+variant and the K3 or K4 BPTT kernels on the GPU), and, on the
+optimizer's commit, the Adam update at the scheduled rate and the EMA of
+the parameters. Dropout draws
 from the trainer's own generator on the device, seeded from `seed`
 (`dropout_generator`), which a captured step advances on each replay, as
 an eager one does; a batch norm's running statistics are buffers of the
@@ -31,6 +32,21 @@ schedule (optax's, `training/schedules.py`) on the device update count;
 on the card it is fused and capturable. Gradient accumulation has
 optax.MultiSteps' semantics: the running mean of k microbatch gradients,
 one update on the k-th, the count and schedule advancing only then.
+
+Data parallelism (`mesh`, `distributed.global_mesh()`: one process a
+device) runs the JAX trainer's `Mesh('data')` semantics: every rank draws
+the same global plan (`global_batch_size` wide) from `seed` and builds its
+columns of it; the rate is scaled by the number of ranks (Goyal et al.,
+but for a callable schedule); inside the step the batch norms take the
+global batch's moments and the DSSIM losses its range
+(`distributed.batch_group`), and on each commit one mean all-reduce of the
+gradients, through one flat buffer, precedes Adam (NCCL's average on the
+card, captured in the step's graph; gloo's sum, divided, on the CPU). The train, validation and test losses are
+averaged over the ranks, so every rank keeps the same `fithist` and
+`test_loss` and stops at the same epoch; the first worker alone prints
+and writes files, and the others wait for its checkpoints. Each rank
+draws its dropout masks from its own generator, seeded from (seed, rank):
+the JAX trainer draws one global mask and shards it.
 """
 
 import copy
@@ -40,6 +56,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import distributed
 from ..dataloader import (BatchSynthesizer, HostStreamer, _time_coord,
                           season_ids_from_time)
 from ..models import build_model
@@ -63,7 +80,10 @@ class SupervisedTrainer(Trainer):
     `use_multiprocessing`, `model_list`, `gpu_memory_growth` and
     `show_plot` are accepted and do nothing, as in the JAX package. The
     options that are not ported raise NotImplementedError naming their
-    ROADMAP item: `mesh` and `devices` (10). `init_weights` loads a
+    ROADMAP item: a `mesh` with a 'model' or 'space' dim (10, part 4).
+    `mesh` with the one dim 'data' trains data-parallel over the process
+    group, `batch_size` being a rank's batch (see the module's
+    docstring). `init_weights` loads a
     reference Keras checkpoint into the freshly built network
     (`compat.import_keras_weights`: a weight list, an `.npz`, a Keras
     model or a SavedModel path); it cannot be combined with
@@ -208,7 +228,8 @@ class SupervisedTrainer(Trainer):
                       patch_size=self.patch_size,
                       time_window=self.time_window,
                       static_vars=self.static_vars,
-                      interpolation=self.interpolation, device=self.device)
+                      interpolation=self.interpolation, device=self.device,
+                      shard=(self.rank, self.n_data_shards))
         season = self.season_ids or (None, None, None)
         splits = ((self.data_train, self.data_train_lr, self.predictors_train),
                   (self.data_val, self.data_val_lr, self.predictors_val),
@@ -277,7 +298,8 @@ class SupervisedTrainer(Trainer):
         self._params = list(self.net.parameters())
         lr0, self._schedule = build_schedule(
             self.learning_rate, self.lr_decay_after, self.lr_schedule,
-            self.warmup_steps, max(self._steps(), 1) * self.epochs)
+            self.warmup_steps, max(self._steps(), 1) * self.epochs,
+            scale_by=self.n_data_shards)
         self._count = torch.zeros((), dtype=torch.int32, device=dev)
         self._lr = torch.full((), lr0 or 0.0, dtype=torch.float32,
                               device=dev)
@@ -293,7 +315,7 @@ class SupervisedTrainer(Trainer):
                 exp_avg_sq=torch.zeros_like(
                     p, memory_format=torch.preserve_format))
         self.dropout_generator = torch.Generator(device=dev).manual_seed(
-            int(self.seed))
+            _rank_seed(self.seed, self.rank))
         set_dropout_generator(self.net, self.dropout_generator)
         self.ema_net = None
         if self.ema_decay > 0:
@@ -342,11 +364,13 @@ class SupervisedTrainer(Trainer):
         (dl4ds_tpu/training/base.py:29-49). Device work only; returns the
         loss as a device scalar."""
         self.optimizer.zero_grad(set_to_none=True)
-        # the loss in float32 whatever the model dtype, as the JAX trainer
-        # casts the output (dl4ds_tpu/training/supervised.py:461-462)
-        out = self.train_net(batch['lr'], batch['aux']).float()
-        loss = self.lossf(batch['hr'], out)
-        loss.backward()
+        with distributed.batch_group(self.data_group):
+            # the loss in float32 whatever the model dtype, as the JAX
+            # trainer casts the output (dl4ds_tpu/training/supervised.py:
+            # 461-462)
+            out = self.train_net(batch['lr'], batch['aux']).float()
+            loss = self.lossf(batch['hr'], out)
+            loss.backward()
         with torch.no_grad():
             if self._acc is not None:
                 grads = [p.grad for p in self._params]
@@ -359,6 +383,8 @@ class SupervisedTrainer(Trainer):
                     return loss.detach()
                 torch._foreach_zero_(self._acc)
                 self._mini.zero_()
+            if self.data_group is not None:
+                self._reduce_grads()
             self._set_rate()
             self.optimizer.step()
             self._count.add_(1)
@@ -367,6 +393,30 @@ class SupervisedTrainer(Trainer):
                 torch._foreach_add_(self._ema, self._params,
                                     alpha=1 - self.ema_decay)
         return loss.detach()
+
+    def _reduce_grads(self):
+        """The gradients averaged over the ranks: one all-reduce of one
+        flat buffer, each gradient laid in it in its memory order, whose
+        views in the parameters' layouts (the fused Adam's condition)
+        become the gradients (device work only, captured in the step's
+        graph)."""
+        params = [p for p in self._params if p.grad is not None]
+        for p in params:
+            if not (_dense(p.grad) and _layout(p.grad) == _layout(p)):
+                raise RuntimeError(f'a gradient of shape {tuple(p.shape)} '
+                                   f'is not laid out as its parameter')
+        flat = torch.cat([p.grad.as_strided((p.numel(),), (1,))
+                          for p in params])
+        dist = torch.distributed
+        if dist.get_backend(self.data_group) == 'nccl':
+            # NCCL's average: one collective, a kernel even at one rank
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self.data_group)
+        else:
+            # gloo has no average
+            dist.all_reduce(flat, group=self.data_group)
+            flat.div_(self.n_data_shards)
+        for p, v in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = v.as_strided(p.shape, p.stride())
 
     def _advance(self, commit):
         """The host's count of the step just run: the mini-step, and the
@@ -378,10 +428,11 @@ class SupervisedTrainer(Trainer):
         return self.mini_step == self.gradient_accumulation_steps - 1
 
     def train_step(self, batch):
-        """One training step on `batch` (a synthesizer's dict), run
-        eagerly: the forward, the loss, the backward and, on the
-        optimizer's commit (every step without gradient accumulation), the
-        update. Returns the loss as a device scalar, not read back."""
+        """One training step on `batch` (a synthesizer's dict; under a
+        mesh this rank's part of the global batch), run eagerly: the
+        forward, the loss, the backward and, on the optimizer's commit
+        (every step without gradient accumulation), the update. Returns
+        this rank's loss as a device scalar, not read back."""
         commit = self._commits()
         loss = self._step(batch, commit)
         self._advance(commit)
@@ -400,8 +451,9 @@ class SupervisedTrainer(Trainer):
         """The loss of `net` on plan row `_row` of `synth`, written to
         `losses[_row]`, then the next row."""
         batch = synth.step_batch(plan, self._row)
-        loss = self.lossf(batch['hr'],
-                          net(batch['lr'], batch['aux']).float())
+        with distributed.batch_group(self.data_group):
+            loss = self.lossf(batch['hr'],
+                              net(batch['lr'], batch['aux']).float())
         losses.index_copy_(0, self._row, loss.view(1))
         self._row.add_(1)
 
@@ -478,14 +530,14 @@ class SupervisedTrainer(Trainer):
         for epoch in range(self.trained_epochs, self.epochs):
             self.train_net.train()
             if streaming:
-                self.train_losses = self.runner.train_stream(self.ds_train,
-                                                             steps)
+                self.train_losses = self._reduce_mean(
+                    self.runner.train_stream(self.ds_train, steps))
                 train_loss = self.train_losses.mean().item()
                 val_loss = self.runner.evaluate_stream('val', self.ds_val,
                                                        val_steps)
             else:
-                self.train_losses = self.runner.train(
-                    self.ds_train.plan(generator, steps_exec))
+                self.train_losses = self._reduce_mean(self.runner.train(
+                    self.ds_train.plan(generator, steps_exec)))
                 train_loss = self.train_losses.mean().item()
                 val_loss = self.runner.evaluate(
                     'val', self.ds_val.plan(generator, val_steps))
@@ -538,24 +590,38 @@ class SupervisedTrainer(Trainer):
     # ------------------------------------------------------------------
     def _save_checkpoint(self, name):
         """The weights that validation scores (the EMA ones with
-        `ema_decay`), the ones to serve, under save_path/`name`."""
-        self._checkpoint_save(
-            os.path.join(self.savecheckpoint_path, name),
-            {'params': _cpu(self.eval_net().state_dict())})
+        `ema_decay`), the ones to serve, under save_path/`name`, written
+        by the first worker while the others wait."""
+        if self.running_on_first_worker:
+            self._checkpoint_save(
+                os.path.join(self.savecheckpoint_path, name),
+                {'params': _cpu(self.eval_net().state_dict())})
+        self._barrier()
 
     def _save_full_checkpoint(self, epoch, generator):
         """The full training state after `epoch` epochs, for
         `resume_from_checkpoint`: parameters, Adam's state, the EMA, the
         accumulators, the counts, the epoch and the states of the plan
         generator and the dropout generator, under
-        save_path/checkpoints/epoch-<epoch>."""
+        save_path/checkpoints/epoch-<epoch>, written by the first worker
+        while the others wait; under a mesh the dropout generators of
+        every rank, gathered first."""
+        dropout_state = self.dropout_generator.get_state()
+        if self.data_group is not None:
+            states = [None] * self.n_data_shards
+            torch.distributed.all_gather_object(states, dropout_state,
+                                                group=self.data_group)
+            dropout_state = states
+        if not self.running_on_first_worker:
+            self._barrier()
+            return
         payload = {
             'params': _cpu(self.train_net.state_dict()),
             'opt_state': [_cpu(self.optimizer.state[p])
                           for p in self._params],
             'n_updates': self.n_updates, 'mini_step': self.mini_step,
             'epoch': epoch, 'generator': generator.get_state(),
-            'dropout_generator': self.dropout_generator.get_state()}
+            'dropout_generator': dropout_state}
         if not self.data_in_hbm:
             # the streamers' draws, so that a resumed run streams on
             payload['streams'] = [ds.rng.bit_generator.state for ds in
@@ -567,6 +633,7 @@ class SupervisedTrainer(Trainer):
         self._checkpoint_save(os.path.join(
             self.savecheckpoint_path, 'checkpoints', f'epoch-{epoch}'),
             payload)
+        self._barrier()
 
     @torch.no_grad()
     def _restore_checkpoint(self, path, generator):
@@ -589,7 +656,19 @@ class SupervisedTrainer(Trainer):
         self._set_rate()
         generator.set_state(payload['generator'])
         if 'dropout_generator' in payload:
-            self.dropout_generator.set_state(payload['dropout_generator'])
+            state = payload['dropout_generator']
+            if isinstance(state, list):
+                if len(state) != self.n_data_shards:
+                    raise ValueError(
+                        f'the checkpoint holds {len(state)} ranks\' '
+                        f'dropout generators; this run has '
+                        f'{self.n_data_shards}')
+                state = state[self.rank]
+            elif self.n_data_shards > 1:
+                raise ValueError('the checkpoint holds one dropout '
+                                 'generator; this run has '
+                                 f'{self.n_data_shards} ranks')
+            self.dropout_generator.set_state(state)
         if not self.data_in_hbm and 'streams' in payload:
             for ds, state in zip((self.ds_train, self.ds_val, self.ds_test),
                                  payload['streams']):
@@ -630,6 +709,33 @@ def _season_tables(season_ids, time_metadata, splits, time_window):
     return tuple(season_ids_from_time(t, time_window) for t in time_metadata)
 
 
+def _layout(t):
+    """The (stride, size) of t's dims longer than 1, innermost first: what
+    fixes the order of its elements in memory."""
+    return sorted((st, n) for n, st in zip(t.shape, t.stride()) if n > 1)
+
+
+def _dense(t):
+    """Whether t's elements fill t.numel() consecutive slots of memory."""
+    expected = 1
+    for st, n in _layout(t):
+        if st != expected:
+            return False
+        expected *= n
+    return True
+
+
+def _rank_seed(seed, rank):
+    """The dropout seed of a data-parallel rank, drawn from (seed, rank)
+    so that the ranks draw different masks: `seed` itself on rank 0 (and
+    without a mesh), a 32-bit word of numpy's SeedSequence elsewhere (a
+    CPU generator keeps 32 bits of its seed)."""
+    if rank == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed) % 2 ** 63, rank])
+               .generate_state(1)[0])
+
+
 def _cpu(tensors):
     return {k: v.detach().cpu() for k, v in tensors.items()}
 
@@ -648,7 +754,9 @@ class StepRunner:
     of `evals` ({split: (synthesizer, steps)}), scoring `eval_net()`.
     Graphs share one memory pool. `graphs` maps each name to its
     `CapturedStep` on the card. A training step's loss is a float32 tensor
-    of `loss_shape` (a scalar; the CGAN trainer's four losses)."""
+    of `loss_shape` (a scalar; the CGAN trainer's four losses). Under a
+    data mesh each plan or streamed batch is cut to this rank's part
+    (the sources' `local_part`) before it is uploaded."""
 
     def __init__(self, trainer, steps_per_execution, evals, loss_shape=()):
         tr = self.trainer = trainer
@@ -665,12 +773,13 @@ class StepRunner:
                                                   True)
         else:
             fns['step'] = lambda: tr._plan_step(self.plan, self.losses, True)
-        self.evals = {}
+        self.evals, self.sources = {}, {}
         net = tr.eval_net()
         for split, (synth, steps) in evals.items():
             plan = synth.plan_buffers(steps)
             losses = torch.zeros(steps, dtype=torch.float32, device=dev)
             self.evals[split] = (plan, losses)
+            self.sources[split] = synth
             fns[split] = (lambda synth=synth, plan=plan, losses=losses:
                           tr._eval_plan_step(net, synth, plan, losses))
         self.fns = fns
@@ -705,6 +814,7 @@ class StepRunner:
         a chunk of rows at a time; returns their losses on the device."""
         tr = self.trainer
         n = plan['idx'].shape[0]
+        plan = tr.ds_train.local_part(plan)
         if self.graphs:
             plan = {k: v.pin_memory() for k, v in plan.items()}
         out = torch.empty((n, *self.losses.shape[1:]), dtype=torch.float32,
@@ -730,7 +840,7 @@ class StepRunner:
         accumulate = tr.gradient_accumulation_steps > 1
         tr._row.zero_()
         for raw in stream.stream(1, steps):
-            self._fill(self.plan, raw)
+            self._fill(self.plan, stream.local_part(raw))
             commit = tr._commits()
             self._run(('commit' if commit else 'accumulate')
                       if accumulate else 'step')
@@ -745,9 +855,9 @@ class StepRunner:
         tr.eval_net().eval()
         tr._row.zero_()
         for raw in stream.stream(1, steps):
-            self._fill(bufs, raw)
+            self._fill(bufs, stream.local_part(raw))
             self._run(split)
-        return losses[:steps].mean().item()
+        return tr._reduce_mean(losses[:steps].clone()).mean().item()
 
     @staticmethod
     def _fill(bufs, raw):
@@ -756,14 +866,15 @@ class StepRunner:
 
     def evaluate(self, split, plan):
         """The mean loss of `eval_net()` over the rows of `plan` (`split`'s
-        steps), in eval mode."""
+        steps), in eval mode, averaged over the ranks under a mesh."""
         tr = self.trainer
         bufs, losses = self.evals[split]
         tr.eval_net().eval()
+        plan = self.sources[split].local_part(plan)
         if self.graphs:
             plan = {k: v.pin_memory() for k, v in plan.items()}
         self._upload(bufs, plan, slice(None))
         tr._row.zero_()
         for _ in range(losses.shape[0]):
             self._run(split)
-        return losses.mean().item()
+        return tr._reduce_mean(losses.clone()).mean().item()

@@ -19,7 +19,8 @@ package's (`dl4ds_tpu/app.py`).
   `--export_artifact`s serve; `--init_keras_npz` loads a Keras-ordered
   `.npz`.
 - Refusals: an unknown flag, bad values, `--device=TPU` (naming the two
-  choices) and `--mesh_shape` (ROADMAP item 10)."""
+  choices) and a `--mesh_shape` axis other than 'data' (ROADMAP item 10,
+  part 4; 'data=N' is in tests/test_torch_distributed.py)."""
 
 import os
 import subprocess
@@ -38,6 +39,7 @@ from dl4ds_tpu_torch import app
 from dl4ds_tpu_torch.weights import export_jax_variables
 
 from _torch_keras import keras_weight_list, randomized
+from _torch_xla import quick_xla  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -169,8 +171,8 @@ def test_device_tpu_and_mesh_shape_refused(tmp_path):
     with pytest.raises(ValueError) as e:
         app.main(['prog', '--device=TPU'])
     assert 'GPU' in str(e.value) and 'CPU' in str(e.value)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        app.main(['prog', '--device=CPU', '--mesh_shape=data=2',
+    with pytest.raises(NotImplementedError, match='item 10, part 4'):
+        app.main(['prog', '--device=CPU', '--mesh_shape=data=1,model=2',
                   f'--data_module={_data_module(tmp_path)}'])
 
 

@@ -40,6 +40,7 @@ from dl4ds_tpu_torch.ops import fused_ops as fo
 from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _fwd_plan, _seq_plan,
                                           _unfold, _wgrad_plan,
                                           convlstm_train_reference)
+from _torch_xla import quick_xla  # noqa: F401
 
 BF = torch.bfloat16
 BF16_TOL = 1e-2      # 2 bfloat16 ulps of max |ref|

@@ -35,6 +35,7 @@ from dl4ds_tpu.models import load_model as jax_load_model
 from dl4ds_tpu.training import supervised as jax_supervised
 
 import dl4ds_tpu_torch as tds
+from _torch_xla import quick_xla  # noqa: F401
 
 BF = torch.bfloat16
 RATIO = 0.5          # port-to-JAX distance over JAX's own float32 distance

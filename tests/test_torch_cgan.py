@@ -39,6 +39,7 @@ from dl4ds_tpu_torch.training import cgan as tcgan
 
 from _torch_state import (TOL, t, j, np_tree, load, fed_draws,
                           assert_tree_close)
+from _torch_xla import quick_xla  # noqa: F401
 
 SCALE, PATCH, B = 4, 8, 2
 G_ARGS = dict(n_filters=4, n_blocks=1, attention=True)

@@ -28,6 +28,7 @@ from dl4ds_tpu_torch import compat
 from dl4ds_tpu_torch.weights import export_jax_variables
 
 from _torch_keras import build_pair, keras_weight_list, randomized
+from _torch_xla import quick_xla  # noqa: F401
 
 LABELS = ['resnet_spc_bn', 'convnet_rc_lcb', 'densenet_spc', 'resnet_dc2',
           'resnet_dc8', 'convnext_pin', 'unet_pin_dc', 'recresnet_spc_aux',

@@ -29,6 +29,7 @@ from dl4ds_tpu_torch.models.blocks import (ChannelAttention2D, ConvLSTM2D,
 from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _fwd_plan, _launch,
                                           _unfold, convlstm_train_reference,
                                           hard_sigmoid)
+from _torch_xla import quick_xla  # noqa: F401
 
 HR, SCALE, T = 64, 4, 3
 LR = HR // SCALE

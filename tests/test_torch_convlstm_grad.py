@@ -25,6 +25,7 @@ from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _unfold, _wgrad_plan,
                                           convlstm_train_reference,
                                           d_hard_sigmoid, hard_sigmoid)
 from dl4ds_tpu_torch.ops.convlstm import _conv_same_w as conv_same_w
+from _torch_xla import quick_xla  # noqa: F401
 
 # (B, T, H, W, Cin, F, kh, kw): the three shapes of
 # tests/test_torch_convlstm.py's K2_SHAPES (Cin != F, H != W with an odd W,

@@ -26,6 +26,7 @@ from dl4ds_tpu_torch.ops.convlstm import (FusedConvLSTM, _flip_t, _seq_plan,
                                           convlstm_train_reference,
                                           d_hard_sigmoid, dispatch_info,
                                           hard_sigmoid)
+from _torch_xla import quick_xla  # noqa: F401
 
 # (B, T, H, W, Cin, F, kh, kw): Cin != F with F = 5, H != W with an odd W at
 # 5x5, kh != kw, and the JAX package's F = 16 valley (its split route)

@@ -33,6 +33,7 @@ from dl4ds_tpu_torch.models import blocks as tblocks
 
 from _torch_state import (TOL, np_tree, t, j, load, flat, assert_tree_close,
                           check_train_step, check_bf16_forward)
+from _torch_xla import quick_xla  # noqa: F401
 
 LR, SCALE, AUX = 8, 2, 4
 SPATIAL = dict(n_channels=3, lr_size=(LR, LR), n_filters=4, n_blocks=2,

@@ -25,6 +25,7 @@ from dl4ds_tpu_torch import metrics as tmetrics
 from dl4ds_tpu_torch import parallel as tpar
 from dl4ds_tpu_torch.ops import fused_ops as fo
 from dl4ds_tpu_torch.weights import export_jax_ensemble, load_jax_ensemble
+from _torch_xla import quick_xla  # noqa: F401
 
 M, STEPS = 4, 3
 # losses: float32 means over 8*16*16 pixels; parameters after 3 Adam steps

@@ -27,6 +27,7 @@ from dl4ds_tpu_torch.ops import convlstm as tconv
 from dl4ds_tpu_torch.ops import fused_ops as tfo
 
 from _torch_state import fed_draws, jax_draws
+from _torch_xla import quick_xla  # noqa: F401
 
 REL = 1e-5           # float32: max |d| over max |y_jax|
 RATIO = 0.5          # bfloat16: as tests/test_torch_bf16_models.py

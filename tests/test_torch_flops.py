@@ -31,6 +31,7 @@ from dl4ds_tpu_torch.ops.fused_ops import (_channel_attention_op,
                                            fused_ssim_per_image)
 from dl4ds_tpu_torch.ops.conv_int8 import conv_int8, pack_weight
 from dl4ds_tpu_torch.weights import export_jax_params
+from _torch_xla import quick_xla  # noqa: F401
 
 count = flops.count_flops
 

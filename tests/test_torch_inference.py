@@ -13,6 +13,7 @@ import torch
 
 import dl4ds_tpu as dds
 import dl4ds_tpu_torch as tds
+from _torch_xla import quick_xla  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HR, SCALE, N = 64, 4, 5

@@ -20,6 +20,7 @@ from dl4ds_tpu.ops.ssim import psnr as jax_psnr, ssim as jax_ssim
 
 import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch import metrics as port_metrics
+from _torch_xla import quick_xla  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PLOTS = ('metrics_pergridpoint_rmse_map.png',

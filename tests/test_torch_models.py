@@ -14,6 +14,7 @@ from dl4ds_tpu.models.blocks import get_activation as jax_get_activation
 
 import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch.models.blocks import get_activation
+from _torch_xla import quick_xla  # noqa: F401
 
 LR = 16
 SMALL = dict(n_channels=4, n_aux_channels=2, lr_size=(LR, LR), n_filters=4,

@@ -24,6 +24,7 @@ from dl4ds_tpu_torch.ops import (channel_attention_reference, depth_to_space,
 from dl4ds_tpu_torch.ops.fused_ops import (
     _STATIC_SMEM_RESERVE, _ca_plan, _channel_attention_backward, _gate,
     _launch, _launch_backward)
+from _torch_xla import quick_xla  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope='module')

@@ -19,6 +19,7 @@ from dl4ds_tpu import parallel as jpar
 
 import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch import parallel as tpar
+from _torch_xla import quick_xla  # noqa: F401
 
 TILE, HALO, BATCH = 8, 4, 6
 TOL = dict(atol=1e-4, rtol=1e-4)      # f32 convs summed in other orders

@@ -32,6 +32,7 @@ from dl4ds_tpu.models import load_model as jax_load_model
 from dl4ds_tpu.training import supervised as jax_supervised
 
 import dl4ds_tpu_torch as tds
+from _torch_xla import quick_xla  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF = torch.bfloat16

@@ -26,6 +26,7 @@ from dl4ds_tpu_torch import inference as tinference
 from dl4ds_tpu_torch.models import blocks as tblocks
 
 from _torch_state import load
+from _torch_xla import quick_xla  # noqa: F401
 
 LR, SCALE, N = 8, 2, 5
 SPATIAL = dict(scale=SCALE, n_channels=3, n_aux_channels=1,

@@ -44,6 +44,7 @@ import dl4ds_tpu_torch as tds
 from _torch_state import (t, j, fed_draws, assert_tree_close,
                           check_train_step, check_bf16_forward)
 from test_torch_cgan import _JitDraws
+from _torch_xla import quick_xla  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 T, HW = 3, 12

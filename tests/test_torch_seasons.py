@@ -29,6 +29,7 @@ from dl4ds_tpu import dataloader as jax_dataloader
 from dl4ds_tpu import preprocessing as jax_preprocessing
 
 import dl4ds_tpu_torch as tds
+from _torch_xla import quick_xla  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HR_Y, HR_X, SCALE, PATCH = 32, 40, 4, 16

@@ -25,6 +25,7 @@ from dl4ds_tpu import serve as jserve
 
 import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch.serve import ModelServer, make_http_server, _npy_bytes
+from _torch_xla import quick_xla  # noqa: F401
 
 ATOL = 1e-6
 

@@ -33,6 +33,7 @@ from dl4ds_tpu_torch.ops.fused_ops import (_STATIC_SMEM_RESERVE, _launch_ssim,
                                            _launch_ssim_backward, _ssim_plan)
 from dl4ds_tpu_torch.ops.ssim import (psnr, ssim, ssim_backward_reference,
                                       ssim_multiscale)
+from _torch_xla import quick_xla  # noqa: F401
 
 MS_FACTORS4 = (0.0448, 0.2856, 0.3001, 0.2363)
 GRAD_RTOL = 1e-4        # of max |g|

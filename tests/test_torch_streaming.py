@@ -41,6 +41,7 @@ from dl4ds_tpu_torch import native as tnative
 
 from _torch_state import fed_draws, assert_tree_close
 from test_torch_cgan import _JitDraws
+from _torch_xla import quick_xla  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 RESIZED = 1e-6

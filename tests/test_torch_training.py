@@ -12,6 +12,8 @@ after the Adam steps atol 2e-6 (the largest difference seen is 1.9e-7;
 Adam's lr * g / (|g| + 1e-7) turns float32 noise in a small gradient into
 parameter noise)."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ from dl4ds_tpu import losses as jax_losses
 from dl4ds_tpu.training import supervised as jax_supervised
 
 import dl4ds_tpu_torch as tds
+from _torch_xla import quick_xla  # noqa: F401
 
 HR_Y, HR_X, SCALE, PATCH = 32, 40, 4, 16
 N = 10
@@ -332,9 +335,17 @@ def test_terminate_on_nan(data):
     assert len(tr.fithist['loss']) == 1
 
 
+def _mesh_with(dim):
+    """A stand-in for a DeviceMesh with a 'data' dim and `dim`."""
+    return types.SimpleNamespace(mesh_dim_names=('data', dim),
+                                 device_type='cpu')
+
+
 @pytest.mark.parametrize('kwargs', [
-    dict(mesh=object()), dict(devices=['cpu'])])
+    dict(mesh=_mesh_with('model')), dict(mesh=_mesh_with('space'))])
 def test_unported_training_options_raise(data, kwargs):
+    """Tensor and spatial parallelism (ROADMAP item 10, part 4); the data
+    mesh and `devices` are in `tests/test_torch_distributed.py`."""
     hr = data[0]
     args = dict(REC, data_train=hr, data_val=hr[:6], data_test=hr[:6],
                 device='cpu')

@@ -18,6 +18,7 @@ import torch
 from dl4ds_tpu.training import supervised as jax_supervised
 
 import dl4ds_tpu_torch as tds
+from _torch_xla import quick_xla  # noqa: F401
 
 HR_Y, HR_X, SCALE, PATCH = 32, 40, 4, 16
 N = 10

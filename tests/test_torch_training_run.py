@@ -23,6 +23,7 @@ import dl4ds_tpu as dds
 
 import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch.training.graphs import CapturedStep
+from _torch_xla import quick_xla  # noqa: F401
 
 HR_Y, HR_X, SCALE, PATCH = 32, 40, 4, 16
 N = 10

@@ -22,6 +22,7 @@ import dl4ds_tpu as dds  # noqa: E402
 import dl4ds_tpu_torch as tds  # noqa: E402
 from dl4ds_tpu import utils as jax_utils, viz as jax_viz  # noqa: E402
 from dl4ds_tpu_torch import utils, viz  # noqa: E402
+from _torch_xla import quick_xla  # noqa: E402,F401
 
 
 def _field(shape, seed=0, nans=True):

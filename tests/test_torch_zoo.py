@@ -29,6 +29,7 @@ from dl4ds_tpu.models import blocks as jblocks
 
 import dl4ds_tpu_torch as tds
 from dl4ds_tpu_torch.models import blocks as tblocks
+from _torch_xla import quick_xla  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF = torch.bfloat16
