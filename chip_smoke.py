@@ -338,7 +338,27 @@ Phases, each of which exits non-zero on failure:
      graph; at one rank NCCL's sums and extremes run nothing on the
      device); both replays timed (median of 20, CUDA events) beside the
      card's name and power limit; the process group destroyed;
- 23. print the `kernels` JSON line, then, last, the device JSON line. In
+ 23. the rest of data parallelism over processes, at the card's count of
+     one, in a fresh NCCL group of one rank: (a) phase 16's flagship CGAN
+     with a dssim_mae pixel loss trained by `CGANTrainer(mesh=mesh)` and
+     without a mesh (2 epochs of 10 steps at batch 128, cuDNN
+     deterministic), each traced with every launch counter at 0 just
+     before: K1 and K6 both ways in the trace and the wrappers' calls, the
+     same in both runs; the four losses, the test loss and G's and D's
+     parameters equal bit for bit; NCCL's kernels in one replay of the
+     mesh step by name (the one average of G's and D's gradients); both
+     replays timed; (b) `predict(mesh=)` of phase 12's flagship (16 grids)
+     and recresnet_spc (19) in float32, K1 and K2 launches counted, equal
+     bit for bit to `predict`; (c) `predict_tiled(mesh=)` of the flagship
+     on one 0.25-degree grid (phase 18's), float32 and int8, launches of K1
+     and K7 counted, equal bit for bit to the call without a mesh, and K7
+     at the window dispatch's sites held against its plain version and
+     timed; (d) a 4-member flagship ensemble trained (3 bootstrapped steps
+     at batch 128) and served under an ('ensemble',) mesh of 1 and an
+     ('ensemble', 'data') mesh of (1, 1), K1's member-mode launches
+     counted, losses, stacks and members equal bit for bit to the run
+     without a mesh; the process group destroyed;
+ 24. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -351,7 +371,8 @@ Phases, each of which exits non-zero on failure:
      K2_convlstm_train_recconvnet, K3_convlstm_bptt_recconvnet,
      K2_convlstm_train_recdensenet, K3_convlstm_bptt_recdensenet,
      K1_channel_attention_stream_train, K1_channel_attention_dp_train,
-     K6_ssim_dp_train, K2_convlstm_train_dp, K3_convlstm_bptt_dp) is what
+     K6_ssim_dp_train, K2_convlstm_train_dp, K3_convlstm_bptt_dp,
+     K1_channel_attention_cgan_dp_train, K6_ssim_cgan_dp_train) is what
      the device trace of its
      phase's run holds, and `wrapper_calls` what its wrapper
      counted (the warm-up calls and the capture: a replay calls no
@@ -364,9 +385,12 @@ Phases, each of which exits non-zero on failure:
      K1_channel_attention_tiled_serve, K2_convlstm_tiled_serve,
      K1_channel_attention_member_serve,
      K1_channel_attention_artifact_serve,
-     K1_channel_attention_artifact_bf16_serve, K2_convlstm_artifact_serve),
+     K1_channel_attention_artifact_bf16_serve, K2_convlstm_artifact_serve,
+     K1_channel_attention_dp_predict, K2_convlstm_dp_predict,
+     K1_channel_attention_dp_tiled, K7_conv_int8_dp_tiled),
      K6_ssim_metrics and the ensemble
-     step's kernels (K1_channel_attention_member_train, K6_ssim_ensemble)
+     step's kernels (K1_channel_attention_member_train, K6_ssim_ensemble,
+     K1_member_dp_ensemble)
      and K7_conv_int8 (its `launches_other_paths` beside) and
      K7_conv_int8_cli_artifact run eagerly, and their `launches` are their
      wrappers' counts; K1_channel_attention_cli_train and
@@ -7885,6 +7909,390 @@ def _dp_kernel_rows(report):
     return [k1, k6_row, k2, k3]
 
 
+# phase 23: the rest of data parallelism over processes at world size 1
+DPX_ENS_STEPS = 3                   # ensemble steps of (d), bootstrapped
+
+
+def _equal_or_fail(label, pairs):
+    """Fail unless every (plain, mesh) pair of arrays or tensors is equal
+    bit for bit; returns the largest |d| seen (0.0)."""
+    import numpy as np
+    worst = 0.0
+    for a, b in pairs:
+        a, b = (np.asarray(v.detach().cpu() if hasattr(v, 'detach') else v,
+                           dtype='float64') for v in (a, b))
+        if a.shape != b.shape:
+            fail(f'{label}: shapes {a.shape} and {b.shape}')
+        worst = max(worst, float(np.abs(a - b).max()) if a.size else 0.0)
+    if worst != 0.0:
+        fail(f'{label}: the mesh run differs from the plain run by max|d| '
+             f'{worst:.3e}; bit for bit required')
+    return worst
+
+
+def _dpx_cgan(torch, tds, mesh):
+    """(a): phase 16's flagship CGAN with a dssim_mae pixel loss, with and
+    without the mesh, each traced with every counter at 0 just before."""
+    config = dict(_cgan_config(), loss=FLAG_LOSS)
+    chunks = -(-CGAN_TEST // min(TRAIN_BATCH, CGAN_TEST))
+    runs = {}
+    for name, m in (('plain', None), ('mesh', mesh)):
+        tr = tds.CGANTrainer(epochs=TRAIN_EPOCHS, steps_per_epoch=CGAN_STEPS,
+                             mesh=m, **config)
+        run_s, calls, kernels = _traced_run(torch, tds, tr)
+        per_step, outside = _cgan_per_step(tr)
+        # the pixel loss: K6 once each way a step, once a test chunk
+        per_step['train'].update({'K6': 1, 'K6 backward': 1})
+        outside['K6'] = chunks
+        got = _check_launches(tds, tr.runner, f'phase 23 (a, {name})',
+                              per_step, {'step': TRAIN_EPOCHS * CGAN_STEPS},
+                              calls, kernels, outside)
+        runs[name] = dict(tr=tr, launches=got, calls=calls, run_s=run_s)
+    plain, dp = runs['plain']['tr'], runs['mesh']['tr']
+    if dp.n_data_shards != 1 or dp.data_group is None:
+        fail('phase 23 (a): the mesh trainer has no data group of one rank')
+    if runs['plain']['launches'] != runs['mesh']['launches']:
+        fail(f'phase 23 (a): the mesh run launched '
+             f'{runs["mesh"]["launches"]}, the plain run '
+             f'{runs["plain"]["launches"]}')
+    history = [(getattr(plain, k), getattr(dp, k)) for k in
+               ('gentotal', 'gengan', 'gen_pxloss', 'disc', 'test_loss')]
+    a, b = _state_of(plain), _state_of(dp)
+    _equal_or_fail('phase 23 (a)', history + [(a[n], b[n]) for n in a])
+    if not all(math.isfinite(v) for v in dp.gentotal + dp.disc):
+        fail(f'phase 23 (a): non-finite losses {dp.gentotal}, {dp.disc}')
+    names = {k: _kernel_names(torch, runs[k]['tr'].runner.graphs['step'],
+                              runs[k]['tr']) for k in runs}
+    extra = names['mesh'] - names['plain']
+    nccl = {k: n for k, n in extra.items()
+            if 'nccl' in k.lower() or 'onerank' in k.lower()}
+    if not nccl:
+        fail(f'phase 23 (a): one replay of the mesh step runs no NCCL kernel '
+             f'(its device work beyond the plain step\'s: {dict(extra)})')
+    replay_ms = {}
+    for k, run in runs.items():
+        graph, tr = run['tr'].runner.graphs['step'], run['tr']
+
+        def replay(graph=graph, tr=tr):
+            tr._row.zero_()
+            graph.replay()
+        replay_ms[k] = statistics.median(device_times(torch, replay,
+                                                      reps=DP_REPLAYS))
+    print(f'phase 23 (a): CGAN (flagship G, {FLAG_LOSS}) mesh vs plain, '
+          f'{TRAIN_EPOCHS} epochs of {CGAN_STEPS} steps at batch '
+          f'{TRAIN_BATCH}: losses, test loss ({dp.test_loss:.6f}) and G\'s '
+          f'and D\'s parameters bit for bit; launches in each trace '
+          f'{runs["mesh"]["launches"]}; NCCL\'s kernels in one replay of '
+          f'the mesh step {nccl} (the one average of G\'s and D\'s '
+          f'gradients; all device work beyond the plain step\'s '
+          f'{dict(extra)}); one replay {replay_ms["mesh"]:.3f} ms with the '
+          f'mesh, {replay_ms["plain"]:.3f} ms without (median of '
+          f'{DP_REPLAYS}, CUDA events); runs {runs["plain"]["run_s"]:.1f} '
+          f'and {runs["mesh"]["run_s"]:.1f} s traced; {card_line()}',
+          flush=True)
+    return dict(launches=runs['mesh']['launches'],
+                wrapper_calls=runs['mesh']['calls'],
+                plain_launches=runs['plain']['launches'],
+                losses=[dp.gentotal, dp.gengan, dp.gen_pxloss, dp.disc],
+                test_loss=dp.test_loss, nccl_kernels=nccl,
+                extra_kernels=dict(extra), replay_ms=replay_ms,
+                run_s={k: v['run_s'] for k, v in runs.items()},
+                bit_for_bit=True)
+
+
+def _dpx_counted(tds, fn):
+    """fn() with K1's, K2's and K7's wrapper counts set to 0 just before;
+    returns (its output, {counter: launches})."""
+    from dl4ds_tpu_torch.ops import conv_int8 as ci
+    fca, fcl = tds.fused_channel_attention, tds.fused_convlstm
+    fca.launches = fca.bwd_launches = fcl.launches = 0
+    ci.conv_int8.launches = 0
+    out = fn()
+    return out, {'K1': fca.launches, 'K1 backward': fca.bwd_launches,
+                 'K2': fcl.launches, 'K7': ci.conv_int8.launches}
+
+
+def _dpx_predict(torch, tds, mesh):
+    """(b): predict(mesh=) of phase 12's float32 flagship and
+    recresnet_spc against predict without a mesh."""
+    out = {}
+    for recurrent in (False, True):
+        case = _serving_case(tds, recurrent)
+        model = case['make'](torch.float32)
+        net = model.init(seed=0, device='cuda')
+        args = ((model, net), case['hr'])
+        y = tds.predict(*args, **case['kwargs'])
+        t0 = time.perf_counter()
+        y_dp, got = _dpx_counted(tds, lambda: tds.predict(
+            *args, mesh=mesh, **case['kwargs']))
+        dp_s = time.perf_counter() - t0
+        want = dict(case['want'], **{'K1 backward': 0, 'K7': 0})
+        if got != want:
+            fail(f'phase 23 (b, {case["label"]}): predict(mesh=) launched '
+                 f'{got}, expected {want}')
+        _equal_or_fail(f'phase 23 (b, {case["label"]})', [(y, y_dp)])
+        print(f'phase 23 (b): predict(mesh=) of {case["label"]}, '
+              f'{case["n"]} grids at batch {BATCH}: {y_dp.shape}, bit for '
+              f'bit against predict; launches {got}; {dp_s:.3f} s (host '
+              f'clock, one call); {card_line()}', flush=True)
+        out[case['label']] = dict(launches=got, seconds=dp_s)
+    return out
+
+
+def _dpx_tiled(torch, tds, mesh, flush):
+    """(c): predict(tile=, mesh=) of the flagship on one global grid,
+    float32 and int8, against the call without a mesh; K7 at a window
+    dispatch's sites held and timed."""
+    import numpy as np
+    h, w = TILED_GRID
+    hr = np.random.default_rng(18).standard_normal(
+        (1, h * SCALE, w * SCALE)).astype('float32')
+    model = tds.net_postupsampling(
+        'resnet', 'spc', scale=SCALE, n_channels=1, n_aux_channels=0,
+        lr_size=TILED_GRID, n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+        attention=True)
+    net = model.init(seed=0, device='cuda')
+    kwargs = dict(scale=SCALE, array_in_hr=True, tile=TILE, halo=TILE_HALO,
+                  batch_size=BATCH)
+    n_win = (-(-h // TILE)) * (-(-w // TILE))
+    dispatches = -(-n_win // BATCH)
+    win = torch.randn((BATCH, TILE_WINDOW, TILE_WINDOW, 1), device='cuda')
+    qf = tds.quantize_forward(model, net, win)
+    gates = len(K1_SHAPES)
+    out = {}
+    for mode in (None, 'int8'):
+        y = tds.predict((model, net), hr, quantize=mode, **kwargs)
+        t0 = time.perf_counter()
+        y_dp, got = _dpx_counted(tds, lambda: tds.predict(
+            (model, net), hr, quantize=mode, mesh=mesh, **kwargs))
+        dp_s = time.perf_counter() - t0
+        # int8: the calibration's float forward, then the quantized one
+        want = {'K1': gates * (dispatches + (mode is not None)),
+                'K1 backward': 0, 'K2': 0,
+                'K7': qf.n_sites * dispatches if mode else 0}
+        if got != want or not np.isfinite(y_dp).all():
+            fail(f'phase 23 (c, {mode}): predict(tile=, mesh=) launched '
+                 f'{got}, expected {want}; finite '
+                 f'{bool(np.isfinite(y_dp).all())}')
+        _equal_or_fail(f'phase 23 (c, {mode})', [(y, y_dp)])
+        print(f'phase 23 (c): predict(tile={TILE}, mesh=, quantize={mode}) '
+              f'of a {h}x{w} grid -> {y_dp.shape}: {n_win} windows in '
+              f'{dispatches} dispatches, bit for bit against the call '
+              f'without a mesh; launches {got}; {dp_s:.3f} s (host clock, '
+              f'one call); {card_line()}', flush=True)
+        out[str(mode)] = dict(launches=got, seconds=dp_s)
+    with _k7_calls() as calls:
+        qf(win)
+    rows = _k7_rows(torch, calls, 'tiled window site (phase 23)', flush=flush)
+    del calls
+    return out, rows
+
+
+def _dpx_ensembles(torch, tds, meshes):
+    """(d): a 4-member flagship ensemble trained and served under each of
+    `meshes` ({name: DeviceMesh}) and without a mesh, from one seed."""
+    from dl4ds_tpu_torch import parallel
+    config = _training_config(loss='mae', n_filters=N_FILTERS,
+                              n_blocks=N_BLOCKS, attention=True)
+    model, batches = _ensemble_batches(torch, tds, config, TRAIN_BATCH,
+                                       DPX_ENS_STEPS)
+    x = batches[0]['lr'][:N_GRIDS]
+    gates = len(K1_TRAIN_SHAPES)
+    runs = {}
+    for name, m in (('plain', None), *meshes.items()):
+        st = parallel.init_ensemble(model, ENS_M, seed=0, mesh=m)
+        es = parallel.make_ensemble_step(model, m, loss='mae', bootstrap=True)
+        opt = es.init_opt(st)
+
+        def train(st=st, opt=opt, es=es):
+            return [es.step(st, opt, b['lr'], b['hr'], 23 + c)[2]
+                    for c, b in enumerate(batches)]
+        losses, got = _dpx_counted(tds, train)
+        served, serve_got = _dpx_counted(tds, lambda st=st, m=m: (
+            parallel.predict_ensemble(model, st, x, mesh=m,
+                                      return_members=True)))
+        want = {'K1': gates * len(batches), 'K1 backward': gates * len(
+            batches), 'K2': 0, 'K7': 0}
+        if got != want or serve_got != dict(want, K1=gates,
+                                            **{'K1 backward': 0}):
+            fail(f'phase 23 (d, {name}): {len(batches)} ensemble steps '
+                 f'launched {got} (expected {want}: one member-mode launch a '
+                 f'gate each way), predict_ensemble {serve_got}')
+        runs[name] = dict(losses=torch.stack(losses), stack=st,
+                          served=served, launches=got, serve=serve_got)
+    plain = runs['plain']
+    for name in meshes:
+        run = runs[name]
+        _equal_or_fail(f'phase 23 (d, {name})', [
+            (plain['losses'], run['losses'])]
+            + [(plain['stack'][k], run['stack'][k]) for k in plain['stack']]
+            + list(zip(plain['served'], run['served'])))
+        print(f'phase 23 (d): {ENS_M}-member flagship ensemble under the '
+              f'{name} mesh, {len(batches)} bootstrapped steps at batch '
+              f'{TRAIN_BATCH} and predict_ensemble of {N_GRIDS} grids: '
+              f'losses {run["losses"].tolist()}, the stack and the members '
+              f'served bit for bit against no mesh; K1 member-mode launches '
+              f'{run["launches"]} training, {run["serve"]} serving; '
+              f'{card_line()}', flush=True)
+    return {name: dict(launches=runs[name]['launches'],
+                       serve_launches=runs[name]['serve'],
+                       losses=runs[name]['losses'].tolist())
+            for name in meshes}
+
+
+def phase_more_data_parallel(torch, tds, report):
+    """Phase 23: CGANTrainer(mesh=), predict(mesh=), predict_tiled(mesh=)
+    and the ensembles over a fresh NCCL process group of one rank, each
+    against the same call without a mesh."""
+    dev = tds.distributed.initialize(f'127.0.0.1:{_free_port()}', 1, 0,
+                                     device='cuda', timeout=300)
+    if torch.distributed.get_backend() != 'nccl':
+        fail(f'phase 23: the process group runs '
+             f'{torch.distributed.get_backend()}, not NCCL')
+    mesh = tds.distributed.global_mesh()
+    meshes = {"('ensemble',) of 1": tds.distributed.ensemble_mesh(),
+              "('ensemble', 'data') of (1, 1)":
+                  tds.distributed.ensemble_mesh(1, 1)}
+    print(f'phase 23: a fresh process group {torch.distributed.get_backend()}'
+          f' on {dev} after phase 22\'s was destroyed; meshes {mesh}, '
+          f'{list(meshes.values())}', flush=True)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    parts, out = {}, {}
+    t0 = time.perf_counter()
+
+    def done(name):
+        nonlocal t0
+        parts[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+    try:
+        out['cgan'] = _dpx_cgan(torch, tds, mesh)
+        done('a')
+        out['predict'] = _dpx_predict(torch, tds, mesh)
+        done('b')
+        flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device='cuda')
+        out['tiled'], report['dpx_k7_rows'] = _dpx_tiled(torch, tds, mesh,
+                                                         flush)
+        del flush
+        done('c')
+        out['ensembles'] = _dpx_ensembles(torch, tds, meshes)
+        done('d')
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+        torch.backends.cudnn.allow_tf32 = True
+        torch.distributed.destroy_process_group()
+    if torch.distributed.is_initialized():
+        fail('phase 23: the process group outlived the phase')
+    out['parts_s'] = parts
+    print(f'phase 23 parts (s): {parts}', flush=True)
+    report['dpx'] = out
+
+
+def _dpx_kernel_rows(report):
+    """The `kernels` line's rows of phase 23: each path's launches from its
+    run under the mesh; the kernels' times and errors those of the same
+    shapes in phases 2, 4, 9, 10 and 18, K7's at the window dispatch timed
+    in phase 23."""
+    d = report['dpx']
+    cg = d['cgan']
+    gates, k6 = report['k1_train_rows'], report['k6_rows'][0]
+    f32 = [r for r in report['k1_rows'] if r['dtype'] == 'float32']
+    fwd, tiled = report['k2_forward'], report['tiled_k1_rows']
+    step, serve = report['member_rows']
+    k7 = _k7_totals(report['dpx_k7_rows'])
+    k1 = dict(route='cuda', source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39', bound_by='bytes',
+              library_ms=None)
+
+    def k1_row(name, rows, launches, work, **extra):
+        return dict(k1, name=name, launches=launches,
+                    max_abs_err=max(r['max_abs_err'] for r in rows),
+                    ms=sum(r['ms'] for r in rows),
+                    plain_ms=sum(r['plain_ms'] for r in rows),
+                    bound_ms=sum(r['bound_ms'] for r in rows), work=work,
+                    **extra)
+    ens = next(iter(d['ensembles'].values()))
+    return [
+        k1_row('K1_channel_attention_cgan_dp_train', gates,
+               cg['launches']['K1'],
+               f'the {len(gates)} gates of G in one CGAN step at batch '
+               f'{TRAIN_BATCH} under CGANTrainer(mesh=) at world size 1, '
+               f'NCCL (phase 10\'s shapes and times); launches from phase '
+               f'23 (a)\'s device trace',
+               wrapper_calls=cg['wrapper_calls']['K1'],
+               bwd_launches=cg['launches']['K1 backward'],
+               bwd_wrapper_calls=cg['wrapper_calls']['K1 backward'],
+               bwd_ms=sum(r['bwd_ms'] for r in gates),
+               bwd_bound_ms=sum(r['bwd_bound_ms'] for r in gates),
+               bwd_plain_ms=sum(r['bwd_plain_ms'] for r in gates)),
+        dict(route='cuda', name='K6_ssim_cgan_dp_train',
+             source='dl4ds_tpu_torch/csrc/ssim.cu',
+             replaces='dl4ds_tpu/ops/pallas_ops.py:145', library_ms=None,
+             launches=cg['launches']['K6'],
+             wrapper_calls=cg['wrapper_calls']['K6'],
+             max_abs_err=k6['max_abs_err'], ms=k6['ms'],
+             plain_ms=k6['plain_ms'], bound_ms=k6['bound_ms'],
+             bound_by=k6['bound_by'], bwd_ms=k6['bwd_ms'],
+             bwd_bound_ms=k6['bwd_bound_ms'],
+             bwd_plain_ms=k6['bwd_plain_ms'],
+             bwd_launches=cg['launches']['K6 backward'],
+             bwd_wrapper_calls=cg['wrapper_calls']['K6 backward'],
+             work=f'the {FLAG_LOSS} pixel loss of the CGAN step under the '
+                  f'mesh, its range over the global batch, and of the test '
+                  f'loss (phase 9\'s shape and times)'),
+        k1_row('K1_channel_attention_dp_predict', f32,
+               d['predict']['resnet_spc']['launches']['K1'],
+               f'the {len(f32)} gates of one float32 flagship forward at '
+               f'batch {BATCH} (phase 2\'s shapes and times); launches of '
+               f'predict(mesh=) on {N_GRIDS} grids'),
+        dict(route='cuda', name='K2_convlstm_dp_predict',
+             source='dl4ds_tpu_torch/csrc/convlstm.cu',
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+             bound_by='operations', library_ms=None,
+             launches=d['predict']['recresnet_spc']['launches']['K2'],
+             max_abs_err=max(r['max_abs_err'] for r in report['k2_rows']),
+             ms=sum(r['ms'] for r in fwd),
+             plain_ms=sum(r['plain_ms'] for r in fwd),
+             bound_ms=sum(r['bound_ms'] for r in fwd),
+             work=f'the {len(fwd)} ConvLSTM layers of one float32 '
+                  f'recresnet_spc forward at batch {BATCH} (phase 4\'s shapes '
+                  f'and times); launches of predict(mesh=) on {REC_GRIDS} '
+                  f'grids'),
+        k1_row('K1_channel_attention_dp_tiled', tiled,
+               d['tiled']['None']['launches']['K1'],
+               f'the {len(tiled)} gates of one tiled flagship dispatch '
+               f'(phase 18\'s shapes and times); launches of predict(tile='
+               f'{TILE}, mesh=) on one {TILED_GRID[0]}x{TILED_GRID[1]} grid'),
+        dict(route='cuda', name='K7_conv_int8_dp_tiled',
+             source='dl4ds_tpu_torch/csrc/conv_int8.cu',
+             replaces='dl4ds_tpu/quantization.py:276 (XLA\'s s8 convolution '
+                      'in the int8 replay; no Pallas kernel)',
+             launches=d['tiled']['int8']['launches']['K7'], max_abs_err=0.0,
+             ms=k7['ms'], plain_ms=k7['plain_ms'], bound_ms=k7['bound_ms'],
+             bound_by=('operations' if k7['bound_ops_ms']
+                       > k7['bound_bytes_ms'] else 'bytes'),
+             library_ms=k7['library_ms'], unfold_ms=k7['unfold_ms'],
+             cudnn_bf16_ms=k7['cudnn_bf16_ms'],
+             work=f'the int8 sites of one tiled flagship dispatch, {BATCH} '
+                  f'windows of {TILE_WINDOW}x{TILE_WINDOW}, timed in phase 23 '
+                  f'and summed over their calls (int32 sums and outputs equal '
+                  f'the plain version); launches of predict(tile={TILE}, '
+                  f'mesh=, quantize=\'int8\') on one global grid'),
+        k1_row('K1_member_dp_ensemble', [step], ens['launches']['K1'],
+               f'the member mode at the ensemble step\'s first gate '
+               f'x{step["shape"]} ({ENS_M} members; phase 18\'s times); '
+               f'launches of {DPX_ENS_STEPS} steps under the '
+               f'{next(iter(d["ensembles"]))} mesh (one a gate each way), '
+               f'serve_launches of predict_ensemble on {N_GRIDS} grids',
+               bwd_launches=ens['launches']['K1 backward'],
+               serve_launches=ens['serve_launches']['K1'],
+               bwd_ms=step['bwd_ms'], bwd_plain_ms=step['bwd_plain_ms'],
+               bwd_bound_ms=step['bwd_bound_ms'])]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7922,7 +8330,7 @@ def main():
               (15, phase_state), (16, phase_cgan), (17, phase_zoo_stream),
               (18, phase_parallel), (19, phase_serving),
               (20, phase_quantization), (21, phase_cli),
-              (22, phase_data_parallel))
+              (22, phase_data_parallel), (23, phase_more_data_parallel))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -8094,7 +8502,8 @@ def main():
                + _cgan_kernel_rows(report) + _zoo_stream_kernel_rows(report)
                + _parallel_kernel_rows(report)
                + _serving_kernel_rows(report) + _quant_kernel_rows(report)
-               + _cli_kernel_rows(report) + _dp_kernel_rows(report))
+               + _cli_kernel_rows(report) + _dp_kernel_rows(report)
+               + _dpx_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -8121,8 +8530,11 @@ def main():
         'k7_rows', 'k7_extra_rows')}}), flush=True)
     print(json.dumps({'phase21': report['cli']}), flush=True)
     print(json.dumps({'phase22': report['dp']}), flush=True)
+    print(json.dumps({'phase23': report['dpx'],
+                      'phase23_k7_shapes': report['dpx_k7_rows']}),
+          flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
-          f'kernel build to the end of phase 22; phase seconds '
+          f'kernel build to the end of phase 23; phase seconds '
           f'{ {k: round(v, 1) for k, v in report["phase_seconds"].items()} }',
           flush=True)
     print(card, flush=True)

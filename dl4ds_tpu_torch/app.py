@@ -25,16 +25,15 @@ inference_data, inference_scaler, inference_predictors, gt_holdout_dataset,
 gt_mask — the same contract as the reference (dl4ds/app.py:111-116,
 :177-186, :262-270, :294-297).
 
-`--mesh_shape=data=N` trains the supervised model data-parallel over N
-processes, one a device, launched together:
+`--mesh_shape=data=N` trains the model (either trainer) data-parallel
+over N processes, one a device, launched together:
     torchrun --nproc_per_node=N -m dl4ds_tpu_torch.app --flagfile=F \
         --mesh_shape=data=N
 N must be the launcher's world size; the app opens the process group
 (`distributed.initialize`: NCCL on the GPU, gloo with --device=CPU) and
 passes `distributed.global_mesh()` to the trainer. A 'model' or 'space'
-axis, and a mesh for the CGAN trainer, raise NotImplementedError naming
-their ROADMAP item. The metrics phase draws its maps with matplotlib
-(`--nometrics` skips it).
+axis raises NotImplementedError naming its ROADMAP item. The metrics phase
+draws its maps with matplotlib (`--nometrics` skips it).
 """
 
 import importlib.util

@@ -14,13 +14,17 @@ is used only when device='cpu' is asked for. A failed NCCL start raises:
 nothing falls back to gloo or to the CPU.
 
 `global_mesh()` is the 1-D `DeviceMesh` whose one dim, 'data', spans the
-process group; pass it as `mesh=` to `SupervisedTrainer`. Under it each
-rank builds its slice of every global batch, and a step reduces across
-the ranks what the JAX trainer's sharded program reduces across devices:
-the gradients, the batch-norm moments, the DSSIM losses' data range and
-the reported losses. `batch_group(group)` is the context in which the
-batch norms and the losses take those reductions; outside it they reduce
-over the local batch alone.
+process group; pass it as `mesh=` to `SupervisedTrainer`, `CGANTrainer`,
+`predict` and `predict_tiled`. Under it each trainer rank builds its slice
+of every global batch, and a step reduces across the ranks what the JAX
+trainer's sharded program reduces across devices: the gradients
+(`average_gradients`), the batch-norm moments, the DSSIM losses' data
+range and the reported losses. `batch_group(group)` is the context in
+which the batch norms and the losses take those reductions; outside it
+they reduce over the local batch alone. Serving ranks each run their rows
+of a global batch and `all_gather_rows` joins the outputs.
+`ensemble_mesh(n_ensemble, n_data)` is the ensembles' counterpart of JAX's
+`Mesh(devices, ('ensemble', 'data'))`.
 """
 
 import contextlib
@@ -31,8 +35,9 @@ import torch
 import torch.distributed as dist
 
 __all__ = ['initialize', 'is_multi_host', 'process_index', 'process_count',
-           'global_mesh', 'batch_group', 'current_batch_group',
-           'all_reduce_sum', 'global_amax', 'global_amin']
+           'global_mesh', 'ensemble_mesh', 'batch_group',
+           'current_batch_group', 'all_reduce_sum', 'global_amax',
+           'global_amin', 'average_gradients', 'all_gather_rows']
 
 _BATCH_GROUP = None
 
@@ -115,6 +120,28 @@ def global_mesh(axis_name='data'):
                             mesh_dim_names=(axis_name,))
 
 
+def ensemble_mesh(n_ensemble=None, n_data=None):
+    """The `DeviceMesh` of `parallel.make_ensemble_step` and its
+    companions, the counterpart of JAX's `Mesh(devices, ('ensemble',
+    'data'))`: `n_ensemble` x `n_data` processes (row-major, the data dim
+    innermost), or with `n_data` None the 1-D ('ensemble',) mesh.
+    `n_ensemble` defaults to the processes left over."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError('call distributed.initialize() first')
+    world = dist.get_world_size()
+    if n_ensemble is None:
+        n_ensemble = world // (n_data or 1)
+    shape = (n_ensemble,) if n_data is None else (n_ensemble, n_data)
+    names = ('ensemble', 'data')[:len(shape)]
+    if n_ensemble * (n_data or 1) != world:
+        raise ValueError(f'a mesh of {dict(zip(names, shape))} needs '
+                         f'{n_ensemble * (n_data or 1)} processes; the '
+                         f'group has {world}')
+    device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
 @contextlib.contextmanager
 def batch_group(group):
     """Within the context, the batch norms (train mode) and the DSSIM
@@ -189,3 +216,51 @@ def global_amax(x, group):
 def global_amin(x, group):
     """The min of `x` over the ranks of `group`."""
     return _GlobalExtreme.apply(x, group, False)
+
+
+def _layout(t):
+    """The (stride, size) of t's dims longer than 1, innermost first: what
+    fixes the order of its elements in memory."""
+    return sorted((st, n) for n, st in zip(t.shape, t.stride()) if n > 1)
+
+
+def _dense(t):
+    """Whether t's elements fill t.numel() consecutive slots of memory."""
+    expected = 1
+    for st, n in _layout(t):
+        if st != expected:
+            return False
+        expected *= n
+    return True
+
+
+def average_gradients(params, group):
+    """The gradients of `params` averaged over the ranks of `group`: one
+    all-reduce of one flat buffer, each gradient laid in it in its memory
+    order, whose views in the parameters' layouts (the fused Adam's
+    condition) become the gradients. Device work only, so that a captured
+    step holds it. NCCL averages in the collective (a kernel even at one
+    rank); gloo, which has no average, sums and divides."""
+    params = [p for p in params if p.grad is not None]
+    for p in params:
+        if not (_dense(p.grad) and _layout(p.grad) == _layout(p)):
+            raise RuntimeError(f'a gradient of shape {tuple(p.shape)} is '
+                               f'not laid out as its parameter')
+    flat = torch.cat([p.grad.as_strided((p.numel(),), (1,))
+                      for p in params])
+    if dist.get_backend(group) == 'nccl':
+        dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=group)
+    else:
+        dist.all_reduce(flat, group=group)
+        flat.div_(dist.get_world_size(group))
+    for p, v in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = v.as_strided(p.shape, p.stride())
+
+
+def all_gather_rows(x, group):
+    """The ranks' `x` (equal shapes) concatenated along dim 0 in the order
+    of their ranks in `group`, on every rank."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts)

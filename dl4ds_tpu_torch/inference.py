@@ -10,7 +10,10 @@ spatio-temporal model): from HR grids, which it coarsens
 It then runs the network over the batch in fixed-size batches under
 `torch.inference_mode()`. The ragged tail is padded by repeating its last
 sample, so every forward has the same shape. It runs on CUDA unless the
-caller passes device='cpu'. Modes not ported yet raise
+caller passes device='cpu'. With `mesh` (`distributed.global_mesh()`, one
+process a device) each global batch is shared out over the ranks, each
+running its rows on its own device, and an all-gather joins the outputs,
+so that every rank returns the whole array. Modes not ported yet raise
 NotImplementedError naming their ROADMAP item.
 
 `predict` runs a model with an 'mc*' dropout as one fixed member (each
@@ -19,12 +22,14 @@ JAX package's `PRNGKey(0)` fallback); `predict_mc` runs an ensemble of
 members, member k drawing from a generator derived from its seed and k.
 """
 
+import collections
 import contextlib
 import os
 
 import numpy as np
 import torch
 
+from . import distributed
 from .models.blocks import use_dropout_generator
 from .dataloader import BatchSynthesizer, _time_coord, season_ids_from_time
 from .interpolation import resize_array
@@ -241,7 +246,16 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
 
     `device` is where the network and the data live ('cuda' by default;
     device='cpu' must be asked for). The network must already be there.
-    `mesh` and `spatial_mesh` are ROADMAP item 10: they raise when given.
+
+    `mesh` (a `DeviceMesh` with the one dim 'data' over the process group,
+    `distributed.global_mesh()`) serves the samples data-parallel, as the
+    JAX package shards them over its mesh (dl4ds_tpu/inference.py:
+    358-371): global batches of min(batch_size * ranks, ceil(N / ranks) *
+    ranks) samples, the last padded, each rank running its rows of each on
+    its device; the outputs are all-gathered, every rank returns the whole
+    array and only the first worker writes `save_path`. With `tile=` the
+    windows are shared out the same way (`parallel.predict_tiled`).
+    `spatial_mesh` is ROADMAP item 10, part 4: it raises when given.
     """
     if quantize is not None and spatial_mesh is not None:
         raise ValueError('quantize= does not combine with spatial_mesh '
@@ -265,15 +279,14 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
         raise ValueError('pass either spatial_mesh (one grid sharded over '
                          'its height) or mesh (samples sharded over the '
                          'batch), not both')
-    for value, what, part in ((mesh, 'mesh', 3),
-                              (spatial_mesh, 'spatial_mesh', 4)):
-        if value is not None:
-            raise not_ported(f'predict({what}=...)', 10, part)
+    if spatial_mesh is not None:
+        raise not_ported('predict(spatial_mesh=...)', 10, 4)
     if tile is not None and pad_to_multiple is not None:
         raise ValueError('`pad_to_multiple` is redundant with tiled '
                          'inference (every window already has one shape)')
     device = resolve_device(device)
-    timing = Timing()
+    part = _data_part(mesh, device)
+    timing = Timing(part.rank == 0)
     model, net = _resolve_model(trainer)
     _check_model_inputs(model, net, time_window, device)
     x, aux, _ = _assemble_inputs(model, array, scale, array_in_hr,
@@ -283,10 +296,12 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     if tile is not None:
         from .parallel import predict_tiled
         out = predict_tiled(model, net, x, aux=aux, tile=tile, halo=halo,
-                            batch_size=batch_size, quantize=quantize,
+                            batch_size=batch_size, mesh=mesh,
+                            quantize=quantize,
                             calibration_quantile=calibration_quantile)
         return _finalize_predict(out, batch_lr, time_window, scaler,
-                                 save_path, save_fname, return_lr, timing)
+                                 save_path, save_fname, return_lr, timing,
+                                 writes=part.rank == 0)
     out_hw = None
     if pad_to_multiple is not None:
         x, aux, out_hw = _pad_spatial_to_multiple(x, aux, pad_to_multiple)
@@ -295,10 +310,11 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
                                calibration_quantile, calibration,
                                calibration_aux)
     else:
-        out = _eval_apply(net, x, aux, batch_size, None)
+        out = _eval_apply(net, x, aux, batch_size, None, part)
     out = _crop_padded(out, x, out_hw)
     return _finalize_predict(out, batch_lr, time_window, scaler, save_path,
-                             save_fname, return_lr, timing)
+                             save_fname, return_lr, timing,
+                             writes=part.rank == 0)
 
 
 def _pin_batch(c, like, name, bs):
@@ -368,10 +384,14 @@ def _serving(net, generator=None):
         net.train(was_training)
 
 
-def _eval_apply(net, x, aux, batch_size, generator):
+_DataPart = collections.namedtuple('_DataPart', ['rank', 'world', 'group'])
+_NO_MESH = _DataPart(0, 1, None)
+
+
+def _eval_apply(net, x, aux, batch_size, generator, part=_NO_MESH):
     """`_batched_apply` of `net` under `_serving(net, generator)`."""
     with _serving(net, generator):
-        return _batched_apply(net, x, aux, batch_size)
+        return _batched_apply(net, x, aux, batch_size, part)
 
 
 # the `predict` options that `predict_mc` takes, as the JAX package's
@@ -437,12 +457,39 @@ def predict_mc(trainer, array, scale, n_members=20, seed=0,
     return stack.mean(axis=0), stack.std(axis=0)
 
 
-def _batched_apply(apply, x, aux, batch_size):
+def _data_part(mesh, device):
+    """(this rank, the ranks, their group) of a serving `mesh`, a
+    `DeviceMesh` with the one dim 'data' over `device`'s type; one rank
+    and no group without a mesh."""
+    if mesh is None:
+        return _NO_MESH
+    names = tuple(getattr(mesh, 'mesh_dim_names', None) or ())
+    if not names:
+        raise TypeError('`mesh` must be a DeviceMesh with named dims '
+                        '(distributed.global_mesh())')
+    if names != ('data',):
+        raise ValueError(f"serving meshes have the one dim 'data'; got "
+                         f'{names}')
+    if mesh.device_type != device.type:
+        raise ValueError(f'the mesh is over {mesh.device_type!r} devices '
+                         f'but predict runs on {str(device)!r}')
+    return _DataPart(mesh.get_local_rank('data'), mesh.size(),
+                    mesh.get_group('data'))
+
+
+def _batched_apply(apply, x, aux, batch_size, part=_NO_MESH):
     """Run `apply(xb, ab)` over fixed-size batches, padding the ragged tail
     by repeating its last sample (trimmed after), so every forward has the
-    same shape. Returns the outputs as one numpy array."""
+    same shape. Returns the outputs as one numpy array. Under a mesh (a
+    `part` of `_data_part` with a group) a batch is global: min(batch_size *
+    ranks, ceil(n / ranks) * ranks) samples, a multiple of the ranks
+    (dl4ds_tpu/inference.py:361-371, 428-446), of which each rank runs its
+    rows; the outputs are all-gathered."""
     n = x.shape[0]
-    bs = min(batch_size, n)
+    world = part.world
+    bs = min(batch_size * world, -(-n // world) * world)
+    local = bs // world
+    lo = part.rank * local
     outs = []
     for i in range(0, n, bs):
         xb = x[i:i + bs]
@@ -452,19 +499,25 @@ def _batched_apply(apply, x, aux, batch_size):
             xb = torch.cat([xb, xb[-1:].expand(bs - nb, *xb.shape[1:])])
             if ab is not None:
                 ab = torch.cat([ab, ab[-1:].expand(bs - nb, *ab.shape[1:])])
-        outs.append(apply(xb, ab)[:nb])
+        if part.group is None:
+            outs.append(apply(xb, ab)[:nb])
+            continue
+        y = apply(xb[lo:lo + local],
+                  ab[lo:lo + local] if ab is not None else None)
+        outs.append(distributed.all_gather_rows(y.float(), part.group)[:nb])
     return torch.cat(outs).float().cpu().numpy()
 
 
 def _finalize_predict(out, batch_lr, time_window, scaler, save_path,
-                      save_fname, return_lr, timing):
+                      save_fname, return_lr, timing, writes=True):
     """5-D -> 4-D collapse, inverse scaling and .npy save
-    (dl4ds_tpu/inference.py:380-394)."""
+    (dl4ds_tpu/inference.py:380-394), the save where `writes` (the first
+    worker of a mesh)."""
     if out.ndim == 5 and time_window is not None:
         out = spatiotemporal_to_spatial_samples(out, time_window)
     if scaler is not None:
         out = scaler.inverse_transform(out)
-    if save_path is not None and save_fname is not None:
+    if writes and save_path is not None and save_fname is not None:
         np.save(os.path.join(save_path, save_fname), out.astype('float32'))
     timing.runtime()
     if return_lr:

@@ -23,9 +23,21 @@ member in one step (`torch.func.vmap` of `torch.func.grad_and_value` over
 `torch.func.functional_call`, then one Adam over the stacked tensors) and
 `predict_ensemble` serves them in one vmapped forward. Under `vmap` the
 channel-attention gate runs K1's member mode, one launch each way for all
-members (`ops/fused_ops.py`). Meshes (`mesh=`) are ROADMAP item 10's data
-parallelism and raise; so do spatio-temporal ensembles, whose ConvLSTM
-kernels have no member mode yet.
+members (`ops/fused_ops.py`). Spatio-temporal ensembles raise: their
+ConvLSTM kernels have no member mode yet.
+
+Over processes (one a device), the members shard over an ensemble mesh
+(`distributed.ensemble_mesh()`, a `DeviceMesh` with an 'ensemble' dim and
+optionally a 'data' dim, JAX's `Mesh(devices, ('ensemble', 'data'))`):
+`init_ensemble(mesh=)` returns this rank's members, the process's shard of
+the JAX package's global stack; the step trains them on the whole batch,
+or with a 'data' dim on this rank's shard of it, each member's loss and
+gradients averaged over the data dim (JAX's `shard_map` with `lax.pmean`,
+dl4ds_tpu/parallel.py:508-622: the loss sees the shard alone, so a DSSIM
+range is the shard's); the losses of all members and `predict_ensemble`'s
+member stack are all-gathered over the 'ensemble' dim in member order.
+`predict_tiled(mesh=)` shares its window dispatches out over a data mesh
+(`distributed.global_mesh()`).
 """
 
 import collections
@@ -34,8 +46,9 @@ import numpy as np
 import torch
 from torch.func import functional_call, grad_and_value, stack_module_state
 
-from .inference import _serving
-from .models.blocks import use_dropout_generator
+from . import distributed
+from .inference import _data_part, _serving
+from .models.blocks import DropPath, Dropout, use_dropout_generator
 from .utils import checkarg_loss, not_ported, resolve_device
 
 __all__ = ['predict_tiled', 'receptive_field_radius', 'init_ensemble',
@@ -86,13 +99,20 @@ def predict_tiled(model, net, x, aux=None, tile=128, halo=32, batch_size=8,
 
     `quantize` ('int8' or 'weight-only', with `calibration_quantile`)
     serves the windows through `quantization.quantize_forward`, calibrated
-    on the first dispatch batch of real windows (cycled if there are
-    fewer) and pinned to that batch: the windows are wrap-padded to a
-    multiple of it (dl4ds_tpu/parallel.py:166-200). `mesh` (item 10)
-    raises."""
-    if mesh is not None:
-        raise not_ported('predict_tiled(mesh=...)', 10, 3)
+    on the first dispatch batch of real windows (cycled if there are fewer)
+    and pinned to that batch: the windows are wrap-padded to a whole number
+    of dispatches (dl4ds_tpu/parallel.py:166-200).
+
+    `mesh` (`distributed.global_mesh()`, one process a device) shares each
+    dispatch out over the ranks (dl4ds_tpu/parallel.py:161-181): a
+    dispatch holds min(batch_size * ranks, ceil(n_win / ranks) * ranks)
+    windows, the windows wrap-padded to a multiple of it, each rank runs
+    its part on its device and an all-gather joins the window outputs, so
+    that every rank places them and returns the whole grid. Quantized, every
+    rank calibrates on the first global dispatch (the same windows, the
+    same scales) before serving its part."""
     dev = _net_device(net)
+    part = _data_part(mesh, dev)
     x = _on(x, dev)
     b = x.shape[0]
     h, w = x.shape[-3], x.shape[-2]
@@ -127,17 +147,8 @@ def predict_tiled(model, net, x, aux=None, tile=128, halo=32, batch_size=8,
     # tile-major, then batch: window k's samples are [k*b, (k+1)*b)
     tiles = torch.cat(windows)                # [B*nt, (T,) t_in_y, t_in_x, C]
     aux_tiles = torch.cat(aux_windows) if aux is not None else None
-    n_win = tiles.shape[0]
-    bs_eff = min(batch_size, n_win)
-    if quantize is None:
-        with _serving(net):
-            out_tiles = torch.cat([
-                net(tiles[i:i + bs_eff],
-                    aux_tiles[i:i + bs_eff] if aux_tiles is not None
-                    else None).float() for i in range(0, n_win, bs_eff)])
-    else:
-        out_tiles = _quantized_tiles(model, net, tiles, aux_tiles, bs_eff,
-                                     quantize, calibration_quantile)
+    out_tiles = _tile_outputs(model, net, tiles, aux_tiles, batch_size, part,
+                              quantize, calibration_quantile)
 
     c_out = out_tiles.shape[-1]
     full = torch.zeros((b, *out_tiles.shape[1:-3], h * scale, w * scale,
@@ -151,28 +162,52 @@ def predict_tiled(model, net, x, aux=None, tile=128, halo=32, batch_size=8,
     return full.cpu().numpy()
 
 
-def _quantized_tiles(model, net, tiles, aux_tiles, bs, mode,
-                     calibration_quantile):
-    """The windows through the quantized forward, pinned to `bs` windows a
-    dispatch: calibrated on the first `bs` windows (cycled), the windows
-    wrap-padded to a multiple of `bs`, the padding's outputs dropped."""
-    from .quantization import quantize_forward
-    n_win = tiles.shape[0]
-    sel = torch.arange(bs, device=tiles.device) % n_win
-    qf = quantize_forward(
-        model, net, tiles[sel],
-        calibration_aux=aux_tiles[sel] if aux_tiles is not None else None,
-        mode=mode, calibration_quantile=calibration_quantile)
-    n_run = -(-n_win // bs) * bs
-    if n_run != n_win:
-        sel = torch.arange(n_run, device=tiles.device) % n_win
-        tiles = tiles[sel]
-        aux_tiles = aux_tiles[sel] if aux_tiles is not None else None
-    with torch.inference_mode():
-        return torch.cat([
-            qf(tiles[i:i + bs],
-               aux_tiles[i:i + bs] if aux_tiles is not None else None)
-            .float() for i in range(0, n_run, bs)])[:n_win]
+def _wrapped(t, n):
+    """The first `n` rows of `t` repeated cyclically (None stays None)."""
+    if t is None or t.shape[0] == n:
+        return t
+    return t[torch.arange(n, device=t.device) % t.shape[0]]
+
+
+def _tile_outputs(model, net, tiles, aux_tiles, batch_size, part, mode,
+                  calibration_quantile):
+    """The windows' outputs, in dispatches of gbs = min(batch_size * ranks,
+    ceil(n_win / ranks) * ranks) windows (one rank without a mesh). Under a
+    mesh (`part`'s group) or quantized, the windows are wrap-padded to a
+    multiple of gbs, so that every dispatch has one shape, and the
+    padding's outputs dropped; otherwise the last dispatch is short, as in
+    JAX. Under a mesh this rank runs rows [rank * gbs / ranks, (rank + 1) *
+    gbs / ranks) of each and the ranks' outputs are all-gathered.
+    Quantized, the forward is calibrated on the first dispatch, cycled, and
+    pinned to a rank's part of a dispatch (dl4ds_tpu/parallel.py:144-200)."""
+    n_win, world = tiles.shape[0], part.world
+    gbs = min(batch_size * world, -(-n_win // world) * world)
+    n_run = (n_win if mode is None and part.group is None
+             else -(-n_win // gbs) * gbs)
+    local = gbs // world
+    if mode is None:
+        run, ctx = net, _serving(net)
+    else:
+        from .quantization import QuantizedForward, quantize_forward
+        qf = quantize_forward(
+            model, net, _wrapped(tiles, gbs),
+            calibration_aux=_wrapped(aux_tiles, gbs), mode=mode,
+            calibration_quantile=calibration_quantile)
+        # the global dispatch's scales, pinned to this rank's part of it
+        run = QuantizedForward(
+            qf.module, qf.n_sites, qf.act_scales, qf.mode,
+            (local,) + qf.input_shape[1:],
+            None if qf.aux_shape is None else (local,) + qf.aux_shape[1:])
+        ctx = torch.inference_mode()
+    tiles, aux_tiles = _wrapped(tiles, n_run), _wrapped(aux_tiles, n_run)
+    outs = []
+    with ctx:
+        for i in range(part.rank * local, n_run, gbs):
+            y = run(tiles[i:i + local], aux_tiles[i:i + local]
+                    if aux_tiles is not None else None).float()
+            outs.append(y if part.group is None
+                        else distributed.all_gather_rows(y, part.group))
+    return torch.cat(outs)[:n_win]
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +235,45 @@ def _base_net(model, dev):
     return nets[dev]
 
 
+_EnsemblePart = collections.namedtuple(
+    '_EnsemblePart', ['member', 'n_member', 'member_group', 'data',
+                      'n_data', 'data_group'])
+_SOLO = _EnsemblePart(0, 1, None, 0, 1, None)
+
+
+def _ensemble_part(mesh, member_axis, data_axis, device_type):
+    """This rank's coordinates and groups on an ensemble `mesh` (a
+    `DeviceMesh` with the dim `member_axis`, over `device_type`): its
+    members' coordinate and group on `member_axis`, and where `data_axis`
+    is one of the mesh's dims (None: never) its data coordinate and group.
+    The mesh's other dims are ignored, the ranks along them doing the same
+    work, as JAX's `shard_map` replicates over the axes its specs do not
+    name. One member coordinate and no groups without a mesh."""
+    if mesh is None:
+        return _SOLO
+    names = tuple(getattr(mesh, 'mesh_dim_names', None) or ())
+    if not names:
+        raise TypeError('`mesh` must be a DeviceMesh with named dims '
+                        '(distributed.ensemble_mesh())')
+    if member_axis not in names:
+        raise ValueError(f'mesh has no {member_axis!r} axis: {names}')
+    if mesh.device_type != device_type:
+        raise ValueError(f'the mesh is over {mesh.device_type!r} devices '
+                         f'but the ensemble is on {device_type!r}')
+    data = (mesh.get_local_rank(data_axis), mesh[data_axis].size(),
+            mesh.get_group(data_axis)) if data_axis in names else (0, 1,
+                                                                   None)
+    return _EnsemblePart(mesh.get_local_rank(member_axis),
+                         mesh[member_axis].size(),
+                         mesh.get_group(member_axis), *data)
+
+
+def _draws_dropout(net):
+    return any((isinstance(m, Dropout) and m.rate > 0)
+               or (isinstance(m, DropPath) and m.drop_prob > 0)
+               for m in net.modules())
+
+
 def _stack_where(stacked):
     """The stack's device and dtype (float32; float64 in a reference run),
     which its inputs are given."""
@@ -213,19 +287,27 @@ def init_ensemble(model, n_members, seed=0, mesh=None,
     seed derived from (`seed`, k), and return their parameters stacked: a
     dict from parameter name (`net.named_parameters()`) to an [M, ...]
     tensor on `device`, the port's form of the JAX package's stacked
-    pytree (the bits differ from JAX's `random.split`). A model with batch
-    norm raises, as in the JAX package; `mesh` and spatio-temporal models
-    raise naming ROADMAP item 10."""
-    if mesh is not None:
-        raise not_ported('init_ensemble(mesh=...)', 10, 3)
+    pytree (the bits differ from JAX's `random.split`). With `mesh` (an
+    ensemble mesh) it returns this rank's members alone, the M / n members
+    at its coordinate on the `member_axis` dim, each with the weights its
+    seed gives without a mesh (dl4ds_tpu/parallel.py:481-505); M must
+    divide by the dim's size. A model with batch norm raises, as in the
+    JAX package; a spatio-temporal model raises naming ROADMAP item 10."""
     _check_ensemble_model(model, 'init_ensemble')
+    device = resolve_device(device)
+    part = _ensemble_part(mesh, member_axis, None, device.type)
+    if n_members % part.n_member:
+        raise ValueError(
+            f'{n_members} members not divisible by the {member_axis!r} '
+            f'axis size {part.n_member}')
+    local = n_members // part.n_member
+    members = range(part.member * local, (part.member + 1) * local)
     if (model.config or {}).get('normalization') == 'bn':
         raise ValueError('ensemble training supports parameter-only models '
                          '(batch-norm statistics are per-member mutable '
                          'state); build the model without batch norm')
-    device = resolve_device(device)
     nets = [model.init(int(np.random.SeedSequence((seed, k)).generate_state(
-        1, np.uint64)[0]), device=device) for k in range(n_members)]
+        1, np.uint64)[0]), device=device) for k in members]
     params, _ = stack_module_state(nets)
     return {name: p.detach().contiguous() for name, p in params.items()}
 
@@ -254,19 +336,33 @@ def make_ensemble_step(model, mesh=None, tx=None, loss='mae',
         with lr 1e-4, optax.adam(1e-4)'s settings);
       step(stacked, opt_state, x, y, key, aux=None) -> (stacked, opt_state,
         losses[M]), updating the stacked tensors in place;
-      axis_size: 1, the members a step holds being the stack's M.
+      axis_size: the mesh's `member_axis` size (1 without a mesh).
     x is [B, ...model.input_shape], y the matching HR batch, aux required
     iff the model has an aux branch (`model.aux_shape`). `key` is a
     `torch.Generator` on the stack's device or an int seed: with
     `bootstrap=True` each member trains on its own resample of the batch,
     drawn on the device from it, and the dropout draws come from it under
-    vmap's randomness='different'. `mesh` raises naming ROADMAP item 10."""
-    if mesh is not None:
-        raise not_ported('make_ensemble_step(mesh=...)', 10, 3)
+    vmap's randomness='different'.
+
+    With `mesh` (an ensemble mesh, `distributed.ensemble_mesh()`) `stacked`
+    is this rank's members (`init_ensemble(mesh=)`) and every rank passes
+    the same x, y, aux and key (dl4ds_tpu/parallel.py:508-622). Every rank
+    draws the global [M, B] bootstrap indices and takes its members' rows,
+    so that an ('ensemble',) mesh trains each member of a dropout-free
+    model as the step without a mesh does. A `data_axis` dim gives each
+    rank its shard of the batch, B / n rows, which the bootstrap resamples
+    within (JAX's stratified bootstrap), and averages each member's loss
+    and gradients over the dim before the update; the loss sees the shard
+    alone, as in JAX's `shard_map`. A model with dropout draws, under a
+    mesh, from a generator seeded from one draw of `key` and this rank's
+    coordinates, so that no two ranks share masks. The returned losses are
+    all M members', gathered over the `member_axis` dim in member order."""
     _check_ensemble_model(model, 'make_ensemble_step')
     lossf = checkarg_loss(loss)
     tx = _adam if tx is None else tx
     needs_aux = model.aux_shape is not None
+    axis_size = _ensemble_part(mesh, member_axis, data_axis,
+                               getattr(mesh, 'device_type', None)).n_member
 
     def step(stacked, opt_state, x, y, key, aux=None):
         if needs_aux and aux is None:
@@ -279,15 +375,34 @@ def make_ensemble_step(model, mesh=None, tx=None, loss='mae',
             raise ValueError('opt_state is not the optimizer of this stack; '
                              'make it with init_opt(stacked)')
         dev, dtype = _stack_where(stacked)
+        part = _ensemble_part(mesh, member_axis, data_axis, dev.type)
         x, y = _on(x, dev, dtype), _on(y, dev, dtype)
         aux = _on(aux, dev, dtype) if needs_aux else None
+        m = len(next(iter(stacked.values())))
+        if x.shape[0] % part.n_data:
+            raise ValueError(f'batch {x.shape[0]} not divisible by the '
+                             f'{data_axis} axis size {part.n_data}')
+        shard = x.shape[0] // part.n_data
+        rows = slice(part.data * shard, (part.data + 1) * shard)
+        x, y = x[rows], y[rows]
+        aux = aux[rows] if aux is not None else None
         gen = (key if isinstance(key, torch.Generator)
                else torch.Generator(device=dev).manual_seed(int(key)))
         net = _base_net(model, dev).train()
         idx = None
         if bootstrap:
-            b, m = x.shape[0], len(next(iter(stacked.values())))
-            idx = torch.randint(0, b, (m, b), generator=gen, device=dev)
+            # the global [M, n_data, B / n_data] draw (without a mesh the
+            # [M, B] one), this rank's members and data shard
+            idx = torch.randint(0, shard, (m * part.n_member, part.n_data,
+                                           shard), generator=gen, device=dev)
+            idx = idx[part.member * m:(part.member + 1) * m, part.data]
+        drop = gen
+        if part.member_group is not None and _draws_dropout(net):
+            word = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                     device=dev).item())
+            drop = torch.Generator(device=dev).manual_seed(int(
+                np.random.SeedSequence([word, part.member, part.data])
+                .generate_state(1, np.uint64)[0]))
 
         def member_loss(params, x, y, aux, idx):
             if idx is not None:
@@ -302,7 +417,7 @@ def make_ensemble_step(model, mesh=None, tx=None, loss='mae',
             in_dims=(0, None, None, None, 0 if bootstrap else None),
             randomness='different')
         try:
-            with use_dropout_generator(net, gen):
+            with use_dropout_generator(net, drop):
                 grads, losses = fn(params, x, y, aux, idx)
         finally:
             net.eval()
@@ -311,15 +426,23 @@ def make_ensemble_step(model, mesh=None, tx=None, loss='mae',
             # a fused optimizer takes each gradient in its parameter's layout
             p.grad = (g if g.stride() == p.stride()
                       else torch.empty_like(p).copy_(g))
+        losses = losses.detach()
+        if part.data_group is not None:
+            distributed.average_gradients(list(stacked.values()),
+                                          part.data_group)
+            torch.distributed.all_reduce(losses, group=part.data_group)
+            losses.div_(part.n_data)
         opt_state.step()
         for p in stacked.values():
             p.grad = None
-        return stacked, opt_state, losses.detach()
+        if part.member_group is not None:
+            losses = distributed.all_gather_rows(losses, part.member_group)
+        return stacked, opt_state, losses
 
     def init_opt(stacked):
         return tx(list(stacked.values()))
 
-    return EnsembleStep(step, init_opt, 1)
+    return EnsembleStep(step, init_opt, axis_size)
 
 
 def predict_ensemble(model, stacked_variables, x, aux=None, mesh=None,
@@ -329,12 +452,15 @@ def predict_ensemble(model, stacked_variables, x, aux=None, mesh=None,
     numpy; std the population's, as `jnp.std`) -- the downscaled field and
     its epistemic uncertainty map. With `return_members=True` the member
     stack [M, N, H, W, C] comes third, the input of
-    `metrics.crps_ensemble` and `metrics.compute_prob_metrics`. `mesh`
-    raises naming ROADMAP item 10."""
-    if mesh is not None:
-        raise not_ported('predict_ensemble(mesh=...)', 10, 3)
+    `metrics.crps_ensemble` and `metrics.compute_prob_metrics`. With
+    `mesh` (an ensemble mesh) `stacked_variables` is this rank's members:
+    each rank serves its members on the whole `x`, and an all-gather over
+    the `member_axis` dim builds [M, N, H, W, C] in member order on every
+    rank, from which every rank computes the statistics
+    (dl4ds_tpu/parallel.py:625-676)."""
     _check_ensemble_model(model, 'predict_ensemble')
     dev, dtype = _stack_where(stacked_variables)
+    part = _ensemble_part(mesh, member_axis, None, dev.type)
     x = _on(x, dev, dtype)
     aux = _on(aux, dev, dtype) if aux is not None else None
     net = _base_net(model, dev)
@@ -343,6 +469,8 @@ def predict_ensemble(model, stacked_variables, x, aux=None, mesh=None,
         outs = torch.func.vmap(
             lambda p: functional_call(net, p, (x, aux)),
             randomness='same')(params).float()
+    if part.member_group is not None:
+        outs = distributed.all_gather_rows(outs, part.member_group)
     mean = outs.mean(dim=0).cpu().numpy()
     std = outs.std(dim=0, correction=0).cpu().numpy()
     if return_members:

@@ -28,6 +28,21 @@ generator advances on the commit. In a bfloat16 model the losses keep the
 JAX package's dtypes: the BCEs are bfloat16 (their clip bounds rounded to
 bfloat16, as JAX's weak typing rounds them, so a D output of 1.0 gives
 NaN), the pixel loss and G's total float32.
+
+Data parallelism (`mesh`, `distributed.global_mesh()`: one process a
+device) runs the JAX trainer's fused step sharded over 'data'
+(dl4ds_tpu/training/cgan.py:139-155, 396-470): every rank draws the same
+global plan (`global_batch_size` wide) from `seed` and builds its columns
+of it; the step runs within `distributed.batch_group`, so that a DSSIM
+pixel loss takes its range over the global batch, and on each commit one
+mean all-reduce of G's and D's gradients together
+(`distributed.average_gradients`, one flat buffer) precedes both Adams.
+The rates are not scaled (the JAX CGAN trainer applies no Goyal scaling).
+The four losses are averaged over the ranks, and each rank computes the
+whole test loss, so every rank records the same values; the first worker
+alone prints and writes checkpoints, `losses.npy` and results, the others
+waiting for its checkpoints. Each rank's dropout masks, in both networks,
+come from its own generator, seeded from (seed, rank).
 """
 
 import copy
@@ -37,16 +52,17 @@ import warnings
 import numpy as np
 import torch
 
+from .. import distributed
 from ..dataloader import BatchSynthesizer, HostStreamer
 from ..models import build_model, residual_discriminator
 from ..models.blocks import (BatchNorm, set_dropout_generator,
                              use_dropout_generator, _rounded)
 from ..models.nets import _mean
 from ..compat import import_keras_weights
-from ..utils import Timing, not_ported, resolve_device
+from ..utils import Timing, resolve_device
 from .base import Trainer
 from .schedules import cosine_decay_schedule, warmup_cosine_decay_schedule
-from .supervised import StepRunner, _cpu
+from .supervised import StepRunner, _cpu, _rank_seed
 
 __all__ = ['CGANTrainer', 'load_checkpoint', 'train_step', 'generator_loss',
            'discriminator_loss']
@@ -159,9 +175,12 @@ class CGANTrainer(Trainer):
     'cosine' (each rate decayed to 0 over the run), 'warmup_cosine' (a
     ramp from 0 over `warmup_steps` updates, 0 meaning a twentieth of the
     run, then the decay) or a callable of the update count, for both.
-    `model_list` and `gpu_memory_growth` are accepted and do nothing. Not
-    ported: `mesh` and `devices` (ROADMAP item 10, part 3; the supervised
-    trainer has them). `init_weights` loads a
+    `model_list` and `gpu_memory_growth` are accepted and do nothing.
+    `mesh` (the one dim 'data') trains data-parallel over the process
+    group, `batch_size` being a rank's batch (see the module's docstring);
+    a 'model' or 'space' dim raises the JAX trainer's NotImplementedError.
+    `devices=[d]` selects `d`; a longer list raises, one process driving
+    one device. `init_weights` loads a
     reference Keras checkpoint into the generator
     (`compat.import_keras_weights`); the discriminator starts fresh.
     `data_in_hbm=False` streams the training split from host RAM or a
@@ -190,9 +209,6 @@ class CGANTrainer(Trainer):
                  data_in_hbm=True, terminate_on_nan=True,
                  gradient_accumulation_steps=1, ema_decay=0.0,
                  lr_schedule=None, warmup_steps=0, init_weights=None):
-        if mesh is not None or devices is not None:
-            raise not_ported('`mesh` and `devices` in CGANTrainer '
-                             '(multi-GPU adversarial training)', 10, 3)
         super().__init__(
             backbone=backbone, upsampling=upsampling, data_train=data_train,
             data_train_lr=data_train_lr, time_window=time_window, loss=loss,
@@ -247,18 +263,31 @@ class CGANTrainer(Trainer):
         self.model = None
         self.net = None
 
+    def _setup_mesh(self, mesh):
+        """The base class's data mesh; a 'model' or 'space' dim is the JAX
+        trainer's refusal (dl4ds_tpu/training/cgan.py:151-154)."""
+        names = set(getattr(mesh, 'mesh_dim_names', None) or ())
+        if names & {'model', 'space'}:
+            raise NotImplementedError(
+                "2-D ('model'/'space') meshes are routed through "
+                'SupervisedTrainer; the CGAN trainer supports the 1-D '
+                "('data',) mesh")
+        super()._setup_mesh(mesh)
+
     # ------------------------------------------------------------------
     def setup_datagen(self):
         """The batch source of the training split: the device-resident
         synthesizer, or with `data_in_hbm=False` the host streamer seeded
-        from `seed` (dl4ds_tpu/training/cgan.py:317-330)."""
+        from `seed` (dl4ds_tpu/training/cgan.py:317-330); under a mesh
+        each plans the global batch and builds this rank's part."""
         common = dict(upsampling=self.upsampling, scale=self.scale,
                       batch_size=self.global_batch_size,
                       patch_size=self.patch_size,
                       time_window=self.time_window,
                       static_vars=self.static_vars,
                       predictors=self.predictors_train,
-                      interpolation=self.interpolation, device=self.device)
+                      interpolation=self.interpolation, device=self.device,
+                      shard=(self.rank, self.n_data_shards))
         if self.data_in_hbm:
             self.ds_train = BatchSynthesizer(
                 self.data_train, self.data_train_lr, **common)
@@ -343,7 +372,9 @@ class CGANTrainer(Trainer):
         the update count and the accumulation's mini-step, the gradient
         accumulators, the EMA generator (sharing the generator's buffers;
         it starts at its initial parameters) and the dropout generator on
-        the device, seeded from `seed`, which both networks draw from."""
+        the device, seeded from (`seed`, rank) (`seed` itself without a
+        mesh and on rank 0), which both networks draw from. The rates are
+        the given ones under a mesh too, as in the JAX trainer."""
         dev = self.device
         lrs = self.learning_rates
         if isinstance(lrs, (tuple, list)) and len(lrs) > 1:
@@ -367,7 +398,7 @@ class CGANTrainer(Trainer):
         self.g_optimizer = _adam(self._g_params, self._rates[0][1], dev)
         self.d_optimizer = _adam(self._d_params, self._rates[1][1], dev)
         self.dropout_generator = torch.Generator(device=dev).manual_seed(
-            int(self.seed))
+            _rank_seed(self.seed, self.rank))
         set_dropout_generator(self.train_net, self.dropout_generator)
         self.ema_net = None
         if self.ema_decay > 0:
@@ -417,12 +448,15 @@ class CGANTrainer(Trainer):
         running mean of the microbatch gradients of both networks
         (optax.MultiSteps), and on the commit both updates at their
         scheduled rates and the generator's EMA (dl4ds_tpu/training/
-        cgan.py:68-118, base.py:29-45). Device work only; returns the four
-        losses as one float32 device tensor."""
+        cgan.py:68-118, base.py:29-45). Under a mesh the passes run within
+        `distributed.batch_group` and the commit averages both networks'
+        gradients over the ranks first. Device work only; returns this
+        rank's four losses as one float32 device tensor."""
         self.g_optimizer.zero_grad(set_to_none=True)
         self.d_optimizer.zero_grad(set_to_none=True)
-        losses = torch.stack([v.detach().float() for v in gan_gradients(
-            self.gen_net, self.disc_net, batch, self.lossf)])
+        with distributed.batch_group(self.data_group):
+            losses = torch.stack([v.detach().float() for v in gan_gradients(
+                self.gen_net, self.disc_net, batch, self.lossf)])
         with torch.no_grad():
             if self._acc is not None:
                 grads = [p.grad for p in self._params]
@@ -435,6 +469,8 @@ class CGANTrainer(Trainer):
                     return losses
                 torch._foreach_zero_(self._acc)
                 self._mini.zero_()
+            if self.data_group is not None:
+                distributed.average_gradients(self._params, self.data_group)
             self._set_rate()
             self.g_optimizer.step()
             self.d_optimizer.step()
@@ -499,7 +535,7 @@ class CGANTrainer(Trainer):
             if self.verbose:
                 print(f'\nEpoch {epoch + 1}/{self.epochs}')
             self.train_net.train()
-            self.train_losses = (
+            self.train_losses = self._reduce_mean(
                 self.runner.train(self.ds_train.plan(generator, steps))
                 if self.data_in_hbm
                 else self.runner.train_stream(self.ds_train, steps))
@@ -529,7 +565,7 @@ class CGANTrainer(Trainer):
                 self._save_gan_checkpoint(f'epoch-{epoch + 1}')
         if self.checkpoints_frequency > 0:
             self._save_gan_checkpoint('final')
-        if self.save_loss_history:
+        if self.save_loss_history and self.running_on_first_worker:
             os.makedirs(self.save_path, exist_ok=True)
             np.save(self.save_path + 'losses.npy',
                     np.array((self.gentotal, self.gengan, self.gen_pxloss,
@@ -551,7 +587,9 @@ class CGANTrainer(Trainer):
         chunks of min(batch_size, n_test) samples weighted by their size
         (dl4ds_tpu/training/cgan.py:484-517), run eagerly; with
         `patch_size` the crops are drawn from a CPU generator seeded 0 (the
-        JAX package draws its own)."""
+        JAX package draws its own). Under a mesh every rank computes it
+        whole (the JAX trainer, on the first worker alone), the crops
+        being one sequence of draws, so that the ranks hold one value."""
         ds_test = BatchSynthesizer(
             self.data_test, self.data_test_lr, upsampling=self.upsampling,
             scale=self.scale, batch_size=1, patch_size=self.patch_size,
@@ -581,7 +619,11 @@ class CGANTrainer(Trainer):
         """The training state under save_path/checkpoints/`name`
         (dl4ds_tpu/training/cgan.py:524-536): both networks' weights, both
         optimizers' states (with the accumulated gradients), the step and
-        the EMA generator, as the port's checkpoint file."""
+        the EMA generator, as the port's checkpoint file, written by the
+        first worker while the others wait."""
+        if not self.running_on_first_worker:
+            self._barrier()
+            return
         n_g = len(self._g_params)
         acc = self._acc or None
         payload = {
@@ -598,11 +640,13 @@ class CGANTrainer(Trainer):
             payload['generator_ema'] = _cpu(self.ema_net.state_dict())
         self._checkpoint_save(os.path.abspath(os.path.join(
             self.savecheckpoint_path, 'checkpoints', name)), payload)
+        self._barrier()
 
     @torch.no_grad()
     def _restore_gan_checkpoint(self, path):
         """Load a checkpoint of `_save_gan_checkpoint` into the trainer's
-        tensors in place (dl4ds_tpu/training/cgan.py:539-560)."""
+        tensors in place (dl4ds_tpu/training/cgan.py:539-560); under a mesh
+        every rank reads the first worker's."""
         payload = self._checkpoint_load(path)
         self.gen_net.load_state_dict(payload['generator'])
         self.disc_net.load_state_dict(payload['discriminator'])

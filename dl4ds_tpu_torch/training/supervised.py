@@ -40,7 +40,8 @@ columns of it; the rate is scaled by the number of ranks (Goyal et al.,
 but for a callable schedule); inside the step the batch norms take the
 global batch's moments and the DSSIM losses its range
 (`distributed.batch_group`), and on each commit one mean all-reduce of the
-gradients, through one flat buffer, precedes Adam (NCCL's average on the
+gradients, through one flat buffer (`distributed.average_gradients`),
+precedes Adam (NCCL's average on the
 card, captured in the step's graph; gloo's sum, divided, on the CPU). The train, validation and test losses are
 averaged over the ranks, so every rank keeps the same `fithist` and
 `test_loss` and stops at the same epoch; the first worker alone prints
@@ -384,7 +385,7 @@ class SupervisedTrainer(Trainer):
                 torch._foreach_zero_(self._acc)
                 self._mini.zero_()
             if self.data_group is not None:
-                self._reduce_grads()
+                distributed.average_gradients(self._params, self.data_group)
             self._set_rate()
             self.optimizer.step()
             self._count.add_(1)
@@ -393,30 +394,6 @@ class SupervisedTrainer(Trainer):
                 torch._foreach_add_(self._ema, self._params,
                                     alpha=1 - self.ema_decay)
         return loss.detach()
-
-    def _reduce_grads(self):
-        """The gradients averaged over the ranks: one all-reduce of one
-        flat buffer, each gradient laid in it in its memory order, whose
-        views in the parameters' layouts (the fused Adam's condition)
-        become the gradients (device work only, captured in the step's
-        graph)."""
-        params = [p for p in self._params if p.grad is not None]
-        for p in params:
-            if not (_dense(p.grad) and _layout(p.grad) == _layout(p)):
-                raise RuntimeError(f'a gradient of shape {tuple(p.shape)} '
-                                   f'is not laid out as its parameter')
-        flat = torch.cat([p.grad.as_strided((p.numel(),), (1,))
-                          for p in params])
-        dist = torch.distributed
-        if dist.get_backend(self.data_group) == 'nccl':
-            # NCCL's average: one collective, a kernel even at one rank
-            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=self.data_group)
-        else:
-            # gloo has no average
-            dist.all_reduce(flat, group=self.data_group)
-            flat.div_(self.n_data_shards)
-        for p, v in zip(params, flat.split([p.numel() for p in params])):
-            p.grad = v.as_strided(p.shape, p.stride())
 
     def _advance(self, commit):
         """The host's count of the step just run: the mini-step, and the
@@ -707,22 +684,6 @@ def _season_tables(season_ids, time_metadata, splits, time_window):
                          "test) tuple of datetime-like arrays or "
                          "'auto'")
     return tuple(season_ids_from_time(t, time_window) for t in time_metadata)
-
-
-def _layout(t):
-    """The (stride, size) of t's dims longer than 1, innermost first: what
-    fixes the order of its elements in memory."""
-    return sorted((st, n) for n, st in zip(t.shape, t.stride()) if n > 1)
-
-
-def _dense(t):
-    """Whether t's elements fill t.numel() consecutive slots of memory."""
-    expected = 1
-    for st, n in _layout(t):
-        if st != expected:
-            return False
-        expected *= n
-    return True
 
 
 def _rank_seed(seed, rank):

@@ -6,11 +6,16 @@ trainer over a 2-process gloo group on the CPU, without JAX.
 reads the JAX references from the .npz file REFS (written by the test
 process) and writes its results to OUT/rank<RANK>.npz and, case by case,
 'ok' or the traceback to OUT/rank<RANK>.json. Every case runs on both
-ranks in the same order, so that their collectives pair up.
+ranks in the same order, so that their collectives pair up. `run_cases`
+and `spawn` serve the other workers of this kind
+(`_torch_dp_cgan_worker.py`, `_torch_dp_serving_worker.py`): `spawn`
+starts a worker's ranks from the test process and reads their results.
 """
 
 import json
 import os
+import socket
+import subprocess
 import sys
 import traceback
 
@@ -210,6 +215,12 @@ CASES = [case_api, case_steps, case_run, case_dropout]
 
 
 def main(argv):
+    run_cases(argv, CASES)
+
+
+def run_cases(argv, cases):
+    """Open the gloo group of RANK WORLD PORT (argv[1:4]), run `cases` with
+    the references of argv[4], and write the results under argv[5]."""
     rank, world, port = int(argv[1]), int(argv[2]), int(argv[3])
     refs, out = np.load(argv[4]), argv[5]
     torch.set_num_threads(1)
@@ -220,7 +231,7 @@ def main(argv):
     distributed.initialize(f'127.0.0.1:{port}', world, rank, device='cpu',
                            timeout=GLOO_TIMEOUT)
     try:
-        for case in CASES:
+        for case in cases:
             try:
                 case(rank, world, refs, out, res)
                 status[case.__name__] = 'ok'
@@ -232,6 +243,52 @@ def main(argv):
     np.savez(os.path.join(out, f'rank{rank}.npz'), **res)
     with open(os.path.join(out, f'rank{rank}.json'), 'w') as fh:
         json.dump(status, fh)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def spawn(script, refs, world, timeout):
+    """Run the ranks of the worker `script` on the references file `refs`
+    (a pathlib.Path), their results beside it, one thread each; returns
+    [(status, results)] by rank, and fails if a rank did."""
+    out = refs.parent
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT',
+                        'LOCAL_RANK')}
+    env.update(OMP_NUM_THREADS='1', MKL_NUM_THREADS='1')
+    procs = [subprocess.Popen(
+        [sys.executable, script, str(r), str(world), str(port), str(refs),
+         str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f'rank {r} failed:\n{log}'
+    results = []
+    for r in range(world):
+        with open(out / f'rank{r}.json') as fh:
+            status = json.load(fh)
+        results.append((status, dict(np.load(out / f'rank{r}.npz'))))
+    return results
+
+
+def case_results(ranks, name):
+    """The ranks' results of a case that every rank ran to its end."""
+    for r, (status, _) in enumerate(ranks):
+        assert status[name] == 'ok', f'rank {r}, {name}:\n{status[name]}'
+    return [res for _, res in ranks]
 
 
 if __name__ == '__main__':

@@ -532,8 +532,11 @@ def _parameters(fn):
 
 def test_signature_checks_and_refusals(tmp_path):
     """The JAX trainer's signature (`device`'s default 'cuda' apart), its
-    checks, the bn refusal, the items not ported, `init_weights` reaching
-    the Keras import, and no GPU without device='cpu'."""
+    checks, the bn refusal, the mesh checks (a mesh that is not a
+    DeviceMesh, two `devices` in one process, and a 'model' or 'space' dim
+    with the JAX trainer's NotImplementedError; the data mesh itself is
+    tests/test_torch_distributed_cgan.py's), `init_weights` reaching the
+    Keras import, and no GPU without device='cpu'."""
     want = [p if p[0] != 'device' else p[:2] + ('cuda',)
             for p in _parameters(dds.CGANTrainer.__init__)]
     assert _parameters(tds.CGANTrainer.__init__) == want
@@ -547,9 +550,17 @@ def test_signature_checks_and_refusals(tmp_path):
                     (dict(predictors_train=np.zeros(1)), TypeError)):
         with pytest.raises(err):
             _trainer(data, **kw)
-    for kw, item in ((dict(mesh=object()), 10), (dict(devices=[0]), 10)):
-        with pytest.raises(NotImplementedError, match=f'item {item}'):
+    stand_in = types.SimpleNamespace(mesh_dim_names=('data', 'model'),
+                                     device_type='cpu')
+    for kw, err, match in (
+            (dict(mesh=object()), TypeError, 'DeviceMesh'),
+            (dict(devices=['cpu', 'cpu']), ValueError, 'one process a '
+                                                       'device'),
+            (dict(mesh=stand_in), NotImplementedError,
+             'routed through SupervisedTrainer')):
+        with pytest.raises(err, match=match):
             _trainer(data, **kw)
+    assert _trainer(data, devices=['cpu']).device == torch.device('cpu')
     with pytest.raises(ValueError, match='exhausted'):
         _trainer(data, init_weights=[np.zeros((3, 3, 1, 8), 'f')]
                  ).setup_model()

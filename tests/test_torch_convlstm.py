@@ -553,10 +553,14 @@ def test_predict_time_window_is_needed_and_only_for_recurrent_models(
     dict(tile=32, mesh=object()), dict(mesh=object()), dict(quantize='int8'),
     dict(spatial_mesh=object()), dict(tile=32, halo=8, quantize='int8')])
 def test_unported_recurrent_predict_modes_raise(data, rec_models, kwargs):
-    """Meshes (ROADMAP item 10) raise. Int8 serving (`quantize`, tiled or
-    not) has been ported since: those cases now serve the recurrent model
-    (its int8 sites; the ConvLSTM layers stay float, in K2), compared with
-    the JAX package in tests/test_torch_quantization.py."""
+    """`spatial_mesh` raises naming ROADMAP item 10, part 4. `mesh`, tiled
+    or not, has been ported since (the recurrent model against the JAX
+    package on a 2-device mesh in tests/test_torch_distributed_serving.py):
+    a mesh that is not a DeviceMesh is a TypeError. Int8 serving
+    (`quantize`, tiled or not) has been ported too: those cases now serve
+    the recurrent model (its int8 sites; the ConvLSTM layers stay float,
+    in K2), compared with the JAX package in
+    tests/test_torch_quantization.py."""
     if 'quantize' in kwargs and 'mesh' not in kwargs:
         hr, topo, mask, pred = data
         y = tds.predict(rec_models[1], hr, scale=SCALE, time_window=T,
@@ -564,6 +568,8 @@ def test_unported_recurrent_predict_modes_raise(data, rec_models, kwargs):
                         batch_size=3, device='cpu', **kwargs)
         assert y.shape == (N, HR, HR, 1) and np.isfinite(y).all()
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    err, match = ((NotImplementedError, 'item 10, part 4')
+                  if 'spatial_mesh' in kwargs else (TypeError, 'DeviceMesh'))
+    with pytest.raises(err, match=match):
         tds.predict(rec_models[1], data[0], scale=SCALE, time_window=T,
                     device='cpu', **kwargs)

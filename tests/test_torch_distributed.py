@@ -30,8 +30,6 @@ which the tests read:
 
 import json
 import os
-import socket
-import subprocess
 import sys
 import types
 
@@ -135,51 +133,16 @@ def refs(tmp_path_factory):
     return path, want
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
+_free_port = worker.free_port
 
 
 @pytest.fixture(scope='module')
 def ranks(refs):
     """Both ranks' results: [(status, results)] by rank."""
-    path, _ = refs
-    out = path.parent
-    port = _free_port()
-    env = {k: v for k, v in os.environ.items()
-           if k not in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT',
-                        'LOCAL_RANK')}
-    env.update(OMP_NUM_THREADS='1', MKL_NUM_THREADS='1')
-    procs = [subprocess.Popen(
-        [sys.executable, worker.__file__, str(r), str(WORLD), str(port),
-         str(path), str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env) for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f'rank {r} failed:\n{log}'
-    results = []
-    for r in range(WORLD):
-        with open(out / f'rank{r}.json') as fh:
-            status = json.load(fh)
-        results.append((status, dict(np.load(out / f'rank{r}.npz'))))
-    return results
+    return worker.spawn(worker.__file__, refs[0], WORLD, WORKER_TIMEOUT)
 
 
-def _case(ranks, name):
-    """The ranks' results of a case that both ran to its end."""
-    for r, (status, _) in enumerate(ranks):
-        assert status[name] == 'ok', f'rank {r}, {name}:\n{status[name]}'
-    return [res for _, res in ranks]
+_case = worker.case_results
 
 
 def test_ranks_import_neither_jax_nor_the_jax_package(ranks):
@@ -352,9 +315,11 @@ def test_a_model_or_space_dim_is_not_ported(dim):
 
 
 def test_other_refusals():
-    """A mesh of another device type, an unknown dim, two `devices`, the
-    CGAN trainer's mesh, `--mesh_shape data=3` in a launch of 2 and NCCL
-    without a card raise; one `devices` entry selects it."""
+    """A mesh of another device type, an unknown dim, two `devices`, a
+    'model' dim in the CGAN trainer's mesh (the JAX trainer's refusal; its
+    data mesh is ported, tests/test_torch_distributed_cgan.py),
+    `--mesh_shape data=3` in a launch of 2 and NCCL without a card raise;
+    one `devices` entry selects it."""
     with pytest.raises(ValueError, match="over 'cuda' devices"):
         _trainer(device='cpu', mesh=_stand_in_mesh(('data',), 'cuda'))
     with pytest.raises(ValueError, match="one dim 'data'"):
@@ -365,9 +330,10 @@ def test_other_refusals():
         _trainer(devices=['cpu', 'cpu'])
     assert _trainer(devices=['cpu']).device == torch.device('cpu')
     hr = np.zeros((8, 16, 16, 1), np.float32)
-    with pytest.raises(NotImplementedError, match='item 10, part 3'):
+    with pytest.raises(NotImplementedError,
+                       match='routed through SupervisedTrainer'):
         tds.CGANTrainer('resnet', 'spc', hr, hr, scale=4, device='cpu',
-                        mesh=_stand_in_mesh(('data',)))
+                        mesh=_stand_in_mesh(('data', 'model')))
     with pytest.MonkeyPatch.context() as m:
         m.setenv('WORLD_SIZE', str(WORLD))
         with pytest.raises(ValueError, match='needs 3 processes'):

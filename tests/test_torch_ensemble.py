@@ -216,7 +216,9 @@ def test_predict_ensemble_matches_jax_and_feeds_crps(trained):
 
 def test_refusals():
     """Batch norm is the JAX package's ValueError; spatio-temporal models
-    and meshes raise naming ROADMAP item 10."""
+    raise naming ROADMAP item 10, part 2. Meshes are ported
+    (tests/test_torch_distributed_serving.py): one that is not a
+    DeviceMesh is a TypeError."""
     bn = tds.net_postupsampling(**_kw(normalization='bn'))
     with pytest.raises(ValueError, match='batch-norm'):
         tpar.init_ensemble(bn, 2, device='cpu')
@@ -225,13 +227,15 @@ def test_refusals():
     for call in (lambda: tpar.init_ensemble(rec, 2, device='cpu'),
                  lambda: tpar.make_ensemble_step(rec),
                  lambda: tpar.predict_ensemble(rec, {}, x)):
-        with pytest.raises(NotImplementedError, match='item 10'):
+        with pytest.raises(NotImplementedError, match='item 10, part 2'):
             call()
     tm = tds.net_postupsampling(**_kw())
-    for call in (lambda: tpar.init_ensemble(tm, 2, mesh=object()),
+    stack = {'w': torch.zeros(2, 1)}
+    for call in (lambda: tpar.init_ensemble(tm, 2, mesh=object(),
+                                            device='cpu'),
                  lambda: tpar.make_ensemble_step(tm, object()),
-                 lambda: tpar.predict_ensemble(tm, {}, x, mesh=object())):
-        with pytest.raises(NotImplementedError, match='item 10'):
+                 lambda: tpar.predict_ensemble(tm, stack, x, mesh=object())):
+        with pytest.raises(TypeError, match='DeviceMesh'):
             call()
 
 

@@ -106,15 +106,21 @@ def test_batch_synthesizer_matches_jax(data):
     dict(quantize='int8', calibration_quantile=0.999),
     dict(quantize='int8', calibration=np.zeros((2, 16, 16, 4), np.float32))])
 def test_unported_predict_modes_raise(data, models, kwargs):
-    """Meshes (ROADMAP item 10, tiled or not, `halo` with them) raise;
-    tiling alone is ported (tests/test_torch_parallel.py). Int8 serving
-    (tiled or not, the `calibration*` arguments with it) has been ported
-    since: those cases now serve the model, or raise the JAX package's
-    ValueError where the aux model gets no `calibration_aux` (compared with
-    the JAX package in tests/test_torch_quantization.py)."""
+    """`spatial_mesh` (`halo` with it) raises naming ROADMAP item 10,
+    part 4. `mesh`, tiled or not, has been ported since (compared with the
+    JAX package on a 2-device mesh in
+    tests/test_torch_distributed_serving.py): a mesh that is not a
+    DeviceMesh is a TypeError. Int8 serving (tiled or not, the
+    `calibration*` arguments with it) has been ported too: those cases now
+    serve the model, or raise the JAX package's ValueError where the aux
+    model gets no `calibration_aux` (compared with the JAX package in
+    tests/test_torch_quantization.py)."""
     hr, topo, mask, pred = data
     if 'quantize' not in kwargs:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+        err, match = ((NotImplementedError, 'item 10, part 4')
+                      if 'spatial_mesh' in kwargs
+                      else (TypeError, 'DeviceMesh'))
+        with pytest.raises(err, match=match):
             tds.predict(models[1], hr, scale=SCALE, device='cpu', **kwargs)
         return
     kw = dict(scale=SCALE, static_vars=[topo, mask], predictors=[pred],

@@ -116,6 +116,24 @@ def test_attention_free_tiled_equals_untiled(time_window):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+def test_float_dispatches_run_the_real_windows_alone():
+    """Without a mesh and float, the last dispatch is short, as in JAX: a
+    ragged window count (2 grids of 19x21 at tile 8: 18 windows, batch 4)
+    runs 18 windows through the network, not 20 wrap-padded ones."""
+    tm = tds.net_postupsampling(**_spc(attention=True))
+    net = tm.init(0, device='cpu')
+    rows = []
+    hook = net.register_forward_pre_hook(
+        lambda mod, args: rows.append(args[0].shape[0]))
+    x = np.random.default_rng(5).standard_normal(
+        (2, 19, 21, 1)).astype(np.float32)
+    try:
+        tpar.predict_tiled(tm, net, x, tile=TILE, halo=HALO, batch_size=4)
+    finally:
+        hook.remove()
+    assert rows == [4, 4, 4, 4, 2]
+
+
 @pytest.mark.parametrize('name', ['spc_attention', 'spatiotemporal'])
 def test_predict_tile_routing_matches_jax(pairs, name):
     """`predict(tile=, halo=)` assembles the batch, tiles it and collapses
@@ -144,13 +162,14 @@ def test_receptive_field_radius_matches_jax(args):
 
 
 def test_raises(pairs):
-    """`mesh` (ROADMAP item 10) is not ported; `quantize` is
+    """`mesh` is ported (tests/test_torch_distributed_serving.py): one
+    that is not a DeviceMesh is a TypeError; `quantize` is ported
     (tests/test_torch_quantization.py), and a mode it does not know is the
     JAX package's ValueError; `pad_to_multiple` with `tile` is the JAX
     package's ValueError."""
     (jm, variables), (tm, net) = pairs['spc_attention']
     x = np.zeros((1, 16, 16, 1), np.float32)
-    with pytest.raises(NotImplementedError, match='item 10'):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         tpar.predict_tiled(tm, net, x, mesh=object())
     for pkg, pair in ((jpar, (jm, variables)), (tpar, (tm, net))):
         with pytest.raises(ValueError, match='mode'):
