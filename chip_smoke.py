@@ -358,7 +358,30 @@ Phases, each of which exits non-zero on failure:
      ('ensemble', 'data') mesh of (1, 1), K1's member-mode launches
      counted, losses, stacks and members equal bit for bit to the run
      without a mesh; the process group destroyed;
- 24. print the `kernels` JSON line, then, last, the device JSON line. In
+ 24. spatial parallelism at the card's count of one: (a) K1's band mode
+     (the gate on a band of rows with its mean over the whole grid, two
+     launches each way between which the ranks all-reduce [B, C] vectors)
+     at the flagship training step's 7 gates and the 7 serving gates, each
+     image cut into 2 and 4 bands in one process with the partial sums
+     added in place of the all-reduces: forward and backward against the
+     plain version in float64 and against fused K1 on the whole image
+     (f32), the mixed mode against its plain version on the same bands,
+     the same bits twice; timed at one band (the card's count) against
+     the plain version and fused K1, the bound by bytes; (b) phase 10's
+     flagship (dssim_mae) and phase 7's recresnet_spc trained by
+     `SupervisedTrainer(mesh=distributed.spatial_mesh(1, 1))` over a fresh
+     NCCL group of one rank and without a mesh (2 epochs of 4 and 3 steps,
+     cuDNN deterministic), each traced with every launch counter at 0 just
+     before: the band mode's stages (two a gate each way), K6, K2-train
+     and K3 in the trace and the wrappers' calls; losses and parameters
+     within SP_RTOL of the run without a mesh (the band mode sums in the
+     stream regime's order, the convolutions take their halo rows); NCCL's
+     kernels in one replay of the mesh step by name; both replays timed;
+     (c) `predict(spatial_mesh=)` of the flagship without aux inputs on 4
+     grids at one rank against `predict`, and
+     `make_spatial_sharded_step`'s loss and gradients at one rank against
+     the plain ones; the process group destroyed;
+ 25. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -372,7 +395,9 @@ Phases, each of which exits non-zero on failure:
      K2_convlstm_train_recdensenet, K3_convlstm_bptt_recdensenet,
      K1_channel_attention_stream_train, K1_channel_attention_dp_train,
      K6_ssim_dp_train, K2_convlstm_train_dp, K3_convlstm_bptt_dp,
-     K1_channel_attention_cgan_dp_train, K6_ssim_cgan_dp_train) is what
+     K1_channel_attention_cgan_dp_train, K6_ssim_cgan_dp_train,
+     K1_channel_attention_band_train, K6_ssim_space_train,
+     K2_convlstm_train_space, K3_convlstm_bptt_space) is what
      the device trace of its
      phase's run holds, and `wrapper_calls` what its wrapper
      counted (the warm-up calls and the capture: a replay calls no
@@ -663,13 +688,14 @@ def device_times(torch, fn, reps=20, l2_flush=None,
     return [s.elapsed_time(e) for s, e in events]
 
 
-def paired_ms(torch, kernel, plain, l2_flush):
+def paired_ms(torch, kernel, plain, l2_flush, **times):
     """Median device ms of the kernel and of its plain version, timed in
-    turns (plain, kernel, kernel, plain) so that clock drift falls on both."""
-    p1 = device_times(torch, plain, l2_flush=l2_flush)
-    k = (device_times(torch, kernel, l2_flush=l2_flush)
-         + device_times(torch, kernel, l2_flush=l2_flush))
-    p2 = device_times(torch, plain, l2_flush=l2_flush)
+    turns (plain, kernel, kernel, plain) so that clock drift falls on both;
+    `times` go to `device_times`."""
+    p1 = device_times(torch, plain, l2_flush=l2_flush, **times)
+    k = (device_times(torch, kernel, l2_flush=l2_flush, **times)
+         + device_times(torch, kernel, l2_flush=l2_flush, **times))
+    p2 = device_times(torch, plain, l2_flush=l2_flush, **times)
     return statistics.median(k), statistics.median(p1 + p2)
 
 
@@ -1585,6 +1611,7 @@ def phase_convlstm_split(torch, tds, report):
 
 def _counters(tds):
     """(name, function, attribute) of every launch counter of the port."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
     fcl = tds.fused_convlstm
     return [('K2-train', fcl, 'train_launches'),
             ('K2 inference', fcl, 'launches'), ('K3', fcl, 'bwd_launches'),
@@ -1592,7 +1619,10 @@ def _counters(tds):
             ('K1', tds.fused_channel_attention, 'launches'),
             ('K1 backward', tds.fused_channel_attention, 'bwd_launches'),
             ('K6', tds.fused_ssim_per_image, 'launches'),
-            ('K6 backward', tds.fused_ssim_per_image, 'bwd_launches')]
+            ('K6 backward', tds.fused_ssim_per_image, 'bwd_launches'),
+            ('K1 band', fo.fused_channel_attention_band, 'launches'),
+            ('K1 band backward', fo.fused_channel_attention_band,
+             'bwd_launches')]
 
 
 def _expected_launches(conv, layers, steps, eval_steps, itemsize=4,
@@ -1635,10 +1665,14 @@ def _training_config(backbone='resnet', upsampling='spc', **model):
 # match first; a call of the stream regime of K1 and of the tile regime of
 # K6's backward launches a second kernel (ca_stream_apply, ssim_pixels_bwd),
 # which is counted under None, so that a counter counts calls as its
-# wrapper does; a pair is chosen from by the kernel's last template flag
-# (BWD for ca_stream_sums, TRAIN for convlstm_tile); a chain step is K3's
+# wrapper does (K1's band mode: its forward's second stage launches
+# ca_band_gate and ca_band_apply, counted once); a pair is chosen from by
+# the kernel's last template flag (BWD for ca_stream_sums and the band
+# mode's, TRAIN for convlstm_tile); a chain step is K3's
 # (`chain_step`) or K4's (`split_chain`, the same tile under its own name)
 KERNEL_COUNTERS = (
+    ('ca_band_sums', ('K1 band', 'K1 band backward')),
+    ('ca_band_gate', 'K1 band'), ('ca_band_apply', (None, 'K1 band backward')),
     ('ca_fwd_resident', 'K1'), ('ca_bwd_resident', 'K1 backward'),
     ('ca_stream_sums', ('K1', 'K1 backward')), ('ca_stream_apply', None),
     ('ssim_image_bwd', 'K6 backward'), ('ssim_tiles_bwd', 'K6 backward'),
@@ -1723,8 +1757,8 @@ def _check_launches(tds, runner, label, per_step, replays, calls, kernels,
                  f'expected {replays[gname]}')
         step = per_step['eval' if gname in ('val', 'test') else 'train']
         for name in want:
-            want_calls[name] += step[name] * (WARMUP_CALLS + 1)
-            want[name] += step[name] * (WARMUP_CALLS + graph.replays)
+            want_calls[name] += step.get(name, 0) * (WARMUP_CALLS + 1)
+            want[name] += step.get(name, 0) * (WARMUP_CALLS + graph.replays)
     launches = _device_launches(tds, kernels)
     print(f'{label}: graphs {sorted(runner.graphs)} replayed '
           f'{ {g: c.replays for g, c in runner.graphs.items()} } times; '
@@ -1981,7 +2015,8 @@ def _graphed_speed(torch, tds, tr, steps, per_step, label,
         tr._row.zero_()
         graph.replay()
     replay_ms = statistics.median(device_times(torch, replay, reps=10))
-    want = {name: n * steps for name, n in per_step['train'].items()}
+    want = {name: per_step['train'].get(name, 0) * steps
+            for name, _, _ in _counters(tds)}
     for attempt in range(retraces + 1):
         kernels, busy_ms, span_ms = _replay_profile(torch, tr.runner,
                                                     plans[0])
@@ -8293,6 +8328,532 @@ def _dpx_kernel_rows(report):
                bwd_bound_ms=step['bwd_bound_ms'])]
 
 
+# phase 24: spatial parallelism at the card's count of one
+SP_BANDS = (2, 4)                   # band cuts of (a), in one process
+SP_STEPS, SP_REC_STEPS = 4, 3       # steps an epoch of (b)'s pairs
+# (b): the mesh run against the plain one: the losses relative, the first
+# step's gradients in norm; the parameters after the run in norm (Adam
+# steps a parameter whose gradient is near zero by up to its rate either
+# way, in two runs whose gradients differ in their last bits)
+SP_RTOL, SP_GRAD_RTOL, SP_PARAM_RTOL = 1e-3, 1e-4, 1e-2
+SP_SLEEP = 30_000_000               # (a): device_times' sleep, cycles
+SP_PREDICT_GRIDS = 4                # (c): LR grids of 128x128 served
+SP_STEP_BATCH, SP_STEP_LR = 4, 64   # (c): the standalone step's batch
+
+
+def _band_stages(torch, fo, x, weights, dy, n, mixed, plain=False):
+    """K1's band mode on x cut into n bands of rows (dim 1), the stages'
+    partial sums and dm added where the ranks' all-reduces add them:
+    [y, dx, dw1, db1, dw2, db2] of the whole image. `plain`: the plain
+    versions of the stages on the same tensors (float64 sums for float64
+    inputs), else the wrappers (the kernels on the card)."""
+    hw = x.shape[1] * x.shape[2]
+    xs = [b.contiguous() for b in x.chunk(n, dim=1)]
+    dys = [d.contiguous() for d in dy.chunk(n, dim=1)]
+    if plain:
+        acc = fo._acc_dtype(dy)
+        sums = sum(b.to(acc).sum(dim=(-3, -2)) for b in xs)
+        m, g = fo._gate_of_mean(sums / hw, *weights, mixed)
+        ys = [b.to(acc) * g[:, None, None, :] if mixed
+              else b * g.to(b.dtype)[:, None, None, :] for b in xs]
+        parts = [fo._partial_grads(b, *weights, d, m, g, mixed)
+                 for b, d in zip(xs, dys)]
+        dm = sum(p[0] for p in parts)
+        dxs = [fo._dx_of(b, d, g, dm, hw, mixed) for b, d in zip(xs, dys)]
+    else:
+        sums = sum(fo.ca_band_sums(b) for b in xs)
+        outs = [fo.ca_band_apply(b, sums, hw, *weights, mixed) for b in xs]
+        _, m, g = outs[0]
+        ys = [o[0] for o in outs]
+        parts = [fo.ca_band_grads(b, *weights, d, m, g, mixed)
+                 for b, d in zip(xs, dys)]
+        dm = sum(p[0] for p in parts)
+        dxs = [fo.ca_band_dx(b, d, g, dm, hw, mixed)
+               for b, d in zip(xs, dys)]
+    return ([torch.cat(ys, dim=1), torch.cat(dxs, dim=1)]
+            + [sum(p[k] for p in parts) for k in range(1, 5)])
+
+
+def _band_scales(torch, fo, x64, w64, dy64, ref):
+    """The scale each of `ref`'s tensors (y, dx, dw1, db1, dw2, db2) is
+    held to: max |ref|; at K1_CANCELLING the weight gradients' largest
+    sum of the samples' terms in magnitude (`_check_k1_backward`)."""
+    scales = [r.abs().max().item() for r in ref]
+    if tuple(x64.shape) == K1_CANCELLING:
+        mags = [torch.zeros_like(r) for r in ref[2:]]
+        for i in range(x64.shape[0]):
+            terms = fo._channel_attention_backward(x64[i:i + 1], *w64,
+                                                   dy64[i:i + 1])[1:]
+            for mag, t in zip(mags, terms):
+                mag += t.abs()
+        scales[2:] = [t.max().item() for t in mags]
+    return scales
+
+
+SP_NAMES = ('y', 'dx', 'dw1', 'db1', 'dw2', 'db2')
+
+
+def _check_band_case(torch, fo, x, weights, dy, label):
+    """(a) at one gate shape: the band stages over SP_BANDS cuts against
+    the plain version in float64 (f32: y within K1_TOL, each gradient
+    within K1_BWD_TOL of its scale) and on the same bands (mixed: y, db1,
+    db2 within BF16_F32_TOL of max |ref|, dx, dw1, dw2 within
+    BF16_STORED_TOL), against fused K1 on the whole image (f32, the same
+    tolerances), the same bits twice. Returns {check: error}."""
+    x64, dy64 = x.double(), dy.double()
+    w64 = [t.double() for t in weights]
+    ref = _band_stages(torch, fo, x64, w64, dy64, 1, False, plain=True)
+    scales = _band_scales(torch, fo, x64, w64, dy64, ref)
+    y_f, m_f, g_f = fo._launch(x, *weights)
+    fused = [y_f] + list(fo._launch_backward(x, *weights, dy, m_f, g_f))
+    errs = {}
+    for n in SP_BANDS:
+        got = _band_stages(torch, fo, x, weights, dy, n, False)
+        again = _band_stages(torch, fo, x, weights, dy, n, False)
+        xb = x.to(torch.bfloat16)
+        mixed = _band_stages(torch, fo, xb, weights, dy, n, True)
+        mixed_ref = _band_stages(torch, fo, xb, w64, dy64, n, True,
+                                 plain=True)
+        torch.cuda.synchronize()
+        for name, a, a2, r, scale in zip(SP_NAMES, got, again, ref, scales):
+            if not torch.equal(a, a2):
+                fail(f'K1 band {label} {n} bands {name}: two runs gave '
+                     f'different bits')
+            d = (a.double() - r).abs().max().item()
+            tol = K1_TOL['float32']['atol'] if name == 'y' \
+                else K1_BWD_TOL * scale
+            if not d <= tol:
+                fail(f'K1 band {label} {n} bands {name}: max|d| {d:.3e} '
+                     f'against the float64 plain version, tolerance '
+                     f'{tol:.3e}')
+            errs[f'{name}/{n}'] = d if name == 'y' or not scale \
+                else d / scale
+        for name, a, r in zip(SP_NAMES, mixed, mixed_ref):
+            tol = (BF16_F32_TOL if name in ('y', 'db1', 'db2')
+                   else BF16_STORED_TOL)
+            e = _rel_err(a, r)
+            if not e <= tol:
+                fail(f'K1 band mixed {label} {n} bands {name}: max|d| / '
+                     f'max|ref| {e:.3e} over {tol}')
+            errs[f'mixed {name}/{n}'] = e
+        for name, a, b, scale in zip(SP_NAMES, got, fused, scales):
+            d = (a.double() - b.double()).abs().max().item()
+            tol = (2 * K1_TOL['float32']['atol'] if name == 'y'
+                   else 2 * K1_BWD_TOL * scale)
+            if not d <= tol:
+                fail(f'K1 band {label} {n} bands {name}: max|d| {d:.3e} '
+                     f'against fused K1 on the whole image, tolerance '
+                     f'{tol:.3e}')
+            errs[f'vs fused {name}/{n}'] = (d if name == 'y' or not scale
+                                           else d / scale)
+    return errs
+
+
+def _band_gate_rows(torch, tds, shapes, label, flush):
+    """(a) K1's band mode at the gate `shapes`: checked
+    (`_check_band_case`), then timed at one band (what a rank of one runs:
+    the forward's sums and apply, the backward's partial gradients and dx)
+    against its plain version on the card (float32) in turns and against
+    fused K1 at the same shape; the bound by bytes (x read once, y or dx
+    written once, dy read once, the weights and their gradients)."""
+    from dl4ds_tpu_torch.ops import fused_ops as fo
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = []
+    for shape in shapes:
+        c = shape[-1]
+        cr = max(int(c / 4), 1)
+        x, weights, dy = _gate_case(torch, gen, dev, shape, cr, torch.float32)
+        errs = _check_band_case(torch, fo, x, weights, dy,
+                                f'{label} x{list(shape)}')
+        hw = shape[1] * shape[2]
+
+        def fwd():
+            return fo.ca_band_apply(x, fo.ca_band_sums(x), hw, *weights)
+
+        def plain_fwd():
+            m, g = fo._gate_of_mean(x.sum(dim=(1, 2)) / hw, *weights)
+            return x * g[:, None, None, :]
+        _, m, g = fwd()
+
+        def bwd():
+            dm, *dws = fo.ca_band_grads(x, *weights, dy, m, g)
+            return fo.ca_band_dx(x, dy, g, dm, hw), dws
+
+        def plain_bwd():
+            dm, *dws = fo._partial_grads(x, *weights, dy, m, g)
+            return fo._dx_of(x, dy, g, dm, hw), dws
+        quick = dict(sleep_cycles=SP_SLEEP)
+        ms, plain_ms = paired_ms(torch, fwd, plain_fwd, flush, **quick)
+        bwd_ms, bwd_plain_ms = paired_ms(torch, bwd, plain_bwd, flush,
+                                         **quick)
+        fused_ms = statistics.median(device_times(
+            torch, lambda: fo._launch(x, *weights), l2_flush=flush, **quick))
+        _, mf, gf = fo._launch(x, *weights)
+        fused_bwd_ms = statistics.median(device_times(
+            torch, lambda: fo._launch_backward(x, *weights, dy, mf, gf),
+            l2_flush=flush, **quick))
+        n_bytes = 2 * x.numel() * 4 + 4 * (2 * c * cr + c + cr)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(
+            shape=list(shape), cr=cr, bands=list(SP_BANDS),
+            max_abs_err=max(v for k, v in errs.items()
+                            if k.startswith('y/')),
+            errors=errs, ms=ms, plain_ms=plain_ms, fused_ms=fused_ms,
+            bound_ms=bound_ms, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+            fused_bwd_ms=fused_bwd_ms, bwd_bound_ms=k1_bwd_bound_ms(x, cr),
+            card=card_line()))
+        grads = max(v for k, v in errs.items() if k[0] == 'd')
+        mixed = max(v for k, v in errs.items() if k.startswith('mixed'))
+        print(f'K1 band {label} x{list(shape)} cr={cr}: {SP_BANDS} bands '
+              f'against float64, max|d| y {rows[-1]["max_abs_err"]:.2e}, '
+              f'gradients / scale {grads:.2e}, mixed max|d|/max|ref| '
+              f'{mixed:.2e}; one band forward {ms:.4f} ms (plain {plain_ms:.4f}, fused '
+              f'K1 {fused_ms:.4f}, bound {bound_ms:.4f} ms by bytes), '
+              f'backward {bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}, fused K1 '
+              f'{fused_bwd_ms:.4f}, bound {rows[-1]["bwd_bound_ms"]:.4f}); '
+              f'{card_line()}', flush=True)
+    return rows
+
+
+def _band_per_step(per_forward, ssim=True):
+    """A flagship step's launches under a 'space' dim: each gate's forward
+    two band stages and its backward two (`fused_channel_attention_band`'s
+    counts), no fused K1, K6 as without it."""
+    steps = _flagship_per_step(per_forward, ssim)
+    for kind, bwd in (('train', True), ('eval', False)):
+        steps[kind].update({'K1': 0, 'K1 backward': 0,
+                            'K1 band': 2 * per_forward,
+                            'K1 band backward': 2 * per_forward * bwd})
+    return steps
+
+
+def _sp_pair(torch, tds, mesh, config, label, steps, per_step, mesh_step):
+    """(b) the same run without a mesh and with `mesh` (a spatial mesh of
+    one NCCL rank), from one seed, each traced with every launch counter
+    at 0 just before (`_traced_run`) and its launches held against
+    `per_step` (the mesh run's `mesh_step`): fithist and test_loss within
+    SP_RTOL relative, the first step's gradients (`_sp_first_grads`)
+    within SP_GRAD_RTOL and the parameters and buffers after the run
+    within SP_PARAM_RTOL, each in the norm of the difference over the
+    plain run's norm (a zero-initialised bias whose gradient is near zero
+    takes Adam steps of either sign in two runs that differ in the last
+    bits: its own relative error, printed with the worst tensor's name, is
+    no criterion); the NCCL kernels of one replay of the mesh step and
+    both replays' times."""
+    import numpy as np
+    runs = {}
+    for name, m, want in (('plain', None, per_step),
+                          ('mesh', mesh, mesh_step)):
+        tr = tds.SupervisedTrainer(
+            batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+            steps_per_epoch=steps, validation_steps=TRAIN_VAL_STEPS,
+            test_steps=TRAIN_TEST_STEPS, mesh=m, **config)
+        run_s, calls, kernels = _traced_run(torch, tds, tr)
+        got = _check_launches(
+            tds, tr.runner, f'phase 24 ({label}, {name})', want,
+            {'step': TRAIN_EPOCHS * steps,
+             'val': TRAIN_EPOCHS * TRAIN_VAL_STEPS,
+             'test': TRAIN_TEST_STEPS}, calls, kernels)
+        runs[name] = dict(tr=tr, launches=got, calls=calls, run_s=run_s)
+    plain, sp = runs['plain']['tr'], runs['mesh']['tr']
+    if sp.space_group is None or sp.n_space != 1:
+        fail(f'phase 24 ({label}): the mesh trainer has no space group of '
+             f'one rank')
+    losses = (plain.fithist['loss'] + plain.fithist['val_loss']
+              + [plain.test_loss],
+              sp.fithist['loss'] + sp.fithist['val_loss'] + [sp.test_loss])
+    if not all(np.isfinite(v) for v in losses[1]):
+        fail(f'phase 24 ({label}): non-finite losses {sp.fithist}')
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(*losses))
+    a, b = _state_of(plain), _state_of(sp)
+    diff = sum(((a[n].double() - b[n].double()) ** 2).sum().item()
+               for n in a)
+    norm = sum((a[n].double() ** 2).sum().item() for n in a)
+    param_rel = (diff / norm) ** 0.5
+    worst = max(a, key=lambda n: (a[n].double() - b[n].double()).abs().max()
+                .item() / max(a[n].double().abs().max().item(), 1e-30))
+    worst_rel = ((a[worst].double() - b[worst].double()).abs().max().item()
+                 / max(a[worst].double().abs().max().item(), 1e-30))
+    grad_rel = _sp_first_grads(torch, tds, mesh, config)
+    print(f'phase 24 ({label}): mesh vs plain, {TRAIN_EPOCHS} epochs of '
+          f'{steps} steps at batch {TRAIN_BATCH}: losses max relative '
+          f'{loss_rel:.3e} (within {SP_RTOL} required), the first step\'s '
+          f'gradients |d| / |plain| {grad_rel:.3e} (within {SP_GRAD_RTOL}), '
+          f'parameters and buffers after the run {param_rel:.3e} (within '
+          f'{SP_PARAM_RTOL}; the worst tensor {worst} max|d|/max|ref| '
+          f'{worst_rel:.3e}); histories '
+          f'{sp.fithist}, test loss {sp.test_loss} (plain {plain.fithist}, '
+          f'{plain.test_loss})', flush=True)
+    if not (loss_rel <= SP_RTOL and grad_rel <= SP_GRAD_RTOL
+            and param_rel <= SP_PARAM_RTOL):
+        fail(f'phase 24 ({label}): the mesh run differs from the plain run '
+             f'by {loss_rel:.3e} in the losses, {grad_rel:.3e} in the first '
+             f'gradients, {param_rel:.3e} in the parameters')
+    names = {k: _kernel_names(torch, runs[k]['tr'].runner.graphs['step'],
+                              runs[k]['tr']) for k in runs}
+    extra = names['mesh'] - names['plain']
+    # at one rank NCCL's all-gathers, reduce-scatters and sums are device
+    # copies, beside any kernel of its own
+    nccl = {k: n for k, n in extra.items()
+            if 'nccl' in k.lower() or 'onerank' in k.lower()
+            or k == 'Memcpy DtoD'}
+    if not nccl:
+        fail(f'phase 24 ({label}): one replay of the mesh step runs no '
+             f'collective (its device work beyond the plain step\'s: '
+             f'{dict(extra)})')
+    replay_ms = {}
+    for k, run in runs.items():
+        graph, tr = run['tr'].runner.graphs['step'], run['tr']
+
+        def replay(graph=graph, tr=tr):
+            tr._row.zero_()
+            graph.replay()
+        replay_ms[k] = statistics.median(device_times(torch, replay,
+                                                      reps=DP_REPLAYS))
+    print(f'phase 24 ({label}): the collectives\' device work in one '
+          f'replay of the mesh step {nccl} ({sum(nccl.values())} a replay, '
+          f'by name); all its device work beyond the plain step\'s '
+          f'{dict(extra)}; one replay '
+          f'{replay_ms["mesh"]:.3f} ms with the mesh, '
+          f'{replay_ms["plain"]:.3f} ms without (median of {DP_REPLAYS}, '
+          f'CUDA events); {card_line()}', flush=True)
+    return dict(label=label, steps=steps, launches=runs['mesh']['launches'],
+                wrapper_calls=runs['mesh']['calls'],
+                plain_launches=runs['plain']['launches'],
+                loss_rel=loss_rel, first_grad_rel=grad_rel,
+                param_rel=param_rel, worst_tensor=worst,
+                worst_tensor_rel=worst_rel,
+                nccl_kernels=nccl, nccl_per_replay=sum(nccl.values()),
+                extra_kernels=dict(extra), replay_ms=replay_ms,
+                run_s={k: v['run_s'] for k, v in runs.items()},
+                card=card_line())
+
+
+def _sp_first_grads(torch, tds, mesh, config):
+    """(b) one eager training step of the trainer without a mesh and with
+    `mesh` from one seed on the same batch: the norm of the gradients'
+    difference over the norm of the plain step's gradients."""
+    trainers = []
+    for m in (None, mesh):
+        tr = tds.SupervisedTrainer(batch_size=TRAIN_BATCH, epochs=1, mesh=m,
+                                   **config)
+        tr.setup_datagen()
+        tr.setup_model()
+        tr.setup_optimizer()
+        tr.train_net.train()
+        trainers.append(tr)
+    gen = torch.Generator().manual_seed(0)
+    synth = trainers[0].ds_train
+    batch = synth(synth.epoch_indices(gen, steps=1)[0], generator=gen)
+    for tr in trainers:
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    pairs = [(a.grad.double(), b.grad.double()) for a, b in
+             zip(trainers[0]._params, trainers[1]._params)]
+    diff = sum(((a - b) ** 2).sum().item() for a, b in pairs)
+    return (diff / sum((a ** 2).sum().item() for a, _ in pairs)) ** 0.5
+
+
+def _sp_serving(torch, tds, mesh):
+    """(c) `predict(spatial_mesh=)` of the flagship without aux inputs at
+    one rank against `predict`, and `make_spatial_sharded_step` at one rank
+    against the plain loss and gradients of the same network."""
+    import numpy as np
+    from dl4ds_tpu_torch import parallel
+    from dl4ds_tpu_torch.models import build_model
+    model = build_model('resnet', 'spc', scale=SCALE, n_channels=1,
+                        n_aux_channels=0, lr_size=(LR, LR),
+                        hr_size=(LR * SCALE, LR * SCALE),
+                        n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+                        attention=True)
+    net = model.init(24, device='cuda')
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal((SP_PREDICT_GRIDS, LR, LR, 1)).astype('float32')
+    counters = _counters(tds)
+    for _, fn, attr in counters:
+        setattr(fn, attr, 0)
+    y_sp = tds.predict((model, net), x, scale=SCALE, array_in_hr=False,
+                       spatial_mesh=mesh, batch_size=BATCH)
+    launches = {name: getattr(fn, attr) for name, fn, attr in counters}
+    y = tds.predict((model, net), x, scale=SCALE, array_in_hr=False,
+                    batch_size=BATCH)
+    pred_err = float(np.abs(y_sp - y).max())
+    if y_sp.shape != (SP_PREDICT_GRIDS, LR * SCALE, LR * SCALE, 1) or \
+            not np.isfinite(y_sp).all() or not pred_err <= \
+            PREDICT_TOL['atol']:
+        fail(f'phase 24 (c): predict(spatial_mesh=) {y_sp.shape}, max|d| '
+             f'{pred_err:.3e} from predict')
+    step = parallel.make_spatial_sharded_step(model, mesh, halo=8)
+    params = {k: v.detach().clone() for k, v in net.named_parameters()}
+    xs = rng.standard_normal((SP_STEP_BATCH, SP_STEP_LR, SP_STEP_LR, 1)
+                             ).astype('float32')
+    ys = rng.standard_normal((SP_STEP_BATCH, SP_STEP_LR * SCALE,
+                              SP_STEP_LR * SCALE, 1)).astype('float32')
+    loss, grads = step.loss_and_grads(params, xs, ys, 0)
+    net.train()
+    out = net(torch.from_numpy(xs).cuda(), None)
+    want = (out.float() - torch.from_numpy(ys).cuda()).abs().mean()
+    ref = torch.autograd.grad(want, list(net.parameters()))
+    net.eval()
+    loss_rel = abs(loss.item() - want.item()) / abs(want.item())
+    grad_rel = max(_rel_err(grads[k], r) for (k, _), r in
+                   zip(net.named_parameters(), ref))
+    print(f'phase 24 (c): predict(spatial_mesh=) of {SP_PREDICT_GRIDS} '
+          f'{LR}x{LR} grids at one rank, max|d| {pred_err:.3e} from predict '
+          f'(launches {launches}); the standalone step at batch '
+          f'{SP_STEP_BATCH}, {SP_STEP_LR}x{SP_STEP_LR}: loss relative '
+          f'{loss_rel:.3e}, gradients max|d|/max|ref| {grad_rel:.3e} from '
+          f'the plain ones', flush=True)
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4):
+        fail(f'phase 24 (c): the standalone step differs from the plain '
+             f'loss ({loss_rel:.3e}) or gradients ({grad_rel:.3e})')
+    return dict(predict_max_abs_diff=pred_err, predict_launches=launches,
+                step_loss_rel=loss_rel, step_grad_rel=grad_rel)
+
+
+def phase_spatial_parallel(torch, tds, report):
+    """Phase 24: spatial parallelism at the card's count of one: (a) K1's
+    band mode at the flagship step's and the serving gates, (b) the
+    flagship and recresnet_spc trained on a spatial mesh of one NCCL rank
+    against no mesh, (c) `predict(spatial_mesh=)` and the standalone step
+    at one rank."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    parts = {}
+    t0 = time.perf_counter()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device='cuda')
+    report['sp_train_rows'] = _band_gate_rows(torch, tds, K1_TRAIN_SHAPES,
+                                              'train', flush)
+    report['sp_serve_rows'] = _band_gate_rows(
+        torch, tds, [(BATCH,) + s for s in K1_SHAPES], 'serve', flush)
+    del flush
+    parts['a'] = round(time.perf_counter() - t0, 1)
+    print(f'phase 24 (a): {parts["a"]} s', flush=True)
+    dev = tds.distributed.initialize(f'127.0.0.1:{_free_port()}', 1, 0,
+                                     device='cuda', timeout=300)
+    mesh = tds.distributed.spatial_mesh(1, 1)
+    space = tds.distributed.spatial_mesh()
+    print(f'phase 24: a fresh process group '
+          f'{torch.distributed.get_backend()} on {dev}; meshes {mesh}, '
+          f'{space}', flush=True)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    per_forward = report['flag_k1_per_forward']
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        flag = _training_config(loss=FLAG_LOSS, n_filters=N_FILTERS,
+                                n_blocks=N_BLOCKS, attention=True)
+        out['flagship'] = _sp_pair(
+            torch, tds, mesh, flag, f'flagship, {FLAG_LOSS}', SP_STEPS,
+            _flagship_per_step(per_forward), _band_per_step(per_forward))
+        rec = _training_config(loss='mae', time_window=REC_T,
+                               n_blocks=REC_BLOCKS, n_filters=N_FILTERS)
+        rec_step = _recurrent_per_step(conv, K3_LAYERS)
+        out['recurrent'] = _sp_pair(
+            torch, tds, mesh, rec, f'recresnet_spc n_filters {N_FILTERS}',
+            SP_REC_STEPS, rec_step, rec_step)
+        parts['b'] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        out['serving'] = _sp_serving(torch, tds, space)
+        parts['c'] = round(time.perf_counter() - t0, 1)
+        from dl4ds_tpu_torch.ops import fused_ops as fo
+        busy = [name for name, t in fo._COUNTERS.items()
+                if int(t.count_nonzero()) != 0]
+        if busy:
+            fail(f'phase 24: arrival counters {busy} not left at 0')
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+        torch.distributed.destroy_process_group()
+    if torch.distributed.is_initialized():
+        fail('phase 24: the process group outlived the phase')
+    out['parts_s'] = parts
+    print(f'phase 24 parts (s): {parts}', flush=True)
+    report['sp'] = out
+
+
+def _sp_kernel_rows(report):
+    """The `kernels` line's rows of phase 24: K1's band mode at the
+    flagship step's gates (timed in (a), launched in (b)'s mesh run, whose
+    device trace counts them), and the kernels that (b) runs as without a
+    mesh, K6 on the joined rows and K2-train and K3 under the replicate
+    rule, with the times of phases 6 and 9 at their shapes."""
+    sp = report['sp']
+    flag, rec = sp['flagship'], sp['recurrent']
+    rows = report['sp_train_rows']
+    k6 = report['k6_rows'][0]
+    step, k3_rows = report['k3_step'], report['k3_rows']
+    common = dict(route='cuda', library_ms=None)
+    k1 = dict(common, name='K1_channel_attention_band_train',
+              source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+              replaces='dl4ds_tpu/ops/pallas_ops.py:39',
+              launches=flag['launches']['K1 band'],
+              wrapper_calls=flag['wrapper_calls']['K1 band'],
+              max_abs_err=max(r['max_abs_err'] for r in rows),
+              ms=sum(r['ms'] for r in rows),
+              plain_ms=sum(r['plain_ms'] for r in rows),
+              bound_ms=sum(r['bound_ms'] for r in rows), bound_by='bytes',
+              fused_ms=sum(r['fused_ms'] for r in rows),
+              bwd_ms=sum(r['bwd_ms'] for r in rows),
+              bwd_plain_ms=sum(r['bwd_plain_ms'] for r in rows),
+              bwd_bound_ms=sum(r['bwd_bound_ms'] for r in rows),
+              fused_bwd_ms=sum(r['fused_bwd_ms'] for r in rows),
+              bwd_launches=flag['launches']['K1 band backward'],
+              bwd_wrapper_calls=flag['wrapper_calls']['K1 band backward'],
+              serve_ms=sum(r['ms'] for r in report['sp_serve_rows']),
+              serve_fused_ms=sum(r['fused_ms']
+                                 for r in report['sp_serve_rows']),
+              work=f'the {len(rows)} gates of one flagship training step at '
+                   f'batch {TRAIN_BATCH} in the band mode at one band (the '
+                   f'card\'s count), summed: ms the forward\'s two stages, '
+                   f'bwd_ms the backward\'s, fused_* fused K1 at the same '
+                   f'shapes; launches one a stage (two each way a gate) in '
+                   f'SupervisedTrainer(mesh=spatial_mesh(1, 1))\'s device '
+                   f'trace; max_abs_err y against float64 over '
+                   f'{list(SP_BANDS)} bands; serve_* the serving gates')
+    k6_row = dict(common, name='K6_ssim_space_train',
+                  source='dl4ds_tpu_torch/csrc/ssim.cu',
+                  replaces='dl4ds_tpu/ops/pallas_ops.py:145',
+                  launches=flag['launches']['K6'],
+                  wrapper_calls=flag['wrapper_calls']['K6'],
+                  max_abs_err=k6['max_abs_err'], ms=k6['ms'],
+                  plain_ms=k6['plain_ms'], bound_ms=k6['bound_ms'],
+                  bound_by=k6['bound_by'], bwd_ms=k6['bwd_ms'],
+                  bwd_bound_ms=k6['bwd_bound_ms'],
+                  bwd_plain_ms=k6['bwd_plain_ms'],
+                  bwd_launches=flag['launches']['K6 backward'],
+                  work=f'the {FLAG_LOSS} loss of the flagship under the '
+                       f'spatial mesh, on the joined rows (phase 9\'s shape '
+                       f'and times)')
+    rec_work = (f'recresnet_spc under SupervisedTrainer(mesh=spatial_mesh('
+                f'1, 1)), the ConvLSTM layers by the replicate rule (phase '
+                f'7\'s layers; phase 6\'s times)')
+    k2 = dict(common, name='K2_convlstm_train_space',
+              source='dl4ds_tpu_torch/csrc/convlstm.cu',
+              replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+              launches=rec['launches']['K2-train'],
+              max_abs_err=max(max(r['ys_cs_zs_err'][:2]) for r in k3_rows
+                              if 'ys_cs_zs_err' in r),
+              ms=sum(r['k2_ms'] for r in step),
+              plain_ms=sum(r['k2_plain_ms'] for r in step),
+              bound_ms=sum(r['k2_bound_ms'] for r in step),
+              bound_by='operations', work=rec_work)
+    k3 = dict(common, name='K3_convlstm_bptt_space',
+              source='dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+              replaces='dl4ds_tpu/ops/pallas_convlstm.py:335',
+              launches=rec['launches']['K3'],
+              max_abs_err=max(max(v for k, v in r['grad_rel_err'].items()
+                                  if k != 'plain_f32') for r in k3_rows),
+              ms=sum(r['k3_ms'] for r in step),
+              plain_ms=sum(r['k3_plain_ms'] for r in step),
+              bound_ms=sum(r['k3_bound_ms'] for r in step),
+              bound_by='operations', work=rec_work)
+    return [k1, k6_row, k2, k3]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8330,7 +8891,8 @@ def main():
               (15, phase_state), (16, phase_cgan), (17, phase_zoo_stream),
               (18, phase_parallel), (19, phase_serving),
               (20, phase_quantization), (21, phase_cli),
-              (22, phase_data_parallel), (23, phase_more_data_parallel))
+              (22, phase_data_parallel), (23, phase_more_data_parallel),
+              (24, phase_spatial_parallel))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -8503,7 +9065,7 @@ def main():
                + _parallel_kernel_rows(report)
                + _serving_kernel_rows(report) + _quant_kernel_rows(report)
                + _cli_kernel_rows(report) + _dp_kernel_rows(report)
-               + _dpx_kernel_rows(report))
+               + _dpx_kernel_rows(report) + _sp_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -8519,7 +9081,7 @@ def main():
                                            'k6_rows', 'graph_rows',
                                            'bf16_k', 'tiled_k', 'member_',
                                            'artifact_k', 'k7_', 'cli',
-                                           'dp'))}),
+                                           'dp', 'sp'))}),
           flush=True)
     print(json.dumps({'phase18_shapes': {k: report[k] for k in (
         'tiled_k1_rows', 'tiled_k2_rows', 'member_rows')}}), flush=True)
@@ -8533,8 +9095,11 @@ def main():
     print(json.dumps({'phase23': report['dpx'],
                       'phase23_k7_shapes': report['dpx_k7_rows']}),
           flush=True)
+    print(json.dumps({'phase24': report['sp'],
+                      'phase24_shapes': {k: report[k] for k in (
+                          'sp_train_rows', 'sp_serve_rows')}}), flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
-          f'kernel build to the end of phase 23; phase seconds '
+          f'kernel build to the end of phase 24; phase seconds '
           f'{ {k: round(v, 1) for k, v in report["phase_seconds"].items()} }',
           flush=True)
     print(card, flush=True)

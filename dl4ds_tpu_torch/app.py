@@ -31,12 +31,18 @@ over N processes, one a device, launched together:
         --mesh_shape=data=N
 N must be the launcher's world size; the app opens the process group
 (`distributed.initialize`: NCCL on the GPU, gloo with --device=CPU) and
-passes `distributed.global_mesh()` to the trainer. A 'model' or 'space'
-axis raises NotImplementedError naming its ROADMAP item. The metrics phase
-draws its maps with matplotlib (`--nometrics` skips it).
+passes `distributed.global_mesh()` to the trainer.
+`--mesh_shape=data=N,space=M` (or `space=M`) trains SupervisedTrainer
+spatially parallel over N x M processes, each grid's rows cut into M bands
+(`distributed.spatial_mesh(M, N)`):
+    torchrun --nproc_per_node=4 -m dl4ds_tpu_torch.app --flagfile=F \
+        --mesh_shape=data=2,space=2
+A 'model' axis raises NotImplementedError naming its ROADMAP item. The
+metrics phase draws its maps with matplotlib (`--nometrics` skips it).
 """
 
 import importlib.util
+import math
 import os
 import sys
 import types
@@ -159,8 +165,10 @@ FLAG_DEFS = [
      'serving use the averaged weights; CGAN: the averaged generator is '
      'evaluated and served'),
     ('mesh_shape', 'string', None, None,
-     "Device mesh as 'data=N': data parallel over the N processes of a "
-     "torchrun launch (other axes: not ported, ROADMAP item 10)"),
+     "Device mesh as 'data=N[,space=M]': data parallel over the N "
+     "processes of a torchrun launch, or spatial over N x M, each grid's "
+     "rows in M bands (SupervisedTrainer; 'model': not ported, ROADMAP "
+     "item 10)"),
     # INFERENCE/TEST
     ('inference_array_in_hr', 'bool', False, None,
      'Whether the inference array is in high resolution'),
@@ -325,8 +333,9 @@ def _load_data_module(path):
 
 def _parse_mesh_shape(spec, device):
     """'data=N' -> `distributed.global_mesh()` over the N processes of the
-    launch, the process group opened first if it is not open (None ->
-    None, one process)."""
+    launch; 'data=N,space=M' or 'space=M' -> `distributed.spatial_mesh(M,
+    N)` over N x M; the process group opened first if it is not open
+    (None -> None, one process)."""
     if not spec:
         return None
     sizes = {}
@@ -337,19 +346,25 @@ def _parse_mesh_shape(spec, device):
         except ValueError:
             raise ValueError(f"--mesh_shape must look like 'data=4'; got "
                              f'{spec!r}') from None
-    other = sorted(set(sizes) - {'data'})
+    if 'model' in sizes:
+        raise not_ported("--mesh_shape with a 'model' axis (tensor "
+                         "parallelism)", 10, 4)
+    other = sorted(set(sizes) - {'data', 'space'})
     if other:
-        raise not_ported(f'--mesh_shape axes {other} (tensor or spatial '
-                         f'parallelism)', 10, 4)
+        raise ValueError(f"--mesh_shape axes are 'data' and 'space'; got "
+                         f'{other}')
+    n = math.prod(sizes.values())
     opened = torch.distributed.is_initialized()
     world = (torch.distributed.get_world_size() if opened
              else int(os.environ.get('WORLD_SIZE', 1)))
-    if sizes['data'] != world:
+    if n != world:
         raise ValueError(
-            f'--mesh_shape={spec} needs {sizes["data"]} processes; this '
-            f'launch has {world} (torchrun --nproc_per_node=N)')
+            f'--mesh_shape={spec} needs {n} processes; this launch has '
+            f'{world} (torchrun --nproc_per_node=N)')
     if not opened:
         tds.distributed.initialize(device=device)
+    if 'space' in sizes:
+        return tds.distributed.spatial_mesh(sizes['space'], sizes.get('data'))
     return tds.distributed.global_mesh()
 
 

@@ -74,6 +74,30 @@
 // chunks after its own arrival counter, in the same fixed order as a launch
 // of that member alone: a member-mode call equals M one-member calls bit
 // for bit (per_member = B is the one-member call).
+//
+// Band mode (spatial parallelism: each rank of a 'space' group holds a band
+// of rows of every sample, and the gate's mean runs over the whole grid,
+// global_hw pixels, not over the band). The JAX package replicates a
+// Pallas call's operands under GSPMD (pallas_call has no partition rule),
+// which here would gather every activation at every gate; the band mode
+// computes the same function from the band, with two all-reduces of [B, C]
+// vectors between its launches, which the wrapper (ops/fused_ops.py) makes:
+//   forward   1. ca_band_sums (ca_stream_sums without its gate, under a name
+//                of its own): the band's per-sample
+//                channel sums [B, C] (the last chunk of a sample to arrive
+//                sums the chunks' partials in order);
+//             -- the wrapper all-reduces the sums over the band group --
+//             2. ca_band_gate: m = sums / global_hw and the gate, a CTA a
+//                sample; ca_band_apply (ca_stream_apply's body): y = x g.
+//   backward  1. ca_band_sums: the band's partial dg = sum_band(dy x), the
+//                MLP backward on it (every step is linear in dg, so the
+//                partial dw1, db1, dw2, db2 and dm sum over the bands to
+//                the whole grid's) and the weight gradients, with dm left
+//                undivided;
+//             -- the wrapper all-reduces dm --
+//             2. ca_band_apply: dx = dy g + dm / global_hw (mixed:
+//                bf(bf(dy g) + bf(bf(dm) / global_hw))).
+// Always the stream regime's cut of a sample into chunks; one member.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,6 +160,7 @@ struct Geometry {
   long long counter_slot;  // index of the first member's arrival counter
   int mixed;            // the mixed mode's rounding points (type code 2)
   int per_member;       // samples a member (batch: one member)
+  long long global_hw;  // band mode: the whole grid's pixels (0: not a band)
 };
 
 // The gate weights of one member: w1 [C, Cr], b1 [Cr], w2 [Cr, C], b2 [C]
@@ -262,8 +287,9 @@ __device__ void form_gate(const Smem& s, const Geometry& geo, const float* __res
   const int c = geo.c, cr = geo.cr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool mx = geo.mixed;
+  const float hw = (float)(geo.global_hw ? geo.global_hw : geo.hw);
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
-    const float m = s.tot[ch] / (float)geo.hw;
+    const float m = s.tot[ch] / hw;
     s.m[ch] = mx ? rb(m) : m;
   }
   __syncthreads();
@@ -283,8 +309,9 @@ __device__ void form_gate(const Smem& s, const Geometry& geo, const float* __res
 }
 
 // The MLP backward of one sample from tot (= dg), m and g in shared memory:
-// v4 = dg_pre, h0 = h_pre, h1 = dh_pre, v5 = dm / hw. A warp forms each
-// hidden unit's h_pre and dh, a thread each dm.
+// v4 = dg_pre, h0 = h_pre, h1 = dh_pre, v5 = dm / hw (band mode: dm, the
+// band's part, undivided). A warp forms each hidden unit's h_pre and dh, a
+// thread each dm.
 __device__ void gate_backward(const Smem& s, const Geometry& geo, const float* __restrict__ w1,
                               const float* __restrict__ b1, const float* __restrict__ w2) {
   const int c = geo.c, cr = geo.cr;
@@ -314,7 +341,7 @@ __device__ void gate_backward(const Smem& s, const Geometry& geo, const float* _
     float v = 0.f;
     for (int r = 0; r < cr; ++r)
       v += mx ? rb(s.h1[r]) * rb(w1[ch * cr + r]) : s.h1[r] * w1[ch * cr + r];
-    s.v5[ch] = mx ? rb(rb(v) / (float)geo.hw) : v / (float)geo.hw;
+    s.v5[ch] = geo.global_hw ? v : mx ? rb(rb(v) / (float)geo.hw) : v / (float)geo.hw;
   }
   __syncthreads();
 }
@@ -572,15 +599,17 @@ ca_fwd_resident(const T* __restrict__ x, const float* __restrict__ w1,
 // stream regime, launch 1: grid B * parts; each CTA sums its chunk of x
 // (the backward: of dy * x); the last chunk of a sample to arrive forms the
 // gate (the backward: the MLP backward, and the batch's last sample the
-// weight gradients).
+// weight gradients). Band mode's forward: the last chunk writes the
+// sample's sums to m_io and forms no gate. The body of the kernels
+// ca_stream_sums and ca_band_sums (the band mode's, under a name of its own
+// in a device trace).
 template <typename T, typename D, int VEC, bool BWD>
-__global__ void __launch_bounds__(kThreads)
-ca_stream_sums(const T* __restrict__ x, const D* __restrict__ dy, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ w2,
-               const float* __restrict__ b2, float* m_io, float* g_io,
-               float* partial, float* dmh, float* rows, float* chunks, unsigned* counters,
-               float* __restrict__ dw1, float* __restrict__ db1, float* __restrict__ dw2,
-               float* __restrict__ db2, Geometry geo) {
+__device__ __forceinline__ void stream_sums(
+    const T* __restrict__ x, const D* __restrict__ dy, const float* __restrict__ w1,
+    const float* __restrict__ b1, const float* __restrict__ w2, const float* __restrict__ b2,
+    float* m_io, float* g_io, float* partial, float* dmh, float* rows, float* chunks,
+    unsigned* counters, float* __restrict__ dw1, float* __restrict__ db1,
+    float* __restrict__ dw2, float* __restrict__ db2, const Geometry& geo) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem s = carve(smem, geo, VEC);
   const int part = blockIdx.x % geo.parts;
@@ -615,6 +644,10 @@ ca_stream_sums(const T* __restrict__ x, const D* __restrict__ dy, const float* _
   __syncthreads();
   const Weights wt = member_weights(geo, b, w1, b1, w2, b2);
   if constexpr (!BWD) {
+    if (geo.global_hw) {
+      for (int ch = threadIdx.x; ch < c; ch += kThreads) m_io[(long long)b * c + ch] = s.tot[ch];
+      return;
+    }
     form_gate(s, geo, wt.w1, wt.b1, wt.w2, wt.b2);
     for (int ch = threadIdx.x; ch < c; ch += kThreads) {
       m_io[(long long)b * c + ch] = s.m[ch];
@@ -633,14 +666,34 @@ ca_stream_sums(const T* __restrict__ x, const D* __restrict__ dy, const float* _
   }
 }
 
+#define DL4DS_SUMS_KERNEL(NAME)                                                              \
+  template <typename T, typename D, int VEC, bool BWD>                                      \
+  __global__ void __launch_bounds__(kThreads)                                                \
+      NAME(const T* __restrict__ x, const D* __restrict__ dy, const float* __restrict__ w1,  \
+           const float* __restrict__ b1, const float* __restrict__ w2,                       \
+           const float* __restrict__ b2, float* m_io, float* g_io, float* partial, float* dmh, \
+           float* rows, float* chunks, unsigned* counters, float* __restrict__ dw1,          \
+           float* __restrict__ db1, float* __restrict__ dw2, float* __restrict__ db2,        \
+           Geometry geo) {                                                                   \
+    stream_sums<T, D, VEC, BWD>(x, dy, w1, b1, w2, b2, m_io, g_io, partial, dmh, rows,       \
+                                chunks, counters, dw1, db1, dw2, db2, geo);                  \
+  }
+DL4DS_SUMS_KERNEL(ca_stream_sums)
+DL4DS_SUMS_KERNEL(ca_band_sums)
+#undef DL4DS_SUMS_KERNEL
+
 // stream regime, launch 2: y = x * round(g) (the backward: dx = dy g + dm / hw)
 // over every pack of the tensor; S is the source's type (x, or dy), D the
 // output's (y, or dx). Mixed mode (S and D differ): y = x g in float32, dx =
-// bf(bf(dy g) + dmh) with dmh already rounded.
+// bf(bf(dy g) + dmh) with dmh already rounded. Band mode's backward: dmh
+// holds the whole grid's dm, undivided, and dm / global_hw (mixed:
+// bf(bf(dm) / global_hw)) is formed here. The body of ca_stream_apply and
+// ca_band_apply.
 template <typename S, typename D, int VEC, bool BWD>
-__global__ void __launch_bounds__(kThreads)
-ca_stream_apply(const S* __restrict__ src, const float* __restrict__ g,
-                const float* __restrict__ dmh, D* __restrict__ out, Geometry geo) {
+__device__ __forceinline__ void stream_apply(const S* __restrict__ src,
+                                             const float* __restrict__ g,
+                                             const float* __restrict__ dmh, D* __restrict__ out,
+                                             const Geometry& geo) {
   constexpr bool kMixed = sizeof(S) != sizeof(D);
   const long long hwc = geo.hw * geo.c;
   const long long n_vec = geo.batch * hwc / VEC;
@@ -667,13 +720,45 @@ ca_stream_apply(const S* __restrict__ src, const float* __restrict__ g,
       int ch = ch0 + k;
       while (ch >= geo.c) ch -= geo.c;
       const float gv = g[base + ch], v = to_float(p.v[k]);
-      if constexpr (BWD)
-        q.v[k] = kMixed ? from_float<D>(rb(v * gv) + dmh[base + ch])
-                        : from_float<D>(v * gv + dmh[base + ch]);
-      else
+      if constexpr (BWD) {
+        float d = dmh[base + ch];
+        if (geo.global_hw) d = kMixed ? rb(rb(d) / (float)geo.global_hw) : d / (float)geo.global_hw;
+        q.v[k] = kMixed ? from_float<D>(rb(v * gv) + d) : from_float<D>(v * gv + d);
+      } else
         q.v[k] = kMixed ? from_float<D>(v * gv) : from_float<D>(v * to_float(from_float<S>(gv)));
     }
     ov[j] = q;
+  }
+}
+
+#define DL4DS_APPLY_KERNEL(NAME)                                                             \
+  template <typename S, typename D, int VEC, bool BWD>                                      \
+  __global__ void __launch_bounds__(kThreads)                                                \
+      NAME(const S* __restrict__ src, const float* __restrict__ g,                           \
+           const float* __restrict__ dmh, D* __restrict__ out, Geometry geo) {               \
+    stream_apply<S, D, VEC, BWD>(src, g, dmh, out, geo);                                     \
+  }
+DL4DS_APPLY_KERNEL(ca_stream_apply)
+DL4DS_APPLY_KERNEL(ca_band_apply)
+#undef DL4DS_APPLY_KERNEL
+
+// band mode, forward launch 2a: grid B, a CTA a sample; m = sums / global_hw
+// and the gate from the whole grid's sums (all-reduced by the wrapper).
+__global__ void __launch_bounds__(kThreads)
+ca_band_gate(const float* __restrict__ sums, const float* __restrict__ w1,
+             const float* __restrict__ b1, const float* __restrict__ w2,
+             const float* __restrict__ b2, float* __restrict__ m_out,
+             float* __restrict__ g_out, Geometry geo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem s = carve(smem, geo, 1);
+  const int b = blockIdx.x;
+  const int c = geo.c;
+  for (int ch = threadIdx.x; ch < c; ch += kThreads) s.tot[ch] = sums[(long long)b * c + ch];
+  __syncthreads();
+  form_gate(s, geo, w1, b1, w2, b2);
+  for (int ch = threadIdx.x; ch < c; ch += kThreads) {
+    m_out[(long long)b * c + ch] = s.m[ch];
+    g_out[(long long)b * c + ch] = s.g[ch];
   }
 }
 
@@ -816,7 +901,8 @@ cudaError_t backward(int regime, const void* x, const void* dy, const float* m, 
 }
 
 Geometry make_geometry(int batch, long long hw, int c, int cr, int parts, long long ppp,
-                       long long region, long long counter_slot, int mixed, int per_member) {
+                       long long region, long long counter_slot, int mixed, int per_member,
+                       long long global_hw = 0) {
   Geometry geo;
   geo.batch = batch;
   geo.hw = hw;
@@ -828,7 +914,47 @@ Geometry make_geometry(int batch, long long hw, int c, int cr, int parts, long l
   geo.counter_slot = counter_slot;
   geo.mixed = mixed;
   geo.per_member = per_member;
+  geo.global_hw = global_hw;
   return geo;
+}
+
+// band mode: the stage's launches of the forward (stage 0 the sums, 1 the
+// gate and the apply) or of the backward (0 the partial gradients, 1 dx)
+template <typename T, typename O, int VEC>
+cudaError_t band_forward(int stage, const void* x, const float* w1, const float* b1,
+                         const float* w2, const float* b2, void* y, float* sums, float* m_out,
+                         float* g_out, float* partial, unsigned* counters, const Geometry& geo,
+                         int apply_blocks, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  if (stage == 0)
+    return launch(ca_band_sums<T, T, VEC, false>, (long long)geo.batch * geo.parts,
+                  smem_bytes(geo, VEC), s, xt, (const T*)nullptr, w1, b1, w2, b2, sums,
+                  (float*)nullptr, partial, (float*)nullptr, (float*)nullptr, (float*)nullptr,
+                  counters, (float*)nullptr, (float*)nullptr, (float*)nullptr, (float*)nullptr,
+                  geo);
+  Geometry gate = geo;
+  gate.region = 0;
+  cudaError_t err = launch(ca_band_gate, geo.batch, smem_bytes(gate, 1), s, (const float*)sums,
+                           w1, b1, w2, b2, m_out, g_out, gate);
+  if (err != cudaSuccess) return err;
+  return launch(ca_band_apply<T, O, VEC, false>, apply_blocks, 0, s, xt, (const float*)g_out,
+                (const float*)nullptr, static_cast<O*>(y), geo);
+}
+
+template <typename T, typename D, int VEC>
+cudaError_t band_backward(int stage, const void* x, const void* dy, const float* m,
+                          const float* g, const float* w1, const float* b1, const float* w2,
+                          void* dx, float* partial, float* dm, float* rows, float* chunks,
+                          unsigned* counters, float* dw1, float* db1, float* dw2, float* db2,
+                          const Geometry& geo, int apply_blocks, cudaStream_t s) {
+  const D* dyt = static_cast<const D*>(dy);
+  if (stage == 0)
+    return launch(ca_band_sums<T, D, VEC, true>, (long long)geo.batch * geo.parts,
+                  smem_bytes(geo, VEC), s, static_cast<const T*>(x), dyt, w1, b1, w2,
+                  (const float*)nullptr, const_cast<float*>(m), const_cast<float*>(g), partial,
+                  dm, rows, chunks, counters, dw1, db1, dw2, db2, geo);
+  return launch(ca_band_apply<D, T, VEC, true>, apply_blocks, 0, s, dyt, g, (const float*)dm,
+                static_cast<T*>(dx), geo);
 }
 
 }  // namespace
@@ -936,5 +1062,72 @@ extern "C" int dl4ds_channel_attention_bwd(
     return (int)backward<bf16, float, 1>(regime, x, dy, m, g, w1, b1, w2, dx, partial, dmh,
                                          rows, chunks, counters, dw1, db1, dw2, db2, geo,
                                          apply_blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Band mode, forward, one stage (see the header): stage 0 writes the band's
+// per-sample channel sums [B, C] float32 to `sums` (partial [B, parts, C]
+// scratch, counters B zeroed unsigned ints); stage 1 takes the whole grid's
+// sums there (global_hw pixels) and writes m, g [B, C] float32 and y (like
+// x, float32 in the mixed mode). The plan is the stream regime's (regime 1)
+// for the band's hw. Returns the cudaError_t of the launches.
+extern "C" int dl4ds_channel_attention_band(int dtype, int stage, int vec, const void* x,
+                                            const float* w1, const float* b1, const float* w2,
+                                            const float* b2, void* y, float* sums, float* m_out,
+                                            float* g_out, float* partial, unsigned* counters,
+                                            int batch, long long hw, long long global_hw, int c,
+                                            int cr, int parts, long long ppp, long long region,
+                                            long long smem, int apply_blocks, void* stream) {
+  const Geometry geo =
+      make_geometry(batch, hw, c, cr, parts, ppp, region, 0, dtype == 2, batch, global_hw);
+  if (!valid(geo, vec, 1, dtype == 0 ? 4 : 2) || (long long)smem_bytes(geo, vec) != smem ||
+      global_hw < hw || (stage != 0 && stage != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  typedef __nv_bfloat16 bf16;
+#define DL4DS_BAND_FWD(T, O, V)                                                             \
+  return (int)band_forward<T, O, V>(stage, x, w1, b1, w2, b2, y, sums, m_out, g_out, partial, \
+                                    counters, geo, apply_blocks, s)
+  if (dtype == 0 && vec == 4) DL4DS_BAND_FWD(float, float, 4);
+  if (dtype == 0 && vec == 1) DL4DS_BAND_FWD(float, float, 1);
+  if (dtype == 1 && vec == 8) DL4DS_BAND_FWD(bf16, bf16, 8);
+  if (dtype == 1 && vec == 1) DL4DS_BAND_FWD(bf16, bf16, 1);
+  if (dtype == 2 && vec == 8) DL4DS_BAND_FWD(bf16, float, 8);
+  if (dtype == 2 && vec == 1) DL4DS_BAND_FWD(bf16, float, 1);
+#undef DL4DS_BAND_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// Band mode, backward, one stage: stage 0 writes the band's partial dw1,
+// db1, dw2, db2 and its partial dm [B, C] float32, undivided (scratch as
+// the stream regime's backward: partial, rows, chunks; counters and
+// counter_slot as dl4ds_channel_attention_bwd's); stage 1 takes the whole
+// grid's dm there and writes dx = dy g + dm / global_hw. m, g [B, C] are the
+// forward's (the whole grid's mean and gate).
+extern "C" int dl4ds_channel_attention_band_bwd(
+    int dtype, int stage, int vec, const void* x, const void* dy, const float* m,
+    const float* g, const float* w1, const float* b1, const float* w2, void* dx, float* dw1,
+    float* db1, float* dw2, float* db2, float* partial, float* dm, float* rows, float* chunks,
+    unsigned* counters, long long counter_slot, int batch, long long hw, long long global_hw,
+    int c, int cr, int parts, long long ppp, long long region, long long smem, int apply_blocks,
+    void* stream) {
+  const Geometry geo = make_geometry(batch, hw, c, cr, parts, ppp, region, counter_slot,
+                                     dtype == 2, batch, global_hw);
+  if (!valid(geo, vec, 1, dtype == 1 ? 2 : 4) || (long long)smem_bytes(geo, vec) != smem ||
+      counter_slot < batch || region < (long long)sizeof(float) * (c + row_len(geo)) ||
+      global_hw < hw || (stage != 0 && stage != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  typedef __nv_bfloat16 bf16;
+#define DL4DS_BAND_BWD(T, D, V)                                                             \
+  return (int)band_backward<T, D, V>(stage, x, dy, m, g, w1, b1, w2, dx, partial, dm, rows,  \
+                                     chunks, counters, dw1, db1, dw2, db2, geo, apply_blocks, s)
+  if (dtype == 0 && vec == 4) DL4DS_BAND_BWD(float, float, 4);
+  if (dtype == 0 && vec == 1) DL4DS_BAND_BWD(float, float, 1);
+  if (dtype == 1 && vec == 8) DL4DS_BAND_BWD(bf16, bf16, 8);
+  if (dtype == 1 && vec == 1) DL4DS_BAND_BWD(bf16, bf16, 1);
+  if (dtype == 2 && vec == 8) DL4DS_BAND_BWD(bf16, float, 8);
+  if (dtype == 2 && vec == 1) DL4DS_BAND_BWD(bf16, float, 1);
+#undef DL4DS_BAND_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -25,6 +25,18 @@ they reduce over the local batch alone. Serving ranks each run their rows
 of a global batch and `all_gather_rows` joins the outputs.
 `ensemble_mesh(n_ensemble, n_data)` is the ensembles' counterpart of JAX's
 `Mesh(devices, ('ensemble', 'data'))`.
+
+Spatial parallelism: `spatial_mesh(n_space, n_data)` is the counterpart of
+JAX's `Mesh(devices, ('data', 'space'))`, the ranks of a band group
+consecutive. Each rank of a 'space' group holds a band of rows of every
+sample (H, dim -3, cut into equal bands in rank order). `space_group(group)`
+is the context in which the model's layers take their band rules
+(models/blocks.py), from two differentiable exchanges: `halo_rows`, the
+rows of the neighbouring bands that a convolution reads, and
+`gather_rows`, the band's rows joined into the whole height. Both are
+built from all-gathers, which a captured CUDA graph holds as it holds the
+gradients' all-reduce; their backwards send each row's gradient to the
+rank that owns the row.
 """
 
 import contextlib
@@ -37,9 +49,12 @@ import torch.distributed as dist
 __all__ = ['initialize', 'is_multi_host', 'process_index', 'process_count',
            'global_mesh', 'ensemble_mesh', 'batch_group',
            'current_batch_group', 'all_reduce_sum', 'global_amax',
-           'global_amin', 'average_gradients', 'all_gather_rows']
+           'global_amin', 'average_gradients', 'all_gather_rows',
+           'spatial_mesh', 'space_group', 'current_space_group',
+           'band_rows', 'halo_rows', 'gather_rows', 'mesh_group']
 
 _BATCH_GROUP = None
+_SPACE = None
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None,
@@ -142,6 +157,39 @@ def ensemble_mesh(n_ensemble=None, n_data=None):
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
+def spatial_mesh(n_space=None, n_data=None):
+    """The `DeviceMesh` of spatial parallelism, the counterpart of JAX's
+    `Mesh(devices.reshape(D, S), ('data', 'space'))`: `n_data` x `n_space`
+    processes, row-major with the 'space' dim innermost, so that the ranks
+    of a band group are consecutive; with `n_data` None the 1-D ('space',)
+    mesh. `n_space` defaults to the processes left over. Pass it as `mesh=`
+    to `SupervisedTrainer`, or as `spatial_mesh=` to `predict`."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError('call distributed.initialize() first')
+    world = dist.get_world_size()
+    if n_space is None:
+        n_space = world // (n_data or 1)
+    shape = (n_space,) if n_data is None else (n_data, n_space)
+    names = ('space',) if n_data is None else ('data', 'space')
+    if n_space * (n_data or 1) != world:
+        raise ValueError(f'a mesh of {dict(zip(names, shape))} needs '
+                         f'{n_space * (n_data or 1)} processes; the group '
+                         f'has {world}')
+    device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def mesh_group(mesh):
+    """A process group over every rank of `mesh`: the default group when
+    the mesh spans it, else a new group (every process of the default
+    group must call this, as `new_group` asks)."""
+    ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+    if len(ranks) == dist.get_world_size():
+        return dist.group.WORLD
+    return dist.new_group(ranks)
+
+
 @contextlib.contextmanager
 def batch_group(group):
     """Within the context, the batch norms (train mode) and the DSSIM
@@ -158,6 +206,147 @@ def batch_group(group):
 def current_batch_group():
     """The group of the innermost `batch_group` context, or None."""
     return _BATCH_GROUP
+
+
+class _Space:
+    """A 'space' group with its band count and the group over which batch
+    norms take their moments."""
+
+    def __init__(self, group, moments):
+        self.group = group
+        self.count = dist.get_world_size(group)
+        self.moments = group if moments is None else moments
+
+
+@contextlib.contextmanager
+def space_group(group, moments=None):
+    """Within the context, the model's layers take their band rules over
+    the ranks of `group` (models/blocks.py): each rank holds a band of rows
+    (dim -3) of every activation, band k of the group's rank k; None leaves
+    them whole. A group of one rank still routes every rule. The batch
+    norms take their moments over `moments` (default `group`): on a 2-D
+    mesh the group of every rank, data x space."""
+    global _SPACE
+    outer, _SPACE = _SPACE, (None if group is None
+                             else _Space(group, moments))
+    try:
+        yield group
+    finally:
+        _SPACE = outer
+
+
+def current_space_group():
+    """The band group of the innermost `space_group` context (an object
+    with `group`, the band `count` and the `moments` group), or None."""
+    return _SPACE
+
+
+def _gather_into(out, x, group):
+    fn = getattr(dist, 'all_gather_single', None) or \
+        dist.all_gather_into_tensor
+    fn(out, x, group=group)
+
+
+def _reduce_scatter_into(out, x, group):
+    fn = getattr(dist, 'reduce_scatter_single', None) or \
+        dist.reduce_scatter_tensor
+    fn(out, x, group=group)
+
+
+def _ranks_of(x, group):
+    """The ranks' `x` (equal shapes), stacked [n, ...] in rank order."""
+    x = x.contiguous()
+    n = dist.get_world_size(group)
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    _gather_into(out, x, group)
+    return out.view((n,) + tuple(x.shape))
+
+
+class _HaloRows(torch.autograd.Function):
+    """(above, below): the `rows` rows (dim -3) of the bands above and
+    below this rank's in `group`, zeros beyond the first and last bands.
+    One all-gather of every rank's first and last rows; the backward
+    gathers the halos' gradients the same way and adds each to the rows of
+    the rank that owns them."""
+
+    @staticmethod
+    def forward(ctx, x, rows, group):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        h = x.shape[-3]
+        ctx.rows, ctx.group, ctx.h = rows, group, h
+        edges = _ranks_of(torch.stack([x.narrow(-3, 0, rows),
+                                       x.narrow(-3, h - rows, rows)]), group)
+        zero = x.new_zeros(edges.shape[2:])
+        above = edges[r - 1, 1] if r > 0 else zero
+        below = edges[r + 1, 0] if r < n - 1 else zero
+        return above.clone(), below.clone()
+
+    @staticmethod
+    def backward(ctx, g_above, g_below):
+        group, rows, h = ctx.group, ctx.rows, ctx.h
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        grads = _ranks_of(torch.stack([g_above, g_below]), group)
+        dx = g_above.new_zeros(g_above.shape[:-3] + (h,)
+                               + g_above.shape[-2:])
+        if r > 0:
+            dx.narrow(-3, 0, rows).add_(grads[r - 1, 1])
+        if r < n - 1:
+            dx.narrow(-3, h - rows, rows).add_(grads[r + 1, 0])
+        return dx, None, None
+
+
+def band_rows(x, group, dim=-3, what='a tensor'):
+    """This rank's band of the rows (`dim`, H) of `x`, cut into equal bands
+    over the ranks of `group` in rank order; a height that does not cut
+    raises ValueError naming `what` and the sizes."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    h = x.shape[dim]
+    if h % n:
+        raise ValueError(f'{what} of {h} rows does not cut into {n} equal '
+                         f'bands')
+    return x.narrow(dim, r * (h // n), h // n)
+
+
+def halo_rows(x, rows, group):
+    """The `rows` rows above and below this rank's band of `x` (H dim -3),
+    taken from its neighbours in `group`, as (above, below); zeros at the
+    true top and bottom borders. Differentiable: each halo row's gradient
+    goes back to the rank that owns the row, which adds it to its own. A
+    band shorter than `rows` raises ValueError."""
+    if x.shape[-3] < rows:
+        raise ValueError(f'a band of {x.shape[-3]} rows is shorter than the '
+                         f'halo of {rows} rows it must lend its neighbours')
+    return _HaloRows.apply(x, rows, group)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The ranks' bands joined along dim -3 in rank order; the backward
+    reduce-scatters, so that each rank gets the sum of every rank's
+    gradient for its own rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = _ranks_of(x, group)                  # [n, ..., h, W, C]
+        return torch.cat(parts.unbind(0), dim=-3)
+
+    @staticmethod
+    def backward(ctx, g):
+        group = ctx.group
+        n = dist.get_world_size(group)
+        h = g.shape[-3] // n
+        parts = torch.stack(g.split(h, dim=-3))
+        out = g.new_empty(parts.shape[1:])
+        _reduce_scatter_into(out, parts.flatten(0, 1), group)
+        return out, None
+
+
+def gather_rows(x, group):
+    """The bands of `x` (H dim -3, equal on every rank) joined over the
+    ranks of `group` in rank order: the whole height, on every rank.
+    Differentiable: its backward is a reduce-scatter, each rank getting
+    the sum of every rank's gradient for its own rows."""
+    return _GatherRows.apply(x, group)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -234,13 +423,16 @@ def _dense(t):
     return True
 
 
-def average_gradients(params, group):
-    """The gradients of `params` averaged over the ranks of `group`: one
+def average_gradients(params, group, divisor=None):
+    """The gradients of `params` summed over the ranks of `group` and
+    divided by `divisor` (default: the group's size, the average): one
     all-reduce of one flat buffer, each gradient laid in it in its memory
     order, whose views in the parameters' layouts (the fused Adam's
     condition) become the gradients. Device work only, so that a captured
-    step holds it. NCCL averages in the collective (a kernel even at one
-    rank); gloo, which has no average, sums and divides."""
+    step holds it. For the average NCCL averages in the collective (a
+    kernel even at one rank); gloo, which has no average, and any other
+    divisor sum and divide (a spatial mesh sums its band ranks' partial
+    gradients and averages over its data rows only)."""
     params = [p for p in params if p.grad is not None]
     for p in params:
         if not (_dense(p.grad) and _layout(p.grad) == _layout(p)):
@@ -248,11 +440,14 @@ def average_gradients(params, group):
                                f'not laid out as its parameter')
     flat = torch.cat([p.grad.as_strided((p.numel(),), (1,))
                       for p in params])
-    if dist.get_backend(group) == 'nccl':
+    size = dist.get_world_size(group)
+    if divisor is None and dist.get_backend(group) == 'nccl':
         dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=group)
     else:
         dist.all_reduce(flat, group=group)
-        flat.div_(dist.get_world_size(group))
+        divisor = size if divisor is None else divisor
+        if divisor != 1:
+            flat.div_(divisor)
     for p, v in zip(params, flat.split([p.numel() for p in params])):
         p.grad = v.as_strided(p.shape, p.stride())
 
@@ -260,7 +455,4 @@ def average_gradients(params, group):
 def all_gather_rows(x, group):
     """The ranks' `x` (equal shapes) concatenated along dim 0 in the order
     of their ranks in `group`, on every rank."""
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts)
+    return _ranks_of(x, group).flatten(0, 1)

@@ -33,7 +33,7 @@ from . import distributed
 from .models.blocks import use_dropout_generator
 from .dataloader import BatchSynthesizer, _time_coord, season_ids_from_time
 from .interpolation import resize_array
-from .utils import (Timing, checkarray_ndim, not_ported, resolve_device,
+from .utils import (Timing, checkarray_ndim, resolve_device,
                     spatiotemporal_to_spatial_samples, _values)
 
 __all__ = ['Predictor', 'predict', 'predict_mc']
@@ -255,7 +255,15 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
     its device; the outputs are all-gathered, every rank returns the whole
     array and only the first worker writes `save_path`. With `tile=` the
     windows are shared out the same way (`parallel.predict_tiled`).
-    `spatial_mesh` is ROADMAP item 10, part 4: it raises when given.
+
+    `spatial_mesh` (a `DeviceMesh` with a 'space' dim over the process
+    group, `distributed.spatial_mesh()`) shards each grid's height over
+    its ranks instead (`parallel.predict_spatial_sharded`: bands of H / n
+    rows, `halo` rows exchanged a side, the bands' outputs all-gathered so
+    that every rank returns the whole array; exact for attention-free
+    models), as the JAX package routes it (dl4ds_tpu/inference.py:239-241,
+    273-293): spatial models without an aux input only, and not with
+    `quantize`, `mesh` or `pad_to_multiple`.
     """
     if quantize is not None and spatial_mesh is not None:
         raise ValueError('quantize= does not combine with spatial_mesh '
@@ -279,8 +287,6 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
         raise ValueError('pass either spatial_mesh (one grid sharded over '
                          'its height) or mesh (samples sharded over the '
                          'batch), not both')
-    if spatial_mesh is not None:
-        raise not_ported('predict(spatial_mesh=...)', 10, 4)
     if tile is not None and pad_to_multiple is not None:
         raise ValueError('`pad_to_multiple` is redundant with tiled '
                          'inference (every window already has one shape)')
@@ -293,6 +299,23 @@ def predict(trainer, array, scale, array_in_hr=True, static_vars=None,
                                  static_vars, predictors, time_window,
                                  interpolation, device, time_metadata)
     batch_lr = x
+    if spatial_mesh is not None:
+        if x.dim() == 5:
+            raise ValueError('spatially-sharded inference supports spatial '
+                             'models only (4-D inputs); use tile= for '
+                             'spatio-temporal grids')
+        if pad_to_multiple is not None:
+            raise ValueError('`pad_to_multiple` is redundant with tiled/'
+                             'sharded inference (one window shape already '
+                             'means one compiled program)')
+        if aux is not None:
+            raise ValueError('spatial_mesh does not support aux inputs '
+                             'yet; use tile= for tiled inference')
+        from .parallel import predict_spatial_sharded
+        out = predict_spatial_sharded(model, net, x, spatial_mesh, halo=halo)
+        return _finalize_predict(out, batch_lr, time_window, scaler,
+                                 save_path, save_fname, return_lr, timing,
+                                 writes=distributed.process_index() == 0)
     if tile is not None:
         from .parallel import predict_tiled
         out = predict_tiled(model, net, x, aux=aux, tile=tile, halo=halo,

@@ -40,6 +40,23 @@ JAX package's fixed `PRNGKey(0)` mask: one deterministic member, other
 bits than JAX's. That draw is the operator
 `dl4ds_tpu_torch::fixed_member_draw`, so that an exported forward
 (`export.export_forward`) keeps it.
+
+Spatial parallelism: within `distributed.space_group(group)` each rank
+holds a band of rows (dim -3) of every activation, and each layer takes its
+band rule. A `Conv` reads kh // 2 rows of its neighbours' bands
+(`distributed.halo_rows`) and convolves without padding along H (stride 1
+only); the gate runs K1's band mode, its mean over the whole grid (the
+recurrent heads' rank-5 gate sums its band and all-reduces the sums); a
+batch norm takes the moments of every rank's rows (the context's `moments`
+group); a dropout draws the mask of the whole height, from the generator
+that the bands of a sample share, and keeps the band's rows; the localized
+layer takes the band's rows of its per-pixel weights. The resize and
+transposed-convolution upsamplers, the U-Net's max-pool and padded
+concatenation and the ConvLSTM layers take the replicate rule: the bands
+joined (`distributed.gather_rows`), the layer run on the whole height, the
+band's rows kept (so K2-K4 run unchanged on the whole height, as the JAX
+package's partition rules replicate H around its ConvLSTM kernels). The
+other layers act on each row alone. A layer without a rule raises.
 """
 
 import contextlib
@@ -52,9 +69,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed import all_reduce_sum, current_batch_group
+from ..distributed import (all_reduce_sum, band_rows, current_batch_group,
+                           current_space_group, gather_rows, halo_rows,
+                           space_group)
 from ..interpolation import resize2d
 from ..ops import depth_to_space, fused_channel_attention, fused_convlstm
+from ..ops.fused_ops import fused_channel_attention_band
 from ..utils import checkarg_dropout_variant, not_ported
 
 MODEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -92,6 +112,31 @@ def _rounded(value, dtype):
 
 def _maybe(module, x):
     return x if module is None else module(x)
+
+
+# ---------------------------------------------------------------------------
+# Spatial parallelism: the band rules' shared pieces
+# ---------------------------------------------------------------------------
+
+def _replicated(fn, what, *xs):
+    """The replicate rule: the bands of each of `xs` joined over the space
+    group, `fn` on the whole height (its layers whole, no band rule), and
+    this rank's rows of the result."""
+    sp = current_space_group()
+    full = [gather_rows(x, sp.group) for x in xs]
+    with space_group(None):
+        y = fn(*full)
+    return band_rows(y, sp.group, what=f'the output of {what}')
+
+
+def _no_band_rule(what):
+    """Refuse a layer that has no band rule within a space group, as the
+    JAX package refuses the trainer that would run it there (the CGAN
+    discriminator: dl4ds_tpu/training/cgan.py:150-154)."""
+    if current_space_group() is not None:
+        raise NotImplementedError(
+            f'{what} has no band rule: 2-D (\'model\'/\'space\') meshes are '
+            f'routed through SupervisedTrainer')
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +277,19 @@ class Dropout(_Draws):
             raise ValueError('dropout in train mode draws from an explicit '
                              'generator: set one with `use_dropout_generator`')
 
+        sp = current_space_group()
+
         def draw(shape, keep, kind):
+            # under a space group the whole height's draw, then the band's
+            # rows: the bands of a sample share one generator
+            band = sp is not None and shape[-3] != 1
+            if band:
+                shape = shape[:-3] + (shape[-3] * sp.count,) + shape[-2:]
             if gen is None:
-                return _fixed_member_draw(x, shape, keep, kind)
-            return _draw(shape, keep, gen, dtype, x.device, kind)
+                mask = _fixed_member_draw(x, shape, keep, kind)
+            else:
+                mask = _draw(shape, keep, gen, dtype, x.device, kind)
+            return band_rows(mask, sp.group) if band else mask
         dtype = x.dtype
         if self.variant in ('gaussian', 'mcgaussiandrop'):
             stddev = _rounded((self.rate / (1.0 - self.rate)) ** 0.5, dtype)
@@ -387,7 +441,9 @@ class BatchNorm(_NormBase):
     normalizes with the running statistics. Within
     `distributed.batch_group(group)` train mode takes the statistics of
     the global batch, the ranks' local batches together
-    (`_global_moments`)."""
+    (`_global_moments`); within `distributed.space_group` those of every
+    rank's rows (the context's `moments` group, whose ranks hold equal
+    bands)."""
 
     def __init__(self, channels, dtype=torch.float32):
         super().__init__(channels, 1e-3, dtype)
@@ -403,7 +459,8 @@ class BatchNorm(_NormBase):
         if not self.training:
             return self._normalize(x, self.mean, self.var)
         dims = tuple(range(x.dim() - 1))
-        group = current_batch_group()
+        sp = current_space_group()
+        group = current_batch_group() if sp is None else sp.moments
         mean, var = (_moments(x, dims) if group is None
                      else _global_moments(x, dims, group))
         if _updates_running_stats():
@@ -538,6 +595,19 @@ class Conv(nn.Module):
     def forward(self, x):
         args = dict(padding=self.padding, groups=self.groups,
                     stride=self.stride)
+        sp = current_space_group()
+        if sp is not None:
+            # the band rule: kh // 2 rows of the neighbouring bands, then no
+            # padding along H
+            if self.stride != 1 or self.pad_mode != 'SAME':
+                raise ValueError(f'a conv of stride {self.stride}, padding '
+                                 f'{self.pad_mode!r} has no band rule (SAME '
+                                 f'at stride 1 only)')
+            rows = self.padding[0]
+            if rows:
+                above, below = halo_rows(x, rows, sp.group)
+                x = torch.cat([above, x, below], dim=-3)
+            args['padding'] = (0, self.padding[1])
         xt = x.permute(0, 3, 1, 2)
         if self.stride > 1 and self.pad_mode == 'SAME':
             xt = F.pad(xt, self._same_pads(x))
@@ -646,6 +716,8 @@ class ConvTranspose(nn.Module):
         _glorot_uniform_(self.kernel, kh * kw * cin, kh * kw * co, generator)
 
     def forward(self, x):
+        if current_space_group() is not None:
+            return _replicated(self.forward, 'a transposed conv', x)
         h, w = x.shape[1:3]
         s = self.stride
         k = self.kernel
@@ -679,7 +751,10 @@ class ChannelAttention2D(nn.Module):
     On a bfloat16 x the gate returns float32, as
     `channel_attention_reference` does in a bfloat16 model: the mean, w1,
     w2 and m @ w1 are rounded to bfloat16, the float32 biases promote the
-    rest (K1's float32-output mode on the GPU)."""
+    rest (K1's float32-output mode on the GPU). Within
+    `distributed.space_group` x is a band of rows and the mean runs over
+    the whole grid: K1's band mode, or for the rank-5 gate the band's sums
+    all-reduced."""
 
     def __init__(self, in_channels, nf, r=4, time_window=None):
         super().__init__()
@@ -701,17 +776,26 @@ class ChannelAttention2D(nn.Module):
 
     def forward(self, x):
         t = self.time_window
+        sp = current_space_group()
         if t is not None and t > 1:
             bt, h, w, c = x.shape
             xr = x.reshape(bt // t, t, h, w, c)
-            m = xr.mean(dim=(1, 2))                                # [B, W, C]
+            if sp is None:
+                m = xr.mean(dim=(1, 2))                            # [B, W, C]
+            else:   # the band's sums over (T, h), summed over the bands
+                acc = torch.promote_types(x.dtype, torch.float32)
+                total = all_reduce_sum(xr.to(acc).sum(dim=(1, 2)), sp.group)
+                m = (total / (t * h * sp.count)).to(x.dtype)
             hdn = F.relu(m @ self.w1.to(m.dtype) + self.b1)
             g = torch.sigmoid(hdn @ self.w2.to(m.dtype).to(hdn.dtype)
                               + self.b2)
             return (xr * g[:, None, None]).reshape(bt, h, w, c)
-        return fused_channel_attention(
-            x, self.w1, self.b1, self.w2, self.b2,
-            out_dtype=torch.float32 if x.dtype == torch.bfloat16 else None)
+        out_dtype = torch.float32 if x.dtype == torch.bfloat16 else None
+        if sp is not None:
+            return fused_channel_attention_band(
+                x, self.w1, self.b1, self.w2, self.b2, sp.group, out_dtype)
+        return fused_channel_attention(x, self.w1, self.b1, self.w2, self.b2,
+                                       out_dtype=out_dtype)
 
 
 class ConvBlock(nn.Module):
@@ -911,18 +995,27 @@ class LocalizedConvBlock(nn.Module):
 
     def forward(self, x):
         y = self.TransitionBlock_0(x)
-        if tuple(y.shape[-3:-1]) != self.grid:
+        k, bias = self.local_kernel, self.local_bias
+        grid = self.grid
+        sp = current_space_group()
+        if sp is not None:   # the band's rows of the per-pixel weights
+            k = band_rows(k, sp.group, 0, 'the localized layer\'s grid')
+            if bias is not None:
+                bias = band_rows(bias, sp.group, 0)
+            grid = (k.shape[0], grid[1])
+        if tuple(y.shape[-3:-1]) != grid:
             raise ValueError(f'the localized layer was built for the grid '
-                             f'{self.grid}, got {tuple(y.shape[-3:-1])}')
-        k = self.local_kernel
+                             f'{self.grid}, got {tuple(y.shape[-3:-1])}'
+                             + (f' (a band of {grid[0]} rows expected)'
+                                if sp is not None else ''))
         if self.dtype == torch.bfloat16:
             k = k.to(self.dtype).float()
             out = (y.to(self.dtype).float().unsqueeze(-1) * k).sum(-2)
             out = out.to(self.dtype)
         else:
             out = (y.unsqueeze(-1) * k.to(y.dtype)).sum(-2)
-        if self.local_bias is not None:
-            out = out + self.local_bias.to(out.dtype)
+        if bias is not None:
+            out = out + bias.to(out.dtype)
         return self.act(out)
 
 
@@ -990,6 +1083,8 @@ class ResizeConvolutionBlock(nn.Module):
                            n_filters, (3, 3), dtype=dtype)
 
     def forward(self, x):
+        if current_space_group() is not None:
+            return _replicated(self.forward, 'a resize convolution', x)
         h, w = x.shape[-3], x.shape[-2]
         y = resize2d(x, (int(h * self.scale), int(w * self.scale)),
                      self.mode)
@@ -1036,6 +1131,8 @@ class DeconvolutionBlock(nn.Module):
 def _max_pool_2x2(x):
     """2x2 max-pool with stride 2 and VALID padding of an NHWC tensor (odd
     sizes floor), as `nn.max_pool(y, (2, 2), strides=(2, 2))`."""
+    if current_space_group() is not None:
+        return _replicated(_max_pool_2x2, 'a 2x2 max-pool', x)
     y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)
     return y.permute(0, 2, 3, 1).contiguous()
 
@@ -1063,6 +1160,8 @@ def pad_concat(t1, t2):
     """Zero-pad two NHWC tensors at the bottom and right to the larger grid
     and concatenate them on channels, promoting their dtypes as
     jnp.concatenate does (dl4ds_tpu/models/blocks.py:824-840)."""
+    if current_space_group() is not None:
+        return _replicated(pad_concat, 'a padded concatenation', t1, t2)
     ty = max(t1.shape[-3], t2.shape[-3])
     tx = max(t1.shape[-2], t2.shape[-2])
 
@@ -1142,6 +1241,8 @@ class ConvLSTM2D(nn.Module):
             bias[self.filters:2 * self.filters] = 1.0    # unit forget bias
 
     def forward(self, x):
+        if current_space_group() is not None:
+            return _replicated(self.forward, 'a ConvLSTM layer', x)
         wx, bx = self.input_conv.kernel, self.input_conv.bias
         wh = self.cell.recurrent_conv.kernel
         if self.dtype == torch.bfloat16:

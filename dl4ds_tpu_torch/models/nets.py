@@ -30,7 +30,7 @@ from .blocks import (Conv, ConvBlock, ResidualBlock, DenseBlock,
                      SubpixelConvolutionBlock, ResizeConvolutionBlock,
                      DeconvolutionBlock, EncoderBlock, RecurrentConvBlock,
                      Dense, Dropout, get_activation, pad_concat, check_dtype,
-                     remat_call, _dropout, _maybe)
+                     remat_call, _dropout, _maybe, _no_band_rule)
 
 __all__ = ['NetPostupsampling', 'NetPIN', 'UnetPIN', 'RecNetPostupsampling',
            'RecNetPIN', 'ResidualDiscriminator', '_check_nblocks']
@@ -724,6 +724,7 @@ class ResidualDiscriminator(nn.Module):
         return 'resize'
 
     def forward(self, x, x_ref):
+        _no_band_rule('the CGAN discriminator')
         bt = None
         if self.is_spatiotemporal:
             # everything after the recurrent stem runs per frame, on [B*T]

@@ -54,7 +54,9 @@ from .flops import gate_flops, kernel_flops, ssim_flops
 from .ssim import _gaussian_kernel1d, ssim, ssim_backward_reference
 
 __all__ = ['fused_channel_attention', 'channel_attention_reference',
-           'FusedChannelAttention', 'fused_ssim_per_image', 'FusedSSIM']
+           'FusedChannelAttention', 'fused_channel_attention_band',
+           'ca_band_sums', 'ca_band_apply', 'ca_band_grads', 'ca_band_dx',
+           'fused_ssim_per_image', 'FusedSSIM']
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
@@ -103,12 +105,17 @@ def _gate(x, w1, b1, w2, b2, mixed=False):
     """The per-sample mean m and gate g, [..., C], in float32 (float64 for a
     float64 x). mixed: m is the bfloat16-rounded mean, w1, w2 and m @ w1
     are rounded to bfloat16 (`channel_attention_reference` in bfloat16)."""
-    f32 = _acc_dtype(x)
-    m = x.to(f32).mean(dim=(-3, -2))                          # [..., C]
+    return _gate_of_mean(x.to(_acc_dtype(x)).mean(dim=(-3, -2)), w1, b1, w2,
+                         b2, mixed)
+
+
+def _gate_of_mean(m, w1, b1, w2, b2, mixed=False):
+    """(m, g) of `_gate` from the mean m [..., C] (float32, or float64)."""
+    f32 = m.dtype
     if mixed:
-        m = _rb(m)
-        w1r, w2r = _weights_mixed(w1, w2)
-        h = F.relu(_rb(m @ w1r) + b1.to(f32))
+        m = _rb(m).to(f32)
+        w1r, w2r = (u.to(f32) for u in _weights_mixed(w1, w2))
+        h = F.relu(_rb(m @ w1r).to(f32) + b1.to(f32))
         return m, torch.sigmoid(h @ w2r + b2.to(f32))
     h = F.relu(m @ w1.to(f32) + b1.to(f32))
     return m, torch.sigmoid(h @ w2.to(f32) + b2.to(f32))
@@ -130,65 +137,72 @@ def channel_attention_reference(x, w1, b1, w2, b2, out_dtype=None):
 def _channel_attention_backward(x, w1, b1, w2, b2, dy, m=None, g=None,
                                 mixed=False):
     """Gradients of the gate for x [B, H, W, C] (transcribes `_fused_ca_bwd`,
-    dl4ds_tpu/ops/pallas_ops.py:88-112). m and g [B, C] are the forward's
-    mean and gate where it saved them, else formed from x. mixed: the VJP
-    of `channel_attention_reference` in bfloat16 (`_backward_mixed`)."""
-    if mixed:
-        return _backward_mixed(x, w1, b1, w2, b2, dy, m, g)
-    f32 = _acc_dtype(x)
-    hw = x.shape[-3] * x.shape[-2]
-    xf = x.to(f32)
+    dl4ds_tpu/ops/pallas_ops.py:88-112): `_partial_grads`, then `_dx_of`.
+    m and g [B, C] are the forward's mean and gate where it saved them,
+    else formed from x. mixed: the VJP of `channel_attention_reference` in
+    bfloat16 (`_partial_grads`)."""
     if m is None or g is None:
-        m, g = _gate(x, w1, b1, w2, b2)
-    m, g = m.to(f32), g.to(f32)
-    h_pre = m @ w1.to(f32) + b1.to(f32)
-    hh = F.relu(h_pre)
-
-    dyf = dy.to(f32)
-    dx_direct = dyf * g[:, None, None, :]
-    dg = (dyf * xf).sum(dim=(-3, -2))                         # [B, C]
-    dg_pre = dg * g * (1.0 - g)
-    dw2 = hh.T @ dg_pre
-    db2 = dg_pre.sum(dim=0)
-    dh = dg_pre @ w2.to(f32).T
-    dh_pre = dh * (h_pre > 0)
-    dw1 = m.T @ dh_pre
-    db1 = dh_pre.sum(dim=0)
-    dm = dh_pre @ w1.to(f32).T                                # [B, C]
-    dx = dx_direct + dm[:, None, None, :] / hw
-    return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
-            dw2.to(w2.dtype), db2.to(b2.dtype))
+        m, g = _gate(x, w1, b1, w2, b2, mixed)
+    dm, *dws = _partial_grads(x, w1, b1, w2, b2, dy, m, g, mixed)
+    dx = _dx_of(x, dy, g, dm, x.shape[-3] * x.shape[-2], mixed)
+    return (dx, *dws)
 
 
 def _backward_mixed(x, w1, b1, w2, b2, dy, m=None, g=None):
-    """The mixed mode's gradients for a bfloat16 x and a float32 dy: the VJP
-    JAX takes of `channel_attention_reference` in bfloat16, rounded where
-    its casts round (each bfloat16 product or cast rounds once; the sums are
-    float32): dx = bf(bf(dy g) + bf(bf(dm) / HW)) with dm = bf(dh_pre) @
-    w1^T, dw1 = bf(m^T bf(dh_pre)), dw2 = bf(relu(h_pre)^T dg_pre), db1 and
-    db2 unrounded; w1, w2 and m @ w1 rounded as in the forward. m and g
-    are the forward's (m the rounded mean), else formed from x."""
+    """The mixed mode's gradients for a bfloat16 x and a float32 dy:
+    `_channel_attention_backward` with mixed=True."""
+    return _channel_attention_backward(x, w1, b1, w2, b2, dy, m, g, True)
+
+
+def _partial_grads(x, w1, b1, w2, b2, dy, m, g, mixed=False):
+    """(dm, dw1, db1, dw2, db2) of the gate from x, dy [B, H, W, C] and the
+    mean and gate m, g [B, C]: dg = sum_HW(dy x) and the MLP's backward on
+    it, dm undivided. Every step is linear in dg, so on a band of rows
+    (the band mode) these are the band's parts, which sum over the bands
+    to the whole grid's. mixed: the VJP of `channel_attention_reference`
+    in bfloat16, rounded where its casts round (each bfloat16 product or
+    cast rounds once; the sums are float32): dm = bf(dh_pre) @ w1^T,
+    dw1 = bf(m^T bf(dh_pre)), dw2 = bf(relu(h_pre)^T dg_pre), db1 and db2
+    unrounded; w1, w2 and m @ w1 rounded as in the forward (m the rounded
+    mean)."""
     f32 = _acc_dtype(dy)     # float64 sums for a float64 dy (a reference run)
-    hw = x.shape[-3] * x.shape[-2]
-    if m is None or g is None:
-        m, g = _gate(x, w1, b1, w2, b2, mixed=True)
     m, g = m.to(f32), g.to(f32)
-    w1r, w2r = (u.to(f32) for u in _weights_mixed(w1, w2))
-    h_pre = _rb(m @ w1r).to(f32) + b1.to(f32)
+    if mixed:
+        w1f, w2f = (u.to(f32) for u in _weights_mixed(w1, w2))
+        h_pre = _rb(m @ w1f).to(f32) + b1.to(f32)
+    else:
+        w1f, w2f = w1.to(f32), w2.to(f32)
+        h_pre = m @ w1f + b1.to(f32)
     hh = F.relu(h_pre)
-    dyf = dy.to(f32)
-    dg = (dyf * x.to(f32)).sum(dim=(-3, -2))                   # [B, C]
+    dg = (dy.to(f32) * x.to(f32)).sum(dim=(-3, -2))            # [B, C]
     dg_pre = dg * g * (1.0 - g)
-    dw2 = _rb(hh.T @ dg_pre)
+    dw2 = hh.T @ dg_pre
     db2 = dg_pre.sum(dim=0)
-    dh_pre = (dg_pre @ w2r.T) * (h_pre > 0)
+    dh_pre = (dg_pre @ w2f.T) * (h_pre > 0)
     db1 = dh_pre.sum(dim=0)
-    dhr = _rb(dh_pre).to(f32)
-    dw1 = _rb(m.T @ dhr)
-    dmh = _rb(_rb(dhr @ w1r.T) / hw)
-    dx = _rb(dyf * g[:, None, None, :]) + dmh[:, None, None, :]
-    return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
-            dw2.to(w2.dtype), db2.to(b2.dtype))
+    if mixed:
+        dw2 = _rb(dw2)
+        dh_pre = _rb(dh_pre).to(f32)
+        dw1 = _rb(m.T @ dh_pre)
+    else:
+        dw1 = m.T @ dh_pre
+    dm = dh_pre @ w1f.T                                       # [B, C]
+    return (dm, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to(b2.dtype))
+
+
+def _dx_of(x, dy, g, dm, hw, mixed=False):
+    """dx = dy g + dm / hw, in x's dtype (mixed: bf(bf(dy g) + bf(bf(dm) /
+    hw)), dy float32), from the gate g and the undivided dm [B, C] of the
+    `hw` pixels the mean ran over."""
+    f32 = _acc_dtype(dy)
+    dyf, g = dy.to(f32), g.to(f32)
+    if mixed:
+        dmh = _rb(_rb(dm) / hw)
+        dx = _rb(dyf * g[:, None, None, :]) + dmh[:, None, None, :]
+    else:
+        dx = dyf * g[:, None, None, :] + dm[:, None, None, :] / hw
+    return dx.to(x.dtype)
 
 
 def _r16(n):
@@ -203,7 +217,7 @@ def _ca_smem(region, vec, c, cr):
 
 
 def _ca_plan(shape, cr, dtype, n_sm, smem_per_block, aligned=True,
-             out_dtype=None, members=1):
+             out_dtype=None, members=1, band=False):
     """K1's launch plan, forward and backward, a pure function of x's shape
     [B, H, W, C], Cr, x's dtype, y's (`out_dtype`, None for x's: float32
     with a bfloat16 x is the mixed mode, whose dy is float32 too), the
@@ -228,6 +242,9 @@ def _ca_plan(shape, cr, dtype, n_sm, smem_per_block, aligned=True,
     mixed mode dy's sample takes 4 bytes an element and x's 2, so the block
     regime needs the backward's dy region to fit too, and a sample's
     weight-gradient rows hold one more Cr-vector (the rounded dh_pre).
+    The band mode (`band`: x is a band of rows of each sample, spatial
+    parallelism) always takes the stream regime's cut of the band; its
+    launches are its own (`fused_channel_attention_band`).
     `tools/torch_ca_regimes.py` times the two regimes against each other."""
     def cdiv(a, d):
         return -(-a // d)
@@ -243,7 +260,8 @@ def _ca_plan(shape, cr, dtype, n_sm, smem_per_block, aligned=True,
     region = max(_r16(hw * c * elem), staging)
     dy_region = max(_r16(hw * c * out_elem), staging)
     smem = _ca_smem(region, vec, c, cr)
-    if max(smem, _ca_smem(dy_region, vec, c, cr)) <= smem_per_block:
+    if not band and max(smem, _ca_smem(dy_region, vec, c, cr)) \
+            <= smem_per_block:
         both = max(_r16(hw * c * out_elem) + _r16(hw * c * elem), staging)
         bwd_region = (both if _ca_smem(both, vec, c, cr) <= smem_per_block
                       else dy_region)
@@ -284,8 +302,14 @@ def _ca_lib():
             [i, i, i] + [p] * 10 + [i, ll, i, i, i, ll, ll, ll, i, i, p])
         lib.dl4ds_channel_attention_bwd.argtypes = (
             [i, i, i] + [p] * 17 + [ll, i, ll, i, i, i, ll, ll, ll, i, i, p])
+        lib.dl4ds_channel_attention_band.argtypes = (
+            [i, i, i] + [p] * 11 + [i, ll, ll, i, i, i, ll, ll, ll, i, p])
+        lib.dl4ds_channel_attention_band_bwd.argtypes = (
+            [i, i, i] + [p] * 17 + [ll, i, ll, ll, i, i, i, ll, ll, ll, i, p])
         for fn in (lib.dl4ds_ca_limits, lib.dl4ds_channel_attention,
-                   lib.dl4ds_channel_attention_bwd):
+                   lib.dl4ds_channel_attention_bwd,
+                   lib.dl4ds_channel_attention_band,
+                   lib.dl4ds_channel_attention_band_bwd):
             fn.restype = ctypes.c_int
         lib.dl4ds_ca_launched.restype = ctypes.c_longlong
     return lib
@@ -710,6 +734,257 @@ def fused_channel_attention(x, w1, b1, w2, b2, out_dtype=None):
 
 fused_channel_attention.launches = 0
 fused_channel_attention.bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1's band mode: the gate on a band of rows, its mean over the whole grid
+# ---------------------------------------------------------------------------
+
+def _band_plan(x, cr, out_dtype, tensors):
+    """`_ca_plan` of a band x [B, h, W, C] in the band mode (the stream
+    regime's cut), 16-byte packs where every tensor is aligned."""
+    return _ca_plan(tuple(x.shape), cr, x.dtype, *_ca_limits(x.device),
+                    aligned=all(t.data_ptr() % 16 == 0 for t in tensors),
+                    out_dtype=out_dtype, band=True)
+
+
+def _band_call(err, what, plan):
+    if err != 0:
+        raise RuntimeError(f'channel-attention band {what} launch failed '
+                           f'with CUDA error {err} (plan {plan})')
+
+
+def _check_band(x):
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f'channel-attention kernel takes float32 or bfloat16, '
+                        f'got {x.dtype}')
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f'channel-attention band mode needs a contiguous '
+                         f'[B, h, W, C] x, got {tuple(x.shape)}')
+    if x.shape[0] > _CA_MAX_BATCH:
+        raise ValueError(f'channel-attention kernel takes at most '
+                         f'{_CA_MAX_BATCH} samples per call, got '
+                         f'{x.shape[0]}')
+
+
+def ca_band_sums(x):
+    """The band mode's first stage: the per-sample channel sums [B, C] of a
+    band x [B, h, W, C] (float32; float64 for a float64 x on the CPU). On a
+    CUDA tensor one launch (the stream regime's sums without the gate), on
+    a CPU tensor the plain sum."""
+    if x.device.type == 'cpu':
+        return x.to(_acc_dtype(x)).sum(dim=(-3, -2))
+    if x.device.type != 'cuda':
+        raise ValueError(f'unsupported device {x.device}')
+    _check_band(x)
+    bsz, h, w, c = x.shape
+    plan = _band_plan(x, 1, None, (x,))
+    sums = torch.empty((bsz, c), dtype=torch.float32, device=x.device)
+    partial = torch.empty((bsz, plan['parts'], c), dtype=torch.float32,
+                          device=x.device)
+    counters = _arrival_counters(x.device, 'ca', _CA_COUNTERS)
+    with torch.cuda.device(x.device):
+        err = _ca_lib().dl4ds_channel_attention_band(
+            _DTYPE_CODES[x.dtype], 0, plan['vec'], x.data_ptr(), None, None,
+            None, None, None, sums.data_ptr(), None, None, partial.data_ptr(),
+            counters.data_ptr(), bsz, h * w, h * w, c, 1, plan['parts'],
+            plan['ppp'], plan['region'], _ca_smem(plan['region'], plan['vec'],
+                                                  c, 1),
+            plan['apply_blocks'], torch.cuda.current_stream(x.device)
+            .cuda_stream)
+    _band_call(err, 'sums', plan)
+    fused_channel_attention_band.launches += 1
+    return sums
+
+
+def ca_band_apply(x, sums, hw, w1, b1, w2, b2, mixed=False):
+    """The band mode's second stage: (y, m, g) of the gate on the band x
+    [B, h, W, C] from the whole grid's sums [B, C] of `hw` pixels: m = sums
+    / hw, the gate, y = x g (y float32 in the mixed mode). On a CUDA tensor
+    two launches (the gate, a CTA a sample, then the stream regime's
+    apply), on a CPU tensor the plain version."""
+    if x.device.type == 'cpu':
+        m, g = _gate_of_mean(sums / hw, w1, b1, w2, b2, mixed)
+        y = (x.float() * g[..., None, None, :] if mixed
+             else x * g.to(x.dtype)[..., None, None, :])
+        return y, m, g
+    if x.device.type != 'cuda':
+        raise ValueError(f'unsupported device {x.device}')
+    _check_band(x)
+    bsz, h, w, c, cr, members = _check_gate(x, w1, b1, w2, b2)
+    if members != 1:
+        raise ValueError('the channel-attention band mode has no member mode')
+    if sums.dtype != torch.float32 or sums.shape != (bsz, c) \
+            or not sums.is_contiguous() or sums.device != x.device:
+        raise ValueError(f'channel-attention band mode needs the sums as a '
+                         f'contiguous float32 [{bsz}, {c}] on {x.device}')
+    if hw < h * w:
+        raise ValueError(f'the grid\'s {hw} pixels are fewer than the '
+                         f'band\'s {h * w}')
+    dev = x.device
+    w1, b1, w2, b2 = _weights32(dev, w1, b1, w2, b2)
+    y = torch.empty_like(x, dtype=torch.float32 if mixed else x.dtype)
+    plan = _band_plan(x, cr, y.dtype, (x, y))
+    m, g = (torch.empty((bsz, c), dtype=torch.float32, device=dev)
+            for _ in range(2))
+    with torch.cuda.device(dev):
+        err = _ca_lib().dl4ds_channel_attention_band(
+            _type_code(x, mixed), 1, plan['vec'], x.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
+            sums.data_ptr(), m.data_ptr(), g.data_ptr(), None, None, bsz,
+            h * w, hw, c, cr, plan['parts'], plan['ppp'], plan['region'],
+            plan['smem'], plan['apply_blocks'],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _band_call(err, 'gate', plan)
+    fused_channel_attention_band.launches += 1
+    return y, m, g
+
+
+def ca_band_grads(x, w1, b1, w2, b2, dy, m, g, mixed=False):
+    """The band mode's backward, first stage: the band's parts (dm, dw1,
+    db1, dw2, db2) of the gradients from x, dy [B, h, W, C] and the whole
+    grid's m, g [B, C], dm [B, C] float32 undivided (`_partial_grads`).
+    They sum over the bands to the whole grid's. On a CUDA tensor one
+    launch (the stream regime's sums of dy x, the MLP backward at each
+    sample's last chunk, the weight gradients at the batch's last)."""
+    if x.device.type == 'cpu':
+        return _partial_grads(x, w1, b1, w2, b2, dy, m, g, mixed)
+    if x.device.type != 'cuda':
+        raise ValueError(f'unsupported device {x.device}')
+    _check_band(x)
+    bsz, h, w, c, cr, members = _check_gate(x, w1, b1, w2, b2)
+    if members != 1:
+        raise ValueError('the channel-attention band mode has no member mode')
+    dy_dtype = torch.float32 if mixed else x.dtype
+    if dy.dtype != dy_dtype or dy.shape != x.shape or not dy.is_contiguous():
+        raise ValueError(f'channel-attention band backward needs a contiguous '
+                         f'dy of x\'s shape {tuple(x.shape)} in {dy_dtype}, '
+                         f'got {tuple(dy.shape)} {dy.dtype}')
+    for name, t in (('m', m), ('g', g)):
+        if t.dtype != torch.float32 or t.shape != (bsz, c) \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f'channel-attention band backward needs {name} '
+                             f'as a contiguous float32 [{bsz}, {c}] on '
+                             f'{x.device}')
+    dev = x.device
+    w1_, b1_, w2_ = _weights32(dev, w1, b1, w2)
+    plan = _band_plan(x, cr, dy.dtype, (x, dy))
+    n_out = 2 * c * cr + c + cr
+    dw = torch.empty(n_out, dtype=torch.float32, device=dev)
+    dw1, dw2 = dw[:c * cr].view(c, cr), dw[c * cr:2 * c * cr].view(cr, c)
+    db1, db2 = dw[2 * c * cr:2 * c * cr + cr], dw[2 * c * cr + cr:]
+    n_chunks = -(-bsz // _CA_CHUNK)
+    row_len = c + (3 if mixed else 2) * cr
+    rows = torch.empty(bsz * row_len + n_chunks * n_out, dtype=torch.float32,
+                       device=dev)
+    partial = torch.empty(bsz * c * plan['parts'], dtype=torch.float32,
+                          device=dev)
+    dm = torch.empty((bsz, c), dtype=torch.float32, device=dev)
+    counters = _arrival_counters(dev, 'ca', _CA_COUNTERS)
+    with torch.cuda.device(dev):
+        err = _ca_lib().dl4ds_channel_attention_band_bwd(
+            _type_code(x, mixed), 0, plan['vec'], x.data_ptr(), dy.data_ptr(),
+            m.data_ptr(), g.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
+            w2_.data_ptr(), None, dw1.data_ptr(), db1.data_ptr(),
+            dw2.data_ptr(), db2.data_ptr(), partial.data_ptr(), dm.data_ptr(),
+            rows.data_ptr(), rows[bsz * row_len:].data_ptr(),
+            counters.data_ptr(), _CA_COUNTER_SLOT, bsz, h * w, h * w, c, cr,
+            plan['parts'], plan['ppp'], plan['bwd_region'], plan['bwd_smem'],
+            plan['apply_blocks'], torch.cuda.current_stream(dev).cuda_stream)
+    _band_call(err, 'backward', plan)
+    fused_channel_attention_band.bwd_launches += 1
+    return (dm, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to(b2.dtype))
+
+
+def ca_band_dx(x, dy, g, dm, hw, mixed=False):
+    """The band mode's backward, second stage: dx = dy g + dm / hw on the
+    band (`_dx_of`; dx like x), from the whole grid's undivided dm [B, C]
+    and its `hw` pixels. On a CUDA tensor one launch (the stream regime's
+    apply)."""
+    if x.device.type == 'cpu':
+        return _dx_of(x, dy, g, dm, hw, mixed)
+    if x.device.type != 'cuda':
+        raise ValueError(f'unsupported device {x.device}')
+    _check_band(x)
+    bsz, h, w, c = x.shape
+    for name, t in (('g', g), ('dm', dm)):
+        if t.dtype != torch.float32 or t.shape != (bsz, c) \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f'channel-attention band backward needs {name} '
+                             f'as a contiguous float32 [{bsz}, {c}] on '
+                             f'{x.device}')
+    dy_dtype = torch.float32 if mixed else x.dtype
+    if dy.dtype != dy_dtype or dy.shape != x.shape or not dy.is_contiguous():
+        raise ValueError(f'channel-attention band backward needs a contiguous '
+                         f'dy of x\'s shape {tuple(x.shape)} in {dy_dtype}')
+    if hw < h * w:
+        raise ValueError(f'the grid\'s {hw} pixels are fewer than the '
+                         f'band\'s {h * w}')
+    dev = x.device
+    dx = torch.empty_like(x)
+    plan = _band_plan(x, 1, dy.dtype, (x, dy, dx))
+    with torch.cuda.device(dev):
+        err = _ca_lib().dl4ds_channel_attention_band_bwd(
+            _type_code(x, mixed), 1, plan['vec'], x.data_ptr(), dy.data_ptr(),
+            None, g.data_ptr(), None, None, None, dx.data_ptr(), None, None,
+            None, None, None, dm.data_ptr(), None, None, None,
+            _CA_COUNTER_SLOT, bsz, h * w, hw, c, 1, plan['parts'],
+            plan['ppp'], plan['bwd_region'],
+            _ca_smem(plan['bwd_region'], plan['vec'], c, 1),
+            plan['apply_blocks'], torch.cuda.current_stream(dev).cuda_stream)
+    _band_call(err, 'dx', plan)
+    fused_channel_attention_band.bwd_launches += 1
+    return dx
+
+
+class _BandGate(torch.autograd.Function):
+    """K1's band mode as an autograd function of (x, w1, b1, w2, b2, mixed,
+    group): x a band [B, h, W, C] of each sample, the bands of `group`'s
+    ranks together the grid, the gate's mean over the grid. Forward
+    `ca_band_sums`, an all-reduce of the sums over `group`, `ca_band_apply`;
+    backward `ca_band_grads` (the band's parts of the weight gradients,
+    which the ranks' gradient reduction sums), an all-reduce of dm,
+    `ca_band_dx`."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, mixed, group):
+        hw = x.shape[-3] * x.shape[-2] * torch.distributed.get_world_size(
+            group)
+        sums = ca_band_sums(x)
+        torch.distributed.all_reduce(sums, group=group)
+        y, m, g = ca_band_apply(x, sums, hw, w1, b1, w2, b2, mixed)
+        ctx.save_for_backward(x, w1, b1, w2, b2, m, g)
+        ctx.mixed, ctx.group, ctx.hw = mixed, group, hw
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2, b2, m, g = ctx.saved_tensors
+        dy = dy.contiguous()
+        dm, *dws = ca_band_grads(x, w1, b1, w2, b2, dy, m, g, ctx.mixed)
+        torch.distributed.all_reduce(dm, group=ctx.group)
+        dx = ca_band_dx(x, dy, g, dm, ctx.hw, ctx.mixed)
+        return (dx, *dws, None, None)
+
+
+def fused_channel_attention_band(x, w1, b1, w2, b2, group, out_dtype=None):
+    """K1's band mode: the gate y = x * sigmoid(relu(m @ w1 + b1) @ w2 + b2)
+    on x [B, h, W, C], this rank's band of rows of each sample, m the mean
+    over the whole grid, the bands of the ranks of `group` (equal heights,
+    in rank order). `out_dtype` as `fused_channel_attention`'s (float32
+    with a bfloat16 x: the mixed mode). Differentiable; its weight
+    gradients are this band's parts, which sum over the ranks to the
+    grid's. On a CUDA tensor the kernels of `csrc/channel_attention.cu`'s
+    band mode: each stage's wrapper adds one to
+    `fused_channel_attention_band.launches` (the forward's two) or
+    `.bwd_launches` (the backward's two)."""
+    x = x.contiguous()
+    return _BandGate.apply(x, w1, b1, w2, b2, _mixed(x, out_dtype), group)
+
+
+fused_channel_attention_band.launches = 0
+fused_channel_attention_band.bwd_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,21 @@ range is the shard's); the losses of all members and `predict_ensemble`'s
 member stack are all-gathered over the 'ensemble' dim in member order.
 `predict_tiled(mesh=)` shares its window dispatches out over a data mesh
 (`distributed.global_mesh()`).
+
+Spatial sharding over processes (`distributed.spatial_mesh()`, one process
+a device, JAX's `Mesh(devices, ('data', 'space'))`): each rank of the
+'space' dim holds a horizontal band of H / n rows of every grid, and
+exchanges 2*halo boundary rows with its neighbours in the input path
+(`_halo_window`: an all-gather of every rank's edge rows, windows anchored
+flush inside the grid, so that the first and last bands see the true
+borders). `predict_spatial_sharded` serves one grid that way and joins the
+bands' outputs; `make_spatial_sharded_step` trains on it, each band's loss
+and gradients taken locally and summed over the mesh. The model runs whole
+on each window (K1's fused mode, pooling per window), so the results equal
+the unsharded ones where `halo` covers the receptive field and the model
+has no attention (dl4ds_tpu/parallel.py:255-465). The trainer's own
+spatial mode (`SupervisedTrainer(mesh=spatial_mesh(...))`) is exact with
+attention too: its layers take band rules instead (models/blocks.py).
 """
 
 import collections
@@ -52,7 +67,9 @@ from .models.blocks import DropPath, Dropout, use_dropout_generator
 from .utils import checkarg_loss, not_ported, resolve_device
 
 __all__ = ['predict_tiled', 'receptive_field_radius', 'init_ensemble',
-           'make_ensemble_step', 'predict_ensemble', 'EnsembleStep']
+           'make_ensemble_step', 'predict_ensemble', 'EnsembleStep',
+           'make_spatial_sharded_step', 'predict_spatial_sharded',
+           'SpatialShardedStep']
 
 
 def _output_scale(model):
@@ -208,6 +225,239 @@ def _tile_outputs(model, net, tiles, aux_tiles, batch_size, part, mode,
             outs.append(y if part.group is None
                         else distributed.all_gather_rows(y, part.group))
     return torch.cat(outs)[:n_win]
+
+
+# ---------------------------------------------------------------------------
+# Spatial sharding: bands of rows over processes, halos in the input path
+# ---------------------------------------------------------------------------
+
+def _halo_window(x_band, group, n, bh, halo):
+    """(the window of bh + 2*halo rows anchored flush inside the grid, the
+    row of this rank's band in it) of the band x_band [B, bh, W, C]: the
+    2*halo boundary rows of both neighbours in `group` (n ranks) around the
+    band, zeros beyond the grid, the window's offset clipped to keep it in
+    (dl4ds_tpu/parallel.py:225-248). Flush anchoring gives the first and
+    last bands the true grid border, the zero padding an unsharded run
+    sees. Needs n >= 2 and bh >= 2*halo. Not differentiated: the input
+    path."""
+    d = torch.distributed.get_rank(group)
+    m = min(2 * halo, bh)
+    from_above, from_below = distributed.halo_rows(x_band, m, group)
+    # ext covers grid rows [d*bh - m, (d+1)*bh + m) (zeros out of range)
+    ext = torch.cat([from_above, x_band, from_below], dim=1)
+    off = m if d == 0 else (m - 2 * halo if d == n - 1 else m - halo)
+    off = min(max(off, 0), ext.shape[1] - (bh + 2 * halo))
+    return ext[:, off:off + bh + 2 * halo], m - off
+
+
+def _space_part(mesh, space_axis, data_axis, what):
+    """(band index, bands, band group, data index, data rows) of this rank
+    on `mesh` ('space' and optionally 'data' dims)."""
+    names = tuple(getattr(mesh, 'mesh_dim_names', None) or ())
+    if not names:
+        raise TypeError(f'`mesh` must be a DeviceMesh with named dims '
+                        f'(distributed.spatial_mesh()) for {what}')
+    if space_axis not in names:
+        raise ValueError(f'mesh has no {space_axis!r} axis: {names}')
+    data = ((mesh.get_local_rank(data_axis), mesh.size(names.index(
+        data_axis))) if data_axis in names else (0, 1))
+    return (mesh.get_local_rank(space_axis),
+            mesh.size(names.index(space_axis)), mesh.get_group(space_axis),
+            *data)
+
+
+SpatialShardedStep = collections.namedtuple(
+    'SpatialShardedStep', ['step', 'loss_and_grads', 'scale', 'init_opt'])
+
+
+def make_spatial_sharded_step(model, mesh, tx=None, halo=32, loss='mae',
+                              space_axis='space', data_axis='data'):
+    """A training step whose grid height is sharded over the mesh's
+    `space_axis` dim, for grids whose activations exceed one card
+    (dl4ds_tpu/parallel.py:255-389). Each rank holds a horizontal band of
+    every sample (and with a `data_axis` dim its data row's shard of the
+    batch); the halo exchange (`_halo_window`) is in the input path, which
+    is not differentiated, so each band's loss sum over the global
+    denominator and its gradients are an ordinary local backward, and one
+    all-reduce over the mesh sums (loss, gradients): the gradient of the
+    global mean loss, exactly where `halo` >= the network's receptive-field
+    radius (`receptive_field_radius`) and the model is attention- and
+    norm-free (its gate pools per window, K1's fused mode).
+
+    Returns a `SpatialShardedStep`:
+      loss_and_grads(params, x, y, key) -> (loss, grads), the loss a 0-d
+        tensor and grads a dict like params;
+      step(params, opt_state, x, y, key) -> (params, opt_state, loss),
+        updating the tensors of `params` in place;
+      scale: the model's output scale (1 for 'pin');
+      init_opt(params) -> the optimizer over the tensors of params
+        (`tx(list(params.values()))`; `tx=None` is Adam with lr 1e-4,
+        optax.adam(1e-4)'s settings) that `step` takes as opt_state.
+    `params` is a dict from parameter name (`net.named_parameters()`) to
+    tensor on one device, whose dtype sets the inputs'. x: [B, H, W, C]
+    (LR for post-upsampling models, HR-sized for 'pin'), y: [B, H*s, W*s,
+    C_out], the same global arrays on every rank; H divisible by the
+    space dim's size n, H/n >= 2*halo, B divisible by the data dim's size.
+    `key` (an int, or a torch.Generator from which one word is drawn)
+    seeds the dropout draws with this rank's coordinates, so that no two
+    ranks share masks (JAX folds the axis indices into its key). `loss`
+    is 'mae' or 'mse': the windowed SSIM losses do not split over bands.
+    The model must have no aux input."""
+    if loss not in ('mae', 'mse'):
+        raise ValueError(
+            f"loss must be 'mae' or 'mse' (sum-decomposable), got {loss!r}")
+    if model.aux_shape is not None:
+        raise ValueError(
+            'make_spatial_sharded_step does not support aux-input models '
+            f'(aux_shape={model.aux_shape}): the step applies aux=None, so '
+            'the aux branch would never train; build the model with '
+            'n_aux_channels=0')
+    scale = _output_scale(model)
+    d, n_sp, sp_group, d_data, n_data = _space_part(
+        mesh, space_axis, data_axis, 'make_spatial_sharded_step')
+    everyone = distributed.mesh_group(mesh)
+    tx = _adam if tx is None else tx
+
+    def _validate(x, y):
+        if x.dim() != 4 or y.dim() != 4:
+            raise ValueError(
+                'spatial sharding takes [B, H, W, C] grids (4-D); a 5-D '
+                'spatio-temporal input would shard the TIME axis — use '
+                'patch training or predict_tiled for those models')
+        b, h = x.shape[0], x.shape[1]
+        if h % n_sp:
+            raise ValueError(f'H={h} must be divisible by the {space_axis} '
+                             f'axis size {n_sp}')
+        if n_sp > 1 and h // n_sp < 2 * halo:
+            raise ValueError(f'band height H/n={h // n_sp} must be >= '
+                             f'2*halo={2 * halo}')
+        if b % n_data:
+            raise ValueError(f'batch {b} not divisible by the {data_axis} '
+                             f'axis size {n_data}')
+        if y.shape[1] != h * scale:
+            raise ValueError(f'target rows {y.shape[1]} != H*s = '
+                             f'{h * scale}')
+
+    def loss_and_grads(params, x, y, key):
+        dev, dtype = _stack_where(params)
+        x, y = _on(x, dev, dtype), _on(y, dev, dtype)
+        _validate(x, y)
+        b, bh = x.shape[0] // n_data, x.shape[1] // n_sp
+        rows = slice(d_data * b, (d_data + 1) * b)
+        x_band = x[rows, d * bh:(d + 1) * bh]
+        y_band = y[rows, d * bh * scale:(d + 1) * bh * scale]
+        word = (int(torch.randint(0, 2 ** 62, (1,), generator=key,
+                                  device=key.device).item())
+                if isinstance(key, torch.Generator) else int(key))
+        gen = torch.Generator(device=dev).manual_seed(int(
+            np.random.SeedSequence([word % 2 ** 63, d, d_data])
+            .generate_state(1, np.uint64)[0]))
+        denom = y_band.numel() * n_sp * n_data
+        if n_sp > 1:
+            win, crop = _halo_window(x_band, sp_group, n_sp, bh, halo)
+        else:
+            win, crop = x_band, 0
+        net = _base_net(model, dev).train()
+        held = {k: v.detach().requires_grad_() for k, v in params.items()}
+        try:
+            with use_dropout_generator(net, gen):
+                out = functional_call(net, held, (win, None))
+        finally:
+            net.eval()
+        out = out[:, crop * scale:(crop + bh) * scale]
+        err = out.to(y.dtype) - y_band
+        total = err.abs().sum() if loss == 'mae' else (err * err).sum()
+        local = total / denom
+        grads = torch.autograd.grad(local, list(held.values()))
+        flat = torch.cat([local.detach().reshape(1)]
+                         + [g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=everyone)
+        parts = flat[1:].split([g.numel() for g in grads])
+        return flat[0], {k: v.view_as(p) for (k, p), v in
+                         zip(params.items(), parts)}
+
+    def step(params, opt_state, x, y, key):
+        held = opt_state.param_groups[0]['params']
+        if len(held) != len(params) or any(
+                a is not b for a, b in zip(held, params.values())):
+            raise ValueError('opt_state is not the optimizer of these '
+                             'params; make it with init_opt(params)')
+        value, grads = loss_and_grads(params, x, y, key)
+        for name, p in params.items():
+            g = grads[name]
+            p.grad = (g if g.stride() == p.stride()
+                      else torch.empty_like(p).copy_(g))
+        opt_state.step()
+        for p in params.values():
+            p.grad = None
+        return params, opt_state, value
+
+    def init_opt(params):
+        return tx(list(params.values()))
+
+    return SpatialShardedStep(step, loss_and_grads, scale, init_opt)
+
+
+def predict_spatial_sharded(model, net, x, mesh, halo=32, aux=None,
+                            axis=None):
+    """Inference with the grid height sharded over the mesh's `axis` dim
+    (default: the only dim of a 1-D mesh), for grids whose activations
+    exceed one card (dl4ds_tpu/parallel.py:392-465): every rank passes the
+    same global x [B, H, W, C] and holds its band of H / n rows, exchanges
+    `halo` rows a side with its neighbours (`_halo_window`, flush at the
+    true borders), runs `net` in eval mode on its window, crops its band's
+    output and all-gathers the bands: every rank returns the whole float32
+    numpy [B, H*s, W*s, C']. Exact against unsharded inference where
+    `halo` >= the receptive-field radius and the model has no attention
+    (the gate, K1's fused mode, pools per window). H divisible by n and H/n
+    >= 2*halo; with n = 1 the model runs directly."""
+    if aux is not None:
+        raise NotImplementedError(
+            'predict_spatial_sharded does not support aux inputs; use '
+            'predict_tiled (which shards aux windows alongside the input)')
+    names = tuple(getattr(mesh, 'mesh_dim_names', None) or ())
+    if not names:
+        raise TypeError('`spatial_mesh` must be a DeviceMesh with named '
+                        'dims (distributed.spatial_mesh())')
+    if axis is None:
+        if len(names) != 1:
+            raise ValueError(
+                f'mesh has axes {names}; pass axis= to choose which one '
+                f'shards the grid height')
+        axis = names[0]
+    elif axis not in names:
+        raise ValueError(f'mesh has no {axis!r} axis: {names}')
+    dev = _net_device(net)
+    if mesh.device_type != dev.type:
+        raise ValueError(f'the mesh is over {mesh.device_type!r} devices '
+                         f'but the network is on {str(dev)!r}')
+    n = mesh.size(names.index(axis))
+    x = _on(x, dev)
+    if x.dim() != 4:
+        raise ValueError('predict_spatial_sharded takes [B, H, W, C] grids '
+                         '(4-D); use predict_tiled for spatio-temporal '
+                         'models')
+    h = x.shape[1]
+    if h % n != 0:
+        raise ValueError(f'H={h} must be divisible by the {axis!r} axis '
+                         f'size {n}')
+    bh = h // n
+    if n > 1 and bh < 2 * halo:
+        raise ValueError(
+            f'band height H/n={bh} must be >= 2*halo={2 * halo} so edge '
+            f'windows can anchor inside the grid with rows exchanged only '
+            f'between neighbouring devices')
+    scale = _output_scale(model)
+    with _serving(net):
+        if n == 1:   # degenerate mesh: no sharding, the model directly
+            return net(x, None).float().cpu().numpy()
+        group = mesh.get_group(axis)
+        d = mesh.get_local_rank(axis)
+        win, crop = _halo_window(x[:, d * bh:(d + 1) * bh], group, n, bh,
+                                 halo)
+        y = net(win, None)[:, crop * scale:(crop + bh) * scale]
+        return distributed.gather_rows(y.float().contiguous(),
+                                       group).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,11 @@ must be asked for. Data parallelism runs one such process a device: a
 `mesh` (`distributed.global_mesh()`, a `DeviceMesh` whose one dim 'data'
 spans the process group) makes the batch a rank's slice of a global batch
 `batch_size * n_data_shards` wide, and gates the printing and the files on
-the first worker (dl4ds_tpu/training/base.py:98-145). The class ports the
+the first worker (dl4ds_tpu/training/base.py:98-145). A spatial mesh
+(`distributed.spatial_mesh()`, dims ('data', 'space') or ('space',)) adds
+bands of rows: the ranks of a 'space' group share their data row's batch,
+each holding a band of its rows; the batch and the rate scale by the data
+degree only. The class ports the
 input validation, the scale checks, the channel bookkeeping, the grid
 sizes, the loss lookup, the scalar log, the profiler and the saving of
 results.
@@ -40,9 +44,10 @@ class Trainer(ABC):
 
     `devices=[d]` selects `d`, as `device=d` does; a longer list raises,
     since one process drives one device here (launch one process a device
-    and pass `mesh`). `mesh` is a `DeviceMesh` with the one dim 'data' and
-    the trainer's device type; a 'model' or 'space' dim (tensor or spatial
-    parallelism) is not ported."""
+    and pass `mesh`). `mesh` is a `DeviceMesh` of the trainer's device
+    type with the one dim 'data', or the dims ('data', 'space') or
+    ('space',) (spatial parallelism); a 'model' dim (tensor parallelism) is
+    not ported."""
 
     def __init__(self, backbone, upsampling, data_train, data_train_lr=None,
                  time_window=None, loss='mae', batch_size=64, patch_size=None,
@@ -123,25 +128,30 @@ class Trainer(ABC):
         self.lossf = checkarg_loss(self.loss)
 
     def _setup_mesh(self, mesh):
-        """The data mesh: the number of ranks, this one, its group and the
-        global batch (dl4ds_tpu/training/base.py:98-133; the batch scales
-        by the data degree, and the first worker does the IO)."""
+        """The mesh: the number of ranks, this one's data coordinate
+        (`rank`) and band (`space_rank`), their groups and the global batch
+        (dl4ds_tpu/training/base.py:98-133; the batch scales by the data
+        degree, and the first worker does the IO). `mesh_group` spans
+        every rank of the mesh: the batch norms' moments and the gradients'
+        sum under a 'space' dim, the barriers."""
         self.mesh = mesh
-        self.data_group = None
-        self.n_devices = self.n_data_shards = 1
-        self.rank = 0
+        self.data_group = self.space_group = self.mesh_group = None
+        self.n_devices = self.n_data_shards = self.n_space = 1
+        self.rank = self.space_rank = 0
         if mesh is not None:
             names = tuple(getattr(mesh, 'mesh_dim_names', None) or ())
             if not names:
                 raise TypeError('`mesh` must be a DeviceMesh with named dims '
                                 '(distributed.global_mesh())')
-            other = tuple(a for a in names if a != 'data')
-            if other and set(other) <= {'model', 'space'}:
-                raise not_ported(f'a mesh with {other} dims (tensor or '
-                                 f'spatial parallelism)', 10, 4)
-            if other or 'data' not in names:
-                raise ValueError(f"trainer meshes have the one dim 'data'; "
-                                 f'got {names}')
+            if 'model' in names and 'space' in names:
+                raise ValueError("pass a mesh with ONE of 'model'/'space' "
+                                 'besides data (3-D TPxSPxDP is untested)')
+            if set(names) - {'data', 'model', 'space'} or len(names) > 2:
+                raise ValueError(f"trainer meshes have the one dim 'data', "
+                                 f"or ('data', 'space') or ('space',); got "
+                                 f'{names}')
+            if 'model' in names:
+                raise not_ported("a tensor-parallel ('model') mesh", 10, 4)
             if mesh.device_type != self.device.type:
                 raise ValueError(
                     f'the mesh is over {mesh.device_type!r} devices but the '
@@ -152,12 +162,21 @@ class Trainer(ABC):
                     f'this rank drives cuda:{torch.cuda.current_device()} '
                     f'(distributed.initialize pins it); the trainer was '
                     f'given {self.device}')
-            self.data_group = mesh.get_group('data')
-            self.n_devices = self.n_data_shards = mesh.size()
-            self.rank = mesh.get_local_rank('data')
+            self.n_devices = mesh.size()
+            if 'data' in names:
+                self.data_group = mesh.get_group('data')
+                self.n_data_shards = mesh.size(names.index('data'))
+                self.rank = mesh.get_local_rank('data')
+            self.mesh_group = self.data_group
+            if 'space' in names:
+                from ..distributed import mesh_group
+                self.space_group = mesh.get_group('space')
+                self.n_space = mesh.size(names.index('space'))
+                self.space_rank = mesh.get_local_rank('space')
+                self.mesh_group = mesh_group(mesh)
         self.global_batch_size = self.batch_size * self.n_data_shards
         # first-worker gating (dl4ds_tpu/training/base.py:124-133)
-        self.running_on_first_worker = self.rank == 0
+        self.running_on_first_worker = self.rank == 0 and self.space_rank == 0
 
     def _reduce_mean(self, t):
         """`t` (on the device) averaged over the ranks, in place; unchanged
@@ -168,8 +187,8 @@ class Trainer(ABC):
         return t
 
     def _barrier(self):
-        if self.data_group is not None:
-            torch.distributed.barrier(group=self.data_group)
+        if self.mesh_group is not None:
+            torch.distributed.barrier(group=self.mesh_group)
 
     @staticmethod
     def _as_array(x, name):

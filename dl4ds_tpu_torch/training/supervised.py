@@ -48,6 +48,25 @@ averaged over the ranks, so every rank keeps the same `fithist` and
 and writes files, and the others wait for its checkpoints. Each rank
 draws its dropout masks from its own generator, seeded from (seed, rank):
 the JAX trainer draws one global mask and shards it.
+
+Spatial parallelism (`mesh=distributed.spatial_mesh(n_space, n_data)`, the
+JAX trainer's ('data', 'space') mesh, or ('space',)): the ranks of a data
+row's 'space' group each build the row's shard of the batch, as above, and
+keep a band of its rows (H, dim -3, of the model input and the aux; a
+post-upsampling model's LR rows H / S, a pin model's HR rows). The model
+runs within `distributed.space_group`, its layers taking their band rules
+(models/blocks.py: the convs' halo rows, K1's band mode, the batch norms'
+moments over every rank, the replicate rule around the ConvLSTM layers and
+the upsamplers that resize); its output rows are joined again
+(`distributed.gather_rows`) and the trainer's loss taken on the whole
+height once per data row, so that every loss runs as without the 'space'
+dim. Only the band group's first rank seeds the backward with the loss's
+gradient (the others with 0), so that each parameter's gradient is the sum
+of its band ranks' parts, summed over the mesh and divided by the data
+degree on each commit. The losses, the rate and the dropout masks are the
+data row's: a row's bands share one generator and keep their rows of its
+masks. A height (or a height after a max-pool) that does not cut into
+equal bands raises ValueError.
 """
 
 import copy
@@ -57,7 +76,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import distributed
+from .. import POSTUPSAMPLING_METHODS, distributed
 from ..dataloader import (BatchSynthesizer, HostStreamer, _time_coord,
                           season_ids_from_time)
 from ..models import build_model
@@ -81,10 +100,10 @@ class SupervisedTrainer(Trainer):
     `use_multiprocessing`, `model_list`, `gpu_memory_growth` and
     `show_plot` are accepted and do nothing, as in the JAX package. The
     options that are not ported raise NotImplementedError naming their
-    ROADMAP item: a `mesh` with a 'model' or 'space' dim (10, part 4).
-    `mesh` with the one dim 'data' trains data-parallel over the process
-    group, `batch_size` being a rank's batch (see the module's
-    docstring). `init_weights` loads a
+    ROADMAP item: a `mesh` with a 'model' dim (10, part 4). `mesh` with
+    the one dim 'data' trains data-parallel over the process group,
+    `batch_size` being a rank's batch; a spatial mesh also cuts each sample
+    into bands of rows (see the module's docstring). `init_weights` loads a
     reference Keras checkpoint into the freshly built network
     (`compat.import_keras_weights`: a weight list, an `.npz`, a Keras
     model or a SavedModel path); it cannot be combined with
@@ -246,6 +265,14 @@ class SupervisedTrainer(Trainer):
                     data, array_lr=data_lr, predictors=preds,
                     season_ids=sids, seed=self.seed, **common))
         self.ds_train, self.ds_val, self.ds_test = sources
+        if self.space_group is not None:
+            (hr_h, _), (lr_h, _) = self.grid_sizes()
+            rows = lr_h if self.upsampling in POSTUPSAMPLING_METHODS else hr_h
+            if rows % self.n_space:
+                raise ValueError(
+                    f'the model input of {rows} rows does not cut into '
+                    f'{self.n_space} equal bands (the mesh\'s \'space\' '
+                    f'dim); pick a patch_size or grid it divides')
 
     def setup_model(self):
         """Channel bookkeeping and the model, its weights drawn from `seed`
@@ -332,6 +359,10 @@ class SupervisedTrainer(Trainer):
                      if self.gradient_accumulation_steps > 1 else None)
         self._mini = torch.zeros((), dtype=torch.float32, device=dev)
         self._row = torch.zeros(1, dtype=torch.long, device=dev)
+        # the loss's gradient that seeds the backward: under a 'space' dim
+        # 1 on the band group's first rank and 0 on the others
+        self._loss_grad = torch.full((), float(self.space_rank == 0),
+                                dtype=torch.float32, device=dev)
         self.n_updates = 0
         self.mini_step = 0
 
@@ -365,13 +396,11 @@ class SupervisedTrainer(Trainer):
         (dl4ds_tpu/training/base.py:29-49). Device work only; returns the
         loss as a device scalar."""
         self.optimizer.zero_grad(set_to_none=True)
-        with distributed.batch_group(self.data_group):
-            # the loss in float32 whatever the model dtype, as the JAX
-            # trainer casts the output (dl4ds_tpu/training/supervised.py:
-            # 461-462)
-            out = self.train_net(batch['lr'], batch['aux']).float()
-            loss = self.lossf(batch['hr'], out)
+        loss = self._loss(self.train_net, batch)
+        if self.space_group is None:
             loss.backward()
+        else:
+            loss.backward(self._loss_grad)
         with torch.no_grad():
             if self._acc is not None:
                 grads = [p.grad for p in self._params]
@@ -384,7 +413,11 @@ class SupervisedTrainer(Trainer):
                     return loss.detach()
                 torch._foreach_zero_(self._acc)
                 self._mini.zero_()
-            if self.data_group is not None:
+            if self.space_group is not None:
+                # the band ranks' parts summed, the data rows averaged
+                distributed.average_gradients(self._params, self.mesh_group,
+                                              divisor=self.n_data_shards)
+            elif self.data_group is not None:
                 distributed.average_gradients(self._params, self.data_group)
             self._set_rate()
             self.optimizer.step()
@@ -394,6 +427,27 @@ class SupervisedTrainer(Trainer):
                 torch._foreach_add_(self._ema, self._params,
                                     alpha=1 - self.ema_decay)
         return loss.detach()
+
+    def _loss(self, net, batch):
+        """The loss of `net` on `batch` (this rank's part of the global
+        batch; under a 'space' dim its data row's), in float32 whatever the
+        model dtype, as the JAX trainer casts the output
+        (dl4ds_tpu/training/supervised.py:461-462). The batch norms and the
+        DSSIM losses reduce over the data ranks (`batch_group`); under a
+        'space' dim the model runs on this rank's band of rows with the
+        band rules and the loss on the output's rows joined."""
+        if self.space_group is None:
+            with distributed.batch_group(self.data_group):
+                out = net(batch['lr'], batch['aux']).float()
+                return self.lossf(batch['hr'], out)
+        band = {k: None if batch[k] is None else
+                distributed.band_rows(batch[k], self.space_group)
+                for k in ('lr', 'aux')}
+        with distributed.space_group(self.space_group, self.mesh_group):
+            out = net(band['lr'], band['aux']).float()
+        out = distributed.gather_rows(out, self.space_group)
+        with distributed.batch_group(self.data_group):
+            return self.lossf(batch['hr'], out)
 
     def _advance(self, commit):
         """The host's count of the step just run: the mini-step, and the
@@ -406,7 +460,8 @@ class SupervisedTrainer(Trainer):
 
     def train_step(self, batch):
         """One training step on `batch` (a synthesizer's dict; under a
-        mesh this rank's part of the global batch), run eagerly: the
+        mesh this rank's part of the global batch, under a 'space' dim its
+        data row's, whole, of which it keeps its band), run eagerly: the
         forward, the loss, the backward and, on the optimizer's commit
         (every step without gradient accumulation), the update. Returns
         this rank's loss as a device scalar, not read back."""
@@ -427,10 +482,7 @@ class SupervisedTrainer(Trainer):
     def _eval_plan_step(self, net, synth, plan, losses):
         """The loss of `net` on plan row `_row` of `synth`, written to
         `losses[_row]`, then the next row."""
-        batch = synth.step_batch(plan, self._row)
-        with distributed.batch_group(self.data_group):
-            loss = self.lossf(batch['hr'],
-                              net(batch['lr'], batch['aux']).float())
+        loss = self._loss(net, synth.step_batch(plan, self._row))
         losses.index_copy_(0, self._row, loss.view(1))
         self._row.add_(1)
 

@@ -553,7 +553,8 @@ def test_predict_time_window_is_needed_and_only_for_recurrent_models(
     dict(tile=32, mesh=object()), dict(mesh=object()), dict(quantize='int8'),
     dict(spatial_mesh=object()), dict(tile=32, halo=8, quantize='int8')])
 def test_unported_recurrent_predict_modes_raise(data, rec_models, kwargs):
-    """`spatial_mesh` raises naming ROADMAP item 10, part 4. `mesh`, tiled
+    """`spatial_mesh` has been ported (tests/test_torch_distributed_spatial.
+    py): a spatio-temporal model is the JAX package's ValueError. `mesh`, tiled
     or not, has been ported since (the recurrent model against the JAX
     package on a 2-device mesh in tests/test_torch_distributed_serving.py):
     a mesh that is not a DeviceMesh is a TypeError. Int8 serving
@@ -568,7 +569,7 @@ def test_unported_recurrent_predict_modes_raise(data, rec_models, kwargs):
                         batch_size=3, device='cpu', **kwargs)
         assert y.shape == (N, HR, HR, 1) and np.isfinite(y).all()
         return
-    err, match = ((NotImplementedError, 'item 10, part 4')
+    err, match = ((ValueError, 'spatial models only')
                   if 'spatial_mesh' in kwargs else (TypeError, 'DeviceMesh'))
     with pytest.raises(err, match=match):
         tds.predict(rec_models[1], data[0], scale=SCALE, time_window=T,

@@ -106,8 +106,10 @@ def test_batch_synthesizer_matches_jax(data):
     dict(quantize='int8', calibration_quantile=0.999),
     dict(quantize='int8', calibration=np.zeros((2, 16, 16, 4), np.float32))])
 def test_unported_predict_modes_raise(data, models, kwargs):
-    """`spatial_mesh` (`halo` with it) raises naming ROADMAP item 10,
-    part 4. `mesh`, tiled or not, has been ported since (compared with the
+    """`spatial_mesh` (`halo` with it) has been ported (compared with the
+    JAX package in tests/test_torch_distributed_spatial.py): this model's
+    aux input is the JAX package's ValueError. `mesh`, tiled or not, has
+    been ported too (compared with the
     JAX package on a 2-device mesh in
     tests/test_torch_distributed_serving.py): a mesh that is not a
     DeviceMesh is a TypeError. Int8 serving (tiled or not, the
@@ -116,11 +118,13 @@ def test_unported_predict_modes_raise(data, models, kwargs):
     model gets no `calibration_aux` (compared with the JAX package in
     tests/test_torch_quantization.py)."""
     hr, topo, mask, pred = data
+    if 'spatial_mesh' in kwargs:
+        with pytest.raises(ValueError, match='aux inputs'):
+            tds.predict(models[1], hr, scale=SCALE, static_vars=[topo, mask],
+                        predictors=[pred], device='cpu', **kwargs)
+        return
     if 'quantize' not in kwargs:
-        err, match = ((NotImplementedError, 'item 10, part 4')
-                      if 'spatial_mesh' in kwargs
-                      else (TypeError, 'DeviceMesh'))
-        with pytest.raises(err, match=match):
+        with pytest.raises(TypeError, match='DeviceMesh'):
             tds.predict(models[1], hr, scale=SCALE, device='cpu', **kwargs)
         return
     kw = dict(scale=SCALE, static_vars=[topo, mask], predictors=[pred],

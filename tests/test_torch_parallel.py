@@ -191,9 +191,14 @@ def test_signatures_equal_the_jax_ones(name):
     """Each function of the port's `parallel` takes the JAX package's
     parameters in its order and with its defaults, but `net` in place of
     `variables`, `init_ensemble`'s `device` (default 'cuda') at the end,
-    and `make_ensemble_step`'s `mesh` defaulting to None (one card)."""
+    and `make_ensemble_step`'s `mesh` defaulting to None (one card);
+    `SpatialShardedStep` adds `init_opt`, as `EnsembleStep` holds it."""
     if name == 'EnsembleStep':
         assert tpar.EnsembleStep._fields == jpar.EnsembleStep._fields
+        return
+    if name == 'SpatialShardedStep':
+        assert tpar.SpatialShardedStep._fields == (
+            jpar.SpatialShardedStep._fields + ('init_opt',))
         return
     want = _parameters(getattr(jpar, name))
     want = [('net',) + p[1:] if p[0] == 'variables' else p for p in want]

@@ -342,10 +342,14 @@ def _mesh_with(dim):
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(mesh=_mesh_with('model')), dict(mesh=_mesh_with('space'))])
+    dict(mesh=_mesh_with('model')),
+    dict(mesh=types.SimpleNamespace(mesh_dim_names=('model',),
+                                    device_type='cpu'))])
 def test_unported_training_options_raise(data, kwargs):
-    """Tensor and spatial parallelism (ROADMAP item 10, part 4); the data
-    mesh and `devices` are in `tests/test_torch_distributed.py`."""
+    """Tensor parallelism, a 'model' dim beside 'data' or alone (ROADMAP
+    item 10, part 4); the data mesh and `devices` are in
+    `tests/test_torch_distributed.py`, the spatial mesh in
+    `tests/test_torch_spatial.py`."""
     hr = data[0]
     args = dict(REC, data_train=hr, data_val=hr[:6], data_test=hr[:6],
                 device='cpu')
