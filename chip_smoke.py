@@ -381,7 +381,25 @@ Phases, each of which exits non-zero on failure:
      grids at one rank against `predict`, and
      `make_spatial_sharded_step`'s loss and gradients at one rank against
      the plain ones; the process group destroyed;
- 25. print the `kernels` JSON line, then, last, the device JSON line. In
+ 25. tensor and pipeline parallelism at the card's count of one: (a) phase
+     10's flagship (dssim_mae) and phase 7's recresnet_spc trained by
+     `SupervisedTrainer(mesh=distributed.tensor_mesh(1, 1))` over a fresh
+     NCCL group of one rank and without a mesh, as phase 24 (b) (every
+     tensor rule routes at one rank: column-parallel convs, the gate and
+     the ConvLSTM layers on gathered weights, K1 fused and K2-K4 as
+     without the mesh); (b) `make_tensor_sharded_step` at one rank against
+     the plain loss and gradients, its K1 launches; (c) the pipeline's
+     stage program (`parallel._pipeline_trunk_local`: NCCL takes no two
+     ranks on one card, and a pipeline of one stage is refused) of
+     recresnet_spc at widths 8 and 64, 2 stages of one trunk block, 2
+     microbatches of 64 at the training batch: its K2-train, K3 and K4
+     launches against the routes' count (the stem on the batch, each
+     trunk block once a microbatch) and K2-train's by (tick, stage); the
+     loss and gradients against the card's unpipelined step and, at batch
+     4, the unpipelined program in float64 on the CPU; a microbatch's
+     trunk layers held against their plain versions and timed (K2-train
+     and K3, or K4 at width 64); the process group destroyed;
+ 26. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -397,7 +415,9 @@ Phases, each of which exits non-zero on failure:
      K6_ssim_dp_train, K2_convlstm_train_dp, K3_convlstm_bptt_dp,
      K1_channel_attention_cgan_dp_train, K6_ssim_cgan_dp_train,
      K1_channel_attention_band_train, K6_ssim_space_train,
-     K2_convlstm_train_space, K3_convlstm_bptt_space) is what
+     K2_convlstm_train_space, K3_convlstm_bptt_space,
+     K1_channel_attention_model_train, K6_ssim_model_train,
+     K2_convlstm_train_model, K3_convlstm_bptt_model) is what
      the device trace of its
      phase's run holds, and `wrapper_calls` what its wrapper
      counted (the warm-up calls and the capture: a replay calls no
@@ -420,7 +440,8 @@ Phases, each of which exits non-zero on failure:
      K7_conv_int8_cli_artifact run eagerly, and their `launches` are their
      wrappers' counts; K1_channel_attention_cli_train and
      K6_ssim_cli_train count phase 21 (a)'s device trace, eager launches
-     included.
+     included; K2_convlstm_train_pipe, K3_convlstm_bptt_pipe and
+     K4_convlstm_seq_pipe count phase 25 (c)'s wrapper calls, eager.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -4771,9 +4792,10 @@ def _cgan_graphs_vs_eager(torch, tds, config, label):
     return diffs
 
 
-def _k3_layer_rows(torch, layers, label, seed=300, hw=TRAIN_LR):
+def _k3_layer_rows(torch, layers, label, seed=300, hw=TRAIN_LR,
+                   batch=TRAIN_BATCH):
     """K2's training variant and K3 at a path's (Cin, F, k, x needs a
-    gradient) layers at batch TRAIN_BATCH, T REC_T, hw x hw frames (LR
+    gradient) layers at `batch`, T REC_T, hw x hw frames (LR
     patches by default), held against their plain versions
     (`_check_k3_case`, TF32 off) and timed against them and their bounds.
     Returns the rows, with phase 6's keys."""
@@ -4786,9 +4808,9 @@ def _k3_layer_rows(torch, layers, label, seed=300, hw=TRAIN_LR):
     rows = []
     for i, (cin, f, k, need_dx) in enumerate(layers):
         wx, bx, wh = _layer_weights(torch, cin, f, k, k, seed + i, dev)
-        x = torch.randn((TRAIN_BATCH, REC_T, hw, hw, cin), generator=gen,
+        x = torch.randn((batch, REC_T, hw, hw, cin), generator=gen,
                         device=dev)
-        dys = torch.randn((TRAIN_BATCH, REC_T, hw, hw, f), generator=gen,
+        dys = torch.randn((batch, REC_T, hw, hw, f), generator=gen,
                           device=dev)
         what = f'{label} x{list(x.shape)} F={f} k={k}'
         fwd_err, errs, (ys, cs, zs) = _check_k3_case(
@@ -8528,7 +8550,8 @@ def _band_per_step(per_forward, ssim=True):
     return steps
 
 
-def _sp_pair(torch, tds, mesh, config, label, steps, per_step, mesh_step):
+def _sp_pair(torch, tds, mesh, config, label, steps, per_step, mesh_step,
+             phase=24, dim='space'):
     """(b) the same run without a mesh and with `mesh` (a spatial mesh of
     one NCCL rank), from one seed, each traced with every launch counter
     at 0 just before (`_traced_run`) and its launches held against
@@ -8540,7 +8563,9 @@ def _sp_pair(torch, tds, mesh, config, label, steps, per_step, mesh_step):
     takes Adam steps of either sign in two runs that differ in the last
     bits: its own relative error, printed with the worst tensor's name, is
     no criterion); the NCCL kernels of one replay of the mesh step and
-    both replays' times."""
+    both replays' times. `phase` names the phase in the messages and `dim`
+    the mesh dim of one rank that the trainer must hold ('space' or
+    'model')."""
     import numpy as np
     runs = {}
     for name, m, want in (('plain', None, per_step),
@@ -8551,20 +8576,20 @@ def _sp_pair(torch, tds, mesh, config, label, steps, per_step, mesh_step):
             test_steps=TRAIN_TEST_STEPS, mesh=m, **config)
         run_s, calls, kernels = _traced_run(torch, tds, tr)
         got = _check_launches(
-            tds, tr.runner, f'phase 24 ({label}, {name})', want,
+            tds, tr.runner, f'phase {phase} ({label}, {name})', want,
             {'step': TRAIN_EPOCHS * steps,
              'val': TRAIN_EPOCHS * TRAIN_VAL_STEPS,
              'test': TRAIN_TEST_STEPS}, calls, kernels)
         runs[name] = dict(tr=tr, launches=got, calls=calls, run_s=run_s)
     plain, sp = runs['plain']['tr'], runs['mesh']['tr']
-    if sp.space_group is None or sp.n_space != 1:
-        fail(f'phase 24 ({label}): the mesh trainer has no space group of '
-             f'one rank')
+    if getattr(sp, f'{dim}_group') is None or getattr(sp, f'n_{dim}') != 1:
+        fail(f'phase {phase} ({label}): the mesh trainer has no {dim} group '
+             f'of one rank')
     losses = (plain.fithist['loss'] + plain.fithist['val_loss']
               + [plain.test_loss],
               sp.fithist['loss'] + sp.fithist['val_loss'] + [sp.test_loss])
     if not all(np.isfinite(v) for v in losses[1]):
-        fail(f'phase 24 ({label}): non-finite losses {sp.fithist}')
+        fail(f'phase {phase} ({label}): non-finite losses {sp.fithist}')
     loss_rel = max(abs(a - b) / abs(a) for a, b in zip(*losses))
     a, b = _state_of(plain), _state_of(sp)
     diff = sum(((a[n].double() - b[n].double()) ** 2).sum().item()
@@ -8576,7 +8601,7 @@ def _sp_pair(torch, tds, mesh, config, label, steps, per_step, mesh_step):
     worst_rel = ((a[worst].double() - b[worst].double()).abs().max().item()
                  / max(a[worst].double().abs().max().item(), 1e-30))
     grad_rel = _sp_first_grads(torch, tds, mesh, config)
-    print(f'phase 24 ({label}): mesh vs plain, {TRAIN_EPOCHS} epochs of '
+    print(f'phase {phase} ({label}): mesh vs plain, {TRAIN_EPOCHS} epochs of '
           f'{steps} steps at batch {TRAIN_BATCH}: losses max relative '
           f'{loss_rel:.3e} (within {SP_RTOL} required), the first step\'s '
           f'gradients |d| / |plain| {grad_rel:.3e} (within {SP_GRAD_RTOL}), '
@@ -8587,9 +8612,9 @@ def _sp_pair(torch, tds, mesh, config, label, steps, per_step, mesh_step):
           f'{plain.test_loss})', flush=True)
     if not (loss_rel <= SP_RTOL and grad_rel <= SP_GRAD_RTOL
             and param_rel <= SP_PARAM_RTOL):
-        fail(f'phase 24 ({label}): the mesh run differs from the plain run '
-             f'by {loss_rel:.3e} in the losses, {grad_rel:.3e} in the first '
-             f'gradients, {param_rel:.3e} in the parameters')
+        fail(f'phase {phase} ({label}): the mesh run differs from the plain '
+             f'run by {loss_rel:.3e} in the losses, {grad_rel:.3e} in the '
+             f'first gradients, {param_rel:.3e} in the parameters')
     names = {k: _kernel_names(torch, runs[k]['tr'].runner.graphs['step'],
                               runs[k]['tr']) for k in runs}
     extra = names['mesh'] - names['plain']
@@ -8599,7 +8624,7 @@ def _sp_pair(torch, tds, mesh, config, label, steps, per_step, mesh_step):
             if 'nccl' in k.lower() or 'onerank' in k.lower()
             or k == 'Memcpy DtoD'}
     if not nccl:
-        fail(f'phase 24 ({label}): one replay of the mesh step runs no '
+        fail(f'phase {phase} ({label}): one replay of the mesh step runs no '
              f'collective (its device work beyond the plain step\'s: '
              f'{dict(extra)})')
     replay_ms = {}
@@ -8611,7 +8636,7 @@ def _sp_pair(torch, tds, mesh, config, label, steps, per_step, mesh_step):
             graph.replay()
         replay_ms[k] = statistics.median(device_times(torch, replay,
                                                       reps=DP_REPLAYS))
-    print(f'phase 24 ({label}): the collectives\' device work in one '
+    print(f'phase {phase} ({label}): the collectives\' device work in one '
           f'replay of the mesh step {nccl} ({sum(nccl.values())} a replay, '
           f'by name); all its device work beyond the plain step\'s '
           f'{dict(extra)}; one replay '
@@ -8854,6 +8879,438 @@ def _sp_kernel_rows(report):
     return [k1, k6_row, k2, k3]
 
 
+# phase 25: tensor and pipeline parallelism at the card's count of one
+TP_STEPS, TP_REC_STEPS = 4, 3       # steps an epoch of (a)'s pairs
+TP_STEP_BATCH, TP_STEP_LR = 4, 64   # (b): the standalone step's batch
+# (c): the stage program of two stages and two microbatches, in one process
+# (`parallel._pipeline_trunk_local`: a pipeline of one stage is refused,
+# and NCCL takes no two ranks on one card), at the training batch; held
+# against the card's own unpipelined step on the same batch (the trunk's
+# weight gradients are summed over two microbatches, not one batch: max
+# |d| within PP_GRAD_RTOL of max |ref|) and, at PP_CPU_BATCH, against the
+# unpipelined program in float64 on the CPU, the loss within
+# TRAIN_LOSS_RTOL and each gradient within PP_CPU_RTOL of its max |ref| or
+# within twice the card's own unpipelined float32 step's distance from
+# float64 (both on PyTorch's own convolutions, as phases 7-8 run theirs: at
+# width 64 the card's float32 step itself lands up to 1e-2 of max |ref|
+# from float64 in a small gradient)
+PP_STAGES, PP_MICRO, PP_CPU_BATCH = 2, 2, 4
+PP_GRAD_RTOL, PP_CPU_RTOL = 1e-4, 1e-4
+
+
+def _tp_step(torch, tds, mesh, per_forward):
+    """(b) `make_tensor_sharded_step` of the flagship at one rank against
+    the plain loss and gradients of the same network; its K1 launches."""
+    import numpy as np
+    from dl4ds_tpu_torch import parallel
+    from dl4ds_tpu_torch.models import build_model
+    model = build_model('resnet', 'spc', scale=SCALE, n_channels=1,
+                        n_aux_channels=0, lr_size=(TP_STEP_LR, TP_STEP_LR),
+                        hr_size=(TP_STEP_LR * SCALE, TP_STEP_LR * SCALE),
+                        n_filters=N_FILTERS, n_blocks=N_BLOCKS,
+                        attention=True)
+    net = model.init(25, device='cuda')
+    step = parallel.make_tensor_sharded_step(model, mesh)
+    params = parallel.place_params(
+        {k: v.detach() for k, v in net.named_parameters()},
+        step.param_shardings, mesh)
+    rng = np.random.default_rng(25)
+    xs = rng.standard_normal((TP_STEP_BATCH, TP_STEP_LR, TP_STEP_LR, 1)
+                             ).astype('float32')
+    ys = rng.standard_normal((TP_STEP_BATCH, TP_STEP_LR * SCALE,
+                              TP_STEP_LR * SCALE, 1)).astype('float32')
+    counters = _counters(tds)
+    for _, fn, attr in counters:
+        setattr(fn, attr, 0)
+    loss, grads = step.loss_and_grads(params, xs, ys, 0)
+    torch.cuda.synchronize()
+    launches = {name: getattr(fn, attr) for name, fn, attr in counters
+                if getattr(fn, attr)}
+    net.train()
+    out = net(torch.from_numpy(xs).cuda(), None)
+    want = (out.float() - torch.from_numpy(ys).cuda()).abs().mean()
+    ref = torch.autograd.grad(want, list(net.parameters()))
+    net.eval()
+    loss_rel = abs(loss.item() - want.item()) / abs(want.item())
+    grad_rel = max(_rel_err(grads[k], r) for (k, _), r in
+                   zip(net.named_parameters(), ref))
+    n_sharded = sum(d is not None for d in step.param_shardings.values())
+    print(f'phase 25 (b): make_tensor_sharded_step at one rank, batch '
+          f'{TP_STEP_BATCH}, {TP_STEP_LR}x{TP_STEP_LR}: {n_sharded} of '
+          f'{len(params)} parameters sharded; loss relative {loss_rel:.3e}, '
+          f'gradients max|d|/max|ref| {grad_rel:.3e} from the plain ones; '
+          f'launches {launches}', flush=True)
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4):
+        fail(f'phase 25 (b): the standalone step differs from the plain '
+             f'loss ({loss_rel:.3e}) or gradients ({grad_rel:.3e})')
+    if launches != {'K1': per_forward, 'K1 backward': per_forward}:
+        fail(f'phase 25 (b): launches {launches}, expected K1 and its '
+             f'backward {per_forward} each (the gates on gathered weights)')
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, launches=launches,
+                n_sharded=n_sharded)
+
+
+def _pp_expected(conv, layers, batch):
+    """{counter: launches} of one training call of each (Cin, F, k) layer
+    at `batch` (`_expected_launches`' rule, the route of each layer at this
+    batch)."""
+    k3 = k4 = 0
+    for cin, f, k in layers:
+        route = conv.dispatch_info((batch, REC_T, TRAIN_LR, TRAIN_LR, cin),
+                                   (k, k, cin, 4 * f), (k, k, f, 4 * f),
+                                   4)['path']
+        if route == 'fused':
+            k3 += REC_T + (cin != 1) + 3
+        else:
+            k4 += REC_T
+    return {'K2-train': len(layers) * REC_T, 'K3': k3, 'K4': k4}
+
+
+def _k4_layer_rows(torch, layers, label, batch, seed=350):
+    """K2's training variant and K4 at (Cin, F, k) layers at `batch`, T
+    REC_T, TRAIN_LR frames, held against their plain versions
+    (`_check_k4_case`) and timed against them and their bounds."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for i, (cin, f, k) in enumerate(layers):
+        wx, bx, wh = _layer_weights(torch, cin, f, k, k, seed + i, dev)
+        x = torch.randn((batch, REC_T, TRAIN_LR, TRAIN_LR, cin),
+                        generator=gen, device=dev)
+        dys = torch.randn((batch, REC_T, TRAIN_LR, TRAIN_LR, f),
+                          generator=gen, device=dev)
+        what = f'{label} x{list(x.shape)} F={f} k={k}'
+        (dzs_err, _, errs, fwd_err), (ys, cs, zs, _) = _check_k4_case(
+            torch, conv, x, wx, bx, wh, dys, True, what)
+        with torch.no_grad():
+            k2_ms, k2_plain_ms = paired_ms(
+                torch, lambda: conv._launch(x, wx, bx, wh, train=True),
+                lambda: conv.convlstm_train_reference(x, wx, bx, wh), flush)
+            k4_ms, k4_plain_ms = paired_ms(
+                torch, lambda: conv._launch_seq(zs, cs, dys, wh),
+                lambda: conv.convlstm_seq_reference(zs, cs, dys, wh), flush)
+        k2_flops, k2_bytes = k2_work(x, wx, wh)
+        k2_bytes += 4 * 5 * ys.numel()
+        flops, n_bytes = k4_work(zs, wh)
+        rows.append(dict(
+            x=list(x.shape), f=f, k=k, ys_cs_zs_err=fwd_err[:3],
+            dzs_rel_err=dzs_err, grad_rel_err=errs, k2_ms=k2_ms,
+            k2_plain_ms=k2_plain_ms,
+            k2_bound_ms=max(k2_flops / F32_FLOPS,
+                            k2_bytes / HBM_BYTES_PER_S) * 1e3,
+            k4_ms=k4_ms, k4_plain_ms=k4_plain_ms,
+            k4_bound_ms=max(flops / F32_FLOPS,
+                            n_bytes / HBM_BYTES_PER_S) * 1e3))
+        print(f'K2-train/K4 {what}: dzs max|d|/max(1, max|ref|) '
+              f'{dzs_err:.2e}  K2-train {k2_ms:.4f} ms (plain '
+              f'{k2_plain_ms:.4f}, bound {rows[-1]["k2_bound_ms"]:.4f})  K4 '
+              f'{k4_ms:.4f} ms (plain {k4_plain_ms:.4f}, bound '
+              f'{rows[-1]["k4_bound_ms"]:.4f}); {card_line()}', flush=True)
+        del x, dys, ys, cs, zs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _pp_case(torch, tds, f, layers, label):
+    """(c) recresnet_spc at width `f` (REC_BLOCKS trunk blocks, one a
+    stage): the stage program of PP_STAGES stages and PP_MICRO microbatches
+    in one process at the training batch, its launches counted (every
+    counter at 0 just before, read just after; the forward's a tick, by a
+    wrapper around `_stage_tick`) and its loss and gradients held against
+    the card's unpipelined step; at PP_CPU_BATCH against the unpipelined
+    program in float64 on the CPU; one microbatch's trunk layers timed
+    against their plain versions and bounds."""
+    import numpy as np
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    from dl4ds_tpu_torch import parallel
+    from dl4ds_tpu_torch.models import build_model
+    model = build_model('resnet', 'spc', scale=SCALE, n_channels=1,
+                        n_aux_channels=0, lr_size=(TRAIN_LR, TRAIN_LR),
+                        hr_size=(TRAIN_PATCH, TRAIN_PATCH),
+                        time_window=REC_T, n_filters=f, n_blocks=REC_BLOCKS)
+    net = model.init(25, device='cuda')
+    named = {k: v.detach() for k, v in net.named_parameters()}
+    parts = parallel._split_trunk(named, REC_BLOCKS)
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((TRAIN_BATCH, REC_T, TRAIN_LR, TRAIN_LR, 1)
+                            ).astype('float32')
+    y = rng.standard_normal((TRAIN_BATCH, REC_T, TRAIN_PATCH, TRAIN_PATCH, 1)
+                            ).astype('float32')
+    counters = [c for c in _counters(tds)
+                if c[0] in ('K2-train', 'K3', 'K4')]
+    ticks = []
+    real_tick = parallel._stage_tick
+
+    def counted_tick(block, local, d, n_micro, t, x0_mb, slot, gen_for):
+        before = tds.fused_convlstm.train_launches
+        out = real_tick(block, local, d, n_micro, t, x0_mb, slot, gen_for)
+        ticks.append((t, d, tds.fused_convlstm.train_launches - before))
+        return out
+    for _, fn, attr in counters:
+        setattr(fn, attr, 0)
+    parallel._stage_tick = counted_tick
+    try:
+        loss, grads = parallel._pipeline_trunk_local(
+            model, parts, x, y, 0, n_stages=PP_STAGES, n_micro=PP_MICRO)
+        torch.cuda.synchronize()
+    finally:
+        parallel._stage_tick = real_tick
+    launches = {name: getattr(fn, attr) for name, fn, attr in counters}
+    micro = TRAIN_BATCH // PP_MICRO
+    stem = _pp_expected(conv, layers[:2], TRAIN_BATCH)
+    block = _pp_expected(conv, layers[2:4], micro)
+    want = {k: stem[k] + PP_MICRO * REC_BLOCKS * block[k] for k in stem}
+    want_ticks = [(t, d, block['K2-train'] * (REC_BLOCKS // PP_STAGES)
+                   if 0 <= t - d < PP_MICRO else 0)
+                  for t in range(PP_MICRO + PP_STAGES - 1)
+                  for d in range(PP_STAGES)]
+    print(f'phase 25 (c) {label}: {PP_STAGES} stages x {PP_MICRO} '
+          f'microbatches of {micro}: launches {launches} (expected {want}: '
+          f'the stem {stem} on the batch, a trunk block {block} a '
+          f'microbatch); K2-train a (tick, stage) {ticks}', flush=True)
+    if launches != want or ticks != want_ticks:
+        fail(f'phase 25 (c) {label}: launches {launches} and by tick '
+             f'{ticks}, expected {want} and {want_ticks}')
+    net.train()
+    out = net(torch.from_numpy(x).cuda(), None)
+    ref_loss = (out.float() - torch.from_numpy(y).cuda()).abs().mean()
+    ref = dict(zip(named, torch.autograd.grad(ref_loss,
+                                              list(net.parameters()))))
+    net.eval()
+    got = parallel._merge_trunk(*grads, REC_BLOCKS, list(named))
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    grad_rel = max(_rel_err(got[k], ref[k]) for k in named)
+    # the CPU in float64 at PP_CPU_BATCH: the pipelined program and the
+    # unpipelined step on the card, their convolutions PyTorch's own
+    xs, ys = x[:PP_CPU_BATCH], y[:PP_CPU_BATCH]
+    torch.backends.cudnn.enabled = False
+    try:
+        loss_s, grads_s = parallel._pipeline_trunk_local(
+            model, parts, xs, ys, 0, n_stages=PP_STAGES, n_micro=PP_MICRO)
+        net.train()
+        out_s = net(torch.from_numpy(xs).cuda(), None)
+        plain_loss = (out_s.float() - torch.from_numpy(ys).cuda()).abs(
+            ).mean()
+        plain = dict(zip(named, torch.autograd.grad(
+            plain_loss, list(net.parameters()))))
+        net.eval()
+    finally:
+        torch.backends.cudnn.enabled = True
+    got_s = parallel._merge_trunk(*grads_s, REC_BLOCKS, list(named))
+    cpu = model.init(25, device='cpu').double().train()
+    with torch.no_grad():
+        for k, p in cpu.named_parameters():
+            p.copy_(named[k].double().cpu())
+    out64 = cpu(torch.from_numpy(xs).double(), None)
+    loss64 = (out64 - torch.from_numpy(ys).double()).abs().mean()
+    ref64 = dict(zip(named, torch.autograd.grad(loss64,
+                                                list(cpu.parameters()))))
+    cpu_loss_rel = abs(loss_s.item() - loss64.item()) / abs(loss64.item())
+    errs = {k: (_rel_err(got_s[k].cpu(), ref64[k]),
+                _rel_err(plain[k].cpu(), ref64[k])) for k in named}
+    worst = max(errs, key=lambda k: errs[k][0])
+    cpu_grad_rel = errs[worst][0]
+    off = [k for k, (e, own) in errs.items()
+           if not e <= max(PP_CPU_RTOL, 2 * own)]
+    print(f'phase 25 (c) {label}: against the card\'s unpipelined step at '
+          f'batch {TRAIN_BATCH}: loss relative {loss_rel:.3e}, gradients '
+          f'max|d|/max|ref| {grad_rel:.3e} (within {PP_GRAD_RTOL}); at batch '
+          f'{PP_CPU_BATCH} against the CPU in float64: loss '
+          f'{cpu_loss_rel:.3e} (within {TRAIN_LOSS_RTOL}), gradients up to '
+          f'{cpu_grad_rel:.3e} ({worst}; the card\'s unpipelined step '
+          f'{errs[worst][1]:.3e} there, its largest '
+          f'{max(e[1] for e in errs.values()):.3e}; each within '
+          f'{PP_CPU_RTOL} or twice the unpipelined step\'s)', flush=True)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= PP_GRAD_RTOL
+            and cpu_loss_rel <= TRAIN_LOSS_RTOL and not off):
+        fail(f'phase 25 (c) {label}: the pipelined step differs: loss '
+             f'{loss_rel:.3e} / {cpu_loss_rel:.3e}, gradients '
+             f'{grad_rel:.3e} / {cpu_grad_rel:.3e} (past their bound: '
+             f'{ {k: errs[k] for k in off} })')
+    del net, out, grads, got, ref
+    torch.cuda.empty_cache()
+    trunk = [(cin, ff, k) for cin, ff, k in layers[2:4]]
+    if block['K4']:
+        rows = _k4_layer_rows(torch, trunk, f'phase 25 (c) {label}', micro)
+    else:
+        rows = _k3_layer_rows(torch, [layer + (True,) for layer in trunk],
+                              f'phase 25 (c) {label}', seed=360,
+                              batch=micro)
+    return dict(label=label, launches=launches, expected=want,
+                ticks=ticks, loss_rel=loss_rel, grad_rel=grad_rel,
+                cpu_loss_rel=cpu_loss_rel, cpu_grad_rel=cpu_grad_rel,
+                cpu_worst=worst, cpu_plain_rel=errs[worst][1],
+                micro_rows=rows, card=card_line())
+
+
+def phase_tensor_pipeline_parallel(torch, tds, report):
+    """Phase 25: tensor and pipeline parallelism at the card's count of
+    one: (a) the flagship (dssim_mae) and recresnet_spc trained on a
+    ('data', 'model') mesh of one NCCL rank against no mesh, (b) the
+    standalone tensor-sharded step at one rank, (c) the pipeline's stage
+    program at two stages in one process, at widths 8 and 64."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parts = {}
+    dev = tds.distributed.initialize(f'127.0.0.1:{_free_port()}', 1, 0,
+                                     device='cuda', timeout=300)
+    mesh = tds.distributed.tensor_mesh(1, 1)
+    print(f'phase 25: a fresh process group '
+          f'{torch.distributed.get_backend()} on {dev}; mesh {mesh}',
+          flush=True)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    per_forward = report['flag_k1_per_forward']
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        flag = _training_config(loss=FLAG_LOSS, n_filters=N_FILTERS,
+                                n_blocks=N_BLOCKS, attention=True)
+        step = _flagship_per_step(per_forward)
+        out['flagship'] = _sp_pair(
+            torch, tds, mesh, flag, f'flagship, {FLAG_LOSS}', TP_STEPS,
+            step, step, phase=25, dim='model')
+        rec = _training_config(loss='mae', time_window=REC_T,
+                               n_blocks=REC_BLOCKS, n_filters=N_FILTERS)
+        rec_step = _recurrent_per_step(conv, K3_LAYERS)
+        out['recurrent'] = _sp_pair(
+            torch, tds, mesh, rec, f'recresnet_spc n_filters {N_FILTERS}',
+            TP_REC_STEPS, rec_step, rec_step, phase=25, dim='model')
+        parts['a'] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        out['step'] = _tp_step(torch, tds, tds.distributed.tensor_mesh(),
+                               per_forward)
+        parts['b'] = round(time.perf_counter() - t0, 1)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+        torch.distributed.destroy_process_group()
+    if torch.distributed.is_initialized():
+        fail('phase 25: the process group outlived the phase')
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False     # (c) holds float32 sums
+    out['pipe8'] = _pp_case(torch, tds, N_FILTERS, K3_LAYERS,
+                            f'recresnet_spc n_filters {N_FILTERS}')
+    out['pipe64'] = _pp_case(torch, tds, WIDE_F, WIDE_LAYERS,
+                             f'recresnet_spc n_filters {WIDE_F}')
+    parts['c'] = round(time.perf_counter() - t0, 1)
+    out['parts_s'] = parts
+    print(f'phase 25 parts (s): {parts}', flush=True)
+    report['tp'] = out
+
+
+def _tp_kernel_rows(report):
+    """The `kernels` line's rows of phase 25: K1 fused on gathered weights
+    and K6 in the flagship's mesh run (phases 10 and 9's times at their
+    shapes), K2-train and K3 under the tensor rules in the recurrent mesh
+    run (phase 6's), and K2-train, K3 and K4 on the pipeline's microbatches
+    (timed in (c) at a microbatch's trunk layers)."""
+    tp = report['tp']
+    flag, rec = tp['flagship'], tp['recurrent']
+    gates = report['k1_train_rows']
+    k6 = report['k6_rows'][0]
+    step, k3_rows = report['k3_step'], report['k3_rows']
+    p8, p64 = tp['pipe8'], tp['pipe64']
+    r8, r64 = p8['micro_rows'], p64['micro_rows']
+    common = dict(route='cuda', library_ms=None)
+    micro = TRAIN_BATCH // PP_MICRO
+    pipe_work = (f'one microbatch ({micro} of {TRAIN_BATCH}) through a trunk '
+                 f'block\'s two layers, timed in phase 25 (c); launches of '
+                 f'the stage program, {PP_STAGES} stages x {PP_MICRO} '
+                 f'microbatches, stem included')
+    return [
+        dict(common, name='K1_channel_attention_model_train',
+             source='dl4ds_tpu_torch/csrc/channel_attention.cu',
+             replaces='dl4ds_tpu/ops/pallas_ops.py:39',
+             launches=flag['launches']['K1'],
+             wrapper_calls=flag['wrapper_calls']['K1'],
+             max_abs_err=max(r['max_abs_err'] for r in gates),
+             ms=sum(r['ms'] for r in gates),
+             plain_ms=sum(r['plain_ms'] for r in gates),
+             bound_ms=sum(r['bound_ms'] for r in gates), bound_by='bytes',
+             bwd_ms=sum(r['bwd_ms'] for r in gates),
+             bwd_plain_ms=sum(r['bwd_plain_ms'] for r in gates),
+             bwd_bound_ms=sum(r['bwd_bound_ms'] for r in gates),
+             bwd_launches=flag['launches']['K1 backward'],
+             work=f'the {len(gates)} gates of a flagship step under '
+                  f'SupervisedTrainer(mesh=tensor_mesh(1, 1)), fused on the '
+                  f'gathered weights (phase 10\'s shapes and times)'),
+        dict(common, name='K6_ssim_model_train',
+             source='dl4ds_tpu_torch/csrc/ssim.cu',
+             replaces='dl4ds_tpu/ops/pallas_ops.py:145',
+             launches=flag['launches']['K6'], max_abs_err=k6['max_abs_err'],
+             ms=k6['ms'], plain_ms=k6['plain_ms'], bound_ms=k6['bound_ms'],
+             bound_by=k6['bound_by'], bwd_ms=k6['bwd_ms'],
+             bwd_bound_ms=k6['bwd_bound_ms'],
+             bwd_plain_ms=k6['bwd_plain_ms'],
+             bwd_launches=flag['launches']['K6 backward'],
+             work=f'the {FLAG_LOSS} loss of the flagship under the tensor '
+                  f'mesh (phase 9\'s shape and times)'),
+        dict(common, name='K2_convlstm_train_model',
+             source='dl4ds_tpu_torch/csrc/convlstm.cu',
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+             launches=rec['launches']['K2-train'],
+             max_abs_err=max(max(r['ys_cs_zs_err'][:2]) for r in k3_rows
+                             if 'ys_cs_zs_err' in r),
+             ms=sum(r['k2_ms'] for r in step),
+             plain_ms=sum(r['k2_plain_ms'] for r in step),
+             bound_ms=sum(r['k2_bound_ms'] for r in step),
+             bound_by='operations',
+             work='recresnet_spc under tensor_mesh(1, 1), the ConvLSTM '
+                  'layers on gathered weights (phase 6\'s times)'),
+        dict(common, name='K3_convlstm_bptt_model',
+             source='dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:335',
+             launches=rec['launches']['K3'],
+             max_abs_err=max(max(v for k, v in r['grad_rel_err'].items()
+                                 if k != 'plain_f32') for r in k3_rows),
+             ms=sum(r['k3_ms'] for r in step),
+             plain_ms=sum(r['k3_plain_ms'] for r in step),
+             bound_ms=sum(r['k3_bound_ms'] for r in step),
+             bound_by='operations',
+             work='recresnet_spc under tensor_mesh(1, 1) (phase 6\'s times)'),
+        dict(common, name='K2_convlstm_train_pipe',
+             source='dl4ds_tpu_torch/csrc/convlstm.cu',
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:219',
+             launches=p8['launches']['K2-train'],
+             wide_launches=p64['launches']['K2-train'],
+             max_abs_err=max(max(r['ys_cs_zs_err'][:2]) for r in r8 + r64),
+             ms=sum(r['k2_ms'] for r in r8),
+             plain_ms=sum(r['k2_plain_ms'] for r in r8),
+             bound_ms=sum(r['k2_bound_ms'] for r in r8),
+             wide_ms=sum(r['k2_ms'] for r in r64),
+             wide_plain_ms=sum(r['k2_plain_ms'] for r in r64),
+             wide_bound_ms=sum(r['k2_bound_ms'] for r in r64),
+             bound_by='operations',
+             work=f'width {N_FILTERS} (wide_*: width {WIDE_F}), ' + pipe_work),
+        dict(common, name='K3_convlstm_bptt_pipe',
+             source='dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:335',
+             launches=p8['launches']['K3'],
+             max_abs_err=max(max(v for k, v in r['grad_rel_err'].items()
+                                 if k != 'plain_f32') for r in r8),
+             ms=sum(r['k3_ms'] for r in r8),
+             plain_ms=sum(r['k3_plain_ms'] for r in r8),
+             bound_ms=sum(r['k3_bound_ms'] for r in r8),
+             bound_by='operations',
+             work=f'width {N_FILTERS}, the \'fused\' route, ' + pipe_work),
+        dict(common, name='K4_convlstm_seq_pipe',
+             source='dl4ds_tpu_torch/csrc/convlstm_seq.cu',
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:269',
+             launches=p64['launches']['K4'],
+             max_abs_err=max(r['dzs_rel_err'] for r in r64),
+             ms=sum(r['k4_ms'] for r in r64),
+             plain_ms=sum(r['k4_plain_ms'] for r in r64),
+             bound_ms=sum(r['k4_bound_ms'] for r in r64),
+             bound_by='operations',
+             work=f'width {WIDE_F}, the \'split\' route, ' + pipe_work)]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8892,7 +9349,8 @@ def main():
               (18, phase_parallel), (19, phase_serving),
               (20, phase_quantization), (21, phase_cli),
               (22, phase_data_parallel), (23, phase_more_data_parallel),
-              (24, phase_spatial_parallel))
+              (24, phase_spatial_parallel),
+              (25, phase_tensor_pipeline_parallel))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -9065,7 +9523,8 @@ def main():
                + _parallel_kernel_rows(report)
                + _serving_kernel_rows(report) + _quant_kernel_rows(report)
                + _cli_kernel_rows(report) + _dp_kernel_rows(report)
-               + _dpx_kernel_rows(report) + _sp_kernel_rows(report))
+               + _dpx_kernel_rows(report) + _sp_kernel_rows(report)
+               + _tp_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -9081,7 +9540,7 @@ def main():
                                            'k6_rows', 'graph_rows',
                                            'bf16_k', 'tiled_k', 'member_',
                                            'artifact_k', 'k7_', 'cli',
-                                           'dp', 'sp'))}),
+                                           'dp', 'sp', 'tp'))}),
           flush=True)
     print(json.dumps({'phase18_shapes': {k: report[k] for k in (
         'tiled_k1_rows', 'tiled_k2_rows', 'member_rows')}}), flush=True)
@@ -9098,8 +9557,9 @@ def main():
     print(json.dumps({'phase24': report['sp'],
                       'phase24_shapes': {k: report[k] for k in (
                           'sp_train_rows', 'sp_serve_rows')}}), flush=True)
+    print(json.dumps({'phase25': report['tp']}), flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
-          f'kernel build to the end of phase 24; phase seconds '
+          f'kernel build to the end of phase 25; phase seconds '
           f'{ {k: round(v, 1) for k, v in report["phase_seconds"].items()} }',
           flush=True)
     print(card, flush=True)

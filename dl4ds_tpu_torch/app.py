@@ -37,8 +37,11 @@ spatially parallel over N x M processes, each grid's rows cut into M bands
 (`distributed.spatial_mesh(M, N)`):
     torchrun --nproc_per_node=4 -m dl4ds_tpu_torch.app --flagfile=F \
         --mesh_shape=data=2,space=2
-A 'model' axis raises NotImplementedError naming its ROADMAP item. The
-metrics phase draws its maps with matplotlib (`--nometrics` skips it).
+`--mesh_shape=data=N,model=M` (or `model=M`) trains SupervisedTrainer
+tensor-parallel over N x M processes, each wide weight in M shards
+(`distributed.tensor_mesh(M, N)`), launched as above with
+--nproc_per_node=N*M. The metrics phase draws its maps with matplotlib
+(`--nometrics` skips it).
 """
 
 import importlib.util
@@ -53,7 +56,6 @@ import torch
 import dl4ds_tpu_torch as tds
 from . import (BACKBONE_BLOCKS, DROPOUT_VARIANTS, INTERPOLATION_METHODS,
                LOSS_FUNCTIONS, UPSAMPLING_METHODS)
-from .utils import not_ported
 
 __all__ = ['FLAG_DEFS', 'FlagError', 'parse_flags', 'dl4ds', 'main']
 
@@ -165,10 +167,10 @@ FLAG_DEFS = [
      'serving use the averaged weights; CGAN: the averaged generator is '
      'evaluated and served'),
     ('mesh_shape', 'string', None, None,
-     "Device mesh as 'data=N[,space=M]': data parallel over the N "
-     "processes of a torchrun launch, or spatial over N x M, each grid's "
-     "rows in M bands (SupervisedTrainer; 'model': not ported, ROADMAP "
-     "item 10)"),
+     "Device mesh as 'data=N[,space=M|model=M]': data parallel over the "
+     "N processes of a torchrun launch, or over N x M, each grid's rows in "
+     "M bands ('space') or each wide weight in M shards ('model') "
+     "(SupervisedTrainer)"),
     # INFERENCE/TEST
     ('inference_array_in_hr', 'bool', False, None,
      'Whether the inference array is in high resolution'),
@@ -334,8 +336,9 @@ def _load_data_module(path):
 def _parse_mesh_shape(spec, device):
     """'data=N' -> `distributed.global_mesh()` over the N processes of the
     launch; 'data=N,space=M' or 'space=M' -> `distributed.spatial_mesh(M,
-    N)` over N x M; the process group opened first if it is not open
-    (None -> None, one process)."""
+    N)` over N x M; 'data=N,model=M' or 'model=M' ->
+    `distributed.tensor_mesh(M, N)`; the process group opened first if it
+    is not open (None -> None, one process)."""
     if not spec:
         return None
     sizes = {}
@@ -346,13 +349,13 @@ def _parse_mesh_shape(spec, device):
         except ValueError:
             raise ValueError(f"--mesh_shape must look like 'data=4'; got "
                              f'{spec!r}') from None
-    if 'model' in sizes:
-        raise not_ported("--mesh_shape with a 'model' axis (tensor "
-                         "parallelism)", 10, 4)
-    other = sorted(set(sizes) - {'data', 'space'})
+    other = sorted(set(sizes) - {'data', 'space', 'model'})
     if other:
-        raise ValueError(f"--mesh_shape axes are 'data' and 'space'; got "
-                         f'{other}')
+        raise ValueError(f"--mesh_shape axes are 'data', 'space' and "
+                         f"'model'; got {other}")
+    if 'space' in sizes and 'model' in sizes:
+        raise ValueError("pass a mesh with ONE of 'model'/'space' besides "
+                         'data (3-D TPxSPxDP is untested)')
     n = math.prod(sizes.values())
     opened = torch.distributed.is_initialized()
     world = (torch.distributed.get_world_size() if opened
@@ -365,6 +368,8 @@ def _parse_mesh_shape(spec, device):
         tds.distributed.initialize(device=device)
     if 'space' in sizes:
         return tds.distributed.spatial_mesh(sizes['space'], sizes.get('data'))
+    if 'model' in sizes:
+        return tds.distributed.tensor_mesh(sizes['model'], sizes.get('data'))
     return tds.distributed.global_mesh()
 
 

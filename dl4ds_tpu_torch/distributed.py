@@ -37,6 +37,23 @@ rows of the neighbouring bands that a convolution reads, and
 built from all-gathers, which a captured CUDA graph holds as it holds the
 gradients' all-reduce; their backwards send each row's gradient to the
 rank that owns the row.
+
+Tensor parallelism: `tensor_mesh(n_model, n_data)` is the counterpart of
+JAX's `Mesh(devices.reshape(D, M), ('data', 'model'))`, the ranks of a
+'model' group consecutive. Each rank of a 'model' group holds a shard of
+every wide weight (`parallel.tensor_param_shardings`), and within
+`model_group(group)` the layers take their tensor rules (models/blocks.py)
+from three differentiable pieces: `copy_to_group` (identity forward, the
+ranks' gradients summed backward: Megatron's copy in front of a partial
+computation), `gather_channels` (a column-parallel layer's channel shards
+joined) and `gather_param` (a weight's shards joined at use). Pipeline
+parallelism: `pipeline_mesh(n_pipe, n_data)` is JAX's ('data', 'pipe')
+mesh; `rotate` hands each stage's tensor to the next, cyclically (JAX's
+`ppermute`), and `broadcast_from_last` gives every stage the last one's.
+All are built from all-gathers. Every backward keeps one rule: a
+replicated parameter's gradient comes out identical, bit for bit, on every
+rank of its 'model' or 'pipe' group, and is never summed over it; a
+sharded parameter's gradient is exact on its own rank.
 """
 
 import contextlib
@@ -51,10 +68,14 @@ __all__ = ['initialize', 'is_multi_host', 'process_index', 'process_count',
            'current_batch_group', 'all_reduce_sum', 'global_amax',
            'global_amin', 'average_gradients', 'all_gather_rows',
            'spatial_mesh', 'space_group', 'current_space_group',
-           'band_rows', 'halo_rows', 'gather_rows', 'mesh_group']
+           'band_rows', 'halo_rows', 'gather_rows', 'mesh_group',
+           'tensor_mesh', 'pipeline_mesh', 'model_group',
+           'current_model_group', 'copy_to_group', 'gather_channels',
+           'gather_param', 'rotate', 'broadcast_from_last']
 
 _BATCH_GROUP = None
 _SPACE = None
+_MODEL = None
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None,
@@ -157,6 +178,26 @@ def ensemble_mesh(n_ensemble=None, n_data=None):
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
+def _inner_mesh(name, n, n_data):
+    """The mesh of `n_data` x `n` processes, row-major with the dim `name`
+    innermost (its groups' ranks consecutive); with `n_data` None the 1-D
+    (`name`,) mesh. `n` defaults to the processes left over."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError('call distributed.initialize() first')
+    world = dist.get_world_size()
+    if n is None:
+        n = world // (n_data or 1)
+    shape = (n,) if n_data is None else (n_data, n)
+    names = (name,) if n_data is None else ('data', name)
+    if n * (n_data or 1) != world:
+        raise ValueError(f'a mesh of {dict(zip(names, shape))} needs '
+                         f'{n * (n_data or 1)} processes; the group has '
+                         f'{world}')
+    device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
 def spatial_mesh(n_space=None, n_data=None):
     """The `DeviceMesh` of spatial parallelism, the counterpart of JAX's
     `Mesh(devices.reshape(D, S), ('data', 'space'))`: `n_data` x `n_space`
@@ -164,20 +205,25 @@ def spatial_mesh(n_space=None, n_data=None):
     of a band group are consecutive; with `n_data` None the 1-D ('space',)
     mesh. `n_space` defaults to the processes left over. Pass it as `mesh=`
     to `SupervisedTrainer`, or as `spatial_mesh=` to `predict`."""
-    from torch.distributed.device_mesh import init_device_mesh
-    if not dist.is_initialized():
-        raise RuntimeError('call distributed.initialize() first')
-    world = dist.get_world_size()
-    if n_space is None:
-        n_space = world // (n_data or 1)
-    shape = (n_space,) if n_data is None else (n_data, n_space)
-    names = ('space',) if n_data is None else ('data', 'space')
-    if n_space * (n_data or 1) != world:
-        raise ValueError(f'a mesh of {dict(zip(names, shape))} needs '
-                         f'{n_space * (n_data or 1)} processes; the group '
-                         f'has {world}')
-    device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
-    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+    return _inner_mesh('space', n_space, n_data)
+
+
+def tensor_mesh(n_model=None, n_data=None):
+    """The `DeviceMesh` of tensor parallelism, the counterpart of JAX's
+    `Mesh(devices.reshape(D, M), ('data', 'model'))`: `n_data` x `n_model`
+    processes, the 'model' dim innermost; with `n_data` None the 1-D
+    ('model',) mesh. `n_model` defaults to the processes left over. Pass it
+    as `mesh=` to `SupervisedTrainer` or to
+    `parallel.make_tensor_sharded_step`."""
+    return _inner_mesh('model', n_model, n_data)
+
+
+def pipeline_mesh(n_pipe=None, n_data=None):
+    """The `DeviceMesh` of pipeline parallelism: `n_data` x `n_pipe`
+    processes, the 'pipe' dim innermost (its stages' ranks consecutive);
+    with `n_data` None the 1-D ('pipe',) mesh. `n_pipe` defaults to the
+    processes left over. Pass it to `parallel.make_pipeline_step`."""
+    return _inner_mesh('pipe', n_pipe, n_data)
 
 
 def mesh_group(mesh):
@@ -239,6 +285,35 @@ def current_space_group():
     """The band group of the innermost `space_group` context (an object
     with `group`, the band `count` and the `moments` group), or None."""
     return _SPACE
+
+
+class _Model:
+    """A 'model' group with its rank count and this rank's place in it."""
+
+    def __init__(self, group):
+        self.group = group
+        self.count = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+
+
+@contextlib.contextmanager
+def model_group(group):
+    """Within the context, the layers whose parameters are sharded take
+    their tensor rules over the ranks of `group` (models/blocks.py); None
+    leaves them unsharded. A group of one rank still routes every rule."""
+    global _MODEL
+    outer, _MODEL = _MODEL, None if group is None else _Model(group)
+    try:
+        yield group
+    finally:
+        _MODEL = outer
+
+
+def current_model_group():
+    """The 'model' group of the innermost `model_group` context (an object
+    with `group`, the rank `count` and this process's `rank` in it), or
+    None."""
+    return _MODEL
 
 
 def _gather_into(out, x, group):
@@ -456,3 +531,132 @@ def all_gather_rows(x, group):
     """The ranks' `x` (equal shapes) concatenated along dim 0 in the order
     of their ranks in `group`, on every rank."""
     return _ranks_of(x, group).flatten(0, 1)
+
+
+# ---------------------------------------------------------------------------
+# Tensor and pipeline parallelism: the differentiable exchanges
+# ---------------------------------------------------------------------------
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; backward the sum of the ranks' gradients, each
+    rank's being a partial one (Megatron's copy)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def copy_to_group(x, group):
+    """`x`, replicated over the ranks of `group`, handed to a computation
+    that each rank does in part (a column-parallel layer's shard of the
+    output channels, the first pipeline stage): the identity, whose
+    backward sums the ranks' partial gradients, so that every rank gets
+    the same whole gradient of x."""
+    return _CopyToGroup.apply(x, group)
+
+
+def _joined(x, dim, group):
+    """The ranks' `x` (equal shapes) concatenated along `dim` in rank
+    order."""
+    parts = _ranks_of(x, group)
+    if dim % x.dim() == 0:
+        return parts.flatten(0, 1)
+    return torch.cat(parts.unbind(0), dim=dim)
+
+
+class _GatherAlong(torch.autograd.Function):
+    """The ranks' shards joined along `dim`; the backward is this rank's
+    slice of the gradient, which the computation after the gather,
+    replicated over the group, gives every rank whole and equal. The
+    gradient takes the layout of the shard (a parameter's, as the fused
+    optimizer and `average_gradients` want)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.size = x.shape[dim]
+        ctx.shape = tuple(x.shape)
+        ctx.strides = x.stride() if _dense(x) else None
+        return _joined(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r = dist.get_rank(ctx.group)
+        part = grad.narrow(ctx.dim, r * ctx.size, ctx.size)
+        if ctx.strides is None:
+            return part.contiguous(), None, None
+        out = grad.new_empty_strided(ctx.shape, ctx.strides)
+        return out.copy_(part), None, None
+
+
+def gather_channels(x, group):
+    """The channel shards (the last dim) of a column-parallel layer's
+    output joined over the ranks of `group` in rank order: the whole
+    activation, on every rank. Differentiable: its backward is this rank's
+    slice of the gradient, which the replicated computation after it gives
+    every rank whole and equal (no reduce-scatter)."""
+    return _GatherAlong.apply(x, -1, group)
+
+
+def gather_param(w, dim, group):
+    """The whole weight from the shards of `w` (cut along `dim`, shard k on
+    the group's rank k), joined at use. Differentiable: its backward is
+    this rank's slice of the whole weight's gradient, which the replicated
+    computation that uses it gives every rank whole and equal; the slice
+    takes the shard's layout."""
+    return _GatherAlong.apply(w, dim % w.dim(), group)
+
+
+class _Rotate(torch.autograd.Function):
+    """Stage d receives stage d-1's tensor, cyclically; the backward
+    sends each gradient the other way (stage d receives stage d+1's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        return _ranks_of(x, group)[(r - 1) % n].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return _ranks_of(grad, ctx.group)[(r + 1) % n].clone(), None
+
+
+def rotate(x, group):
+    """The tensor of the previous rank of `group` (rank d receives rank
+    d-1's, rank 0 the last's), as JAX's `ppermute` with perm [(i, (i+1) %
+    S)]: one all-gather. Differentiable: the backward is the reverse
+    rotation. Every rank must call it with the same shape."""
+    return _Rotate.apply(x, group)
+
+
+class _BroadcastFromLast(torch.autograd.Function):
+    """The last rank's tensor on every rank; the gradient, equal on every
+    rank (the computation after it is replicated), goes to the last rank
+    alone."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.last = dist.get_rank(group) == dist.get_world_size(group) - 1
+        return _ranks_of(x, group)[-1].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.last else torch.zeros_like(grad)), None
+
+
+def broadcast_from_last(x, group):
+    """The last rank's `x` on every rank of `group` (the counterpart of
+    JAX's `psum(where(d == S - 1, x, 0))` over the pipe axis): one
+    all-gather. Differentiable: the replicated gradient of the result is
+    handed to the last rank once, the others getting zeros. Every rank
+    must call it with the same shape."""
+    return _BroadcastFromLast.apply(x, group)

@@ -57,6 +57,21 @@ joined (`distributed.gather_rows`), the layer run on the whole height, the
 band's rows kept (so K2-K4 run unchanged on the whole height, as the JAX
 package's partition rules replicate H around its ConvLSTM kernels). The
 other layers act on each row alone. A layer without a rule raises.
+
+Tensor parallelism: a network sharded by `parallel.shard_network` holds,
+on each rank of a 'model' group, a shard of each wide weight (cut along its
+output-feature dim, recorded in the module's `_tp_dims`), and within
+`distributed.model_group(group)` each layer that holds one takes its
+tensor rule. A `Conv` (groups 1) is column-parallel: its input through
+`distributed.copy_to_group`, the convolution by the rank's output channels,
+the channels joined (`distributed.gather_channels`), then the replicated
+bias. The other layers take the gather rule: each sharded weight joined at
+use (`distributed.gather_param`) and the layer run unchanged, so the gate
+runs K1 fused and the ConvLSTM layers K2-K4 on the whole weights, as
+GSPMD replicates the operands of the JAX package's kernels. Activations
+are whole after each gather, so norms, activations, the pixel shuffle and
+dropout act as without the group; a batch norm raises ValueError (its
+statistics are per-shard mutable state, as the JAX trainer says).
 """
 
 import contextlib
@@ -69,9 +84,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed import (all_reduce_sum, band_rows, current_batch_group,
-                           current_space_group, gather_rows, halo_rows,
-                           space_group)
+from ..distributed import (all_reduce_sum, band_rows, copy_to_group,
+                           current_batch_group, current_model_group,
+                           current_space_group, gather_channels,
+                           gather_param, gather_rows, halo_rows, space_group)
 from ..interpolation import resize2d
 from ..ops import depth_to_space, fused_channel_attention, fused_convlstm
 from ..ops.fused_ops import fused_channel_attention_band
@@ -127,6 +143,32 @@ def _replicated(fn, what, *xs):
     with space_group(None):
         y = fn(*full)
     return band_rows(y, sp.group, what=f'the output of {what}')
+
+
+def _tp_dim(module, name):
+    """The dim along which `module`'s parameter `name` is sharded over the
+    'model' group (`parallel.shard_network`), or None."""
+    return module.__dict__.get('_tp_dims', {}).get(name)
+
+
+def _model_of(module):
+    """The model group that a layer holding shards runs within."""
+    mg = current_model_group()
+    if mg is None:
+        raise RuntimeError(
+            f'{type(module).__name__} holds shards of its weights: run it '
+            f'within distributed.model_group(group)')
+    return mg
+
+
+def _whole(module, name):
+    """`module`'s parameter `name` whole: joined over the model group at
+    use where it is sharded (the gather rule), else as it is."""
+    t = getattr(module, name)
+    dim = _tp_dim(module, name)
+    if dim is None or t is None:
+        return t
+    return gather_param(t, dim, _model_of(module).group)
 
 
 def _no_band_rule(what):
@@ -456,6 +498,11 @@ class BatchNorm(_NormBase):
         self.var.fill_(1.0)
 
     def forward(self, x):
+        if current_model_group() is not None:
+            raise ValueError(
+                'tensor-parallel training supports parameter-only models '
+                '(batch-norm statistics are per-shard mutable state); build '
+                'the model without batch norm')
         if not self.training:
             return self._normalize(x, self.mean, self.var)
         dims = tuple(range(x.dim() - 1))
@@ -595,6 +642,14 @@ class Conv(nn.Module):
     def forward(self, x):
         args = dict(padding=self.padding, groups=self.groups,
                     stride=self.stride)
+        w, column = self.weight, None
+        if _tp_dim(self, 'weight') is not None:
+            if self.groups == 1:
+                # column-parallel: this rank's output channels, then joined
+                column = _model_of(self).group
+                x = copy_to_group(x, column)
+            else:
+                w = _whole(self, 'weight')
         sp = current_space_group()
         if sp is not None:
             # the band rule: kh // 2 rows of the neighbouring bands, then no
@@ -613,14 +668,20 @@ class Conv(nn.Module):
             xt = F.pad(xt, self._same_pads(x))
             args['padding'] = 0
         if self.dtype == torch.float32:   # (also float64 reference runs)
-            y = F.conv2d(xt, self.weight, self.bias, **args)
-            return y.permute(0, 2, 3, 1).contiguous()
-        xt, w = xt.to(self.dtype), self.weight.to(self.dtype)
+            y = F.conv2d(xt, w, None if column is not None else self.bias,
+                         **args).permute(0, 2, 3, 1).contiguous()
+            if column is None:
+                return y
+            y = gather_channels(y, column)
+            return y if self.bias is None else y + self.bias
+        xt, w = xt.to(self.dtype), w.to(self.dtype)
         if x.is_cuda:
             y = F.conv2d(xt, w, **args)
         else:   # rounded once from float32, as XLA's CPU convolution
             y = F.conv2d(xt.float(), w.float(), **args).to(self.dtype)
         y = y.permute(0, 2, 3, 1).contiguous()
+        if column is not None:
+            y = gather_channels(y, column)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
@@ -665,12 +726,13 @@ class Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
+        k, bias = _whole(self, 'kernel'), _whole(self, 'bias')
         if self.dtype == torch.float32:   # (also float64 reference runs)
-            y = x @ self.kernel
-            return y if self.bias is None else y + self.bias
-        x, k = x.to(self.dtype), self.kernel.to(self.dtype)
+            y = x @ k
+            return y if bias is None else y + bias
+        x, k = x.to(self.dtype), k.to(self.dtype)
         y = x @ k if x.is_cuda else (x.float() @ k.float()).to(self.dtype)
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        return y if bias is None else y + bias.to(self.dtype)
 
 
 def _transpose_pad_before(k, s):
@@ -720,7 +782,7 @@ class ConvTranspose(nn.Module):
             return _replicated(self.forward, 'a transposed conv', x)
         h, w = x.shape[1:3]
         s = self.stride
-        k = self.kernel
+        k = _whole(self, 'kernel')
         if self.dtype == torch.bfloat16:
             x, k = x.to(self.dtype), k.to(self.dtype)
         weight = torch.flip(k, (0, 1)).permute(2, 3, 0, 1)
@@ -777,6 +839,7 @@ class ChannelAttention2D(nn.Module):
     def forward(self, x):
         t = self.time_window
         sp = current_space_group()
+        w1, b1, w2, b2 = (_whole(self, n) for n in ('w1', 'b1', 'w2', 'b2'))
         if t is not None and t > 1:
             bt, h, w, c = x.shape
             xr = x.reshape(bt // t, t, h, w, c)
@@ -786,15 +849,14 @@ class ChannelAttention2D(nn.Module):
                 acc = torch.promote_types(x.dtype, torch.float32)
                 total = all_reduce_sum(xr.to(acc).sum(dim=(1, 2)), sp.group)
                 m = (total / (t * h * sp.count)).to(x.dtype)
-            hdn = F.relu(m @ self.w1.to(m.dtype) + self.b1)
-            g = torch.sigmoid(hdn @ self.w2.to(m.dtype).to(hdn.dtype)
-                              + self.b2)
+            hdn = F.relu(m @ w1.to(m.dtype) + b1)
+            g = torch.sigmoid(hdn @ w2.to(m.dtype).to(hdn.dtype) + b2)
             return (xr * g[:, None, None]).reshape(bt, h, w, c)
         out_dtype = torch.float32 if x.dtype == torch.bfloat16 else None
         if sp is not None:
-            return fused_channel_attention_band(
-                x, self.w1, self.b1, self.w2, self.b2, sp.group, out_dtype)
-        return fused_channel_attention(x, self.w1, self.b1, self.w2, self.b2,
+            return fused_channel_attention_band(x, w1, b1, w2, b2, sp.group,
+                                                out_dtype)
+        return fused_channel_attention(x, w1, b1, w2, b2,
                                        out_dtype=out_dtype)
 
 
@@ -995,7 +1057,7 @@ class LocalizedConvBlock(nn.Module):
 
     def forward(self, x):
         y = self.TransitionBlock_0(x)
-        k, bias = self.local_kernel, self.local_bias
+        k, bias = _whole(self, 'local_kernel'), _whole(self, 'local_bias')
         grid = self.grid
         sp = current_space_group()
         if sp is not None:   # the band's rows of the per-pixel weights
@@ -1243,8 +1305,9 @@ class ConvLSTM2D(nn.Module):
     def forward(self, x):
         if current_space_group() is not None:
             return _replicated(self.forward, 'a ConvLSTM layer', x)
-        wx, bx = self.input_conv.kernel, self.input_conv.bias
-        wh = self.cell.recurrent_conv.kernel
+        wx = _whole(self.input_conv, 'kernel')
+        bx = _whole(self.input_conv, 'bias')
+        wh = _whole(self.cell.recurrent_conv, 'kernel')
         if self.dtype == torch.bfloat16:
             x, wx, bx, wh = (u.to(self.dtype) for u in (x, wx, bx, wh))
         return fused_convlstm(x, wx, bx, wh)
@@ -1273,3 +1336,9 @@ class RecurrentConvBlock(nn.Module):
         y = self.act(_maybe(self._Norm_0, y))
         y = self.ConvLSTM2D_1(_maybe(self.Dropout_1, y))
         return self.act(_maybe(self._Norm_1, y))
+
+
+# the modules whose sharded parameters have a tensor rule (`_Kernel`'s
+# through its ConvLSTM2D); `parallel.shard_network` refuses any other
+TENSOR_RULES = (Conv, Dense, ConvTranspose, ChannelAttention2D,
+                LocalizedConvBlock, _Kernel)

@@ -458,10 +458,16 @@ class _RecBackbone(nn.Module):
                 dropout_variant=dropout_variant, dtype=dtype))
         self.Dropout_0 = _dropout(dropout_rate, dropout_variant, dim=3)
 
-    def forward(self, x):
+    def forward(self, x, trunk_fn=None):
         x0 = b = self.RecurrentConvBlock1(x)
-        for i in range(self.n_blocks):
-            b = self._modules[f'RecurrentConvBlock{i + 2}'](b)
+        if trunk_fn is not None:
+            # the pipeline's hook (parallel.make_pipeline_step): the
+            # homogeneous trunk, blocks 2..n_blocks+1, computed outside from
+            # the stem's output; those blocks are not run here
+            b = trunk_fn(x0)
+        else:
+            for i in range(self.n_blocks):
+                b = self._modules[f'RecurrentConvBlock{i + 2}'](b)
         b = _maybe(self.Dropout_0, b)
         if self.backbone == 'convnet':
             return b
@@ -524,13 +530,13 @@ class RecNetPostupsampling(nn.Module):
             n_filters, n_channels_out, activation=output_activation,
             normalization=normalization, dtype=dtype))
 
-    def forward(self, x, aux=None):
+    def forward(self, x, aux=None, trunk_fn=None):
         _check_aux(self.n_aux_channels, aux)
         b, t = x.shape[:2]
         if t != self.time_window:
             raise ValueError(f'model built for time_window='
                              f'{self.time_window}, got {t} frames')
-        x = self._RecBackbone_0(x)
+        x = self._RecBackbone_0(x, trunk_fn)
         x = x.reshape(b * t, *x.shape[2:])
         for name in self.head:
             x = self._modules[name](x)
@@ -588,13 +594,13 @@ class RecNetPIN(nn.Module):
             n_filters, n_channels_out, activation=output_activation,
             normalization=normalization, dtype=dtype))
 
-    def forward(self, x, aux=None):
+    def forward(self, x, aux=None, trunk_fn=None):
         _check_aux(self.n_aux_channels, aux)
         b, t = x.shape[:2]
         if t != self.time_window:
             raise ValueError(f'model built for time_window='
                              f'{self.time_window}, got {t} frames')
-        x = self._RecBackbone_0(x)
+        x = self._RecBackbone_0(x, trunk_fn)
         x = x.reshape(b * t, *x.shape[2:])
         if aux is not None:
             s = self._modules[self.aux_name](aux)

@@ -56,6 +56,7 @@ attention too: its layers take band rules instead (models/blocks.py).
 """
 
 import collections
+import copy
 
 import numpy as np
 import torch
@@ -69,7 +70,10 @@ from .utils import checkarg_loss, not_ported, resolve_device
 __all__ = ['predict_tiled', 'receptive_field_radius', 'init_ensemble',
            'make_ensemble_step', 'predict_ensemble', 'EnsembleStep',
            'make_spatial_sharded_step', 'predict_spatial_sharded',
-           'SpatialShardedStep']
+           'SpatialShardedStep', 'tensor_param_shardings',
+           'mirror_param_shardings', 'make_tensor_sharded_step',
+           'TensorShardedStep', 'make_pipeline_step', 'PipelineStep',
+           'place_params', 'gather_params']
 
 
 def _output_scale(model):
@@ -377,19 +381,9 @@ def make_spatial_sharded_step(model, mesh, tx=None, halo=32, loss='mae',
                          zip(params.items(), parts)}
 
     def step(params, opt_state, x, y, key):
-        held = opt_state.param_groups[0]['params']
-        if len(held) != len(params) or any(
-                a is not b for a, b in zip(held, params.values())):
-            raise ValueError('opt_state is not the optimizer of these '
-                             'params; make it with init_opt(params)')
+        _check_opt(params, opt_state)
         value, grads = loss_and_grads(params, x, y, key)
-        for name, p in params.items():
-            g = grads[name]
-            p.grad = (g if g.stride() == p.stride()
-                      else torch.empty_like(p).copy_(g))
-        opt_state.step()
-        for p in params.values():
-            p.grad = None
+        _apply(params, opt_state, grads)
         return params, opt_state, value
 
     def init_opt(params):
@@ -726,3 +720,691 @@ def predict_ensemble(model, stacked_variables, x, aux=None, mesh=None,
     if return_members:
         return mean, std, outs.cpu().numpy()
     return mean, std
+
+
+# ---------------------------------------------------------------------------
+# Tensor (channel) parallelism: wide weights sharded over a 'model' dim
+# ---------------------------------------------------------------------------
+
+TensorShardedStep = collections.namedtuple(
+    'TensorShardedStep', 'step loss_and_grads init_opt param_shardings')
+
+
+def _dim_names(mesh, what):
+    names = tuple(getattr(mesh, 'mesh_dim_names', None) or ())
+    if not names:
+        raise TypeError(f'`mesh` must be a DeviceMesh with named dims for '
+                        f'{what}')
+    return names
+
+
+def _axis_size(mesh, axis, what='tensor_param_shardings'):
+    names = _dim_names(mesh, what)
+    if axis not in names:
+        raise ValueError(f'mesh has no {axis!r} axis: {names}')
+    return mesh.size(names.index(axis))
+
+
+def _data_coord(mesh, data_axis):
+    """(coordinate, size, group) of this rank on the mesh's `data_axis`
+    dim; (0, 1, None) where the mesh has none."""
+    names = _dim_names(mesh, 'a data dim')
+    if data_axis not in names:
+        return 0, 1, None
+    return (mesh.get_local_rank(data_axis),
+            mesh.size(names.index(data_axis)), mesh.get_group(data_axis))
+
+
+def _out_dim(name, t):
+    """The output-feature dim of the parameter `name` in the port's layout,
+    the last dim of its JAX layout: dim 0 of a `Conv`'s OIHW `weight` (the
+    only parameter of that name), the last dim of every other."""
+    return 0 if name.rsplit('.', 1)[-1] == 'weight' else t.dim() - 1
+
+
+def tensor_param_shardings(params, mesh, model_axis='model',
+                           min_channels=None):
+    """The channel sharding of a network's parameters over the mesh's
+    `model_axis` dim, Megatron's rule as the JAX package states it
+    (dl4ds_tpu/parallel.py:686-711): a parameter of 2 dims or more whose
+    output-feature dim (`_out_dim`: dim 0 of a conv's OIHW weight, the
+    last dim of the others, the Flax layout's last) is divisible by the
+    dim's size n and at least `min_channels` wide (default 2n) is sharded
+    along that dim; everything else (biases, narrow kernels) is
+    replicated. `params` is a network or a dict from
+    `named_parameters()` name to tensor; returns a dict from name to the
+    sharded dim, or None."""
+    n = _axis_size(mesh, model_axis)
+    min_c = 2 * n if min_channels is None else min_channels
+    items = (params.named_parameters() if isinstance(params, torch.nn.Module)
+             else params.items())
+    spec = {}
+    for name, t in items:
+        dim = _out_dim(name, t)
+        spec[name] = (dim if t.dim() >= 2 and t.shape[dim] % n == 0
+                      and t.shape[dim] >= min_c else None)
+    return spec
+
+
+def mirror_param_shardings(state, params, p_sh, rep):
+    """`p_sh` (a spec like `tensor_param_shardings`', name -> dim or None)
+    mirrored onto every params-shaped part of `state`, `rep` elsewhere
+    (dl4ds_tpu/parallel.py:714-741): a dict keyed by the parameters'
+    names, a dict keyed by their positions (a torch optimizer's
+    `state_dict()['state']`) or a list or tuple of one entry a parameter
+    (the trainer's Adam states, accumulators) maps each parameter's
+    tensors of its shape (the moments, the EMA copy) to its dim and its
+    other entries (step counts) to `rep`; any other dict, list or tuple is
+    mirrored entry by entry, anything else is `rep`. `params` (name ->
+    tensor, whole or this rank's shards, as `state` holds them) fixes the
+    shapes matched."""
+    names = list(params)
+    shapes = [tuple(params[k].shape) for k in names]
+    dims = [p_sh[k] for k in names]
+
+    def one(i, obj):
+        if torch.is_tensor(obj):
+            return dims[i] if tuple(obj.shape) == shapes[i] else rep
+        if isinstance(obj, dict):
+            return {k: one(i, v) for k, v in obj.items()}
+        return rep
+
+    def per_param(obj):
+        if isinstance(obj, dict):
+            if obj and set(obj) == set(names):
+                return {k: one(names.index(k), v) for k, v in obj.items()}
+            if obj and set(obj) == set(range(len(names))):
+                return {k: one(k, v) for k, v in obj.items()}
+            return None
+        if (isinstance(obj, (list, tuple)) and len(obj) == len(names)
+                and all(isinstance(v, dict) or (torch.is_tensor(v) and
+                                                tuple(v.shape) == s)
+                        for v, s in zip(obj, shapes))):
+            return type(obj)(one(i, v) for i, v in enumerate(obj))
+        return None
+
+    def rec(obj):
+        mirrored = per_param(obj)
+        if mirrored is not None:
+            return mirrored
+        if isinstance(obj, dict):
+            return {k: rec(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(rec(v) for v in obj)
+        return rep
+
+    return rec(state)
+
+
+def _shard_axis(mesh, axis):
+    """(group, size, this rank's coordinate) of the mesh's `axis` dim;
+    axis None is the mesh's one dim other than 'data'."""
+    names = _dim_names(mesh, 'placing parameters')
+    if axis is None:
+        others = [a for a in names if a != 'data']
+        if len(others) != 1:
+            raise ValueError(f'mesh has dims {names}; pass axis= to choose '
+                             f'the one the parameters shard over')
+        axis = others[0]
+    if axis not in names:
+        raise ValueError(f'mesh has no {axis!r} axis: {names}')
+    return (mesh.get_group(axis), mesh.size(names.index(axis)),
+            mesh.get_local_rank(axis))
+
+
+def _map_spec(fn, params, spec):
+    if isinstance(params, (tuple, list)):
+        return type(params)(_map_spec(fn, p, s)
+                            for p, s in zip(params, spec))
+    return {k: fn(k, v, spec[k]) for k, v in params.items()}
+
+
+def place_params(params, param_shardings, mesh, axis=None):
+    """This rank's part of `params` (a dict from name to whole tensor, or a
+    tuple of such dicts, as the pipeline's `(rest, stacked)`), by
+    `param_shardings` (a dict from name to dim or None, or a tuple of
+    such): of each sharded tensor the shard at this rank's coordinate on
+    the mesh's `axis` dim (default its one dim other than 'data'), cut
+    along its dim in rank order; every other tensor whole. Fresh tensors,
+    the layout kept: the counterpart of `jax.device_put(params,
+    param_shardings)`. Inverse: `gather_params`."""
+    _, n, r = _shard_axis(mesh, axis)
+
+    def part(name, t, dim):
+        t = t.detach()
+        if dim is None:
+            return t.clone()
+        if t.shape[dim] % n:
+            raise ValueError(f'{name}: {t.shape[dim]} entries along dim '
+                             f'{dim} do not cut into {n} shards')
+        k = t.shape[dim] // n
+        return t.narrow(dim, r * k, k).clone()
+    return _map_spec(part, params, param_shardings)
+
+
+def gather_params(params, param_shardings, mesh, axis=None):
+    """The whole tensors from this rank's part of them (`place_params`'
+    inverse): each sharded tensor's shards all-gathered over the mesh's
+    `axis` dim and joined along its dim in rank order, on every rank;
+    every other tensor as it is (copied). Every rank of the group calls
+    it, in the same order."""
+    group, _, _ = _shard_axis(mesh, axis)
+
+    def whole(name, t, dim):
+        t = t.detach()
+        return t.clone() if dim is None else distributed._joined(t, dim,
+                                                                 group)
+    return _map_spec(whole, params, param_shardings)
+
+
+def _shard_network(net, spec, group):
+    """`net` with each parameter that `spec` shards replaced, in place, by
+    this rank's shard of it in `group` (its layout kept) and its dim
+    recorded in its module's `_tp_dims`, which the layers' tensor rules
+    read (models/blocks.py). A sharded parameter of a module without a
+    tensor rule raises NotImplementedError naming the module."""
+    from .models.blocks import TENSOR_RULES
+    n, r = torch.distributed.get_world_size(group), \
+        torch.distributed.get_rank(group)
+    modules = dict(net.named_modules())
+    for name, dim in spec.items():
+        if dim is None:
+            continue
+        owner_name, _, leaf = name.rpartition('.')
+        owner = modules[owner_name]
+        if not isinstance(owner, TENSOR_RULES):
+            raise NotImplementedError(
+                f'{type(owner).__name__} ({owner_name or "the network"}) has '
+                f'no tensor rule for its sharded parameter {leaf!r}')
+        p = getattr(owner, leaf)
+        k = p.shape[dim] // n
+        setattr(owner, leaf, torch.nn.Parameter(
+            p.detach().narrow(dim, r * k, k).clone(),
+            requires_grad=p.requires_grad))
+        owner.__dict__.setdefault('_tp_dims', {})[leaf] = dim
+    return net
+
+
+def _whole_network(net, group):
+    """A copy of the sharded `net` with every shard joined over `group`
+    into its whole parameter (conv weights channels-last, as
+    `DSModel.init` lays them), no `_tp_dims` left: what the JAX package's
+    gathered state serves and saves. Every rank of the group calls it."""
+    from .models.blocks import Conv
+    whole = copy.deepcopy(net)
+    for mod in whole.modules():
+        dims = mod.__dict__.pop('_tp_dims', None)
+        for leaf, dim in (dims or {}).items():
+            p = getattr(mod, leaf)
+            t = distributed._joined(p.detach(), dim, group)
+            if isinstance(mod, Conv):
+                t = t.contiguous(memory_format=torch.channels_last)
+            setattr(mod, leaf, torch.nn.Parameter(
+                t, requires_grad=p.requires_grad))
+    return whole
+
+
+def _has_batch_norm(module):
+    from .models.blocks import BatchNorm
+    return any(isinstance(m, BatchNorm) for m in module.modules())
+
+
+def _key_word(key):
+    """An int from `key`: an int as it is, one draw of a torch.Generator."""
+    if isinstance(key, torch.Generator):
+        return int(torch.randint(0, 2 ** 62, (1,), generator=key,
+                                 device=key.device).item())
+    return int(key)
+
+
+def _seeded(dev, *words):
+    """A generator on `dev` seeded from the words (numpy's SeedSequence)."""
+    return torch.Generator(device=dev).manual_seed(int(
+        np.random.SeedSequence([w % 2 ** 63 for w in words])
+        .generate_state(1, np.uint64)[0]))
+
+
+def _flat_mean(value, grads, group, n):
+    """(value, grads) summed over `group` in one all-reduce and divided by
+    n; unchanged without a group."""
+    if group is None:
+        return value, grads
+    flat = torch.cat([value.reshape(1)] + [g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    flat.div_(n)
+    parts = flat[1:].split([g.numel() for g in grads])
+    return flat[0], [v.view_as(g) for v, g in zip(parts, grads)]
+
+
+def _tensors(params):
+    """The tensors of a dict, or of a tuple of dicts, in order."""
+    return (list(params.values()) if isinstance(params, dict)
+            else [t for d in params for t in d.values()])
+
+
+def _check_opt(params, opt_state):
+    held = opt_state.param_groups[0]['params']
+    flat = _tensors(params)
+    if len(held) != len(flat) or any(a is not b for a, b in zip(held, flat)):
+        raise ValueError('opt_state is not the optimizer of these params; '
+                         'make it with init_opt(params)')
+
+
+def _apply(params, opt_state, grads):
+    """One optimizer update of the tensors of `params` (dicts, or a tuple
+    of dicts) with `grads` (the same structure), in place."""
+    flat = _tensors(params)
+    for p, g in zip(flat, _tensors(grads)):
+        # a fused optimizer takes each gradient in its parameter's layout
+        p.grad = g if g.stride() == p.stride() else \
+            torch.empty_like(p).copy_(g)
+    opt_state.step()
+    for p in flat:
+        p.grad = None
+
+
+def make_tensor_sharded_step(model, mesh, tx=None, loss='mae',
+                             model_axis='model', data_axis='data',
+                             min_channels=None):
+    """A training step whose wide weights (and optimizer moments) are
+    sharded channel-wise over the mesh's `model_axis` dim, for models whose
+    parameters, Adam state and activations exceed one card
+    (dl4ds_tpu/parallel.py:744-853). Where the JAX package annotates the
+    shardings and lets GSPMD place the collectives, each layer here takes
+    its tensor rule (models/blocks.py: column-parallel convs, the other
+    layers' weights gathered at use) within `distributed.model_group`; a
+    `data_axis` dim gives each rank its shard of the batch, the loss and
+    gradients averaged over it. Every rank of a 'model' group computes the
+    loss whole and seeds its backward with 1: a replicated parameter's
+    gradient comes out equal on every rank of the group, a shard's exact.
+
+    Returns a `TensorShardedStep`:
+      init_opt(params) -> the optimizer over the tensors of params
+        (`tx(list(params.values()))`; `tx=None` is Adam with lr 1e-4,
+        optax.adam(1e-4)'s settings), which `step` takes as opt_state;
+      step(params, opt_state, x, y, key[, aux]) -> (params, opt_state,
+        loss), updating the tensors of `params` in place;
+      loss_and_grads(params, x, y, key[, aux]) -> (loss, grads), grads a
+        dict like params (shards where params are);
+      param_shardings: the spec (`tensor_param_shardings`), name -> dim or
+        None; place whole parameters with `place_params(params,
+        param_shardings, mesh)`.
+    `params` is this rank's part of `net.named_parameters()`, on one
+    device, whose dtype sets the inputs'. x, y (and aux, required iff the
+    model has an aux branch) are the global arrays, the same on every
+    rank. `key` (an int, or a torch.Generator from which one word is
+    drawn) seeds the dropout draws with this rank's data coordinate alone,
+    so that the ranks of a 'model' group draw the same masks. `loss` is
+    any registry loss (the DSSIM range reduced over the data dim)."""
+    lossf = checkarg_loss(loss)
+    names = _dim_names(mesh, 'make_tensor_sharded_step')
+    if model_axis not in names:
+        raise ValueError(f'mesh has no {model_axis!r} axis: {names}')
+    template = model.build()
+    if _has_batch_norm(template):
+        raise ValueError('tensor-sharded training supports parameter-only '
+                         'models (batch-norm statistics are mutable '
+                         'state); build the model without batch norm')
+    spec = tensor_param_shardings(template, mesh, model_axis, min_channels)
+    group = mesh.get_group(model_axis)
+    d_data, n_data, data_group = _data_coord(mesh, data_axis)
+    needs_aux = model.aux_shape is not None
+    tx = _adam if tx is None else tx
+    nets = {}
+
+    def net_on(dev):
+        if dev not in nets:
+            nets[dev] = _shard_network(model.init(0, device=dev), spec,
+                                       group)
+        return nets[dev]
+
+    def loss_and_grads(params, x, y, key, aux=None):
+        if needs_aux and aux is None:
+            raise ValueError('model takes an aux input; pass aux=')
+        dev, dtype = _stack_where(params)
+        x, y = _on(x, dev, dtype), _on(y, dev, dtype)
+        aux = _on(aux, dev, dtype) if needs_aux else None
+        if x.shape[0] % n_data:
+            raise ValueError(f'batch {x.shape[0]} not divisible by the '
+                             f'{data_axis} axis size {n_data}')
+        b = x.shape[0] // n_data
+        rows = slice(d_data * b, (d_data + 1) * b)
+        x, y = x[rows], y[rows]
+        aux = aux[rows] if aux is not None else None
+        net = net_on(dev).train()
+        held = {k: v.detach().requires_grad_() for k, v in params.items()}
+        try:
+            with use_dropout_generator(net, _seeded(dev, _key_word(key),
+                                                    d_data)), \
+                    distributed.model_group(group), \
+                    distributed.batch_group(data_group):
+                out = functional_call(net, held, (x, aux))
+                value = lossf(y, out.to(y.dtype))
+                grads = torch.autograd.grad(value, list(held.values()))
+        finally:
+            net.eval()
+        value, grads = _flat_mean(value.detach(), list(grads), data_group,
+                                  n_data)
+        return value, dict(zip(params, grads))
+
+    def step(params, opt_state, x, y, key, aux=None):
+        _check_opt(params, opt_state)
+        value, grads = loss_and_grads(params, x, y, key, aux)
+        _apply(params, opt_state, grads)
+        return params, opt_state, value
+
+    def init_opt(params):
+        return tx(list(params.values()))
+
+    return TensorShardedStep(step, loss_and_grads, init_opt, spec)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism: the recurrent trunk's blocks over a 'pipe' dim
+# ---------------------------------------------------------------------------
+
+PipelineStep = collections.namedtuple(
+    'PipelineStep', ['step', 'loss_and_grads', 'init_opt', 'split_params',
+                     'merge_params', 'param_shardings', 'n_stages',
+                     'n_micro'])
+
+_TRUNK = '_RecBackbone_0.RecurrentConvBlock'
+
+
+def _trunk_prefixes(n_blocks):
+    """The name prefixes of the trunk's blocks 2..n_blocks+1."""
+    return [f'{_TRUNK}{i + 2}.' for i in range(n_blocks)]
+
+
+def _split_trunk(params, n_blocks):
+    """(rest, stacked): the trunk blocks' parameters pulled out of
+    `params` (name -> tensor) and stacked on a leading [n_blocks] axis
+    under their names within a block; the rest as it was."""
+    prefixes = _trunk_prefixes(n_blocks)
+    rest = {k: v for k, v in params.items()
+            if not k.startswith(tuple(prefixes))}
+    leaves = [k[len(prefixes[0]):] for k in params
+              if k.startswith(prefixes[0])]
+    stacked = {leaf: torch.stack([params[p + leaf] for p in prefixes])
+               for leaf in leaves}
+    return rest, stacked
+
+
+def _merge_trunk(rest, stacked, n_blocks, order):
+    """The parameters by name in `order` (a network's `named_parameters()`
+    names), block i's taken from slice i of `stacked`."""
+    prefixes = _trunk_prefixes(n_blocks)
+    full = dict(rest)
+    for i, p in enumerate(prefixes):
+        for leaf, t in stacked.items():
+            full[p + leaf] = t[i]
+    return {k: full[k] for k in order}
+
+
+def _pipeline_nets(model, dev):
+    """(network, trunk block) of `model` on `dev`, built once a device:
+    `functional_call` runs the network with the rest's parameters and the
+    block, a copy of the trunk's first, with each stacked slice."""
+    nets = model.__dict__.setdefault('_pipeline_nets', {})
+    if dev not in nets:
+        net = model.init(0, device=dev)
+        nets[dev] = (net, copy.deepcopy(
+            net._RecBackbone_0.RecurrentConvBlock2))
+    return nets[dev]
+
+
+def _stage_tick(block, local, d, n_micro, t, x0_mb, slot, gen_for):
+    """One tick t of pipeline stage d (JAX's scan body,
+    dl4ds_tpu/parallel.py:988-1011): stage 0 takes microbatch t in (every
+    stage selects, so that each rank's graph reaches the stem's output),
+    then the stage's blocks (`local`, name -> [blocks, ...]) run on the
+    slot if it holds a microbatch (0 <= t - d < n_micro; a bubble passes
+    it on unchanged). Returns the slot."""
+    if t < n_micro:
+        slot = torch.where(slot.new_full((), d == 0, dtype=torch.bool),
+                           x0_mb[t], slot)
+    if 0 <= t - d < n_micro:
+        for j in range(len(next(iter(local.values())))):
+            gen = gen_for(d, t, j)
+            with use_dropout_generator(block, gen):
+                slot = functional_call(block, {k: v[j] for k, v in
+                                               local.items()}, (slot,))
+    return slot
+
+
+def _trunk_ticks(n_stages, n_micro, x0, stage_slots):
+    """The schedule over n_micro + S - 1 ticks shared by both runs:
+    `stage_slots(t, x0_mb, slots)` runs tick t and returns (the last
+    stage's slot at it, the slots handed on). Returns the last stage's
+    microbatches joined in batch order."""
+    b = x0.shape[0]
+    x0_mb = x0.reshape(n_micro, b // n_micro, *x0.shape[1:])
+    outs = []
+    slots = None
+    for t in range(n_micro + n_stages - 1):
+        last, slots = stage_slots(t, x0_mb, slots)
+        if t >= n_stages - 1:           # microbatch t - (S - 1) finished
+            outs.append(last)
+    return torch.stack(outs).reshape(x0.shape)
+
+
+def _trunk_distributed(block, local, x0, group, n_stages, n_micro, gen_for):
+    """This stage's part of the trunk over the ranks of `group` (stage d =
+    its rank): the stem's output enters through `copy_to_group` (JAX's P()
+    in_spec sums its cotangent over 'pipe'), the slot is rotated to the
+    next stage after each tick but the last, and the last stage's outputs
+    are broadcast (`broadcast_from_last`). Every stage keeps its slot at
+    each tick of the last stage's window, so that every rank's graph has
+    the same collectives in the same order."""
+    d = torch.distributed.get_rank(group)
+    x0 = distributed.copy_to_group(x0, group)
+    n_ticks = n_micro + n_stages - 1
+
+    def tick(t, x0_mb, slot):
+        if slot is None:
+            slot = torch.zeros_like(x0_mb[0])
+        slot = _stage_tick(block, local, d, n_micro, t, x0_mb, slot,
+                           gen_for)
+        return slot, (distributed.rotate(slot, group) if t < n_ticks - 1
+                      else None)
+    out = _trunk_ticks(n_stages, n_micro, x0, tick)
+    return distributed.broadcast_from_last(out, group)
+
+
+def _trunk_local(block, stacked, x0, n_stages, n_micro, gen_for):
+    """The trunk's S stages in one process: each tick runs every stage's
+    `_stage_tick` and hands each slot to the next stage's list entry."""
+    bps = len(next(iter(stacked.values()))) // n_stages
+    locals_ = [{k: v[d * bps:(d + 1) * bps] for k, v in stacked.items()}
+               for d in range(n_stages)]
+
+    def tick(t, x0_mb, slots):
+        if slots is None:
+            slots = [torch.zeros_like(x0_mb[0])] * n_stages
+        new = [_stage_tick(block, locals_[d], d, n_micro, t, x0_mb,
+                           slots[d], gen_for) for d in range(n_stages)]
+        return new[-1], [new[(d - 1) % n_stages] for d in range(n_stages)]
+    return _trunk_ticks(n_stages, n_micro, x0, tick)
+
+
+def _pipeline_loss(model, parts, x, y, lossf, word, d_data, trunk):
+    """(loss, (rest grads, stacked grads)) of `model` on (x, y) with its
+    trunk computed by `trunk(block, stacked, x0, gen_for)`. The stem and
+    head draw their dropout masks from (word, d_data), which every stage
+    shares; trunk block j of stage d at tick t from (word, d_data, d, t,
+    j)."""
+    rest, stacked = parts
+    dev = next(iter(rest.values())).device
+    net, block = _pipeline_nets(model, dev)
+    held_rest = {k: v.detach().requires_grad_() for k, v in rest.items()}
+    held_stk = {k: v.detach().requires_grad_() for k, v in stacked.items()}
+    draws = _draws_dropout(block)
+
+    def gen_for(d, t, j):
+        return _seeded(dev, word, d_data, d, t, j) if draws else None
+
+    net.train()
+    block.train()
+    try:
+        with use_dropout_generator(net, _seeded(dev, word, d_data)):
+            out = functional_call(
+                net, held_rest, (x, None),
+                {'trunk_fn': lambda x0: trunk(block, held_stk, x0,
+                                              gen_for)})
+            value = lossf(y, out.to(y.dtype))
+            leaves = list(held_rest.values()) + list(held_stk.values())
+            grads = torch.autograd.grad(value, leaves)
+    finally:
+        net.eval()
+        block.eval()
+    return value.detach(), grads
+
+
+def _pipeline_trunk_local(model, parts, x, y, key=0, n_stages=2,
+                          n_micro=None, loss='mae'):
+    """(loss, (rest grads, stacked grads)) of one pipelined step of `model`
+    with its S = `n_stages` stages run in this process (`_trunk_local`),
+    the whole stacked trunk in `parts` ((rest, stacked), `_split_trunk`'s):
+    the stage program of `make_pipeline_step` on one device, for a card
+    that cannot hold S ranks. x, y the whole batch."""
+    n_micro = n_stages if n_micro is None else int(n_micro)
+    rest = parts[0]
+    dev, dtype = _stack_where(rest)
+    x, y = _on(x, dev, dtype), _on(y, dev, dtype)
+    if x.shape[0] % n_micro:
+        raise ValueError(f'batch {x.shape[0]} not divisible by '
+                         f'n_micro={n_micro}')
+    value, grads = _pipeline_loss(
+        model, parts, x, y, checkarg_loss(loss), _key_word(key), 0,
+        lambda block, stk, x0, gen_for: _trunk_local(
+            block, stk, x0, n_stages, n_micro, gen_for))
+    return value, (dict(zip(rest, grads[:len(rest)])),
+                   dict(zip(parts[1], grads[len(rest):])))
+
+
+def make_pipeline_step(model, mesh, tx=None, loss='mae', n_micro=None,
+                       pipe_axis='pipe', data_axis='data'):
+    """A training step whose recurrent trunk is pipeline-parallel over the
+    mesh's `pipe_axis` dim, GPipe's microbatch rotation
+    (dl4ds_tpu/parallel.py:862-1095): the homogeneous trunk of the
+    recurrent nets (blocks 2..n_blocks+1, all n_filters wide) is stacked
+    on a leading [n_blocks] axis, each of the S stages holds n_blocks / S
+    consecutive blocks, and over n_micro + S - 1 ticks stage 0 takes
+    microbatch t in, every stage runs its blocks on its slot (one
+    `_stage_tick`; K2's training variant forward on the card, and K3 or
+    K4 backward) and hands it to the next (`distributed.rotate`); the last
+    stage's outputs are broadcast to every stage
+    (`distributed.broadcast_from_last`), whose head is replicated, as the
+    stem is. The backward is autograd's through the same program: the
+    reverse rotation, the last stage handed the head's gradient once, the
+    stem's output's cotangents summed over the stages
+    (`distributed.copy_to_group`). A `data_axis` dim gives each data row
+    its shard of the batch, the loss and gradients averaged over it.
+
+    `model` is a recurrent DSModel (`recnet_postupsampling`, `recnet_pin`),
+    without batch norm or an aux input, its n_blocks divisible by S >= 2.
+    `n_micro` (default S) microbatches a step; a data row's batch must
+    divide by it. Returns a `PipelineStep`:
+      split_params(params) -> (rest, stacked): the trunk blocks pulled out
+        of `params` (name -> tensor) and stacked; place with
+        `place_params((rest, stacked), param_shardings, mesh)`, which keeps
+        a stage's [n_blocks / S, ...] slice;
+      merge_params(rest, stacked) -> params by name (whole stacks);
+      param_shardings: ({name: None}, {name: 0}), the stacked trunk
+        sharded on its leading dim over the stages;
+      init_opt(parts) -> the optimizer over the tensors of (rest, stacked)
+        (`tx`, default Adam with lr 1e-4);
+      loss_and_grads(parts, x, y, key) -> (loss, (rest grads, stacked
+        grads)); step(parts, opt_state, x, y, key) -> (parts, opt_state,
+        loss), updating the tensors in place.
+    x [B, T, h, w, C] and y are the global arrays on every rank. `key` (an
+    int or a torch.Generator) seeds the dropout draws: the stem's and
+    head's from it and the data coordinate, which the stages share, and
+    each trunk block's from (it, the data coordinate, stage, tick, block)
+    (ROADMAP queue 3: JAX's keys leave the data coordinate out)."""
+    lossf = checkarg_loss(loss)
+    if not model.name.startswith('rec'):
+        raise ValueError(
+            'pipeline parallelism needs the homogeneous ConvLSTM trunk of '
+            'the recurrent nets (recnet_postupsampling / recnet_pin); got '
+            f'{model.name!r} — the spatial backbones grow filters per '
+            'block, so their stages are not shape-uniform')
+    if model.aux_shape is not None:
+        raise ValueError(
+            'make_pipeline_step does not support aux-input models '
+            f'(aux_shape={model.aux_shape}); build with n_aux_channels=0')
+    names = _dim_names(mesh, 'make_pipeline_step')
+    if pipe_axis not in names:
+        raise ValueError(f'mesh has no {pipe_axis!r} axis: {names}')
+    n_stages = mesh.size(names.index(pipe_axis))
+    if n_stages < 2:
+        raise ValueError(f'{pipe_axis!r} axis size must be >= 2, got '
+                         f'{n_stages}')
+    template = model.build()
+    n_blocks = template._RecBackbone_0.n_blocks
+    if n_blocks % n_stages:
+        raise ValueError(f'n_blocks={n_blocks} not divisible by the '
+                         f'{pipe_axis} axis size {n_stages}')
+    n_micro = n_stages if n_micro is None else int(n_micro)
+    if n_micro < 1:
+        raise ValueError(f'n_micro must be >= 1, got {n_micro}')
+    if _has_batch_norm(template):
+        raise ValueError('pipeline training supports parameter-only models '
+                         '(batch-norm statistics are mutable per-microbatch '
+                         "state); use normalization=None or 'ln'")
+    group = mesh.get_group(pipe_axis)
+    d_data, n_data, data_group = _data_coord(mesh, data_axis)
+    tx = _adam if tx is None else tx
+    order = [k for k, _ in template.named_parameters()]
+    rest0, stacked0 = _split_trunk(dict(template.named_parameters()),
+                                   n_blocks)
+    shardings = ({k: None for k in rest0}, {k: 0 for k in stacked0})
+
+    def split_params(params):
+        return _split_trunk(params, n_blocks)
+
+    def merge_params(rest, stacked):
+        return _merge_trunk(rest, stacked, n_blocks, order)
+
+    def _validate(x, y):
+        if x.dim() != 5:
+            raise ValueError('pipeline training takes spatio-temporal '
+                             '[B, T, h, w, C] inputs (5-D), got '
+                             f'{tuple(x.shape)}')
+        b = x.shape[0]
+        if b % n_data:
+            raise ValueError(f'batch {b} not divisible by the {data_axis} '
+                             f'axis size {n_data}')
+        if (b // n_data) % n_micro:
+            raise ValueError(f'per-data-shard batch {b // n_data} not '
+                             f'divisible by n_micro={n_micro}')
+        if y.shape[0] != b:
+            raise ValueError(f'target batch {y.shape[0]} != {b}')
+
+    def loss_and_grads(parts, x, y, key):
+        rest, stacked = parts
+        dev, dtype = _stack_where(rest)
+        x, y = _on(x, dev, dtype), _on(y, dev, dtype)
+        _validate(x, y)
+        b = x.shape[0] // n_data
+        rows = slice(d_data * b, (d_data + 1) * b)
+        with distributed.batch_group(data_group):
+            value, grads = _pipeline_loss(
+                model, parts, x[rows], y[rows], lossf, _key_word(key),
+                d_data, lambda block, stk, x0, gen_for: _trunk_distributed(
+                    block, stk, x0, group, n_stages, n_micro, gen_for))
+        value, grads = _flat_mean(value, list(grads), data_group, n_data)
+        return value, (dict(zip(rest, grads[:len(rest)])),
+                       dict(zip(stacked, grads[len(rest):])))
+
+    def step(parts, opt_state, x, y, key):
+        _check_opt(parts, opt_state)
+        value, grads = loss_and_grads(parts, x, y, key)
+        _apply(parts, opt_state, grads)
+        return parts, opt_state, value
+
+    def init_opt(parts):
+        return tx(_tensors(parts))
+
+    return PipelineStep(step, loss_and_grads, init_opt, split_params,
+                        merge_params, shardings, n_stages, n_micro)

@@ -10,7 +10,9 @@ the first worker (dl4ds_tpu/training/base.py:98-145). A spatial mesh
 (`distributed.spatial_mesh()`, dims ('data', 'space') or ('space',)) adds
 bands of rows: the ranks of a 'space' group share their data row's batch,
 each holding a band of its rows; the batch and the rate scale by the data
-degree only. The class ports the
+degree only. A tensor mesh (`distributed.tensor_mesh()`, dims ('data',
+'model') or ('model',)) shards the wide weights over its 'model' groups,
+whose ranks share their data row's batch. The class ports the
 input validation, the scale checks, the channel bookkeeping, the grid
 sizes, the loss lookup, the scalar log, the profiler and the saving of
 results.
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import POSTUPSAMPLING_METHODS
-from ..utils import (check_compatibility_upsbackb, checkarg_loss, not_ported,
+from ..utils import (check_compatibility_upsbackb, checkarg_loss,
                      plot_history, resolve_device)
 
 __all__ = ['Trainer', 'CHECKPOINT_FILE']
@@ -46,8 +48,8 @@ class Trainer(ABC):
     since one process drives one device here (launch one process a device
     and pass `mesh`). `mesh` is a `DeviceMesh` of the trainer's device
     type with the one dim 'data', or the dims ('data', 'space') or
-    ('space',) (spatial parallelism); a 'model' dim (tensor parallelism) is
-    not ported."""
+    ('space',) (spatial parallelism), or ('data', 'model') or ('model',)
+    (tensor parallelism)."""
 
     def __init__(self, backbone, upsampling, data_train, data_train_lr=None,
                  time_window=None, loss='mae', batch_size=64, patch_size=None,
@@ -129,15 +131,17 @@ class Trainer(ABC):
 
     def _setup_mesh(self, mesh):
         """The mesh: the number of ranks, this one's data coordinate
-        (`rank`) and band (`space_rank`), their groups and the global batch
+        (`rank`), band (`space_rank`) and 'model' coordinate
+        (`model_rank`), their groups and the global batch
         (dl4ds_tpu/training/base.py:98-133; the batch scales by the data
         degree, and the first worker does the IO). `mesh_group` spans
         every rank of the mesh: the batch norms' moments and the gradients'
         sum under a 'space' dim, the barriers."""
         self.mesh = mesh
         self.data_group = self.space_group = self.mesh_group = None
-        self.n_devices = self.n_data_shards = self.n_space = 1
-        self.rank = self.space_rank = 0
+        self.model_group = None
+        self.n_devices = self.n_data_shards = self.n_space = self.n_model = 1
+        self.rank = self.space_rank = self.model_rank = 0
         if mesh is not None:
             names = tuple(getattr(mesh, 'mesh_dim_names', None) or ())
             if not names:
@@ -148,10 +152,9 @@ class Trainer(ABC):
                                  'besides data (3-D TPxSPxDP is untested)')
             if set(names) - {'data', 'model', 'space'} or len(names) > 2:
                 raise ValueError(f"trainer meshes have the one dim 'data', "
-                                 f"or ('data', 'space') or ('space',); got "
+                                 f"or ('data', 'space'), ('space',), "
+                                 f"('data', 'model') or ('model',); got "
                                  f'{names}')
-            if 'model' in names:
-                raise not_ported("a tensor-parallel ('model') mesh", 10, 4)
             if mesh.device_type != self.device.type:
                 raise ValueError(
                     f'the mesh is over {mesh.device_type!r} devices but the '
@@ -168,15 +171,21 @@ class Trainer(ABC):
                 self.n_data_shards = mesh.size(names.index('data'))
                 self.rank = mesh.get_local_rank('data')
             self.mesh_group = self.data_group
+            from ..distributed import mesh_group
             if 'space' in names:
-                from ..distributed import mesh_group
                 self.space_group = mesh.get_group('space')
                 self.n_space = mesh.size(names.index('space'))
                 self.space_rank = mesh.get_local_rank('space')
                 self.mesh_group = mesh_group(mesh)
+            if 'model' in names:
+                self.model_group = mesh.get_group('model')
+                self.n_model = mesh.size(names.index('model'))
+                self.model_rank = mesh.get_local_rank('model')
+                self.mesh_group = mesh_group(mesh)
         self.global_batch_size = self.batch_size * self.n_data_shards
         # first-worker gating (dl4ds_tpu/training/base.py:124-133)
-        self.running_on_first_worker = self.rank == 0 and self.space_rank == 0
+        self.running_on_first_worker = (self.rank == 0 and self.space_rank == 0
+                                        and self.model_rank == 0)
 
     def _reduce_mean(self, t):
         """`t` (on the device) averaged over the ranks, in place; unchanged

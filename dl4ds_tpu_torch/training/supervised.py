@@ -67,6 +67,23 @@ degree on each commit. The losses, the rate and the dropout masks are the
 data row's: a row's bands share one generator and keep their rows of its
 masks. A height (or a height after a max-pool) that does not cut into
 equal bands raises ValueError.
+
+Tensor parallelism (`mesh=distributed.tensor_mesh(n_model, n_data)`, the
+JAX trainer's ('data', 'model') mesh, or ('model',)): the ranks of a data
+row's 'model' group each build the row's shard of the batch, and hold a
+shard of every wide weight (`parallel.tensor_param_shardings`), as do
+their Adam moments, gradient accumulators and EMA copy
+(dl4ds_tpu/training/supervised.py:387-418). The model runs within
+`distributed.model_group`, its layers taking their tensor rules
+(models/blocks.py: column-parallel convs, the other weights gathered at
+use); every rank computes the loss whole and seeds its backward with 1, so
+that a replicated parameter's gradient is equal on every rank of the group
+and a shard's exact, and the data rows are averaged on each commit. The
+losses, the rate and the dropout masks are the data row's. What leaves the
+trainer is whole: after `run` `net` is the gathered network (which
+`predict(trainer)` and `save_results` serve), and the checkpoints hold the
+gathered state, so that a run resumes with or without the 'model' dim. A
+model with batch norm raises ValueError at `run`.
 """
 
 import copy
@@ -100,10 +117,10 @@ class SupervisedTrainer(Trainer):
     `use_multiprocessing`, `model_list`, `gpu_memory_growth` and
     `show_plot` are accepted and do nothing, as in the JAX package. The
     options that are not ported raise NotImplementedError naming their
-    ROADMAP item: a `mesh` with a 'model' dim (10, part 4). `mesh` with
-    the one dim 'data' trains data-parallel over the process group,
-    `batch_size` being a rank's batch; a spatial mesh also cuts each sample
-    into bands of rows (see the module's docstring). `init_weights` loads a
+    ROADMAP item. `mesh` with the one dim 'data' trains data-parallel over
+    the process group, `batch_size` being a rank's batch; a spatial mesh
+    also cuts each sample into bands of rows, a tensor mesh shards the
+    weights (see the module's docstring). `init_weights` loads a
     reference Keras checkpoint into the freshly built network
     (`compat.import_keras_weights`: a weight list, an `.npz`, a Keras
     model or a SavedModel path); it cannot be combined with
@@ -322,6 +339,17 @@ class SupervisedTrainer(Trainer):
         replayed one compute the same bits."""
         dev = self.device
         cuda = dev.type == 'cuda'
+        self._tp_spec = None
+        if self.model_group is not None:
+            from ..parallel import (_has_batch_norm, _shard_network,
+                                    tensor_param_shardings)
+            if _has_batch_norm(self.net):
+                raise ValueError(
+                    'tensor-parallel training supports parameter-only models '
+                    '(batch-norm statistics are per-shard mutable state); '
+                    'build the model without batch norm')
+            self._tp_spec = tensor_param_shardings(self.net, self.mesh)
+            _shard_network(self.net, self._tp_spec, self.model_group)
         self.train_net = self.net
         self._params = list(self.net.parameters())
         lr0, self._schedule = build_schedule(
@@ -435,9 +463,11 @@ class SupervisedTrainer(Trainer):
         (dl4ds_tpu/training/supervised.py:461-462). The batch norms and the
         DSSIM losses reduce over the data ranks (`batch_group`); under a
         'space' dim the model runs on this rank's band of rows with the
-        band rules and the loss on the output's rows joined."""
+        band rules and the loss on the output's rows joined; under a
+        'model' dim it runs with the tensor rules."""
         if self.space_group is None:
-            with distributed.batch_group(self.data_group):
+            with distributed.batch_group(self.data_group), \
+                    distributed.model_group(self.model_group):
                 out = net(batch['lr'], batch['aux']).float()
                 return self.lossf(batch['hr'], out)
         band = {k: None if batch[k] is None else
@@ -609,7 +639,7 @@ class SupervisedTrainer(Trainer):
                 'test', self.ds_test.plan(generator, test_steps)))
         # with EMA on, the public weights are the averaged ones (what
         # predict() and save_results serve); train_net keeps the raw ones
-        self.net = self.eval_net()
+        self.net = self._whole_net(self.eval_net())
         if self.verbose:
             print(f'\nScore on the test set: {self.test_loss}')
         self.timing.runtime()
@@ -617,14 +647,80 @@ class SupervisedTrainer(Trainer):
         return self
 
     # ------------------------------------------------------------------
+    # Under a 'model' dim: the whole weights and state, gathered with the
+    # spec mirrored onto them (parallel.mirror_param_shardings), and this
+    # rank's shards of whole ones
+    # ------------------------------------------------------------------
+    def _whole_net(self, net):
+        """`net`, or under a 'model' dim its gathered copy (every rank of
+        the group calls this)."""
+        if self.model_group is None:
+            return net
+        from ..parallel import _whole_network
+        return _whole_network(net, self.model_group)
+
+    def _mirrored(self, state):
+        from ..parallel import mirror_param_shardings
+        names = [n for n, _ in self.train_net.named_parameters()]
+        if isinstance(state, dict):      # a state dict: by name
+            return {k: self._tp_spec.get(k) for k in state}
+        local = dict(zip(names, self._params))
+        return mirror_param_shardings(state, local, self._tp_spec, None)
+
+    def _whole_state(self, state):
+        """A list of one entry a parameter (Adam's states, accumulators),
+        its shards gathered over the 'model' dim into whole tensors."""
+        if self.model_group is None:
+            return state
+        from ..distributed import _joined
+        dims = self._mirrored(state)
+
+        def whole(v, dim):
+            return v if dim is None else _joined(v.detach(), dim,
+                                                 self.model_group)
+        return [{k: whole(v, d[k]) for k, v in e.items()}
+                if isinstance(e, dict) else whole(e, d)
+                for e, d in zip(state, dims)]
+
+    def _local_state(self, state):
+        """This rank's shards of a whole state (a state dict or a list of
+        one entry a parameter), under a 'model' dim; else the state."""
+        if self.model_group is None:
+            return state
+        n, r = self.n_model, self.model_rank
+
+        def part(v, dim):
+            if dim is None:
+                return v
+            k = v.shape[dim] // n
+            return v.narrow(dim, r * k, k)
+        if isinstance(state, dict):
+            dims = self._mirrored(state)
+            return {k: part(v, dims[k]) for k, v in state.items()}
+        out = []
+        for e, p, (name, _) in zip(state, self._params,
+                                   self.train_net.named_parameters()):
+            dim = self._tp_spec[name]
+            shape = list(p.shape)
+            if dim is not None:
+                shape[dim] *= n
+            if isinstance(e, dict):
+                out.append({k: part(v, dim) if torch.is_tensor(v)
+                            and list(v.shape) == shape else v
+                            for k, v in e.items()})
+            else:
+                out.append(part(e, dim))
+        return out
+
     def _save_checkpoint(self, name):
         """The weights that validation scores (the EMA ones with
         `ema_decay`), the ones to serve, under save_path/`name`, written
         by the first worker while the others wait."""
+        state = self._whole_net(self.eval_net()).state_dict()
         if self.running_on_first_worker:
             self._checkpoint_save(
                 os.path.join(self.savecheckpoint_path, name),
-                {'params': _cpu(self.eval_net().state_dict())})
+                {'params': _cpu(state)})
         self._barrier()
 
     def _save_full_checkpoint(self, epoch, generator):
@@ -641,13 +737,20 @@ class SupervisedTrainer(Trainer):
             torch.distributed.all_gather_object(states, dropout_state,
                                                 group=self.data_group)
             dropout_state = states
+        # the whole state, gathered over a 'model' dim on every rank
+        params = self._whole_net(self.train_net).state_dict()
+        opt_state = self._whole_state([self.optimizer.state[p]
+                                       for p in self._params])
+        ema = (self._whole_net(self.ema_net).state_dict()
+               if self.ema_net is not None else None)
+        acc = (self._whole_state(self._acc) if self._acc is not None
+               else None)
         if not self.running_on_first_worker:
             self._barrier()
             return
         payload = {
-            'params': _cpu(self.train_net.state_dict()),
-            'opt_state': [_cpu(self.optimizer.state[p])
-                          for p in self._params],
+            'params': _cpu(params),
+            'opt_state': [_cpu(state) for state in opt_state],
             'n_updates': self.n_updates, 'mini_step': self.mini_step,
             'epoch': epoch, 'generator': generator.get_state(),
             'dropout_generator': dropout_state}
@@ -655,10 +758,10 @@ class SupervisedTrainer(Trainer):
             # the streamers' draws, so that a resumed run streams on
             payload['streams'] = [ds.rng.bit_generator.state for ds in
                                   (self.ds_train, self.ds_val, self.ds_test)]
-        if self.ema_net is not None:
-            payload['ema_params'] = _cpu(self.ema_net.state_dict())
-        if self._acc is not None:
-            payload['acc_grads'] = [t.cpu() for t in self._acc]
+        if ema is not None:
+            payload['ema_params'] = _cpu(ema)
+        if acc is not None:
+            payload['acc_grads'] = [t.cpu() for t in acc]
         self._checkpoint_save(os.path.join(
             self.savecheckpoint_path, 'checkpoints', f'epoch-{epoch}'),
             payload)
@@ -669,14 +772,17 @@ class SupervisedTrainer(Trainer):
         """Load a full checkpoint into the trainer's tensors in place and
         the generators; returns its epoch."""
         payload = self._checkpoint_load(path)
-        self.train_net.load_state_dict(payload['params'])
-        for p, saved in zip(self._params, payload['opt_state']):
+        self.train_net.load_state_dict(self._local_state(payload['params']))
+        for p, saved in zip(self._params,
+                            self._local_state(payload['opt_state'])):
             for key, value in saved.items():
                 self.optimizer.state[p][key].copy_(value)
         if self.ema_net is not None and 'ema_params' in payload:
-            self.ema_net.load_state_dict(payload['ema_params'])
+            self.ema_net.load_state_dict(
+                self._local_state(payload['ema_params']))
         if self._acc is not None and 'acc_grads' in payload:
-            for t, saved in zip(self._acc, payload['acc_grads']):
+            for t, saved in zip(self._acc,
+                                self._local_state(payload['acc_grads'])):
                 t.copy_(saved)
         self.n_updates = int(payload['n_updates'])
         self.mini_step = int(payload['mini_step'])

@@ -23,7 +23,8 @@ from torch.func import stack_module_state
 from .models.blocks import Conv
 
 __all__ = ['load_jax_params', 'export_jax_params', 'export_jax_variables',
-           'load_jax_ensemble', 'export_jax_ensemble']
+           'load_jax_ensemble', 'export_jax_ensemble', 'load_jax_named',
+           'export_jax_named']
 
 
 def _copy(tensor, value, path, done):
@@ -132,6 +133,27 @@ def _params_tree(tree):
     """The Flax `params` tree of a variables dict {'params': ...}, or the
     tree itself."""
     return tree['params'] if isinstance(tree.get('params'), dict) else tree
+
+
+def load_jax_named(model, params, device='cpu'):
+    """The parameters of a network of `model` by `named_parameters()` name
+    (fresh tensors on `device`), from the JAX package's Flax `params` tree
+    (or its variables {'params': ...}): the whole weights that
+    `parallel.place_params` cuts into a rank's shards and a pipeline's
+    `split_params` stacks, so that both packages start from one tree."""
+    net = load_jax_params(model.init(0, device=device), _params_tree(params))
+    return {k: v.detach().clone() for k, v in net.named_parameters()}
+
+
+def export_jax_named(model, named):
+    """The Flax `params` tree of whole tensors by name (`load_jax_named`'s
+    inverse; `parallel.gather_params` and a pipeline's `merge_params` give
+    them)."""
+    net = model.init(0, device='cpu')
+    with torch.no_grad():
+        for k, p in net.named_parameters():
+            p.copy_(named[k])
+    return export_jax_params(net)
 
 
 def _map_leaves(fn, tree):

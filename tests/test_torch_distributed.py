@@ -308,18 +308,25 @@ def _trainer(**kw):
 
 @pytest.mark.parametrize('dim', ['model', 'space'])
 def test_a_model_or_space_dim_is_not_ported(dim):
-    """A 'model' dim (tensor parallelism) is not ported yet. A 'space' dim
-    has been (tests/test_torch_spatial.py, tests/test_torch_distributed_
-    spatial.py): beside 'model' it is the JAX trainer's ValueError, and
-    `--mesh_shape data=1,space=2` needs a launch of 2 processes."""
-    if dim == 'model':
-        with pytest.raises(NotImplementedError, match='item 10, part 4'):
-            _trainer(device='cpu', mesh=_stand_in_mesh(('data', dim)))
-        with pytest.raises(NotImplementedError, match='item 10, part 4'):
-            app._parse_mesh_shape(f'data=1,{dim}=2', 'cpu')
-        return
+    """A 'model' dim (tensor parallelism) and a 'space' dim have been
+    ported (tests/test_torch_tensor_parallel.py, tests/test_torch_spatial.
+    py, tests/test_torch_distributed_spatial.py): at one rank (a gloo group
+    in this process) the trainer takes a ('data', dim) mesh, its batch the
+    data degree's; beside each other they are the JAX trainer's ValueError,
+    and `--mesh_shape data=1,<dim>=2` needs a launch of 2 processes."""
+    tds.distributed.initialize(f'127.0.0.1:{_free_port()}', 1, 0,
+                               device='cpu', timeout=60)
+    try:
+        mesh = (tds.distributed.tensor_mesh(1, 1) if dim == 'model'
+                else tds.distributed.spatial_mesh(1, 1))
+        tr = _trainer(device='cpu', mesh=mesh)
+        assert tr.global_batch_size == tr.batch_size
+        assert (tr.model_group if dim == 'model' else tr.space_group) \
+            is not None
+    finally:
+        torch.distributed.destroy_process_group()
     with pytest.raises(ValueError, match='ONE of'):
-        _trainer(device='cpu', mesh=_stand_in_mesh(('model', dim)))
+        _trainer(device='cpu', mesh=_stand_in_mesh(('model', 'space')))
     with pytest.MonkeyPatch.context() as m:
         m.setenv('WORLD_SIZE', '1')
         with pytest.raises(ValueError, match='needs 2 processes'):

@@ -192,9 +192,21 @@ def test_signatures_equal_the_jax_ones(name):
     parameters in its order and with its defaults, but `net` in place of
     `variables`, `init_ensemble`'s `device` (default 'cuda') at the end,
     and `make_ensemble_step`'s `mesh` defaulting to None (one card);
-    `SpatialShardedStep` adds `init_opt`, as `EnsembleStep` holds it."""
-    if name == 'EnsembleStep':
-        assert tpar.EnsembleStep._fields == jpar.EnsembleStep._fields
+    `SpatialShardedStep` adds `init_opt`, as `EnsembleStep` holds it;
+    `TensorShardedStep` and `PipelineStep` hold JAX's fields. The port's
+    own `place_params` and `gather_params` (`jax.device_put(params,
+    shardings)` and its inverse) take (params, param_shardings, mesh,
+    axis=None)."""
+    if name in ('EnsembleStep', 'TensorShardedStep', 'PipelineStep'):
+        assert getattr(tpar, name)._fields == getattr(jpar, name)._fields
+        return
+    if name in ('place_params', 'gather_params'):
+        assert not hasattr(jpar, name)
+        kind = inspect.Parameter.POSITIONAL_OR_KEYWORD
+        empty = inspect.Parameter.empty
+        assert _parameters(getattr(tpar, name)) == [
+            ('params', kind, empty), ('param_shardings', kind, empty),
+            ('mesh', kind, empty), ('axis', kind, None)]
         return
     if name == 'SpatialShardedStep':
         assert tpar.SpatialShardedStep._fields == (

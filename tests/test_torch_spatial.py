@@ -213,20 +213,22 @@ def _trainer(cls=tds.SupervisedTrainer, **kw):
                n_filters=2, n_blocks=1, verbose=False, device='cpu', **kw)
 
 
-def test_trainer_mesh_refusals():
+def test_trainer_mesh_refusals(one_rank):
     """(f) 'model' with 'space' is the JAX trainer's "ONE of" ValueError, an
-    unknown dim a ValueError, 'model' alone (tensor parallelism) not
-    ported yet, and the CGAN trainer refuses 'space' as the JAX one does."""
+    unknown dim a ValueError, 'model' beside 'data' or alone (tensor
+    parallelism, ported: tests/test_torch_tensor_parallel.py) a trainer
+    with a 'model' group, and the CGAN trainer refuses 'space' as the JAX
+    one does."""
     with pytest.raises(ValueError, match='ONE of'):
         _trainer(mesh=_stand_in(('data', 'model', 'space')))
     with pytest.raises(ValueError, match='ONE of'):
         _trainer(mesh=_stand_in(('model', 'space')))
     with pytest.raises(ValueError, match="one dim 'data'"):
         _trainer(mesh=_stand_in(('data', 'rows')))
-    with pytest.raises(NotImplementedError, match='item 10, part 4'):
-        _trainer(mesh=_stand_in(('data', 'model')))
-    with pytest.raises(NotImplementedError, match='item 10, part 4'):
-        _trainer(mesh=_stand_in(('model',)))
+    for mesh in (distributed.tensor_mesh(1, 1), distributed.tensor_mesh(1)):
+        tr = _trainer(mesh=mesh)
+        assert tr.model_group is not None and tr.space_group is None
+        assert tr.global_batch_size == tr.batch_size
     for dims in (('data', 'space'), ('space',)):
         with pytest.raises(NotImplementedError,
                            match='routed through SupervisedTrainer'):
@@ -234,13 +236,16 @@ def test_trainer_mesh_refusals():
 
 
 def test_app_mesh_shape_refusals(monkeypatch):
-    """(f) `--mesh_shape`: a 'model' axis is not ported, an unknown axis
-    raises, and data x space must be the launch's process count."""
-    with pytest.raises(NotImplementedError, match='item 10, part 4'):
-        app._parse_mesh_shape('data=1,model=2', 'cpu')
-    with pytest.raises(ValueError, match="'data' and 'space'"):
+    """(f) `--mesh_shape`: a 'model' axis is ported, and beside 'space' it
+    is the JAX trainer's "ONE of" ValueError; an unknown axis raises, and
+    data x space (or x model) must be the launch's process count."""
+    with pytest.raises(ValueError, match='ONE of'):
+        app._parse_mesh_shape('data=1,space=2,model=2', 'cpu')
+    with pytest.raises(ValueError, match="'data', 'space' and 'model'"):
         app._parse_mesh_shape('data=1,rows=2', 'cpu')
     monkeypatch.setenv('WORLD_SIZE', '1')
+    with pytest.raises(ValueError, match='needs 2 processes'):
+        app._parse_mesh_shape('data=1,model=2', 'cpu')
     with pytest.raises(ValueError, match='needs 2 processes'):
         app._parse_mesh_shape('data=1,space=2', 'cpu')
     with pytest.raises(ValueError, match='needs 4 processes'):

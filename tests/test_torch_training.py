@@ -5,14 +5,12 @@ handed to the port), the epoch index sampler, the mae/mse losses, Adam
 steps of the recurrent `recresnet_spc` and of the flagship `resnet_spc`
 (attention, loss dssim_mae) from carried weights against the JAX trainer's
 `_train_step_batch` on the same batches, one spatial step, the trainer's
-loop and the options that are not ported yet (the trainer's other options
-are tested in `test_torch_training_*.py`). Small sizes, float32.
+loop and a one-rank tensor mesh (the trainer's other options are tested in
+`test_torch_training_*.py`). Small sizes, float32.
 Tolerances: batches 1e-5 (the matmul resize), losses rtol 1e-5, parameters
 after the Adam steps atol 2e-6 (the largest difference seen is 1.9e-7;
 Adam's lr * g / (|g| + 1e-7) turns float32 noise in a small gradient into
 parameter noise)."""
-
-import types
 
 import jax
 import jax.numpy as jnp
@@ -335,27 +333,36 @@ def test_terminate_on_nan(data):
     assert len(tr.fithist['loss']) == 1
 
 
-def _mesh_with(dim):
-    """A stand-in for a DeviceMesh with a 'data' dim and `dim`."""
-    return types.SimpleNamespace(mesh_dim_names=('data', dim),
-                                 device_type='cpu')
-
-
-@pytest.mark.parametrize('kwargs', [
-    dict(mesh=_mesh_with('model')),
-    dict(mesh=types.SimpleNamespace(mesh_dim_names=('model',),
-                                    device_type='cpu'))])
-def test_unported_training_options_raise(data, kwargs):
+@pytest.mark.parametrize('n_data', [pytest.param(1, id='kwargs0'),
+                                    pytest.param(None, id='kwargs1')])
+def test_unported_training_options_raise(data, n_data):
     """Tensor parallelism, a 'model' dim beside 'data' or alone (ROADMAP
-    item 10, part 4); the data mesh and `devices` are in
-    `tests/test_torch_distributed.py`, the spatial mesh in
-    `tests/test_torch_spatial.py`."""
+    item 10, part 4), is ported: at one rank (a gloo group in this
+    process) the recurrent trainer's run() on `tensor_mesh(1, n_data)`
+    routes every tensor rule and equals the run without a mesh (fithist
+    and test_loss rtol 2e-4, tests/test_trainer_mesh.py:39-63); the data
+    mesh and `devices` are in `tests/test_torch_distributed.py`, the
+    spatial mesh in `tests/test_torch_spatial.py`, more ranks in
+    `tests/test_torch_tensor_parallel.py`."""
+    import socket
     hr = data[0]
-    args = dict(REC, data_train=hr, data_val=hr[:6], data_test=hr[:6],
-                device='cpu')
-    args.update(kwargs)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tds.SupervisedTrainer(**args).run()
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    tds.distributed.initialize(f'127.0.0.1:{port}', 1, 0, device='cpu',
+                               timeout=60)
+    try:
+        runs = [_run(hr, mesh=m) for m in (
+            None, tds.distributed.tensor_mesh(1, n_data))]
+    finally:
+        torch.distributed.destroy_process_group()
+    plain, tp = runs
+    assert tp.model_group is not None and tp.n_model == 1
+    assert any(d is not None for d in tp._tp_spec.values())
+    np.testing.assert_allclose(
+        tp.fithist['loss'] + tp.fithist['val_loss'] + [tp.test_loss],
+        plain.fithist['loss'] + plain.fithist['val_loss']
+        + [plain.test_loss], rtol=2e-4)
 
 
 def test_trainer_does_not_fall_back_to_the_cpu(data):
