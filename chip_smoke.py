@@ -399,7 +399,23 @@ Phases, each of which exits non-zero on failure:
      4, the unpipelined program in float64 on the CPU; a microbatch's
      trunk layers held against their plain versions and timed (K2-train
      and K3, or K4 at width 64); the process group destroyed;
- 26. print the `kernels` JSON line, then, last, the device JSON line. In
+ 26. recurrent deep ensembles: BASELINE config 4 (recresnet_spc x4, T 4,
+     n_blocks 2, n_filters 8) as a 4-member ensemble. (a) the member mode
+     of K2 (both variants), K3 and K4 at the step's layers on 4 members of
+     128 samples (16x16 frames), widths 8 ('fused': K3) and 64 ('split':
+     K4), float32 and bfloat16: each call the bits of 4 one-member
+     launches, its launches those of one member's call, against the plain
+     version run member by member (float32 as phase 6, bfloat16 as phase
+     12), float32 timed beside one member's launch; (b) 3 ensemble steps
+     on the card (TF32 off, PyTorch's own convolutions) against the CPU in
+     float64, K2-train's and K3's launches a step those of one model's
+     step; (c) member-patches/s of eager bootstrapped steps at batch 128
+     beside one model's eager step, 2 steps at width 64 (K4's launches),
+     and `predict_ensemble` of 16 windows of 128x128 (19 grids), K2's
+     launches one a layer-step, two members against the member served
+     alone; (d) the ('ensemble',) mesh of one NCCL rank against no mesh,
+     bit for bit; the process group destroyed;
+ 27. print the `kernels` JSON line, then, last, the device JSON line. In
      the `kernels` line, `launches` of a training kernel (K2_convlstm_train,
      K3, K4, K1_channel_attention_train, K6, K1_channel_attention_mos_train,
      K1_channel_attention_convnet_pin_train,
@@ -441,7 +457,10 @@ Phases, each of which exits non-zero on failure:
      wrappers' counts; K1_channel_attention_cli_train and
      K6_ssim_cli_train count phase 21 (a)'s device trace, eager launches
      included; K2_convlstm_train_pipe, K3_convlstm_bptt_pipe and
-     K4_convlstm_seq_pipe count phase 25 (c)'s wrapper calls, eager.
+     K4_convlstm_seq_pipe count phase 25 (c)'s wrapper calls, eager;
+     K2_convlstm_member_train, K3_convlstm_bptt_member and
+     K4_convlstm_seq_member phase 26 (c)'s eager ensemble steps, and
+     K2_convlstm_member_serve its `predict_ensemble`.
 
 Imports nothing of JAX. Weights come from the port's own seeded init.
 """
@@ -5834,11 +5853,13 @@ def _ensemble_batches(torch, tds, config, batch, n):
     return tr.model, [tr.ds_train(idx[c], generator=gen) for c in range(n)]
 
 
-def _ensemble_vs_cpu(torch, tds, model, stacked, batches, loss, label):
+def _ensemble_vs_cpu(torch, tds, model, stacked, batches, loss, label,
+                     counters=None):
     """ENS_STEPS ensemble steps (bootstrap off) on the card (TF32 off,
     PyTorch's own convolutions) and on the CPU in float64 from the same
     stack and batches: the losses and the parameters after the last step
-    at phase 7's tolerances."""
+    at phase 7's tolerances. The card's launches: K1's and K6's, or with
+    `counters` (`_counters`) each that moved, by name."""
     from dl4ds_tpu_torch import parallel
     fca, fss = tds.fused_channel_attention, tds.fused_ssim_per_image
     es = parallel.make_ensemble_step(model, loss=loss, bootstrap=False)
@@ -5852,6 +5873,8 @@ def _ensemble_vs_cpu(torch, tds, model, stacked, batches, loss, label):
         opt = es.init_opt(st)
         fca.launches = fca.bwd_launches = 0
         fss.launches = fss.bwd_launches = 0
+        for _, o, a in counters or ():
+            setattr(o, a, 0)
         losses = []
         for c, b in enumerate(batches):
             st, opt, ls = es.step(st, opt, b['lr'].to(device),
@@ -5860,6 +5883,9 @@ def _ensemble_vs_cpu(torch, tds, model, stacked, batches, loss, label):
         if device == 'cuda':
             counts = dict(k1=fca.launches, k1_bwd=fca.bwd_launches,
                           k6=fss.launches, k6_bwd=fss.bwd_launches)
+            if counters:
+                counts = {n: getattr(o, a) for n, o, a in counters
+                          if getattr(o, a)}
         runs[device] = (torch.stack(losses), {
             k: v.detach().to('cpu', torch.float64) for k, v in st.items()})
     torch.backends.cudnn.enabled = True
@@ -9311,6 +9337,529 @@ def _tp_kernel_rows(report):
              work=f'width {WIDE_F}, the \'split\' route, ' + pipe_work)]
 
 
+# phase 26: recurrent deep ensembles. BASELINE config 4 (recresnet_spc x4,
+# T 4, n_blocks 2, n_filters 8; bench_suite.py) as an ENS_M-member ensemble
+# on phase 7's data: (a) the member mode of K2, K3 and K4 alone at the
+# step's distinct layers, ENS_M members of TRAIN_BATCH samples, at widths 8
+# and 64, float32 and bfloat16; (b) REC_ENS_STEPS steps against the CPU in
+# float64 at batch REC_ENS_CPU_BATCH; (c) ENS_SPEED_STEPS eager steps at
+# batch TRAIN_BATCH, REC_ENS_WIDE_STEPS at width 64, and predict_ensemble of
+# REC_GRIDS grids; (d) the ('ensemble',) mesh at one NCCL rank.
+REC_ENS_STEPS, REC_ENS_CPU_BATCH, REC_ENS_WIDE_STEPS = 3, 8, 2
+REC_ENS_MESH_STEPS = 2
+# the distinct (Cin, F, k) layers of config 4's step at each width, and
+# whether x needs a gradient (the stem's input does not)
+REC_MEMBER_LAYERS = {N_FILTERS: sorted(set(K3_LAYERS)),
+                     WIDE_F: sorted(set(WIDE_LAYERS))}
+
+
+def _member_stack(torch, cin, f, k, seed, dev, dtype):
+    """ENS_M members' (wx, bx, wh) of one layer, Keras-initialised from
+    seeds seed .. seed + ENS_M - 1, stacked [ENS_M, ...]."""
+    members = [_layer_weights(torch, cin, f, k, k, seed + i, dev)
+               for i in range(ENS_M)]
+    return tuple(torch.stack([m[j] for m in members]).to(dtype)
+                 for j in range(3))
+
+
+def _counted(tds, fn):
+    """fn() with every launch counter set to 0 just before; returns its
+    result and the counters it moved, by name."""
+    for _, o, a in _counters(tds):
+        setattr(o, a, 0)
+    out = fn()
+    return out, {n: getattr(o, a) for n, o, a in _counters(tds)
+                 if getattr(o, a)}
+
+
+def _same_as_members(torch, label, got, ones, per_sample):
+    """`got` (a member-mode call's outputs) the bits of `ones` (the M
+    one-member calls' outputs): the per-sample outputs (the first
+    `per_sample`) concatenated, the others (weight gradients) stacked."""
+    for k, a in enumerate(got):
+        if a is None:
+            continue
+        parts = [o[k] for o in ones]
+        want = torch.cat(parts) if k < per_sample else torch.stack(parts)
+        if a.dtype != want.dtype or not torch.equal(a, want):
+            fail(f'{label}: output {k} is not the bits of {ENS_M} '
+                 f'one-member calls')
+
+
+def _member_layer(torch, tds, conv, cin, f, k, dtype, seed, flush):
+    """One layer's member mode, `_rec_member_rows`' row."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = ENS_M * TRAIN_BATCH
+    x = torch.randn((b, REC_T, TRAIN_LR, TRAIN_LR, cin), generator=gen,
+                    device=dev).to(dtype)
+    dys = torch.randn((b, REC_T, TRAIN_LR, TRAIN_LR, f), generator=gen,
+                      device=dev).to(dtype)
+    wx, bx, wh = _member_stack(torch, cin, f, k, seed, dev, dtype)
+    need_dx = cin != 1
+    elem = x.element_size()
+    route = conv._route(x, wx, wh)
+    counter = 'K3' if route == 'fused' else 'K4'
+    bf16 = dtype == torch.bfloat16
+    label = (f'member mode x{list(x.shape)} ({ENS_M} members) F={f} k={k} '
+             f'{"bf16" if bf16 else "f32"} {route}')
+
+    def member(t, i):
+        return t[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+
+    def one(i):
+        return (member(x, i), wx[i], bx[i], wh[i])
+
+    def bwd(args, w):
+        xs, wxs, _, whs = w
+        if route == 'fused':
+            return conv._launch_backward(xs, wxs, whs, *args, need_dx)
+        return (conv._launch_seq(args[0], args[1], args[3], whs),)
+
+    with torch.no_grad():
+        (ys, cs, zs), n_fwd = _counted(
+            tds, lambda: conv._launch(x, wx, bx, wh, train=True))
+        res = (zs, cs, ys, dys)
+        grads, n_bwd = _counted(tds, lambda: bwd(res, (x, wx, bx, wh)))
+        ys_inf, n_inf = _counted(tds, lambda: conv._launch(x, wx, bx, wh))
+        fwd_ones, bwd_ones, inf_ones = [], [], []
+        for i in range(ENS_M):
+            o, n_fwd1 = _counted(tds, lambda: conv._launch(*one(i),
+                                                           train=True))
+            fwd_ones.append(o)
+            bwd_ones.append(bwd([member(u, i) for u in res], one(i)))
+            inf_ones.append((conv._launch(*one(i)),))
+        n_bwd1 = _counted(tds, lambda: bwd([member(u, 0) for u in res],
+                                           one(0)))[1]
+        n_inf1 = _counted(tds, lambda: conv._launch(*one(0)))[1]
+    torch.cuda.synchronize()
+    _same_as_members(torch, f'K2-train {label}', (ys, cs, zs), fwd_ones, 3)
+    _same_as_members(torch, f'K2 {label}', (ys_inf,), inf_ones, 1)
+    _same_as_members(torch, f'{counter} {label}', grads, bwd_ones, 1)
+    if (n_fwd, n_bwd, n_inf) != (n_fwd1, n_bwd1, n_inf1):
+        fail(f'{label}: the member mode launched {n_fwd}, {n_bwd}, {n_inf}; '
+             f'one member\'s calls {n_fwd1}, {n_bwd1}, {n_inf1}')
+    row = dict(x=list(x.shape), cin=cin, f=f, k=k, route=route,
+               dtype=str(dtype).replace('torch.', ''), dx=need_dx,
+               launches=dict(k2_train=n_fwd, k2=n_inf, backward=n_bwd))
+    if bf16:
+        # phase 12's holds, on the member mode (the plain versions run
+        # member by member)
+        out = _check_bptt_bf16(torch, conv, x, wx, bx, wh, dys, need_dx,
+                               route, label)
+        row.update(ys_cs_zs_err=out['ys_cs_zs_err'],
+                   grad_rel_err=out['grad_rel_err'])
+        print(f'{label}: the bits of {ENS_M} one-member calls each way, '
+              f'launches {row["launches"]} (one member\'s); plain version '
+              f'{out["ys_cs_zs_err"]}, {out["grad_rel_err"]}; {card_line()}',
+              flush=True)
+        return row
+    with torch.no_grad():
+        want = conv.convlstm_train_reference(x, wx, bx, wh)
+        args64 = [u.double() for u in (x, wx, wh, zs, cs, ys, dys)]
+        if route == 'fused':
+            ref = conv.convlstm_backward_reference(*args64)
+        else:
+            ref = (conv.convlstm_seq_reference(
+                args64[3], args64[4], args64[6], args64[2]),)
+    torch.cuda.synchronize()
+    fwd_err = [(a - w).abs().max().item() for a, w in zip((ys, cs, zs),
+                                                          want)]
+    zs_scale = max(1.0, want[2].abs().max().item())
+    if not (max(fwd_err[:2]) <= K2_TOL and fwd_err[2] <= K2_TOL * zs_scale):
+        fail(f'K2-train {label}: ys, cs, zs max|d| {fwd_err}')
+    if (ys_inf - want[0]).abs().max().item() > K2_TOL:
+        fail(f'K2 {label}: ys max|d| against the plain version')
+    if route == 'fused':
+        errs = _check_grads(torch, grads, grads, ref, need_dx,
+                            f'K3 {label}')
+    else:
+        scale = max(1.0, ref[0].abs().max().item())
+        errs = {'dzs': (grads[0].double() - ref[0]).abs().max().item()
+                / scale}
+        if not errs['dzs'] <= K4_TOL:
+            fail(f'K4 {label}: dzs max|d| / max(1, max|ref|) '
+                 f'{errs["dzs"]:.3e}')
+    w0 = one(0)
+    zs0, cs0, ys0, dys0 = (member(u, 0) for u in res)
+    if route == 'fused':
+        kern = lambda: conv._launch_backward(x, wx, wh, zs, cs, ys, dys,  # noqa: E731
+                                             need_dx)
+        plain = lambda: conv.convlstm_backward_reference(  # noqa: E731
+            x, wx, wh, zs, cs, ys, dys)
+        kern1 = lambda: conv._launch_backward(  # noqa: E731
+            w0[0], w0[1], w0[3], zs0, cs0, ys0, dys0, need_dx)
+        flops, n_bytes = k3_work(x, wx[0], wh[0], need_dx)
+    else:
+        kern = lambda: conv._launch_seq(zs, cs, dys, wh)  # noqa: E731
+        plain = lambda: conv.convlstm_seq_reference(zs, cs, dys, wh)  # noqa: E731
+        kern1 = lambda: conv._launch_seq(zs0, cs0, dys0, w0[3])  # noqa: E731
+        flops, n_bytes = k4_work(zs, wh[0])
+    w_bytes = 4 * (ENS_M - 1) * (wx[0].numel() + 4 * f + wh[0].numel())
+    with torch.no_grad():
+        k2_ms, k2_plain_ms = paired_ms(
+            torch, lambda: conv._launch(x, wx, bx, wh, train=True),
+            lambda: conv.convlstm_train_reference(x, wx, bx, wh), flush)
+        k2i_ms, k2i_plain_ms = paired_ms(
+            torch, lambda: conv._launch(x, wx, bx, wh),
+            lambda: conv.convlstm_reference(x, wx, bx, wh), flush)
+        bwd_ms, bwd_plain_ms = paired_ms(torch, kern, plain, flush)
+        times = {}
+        for name, fn in (('k2', lambda: conv._launch(*w0, train=True)),
+                         ('k2i', lambda: conv._launch(*w0)),
+                         ('bwd', kern1)):
+            times[name] = statistics.median(device_times(
+                torch, fn, reps=40, l2_flush=flush))
+    k2_flops, k2_bytes = k2_work(x, wx[0], wh[0])
+    row.update(
+        ys_cs_zs_err=fwd_err, grad_rel_err=errs, k2_ms=k2_ms,
+        k2_plain_ms=k2_plain_ms, k2_one_ms=times['k2'],
+        k2_bound_ms=max(k2_flops / F32_FLOPS, (k2_bytes + w_bytes + 4 * 5 *
+                        ys.numel()) / HBM_BYTES_PER_S) * 1e3,
+        k2i_ms=k2i_ms, k2i_plain_ms=k2i_plain_ms, k2i_one_ms=times['k2i'],
+        k2i_bound_ms=max(k2_flops / F32_FLOPS, (k2_bytes + w_bytes)
+                         / HBM_BYTES_PER_S) * 1e3,
+        bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_one_ms=times['bwd'],
+        bwd_bound_ms=max(flops / F32_FLOPS, (n_bytes + w_bytes)
+                         / HBM_BYTES_PER_S) * 1e3)
+    print(f'{label}: the bits of {ENS_M} one-member calls each way, launches '
+          f'{row["launches"]} (one member\'s); ys, cs, zs max|d| '
+          + ' '.join(f'{e:.2e}' for e in fwd_err) + f', {counter} '
+          + ' '.join(f'{n} {v:.2e}' for n, v in errs.items())
+          + f'; K2-train {k2_ms:.4f} ms (one member {times["k2"]:.4f}, plain '
+          f'{k2_plain_ms:.4f}, bound {row["k2_bound_ms"]:.4f}), K2 '
+          f'{k2i_ms:.4f} ms (one member {times["k2i"]:.4f}), {counter} '
+          f'{bwd_ms:.4f} ms (one member {times["bwd"]:.4f}, plain '
+          f'{bwd_plain_ms:.4f}, bound {row["bwd_bound_ms"]:.4f}); '
+          f'{card_line()}', flush=True)
+    return row
+
+
+def _rec_member_rows(torch, tds):
+    """(a): the member mode of K2, K3 and K4 at config 4's distinct layers,
+    widths 8 and 64, float32 (timed) and bfloat16."""
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device='cuda')
+    rows = []
+    for width, layers in REC_MEMBER_LAYERS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, (cin, f, k) in enumerate(layers):
+                rows.append(_member_layer(torch, tds, conv, cin, f, k, dtype,
+                                          400 + 10 * i + width, flush))
+                torch.cuda.empty_cache()
+    routes = {(r['f'], r['dtype'], r['route']) for r in rows}
+    if not {(N_FILTERS, 'float32', 'fused'), (WIDE_F, 'float32', 'split'),
+            (N_FILTERS, 'bfloat16', 'fused'), (WIDE_F, 'bfloat16', 'split')
+            } <= routes:
+        fail(f'phase 26 (a) ran the routes {sorted(routes)}: both routes '
+             f'in both dtypes are needed')
+    return rows
+
+
+def _rec_step_totals(rows, width, key):
+    """The sum of `key` over config 4's six layers at `width`, float32."""
+    by = {(r['cin'], r['f'], r['k']): r for r in rows
+          if r['dtype'] == 'float32' and r['f'] == width}
+    layers = K3_LAYERS if width == N_FILTERS else WIDE_LAYERS
+    return sum(by[layer][key] for layer in layers)
+
+
+def _rec_config(width=N_FILTERS):
+    return _training_config(loss='mae', time_window=REC_T,
+                            n_blocks=REC_BLOCKS, n_filters=width,
+                            **({'attention': True} if width == WIDE_F
+                               else {}))
+
+
+def _rec_ensemble(torch, tds, report):
+    """(b) and (c): the ensemble against the CPU, its speed and its
+    launches, width 64's launches, predict_ensemble."""
+    import numpy as np
+    import dl4ds_tpu_torch.ops.convlstm as conv
+    from dl4ds_tpu_torch import parallel
+    out = {}
+    per_step = _recurrent_per_step(conv, K3_LAYERS)['train']
+    per_step = {k: v for k, v in per_step.items() if v}
+    model, small = _ensemble_batches(torch, tds, _rec_config(),
+                                     REC_ENS_CPU_BATCH, REC_ENS_STEPS)
+    stacked = parallel.init_ensemble(model, ENS_M, seed=0)
+    fcl = tds.fused_convlstm
+    out['vs_cpu'] = _ensemble_vs_cpu(
+        torch, tds, model, stacked, small, 'mae', 'recurrent ensemble, mae',
+        counters=_counters(tds))
+    want = {k: REC_ENS_STEPS * v for k, v in per_step.items()}
+    if out['vs_cpu']['launches'] != want:
+        fail(f'phase 26 (b): {REC_ENS_STEPS} ensemble steps launched '
+             f'{out["vs_cpu"]["launches"]}, expected {want} (one '
+             f'member-mode launch where one model\'s step launches one)')
+
+    # (c) speed: eager bootstrapped steps at batch 128
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    _, big = _ensemble_batches(torch, tds, _rec_config(), TRAIN_BATCH,
+                               ENS_SPEED_STEPS)
+    es = parallel.make_ensemble_step(model, loss='mae', bootstrap=True)
+    st = {k: v.clone() for k, v in stacked.items()}
+    opt = es.init_opt(st)
+    gen = torch.Generator(device='cuda').manual_seed(26)
+    es.step(st, opt, big[0]['lr'], big[0]['hr'], gen)
+    torch.cuda.synchronize()
+
+    def steps():
+        for b in big:
+            es.step(st, opt, b['lr'], b['hr'], gen)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, got = _counted(tds, steps)
+    step_s = (time.perf_counter() - t0) / len(big)
+    want = {k: len(big) * v for k, v in per_step.items()}
+    if got != want:
+        fail(f'phase 26 (c): {len(big)} ensemble steps launched {got}, '
+             f'expected {want}')
+    losses = es.step(st, opt, big[0]['lr'], big[0]['hr'], gen)[2]
+    if not bool(torch.isfinite(losses).all()):
+        fail(f'phase 26 (c): ensemble losses {losses.tolist()}')
+    step_ms = statistics.median(device_times(
+        torch, lambda: es.step(st, opt, big[0]['lr'], big[0]['hr'], gen),
+        reps=5))
+    # one model's eager step on the same batches, plain autograd and Adam
+    net = model.init(0, device='cuda').train()
+    adam = torch.optim.Adam(net.parameters(), lr=1e-4, eps=1e-8)
+
+    def single():
+        for b in big:
+            loss = tds.losses.mae(b['hr'], net(b['lr']).float())
+            adam.zero_grad()
+            loss.backward()
+            adam.step()
+        torch.cuda.synchronize()
+    single()
+    t0 = time.perf_counter()
+    single()
+    single_s = (time.perf_counter() - t0) / len(big)
+    rate = ENS_M * TRAIN_BATCH / step_s
+    single_rate = TRAIN_BATCH / single_s
+    print(f'phase 26 (c): recurrent ensemble of {ENS_M} members at batch '
+          f'{TRAIN_BATCH}, mae, bootstrapped, eager: {rate:.1f} '
+          f'member-patches/s (host clock), one step {step_ms:.3f} ms (CUDA '
+          f'events); launches {got} in {len(big)} steps; one model\'s eager '
+          f'step {single_rate:.1f} patches/s, {ENS_M}x '
+          f'{ENS_M * single_rate:.1f}'
+          f'; {card_line()}', flush=True)
+    out.update(launches=got, member_patches_per_s=rate, step_ms=step_ms,
+               single_patches_per_s=single_rate)
+
+    # width 64: K4 and the tail under the member mode
+    wide_model, wide = _ensemble_batches(torch, tds, _rec_config(WIDE_F),
+                                         TRAIN_BATCH, REC_ENS_WIDE_STEPS)
+    wst = parallel.init_ensemble(wide_model, ENS_M, seed=1)
+    wes = parallel.make_ensemble_step(wide_model, loss='mae', bootstrap=True)
+    wopt = wes.init_opt(wst)
+    (wl, _), wgot = _counted(tds, lambda: (
+        [wes.step(wst, wopt, b['lr'], b['hr'], gen)[2] for b in wide],
+        torch.cuda.synchronize()))
+    wide_step = _recurrent_per_step(conv, WIDE_LAYERS)['train']
+    wwant = {k: REC_ENS_WIDE_STEPS * v for k, v in wide_step.items() if v}
+    if wgot != wwant or not all(bool(torch.isfinite(v).all()) for v in wl):
+        fail(f'phase 26 (c): {REC_ENS_WIDE_STEPS} width-{WIDE_F} ensemble '
+             f'steps launched {wgot} (expected {wwant}), losses '
+             f'{[v.tolist() for v in wl]}')
+    print(f'phase 26 (c): width-{WIDE_F} ensemble, {REC_ENS_WIDE_STEPS} '
+          f'steps at batch {TRAIN_BATCH}: launches {wgot}, losses '
+          f'{[v.tolist() for v in wl]}', flush=True)
+    out['wide_launches'] = wgot
+    del wst, wopt, wes, wide
+
+    # serving: 16 windows of 4 from REC_GRIDS grids of LR x LR
+    rng = np.random.default_rng(26)
+    grids = rng.standard_normal((REC_GRIDS, LR, LR, 1)).astype('float32')
+    x = np.stack([grids[i:i + REC_T] for i in range(REC_GRIDS - REC_T + 1)])
+    torch.backends.cudnn.allow_tf32 = False
+    (_, std, members), serve_got = _counted(
+        tds, lambda: parallel.predict_ensemble(model, st, x,
+                                               return_members=True))
+    serve_want = {'K2 inference': REC_T * len(K3_LAYERS)}
+    if serve_got != serve_want:
+        fail(f'phase 26 (c): predict_ensemble launched {serve_got}, expected '
+             f'{serve_want} (one member-mode launch a layer-step)')
+    shape = (ENS_M, len(x), REC_T, LR * SCALE, LR * SCALE, 1)
+    if members.shape != shape or not (np.isfinite(members).all()
+                                      and std.max() > 0):
+        fail(f'predict_ensemble: members {members.shape} (expected {shape}),'
+             f' std max {std.max()}')
+    net = model.init(0, device='cuda').eval()
+    with torch.no_grad():
+        for i in (0, ENS_M - 1):
+            for name, p in net.named_parameters():
+                p.copy_(st[name][i])
+            with torch.inference_mode():
+                alone = net(torch.from_numpy(x).cuda()).float().cpu().numpy()
+            _compare(members[i], alone, f'phase 26 (c): predict_ensemble '
+                     f'member {i} vs the member served alone (TF32 off)')
+    torch.backends.cudnn.allow_tf32 = True
+    del members, std
+    parallel.predict_ensemble(model, st, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parallel.predict_ensemble(model, st, x)
+    serve_s = time.perf_counter() - t0
+    print(f'phase 26 (c): predict_ensemble of {len(x)} windows of {REC_T} '
+          f'({REC_GRIDS} grids {LR}x{LR} -> {LR * SCALE}x{LR * SCALE}), '
+          f'{ENS_M} members: launches {serve_got}; {len(x) / serve_s:.2f} '
+          f'windows/s, {REC_GRIDS / serve_s:.2f} grids/s (host clock, TF32 '
+          f'convs); {card_line()}', flush=True)
+    out.update(serve_launches=serve_got, serve_windows_per_s=len(x) / serve_s,
+               serve_grids_per_s=REC_GRIDS / serve_s)
+    return out, model, big
+
+
+def _rec_ensemble_mesh(torch, tds, model, batches):
+    """(d): the ensemble under an ('ensemble',) mesh of one NCCL rank and
+    without a mesh, bootstrapped steps and predict_ensemble, bit for
+    bit."""
+    from dl4ds_tpu_torch import parallel
+    dev = tds.distributed.initialize(f'127.0.0.1:{_free_port()}', 1, 0,
+                                     device='cuda', timeout=300)
+    if torch.distributed.get_backend() != 'nccl':
+        fail(f'phase 26: the process group runs '
+             f'{torch.distributed.get_backend()}, not NCCL')
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    batches = batches[:REC_ENS_MESH_STEPS]
+    x = batches[0]['lr'][:N_GRIDS]
+    runs = {}
+    try:
+        mesh = tds.distributed.ensemble_mesh()
+        for name, m in (('plain', None), ('mesh', mesh)):
+            st = parallel.init_ensemble(model, ENS_M, seed=0, mesh=m)
+            es = parallel.make_ensemble_step(model, m, loss='mae',
+                                             bootstrap=True)
+            opt = es.init_opt(st)
+            (losses, served), got = _counted(tds, lambda: (
+                [es.step(st, opt, b['lr'], b['hr'], 26 + c)[2]
+                 for c, b in enumerate(batches)],
+                parallel.predict_ensemble(model, st, x, mesh=m,
+                                          return_members=True)))
+            runs[name] = dict(losses=torch.stack(losses), stack=st,
+                              served=served, launches=got)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+        torch.distributed.destroy_process_group()
+    if torch.distributed.is_initialized():
+        fail('phase 26: the process group outlived the phase')
+    plain, run = runs['plain'], runs['mesh']
+    _equal_or_fail('phase 26 (d)', [(plain['losses'], run['losses'])]
+                   + [(plain['stack'][k], run['stack'][k])
+                      for k in plain['stack']]
+                   + list(zip(plain['served'], run['served'])))
+    if plain['launches'] != run['launches']:
+        fail(f'phase 26 (d): launches {run["launches"]} under the mesh, '
+             f'{plain["launches"]} without')
+    print(f'phase 26 (d): {ENS_M}-member recurrent ensemble under the '
+          f'(\'ensemble\',) mesh of one rank on {dev}, {len(batches)} '
+          f'bootstrapped steps at batch {TRAIN_BATCH} and predict_ensemble '
+          f'of {len(x)} windows: losses {run["losses"].tolist()}, the stack '
+          f'and the members served bit for bit against no mesh; launches '
+          f'{run["launches"]}; {card_line()}', flush=True)
+    return dict(launches=run['launches'], losses=run['losses'].tolist())
+
+
+def phase_recurrent_ensembles(torch, tds, report):
+    """Phase 26: recurrent deep ensembles (BASELINE config 4, 4 members):
+    (a) the member mode of K2, K3 and K4 alone, (b) steps against the CPU,
+    (c) speed, width 64 and predict_ensemble, (d) the ('ensemble',) mesh of
+    one NCCL rank."""
+    parts, out = {}, {}
+    t0 = time.perf_counter()
+    report['rec_member_rows'] = _rec_member_rows(torch, tds)
+    parts['a'] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    ens, model, big = _rec_ensemble(torch, tds, report)
+    out.update(ens)
+    parts['b_c'] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    out['mesh'] = _rec_ensemble_mesh(torch, tds, model, big)
+    parts['d'] = round(time.perf_counter() - t0, 1)
+    torch.backends.cudnn.allow_tf32 = True
+    out['parts_s'] = parts
+    print(f'phase 26 parts (s): {parts}', flush=True)
+    report['rec_ens'] = out
+
+
+def _rec_ens_kernel_rows(report):
+    """The `kernels` line's rows of phase 26: the member mode of K2 (both
+    variants), K3 and K4, launches from (c)'s eager ensemble steps and its
+    predict_ensemble, times from (a) summed over config 4's six layers."""
+    rows, ens = report['rec_member_rows'], report['rec_ens']
+    f32 = [r for r in rows if r['dtype'] == 'float32']
+    width8 = [r for r in f32 if r['f'] == N_FILTERS]
+    wide = [r for r in f32 if r['f'] == WIDE_F]
+
+    def tot(width, key):
+        return _rec_step_totals(rows, width, key)
+    work = (f'the member mode at config 4\'s six ConvLSTM layers, {ENS_M} '
+            f'members of {TRAIN_BATCH} samples, T {REC_T}, '
+            f'{TRAIN_LR}x{TRAIN_LR}, summed; one_member_ms one member\'s '
+            f'launches at {TRAIN_BATCH}; launches of phase 26 (c)\'s '
+            f'{ENS_SPEED_STEPS} eager ensemble steps')
+    base = dict(route='cuda', bound_by='operations', library_ms=None)
+    k2 = dict(base, source='dl4ds_tpu_torch/csrc/convlstm.cu',
+              replaces='dl4ds_tpu/ops/pallas_convlstm.py:219')
+    return [
+        dict(k2, name='K2_convlstm_member_train',
+             launches=ens['launches']['K2-train'],
+             max_abs_err=max(max(r['ys_cs_zs_err'][:2]) for r in f32),
+             ms=tot(N_FILTERS, 'k2_ms'), plain_ms=tot(N_FILTERS,
+                                                     'k2_plain_ms'),
+             bound_ms=tot(N_FILTERS, 'k2_bound_ms'),
+             one_member_ms=tot(N_FILTERS, 'k2_one_ms'),
+             wide_ms=tot(WIDE_F, 'k2_ms'),
+             wide_one_member_ms=tot(WIDE_F, 'k2_one_ms'),
+             work=work + f' (wide_*: width {WIDE_F})'),
+        dict(k2, name='K2_convlstm_member_serve',
+             launches=ens['serve_launches']['K2 inference'],
+             max_abs_err=max(max(r['ys_cs_zs_err'][:2]) for r in f32),
+             ms=tot(N_FILTERS, 'k2i_ms'),
+             plain_ms=tot(N_FILTERS, 'k2i_plain_ms'),
+             bound_ms=tot(N_FILTERS, 'k2i_bound_ms'),
+             one_member_ms=tot(N_FILTERS, 'k2i_one_ms'),
+             work=f'the inference variant\'s member mode at the same shapes; '
+                  f'launches of predict_ensemble of {REC_GRIDS - REC_T + 1} '
+                  f'windows ({REC_GRIDS} grids)'),
+        dict(base, name='K3_convlstm_bptt_member',
+             source='dl4ds_tpu_torch/csrc/convlstm_bwd.cu',
+             sources=['dl4ds_tpu_torch/csrc/convlstm_seq.cu',
+                      'dl4ds_tpu_torch/csrc/convlstm_bwd.cu'],
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:335',
+             launches=ens['launches']['K3'],
+             max_abs_err=max(max(r['grad_rel_err'].values())
+                             for r in width8),
+             ms=tot(N_FILTERS, 'bwd_ms'),
+             plain_ms=tot(N_FILTERS, 'bwd_plain_ms'),
+             bound_ms=tot(N_FILTERS, 'bwd_bound_ms'),
+             one_member_ms=tot(N_FILTERS, 'bwd_one_ms'),
+             work=work + '; max_abs_err max|d| / max|ref| against the plain '
+                         'version in float64'),
+        dict(base, name='K4_convlstm_seq_member',
+             source='dl4ds_tpu_torch/csrc/convlstm_seq.cu',
+             replaces='dl4ds_tpu/ops/pallas_convlstm.py:269',
+             launches=ens['wide_launches']['K4'],
+             max_abs_err=max(r['grad_rel_err']['dzs'] for r in wide),
+             ms=tot(WIDE_F, 'bwd_ms'), plain_ms=tot(WIDE_F, 'bwd_plain_ms'),
+             bound_ms=tot(WIDE_F, 'bwd_bound_ms'),
+             one_member_ms=tot(WIDE_F, 'bwd_one_ms'),
+             work=f'the member mode of the chain at width {WIDE_F}\'s six '
+                  f'layers, {ENS_M} members of {TRAIN_BATCH}; launches of '
+                  f'phase 26 (c)\'s {REC_ENS_WIDE_STEPS} width-{WIDE_F} '
+                  f'ensemble steps; max_abs_err dzs max|d| / max(1, '
+                  f'max|ref|) against float64'),
+    ]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9350,7 +9899,8 @@ def main():
               (20, phase_quantization), (21, phase_cli),
               (22, phase_data_parallel), (23, phase_more_data_parallel),
               (24, phase_spatial_parallel),
-              (25, phase_tensor_pipeline_parallel))
+              (25, phase_tensor_pipeline_parallel),
+              (26, phase_recurrent_ensembles))
     for number, phase in phases:
         t0 = time.perf_counter()
         phase(torch, tds, report)
@@ -9524,7 +10074,7 @@ def main():
                + _serving_kernel_rows(report) + _quant_kernel_rows(report)
                + _cli_kernel_rows(report) + _dp_kernel_rows(report)
                + _dpx_kernel_rows(report) + _sp_kernel_rows(report)
-               + _tp_kernel_rows(report))
+               + _tp_kernel_rows(report) + _rec_ens_kernel_rows(report))
     print(json.dumps({'k1_shapes': report['k1_rows']}), flush=True)
     print(json.dumps({'k2_shapes': report['k2_rows']}), flush=True)
     print(json.dumps({'k3_shapes': k3_rows}), flush=True)
@@ -9540,7 +10090,7 @@ def main():
                                            'k6_rows', 'graph_rows',
                                            'bf16_k', 'tiled_k', 'member_',
                                            'artifact_k', 'k7_', 'cli',
-                                           'dp', 'sp', 'tp'))}),
+                                           'dp', 'sp', 'tp', 'rec_'))}),
           flush=True)
     print(json.dumps({'phase18_shapes': {k: report[k] for k in (
         'tiled_k1_rows', 'tiled_k2_rows', 'member_rows')}}), flush=True)
@@ -9558,8 +10108,11 @@ def main():
                       'phase24_shapes': {k: report[k] for k in (
                           'sp_train_rows', 'sp_serve_rows')}}), flush=True)
     print(json.dumps({'phase25': report['tp']}), flush=True)
+    print(json.dumps({'phase26': report['rec_ens'],
+                      'phase26_shapes': report['rec_member_rows']}),
+          flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - start:.1f} s from the '
-          f'kernel build to the end of phase 25; phase seconds '
+          f'kernel build to the end of phase 26; phase seconds '
           f'{ {k: round(v, 1) for k, v in report["phase_seconds"].items()} }',
           flush=True)
     print(card, flush=True)

@@ -112,6 +112,15 @@
 // uniform branch in the epilogue measured 1.5% slower on the inference
 // variant): 8 instantiations, every kernel size through the same body.
 //
+// The member mode (a deep ensemble's M members in one launch, the
+// counterpart of vmapping the layer over stacked weights): wx, bx and wh are
+// stacked [M, ...] and the B samples are M members of `per_member` samples
+// in turn; a block of sample b reads the weights of member b / per_member.
+// A block covers one frame, so no tile straddles two members, and the
+// wrapper plans the launch from the per-member batch, so a member-mode call
+// runs, block for block, the blocks of M one-member calls: the same bits.
+// One layer's call is the member mode with M = 1 (per_member = B).
+//
 // Measured (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, medians of
 // 40 CUDA-event timings with L2 flushed): the training variant at batch
 // 128, T 4, 16x16 takes 2.26 ms at 1 -> 64 5x5, 1.92 ms at 64 -> 64 3x3 and
@@ -149,6 +158,7 @@ struct Args {
   T* ys;          // [B, T, H, W, F]
   T* c;           // training: cs [B, T, H, W, F]; inference [B, H, W, F]
   int t_steps, step, h, wd, cin, f, kh, kw, th, tw, cw, rps, tiles_x, tiles;
+  int per_member; // samples a member: w and bx are stacked [B / per_member, ...]
 };
 
 // k rows of a mma k-step: 8 (TF32 m16n8k8) or 16 (bfloat16 m16n8k16)
@@ -202,6 +212,10 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args<T> a) {
   const int t = STEP ? a.step : fr % a.t_steps;
   const int64_t frame = (int64_t)b * a.t_steps + t;
   const int64_t hw = (int64_t)a.h * a.wd;
+  // this sample's member: its weights and bias
+  const int member = b / a.per_member;
+  const T* wm = a.w + (int64_t)member * kh * kw * C * 4 * f;
+  const T* bm = STEP ? nullptr : a.bx + (int64_t)member * 4 * f;
   const int ty0 = (tile / a.tiles_x) * th, tx0 = (tile % a.tiles_x) * tw;
   const int f0 = blockIdx.y * FS;
   const int ph = kh / 2, pw = kw / 2;
@@ -240,9 +254,9 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args<T> a) {
       const int g = n / FS, j = n - g * FS;
       const int tap = kk / cc, ci = kk - tap * cc;
       const bool ok = f0 + j < f;
-      const T* sp = a.w + ((int64_t)(dy * kw + tap) * C + c0 + ci) * 4 * f +
+      const T* sp = wm + ((int64_t)(dy * kw + tap) * C + c0 + ci) * 4 * f +
                     g * f + f0 + j;
-      copy_elems<T>(ws + kk * WS + n, ok ? sp : a.w, nv_w, ok);
+      copy_elems<T>(ws + kk * WS + n, ok ? sp : wm, nv_w, ok);
     }
     for (int i = tid; i < (KP - rows) * BN; i += kThreads)
       ws[(rows + i / BN) * WS + i % BN] = from_f<T>(0.f);
@@ -288,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args<T> a) {
       const T* zp = a.zx + (frame * hw + (int64_t)y * a.wd + xq) * 4 * f + fo;
 #pragma unroll
       for (int g = 0; g < 4; ++g)
-        acc[mt][g][i] = !ok ? 0.f : STEP ? to_f(zp[g * f]) : to_f(a.bx[g * f + fo]);
+        acc[mt][g][i] = !ok ? 0.f : STEP ? to_f(zp[g * f]) : to_f(bm[g * f + fo]);
     }
 
   stage(0);
@@ -400,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 2) convlstm_tile(const Args<T> a) {
         // bfloat16: zx = bf(bf(conv) + bx); z = bf(zx_t + bf(conv))
         z[g] = !BF    ? acc[mt][g][i]
                : STEP ? add<T>(to_f(zp[g * f]), rb(acc[mt][g][i]))
-                      : add<T>(rb(acc[mt][g][i]), to_f(a.bx[g * f + fo]));
+                      : add<T>(rb(acc[mt][g][i]), to_f(bm[g * f + fo]));
         if (!STEP || TRAIN) zp[g * f] = from_f<T>(z[g]);
       }
       if (!STEP && t != 0) continue;
@@ -440,7 +454,7 @@ cudaError_t launch(Args<T>& a, int frames, int train, cudaStream_t s) {
 
 template <typename T, bool STEP>
 cudaError_t launch_fs(Args<T>& a, int64_t frames, int fs, int train, cudaStream_t s) {
-  if (a.kh < 1 || a.kw < 1 || a.kh % 2 == 0 || a.kw % 2 == 0 || a.f < 1 ||
+  if (a.kh < 1 || a.kw < 1 || a.kh % 2 == 0 || a.kw % 2 == 0 || a.f < 1 || a.per_member < 1 ||
       (a.cw != 4 && a.cw != 8) || (a.rps != 1 && a.rps != a.kh) ||
       frames > INT32_MAX)
     return cudaErrorInvalidValue;
@@ -452,20 +466,20 @@ cudaError_t launch_fs(Args<T>& a, int64_t frames, int fs, int train, cudaStream_
 template <typename T>
 cudaError_t input(const void* x, const void* wx, const void* bx, void* zx, void* ys, void* c,
                   int b, int t_steps, int h, int wd, int cin, int f, int kh, int kw, int fs,
-                  int th, int tw, int cw, int rps, int train, cudaStream_t s) {
+                  int th, int tw, int cw, int rps, int train, int per_member, cudaStream_t s) {
   Args<T> a{static_cast<const T*>(x), static_cast<const T*>(wx), static_cast<const T*>(bx),
             static_cast<T*>(zx), static_cast<T*>(ys), static_cast<T*>(c), t_steps, 0, h, wd,
-            cin, f, kh, kw, th, tw, cw, rps, 0, 0};
+            cin, f, kh, kw, th, tw, cw, rps, 0, 0, per_member};
   return launch_fs<T, false>(a, (int64_t)b * t_steps, fs, train, s);
 }
 
 template <typename T>
 cudaError_t step(const void* wh, void* zx, void* ys, void* c, int b, int t_steps, int st,
                  int h, int wd, int f, int kh, int kw, int fs, int th, int tw, int cw, int rps,
-                 int train, cudaStream_t s) {
+                 int train, int per_member, cudaStream_t s) {
   Args<T> a{nullptr, static_cast<const T*>(wh), nullptr, static_cast<T*>(zx),
             static_cast<T*>(ys), static_cast<T*>(c), t_steps, st, h, wd, 0, f, kh, kw,
-            th, tw, cw, rps, 0, 0};
+            th, tw, cw, rps, 0, 0, per_member};
   return launch_fs<T, true>(a, b, fs, train, s);
 }
 
@@ -478,21 +492,25 @@ cudaError_t step(const void* wh, void* zx, void* ys, void* c, int b, int t_steps
 // tensor). The plan comes from the wrapper: fs (8 or 16 output channels a
 // block), the th x tw pixel tile (at most 256 pixels at fs 8, 128 at fs
 // 16), cw (4 or 8 source channels a chunk) and rps (1 or kh tap rows a
-// stage). Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for a shape or plan the kernel does not take);
-// does not synchronise.
+// stage). per_member: the member mode's samples a member (wx, bx and wh
+// stacked [b / per_member, ...]; b for one layer's weights). Returns the
+// cudaError_t of the launch (0 on success; cudaErrorInvalidValue for a
+// shape or plan the kernel does not take); does not synchronise.
 extern "C" int dl4ds_convlstm_input(int dtype, const void* x, const void* wx, const void* bx,
                                     void* zx, void* ys, void* c, int b, int t_steps, int h,
                                     int wd, int cin, int f, int kh, int kw, int fs, int th,
-                                    int tw, int cw, int rps, int train, void* stream) {
-  if (b < 1 || t_steps < 1 || h < 1 || wd < 1 || cin < 1) return (int)cudaErrorInvalidValue;
+                                    int tw, int cw, int rps, int train, int per_member,
+                                    void* stream) {
+  if (b < 1 || t_steps < 1 || h < 1 || wd < 1 || cin < 1 || per_member < 1 ||
+      b % per_member)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)input<float>(x, wx, bx, zx, ys, c, b, t_steps, h, wd, cin, f, kh, kw, fs, th,
-                             tw, cw, rps, train, s);
+                             tw, cw, rps, train, per_member, s);
   if (dtype == 1)
     return (int)input<bf16>(x, wx, bx, zx, ys, c, b, t_steps, h, wd, cin, f, kh, kw, fs, th,
-                            tw, cw, rps, train, s);
+                            tw, cw, rps, train, per_member, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -503,14 +521,16 @@ extern "C" int dl4ds_convlstm_input(int dtype, const void* x, const void* wx, co
 extern "C" int dl4ds_convlstm_step(int dtype, const void* wh, void* zx, void* ys, void* c,
                                    int b, int t_steps, int st, int h, int wd, int f, int kh,
                                    int kw, int fs, int th, int tw, int cw, int rps, int train,
-                                   void* stream) {
-  if (b < 1 || st < 1 || st >= t_steps || h < 1 || wd < 1) return (int)cudaErrorInvalidValue;
+                                   int per_member, void* stream) {
+  if (b < 1 || st < 1 || st >= t_steps || h < 1 || wd < 1 || per_member < 1 ||
+      b % per_member)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)step<float>(wh, zx, ys, c, b, t_steps, st, h, wd, f, kh, kw, fs, th, tw, cw,
-                            rps, train, s);
+                            rps, train, per_member, s);
   if (dtype == 1)
     return (int)step<bf16>(wh, zx, ys, c, b, t_steps, st, h, wd, f, kh, kw, fs, th, tw, cw,
-                           rps, train, s);
+                           rps, train, per_member, s);
   return (int)cudaErrorInvalidValue;
 }

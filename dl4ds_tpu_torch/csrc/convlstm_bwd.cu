@@ -51,6 +51,15 @@
 // The plan (ops/convlstm.py `_wgrad_plan`) picks tpb so that the blocks of
 // a pass make about one wave of two blocks an SM.
 //
+// The member mode (a deep ensemble's M members in one launch): the source
+// and dz hold M members of b samples in turn, and the gradients are M
+// stacks. Each member's tiles are cut into chunks of its own, `tpb` tiles
+// from the plan of a b-sample call, so no chunk straddles two members: the
+// grid is M times the chunks of one member, block x summing tiles of member
+// x / chunks. The reduction sums each member's partial rows, in order, into
+// its own [M, ...] gradients. The partials and sums are those of M
+// one-member calls: the same bits. One layer's call is M = 1.
+//
 // Measured (tools/torch_chain_probe.py and chip_smoke.py phase 6's split of
 // K3 by launch kind; NVIDIA H100 80GB HBM3, 700.00 W): at batch 128, T 4,
 // 16x16 and F = 8 the Wx and Wh passes take 65 and 63 us at 5x5 (26
@@ -86,9 +95,11 @@ struct WArgs {
   int with_db, t_steps, t_skip, h, wd, cs, f4, kh, kw, tph, tpw, tiles_x,
       tiles_frame, n_tiles, tpb, cwc, tpc, n_cchunks, n_rchunks, scs, groups,
       kgroups, ppad;
+  int chunks;     // blocks (grid.x) a member; n_tiles is a member's tiles
 };
 
-// A block: grid.x = pixel chunks (tpb tiles each), grid.y = source-channel
+// A block: grid.x = pixel chunks (tpb tiles each, `chunks` a member),
+// grid.y = source-channel
 // chunks x tap chunks x gate chunks. It writes part[blockIdx.x][(tap * cs
 // + c) * f4 + g] for its rows and 32 gate columns; with_db, the blocks of
 // the first channel and tap chunk also write sum_p dz[p, g] at
@@ -192,7 +203,11 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs<T> a) {
   // mt)*16 + gq + 8 * (i >> 1), column g0 + j*8 + 2*tq + (i & 1)
   float acc[2][4][4] = {};
   const int ksteps = PP / KS;
-  const int it0 = blockIdx.x * a.tpb, it_end = min(a.n_tiles, it0 + a.tpb);
+  // this block's tiles: chunk x % chunks of member x / chunks
+  const int member = blockIdx.x / a.chunks;
+  const int first = member * a.n_tiles;
+  const int it0 = first + (blockIdx.x - member * a.chunks) * a.tpb;
+  const int it_end = min(first + a.n_tiles, it0 + a.tpb);
   stage(it0, 0);
   cp_async_commit();
   for (int it = it0; it < it_end; ++it) {
@@ -323,12 +338,18 @@ __global__ void __launch_bounds__(kThreads, 2) wgrad_tile(const WArgs<T> a) {
 
 // Row sums in a fixed order: oa[k] = sum_r pa[r * la + k] for k < la, then
 // the same for (pb, nb, lb, ob), written in O (float32, or bfloat16 rounded
-// once). nb may be 0 (then ob is zero).
+// once). nb may be 0 (then ob is zero). grid.y: the member, whose na (nb)
+// rows and la (lb) sums follow the members before it.
 template <typename O>
 __global__ void __launch_bounds__(256)
 wgrad_reduce(const float* __restrict__ pa, int na, int64_t la, O* __restrict__ oa,
              const float* __restrict__ pb, int nb, int64_t lb, O* __restrict__ ob) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t m = blockIdx.y;
+  pa += m * na * la;
+  oa += m * la;
+  pb += m * nb * lb;
+  ob += m * lb;
   const float* p = pa;
   int n = na;
   int64_t l = la, k = i;
@@ -350,17 +371,19 @@ wgrad_reduce(const float* __restrict__ pa, int na, int64_t la, O* __restrict__ o
 template <typename T>
 cudaError_t wgrad(const void* src, const void* dzs, float* part, int n_chunks, int with_db,
                   int b, int t_steps, int t_skip, int h, int wd, int cs, int f, int kh, int kw,
-                  int tph, int tpw, int tpb, int cwc, int tpc, cudaStream_t stream) {
+                  int tph, int tpw, int tpb, int cwc, int tpc, int members,
+                  cudaStream_t stream) {
   constexpr int KS = kIsBf16<T> ? 16 : 8;
   const int f4 = 4 * f;
-  if (b < 1 || t_skip < 0 || t_steps <= t_skip || h < 1 || wd < 1 || cs < 1 ||
+  if (members < 1 || b < 1 || t_skip < 0 || t_steps <= t_skip || h < 1 || wd < 1 || cs < 1 ||
       f < 1 || kh < 1 || kw < 1 || tph < 1 || tpw < 1 || tph * tpw > kMaxPix ||
       tpb < 1 || cwc < 1 || cwc > 8 || tpc < 1 || tpc * cwc + (with_db ? 1 : 0) > kMaxRows)
     return cudaErrorInvalidValue;
   const int tiles_x = (wd + tpw - 1) / tpw;
   const int tiles_frame = tiles_x * ((h + tph - 1) / tph);
   const int64_t n_tiles = (int64_t)b * (t_steps - t_skip) * tiles_frame;
-  if (n_tiles > INT32_MAX || (n_tiles + tpb - 1) / tpb != n_chunks)
+  if (n_tiles * members > INT32_MAX || (n_tiles + tpb - 1) / tpb != n_chunks ||
+      (int64_t)n_chunks * members > INT32_MAX)
     return cudaErrorInvalidValue;
   const int n_cchunks = (cs + cwc - 1) / cwc;
   const int n_rchunks = (kh * kw + tpc - 1) / tpc;
@@ -382,46 +405,51 @@ cudaError_t wgrad(const void* src, const void* dzs, float* part, int n_chunks, i
   const WArgs<T> a{static_cast<const T*>(src), static_cast<const T*>(dzs), part,
                    (int64_t)kh * kw * cs * f4 + (with_db ? f4 : 0), with_db, t_steps, t_skip,
                    h, wd, cs, f4, kh, kw, tph, tpw, tiles_x, tiles_frame, (int)n_tiles, tpb,
-                   cwc, tpc, n_cchunks, n_rchunks, scs, groups, kgroups, ppad};
-  wgrad_tile<T><<<dim3(n_chunks, (unsigned)grid_y), kThreads, shmem, stream>>>(a);
+                   cwc, tpc, n_cchunks, n_rchunks, scs, groups, kgroups, ppad, n_chunks};
+  wgrad_tile<T><<<dim3((unsigned)(n_chunks * members), (unsigned)grid_y), kThreads, shmem,
+                  stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Partial weight gradients of the source src [B, T, H, W, cs] (x with
-// t_skip 0, ys with t_skip 1) against dzs [B, T, H, W, 4F], over pixel
-// tiles of tph x tpw (at most 256 pixels), `tpb` tiles a block, in chunks
-// of cwc source channels (1 to 8) and tpc taps (tpc * cwc + with_db at most
-// 256 rows); part is [n_chunks, part_len] float32 with part_len =
-// kh*kw*cs*4F (+ 4F with_db). dtype: 0 float32, 1 bfloat16 (src and dzs).
-// n_chunks must be the number of blocks that this plan gives (checked).
-// The plan comes from ops/convlstm.py `_wgrad_plan`. Returns the
-// cudaError_t of the launch; does not synchronise.
+// Partial weight gradients of the source src [members * b, T, H, W, cs] (x
+// with t_skip 0, ys with t_skip 1) against dzs [members * b, T, H, W, 4F],
+// over pixel tiles of tph x tpw (at most 256 pixels), `tpb` tiles a block,
+// in chunks of cwc source channels (1 to 8) and tpc taps (tpc * cwc +
+// with_db at most 256 rows); part is [members * n_chunks, part_len] float32
+// with part_len = kh*kw*cs*4F (+ 4F with_db), member m's rows from m *
+// n_chunks. dtype: 0 float32, 1 bfloat16 (src and dzs). n_chunks must be
+// the number of blocks that this plan gives a member of b samples
+// (checked). The plan comes from ops/convlstm.py `_wgrad_plan`. Returns
+// the cudaError_t of the launch; does not synchronise.
 extern "C" int dl4ds_convlstm_wgrad(int dtype, const void* src, const void* dzs, float* part,
                                     int n_chunks, int with_db, int b, int t_steps, int t_skip,
                                     int h, int wd, int cs, int f, int kh, int kw, int tph,
-                                    int tpw, int tpb, int cwc, int tpc, void* stream) {
+                                    int tpw, int tpb, int cwc, int tpc, int members,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)wgrad<float>(src, dzs, part, n_chunks, with_db, b, t_steps, t_skip, h, wd, cs,
-                             f, kh, kw, tph, tpw, tpb, cwc, tpc, s);
+                             f, kh, kw, tph, tpw, tpb, cwc, tpc, members, s);
   if (dtype == 1)
     return (int)wgrad<bf16>(src, dzs, part, n_chunks, with_db, b, t_steps, t_skip, h, wd, cs,
-                            f, kh, kw, tph, tpw, tpb, cwc, tpc, s);
+                            f, kh, kw, tph, tpw, tpb, cwc, tpc, members, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// oa [la] = the sum of the na rows of pa [na, la] and ob [lb] that of the nb
-// rows of pb, each row after row in order; written as float32 (dtype 0) or
-// rounded once to bfloat16 (dtype 1).
+// For each of `members` members m: oa [m, la] = the sum of its na rows of
+// pa [members, na, la] and ob [m, lb] that of its nb rows of pb, each row
+// after row in order; written as float32 (dtype 0) or rounded once to
+// bfloat16 (dtype 1).
 extern "C" int dl4ds_convlstm_wgrad_reduce(int dtype, const float* pa, int na, int64_t la,
                                            void* oa, const float* pb, int nb, int64_t lb,
-                                           void* ob, void* stream) {
+                                           void* ob, int members, void* stream) {
   const int64_t n = la + lb;
-  if (n < 1 || (n + 255) / 256 > INT32_MAX || (dtype != 0 && dtype != 1))
+  if (n < 1 || (n + 255) / 256 > INT32_MAX || (dtype != 0 && dtype != 1) || members < 1 ||
+      members > 65535)
     return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((n + 255) / 256);
+  const dim3 grid((unsigned)((n + 255) / 256), (unsigned)members);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     wgrad_reduce<float><<<grid, 256, 0, s>>>(pa, na, la, static_cast<float*>(oa), pb, nb, lb,

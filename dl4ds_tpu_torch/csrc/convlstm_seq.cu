@@ -84,6 +84,14 @@
 // under its own name, so that a device trace tells the routes apart) and
 // `dx_frames<NS>`, over one tile.
 //
+// The member mode (a deep ensemble's M members in one launch): the kernel
+// wT is stacked [M, kh, kw, C, N], each member's flipped and transposed in
+// turn, and the frames are M members of `per_member` frames (samples for a
+// chain step, B*T frames for dx); a block of frame x reads member x /
+// per_member's wT. A block covers one frame and the wrapper plans from a
+// member's own frame count, so the blocks are those of M one-member
+// launches: the same bits. One layer's call is the member mode with M = 1.
+//
 // Measured (chip_smoke.py phase 6, medians of 40 CUDA-event timings with
 // L2 flushed, and tools/torch_chain_probe.py; NVIDIA H100 80GB HBM3, 700.00
 // W): K4's six width-64 layers (batch 128, T 4, 16x16) take 8.63-8.64 ms
@@ -126,6 +134,7 @@ struct Args {
   const T* dys;
   T* dcs;         //   the dc carry [B, H, W, N]
   int t_steps, step, h, wd, c, n, kh, kw, th, tw, cw, rps, tiles_x, tiles;
+  int per_member; // frames a member: w is stacked [frames / per_member, ...]
 };
 
 // staged weight row stride of a block of NS output channels: 8 or 24 mod
@@ -192,6 +201,8 @@ __device__ __forceinline__ void convt_tile(const Args<T>& a) {
   const int64_t hw = (int64_t)a.h * a.wd;
   const int ty0 = (tile / a.tiles_x) * th, tx0 = (tile % a.tiles_x) * tw;
   const int n0 = blockIdx.y * NS;
+  // this frame's member: its wT
+  const T* wm = a.w + (int64_t)(fr / a.per_member) * kh * kw * C * N;
   const int ph = kh / 2, pw = kw / 2;
   // the chain's last step has no recurrent term
   const bool has_src = !CHAIN || a.step + 1 < a.t_steps;
@@ -229,8 +240,8 @@ __device__ __forceinline__ void convt_tile(const Args<T>& a) {
       const int kk = e / NS, j = e - kk * NS;
       const int tap = kk / cc, ci = kk - tap * cc;
       const bool ok = n0 + j < N;
-      const T* sp = a.w + ((int64_t)(dy * kw + tap) * C + c0 + ci) * N + n0 + j;
-      copy_elems<T>(ws + kk * WS + j, ok ? sp : a.w, nv_w, ok);
+      const T* sp = wm + ((int64_t)(dy * kw + tap) * C + c0 + ci) * N + n0 + j;
+      copy_elems<T>(ws + kk * WS + j, ok ? sp : wm, nv_w, ok);
     }
     for (int i = tid; i < (KP - rows) * NS; i += kThreads)
       ws[(rows + i / NS) * WS + i % NS] = from_f<T>(0.f);
@@ -469,6 +480,7 @@ cudaError_t launch(Args<T>& a, int64_t frames, cudaStream_t s) {
 template <typename T, int KIND>
 cudaError_t launch_ns(Args<T>& a, int64_t frames, int ns, cudaStream_t s) {
   if (frames < 1 || a.h < 1 || a.wd < 1 || a.n < 1 || a.c < 4 || a.c % 4 ||
+      a.per_member < 1 || frames % a.per_member ||
       a.kh < 1 || a.kw < 1 || a.kh % 2 == 0 || a.kw % 2 == 0 ||
       (a.cw != 4 && a.cw != 8) || (a.rps != 1 && a.rps != a.kh) ||
       a.th < 1 || a.tw < 1 || a.th * a.tw > kBM)
@@ -483,34 +495,37 @@ cudaError_t launch_ns(Args<T>& a, int64_t frames, int ns, cudaStream_t s) {
 template <typename T, int KIND>
 cudaError_t seq_step(const void* zs, const void* cs, const void* dys, const void* wht,
                      void* dzs, void* dcs, int b, int t_steps, int step, int h, int wd, int f,
-                     int kh, int kw, int ns, int th, int tw, int cw, int rps, cudaStream_t s) {
+                     int kh, int kw, int ns, int th, int tw, int cw, int rps, int per_member,
+                     cudaStream_t s) {
   Args<T> a{static_cast<const T*>(dzs), static_cast<const T*>(wht), static_cast<T*>(dzs),
             static_cast<const T*>(zs), static_cast<const T*>(cs), static_cast<const T*>(dys),
-            static_cast<T*>(dcs), t_steps, step, h, wd, 4 * f, f, kh, kw, th, tw, cw, rps, 0, 0};
+            static_cast<T*>(dcs), t_steps, step, h, wd, 4 * f, f, kh, kw, th, tw, cw, rps, 0, 0,
+            per_member};
   return launch_ns<T, KIND>(a, b, ns, s);
 }
 
 template <typename T>
 cudaError_t dx(const void* dzs, const void* wxt, void* out, int frames, int h, int wd, int cin,
-               int f, int kh, int kw, int ns, int th, int tw, int cw, int rps, cudaStream_t s) {
+               int f, int kh, int kw, int ns, int th, int tw, int cw, int rps, int per_member,
+               cudaStream_t s) {
   Args<T> a{static_cast<const T*>(dzs), static_cast<const T*>(wxt), static_cast<T*>(out),
             nullptr, nullptr, nullptr, nullptr, 1, 0, h, wd, 4 * f, cin, kh, kw, th, tw, cw,
-            rps, 0, 0};
+            rps, 0, 0, per_member};
   return launch_ns<T, kDx>(a, frames, ns, s);
 }
 
 template <int KIND>
 int chain(int dtype, const void* zs, const void* cs, const void* dys, const void* wht,
           void* dzs, void* dcs, int b, int t_steps, int step, int h, int wd, int f, int kh,
-          int kw, int ns, int th, int tw, int cw, int rps, void* stream) {
+          int kw, int ns, int th, int tw, int cw, int rps, int per_member, void* stream) {
   if (b < 1 || step < 0 || step >= t_steps) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)seq_step<float, KIND>(zs, cs, dys, wht, dzs, dcs, b, t_steps, step, h, wd, f,
-                                      kh, kw, ns, th, tw, cw, rps, s);
+                                      kh, kw, ns, th, tw, cw, rps, per_member, s);
   if (dtype == 1)
     return (int)seq_step<bf16, KIND>(zs, cs, dys, wht, dzs, dcs, b, t_steps, step, h, wd, f,
-                                     kh, kw, ns, th, tw, cw, rps, s);
+                                     kh, kw, ns, th, tw, cw, rps, per_member, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -525,15 +540,17 @@ int chain(int dtype, const void* zs, const void* cs, const void* dys, const void
 // (ops/convlstm.py `_seq_plan`): ns (8, 16, 32 or 64 output channels a
 // block), the th x tw pixel tile (at most 128 pixels), cw (4 or 8 dz
 // channels a chunk) and rps (1 or kh tap rows a stage). Odd kh and kw.
-// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a shape
-// or plan the kernel does not take); does not synchronise.
+// per_member: the member mode's samples a member (whT stacked [b /
+// per_member, ...]; b for one layer's kernel). Returns the cudaError_t of
+// the launch (cudaErrorInvalidValue for a shape or plan the kernel does not
+// take); does not synchronise.
 extern "C" int dl4ds_convlstm_seq_step(int dtype, const void* zs, const void* cs,
                                        const void* dys, const void* wht, void* dzs, void* dcs,
                                        int b, int t_steps, int step, int h, int wd, int f,
                                        int kh, int kw, int ns, int th, int tw, int cw, int rps,
-                                       void* stream) {
+                                       int per_member, void* stream) {
   return chain<kChain>(dtype, zs, cs, dys, wht, dzs, dcs, b, t_steps, step, h, wd, f, kh, kw,
-                       ns, th, tw, cw, rps, stream);
+                       ns, th, tw, cw, rps, per_member, stream);
 }
 
 // The same step for K4 (the split route), launched as `split_chain`.
@@ -541,21 +558,26 @@ extern "C" int dl4ds_convlstm_split_step(int dtype, const void* zs, const void* 
                                          const void* dys, const void* wht, void* dzs,
                                          void* dcs, int b, int t_steps, int step, int h, int wd,
                                          int f, int kh, int kw, int ns, int th, int tw, int cw,
-                                         int rps, void* stream) {
+                                         int rps, int per_member, void* stream) {
   return chain<kSplitChain>(dtype, zs, cs, dys, wht, dzs, dcs, b, t_steps, step, h, wd, f, kh,
-                            kw, ns, th, tw, cw, rps, stream);
+                            kw, ns, th, tw, cw, rps, per_member, stream);
 }
 
 // dx [frames, H, W, Cin] = convT(dzs, wx) over `frames` = B*T frames of dzs
 // [frames, H, W, 4F], with wxT [kh, kw, 4F, Cin] the flipped, transposed
-// input kernel. dtype, plan and return value as dl4ds_convlstm_seq_step's.
+// input kernel (stacked [frames / per_member, ...] in the member mode, a
+// member's B*T frames each). dtype, plan and return value as
+// dl4ds_convlstm_seq_step's.
 extern "C" int dl4ds_convlstm_dx(int dtype, const void* dzs, const void* wxt, void* out,
                                  int frames, int h, int wd, int cin, int f, int kh, int kw,
-                                 int ns, int th, int tw, int cw, int rps, void* stream) {
+                                 int ns, int th, int tw, int cw, int rps, int per_member,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dx<float>(dzs, wxt, out, frames, h, wd, cin, f, kh, kw, ns, th, tw, cw, rps, s);
+    return (int)dx<float>(dzs, wxt, out, frames, h, wd, cin, f, kh, kw, ns, th, tw, cw, rps,
+                          per_member, s);
   if (dtype == 1)
-    return (int)dx<bf16>(dzs, wxt, out, frames, h, wd, cin, f, kh, kw, ns, th, tw, cw, rps, s);
+    return (int)dx<bf16>(dzs, wxt, out, frames, h, wd, cin, f, kh, kw, ns, th, tw, cw, rps,
+                         per_member, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,12 +3,11 @@ Fused ConvLSTM layer (K2 forward; K3, or K4 and a GEMM tail, backward), the
 counterpart of `dl4ds_tpu/ops/pallas_convlstm.py`'s `fused_convlstm`.
 
 On CUDA tensors `fused_convlstm` launches the hand-written Hopper kernels:
-without a gradient to take, K2's inference variant (`csrc/convlstm.cu`: the
-input conv over all frames with step 0's gates, then one launch per later
-time step, T launches a layer; 3xTF32 tensor-core products); with one (grad
-mode on and an input that requires grad), `FusedConvLSTM`, whose forward is
-K2's training variant (the same launches, also writing the `cs` and `zs`
-residuals). Its backward takes
+with grad mode off, K2's inference variant (`csrc/convlstm.cu`: the input
+conv over all frames with step 0's gates, then one launch per later time
+step, T launches a layer; 3xTF32 tensor-core products); with it on,
+`FusedConvLSTM`, whose forward is K2's training variant (the same
+launches, also writing the `cs` and `zs` residuals). Its backward takes
 one of two routes, chosen by `dispatch_info` from the layer's shape alone:
 'fused', K3: the sequential dh/dc chain (`csrc/convlstm_seq.cu`, T
 chain-step launches writing dz for every step), dx with the same tile, and
@@ -27,6 +26,19 @@ Weights keep the JAX layout: wx [kh, kw, Cin, 4F] (HWIO), bx [4F],
 wh [kh, kw, F, 4F], gates split along 4F in the order i, f, c, o.
 Activations are [B, T, H, W, C]; the residuals are zs [B, T, H, W, 4F]
 (the pre-activations, gate-major along the last axis) and cs [B, T, H, W, F].
+
+The member mode (a deep ensemble's members in one call, K1's in
+`fused_ops`): the weights stacked [M, ...] with x [M*B, ...] holding M
+members of B samples in turn; sample b runs with member b // B's weights,
+and the weight gradients come back [M, ...]. Every kernel plans and routes
+from the per-member batch B and repeats that grid M times, so that a
+member-mode call equals M one-member calls bit for bit. Under
+`torch.func.vmap` over stacked weights (`parallel.make_ensemble_step`,
+`predict_ensemble`) the `vmap` rules of `_FusedConvLSTM`,
+`_ConvLSTMBackward` and the operator reach it. On CPU tensors it runs the
+plain versions member by member. The JAX package's Pallas ConvLSTM has no
+batching rule under `vmap` (its `custom_partitioning` wrappers), so its
+ensembles run the XLA recurrence: the same function.
 
 float32 and bfloat16 (every tensor in one dtype). In bfloat16 the products
 accumulate in float32 and every stored tensor is bfloat16, rounded where
@@ -49,6 +61,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .flops import convlstm_flops, kernel_flops
+from .members import by_member, front
 
 __all__ = ['fused_convlstm', 'convlstm_reference', 'convlstm_train_reference',
            'convlstm_backward_reference', 'convlstm_seq_reference',
@@ -139,8 +152,13 @@ def convlstm_train_reference(x, wx, bx, wh, states=None):
     included. With `states`, the (ys, cs) of a run being checked, step t
     starts from their h_{t-1} and c_{t-1}: a recurrence held step by step,
     where one rounding flip would otherwise be carried through the later
-    steps."""
+    steps. Weights stacked [M, ...]: the member mode, member by member."""
     _check_kernels(x, wx, bx, wh)
+    if wx.dim() == 5:
+        return by_member(
+            lambda xs, *rest: convlstm_train_reference(
+                xs, *rest[-3:], states=rest[:2] if len(rest) == 5 else None),
+            (x,) + tuple(states or ()), (wx, bx, wh), 3)
     b, t, h, w, cin = x.shape
     f = wh.shape[2]
     zx = _conv_same(x.reshape(b * t, h, w, cin), wx) + bx
@@ -176,7 +194,13 @@ def convlstm_seq_reference(zs, cs, dys, wh, given=None):
     the reverse dh/dc chain on the saved zs and cs. Returns dzs [B, T, H, W,
     4F], the gradient of every step's pre-activations, gate-major. With
     `given`, the dzs of a run being checked, step t's recurrent term is
-    taken from its dz_{t+1} (the chain held step by step)."""
+    taken from its dz_{t+1} (the chain held step by step). wh stacked [M,
+    ...]: the member mode, member by member."""
+    if wh.dim() == 5:
+        return by_member(
+            lambda *a: (convlstm_seq_reference(*a[:3], a[-1], given=(
+                a[3] if len(a) == 5 else None)),),
+            (zs, cs, dys) + (() if given is None else (given,)), (wh,), 1)[0]
     b, t, h, w, f4 = zs.shape
     f = f4 // 4
     dh_next = dc_next = zero = cs.new_zeros((b, h, w, f))
@@ -208,7 +232,12 @@ def convlstm_backward_reference(x, wx, wh, zs, cs, ys, dys):
     reverse dh/dc chain on the saved zs, cs and ys (`convlstm_seq_reference`),
     then dx, dWx, dWh and db over the whole window with PyTorch's convolution
     adjoints. Returns (dx, dwx, dbx, dwh) in the layouts of (x, wx, bx,
-    wh)."""
+    wh); weights stacked [M, ...]: the member mode, member by member."""
+    if wx.dim() == 5:
+        return by_member(
+            lambda xs, zs_, cs_, ys_, dys_, wx_, wh_:
+            convlstm_backward_reference(xs, wx_, wh_, zs_, cs_, ys_, dys_),
+            (x, zs, cs, ys, dys), (wx, wh), 1)
     b, t, h, w, cin = x.shape
     f = wh.shape[2]
     dzs = convlstm_seq_reference(zs, cs, dys, wh)
@@ -277,7 +306,13 @@ def convlstm_backward_tail(x, wx, wh, ys, dzs, need_dx=True):
     845-851): the weight gradients are bfloat16 GEMMs with float32
     reductions (one rounding each), dx's taps are summed in float32 and
     then rounded. The same code runs on the CPU and on the card. Returns
-    (dx or None, dwx, dbx, dwh)."""
+    (dx or None, dwx, dbx, dwh). Weights stacked [M, ...]: the member mode,
+    member by member (each member's products those of its own call), the
+    gradients [M, ...]."""
+    if wx.dim() == 5:
+        return by_member(
+            lambda xs, ys_, dzs_, wx_, wh_: convlstm_backward_tail(
+                xs, wx_, wh_, ys_, dzs_, need_dx), (x, ys, dzs), (wx, wh), 1)
     b, t, h, w, cin = x.shape
     kh, kw, _, f4 = wx.shape
     f = f4 // 4
@@ -325,7 +360,22 @@ def _check_shapes(x_shape, wx_shape, bx_shape, wh_shape):
 
 
 def _check_kernels(x, wx, bx, wh):
-    _check_shapes(x.shape, wx.shape, bx.shape, wh.shape)
+    """Check a call's shapes; returns its member count M (1 for one
+    layer's weights, M for weights stacked [M, ...], whose x holds M
+    members of x.shape[0] / M samples)."""
+    if wx.dim() != 5:
+        _check_shapes(x.shape, wx.shape, bx.shape, wh.shape)
+        return 1
+    m = wx.shape[0]
+    if bx.dim() != 2 or wh.dim() != 5 or bx.shape[0] != m or wh.shape[0] != m:
+        raise ValueError(f'ConvLSTM member stacks differ: wx '
+                         f'{tuple(wx.shape)}, bx {tuple(bx.shape)}, wh '
+                         f'{tuple(wh.shape)}')
+    _check_shapes(x.shape, wx.shape[1:], bx.shape[1:], wh.shape[1:])
+    if m == 0 or x.shape[0] % m:
+        raise ValueError(f'ConvLSTM member mode: batch {x.shape[0]} does not '
+                         f'divide over {m} members')
+    return m
 
 
 # The backward's route table, from one layer's whole backward timed by each
@@ -346,7 +396,7 @@ _SPLIT_MIN_F = 64
 
 def dispatch_info(x_shape, wx_shape, wh_shape, itemsize=4):
     """The backward route of a ConvLSTM layer, as a dict: the function
-    `FusedConvLSTM.backward` routes on (the port's counterpart of
+    `_FusedConvLSTM.backward` routes on (the port's counterpart of
     `dispatch_info`, dl4ds_tpu/ops/pallas_convlstm.py:873, whose VMEM
     budgets and lane padding are TPU facts). A pure function of the shapes
     and the element size (4 float32, 2 bfloat16; the JAX dispatch takes it
@@ -379,8 +429,8 @@ def dispatch_info(x_shape, wx_shape, wh_shape, itemsize=4):
 def _fwd_lib():
     lib = _build.load('convlstm')
     p, i = ctypes.c_void_p, ctypes.c_int
-    argtypes = {'dl4ds_convlstm_input': [i] + [p] * 6 + [i] * 14 + [p],
-                'dl4ds_convlstm_step': [i] + [p] * 4 + [i] * 14 + [p]}
+    argtypes = {'dl4ds_convlstm_input': [i] + [p] * 6 + [i] * 15 + [p],
+                'dl4ds_convlstm_step': [i] + [p] * 4 + [i] * 15 + [p]}
     for name, types in argtypes.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -392,9 +442,9 @@ def _fwd_lib():
 def _bwd_lib():
     lib = _build.load('convlstm_bwd')
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    argtypes = {'dl4ds_convlstm_wgrad': [i] + [p] * 3 + [i] * 16 + [p],
+    argtypes = {'dl4ds_convlstm_wgrad': [i] + [p] * 3 + [i] * 17 + [p],
                 'dl4ds_convlstm_wgrad_reduce': [i, p, i, i64, p, p, i, i64, p,
-                                                p]}
+                                                i, p]}
     for name, types in argtypes.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -406,9 +456,9 @@ def _bwd_lib():
 def _seq_lib():
     lib = _build.load('convlstm_seq')
     p, i = ctypes.c_void_p, ctypes.c_int
-    argtypes = {'dl4ds_convlstm_seq_step': [i] + [p] * 6 + [i] * 13 + [p],
-                'dl4ds_convlstm_split_step': [i] + [p] * 6 + [i] * 13 + [p],
-                'dl4ds_convlstm_dx': [i] + [p] * 3 + [i] * 12 + [p]}
+    argtypes = {'dl4ds_convlstm_seq_step': [i] + [p] * 6 + [i] * 14 + [p],
+                'dl4ds_convlstm_split_step': [i] + [p] * 6 + [i] * 14 + [p],
+                'dl4ds_convlstm_dx': [i] + [p] * 3 + [i] * 13 + [p]}
     for name, types in argtypes.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -572,6 +622,24 @@ def _wgrad_plan(b, t, t_skip, h, w, cs, f, kh, kw, n_sm):
             'cwc': cwc, 'tpc': tpc, 'grid_y': grid_y}
 
 
+def _launch_plans(b, t, h, w, cin, f, kh, kw, n_sm, elem=4, members=1):
+    """The plans of a layer's launches for a call on b samples that are
+    `members` members of b / members samples each (the member mode; 1 for
+    one layer's weights): K2's (`_fwd_plan`), the chain step's and dx's
+    (`_seq_plan`) and the two weight-gradient passes' (`_wgrad_plan`; 'h'
+    None at T = 1). Each is a member's own, planned from its b / members
+    samples, so that every block and sum of a member-mode launch is that
+    of the member's one-member call; the launch runs M times its grid. A
+    pure function of the shapes."""
+    per = b // members
+    return {'fwd': _fwd_plan(per, t, h, w, kh, kw, f, n_sm, elem),
+            'chain': _seq_plan(per, h, w, kh, kw, f, n_sm, elem),
+            'dx': _seq_plan(per * t, h, w, kh, kw, cin, n_sm, elem),
+            'wgrad_x': _wgrad_plan(per, t, 0, h, w, cin, f, kh, kw, n_sm),
+            'wgrad_h': (_wgrad_plan(per, t, 1, h, w, f, f, kh, kw, n_sm)
+                        if t > 1 else None)}
+
+
 # the kernels' element-type codes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -603,18 +671,21 @@ def _launch(x, wx, bx, wh, train=False):
     all B*T frames, and step 0's gates), then one launch per time step 1 ..
     T-1, on the current stream. Returns ys [B, T, H, W, F]; with train=True
     the training variant, which returns (ys, cs, zs) with the residuals cs
-    [B, T, H, W, F] and zs [B, T, H, W, 4F]."""
+    [B, T, H, W, F] and zs [B, T, H, W, 4F]. Weights stacked [M, ...]: the
+    member mode, planned from a member's B / M samples."""
     tensors = (x, wx, bx, wh)
     dev = _check_cuda(tensors, 'forward kernel')
-    _check_kernels(x, wx, bx, wh)
+    members = _check_kernels(x, wx, bx, wh)
     b, t, h, w, cin = x.shape
-    kh, kw, _, f4 = wx.shape
+    kh, kw, _, f4 = wx.shape[-4:]
     f = f4 // 4
     if b * t * h * w == 0:
         raise ValueError(f'ConvLSTM kernel got an empty x {tuple(x.shape)}')
     x, wx, bx, wh = (_aligned(u) for u in tensors)
-    plan = _fwd_plan(b, t, h, w, kh, kw, f, _n_sm(dev), x.element_size())
-    if plan['input_grid'][0] >= 2 ** 31:
+    per = b // members
+    plan = _launch_plans(b, t, h, w, cin, f, kh, kw, _n_sm(dev),
+                         x.element_size(), members)['fwd']
+    if plan['input_grid'][0] * members >= 2 ** 31:
         raise ValueError(f'ConvLSTM kernel got too many pixel tiles for one '
                          f'launch: x {tuple(x.shape)}')
     empty = lambda *s: torch.empty(s, dtype=x.dtype, device=dev)  # noqa: E731
@@ -639,31 +710,36 @@ def _launch(x, wx, bx, wh, train=False):
         stream = torch.cuda.current_stream(dev).cuda_stream
         check(lib.dl4ds_convlstm_input(
             code, x.data_ptr(), wx.data_ptr(), bx.data_ptr(), zx.data_ptr(),
-            ys.data_ptr(), c.data_ptr(), b, t, h, w, cin, f, *geometry,
+            ys.data_ptr(), c.data_ptr(), b, t, h, w, cin, f, *geometry, per,
             stream), 'input conv and step 0')
         for step in range(1, t):
             check(lib.dl4ds_convlstm_step(
                 code, wh.data_ptr(), zx.data_ptr(), ys.data_ptr(), c.data_ptr(), b,
-                t, step, h, w, f, *geometry, stream), f'step {step}')
+                t, step, h, w, f, *geometry, per, stream), f'step {step}')
     return (ys, c, zx) if train else ys
 
 
 def _flip_t(w):
     """wT [kh, kw, Co, C] from an HWIO kernel w [kh, kw, C, Co]: flipped in
     both spatial axes, channel axes swapped, so that convT(dz, w) is a SAME
-    conv of dz with wT."""
-    return w.flip(0, 1).transpose(2, 3).contiguous()
+    conv of dz with wT; a member stack [M, kh, kw, C, Co] member by
+    member."""
+    return w.flip(-4, -3).transpose(-2, -1).contiguous()
 
 
 def _chain(zs, cs, dys, wh, count):
     """Run the chain-step kernel T times in reverse on the current stream,
     adding one to `fused_convlstm.<count>` a launch: K3's chain
     ('bwd_launches') or K4's ('seq_launches'), the same tile under two
-    kernel names. Returns dzs [B, T, H, W, 4F]."""
+    kernel names. Returns dzs [B, T, H, W, 4F]. wh stacked [M, ...]: the
+    member mode, planned from a member's B / M samples."""
     b, t, h, w, f4 = zs.shape
-    kh, kw, f, _ = wh.shape
+    kh, kw, f, _ = wh.shape[-4:]
+    members = wh.shape[0] if wh.dim() == 5 else 1
+    per = b // members
     dev = zs.device
-    plan = _seq_plan(b, h, w, kh, kw, f, _n_sm(dev), zs.element_size())
+    plan = _launch_plans(b, t, h, w, f, f, kh, kw, _n_sm(dev),
+                         zs.element_size(), members)['chain']
     geometry = tuple(plan[k] for k in ('ns', 'th', 'tw', 'cw', 'rps'))
     wht = _flip_t(wh)
     dzs = torch.empty_like(zs)
@@ -676,7 +752,7 @@ def _chain(zs, cs, dys, wh, count):
         err = fn(_DTYPE_CODES[zs.dtype], zs.data_ptr(), cs.data_ptr(),
                  dys.data_ptr(), wht.data_ptr(),
                  dzs.data_ptr(), dcs.data_ptr(), b, t, step, h, w, f, kh, kw,
-                 *geometry, stream)
+                 *geometry, per, stream)
         if err != 0:
             raise RuntimeError(f'ConvLSTM chain-step kernel launch failed '
                                f'with CUDA error {err} (step {step})')
@@ -691,12 +767,19 @@ def _n_sm(dev):
 def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
     """Run K3: the T reverse chain steps, dx over all frames (when need_dx),
     the Wx (with db) and Wh weight-gradient passes and the one reduction of
-    their partials. Returns (dx or None, dwx, dbx, dwh)."""
+    their partials. Returns (dx or None, dwx, dbx, dwh). Weights stacked
+    [M, ...]: the member mode, every launch planned from a member's B / M
+    samples, the gradients [M, ...]."""
     tensors = (x, wx, wh, zs, cs, ys, dys)
     dev = _check_cuda(tensors, 'backward kernel')
     b, t, h, w, cin = x.shape
-    kh, kw, _, f4 = wx.shape
+    kh, kw, _, f4 = wx.shape[-4:]
     f = f4 // 4
+    members = wx.shape[0] if wx.dim() == 5 else 1
+    if wh.dim() != wx.dim() or members == 0 or b % members:
+        raise ValueError(f'ConvLSTM backward kernel: weights wx '
+                         f'{tuple(wx.shape)}, wh {tuple(wh.shape)} for a '
+                         f'batch of {b}')
     if (tuple(zs.shape) != (b, t, h, w, f4)
             or any(tuple(u.shape) != (b, t, h, w, f) for u in (cs, ys, dys))):
         raise ValueError(
@@ -712,14 +795,16 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
     code = _DTYPE_CODES[x.dtype]
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     lx = kh * kw * cin * f4
-    plan_x = _wgrad_plan(b, t, 0, h, w, cin, f, kh, kw, n_sm)
-    part_x = empty(plan_x['n_chunks'], lx + f4)
-    plan_h = _wgrad_plan(b, t, 1, h, w, f, f, kh, kw, n_sm) if t > 1 else None
-    part_h = (empty(plan_h['n_chunks'], kh * kw * f * f4) if t > 1
+    per = b // members
+    plans = _launch_plans(b, t, h, w, cin, f, kh, kw, n_sm, x.element_size(),
+                          members)
+    plan_x, plan_h = plans['wgrad_x'], plans['wgrad_h']
+    part_x = empty(members * plan_x['n_chunks'], lx + f4)
+    part_h = (empty(members * plan_h['n_chunks'], kh * kw * f * f4) if t > 1
               else empty(0))
     # the reduction writes the sums in x's dtype, each rounded once
-    out_x = torch.empty(lx + f4, dtype=x.dtype, device=dev)
-    dwh = torch.empty((kh, kw, f, f4), dtype=x.dtype, device=dev)
+    out_x = torch.empty((members, lx + f4), dtype=x.dtype, device=dev)
+    dwh = torch.empty((members, kh, kw, f, f4), dtype=x.dtype, device=dev)
 
     def check(err, what):
         if err != 0:
@@ -731,9 +816,9 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
         check(lib.dl4ds_convlstm_wgrad(
             code, src.data_ptr(), dzs.data_ptr(), part.data_ptr(),
             plan['n_chunks'],
-            with_db, b, t, t_skip, h, w, cs_, f, kh, kw,
-            *(plan[k] for k in ('tph', 'tpw', 'tpb', 'cwc', 'tpc')), stream),
-            'dWx' if with_db else 'dWh')
+            with_db, per, t, t_skip, h, w, cs_, f, kh, kw,
+            *(plan[k] for k in ('tph', 'tpw', 'tpb', 'cwc', 'tpc')), members,
+            stream), 'dWx' if with_db else 'dWh')
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -741,31 +826,39 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
         dx = None
         if need_dx:
             dx = torch.empty((b, t, h, w, cin), dtype=x.dtype, device=dev)
-            plan = _seq_plan(b * t, h, w, kh, kw, cin, n_sm, x.element_size())
+            plan = plans['dx']
             wxt = _flip_t(wx)
             check(_seq_lib().dl4ds_convlstm_dx(
                 code, dzs.data_ptr(), wxt.data_ptr(), dx.data_ptr(), b * t, h, w,
                 cin, f, kh, kw,
-                *(plan[k] for k in ('ns', 'th', 'tw', 'cw', 'rps')), stream),
-                'dx')
+                *(plan[k] for k in ('ns', 'th', 'tw', 'cw', 'rps')), per * t,
+                stream), 'dx')
         wgrad(x, part_x, plan_x, 1, 0, cin)
         if plan_h is not None:
             wgrad(ys, part_h, plan_h, 0, 1, f)
         check(lib.dl4ds_convlstm_wgrad_reduce(
-            code, part_x.data_ptr(), part_x.shape[0], lx + f4, out_x.data_ptr(),
-            part_h.data_ptr(), part_h.shape[0], dwh.numel(), dwh.data_ptr(),
-            stream), 'reduce')
-    return dx, out_x[:lx].view(kh, kw, cin, f4), out_x[lx:], dwh
+            code, part_x.data_ptr(), plan_x['n_chunks'], lx + f4,
+            out_x.data_ptr(), part_h.data_ptr(),
+            plan_h['n_chunks'] if t > 1 else 0, dwh[0].numel(),
+            dwh.data_ptr(), members, stream), 'reduce')
+    dwx = out_x[:, :lx].view(members, kh, kw, cin, f4)
+    if wx.dim() == 5:
+        return dx, dwx, out_x[:, lx:], dwh
+    return dx, dwx[0], out_x[0, lx:], dwh[0]
 
 
 def _launch_seq(zs, cs, dys, wh):
     """Run K4, the sequential chain: T step launches in reverse on the
-    current stream. Returns dzs [B, T, H, W, 4F]."""
+    current stream. Returns dzs [B, T, H, W, 4F]. wh stacked [M, ...]: the
+    member mode."""
     tensors = (zs, cs, dys, wh)
     dev = _check_cuda(tensors, 'sequential BPTT kernel')
     b, t, h, w, f4 = zs.shape
-    kh, kw, f, _ = wh.shape
-    if (f4 != 4 * f or tuple(wh.shape[3:]) != (f4,)
+    kh, kw, f, _ = wh.shape[-4:]
+    members = wh.shape[0] if wh.dim() == 5 else 1
+    if (wh.dim() not in (4, 5) or f4 != 4 * f
+            or tuple(wh.shape[-1:]) != (f4,) or members == 0
+            or b % members
             or any(tuple(u.shape) != (b, t, h, w, f) for u in (cs, dys))):
         raise ValueError(
             f'ConvLSTM residuals do not match wh {tuple(wh.shape)}: zs '
@@ -783,8 +876,9 @@ def _launch_seq(zs, cs, dys, wh):
 
 def _backward(route, x, wx, wh, zs, cs, ys, dys, need_dx=True):
     """The layer's BPTT by `route` ('fused' or 'split'): the kernels on CUDA
-    tensors, their plain versions on CPU tensors. Returns (dx, dwx, dbx,
-    dwh); dx may be None when not need_dx."""
+    tensors, their plain versions on CPU tensors, for one layer's weights
+    or a member stack. Returns (dx, dwx, dbx, dwh); dx may be None when not
+    need_dx."""
     if route not in ('fused', 'split'):
         raise ValueError(f"ConvLSTM backward route must be 'fused' or "
                          f"'split', got {route!r}")
@@ -797,49 +891,163 @@ def _backward(route, x, wx, wh, zs, cs, ys, dys, need_dx=True):
     return convlstm_backward_tail(x, wx, wh, ys, dzs, need_dx)
 
 
-class FusedConvLSTM(torch.autograd.Function):
-    """The layer with its BPTT backward: on CUDA tensors K2's training
-    variant forward and, by `dispatch_info`'s route, K3 or K4 and the GEMM
-    tail backward; on CPU tensors their plain versions. Saves x, wx, wh and
-    the residuals zs, cs, ys for the backward. `route` (internal, for tests
-    and the chip checks) forces a backward route."""
+def _route(x, wx, wh):
+    """`dispatch_info`'s route of a layer (a member's, for stacked
+    weights); a float64 run (the CPU reference of a float32 one) routes as
+    float32."""
+    itemsize = 2 if x.dtype == torch.bfloat16 else 4
+    return dispatch_info(x.shape, wx.shape[-4:], wh.shape[-4:],
+                         itemsize)['path']
+
+
+def _check_vmapped_weights(in_dims, weights):
+    """Raise on weights that are already a member stack (wx, bx, wh of 4,
+    1 and 4 dims each instance; wx, wh in the backward): the layer has one
+    member axis."""
+    ndims = (4, 1, 4) if len(weights) == 3 else (4, 4)
+    for d, t, ndim in zip(in_dims, weights, ndims):
+        if t.dim() - (d is not None) != ndim:
+            raise NotImplementedError(
+                'ConvLSTM layer: vmap over weights that are already a '
+                'member stack')
+
+
+def _layer_vmap(layer, info, in_dims, x, wx, bx, wh):
+    """The `vmap` rule of the layer's forward `layer` (the operator, or
+    `_FusedConvLSTM.apply` with its route): the mapped axis flattened into
+    the batch; with mapped weights (an ensemble's members) the member mode,
+    B samples a member, else one call on the flattened batch."""
+    n = info.batch_size
+    weights, wdims = (wx, bx, wh), in_dims[1:4]
+    _check_vmapped_weights(wdims, weights)
+    x = front(x, in_dims[0], n)
+    flat = x.reshape(-1, *x.shape[2:]).contiguous()
+    if any(d is not None for d in wdims):
+        weights = [front(t, d, n).contiguous()
+                   for t, d in zip(weights, wdims)]
+    out = layer(flat, *weights)
+    if isinstance(out, tuple):
+        return (tuple(o.reshape(x.shape[:2] + o.shape[1:]) for o in out),
+                (0,) * len(out))
+    return out.reshape(x.shape[:2] + out.shape[1:]), 0
+
+
+class _FusedConvLSTM(torch.autograd.Function):
+    """The layer with its BPTT backward: forward (ys, cs, zs), on CUDA
+    tensors K2's training variant, on CPU tensors its plain version; the
+    residuals cs and zs are outputs, marked non-differentiable, that the
+    backward takes with x, the weights and ys (outputs, not saved
+    intermediates, as torch.func needs them). The backward is
+    `_ConvLSTMBackward`, by `dispatch_info`'s route or the forced `route`
+    (tests, the chip checks). Weights stacked [M, ...]: the member mode.
+
+    Under `torch.func.vmap` the `vmap` rule flattens the mapped axis into
+    the batch: with mapped weights (an ensemble's members) the member mode,
+    else one call on the flattened batch. `_ConvLSTMBackward` has a `vmap`
+    rule of its own (under `vmap(grad(...))` the backward meets batched
+    tensors), which always runs the member mode, so that each mapped
+    instance gets its own weight gradients."""
 
     @staticmethod
-    def forward(ctx, x, wx, bx, wh, route=None):
+    def forward(x, wx, bx, wh, route=None):
         with kernel_flops(lambda: convlstm_flops(x.shape, wx.shape)):
             if x.device.type == 'cuda':
-                ys, cs, zs = _launch(x, wx, bx, wh, train=True)
-            else:
-                ys, cs, zs = convlstm_train_reference(x, wx, bx, wh)
-        ctx.save_for_backward(x, wx, wh, zs, cs, ys)
-        ctx.route = route
-        return ys
+                return _launch(x, wx, bx, wh, train=True)
+            if x.device.type == 'cpu':
+                return convlstm_train_reference(x, wx, bx, wh)
+        raise ValueError(f'unsupported device {x.device}')
 
     @staticmethod
-    def backward(ctx, dys):
+    def setup_context(ctx, inputs, output):
+        x, wx, bx, wh, route = inputs
+        ys, cs, zs = output
+        ctx.mark_non_differentiable(cs, zs)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, wx, wh, zs, cs, ys)
+        ctx.route = route
+
+    @staticmethod
+    def backward(ctx, dys, _dcs, _dzs):
         x, wx, wh, zs, cs, ys = ctx.saved_tensors
-        # a float64 run (the CPU reference of a float32 one) routes as
-        # float32
-        itemsize = 2 if x.dtype == torch.bfloat16 else 4
-        route = ctx.route or dispatch_info(x.shape, wx.shape, wh.shape,
-                                           itemsize)['path']
         need_dx = ctx.needs_input_grad[0]
+        grads = _ConvLSTMBackward.apply(x, wx, wh, zs, cs, ys, dys,
+                                        ctx.route or _route(x, wx, wh),
+                                        need_dx)
+        return (grads[3] if need_dx else None,) + grads[:3] + (None,)
+
+    @staticmethod
+    def vmap(info, in_dims, x, wx, bx, wh, route=None):
+        return _layer_vmap(
+            lambda *a: _FusedConvLSTM.apply(*a, route), info, in_dims, x, wx,
+            bx, wh)
+
+
+class FusedConvLSTM:
+    """The layer as an autograd function of (x, wx, bx, wh, route=None)
+    that returns ys: `_FusedConvLSTM`, which also returns the residuals
+    that its backward takes. `_backward_cls` is the class of the gradient
+    node that it records on ys."""
+
+    _backward_cls = _FusedConvLSTM._backward_cls
+
+    @staticmethod
+    def apply(x, wx, bx, wh, route=None):
+        return _FusedConvLSTM.apply(x, wx, bx, wh, route)[0]
+
+
+class _ConvLSTMBackward(torch.autograd.Function):
+    """The layer's BPTT as a Function of its own: (dwx, dbx, dwh) and, when
+    `need_dx`, dx, from x, the weights, the forward's zs, cs and ys and dys,
+    by `route` (`_backward`: K3, or K4 and the GEMM tail, on the GPU; the
+    plain versions on the CPU). Its `vmap` rule flattens the mapped axis
+    into the batch and runs the member mode with the weights expanded to
+    the mapped size, so that each instance's weight gradients are its own.
+    It is not differentiable again."""
+
+    @staticmethod
+    def forward(x, wx, wh, zs, cs, ys, dys, route, need_dx):
         with kernel_flops(lambda: convlstm_flops(x.shape, wx.shape, True,
                                                  need_dx)):
-            grads = _backward(route, x, wx, wh, zs, cs, ys, dys.contiguous(),
-                              need_dx=need_dx)
-        return tuple(g if need else None for g, need in
-                     zip(grads, ctx.needs_input_grad)) + (None,)
+            dx, dwx, dbx, dwh = _backward(route, x, wx, wh, zs, cs, ys,
+                                          dys.contiguous(), need_dx=need_dx)
+        return (dwx, dbx, dwh) + ((dx,) if need_dx else ())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError('the ConvLSTM layer is differentiable once')
+
+    @staticmethod
+    def vmap(info, in_dims, x, wx, wh, zs, cs, ys, dys, route, need_dx):
+        n = info.batch_size
+        _check_vmapped_weights((in_dims[1], in_dims[2]), (wx, wh))
+        per_sample = [front(t, d, n) for t, d in zip(
+            (x, zs, cs, ys, dys), (in_dims[0],) + in_dims[3:7])]
+        lead = per_sample[0].shape[:2]
+        x, zs, cs, ys, dys = (t.reshape(-1, *t.shape[2:]).contiguous()
+                              for t in per_sample)
+        wx, wh = (front(t, d, n).contiguous()
+                  for t, d in ((wx, in_dims[1]), (wh, in_dims[2])))
+        out = _ConvLSTMBackward.apply(x, wx, wh, zs, cs, ys, dys, route,
+                                      need_dx)
+        if need_dx:
+            out = out[:3] + (out[3].reshape(lead + out[3].shape[1:]),)
+        return out, (0,) * len(out)
 
 
 @torch.library.custom_op('dl4ds_tpu_torch::convlstm', mutates_args=())
 def _convlstm_op(x: torch.Tensor, wx: torch.Tensor, bx: torch.Tensor,
                  wh: torch.Tensor) -> torch.Tensor:
     """K2's inference variant as the operator `dl4ds_tpu_torch::convlstm`:
-    ys [B, T, H, W, F] in x's dtype from x [B, T, H, W, Cin]. Its CUDA
-    kernel is `_launch`, its CPU kernel `convlstm_reference`, and its fake
-    kernel gives the shape alone, so that `torch.export` traces a model
-    through it and freezes the node, not the launches."""
+    ys [B, T, H, W, F] in x's dtype from x [B, T, H, W, Cin] (weights
+    stacked [M, ...]: the member mode). Its CUDA kernel is `_launch`, its
+    CPU kernel `convlstm_reference`, and its fake kernel gives the shape
+    alone, so that `torch.export` traces a model through it and freezes the
+    node, not the launches. Its `vmap` rule (`predict_ensemble`) is
+    `_layer_vmap`'s."""
     raise ValueError(f'unsupported device {x.device}')
 
 
@@ -858,6 +1066,11 @@ def _(x, wx, bx, wh):
     return x.new_empty((*x.shape[:4], wx.shape[-1] // 4))
 
 
+_convlstm_op.register_vmap(
+    lambda info, in_dims, *args: _layer_vmap(_convlstm_op, info, in_dims,
+                                             *args))
+
+
 @register_flop_formula(torch.ops.dl4ds_tpu_torch.convlstm)
 def _(x_shape, wx_shape, *args, out_shape=None, **kwargs):
     return convlstm_flops(x_shape, wx_shape)
@@ -865,21 +1078,23 @@ def _(x_shape, wx_shape, *args, out_shape=None, **kwargs):
 
 def fused_convlstm(x, wx, bx, wh):
     """Whole ConvLSTM layer forward: ys [B, T, H, W, F] from x
-    [B, T, H, W, Cin] (h and c start at zero).
+    [B, T, H, W, Cin] (h and c start at zero; weights stacked [M, ...]:
+    the member mode).
 
-    With grad mode on and any input that requires grad, `FusedConvLSTM`
-    (differentiable; on CUDA K2's training variant, and K3 or K4 with the
-    GEMM tail as `dispatch_info` routes the layer). Otherwise the operator
-    `dl4ds_tpu_torch::convlstm`, which `torch.export` freezes as one node:
-    on CUDA tensors K2's inference variant, float32 or bfloat16; on CPU
-    tensors `convlstm_reference`. `fused_convlstm.launches` counts K2
-    inference launches (T a layer: the input launch and T-1 steps), `.train_launches` K2 training launches,
-    `.bwd_launches` K3 launches and `.seq_launches` K4 launches; the CPU path
-    launches nothing."""
+    With grad mode on, `FusedConvLSTM` (differentiable, under torch.func's
+    transforms too, where an input's `requires_grad` does not show whether
+    a transform differentiates it; on CUDA K2's training variant, and K3 or
+    K4 with the GEMM tail as `dispatch_info` routes the layer). With grad
+    mode off the operator `dl4ds_tpu_torch::convlstm`, which `torch.export`
+    freezes as one node: on CUDA tensors K2's inference variant, float32 or
+    bfloat16; on CPU tensors `convlstm_reference`.
+    `fused_convlstm.launches` counts K2 inference launches (T a layer: the
+    input launch and T-1 steps), `.train_launches` K2 training launches,
+    `.bwd_launches` K3 launches and `.seq_launches` K4 launches; the CPU
+    path launches nothing."""
     if x.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {x.device}')
-    if torch.is_grad_enabled() and any(
-            u.requires_grad for u in (x, wx, bx, wh)):
+    if torch.is_grad_enabled():
         return FusedConvLSTM.apply(x, wx, bx, wh)
     return _convlstm_op(x, wx, bx, wh)
 

@@ -90,12 +90,13 @@ def gate_flops(x_shape, w1_shape, backward=False):
 
 
 def convlstm_flops(x_shape, wx_shape, backward=False, need_dx=True):
-    """K2 on x [B, T, H, W, Cin] with wx [kh, kw, Cin, 4F]: forward the
+    """K2 on x [B, T, H, W, Cin] with wx [(M,) kh, kw, Cin, 4F] (the member
+    mode counted as M one-member calls on B / M samples): forward the
     input convolution over the B*T frames and the T recurrent ones;
     backward the input weight gradient, its dx where `need_dx`, T
     recurrent weight gradients and T - 1 recurrent dh."""
     b, t, h, w, cin = x_shape
-    kh, kw, _, f4 = wx_shape
+    kh, kw, _, f4 = wx_shape[-4:]
     f = f4 // 4
     per_pixel = 2 * b * h * w * f4 * kh * kw      # a frame's conv, / its Cin
     if not backward:

@@ -51,6 +51,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .flops import gate_flops, kernel_flops, ssim_flops
+from .members import by_member, front
 from .ssim import _gaussian_kernel1d, ssim, ssim_backward_reference
 
 __all__ = ['fused_channel_attention', 'channel_attention_reference',
@@ -495,24 +496,12 @@ def _launch_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
             db2.to(b2.dtype))
 
 
-def _by_member(fn, per_sample, weights, n_cat):
-    """fn(*per-sample chunks, *weights) member by member: the per-sample
-    tensors [M * B, ...] cut into M chunks, the weights [M, ...] indexed;
-    the first `n_cat` results (per sample) concatenated, the others (per
-    member) stacked. The member mode's plain version."""
-    n = weights[0].shape[0]
-    outs = [fn(*(t.chunk(n)[i] for t in per_sample), *(w[i] for w in weights))
-            for i in range(n)]
-    return tuple(torch.cat(o) if k < n_cat else torch.stack(o)
-                 for k, o in enumerate(zip(*outs)))
-
-
 def _plain_forward(x, w1, b1, w2, b2, mixed=False):
     """(y, m, g) of the gate on the CPU: `_gate` and the multiply, member by
     member for stacked weights."""
     if w1.dim() == 3:
-        return _by_member(lambda xs, *w: _plain_forward(xs, *w, mixed),
-                          (x,), (w1, b1, w2, b2), 3)
+        return by_member(lambda xs, *w: _plain_forward(xs, *w, mixed),
+                         (x,), (w1, b1, w2, b2), 3)
     m, g = _gate(x, w1, b1, w2, b2, mixed)
     y = (x.float() * g[..., None, None, :] if mixed
          else x * g.to(x.dtype)[..., None, None, :])
@@ -523,7 +512,7 @@ def _plain_backward(x, w1, b1, w2, b2, dy, m, g, mixed=False):
     """`_channel_attention_backward`, member by member for stacked weights
     (the weight gradients [M, ...])."""
     if w1.dim() == 3:
-        return _by_member(
+        return by_member(
             lambda xs, dys, ms, gs, *w: _channel_attention_backward(
                 xs, *w, dys, ms, gs, mixed),
             (x, dy, m, g), (w1, b1, w2, b2), 1)
@@ -569,12 +558,6 @@ def _(x_shape, w1_shape, *args, out_shape=None, **kwargs):
     return gate_flops(x_shape, w1_shape)
 
 
-def _front(t, d, n):
-    """A vmap rule's operand with its mapped dim first, [n, ...]; expanded
-    to n where the operand is not mapped (d None)."""
-    return t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
-
-
 def _check_vmapped_weights(in_dims, weights):
     """Raise on weights that are already a member stack (w1, b1, w2, b2 of
     2, 1, 2 and 1 dims each instance): the gate has one member axis."""
@@ -593,10 +576,10 @@ def _gate_vmap(gate, info, in_dims, x, w1, b1, w2, b2, mixed):
     n = info.batch_size
     weights, wdims = (w1, b1, w2, b2), in_dims[1:5]
     _check_vmapped_weights(wdims, weights)
-    x = _front(x, in_dims[0], n)
+    x = front(x, in_dims[0], n)
     flat = x.reshape(-1, *x.shape[2:]).contiguous()
     if any(d is not None for d in wdims):
-        weights = [_front(t, d, n).contiguous()
+        weights = [front(t, d, n).contiguous()
                    for t, d in zip(weights, wdims)]
     y, m, g = gate(flat, *weights, mixed)
     return ((y.reshape(x.shape[:2] + y.shape[1:]),
@@ -692,13 +675,13 @@ class _GateBackward(torch.autograd.Function):
         n = info.batch_size
         weights, wdims = (w1, b1, w2, b2), in_dims[1:5]
         _check_vmapped_weights(wdims, weights)
-        x, dy, m, g = (_front(t, d, n) for t, d in (
+        x, dy, m, g = (front(t, d, n) for t, d in (
             (x, in_dims[0]), (dy, in_dims[5]), (m, in_dims[6]),
             (g, in_dims[7])))
         lead = x.shape[:2]
         x, dy, m, g = (t.reshape(-1, *t.shape[2:]).contiguous()
                        for t in (x, dy, m, g))
-        weights = [_front(t, d, n).contiguous()
+        weights = [front(t, d, n).contiguous()
                    for t, d in zip(weights, wdims)]
         dx, *dws = _GateBackward.apply(x, *weights, dy, m, g, mixed)
         return ((dx.reshape(lead + dx.shape[1:]), *dws), (0,) * 5)
@@ -1234,10 +1217,10 @@ class FusedSSIM(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, img1, img2, max_val, *params):
         n = info.batch_size
-        a, b = (_front(t, d, n) for t, d in zip((img1, img2), in_dims))
+        a, b = (front(t, d, n) for t, d in zip((img1, img2), in_dims))
         if in_dims[2] is None:
             return FusedSSIM.apply(a, b, max_val, *params), 0
-        mv = _front(max_val, in_dims[2], n)
+        mv = front(max_val, in_dims[2], n)
         return torch.stack([FusedSSIM.apply(a[i], b[i], mv[i], *params)
                             for i in range(n)]), 0
 
@@ -1277,12 +1260,12 @@ class _SSIMBackward(torch.autograd.Function):
     def vmap(info, in_dims, img1, img2, max_val, g, *params):
         n = info.batch_size
         need = params[-1]
-        a, b = (_front(t, d, n) for t, d in zip((img1, img2), in_dims))
-        gs = _front(g, in_dims[3], n)
+        a, b = (front(t, d, n) for t, d in zip((img1, img2), in_dims))
+        gs = front(g, in_dims[3], n)
         if in_dims[2] is None and not need[2]:
             out = _SSIMBackward.apply(a, b, max_val, gs, *params)
         else:
-            mv = (_front(max_val, in_dims[2], n) if torch.is_tensor(max_val)
+            mv = (front(max_val, in_dims[2], n) if torch.is_tensor(max_val)
                   else [max_val] * n)
             outs = [_SSIMBackward.apply(a[i], b[i], mv[i], gs[i], *params)
                     for i in range(n)]

@@ -65,7 +65,7 @@ from torch.func import functional_call, grad_and_value, stack_module_state
 from . import distributed
 from .inference import _data_part, _serving
 from .models.blocks import DropPath, Dropout, use_dropout_generator
-from .utils import checkarg_loss, not_ported, resolve_device
+from .utils import checkarg_loss, resolve_device
 
 __all__ = ['predict_tiled', 'receptive_field_radius', 'init_ensemble',
            'make_ensemble_step', 'predict_ensemble', 'EnsembleStep',
@@ -462,13 +462,6 @@ EnsembleStep = collections.namedtuple(
     'EnsembleStep', ['step', 'init_opt', 'axis_size'])
 
 
-def _check_ensemble_model(model, what):
-    if len(model.input_shape) == 4:
-        raise not_ported(f'{what} of a spatio-temporal model (the ConvLSTM '
-                         f'kernels K2-K4 under vmap, a member mode each)', 10,
-                         2)
-
-
 def _base_net(model, dev):
     """A network of `model` on `dev`, built once a device, that
     `functional_call` runs with a member's parameters in place of its
@@ -536,8 +529,7 @@ def init_ensemble(model, n_members, seed=0, mesh=None,
     at its coordinate on the `member_axis` dim, each with the weights its
     seed gives without a mesh (dl4ds_tpu/parallel.py:481-505); M must
     divide by the dim's size. A model with batch norm raises, as in the
-    JAX package; a spatio-temporal model raises naming ROADMAP item 10."""
-    _check_ensemble_model(model, 'init_ensemble')
+    JAX package."""
     device = resolve_device(device)
     part = _ensemble_part(mesh, member_axis, None, device.type)
     if n_members % part.n_member:
@@ -601,7 +593,6 @@ def make_ensemble_step(model, mesh=None, tx=None, loss='mae',
     mesh, from a generator seeded from one draw of `key` and this rank's
     coordinates, so that no two ranks share masks. The returned losses are
     all M members', gathered over the `member_axis` dim in member order."""
-    _check_ensemble_model(model, 'make_ensemble_step')
     lossf = checkarg_loss(loss)
     tx = _adam if tx is None else tx
     needs_aux = model.aux_shape is not None
@@ -702,7 +693,6 @@ def predict_ensemble(model, stacked_variables, x, aux=None, mesh=None,
     the `member_axis` dim builds [M, N, H, W, C] in member order on every
     rank, from which every rank computes the statistics
     (dl4ds_tpu/parallel.py:625-676)."""
-    _check_ensemble_model(model, 'predict_ensemble')
     dev, dtype = _stack_where(stacked_variables)
     part = _ensemble_part(mesh, member_axis, None, dev.type)
     x = _on(x, dev, dtype)

@@ -21,13 +21,11 @@ __all__ = ['spatial_to_spatiotemporal_samples',
            'plot_ndarray', 'rank', 'resolve_device', 'not_ported', '_values']
 
 
-def not_ported(what, item, part=None):
+def not_ported(what, item):
     """The error for a feature this port does not have yet; `item` is its
-    entry in ROADMAP.md's queue 1, and `part` the part of the item that
-    ports it."""
-    where = f'item {item}' + (f', part {part}' if part is not None else '')
+    entry in ROADMAP.md's queue 1."""
     return NotImplementedError(f'{what} is not ported yet '
-                               f'(ROADMAP.md queue 1, {where})')
+                               f'(ROADMAP.md queue 1, item {item})')
 
 
 def rank(x):

@@ -21,6 +21,7 @@ import torch
 from torch.func import stack_module_state
 
 from .models.blocks import Conv
+from .utils import resolve_device
 
 __all__ = ['load_jax_params', 'export_jax_params', 'export_jax_variables',
            'load_jax_ensemble', 'export_jax_ensemble', 'load_jax_named',
@@ -135,13 +136,15 @@ def _params_tree(tree):
     return tree['params'] if isinstance(tree.get('params'), dict) else tree
 
 
-def load_jax_named(model, params, device='cpu'):
+def load_jax_named(model, params, device='cuda'):
     """The parameters of a network of `model` by `named_parameters()` name
-    (fresh tensors on `device`), from the JAX package's Flax `params` tree
+    (fresh tensors on `device`: the card unless device='cpu' is asked
+    for, as every entry point of the port), from the JAX package's Flax `params` tree
     (or its variables {'params': ...}): the whole weights that
     `parallel.place_params` cuts into a rank's shards and a pipeline's
     `split_params` stacks, so that both packages start from one tree."""
-    net = load_jax_params(model.init(0, device=device), _params_tree(params))
+    net = load_jax_params(model.init(0, device=resolve_device(device)),
+                          _params_tree(params))
     return {k: v.detach().clone() for k, v in net.named_parameters()}
 
 

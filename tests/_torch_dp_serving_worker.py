@@ -1,6 +1,7 @@
 """One rank of `tests/test_torch_distributed_serving.py`: the port's
 `predict(mesh=)`, `predict_tiled(mesh=)` and the ensembles over an
-ensemble mesh, over a 2-process gloo group on the CPU, without JAX; or,
+ensemble mesh (the flagship's, and a spatio-temporal model's on an
+('ensemble',) mesh), over a 2-process gloo group on the CPU, without JAX; or,
 over 4 processes, of `tests/test_torch_distributed_ensemble_mesh.py`: the
 ensembles on a 2 x 2 ('ensemble', 'data') mesh.
 
@@ -50,6 +51,10 @@ MESHES = {'ensemble': ((2, None), 'mae'),
           'ensemble_data': ((1, 2), 'dssim_mae')}
 # the 4-rank run's mesh, both dims above 1
 MESHES_2D = {'ensemble_2x2': ((2, 2), 'dssim_mae')}
+# a spatio-temporal model's ensemble (tests/test_torch_ensemble_recurrent.py's
+# model): the ConvLSTM layers' member mode on each rank's members
+REC_ENS = dict(ENS, attention=False, time_window=T)
+REC_MESHES = {'ensemble_rec': ((2, None), 'mae')}
 
 
 def model(pkg, name):
@@ -93,6 +98,18 @@ def ens_model():
     return tds.net_postupsampling(**ENS)
 
 
+def rec_ens_data():
+    """x, y of the recurrent ensemble's steps: [B, T, h, w, 1] windows."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((ENS_B, T, 8, 8, 1)).astype(np.float32)
+    y = rng.standard_normal((ENS_B, T, 16, 16, 1)).astype(np.float32)
+    return x, y
+
+
+def rec_ens_model():
+    return tds.recnet_postupsampling(**REC_ENS)
+
+
 def case_predict(rank, world, refs, out, res):
     """`predict(mesh=)` of both models at 3 and 10 samples (with
     `pad_to_multiple` once), `Predictor(mesh=)`, and the save on the first
@@ -134,12 +151,13 @@ def case_tiled(rank, world, refs, out, res):
         tile=2, halo=HALO, quantize='int8', **predict_kw('flagship'))
 
 
-def ensemble_runs(meshes, res):
+def ensemble_runs(meshes, res, make_model=ens_model, data=ens_data):
     """On each of `meshes`: this rank's members from `init_ensemble`, 3
     steps without the bootstrap (the losses gathered, the members' final
-    weights), `predict_ensemble`. Returns the stack without a mesh."""
-    tm = ens_model()
-    x, y = ens_data()
+    weights), `predict_ensemble`, of `make_model()` on `data()`. Returns
+    the stack without a mesh."""
+    tm = make_model()
+    x, y = data()
     whole = parallel.init_ensemble(tm, M, seed=0, device='cpu')
     for name, ((n_e, n_d), loss) in meshes.items():
         mesh = distributed.ensemble_mesh(n_e, n_d)
@@ -198,7 +216,12 @@ def case_ensembles_2d(rank, world, refs, out, res):
     ensemble_runs(MESHES_2D, res)
 
 
-CASES = [case_predict, case_tiled, case_ensembles]
+def case_ensembles_recurrent(rank, world, refs, out, res):
+    """`ensemble_runs` of the spatio-temporal model on REC_MESHES."""
+    ensemble_runs(REC_MESHES, res, rec_ens_model, rec_ens_data)
+
+
+CASES = [case_predict, case_tiled, case_ensembles, case_ensembles_recurrent]
 
 if __name__ == '__main__':
     # 2 ranks run CASES; 4 ranks the 2 x 2 ensemble mesh alone

@@ -49,7 +49,7 @@ def adam_1e3(params):
 
 def _named(model, tree):
     """The parameters of `model` by name, the Flax tree `tree` loaded."""
-    return tds.weights.load_jax_named(model, tree)
+    return tds.weights.load_jax_named(model, tree, device='cpu')
 
 
 def _export(model, named, prefix, res):

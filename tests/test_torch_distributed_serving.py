@@ -19,7 +19,10 @@ imported, runs every case and writes its results, which the tests read.
   shard's own range (JAX's `shard_map`): three steps, per member, at
   tests/test_torch_ensemble.py's tolerances; `init_ensemble(mesh=)` the
   rows of the stack without a mesh; bootstrapped steps on the
-  ('ensemble',) mesh equal, member by member, to the step without one.
+  ('ensemble',) mesh equal, member by member, to the step without one;
+- a spatio-temporal model's ensemble (`recnet_postupsampling`, the
+  ConvLSTM layers' member mode) on the 2-device ('ensemble',) mesh, the
+  same checks.
 """
 
 import os
@@ -97,18 +100,26 @@ def refs(tmp_path_factory):
                                             halo=worker.HALO, **kw)
 
     want.update(ensemble_refs(worker.MESHES))
+    want.update(ensemble_refs(
+        worker.REC_MESHES, worker.rec_ens_model,
+        lambda: dds.recnet_postupsampling(**worker.REC_ENS),
+        worker.rec_ens_data))
     path = tmp_path_factory.mktemp('dp_serving') / 'refs.npz'
     np.savez(path, unused=np.zeros(1))
     return path, want
 
 
-def ensemble_refs(meshes):
+def ensemble_refs(meshes, port_model=worker.ens_model,
+                  jax_model=lambda: dds.net_postupsampling(**worker.ENS),
+                  data=worker.ens_data):
     """JAX's served member stacks, step losses and final weights on each of
-    the worker's ensemble `meshes`, by the worker's result names."""
-    tm, jm = worker.ens_model(), dds.net_postupsampling(**worker.ENS)
+    the worker's ensemble `meshes`, by the worker's result names, of the
+    model `jax_model()` from the port's stack of `port_model()`, on
+    `data()`."""
+    tm, jm = port_model(), jax_model()
     start = {'params': tds.weights.export_jax_ensemble(
         tm, tpar.init_ensemble(tm, worker.M, seed=0, device='cpu'))}
-    x, y = worker.ens_data()
+    x, y = data()
     want = {}
     for name, ((n_e, n_d), loss) in meshes.items():
         shape, names = (((n_e,), ('ensemble',)) if n_d is None
@@ -199,6 +210,16 @@ def test_ensemble_over_the_mesh_matches_jax(refs, ranks, name):
     member stack against JAX's `predict_ensemble`."""
     check_ensemble(harness.case_results(ranks, 'case_ensembles'), refs[1],
                    name, worker.MESHES[name][0][0])
+
+
+def test_recurrent_ensemble_over_the_mesh_matches_jax(refs, ranks):
+    """The spatio-temporal model's ensemble on the ('ensemble',) mesh, each
+    rank's members through the ConvLSTM layers' member mode: the same
+    checks against JAX's step and `predict_ensemble` on its 2-device
+    mesh."""
+    check_ensemble(harness.case_results(ranks, 'case_ensembles_recurrent'),
+                   refs[1], 'ensemble_rec', worker.REC_MESHES[
+                       'ensemble_rec'][0][0])
 
 
 def check_ensemble(res, want, name, n_e):

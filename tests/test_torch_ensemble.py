@@ -215,20 +215,18 @@ def test_predict_ensemble_matches_jax_and_feeds_crps(trained):
 
 
 def test_refusals():
-    """Batch norm is the JAX package's ValueError; spatio-temporal models
-    raise naming ROADMAP item 10, part 2. Meshes are ported
+    """Batch norm is the JAX package's ValueError. Spatio-temporal models
+    are ported (tests/test_torch_ensemble_recurrent.py), and so are meshes
     (tests/test_torch_distributed_serving.py): one that is not a
     DeviceMesh is a TypeError."""
     bn = tds.net_postupsampling(**_kw(normalization='bn'))
     with pytest.raises(ValueError, match='batch-norm'):
         tpar.init_ensemble(bn, 2, device='cpu')
-    rec = tds.recnet_postupsampling(**_kw(), time_window=3)
+    rec_bn = tds.recnet_postupsampling(**_kw(normalization='bn'),
+                                       time_window=3)
+    with pytest.raises(ValueError, match='batch-norm'):
+        tpar.init_ensemble(rec_bn, 2, device='cpu')
     x = np.zeros((2, 3, 8, 8, 1), np.float32)
-    for call in (lambda: tpar.init_ensemble(rec, 2, device='cpu'),
-                 lambda: tpar.make_ensemble_step(rec),
-                 lambda: tpar.predict_ensemble(rec, {}, x)):
-        with pytest.raises(NotImplementedError, match='item 10, part 2'):
-            call()
     tm = tds.net_postupsampling(**_kw())
     stack = {'w': torch.zeros(2, 1)}
     for call in (lambda: tpar.init_ensemble(tm, 2, mesh=object(),

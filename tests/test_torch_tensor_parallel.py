@@ -466,3 +466,23 @@ def test_refusals_under_model(ranks2):
         assert 'SupervisedTrainer' in cgan
         assert res['app_mesh'].tolist() == ["('data', 'model')", '(1, 2)']
         assert 'needs 4 processes' in str(res['app_count'])
+
+
+def test_load_jax_named_defaults_to_the_card():
+    """`weights.load_jax_named` puts the whole tensors on the card unless
+    device='cpu' is asked for, as every entry point of the port does
+    (`utils.resolve_device`): without a GPU its default raises, naming
+    device='cpu'."""
+    import inspect
+    import torch
+    fn = tds.weights.load_jax_named
+    assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    model = tds.net_postupsampling('resnet', 'spc', scale=2, n_channels=1,
+                                   n_aux_channels=0, lr_size=(8, 8),
+                                   n_filters=4, n_blocks=1)
+    tree = tds.weights.export_jax_params(model.init(0, device='cpu'))
+    named = fn(model, tree, device='cpu')
+    assert all(t.device.type == 'cpu' for t in named.values())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(model, tree)

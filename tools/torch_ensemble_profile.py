@@ -2,14 +2,18 @@
 """Where the device time of the port's deep ensemble goes.
 
     python3 tools/torch_ensemble_profile.py [--members 4] [--steps 5]
+        [--model resnet_spc|recresnet_spc]
 
 Builds the flagship (`net_postupsampling('resnet', 'spc', scale=4,
-n_filters=8, n_blocks=6, attention=True)`, bench.py's widths) as a stack of
+n_filters=8, n_blocks=6, attention=True)`, bench.py's widths), or with
+`--model recresnet_spc` BASELINE config 4 (T 4, n_blocks 2, n_filters 8,
+the ConvLSTM layers through K2-K4's member mode), as a stack of
 `--members` members (`parallel.init_ensemble`), then profiles on one GPU,
 under `torch.profiler`, `--steps` eager ensemble steps
 (`parallel.make_ensemble_step`, mae, bootstrap on) at batch 128 on
 chip_smoke.py phase 10's data (64x64 HR patches), and `predict_ensemble`
-of 16 LR grids of 128x128 (TF32 convs, PyTorch's default). For each it
+of 16 LR grids of 128x128 (16 windows of 4 for the recurrent model; TF32
+convs, PyTorch's default). For each it
 prints the span on the host clock, the device's busy time and share, and
 the device time and kernel count a call by kernel group. Fails without a
 CUDA device or when the profiler records no device kernel.
@@ -25,6 +29,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 # (group, name fragments) of a kernel, first match first
 GROUPS = (('K1', ('ca_fwd', 'ca_bwd', 'ca_stream')), ('K6', ('ssim',)),
+          ('K2', ('convlstm_tile',)), ('K4', ('split_chain',)),
+          ('K3', ('chain_step', 'dx_frames', 'wgrad_tile', 'wgrad_reduce')),
           ('conv', ('conv', 'xmma', 'cudnn', 'implicit', 'winograd',
                     'fprop', 'dgrad', 'wgrad')),
           ('gemm', ('gemm', 'gemv')), ('adam', ('adam',)),
@@ -70,6 +76,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--members', type=int, default=4)
     ap.add_argument('--steps', type=int, default=5)
+    ap.add_argument('--model', choices=('resnet_spc', 'recresnet_spc'),
+                    default='resnet_spc')
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -81,8 +89,10 @@ def main():
     from dl4ds_tpu_torch import parallel
     from dl4ds_tpu_torch.ops import _build
     _build.build_all()
-    config = cs._training_config(loss='mae', n_filters=cs.N_FILTERS,
-                                 n_blocks=cs.N_BLOCKS, attention=True)
+    recurrent = args.model == 'recresnet_spc'
+    config = (cs._rec_config() if recurrent else cs._training_config(
+        loss='mae', n_filters=cs.N_FILTERS, n_blocks=cs.N_BLOCKS,
+        attention=True))
     model, batches = cs._ensemble_batches(torch, tds, config, cs.TRAIN_BATCH,
                                           args.steps + 1)
     stacked = parallel.init_ensemble(model, args.members, seed=0)
@@ -91,16 +101,19 @@ def main():
     gen = torch.Generator(device='cuda').manual_seed(0)
     x = np.random.default_rng(0).standard_normal(
         (cs.N_GRIDS, cs.LR, cs.LR, 1)).astype('float32')
+    if recurrent:
+        x = np.stack([np.random.default_rng(0).standard_normal(
+            (cs.REC_T, cs.LR, cs.LR, 1)).astype('float32')] * cs.N_GRIDS)
 
     def step(i):
         b = batches[i]
         es.step(stacked, opt, b['lr'], b['hr'], gen)
     step(args.steps)                        # warm-up: cuDNN's choices
     parallel.predict_ensemble(model, stacked, x)
-    profile(torch, f'ensemble step, {args.members} members, batch '
-                   f'{cs.TRAIN_BATCH}', step, args.steps)
-    profile(torch, f'predict_ensemble, {args.members} members, '
-                   f'{cs.N_GRIDS} grids {cs.LR}x{cs.LR}',
+    profile(torch, f'{args.model} ensemble step, {args.members} members, '
+                   f'batch {cs.TRAIN_BATCH}', step, args.steps)
+    profile(torch, f'{args.model} predict_ensemble, {args.members} members, '
+                   f'{cs.N_GRIDS} inputs {tuple(x.shape[1:])}',
             lambda i: parallel.predict_ensemble(model, stacked, x), 3)
     print(cs.card_line(), flush=True)
 
