@@ -9511,26 +9511,32 @@ def _member_layer(torch, tds, conv, cin, f, k, dtype, seed, flush):
             times[name] = statistics.median(device_times(
                 torch, fn, reps=40, l2_flush=flush))
     k2_flops, k2_bytes = k2_work(x, wx[0], wh[0])
+
+    def bounds(key, n_ops, n_bytes):
+        """`key`_bound_ms at the float32 rate outside the tensor cores and
+        `key`_bound_3xtf32_ms at the 3xTF32 rate the products run at."""
+        return {f'{key}_bound{sfx}_ms': max(n_ops / rate,
+                                            n_bytes / HBM_BYTES_PER_S) * 1e3
+                for sfx, rate in (('', F32_FLOPS), ('_3xtf32', TF32X3_FLOPS))}
     row.update(
         ys_cs_zs_err=fwd_err, grad_rel_err=errs, k2_ms=k2_ms,
         k2_plain_ms=k2_plain_ms, k2_one_ms=times['k2'],
-        k2_bound_ms=max(k2_flops / F32_FLOPS, (k2_bytes + w_bytes + 4 * 5 *
-                        ys.numel()) / HBM_BYTES_PER_S) * 1e3,
         k2i_ms=k2i_ms, k2i_plain_ms=k2i_plain_ms, k2i_one_ms=times['k2i'],
-        k2i_bound_ms=max(k2_flops / F32_FLOPS, (k2_bytes + w_bytes)
-                         / HBM_BYTES_PER_S) * 1e3,
         bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_one_ms=times['bwd'],
-        bwd_bound_ms=max(flops / F32_FLOPS, (n_bytes + w_bytes)
-                         / HBM_BYTES_PER_S) * 1e3)
+        **bounds('k2', k2_flops, k2_bytes + w_bytes + 4 * 5 * ys.numel()),
+        **bounds('k2i', k2_flops, k2_bytes + w_bytes),
+        **bounds('bwd', flops, n_bytes + w_bytes))
     print(f'{label}: the bits of {ENS_M} one-member calls each way, launches '
           f'{row["launches"]} (one member\'s); ys, cs, zs max|d| '
           + ' '.join(f'{e:.2e}' for e in fwd_err) + f', {counter} '
           + ' '.join(f'{n} {v:.2e}' for n, v in errs.items())
           + f'; K2-train {k2_ms:.4f} ms (one member {times["k2"]:.4f}, plain '
-          f'{k2_plain_ms:.4f}, bound {row["k2_bound_ms"]:.4f}), K2 '
-          f'{k2i_ms:.4f} ms (one member {times["k2i"]:.4f}), {counter} '
-          f'{bwd_ms:.4f} ms (one member {times["bwd"]:.4f}, plain '
-          f'{bwd_plain_ms:.4f}, bound {row["bwd_bound_ms"]:.4f}); '
+          f'{k2_plain_ms:.4f}, bound {row["k2_bound_ms"]:.4f}, 3xTF32 '
+          f'{row["k2_bound_3xtf32_ms"]:.4f}), K2 {k2i_ms:.4f} ms (one member '
+          f'{times["k2i"]:.4f}), {counter} {bwd_ms:.4f} ms (one member '
+          f'{times["bwd"]:.4f}, plain {bwd_plain_ms:.4f}, bound '
+          f'{row["bwd_bound_ms"]:.4f}, 3xTF32 '
+          f'{row["bwd_bound_3xtf32_ms"]:.4f}); '
           f'{card_line()}', flush=True)
     return row
 
@@ -9805,7 +9811,8 @@ def _rec_ens_kernel_rows(report):
             f'members of {TRAIN_BATCH} samples, T {REC_T}, '
             f'{TRAIN_LR}x{TRAIN_LR}, summed; one_member_ms one member\'s '
             f'launches at {TRAIN_BATCH}; launches of phase 26 (c)\'s '
-            f'{ENS_SPEED_STEPS} eager ensemble steps')
+            f'{ENS_SPEED_STEPS} eager ensemble steps; products in 3xTF32 '
+            f'(bound_3xtf32_ms at {TF32X3_FLOPS / 1e12:.0f} TFLOP/s)')
     base = dict(route='cuda', bound_by='operations', library_ms=None)
     k2 = dict(base, source='dl4ds_tpu_torch/csrc/convlstm.cu',
               replaces='dl4ds_tpu/ops/pallas_convlstm.py:219')
@@ -9816,9 +9823,12 @@ def _rec_ens_kernel_rows(report):
              ms=tot(N_FILTERS, 'k2_ms'), plain_ms=tot(N_FILTERS,
                                                      'k2_plain_ms'),
              bound_ms=tot(N_FILTERS, 'k2_bound_ms'),
+             bound_3xtf32_ms=tot(N_FILTERS, 'k2_bound_3xtf32_ms'),
              one_member_ms=tot(N_FILTERS, 'k2_one_ms'),
              wide_ms=tot(WIDE_F, 'k2_ms'),
              wide_one_member_ms=tot(WIDE_F, 'k2_one_ms'),
+             wide_bound_ms=tot(WIDE_F, 'k2_bound_ms'),
+             wide_bound_3xtf32_ms=tot(WIDE_F, 'k2_bound_3xtf32_ms'),
              work=work + f' (wide_*: width {WIDE_F})'),
         dict(k2, name='K2_convlstm_member_serve',
              launches=ens['serve_launches']['K2 inference'],
@@ -9826,6 +9836,7 @@ def _rec_ens_kernel_rows(report):
              ms=tot(N_FILTERS, 'k2i_ms'),
              plain_ms=tot(N_FILTERS, 'k2i_plain_ms'),
              bound_ms=tot(N_FILTERS, 'k2i_bound_ms'),
+             bound_3xtf32_ms=tot(N_FILTERS, 'k2i_bound_3xtf32_ms'),
              one_member_ms=tot(N_FILTERS, 'k2i_one_ms'),
              work=f'the inference variant\'s member mode at the same shapes; '
                   f'launches of predict_ensemble of {REC_GRIDS - REC_T + 1} '
@@ -9841,6 +9852,7 @@ def _rec_ens_kernel_rows(report):
              ms=tot(N_FILTERS, 'bwd_ms'),
              plain_ms=tot(N_FILTERS, 'bwd_plain_ms'),
              bound_ms=tot(N_FILTERS, 'bwd_bound_ms'),
+             bound_3xtf32_ms=tot(N_FILTERS, 'bwd_bound_3xtf32_ms'),
              one_member_ms=tot(N_FILTERS, 'bwd_one_ms'),
              work=work + '; max_abs_err max|d| / max|ref| against the plain '
                          'version in float64'),
@@ -9851,6 +9863,7 @@ def _rec_ens_kernel_rows(report):
              max_abs_err=max(r['grad_rel_err']['dzs'] for r in wide),
              ms=tot(WIDE_F, 'bwd_ms'), plain_ms=tot(WIDE_F, 'bwd_plain_ms'),
              bound_ms=tot(WIDE_F, 'bwd_bound_ms'),
+             bound_3xtf32_ms=tot(WIDE_F, 'bwd_bound_3xtf32_ms'),
              one_member_ms=tot(WIDE_F, 'bwd_one_ms'),
              work=f'the member mode of the chain at width {WIDE_F}\'s six '
                   f'layers, {ENS_M} members of {TRAIN_BATCH}; launches of '

@@ -90,7 +90,12 @@
 // chain step, B*T frames for dx); a block of frame x reads member x /
 // per_member's wT. A block covers one frame and the wrapper plans from a
 // member's own frame count, so the blocks are those of M one-member
-// launches: the same bits. One layer's call is the member mode with M = 1.
+// launches: the same bits. A launch of more than one member runs the
+// kernels' MEMBERS instantiation; one layer's launch runs the one without
+// it, whose single wT needs no member index: the member index cost
+// dx_frames<float, 8> 90 registers against 80, two blocks an SM against
+// three, and K3's dx at width 8 9% (chip_smoke.py phase 6's split by
+// launch; NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // Measured (chip_smoke.py phase 6, medians of 40 CUDA-event timings with
 // L2 flushed, and tools/torch_chain_probe.py; NVIDIA H100 80GB HBM3, 700.00
@@ -173,7 +178,7 @@ __host__ __device__ inline int smem_bytes(int elem, int ns, int th, int tw, int 
 // ceil(N / NS) channel slices. T float: 3xTF32 products and the float32
 // chain; T bf16: bfloat16 products, the sums rounded once to bfloat16 (dh's
 // recurrent term, dx), every op of the chain and the carries in bfloat16.
-template <typename T, int NS, bool CHAIN>
+template <typename T, int NS, bool CHAIN, bool MEMBERS>
 __device__ __forceinline__ void convt_tile(const Args<T>& a) {
   constexpr bool BF = kIsBf16<T>;
   constexpr int KS = kK<T>;
@@ -202,7 +207,8 @@ __device__ __forceinline__ void convt_tile(const Args<T>& a) {
   const int ty0 = (tile / a.tiles_x) * th, tx0 = (tile % a.tiles_x) * tw;
   const int n0 = blockIdx.y * NS;
   // this frame's member: its wT
-  const T* wm = a.w + (int64_t)(fr / a.per_member) * kh * kw * C * N;
+  const T* wm =
+      MEMBERS ? a.w + (int64_t)(fr / a.per_member) * kh * kw * C * N : a.w;
   const int ph = kh / 2, pw = kw / 2;
   // the chain's last step has no recurrent term
   const bool has_src = !CHAIN || a.step + 1 < a.t_steps;
@@ -438,28 +444,28 @@ __device__ __forceinline__ void convt_tile(const Args<T>& a) {
   }
 }
 
-template <typename T, int NS>
+template <typename T, int NS, bool MEMBERS>
 __global__ void __launch_bounds__(kThreads, 2) chain_step(const Args<T> a) {
-  convt_tile<T, NS, true>(a);
+  convt_tile<T, NS, true, MEMBERS>(a);
 }
 
-template <typename T, int NS>
+template <typename T, int NS, bool MEMBERS>
 __global__ void __launch_bounds__(kThreads, 2) split_chain(const Args<T> a) {
-  convt_tile<T, NS, true>(a);
+  convt_tile<T, NS, true, MEMBERS>(a);
 }
 
-template <typename T, int NS>
+template <typename T, int NS, bool MEMBERS>
 __global__ void __launch_bounds__(kThreads, 2) dx_frames(const Args<T> a) {
-  convt_tile<T, NS, false>(a);
+  convt_tile<T, NS, false, MEMBERS>(a);
 }
 
 enum Kind { kChain, kSplitChain, kDx };
 
-template <typename T, int NS, int KIND>
+template <typename T, int NS, int KIND, bool MEMBERS>
 cudaError_t launch(Args<T>& a, int64_t frames, cudaStream_t s) {
-  auto kern = KIND == kChain        ? chain_step<T, NS>
-              : KIND == kSplitChain ? split_chain<T, NS>
-                                    : dx_frames<T, NS>;
+  auto kern = KIND == kChain        ? chain_step<T, NS, MEMBERS>
+              : KIND == kSplitChain ? split_chain<T, NS, MEMBERS>
+                                    : dx_frames<T, NS, MEMBERS>;
   const size_t shmem =
       (size_t)smem_bytes((int)sizeof(T), NS, a.th, a.tw, a.kh, a.kw, a.cw, a.rps);
   if (shmem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
@@ -477,6 +483,17 @@ cudaError_t launch(Args<T>& a, int64_t frames, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <typename T, int KIND, bool MEMBERS>
+cudaError_t launch_by_ns(Args<T>& a, int64_t frames, int ns, cudaStream_t s) {
+  if (ns == 8) return launch<T, 8, KIND, MEMBERS>(a, frames, s);
+  if (ns == 16) return launch<T, 16, KIND, MEMBERS>(a, frames, s);
+  if (ns == 32) return launch<T, 32, KIND, MEMBERS>(a, frames, s);
+  if (ns == 64) return launch<T, 64, KIND, MEMBERS>(a, frames, s);
+  return cudaErrorInvalidValue;
+}
+
+// the member mode's instantiation for more than one member, the one-layer
+// instantiation (one wT, no member index) for one
 template <typename T, int KIND>
 cudaError_t launch_ns(Args<T>& a, int64_t frames, int ns, cudaStream_t s) {
   if (frames < 1 || a.h < 1 || a.wd < 1 || a.n < 1 || a.c < 4 || a.c % 4 ||
@@ -485,11 +502,8 @@ cudaError_t launch_ns(Args<T>& a, int64_t frames, int ns, cudaStream_t s) {
       (a.cw != 4 && a.cw != 8) || (a.rps != 1 && a.rps != a.kh) ||
       a.th < 1 || a.tw < 1 || a.th * a.tw > kBM)
     return cudaErrorInvalidValue;
-  if (ns == 8) return launch<T, 8, KIND>(a, frames, s);
-  if (ns == 16) return launch<T, 16, KIND>(a, frames, s);
-  if (ns == 32) return launch<T, 32, KIND>(a, frames, s);
-  if (ns == 64) return launch<T, 64, KIND>(a, frames, s);
-  return cudaErrorInvalidValue;
+  return a.per_member < frames ? launch_by_ns<T, KIND, true>(a, frames, ns, s)
+                               : launch_by_ns<T, KIND, false>(a, frames, ns, s);
 }
 
 template <typename T, int KIND>

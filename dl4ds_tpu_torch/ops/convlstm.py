@@ -61,7 +61,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .flops import convlstm_flops, kernel_flops
-from .members import by_member, front
+from .members import by_member, member_vmap
 
 __all__ = ['fused_convlstm', 'convlstm_reference', 'convlstm_train_reference',
            'convlstm_backward_reference', 'convlstm_seq_reference',
@@ -622,24 +622,6 @@ def _wgrad_plan(b, t, t_skip, h, w, cs, f, kh, kw, n_sm):
             'cwc': cwc, 'tpc': tpc, 'grid_y': grid_y}
 
 
-def _launch_plans(b, t, h, w, cin, f, kh, kw, n_sm, elem=4, members=1):
-    """The plans of a layer's launches for a call on b samples that are
-    `members` members of b / members samples each (the member mode; 1 for
-    one layer's weights): K2's (`_fwd_plan`), the chain step's and dx's
-    (`_seq_plan`) and the two weight-gradient passes' (`_wgrad_plan`; 'h'
-    None at T = 1). Each is a member's own, planned from its b / members
-    samples, so that every block and sum of a member-mode launch is that
-    of the member's one-member call; the launch runs M times its grid. A
-    pure function of the shapes."""
-    per = b // members
-    return {'fwd': _fwd_plan(per, t, h, w, kh, kw, f, n_sm, elem),
-            'chain': _seq_plan(per, h, w, kh, kw, f, n_sm, elem),
-            'dx': _seq_plan(per * t, h, w, kh, kw, cin, n_sm, elem),
-            'wgrad_x': _wgrad_plan(per, t, 0, h, w, cin, f, kh, kw, n_sm),
-            'wgrad_h': (_wgrad_plan(per, t, 1, h, w, f, f, kh, kw, n_sm)
-                        if t > 1 else None)}
-
-
 # the kernels' element-type codes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -683,8 +665,7 @@ def _launch(x, wx, bx, wh, train=False):
         raise ValueError(f'ConvLSTM kernel got an empty x {tuple(x.shape)}')
     x, wx, bx, wh = (_aligned(u) for u in tensors)
     per = b // members
-    plan = _launch_plans(b, t, h, w, cin, f, kh, kw, _n_sm(dev),
-                         x.element_size(), members)['fwd']
+    plan = _fwd_plan(per, t, h, w, kh, kw, f, _n_sm(dev), x.element_size())
     if plan['input_grid'][0] * members >= 2 ** 31:
         raise ValueError(f'ConvLSTM kernel got too many pixel tiles for one '
                          f'launch: x {tuple(x.shape)}')
@@ -738,8 +719,7 @@ def _chain(zs, cs, dys, wh, count):
     members = wh.shape[0] if wh.dim() == 5 else 1
     per = b // members
     dev = zs.device
-    plan = _launch_plans(b, t, h, w, f, f, kh, kw, _n_sm(dev),
-                         zs.element_size(), members)['chain']
+    plan = _seq_plan(per, h, w, kh, kw, f, _n_sm(dev), zs.element_size())
     geometry = tuple(plan[k] for k in ('ns', 'th', 'tw', 'cw', 'rps'))
     wht = _flip_t(wh)
     dzs = torch.empty_like(zs)
@@ -796,9 +776,8 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     lx = kh * kw * cin * f4
     per = b // members
-    plans = _launch_plans(b, t, h, w, cin, f, kh, kw, n_sm, x.element_size(),
-                          members)
-    plan_x, plan_h = plans['wgrad_x'], plans['wgrad_h']
+    plan_x = _wgrad_plan(per, t, 0, h, w, cin, f, kh, kw, n_sm)
+    plan_h = _wgrad_plan(per, t, 1, h, w, f, f, kh, kw, n_sm) if t > 1 else None
     part_x = empty(members * plan_x['n_chunks'], lx + f4)
     part_h = (empty(members * plan_h['n_chunks'], kh * kw * f * f4) if t > 1
               else empty(0))
@@ -826,7 +805,8 @@ def _launch_backward(x, wx, wh, zs, cs, ys, dys, need_dx=True):
         dx = None
         if need_dx:
             dx = torch.empty((b, t, h, w, cin), dtype=x.dtype, device=dev)
-            plan = plans['dx']
+            plan = _seq_plan(per * t, h, w, kh, kw, cin, n_sm,
+                             x.element_size())
             wxt = _flip_t(wx)
             check(_seq_lib().dl4ds_convlstm_dx(
                 code, dzs.data_ptr(), wxt.data_ptr(), dx.data_ptr(), b * t, h, w,
@@ -900,36 +880,17 @@ def _route(x, wx, wh):
                          itemsize)['path']
 
 
-def _check_vmapped_weights(in_dims, weights):
-    """Raise on weights that are already a member stack (wx, bx, wh of 4,
-    1 and 4 dims each instance; wx, wh in the backward): the layer has one
-    member axis."""
-    ndims = (4, 1, 4) if len(weights) == 3 else (4, 4)
-    for d, t, ndim in zip(in_dims, weights, ndims):
-        if t.dim() - (d is not None) != ndim:
-            raise NotImplementedError(
-                'ConvLSTM layer: vmap over weights that are already a '
-                'member stack')
+# the layer's weights (wx, bx, wh) by operand index, with their dims an
+# instance
+_LAYER_WEIGHTS = {1: 4, 2: 1, 3: 4}
 
 
-def _layer_vmap(layer, info, in_dims, x, wx, bx, wh):
+def _layer_vmap(layer, info, in_dims, *args):
     """The `vmap` rule of the layer's forward `layer` (the operator, or
-    `_FusedConvLSTM.apply` with its route): the mapped axis flattened into
-    the batch; with mapped weights (an ensemble's members) the member mode,
-    B samples a member, else one call on the flattened batch."""
-    n = info.batch_size
-    weights, wdims = (wx, bx, wh), in_dims[1:4]
-    _check_vmapped_weights(wdims, weights)
-    x = front(x, in_dims[0], n)
-    flat = x.reshape(-1, *x.shape[2:]).contiguous()
-    if any(d is not None for d in wdims):
-        weights = [front(t, d, n).contiguous()
-                   for t, d in zip(weights, wdims)]
-    out = layer(flat, *weights)
-    if isinstance(out, tuple):
-        return (tuple(o.reshape(x.shape[:2] + o.shape[1:]) for o in out),
-                (0,) * len(out))
-    return out.reshape(x.shape[:2] + out.shape[1:]), 0
+    `_FusedConvLSTM.apply` with its route) on (x, wx, bx, wh[, route]):
+    `member_vmap`'s, x and the outputs per sample."""
+    return member_vmap(layer, info, in_dims, args, (0,), _LAYER_WEIGHTS,
+                       'ConvLSTM layer')
 
 
 class _FusedConvLSTM(torch.autograd.Function):
@@ -976,10 +937,8 @@ class _FusedConvLSTM(torch.autograd.Function):
         return (grads[3] if need_dx else None,) + grads[:3] + (None,)
 
     @staticmethod
-    def vmap(info, in_dims, x, wx, bx, wh, route=None):
-        return _layer_vmap(
-            lambda *a: _FusedConvLSTM.apply(*a, route), info, in_dims, x, wx,
-            bx, wh)
+    def vmap(info, in_dims, *args):
+        return _layer_vmap(_FusedConvLSTM.apply, info, in_dims, *args)
 
 
 class FusedConvLSTM:
@@ -1021,21 +980,10 @@ class _ConvLSTMBackward(torch.autograd.Function):
         raise NotImplementedError('the ConvLSTM layer is differentiable once')
 
     @staticmethod
-    def vmap(info, in_dims, x, wx, wh, zs, cs, ys, dys, route, need_dx):
-        n = info.batch_size
-        _check_vmapped_weights((in_dims[1], in_dims[2]), (wx, wh))
-        per_sample = [front(t, d, n) for t, d in zip(
-            (x, zs, cs, ys, dys), (in_dims[0],) + in_dims[3:7])]
-        lead = per_sample[0].shape[:2]
-        x, zs, cs, ys, dys = (t.reshape(-1, *t.shape[2:]).contiguous()
-                              for t in per_sample)
-        wx, wh = (front(t, d, n).contiguous()
-                  for t, d in ((wx, in_dims[1]), (wh, in_dims[2])))
-        out = _ConvLSTMBackward.apply(x, wx, wh, zs, cs, ys, dys, route,
-                                      need_dx)
-        if need_dx:
-            out = out[:3] + (out[3].reshape(lead + out[3].shape[1:]),)
-        return out, (0,) * len(out)
+    def vmap(info, in_dims, *args):
+        return member_vmap(_ConvLSTMBackward.apply, info, in_dims, args,
+                           (0, 3, 4, 5, 6), {1: 4, 2: 4}, 'ConvLSTM layer',
+                           members=True, out_per_sample=(3,))
 
 
 @torch.library.custom_op('dl4ds_tpu_torch::convlstm', mutates_args=())

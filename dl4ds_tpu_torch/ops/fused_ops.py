@@ -51,7 +51,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .flops import gate_flops, kernel_flops, ssim_flops
-from .members import by_member, front
+from .members import by_member, front, member_vmap
 from .ssim import _gaussian_kernel1d, ssim, ssim_backward_reference
 
 __all__ = ['fused_channel_attention', 'channel_attention_reference',
@@ -558,33 +558,17 @@ def _(x_shape, w1_shape, *args, out_shape=None, **kwargs):
     return gate_flops(x_shape, w1_shape)
 
 
-def _check_vmapped_weights(in_dims, weights):
-    """Raise on weights that are already a member stack (w1, b1, w2, b2 of
-    2, 1, 2 and 1 dims each instance): the gate has one member axis."""
-    for d, t, ndim in zip(in_dims, weights, (2, 1, 2, 1)):
-        if t.dim() - (d is not None) != ndim:
-            raise NotImplementedError(
-                'channel-attention gate: vmap over weights that are already '
-                'a member stack')
+# the gate's weights (w1, b1, w2, b2) by operand index, with their dims an
+# instance
+_GATE_WEIGHTS = {1: 2, 2: 1, 3: 2, 4: 1}
 
 
-def _gate_vmap(gate, info, in_dims, x, w1, b1, w2, b2, mixed):
+def _gate_vmap(gate, info, in_dims, *args):
     """The `vmap` rule of the gate's forward, `gate` (the operator or
-    `_FusedGate.apply`): the mapped axis flattened into the batch; with
-    mapped weights (an ensemble's members) the member mode, else the gate on
-    the flattened batch."""
-    n = info.batch_size
-    weights, wdims = (w1, b1, w2, b2), in_dims[1:5]
-    _check_vmapped_weights(wdims, weights)
-    x = front(x, in_dims[0], n)
-    flat = x.reshape(-1, *x.shape[2:]).contiguous()
-    if any(d is not None for d in wdims):
-        weights = [front(t, d, n).contiguous()
-                   for t, d in zip(weights, wdims)]
-    y, m, g = gate(flat, *weights, mixed)
-    return ((y.reshape(x.shape[:2] + y.shape[1:]),
-             m.reshape(n, -1, m.shape[-1]),
-             g.reshape(n, -1, g.shape[-1])), (0, 0, 0))
+    `_FusedGate.apply`) on (x, w1, b1, w2, b2, mixed): `member_vmap`'s, x,
+    y, m and g per sample."""
+    return member_vmap(gate, info, in_dims, args, (0,), _GATE_WEIGHTS,
+                       'channel-attention gate')
 
 
 _channel_attention_op.register_vmap(
@@ -628,9 +612,8 @@ class _FusedGate(torch.autograd.Function):
                                    ctx.mixed) + (None,)
 
     @staticmethod
-    def vmap(info, in_dims, x, w1, b1, w2, b2, mixed=False):
-        return _gate_vmap(_FusedGate.apply, info, in_dims, x, w1, b1, w2, b2,
-                          mixed)
+    def vmap(info, in_dims, *args):
+        return _gate_vmap(_FusedGate.apply, info, in_dims, *args)
 
 
 class FusedChannelAttention:
@@ -671,20 +654,11 @@ class _GateBackward(torch.autograd.Function):
                                   'differentiable once')
 
     @staticmethod
-    def vmap(info, in_dims, x, w1, b1, w2, b2, dy, m, g, mixed):
-        n = info.batch_size
-        weights, wdims = (w1, b1, w2, b2), in_dims[1:5]
-        _check_vmapped_weights(wdims, weights)
-        x, dy, m, g = (front(t, d, n) for t, d in (
-            (x, in_dims[0]), (dy, in_dims[5]), (m, in_dims[6]),
-            (g, in_dims[7])))
-        lead = x.shape[:2]
-        x, dy, m, g = (t.reshape(-1, *t.shape[2:]).contiguous()
-                       for t in (x, dy, m, g))
-        weights = [front(t, d, n).contiguous()
-                   for t, d in zip(weights, wdims)]
-        dx, *dws = _GateBackward.apply(x, *weights, dy, m, g, mixed)
-        return ((dx.reshape(lead + dx.shape[1:]), *dws), (0,) * 5)
+    def vmap(info, in_dims, *args):
+        return member_vmap(_GateBackward.apply, info, in_dims, args,
+                           (0, 5, 6, 7), _GATE_WEIGHTS,
+                           'channel-attention gate', members=True,
+                           out_per_sample=(0,))
 
 
 def fused_channel_attention(x, w1, b1, w2, b2, out_dtype=None):

@@ -507,6 +507,10 @@ def test_phase6_convlstm_cases_run_every_body_and_stage():
      'namespace)::Args<__nv_bfloat16>)', 'K4'),
     ('void (anonymous namespace)::dx_frames<float, 16>((anonymous '
      'namespace)::Args<float>)', 'K3'),
+    ('void (anonymous namespace)::dx_frames<float, 8, true>((anonymous '
+     'namespace)::Args<float>)', 'K3'),
+    ('void (anonymous namespace)::split_chain<float, 64, false>((anonymous '
+     'namespace)::Args<float>)', 'K4'),
     ('void (anonymous namespace)::convlstm_tile<16, true, true>(...)',
      'K2-train'),
     ('void cudnn::sm90_xmma_fprop_implicit_gemm(...)', None)])

@@ -335,50 +335,77 @@ PLAN_SHAPES = [(4, 128, 4, 16, 16, 1, 8, 5, 4),
                (4, 8, 4, 16, 16, 64, 64, 5, 2)]
 
 
-class _Planned(Exception):
-    pass
+class _Lib:
+    """A stand-in for a compiled ConvLSTM library: every call succeeds."""
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+def _member_plans(b, t, h, w, cin, f, k, n_sm, elem):
+    """The plans of a layer's launches for b samples of one member: K2's,
+    the chain step's, dx's and the two weight-gradient passes'."""
+    return {'fwd': conv._fwd_plan(b, t, h, w, k, k, f, n_sm, elem),
+            'chain': conv._seq_plan(b, h, w, k, k, f, n_sm, elem),
+            'dx': conv._seq_plan(b * t, h, w, k, k, cin, n_sm, elem),
+            'wgrad_x': conv._wgrad_plan(b, t, 0, h, w, cin, f, k, k, n_sm),
+            'wgrad_h': conv._wgrad_plan(b, t, 1, h, w, f, f, k, k, n_sm)}
 
 
 @pytest.mark.parametrize('shape', PLAN_SHAPES)
 def test_member_plans_and_routes_are_a_members_own(shape, monkeypatch):
     """K2's, the chain step's, dx's and the two weight-gradient passes'
     plans of a member-mode call are those of one member's call on its B
-    samples (`_launch_plans`), and the wrappers of K2, K3 and K4 plan with
-    the member count (the card's calls, with the device check, the library
-    and the stream stubbed here); the route is a member's. For some shapes
-    the flattened batch would plan otherwise."""
+    samples: the wrappers of K2, K3 and K4 call `_fwd_plan`, `_seq_plan`
+    and `_wgrad_plan` with B (the card's calls, with the device check, the
+    library and the stream stubbed here); the route is a member's. For
+    these shapes the flattened batch would plan otherwise."""
     m, b, t, h, w, cin, f, k, elem = shape
     n_sm = 132
-    got = conv._launch_plans(m * b, t, h, w, cin, f, k, k, n_sm, elem, m)
-    assert got == conv._launch_plans(b, t, h, w, cin, f, k, k, n_sm, elem)
-    naive = conv._launch_plans(m * b, t, h, w, cin, f, k, k, n_sm, elem)
-    assert naive['wgrad_x']['n_chunks'] != got['wgrad_x']['n_chunks'] or (
-        naive['fwd'] != got['fwd'] or naive['chain'] != got['chain'])
+    per = _member_plans(b, t, h, w, cin, f, k, n_sm, elem)
+    naive = _member_plans(m * b, t, h, w, cin, f, k, n_sm, elem)
+    assert (naive['wgrad_x']['n_chunks'] != per['wgrad_x']['n_chunks']
+            or naive['fwd'] != per['fwd'] or naive['chain'] != per['chain'])
     dtype = torch.bfloat16 if elem == 2 else torch.float32
-    x = torch.zeros((m * b, t, h, w, cin), dtype=dtype)
-    wx = torch.zeros((m, k, k, cin, 4 * f), dtype=dtype)
-    bx = torch.zeros((m, 4 * f), dtype=dtype)
-    wh = torch.zeros((m, k, k, f, 4 * f), dtype=dtype)
-    zs = torch.zeros((m * b, t, h, w, 4 * f), dtype=dtype)
-    cs = torch.zeros((m * b, t, h, w, f), dtype=dtype)
-    calls = []
+    x = torch.empty((m * b, t, h, w, cin), dtype=dtype)
+    wx = torch.empty((m, k, k, cin, 4 * f), dtype=dtype)
+    bx = torch.empty((m, 4 * f), dtype=dtype)
+    wh = torch.empty((m, k, k, f, 4 * f), dtype=dtype)
+    zs = torch.empty((m * b, t, h, w, 4 * f), dtype=dtype)
+    cs = torch.empty((m * b, t, h, w, f), dtype=dtype)
+    planned = []
 
-    def plans(*a):
-        calls.append(a)
-        raise _Planned
-    monkeypatch.setattr(conv, '_launch_plans', plans)
+    def spy(name, planner):
+        def plan(*args):
+            out = planner(*args)
+            planned.append((name, out))
+            return out
+        monkeypatch.setattr(conv, name, plan)
+    for name in ('_fwd_plan', '_seq_plan', '_wgrad_plan'):
+        spy(name, getattr(conv, name))
+    for name in ('launches', 'train_launches', 'bwd_launches',
+                 'seq_launches'):
+        monkeypatch.setattr(conv.fused_convlstm, name, 0)
+    for lib in ('_fwd_lib', '_seq_lib', '_bwd_lib'):
+        monkeypatch.setattr(conv, lib, _Lib)
     monkeypatch.setattr(conv, '_check_cuda', lambda t, w: torch.device('cpu'))
     monkeypatch.setattr(conv, '_n_sm', lambda dev: n_sm)
-    monkeypatch.setattr(conv, '_bwd_lib', lambda: None)
     monkeypatch.setattr(torch.cuda, 'device', lambda dev: _Null())
-    for call in (lambda: conv._launch(x, wx, bx, wh, train=True),
-                 lambda: conv._launch(x, wx, bx, wh),
-                 lambda: conv._launch_backward(x, wx, wh, zs, cs, cs, cs),
-                 lambda: conv._launch_seq(zs, cs, cs, wh)):
-        with pytest.raises(_Planned):
-            call()
-    assert [c[-1] for c in calls] == [m] * 4
-    assert all(c[0] == m * b and c[-2] == elem for c in calls)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    want = {'_launch train': [per['fwd']], '_launch': [per['fwd']],
+            '_launch_backward': [per['wgrad_x'], per['wgrad_h'],
+                                 per['chain'], per['dx']],
+            '_launch_seq': [per['chain']]}
+    for name, call in (
+            ('_launch train', lambda: conv._launch(x, wx, bx, wh, train=True)),
+            ('_launch', lambda: conv._launch(x, wx, bx, wh)),
+            ('_launch_backward',
+             lambda: conv._launch_backward(x, wx, wh, zs, cs, cs, cs)),
+            ('_launch_seq', lambda: conv._launch_seq(zs, cs, cs, wh))):
+        planned.clear()
+        call()
+        assert [p for _, p in planned] == want[name], name
     assert conv._route(x, wx, wh) == conv.dispatch_info(
         (b, t, h, w, cin), wx.shape[1:], wh.shape[1:], elem)['path']
 
