@@ -276,19 +276,32 @@ Phases, each of which exits non-zero on failure:
      through their operators at the shapes of an artifact call at batch 8,
      against their plain versions and timed;
  20. int8 post-training quantization: (a) K7 (the int8 convolution,
-     csrc/conv_int8.cu) held against its plain version at every site of
-     the flagship's int8 forward at batch 8 (phase 3's grids), of the
-     width-64 flagship, of recresnet_spc and of a tiled window dispatch,
-     and at a width-64 3x3, a depthwise 7x7 and a transposed 'dc' site
-     (the flagship's and the extra sites' int32 sums and float32 and
-     bfloat16 outputs equal, the other paths' float32 outputs); each
-     distinct site of the flagship and the extra sites timed (40 CUDA-event
-     medians, L2 flushed) against the plain version, its bound (int8
-     tensor cores, HBM), torch._int_mm on the site's unfolded matrix (the
-     unfold beside) and cuDNN's bfloat16 convolution at the site; (b) the
-     flagship's `predict(quantize='int8')`
+     csrc/conv_int8.cu, one fused launch a site: the float input's
+     quantization, the sums, the rescale and the bias) held against its
+     plain version at every site of the flagship's int8 forward at batch 8
+     (phase 3's grids), of the same flagship in bfloat16 (bfloat16
+     inputs), of the width-64 flagship, of recresnet_spc and of a tiled
+     window dispatch, and at the extra sites: a width-64 3x3, a depthwise
+     7x7, a transposed 'dc' site and eight that take the dense kernel's
+     other routes (at the flagships' and the extra sites the fused
+     float32 and bfloat16 outputs bit for bit and the int32 sums of the
+     int8 codes, on the other paths the output in the model dtype); the
+     checked launches required to take between them every route of the
+     dense kernel (`launch_plan`: TMA over NHWC or over rows of (w, c),
+     cp.async, plain loads; each epilogue; a resident and a streamed
+     weight; ldmatrix or not); each distinct site of the two flagships
+     and the extra sites timed (40 CUDA-event
+     medians, L2 flushed) against the plain version, its bounds (int8
+     tensor cores, HBM: the float input read once, and beside it the int8
+     codes' bound of the unfused form), torch._int_mm on the unfolded
+     matrix of the site's codes (the unfold beside) and cuDNN's bfloat16
+     convolution at the site, with the launch's plan (`launch_plan`); (b)
+     the flagship's `predict(quantize='int8')`
      on phase 3's grids (K7 its sites a batch, K1 7 a batch and 7 in the
-     calibration forward) and 'weight-only' (no K7), the card's activation
+     calibration forward; in a device trace the int8 forward's kernels a
+     batch, and its site modules called alone one kernel each, K7's; the
+     same for the bfloat16 flagship, its first batch against its quantized
+     forward) and 'weight-only' (no K7), the card's activation
      scales against the port's own calibration on the CPU (rtol 1e-4),
      one sample's output against the card's quantized network run on the
      CPU (within 5% of the CPU's own int8 error), and int8, weight-only,
@@ -6743,17 +6756,19 @@ def _serving_kernel_rows(report):
 
 
 # phase 20: int8 post-training quantization on the card. K7 (the int8
-# convolution, csrc/conv_int8.cu) held against its plain version at every
-# site of the flagship's int8 forward at batch 8 (phase 3's grids), of the
-# width-64 flagship, of recresnet_spc and of a tiled window dispatch, and at
-# a width-64 3x3, a depthwise 7x7 and a transposed 'dc' site: at the
-# flagship's and the extra sites the int32 sums and the float32 and
-# bfloat16 outputs equal, on the other paths the float32 outputs. The
-# flagship's distinct sites and the extra ones timed against the plain
-# version, the bound,
-# torch._int_mm on the site's unfolded matrix (the GEMM alone; the unfold
-# beside) and cuDNN's bfloat16 convolution at the same site (the float
-# path int8 replaces). Then int8 serving through
+# convolution, csrc/conv_int8.cu: a site's quantization, sums, rescale and
+# bias in one launch) held against its plain version at every site of the
+# flagship's int8 forward at batch 8 (phase 3's grids), of the width-64
+# flagship, of recresnet_spc and of a tiled window dispatch, and at a
+# width-64 3x3, a depthwise 7x7 and a transposed 'dc' site: at the
+# flagship's and the extra sites the fused float32 and bfloat16 outputs bit
+# for bit and the int32 sums of the codes, on the other paths the output
+# in the model dtype. The flagship's distinct sites and the extra ones
+# timed against the plain version, the bounds (the float input's, and the
+# int8 codes' of the unfused form), torch._int_mm on the unfolded matrix of
+# the site's codes (the GEMM alone; the unfold beside) and cuDNN's bfloat16
+# convolution at the same site (the float path int8 replaces). Then int8
+# serving through
 # the entry points: the flagship's predict(quantize='int8' | 'weight-only')
 # beside float32 and bfloat16 predict at widths 8 and 64, recresnet_spc,
 # the tiled global grid and an int8 artifact served by ModelServer.
@@ -6765,16 +6780,51 @@ Q_SCALE_RTOL = 1e-4             # act_scales, card against CPU
 K7_SLEEP_CYCLES = 25_000_000    # (a)'s device sleep before each timing, a
                                 # quarter of `device_times`' default: one
                                 # site's calls are few and short to enqueue
-# (a)'s extra sites: (x shape, (Co, Cin / groups, kh, kw), stride,
-# dilation, pads, groups): the width-64 3x3 at phase 3's LR grid, the
-# ConvNeXt depthwise 7x7 and the 'dc' head's 9x9 stride-2 transposed conv
+# (a)'s extra sites, each as a site calls it (a seeded input, its scale
+# s_x and a bias in the site's dtype; int8 codes take neither and give the
+# int32 sums): (x shape, (Co, Cin / groups, kh, kw), stride, dilation,
+# pads, groups, x dtype, the first of x's channels the site reads, or None
+# for all of them). The first three are sites of the zoo, timed in PERF.md:
+# the width-64 3x3 at phase 3's LR grid, the ConvNeXt depthwise 7x7 and
+# the 'dc' head's 9x9 stride-2 transposed conv. The rest take the dense
+# kernel's routes that the models' shapes leave out (`_k7_routes`): a
+# channel slice at a 4-byte offset (cp.async of 4 bytes over strided
+# pixels), Cin 5 and 15 (a part-filled channel chunk; cp.async of 4 bytes),
+# a bfloat16 Cin 3 on rows of 21 pixels (plain loads), int8 codes at Cin 40
+# (cp.async of 8 bytes), transposed sites of dilation 3 and 4, and 1536
+# columns of Cin 384 (a streamed weight in 12 chunks, the epilogue from the
+# registers).
 Q_EXTRA_SITES = {
     'width-64 3x3': ((BATCH, LR, LR, 64), (64, 64, 3, 3), 1, 1,
-                     (1, 1, 1, 1), 1),
-    'depthwise 7x7': ((2, 64, 64, 8), (8, 1, 7, 7), 1, 1, (3, 3, 3, 3), 8),
+                     (1, 1, 1, 1), 1, 'float32', None),
+    'depthwise 7x7': ((2, 64, 64, 8), (8, 1, 7, 7), 1, 1, (3, 3, 3, 3), 8,
+                      'float32', None),
     "'dc' 9x9 stride 2": ((2, 32, 32, 8), (8, 8, 9, 9), 1, 2,
-                          (4, 5, 4, 5), 1),
+                          (4, 5, 4, 5), 1, 'float32', None),
+    'channels 1-48 of 64': ((2, 40, 36, 64), (48, 48, 3, 3), 1, 1,
+                            (1, 1, 1, 1), 1, 'float32', 1),
+    'Cin 5': ((2, 20, 21, 5), (8, 5, 3, 3), 1, 1, (1, 1, 1, 1), 1,
+              'float32', None),
+    'Cin 15': ((2, 20, 24, 15), (16, 15, 3, 3), 1, 1, (1, 1, 1, 1), 1,
+               'float32', None),
+    'bfloat16 Cin 3': ((2, 20, 21, 3), (5, 3, 3, 3), 1, 1, (1, 1, 1, 1), 1,
+                       'bfloat16', None),
+    'int8 Cin 40': ((2, 20, 24, 40), (32, 40, 3, 3), 1, 1, (1, 1, 1, 1), 1,
+                    'int8', None),
+    'dilation 3 5x5': ((2, 9, 7, 5), (6, 5, 5, 5), 1, 3, (3, 3, 3, 3), 1,
+                       'float32', None),
+    'dilation 4 17x17': ((1, 13, 11, 8), (8, 8, 17, 17), 1, 4,
+                         (10, 9, 10, 9), 1, 'float32', None),
+    'Co 1536': ((1, 12, 16, 384), (1536, 384, 3, 3), 1, 1, (1, 1, 1, 1), 1,
+                'float32', None),
 }
+# the dense kernel's routes (`ops.conv_int8.launch_plan`) that (a)'s sites
+# must take between them: how the window arrives (3 TMA over rows of (w,
+# c), 2 TMA over NHWC, 1 cp.async, 0 plain loads), the epilogue (0 staged
+# in the spent stage, 1 staged apart, 2 from the registers), the weight
+# resident in shared memory or streamed, ldmatrix fragments or not
+K7_ROUTES = {'load': {0, 1, 2, 3}, 'epilogue': {0, 1, 2},
+             'resident': {0, 1}, 'ldmatrix': {0, 1}}
 
 
 def _rel_err_q(a, b):
@@ -6787,8 +6837,9 @@ def _rel_err_q(a, b):
 @contextlib.contextmanager
 def _k7_calls():
     """The K7 launches made inside the block, each as the arguments of
-    `ops.conv_int8._launch` (x_q, w, scale, kh, kw, stride, dilation,
-    pads, groups, out_dtype)."""
+    `ops.conv_int8._launch` (x, w, scale, kh, kw, stride, dilation, pads,
+    groups, out_dtype, s_x, bias): x the site's float input (or int8
+    codes), s_x its scale, bias the site's, in out_dtype."""
     from dl4ds_tpu_torch.ops import conv_int8 as ci
     calls, real = [], ci._launch
 
@@ -6811,11 +6862,15 @@ def _real_taps(n, k, stride, dil, before, out):
                and p // dil < n)
 
 
-def _k7_work(x, co, kh, kw, stride, dil, pads, groups, out_bytes):
-    """(operations, bytes) of one K7 call: 2 multiply-adds' worth for each
-    tap that lands on a real input pixel, B x Co x Cin / groups x the
-    taps of each dimension; and x, the unpadded weight [Co, kh, kw,
-    Cin / groups] and the scale read once, y written once."""
+def _k7_work(x, co, kh, kw, stride, dil, pads, groups, out_bytes,
+             bias_bytes=0):
+    """(operations, bytes, the old form's bytes) of one K7 call: 2
+    multiply-adds' worth for each tap that lands on a real input pixel, B
+    x Co x Cin / groups x the taps of each dimension; x as given (the
+    site's float input, or int8 codes), s_x, the unpadded weight [Co, kh,
+    kw, Cin / groups], the scale and the bias read once, y written once;
+    and the same with x's int8 codes in place of x and no bias (the bytes
+    of K7 before its quantization and bias were fused)."""
     from dl4ds_tpu_torch.ops import conv_int8 as ci
     b, h, wd, cin = x.shape
     ho = ci.conv_out_size(h, kh, stride, dil, pads[0], pads[1])
@@ -6823,9 +6878,9 @@ def _k7_work(x, co, kh, kw, stride, dil, pads, groups, out_bytes):
     taps = (_real_taps(h, kh, stride, dil, pads[0], ho)
             * _real_taps(wd, kw, stride, dil, pads[2], wo))
     ops = 2 * b * co * cin // groups * taps
-    n_bytes = (x.numel() + co * kh * kw * cin // groups + 4 * co
-               + b * ho * wo * co * out_bytes)
-    return ops, n_bytes
+    rest = co * kh * kw * cin // groups + 4 * co + b * ho * wo * co * out_bytes
+    n_bytes = x.numel() * x.element_size() + 4 + bias_bytes + rest
+    return ops, n_bytes, x.numel() + rest
 
 
 def _k7_unfold(torch, x, kh, kw, stride, dil, pads, k_pad):
@@ -6875,15 +6930,36 @@ def _k7_cudnn_bf16(torch, x, w_oihw, kh, kw, stride, dil, pads, groups):
     return lambda: F.conv2d(xp, wb, stride=stride, groups=groups)
 
 
+def _k7_held(torch, ci, label, x, w, scale, geo, dtype, s_x, bias):
+    """K7 against its plain version on one call: equal, or fail."""
+    got = ci.conv_int8(x, w, scale, *geo, out_dtype=dtype, s_x=s_x,
+                       bias=bias)
+    want = ci.conv_int8_reference(x, w, scale, *geo, out_dtype=dtype,
+                                  s_x=s_x, bias=bias)
+    if not torch.equal(got, want):
+        err = (got.double() - want.double()).abs().max().item()
+        fail(f'K7 {label} x{list(x.shape)} {x.dtype} geometry {geo} '
+             f'{dtype}: max|d| {err:.3e}, equal required')
+
+
+def _k7_codes(torch, ci, x, made, s_x):
+    """The int8 codes of a call's input, as the fused site forms them."""
+    if x.dtype == torch.int8:
+        return x
+    return ci.quantize_activation(ci._site_input(x, made), s_x)
+
+
 def _k7_rows(torch, calls, label, flush=None, reps=10):
     """Hold every K7 call against its plain version: with `flush` (an
-    L2-sized buffer) the int32 sums and the float32 and bfloat16 outputs
-    equal, and without it the output in the dtype the call made; with
-    `flush` also
-    time each distinct site: K7 (40 CUDA-event medians, L2 flushed), the
-    plain version, torch._int_mm on the unfolded matrix, the unfold and
-    cuDNN's bfloat16 convolution (`reps` each), and its bound. Returns one
-    row a distinct site, with the number of calls it stands for."""
+    L2-sized buffer) the fused site's float32 and bfloat16 outputs (its
+    float input, s_x and bias) and the int32 sums of its int8 codes equal,
+    and without it the output in the dtype the call made; with `flush`
+    also time each distinct site: K7 as the site calls it (40 CUDA-event
+    medians, L2 flushed), the plain version, torch._int_mm on the unfolded
+    matrix of the codes, the unfold and cuDNN's bfloat16 convolution
+    (`reps` each), and its bounds, the fused one and that of the int8
+    codes (`_k7_work`). Returns one row a distinct site, with the number
+    of calls it stands for."""
     from dl4ds_tpu_torch.ops import conv_int8 as ci
     rows, seen = [], {}
 
@@ -6891,18 +6967,18 @@ def _k7_rows(torch, calls, label, flush=None, reps=10):
         return statistics.median(device_times(
             torch, fn, reps=n, l2_flush=flush,
             sleep_cycles=K7_SLEEP_CYCLES))
-    for x, w, scale, kh, kw, stride, dil, pads, groups, made in calls:
+    for (x, w, scale, kh, kw, stride, dil, pads, groups, made, s_x,
+         bias) in calls:
         geo = (kh, kw, stride, dil, tuple(pads), groups)
-        for dtype in ((torch.int32, torch.float32, torch.bfloat16)
-                      if flush is not None else (made,)):
-            got = ci.conv_int8(x, w, scale, *geo, out_dtype=dtype)
-            want = ci.conv_int8_reference(x, w, scale, *geo, out_dtype=dtype)
-            if not torch.equal(got, want):
-                err = (got.double() - want.double()).abs().max().item()
-                fail(f'K7 {label} x{list(x.shape)} kernel {kh}x{kw} '
-                     f'geometry {geo} {dtype}: max|d| {err:.3e}, equal '
-                     f'required')
-        key = (tuple(x.shape), tuple(w.shape), scale.shape[0], geo)
+        for dtype in ((torch.float32, torch.bfloat16)
+                      if flush is not None and s_x is not None else (made,)):
+            _k7_held(torch, ci, label, x, w, scale, geo, dtype, s_x,
+                     None if bias is None else bias.to(dtype))
+        if flush is not None:
+            _k7_held(torch, ci, label, _k7_codes(torch, ci, x, made, s_x), w, scale,
+                     geo, torch.int32, None, None)
+        key = (tuple(x.shape), x.dtype, tuple(w.shape), scale.shape[0], geo,
+               made, bias is None)
         if key in seen:
             seen[key]['calls'] += 1
             continue
@@ -6912,26 +6988,39 @@ def _k7_rows(torch, calls, label, flush=None, reps=10):
             rows.append(seen[key])
             continue
         co = scale.shape[0]
-        args = (x, w, scale, *geo)
+        args = (x, w, scale, *geo, made, s_x, bias)
         ms = timed(lambda: ci.conv_int8(*args), 40)
         plain_ms = timed(lambda: ci.conv_int8_reference(*args), reps)
-        ops, n_bytes = _k7_work(x, co, *geo, 4)
+        ops, n_bytes, old_bytes = _k7_work(
+            x, co, *geo, made.itemsize,
+            0 if bias is None else bias.numel() * bias.element_size())
         ops_ms, bytes_ms = ops / INT8_OPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
-        w_oihw = ci._unpack(w, co, x.shape[-1], kh, kw, groups).float()
+        old_bytes_ms = old_bytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_old_ms = max(ops_ms, bytes_ms), max(ops_ms,
+                                                            old_bytes_ms)
+        cin = x.shape[-1]
+        w_oihw = ci._unpack(w, co, cin, kh, kw, groups, stride, dil).float()
         conv_bf16 = _k7_cudnn_bf16(torch, x, w_oihw, kh, kw, stride, dil,
                                    pads, groups)
         cudnn_ms = timed(conv_bf16, reps)
         library_ms = unfold_ms = library_n = None
         if groups == 1:
-            k_pad = w.shape[1]
-            unfold_ms = timed(lambda: _k7_unfold(torch, x, kh, kw, stride,
+            # the GEMM alone on the codes' im2col matrix, k in (ky, kx,
+            # ci) order, and the weight as [K, Co]
+            x_q = _k7_codes(torch, ci, x, made, s_x)
+            k = kh * kw * cin
+            k_pad = -(-k // 32) * 32
+            unfold_ms = timed(lambda: _k7_unfold(torch, x_q, kh, kw, stride,
                                                  dil, pads, k_pad), reps)
-            a = _k7_unfold(torch, x, kh, kw, stride, dil, pads, k_pad)
+            a = _k7_unfold(torch, x_q, kh, kw, stride, dil, pads, k_pad)
+            w_nk = torch.zeros((-(-co // 64) * 64, k_pad), dtype=torch.int8,
+                               device=x.device)
+            w_nk[:co, :k] = w_oihw.permute(0, 2, 3, 1).reshape(co, k).to(
+                torch.int8)
             # Co padded to _int_mm's multiple of 8; cuBLASLt refused some
             # (40 on the H100), so to 16, 32, 64 where it does
             for step in (8, 16, 32, 64):
-                b = w[:-(-co // step) * step].t()
+                b = w_nk[:-(-co // step) * step].t()
                 try:
                     torch._int_mm(a, b)
                     break
@@ -6939,26 +7028,34 @@ def _k7_rows(torch, calls, label, flush=None, reps=10):
                     continue
             library_ms = timed(lambda: torch._int_mm(a, b), reps)
             library_n = b.shape[1]
-        row = dict(label=label, x=list(x.shape), w=list(w.shape), co=co,
+        plan = ci.launch_plan(*args)
+        row = dict(label=label, x=list(x.shape), x_dtype=str(x.dtype)[6:],
+                   w=list(w.shape), co=co, out_dtype=str(made)[6:],
+                   bias=bias is not None,
                    kernel=[kh, kw], stride=stride, dilation=dil,
                    pads=list(pads), groups=groups, calls=1, max_abs_err=0.0,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
+                   bound_old_ms=bound_old_ms,
+                   bound_old_bytes_ms=old_bytes_ms,
                    bound_by='operations' if ops_ms > bytes_ms else 'bytes',
                    library_ms=library_ms, library_n=library_n,
-                   unfold_ms=unfold_ms, cudnn_bf16_ms=cudnn_ms)
+                   unfold_ms=unfold_ms, cudnn_bf16_ms=cudnn_ms, plan=plan)
         seen[key] = row
         rows.append(row)
         lib = ('depthwise: no GEMM' if library_ms is None else
                f'_int_mm {library_ms:.4f} ms (N {library_n}; unfold '
                f'{unfold_ms:.4f})')
-        print(f'K7 {label} x{list(x.shape)} -> {co} {kh}x{kw} s{stride} '
-              f'd{dil} pads {list(pads)} g{groups}: equal (int32, f32, '
-              f'bf16); kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound '
-              f'{bound_ms:.4g} ms ({row["bound_by"]})  {lib}  cuDNN bf16 '
-              f'{cudnn_ms:.4f} ms; {card_line()}', flush=True)
-    kinds = ('int32, float32, bfloat16' if flush is not None
-             else 'their output dtype')
+        print(f'K7 {label} x{list(x.shape)} {row["x_dtype"]} -> {co} '
+              f'{row["out_dtype"]} {kh}x{kw} s{stride} d{dil} pads '
+              f'{list(pads)} g{groups} bias {row["bias"]}: equal (fused '
+              f'f32, bf16; int32 of the codes); kernel {ms:.4f} ms  plain '
+              f'{plain_ms:.4f} ms  bound {bound_ms:.4g} ms '
+              f'({row["bound_by"]}; the int8 codes\' {bound_old_ms:.4g})  '
+              f'{lib}  cuDNN bf16 {cudnn_ms:.4f} ms; plan {plan}; '
+              f'{card_line()}', flush=True)
+    kinds = ('the fused float32 and bfloat16 outputs, the int32 sums of '
+             'the codes' if flush is not None else 'their output dtype')
     print(f'K7 {label}s: {len(calls)} calls, all equal to the plain '
           f'version ({kinds}), at {len(rows)} distinct shapes; calls a '
           f'shape {[r["calls"] for r in rows]}', flush=True)
@@ -6973,8 +7070,8 @@ def _k7_totals(rows):
             return None
         return sum(r[key] * r['calls'] for r in rows)
     out = {k: total(k) for k in ('ms', 'plain_ms', 'bound_ms', 'bound_ops_ms',
-                                 'bound_bytes_ms', 'library_ms', 'unfold_ms',
-                                 'cudnn_bf16_ms')}
+                                 'bound_bytes_ms', 'bound_old_ms',
+                                 'library_ms', 'unfold_ms', 'cudnn_bf16_ms')}
     for key in ('library_ms', 'unfold_ms'):   # depthwise sites: no GEMM
         if out[key] is None:
             out[key] = sum(r[key] * r['calls'] for r in rows
@@ -7075,6 +7172,64 @@ def _card_vs_cpu(torch, tds, model, net, qf, calibration, y_card0, part):
                 cpu_scales_alone=alone)
 
 
+def _int8_site_calls(torch, qf, inputs):
+    """(module, its cursor, its input) of every int8 site call of one
+    forward of the quantized forward `qf` on `inputs`."""
+    from dl4ds_tpu_torch.quantization import _Int8Conv
+    calls = []
+
+    def hook(module, args):
+        calls.append((module, module.call, args[0]))
+    handles = [m.register_forward_pre_hook(hook) for m in qf.module.modules()
+               if isinstance(m, _Int8Conv)]
+    try:
+        with torch.inference_mode():
+            qf(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def _call_kernels(torch, fn):
+    """The names of the device kernels of one call of fn() (copies and
+    fills left out): two calls PROFILE_GUARD_S apart in one trace, the
+    second read (`_replay_profile`); a short trace alone lost kernels here
+    (38 of the int8 forward's 70, and every one of its 29 sites' called
+    next, in one full run)."""
+    with torch.inference_mode():
+        fn()
+        traced, _, _ = _replay_profile(torch, None, None, run=fn)
+    return [e.name for e in traced
+            if not e.name.startswith(('Memcpy', 'Memset'))]
+
+
+def _int8_forward_launches(torch, qf, inputs, part):
+    """(b)'s device trace (torch.profiler) of the int8 forward at batch 8:
+    its kernels a batch, and of its site modules called alone, one after
+    another on the inputs they met in the forward: one kernel a site, K7's
+    (no quantize, cast or bias pass beside it)."""
+    sites = _int8_site_calls(torch, qf, inputs)
+
+    def each_site():
+        for m, i, x in sites:
+            m.call = i
+            m(x)
+    fwd = _call_kernels(torch, lambda: qf(*inputs))
+    alone = _call_kernels(torch, each_site)
+    k7, k7_fwd = (sum('conv_s8' in n for n in names) for names in (alone, fwd))
+    print(f'phase 20 {part}: the int8 forward at batch {BATCH} in a device '
+          f'trace: {len(fwd)} kernels ({k7_fwd} K7); its {len(sites)} site '
+          f'modules called alone: {len(alone)} kernels, {k7} of them K7 '
+          f'({sorted(set(alone))}); {card_line()}', flush=True)
+    if (k7 != len(sites) or len(alone) != len(sites) or k7_fwd != len(sites)
+            or len(sites) != qf.n_sites):
+        fail(f'phase 20 {part}: {len(sites)} site calls ran {len(alone)} '
+             f'kernels, {k7} K7 ({k7_fwd} K7 in the forward): '
+             f'{sorted(set(alone))}')
+    return dict(int8_forward_kernels=len(fwd), site_kernels=len(alone))
+
+
 def _quant_flagship(torch, tds, flush, report):
     """(a) at the flagship's sites and (b): int8 and weight-only predict,
     the launches, the card against the CPU, the four rates."""
@@ -7117,6 +7272,7 @@ def _quant_flagship(torch, tds, flush, report):
     _held(y8[:BATCH], y_card.float().cpu().numpy(), 'phase 20 (b): predict('
           'quantize=\'int8\') against the quantized forward on its first '
           'batch')
+    traced = _int8_forward_launches(torch, qf, (xb, ab), '(b)')
     cmp = _card_vs_cpu(torch, tds, model, net, qf, (xb, ab), y8[:1],
                        '(b)')
     print(f'phase 20 (b): weight-only vs float32 on the card rel '
@@ -7125,6 +7281,38 @@ def _quant_flagship(torch, tds, flush, report):
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
     m16, n16 = _flagship_int8(tds, dtype=torch.bfloat16)
     n16.load_state_dict(net.state_dict())
+    # the same flagship in bfloat16: its sites' K7 calls (bfloat16 inputs,
+    # and float32 ones where the network hands a site float32, which K7
+    # rounds to bfloat16 first) held and timed, one kernel a site in a
+    # trace, and predict(quantize='int8')'s launches
+    qf16 = tds.quantize_forward(m16, n16, xb, ab)
+    with _k7_calls() as calls:
+        y_card16 = qf16(xb, ab)
+    rows16 = _k7_rows(torch, calls, 'bfloat16 flagship site', flush)
+    n_bf16 = sum(c[0].dtype == torch.bfloat16 for c in calls)
+    del calls
+    if (qf16.n_sites != sum(r['calls'] for r in rows16)
+            or n_bf16 == 0
+            or any(r['out_dtype'] != 'bfloat16' for r in rows16)):
+        fail(f'phase 20 (b) bfloat16: {qf16.n_sites} sites, '
+             f'{sum(r["calls"] for r in rows16)} K7 calls, {n_bf16} of them '
+             f'on a bfloat16 input')
+    traced16 = _int8_forward_launches(torch, qf16, (xb, ab), '(b) bfloat16')
+    ci.conv_int8.launches = 0
+    y16 = tds.predict((m16, n16), hr, quantize='int8', **kwargs)
+    k7_16 = ci.conv_int8.launches
+    print(f'phase 20 (b): bfloat16 flagship predict(quantize=\'int8\') '
+          f'output {y16.shape}, {qf16.n_sites} sites ({n_bf16} on a bfloat16 '
+          f'input); K7 {k7_16} launches (expected {qf16.n_sites * batches}); '
+          f'int8 vs float32 on the card rel {_rel_err_q(y16, y_f):.4f}',
+          flush=True)
+    if (k7_16 != qf16.n_sites * batches or y16.shape != y8.shape
+            or not np.isfinite(y16).all()):
+        fail(f'phase 20 (b) bfloat16: K7 {k7_16} launches, output '
+             f'{y16.shape}')
+    _held(y16[:BATCH], y_card16.float().cpu().numpy(), 'phase 20 (b): '
+          'bfloat16 predict(quantize=\'int8\') against the quantized '
+          'forward on its first batch')
     rates = _rates(torch, tds, {'int8': (model, net, 'int8'),
                                 'weight-only': (model, net, 'weight-only'),
                                 'f32': (model, net, None),
@@ -7134,16 +7322,21 @@ def _quant_flagship(torch, tds, flush, report):
     fwd = _forward_ms(torch, {'int8': lambda: qf(xb, ab),
                               'weight-only': lambda: qw(xb, ab),
                               'f32': lambda: net(xb, ab),
-                              'bf16': lambda: n16(xb, ab)})
+                              'bf16': lambda: n16(xb, ab),
+                              'int8 bf16': lambda: qf16(xb, ab)})
     print(f'phase 20 (b): forward at batch {BATCH} (CUDA events) '
           + ', '.join(f'{m} {v:.3f} ms' for m, v in fwd.items())
           + f'; {card_line()}', flush=True)
     report['quant'] = dict(
-        k7_launches=k7, k1_launches=k1, n_sites=qf.n_sites,
+        k7_launches=k7, k1_launches=k1, n_sites=qf.n_sites, **traced,
         **cmp,
         int8_vs_f32=_rel_err_q(y8, y_f), weight_only_vs_f32=_rel_err_q(yw, y_f),
-        rates_w8=rates, forward_ms_w8=fwd, y8=y8, calibration=(xb, ab))
+        rates_w8=rates, forward_ms_w8=fwd, y8=y8, calibration=(xb, ab),
+        bf16_k7_launches=k7_16, bf16_n_sites=qf16.n_sites,
+        bf16_int8_vs_f32=_rel_err_q(y16, y_f),
+        **{f'bf16_{k}': v for k, v in traced16.items()})
     report['k7_rows'] = rows
+    report['k7_bf16_rows'] = rows16
     return model, net, hr, kwargs
 
 
@@ -7341,20 +7534,52 @@ def _quant_artifact(torch, tds, model, net, report):
 
 
 def _quant_extra_sites(torch, flush, report):
-    """(a)'s sites beyond the models': the width-64 3x3 at phase 3's grid,
-    the depthwise 7x7 and the transposed 'dc' site, with seeded codes."""
+    """(a)'s sites beyond the models' (Q_EXTRA_SITES), each held and timed
+    as a site calls it: a seeded normal input (a float one quantized at
+    the scale of its absmax, with a bias in its dtype; int8 codes summed
+    in int32), seeded weight codes."""
     from dl4ds_tpu_torch.ops import conv_int8 as ci
     gen = torch.Generator(device='cuda').manual_seed(20)
     calls = []
-    for xs, ws, stride, dil, pads, groups in Q_EXTRA_SITES.values():
-        x = torch.randint(-127, 128, xs, generator=gen, device='cuda',
-                          dtype=torch.int32).to(torch.int8)
+    for xs, ws, stride, dil, pads, groups, x_dtype, c0 in \
+            Q_EXTRA_SITES.values():
+        dtype = getattr(torch, x_dtype)
         wq = torch.randint(-127, 128, ws, generator=gen, device='cuda',
                            dtype=torch.int32).to(torch.int8)
         scale = torch.rand(ws[0], generator=gen, device='cuda') * 1e-4
-        calls.append((x, ci.pack_weight(wq, groups), scale, ws[2], ws[3],
-                      stride, dil, pads, groups, torch.float32))
+        if dtype == torch.int8:
+            x = torch.randint(-127, 128, xs, generator=gen, device='cuda',
+                              dtype=torch.int32).to(torch.int8)
+            s_x = bias = None
+            made = torch.int32
+        else:
+            x = torch.randn(xs, generator=gen, device='cuda').to(dtype)
+            s_x = x.abs().max().float() / 127
+            bias = torch.randn(ws[0], generator=gen, device='cuda').to(dtype)
+            made = dtype
+        if c0 is not None:
+            x = x[..., c0:c0 + ws[1]]
+        calls.append((x, ci.pack_weight(wq, groups, stride, dil), scale,
+                      ws[2], ws[3], stride, dil, pads, groups, made, s_x,
+                      bias))
     report['k7_extra_rows'] = _k7_rows(torch, calls, 'extra site', flush)
+
+
+def _k7_routes(rows):
+    """Fail unless the dense kernel's launches in `rows` (each with its
+    `launch_plan`) took every route of K7_ROUTES between them."""
+    plans = [r['plan'] for r in rows if r['groups'] == 1]
+    seen = {k: sorted({p[k] for p in plans}) for k in K7_ROUTES}
+    seen['unit'] = sorted({p['unit'] for p in plans if p['load'] == 1})
+    seen['stages'] = sorted({p['stages'] for p in plans})
+    missing = {k: sorted(v - set(seen[k])) for k, v in K7_ROUTES.items()
+               if v - set(seen[k])}
+    print(f'phase 20 (a): the dense K7 launches of {len(plans)} distinct '
+          f'sites took the routes {seen}; every one of {K7_ROUTES} '
+          f'required', flush=True)
+    if missing:
+        fail(f'phase 20 (a): no checked K7 launch took the routes {missing}')
+    return seen
 
 
 def phase_quantization(torch, tds, report):
@@ -7371,6 +7596,8 @@ def phase_quantization(torch, tds, report):
     model, net, _, _ = _quant_flagship(torch, tds, flush, report)
     done('a, b')
     _quant_extra_sites(torch, flush, report)
+    report['quant']['k7_routes'] = _k7_routes(
+        report['k7_rows'] + report['k7_bf16_rows'] + report['k7_extra_rows'])
     done('a extra')
     _quant_wide(torch, tds, flush, report)
     done('c')
@@ -7407,28 +7634,32 @@ def _quant_kernel_rows(report):
         replaces='dl4ds_tpu/quantization.py:276 (XLA\'s s8 convolution in '
                  'the int8 replay; no Pallas kernel)',
         launches=q['k7_launches'],
+        int8_forward_device_kernels=q['int8_forward_kernels'],
         launches_other_paths={
             f'width-{Q_WIDE} predict': q['k7_launches_w64'],
             'recresnet_spc predict': q['rec_k7_launches'],
             'tiled global grid': q['tiled_k7_launches'],
             'artifact via ModelServer': q['artifact_k7_launches']},
         max_abs_err=0.0, ms=t['ms'], plain_ms=t['plain_ms'],
-        bound_ms=t['bound_ms'],
+        bound_ms=t['bound_ms'], bound_old_ms=t['bound_old_ms'],
         bound_by=('operations' if t['bound_ops_ms'] > t['bound_bytes_ms']
                   else 'bytes'),
         library_ms=t['library_ms'], unfold_ms=t['unfold_ms'],
         cudnn_bf16_ms=t['cudnn_bf16_ms'],
         work=f'the {q["n_sites"]} int8 sites of one flagship forward at '
-             f'batch {BATCH} (phase 3\'s grids), {len(rows)} distinct shapes '
-             f'timed and summed over their calls; launches of predict('
-             f'quantize=\'int8\') on {N_GRIDS} grids; library_ms '
-             f'torch._int_mm on each site\'s unfolded matrix (unfold_ms '
-             f'beside), cudnn_bf16_ms the bfloat16 float path at the same '
-             f'sites; max_abs_err 0: the int32 sums and the float32 and '
-             f'bfloat16 outputs equal the plain version at every call of '
-             f'the flagship forward and at the extra sites, the float32 '
-             f'outputs at every call of the width-{Q_WIDE}, recurrent and '
-             f'tiled forwards')]
+             f'batch {BATCH} (phase 3\'s grids), each one fused launch (the '
+             f'codes of the float input, the sums, the rescale and the '
+             f'bias), {len(rows)} distinct shapes timed and summed over '
+             f'their calls; launches of predict(quantize=\'int8\') on '
+             f'{N_GRIDS} grids; bound_ms reads the float input once, '
+             f'bound_old_ms its int8 codes (the unfused form); library_ms '
+             f'torch._int_mm on each site\'s unfolded matrix of codes '
+             f'(unfold_ms beside), cudnn_bf16_ms the bfloat16 float path at '
+             f'the same sites; max_abs_err 0: the fused float32 and '
+             f'bfloat16 outputs and the int32 sums of the codes equal the '
+             f'plain version at every call of the flagship forward and at '
+             f'the extra sites, the outputs in the model dtype at every '
+             f'call of the width-{Q_WIDE}, recurrent and tiled forwards')]
 
 
 # phase 21: the flagship through the command-line app. The data module
@@ -10111,7 +10342,7 @@ def main():
         'artifact_k1_rows', 'artifact_k1_bf16_rows', 'artifact_k2_rows')}}),
         flush=True)
     print(json.dumps({'phase20_shapes': {k: report[k] for k in (
-        'k7_rows', 'k7_extra_rows')}}), flush=True)
+        'k7_rows', 'k7_bf16_rows', 'k7_extra_rows')}}), flush=True)
     print(json.dumps({'phase21': report['cli']}), flush=True)
     print(json.dumps({'phase22': report['dp']}), flush=True)
     print(json.dumps({'phase23': report['dpx'],

@@ -79,6 +79,16 @@ class DSModel:
     def param_count(net):
         return sum(p.numel() for p in net.parameters())
 
+    def summary(self, net=None):
+        """The JAX `DSModel.summary` (dl4ds_tpu/models/__init__.py:69-74):
+        the name, the input and aux shapes, and with a network its
+        parameter count."""
+        lines = [f'Model: {self.name}',
+                 f'  input: {self.input_shape}  aux: {self.aux_shape}']
+        if net is not None:
+            lines.append(f'  parameters: {self.param_count(net):,}')
+        return '\n'.join(lines)
+
 
 def net_postupsampling(backbone_block, upsampling, scale, n_channels,
                        n_aux_channels, lr_size, n_channels_out=1, n_filters=8,

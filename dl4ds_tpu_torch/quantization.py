@@ -16,12 +16,14 @@ forward's jaxpr:
    dtype the JAX conv eqn sees it in (the model dtype: a bfloat16 model's
    absmax, division and rounding run in bfloat16).
 3. The quantized forward runs a copy of the network whose site modules are
-   replaced. In mode 'int8' each site quantizes its input per tensor
-   (plain PyTorch), runs K7 (`ops/conv_int8.py`, the s8 x s8 -> s32
-   convolution, rescaled by s_x * s_w[co] in float32 and cast to the model
-   dtype) and adds the bias after, in the model dtype, as Flax's `Conv`
-   adds it. In mode 'weight-only' each site runs its float convolution
-   (cuDNN on the card) on the dequantized weight; K7 is not launched.
+   replaced. In mode 'int8' each site is one call of K7
+   (`ops/conv_int8.py`), one launch on the card: the input's codes at the
+   site's per-tensor scale s_x (read from device memory), the s8 x s8 ->
+   s32 convolution, the rescale by s_x * s_w[co] in float32, the cast to
+   the model dtype and the bias after it, in the model dtype, as Flax's
+   `Conv` adds it. In mode 'weight-only' each site runs its float
+   convolution (cuDNN on the card) on the dequantized weight; K7 is not
+   launched.
 
 Everything else stays float, as in the JAX package: K1's gates, `Dense`,
 the localized layer's einsum, norms, pixel shuffles, and each ConvLSTM
@@ -40,7 +42,7 @@ import torch
 
 from .inference import _serving
 from .models.blocks import Conv, ConvTranspose, _transpose_pad_before
-from .ops.conv_int8 import conv_int8, pack_weight, quantize_activation
+from .ops.conv_int8 import conv_int8, pack_weight
 
 __all__ = ['quantize_forward', 'QuantizedForward']
 
@@ -106,15 +108,16 @@ def _quantile(a, q):
 
 
 class _Int8Conv(torch.nn.Module):
-    """A site module in mode 'int8': the input's codes at the calibrated
-    scale s_x, K7 on them and the module's packed weight, rescaled by s_x *
-    s_w[co] into the model dtype, then the bias
+    """A site module in mode 'int8': one K7 call on the input, which K7
+    quantizes at the calibrated scale s_x (after its cast to the model
+    dtype), convolves with the module's packed weight, rescales by s_x *
+    s_w[co] into the model dtype and adds the bias to
     (dl4ds_tpu/quantization.py:276-282). A module that the forward calls n
     times (a tied upsampling stage) is n sites, each with its own s_x: its
     calls take `s_x[i]` and `scale[i]` in turn, from the cursor `call`,
     which `_reset_cursors` sets to 0 at every entry into the network.
     Buffers: `w` the packed codes, `w_scale` s_w [Co], `s_x` [n], `scale`
-    s_x[i] * s_w [n, Co] in float32."""
+    s_x[i] * s_w [n, Co] in float32, `bias` in the model dtype."""
 
     def __init__(self, site, act_scales):
         super().__init__()
@@ -126,7 +129,6 @@ class _Int8Conv(torch.nn.Module):
         self.kh, self.kw = w.shape[2:]
         self.transposed = isinstance(site, ConvTranspose)
         self.groups = 1 if self.transposed else site.groups
-        self.register_buffer('w', pack_weight(w_q, self.groups))
         self.register_buffer('w_scale', w_scale.float().flatten())
         s_x = torch.tensor(act_scales, dtype=torch.float32, device=w.device)
         self.register_buffer('s_x', s_x)
@@ -134,7 +136,7 @@ class _Int8Conv(torch.nn.Module):
         self.call = 0
         bias = getattr(site, 'bias', None)
         self.register_buffer('bias', None if bias is None
-                             else bias.detach().clone())
+                             else bias.detach().to(self.out_dtype).clone())
         if self.transposed:
             s = site.stride
             self.stride, self.dilation = 1, s
@@ -147,6 +149,8 @@ class _Int8Conv(torch.nn.Module):
             self.same = site.pad_mode == 'SAME'
             ph, pw = site.padding
             self.pads = [ph, ph, pw, pw]
+        self.register_buffer('w', pack_weight(w_q, self.groups, self.stride,
+                                              self.dilation))
 
     def _pads(self, x):
         """(top, bottom, left, right); a strided SAME conv's depend on x,
@@ -162,11 +166,10 @@ class _Int8Conv(torch.nn.Module):
     def forward(self, x):
         i = self.call
         self.call = (i + 1) % len(self.s_x)
-        x_q = quantize_activation(x.to(self.dtype), self.s_x[i])
-        y = conv_int8(x_q, self.w, self.scale[i], self.kh, self.kw,
-                      self.stride, self.dilation, self._pads(x), self.groups,
-                      self.out_dtype)
-        return y if self.bias is None else y + self.bias.to(self.out_dtype)
+        return conv_int8(x, self.w, self.scale[i], self.kh, self.kw,
+                         self.stride, self.dilation, self._pads(x),
+                         self.groups, self.out_dtype, s_x=self.s_x[i],
+                         bias=self.bias)
 
 
 def _reset_cursors(net, args):
@@ -237,8 +240,8 @@ def _warn_narrow(width):
         f'int8 quantization of a width-{width} model: on an {_CARD} the '
         f'int8 path serves the flagship at {a8:.2f}-{b8:.2f}x the bfloat16 '
         f'rate at width 8 and {a64:.2f}-{b64:.2f}x at width 64, SLOWER at '
-        f'both (chip_smoke.py phase 20: the activations\' quantization and '
-        f'K7 are not tuned yet). Expect a slowdown; use '
+        f'both (chip_smoke.py phase 20; predict(quantize=) calibrates in '
+        f'every call). Expect a slowdown; use '
         f'mode=\'weight-only\' (float math, int8 storage) or serve bf16 '
         f'instead.', RuntimeWarning, stacklevel=3)
 

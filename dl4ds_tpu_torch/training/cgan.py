@@ -341,11 +341,9 @@ class CGANTrainer(Trainer):
         # both networks, for the step runner's train mode and state
         self.train_net = torch.nn.ModuleDict({'generator': self.gen_net,
                                               'discriminator': self.disc_net})
-        if self.verbose == 1:
-            for model, net in ((self.generator, self.gen_net),
-                               (self.discriminator, self.disc_net)):
-                print(f'Model: {model.name}  input: {model.input_shape}  '
-                      f'parameters: {model.param_count(net):,}')
+        if self.verbose == 1 and self.running_on_first_worker:
+            print(self.generator.summary(self.gen_net))
+            print(self.discriminator.summary(self.disc_net))
 
     def _steps(self):
         n = self.ds_train.n

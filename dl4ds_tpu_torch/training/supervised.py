@@ -320,6 +320,8 @@ class SupervisedTrainer(Trainer):
                        else type(self.init_weights).__name__)
                 print(f'Initialized parameters from reference checkpoint: '
                       f'{src}')
+        if self.verbose == 1 and self.running_on_first_worker:
+            print(self.model.summary(self.net))
 
     def _steps(self):
         """Steps an epoch, as the JAX trainer counts them."""

@@ -52,6 +52,8 @@ from dl4ds_tpu_torch import quantization as tquant
 from dl4ds_tpu_torch.ops import conv_int8 as tci
 from dl4ds_tpu_torch.serve import ModelServer
 
+from _torch_xla import quick_xla  # noqa: F401
+
 OUT_SHARE = 0.05       # rel(port, jax_int8) over rel(jax_int8, jax_f32)
 SCALE_RTOL = 1e-5      # act_scales: calibration replays the float forward
 WO_REL = 1e-5          # weight-only: max |d| over max |y_jax|
@@ -116,18 +118,6 @@ def _jax_side(name):
 @pytest.fixture(autouse=True, scope='module')
 def _torch_threads():
     torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _quick_xla():
-    """XLA's CPU compiles of the JAX references without most of its
-    optimization passes: a quarter less time, most of it in the eager
-    replays' one compile an op; the file's other settings are restored
-    after it."""
-    before = jax.config.values['jax_disable_most_optimizations']
-    jax.config.update('jax_disable_most_optimizations', True)
-    yield
-    jax.config.update('jax_disable_most_optimizations', before)
 
 
 @pytest.fixture(autouse=True)
@@ -265,7 +255,8 @@ def test_k7_plain_equals_jax_s8_conv(site):
     xt = torch.from_numpy(x)
     args = (site_mod.kh, site_mod.kw, site_mod.stride, site_mod.dilation,
             site_mod._pads(xt), site_mod.groups)
-    wp = tci.pack_weight(torch.from_numpy(w), groups)
+    wp = tci.pack_weight(torch.from_numpy(w), groups, site_mod.stride,
+                         site_mod.dilation)
     scale = torch.tensor(s_x) * torch.from_numpy(w_scale)
     sums = tci.conv_int8_reference(xt, wp, scale, *args,
                                    out_dtype=torch.int32)
@@ -279,6 +270,174 @@ def test_k7_plain_equals_jax_s8_conv(site):
                           * jscale).astype(jdtype).astype(jnp.float32))
         assert got.dtype == dtype
         np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+# the fused site: (x dtype, site dtype, bias)
+FUSED = {
+    'f32': ('float32', 'float32', False),
+    'f32_bias': ('float32', 'float32', True),
+    'bf16_bias': ('bfloat16', 'bfloat16', True),
+    'f32_into_bf16': ('float32', 'bfloat16', True),
+}
+_DT = {'float32': (torch.float32, jnp.float32),
+       'bfloat16': (torch.bfloat16, jnp.bfloat16)}
+
+
+def _activation(rng, shape, s_x):
+    """Normal values that clip past 127 s_x, and exact halves k + 1/2 of a
+    power-of-two s_x, which round to even."""
+    x = rng.standard_normal(shape).astype(np.float32) * 2.0
+    halves = (rng.integers(-130, 130, shape) + 0.5) * s_x
+    return np.where(rng.random(shape) < 0.3, halves, x).astype(np.float32)
+
+
+def _jax_fused(x, w, stride, groups, transposed, s_x, w_scale, bias, site):
+    """The JAX int8 replay at one site (dl4ds_tpu/quantization.py:276-282),
+    eagerly: the site's input in the model dtype, its codes
+    `jnp.round(x.astype(f32) / s_x)` clipped, the s8 convolution, the
+    rescale cast to the model dtype, then Flax's bias in the model dtype."""
+    jd = _DT[site][1]
+    xv = jnp.asarray(x).astype(jd)
+    s = jnp.asarray(s_x, jnp.float32)
+    x_q = jnp.clip(jnp.round(xv.astype(jnp.float32) / s), -127,
+                   127).astype(jnp.int8)
+    acc = _jax_int8_conv(np.asarray(x_q), w, stride, groups, transposed)
+    y = (acc.astype(jnp.float32) * (s * jnp.asarray(w_scale))).astype(jd)
+    if bias is not None:
+        y = y + jnp.asarray(bias).astype(jd)
+    return np.asarray(y.astype(jnp.float32))
+
+
+@pytest.mark.parametrize('case', list(FUSED))
+@pytest.mark.parametrize('site', list(K7_SITES))
+def test_k7_fused_plain_equals_jax_replay(site, case):
+    """The fused site (`_Int8Conv` on a float activation: the codes, the
+    sums, the rescale and the bias in one K7 call) equals the JAX replay's
+    quantization, s8 convolution, rescale and bias bit for bit, in
+    float32 and bfloat16, a float32 input to a bfloat16 site rounded to
+    bfloat16 first."""
+    xs, ws, stride, groups, transposed = K7_SITES[site]
+    x_dt, site_dt, with_bias = FUSED[case]
+    rng = np.random.default_rng(17)
+    w = _codes(rng, ws)
+    s_x = 2.0 ** -5
+    x = _activation(rng, xs, s_x)
+    bias = (rng.standard_normal(ws[0]) * 0.5).astype(np.float32)
+    mod = _site_module(w.astype(np.float32), stride, groups, transposed)
+    if with_bias:    # a ConvTranspose site has none of its own
+        mod.bias = torch.nn.Parameter(torch.from_numpy(bias))
+    else:
+        bias = None
+        mod.bias = None
+    mod.dtype = _DT[site_dt][0]
+    site_mod = tquant._Int8Conv(mod, [s_x])
+    w_scale = site_mod.w_scale.numpy()
+    xt = torch.from_numpy(x).to(_DT[x_dt][0])
+    w_q = tci._unpack(site_mod.w, ws[0], xs[-1], *ws[2:], site_mod.groups,
+                      site_mod.stride, site_mod.dilation).numpy()
+    want = _jax_fused(np.asarray(xt.float()), w_q, stride, groups,
+                      transposed, s_x, w_scale, bias, site_dt)
+    got = site_mod(xt)
+    assert got.dtype == _DT[site_dt][0] and site_mod.call == 0
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_tied_site_second_call_takes_its_own_scale():
+    """A module called twice is two sites: the second call quantizes at
+    s_x[1] and rescales by scale[1], as the JAX replay's next site."""
+    xs, ws, stride, groups, transposed = K7_SITES['3x3']
+    rng = np.random.default_rng(23)
+    w = _codes(rng, ws)
+    mod = _site_module(w.astype(np.float32), stride, groups, transposed)
+    mod.bias.data = torch.from_numpy(rng.standard_normal(ws[0]).astype(
+        np.float32))
+    scales = [2.0 ** -5, 0.0173]
+    site_mod = tquant._Int8Conv(mod, scales)
+    w_q = tci._unpack(site_mod.w, ws[0], ws[1], 3, 3, 1).numpy()
+    x0, x1 = (_activation(rng, xs, 2.0 ** -5) for _ in range(2))
+    first = site_mod(torch.from_numpy(x0))
+    assert site_mod.call == 1
+    second = site_mod(torch.from_numpy(x1))
+    assert site_mod.call == 0
+    for x, s, got in ((x0, scales[0], first), (x1, scales[1], second)):
+        want = _jax_fused(x, w_q, stride, groups, transposed, s,
+                          site_mod.w_scale.numpy(), mod.bias.detach().numpy(),
+                          'float32')
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert not torch.equal(first, site_mod(torch.from_numpy(x1)))
+
+
+def _phase_sums(x, packed, co, kh, kw, pads, d):
+    """The dense kernel's sums of a transposed site, phase by phase, from
+    the packed weight (csrc/conv_int8.cu `conv_s8_dense`): output phase
+    (py, px) reads the tap class (ry, rx) = ((pad - p) mod d), its taps
+    (i, j) at input (q + off + i), over the undilated input."""
+    b, h, wd, cin = x.shape
+    lay = tci._layout(cin, co, kh, kw, 1, d)
+    ho = tci.conv_out_size(h, kh, 1, d, pads[0], pads[1])
+    wo = tci.conv_out_size(wd, kw, 1, d, pads[2], pads[3])
+    out = np.zeros((b, ho, wo, co), np.int64)
+    xp = np.asarray(x, np.int64)
+    wk = np.asarray(packed, np.int64)
+    for py in range(d):
+        for px in range(d):
+            ry, rx = (pads[0] - py) % d, (pads[2] - px) % d
+            khc, kwc = -(-(kh - ry) // d), -(-(kw - rx) // d)
+            oy0, ox0 = (py + ry - pads[0]) // d, (px + rx - pads[2]) // d
+            rows = wk[(ry * d + rx) * lay.co_pad:][:co]
+            for qy in range(-(-(ho - py) // d)):
+                for qx in range(-(-(wo - px) // d)):
+                    acc = np.zeros((b, co), np.int64)
+                    for i in range(khc):
+                        for j in range(kwc):
+                            iy, ix = qy + oy0 + i, qx + ox0 + j
+                            if not (0 <= iy < h and 0 <= ix < wd):
+                                continue
+                            ks = [(ci // lay.cc) * lay.kcp
+                                  + (i * kwc + j) * lay.cc + ci % lay.cc
+                                  for ci in range(cin)]
+                            acc += xp[:, iy, ix] @ rows[:, ks].T
+                    out[:, qy * d + py, qx * d + px] = acc
+    return out
+
+
+@pytest.mark.parametrize('kernel, d', [((9, 9), 2), ((4, 4), 2), ((7, 5), 3),
+                                       ((3, 3), 4)])
+def test_transposed_packing_by_phase(kernel, d):
+    """`pack_weight` of a transposed site keeps each residue class of taps
+    (ky mod d, kx mod d) in rows of its own; unpacked, it gives back the
+    kernel of the dilated form, which the plain version correlates; and
+    the kernel's phase split over those rows, emulated, gives the plain
+    version's sums."""
+    kh, kw = kernel
+    rng = np.random.default_rng(d)
+    co, cin = 5, 3
+    w = torch.from_numpy(_codes(rng, (co, cin, kh, kw)))
+    packed = tci.pack_weight(w, 1, 1, d)
+    lay = tci._layout(cin, co, kh, kw, 1, d)
+    assert packed.shape == (d * d * lay.co_pad, lay.n_chunks * lay.kcp)
+    np.testing.assert_array_equal(
+        tci._unpack(packed, co, cin, kh, kw, 1, 1, d).numpy(), w.numpy())
+    for ry in range(d):
+        for rx in range(d):
+            rows = packed[(ry * d + rx) * lay.co_pad:][:lay.co_pad]
+            taps = (-(-(kh - ry) // d)) * (-(-(kw - rx) // d))
+            assert int((rows != 0).sum()) == int(
+                (w[:, :, ry::d, rx::d] != 0).sum())
+            assert not rows[:, taps * lay.cc:lay.kcp].any()
+    x = torch.from_numpy(_codes(rng, (2, 4, 5, cin)))
+    before = [_transpose_before(k, d) for k in kernel]
+    pads = (before[0], kh + d - 2 - before[0], before[1],
+            kw + d - 2 - before[1])
+    want = tci.conv_int8_reference(x, packed, torch.ones(co), kh, kw, 1, d,
+                                   pads, out_dtype=torch.int32).numpy()
+    np.testing.assert_array_equal(
+        _phase_sums(x.numpy(), packed.numpy(), co, kh, kw, pads, d), want)
+
+
+def _transpose_before(k, s):
+    from dl4ds_tpu_torch.models.blocks import _transpose_pad_before
+    return _transpose_pad_before(k, s)
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
@@ -306,8 +465,10 @@ def test_weight_codes_equal_jax(dtype):
 
 def test_conv_int8_operator_and_guards():
     """`dl4ds_tpu_torch::conv_int8` passes `torch.library.opcheck` (its
-    fake kernel and schema); shapes K7 does not take raise ValueError; a
-    CUDA wrapper is never reached here."""
+    fake kernel and schema) on int8 codes and on a fused site (a float x
+    with s_x and a bias); shapes K7 does not take raise ValueError, a float
+    x without s_x and codes with one TypeError; a CUDA wrapper is never
+    reached here."""
     rng = np.random.default_rng(1)
     x = torch.from_numpy(_codes(rng, (2, 6, 6, 4)))
     wq = torch.from_numpy(_codes(rng, (8, 4, 3, 3)))
@@ -330,6 +491,18 @@ def test_conv_int8_operator_and_guards():
                           kw['groups'])
     with pytest.raises(TypeError):
         tci.conv_int8(x.float(), tci.pack_weight(wq), scale, 3, 3)
+    s_x, bias = torch.tensor(0.02), torch.rand(8)
+    fused = (x.float(), tci.pack_weight(wq), scale, 3, 3, 1, 1, [1, 1, 1, 1],
+             1, torch.float32, s_x, bias)
+    torch.library.opcheck(tci._conv_int8_op, fused)
+    assert tci.conv_int8(*fused).shape == (2, 6, 6, 8)
+    with pytest.raises(TypeError, match='s_x'):
+        tci.conv_int8(x, tci.pack_weight(wq), scale, 3, 3, s_x=s_x)
+    for out_dtype, b in ((torch.int32, bias), (torch.bfloat16, bias),
+                         (torch.float32, bias[:4])):
+        with pytest.raises(ValueError, match='bias'):
+            tci.conv_int8(x.float(), tci.pack_weight(wq), scale, 3, 3,
+                          out_dtype=out_dtype, s_x=s_x, bias=b)
 
 
 # --- quantize_forward against JAX's --------------------------------------
